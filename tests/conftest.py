@@ -27,3 +27,11 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (runs the CUDA kernels on the card; "
+        "skips where torch.cuda.is_available() is False)",
+    )
