@@ -1,13 +1,15 @@
-"""Drive the PyTorch port's Burgers serving path on one NVIDIA GPU, end to end.
+"""Drive the PyTorch port on one NVIDIA GPU, end to end: the Burgers serving
+path (slice 1) and the abgrall_admm training path (slice 2).
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1 device  CUDA present, card name and power limit, TF32 off
-  2 build   nvcc builds the fused Taylor-2 kernel from pinns_tpu_torch/csrc
-  3 kernel  kernel vs the plain PyTorch recurrence on the card: the served
-            8x20 model within TOL; a seeded random 8x200 net against the
-            float64 recurrence (see compare_f64)
+  2 build   nvcc builds every kernel from pinns_tpu_torch/csrc, one process
+            per source, all started together
+  3 kernel  Taylor-2 kernel vs the plain PyTorch recurrence on the card: the
+            served 8x20 model within TOL; a seeded random 8x200 net against
+            the float64 recurrence (see compare_f64)
   4 slice   committed JAX fixture -> export -> ServedModel(device="cuda")
             -> predict(25,600 points); u, f and rel-L2 against JAX's, and the
             kernel launch count of that run
@@ -15,6 +17,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             a malformed body
   6 times   CUDA-event medians of kernel vs plain, host-clock medians of
             served predict
+  7 step-kernel  the fused Adam-epoch kernel vs the plain step on the card:
+            at abgrall_admm's shape (8x20, N_f 1000, N_u 100, admm rho 10)
+            loss, terms, gradient, the Adam stage on the kernel's gradient,
+            z/dual and misfit within STEP_TOL; at abgrall_l1's 8x200 net
+            (l1_sq_norm) against the float64 plain step; the Philox points
+            in [lb, ub) with mean and variance within 4 sigma; bit-for-bit
+            repeatability; the launch count
+  8 train-slice  the committed JAX fixture (abgrall_admm, seed 1234) replayed
+            step by step through the kernel, each step fed JAX's points
+  9 train   Trainer(abgrall_admm, device="cuda").train() for TRAIN_EPOCHS
+            epochs on the kernel with its own Philox stream: loss and ADMM
+            misfit fall, all finite, u rel-L2 inside the band the fixture
+            records from three JAX seeds; the launch counts of that run
+  times     ms per epoch of the kernel step and the plain step (CUDA events,
+            medians) at 8x20 and 8x200, and wall time per 1,000-epoch chunk
 Then a {"kernels": [...]} summary line and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
 """
@@ -55,6 +72,18 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
        "u_xx": (1e-5, 1e-4), "f": (1e-5, 1e-4)}
 F64_FACTOR = 4.0
 REPS = 20
+KERNELS = ("taylor2", "fused_step")
+STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
+# the step kernel against the plain step: (rtol, atol as a multiple of
+# max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
+# fixture's tolerance on CPU); the Adam stage and the Philox points round
+# like the plain step, so they get float32 rounding room only; z/dual come
+# from a residual evaluated in another order.
+STEP_TOL = {"loss": (1e-4, 1e-6), "grad": (1e-4, 1e-5), "adam": (1e-6, 1e-7),
+            "colloc": (0.0, 0.0), "z": (1e-4, 1e-5), "dual": (1e-4, 1e-5),
+            "admm_misfit": (1e-4, 1e-6)}
+TRAIN_EPOCHS = 10_000  # the fixture's band_epochs
+BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
 
 
 def check(cond: bool, msg: str) -> None:
@@ -143,6 +172,326 @@ def http(url: str, body: bytes = None, ctype: str = "application/json"):
         return e.code, e.headers.get("Content-Type"), e.read()
 
 
+def measure(name: str, got, want, scale=None) -> dict:
+    """Max abs error of ``got`` against ``want`` beside STEP_TOL[name]. The
+    atol is relative to ``scale`` (default max|want|): the dual update
+    dual + rho (f - z) cancels terms of size max|dual| + rho max|z|, and the
+    misfit mean|f - z| terms of size max|z|, so their rounding scales with
+    those; a loss term is held at the loss's absolute accuracy."""
+    rtol, atol_rel = STEP_TOL[name]
+    got = np.asarray(got, np.float64).ravel()
+    want = np.asarray(want, np.float64).ravel()
+    check(got.shape == want.shape, f"{name}: shape {got.shape} != {want.shape}")
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite values")
+    atol = atol_rel * float(np.abs(want).max() if scale is None else scale)
+    err = np.abs(got - want)
+    ok = bool((err <= atol + rtol * np.abs(want)).all())
+    return {"max_abs_err": float(err.max()), "atol": atol, "rtol": rtol, "ok": ok}
+
+
+def close(name: str, got, want, scale=None) -> dict:
+    """:func:`measure`, raising if over."""
+    row = measure(name, got, want, scale)
+    check(row["ok"], f"{name}: {row}")
+    return row
+
+
+def host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def split_leaves(flat: np.ndarray, layers) -> list:
+    """A flat W_0, b_0, W_1, ... vector cut into its leaves."""
+    out, off = [], 0
+    for din, dout in zip(layers[:-1], layers[1:]):
+        for n in (din * dout, dout):
+            out.append(flat[off:off + n])
+            off += n
+    return out
+
+
+def close_grad(got: np.ndarray, want: np.ndarray, layers, exact: np.ndarray) -> dict:
+    """The gradient leaf by leaf, each within STEP_TOL['grad'] of its own max.
+    A leaf that misses it must pass the float64 criterion instead (compare_f64
+    against ``exact``, the float64 plain gradient, beside ``want``'s own
+    error): once a sum over the points cancels, float32 itself misses a
+    max-relative atol, whatever order it sums in."""
+    rows = []
+    for g, w, e in zip(*(split_leaves(a, layers) for a in (got, want, exact))):
+        row = measure("grad", g, w)
+        if not row["ok"]:
+            row = dict(compare_f64("grad", g, w, e), max_abs_err=float(np.abs(g - w).max()))
+        rows.append(row)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), "leaves": len(rows),
+            "leaves_by_f64_oracle": sum("bound" in r for r in rows)}
+
+
+def plain_gradient(problem, params, colloc, admm, dtype=None):
+    """(flat gradient of the net, aux) of the plain loss by torch.autograd,
+    computed in ``dtype`` when given (``problem`` must then be built in it)."""
+    from pinns_tpu_torch.train import trainer as tr
+
+    cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)  # noqa: E731
+    params = tr.tree_map(lambda t: cast(t).detach().clone().requires_grad_(True), params)
+    if admm is not None:
+        admm = type(admm)(z=cast(admm.z), dual=cast(admm.dual))
+    loss, aux = tr.make_loss_fn(problem)(params, cast(colloc), admm)
+    g = torch.autograd.grad(loss, tr.tree_leaves(params["net"]))
+    return torch.cat([t.reshape(-1) for t in g]), {k: float(v.detach()) for k, v in aux.items()}
+
+
+def close_adam_params(got: np.ndarray, want: np.ndarray, lr: float) -> dict:
+    """Params after a step from two implementations: Adam moves an entry by at
+    most about lr, and an entry whose gradient is within rounding of zero may
+    move the other way, so the bound is 2 lr; all but 1% of the entries must
+    agree within 1e-6."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    row = {"max_abs_err": float(diff.max()), "bound": 2 * lr * (1 + 1e-3),
+           "share_above_1e-6": float(np.mean(diff > 1e-6))}
+    check(bool(np.isfinite(got).all()), "params: non-finite values")
+    check(row["max_abs_err"] <= row["bound"] and row["share_above_1e-6"] <= 0.01,
+          f"params after the step: {row}")
+    return row
+
+
+def phase_step_kernel(card: str) -> dict:
+    """7: the fused step kernel against the plain step on the card."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+    from pinns_tpu_torch.opt.adam import AdamState, adam_update
+    from pinns_tpu_torch.train import trainer as tr
+
+    def call(problem, state, want_grad=True):
+        exp = problem.exp
+        admm = state.admm
+        return k_fused.fused_adam_step(
+            problem.spec, pack_params(state.params["net"]),
+            pack_params(state.opt_state.mu["net"]), pack_params(state.opt_state.nu["net"]),
+            state.opt_state.count, problem.x_data, problem.targets["u"].contiguous(),
+            state.colloc, admm.z if admm is not None else None,
+            admm.dual if admm is not None else None, kind=exp.loss.residual_kind,
+            lam1=exp.pde.lambda1, lam2=exp.pde.lambda2, rho=exp.loss.rho,
+            lr=exp.optimizer.learning_rate, explicit_inner=exp.loss.explicit_inner,
+            seed=state.key, epoch=state.epoch + 1, want_grad=want_grad)
+
+    out = {}
+    # -- abgrall_admm at its shape, from a state three plain steps in
+    trainer = tr.Trainer(get_preset("abgrall_admm"), device="cuda")
+    problem = trainer.problem
+    lr = trainer.learning_rate
+    state = trainer.init_state(seed=11)
+    plain_step = tr.make_adam_step(problem, lr)
+    for _ in range(3):
+        state, _ = plain_step(state)
+    before = k_fused.LAUNCHES
+    r = call(problem, state)
+    again = call(problem, state)
+    torch.cuda.synchronize()
+    check(k_fused.LAUNCHES == before + 2, "LAUNCHES does not count the step calls")
+    check(all(torch.equal(r[k], again[k]) for k in ("params", "mu", "nu", "colloc", "z",
+                                                    "dual", "metrics", "grad")),
+          "two calls of one step differ")
+    g_plain, aux = plain_gradient(problem, state.params, state.colloc, state.admm)
+    p64 = tr.build_problem(override(problem.exp, {"model.dtype": "float64"}), "cuda")
+    g64, _ = plain_gradient(p64, state.params, state.colloc, state.admm, torch.float64)
+    m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
+    # a term is held at the loss's absolute accuracy: once ADMM has converged
+    # res_term is a sum of squares of cancelling differences
+    rows = {k: close("loss", m[k], aux[k], scale=aux["loss"])
+            for k in ("loss", "data_term", "res_term")}
+    rows["grad"] = close_grad(host(r["grad"]), host(g_plain), problem.spec.layers, host(g64))
+    upd, adam = adam_update(r["grad"], AdamState(state.opt_state.count,
+                                                 pack_params(state.opt_state.mu["net"]),
+                                                 pack_params(state.opt_state.nu["net"])), lr)
+    rows["adam_params"] = close("adam", host(r["params"]),
+                                host(pack_params(state.params["net"]) + upd))
+    rows["adam_mu"] = close("adam", host(r["mu"]), host(adam.mu))
+    rows["adam_nu"] = close("adam", host(r["nu"]), host(adam.nu))
+    new_net = k_fused.unpack_params(r["params"], problem.spec.layers)
+    admm_new, colloc_new, _, mis = tr._post_update(
+        problem, dict(state.params, net=new_net), state.admm, state.colloc, state.key,
+        None, state.epoch)
+    rows["colloc"] = close("colloc", host(r["colloc"]), host(colloc_new))
+    rows["z"] = close("z", host(r["z"]), host(admm_new.z))
+    rows["dual"] = close("dual", host(r["dual"]), host(admm_new.dual),
+                         scale=float(state.admm.dual.abs().max()
+                                     + problem.exp.loss.rho * admm_new.z.abs().max()))
+    rows["admm_misfit"] = close("admm_misfit", m["admm_misfit"], float(mis),
+                                scale=float(admm_new.z.abs().max()))
+    pts = host(r["colloc"]).astype(np.float64)
+    lb, ub = np.asarray(problem.spec.lb), np.asarray(problem.spec.ub)
+    check(bool(((pts >= lb) & (pts < ub)).all()), "drawn points outside [lb, ub)")
+    mean, var, n = (lb + ub) / 2, (ub - lb) ** 2 / 12, pts.shape[0]
+    check(bool((np.abs(pts.mean(0) - mean) <= 4 * np.sqrt(var / n)).all()), "point mean")
+    check(bool((np.abs(pts.var(0) - var) <= 4 * var * np.sqrt(0.8 / n)).all()), "point variance")
+    out["grad_err"] = rows["grad"]["max_abs_err"]
+    emit(card, phase="step-kernel", preset="abgrall_admm", net="8x20", n_f=problem.exp.sampling.n_f,
+         n_u=problem.exp.data.n_u, criterion="STEP_TOL vs plain step", rows=rows,
+         tiles=list(k_fused.launch_config(problem.spec.layers)), bitwise_repeatable=True,
+         launches=k_fused.LAUNCHES - before)
+    out["narrow"] = (trainer, state)
+
+    # -- abgrall_l1's 8x200 net (l1_sq_norm) against the float64 plain step
+    exp = get_preset("abgrall_l1")  # its grid is not committed: train on TwoSin's
+    wide = tr.Trainer(exp, device="cuda", dataset="twosin_burgers_shock")
+    ws = wide.init_state(seed=12)
+    r = call(wide.problem, ws)
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda",
+                           dataset="twosin_burgers_shock")
+    g64, aux64 = plain_gradient(p64, ws.params, ws.colloc, ws.admm, torch.float64)
+    g32, aux32 = plain_gradient(wide.problem, ws.params, ws.colloc, ws.admm)
+    rows = {}
+    for name, got, plain, exact in zip(
+            [f"leaf{i}" for i in range(2 * (len(WIDE) - 1))],
+            split_leaves(host(r["grad"]), WIDE), split_leaves(host(g32), WIDE),
+            split_leaves(host(g64), WIDE)):
+        rows[name] = compare_f64(name, got, plain, exact)
+    m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
+    rows["loss"] = compare_f64("loss", m["loss"], aux32["loss"], aux64["loss"])
+    emit(card, phase="step-kernel", preset="abgrall_l1", net="8x200", criterion="f64_oracle",
+         rows={k: rows[k] for k in ("leaf0", "leaf1", "leaf14", "leaf16", "leaf17", "loss")},
+         worst_ratio=max(v["max_abs_err_vs_f64"] / max(v["plain_err_vs_f64"], 1e-30)
+                         for k, v in rows.items() if k != "loss"),
+         tiles=list(k_fused.launch_config(WIDE)))
+    out["wide"] = (wide, ws)
+    return out
+
+
+def phase_train_slice(card: str) -> None:
+    """8: the committed JAX fixture replayed step by step through the kernel."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.train import trainer as tr
+
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.losses.admm import ADMMState
+
+    with np.load(STEPS_FIXTURE, allow_pickle=False) as z:
+        fx = {k: z[k] for k in z.files}
+    exp = get_preset("abgrall_admm")
+    problem = tr.build_problem(exp, "cuda")
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    check(tuple(int(w) for w in fx["layers"]) == problem.spec.layers, "fixture widths")
+    check(np.array_equal(host(problem.x_data), fx["x_data"])
+          and np.array_equal(host(problem.targets["u"]), fx["u_data"]),
+          "the port's N_u training set differs from JAX's")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(problem.device)  # noqa: E731
+    lr = exp.optimizer.learning_rate
+    steps = []
+    for k in range(int(len([n for n in fx if n.startswith("metrics_")]))):
+        r = k_fused.fused_adam_step(
+            problem.spec, t(fx[f"params_{k}"]), t(fx[f"mu_{k}"]), t(fx[f"nu_{k}"]),
+            int(fx[f"count_{k}"]), problem.x_data, problem.targets["u"].contiguous(),
+            t(fx[f"colloc_{k}"]), t(fx[f"z_{k}"]), t(fx[f"dual_{k}"]), kind="admm",
+            lam1=exp.pde.lambda1, lam2=exp.pde.lambda2, rho=exp.loss.rho, lr=lr,
+            explicit_inner=False, seed=0, epoch=k + 1, new_colloc=t(fx[f"colloc_{k + 1}"]),
+            want_grad=(k == 0))
+        m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
+        want = dict(zip(tr.METRIC_KEYS, fx[f"metrics_{k + 1}"]))
+        rows = {n: close("loss", m[n], want[n], scale=abs(float(want["loss"])))
+                for n in ("loss", "data_term", "res_term")}
+        # mean|f - z| cancels terms of size |z|: its rounding scales with max|z|
+        rows["admm_misfit"] = close("admm_misfit", m["admm_misfit"], want["admm_misfit"],
+                                    scale=float(np.abs(fx[f"z_{k + 1}"]).max()))
+        # the float64 plain gradient at JAX's state k: the oracle for sums
+        # that cancel (close_grad)
+        net_k = k_fused.unpack_params(t(fx[f"params_{k}"]), problem.spec.layers)
+        coeffs = {n: torch.full((1,), float(fx[n]), device=problem.device)
+                  for n in ("lambda1", "lambda2")}
+        g64, _ = plain_gradient(p64, {"net": net_k, "coeffs": coeffs}, t(fx[f"colloc_{k}"]),
+                                ADMMState(z=t(fx[f"z_{k}"]), dual=t(fx[f"dual_{k}"])),
+                                torch.float64)
+        g64 = host(g64)
+        if k == 0:
+            rows["grad_0"] = close_grad(host(r["grad"]), fx["grad_0"], problem.spec.layers, g64)
+        rows["params"] = close_adam_params(host(r["params"]), fx[f"params_{k + 1}"], lr)
+        rows["mu"] = close_grad(host(r["mu"]), fx[f"mu_{k + 1}"], problem.spec.layers,
+                                0.9 * fx[f"mu_{k}"].astype(np.float64) + 0.1 * g64)
+        rows["z"] = close("z", host(r["z"]), fx[f"z_{k + 1}"])
+        rows["dual"] = close("dual", host(r["dual"]), fx[f"dual_{k + 1}"],
+                             scale=float(np.abs(fx[f"dual_{k}"]).max()
+                                         + exp.loss.rho * np.abs(fx[f"z_{k + 1}"]).max()))
+        check(np.array_equal(host(r["colloc"]), fx[f"colloc_{k + 1}"]), "given points not kept")
+        steps.append(rows)
+    emit(card, phase="train-slice", preset="abgrall_admm", seed=int(fx["seed"]),
+         steps=len(steps), per_step=steps)
+
+
+def phase_train(card: str) -> dict:
+    """9: abgrall_admm trained on the kernel through Trainer.train."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    with np.load(STEPS_FIXTURE, allow_pickle=False) as z:
+        band_rel, band_epochs = z["band_rel_l2"], int(z["band_epochs"])
+    check(band_epochs == TRAIN_EPOCHS, f"fixture band at {band_epochs} epochs")
+    band = (float(band_rel.min()) - BAND_MARGIN, float(band_rel.max()) + BAND_MARGIN)
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = override(get_preset("abgrall_admm"), {
+            "train.epochs": TRAIN_EPOCHS, "train.log_every": 1000, "train.out_dir": tmp})
+        trainer = Trainer(exp, device="cuda")
+        k_fused.LAUNCHES = 0
+        k_taylor2.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state, _ = trainer.train(epochs=1)  # the first epoch on its own: its misfit and loss
+        state, summary = trainer.train(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, t2_launches = k_fused.LAUNCHES, k_taylor2.LAUNCHES
+        with open(os.path.join(tmp, "abgrall_admm_metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    logs = [r for r in records if "summary" not in r]
+    check(launches == TRAIN_EPOCHS, f"fused_step launched {launches} times in {TRAIN_EPOCHS} epochs")
+    check(t2_launches > 0, "the train path never launched the taylor2 kernel")
+    check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float)),
+          "non-finite metrics")
+    check(all(bool(torch.isfinite(p).all()) for layer in state.params["net"] for p in layer.values()),
+          "non-finite params")
+    first, last = logs[0], logs[-1]
+    check(first["epoch"] == 1 and last["epoch"] == TRAIN_EPOCHS, "log epochs")
+    check(last["loss"] < first["loss"], f"loss did not fall: {first['loss']} -> {last['loss']}")
+    check(last["admm_misfit"] < first["admm_misfit"],
+          f"ADMM misfit did not fall: {first['admm_misfit']} -> {last['admm_misfit']}")
+    rel = summary["rel_l2_u"]
+    check(band[0] <= rel <= band[1], f"u rel-L2 {rel} outside the JAX band {band}")
+    emit(card, phase="train", preset="abgrall_admm", epochs=TRAIN_EPOCHS, wall_s=wall,
+         loss=[first["loss"], last["loss"]], admm_misfit=[first["admm_misfit"], last["admm_misfit"]],
+         rel_l2_u=rel, band=list(band), jax_seeds=band_rel.tolist(),
+         fused_step_launches=launches, taylor2_launches=t2_launches, summary=summary)
+    return {"launches": launches}
+
+
+def phase_step_times(card: str, nets: dict) -> dict:
+    """times: ms per epoch of the kernel step and the plain step, and wall
+    time of a 1,000-epoch chunk on the kernel."""
+    from pinns_tpu_torch.train import trainer as tr
+
+    out = {}
+    for net, (trainer, state) in nets.items():
+        kernel_step = trainer._adam_step
+        plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate)
+        ms = event_ms(lambda: kernel_step(state))
+        plain = event_ms(lambda: plain_step(state))
+        emit(card, phase="times", what="train_epoch", net=net, n_f=trainer.exp.sampling.n_f,
+             kernel_ms=ms, plain_ms=plain, reps=REPS, clock="cuda_events")
+        out[net] = (ms, plain)
+    trainer, state = nets["8x20"]
+    tr.run_chunk(trainer._adam_step, state, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_chunk(trainer._adam_step, state, 1000)
+    torch.cuda.synchronize()
+    chunk = time.perf_counter() - t0
+    emit(card, phase="times", what="train_chunk", net="8x20", epochs=1000, wall_s=chunk,
+         epochs_per_s=1000 / chunk, clock="host")
+    return out
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -173,14 +522,16 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, tf32=False)
 
-    # -- 2 build ---------------------------------------------------------
+    # -- 2 build (every kernel, one nvcc each, all started together) -------
     t0 = time.perf_counter()
-    build.load_library("taylor2")
-    ptxas = [ln.strip() for ln in build.build_log("taylor2").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit(card, phase="build", kernel="taylor2", seconds=time.perf_counter() - t0,
-         nvcc_seconds=build.BUILD_SECONDS.get("taylor2"),
-         library=os.path.relpath(str(build.library_path("taylor2")), ROOT), ptxas=ptxas)
+    build.prebuild(KERNELS)
+    for name in KERNELS:
+        build.load_library(name)
+        ptxas = [ln.strip() for ln in build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit(card, phase="build", kernel=name, seconds=time.perf_counter() - t0,
+             nvcc_seconds=build.BUILD_SECONDS.get(name),
+             library=os.path.relpath(str(build.library_path(name)), ROOT), ptxas=ptxas)
 
     # -- 3 kernel vs plain -----------------------------------------------
     # the 8x20 net is the served model (the trained JAX fixture); the 8x200
@@ -288,6 +639,12 @@ def main() -> int:
             emit(card, phase="times", what="served_predict", net="8x20", n=n,
                  ms=ms, points_per_s=n / (ms / 1e3), reps=REPS, clock="host")
 
+    # -- 7-9 and times: the training path ------------------------------------
+    step = phase_step_kernel(card)
+    phase_train_slice(card)
+    train = phase_train(card)
+    epoch_ms = phase_step_times(card, {"8x20": step["narrow"], "8x200": step["wide"]})
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     print(json.dumps({"kernels": [{
         "name": "taylor2",
@@ -298,6 +655,15 @@ def main() -> int:
         "max_abs_err": main_err,
         "ms": main_ms,
         "plain_ms": main_plain_ms,
+    }, {
+        "name": "fused_step",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/fused_step.cu",
+        "replaces": "3266821^:pinns_tpu/ops/pallas/fused_step.py:304",
+        "launches": train["launches"],
+        "max_abs_err": step["grad_err"],
+        "ms": epoch_ms["8x20"][0],
+        "plain_ms": epoch_ms["8x20"][1],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

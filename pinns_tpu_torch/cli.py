@@ -1,22 +1,45 @@
 """Command line of the port: ``python -m pinns_tpu_torch <command>``.
 
+  train    --preset NAME [--epochs N] [--chunk C] [--data GRID] [--device cuda|cpu]
+           [--out-dir D] [--seed S]               train; prints the JSON summary
   export   --params P.npz --out D                 write a serving artifact
   serve    --artifact D --port N --device cuda    HTTP server (GET /meta, POST /predict)
   predict  --artifact D --points P.npz --out O.npz --device cuda
                                                   batch inference, npz/csv in and out
 
-``export`` takes a params file (``pinns_tpu_torch.interop`` format, e.g.
-written from a JAX run by ``scripts/make_torch_port_fixture.py``): the port
-has no trainer or checkpoints yet. ``--device`` defaults to cuda and raises
-when no card is visible; pass ``--device cpu`` for the plain PyTorch path.
+``train`` runs the preset's schedule (on cuda, every Adam epoch is one call
+of the fused CUDA step) and prints the summary keys of the JAX CLI
+(``rel_l2_u``, ``lambda1``, ``lambda2``, ``truth``, ``epochs``). ``export``
+takes a params file (``pinns_tpu_torch.interop`` format, e.g. written from a
+JAX run by ``scripts/make_torch_port_fixture.py``). ``--device`` defaults to
+cuda and raises when no card is visible; pass ``--device cpu`` for the plain
+PyTorch path.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import numpy as np
+
+
+def cmd_train(args) -> int:
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    updates = {}
+    for key, value in (("train.epochs", args.epochs), ("train.chunk", args.chunk),
+                       ("train.out_dir", args.out_dir), ("train.seed", args.seed)):
+        if value is not None:
+            updates[key] = value
+    exp = override(get_preset(args.preset), updates)
+    trainer = Trainer(exp, device=args.device, dataset=args.data)
+    _, summary = trainer.train()
+    print(json.dumps(summary), flush=True)
+    return 0
 
 
 def cmd_export(args) -> int:
@@ -81,8 +104,18 @@ def cmd_predict(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m pinns_tpu_torch",
-                                 description="PyTorch port of pinns_tpu: serving")
+                                 description="PyTorch port of pinns_tpu")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train a preset")
+    p.add_argument("--preset", required=True)
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--chunk", type=int, help="epochs per chunk (metrics stay on the device)")
+    p.add_argument("--data", help="grid .mat/.npz in place of the preset's dataset")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--out-dir", help="metrics JSONL and checkpoints go here")
+    p.add_argument("--seed", type=int)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("export", help="write a serving artifact from a params file")
     p.add_argument("--params", required=True, help="params .npz (interop format)")

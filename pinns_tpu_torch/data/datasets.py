@@ -1,0 +1,183 @@
+"""Dense space-time solution grids and the supervised training sets (port of
+``pinns_tpu/data/datasets.py``).
+
+``GridDataset`` and the training-set builders are the JAX package's, in numpy
+with the same seeded draws, so both packages pick the same N_u points from one
+seed. What differs is where a grid comes from. The JAX package reads the
+reference ``.mat`` files or regenerates a grid with its own solvers; the
+port's solvers come with slice 7, so it reads, in this order:
+
+1. an explicit path: a ``.mat`` with {x, t, usol} or a grid ``.npz`` with the
+   same keys (plus ``provenance``), e.g. one written by
+   ``scripts/make_torch_train_fixture.py``;
+2. for a dataset key, the reference ``.mat`` under ``$PINNS_TPU_DATA_ROOT``
+   (the JAX package's variable) when that is set and the file exists;
+3. for a dataset key, the grid committed beside the port's test fixtures
+   (``tests/fixtures/torch_port/<key>.npz``; ``twosin_burgers_shock``, which
+   the JAX package generated once on the CPU).
+
+A key with none of these raises ``FileNotFoundError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+BURGERS_DATASETS = {
+    "burgers_shock": "Burgers/Data/burgers_shock.mat",
+    "abgrall_burgers_shock": "Burgers/Data/Abgrall_burgers_shock.mat",
+    "twosin_burgers_shock": "Burgers/Data/TwoSin_burgers_shock.mat",
+}
+GRID_DIR = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "torch_port"
+
+
+@dataclasses.dataclass
+class GridDataset:
+    """A dense (t, x) solution grid plus flattened evaluation set.
+
+    fields maps field name -> (Nt, Nx) array ('u' for Burgers). X_star is
+    (Nt*Nx, 2) with columns (x, t); star maps field name -> (Nt*Nx, 1).
+    provenance is 'stored' (a reference .mat) or 'native' (a grid the JAX
+    package regenerated), as in the JAX package.
+    """
+
+    x: np.ndarray  # (Nx, 1)
+    t: np.ndarray  # (Nt, 1)
+    fields: Dict[str, np.ndarray]  # each (Nt, Nx)
+    name: str = "dataset"
+    provenance: str = "unknown"
+
+    def __post_init__(self):
+        self.x = np.asarray(self.x, np.float32).reshape(-1, 1)
+        self.t = np.asarray(self.t, np.float32).reshape(-1, 1)
+        self.fields = {k: np.asarray(v, np.float32) for k, v in self.fields.items()}
+        xg, tg = np.meshgrid(self.x.ravel(), self.t.ravel())
+        self.X_grid, self.T_grid = xg, tg
+        self.X_star = np.hstack([xg.reshape(-1, 1), tg.reshape(-1, 1)]).astype(np.float32)
+        self.star = {k: v.reshape(-1, 1) for k, v in self.fields.items()}
+        self.lb = self.X_star.min(axis=0)
+        self.ub = self.X_star.max(axis=0)
+
+    @property
+    def field_names(self) -> Tuple[str, ...]:
+        return tuple(self.fields.keys())
+
+    @property
+    def n_points(self) -> int:
+        return self.X_star.shape[0]
+
+
+def _read_grid(path: str) -> dict:
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            out = {k: z[k] for k in z.files}
+        out["_provenance"] = str(out.pop("provenance", "unknown"))
+        return out
+    import scipy.io
+
+    return dict(scipy.io.loadmat(path), _provenance="stored")
+
+
+def resolve_grid_path(name_or_path: str) -> str:
+    """Where the grid of a dataset key (or path) is read from; see the module
+    docstring for the order."""
+    if name_or_path not in BURGERS_DATASETS:
+        if os.path.exists(name_or_path):
+            return name_or_path
+        raise FileNotFoundError(
+            f"dataset {name_or_path!r} is neither a known key "
+            f"({sorted(BURGERS_DATASETS)}) nor an existing .mat/.npz file"
+        )
+    root = os.environ.get("PINNS_TPU_DATA_ROOT")
+    if root:
+        mat = os.path.join(root, BURGERS_DATASETS[name_or_path])
+        if os.path.exists(mat):
+            return mat
+    grid = GRID_DIR / f"{name_or_path}.npz"
+    if grid.exists():
+        return str(grid)
+    raise FileNotFoundError(
+        f"dataset {name_or_path!r}: no reference .mat under PINNS_TPU_DATA_ROOT "
+        f"and no committed grid {grid}; pass a .mat/.npz path (the port's own "
+        "grid generators come with slice 7)"
+    )
+
+
+def load_burgers_mat(name_or_path: str = "twosin_burgers_shock") -> GridDataset:
+    """Load a Burgers {x, t, usol} grid from a dataset key or a path."""
+    path = resolve_grid_path(name_or_path)
+    d = _read_grid(path)
+    name = name_or_path if name_or_path in BURGERS_DATASETS else Path(path).stem
+    return GridDataset(
+        x=d["x"],
+        t=d["t"],
+        fields={"u": np.real(d["usol"]).T},  # stored (Nx, Nt) -> (Nt, Nx)
+        name=name,
+        provenance=d["_provenance"],
+    )
+
+
+def load_euler_mat(name_or_path: str = "abgrall_eulers") -> GridDataset:
+    raise NotImplementedError("Euler datasets are ported with slice 2 (Euler)")
+
+
+def ic_bc_candidates(ds: GridDataset) -> np.ndarray:
+    """The full IC row + boundary column candidate stack (Nx + 2 Nt, 2)."""
+    xg, tg = ds.X_grid, ds.T_grid
+    ic = np.hstack([xg[0:1, :].T, tg[0:1, :].T])
+    left = np.hstack([xg[:, 0:1], tg[:, 0:1]])
+    right = np.hstack([xg[:, -1:], tg[:, -1:]])
+    return np.vstack([ic, left, right]).astype(np.float32)
+
+
+def _add_noise(targets, noise, rng):
+    if noise > 0.0:
+        for k in targets:
+            targets[k] = targets[k] + noise * targets[k].std() * rng.standard_normal(
+                targets[k].shape
+            ).astype(np.float32)
+    return targets
+
+
+def build_ic_bc_training_set(
+    ds: GridDataset,
+    n_u: int,
+    seed: int = 1234,
+    rng: Optional[np.random.Generator] = None,
+    noise: float = 0.0,
+) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """IC row + boundary columns, subsampled to n_u points without replacement
+    (the same ``np.random.default_rng(seed).choice`` draw as the JAX package).
+
+    Returns (X_data:(n_u,2), targets: field -> (n_u,1)).
+    """
+    candidates = ic_bc_candidates(ds)
+    targets_full = {
+        k: np.vstack([grid[0:1, :].T, grid[:, 0:1], grid[:, -1:]]).astype(np.float32)
+        for k, grid in ds.fields.items()
+    }
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    idx = rng.choice(candidates.shape[0], size=n_u, replace=False)
+    targets = {k: v[idx] for k, v in targets_full.items()}
+    return candidates[idx], _add_noise(targets, noise, rng)
+
+
+def interior_training_set(
+    ds: GridDataset,
+    n_u: int,
+    seed: int = 1234,
+    rng: Optional[np.random.Generator] = None,
+    noise: float = 0.0,
+) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Random interior (full-grid) sample of n_u points, optionally noisy."""
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    idx = rng.choice(ds.n_points, size=n_u, replace=False)
+    targets = {k: v[idx] for k, v in ds.star.items()}
+    return ds.X_star[idx], _add_noise(targets, noise, rng)

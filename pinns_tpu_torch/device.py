@@ -1,9 +1,14 @@
-"""Device selection and the port's numerics rule: float32 with TF32 off.
+"""Device selection and the port's numerics rule: full float32, no TF32, no
+reduced-precision matmul on any backend.
 
 The residual path needs full float32 accumulation (a 3-pass reduced-precision
-matmul cost 4x rel-L2 on burgers_forward in the JAX package), so every entry
-point resolves its device through :func:`resolve_device`, which also switches
-TF32 off for both cuBLAS matmuls and cuDNN.
+matmul cost 4x rel-L2 on burgers_forward in the JAX package). PyTorch keeps
+that choice in process-global switches: TF32 for cuBLAS and cuDNN, and the
+float32 matmul precision, which also routes CPU matmuls through oneDNN in
+bf16 when it is "medium". Any code in the same process can flip them, so
+every entry point of the port pins them again (:func:`pin_numerics`) before
+it computes, and :func:`resolve_device` pins them and checks that they read
+back.
 """
 
 from __future__ import annotations
@@ -13,14 +18,47 @@ from typing import Union
 import torch
 
 
+def pin_numerics() -> None:
+    """Full float32 matmuls on every backend: TF32 off for cuBLAS and cuDNN,
+    float32 matmul precision "highest" (also the oneDNN CPU matmul)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def check_numerics() -> None:
+    """Raise if a global switch allows reduced-precision float32 matmuls.
+
+    Reads the per-backend precisions (``fp32_precision``: 'ieee', or 'none'
+    to inherit the global one), which both the legacy and the new precision
+    API set; the legacy getter raises once the two APIs were mixed.
+    """
+    bad = []
+    if torch.backends.cuda.matmul.allow_tf32:
+        bad.append("torch.backends.cuda.matmul.allow_tf32")
+    if torch.backends.cudnn.allow_tf32:
+        bad.append("torch.backends.cudnn.allow_tf32")
+    for name in ("backends", "backends.cuda.matmul", "backends.mkldnn.matmul",
+                 "backends.mkldnn"):
+        obj = torch
+        for part in name.split("."):
+            obj = getattr(obj, part, None)
+        precision = getattr(obj, "fp32_precision", None)
+        if precision not in (None, "ieee", "none"):
+            bad.append(f"torch.{name}.fp32_precision={precision!r}")
+    if bad:
+        raise RuntimeError(f"reduced-precision float32 matmuls are on: {bad}")
+
+
 def resolve_device(name: Union[str, torch.device]) -> torch.device:
-    """``torch.device`` for ``name`` ("cpu", "cuda", "cuda:1", ...).
+    """``torch.device`` for ``name`` ("cpu", "cuda", "cuda:1", ...), with the
+    numerics pinned and checked.
 
     Raises RuntimeError when CUDA is asked for and no card is visible: the
     port never moves to the CPU on its own.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_numerics()
+    check_numerics()
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,8 +1,11 @@
-"""The port's way in from a JAX run: parameter conversion and the params file.
+"""The port's way in from a JAX run: parameter and training-state conversion,
+and the params file.
 
 JAX keeps an MLP as a list of ``{"W": (din, dout), "b": (1, dout)}`` arrays
 (``pinns_tpu.models.mlp.init_mlp``); the port keeps the same layout in torch,
-so conversion is a copy in each direction.
+so conversion is a copy in each direction. A whole training state
+(params, optax Adam moments, ADMM z/dual, collocation batch) converts with
+``train_state_from_jax`` / ``train_state_to_numpy``.
 
 The params file (``.npz``) holds
   ``layers`` (int64), ``lb``/``ub`` (float64, as the spec holds them),
@@ -18,7 +21,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from pinns_tpu_torch.losses.admm import ADMMState
 from pinns_tpu_torch.models.mlp import MLPSpec, Params
+from pinns_tpu_torch.opt.adam import AdamState, tree_map
 
 
 def params_from_jax(
@@ -104,3 +109,58 @@ def load_params_npz(path: str) -> dict:
             "lambda2": float(z["lambda2"]),
             "experiment": str(z["experiment"]) if "experiment" in z else None,
         }
+
+
+def _to_torch(tree, device):
+    return tree_map(lambda a: torch.tensor(np.asarray(a)).to(device).contiguous(), tree)
+
+
+def train_state_from_jax(tree: dict, device: torch.device, key: Optional[int] = None):
+    """A port ``TrainState`` from a JAX training state given as numpy:
+
+      ``params``  {'net': [{'W','b'}...], 'coeffs': {'lambda1','lambda2'}}
+      ``count``, ``mu``, ``nu``  optax's ``ScaleByAdamState`` (mu/nu shaped
+                  like params)
+      ``z``, ``dual``  the ADMM state, or absent/None
+      ``colloc``  the (N_f, 2) batch the next step trains on
+      ``epoch``   the step count; ``key`` (here or in the tree) the port's
+                  Philox seed, since a JAX PRNG key has no port counterpart.
+
+    Both packages then start one step from the same state.
+    """
+    from pinns_tpu_torch.train.trainer import TrainState
+
+    z = tree.get("z")
+    key = tree.get("key", 0) if key is None else key
+    return TrainState(
+        params=_to_torch(tree["params"], device),
+        opt_state=AdamState(
+            count=int(np.asarray(tree["count"])),
+            mu=_to_torch(tree["mu"], device),
+            nu=_to_torch(tree["nu"], device),
+        ),
+        admm=None if z is None else ADMMState(
+            z=_to_torch(z, device), dual=_to_torch(tree["dual"], device)),
+        colloc=_to_torch(tree["colloc"], device),
+        key=int(np.asarray(key)),
+        epoch=int(np.asarray(tree["epoch"])),
+    )
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of :func:`train_state_from_jax`: a port ``TrainState`` as
+    the numpy tree that function takes."""
+    cpu = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    conv = lambda tree: tree_map(cpu, tree)  # noqa: E731
+    out = {
+        "params": conv(state.params),
+        "count": state.opt_state.count,
+        "mu": conv(state.opt_state.mu),
+        "nu": conv(state.opt_state.nu),
+        "colloc": cpu(state.colloc),
+        "epoch": state.epoch,
+        "key": state.key,
+    }
+    if state.admm is not None:
+        out["z"], out["dual"] = cpu(state.admm.z), cpu(state.admm.dual)
+    return out

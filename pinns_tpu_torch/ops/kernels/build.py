@@ -79,6 +79,28 @@ def _compile(name: str, out: Path) -> None:
     os.replace(tmp, out)
 
 
+def prebuild(names) -> None:
+    """Compile every library of ``names`` that is not built yet, one nvcc per
+    source, all started together (each in its own thread; nvcc runs outside
+    the interpreter lock). Raises the first build error."""
+    missing = [n for n in names if not library_path(n).exists()]
+    errors = []
+
+    def one(name):
+        try:
+            _compile(name, library_path(name))
+        except RuntimeError as e:  # reported below, after every build ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in missing]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The compiled library for ``csrc/<name>.cu``, built on first use."""
     with _lock:

@@ -10,7 +10,7 @@ has its own artifact: a directory with
                   params-file format of ``pinns_tpu_torch.interop``.
 
 ``ServedModel(path, device=...)`` puts the weights on its device once and
-answers ``predict(x)`` through ``train.evaluate.predict_fields`` — on a CUDA
+answers ``predict(x)`` through ``train.evaluate.burgers_fields`` — on a CUDA
 device, the fused Taylor-2 kernel. Ensemble artifacts and calibrated bands
 come with slice 4.
 """
@@ -26,10 +26,10 @@ import numpy as np
 import torch
 
 from pinns_tpu_torch import __version__
-from pinns_tpu_torch.device import resolve_device
+from pinns_tpu_torch.device import pin_numerics, resolve_device
 from pinns_tpu_torch.interop import load_params_npz, params_from_jax, save_params_npz
 from pinns_tpu_torch.models.mlp import MLPSpec
-from pinns_tpu_torch.train.evaluate import predict_fields
+from pinns_tpu_torch.train.evaluate import burgers_fields
 
 _META_NAME = "meta.json"
 _PARAMS_NAME = "params.npz"
@@ -119,9 +119,10 @@ class ServedModel:
             b = self.bucket_size(n)
             if b != n:
                 x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)], axis=0)
+        pin_numerics()  # another caller in this process may have lowered them
         with torch.inference_mode():
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            out = predict_fields(self.spec, self.params, xt, self.lambda1, self.lambda2)
+            out = burgers_fields(self.spec, self.params, xt, self.lambda1, self.lambda2)
             return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
 

@@ -1,9 +1,10 @@
 """Prediction and the metric of record (port of ``pinns_tpu/train/evaluate.py``).
 
-``relative_l2`` is ||exact - pred||_2 / ||exact||_2. ``predict_fields``
-evaluates the network fields and PDE residuals in one pass. The JAX version
-takes a ``Problem``; the port has no Problem yet, so it takes the spec, the
-params and the PDE coefficients directly.
+``relative_l2`` is ||exact - pred||_2 / ||exact||_2. ``predict_fields`` takes
+a ``Problem`` and the params tree {'net', 'coeffs'}, as in JAX, and evaluates
+the network fields and PDE residuals in one pass: on a CUDA device through the
+fused Taylor-2 kernel. ``burgers_fields`` is the same pass for callers that
+hold a bare network and coefficients (the served model).
 """
 
 from __future__ import annotations
@@ -23,21 +24,23 @@ def relative_l2(pred, exact) -> float:
     return float(np.linalg.norm(exact - pred) / np.linalg.norm(exact))
 
 
-def predict_fields(
-    spec: MLPSpec,
-    params: Params,
-    x: torch.Tensor,
-    lambda1,
-    lambda2,
-    pde: str = "burgers",
+def burgers_fields(
+    spec: MLPSpec, net: Params, x: torch.Tensor, lambda1, lambda2
 ) -> Dict[str, torch.Tensor]:
-    """Network fields and PDE residuals at points x (N, 2): {'u', 'f'} for
-    Burgers. Euler ({'rho','u','E','f1','f2','f3'}) comes with slice 2."""
+    """{'u', 'f'}, each (N, 1), of a Burgers network at points x (N, 2)."""
     from pinns_tpu_torch.ops.residuals import burgers_residual
 
-    if pde != "burgers":
-        raise NotImplementedError(
-            f"pde {pde!r}: the Euler prediction path is ported with slice 2"
-        )
-    u, f = burgers_residual(spec, params, x, lambda1, lambda2)
+    u, f = burgers_residual(spec, net, x, lambda1, lambda2)
     return {"u": u, "f": f}
+
+
+def predict_fields(problem, params, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Network fields and PDE residuals at points x (N, 2): {'u', 'f'} for
+    Burgers. Euler ({'rho','u','E','f1','f2','f3'}) comes with slice 2."""
+    if problem.exp.pde.kind != "burgers":
+        raise NotImplementedError(
+            f"pde {problem.exp.pde.kind!r}: the Euler prediction path is ported "
+            "with slice 2"
+        )
+    lam1, lam2 = problem.effective_coeffs(params)
+    return burgers_fields(problem.spec, params["net"], x, lam1, lam2)

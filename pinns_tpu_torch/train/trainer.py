@@ -1,0 +1,551 @@
+"""The training core for the Burgers strong form (port of
+``pinns_tpu/train/trainer.py``).
+
+One Adam epoch does what the JAX step does, in the reference's order
+(``Abgrall_ADMM.py:220-226``):
+
+  loss + gradient at the current collocation batch -> Adam update ->
+  resample the batch -> ADMM z/dual update at the NEW points with the NEW
+  params -> metrics
+
+and a chunk of epochs keeps its per-step metrics in one device buffer, read
+back once per logged chunk, in place of ``lax.scan`` in ``make_chunked``.
+
+Two step implementations compute that epoch:
+- ``make_adam_step``, the plain version: ``torch.autograd`` through the plain
+  Taylor-2 recurrence. Every device can run it; the CPU trainer uses it.
+- ``pinns_tpu_torch.ops.kernels.fused_step``: the whole epoch as the
+  hand-written CUDA step (the port of the TPU kernel ``make_fused_adam_step``).
+  On a CUDA device the trainer takes it, and a configuration outside its scope
+  raises: nothing falls back to the plain step.
+
+Resampling draws with counter-based Philox keyed by the run's seed and the
+epoch (``data.sampling.philox_uniform``), so both steps draw the same points.
+
+What this slice leaves to later ones, each raising ``NotImplementedError``
+with the slice's name: Euler, the weak form, causal/entropy/gradient
+weighting, RAD, the time curriculum and SWA (slice 2); microbatching and the
+mixed stream policy (slice 3); ensembles (slice 4); multi-GPU (slice 6); the
+L-BFGS phase of 'lbfgs' and 'hybrid' (queue 1 item 5), which raises at
+``optimizer.switch_epoch``; and the cosine/exponential learning-rate schedules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pinns_tpu_torch.config import Experiment
+from pinns_tpu_torch.data.datasets import (
+    GridDataset,
+    build_ic_bc_training_set,
+    ic_bc_candidates,
+    interior_training_set,
+    load_burgers_mat,
+)
+from pinns_tpu_torch.data.sampling import latin_hypercube, philox_uniform, scale_to_bounds, uniform_box
+from pinns_tpu_torch.device import pin_numerics, resolve_device
+from pinns_tpu_torch.losses.admm import (
+    ADMMState,
+    admm_init,
+    admm_misfit,
+    admm_penalty,
+    admm_update,
+)
+from pinns_tpu_torch.losses.misfit import data_misfit, residual_penalty
+from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply
+from pinns_tpu_torch.ops.taylor import mlp_taylor_2, mlp_taylor_2_reference
+from pinns_tpu_torch.opt.adam import (
+    AdamState,
+    adam_init,
+    adam_update,
+    apply_updates,
+    tree_leaves,
+    tree_map,
+)
+from pinns_tpu_torch.train import checkpoint as ckpt_io
+from pinns_tpu_torch.train.evaluate import predict_fields, relative_l2
+from pinns_tpu_torch.train.metrics import MetricsLogger
+
+# the per-step metrics, in the sorted order the JAX chunk packs them
+METRIC_KEYS = ("admm_misfit", "data_term", "lambda1", "lambda2", "lbfgs_iters",
+               "loss", "res_term")
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class TrainState(NamedTuple):
+    params: Any  # {'net': [{'W','b'}, ...], 'coeffs': {'lambda1','lambda2'}}
+    opt_state: AdamState
+    admm: Optional[ADMMState]
+    colloc: torch.Tensor  # (N_f, 2): the batch the NEXT step trains on
+    key: int  # the run's Philox seed (JAX carries a PRNG key here)
+    epoch: int
+    rho: Optional[float] = None  # per-run ADMM penalty override
+
+
+def check_slice(exp: Experiment) -> None:
+    """Raise ``NotImplementedError`` naming the slice that brings a feature
+    ``exp`` uses and the port does not have yet."""
+    later = []
+    slice2 = "slice 2 (Euler and the weak form)"
+    m, s, lo, o = exp.model, exp.sampling, exp.loss, exp.optimizer
+    checks = [
+        (exp.pde.kind != "burgers", f"pde.kind={exp.pde.kind!r}", slice2),
+        (lo.residual_kind == "flux" or lo.admm_form != "strong",
+         "the weak-form (flux) residual", slice2),
+        (lo.causal_eps > 0.0, "causal weighting", slice2),
+        (lo.entropy_weight > 0.0, "the entropy penalty", slice2),
+        (lo.grad_weight_kappa != 0.0, "gradient weighting", slice2),
+        (bool(lo.strong_equations), "the mixed formulation", slice2),
+        (s.strategy == "rad", "RAD resampling", slice2),
+        (s.t_curriculum_epochs > 0, "the time curriculum", slice2),
+        (exp.train.swa_frac > 0.0, "SWA", slice2),
+        (m.n_fourier > 0 or m.n_paths > 0, "Fourier / shock-path features", slice2),
+        (s.microbatch > 1, "microbatching", "slice 3 (scale)"),
+        (bool(m.compute_dtype), "the mixed stream policy", "slice 3 (scale)"),
+        (exp.mesh.ensemble > 1, "ensembles", "slice 4 (ensembles)"),
+        (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
+        (o.kind == "lbfgs", "the L-BFGS optimizer", "the L-BFGS slice (ROADMAP queue 1 item 5)"),
+        (o.lr_schedule != "constant", f"lr_schedule={o.lr_schedule!r}",
+         "a later slice (only the constant schedule is ported)"),
+        (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
+    ]
+    for bad, what, where in checks:
+        if bad:
+            later.append(f"{what}: {where}")
+    if later:
+        raise NotImplementedError(
+            f"experiment {exp.name!r} uses features the port has not reached: "
+            + "; ".join(later)
+        )
+
+
+@dataclasses.dataclass
+class Problem:
+    """An Experiment bound to its dataset and device-resident training data."""
+
+    exp: Experiment
+    dataset: GridDataset
+    spec: MLPSpec
+    x_data: torch.Tensor  # (N_u, 2)
+    targets: Dict[str, torch.Tensor]  # field -> (N_u, 1)
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def lb(self):
+        return self.dataset.lb
+
+    @property
+    def ub(self):
+        return self.dataset.ub
+
+    def effective_coeffs(self, params) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(lambda1, lambda2) with the freeze / transform policy applied."""
+        coeffs = params["coeffs"]
+        lam1, lam2 = coeffs["lambda1"], coeffs["lambda2"]
+        if not self.exp.pde.train_coeffs:
+            lam1, lam2 = lam1.detach(), lam2.detach()
+        if self.exp.pde.lambda2_transform == "exp":
+            lam2 = torch.exp(lam2)
+        return lam1, lam2
+
+    def residuals(self, params, colloc, plain: bool = False) -> torch.Tensor:
+        """Strong-form Burgers residual f (N, 1) at collocation points.
+
+        ``plain`` forces the plain Taylor-2 recurrence, which autograd
+        differentiates; otherwise a CUDA tensor takes the fused forward kernel.
+        """
+        lam1, lam2 = self.effective_coeffs(params)
+        taylor = mlp_taylor_2_reference if plain else mlp_taylor_2
+        u, u_x, u_t, u_xx = taylor(self.spec, params["net"], colloc)
+        return u_t + lam1 * u * u_x - lam2 * u_xx
+
+
+def build_problem(exp: Experiment, device="cpu", dataset: Optional[str] = None) -> Problem:
+    """Load the dataset (``dataset`` overrides ``exp.data.dataset``) and put
+    the supervised training set on ``device``."""
+    check_slice(exp)
+    device = resolve_device(device)
+    ds = load_burgers_mat(dataset or exp.data.dataset)
+    build = interior_training_set if exp.data.selection == "interior" else build_ic_bc_training_set
+    x_data, targets = build(ds, exp.data.n_u, seed=exp.data.seed, noise=exp.data.noise)
+    dtype = _DTYPES[exp.model.dtype]
+    spec = MLPSpec(
+        layers=exp.model.layers,
+        lb=tuple(float(v) for v in ds.lb),
+        ub=tuple(float(v) for v in ds.ub),
+        dtype=dtype,
+    )
+    return Problem(
+        exp=exp,
+        dataset=ds,
+        spec=spec,
+        x_data=torch.as_tensor(x_data, dtype=dtype).to(device),
+        targets={k: torch.as_tensor(v, dtype=dtype).to(device) for k, v in targets.items()},
+        device=device,
+    )
+
+
+def _resample(problem: Problem, key: int, epoch: int) -> torch.Tensor:
+    """The uniform collocation batch of ``epoch``: Philox(key, epoch)."""
+    return philox_uniform(key, epoch, problem.exp.sampling.n_f, problem.lb, problem.ub,
+                          problem.spec.dtype, problem.device)
+
+
+def init_collocation(problem: Problem, key: int) -> torch.Tensor:
+    """Initial collocation set per the configured strategy: Philox(key, 0)
+    under 'resample_uniform'; the fixed sets draw from
+    ``torch.Generator().manual_seed(key + 1)`` (``Generator(key)`` draws the
+    weights in ``Trainer.init_state``)."""
+    exp = problem.exp
+    n_f, strategy = exp.sampling.n_f, exp.sampling.strategy
+    dtype, device = problem.spec.dtype, problem.device
+    if strategy == "resample_uniform":
+        return _resample(problem, key, 0)
+    gen = torch.Generator().manual_seed(key + 1)
+    if strategy == "fixed_uniform":
+        return uniform_box(gen, n_f, problem.lb, problem.ub, dtype, device)
+    if strategy in ("fixed_lhs", "fixed_lhs_anchored"):
+        pts = scale_to_bounds(latin_hypercube(gen, n_f, 2, dtype, device), problem.lb, problem.ub)
+        if strategy == "fixed_lhs":
+            return pts
+        # the reference anchors the FULL IC/BC candidate stack
+        anchors = torch.as_tensor(ic_bc_candidates(problem.dataset), dtype=dtype).to(device)
+        return torch.cat([pts, anchors], dim=0)
+    raise ValueError(f"unknown sampling strategy: {strategy!r}")
+
+
+def _residual_term(problem: Problem, params, colloc, admm_state, rho=None):
+    """Residual loss term (microbatch 1; the strong form)."""
+    cfg = problem.exp.loss
+    n_f = colloc.shape[0]  # the ACTUAL row count, as the ADMM threshold uses
+    rho = cfg.rho if rho is None else rho
+    residuals = problem.residuals(params, colloc, plain=True)
+    if cfg.residual_kind == "admm":
+        return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
+    return residual_penalty(residuals, cfg.residual_kind, n_f)
+
+
+def make_data_term(problem: Problem) -> Callable:
+    """The data-misfit term of the training loss as ``params -> scalar``."""
+    exp = problem.exp
+
+    def term(params):
+        u_pred = mlp_apply(problem.spec, params["net"], problem.x_data)
+        return data_misfit(u_pred, problem.targets["u"], exp.loss.data_kind, exp.data.n_u)
+
+    return term
+
+
+def make_loss_fn(problem: Problem) -> Callable:
+    """loss(params, colloc, admm, rho=None) -> (scalar, aux-metrics dict)."""
+    loss_cfg = problem.exp.loss
+    if loss_cfg.residual_weight != 1.0 and loss_cfg.residual_kind == "admm":
+        raise ValueError(
+            "residual_weight must be 1 with residual_kind='admm' — scale the "
+            "penalty with loss.rho instead (the prox threshold tracks rho)"
+        )
+    if loss_cfg.data_field_weights:
+        raise ValueError(
+            "data_field_weights applies to the multi-output Euler system; "
+            "for Burgers use loss.data_weight"
+        )
+    dterm = make_data_term(problem)
+
+    def loss_fn(params, colloc, admm_state, rho=None):
+        lam1, lam2 = problem.effective_coeffs(params)
+        data_term = dterm(params)
+        res_term = _residual_term(problem, params, colloc, admm_state, rho)
+        loss = loss_cfg.data_weight * data_term + loss_cfg.residual_weight * res_term
+        aux = {
+            "loss": loss,
+            "data_term": data_term,
+            # the weighted CONTRIBUTION, so loss = data_weight*data_term + res_term
+            "res_term": res_term if loss_cfg.residual_weight == 1.0
+            else loss_cfg.residual_weight * res_term,
+            "lambda1": lam1.reshape(()),
+            "lambda2": lam2.reshape(()),
+        }
+        return loss, aux
+
+    return loss_fn
+
+
+def _next_batch(problem: Problem, colloc, key, epoch, new_colloc):
+    """The batch of epoch + 1: ``new_colloc`` when given (tests feed JAX's
+    points), else the Philox draw; fixed strategies keep ``colloc``."""
+    if problem.exp.sampling.strategy != "resample_uniform":
+        return colloc
+    return new_colloc if new_colloc is not None else _resample(problem, key, epoch + 1)
+
+
+@torch.no_grad()
+def _post_update_current(problem: Problem, params, admm_state, colloc, key, rho, epoch=0,
+                         new_colloc=None):
+    """'current'-points ADMM tail: z/dual update at the batch the weight step
+    saw, THEN resample for the next step."""
+    exp = problem.exp
+    rho_val = exp.loss.rho if rho is None else rho
+    f_cur = problem.residuals(params, colloc, plain=True)
+    admm_state = admm_update(f_cur, admm_state, rho_val, colloc.shape[0])
+    mis = admm_misfit(f_cur, admm_state)
+    return admm_state, _next_batch(problem, colloc, key, epoch, new_colloc), key, mis
+
+
+@torch.no_grad()
+def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, epoch=0,
+                 new_colloc=None):
+    """Shared tail of every step: resample, then ADMM updates at the new
+    points (threshold normalizer = the actual residual row count)."""
+    exp = problem.exp
+    colloc = _next_batch(problem, colloc, key, epoch, new_colloc)
+    mis = torch.zeros((), dtype=problem.spec.dtype, device=problem.device)
+    if exp.loss.residual_kind == "admm":
+        rho_val = exp.loss.rho if rho is None else rho
+        f_new = problem.residuals(params, colloc, plain=True)
+        admm_state = admm_update(f_new, admm_state, rho_val, colloc.shape[0])
+        mis = admm_misfit(f_new, admm_state)
+    return admm_state, colloc, key, mis
+
+
+def _write_metrics(metrics: Dict[str, torch.Tensor], out: Optional[torch.Tensor]):
+    """Stack the step's metrics (METRIC_KEYS order) into the float32 row
+    ``out`` of a chunk's buffer; returns views of that row."""
+    if out is None:
+        out = torch.empty(len(METRIC_KEYS), dtype=torch.float32,
+                          device=metrics["loss"].device)
+    out.copy_(torch.stack([metrics[k].to(torch.float32) for k in METRIC_KEYS]))
+    return {k: out[i] for i, k in enumerate(METRIC_KEYS)}
+
+
+def make_adam_step(problem: Problem, learning_rate: float):
+    """The plain Adam epoch: grad step -> resample -> ADMM updates.
+
+    ``step(state, out=None, new_colloc=None) -> (state, metrics)``. ``out``, a
+    float32 row of len(METRIC_KEYS), receives the metrics when given;
+    ``new_colloc`` replaces the Philox draw of the next batch.
+    """
+    loss_fn = make_loss_fn(problem)
+    train_coeffs = problem.exp.pde.train_coeffs
+    tail = (
+        _post_update_current
+        if problem.exp.loss.residual_kind == "admm"
+        and problem.exp.loss.admm_update_points == "current"
+        else _post_update
+    )
+
+    def step(state: TrainState, out: Optional[torch.Tensor] = None,
+             new_colloc: Optional[torch.Tensor] = None):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+        loss, aux = loss_fn(params, state.colloc, state.admm, state.rho)
+        # frozen coefficients get a zero gradient, as JAX's stop_gradient gives
+        wanted = tree_leaves(params["net"]) + (tree_leaves(params["coeffs"]) if train_coeffs else [])
+        got = iter(torch.autograd.grad(loss, wanted))
+        grads = {
+            "net": tree_map(lambda p: next(got), params["net"]),
+            "coeffs": tree_map(lambda p: next(got) if train_coeffs else torch.zeros_like(p),
+                               params["coeffs"]),
+        }
+        with torch.no_grad():
+            updates, opt_state = adam_update(grads, state.opt_state, learning_rate)
+            new_params = apply_updates(tree_map(lambda p: p.detach(), params), updates)
+        admm_state, colloc, key, mis = tail(
+            problem, new_params, state.admm, state.colloc, state.key, state.rho, state.epoch,
+            new_colloc,
+        )
+        metrics = {k: v.detach() for k, v in aux.items()}
+        metrics["admm_misfit"] = mis
+        metrics["lbfgs_iters"] = torch.zeros((), device=mis.device)
+        new_state = TrainState(
+            params=new_params, opt_state=opt_state, admm=admm_state, colloc=colloc,
+            key=key, epoch=state.epoch + 1, rho=state.rho,
+        )
+        return new_state, _write_metrics(metrics, out)
+
+    return step
+
+
+def make_step(problem: Problem, learning_rate: float):
+    """The step the trainer runs: the fused CUDA step on a CUDA device (a
+    configuration outside its scope raises), the plain step on the CPU."""
+    if problem.device.type == "cuda":
+        from pinns_tpu_torch.ops.kernels.fused_step import make_fused_adam_step
+
+        return make_fused_adam_step(problem, learning_rate)
+    return make_adam_step(problem, learning_rate)
+
+
+def run_chunk(step, state: TrainState, length: int):
+    """``length`` steps; the per-step metrics go into ONE (length, 7) float32
+    device buffer, with no device->host sync inside the chunk. Returns
+    (state, {metric: (length,) tensor})."""
+    buf = torch.empty((length, len(METRIC_KEYS)), dtype=torch.float32,
+                      device=state.colloc.device)
+    for i in range(length):
+        state, _ = step(state, buf[i])
+    return state, {k: buf[:, j] for j, k in enumerate(METRIC_KEYS)}
+
+
+class Trainer:
+    """End-to-end training orchestrator (host side): chunked stepping, metric
+    logging, snapshots, checkpoints, final rel-L2 evaluation."""
+
+    def __init__(self, exp: Experiment, problem: Optional[Problem] = None,
+                 device="cpu", dataset: Optional[str] = None):
+        self.exp = exp
+        self.problem = problem if problem is not None else build_problem(exp, device, dataset)
+        self.device = self.problem.device
+        self.learning_rate = float(exp.optimizer.learning_rate)
+        self._adam_step = make_step(self.problem, self.learning_rate)
+        self.logger = MetricsLogger(out_dir=exp.train.out_dir or None, name=exp.name)
+
+    # -- state ------------------------------------------------------------
+    def init_state(self, seed: Optional[int] = None, rho: Optional[float] = None) -> TrainState:
+        """Weights from ``torch.Generator().manual_seed(seed)``; the batch of
+        epoch e is Philox(seed, e) under 'resample_uniform'; z = r(w_0) at the
+        initial batch and dual = 1 under 'admm'."""
+        exp = self.exp
+        seed = exp.train.seed if seed is None else int(seed)
+        dtype, device = self.problem.spec.dtype, self.device
+        params = {
+            "net": init_mlp(self.problem.spec, torch.Generator().manual_seed(seed), device),
+            "coeffs": {
+                "lambda1": torch.full((1,), exp.pde.lambda1, dtype=dtype, device=device),
+                "lambda2": torch.full((1,), exp.pde.lambda2, dtype=dtype, device=device),
+            },
+        }
+        colloc = init_collocation(self.problem, seed)
+        admm_state = None
+        if exp.loss.residual_kind == "admm":
+            with torch.no_grad():
+                admm_state = admm_init(self.problem.residuals(params, colloc))
+        return TrainState(
+            params=params, opt_state=adam_init(params), admm=admm_state, colloc=colloc,
+            key=seed, epoch=0, rho=None if rho is None else float(rho),
+        )
+
+    # -- stepping ---------------------------------------------------------
+    def _phase(self, epoch: int) -> str:
+        opt = self.exp.optimizer
+        if opt.kind == "adam":
+            return "adam"
+        if opt.kind == "lbfgs":
+            return "lbfgs"
+        return "adam" if epoch < opt.switch_epoch else "lbfgs"
+
+    def train(self, state: Optional[TrainState] = None, epochs: Optional[int] = None):
+        """Run the configured schedule; returns (state, summary dict)."""
+        exp = self.exp
+        pin_numerics()
+        if state is None:
+            state = self.init_state()
+        total = exp.train.epochs if epochs is None else epochs
+        chunk = max(1, min(exp.train.chunk, total))
+        t0 = time.time()
+        epoch = int(state.epoch)
+        while epoch < total:
+            phase = self._phase(epoch)
+            if phase != "adam":
+                raise NotImplementedError(
+                    f"epoch {epoch}: the L-BFGS phase of optimizer.kind="
+                    f"{exp.optimizer.kind!r} (switch_epoch={exp.optimizer.switch_epoch}) "
+                    "is ported with the L-BFGS slice (ROADMAP queue 1 item 5); "
+                    "train fewer epochs or use optimizer.kind='adam'"
+                )
+            length = min(chunk, total - epoch)
+            if exp.optimizer.kind == "hybrid":
+                length = min(length, exp.optimizer.switch_epoch - epoch)
+            state, metrics = run_chunk(self._adam_step, state, length)
+            epoch += length
+            last = None
+            if epoch >= total or self._crossed(epoch, length, exp.train.log_every):
+                last = self._log_chunk(epoch, phase, metrics, t0)
+                t0 = time.time()
+            elif exp.train.stop_tol > 0.0:
+                last = {"loss": float(metrics["loss"][-1])}
+            if exp.train.stop_tol > 0.0 and abs(last["loss"]) <= exp.train.stop_tol:
+                break
+            self._maybe_snapshot(epoch, length, state)
+            self._maybe_checkpoint(epoch, length, state)
+        summary = self.evaluate(state)
+        summary["epochs"] = epoch
+        self.logger.write_summary(summary)
+        if exp.train.out_dir:
+            self.save_checkpoint(state, tag="final")
+        return state, summary
+
+    # -- reporting --------------------------------------------------------
+    def _log_chunk(self, epoch, phase, metrics, t0):
+        # ONE device->host transfer of the chunk's last row
+        values = torch.stack([metrics[k][-1] for k in METRIC_KEYS]).cpu().numpy()
+        elapsed = time.time() - t0  # after the sync: the chunk's device time
+        last = {k: float(v) for k, v in zip(METRIC_KEYS, values)}
+        self.logger.log(epoch=epoch, phase=phase, elapsed=elapsed, **last)
+        return last
+
+    @staticmethod
+    def _crossed(epoch, length, every):
+        # true when (epoch-length, epoch] contains a multiple of `every`
+        return every > 0 and (epoch // every) != ((epoch - length) // every)
+
+    def _maybe_snapshot(self, epoch, length, state):
+        every = self.exp.train.snapshot_every
+        if every and self.exp.train.out_dir and self._crossed(epoch, length, every):
+            self.record_snapshot(state, epoch)
+
+    def _maybe_checkpoint(self, epoch, length, state):
+        every = self.exp.train.checkpoint_every
+        if every and self.exp.train.out_dir and self._crossed(epoch, length, every):
+            self.save_checkpoint(state, tag=f"e{epoch}")
+
+    def predict(self, params, x) -> Dict[str, np.ndarray]:
+        pin_numerics()
+        with torch.no_grad():
+            xt = torch.as_tensor(np.asarray(x), dtype=self.problem.spec.dtype).to(self.device)
+            out = predict_fields(self.problem, params, xt)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def evaluate(self, state: TrainState, params=None) -> Dict[str, Any]:
+        """Relative L2 error per field over the full exact grid, the PDE
+        coefficients, and the grid's provenance."""
+        params = state.params if params is None else params
+        ds = self.problem.dataset
+        preds = self.predict(params, ds.X_star)
+        out: Dict[str, Any] = {
+            f"rel_l2_{name}": relative_l2(preds[name], ds.star[name]) for name in ds.field_names
+        }
+        lam1, lam2 = self.problem.effective_coeffs(params)
+        out["lambda1"] = float(lam1.reshape(-1)[0])
+        out["lambda2"] = float(lam2.reshape(-1)[0])
+        out["truth"] = getattr(ds, "provenance", "unknown")
+        return out
+
+    def record_snapshot(self, state: TrainState, epoch: int):
+        """Append a full-grid prediction snapshot to <out>/<name>_snapshots.csv
+        (columns x, t, <field>_pred..., epoch)."""
+        ds = self.problem.dataset
+        preds = self.predict(state.params, ds.X_star)
+        cols = {"x": ds.X_star[:, 0], "t": ds.X_star[:, 1]}
+        for name in ds.field_names:
+            cols[f"{name}_pred"] = preds[name][:, 0]
+        cols["epoch"] = np.full(ds.X_star.shape[0], epoch)
+        self.logger.append_snapshot(cols)
+
+    # -- checkpointing ----------------------------------------------------
+    def save_checkpoint(self, state: TrainState, tag: str = "final") -> str:
+        out_dir = self.exp.train.out_dir or "."
+        path = os.path.join(out_dir, f"{self.exp.name}_{tag}.ckpt")
+        ckpt_io.save_checkpoint(path, state, meta={
+            "experiment": self.exp.name,
+            "epoch": int(state.epoch),
+            "rho": state.rho,
+        })
+        return path
+
+    def load_checkpoint(self, path: str) -> TrainState:
+        return ckpt_io.load_checkpoint(path, self.device)

@@ -1,4 +1,5 @@
-"""The port on the card: the fused Taylor-2 kernel and the served slice.
+"""The port on the card: the fused Taylor-2 kernel, the served slice, and the
+fused Adam-epoch kernel with the trainer that runs it.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and skips
 where ``torch.cuda.is_available()`` is False. The file imports no jax (the
@@ -60,3 +61,76 @@ def test_served_model_on_card(cuda_device, tmp_path):  # noqa: F811
     for k in ("u", "f"):
         assert_close(k, out[k], fx[f"{k}_jax"])
     assert abs(relative_l2(out["u"], fx["u_star"]) - float(fx["rel_l2_jax"])) <= 1e-5
+
+
+@pytest.mark.parametrize("kind,explicit_inner", [("admm", False), ("admm", True), ("mean_sq", False),
+                                                 ("l2_sq_norm", False), ("l1_sq_norm", False)])
+def test_fused_step_matches_its_reference_on_card(cuda_device, kind, explicit_inner):  # noqa: F811
+    """The CUDA step's loss and gradient against the hand-written reverse mode
+    in plain PyTorch on the same card, and its Adam stage and ADMM tail
+    against the plain functions fed the kernel's own gradient and params."""
+    from pinns_tpu_torch.losses.admm import ADMMState, admm_misfit, admm_update
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+    from pinns_tpu_torch.opt.adam import AdamState, adam_update
+
+    layers = (2, 16, 16, 16, 1)
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    net = init_mlp(spec, torch.Generator().manual_seed(3), cuda_device)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    colloc, x_data = t(numpy_points(77, seed=6)), t(numpy_points(13, seed=7))
+    u_data = t(rng.standard_normal((13, 1)))
+    z = t(0.1 * rng.standard_normal((77, 1))) if kind == "admm" else None
+    dual = t(1 + 0.1 * rng.standard_normal((77, 1))) if kind == "admm" else None
+    flat = pack_params(net)
+    mu, nu = 0.01 * torch.ones_like(flat), 1e-4 * torch.ones_like(flat)
+    new = t(numpy_points(77, seed=8))
+    cfg = dict(kind=kind, lam1=0.9, lam2=0.01, rho=10.0, lr=1e-3, explicit_inner=explicit_inner)
+    before = k_fused.LAUNCHES
+    r = k_fused.fused_adam_step(spec, flat, mu, nu, 4, x_data, u_data, colloc, z, dual, seed=9,
+                                epoch=5, new_colloc=new, want_grad=True, **cfg)
+    torch.cuda.synchronize()
+    assert k_fused.LAUNCHES == before + 1
+    loss, data_term, res_term, grads = k_fused.loss_and_grad_reference(
+        spec, net, x_data, u_data, colloc, z, dual, kind=kind, lam1=0.9, lam2=0.01, rho=10.0,
+        explicit_inner=explicit_inner)
+    got = r["grad"].cpu().numpy()
+    off = 0
+    for g in grads:
+        w = g.reshape(-1).cpu().numpy()
+        np.testing.assert_allclose(got[off:off + w.size], w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max())
+        off += w.size
+    m = r["metrics"].cpu().numpy()  # trainer.METRIC_KEYS order
+    np.testing.assert_allclose(m[[5, 1, 6]], [float(loss), float(data_term), float(res_term)],
+                               rtol=1e-4)
+    upd, adam = adam_update(r["grad"], AdamState(4, mu, nu), 1e-3)
+    np.testing.assert_allclose(r["params"].cpu().numpy(), (flat + upd).cpu().numpy(),
+                               rtol=1e-6, atol=1e-7)
+    assert torch.equal(r["colloc"], new)
+    if kind == "admm":
+        uu, ux, ut, uxx = mlp_taylor_2_reference(
+            spec, k_fused.unpack_params(r["params"], layers), new)
+        f = ut + 0.9 * uu * ux - 0.01 * uxx
+        want = admm_update(f, ADMMState(z, dual), 10.0, 77)
+        np.testing.assert_allclose(r["z"].cpu().numpy(), want.z.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(want.z.abs().max()))
+        np.testing.assert_allclose(m[0], float(admm_misfit(f, want)), rtol=1e-4, atol=1e-7)
+
+
+def test_trainer_on_card_runs_the_fused_step(cuda_device):  # noqa: F811
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(get_preset("abgrall_admm"), {"train.epochs": 30, "train.chunk": 10,
+                                                "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    before = k_fused.LAUNCHES
+    state, summary = trainer.train()
+    assert k_fused.LAUNCHES == before + 30 and state.epoch == 30
+    assert np.isfinite(summary["rel_l2_u"])
+    with pytest.raises(NotImplementedError, match="outside the fused CUDA step"):
+        Trainer(override(exp, {"sampling.strategy": "fixed_uniform"}), device="cuda")

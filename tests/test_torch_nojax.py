@@ -17,7 +17,12 @@ MODULES = [
     "pinns_tpu_torch.interop", "pinns_tpu_torch.models.mlp", "pinns_tpu_torch.ops.taylor",
     "pinns_tpu_torch.ops.residuals", "pinns_tpu_torch.ops.kernels.build",
     "pinns_tpu_torch.ops.kernels.taylor2", "pinns_tpu_torch.serve",
-    "pinns_tpu_torch.train.evaluate",
+    "pinns_tpu_torch.train.evaluate", "pinns_tpu_torch.config",
+    "pinns_tpu_torch.experiments", "pinns_tpu_torch.experiments.presets",
+    "pinns_tpu_torch.data.datasets", "pinns_tpu_torch.data.sampling", "pinns_tpu_torch.ops.prox",
+    "pinns_tpu_torch.losses.misfit", "pinns_tpu_torch.losses.admm", "pinns_tpu_torch.opt.adam",
+    "pinns_tpu_torch.train.trainer", "pinns_tpu_torch.train.metrics",
+    "pinns_tpu_torch.train.checkpoint", "pinns_tpu_torch.ops.kernels.fused_step",
 ]
 
 

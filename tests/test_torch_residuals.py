@@ -52,15 +52,30 @@ def test_burgers_residual_is_aux_prefix():
 
 
 def test_predict_fields_burgers_and_euler():
+    """predict_fields takes a Problem and the params tree, as in JAX; the
+    served model's burgers_fields is the same pass on a bare network."""
+    import dataclasses
+
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train.evaluate import burgers_fields
+    from pinns_tpu_torch.train.trainer import Problem
+
     spec = MLPSpec(layers=SMALL, lb=LB, ub=UB)
-    params = params_from_jax(numpy_params(SMALL, 24), CPU)
+    net = params_from_jax(numpy_params(SMALL, 24), CPU)
     x = torch.from_numpy(numpy_points(9, seed=25))
-    out = predict_fields(spec, params, x, 1.0, NU)
-    u, f = burgers_residual(spec, params, x, 1.0, NU)
+    exp = override(get_preset("burgers_forward"), {"model.layers": SMALL})
+    problem = Problem(exp=exp, dataset=None, spec=spec, x_data=None, targets={})
+    params = {"net": net, "coeffs": {"lambda1": torch.ones(1), "lambda2": torch.full((1,), NU)}}
+    out = predict_fields(problem, params, x)
+    u, f = burgers_residual(spec, net, x, params["coeffs"]["lambda1"], params["coeffs"]["lambda2"])
     assert sorted(out) == ["f", "u"]
     assert torch.equal(out["u"], u) and torch.equal(out["f"], f)
+    bare = burgers_fields(spec, net, x, params["coeffs"]["lambda1"], params["coeffs"]["lambda2"])
+    assert torch.equal(bare["u"], u) and torch.equal(bare["f"], f)
+    euler = dataclasses.replace(problem, exp=override(exp, {"pde.kind": "euler"}))
     with pytest.raises(NotImplementedError, match="slice 2"):
-        predict_fields(spec, params, x, 1.0, NU, pde="euler")
+        predict_fields(euler, params, x)
 
 
 def test_relative_l2():

@@ -1,0 +1,325 @@
+"""Port parity for the training slice: the loss and its gradient, the plain
+Adam step and the trainer, held against the JAX package at a small size
+(net 2 -> 16x3 -> 1, N_f = 64, N_u = 16; inputs from numpy with a seed), and
+the fused CUDA step's hand-written reverse mode held against torch.autograd.
+
+Tolerances: loss, terms and gradients rtol 1e-4 with atol 1e-5 * max|g| per
+leaf (float32 sums in other orders). Params after a step: Adam's first update
+is lr * g / (|g| + eps), so an entry whose gradient is within rounding of
+zero may take the other sign; each step may move such an entry by up to
+2 lr, hence atol 2 lr * steps on params, with all but a few entries within
+1e-6. z and dual follow the params through the residual at the new points.
+"""
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from pinns_tpu.config import override as joverride
+from pinns_tpu.data import datasets as jds
+from pinns_tpu.experiments.presets import PRESETS as JPRESETS
+from pinns_tpu.losses.admm import ADMMState as JADMM
+from pinns_tpu.models.mlp import MLPSpec as JSpec
+from pinns_tpu.train import trainer as jtrainer
+from pinns_tpu_torch.config import override
+from pinns_tpu_torch.experiments import get_preset
+from pinns_tpu_torch.interop import train_state_from_jax, train_state_to_numpy
+from pinns_tpu_torch.losses.admm import ADMMState
+from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+from pinns_tpu_torch.train import checkpoint as ckpt_io
+from pinns_tpu_torch.train import trainer as ttrainer
+from torch_port_util import SMALL, numpy_params, numpy_points
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GRID = os.path.join(REPO, "tests", "fixtures", "torch_port", "twosin_burgers_shock.npz")
+N_F, N_U, LR = 64, 16, 1e-3
+KINDS = [("admm", False), ("admm", True), ("mean_sq", False), ("l2_sq_norm", False),
+         ("l1_sq_norm", False)]
+KIND_IDS = ["admm", "admm-explicit", "mean_sq", "l2_sq_norm", "l1_sq_norm"]
+
+
+def _updates(kind="admm", explicit_inner=False, **extra):
+    return {"model.layers": SMALL, "sampling.n_f": N_F, "data.n_u": N_U,
+            "pde.lambda2": 0.01 / math.pi, "optimizer.kind": "adam",
+            "loss.residual_kind": kind, "loss.explicit_inner": explicit_inner, **extra}
+
+
+def _jax_problem(updates):
+    exp = joverride(JPRESETS["abgrall_admm"], updates)
+    with np.load(GRID) as z:
+        ds = jds.GridDataset(x=z["x"], t=z["t"], fields={"u": z["usol"].T},
+                             provenance=str(z["provenance"]))
+    x_data, targets = jds.build_ic_bc_training_set(ds, exp.data.n_u, seed=exp.data.seed)
+    spec = JSpec(layers=exp.model.layers, lb=tuple(float(v) for v in ds.lb),
+                 ub=tuple(float(v) for v in ds.ub))
+    return jtrainer.Problem(exp=exp, dataset=ds, spec=spec, x_data=jnp.asarray(x_data),
+                            targets={k: jnp.asarray(v) for k, v in targets.items()})
+
+
+def _port_problem(updates, dtype="float32"):
+    exp = override(get_preset("abgrall_admm"), dict(updates, **{"model.dtype": dtype}))
+    return ttrainer.build_problem(exp, "cpu", dataset=GRID)
+
+
+def _inputs(seed=41):
+    """numpy params (JAX layout), collocation batch, z and dual."""
+    rng = np.random.default_rng(seed)
+    return {
+        "net": numpy_params(SMALL, seed),
+        "colloc": numpy_points(N_F, seed + 1),
+        "z": (0.1 * rng.standard_normal((N_F, 1))).astype(np.float32),
+        "dual": (1.0 + 0.1 * rng.standard_normal((N_F, 1))).astype(np.float32),
+    }
+
+
+def _jax_params(net, lam1, lam2):
+    return {"net": [{k: jnp.asarray(v) for k, v in layer.items()} for layer in net],
+            "coeffs": {"lambda1": jnp.full((1,), lam1, jnp.float32),
+                       "lambda2": jnp.full((1,), lam2, jnp.float32)}}
+
+
+def _port_params(net, lam1, lam2, dtype=torch.float32):
+    return {"net": [{k: torch.tensor(v, dtype=dtype) for k, v in layer.items()} for layer in net],
+            "coeffs": {"lambda1": torch.full((1,), lam1, dtype=dtype),
+                       "lambda2": torch.full((1,), lam2, dtype=dtype)}}
+
+
+def _close_grad(got, want, name):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("kind,explicit_inner", KINDS, ids=KIND_IDS)
+def test_loss_and_grad_match_jax(kind, explicit_inner):
+    upd = _updates(kind, explicit_inner)
+    jp, tp = _jax_problem(upd), _port_problem(upd)
+    inp = _inputs()
+    lam1, lam2 = 1.0, 0.01 / math.pi
+    jadmm = JADMM(z=jnp.asarray(inp["z"]), dual=jnp.asarray(inp["dual"])) if kind == "admm" else None
+    (jloss, jaux), jgrad = jax.value_and_grad(jtrainer.make_loss_fn(jp), has_aux=True)(
+        _jax_params(inp["net"], lam1, lam2), jnp.asarray(inp["colloc"]), jadmm, None)
+
+    params = _port_params(inp["net"], lam1, lam2)
+    leaves = [t.requires_grad_(True) for layer in params["net"] for t in (layer["W"], layer["b"])]
+    tadmm = ADMMState(z=torch.from_numpy(inp["z"]), dual=torch.from_numpy(inp["dual"])) \
+        if kind == "admm" else None
+    tloss, taux = ttrainer.make_loss_fn(tp)(params, torch.from_numpy(inp["colloc"]), tadmm)
+    tgrad = torch.autograd.grad(tloss, leaves)
+
+    assert sorted(taux) == sorted(jaux)
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k].detach()), float(jaux[k]), rtol=1e-4, atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=1e-4)
+    jflat = [jgrad["net"][i][k] for i in range(len(SMALL) - 1) for k in ("W", "b")]
+    for i, (g, w) in enumerate(zip(tgrad, jflat)):
+        _close_grad(g.numpy(), w, f"leaf {i}")
+    np.testing.assert_array_equal(np.asarray(jgrad["coeffs"]["lambda1"]), 0.0)  # frozen
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("kind,explicit_inner", KINDS, ids=KIND_IDS)
+def test_kernel_reverse_mode_matches_autograd(kind, explicit_inner, dtype):
+    """The fused step's hand-written reverse mode (loss_and_grad_reference)
+    equals torch.autograd of the plain loss: to 1e-10 relative in float64,
+    and at the float32 gradient tolerance in float32."""
+    upd = _updates(kind, explicit_inner)
+    tp = _port_problem(upd, dtype)
+    dt = tp.spec.dtype
+    inp = _inputs(seed=43)
+    lam1, lam2 = 1.0, 0.01 / math.pi
+    params = _port_params(inp["net"], lam1, lam2, dt)
+    leaves = [t.requires_grad_(True) for layer in params["net"] for t in (layer["W"], layer["b"])]
+    colloc = torch.tensor(inp["colloc"], dtype=dt)
+    z, dual = torch.tensor(inp["z"], dtype=dt), torch.tensor(inp["dual"], dtype=dt)
+    admm = ADMMState(z=z, dual=dual) if kind == "admm" else None
+    loss, aux = ttrainer.make_loss_fn(tp)(params, colloc, admm)
+    want = torch.autograd.grad(loss, leaves)
+    net = [{k: v.detach() for k, v in layer.items()} for layer in params["net"]]
+    got_loss, data_term, res_term, got = k_fused.loss_and_grad_reference(
+        tp.spec, net, tp.x_data, tp.targets["u"], colloc, z, dual, kind=kind, lam1=lam1,
+        lam2=lam2, rho=tp.exp.loss.rho, explicit_inner=explicit_inner)
+    rtol = 1e-10 if dtype == "float64" else 1e-4
+    np.testing.assert_allclose(float(got_loss), float(loss.detach()), rtol=rtol)
+    np.testing.assert_allclose(float(data_term), float(aux["data_term"]), rtol=rtol)
+    np.testing.assert_allclose(float(res_term), float(aux["res_term"]), rtol=rtol)
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max())
+        atol = 1e-10 * scale if dtype == "float64" else 1e-5 * scale
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol, atol=atol, err_msg=f"leaf {i}")
+
+
+def _jax_state(jp, inp, lam1, lam2, optimizer):
+    params = _jax_params(inp["net"], lam1, lam2)
+    admm = JADMM(z=jnp.asarray(inp["z"]), dual=jnp.asarray(inp["dual"])) \
+        if jp.exp.loss.residual_kind == "admm" else None
+    return jtrainer.TrainState(params=params, opt_state=optimizer.init(params), admm=admm,
+                               colloc=jnp.asarray(inp["colloc"]), key=jax.random.key(5),
+                               epoch=jnp.zeros((), jnp.int32))
+
+
+def _jax_tree(state):
+    adam = state.opt_state[0]
+    out = {"params": jax.device_get(state.params), "count": np.asarray(adam.count),
+           "mu": jax.device_get(adam.mu), "nu": jax.device_get(adam.nu),
+           "colloc": np.asarray(state.colloc), "epoch": np.asarray(state.epoch), "key": 5}
+    if state.admm is not None:
+        out["z"], out["dual"] = np.asarray(state.admm.z), np.asarray(state.admm.dual)
+    return out
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+@pytest.mark.parametrize("kind", ["admm", "l1_sq_norm"])
+def test_plain_steps_track_jax(kind, n_steps):
+    """JAX's make_adam_step vs the port's plain step, each step fed JAX's
+    resampled points (from JAX's returned colloc)."""
+    upd = _updates(kind)
+    jp, tp = _jax_problem(upd), _port_problem(upd)
+    optimizer = optax.adam(LR)
+    jstep = jax.jit(jtrainer.make_adam_step(jp, optimizer))
+    tstep = ttrainer.make_adam_step(tp, LR)
+    inp = _inputs(seed=45)
+    jstate = _jax_state(jp, inp, 1.0, 0.01 / math.pi, optimizer)
+    tstate = train_state_from_jax(_jax_tree(jstate), torch.device("cpu"))
+    for k in range(n_steps):
+        jstate, jm = jstep(jstate)
+        tstate, tm = tstep(tstate, new_colloc=torch.from_numpy(np.array(jstate.colloc)))
+        assert sorted(tm) == sorted(jm)
+        for name in jm:
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"step {k} {name}")
+    want = _jax_tree(jstate)
+    got = train_state_to_numpy(tstate)
+    assert got["count"] == int(want["count"]) == n_steps and got["epoch"] == n_steps
+    np.testing.assert_array_equal(got["colloc"], want["colloc"])
+    gp = np.concatenate([a.ravel() for layer in got["params"]["net"] for a in layer.values()])
+    wp = np.concatenate([np.asarray(a).ravel() for layer in want["params"]["net"]
+                         for a in layer.values()])
+    diff = np.abs(gp - wp)
+    assert diff.max() <= 2 * LR * n_steps * (1 + 1e-3)
+    assert np.mean(diff > 1e-6) <= 0.01, np.sort(diff)[-10:]
+    for key in ("mu", "nu"):
+        g = np.concatenate([a.ravel() for layer in got[key]["net"] for a in layer.values()])
+        w = np.concatenate([np.asarray(a).ravel() for layer in want[key]["net"]
+                            for a in layer.values()])
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5 * np.abs(w).max(), err_msg=key)
+    if kind == "admm":
+        for key in ("z", "dual"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                       atol=1e-5 * np.abs(want[key]).max(), err_msg=key)
+
+
+def _tiny(tmp_path, **extra):
+    return override(get_preset("abgrall_admm"), dict(_updates(), **{
+        "train.epochs": 6, "train.chunk": 2, "train.log_every": 2,
+        "train.out_dir": str(tmp_path)}, **extra))
+
+
+def test_trainer_cpu_logs_checkpoints_and_never_launches(tmp_path, monkeypatch):
+    monkeypatch.setattr(jtrainer, "enable_compilation_cache", lambda *a, **k: None)
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jexp = joverride(JPRESETS["abgrall_admm"], dict(_updates(), **{
+        "train.epochs": 4, "train.chunk": 2, "train.log_every": 2, "train.out_dir": str(jdir)}))
+    jp = _jax_problem(_updates())
+    jp = dataclasses.replace(jp, exp=jexp)
+    jtrainer.Trainer(jexp, problem=jp).train()
+    exp = _tiny(tdir)
+    trainer = ttrainer.Trainer(exp, device="cpu", dataset=GRID)
+    before = k_fused.LAUNCHES
+    state, summary = trainer.train()
+    assert k_fused.LAUNCHES == before  # CPU tensors take the plain step
+
+    def records(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    jrec = records(jdir / "abgrall_admm_metrics.jsonl")
+    trec = records(tdir / "abgrall_admm_metrics.jsonl")
+    assert [sorted(r) for r in trec[:-1]] == [sorted(jrec[0])] * 3
+    assert [r["epoch"] for r in trec[:-1]] == [2, 4, 6]
+    assert sorted(trec[-1]["summary"]) == sorted(jrec[-1]["summary"])
+    assert summary["epochs"] == 6 and summary["truth"] == "native"
+    assert all(math.isfinite(v) for r in trec[:-1] for k, v in r.items()
+               if isinstance(v, float))
+
+    path = trainer.save_checkpoint(state, tag="test")
+    assert ckpt_io.load_meta(path) == {"experiment": "abgrall_admm", "epoch": 6, "rho": None}
+    back = trainer.load_checkpoint(path)
+    a, b = train_state_to_numpy(state), train_state_to_numpy(back)
+    assert a.keys() == b.keys()
+    for key in a:
+        torch.utils._pytree.tree_map(np.testing.assert_array_equal, a[key], b[key])
+    # a resumed run continues exactly where the first one would have gone
+    s1, _ = ttrainer.run_chunk(trainer._adam_step, state, 2)
+    s2, _ = ttrainer.run_chunk(trainer._adam_step, back, 2)
+    torch.utils._pytree.tree_map(np.testing.assert_array_equal,
+                                 train_state_to_numpy(s1)["params"],
+                                 train_state_to_numpy(s2)["params"])
+
+
+def test_hybrid_raises_at_the_lbfgs_switch(tmp_path):
+    exp = _tiny(tmp_path, **{"optimizer.kind": "hybrid", "optimizer.switch_epoch": 4})
+    trainer = ttrainer.Trainer(exp, device="cpu", dataset=GRID)
+    with pytest.raises(NotImplementedError, match="L-BFGS slice"):
+        trainer.train()
+
+
+@pytest.mark.parametrize("preset,match", [
+    ("euler_admm", "slice 2"), ("twosin_weak", "slice 2"), ("burgers_scale", "slice 3"),
+    ("euler_weak", "slice 2"),
+])
+def test_out_of_slice_presets_raise(preset, match):
+    with pytest.raises(NotImplementedError, match=match):
+        ttrainer.check_slice(get_preset(preset))
+
+
+def test_fused_step_scope():
+    spec_of = lambda exp: ttrainer.MLPSpec(layers=exp.model.layers, lb=(-1.0, 0.0),  # noqa: E731
+                                           ub=(1.0, 1.0))
+    for name in ("abgrall_admm", "abgrall_l1", "abgrall_l2", "abgrall_visc",
+                 "burgers_admm_batch"):
+        assert k_fused.fused_step_supported(get_preset(name), spec_of(get_preset(name))) == []
+    for name in ("burgers_forward", "hwan_admm", "burgers_batch_l1sq", "burgers_inverse"):
+        assert k_fused.fused_step_supported(get_preset(name), spec_of(get_preset(name)))
+    # on the card a configuration outside the scope raises instead of falling back
+    problem = _port_problem(_updates(**{"sampling.strategy": "fixed_uniform"}))
+    with pytest.raises(NotImplementedError, match="outside the fused CUDA step"):
+        k_fused.make_fused_adam_step(problem, LR)
+
+
+def test_fused_wrapper_raises_on_cpu_tensors():
+    tp = _port_problem(_updates())
+    flat = torch.zeros(tp.spec.n_params)
+    colloc = torch.zeros(N_F, 2)
+    before = k_fused.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k_fused.fused_adam_step(tp.spec, flat, flat, flat, 0, tp.x_data, tp.targets["u"],
+                                colloc, torch.zeros(N_F, 1), torch.ones(N_F, 1), kind="admm",
+                                lam1=1.0, lam2=0.0, rho=10.0, lr=LR, explicit_inner=False,
+                                seed=1, epoch=1)
+    assert k_fused.LAUNCHES == before
+
+
+def test_cli_train_on_cpu(tmp_path):
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "pinns_tpu_torch", "train", "--preset", "abgrall_admm",
+         "--epochs", "3", "--chunk", "2", "--device", "cpu", "--seed", "5",
+         "--out-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(summary) == ["epochs", "lambda1", "lambda2", "rel_l2_u", "truth"]
+    assert summary["epochs"] == 3 and 0.0 < summary["rel_l2_u"] < 10.0
+    assert (tmp_path / "abgrall_admm_metrics.jsonl").exists()
+    assert (tmp_path / "abgrall_admm_final.ckpt").exists()
