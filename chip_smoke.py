@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the Burgers serving
-path (slice 1) and the abgrall_admm training path (slice 2).
+path, the abgrall_admm Adam phase, and the L-BFGS phase of the hybrid
+schedule with the generic Adam step (abgrall_admm and burgers_forward).
 
     python3 chip_smoke.py
 
@@ -32,7 +33,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             records from three JAX seeds; the launch counts of that run
   times     ms per epoch of the kernel step and the plain step (CUDA events,
             medians) at 8x20 and 8x200, and wall time per 1,000-epoch chunk
-Then a {"kernels": [...]} summary line and, last, the result line.
+  10 k5     the fused MLP forward (K5) and its backward against the plain
+            versions at 8x20 (N 100, 25,600) and 8x200 (N 65,536, against
+            float64); two backward calls agree bit for bit
+  11 k2     the Taylor-2 backward (K2) against autograd through the plain
+            recurrence at 8x20 (N 1,000 and 10,456) and 8x200 (N 1,000)
+  12 cross-check  the generic loss's gradient (K5 + K1/K2 under autograd)
+            against K3's grad kernel at the JAX fixture's state
+  13 lbfgs-replay  lbfgs_minimize on the card from that state for 1, 2, 5
+            iterations against JAX's float32 iterates (equal n_iters), a
+            200-iteration solve's final loss within 1% of JAX's; the ms per
+            iteration and per value-and-grad, and host syncs per iteration
+  14 hybrid phase 9's state continued through Trainer.train over the switch:
+            10 L-BFGS outer epochs (of at most 300 iterations, the fixture's
+            schedule) on K5/K1/K2, no plain call, K3 never
+            launched again; loss does not rise; u rel-L2 in the band of
+            three JAX seeds at the same schedule
+  15 burgers_forward  a reduced schedule (the fixture's: 3,000 cosine Adam
+            epochs on the generic step, one L-BFGS outer epoch of at most
+            1,000 iterations): no plain call, u rel-L2 in its JAX band
+  times     K5 and K2 against plain (CUDA events) and the generic step
+            against the plain step for burgers_forward
+Each phase's wall time is printed. Then a {"kernels": [...]} summary line
+and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
 """
 
@@ -72,7 +95,7 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
        "u_xx": (1e-5, 1e-4), "f": (1e-5, 1e-4)}
 F64_FACTOR = 4.0
 REPS = 20
-KERNELS = ("taylor2", "fused_step")
+KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -84,6 +107,32 @@ STEP_TOL = {"loss": (1e-4, 1e-6), "grad": (1e-4, 1e-5), "adam": (1e-6, 1e-7),
             "admm_misfit": (1e-4, 1e-6)}
 TRAIN_EPOCHS = 10_000  # the fixture's band_epochs
 BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
+LBFGS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "lbfgs_hybrid.npz")
+# K5 at the data term's 100 points and the served grid's 25,600 (8x20), and
+# the wide net at 65,536; K2 at abgrall_admm's N_f, burgers_forward's anchored
+# batch (10,000 LHS + 456 IC/BC points) and the wide net
+K5_SHAPES = [(NARROW, 100), (NARROW, 25_600), (WIDE, 65_536)]
+K2_SHAPES = [(NARROW, 1_000), (NARROW, 10_456), (WIDE, 1_000)]
+REPLAY_STEP = 5  # the fixture state the L-BFGS replay starts from
+LONG_SOLVE = 200
+# L-BFGS iterates against JAX's: the gradients agree to ~1e-6 relative (1e-4
+# on a leaf whose sum cancels), so the step each solver takes agrees to well
+# within 1% of its size; both round x + a d in float32 (a few ulps of max|x|)
+ITERATE_STEP_TOL, ITERATE_ULP_TOL = 1e-2, 1e-6
+# after some dozens of float32 iterations the two trajectories part (sums in
+# other orders) and each stops where its line search runs out: the final f of
+# the long solve is held to 1% of JAX's
+LONG_SOLVE_BAND = 0.01
+HYBRID_OUTER = 10
+BF_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
+
+
+def timed(card: str, name: str, fn, *args):
+    """fn(*args), then a line with its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(card, phase="wall", of=name, seconds=time.perf_counter() - t0)
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -235,7 +284,7 @@ def plain_gradient(problem, params, colloc, admm, dtype=None):
     params = tr.tree_map(lambda t: cast(t).detach().clone().requires_grad_(True), params)
     if admm is not None:
         admm = type(admm)(z=cast(admm.z), dual=cast(admm.dual))
-    loss, aux = tr.make_loss_fn(problem)(params, cast(colloc), admm)
+    loss, aux = tr.make_loss_fn(problem, plain=True)(params, cast(colloc), admm)
     g = torch.autograd.grad(loss, tr.tree_leaves(params["net"]))
     return torch.cat([t.reshape(-1) for t in g]), {k: float(v.detach()) for k, v in aux.items()}
 
@@ -282,7 +331,7 @@ def phase_step_kernel(card: str) -> dict:
     problem = trainer.problem
     lr = trainer.learning_rate
     state = trainer.init_state(seed=11)
-    plain_step = tr.make_adam_step(problem, lr)
+    plain_step = tr.make_adam_step(problem, lr, plain=True)
     for _ in range(3):
         state, _ = plain_step(state)
     before = k_fused.LAUNCHES
@@ -312,7 +361,7 @@ def phase_step_kernel(card: str) -> dict:
     new_net = k_fused.unpack_params(r["params"], problem.spec.layers)
     admm_new, colloc_new, _, mis = tr._post_update(
         problem, dict(state.params, net=new_net), state.admm, state.colloc, state.key,
-        None, state.epoch)
+        None, state.epoch, plain=True)
     rows["colloc"] = close("colloc", host(r["colloc"]), host(colloc_new))
     rows["z"] = close("z", host(r["z"]), host(admm_new.z))
     rows["dual"] = close("dual", host(r["dual"]), host(admm_new.dual),
@@ -463,7 +512,7 @@ def phase_train(card: str) -> dict:
          loss=[first["loss"], last["loss"]], admm_misfit=[first["admm_misfit"], last["admm_misfit"]],
          rel_l2_u=rel, band=list(band), jax_seeds=band_rel.tolist(),
          fused_step_launches=launches, taylor2_launches=t2_launches, summary=summary)
-    return {"launches": launches}
+    return {"launches": launches, "state": state, "loss": last["loss"]}
 
 
 def phase_step_times(card: str, nets: dict) -> dict:
@@ -474,7 +523,7 @@ def phase_step_times(card: str, nets: dict) -> dict:
     out = {}
     for net, (trainer, state) in nets.items():
         kernel_step = trainer._adam_step
-        plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate)
+        plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
         ms = event_ms(lambda: kernel_step(state))
         plain = event_ms(lambda: plain_step(state))
         emit(card, phase="times", what="train_epoch", net=net, n_f=trainer.exp.sampling.n_f,
@@ -489,6 +538,418 @@ def phase_step_times(card: str, nets: dict) -> dict:
     chunk = time.perf_counter() - t0
     emit(card, phase="times", what="train_chunk", net="8x20", epochs=1000, wall_s=chunk,
          epochs_per_s=1000 / chunk, clock="host")
+    return out
+
+
+class PlainCalls:
+    """Counts calls of the plain versions of the kernels while active: it
+    wraps them where the port looks them up (their modules and the
+    trainer's namespace)."""
+
+    def __init__(self):
+        from pinns_tpu_torch.models import mlp
+        from pinns_tpu_torch.ops import taylor
+        from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
+        from pinns_tpu_torch.train import trainer
+
+        self.sites = [(m, name) for name, mods in (
+            ("mlp_apply_reference", (mlp, trainer)),
+            ("mlp_taylor_2_reference", (taylor, trainer)),
+            ("mlp_backward_reference", (mlp_forward,)),
+            ("taylor2_backward_reference", (taylor2, fused_step)),
+        ) for m in mods]
+        self.calls = 0
+
+    def __enter__(self):
+        self.saved = [getattr(m, name) for m, name in self.sites]
+
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for (m, name), fn in zip(self.sites, self.saved):
+            setattr(m, name, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name), fn in zip(self.sites, self.saved):
+            setattr(m, name, fn)
+
+
+def kernel_counts() -> dict:
+    """The launch counts of every kernel wrapper, by kernel name."""
+    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
+
+    return {"taylor2": taylor2.LAUNCHES, "fused_step": fused_step.LAUNCHES,
+            "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
+            "taylor2_backward": taylor2.BACKWARD_LAUNCHES}
+
+
+def reset_counts() -> None:
+    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
+
+    taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = 0
+    fused_step.LAUNCHES = 0
+    mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
+
+
+def net_f64(params):
+    return [{k: v.double() for k, v in p.items()} for p in params]
+
+
+def flat_np(grads) -> np.ndarray:
+    return np.concatenate([host(g).ravel() for g in grads]).astype(np.float64)
+
+
+def phase_mlp_kernels(card: str, nets: dict) -> dict:
+    """10: K5 forward and backward against their plain versions."""
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+
+    out = {}
+    for layers, n in K5_SHAPES:
+        spec, params = nets[layers]
+        spec64 = dataclasses.replace(spec, dtype=torch.float64)
+        x = points(n, seed=n + 1, device="cuda")
+        # a seeded cotangent at the scale of a mean over the points
+        g = torch.from_numpy((np.random.default_rng(n + 2).standard_normal((n, 1)) / n)
+                             .astype(np.float32)).cuda()
+        with torch.no_grad():
+            u = k_mlp.mlp_forward(spec, params, x)
+            grad = k_mlp.mlp_backward(spec, params, x, g)
+            again = k_mlp.mlp_backward(spec, params, x, g)
+            u_plain = mlp_apply_reference(spec, params, x)
+            u64 = mlp_apply_reference(spec64, net_f64(params), x.double())
+            g_plain = k_mlp.mlp_backward_reference(spec, params, x, g)
+            g64 = k_mlp.mlp_backward_reference(spec64, net_f64(params), x.double(), g.double())
+            torch.cuda.synchronize()
+        check(torch.equal(grad, again), f"K5 backward at {n} points: two calls differ")
+        net = f"{len(layers) - 2}x{max(layers)}"
+        if layers == WIDE:
+            fwd = compare_f64("u", host(u), host(u_plain), host(u64))
+            fwd["max_abs_err"] = fwd["max_abs_err_vs_plain"]
+        else:
+            fwd = compare("u", host(u), host(u_plain))
+        bwd = close_grad(host(grad), flat_np(g_plain), layers, flat_np(g64))
+        out[(layers, n)] = (fwd["max_abs_err"], bwd["max_abs_err"])
+        emit(card, phase="k5", net=net, n=n, forward=fwd, backward=bwd,
+             forward_config=list(k_mlp.forward_config(layers)),
+             backward_config=list(k_mlp.backward_config(layers, n)), bitwise_repeatable=True)
+    return out
+
+
+def phase_taylor2_backward(card: str, nets: dict) -> dict:
+    """11: K2 against autograd through the plain recurrence."""
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+
+    def autograd(spec, params, x, cot):
+        leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
+        net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        outs = mlp_taylor_2_reference(spec, net, x)
+        return flat_np(torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)),
+                                           leaves))
+
+    out = {}
+    for layers, n in K2_SHAPES:
+        spec, params = nets[layers]
+        spec64 = dataclasses.replace(spec, dtype=torch.float64)
+        x = points(n, seed=n + 3, device="cuda")
+        rng = np.random.default_rng(n + 4)
+        cot = [torch.from_numpy((rng.standard_normal((n, 1)) / n).astype(np.float32)).cuda()
+               for _ in range(4)]
+        grad = k_taylor2.taylor2_backward(spec, params, x, cot)
+        again = k_taylor2.taylor2_backward(spec, params, x, cot)
+        plain = autograd(spec, params, x, cot)
+        exact = autograd(spec64, net_f64(params), x.double(), [c.double() for c in cot])
+        torch.cuda.synchronize()
+        check(torch.equal(grad, again), f"K2 at {n} points: two calls differ")
+        row = close_grad(host(grad), plain, layers, exact)
+        out[(layers, n)] = row["max_abs_err"]
+        emit(card, phase="k2", net=f"{len(layers) - 2}x{max(layers)}", n=n,
+             criterion="close_grad vs autograd through the plain recurrence", grad=row,
+             backward_config=list(k_taylor2.backward_config(layers, n)), bitwise_repeatable=True)
+    return out
+
+
+def replay_state():
+    """The abgrall_admm problem, and the JAX state the L-BFGS fixture starts
+    from (abgrall_admm_steps.npz, after REPLAY_STEP Adam steps)."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.losses.admm import ADMMState
+    from pinns_tpu_torch.ops.kernels.fused_step import unpack_params
+    from pinns_tpu_torch.train import trainer as tr
+
+    with np.load(STEPS_FIXTURE, allow_pickle=False) as z:
+        fx = {k: z[k] for k in z.files}
+    with np.load(LBFGS_FIXTURE, allow_pickle=False) as z:
+        lb = {k: z[k] for k in z.files}
+    k = int(lb["replay_step"])
+    problem = tr.build_problem(get_preset("abgrall_admm"), "cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    params = {"net": unpack_params(t(fx[f"params_{k}"]), problem.spec.layers),
+              "coeffs": {"lambda1": torch.full((1,), float(fx["lambda1"]), device="cuda"),
+                         "lambda2": torch.full((1,), float(fx["lambda2"]), device="cuda")}}
+    return problem, params, t(fx[f"colloc_{k}"]), ADMMState(z=t(fx[f"z_{k}"]),
+                                                              dual=t(fx[f"dual_{k}"])), fx, lb
+
+
+def phase_cross_check(card: str) -> dict:
+    """12: the generic loss's value and gradient (K5 + K1/K2 under autograd)
+    against K3's grad kernel, at the JAX fixture's state."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+    from pinns_tpu_torch.train import trainer as tr
+
+    problem, params, colloc, admm, fx, _ = replay_state()
+    exp = problem.exp
+    leaves = [t.detach().clone().requires_grad_(True) for p in params["net"] for t in p.values()]
+    net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+    before = kernel_counts()
+    loss, aux = tr.make_loss_fn(problem)(dict(params, net=net), colloc, admm)
+    generic = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, leaves)])
+    loss = loss.detach()
+    flat = pack_params(params["net"])
+    r = k_fused.fused_adam_step(
+        problem.spec, flat, torch.zeros_like(flat), torch.zeros_like(flat), 0, problem.x_data,
+        problem.targets["u"].contiguous(), colloc, admm.z, admm.dual, kind="admm",
+        lam1=exp.pde.lambda1, lam2=exp.pde.lambda2, rho=exp.loss.rho, lr=1e-3,
+        explicit_inner=False, seed=0, epoch=1, want_grad=True)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in kernel_counts().items()}
+    check(all(used[k] == 1 for k in ("mlp_forward", "mlp_backward", "taylor2",
+                                     "taylor2_backward", "fused_step")), f"launches {used}")
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    g64, aux64 = plain_gradient(p64, params, colloc, admm, torch.float64)
+    m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
+    rows = {"grad": close_grad(host(generic), host(r["grad"]), problem.spec.layers, host(g64)),
+            "loss": close("loss", float(loss), m["loss"], scale=aux64["loss"])}
+    emit(card, phase="cross-check", state=f"abgrall_admm_steps.npz step {REPLAY_STEP}",
+         criterion="close_grad: generic K5+K1/K2 gradient vs K3's grad kernel", rows=rows,
+         loss_generic=float(loss), loss_k3=float(m["loss"]), loss_f64=aux64["loss"],
+         launches=used)
+    return rows
+
+
+def phase_lbfgs_replay(card: str) -> dict:
+    """13: the port's lbfgs_minimize on the card from the JAX fixture's state
+    against JAX's float32 result; the cost of an iteration."""
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.train import trainer as tr
+
+    problem, params, colloc, admm, _, fx = replay_state()
+    cfg = problem.exp.optimizer.lbfgs
+    loss_fn = tr.make_loss_fn(problem)
+    x0, unravel = lb_mod.ravel_tree(params)
+    check(np.array_equal(host(x0), fx["x0"]), "ravel order differs from JAX's ravel_pytree")
+    fun = lambda x: loss_fn(unravel(x), colloc, admm)[0]  # noqa: E731
+    solve = lambda k: lb_mod.lbfgs_minimize(  # noqa: E731
+        fun, x0, max_iters=k, history=cfg.history, ftol=cfg.ftol, gtol=cfg.gtol,
+        max_ls=cfg.max_ls)
+    rows = {}
+    x0_np = fx["x0"].astype(np.float64)
+    for k in (1, 2, 5):
+        res = solve(k)
+        want = fx[f"x_{k}"].astype(np.float64)
+        got = host(res.x).astype(np.float64)
+        err = float(np.abs(got - want).max())
+        step = float(np.abs(want - x0_np).max())
+        bound = ITERATE_STEP_TOL * step + ITERATE_ULP_TOL * float(np.abs(want).max())
+        check(err <= bound, f"L-BFGS x after {k} iterations: err {err} > {bound}")
+        check(res.n_iters == int(fx[f"n_iters_{k}"]),
+              f"n_iters {res.n_iters} != JAX {int(fx[f'n_iters_{k}'])}")
+        f5 = float(res.f)
+        rows[f"k{k}"] = {"max_abs_err": err, "bound": bound, "jax_step": step,
+                         "n_iters": res.n_iters, "n_evals": [res.n_evals, int(fx[f"n_evals_{k}"])],
+                         "f": close("loss", float(res.f), float(fx[f"f_{k}"]))}
+    syncs = lb_mod.HOST_SYNCS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(LONG_SOLVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = lb_mod.HOST_SYNCS - syncs
+    f_jax, f = float(fx[f"f_{LONG_SOLVE}"]), float(res.f)
+    band = (f_jax * (1 - LONG_SOLVE_BAND), f_jax * (1 + LONG_SOLVE_BAND))
+    check(band[0] <= f <= band[1], f"L-BFGS f after the long solve {f} outside {band}")
+    check(f <= f5, f"the long solve ended at {f}, above the 5-iteration {f5}")
+    vg = lb_mod.value_and_grad(fun)
+    vg_ms = event_ms(lambda: vg(x0))
+    out = {"ms_per_iter": 1e3 * wall / res.n_iters, "vg_ms": vg_ms,
+           "syncs_per_iter": syncs / res.n_iters, "evals_per_iter": res.n_evals / res.n_iters}
+    emit(card, phase="lbfgs-replay", rows=rows,
+         long_solve={"max_iters": LONG_SOLVE, "n_iters": res.n_iters, "n_evals": res.n_evals,
+                     "jax_n_iters": int(fx[f"n_iters_{LONG_SOLVE}"]),
+                     "jax_n_evals": int(fx[f"n_evals_{LONG_SOLVE}"]), "f": f, "f_jax": f_jax,
+                     "band": list(band), "wall_s": wall, "host_syncs": syncs},
+         times={**out, "clock": "host for the iteration, cuda_events for value-and-grad"})
+    return out
+
+
+def phase_hybrid(card: str, adam: dict) -> dict:
+    """14: phase 9's abgrall_admm state continued through Trainer.train over
+    the switch: HYBRID_OUTER L-BFGS outer epochs."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    with np.load(LBFGS_FIXTURE, allow_pickle=False) as z:
+        band_rel, adam_epochs, outer = z["hybrid_rel_l2"], int(z["hybrid_adam"]), int(z["hybrid_outer"])
+        max_iters = int(z["hybrid_max_iters"])
+    check(adam_epochs == TRAIN_EPOCHS and outer == HYBRID_OUTER, "fixture schedule")
+    band = (float(band_rel.min()) - BAND_MARGIN, float(band_rel.max()) + BAND_MARGIN)
+    state = adam["state"]
+    check(state.epoch == TRAIN_EPOCHS, "phase 9's state")
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = override(get_preset("abgrall_admm"), {
+            "train.epochs": TRAIN_EPOCHS + HYBRID_OUTER, "optimizer.switch_epoch": TRAIN_EPOCHS,
+            "optimizer.lbfgs.max_iters": max_iters, "train.log_every": 1000, "train.out_dir": tmp})
+        trainer = Trainer(exp, device="cuda")
+        iters = []
+        lbfgs_step = trainer._lbfgs_step
+
+        def step(st, out=None, new_colloc=None):
+            st, m = lbfgs_step(st, out, new_colloc)
+            iters.append(int(m["lbfgs_iters"]))
+            return st, m
+
+        trainer._lbfgs_step = step
+        reset_counts()
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            state, summary = trainer.train(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        with open(os.path.join(tmp, "abgrall_admm_metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f if "summary" not in line]
+    check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
+    check(launches["fused_step"] == 0 and adam["launches"] == TRAIN_EPOCHS,
+          "K3 launched outside the Adam phase")
+    check(all(launches[k] > 0 for k in ("mlp_forward", "mlp_backward", "taylor2",
+                                        "taylor2_backward")), f"launches {launches}")
+    check(len(iters) == HYBRID_OUTER and state.epoch == TRAIN_EPOCHS + HYBRID_OUTER,
+          f"{len(iters)} L-BFGS outer epochs")
+    check(logs[-1]["phase"] == "lbfgs" and logs[-1]["lbfgs_iters"] == iters[-1], "the log")
+    loss = logs[-1]["loss"]
+    check(math.isfinite(loss) and loss <= adam["loss"], f"loss {adam['loss']} -> {loss}")
+    rel = summary["rel_l2_u"]
+    check(band[0] <= rel <= band[1], f"u rel-L2 {rel} outside the JAX band {band}")
+    emit(card, phase="hybrid", preset="abgrall_admm", adam_epochs=TRAIN_EPOCHS,
+         lbfgs_outer=len(iters), lbfgs_max_iters=max_iters, lbfgs_iters=iters, wall_s=wall, loss=[adam["loss"], loss],
+         admm_misfit=logs[-1]["admm_misfit"], rel_l2_u=rel, band=list(band),
+         jax_seeds=band_rel.tolist(), launches=launches, plain_calls=plain.calls,
+         summary=summary)
+    return {"launches": launches}
+
+
+def phase_burgers_forward(card: str) -> dict:
+    """15: burgers_forward at a reduced schedule through Trainer.train on the
+    card: the generic Adam step (cosine decay, the fixed anchored batch),
+    then L-BFGS."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels.fused_step import fused_step_supported
+    from pinns_tpu_torch.train import trainer as tr
+
+    with np.load(LBFGS_FIXTURE, allow_pickle=False) as z:
+        band_rel = z["bf_rel_l2"]
+        sched = {k: int(z[f"bf_{k}"]) for k in ("adam", "schedule", "outer", "max_iters")}
+    band = (float(band_rel.min()) - BF_MARGIN, float(band_rel.max()) + BF_MARGIN)
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = override(get_preset("burgers_forward"), {
+            "train.epochs": sched["adam"] + sched["outer"],
+            "optimizer.switch_epoch": sched["adam"],
+            "optimizer.schedule_epochs": sched["schedule"],
+            "optimizer.lbfgs.max_iters": sched["max_iters"],
+            "train.log_every": 1000, "train.out_dir": tmp})
+        trainer = tr.Trainer(exp, device="cuda")
+        check(bool(fused_step_supported(exp, trainer.problem.spec)), "burgers_forward in K3's scope")
+        state = trainer.init_state()
+        reset_counts()
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            state, summary = trainer.train(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        with open(os.path.join(tmp, "burgers_forward_metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f if "summary" not in line]
+    check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
+    check(launches["fused_step"] == 0, "K3 launched outside its scope")
+    check(launches["mlp_backward"] >= sched["adam"] and launches["taylor2_backward"] >= sched["adam"],
+          f"launches {launches}")
+    check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float)),
+          "non-finite metrics")
+    check([r["phase"] for r in logs][-1] == "lbfgs" and logs[-1]["lbfgs_iters"] > 0, "the log")
+    rel = summary["rel_l2_u"]
+    check(band[0] <= rel <= band[1], f"u rel-L2 {rel} outside the JAX band {band}")
+    n_f = int(trainer.problem.exp.sampling.n_f)
+    emit(card, phase="burgers_forward", schedule=sched, n_colloc=int(state.colloc.shape[0]),
+         n_f=n_f, wall_s=wall, loss=[logs[0]["loss"], logs[-1]["loss"]],
+         lbfgs_iters=logs[-1]["lbfgs_iters"], rel_l2_u=rel, band=list(band),
+         jax_seeds=band_rel.tolist(), launches=launches, plain_calls=plain.calls,
+         summary=summary)
+    return {"trainer": trainer, "launches": launches}
+
+
+def phase_slice3_times(card: str, nets: dict, bf) -> dict:
+    """times: K5 and K2 against plain (CUDA events, medians), and the generic
+    step against the plain step for burgers_forward."""
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+    from pinns_tpu_torch.train import trainer as tr
+
+    out = {}
+    for layers, n in K5_SHAPES:
+        spec, params = nets[layers]
+        leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
+        net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        x = points(n, seed=n + 5, device="cuda")
+        g = torch.ones((n, 1), device="cuda")
+        with torch.no_grad():
+            fwd = event_ms(lambda: k_mlp.mlp_forward(spec, params, x))
+            fwd_plain = event_ms(lambda: mlp_apply_reference(spec, params, x))
+            bwd = event_ms(lambda: k_mlp.mlp_backward(spec, params, x, g))
+        bwd_plain = event_ms(lambda: torch.autograd.grad(
+            mlp_apply_reference(spec, net, x), leaves, g))
+        out[("k5", layers, n)] = (fwd, fwd_plain, bwd, bwd_plain)
+        emit(card, phase="times", what="k5", net=f"{len(layers) - 2}x{max(layers)}", n=n,
+             forward_ms=fwd, forward_plain_ms=fwd_plain, backward_ms=bwd,
+             backward_plain_ms=bwd_plain, reps=REPS, clock="cuda_events",
+             plain="mlp_apply_reference; backward by autograd through it")
+    for layers, n in K2_SHAPES:
+        spec, params = nets[layers]
+        leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
+        net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        x = points(n, seed=n + 6, device="cuda")
+        cot = [torch.ones((n, 1), device="cuda") for _ in range(4)]
+        ms = event_ms(lambda: k_taylor2.taylor2_backward(spec, params, x, cot))
+
+        def plain():
+            outs = mlp_taylor_2_reference(spec, net, x)
+            return torch.autograd.grad(outs, leaves, cot)
+
+        plain_ms = event_ms(plain)
+        out[("k2", layers, n)] = (ms, plain_ms)
+        emit(card, phase="times", what="k2", net=f"{len(layers) - 2}x{max(layers)}", n=n,
+             kernel_ms=ms, plain_ms=plain_ms, reps=REPS, clock="cuda_events",
+             plain="autograd through mlp_taylor_2_reference (its forward included)")
+    trainer = bf["trainer"]
+    state = trainer.init_state(seed=3)
+    generic = trainer._adam_step
+    plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
+    ms = event_ms(lambda: generic(state))
+    plain_ms = event_ms(lambda: plain_step(state))
+    out["generic_step"] = (ms, plain_ms)
+    emit(card, phase="times", what="generic_step", preset="burgers_forward",
+         n_colloc=int(state.colloc.shape[0]), generic_ms=ms, plain_ms=plain_ms, reps=REPS,
+         clock="cuda_events")
     return out
 
 
@@ -639,13 +1100,24 @@ def main() -> int:
             emit(card, phase="times", what="served_predict", net="8x20", n=n,
                  ms=ms, points_per_s=n / (ms / 1e3), reps=REPS, clock="host")
 
-    # -- 7-9 and times: the training path ------------------------------------
-    step = phase_step_kernel(card)
-    phase_train_slice(card)
-    train = phase_train(card)
-    epoch_ms = phase_step_times(card, {"8x20": step["narrow"], "8x200": step["wide"]})
+    # -- 7-9 and times: the training path (Adam on K3) ----------------------
+    step = timed(card, "step-kernel", phase_step_kernel, card)
+    timed(card, "train-slice", phase_train_slice, card)
+    train = timed(card, "train", phase_train, card)
+    epoch_ms = timed(card, "times", phase_step_times, card,
+                     {"8x20": step["narrow"], "8x200": step["wide"]})
+
+    # -- 10-15 and times: the L-BFGS phase and the generic step (K5, K2) -----
+    k5 = timed(card, "k5", phase_mlp_kernels, card, nets)
+    k2 = timed(card, "k2", phase_taylor2_backward, card, nets)
+    timed(card, "cross-check", phase_cross_check, card)
+    timed(card, "lbfgs-replay", phase_lbfgs_replay, card)
+    hybrid = timed(card, "hybrid", phase_hybrid, card, train)
+    bf = timed(card, "burgers_forward", phase_burgers_forward, card)
+    t3 = timed(card, "times-slice3", phase_slice3_times, card, nets, bf)
 
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
+    k5_main, k2_main = (NARROW, 100), (NARROW, 1_000)
     print(json.dumps({"kernels": [{
         "name": "taylor2",
         "route": "cuda",
@@ -664,6 +1136,33 @@ def main() -> int:
         "max_abs_err": step["grad_err"],
         "ms": epoch_ms["8x20"][0],
         "plain_ms": epoch_ms["8x20"][1],
+    }, {
+        "name": "mlp_forward",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/mlp_forward.cu",
+        "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103",
+        "launches": hybrid["launches"]["mlp_forward"],
+        "max_abs_err": k5[k5_main][0],
+        "ms": t3[("k5",) + k5_main][0],
+        "plain_ms": t3[("k5",) + k5_main][1],
+    }, {
+        "name": "mlp_backward",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/mlp_forward.cu",
+        "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103",
+        "launches": hybrid["launches"]["mlp_backward"],
+        "max_abs_err": k5[k5_main][1],
+        "ms": t3[("k5",) + k5_main][2],
+        "plain_ms": t3[("k5",) + k5_main][3],
+    }, {
+        "name": "taylor2_backward",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor2_backward.cu",
+        "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:391",
+        "launches": hybrid["launches"]["taylor2_backward"],
+        "max_abs_err": k2[k2_main],
+        "ms": t3[("k2",) + k2_main][0],
+        "plain_ms": t3[("k2",) + k2_main][1],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

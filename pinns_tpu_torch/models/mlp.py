@@ -155,13 +155,29 @@ def embed_streams(spec: MLPSpec, h: torch.Tensor):
     return h, eye[0:1] * scale, eye[1:2] * scale, None
 
 
-def mlp_apply(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass: normalize -> tanh layers -> linear head. (N, in) -> (N, out)."""
+def mlp_apply_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The plain forward pass: normalize -> tanh layers -> linear head, in
+    ``spec.dtype`` on ``x``'s device. (N, in) -> (N, out)."""
     h = normalize_inputs(spec, x)
     for layer in params[:-1]:
         h = torch.tanh(h @ layer["W"] + layer["b"])
     last = params[-1]
     return h @ last["W"] + last["b"]
+
+
+def mlp_apply(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Forward pass: normalize -> tanh layers -> linear head. (N, in) -> (N, out).
+
+    A CPU tensor takes the plain version (:func:`mlp_apply_reference`); any
+    other goes to the fused forward kernel K5, differentiable in the params
+    through its backward kernel (``ops.kernels.mlp_forward``), which raises
+    on what it cannot take.
+    """
+    if x.device.type == "cpu":
+        return mlp_apply_reference(spec, params, x)
+    from pinns_tpu_torch.ops.kernels.mlp_forward import mlp_apply_kernel
+
+    return mlp_apply_kernel(spec, params, x)
 
 
 class MLP(nn.Module):

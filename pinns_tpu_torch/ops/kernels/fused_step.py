@@ -30,9 +30,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pinns_tpu_torch.models.mlp import MLPSpec, Params, normalize_inputs, input_scale
+from pinns_tpu_torch.models.mlp import MLPSpec, Params
 from pinns_tpu_torch.ops.kernels import build
-from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+from pinns_tpu_torch.ops.kernels.taylor2 import pack_params, taylor2_backward_reference
 from pinns_tpu_torch.opt.adam import B1, B2, EPS, AdamState, bias_corrections
 
 LAUNCHES = 0  # kernel launches (one per epoch) in this process; chip_smoke.py reads it
@@ -263,8 +263,7 @@ def make_fused_adam_step(problem, learning_rate: float):
     if why:
         raise NotImplementedError(
             f"experiment {exp.name!r} is outside the fused CUDA step's scope ({'; '.join(why)}); "
-            "the generic autograd step on the card comes with the L-BFGS slice "
-            "(ROADMAP queue 1 item 5)"
+            "train.trainer.make_step gives it the generic Adam step over the kernel ops"
         )
     lam2_raw = exp.pde.lambda2
     lam2 = float(np.exp(np.float32(lam2_raw))) if exp.pde.lambda2_transform == "exp" else lam2_raw
@@ -304,60 +303,6 @@ def make_fused_adam_step(problem, learning_rate: float):
     return step
 
 
-def _act(p, px, pt, pxx):
-    s = torch.tanh(p)
-    d1 = 1.0 - s * s
-    d2 = -2.0 * s * d1
-    return s, d1 * px, d1 * pt, d2 * px * px + d1 * pxx
-
-
-def _act_backward(p, px, pt, pxx, gh, ghx, ght, ghxx):
-    """Adjoints of a tanh layer's pre-activation streams from those of its
-    output streams (the formulas in the header of csrc/fused_step.cu)."""
-    s = torch.tanh(p)
-    d1 = 1.0 - s * s
-    d2 = -2.0 * s * d1
-    gpxx = ghxx * d1
-    gpx = ghx * d1 + 2.0 * ghxx * d2 * px
-    gpt = ght * d1
-    gp = d1 * (gh - 2.0 * s * (ghx * px + ght * pt + ghxx * pxx)
-               + (6.0 * s * s - 2.0) * ghxx * px * px)
-    return gp, gpx, gpt, gpxx
-
-
-def _streams_backward(spec: MLPSpec, net: Params, x: torch.Tensor, seeds) -> List[torch.Tensor]:
-    """Gradient (flat, pack_params order) of sum over points of
-    seeds . (u, u_x, u_t, u_xx), by the hand-written reverse mode."""
-    h = normalize_inputs(spec, x)
-    scale = input_scale(spec, x.device)
-    n = x.shape[0]
-    zero = torch.zeros_like(h)
-    ex = torch.zeros_like(h)
-    ex[:, 0] = scale[0]
-    et = torch.zeros_like(h)
-    et[:, 1] = scale[1]
-    streams = (h, ex, et, zero)
-    pre = []  # pre-activation streams of each hidden layer
-    inputs = [streams]
-    for layer in net[:-1]:
-        w, b = layer["W"], layer["b"]
-        P = (streams[0] @ w + b, streams[1] @ w, streams[2] @ w, streams[3] @ w)
-        pre.append(P)
-        streams = _act(*P)
-        inputs.append(streams)
-    grads: List[Optional[torch.Tensor]] = [None] * (2 * len(net))
-    G = tuple(s.reshape(n, 1) for s in seeds)
-    for l in range(len(net) - 1, -1, -1):
-        w = net[l]["W"]
-        X = inputs[l]
-        grads[2 * l] = sum(X[s].T @ G[s] for s in range(4))
-        grads[2 * l + 1] = G[0].sum(dim=0, keepdim=True)
-        if l > 0:
-            gH = tuple(g @ w.T for g in G)
-            G = _act_backward(*pre[l - 1], *gH)
-    return grads
-
-
 def loss_and_grad_reference(
     spec: MLPSpec, net: Params, x_data, u_data, colloc, z, dual, *,
     kind: str, lam1: float, lam2: float, rho: float, explicit_inner: bool = False,
@@ -388,11 +333,11 @@ def loss_and_grad_reference(
     else:
         raise ValueError(f"unknown residual kind {kind!r}")
     seeds = (gf * lam1 * u_x, gf * lam1 * u, gf, -lam2 * gf)
-    g_res = _streams_backward(spec, net, colloc, seeds)
+    g_res = taylor2_backward_reference(spec, net, colloc, seeds)
     ud, _, _, _ = mlp_taylor_2_reference(spec, net, x_data)
     d = ud - u_data
     zero = torch.zeros_like(d)
-    g_dat = _streams_backward(spec, net, x_data, (2.0 * d / n_u, zero, zero, zero))
+    g_dat = taylor2_backward_reference(spec, net, x_data, (2.0 * d / n_u, zero, zero, zero))
     data_term = torch.sum(d * d) / n_u
     grads = [a + b for a, b in zip(g_res, g_dat)]
     shaped = []

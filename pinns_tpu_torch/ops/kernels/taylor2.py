@@ -15,22 +15,34 @@ and a tile whose buffers fit half an SM's shared memory. The TPU kernel's
 lane packing has no counterpart: the same CUDA kernel takes every width up to
 256.
 
-The wrapper validates everything the kernel assumes and raises otherwise;
-it never falls back to the plain version.
+The backward of K1, K2 (``csrc/taylor2_backward.cu``), turns the cotangents
+of the four streams into dW and db. The TPU package had no kernel for it (its
+custom-VJP op recomputed the Taylor pass in XLA, ``fused_mlp.py:391-418``);
+the port differentiates the training residual on the card with it, outside
+the fused Adam step. :func:`mlp_taylor2_kernel` binds K1 and K2 as one
+``torch.autograd.Function``; the plain version of K2 is
+:func:`taylor2_backward_reference`, the reverse mode that
+``csrc/fused_step.cu`` also writes out. K2 recomputes the forward per tile,
+keeps the pre-activation streams in an L2-resident scratch and reduces
+per-block partial gradients in block order (bit-for-bit repeatable).
+
+The wrappers validate everything the kernels assume and raise otherwise;
+they never fall back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from pinns_tpu_torch.models.mlp import MLPSpec, Params
+from pinns_tpu_torch.models.mlp import MLPSpec, Params, input_scale, normalize_inputs
 from pinns_tpu_torch.ops.kernels import build
 
 LAUNCHES = 0  # kernel launches in this process (chip_smoke.py reads it)
+BACKWARD_LAUNCHES = 0  # K2 calls (backward kernel + reduction) in this process
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
@@ -38,6 +50,9 @@ _POINTS_PER_THREAD = 4
 _SMEM_PER_BLOCK = 112 * 1024  # two blocks per H100 SM (228 KB each)
 _MAX_TILE = 128
 _MAX_THREADS = 640  # the kernel's __launch_bounds__
+_BWD_SMEM = 200 * 1024
+_BWD_MAX_TILE = 64
+MAX_GRID = 264  # backward blocks: two per SM of an H100
 
 
 def launch_config(layers: Sequence[int]) -> Tuple[int, int]:
@@ -62,6 +77,22 @@ def smem_bytes(layers: Sequence[int], tile: int) -> int:
     return 4 * 2 * 4 * max(layers) * (tile + 4)
 
 
+def backward_config(layers: Sequence[int], n: int) -> Tuple[int, int]:
+    """(points per tile, blocks) of K2 for n points: the largest multiple of
+    4 points (at most 64) whose three buffers of four streams fit 200 KB, and
+    one block per tile up to MAX_GRID."""
+    wmax = max(layers)
+    if wmax > MAX_WIDTH:
+        raise ValueError(f"taylor2 backward kernel takes widths up to {MAX_WIDTH}, got {wmax}")
+    tile = _BWD_SMEM // (4 * 3 * 4 * wmax) - 4
+    tile = min(_BWD_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
+    return tile, max(1, min(MAX_GRID, -(-n // tile)))
+
+
+def backward_smem_bytes(layers: Sequence[int], tile: int) -> int:
+    return 4 * 3 * 4 * max(layers) * (tile + 4)
+
+
 def _lib():
     lib = build.load_library("taylor2")
     if not getattr(lib, "_pinns_typed", False):
@@ -76,6 +107,20 @@ def _lib():
     return lib
 
 
+def _backward_lib():
+    lib = build.load_library("taylor2_backward")
+    if not getattr(lib, "_pinns_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pinns_taylor2_backward.argtypes = [
+            p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, p, p, p, i, p,
+        ]
+        lib.pinns_taylor2_backward.restype = i
+        lib.pinns_taylor2_backward_error_string.argtypes = [i]
+        lib.pinns_taylor2_backward_error_string.restype = ctypes.c_char_p
+        lib._pinns_typed = True
+    return lib
+
+
 def pack_params(params: Params) -> torch.Tensor:
     """W_0, b_0, W_1, b_1, ... flattened into one buffer, in kernel order."""
     return torch.cat(
@@ -83,26 +128,27 @@ def pack_params(params: Params) -> torch.Tensor:
     )
 
 
-def taylor2(
-    spec: MLPSpec, params: Params, x: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(u, u_x, u_t, u_xx), each (N, out_dim) float32, from one kernel launch.
+def split_grad(flat: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A flat gradient in ``pack_params`` order cut into tensors shaped like
+    ``leaves`` (W_0, b_0, W_1, ...)."""
+    return [g.view(t.shape) for g, t in zip(flat.split([t.numel() for t in leaves]), leaves)]
 
-    ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA device;
-    ``params`` the JAX-layout layers on the same device. Raises on anything
-    else.
-    """
-    global LAUNCHES
+
+def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
+               *per_point: torch.Tensor) -> None:
+    """Raise ValueError unless ``x`` is contiguous float32 (N, 2) on a CUDA
+    device, ``params`` float32 layers of ``spec``'s widths on that device, and
+    each of ``per_point`` a contiguous float32 (N, out_dim) tensor there."""
     if x.device.type != "cuda":
-        raise ValueError(f"taylor2 kernel needs a CUDA tensor, got device {x.device}")
+        raise ValueError(f"{kernel} kernel needs a CUDA tensor, got device {x.device}")
     if x.dtype != torch.float32:
-        raise ValueError(f"taylor2 kernel takes float32 points, got {x.dtype}")
+        raise ValueError(f"{kernel} kernel takes float32 points, got {x.dtype}")
     if x.ndim != 2 or x.shape[1] != 2 or spec.in_dim != 2:
-        raise ValueError(f"taylor2 kernel takes (N, 2) points, got {tuple(x.shape)}")
+        raise ValueError(f"{kernel} kernel takes (N, 2) points, got {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError("taylor2 kernel needs contiguous points")
+        raise ValueError(f"{kernel} kernel needs contiguous points")
     if spec.mixed:
-        raise ValueError("taylor2 kernel computes every stream in float32; "
+        raise ValueError(f"{kernel} kernel computes in float32; "
                          "the mixed stream policy is slice 3")
     layers = spec.layers
     if len(params) != len(layers) - 1:
@@ -115,6 +161,26 @@ def taylor2(
                     f"layer {i} {name}: want float32 {shape} on {x.device}, got "
                     f"{t.dtype} {tuple(t.shape)} on {t.device}"
                 )
+    want = (x.shape[0], spec.out_dim)
+    for t in per_point:
+        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel: cotangents must be contiguous float32 {want} "
+                             f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def taylor2(
+    spec: MLPSpec, params: Params, x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(u, u_x, u_t, u_xx), each (N, out_dim) float32, from one kernel launch.
+
+    ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA device;
+    ``params`` the JAX-layout layers on the same device. Raises on anything
+    else.
+    """
+    global LAUNCHES
+    check_call("taylor2", spec, params, x)
+    layers = spec.layers
     tile, threads = launch_config(layers)
     flat = pack_params(params)
     n = x.shape[0]
@@ -141,3 +207,129 @@ def taylor2(
     with _launches_lock:
         LAUNCHES += 1
     return outs
+
+
+def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
+                     cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K2: the flat gradient (``pack_params`` order) of sum over points of
+    gu . u + gux . u_x + gut . u_t + guxx . u_xx, where ``cotangents`` =
+    (gu, gux, gut, guxx), each (N, out_dim) float32, contiguous, on ``x``'s
+    CUDA device. One backward launch and one reduction; raises on anything
+    the kernel does not take."""
+    global BACKWARD_LAUNCHES
+    if len(cotangents) != 4:
+        raise ValueError(f"taylor2 backward takes 4 stream cotangents, got {len(cotangents)}")
+    check_call("taylor2 backward", spec, params, x, *cotangents)
+    layers = spec.layers
+    n = x.shape[0]
+    grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return grad.zero_()
+    tile, grid = backward_config(layers, n)
+    partials = torch.empty((grid, spec.n_params), dtype=torch.float32, device=x.device)
+    pstore = torch.empty(grid * (len(layers) - 2) * 4 * max(layers) * tile,
+                         dtype=torch.float32, device=x.device)
+    lib = _backward_lib()
+    dims = (ctypes.c_int * len(layers))(*layers)
+    flat = pack_params(params)
+    err = lib.pinns_taylor2_backward(
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1,
+        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, grid,
+        *(g.data_ptr() for g in cotangents), partials.data_ptr(), pstore.data_ptr(),
+        grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.pinns_taylor2_backward_error_string(err).decode()
+        raise RuntimeError(
+            f"taylor2 backward kernel launch failed: CUDA error {err} ({msg}); "
+            f"tile={tile} grid={grid} smem={backward_smem_bytes(layers, tile)} B"
+        )
+    with _launches_lock:
+        BACKWARD_LAUNCHES += 1
+    return grad
+
+
+class _Taylor2(torch.autograd.Function):
+    """K1 forward, K2 as its VJP (w.r.t. the params only)."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *leaves):
+        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        ctx.spec = spec
+        ctx.save_for_backward(x, *leaves)
+        return taylor2(spec, params, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cotangents):
+        x, *leaves = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("the taylor2 kernels give no gradient with respect "
+                                      "to the input points")
+        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        grad = taylor2_backward(ctx.spec, params, x, [g.contiguous() for g in cotangents])
+        return (None, None, *split_grad(grad, leaves))
+
+
+def mlp_taylor2_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
+    """(u, u_x, u_t, u_xx) through K1, differentiable in the params through
+    K2. CUDA tensors only (the wrappers raise on anything else)."""
+    leaves = [t for layer in params for t in (layer["W"], layer["b"])]
+    return _Taylor2.apply(spec, x, *leaves)
+
+
+# -- the plain version of K2: the hand-written reverse mode in PyTorch --------
+
+def _act(p, px, pt, pxx):
+    s = torch.tanh(p)
+    d1 = 1.0 - s * s
+    d2 = -2.0 * s * d1
+    return s, d1 * px, d1 * pt, d2 * px * px + d1 * pxx
+
+
+def _act_backward(p, px, pt, pxx, gh, ghx, ght, ghxx):
+    """Adjoints of a tanh layer's pre-activation streams from those of its
+    output streams (the formulas in the header of csrc/taylor2_backward.cu)."""
+    s = torch.tanh(p)
+    d1 = 1.0 - s * s
+    d2 = -2.0 * s * d1
+    gpxx = ghxx * d1
+    gpx = ghx * d1 + 2.0 * ghxx * d2 * px
+    gpt = ght * d1
+    gp = d1 * (gh - 2.0 * s * (ghx * px + ght * pt + ghxx * pxx)
+               + (6.0 * s * s - 2.0) * ghxx * px * px)
+    return gp, gpx, gpt, gpxx
+
+
+def taylor2_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
+                               cotangents) -> List[torch.Tensor]:
+    """K2's algorithm in plain PyTorch: [dW_0, db_0, dW_1, ...] (W leaves
+    (din, dout), b leaves (1, dout)) of sum over points of the cotangents
+    (gu, gux, gut, guxx), each (N, out_dim), dotted with (u, u_x, u_t, u_xx)."""
+    h = normalize_inputs(spec, x)
+    scale = input_scale(spec, x.device)
+    zero = torch.zeros_like(h)
+    ex = torch.zeros_like(h)
+    ex[:, 0] = scale[0]
+    et = torch.zeros_like(h)
+    et[:, 1] = scale[1]
+    streams = (h, ex, et, zero)
+    pre = []  # pre-activation streams of each hidden layer
+    inputs = [streams]
+    for layer in net[:-1]:
+        w, b = layer["W"], layer["b"]
+        P = (streams[0] @ w + b, streams[1] @ w, streams[2] @ w, streams[3] @ w)
+        pre.append(P)
+        streams = _act(*P)
+        inputs.append(streams)
+    grads: List[Optional[torch.Tensor]] = [None] * (2 * len(net))
+    G = tuple(g.reshape(x.shape[0], -1) for g in cotangents)
+    for l in range(len(net) - 1, -1, -1):
+        w = net[l]["W"]
+        X = inputs[l]
+        grads[2 * l] = sum(X[s].T @ G[s] for s in range(4))
+        grads[2 * l + 1] = G[0].sum(dim=0, keepdim=True)
+        if l > 0:
+            gH = tuple(g @ w.T for g in G)
+            G = _act_backward(*pre[l - 1], *gH)
+    return grads

@@ -9,7 +9,8 @@ One forward pass carries (value, d/dx, d/dt, d2/dx2) layer by layer:
 
 ``mlp_taylor_2`` dispatches on the device of ``x``: a CPU tensor runs the
 plain PyTorch recurrence (``mlp_taylor_2_reference``), a CUDA tensor runs the
-fused kernel (``ops.kernels.taylor2``), which either launches or raises.
+fused kernel K1, differentiable in the params through its backward kernel K2
+(``ops.kernels.taylor2``); each either launches or raises.
 
 The mixed-precision stream policy (``compute_dtype``, ``keep_streams``) of
 the JAX package is ported with slice 3.
@@ -22,7 +23,7 @@ from typing import Tuple
 import torch
 
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, embed_streams, normalize_inputs
-from pinns_tpu_torch.ops.kernels.taylor2 import taylor2
+from pinns_tpu_torch.ops.kernels.taylor2 import mlp_taylor2_kernel
 
 Streams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -63,9 +64,9 @@ def mlp_taylor_2(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams:
     """Value, first derivatives and second x-derivative of the MLP at x (N, 2).
 
     CPU tensors take the plain recurrence; anything else goes to the fused
-    kernel, which raises on what it cannot take.
+    kernels (K1 forward, K2 backward), which raise on what they cannot take.
     """
     _check(spec)
     if x.device.type == "cpu":
         return mlp_taylor_2_reference(spec, params, x)
-    return taylor2(spec, params, x)
+    return mlp_taylor2_kernel(spec, params, x)

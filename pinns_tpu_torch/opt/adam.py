@@ -1,5 +1,5 @@
 """Adam with optax's semantics (``optax.adam`` as ``pinns_tpu/train/trainer.py``
-builds it for the 'constant' schedule), as a small functional pair.
+builds it), as a small functional pair, and its learning-rate schedules.
 
     mu  = (1 - b1) g + b1 mu              nu = (1 - b2) g^2 + b2 nu
     t   = count + 1                       mu_hat = mu / (1 - b1^t)
@@ -10,12 +10,17 @@ builds it for the 'constant' schedule), as a small functional pair.
 ``pinns_tpu_torch.interop`` converts it both ways. ``count`` is a host int:
 the step count never lives on the device in the port. This is the plain
 version of the Adam stage of the fused CUDA step (``csrc/fused_step.cu``).
-The cosine and exponential schedules are not ported yet.
+
+:func:`learning_rate_schedule` ports ``_make_optimizer``'s schedules
+(``pinns_tpu/train/trainer.py:793-809``): 'constant', 'cosine' (optax's
+``cosine_decay_schedule`` with ``alpha = min_lr_fraction``) and 'exponential'
+(optax's ``exponential_decay`` by 0.1 over ``schedule_epochs``, not
+staircased), each evaluated at Adam's count in float32 as optax does.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Union
 
 import numpy as np
 import torch
@@ -56,18 +61,67 @@ def bias_corrections(count: int, b1: float = B1, b2: float = B2):
     return float(one - np.float32(b1) ** t), float(one - np.float32(b2) ** t)
 
 
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _leaves_like(tree, other) -> list:
+    """The leaves of ``other`` in the order of ``tree``'s (dict keys matched
+    by name, whatever their order in either)."""
+    out = []
+    tree_map(lambda _, x: out.append(x), tree, other)
+    return out
+
+
 def adam_update(grads, state: AdamState, lr: float, b1: float = B1, b2: float = B2,
                 eps: float = EPS):
     """(updates, new state) for ``grads``; add the updates to the params with
-    :func:`apply_updates`."""
-    mu = tree_map(lambda g, m: (1.0 - b1) * g + b1 * m, grads, state.mu)
-    nu = tree_map(lambda g, v: (1.0 - b2) * (g * g) + b2 * v, grads, state.nu)
+    :func:`apply_updates`. Each stage is one multi-tensor op over all leaves
+    (``torch._foreach_*``): per element the arithmetic of the formulas above,
+    rounded after every operation, in a few launches for the whole tree."""
+    f = torch
+    g, m, v = tree_leaves(grads), _leaves_like(grads, state.mu), _leaves_like(grads, state.nu)
+    mu = f._foreach_add(f._foreach_mul(g, 1.0 - b1), f._foreach_mul(m, b1))
+    nu = f._foreach_add(f._foreach_mul(f._foreach_mul(g, g), 1.0 - b2), f._foreach_mul(v, b2))
     bc1, bc2 = bias_corrections(state.count, b1, b2)
-    updates = tree_map(
-        lambda m, v: -lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)), mu, nu
-    )
-    return updates, AdamState(count=state.count + 1, mu=mu, nu=nu)
+    den = f._foreach_add(f._foreach_sqrt(f._foreach_div(nu, bc2)), eps)
+    updates = f._foreach_mul(f._foreach_div(f._foreach_div(mu, bc1), den), -lr)
+    return _unflatten(grads, updates), AdamState(
+        count=state.count + 1, mu=_unflatten(grads, mu), nu=_unflatten(grads, nu))
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: p + u, params, updates)
+    return _unflatten(params, torch._foreach_add(tree_leaves(params),
+                                                 _leaves_like(params, updates)))
+
+
+def learning_rate_schedule(cfg) -> Union[float, Callable[[int], float]]:
+    """The learning rate of an ``OptimizerConfig``: a float for 'constant',
+    else a function of Adam's count (the updates taken so far)."""
+    f32 = np.float32
+    lr0, steps = f32(cfg.learning_rate), cfg.schedule_epochs
+    if cfg.lr_schedule == "constant":
+        return float(cfg.learning_rate)
+    if cfg.lr_schedule == "cosine":
+        if not steps > 0:
+            raise ValueError(f"the cosine schedule needs schedule_epochs > 0, got {steps}")
+        alpha = cfg.min_lr_fraction
+
+        def cosine(count: int) -> float:
+            c = min(f32(count), f32(steps))
+            decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(steps)))
+            return float(lr0 * (f32(1 - alpha) * decay + f32(alpha)))
+
+        return cosine
+    if cfg.lr_schedule == "exponential":
+        if steps <= 0:
+            return float(cfg.learning_rate)
+
+        def exponential(count: int) -> float:
+            if count <= 0:
+                return float(lr0)
+            return float(lr0 * np.power(f32(0.1), f32(count) / f32(steps)))
+
+        return exponential
+    raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")

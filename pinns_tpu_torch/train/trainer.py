@@ -8,16 +8,25 @@ One Adam epoch does what the JAX step does, in the reference's order
   resample the batch -> ADMM z/dual update at the NEW points with the NEW
   params -> metrics
 
-and a chunk of epochs keeps its per-step metrics in one device buffer, read
-back once per logged chunk, in place of ``lax.scan`` in ``make_chunked``.
+and one L-BFGS outer epoch (``make_lbfgs_step``) a whole inner solve of the
+loss at the current batch and ADMM state, then the same resample -> z/dual
+tail. A chunk of epochs keeps its per-step metrics in one device buffer, read
+back once per logged chunk, in place of ``lax.scan`` in ``make_chunked``;
+``Trainer.train`` switches from Adam to L-BFGS chunks at
+``optimizer.switch_epoch`` under 'hybrid'.
 
-Two step implementations compute that epoch:
-- ``make_adam_step``, the plain version: ``torch.autograd`` through the plain
-  Taylor-2 recurrence. Every device can run it; the CPU trainer uses it.
+The loss goes through ``mlp_apply`` (data term) and ``mlp_taylor_2``
+(residual), which dispatch on the device: the plain PyTorch versions on the
+CPU, the hand-written kernels on a CUDA device (K5 forward and backward, K1
+forward and K2 backward), differentiated by ``torch.autograd`` around them.
+``plain=True`` forces the plain versions on any device (the card's checks
+hold the kernels against them). Two Adam steps compute an epoch:
+- ``make_adam_step``: autograd through that loss, then Adam. The CPU trainer
+  runs it, and so does the card for a configuration outside K3's scope.
 - ``pinns_tpu_torch.ops.kernels.fused_step``: the whole epoch as the
-  hand-written CUDA step (the port of the TPU kernel ``make_fused_adam_step``).
-  On a CUDA device the trainer takes it, and a configuration outside its scope
-  raises: nothing falls back to the plain step.
+  hand-written CUDA step K3 (the port of the TPU kernel
+  ``make_fused_adam_step``). On a CUDA device the trainer takes it whenever
+  the configuration is inside its scope.
 
 Resampling draws with counter-based Philox keyed by the run's seed and the
 epoch (``data.sampling.philox_uniform``), so both steps draw the same points.
@@ -25,9 +34,7 @@ epoch (``data.sampling.philox_uniform``), so both steps draw the same points.
 What this slice leaves to later ones, each raising ``NotImplementedError``
 with the slice's name: Euler, the weak form, causal/entropy/gradient
 weighting, RAD, the time curriculum and SWA (slice 2); microbatching and the
-mixed stream policy (slice 3); ensembles (slice 4); multi-GPU (slice 6); the
-L-BFGS phase of 'lbfgs' and 'hybrid' (queue 1 item 5), which raises at
-``optimizer.switch_epoch``; and the cosine/exponential learning-rate schedules.
+mixed stream policy (slice 3); ensembles (slice 4); multi-GPU (slice 6).
 """
 
 from __future__ import annotations
@@ -58,16 +65,18 @@ from pinns_tpu_torch.losses.admm import (
     admm_update,
 )
 from pinns_tpu_torch.losses.misfit import data_misfit, residual_penalty
-from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply
+from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply, mlp_apply_reference
 from pinns_tpu_torch.ops.taylor import mlp_taylor_2, mlp_taylor_2_reference
 from pinns_tpu_torch.opt.adam import (
     AdamState,
     adam_init,
     adam_update,
     apply_updates,
+    learning_rate_schedule,
     tree_leaves,
     tree_map,
 )
+from pinns_tpu_torch.opt.lbfgs import lbfgs_minimize, ravel_tree
 from pinns_tpu_torch.train import checkpoint as ckpt_io
 from pinns_tpu_torch.train.evaluate import predict_fields, relative_l2
 from pinns_tpu_torch.train.metrics import MetricsLogger
@@ -110,9 +119,6 @@ def check_slice(exp: Experiment) -> None:
         (bool(m.compute_dtype), "the mixed stream policy", "slice 3 (scale)"),
         (exp.mesh.ensemble > 1, "ensembles", "slice 4 (ensembles)"),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
-        (o.kind == "lbfgs", "the L-BFGS optimizer", "the L-BFGS slice (ROADMAP queue 1 item 5)"),
-        (o.lr_schedule != "constant", f"lr_schedule={o.lr_schedule!r}",
-         "a later slice (only the constant schedule is ported)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
     ]
     for bad, what, where in checks:
@@ -157,8 +163,8 @@ class Problem:
     def residuals(self, params, colloc, plain: bool = False) -> torch.Tensor:
         """Strong-form Burgers residual f (N, 1) at collocation points.
 
-        ``plain`` forces the plain Taylor-2 recurrence, which autograd
-        differentiates; otherwise a CUDA tensor takes the fused forward kernel.
+        ``plain`` forces the plain Taylor-2 recurrence on any device;
+        otherwise a CUDA tensor takes K1, differentiable through K2.
         """
         lam1, lam2 = self.effective_coeffs(params)
         taylor = mlp_taylor_2_reference if plain else mlp_taylor_2
@@ -220,30 +226,33 @@ def init_collocation(problem: Problem, key: int) -> torch.Tensor:
     raise ValueError(f"unknown sampling strategy: {strategy!r}")
 
 
-def _residual_term(problem: Problem, params, colloc, admm_state, rho=None):
+def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain=False):
     """Residual loss term (microbatch 1; the strong form)."""
     cfg = problem.exp.loss
     n_f = colloc.shape[0]  # the ACTUAL row count, as the ADMM threshold uses
     rho = cfg.rho if rho is None else rho
-    residuals = problem.residuals(params, colloc, plain=True)
+    residuals = problem.residuals(params, colloc, plain=plain)
     if cfg.residual_kind == "admm":
         return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
     return residual_penalty(residuals, cfg.residual_kind, n_f)
 
 
-def make_data_term(problem: Problem) -> Callable:
-    """The data-misfit term of the training loss as ``params -> scalar``."""
+def make_data_term(problem: Problem, plain: bool = False) -> Callable:
+    """The data-misfit term of the training loss as ``params -> scalar``
+    (``plain`` forces the plain forward on any device)."""
     exp = problem.exp
+    forward = mlp_apply_reference if plain else mlp_apply
 
     def term(params):
-        u_pred = mlp_apply(problem.spec, params["net"], problem.x_data)
+        u_pred = forward(problem.spec, params["net"], problem.x_data)
         return data_misfit(u_pred, problem.targets["u"], exp.loss.data_kind, exp.data.n_u)
 
     return term
 
 
-def make_loss_fn(problem: Problem) -> Callable:
-    """loss(params, colloc, admm, rho=None) -> (scalar, aux-metrics dict)."""
+def make_loss_fn(problem: Problem, plain: bool = False) -> Callable:
+    """loss(params, colloc, admm, rho=None) -> (scalar, aux-metrics dict);
+    ``plain`` forces the plain forward and Taylor-2 versions on any device."""
     loss_cfg = problem.exp.loss
     if loss_cfg.residual_weight != 1.0 and loss_cfg.residual_kind == "admm":
         raise ValueError(
@@ -255,12 +264,12 @@ def make_loss_fn(problem: Problem) -> Callable:
             "data_field_weights applies to the multi-output Euler system; "
             "for Burgers use loss.data_weight"
         )
-    dterm = make_data_term(problem)
+    dterm = make_data_term(problem, plain)
 
     def loss_fn(params, colloc, admm_state, rho=None):
         lam1, lam2 = problem.effective_coeffs(params)
         data_term = dterm(params)
-        res_term = _residual_term(problem, params, colloc, admm_state, rho)
+        res_term = _residual_term(problem, params, colloc, admm_state, rho, plain)
         loss = loss_cfg.data_weight * data_term + loss_cfg.residual_weight * res_term
         aux = {
             "loss": loss,
@@ -286,12 +295,12 @@ def _next_batch(problem: Problem, colloc, key, epoch, new_colloc):
 
 @torch.no_grad()
 def _post_update_current(problem: Problem, params, admm_state, colloc, key, rho, epoch=0,
-                         new_colloc=None):
+                         new_colloc=None, plain=False):
     """'current'-points ADMM tail: z/dual update at the batch the weight step
     saw, THEN resample for the next step."""
     exp = problem.exp
     rho_val = exp.loss.rho if rho is None else rho
-    f_cur = problem.residuals(params, colloc, plain=True)
+    f_cur = problem.residuals(params, colloc, plain=plain)
     admm_state = admm_update(f_cur, admm_state, rho_val, colloc.shape[0])
     mis = admm_misfit(f_cur, admm_state)
     return admm_state, _next_batch(problem, colloc, key, epoch, new_colloc), key, mis
@@ -299,7 +308,7 @@ def _post_update_current(problem: Problem, params, admm_state, colloc, key, rho,
 
 @torch.no_grad()
 def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, epoch=0,
-                 new_colloc=None):
+                 new_colloc=None, plain=False):
     """Shared tail of every step: resample, then ADMM updates at the new
     points (threshold normalizer = the actual residual row count)."""
     exp = problem.exp
@@ -307,7 +316,7 @@ def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, ep
     mis = torch.zeros((), dtype=problem.spec.dtype, device=problem.device)
     if exp.loss.residual_kind == "admm":
         rho_val = exp.loss.rho if rho is None else rho
-        f_new = problem.residuals(params, colloc, plain=True)
+        f_new = problem.residuals(params, colloc, plain=plain)
         admm_state = admm_update(f_new, admm_state, rho_val, colloc.shape[0])
         mis = admm_misfit(f_new, admm_state)
     return admm_state, colloc, key, mis
@@ -323,14 +332,17 @@ def _write_metrics(metrics: Dict[str, torch.Tensor], out: Optional[torch.Tensor]
     return {k: out[i] for i, k in enumerate(METRIC_KEYS)}
 
 
-def make_adam_step(problem: Problem, learning_rate: float):
-    """The plain Adam epoch: grad step -> resample -> ADMM updates.
+def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
+    """The generic Adam epoch: grad step -> resample -> ADMM updates.
 
     ``step(state, out=None, new_colloc=None) -> (state, metrics)``. ``out``, a
     float32 row of len(METRIC_KEYS), receives the metrics when given;
     ``new_colloc`` replaces the Philox draw of the next batch.
+    ``learning_rate`` is a float or a function of Adam's count
+    (``opt.adam.learning_rate_schedule``). The loss runs the kernels on a CUDA
+    device unless ``plain`` (then it is the plain step everywhere).
     """
-    loss_fn = make_loss_fn(problem)
+    loss_fn = make_loss_fn(problem, plain)
     train_coeffs = problem.exp.pde.train_coeffs
     tail = (
         _post_update_current
@@ -351,12 +363,13 @@ def make_adam_step(problem: Problem, learning_rate: float):
             "coeffs": tree_map(lambda p: next(got) if train_coeffs else torch.zeros_like(p),
                                params["coeffs"]),
         }
+        lr = learning_rate(state.opt_state.count) if callable(learning_rate) else learning_rate
         with torch.no_grad():
-            updates, opt_state = adam_update(grads, state.opt_state, learning_rate)
+            updates, opt_state = adam_update(grads, state.opt_state, lr)
             new_params = apply_updates(tree_map(lambda p: p.detach(), params), updates)
         admm_state, colloc, key, mis = tail(
             problem, new_params, state.admm, state.colloc, state.key, state.rho, state.epoch,
-            new_colloc,
+            new_colloc, plain,
         )
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["admm_misfit"] = mis
@@ -370,14 +383,65 @@ def make_adam_step(problem: Problem, learning_rate: float):
     return step
 
 
-def make_step(problem: Problem, learning_rate: float):
-    """The step the trainer runs: the fused CUDA step on a CUDA device (a
-    configuration outside its scope raises), the plain step on the CPU."""
+def make_step(problem: Problem, learning_rate):
+    """The Adam step the trainer runs: on a CUDA device the fused CUDA step K3
+    when the configuration is inside its scope, else the generic step over
+    the kernel ops; on the CPU the plain step."""
     if problem.device.type == "cuda":
-        from pinns_tpu_torch.ops.kernels.fused_step import make_fused_adam_step
+        from pinns_tpu_torch.ops.kernels.fused_step import (
+            fused_step_supported,
+            make_fused_adam_step,
+        )
 
-        return make_fused_adam_step(problem, learning_rate)
+        if not fused_step_supported(problem.exp, problem.spec):
+            return make_fused_adam_step(problem, learning_rate)
     return make_adam_step(problem, learning_rate)
+
+
+def make_lbfgs_step(problem: Problem):
+    """One outer epoch of the L-BFGS phase: the full inner solve of the loss
+    at the current batch and ADMM state, then the shared resample -> z/dual
+    tail (``_post_update``, whatever ``admm_update_points`` says), as
+    ``Abgrall_ADMM.py:216-226`` and the JAX step do.
+
+    The solve runs over every param, frozen coefficients included (they get a
+    zero gradient). The metrics rebuild the loss terms from the solver's own
+    final value: one forward of the data term, ``res_term = f - data_weight *
+    data_term``; ``lbfgs_iters`` is the solve's iteration count.
+    """
+    loss_fn = make_loss_fn(problem)
+    dterm = make_data_term(problem)
+    cfg = problem.exp.optimizer.lbfgs
+    data_weight = problem.exp.loss.data_weight
+
+    def step(state: TrainState, out: Optional[torch.Tensor] = None,
+             new_colloc: Optional[torch.Tensor] = None):
+        x0, unravel = ravel_tree(state.params)
+        res = lbfgs_minimize(
+            lambda x: loss_fn(unravel(x), state.colloc, state.admm, state.rho)[0],
+            x0.detach(), max_iters=cfg.max_iters, history=cfg.history, ftol=cfg.ftol,
+            gtol=cfg.gtol, max_ls=cfg.max_ls,
+        )
+        params = unravel(res.x)
+        with torch.no_grad():
+            lam1, lam2 = problem.effective_coeffs(params)
+            data_term = dterm(params)
+        admm_state, colloc, key, mis = _post_update(
+            problem, params, state.admm, state.colloc, state.key, state.rho, state.epoch,
+            new_colloc,
+        )
+        metrics = {
+            "loss": res.f, "data_term": data_term, "res_term": res.f - data_weight * data_term,
+            "lambda1": lam1.reshape(()), "lambda2": lam2.reshape(()), "admm_misfit": mis,
+            "lbfgs_iters": torch.tensor(float(res.n_iters), device=mis.device),
+        }
+        new_state = TrainState(
+            params=params, opt_state=state.opt_state, admm=admm_state, colloc=colloc,
+            key=key, epoch=state.epoch + 1, rho=state.rho,
+        )
+        return new_state, _write_metrics(metrics, out)
+
+    return step
 
 
 def run_chunk(step, state: TrainState, length: int):
@@ -400,8 +464,9 @@ class Trainer:
         self.exp = exp
         self.problem = problem if problem is not None else build_problem(exp, device, dataset)
         self.device = self.problem.device
-        self.learning_rate = float(exp.optimizer.learning_rate)
+        self.learning_rate = learning_rate_schedule(exp.optimizer)
         self._adam_step = make_step(self.problem, self.learning_rate)
+        self._lbfgs_step = make_lbfgs_step(self.problem)
         self.logger = MetricsLogger(out_dir=exp.train.out_dir or None, name=exp.name)
 
     # -- state ------------------------------------------------------------
@@ -446,21 +511,17 @@ class Trainer:
             state = self.init_state()
         total = exp.train.epochs if epochs is None else epochs
         chunk = max(1, min(exp.train.chunk, total))
+        # L-BFGS outer epochs are whole inner solves: keep their chunks short
+        lbfgs_chunk = max(1, min(chunk // 100 or 1, 10))
         t0 = time.time()
         epoch = int(state.epoch)
         while epoch < total:
             phase = self._phase(epoch)
-            if phase != "adam":
-                raise NotImplementedError(
-                    f"epoch {epoch}: the L-BFGS phase of optimizer.kind="
-                    f"{exp.optimizer.kind!r} (switch_epoch={exp.optimizer.switch_epoch}) "
-                    "is ported with the L-BFGS slice (ROADMAP queue 1 item 5); "
-                    "train fewer epochs or use optimizer.kind='adam'"
-                )
-            length = min(chunk, total - epoch)
-            if exp.optimizer.kind == "hybrid":
+            length = min(chunk if phase == "adam" else lbfgs_chunk, total - epoch)
+            if phase == "adam" and exp.optimizer.kind == "hybrid":
                 length = min(length, exp.optimizer.switch_epoch - epoch)
-            state, metrics = run_chunk(self._adam_step, state, length)
+            step = self._adam_step if phase == "adam" else self._lbfgs_step
+            state, metrics = run_chunk(step, state, length)
             epoch += length
             last = None
             if epoch >= total or self._crossed(epoch, length, exp.train.log_every):

@@ -1,5 +1,7 @@
-"""The port on the card: the fused Taylor-2 kernel, the served slice, and the
-fused Adam-epoch kernel with the trainer that runs it.
+"""The port on the card: the fused Taylor-2 kernel (K1) and its backward
+(K2), the fused MLP forward and its backward (K5), the served slice, the
+fused Adam-epoch kernel (K3), and the trainer with its generic Adam step and
+L-BFGS phase over the kernels.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and skips
 where ``torch.cuda.is_available()`` is False. The file imports no jax (the
@@ -132,5 +134,114 @@ def test_trainer_on_card_runs_the_fused_step(cuda_device):  # noqa: F811
     state, summary = trainer.train()
     assert k_fused.LAUNCHES == before + 30 and state.epoch == 30
     assert np.isfinite(summary["rel_l2_u"])
-    with pytest.raises(NotImplementedError, match="outside the fused CUDA step"):
-        Trainer(override(exp, {"sampling.strategy": "fixed_uniform"}), device="cuda")
+    # outside K3's scope the trainer takes the generic step over K5, K1 and K2
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+
+    counts = lambda: (k_fused.LAUNCHES, k_mlp.LAUNCHES, k_mlp.BACKWARD_LAUNCHES,  # noqa: E731
+                      k_taylor2.LAUNCHES, k_taylor2.BACKWARD_LAUNCHES)
+    before = counts()
+    generic = Trainer(override(exp, {"sampling.strategy": "fixed_uniform"}), device="cuda")
+    state, summary = generic.train()
+    after = counts()
+    assert after[0] == before[0] and state.epoch == 30 and np.isfinite(summary["rel_l2_u"])
+    assert all(a >= b + 30 for a, b in zip(after[1:], before[1:]))
+
+
+def _f64_oracle(got, plain, exact):
+    """The kernel is as accurate as the plain float32 version (x 4), against
+    float64 (random deep nets cancel too much for a max-relative tolerance)."""
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= 4.0 * plain_err + 1e-6 * float(exact.abs().max()), (err, plain_err)
+
+
+def _net(layers, seed, device):
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    params = init_mlp(spec, torch.Generator().manual_seed(seed), device)
+    for p in params:  # nonzero biases
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=torch.Generator().manual_seed(seed)))
+    spec64 = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=torch.float64)
+    params64 = [{k: v.double() for k, v in p.items()} for p in params]
+    return spec, params, spec64, params64
+
+
+@pytest.mark.parametrize("layers,n", [((2,) + (20,) * 8 + (1,), 1000),
+                                      ((2, 256, 256, 3), 777),
+                                      ((2, 64, 1), 3)])
+def test_mlp_forward_kernels_match_plain_on_card(cuda_device, layers, n):  # noqa: F811
+    """K5 forward against mlp_apply_reference, K5 backward against the
+    plain backward, both judged against float64; two backward calls agree bit
+    for bit."""
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+
+    spec, params, spec64, params64 = _net(layers, 4, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=14)).to(cuda_device)
+    g = torch.from_numpy(np.random.default_rng(15).standard_normal((n, layers[-1]))
+                         .astype(np.float32)).to(cuda_device)
+    before = (k_mlp.LAUNCHES, k_mlp.BACKWARD_LAUNCHES)
+    u = k_mlp.mlp_forward(spec, params, x)
+    grad = k_mlp.mlp_backward(spec, params, x, g)
+    again = k_mlp.mlp_backward(spec, params, x, g)
+    torch.cuda.synchronize()
+    assert (k_mlp.LAUNCHES, k_mlp.BACKWARD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(grad, again)
+    _f64_oracle(u, mlp_apply_reference(spec, params, x),
+                mlp_apply_reference(spec64, params64, x.double()))
+    plain = k_mlp.mlp_backward_reference(spec, params, x, g)
+    exact = k_mlp.mlp_backward_reference(spec64, params64, x.double(), g.double())
+    off = 0
+    for p, e in zip(plain, exact):
+        _f64_oracle(grad[off:off + p.numel()].view(p.shape), p, e)
+        off += p.numel()
+
+
+@pytest.mark.parametrize("layers,n", [((2,) + (20,) * 8 + (1,), 1000),
+                                      ((2, 256, 256, 3), 777),
+                                      ((2, 64, 1), 3)])
+def test_taylor2_backward_kernel_matches_plain_on_card(cuda_device, layers, n):  # noqa: F811
+    """K2 against the plain reverse mode, judged against float64, and the
+    autograd Function (K1 + K2) against autograd through the plain
+    recurrence; two calls agree bit for bit."""
+    spec, params, spec64, params64 = _net(layers, 5, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=16)).to(cuda_device)
+    rng = np.random.default_rng(17)
+    cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32))
+           .to(cuda_device) for _ in range(4)]
+    before = k_taylor2.BACKWARD_LAUNCHES
+    grad = k_taylor2.taylor2_backward(spec, params, x, cot)
+    again = k_taylor2.taylor2_backward(spec, params, x, cot)
+    torch.cuda.synchronize()
+    assert k_taylor2.BACKWARD_LAUNCHES == before + 2 and torch.equal(grad, again)
+    plain = k_taylor2.taylor2_backward_reference(spec, params, x, cot)
+    exact = k_taylor2.taylor2_backward_reference(spec64, params64, x.double(),
+                                                 [c.double() for c in cot])
+    off = 0
+    for p, e in zip(plain, exact):
+        _f64_oracle(grad[off:off + p.numel()].view(p.shape), p, e)
+        off += p.numel()
+    leaves = [t.clone().requires_grad_(True) for p in params for t in (p["W"], p["b"])]
+    net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+    outs = mlp_taylor_2(spec, net, x)
+    via_fn = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
+    for a, b in zip(via_fn, k_taylor2.split_grad(grad, leaves)):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
+    """abgrall_admm through the switch on the card: Adam epochs on K3, then
+    L-BFGS outer epochs over K5/K1/K2; nothing raises."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(get_preset("abgrall_admm"), {
+        "train.epochs": 22, "train.chunk": 10, "train.log_every": 0,
+        "optimizer.switch_epoch": 20, "optimizer.lbfgs.max_iters": 20})
+    k3, k5, k2 = k_fused.LAUNCHES, k_mlp.BACKWARD_LAUNCHES, k_taylor2.BACKWARD_LAUNCHES
+    state, summary = Trainer(exp, device="cuda").train()
+    assert k_fused.LAUNCHES == k3 + 20 and state.epoch == 22
+    assert k_mlp.BACKWARD_LAUNCHES > k5 and k_taylor2.BACKWARD_LAUNCHES > k2
+    assert np.isfinite(summary["rel_l2_u"])

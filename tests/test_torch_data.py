@@ -58,7 +58,7 @@ def test_loader_paths_and_errors(tmp_path, monkeypatch):
     assert tds.resolve_grid_path("twosin_burgers_shock") == GRID
     assert tds.load_burgers_mat(GRID).name == "twosin_burgers_shock"
     with pytest.raises(FileNotFoundError, match="slice 7"):
-        tds.load_burgers_mat("burgers_shock")
+        tds.load_burgers_mat("abgrall_burgers_shock")  # a key with no committed grid
     with pytest.raises(FileNotFoundError, match="neither a known key"):
         tds.load_burgers_mat(str(tmp_path / "missing.npz"))
     with pytest.raises(NotImplementedError, match="slice 2"):

@@ -23,6 +23,7 @@ MODULES = [
     "pinns_tpu_torch.losses.misfit", "pinns_tpu_torch.losses.admm", "pinns_tpu_torch.opt.adam",
     "pinns_tpu_torch.train.trainer", "pinns_tpu_torch.train.metrics",
     "pinns_tpu_torch.train.checkpoint", "pinns_tpu_torch.ops.kernels.fused_step",
+    "pinns_tpu_torch.ops.kernels.mlp_forward", "pinns_tpu_torch.opt.lbfgs",
 ]
 
 

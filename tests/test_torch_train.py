@@ -222,7 +222,7 @@ def test_plain_steps_track_jax(kind, n_steps):
 def _tiny(tmp_path, **extra):
     return override(get_preset("abgrall_admm"), dict(_updates(), **{
         "train.epochs": 6, "train.chunk": 2, "train.log_every": 2,
-        "train.out_dir": str(tmp_path)}, **extra))
+        "train.out_dir": str(tmp_path), **extra}))
 
 
 def test_trainer_cpu_logs_checkpoints_and_never_launches(tmp_path, monkeypatch):
@@ -267,11 +267,112 @@ def test_trainer_cpu_logs_checkpoints_and_never_launches(tmp_path, monkeypatch):
                                  train_state_to_numpy(s2)["params"])
 
 
-def test_hybrid_raises_at_the_lbfgs_switch(tmp_path):
-    exp = _tiny(tmp_path, **{"optimizer.kind": "hybrid", "optimizer.switch_epoch": 4})
-    trainer = ttrainer.Trainer(exp, device="cpu", dataset=GRID)
-    with pytest.raises(NotImplementedError, match="L-BFGS slice"):
-        trainer.train()
+def test_hybrid_raises_at_the_lbfgs_switch(tmp_path, monkeypatch):
+    """The L-BFGS phase no longer raises at the switch: a hybrid run trains
+    through it with the JAX Trainer's phases and chunk lengths (Adam chunks
+    clipped at switch_epoch, L-BFGS chunks of max(1, min(chunk // 100 or 1,
+    10)) outer epochs), and logs lbfgs_iters."""
+    monkeypatch.setattr(jtrainer, "enable_compilation_cache", lambda *a, **k: None)
+    hybrid = {"optimizer.kind": "hybrid", "optimizer.switch_epoch": 3,
+              "optimizer.lbfgs.max_iters": 4, "train.epochs": 5, "train.log_every": 1}
+    jexp = joverride(JPRESETS["abgrall_admm"], dict(_updates(), **{
+        "train.chunk": 2, "train.out_dir": str(tmp_path / "jax"), **hybrid}))
+    jp = dataclasses.replace(_jax_problem(_updates()), exp=jexp)
+    jtrainer.Trainer(jexp, problem=jp).train()
+    trainer = ttrainer.Trainer(_tiny(tmp_path / "torch", **hybrid), device="cpu", dataset=GRID)
+    state, summary = trainer.train()
+
+    def records(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f][:-1]
+
+    jrec = records(tmp_path / "jax" / "abgrall_admm_metrics.jsonl")
+    trec = records(tmp_path / "torch" / "abgrall_admm_metrics.jsonl")
+    phases = [(r["epoch"], r["phase"]) for r in trec]
+    assert phases == [(r["epoch"], r["phase"]) for r in jrec]
+    assert phases == [(2, "adam"), (3, "adam"), (4, "lbfgs"), (5, "lbfgs")]
+    assert [r["lbfgs_iters"] for r in trec] == [0.0, 0.0, 4.0, 4.0]
+    assert state.epoch == summary["epochs"] == 5 and state.opt_state.count == 3
+    assert all(math.isfinite(v) for r in trec for v in r.values() if isinstance(v, float))
+
+
+def test_lr_schedules_match_optax():
+    """The port's learning rate at Adam counts {0, 1, mid, end, past end}
+    equals optax's schedule (both in float32) for cosine and exponential."""
+    from pinns_tpu_torch.config import OptimizerConfig
+    from pinns_tpu_torch.opt.adam import learning_rate_schedule
+
+    for kind, want in (
+            ("cosine", optax.cosine_decay_schedule(2e-3, 400, alpha=0.05)),
+            ("exponential", optax.exponential_decay(2e-3, 400, 0.1))):
+        lr = learning_rate_schedule(OptimizerConfig(
+            learning_rate=2e-3, lr_schedule=kind, schedule_epochs=400, min_lr_fraction=0.05))
+        for count in (0, 1, 200, 400, 1000):
+            assert lr(count) == float(want(jnp.asarray(count, jnp.int32))), (kind, count)
+    assert learning_rate_schedule(OptimizerConfig()) == 1e-3
+    with pytest.raises(ValueError, match="unknown lr_schedule"):
+        learning_rate_schedule(OptimizerConfig(lr_schedule="linear"))
+
+
+BF_GRID = os.path.join(REPO, "tests", "fixtures", "torch_port", "burgers_shock.npz")
+
+
+@pytest.mark.parametrize("n_steps", [1, 4])
+def test_generic_step_tracks_jax_burgers_forward(n_steps):
+    """burgers_forward at a tiny size (the fixed anchored batch, cosine decay
+    over 3 epochs, mean_sq): JAX's make_adam_step vs the port's generic step,
+    which the card runs outside K3's scope, from the same state."""
+    upd = {"model.layers": SMALL, "sampling.n_f": N_F, "data.n_u": N_U,
+           "optimizer.schedule_epochs": 3}
+    jexp = joverride(JPRESETS["burgers_forward"], upd)
+    with np.load(BF_GRID) as z:
+        ds = jds.GridDataset(x=z["x"], t=z["t"], fields={"u": z["usol"].T},
+                             provenance=str(z["provenance"]))
+    x_data, targets = jds.build_ic_bc_training_set(ds, N_U, seed=jexp.data.seed)
+    jp = jtrainer.Problem(
+        exp=jexp, dataset=ds, spec=JSpec(layers=SMALL, lb=tuple(float(v) for v in ds.lb),
+                                         ub=tuple(float(v) for v in ds.ub)),
+        x_data=jnp.asarray(x_data), targets={k: jnp.asarray(v) for k, v in targets.items()})
+    trainer = ttrainer.Trainer(override(get_preset("burgers_forward"), upd), device="cpu")
+    tp = trainer.problem
+    assert tp.dataset.provenance == "native" and tp.exp.sampling.strategy == "fixed_lhs_anchored"
+    np.testing.assert_array_equal(tp.x_data.numpy(), x_data)
+    optimizer = jtrainer._make_optimizer(jexp.optimizer)
+    jstep = jax.jit(jtrainer.make_adam_step(jp, optimizer))
+    tstep = ttrainer.make_step(tp, trainer.learning_rate)
+    inp = _inputs(seed=47)
+    inp["colloc"] = np.concatenate([inp["colloc"], jds.ic_bc_candidates(ds)])  # anchored
+    jstate = _jax_state(jp, inp, 1.0, 0.01 / math.pi, optimizer)
+    tstate = train_state_from_jax(_jax_tree(jstate), torch.device("cpu"))
+    for k in range(n_steps):
+        jstate, jm = jstep(jstate)
+        tstate, tm = tstep(tstate)
+        for name in jm:
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"step {k} {name}")
+    want, got = _jax_tree(jstate), train_state_to_numpy(tstate)
+    np.testing.assert_array_equal(got["colloc"], want["colloc"])  # the fixed batch stays
+    gp = np.concatenate([a.ravel() for layer in got["params"]["net"] for a in layer.values()])
+    wp = np.concatenate([np.asarray(a).ravel() for layer in want["params"]["net"]
+                         for a in layer.values()])
+    diff = np.abs(gp - wp)
+    assert diff.max() <= 2 * LR * n_steps * (1 + 1e-3)
+    assert np.mean(diff > 1e-6) <= 0.01, np.sort(diff)[-10:]
+
+
+def test_burgers_shock_grid_is_the_native_one(monkeypatch):
+    """The committed burgers_shock grid equals the JAX package's Cole-Hopf
+    regeneration (the grid burgers_forward trains and is scored on)."""
+    from pinns_tpu.data import generators
+    from pinns_tpu_torch.data.datasets import load_burgers_mat
+
+    monkeypatch.delenv("PINNS_TPU_DATA_ROOT", raising=False)
+    port = load_burgers_mat("burgers_shock")
+    native = generators.make_burgers_shock_grid(nx=256, nt=100)
+    jax_ds = jds.GridDataset(x=native["x"], t=native["t"], fields={"u": native["usol"].T})
+    assert port.provenance == "native" and port.fields["u"].shape == (100, 256)
+    np.testing.assert_array_equal(port.X_star, jax_ds.X_star)
+    np.testing.assert_array_equal(port.star["u"], jax_ds.star["u"])
 
 
 @pytest.mark.parametrize("preset,match", [
