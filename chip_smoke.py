@@ -1,6 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the Burgers serving
-path, the abgrall_admm Adam phase, and the L-BFGS phase of the hybrid
-schedule with the generic Adam step (abgrall_admm and burgers_forward).
+path, the abgrall_admm Adam phase, the L-BFGS phase of the hybrid schedule
+with the generic Adam step (abgrall_admm and burgers_forward), and the scale
+slice (burgers_scale at 1,048,576 points in 128 microbatches, float32 and the
+bf16 stream policy on kernel K6).
 
     python3 chip_smoke.py
 
@@ -54,6 +56,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             1,000 iterations): no plain call, u rel-L2 in its JAX band
   times     K5 and K2 against plain (CUDA events) and the generic step
             against the plain step for burgers_forward
+  16 k6     the mixed Taylor-2 kernel (K6) and its backward against the plain
+            mixed version at 8x200, N 8,192 and 65,536, for keep {}, keep {xx}
+            and max: per stream (per gradient leaf) within K6_FACTOR x the
+            plain version's error against float64; the backward also within
+            max-relative 0.2 of autograd through the plain version; two
+            backward calls agree bit for bit
+  17 scale-replay  the committed JAX fixture (burgers_scale_steps.npz: 8x200,
+            16,384 points in 2 microbatches, 3 Adam steps on fed points) through
+            the generic step: float32 losses within rtol 1e-4 and the step-0
+            gradient by close_grad; keep {xx} and max losses within the f32
+            envelope, per-leaf gradient norms within 5% of JAX's
+  18 burgers_scale  Trainer.train on the preset at full size (8x200,
+            1,048,576 points, 128 microbatches), SCALE_EPOCHS epochs each of
+            f32, keep {xx} and max: finite loss that falls, 128 forward and
+            128 backward launches of K1/K2 (f32) or K6 (mixed) per epoch, no
+            K3 and no plain call; ms per epoch and peak device memory
+  times     K6 forward and backward against plain (CUDA events)
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -81,12 +100,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "burgers_forward_8x20.npz")
 NARROW = (2,) + (20,) * 8 + (1,)  # burgers_forward / abgrall_admm
-WIDE = (2,) + (200,) * 8 + (1,)  # abgrall_visc
+WIDE = (2,) + (200,) * 8 + (1,)  # abgrall_visc, burgers_scale
 LB, UB = (-1.0, 0.0), (1.0, 0.99)
 # (layers, N): the served shapes of the main path (25,600 grid points, padded
 # to the 32,768 bucket), a small request, a 1M-point batch, and the wide net
+# at one burgers_scale microbatch and at 65,536
 KERNEL_SHAPES = [(NARROW, 64), (NARROW, 25_600), (NARROW, 32_768),
-                 (NARROW, 1_048_576), (WIDE, 65_536)]
+                 (NARROW, 1_048_576), (WIDE, 8_192), (WIDE, 65_536)]
 MAIN_SHAPE = (NARROW, 32_768)
 STREAMS = ("u", "u_x", "u_t", "u_xx")
 # rtol and atol (as a multiple of max|reference|) per stream: u_xx sums eight
@@ -110,9 +130,10 @@ BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
 LBFGS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "lbfgs_hybrid.npz")
 # K5 at the data term's 100 points and the served grid's 25,600 (8x20), and
 # the wide net at 65,536; K2 at abgrall_admm's N_f, burgers_forward's anchored
-# batch (10,000 LHS + 456 IC/BC points) and the wide net
+# batch (10,000 LHS + 456 IC/BC points), the wide net, and one burgers_scale
+# microbatch
 K5_SHAPES = [(NARROW, 100), (NARROW, 25_600), (WIDE, 65_536)]
-K2_SHAPES = [(NARROW, 1_000), (NARROW, 10_456), (WIDE, 1_000)]
+K2_SHAPES = [(NARROW, 1_000), (NARROW, 10_456), (WIDE, 1_000), (WIDE, 8_192)]
 REPLAY_STEP = 5  # the fixture state the L-BFGS replay starts from
 LONG_SOLVE = 200
 # L-BFGS iterates against JAX's: the gradients agree to ~1e-6 relative (1e-4
@@ -125,6 +146,29 @@ ITERATE_STEP_TOL, ITERATE_ULP_TOL = 1e-2, 1e-6
 LONG_SOLVE_BAND = 0.01
 HYBRID_OUTER = 10
 BF_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
+SCALE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "burgers_scale_steps.npz")
+# the bf16 stream policies of burgers_scale (experiments.presets.STREAM_POLICIES):
+# the JAX package's recommended keep {xx}, the TPU kernel's own keep {}, and
+# bench.py's mixed run (max)
+K6_POLICIES = ("keep_none", "keep_xx", "max")
+K6_SHAPES = [(WIDE, 8_192), (WIDE, 65_536)]  # one burgers_scale microbatch, and a larger call
+K6_MAIN = ("keep_xx", WIDE, 8_192)
+# the TPU test's envelope (89afc4b^:tests/test_pallas.py:87-109): K6 against
+# float64 at most twice the plain mixed version's error
+K6_FACTOR = 2.0
+# K6 and its backward against the plain mixed version on the same inputs:
+# max|K6 - plain| <= K6_PLAIN_TOL max|plain| per stream and per gradient leaf.
+# Sums of bf16 x bf16 products are mostly exact in float32, so the two differ
+# by the order of their float32 sums: at most 4.3e-6 of max|plain| on the
+# streams and 3.8e-6 on the leaves (H100). A K6 that skipped or misplaced a
+# rounding would be off by the quantization error: 2.7e-2 to 6.5e-1 of
+# max|plain| on the streams, 2e-3 to 1e-2 on every leaf but the head's bias,
+# which no rounding reaches
+K6_PLAIN_TOL = 3e-5
+SCALE_EPOCHS = 5
+SCALE_POLICIES = ("f32", "keep_xx", "max")
+# published peaks of one H100 SXM (dense), for the bounds in the kernels line
+PEAK_FP32, PEAK_BF16, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 
 def timed(card: str, name: str, fn, *args):
@@ -159,17 +203,17 @@ def compare(name: str, got: np.ndarray, want: np.ndarray) -> dict:
     return row
 
 
-def compare_f64(name: str, got, plain, exact) -> dict:
+def compare_f64(name: str, got, plain, exact, factor: float = F64_FACTOR) -> dict:
     """The kernel against the float64 recurrence, beside the plain float32
     recurrence's own error: the kernel passes when its error is at most
-    F64_FACTOR times the plain version's plus 1e-6 max|exact|. (For a deep
+    ``factor`` times the plain version's plus 1e-6 max|exact|. (For a deep
     random net the outputs come out of sums of much larger terms, and float32
     itself misses 1e-5 max|.|, whatever order it sums in.)"""
     got, plain, exact = (np.asarray(a, np.float64) for a in (got, plain, exact))
     check(bool(np.isfinite(got).all()), f"{name}: non-finite values")
     err = float(np.abs(got - exact).max())
     plain_err = float(np.abs(plain - exact).max())
-    bound = F64_FACTOR * plain_err + 1e-6 * float(np.abs(exact).max())
+    bound = factor * plain_err + 1e-6 * float(np.abs(exact).max())
     row = {"max_abs_err_vs_plain": float(np.abs(got - plain).max()),
            "max_abs_err_vs_f64": err, "plain_err_vs_f64": plain_err,
            "bound": bound, "ok": err <= bound}
@@ -527,7 +571,9 @@ def phase_step_times(card: str, nets: dict) -> dict:
         ms = event_ms(lambda: kernel_step(state))
         plain = event_ms(lambda: plain_step(state))
         emit(card, phase="times", what="train_epoch", net=net, n_f=trainer.exp.sampling.n_f,
-             kernel_ms=ms, plain_ms=plain, reps=REPS, clock="cuda_events")
+             kernel_ms=ms, plain_ms=plain, reps=REPS, clock="cuda_events",
+             bound_ms=step_bound(trainer.problem.spec.layers, trainer.exp.sampling.n_f,
+                                 trainer.exp.data.n_u)[0])
         out[net] = (ms, plain)
     trainer, state = nets["8x20"]
     tr.run_chunk(trainer._adam_step, state, 10)
@@ -584,13 +630,16 @@ def kernel_counts() -> dict:
 
     return {"taylor2": taylor2.LAUNCHES, "fused_step": fused_step.LAUNCHES,
             "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
-            "taylor2_backward": taylor2.BACKWARD_LAUNCHES}
+            "taylor2_backward": taylor2.BACKWARD_LAUNCHES,
+            "taylor2_mixed": taylor2.MIXED_LAUNCHES,
+            "taylor2_mixed_backward": taylor2.MIXED_BACKWARD_LAUNCHES}
 
 
 def reset_counts() -> None:
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
 
     taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = 0
+    taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
     fused_step.LAUNCHES = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
 
@@ -922,6 +971,8 @@ def phase_slice3_times(card: str, nets: dict, bf) -> dict:
         emit(card, phase="times", what="k5", net=f"{len(layers) - 2}x{max(layers)}", n=n,
              forward_ms=fwd, forward_plain_ms=fwd_plain, backward_ms=bwd,
              backward_plain_ms=bwd_plain, reps=REPS, clock="cuda_events",
+             forward_bound_ms=mlp_bound(layers, n)[0],
+             backward_bound_ms=mlp_bound(layers, n, backward=True)[0],
              plain="mlp_apply_reference; backward by autograd through it")
     for layers, n in K2_SHAPES:
         spec, params = nets[layers]
@@ -939,6 +990,7 @@ def phase_slice3_times(card: str, nets: dict, bf) -> dict:
         out[("k2", layers, n)] = (ms, plain_ms)
         emit(card, phase="times", what="k2", net=f"{len(layers) - 2}x{max(layers)}", n=n,
              kernel_ms=ms, plain_ms=plain_ms, reps=REPS, clock="cuda_events",
+             bound_ms=taylor2_backward_bound(layers, n)[0],
              plain="autograd through mlp_taylor_2_reference (its forward included)")
     trainer = bf["trainer"]
     state = trainer.init_state(seed=3)
@@ -950,6 +1002,343 @@ def phase_slice3_times(card: str, nets: dict, bf) -> dict:
     emit(card, phase="times", what="generic_step", preset="burgers_forward",
          n_colloc=int(state.colloc.shape[0]), generic_ms=ms, plain_ms=plain_ms, reps=REPS,
          clock="cuda_events")
+    return out
+
+
+# -- bounds: the least time an H100 could take for a kernel's work -----------
+
+def _macs(layers):
+    return [din * dout for din, dout in zip(layers[:-1], layers[1:])]
+
+
+def bound(ops, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the peak rate of
+    their type (``ops`` = [(flop, rate), ...]) and the bytes over the memory
+    rate (each input read once, each output written once)."""
+    t_ops = sum(f / r for f, r in ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def taylor2_ops(layers, n: int, quantized=(False,) * 4):
+    """The products of one Taylor-2 pass, 2 FLOP a MAC for each of the four
+    streams: layer 0 at the fp32 rate, the later layers of a quantized stream
+    at the bf16 rate."""
+    m = _macs(layers)
+    out = []
+    for q in quantized:
+        out += [(2.0 * m[0] * n, PEAK_FP32), (2.0 * sum(m[1:]) * n, PEAK_BF16 if q else PEAK_FP32)]
+    return out
+
+
+def n_params(layers) -> int:
+    return sum(din * dout + dout for din, dout in zip(layers[:-1], layers[1:]))
+
+
+def taylor2_bound(layers, n, quantized=(False,) * 4):
+    return bound(taylor2_ops(layers, n, quantized), 8 * n + 16 * n * layers[-1] + 4 * n_params(layers))
+
+
+def taylor2_backward_bound(layers, n, quantized=(False,) * 4):
+    """The forward recomputed (the backward gets only x and the params) plus
+    dW and gH for the four streams, whose float32 cotangents make them fp32."""
+    ops = taylor2_ops(layers, n, quantized) + [(2 * 8.0 * sum(_macs(layers)) * n, PEAK_FP32)]
+    return bound(ops, 8 * n + 16 * n * layers[-1] + 8 * n_params(layers))
+
+
+def mlp_bound(layers, n, backward=False):
+    """K5: one stream's products (3x for the backward: recompute, dW, gH)."""
+    flop = (3 if backward else 1) * 2.0 * sum(_macs(layers)) * n
+    nbytes = 8 * n + 4 * n * layers[-1] + (8 if backward else 4) * n_params(layers)
+    return bound([(flop, PEAK_FP32)], nbytes)
+
+
+def step_bound(layers, n_f, n_u):
+    """K3's epoch: the residual pass, its backward, the tail's pass at the new
+    points, the data term forward and backward; Adam's state and the batch,
+    z and dual read and written once."""
+    ops = taylor2_ops(layers, n_f) * 4 + [(3 * 2.0 * sum(_macs(layers)) * n_u, PEAK_FP32)]
+    nbytes = 24 * n_params(layers) + 32 * n_f + 12 * n_u
+    return bound(ops, nbytes)
+
+
+def policies() -> dict:
+    from pinns_tpu_torch.experiments.presets import STREAM_POLICIES
+
+    return STREAM_POLICIES
+
+
+def quantized_streams(policy: str):
+    """Which of (u, u_x, u_t, u_xx) a policy quantizes."""
+    keep = policies()[policy].get("model.keep_streams", ())
+    mixed = bool(policies()[policy])
+    return (mixed and "value" not in keep, mixed, mixed, mixed and "xx" not in keep)
+
+
+def mixed_spec(layers, policy: str):
+    from pinns_tpu_torch.models.mlp import MLPSpec
+
+    upd = policies()[policy]
+    return MLPSpec(layers=layers, lb=LB, ub=UB,
+                   compute_dtype=upd.get("model.compute_dtype"),
+                   keep_streams=upd.get("model.keep_streams", ()),
+                   mixed_elementwise=upd.get("model.mixed_elementwise", False))
+
+
+def bound_fields(b) -> dict:
+    """The kernels line's bound keys; no single PyTorch call computes any of
+    these functions, so library_ms is null."""
+    return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+def close_plain(name: str, got, plain) -> float:
+    """max|got - plain|, raising unless it is at most K6_PLAIN_TOL max|plain|."""
+    got, plain = (np.asarray(a, np.float64) for a in (got, plain))
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite values")
+    err = float(np.abs(got - plain).max())
+    bound = K6_PLAIN_TOL * float(np.abs(plain).max())
+    check(err <= bound, f"{name}: max|K6 - plain| {err} > {bound}")
+    return err
+
+
+def phase_k6(card: str, nets: dict) -> dict:
+    """16: K6 forward and backward against the plain mixed version on the
+    same inputs, and within the TPU test's envelope against float64."""
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+
+    out = {}
+    for policy in K6_POLICIES:
+        for layers, n in K6_SHAPES:
+            _, params = nets[layers]
+            spec = mixed_spec(layers, policy)
+            spec64 = dataclasses.replace(mixed_spec(layers, "f32"), dtype=torch.float64)
+            params64 = net_f64(params)
+            x = points(n, seed=n + 7, device="cuda")
+            rng = np.random.default_rng(n + 8)
+            cot = [torch.from_numpy((rng.standard_normal((n, 1)) / n).astype(np.float32)).cuda()
+                   for _ in range(4)]
+            with torch.no_grad():
+                got = k_taylor2.taylor2(spec, params, x)
+                plain = mlp_taylor_2_reference(spec, params, x)
+                exact = mlp_taylor_2_reference(spec64, params64, x.double())
+                grad = k_taylor2.taylor2_backward(spec, params, x, cot)
+                again = k_taylor2.taylor2_backward(spec, params, x, cot)
+                g_plain = k_taylor2.taylor2_backward_reference(spec, params, x, cot)
+                g64 = k_taylor2.taylor2_backward_reference(spec64, params64, x.double(),
+                                                           [c.double() for c in cot])
+            leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
+            net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+            outs = mlp_taylor_2_reference(spec, net, x)
+            auto = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
+            torch.cuda.synchronize()
+            check(torch.equal(grad, again), f"K6 backward {policy} N {n}: two calls differ")
+            fwd = {}
+            for name, g, p, e in zip(STREAMS, got, plain, exact):
+                tag = f"K6 {policy} N {n} {name}"
+                fwd[name] = compare_f64(tag, host(g), host(p), host(e), K6_FACTOR)
+                fwd[name]["max_abs_err_vs_plain_bound"] = K6_PLAIN_TOL * float(p.abs().max())
+                close_plain(tag, host(g), host(p))
+            bwd_rows = []
+            for i, (g, p, a, e) in enumerate(zip(k_taylor2.split_grad(grad, leaves), g_plain,
+                                                 auto, g64)):
+                tag = f"K6 backward {policy} N {n} leaf {i}"
+                row = compare_f64(tag, host(g), host(a), host(e), K6_FACTOR)
+                rel = float((g - a).abs().max()) / float(a.abs().max())
+                check(rel <= 0.2, f"{tag}: {rel} of autograd")
+                bwd_rows.append(dict(row, max_rel_vs_autograd=rel,
+                                     err_vs_plain=close_plain(tag, host(g), host(p)),
+                                     rel_vs_plain=float((g - p).abs().max() / p.abs().max())))
+            out[(policy, layers, n)] = (max(r["max_abs_err_vs_plain"] for r in fwd.values()),
+                                        max(r["err_vs_plain"] for r in bwd_rows))
+            emit(card, phase="k6", policy=policy, net="8x200", n=n,
+                 criterion=f"|K6 - plain| <= {K6_PLAIN_TOL} max|plain| per stream and leaf "
+                           "(plain: mlp_taylor_2_reference, taylor2_backward_reference under "
+                           f"the policy); |K6 - f64| <= {K6_FACTOR} |plain - f64| + 1e-6 "
+                           "max|f64|; backward within 0.2 max-relative of autograd",
+                 forward=fwd, backward={
+                     "leaves": len(bwd_rows),
+                     "max_rel_vs_plain": max(r["rel_vs_plain"] for r in bwd_rows),
+                     "worst_ratio": max(r["max_abs_err_vs_f64"] / max(r["plain_err_vs_f64"], 1e-30)
+                                        for r in bwd_rows),
+                     "max_rel_vs_autograd": max(r["max_rel_vs_autograd"] for r in bwd_rows)},
+                 bitwise_repeatable=True, policy_flags=k_taylor2.policy_flags(spec))
+    return out
+
+
+def draw_scale_inputs(fx):
+    """The fixture's params and batches, rebuilt from its seed as
+    scripts/make_torch_scale_fixture.py::draw makes them."""
+    layers = [int(w) for w in fx["layers"]]
+    rng = np.random.default_rng(int(fx["seed"]))
+    params = []
+    for din, dout in zip(layers[:-1], layers[1:]):
+        std = math.sqrt(2.0 / (din + dout))
+        w = std * np.clip(rng.standard_normal((din, dout)), -2.0, 2.0)
+        params.append({"W": w.astype(np.float32), "b": np.zeros((1, dout), np.float32)})
+    batches = [rng.uniform(fx["lb"], fx["ub"], size=(int(fx["n_f"]), 2)).astype(np.float32)
+               for _ in range(int(fx["steps"]))]
+    flat = np.concatenate([a.ravel() for p in params for a in (p["W"], p["b"])])
+    check(float(flat.astype(np.float64).sum()) == float(fx["params_sum"])
+          and float(sum(b.astype(np.float64).sum() for b in batches)) == float(fx["colloc_sum"]),
+          "the scale fixture's params or batches did not rebuild from its seed")
+    return params, batches
+
+
+def phase_scale_replay(card: str) -> dict:
+    """17: the JAX burgers_scale fixture replayed through the generic step."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.opt.adam import adam_init
+    from pinns_tpu_torch.train import trainer as tr
+
+    with np.load(SCALE_FIXTURE, allow_pickle=False) as z:
+        fx = {k: z[k] for k in z.files}
+    params_np, batches = draw_scale_inputs(fx)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    base = {"sampling.n_f": int(fx["n_f"]), "sampling.microbatch": int(fx["microbatch"])}
+    out = {}
+    for policy in SCALE_POLICIES:
+        exp = override(get_preset("burgers_scale"), dict(base, **policies()[policy]))
+        problem = tr.build_problem(exp, "cuda")
+        check(np.array_equal(host(problem.x_data), fx["x_data"])
+              and np.array_equal(host(problem.targets["u"]), fx["u_data"]),
+              "the port's N_u training set differs from JAX's")
+        params = {"net": [{k: t(v) for k, v in p.items()} for p in params_np],
+                  "coeffs": {"lambda1": torch.full((1,), exp.pde.lambda1, device="cuda"),
+                             "lambda2": torch.full((1,), exp.pde.lambda2, device="cuda")}}
+        leaves = [v.clone().requires_grad_(True) for p in params["net"] for v in p.values()]
+        net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        loss0, _ = tr.make_loss_fn(problem)(dict(params, net=net), t(batches[0]), None)
+        grad0 = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss0, leaves)])
+        step = tr.make_adam_step(problem, exp.optimizer.learning_rate)
+        state = tr.TrainState(params=params, opt_state=adam_init(params), admm=None,
+                              colloc=t(batches[0]), key=0, epoch=0)
+        rows = []
+        for k in range(int(fx["steps"])):
+            nxt = t(batches[k + 1]) if k + 1 < len(batches) else None
+            state, m = step(state, new_colloc=nxt)
+            got = {n: float(m[n]) for n in ("loss", "data_term", "res_term")}
+            row = {}
+            for n, v in got.items():
+                want, f32 = float(fx[f"{policy}_{n}"][k]), float(fx[f"f32_{n}"][k])
+                # a mixed run must land nearer JAX's mixed value than JAX's
+                # float32 one (a run without the policy would sit on the latter)
+                tol = (1e-4 * abs(want) if policy == "f32"
+                       else 0.5 * abs(want - f32) + 1e-6 * abs(want))
+                check(math.isfinite(v) and abs(v - want) <= tol,
+                      f"scale replay {policy} step {k} {n}: {v} vs JAX {want} (tol {tol})")
+                row[n] = {"port": v, "jax": want, "tol": tol}
+            rows.append(row)
+        g = host(grad0).astype(np.float64)
+        leaves_np = split_leaves(g, WIDE)
+        norms = np.array([np.linalg.norm(a) for a in leaves_np])
+        norm_rel = float(np.max(np.abs(norms - fx[f"{policy}_grad_norms"])
+                                / fx[f"{policy}_grad_norms"]))
+        check(norm_rel <= 0.05, f"scale replay {policy}: step-0 gradient norms {norm_rel} off")
+        grad_row = {"leaf_norm_max_rel": norm_rel}
+        if policy == "f32":
+            p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+            g64, _ = plain_gradient(p64, params, t(batches[0]), None, torch.float64)
+            grad_row.update(close_grad(g.astype(np.float32), fx["f32_grad_0"], WIDE, host(g64)))
+        out[policy] = rows
+        emit(card, phase="scale-replay", policy=policy, n_f=int(fx["n_f"]),
+             microbatch=int(fx["microbatch"]), steps=rows, grad_0=grad_row,
+             criterion="f32: rtol 1e-4; mixed: |port - jax| <= 0.5 |jax - jax_f32| + 1e-6 |jax|")
+    return out
+
+
+def phase_burgers_scale(card: str) -> dict:
+    """18: burgers_scale at full size through Trainer.train on the card."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.train import trainer as tr
+
+    out = {}
+    for policy in SCALE_POLICIES:
+        with tempfile.TemporaryDirectory() as tmp:
+            exp = override(get_preset("burgers_scale"), dict(policies()[policy], **{
+                "train.epochs": SCALE_EPOCHS, "train.chunk": 1, "train.log_every": 1,
+                "train.out_dir": tmp}))
+            trainer = tr.Trainer(exp, device="cuda")
+            m = exp.sampling.microbatch
+            state = trainer.init_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with PlainCalls() as plain:
+                t0 = time.perf_counter()
+                state, summary = trainer.train(state)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = kernel_counts()
+            peak = torch.cuda.max_memory_allocated()
+            with open(os.path.join(tmp, "burgers_scale_metrics.jsonl")) as f:
+                logs = [json.loads(line) for line in f if "summary" not in line]
+        mixed = policy != "f32"
+        fwd, bwd = ("taylor2_mixed", "taylor2_mixed_backward") if mixed else \
+            ("taylor2", "taylor2_backward")
+        other = ("taylor2", "taylor2_backward") if mixed else \
+            ("taylor2_mixed", "taylor2_mixed_backward")
+        losses = [r["loss"] for r in logs]
+        check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
+        # every epoch: m forward and m backward launches; the final evaluation
+        # adds one forward over the grid
+        check(launches[bwd] == m * SCALE_EPOCHS and launches[fwd] == m * SCALE_EPOCHS + 1,
+              f"{policy}: launches {launches}")
+        check(launches["fused_step"] == 0 and launches[other[0]] == launches[other[1]] == 0,
+              f"{policy}: launches {launches}")
+        check(launches["mlp_forward"] == launches["mlp_backward"] == SCALE_EPOCHS,
+              f"{policy}: launches {launches}")
+        check(len(logs) == SCALE_EPOCHS and all(math.isfinite(v) for v in losses),
+              f"{policy}: losses {losses}")
+        # Adam's first update moves every weight by lr and the loss jumps (the
+        # fixture's JAX runs: 0.34 -> 1.32); it falls below its start by the fifth
+        check(losses[-1] < losses[0], f"{policy}: the loss did not fall: {losses}")
+        epoch_ms = [1e3 * r["elapsed"] for r in logs]
+        out[policy] = {"ms_per_epoch": statistics.median(epoch_ms[1:]), "launches": launches,
+                       "peak_bytes": peak}
+        emit(card, phase="burgers_scale", policy=policy, epochs=SCALE_EPOCHS,
+             n_f=exp.sampling.n_f, microbatch=m, points_per_microbatch=exp.sampling.n_f // m,
+             losses=losses, ms_per_epoch=epoch_ms, ms_per_epoch_median=out[policy]["ms_per_epoch"],
+             points_per_s=exp.sampling.n_f / (out[policy]["ms_per_epoch"] / 1e3),
+             wall_s=wall, peak_device_bytes=peak, launches=launches, plain_calls=plain.calls,
+             rel_l2_u=summary["rel_l2_u"], clock="host, per 1-epoch chunk ending in a sync",
+             k6_policy_flags=k_taylor2.policy_flags(trainer.problem.spec) if mixed else None)
+    return out
+
+
+def phase_k6_times(card: str, nets: dict) -> dict:
+    """times: K6 forward and backward against plain (CUDA events, medians)."""
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+
+    out = {}
+    for policy in K6_POLICIES:
+        for layers, n in K6_SHAPES:
+            _, params = nets[layers]
+            spec = mixed_spec(layers, policy)
+            leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
+            net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+            x = points(n, seed=n + 9, device="cuda")
+            cot = [torch.ones((n, 1), device="cuda") for _ in range(4)]
+            with torch.no_grad():
+                fwd = event_ms(lambda: k_taylor2.taylor2(spec, params, x))
+                fwd_plain = event_ms(lambda: mlp_taylor_2_reference(spec, params, x))
+                bwd = event_ms(lambda: k_taylor2.taylor2_backward(spec, params, x, cot))
+            bwd_plain = event_ms(lambda: torch.autograd.grad(
+                mlp_taylor_2_reference(spec, net, x), leaves, cot))
+            q = quantized_streams(policy)
+            fb, fb_by = taylor2_bound(layers, n, q)
+            bb, bb_by = taylor2_backward_bound(layers, n, q)
+            out[(policy, layers, n)] = (fwd, fwd_plain, bwd, bwd_plain, (fb, fb_by), (bb, bb_by))
+            emit(card, phase="times", what="k6", policy=policy, net="8x200", n=n,
+                 forward_ms=fwd, forward_plain_ms=fwd_plain, forward_bound_ms=fb,
+                 backward_ms=bwd, backward_plain_ms=bwd_plain, backward_bound_ms=bb,
+                 reps=REPS, clock="cuda_events",
+                 plain="mlp_taylor_2_reference under the policy; backward by autograd "
+                       "through it (its forward included)")
     return out
 
 
@@ -1093,7 +1482,8 @@ def main() -> int:
             if (layers, n) == MAIN_SHAPE:
                 main_ms, main_plain_ms = ms, plain
             emit(card, phase="times", what="taylor2", net=f"{len(layers) - 2}x{max(layers)}",
-                 n=n, kernel_ms=ms, plain_ms=plain, reps=REPS, clock="cuda_events")
+                 n=n, kernel_ms=ms, plain_ms=plain, reps=REPS, clock="cuda_events",
+                 bound_ms=taylor2_bound(layers, n)[0])
         for n in (25_600, 1_048_576):
             xs = np.resize(x_star, (n, 2)) if n > x_star.shape[0] else x_star[:n]
             ms = host_ms(lambda: served.predict(xs, pad_to_bucket=True))
@@ -1116,8 +1506,16 @@ def main() -> int:
     bf = timed(card, "burgers_forward", phase_burgers_forward, card)
     t3 = timed(card, "times-slice3", phase_slice3_times, card, nets, bf)
 
+    # -- 16-18 and times: the scale slice (microbatching, K6) ---------------
+    k6 = timed(card, "k6", phase_k6, card, nets)
+    timed(card, "scale-replay", phase_scale_replay, card)
+    scale = timed(card, "burgers_scale", phase_burgers_scale, card)
+    t6 = timed(card, "times-k6", phase_k6_times, card, nets)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k2_main = (NARROW, 100), (NARROW, 1_000)
+    k6_launches = scale[K6_MAIN[0]]["launches"]
+    k6_times = t6[K6_MAIN]
     print(json.dumps({"kernels": [{
         "name": "taylor2",
         "route": "cuda",
@@ -1127,6 +1525,7 @@ def main() -> int:
         "max_abs_err": main_err,
         "ms": main_ms,
         "plain_ms": main_plain_ms,
+        **bound_fields(taylor2_bound(*MAIN_SHAPE)),
     }, {
         "name": "fused_step",
         "route": "cuda",
@@ -1136,6 +1535,7 @@ def main() -> int:
         "max_abs_err": step["grad_err"],
         "ms": epoch_ms["8x20"][0],
         "plain_ms": epoch_ms["8x20"][1],
+        **bound_fields(step_bound(NARROW, 1_000, 100)),
     }, {
         "name": "mlp_forward",
         "route": "cuda",
@@ -1145,6 +1545,7 @@ def main() -> int:
         "max_abs_err": k5[k5_main][0],
         "ms": t3[("k5",) + k5_main][0],
         "plain_ms": t3[("k5",) + k5_main][1],
+        **bound_fields(mlp_bound(*k5_main)),
     }, {
         "name": "mlp_backward",
         "route": "cuda",
@@ -1154,6 +1555,7 @@ def main() -> int:
         "max_abs_err": k5[k5_main][1],
         "ms": t3[("k5",) + k5_main][2],
         "plain_ms": t3[("k5",) + k5_main][3],
+        **bound_fields(mlp_bound(*k5_main, backward=True)),
     }, {
         "name": "taylor2_backward",
         "route": "cuda",
@@ -1163,6 +1565,27 @@ def main() -> int:
         "max_abs_err": k2[k2_main],
         "ms": t3[("k2",) + k2_main][0],
         "plain_ms": t3[("k2",) + k2_main][1],
+        **bound_fields(taylor2_backward_bound(*k2_main)),
+    }, {
+        "name": "taylor2_mixed",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor2.cu",
+        "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:329",
+        "launches": k6_launches["taylor2_mixed"],
+        "max_abs_err": k6[K6_MAIN][0],
+        "ms": k6_times[0],
+        "plain_ms": k6_times[1],
+        **bound_fields(k6_times[4]),
+    }, {
+        "name": "taylor2_mixed_backward",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor2_backward.cu",
+        "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:391",
+        "launches": k6_launches["taylor2_mixed_backward"],
+        "max_abs_err": k6[K6_MAIN][1],
+        "ms": k6_times[2],
+        "plain_ms": k6_times[3],
+        **bound_fields(k6_times[5]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,15 +1,21 @@
 """Command line of the port: ``python -m pinns_tpu_torch <command>``.
 
-  train    --preset NAME [--epochs N] [--chunk C] [--data GRID] [--device cuda|cpu]
-           [--out-dir D] [--seed S]               train; prints the JSON summary
+  train    --preset NAME [--set KEY=VALUE ...] [--epochs N] [--chunk C] [--data GRID]
+           [--device cuda|cpu] [--out-dir D] [--seed S]
+                                                  train; prints the JSON summary
   export   --params P.npz --out D                 write a serving artifact
   serve    --artifact D --port N --device cuda    HTTP server (GET /meta, POST /predict)
   predict  --artifact D --points P.npz --out O.npz --device cuda
                                                   batch inference, npz/csv in and out
 
-``train`` runs the preset's schedule (on cuda, every Adam epoch is one call
-of the fused CUDA step) and prints the summary keys of the JAX CLI
-(``rel_l2_u``, ``lambda1``, ``lambda2``, ``truth``, ``epochs``). ``export``
+``train`` runs the preset's schedule (on cuda, an Adam epoch inside the fused
+step's scope is one call of K3, any other goes through the kernels under
+autograd) and prints the summary keys of the JAX CLI (``rel_l2_u``,
+``lambda1``, ``lambda2``, ``truth``, ``epochs``). ``--set`` overrides any
+config field by its dotted key, as the JAX CLI's does: the value is a Python
+literal, else a string, e.g. the bf16 stream policy of ``burgers_scale``:
+
+  --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)" ``export``
 takes a params file (``pinns_tpu_torch.interop`` format, e.g. written from a
 JAX run by ``scripts/make_torch_port_fixture.py``). ``--device`` defaults to
 cuda and raises when no card is visible; pass ``--device cpu`` for the plain
@@ -19,10 +25,29 @@ PyTorch path.
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import sys
 
 import numpy as np
+
+
+def _parse_value(text: str):
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def parse_sets(pairs) -> dict:
+    """``--set key=value`` pairs as overrides: a Python literal, else a string."""
+    out = {}
+    for pair in pairs or []:
+        if "=" not in pair:
+            raise SystemExit(f"--set expects key=value, got {pair!r}")
+        key, value = pair.split("=", 1)
+        out[key] = _parse_value(value)
+    return out
 
 
 def cmd_train(args) -> int:
@@ -30,7 +55,7 @@ def cmd_train(args) -> int:
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.train.trainer import Trainer
 
-    updates = {}
+    updates = parse_sets(args.set)
     for key, value in (("train.epochs", args.epochs), ("train.chunk", args.chunk),
                        ("train.out_dir", args.out_dir), ("train.seed", args.seed)):
         if value is not None:
@@ -109,6 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("train", help="train a preset")
     p.add_argument("--preset", required=True)
+    p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                   help="override a config field, e.g. sampling.n_f=4000 (repeatable)")
     p.add_argument("--epochs", type=int)
     p.add_argument("--chunk", type=int, help="epochs per chunk (metrics stay on the device)")
     p.add_argument("--data", help="grid .mat/.npz in place of the preset's dataset")

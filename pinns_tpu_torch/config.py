@@ -26,7 +26,9 @@ class ModelConfig:
     layers: Tuple[int, ...] = (2, 20, 20, 20, 20, 20, 20, 20, 20, 1)
     precision: str = "highest"  # the port always runs full float32 (TF32 off)
     dtype: str = "float32"
-    compute_dtype: str = ""  # mixed stream policy: slice 3
+    # the bf16 stream policy (ops/taylor.py): "" = none, or a dtype name
+    # ("bfloat16"); keep_streams is a subset of ('value', 'xx')
+    compute_dtype: str = ""
     keep_streams: Tuple[str, ...] = ()
     mixed_elementwise: bool = False
     n_fourier: int = 0  # Fourier features: slice 2
@@ -59,9 +61,9 @@ class SamplingConfig:
     seed: int = 1234
     t_curriculum_epochs: int = 0  # time curriculum: slice 2
     t_curriculum_floor: float = 0.05
-    microbatch: int = 1  # microbatching: slice 3
-    microbatch_remat: str = "full"
-    microbatch_unroll: int = 1
+    microbatch: int = 1  # residual chunks per batch (trainer._residual_term)
+    microbatch_remat: str = "full"  # 'full' | 'dots' | 'none'
+    microbatch_unroll: int = 1  # an XLA scan knob; the port ignores it
 
 
 @_frozen

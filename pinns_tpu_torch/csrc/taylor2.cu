@@ -29,9 +29,44 @@
 // loads that feed it (four LDS.128 per 16 FMAs); at width 20 and small N the
 // launch and the per-layer __syncthreads latency. Tensor cores (wgmma), TMA
 // weight staging and a persistent grid are later work.
+//
+// K6, the same kernel instantiated with kMixed: the Taylor-2 pass under the
+// bf16 stream policy. It replaces the TPU kernel `mlp_taylor2_pallas_mixed` /
+// `_taylor2_kernel_mixed` (fused_mlp.py at git 89afc4b^: kernel line 285,
+// wrapper 329, pallas_call 373) and computes what pinns_tpu/ops/taylor.py::
+// mlp_taylor_2 computes for a mixed spec (compute_dtype bfloat16 on float32
+// masters; `_StreamPolicy`, taylor.py:55-88), as the port's plain version
+// ops/taylor.py::mlp_taylor_2_reference does:
+//   - layer 0 takes the exact float32 coordinates with float32 weights;
+//   - a quantized stream (flags qv: value, qd: the x/t derivatives, qxx: xx)
+//     is stored in bf16 at every layer boundary, and its dot multiplies the
+//     stored values by bf16(W) with float32 accumulation; a kept stream
+//     stays float32 with float32 weights;
+//   - under `me` (mixed_elementwise) a quantized stream's dot output (the
+//     value stream after adding b in float32) is rounded to bf16, and every
+//     elementwise op whose result type is bf16 rounds again, in the plain
+//     version's operation order (csrc/taylor2_policy.cuh, which the backward
+//     shares);
+//   - the head is a plain dot (+ b for the value), float32 outputs.
+// The TPU kernel's own case (every stream quantized, float32 elementwise) is
+// qv = qd = qxx = 1, me = 0. The streams stay float32 values in shared memory
+// that hold bf16 values where quantized; the weight is rounded to bf16 in
+// registers for the streams that take it. A bf16 x bf16 product is exact in
+// float32, so the float32 FMAs accumulate what a bf16 tensor-core product
+// with float32 accumulation would (in another order).
+//
+// What bounds K6 at the main path's shape (8x200, one 8,192-point microbatch
+// of burgers_scale): the operations. 4 streams x 2 x 280,600 MACs = 2.245
+// MFLOP a point, 18.4 GFLOP a microbatch: 18.6 us at the 989 TFLOP/s bf16
+// dense rate when every stream is quantized, 274 us at the 67 TFLOP/s fp32
+// rate. K6 does the bf16 products on the fp32 FMA units, so the fp32 rate is
+// its own ceiling; it moves 24 bytes a point. Tensor cores (mma.sync or wgmma
+// on bf16 tiles with TMA weight staging) are later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "taylor2_policy.cuh"
 
 namespace {
 
@@ -55,9 +90,10 @@ __device__ __forceinline__ void st4(float* p, const float (&v)[kR]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+template <bool kMixed>
 __global__ void __launch_bounds__(kMaxThreads)
 taylor2_kernel(const float* __restrict__ x, int n,
-               const float* __restrict__ params, Net net,
+               const float* __restrict__ params, Net net, Policy q,
                float lb0, float lb1, float ub0, float ub1, int tile,
                float* __restrict__ u, float* __restrict__ ux,
                float* __restrict__ ut, float* __restrict__ uxx) {
@@ -94,6 +130,7 @@ taylor2_kernel(const float* __restrict__ x, int n,
     const float* __restrict__ W = params + net.w_off[l];
     const float* __restrict__ b = params + net.b_off[l];
     const bool head = l == net.n_layers - 1;
+    const LayerQ lq(q, l);  // K6: layer 0 takes float32 weights and rounds nothing
     for (int item = threadIdx.x; item < groups * dout; item += blockDim.x) {
       const int g = item / dout;
       const int j = item - g * dout;
@@ -103,18 +140,25 @@ taylor2_kernel(const float* __restrict__ x, int n,
 #pragma unroll 4
       for (int k = 0; k < din; ++k) {
         const float w = __ldg(W + static_cast<long long>(k) * dout + j);
+        float w0 = w, w1 = w, w3 = w;  // the weights of the value, x/t and xx dots
+        if constexpr (kMixed) {
+          const float wb = bf16r(w);
+          w0 = lq.wv ? wb : w;
+          w1 = lq.wd ? wb : w;
+          w3 = lq.wxx ? wb : w;
+        }
         const float4 h = ld4(in + 0 * plane + k * ts + pc);
         const float4 hx = ld4(in + 1 * plane + k * ts + pc);
         const float4 ht = ld4(in + 2 * plane + k * ts + pc);
         const float4 hxx = ld4(in + 3 * plane + k * ts + pc);
-        a[0] = fmaf(h.x, w, a[0]);     a[1] = fmaf(h.y, w, a[1]);
-        a[2] = fmaf(h.z, w, a[2]);     a[3] = fmaf(h.w, w, a[3]);
-        ax[0] = fmaf(hx.x, w, ax[0]);  ax[1] = fmaf(hx.y, w, ax[1]);
-        ax[2] = fmaf(hx.z, w, ax[2]);  ax[3] = fmaf(hx.w, w, ax[3]);
-        at[0] = fmaf(ht.x, w, at[0]);  at[1] = fmaf(ht.y, w, at[1]);
-        at[2] = fmaf(ht.z, w, at[2]);  at[3] = fmaf(ht.w, w, at[3]);
-        axx[0] = fmaf(hxx.x, w, axx[0]);  axx[1] = fmaf(hxx.y, w, axx[1]);
-        axx[2] = fmaf(hxx.z, w, axx[2]);  axx[3] = fmaf(hxx.w, w, axx[3]);
+        a[0] = fmaf(h.x, w0, a[0]);     a[1] = fmaf(h.y, w0, a[1]);
+        a[2] = fmaf(h.z, w0, a[2]);     a[3] = fmaf(h.w, w0, a[3]);
+        ax[0] = fmaf(hx.x, w1, ax[0]);  ax[1] = fmaf(hx.y, w1, ax[1]);
+        ax[2] = fmaf(hx.z, w1, ax[2]);  ax[3] = fmaf(hx.w, w1, ax[3]);
+        at[0] = fmaf(ht.x, w1, at[0]);  at[1] = fmaf(ht.y, w1, at[1]);
+        at[2] = fmaf(ht.z, w1, at[2]);  at[3] = fmaf(ht.w, w1, at[3]);
+        axx[0] = fmaf(hxx.x, w3, axx[0]);  axx[1] = fmaf(hxx.y, w3, axx[1]);
+        axx[2] = fmaf(hxx.z, w3, axx[2]);  axx[3] = fmaf(hxx.w, w3, axx[3]);
       }
       const float bj = b[j];
       if (head) {
@@ -133,13 +177,19 @@ taylor2_kernel(const float* __restrict__ x, int n,
         float s[kR], sxo[kR], sto[kR], sxxo[kR];
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
-          const float t = tanhf(a[r] + bj);
-          const float d1 = 1.0f - t * t;
-          const float d2 = -2.0f * t * d1;
-          s[r] = t;
-          sxo[r] = d1 * ax[r];
-          sto[r] = d1 * at[r];
-          sxxo[r] = d2 * ax[r] * ax[r] + d1 * axx[r];
+          if constexpr (kMixed) {
+            float t, d1, d2;
+            policy_act(rq(__fadd_rn(a[r], bj), lq.tv), rq(ax[r], lq.td), rq(at[r], lq.td),
+                       rq(axx[r], lq.txx), lq, q, t, d1, d2, s[r], sxo[r], sto[r], sxxo[r]);
+          } else {
+            const float t = tanhf(a[r] + bj);
+            const float d1 = 1.0f - t * t;
+            const float d2 = -2.0f * t * d1;
+            s[r] = t;
+            sxo[r] = d1 * ax[r];
+            sto[r] = d1 * at[r];
+            sxxo[r] = d2 * ax[r] * ax[r] + d1 * axx[r];
+          }
         }
         st4(out + 0 * plane + j * ts + pc, s);
         st4(out + 1 * plane + j * ts + pc, sxo);
@@ -161,18 +211,15 @@ size_t smem_bytes(int max_width, int tile) {
          static_cast<size_t>(tile + 4);
 }
 
-}  // namespace
-
-// Launch the fused pass on `stream`. `dims` (host memory) holds n_layers + 1
+// The launch of either instantiation: `dims` (host memory) holds n_layers + 1
 // widths; `params` (device) holds W_0, b_0, W_1, b_1, ... back to back. x is
 // (n, 2) float32, the outputs (n, dims[n_layers]) float32, all contiguous on
 // device `device`. Returns the CUDA error code of the launch (0 on success).
-extern "C" int pinns_taylor2_forward(const float* x, int n, const float* params,
-                                     const int* dims, int n_layers, float lb0,
-                                     float lb1, float ub0, float ub1, int tile,
-                                     int threads, float* u, float* ux,
-                                     float* ut, float* uxx, int device,
-                                     void* stream) {
+template <bool kMixed>
+int launch(const float* x, int n, const float* params, const int* dims, int n_layers,
+           const Policy& q, float lb0, float lb1, float ub0, float ub1, int tile,
+           int threads, float* u, float* ux, float* ut, float* uxx, int device,
+           void* stream) {
   if (n < 0 || n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2 ||
       tile < kR || tile % kR != 0 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0) {
@@ -196,15 +243,41 @@ extern "C" int pinns_taylor2_forward(const float* x, int n, const float* params,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(net.max_width, tile);
-  err = cudaFuncSetAttribute(taylor2_kernel,
+  err = cudaFuncSetAttribute(taylor2_kernel<kMixed>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const unsigned blocks = static_cast<unsigned>((n + tile - 1) / tile);
-  taylor2_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, n, params, net, lb0, lb1, ub0, ub1, tile, u, ux, ut, uxx);
+  taylor2_kernel<kMixed><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, n, params, net, q, lb0, lb1, ub0, ub1, tile, u, ux, ut, uxx);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1: the fused pass in float32 on `stream` (arguments as `launch`).
+extern "C" int pinns_taylor2_forward(const float* x, int n, const float* params,
+                                     const int* dims, int n_layers, float lb0,
+                                     float lb1, float ub0, float ub1, int tile,
+                                     int threads, float* u, float* ux,
+                                     float* ut, float* uxx, int device,
+                                     void* stream) {
+  return launch<false>(x, n, params, dims, n_layers, Policy{false, false, false, false}, lb0,
+                       lb1, ub0, ub1, tile, threads, u, ux, ut, uxx, device, stream);
+}
+
+// K6: the fused pass under the bf16 stream policy; `params` are the float32
+// masters. `policy` packs the flags: 1 value quantized, 2 x/t derivatives
+// quantized, 4 xx quantized, 8 mixed_elementwise.
+extern "C" int pinns_taylor2_mixed_forward(const float* x, int n, const float* params,
+                                           const int* dims, int n_layers, int policy,
+                                           float lb0, float lb1, float ub0, float ub1,
+                                           int tile, int threads, float* u, float* ux,
+                                           float* ut, float* uxx, int device, void* stream) {
+  if (policy < 0 || policy > 15) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(x, n, params, dims, n_layers, decode_policy(policy), lb0, lb1, ub0, ub1,
+                      tile, threads, u, ux, ut, uxx, device, stream);
 }
 
 extern "C" const char* pinns_cuda_error_string(int code) {

@@ -27,25 +27,47 @@
 //                      458 KB a block at 8x20), then the backward layer by
 //                      layer in shared memory. The block adds its tiles, in
 //                      tile order, into its own row of partial gradients.
+//                      dW is computed in 4 x 4 register tiles (8 shared-memory
+//                      loads feed 64 FMAs), each entry summed in the same
+//                      order as one entry a thread.
 //   2 reduce_kernel    one thread per parameter sums the rows in block order.
 // No atomics: two calls agree bit for bit. The forward values themselves come
 // from K1; this kernel recomputes what it needs rather than have K1 write a
 // scratch on every call.
 //
+// The same kernels, instantiated with kMixed, are the backward of K6 (csrc/
+// taylor2.cu under the bf16 stream policy): the forward is recomputed with
+// K6's rounding (policy_act, the same code as K6's), the stored streams are
+// the bf16-rounded ones, each stream's input adjoint gH = gP W^T takes the
+// weights its forward dot used (bf16(W) for a quantized stream), and the tanh
+// factors s, s', s'' are the forward's rounded ones. The casts count as
+// identity and every cotangent stays float32. This differs from
+// torch.autograd through the plain mixed recurrence, which rounds the
+// cotangents of bf16 tensors to bf16. JAX's op for the TPU kernel
+// (fused_mlp.py:391-418) took the VJP of its XLA recompute, which rounds as
+// autograd does.
+//
 // What bounds it on the H100: at 8x20 and N_f = 1,000 to 10,456 (the training
 // residual), latency: 16 to 164 blocks, each a chain of about 26
-// barrier-separated layer phases. At 8x200 the fp32 FMA issue rate (no tensor
-// cores: the residual path keeps full fp32) and the grid x n_params partial
-// rows. wgmma and a persistent grid are later work, as for K3.
+// barrier-separated layer phases. At 8x200 the operations: 3 x 2.245 MFLOP a
+// point (forward recompute, dW, gH), 55 GFLOP for one 8,192-point microbatch
+// of burgers_scale, 823 us at 67 TFLOP/s fp32. For K6 the recompute of its
+// quantized streams could run at the 989 TFLOP/s bf16 rate, while dW and gH
+// take float32 cotangents: 568 us. At 8x200 a block of 512 threads holds 192
+// KB of shared memory, one block an SM; the grid x n_params partial rows (1.3
+// MB a row) cost about a tenth of the time. wgmma and a persistent grid are
+// later work, as for K3.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "taylor2_policy.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 32;
 constexpr int kR = 4;          // points per thread item (one float4 per stream)
-constexpr int kThreads = 256;  // block size of the backward kernel
+constexpr int kThreads = 512;  // block size of the backward kernel (one block an SM)
 
 struct Net {
   int n_layers;
@@ -101,18 +123,20 @@ __device__ __forceinline__ void input_streams(float* buf, int plane, int ts,
 }
 
 // Taylor-2 forward through the hidden layers of a tile whose input streams
-// are in `in`, storing each layer's pre-activation streams in `pstore`
-// ([layer][stream][unit][tile]). Returns the buffer that holds the last
-// hidden layer's output streams.
+// are in `in`, storing each layer's pre-activation streams (after K6's
+// rounding under kMixed) in `pstore` ([layer][stream][unit][tile]). Returns
+// the buffer that holds the last hidden layer's output streams.
+template <bool kMixed>
 __device__ float* hidden_forward(const Net& net, const float* __restrict__ params, float* in,
                                  float* out, int tile, int ts, int plane,
-                                 float* __restrict__ pstore) {
+                                 float* __restrict__ pstore, const Policy& q) {
   const int groups = tile / kR;
   const long long sstride = static_cast<long long>(net.max_width) * tile;
   for (int l = 0; l < net.n_layers - 1; ++l) {
     const int din = net.dims[l], dout = net.dims[l + 1];
     const float* __restrict__ W = params + net.w_off[l];
     const float* __restrict__ b = params + net.b_off[l];
+    const LayerQ lq(q, l);
     for (int item = threadIdx.x; item < groups * dout; item += blockDim.x) {
       const int g = item / dout;
       const int j = item - g * dout;
@@ -122,22 +146,39 @@ __device__ float* hidden_forward(const Net& net, const float* __restrict__ param
 #pragma unroll 4
       for (int k = 0; k < din; ++k) {
         const float w = __ldg(W + k * dout + j);
+        float w0 = w, w1 = w, w3 = w;
+        if constexpr (kMixed) {
+          const float wb = bf16r(w);
+          w0 = lq.wv ? wb : w;
+          w1 = lq.wd ? wb : w;
+          w3 = lq.wxx ? wb : w;
+        }
         const float4 h = ld4(in + 0 * plane + k * ts + pc);
         const float4 hx = ld4(in + 1 * plane + k * ts + pc);
         const float4 ht = ld4(in + 2 * plane + k * ts + pc);
         const float4 hxx = ld4(in + 3 * plane + k * ts + pc);
-        a[0] = fmaf(h.x, w, a[0]);     a[1] = fmaf(h.y, w, a[1]);
-        a[2] = fmaf(h.z, w, a[2]);     a[3] = fmaf(h.w, w, a[3]);
-        ax[0] = fmaf(hx.x, w, ax[0]);  ax[1] = fmaf(hx.y, w, ax[1]);
-        ax[2] = fmaf(hx.z, w, ax[2]);  ax[3] = fmaf(hx.w, w, ax[3]);
-        at[0] = fmaf(ht.x, w, at[0]);  at[1] = fmaf(ht.y, w, at[1]);
-        at[2] = fmaf(ht.z, w, at[2]);  at[3] = fmaf(ht.w, w, at[3]);
-        axx[0] = fmaf(hxx.x, w, axx[0]);  axx[1] = fmaf(hxx.y, w, axx[1]);
-        axx[2] = fmaf(hxx.z, w, axx[2]);  axx[3] = fmaf(hxx.w, w, axx[3]);
+        a[0] = fmaf(h.x, w0, a[0]);     a[1] = fmaf(h.y, w0, a[1]);
+        a[2] = fmaf(h.z, w0, a[2]);     a[3] = fmaf(h.w, w0, a[3]);
+        ax[0] = fmaf(hx.x, w1, ax[0]);  ax[1] = fmaf(hx.y, w1, ax[1]);
+        ax[2] = fmaf(hx.z, w1, ax[2]);  ax[3] = fmaf(hx.w, w1, ax[3]);
+        at[0] = fmaf(ht.x, w1, at[0]);  at[1] = fmaf(ht.y, w1, at[1]);
+        at[2] = fmaf(ht.z, w1, at[2]);  at[3] = fmaf(ht.w, w1, at[3]);
+        axx[0] = fmaf(hxx.x, w3, axx[0]);  axx[1] = fmaf(hxx.y, w3, axx[1]);
+        axx[2] = fmaf(hxx.z, w3, axx[2]);  axx[3] = fmaf(hxx.w, w3, axx[3]);
       }
       const float bj = b[j];
+      if constexpr (kMixed) {
 #pragma unroll
-      for (int r = 0; r < kR; ++r) a[r] += bj;
+        for (int r = 0; r < kR; ++r) {
+          a[r] = rq(__fadd_rn(a[r], bj), lq.tv);
+          ax[r] = rq(ax[r], lq.td);
+          at[r] = rq(at[r], lq.td);
+          axx[r] = rq(axx[r], lq.txx);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) a[r] += bj;
+      }
       float* P = pstore + (static_cast<long long>(l) * 4 * net.max_width + j) * tile + pc;
       st4(P + 0 * sstride, a);
       st4(P + 1 * sstride, ax);
@@ -146,13 +187,19 @@ __device__ float* hidden_forward(const Net& net, const float* __restrict__ param
       float s[kR], sxo[kR], sto[kR], sxxo[kR];
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
-        const float t = tanhf(a[r]);
-        const float d1 = 1.0f - t * t;
-        const float d2 = -2.0f * t * d1;
-        s[r] = t;
-        sxo[r] = d1 * ax[r];
-        sto[r] = d1 * at[r];
-        sxxo[r] = d2 * ax[r] * ax[r] + d1 * axx[r];
+        if constexpr (kMixed) {
+          float t, d1, d2;
+          policy_act(a[r], ax[r], at[r], axx[r], lq, q, t, d1, d2, s[r], sxo[r], sto[r],
+                     sxxo[r]);
+        } else {
+          const float t = tanhf(a[r]);
+          const float d1 = 1.0f - t * t;
+          const float d2 = -2.0f * t * d1;
+          s[r] = t;
+          sxo[r] = d1 * ax[r];
+          sto[r] = d1 * at[r];
+          sxxo[r] = d2 * ax[r] * ax[r] + d1 * axx[r];
+        }
       }
       st4(out + 0 * plane + j * ts + pc, s);
       st4(out + 1 * plane + j * ts + pc, sxo);
@@ -167,10 +214,11 @@ __device__ float* hidden_forward(const Net& net, const float* __restrict__ param
   return in;
 }
 
+template <bool kMixed>
 __global__ void __launch_bounds__(kThreads)
 backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ params, Net net,
                 Box box, int tile, Seeds seeds, float* __restrict__ partials,
-                float* __restrict__ pstore_all) {
+                float* __restrict__ pstore_all, Policy q) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = tile, ts = T + 4;
@@ -191,7 +239,7 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
     const long long p0 = static_cast<long long>(tix) * T;
     input_streams(bufA, plane, ts, x, n, p0, T, box);
     __syncthreads();
-    float* X = hidden_forward(net, params, bufA, bufB, T, ts, plane, pstore);
+    float* X = hidden_forward<kMixed>(net, params, bufA, bufB, T, ts, plane, pstore, q);
     float* Y = X == bufA ? bufB : bufA;
     float* G = bufG;
     // the head's adjoints: the given cotangents, zero past n
@@ -215,44 +263,87 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
           input_streams(X, plane, ts, x, n, p0, T, box);
         } else {
           const float* P = pstore + static_cast<long long>(l - 1) * 4 * sstride;
+          const LayerQ lq(q, l - 1);
           for (int e = threadIdx.x; e < din * T; e += blockDim.x) {
             const int k = e / T, t = e - k * T;
             const float p = P[k * T + t], px = P[sstride + k * T + t];
             const float pt = P[2 * sstride + k * T + t], pxx = P[3 * sstride + k * T + t];
-            const float s = tanhf(p), d1 = 1.0f - s * s, d2 = -2.0f * s * d1;
-            X[0 * plane + k * ts + t] = s;
-            X[1 * plane + k * ts + t] = d1 * px;
-            X[2 * plane + k * ts + t] = d1 * pt;
-            X[3 * plane + k * ts + t] = d2 * px * px + d1 * pxx;
+            if constexpr (kMixed) {
+              float s, d1, d2;
+              policy_act(p, px, pt, pxx, lq, q, s, d1, d2,
+                         X[0 * plane + k * ts + t], X[1 * plane + k * ts + t],
+                         X[2 * plane + k * ts + t], X[3 * plane + k * ts + t]);
+            } else {
+              const float s = tanhf(p), d1 = 1.0f - s * s, d2 = -2.0f * s * d1;
+              X[0 * plane + k * ts + t] = s;
+              X[1 * plane + k * ts + t] = d1 * px;
+              X[2 * plane + k * ts + t] = d1 * pt;
+              X[3 * plane + k * ts + t] = d2 * px * px + d1 * pxx;
+            }
           }
         }
         __syncthreads();
       }
       const float* __restrict__ W = params + net.w_off[l];
-      const int n_wgrad = din * dout + dout;
+      // dW in 4 x 4 register tiles: unit j = jq + J4 jj of four strided rows
+      // of G (consecutive across a warp: no bank conflicts, coalesced
+      // partial rows) and k = 4 kb + kk of four consecutive rows of X (one
+      // address across most of a warp: a broadcast)
+      const int J4 = (dout + 3) / 4, K4 = (din + 3) / 4;
+      const int n_dw = J4 * K4;
+      const int n_wgrad = n_dw + dout;
       const int n_items = n_wgrad + (l > 0 ? din * groups : 0);
       const float* Pb = l > 0 ? pstore + static_cast<long long>(l - 1) * 4 * sstride : nullptr;
+      const LayerQ lq(q, l), lq_below(q, l > 0 ? l - 1 : 0);
       for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-        if (item < din * dout) {
-          // dW[k][j] = sum_t sum_s X[s][k][t] G[s][j][t]
-          const int k = item / dout, j = item - k * dout;
-          float acc = 0.0f;
+        if (item < n_dw) {
+          // dW[k][j] = sum_t sum_s X[s][k][t] G[s][j][t], summed in the same
+          // order (points outer, streams inner) for every (k, j). Rows past
+          // din / dout read a valid row and are not stored.
+          const int jq = item % J4, kb = item / J4;
+          int kr[4], jr[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            kr[i] = min(4 * kb + i, din - 1);
+            jr[i] = min(jq + i * J4, dout - 1);
+          }
+          float acc[4][4] = {};
           for (int t = 0; t < T; t += kR) {
 #pragma unroll
             for (int s = 0; s < 4; ++s) {
-              const float4 xv = ld4(X + s * plane + k * ts + t);
-              const float4 gv = ld4(G + s * plane + j * ts + t);
-              acc = fmaf(xv.x, gv.x, acc);
-              acc = fmaf(xv.y, gv.y, acc);
-              acc = fmaf(xv.z, gv.z, acc);
-              acc = fmaf(xv.w, gv.w, acc);
+              float4 xv[4], gv[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                xv[i] = ld4(X + s * plane + kr[i] * ts + t);
+                gv[i] = ld4(G + s * plane + jr[i] * ts + t);
+              }
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) {
+                  float a = acc[kk][jj];
+                  a = fmaf(xv[kk].x, gv[jj].x, a);
+                  a = fmaf(xv[kk].y, gv[jj].y, a);
+                  a = fmaf(xv[kk].z, gv[jj].z, a);
+                  acc[kk][jj] = fmaf(xv[kk].w, gv[jj].w, a);
+                }
+              }
             }
           }
-          const int o = net.w_off[l] + item;
-          part[o] = first ? acc : part[o] + acc;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int k = 4 * kb + kk, j = jq + jj * J4;
+              if (k < din && j < dout) {
+                const int o = net.w_off[l] + k * dout + j;
+                part[o] = first ? acc[kk][jj] : part[o] + acc[kk][jj];
+              }
+            }
+          }
         } else if (item < n_wgrad) {
           // db[j] = sum_t G[0][j][t]
-          const int j = item - din * dout;
+          const int j = item - n_dw;
           float acc = 0.0f;
           for (int t = 0; t < T; ++t) acc += G[j * ts + t];
           const int o = net.b_off[l] + j;
@@ -267,16 +358,23 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
           float ght[kR] = {0.f, 0.f, 0.f, 0.f}, ghxx[kR] = {0.f, 0.f, 0.f, 0.f};
           for (int j = 0; j < dout; ++j) {
             const float w = __ldg(W + k * dout + j);
+            float w0 = w, w1 = w, w3 = w;  // the weights each stream's forward dot used
+            if constexpr (kMixed) {
+              const float wb = bf16r(w);
+              w0 = lq.wv ? wb : w;
+              w1 = lq.wd ? wb : w;
+              w3 = lq.wxx ? wb : w;
+            }
             const float4 g0 = ld4(G + 0 * plane + j * ts + pc);
             const float4 g1 = ld4(G + 1 * plane + j * ts + pc);
             const float4 g2 = ld4(G + 2 * plane + j * ts + pc);
             const float4 g3 = ld4(G + 3 * plane + j * ts + pc);
 #pragma unroll
             for (int r = 0; r < kR; ++r) {
-              gh[r] = fmaf(get(g0, r), w, gh[r]);
-              ghx[r] = fmaf(get(g1, r), w, ghx[r]);
-              ght[r] = fmaf(get(g2, r), w, ght[r]);
-              ghxx[r] = fmaf(get(g3, r), w, ghxx[r]);
+              gh[r] = fmaf(get(g0, r), w0, gh[r]);
+              ghx[r] = fmaf(get(g1, r), w1, ghx[r]);
+              ght[r] = fmaf(get(g2, r), w1, ght[r]);
+              ghxx[r] = fmaf(get(g3, r), w3, ghxx[r]);
             }
           }
           const float4 p = ld4(Pb + k * T + pc);
@@ -287,7 +385,15 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
 #pragma unroll
           for (int r = 0; r < kR; ++r) {
             const float pr = get(p, r), pxr = get(px, r), ptr = get(pt, r), pxxr = get(pxx, r);
-            const float s = tanhf(pr), d1 = 1.0f - s * s, d2 = -2.0f * s * d1;
+            float s, d1, d2;
+            if constexpr (kMixed) {
+              float h, hx, ht, hxx;  // unused: the tanh factors are what is needed
+              policy_act(pr, pxr, ptr, pxxr, lq_below, q, s, d1, d2, h, hx, ht, hxx);
+            } else {
+              s = tanhf(pr);
+              d1 = 1.0f - s * s;
+              d2 = -2.0f * s * d1;
+            }
             o3[r] = ghxx[r] * d1;
             o1[r] = ghx[r] * d1 + 2.0f * ghxx[r] * d2 * pxr;
             o2[r] = ght[r] * d1;
@@ -325,20 +431,17 @@ size_t smem_bytes(int max_width, int tile) {
   return sizeof(float) * 12u * static_cast<size_t>(max_width) * static_cast<size_t>(tile + 4);
 }
 
-}  // namespace
-
 // grad (flat, params order) = d/dparams of sum over points of
 // gu . u + gux . u_x + gut . u_t + guxx . u_xx, on `stream`. `dims` (host)
 // holds n_layers + 1 widths; x is (n, 2), each cotangent (n, dims[n_layers]),
 // all float32, contiguous, on device `device`. `partials` (grid x n_params)
 // and `pstore` (grid x (n_layers - 1) x 4 x max_width x tile) are scratch.
 // Returns the CUDA error code of the launches (0 on success).
-extern "C" int pinns_taylor2_backward(const float* x, int n, const float* params,
-                                      const int* dims, int n_layers, float lb0, float lb1,
-                                      float ub0, float ub1, int tile, int grid, const float* gu,
-                                      const float* gux, const float* gut, const float* guxx,
-                                      float* partials, float* pstore, float* grad, int device,
-                                      void* stream) {
+template <bool kMixed>
+int launch(const float* x, int n, const float* params, const int* dims, int n_layers,
+           const Policy& q, float lb0, float lb1, float ub0, float ub1, int tile, int grid,
+           const float* gu, const float* gux, const float* gut, const float* guxx,
+           float* partials, float* pstore, float* grad, int device, void* stream) {
   if (n < 1 || n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2 || tile < kR ||
       tile % kR != 0 || grid < 1 || grid > (n + tile - 1) / tile) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -362,18 +465,48 @@ extern "C" int pinns_taylor2_backward(const float* x, int n, const float* params
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = smem_bytes(net.max_width, tile);
-  err = cudaFuncSetAttribute(backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(backward_kernel<kMixed>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const Box box{lb0, lb1, ub0, ub1};
   const Seeds seeds{{gu, gux, gut, guxx}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  backward_kernel<<<grid, kThreads, smem, s>>>(x, n, params, net, box, tile, seeds, partials,
-                                               pstore);
+  backward_kernel<kMixed><<<grid, kThreads, smem, s>>>(x, n, params, net, box, tile, seeds,
+                                                       partials, pstore, q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, grid, net.n_params, grad);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2: the backward of K1 (float32 streams).
+extern "C" int pinns_taylor2_backward(const float* x, int n, const float* params,
+                                      const int* dims, int n_layers, float lb0, float lb1,
+                                      float ub0, float ub1, int tile, int grid, const float* gu,
+                                      const float* gux, const float* gut, const float* guxx,
+                                      float* partials, float* pstore, float* grad, int device,
+                                      void* stream) {
+  return launch<false>(x, n, params, dims, n_layers, Policy{false, false, false, false}, lb0,
+                       lb1, ub0, ub1, tile, grid, gu, gux, gut, guxx, partials, pstore, grad,
+                       device, stream);
+}
+
+// The backward of K6. `policy` packs K6's flags: 1 value quantized, 2 x/t
+// derivatives quantized, 4 xx quantized, 8 mixed_elementwise.
+extern "C" int pinns_taylor2_mixed_backward(const float* x, int n, const float* params,
+                                            const int* dims, int n_layers, int policy,
+                                            float lb0, float lb1, float ub0, float ub1,
+                                            int tile, int grid, const float* gu,
+                                            const float* gux, const float* gut,
+                                            const float* guxx, float* partials, float* pstore,
+                                            float* grad, int device, void* stream) {
+  if (policy < 0 || policy > 15) return static_cast<int>(cudaErrorInvalidValue);
+  const Policy q = decode_policy(policy);
+  return launch<true>(x, n, params, dims, n_layers, q, lb0, lb1, ub0, ub1, tile, grid, gu, gux,
+                      gut, guxx, partials, pstore, grad, device, stream);
 }
 
 extern "C" const char* pinns_taylor2_backward_error_string(int code) {

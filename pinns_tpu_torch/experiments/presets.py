@@ -252,6 +252,16 @@ PRESETS = {
     ),
 }
 
+# The bf16 stream policies of burgers_scale as config overrides (``train
+# --set``): float32; keep {xx}, the JAX package's recommended scale policy;
+# keep {}, the TPU kernel's own case; max, bench.py's mixed run.
+STREAM_POLICIES = {
+    "f32": {},
+    "keep_xx": {"model.compute_dtype": "bfloat16", "model.keep_streams": ("xx",)},
+    "keep_none": {"model.compute_dtype": "bfloat16"},
+    "max": {"model.compute_dtype": "bfloat16", "model.mixed_elementwise": True},
+}
+
 
 def get_preset(name: str) -> Experiment:
     try:

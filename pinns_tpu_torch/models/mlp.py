@@ -10,8 +10,10 @@ The parameter layout is the JAX one: ``params`` is a list of
 converter (``pinns_tpu_torch.interop``) is a plain copy and the CUDA kernel
 reads weights row-major.
 
-Slice 1 ports the affine-embedding model. Fourier features and trainable
-shock paths come with slice 2; the mixed-precision stream policy with slice 3.
+Slice 1 ports the affine-embedding model; slice 3 the mixed-precision
+stream policy (``compute_dtype``, ``keep_streams``, ``mixed_elementwise``, read
+by ``ops.taylor``). Fourier features and trainable shock paths come with
+slice 2.
 """
 
 from __future__ import annotations
@@ -26,6 +28,14 @@ from torch import nn
 Params = List[Dict[str, torch.Tensor]]  # [{'W': (din, dout), 'b': (1, dout)}]
 
 
+def _float_dtype(value) -> torch.dtype:
+    """A torch floating dtype from a torch dtype or its name ("bfloat16")."""
+    dtype = getattr(torch, value, None) if isinstance(value, str) else value
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype must be a floating dtype, got {value!r}")
+    return dtype
+
+
 @dataclasses.dataclass(frozen=True)
 class MLPSpec:
     """Static description of a domain-normalized tanh MLP.
@@ -37,8 +47,10 @@ class MLPSpec:
         the JAX spec holds them; cast to ``dtype`` where used).
       dtype: parameter and compute dtype.
       compute_dtype / keep_streams / mixed_elementwise: the mixed-precision
-        stream policy of the JAX package. Carried so a JAX spec maps field for
-        field; ``ops.taylor`` raises on a mixed spec until slice 3.
+        stream policy of the JAX package (``ops.taylor._StreamPolicy``).
+        ``compute_dtype`` is None or a float dtype, given as a torch dtype or
+        its name ("bfloat16"); the spec is mixed only when it differs from
+        ``dtype``.
       fourier / n_paths: embeddings of the JAX package; a spec that sets
         either raises NotImplementedError until slice 2.
     """
@@ -63,6 +75,8 @@ class MLPSpec:
         object.__setattr__(self, "layers", tuple(int(w) for w in self.layers))
         object.__setattr__(self, "lb", tuple(float(v) for v in self.lb))
         object.__setattr__(self, "ub", tuple(float(v) for v in self.ub))
+        if self.compute_dtype is not None:
+            object.__setattr__(self, "compute_dtype", _float_dtype(self.compute_dtype))
         object.__setattr__(self, "keep_streams", tuple(self.keep_streams))
         bad = set(self.keep_streams) - {"value", "xx"}
         if bad:
@@ -76,8 +90,13 @@ class MLPSpec:
             )
 
     @property
+    def cdtype(self):
+        """Residual-path compute dtype (== dtype unless mixing)."""
+        return self.dtype if self.compute_dtype is None else self.compute_dtype
+
+    @property
     def mixed(self) -> bool:
-        return self.compute_dtype is not None and self.compute_dtype != self.dtype
+        return self.cdtype != self.dtype
 
     @property
     def in_dim(self) -> int:

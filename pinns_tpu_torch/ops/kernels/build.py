@@ -7,8 +7,9 @@ interface, so it compiles in seconds without PyTorch's headers:
          -Xcompiler -fPIC -Xptxas -v -o build/pinns_tpu_torch/lib<name>-<hash>.so <name>.cu
 
 The library goes to ``build/pinns_tpu_torch/`` at the repository root, named
-by a hash of its source, so an edited source rebuilds and an unchanged one
-loads the existing library. The compiler's output (ptxas register and
+by a hash of its source and of the headers (``*.cuh``) beside it, so an
+edited source or header rebuilds and an unchanged one loads the existing
+library. The compiler's output (ptxas register and
 shared-memory report included) is kept beside it as ``.log``. Nothing is
 built when this module is imported.
 """
@@ -50,7 +51,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -26,6 +26,17 @@ the fused Adam step. :func:`mlp_taylor2_kernel` binds K1 and K2 as one
 keeps the pre-activation streams in an L2-resident scratch and reduces
 per-block partial gradients in block order (bit-for-bit repeatable).
 
+K6, the Taylor-2 pass under the bf16 stream policy of a mixed spec
+(``ops.taylor._StreamPolicy``), is K1's kernel instantiated for the policy
+(``csrc/taylor2.cu``); its backward is K2's instantiated likewise. It replaces
+the TPU kernel ``mlp_taylor2_pallas_mixed`` (``_taylor2_kernel_mixed``;
+``fused_mlp.py`` at git ``89afc4b^``: kernel line 285, wrapper 329,
+``pallas_call`` 373) and its differentiable op ``make_taylor2_mixed_op``
+(line 391), whose VJP JAX took by an XLA recompute. :func:`taylor2` and
+:func:`taylor2_backward` launch K6 and its backward for a mixed spec, K1 and
+K2 otherwise; the plain versions are the same functions as K1's and K2's,
+on the same spec. K6 takes float32 masters and a bfloat16 compute dtype.
+
 The wrappers validate everything the kernels assume and raise otherwise;
 they never fall back to the plain version.
 """
@@ -40,9 +51,12 @@ import torch
 
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, input_scale, normalize_inputs
 from pinns_tpu_torch.ops.kernels import build
+from pinns_tpu_torch.ops.taylor import POLICY_STREAMS, _StreamPolicy, taylor2_layer
 
-LAUNCHES = 0  # kernel launches in this process (chip_smoke.py reads it)
+LAUNCHES = 0  # K1 launches in this process (chip_smoke.py reads it)
 BACKWARD_LAUNCHES = 0  # K2 calls (backward kernel + reduction) in this process
+MIXED_LAUNCHES = 0  # K6 launches
+MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls (backward kernel + reduction)
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
@@ -101,6 +115,10 @@ def _lib():
             p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, i, p,
         ]
         lib.pinns_taylor2_forward.restype = i
+        lib.pinns_taylor2_mixed_forward.argtypes = [  # K6: + the policy word
+            p, i, p, p, i, i, f, f, f, f, i, i, p, p, p, p, i, p,
+        ]
+        lib.pinns_taylor2_mixed_forward.restype = i
         lib.pinns_cuda_error_string.argtypes = [i]
         lib.pinns_cuda_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -115,6 +133,10 @@ def _backward_lib():
             p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, p, p, p, i, p,
         ]
         lib.pinns_taylor2_backward.restype = i
+        lib.pinns_taylor2_mixed_backward.argtypes = [  # K6's backward: + the policy word
+            p, i, p, p, i, i, f, f, f, f, i, i, p, p, p, p, p, p, p, i, p,
+        ]
+        lib.pinns_taylor2_mixed_backward.restype = i
         lib.pinns_taylor2_backward_error_string.argtypes = [i]
         lib.pinns_taylor2_backward_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -138,7 +160,8 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
                *per_point: torch.Tensor) -> None:
     """Raise ValueError unless ``x`` is contiguous float32 (N, 2) on a CUDA
     device, ``params`` float32 layers of ``spec``'s widths on that device, and
-    each of ``per_point`` a contiguous float32 (N, out_dim) tensor there."""
+    each of ``per_point`` a contiguous float32 (N, out_dim) tensor there.
+    (The stream policy is each kernel's own check: K5 ignores it.)"""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs a CUDA tensor, got device {x.device}")
     if x.dtype != torch.float32:
@@ -147,9 +170,6 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
         raise ValueError(f"{kernel} kernel takes (N, 2) points, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel} kernel needs contiguous points")
-    if spec.mixed:
-        raise ValueError(f"{kernel} kernel computes in float32; "
-                         "the mixed stream policy is slice 3")
     layers = spec.layers
     if len(params) != len(layers) - 1:
         raise ValueError(f"{len(params)} layers of params for widths {layers}")
@@ -169,17 +189,42 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def policy_flags(spec: MLPSpec) -> int:
+    """K6's policy word: 1 value quantized, 2 x/t derivatives quantized, 4 xx
+    quantized, 8 mixed_elementwise (the derivatives are always quantized:
+    ``keep_streams`` names only 'value' and 'xx')."""
+    keep = set(spec.keep_streams)
+    return ((0 if "value" in keep else 1) | 2 | (0 if "xx" in keep else 4)
+            | (8 if spec.mixed_elementwise else 0))
+
+
+def check_mixed(kernel: str, spec: MLPSpec) -> None:
+    """Raise ValueError unless K6 takes the mixed ``spec``: bfloat16 streams
+    on float32 masters, widths up to MAX_WIDTH."""
+    if spec.dtype != torch.float32:
+        raise ValueError(f"{kernel} kernel takes float32 masters, got {spec.dtype}")
+    if spec.compute_dtype != torch.bfloat16:
+        raise ValueError(f"{kernel} kernel computes in bfloat16, got {spec.compute_dtype}")
+    if max(spec.layers) > MAX_WIDTH:
+        raise ValueError(f"{kernel} kernel takes widths up to {MAX_WIDTH}, "
+                         f"got {max(spec.layers)}")
+
+
 def taylor2(
     spec: MLPSpec, params: Params, x: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(u, u_x, u_t, u_xx), each (N, out_dim) float32, from one kernel launch.
+    """(u, u_x, u_t, u_xx), each (N, out_dim) float32, from one launch of K1,
+    or of K6 under a mixed spec's stream policy.
 
     ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA device;
     ``params`` the JAX-layout layers on the same device. Raises on anything
     else.
     """
-    global LAUNCHES
-    check_call("taylor2", spec, params, x)
+    global LAUNCHES, MIXED_LAUNCHES
+    kernel = "taylor2_mixed" if spec.mixed else "taylor2"
+    if spec.mixed:
+        check_mixed(kernel, spec)
+    check_call(kernel, spec, params, x)
     layers = spec.layers
     tile, threads = launch_config(layers)
     flat = pack_params(params)
@@ -193,33 +238,42 @@ def taylor2(
     lib = _lib()
     dims = (ctypes.c_int * len(layers))(*layers)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.pinns_taylor2_forward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1,
-        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, threads,
-        *(o.data_ptr() for o in outs), x.device.index or 0, stream,
-    )
+    head = (x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1)
+    tail = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, threads,
+            *(o.data_ptr() for o in outs), x.device.index or 0, stream)
+    if spec.mixed:
+        err = lib.pinns_taylor2_mixed_forward(*head, policy_flags(spec), *tail)
+    else:
+        err = lib.pinns_taylor2_forward(*head, *tail)
     if err != 0:
         msg = lib.pinns_cuda_error_string(err).decode()
         raise RuntimeError(
-            f"taylor2 kernel launch failed: CUDA error {err} ({msg}); "
+            f"{kernel} kernel launch failed: CUDA error {err} ({msg}); "
             f"tile={tile} threads={threads} smem={smem_bytes(layers, tile)} B"
         )
     with _launches_lock:
-        LAUNCHES += 1
+        if spec.mixed:
+            MIXED_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return outs
 
 
 def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
                      cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
-    """K2: the flat gradient (``pack_params`` order) of sum over points of
+    """K2, or K6's backward under a mixed spec (casts taken as identity): the
+    flat gradient (``pack_params`` order) of sum over points of
     gu . u + gux . u_x + gut . u_t + guxx . u_xx, where ``cotangents`` =
     (gu, gux, gut, guxx), each (N, out_dim) float32, contiguous, on ``x``'s
     CUDA device. One backward launch and one reduction; raises on anything
     the kernel does not take."""
-    global BACKWARD_LAUNCHES
+    global BACKWARD_LAUNCHES, MIXED_BACKWARD_LAUNCHES
+    kernel = "taylor2_mixed backward" if spec.mixed else "taylor2 backward"
     if len(cotangents) != 4:
-        raise ValueError(f"taylor2 backward takes 4 stream cotangents, got {len(cotangents)}")
-    check_call("taylor2 backward", spec, params, x, *cotangents)
+        raise ValueError(f"{kernel} takes 4 stream cotangents, got {len(cotangents)}")
+    if spec.mixed:
+        check_mixed(kernel, spec)
+    check_call(kernel, spec, params, x, *cotangents)
     layers = spec.layers
     n = x.shape[0]
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
@@ -232,25 +286,32 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     lib = _backward_lib()
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
-    err = lib.pinns_taylor2_backward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1,
-        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, grid,
-        *(g.data_ptr() for g in cotangents), partials.data_ptr(), pstore.data_ptr(),
-        grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    head = (x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1)
+    tail = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, grid,
+            *(g.data_ptr() for g in cotangents), partials.data_ptr(), pstore.data_ptr(),
+            grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    if spec.mixed:
+        err = lib.pinns_taylor2_mixed_backward(*head, policy_flags(spec), *tail)
+    else:
+        err = lib.pinns_taylor2_backward(*head, *tail)
     if err != 0:
         msg = lib.pinns_taylor2_backward_error_string(err).decode()
         raise RuntimeError(
-            f"taylor2 backward kernel launch failed: CUDA error {err} ({msg}); "
+            f"{kernel} kernel launch failed: CUDA error {err} ({msg}); "
             f"tile={tile} grid={grid} smem={backward_smem_bytes(layers, tile)} B"
         )
     with _launches_lock:
-        BACKWARD_LAUNCHES += 1
+        if spec.mixed:
+            MIXED_BACKWARD_LAUNCHES += 1
+        else:
+            BACKWARD_LAUNCHES += 1
     return grad
 
 
 class _Taylor2(torch.autograd.Function):
-    """K1 forward, K2 as its VJP (w.r.t. the params only)."""
+    """K1 (K6) forward, K2 (K6's backward) as its VJP (w.r.t. the params
+    only). Saves only (x, params): the backward recomputes the forward, so a
+    caller needs no checkpoint around it."""
 
     @staticmethod
     def forward(ctx, spec, x, *leaves):
@@ -272,27 +333,23 @@ class _Taylor2(torch.autograd.Function):
 
 
 def mlp_taylor2_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
-    """(u, u_x, u_t, u_xx) through K1, differentiable in the params through
-    K2. CUDA tensors only (the wrappers raise on anything else)."""
+    """(u, u_x, u_t, u_xx) through K1 (K6 for a mixed spec), differentiable
+    in the params through K2 (K6's backward). CUDA tensors only (the wrappers
+    raise on anything else)."""
     leaves = [t for layer in params for t in (layer["W"], layer["b"])]
     return _Taylor2.apply(spec, x, *leaves)
 
 
-# -- the plain version of K2: the hand-written reverse mode in PyTorch --------
+# -- the plain version of K2 and of K6's backward: the hand-written reverse mode
 
-def _act(p, px, pt, pxx):
-    s = torch.tanh(p)
-    d1 = 1.0 - s * s
-    d2 = -2.0 * s * d1
-    return s, d1 * px, d1 * pt, d2 * px * px + d1 * pxx
-
-
-def _act_backward(p, px, pt, pxx, gh, ghx, ght, ghxx):
+def _act_backward(pre, tanh, gH):
     """Adjoints of a tanh layer's pre-activation streams from those of its
-    output streams (the formulas in the header of csrc/taylor2_backward.cu)."""
-    s = torch.tanh(p)
-    d1 = 1.0 - s * s
-    d2 = -2.0 * s * d1
+    output streams (the formulas in the header of csrc/taylor2_backward.cu),
+    at the forward's pre-activations ``pre`` = (p, px, pt, pxx) and tanh
+    factors ``tanh`` = (s, s', s''). Casts are taken as identity."""
+    p, px, pt, pxx = pre
+    s, d1, d2 = tanh
+    gh, ghx, ght, ghxx = gH
     gpxx = ghxx * d1
     gpx = ghx * d1 + 2.0 * ghxx * d2 * px
     gpt = ght * d1
@@ -303,9 +360,18 @@ def _act_backward(p, px, pt, pxx, gh, ghx, ght, ghxx):
 
 def taylor2_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
                                cotangents) -> List[torch.Tensor]:
-    """K2's algorithm in plain PyTorch: [dW_0, db_0, dW_1, ...] (W leaves
-    (din, dout), b leaves (1, dout)) of sum over points of the cotangents
-    (gu, gux, gut, guxx), each (N, out_dim), dotted with (u, u_x, u_t, u_xx)."""
+    """K2's algorithm (K6's backward for a mixed spec) in plain PyTorch:
+    [dW_0, db_0, dW_1, ...] (W leaves (din, dout), b leaves (1, dout)) of sum
+    over points of the cotangents (gu, gux, gut, guxx), each (N, out_dim),
+    dotted with (u, u_x, u_t, u_xx).
+
+    Under a mixed policy the forward is recomputed with its rounding
+    (``ops.taylor.taylor2_layer``), each stream's input adjoint takes the
+    weights its forward dot used, and the casts count as identity: the
+    cotangents stay in ``spec.dtype``, where autograd through the plain
+    recurrence would round those of bf16 tensors to bf16."""
+    pol = _StreamPolicy(spec)
+    dtype = spec.dtype
     h = normalize_inputs(spec, x)
     scale = input_scale(spec, x.device)
     zero = torch.zeros_like(h)
@@ -314,22 +380,20 @@ def taylor2_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
     et = torch.zeros_like(h)
     et[:, 1] = scale[1]
     streams = (h, ex, et, zero)
-    pre = []  # pre-activation streams of each hidden layer
+    saved = []  # (pre-activation streams, tanh factors) of each hidden layer
     inputs = [streams]
-    for layer in net[:-1]:
-        w, b = layer["W"], layer["b"]
-        P = (streams[0] @ w + b, streams[1] @ w, streams[2] @ w, streams[3] @ w)
-        pre.append(P)
-        streams = _act(*P)
-        inputs.append(streams)
+    for i, layer in enumerate(net[:-1]):
+        pre, tanh, streams = taylor2_layer(pol, streams, layer["W"], layer["b"], i == 0)
+        saved.append((tuple(t.to(dtype) for t in pre), tuple(t.to(dtype) for t in tanh)))
+        inputs.append(tuple(t.to(dtype) for t in streams))
     grads: List[Optional[torch.Tensor]] = [None] * (2 * len(net))
     G = tuple(g.reshape(x.shape[0], -1) for g in cotangents)
     for l in range(len(net) - 1, -1, -1):
-        w = net[l]["W"]
         X = inputs[l]
         grads[2 * l] = sum(X[s].T @ G[s] for s in range(4))
         grads[2 * l + 1] = G[0].sum(dim=0, keepdim=True)
         if l > 0:
-            gH = tuple(g @ w.T for g in G)
-            G = _act_backward(*pre[l - 1], *gH)
+            w = net[l]["W"]
+            gH = tuple(g @ pol.weight(w, stream).T for g, stream in zip(G, POLICY_STREAMS))
+            G = _act_backward(*saved[l - 1], gH)
     return grads

@@ -7,13 +7,20 @@ One forward pass carries (value, d/dx, d/dt, d2/dx2) layer by layer:
   s = tanh(P)             s' = 1 - s^2       s'' = -2 s s'
   H = s                   Hx = s' Px         Ht = s' Pt         Hxx = s'' Px^2 + s' Pxx
 
-``mlp_taylor_2`` dispatches on the device of ``x``: a CPU tensor runs the
-plain PyTorch recurrence (``mlp_taylor_2_reference``), a CUDA tensor runs the
-fused kernel K1, differentiable in the params through its backward kernel K2
-(``ops.kernels.taylor2``); each either launches or raises.
+Mixed precision (``spec.compute_dtype``, e.g. bfloat16) follows the JAX
+package's per-stream policy (``_StreamPolicy``): a quantized stream is stored
+in the compute dtype at each layer boundary and its matmul multiplies the
+stored values by the compute-dtype weights with float32 accumulation; the
+first layer consumes exact coordinates; ``keep_streams`` ('value', 'xx')
+exempts streams; ``mixed_elementwise`` also rounds the quantized streams' dot
+outputs, so their elementwise ops run in the compute dtype. The x and t
+derivative streams ("deriv") are quantized whenever the spec is mixed.
 
-The mixed-precision stream policy (``compute_dtype``, ``keep_streams``) of
-the JAX package is ported with slice 3.
+``mlp_taylor_2`` dispatches on the device of ``x``: a CPU tensor runs the
+plain PyTorch recurrence (``mlp_taylor_2_reference``); a CUDA tensor runs the
+fused kernel K1 (float32) or K6 (the mixed policy on float32 masters), each
+differentiable in the params through its backward kernel
+(``ops.kernels.taylor2``). Each either launches or raises.
 """
 
 from __future__ import annotations
@@ -23,50 +30,106 @@ from typing import Tuple
 import torch
 
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, embed_streams, normalize_inputs
-from pinns_tpu_torch.ops.kernels.taylor2 import mlp_taylor2_kernel
 
 Streams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# the policy's name for each of the four streams (u, u_x, u_t, u_xx)
+POLICY_STREAMS = ("value", "deriv", "deriv", "xx")
+
+
+class _StreamPolicy:
+    """Per-stream mixed-precision policy (``pinns_tpu/ops/taylor.py:55-88``).
+
+    ``store`` quantizes a stream at the layer boundary (identity for kept
+    streams and unmixed specs); ``act`` rounds a dot output to the compute
+    dtype under ``mixed_elementwise``; ``dot`` multiplies a quantized stream by
+    the compute-dtype weights with float32 accumulation. PyTorch's bf16 matmul
+    would round its output to bf16 (JAX's ``preferred_element_type`` does
+    not), so the operands are upcast and multiplied in ``spec.dtype``.
+    """
+
+    def __init__(self, spec: MLPSpec):
+        self.spec = spec
+        self.cdtype = spec.cdtype
+
+    def quantized(self, stream: str) -> bool:
+        return self.spec.mixed and stream not in self.spec.keep_streams
+
+    def store(self, v, stream: str):
+        return v.to(self.cdtype) if self.quantized(stream) else v
+
+    def act(self, v, stream: str, first: bool = False):
+        if first or not (self.quantized(stream) and self.spec.mixed_elementwise):
+            return v
+        return v.to(self.cdtype)
+
+    def dot(self, h, w, stream: str, first: bool = False):
+        if first or not self.quantized(stream):
+            return h @ w
+        dtype = self.spec.dtype
+        return h.to(dtype) @ w.to(self.cdtype).to(dtype)
+
+    def weight(self, w, stream: str):
+        """The weights ``dot`` multiplies this stream by after the first
+        layer, in ``spec.dtype``."""
+        if not self.quantized(stream):
+            return w
+        return w.to(self.cdtype).to(self.spec.dtype)
 
 
 def _check(spec: MLPSpec) -> None:
     if spec.in_dim != 2:
         raise ValueError("mlp_taylor_2 expects in_dim == 2 (x, t)")
-    if spec.compute_dtype is not None or spec.keep_streams or spec.mixed_elementwise:
-        raise NotImplementedError(
-            "the mixed-precision stream policy (compute_dtype / keep_streams / "
-            "mixed_elementwise) is ported with slice 3 (scale)"
-        )
+
+
+def taylor2_layer(pol: _StreamPolicy, streams, w, b, first: bool):
+    """One hidden layer under the policy: the pre-activation streams after
+    ``act`` (p, px, pt, pxx), the tanh factors (s, s', s'') and the stored
+    output streams. ``streams[3]`` may be None (the affine embedding's zero
+    curvature stream), in the JAX package's operation order."""
+    h, hx, ht, hxx = streams
+    p = pol.act(pol.dot(h, w, "value", first) + b, "value", first)
+    px = pol.act(pol.dot(hx, w, "deriv", first), "deriv", first)
+    pt = pol.act(pol.dot(ht, w, "deriv", first), "deriv", first)
+    pxx = None if hxx is None else pol.act(pol.dot(hxx, w, "xx", first), "xx", first)
+    s = torch.tanh(p)
+    sp = 1.0 - s * s
+    spp = -2.0 * s * sp
+    out = (
+        pol.store(s, "value"),
+        pol.store(sp * px, "deriv"),
+        pol.store(sp * pt, "deriv"),
+        pol.store(spp * px * px if pxx is None else spp * px * px + sp * pxx, "xx"),
+    )
+    return (p, px, pt, pxx), (s, sp, spp), out
 
 
 def mlp_taylor_2_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams:
-    """(y, y_x, y_t, y_xx), each (N, out_dim): the plain PyTorch recurrence,
-    in ``spec.dtype`` on ``x``'s device (float32 matmuls, TF32 off)."""
+    """(y, y_x, y_t, y_xx), each (N, out_dim) in ``spec.dtype``: the plain
+    PyTorch recurrence under the spec's stream policy, on ``x``'s device
+    (float32 matmuls, TF32 off)."""
     _check(spec)
+    pol = _StreamPolicy(spec)
     # hxx is None (identically zero) for the affine embedding
-    h, hx, ht, hxx = embed_streams(spec, normalize_inputs(spec, x))
-    for layer in params[:-1]:
-        w, b = layer["W"], layer["b"]
-        p = h @ w + b
-        px = hx @ w
-        pt = ht @ w
-        s = torch.tanh(p)
-        sp = 1.0 - s * s
-        spp = -2.0 * s * sp
-        hxx = spp * px * px if hxx is None else spp * px * px + sp * (hxx @ w)
-        h = s
-        hx = sp * px
-        ht = sp * pt
+    streams = embed_streams(spec, normalize_inputs(spec, x))
+    for i, layer in enumerate(params[:-1]):
+        # the first layer consumes exact coordinates: never quantized
+        _, _, streams = taylor2_layer(pol, streams, layer["W"], layer["b"], i == 0)
+    h, hx, ht, hxx = streams
     w, b = params[-1]["W"], params[-1]["b"]
-    return h @ w + b, hx @ w, ht @ w, hxx @ w
+    return (pol.dot(h, w, "value") + b, pol.dot(hx, w, "deriv"), pol.dot(ht, w, "deriv"),
+            pol.dot(hxx, w, "xx"))
 
 
 def mlp_taylor_2(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams:
     """Value, first derivatives and second x-derivative of the MLP at x (N, 2).
 
     CPU tensors take the plain recurrence; anything else goes to the fused
-    kernels (K1 forward, K2 backward), which raise on what they cannot take.
+    kernels (K1/K2 for a float32 spec, K6 forward and backward for a mixed
+    one), which raise on what they cannot take.
     """
     _check(spec)
     if x.device.type == "cpu":
         return mlp_taylor_2_reference(spec, params, x)
+    from pinns_tpu_torch.ops.kernels.taylor2 import mlp_taylor2_kernel
+
     return mlp_taylor2_kernel(spec, params, x)

@@ -2,8 +2,10 @@
 
 ``relative_l2`` is ||exact - pred||_2 / ||exact||_2. ``predict_fields`` takes
 a ``Problem`` and the params tree {'net', 'coeffs'}, as in JAX, and evaluates
-the network fields and PDE residuals in one pass: on a CUDA device through the
-fused Taylor-2 kernel. ``burgers_fields`` is the same pass for callers that
+the network fields and PDE residuals in one pass under the problem's spec, so
+a run with a mixed stream policy is evaluated through that policy, as JAX's
+is: on a CUDA device through the fused Taylor-2 kernel (K1, or K6 for a
+mixed spec). ``burgers_fields`` is the same pass for callers that
 hold a bare network and coefficients (the served model).
 """
 

@@ -31,15 +31,22 @@ hold the kernels against them). Two Adam steps compute an epoch:
 Resampling draws with counter-based Philox keyed by the run's seed and the
 epoch (``data.sampling.philox_uniform``), so both steps draw the same points.
 
-What this slice leaves to later ones, each raising ``NotImplementedError``
+The residual term runs over ``sampling.microbatch`` chunks of the batch when
+it is above 1 (``_residual_term``), each under the ``microbatch_remat``
+policy, and the spec carries the model's stream policy (``compute_dtype``,
+``keep_streams``, ``mixed_elementwise``), which ``mlp_taylor_2`` follows: K6 on
+the card.
+
+What the port leaves to later slices, each raising ``NotImplementedError``
 with the slice's name: Euler, the weak form, causal/entropy/gradient
-weighting, RAD, the time curriculum and SWA (slice 2); microbatching and the
-mixed stream policy (slice 3); ensembles (slice 4); multi-GPU (slice 6).
+weighting, RAD, the time curriculum and SWA (slice 2); ensembles (slice 4);
+multi-GPU (slice 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -115,8 +122,6 @@ def check_slice(exp: Experiment) -> None:
         (s.t_curriculum_epochs > 0, "the time curriculum", slice2),
         (exp.train.swa_frac > 0.0, "SWA", slice2),
         (m.n_fourier > 0 or m.n_paths > 0, "Fourier / shock-path features", slice2),
-        (s.microbatch > 1, "microbatching", "slice 3 (scale)"),
-        (bool(m.compute_dtype), "the mixed stream policy", "slice 3 (scale)"),
         (exp.mesh.ensemble > 1, "ensembles", "slice 4 (ensembles)"),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
@@ -171,6 +176,15 @@ class Problem:
         u, u_x, u_t, u_xx = taylor(self.spec, params["net"], colloc)
         return u_t + lam1 * u * u_x - lam2 * u_xx
 
+    def residuals_chunked(self, params, colloc, plain: bool = False) -> torch.Tensor:
+        """Residuals over the full batch, evaluated microbatch by microbatch
+        (``sampling.microbatch`` chunks), so peak activation memory is
+        n_f / microbatch: the ADMM updates at large n_f."""
+        m = self.exp.sampling.microbatch
+        if m <= 1:
+            return self.residuals(params, colloc, plain)
+        return torch.cat([self.residuals(params, ch, plain) for ch in _chunks(colloc, m)])
+
 
 def build_problem(exp: Experiment, device="cpu", dataset: Optional[str] = None) -> Problem:
     """Load the dataset (``dataset`` overrides ``exp.data.dataset``) and put
@@ -186,6 +200,9 @@ def build_problem(exp: Experiment, device="cpu", dataset: Optional[str] = None) 
         lb=tuple(float(v) for v in ds.lb),
         ub=tuple(float(v) for v in ds.ub),
         dtype=dtype,
+        compute_dtype=exp.model.compute_dtype or None,
+        keep_streams=exp.model.keep_streams,
+        mixed_elementwise=exp.model.mixed_elementwise,
     )
     return Problem(
         exp=exp,
@@ -226,15 +243,102 @@ def init_collocation(problem: Problem, key: int) -> torch.Tensor:
     raise ValueError(f"unknown sampling strategy: {strategy!r}")
 
 
+def _chunks(a: torch.Tensor, m: int):
+    """``a``'s rows as ``m`` equal consecutive chunks; raises unless m divides them."""
+    n = a.shape[0]
+    if n % m:
+        raise ValueError(f"collocation count {n} not divisible by microbatch {m}")
+    return a.split(n // m)
+
+
+def _remat(policy: str, body: Callable, on_card: bool) -> Callable:
+    """``body`` under a ``sampling.microbatch_remat`` policy: 'full' recomputes
+    the whole body in the backward pass, 'dots' saves the matmul outputs and
+    recomputes the rest (the counterpart of JAX's ``dots_saveable``), 'none'
+    keeps everything. The math is the same under each.
+
+    On the card the Taylor-2 kernels' autograd Functions save only the
+    points and the params and recompute their streams in the backward
+    kernel, so a checkpoint there would only launch every forward twice: the
+    body runs unwrapped under every policy."""
+    if policy not in ("full", "dots", "none"):
+        raise ValueError(f"unknown sampling.microbatch_remat: {policy!r} "
+                         "(expected 'full' | 'dots' | 'none')")
+    if policy == "none" or on_card:
+        return body
+    from torch.utils import checkpoint as ckpt
+
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+        def save_dots(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             save_dots)
+    return lambda *args: ckpt.checkpoint(body, *args, **kw)
+
+
 def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain=False):
-    """Residual loss term (microbatch 1; the strong form)."""
-    cfg = problem.exp.loss
+    """Residual loss term of the strong form, accumulated over
+    ``sampling.microbatch`` chunks of the batch when it is above 1 (in chunk
+    order; ``microbatch_unroll`` is an XLA scan knob the port ignores)."""
+    exp = problem.exp
+    cfg = exp.loss
     n_f = colloc.shape[0]  # the ACTUAL row count, as the ADMM threshold uses
+    m = exp.sampling.microbatch
     rho = cfg.rho if rho is None else rho
-    residuals = problem.residuals(params, colloc, plain=plain)
+    if cfg.causal_eps > 0.0 and (cfg.residual_kind not in ("mean_sq", "flux") or m > 1):
+        raise ValueError(
+            "loss.causal_eps requires residual_kind='mean_sq' or 'flux' and "
+            "sampling.microbatch=1 (the weights need the whole batch's "
+            "time-bin losses in one pass)"
+        )
+    if (cfg.residual_kind == "flux" or cfg.admm_form == "flux") and m > 1:
+        raise ValueError(
+            "weak-form residuals (residual_kind='flux' / admm_form='flux') "
+            "do not support microbatching yet"
+        )
+    if m <= 1:
+        residuals = problem.residuals(params, colloc, plain=plain)
+        if cfg.residual_kind == "admm":
+            return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
+        return residual_penalty(residuals, cfg.residual_kind, n_f)
+
+    chunks = _chunks(colloc, m)
+    wrap = functools.partial(_remat, exp.sampling.microbatch_remat,
+                             on_card=colloc.device.type == "cuda" and not plain)
+    zero = torch.zeros((), dtype=problem.spec.dtype, device=colloc.device)
     if cfg.residual_kind == "admm":
-        return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
-    return residual_penalty(residuals, cfg.residual_kind, n_f)
+        # the augmented-Lagrangian penalty is additive over points
+        def admm_body(ch, z, dual):
+            f = problem.residuals(params, ch, plain=plain)
+            return admm_penalty(f, ADMMState(z=z, dual=dual), rho, cfg.explicit_inner)
+
+        body = wrap(admm_body)
+        term = zero
+        for ch, z, dual in zip(chunks, _chunks(admm_state.z, m), _chunks(admm_state.dual, m)):
+            term = term + body(ch, z, dual)
+        return term
+
+    # accumulate the primitive sums (sum f^2, sum |f|); norms that are
+    # nonlinear in the batch (l1_sq) assemble afterwards
+    def sums_body(ch):
+        f = problem.residuals(params, ch, plain=plain)
+        return torch.sum(f * f), torch.sum(torch.abs(f))
+
+    body = wrap(sums_body)
+    ssq, sabs = zero, zero
+    for ch in chunks:
+        a, b = body(ch)
+        ssq, sabs = ssq + a, sabs + b
+    if cfg.residual_kind in ("mean_sq", "l2_sq_norm"):
+        return ssq / n_f
+    if cfg.residual_kind == "l1_sq_norm":
+        return sabs * sabs / n_f
+    raise ValueError(f"unknown residual kind {cfg.residual_kind!r}")
 
 
 def make_data_term(problem: Problem, plain: bool = False) -> Callable:
@@ -300,7 +404,7 @@ def _post_update_current(problem: Problem, params, admm_state, colloc, key, rho,
     saw, THEN resample for the next step."""
     exp = problem.exp
     rho_val = exp.loss.rho if rho is None else rho
-    f_cur = problem.residuals(params, colloc, plain=plain)
+    f_cur = problem.residuals_chunked(params, colloc, plain=plain)
     admm_state = admm_update(f_cur, admm_state, rho_val, colloc.shape[0])
     mis = admm_misfit(f_cur, admm_state)
     return admm_state, _next_batch(problem, colloc, key, epoch, new_colloc), key, mis
@@ -316,7 +420,7 @@ def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, ep
     mis = torch.zeros((), dtype=problem.spec.dtype, device=problem.device)
     if exp.loss.residual_kind == "admm":
         rho_val = exp.loss.rho if rho is None else rho
-        f_new = problem.residuals(params, colloc, plain=plain)
+        f_new = problem.residuals_chunked(params, colloc, plain=plain)
         admm_state = admm_update(f_new, admm_state, rho_val, colloc.shape[0])
         mis = admm_misfit(f_new, admm_state)
     return admm_state, colloc, key, mis
@@ -488,7 +592,7 @@ class Trainer:
         admm_state = None
         if exp.loss.residual_kind == "admm":
             with torch.no_grad():
-                admm_state = admm_init(self.problem.residuals(params, colloc))
+                admm_state = admm_init(self.problem.residuals_chunked(params, colloc))
         return TrainState(
             params=params, opt_state=adam_init(params), admm=admm_state, colloc=colloc,
             key=seed, epoch=0, rho=None if rho is None else float(rho),

@@ -6,6 +6,10 @@ plain step, and over one L-BFGS outer epoch.
     python scripts/profile_train_step.py [--preset abgrall_admm] [--epochs 200]
         [--dataset twosin_burgers_shock] [--lbfgs-iters 100]
         [--out chiprun_out/profile_train_step.json]
+        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs]
+
+The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
+--steps adam --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"``.
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
@@ -71,11 +75,17 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=200)
     ap.add_argument("--lbfgs-iters", type=int, default=100,
                     help="iteration cap of the profiled L-BFGS outer epoch")
+    ap.add_argument("--set", action="append", metavar="KEY=VALUE",
+                    help="override a config field, as the train CLI's --set")
+    ap.add_argument("--steps", default="adam,plain,lbfgs",
+                    help="which of adam, plain, lbfgs to profile (comma-separated)")
     ap.add_argument("--out", default="chiprun_out/profile_train_step.json")
     args = ap.parse_args(argv)
+    steps = set(args.steps.split(","))
     if not torch.cuda.is_available():
         print("profile_train_step: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from pinns_tpu_torch.cli import parse_sets
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels.fused_step import fused_step_supported
@@ -84,21 +94,26 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    exp = override(get_preset(args.preset), {"optimizer.lbfgs.max_iters": args.lbfgs_iters})
+    exp = override(get_preset(args.preset), {"optimizer.lbfgs.max_iters": args.lbfgs_iters,
+                                             **parse_sets(args.set)})
     trainer = Trainer(exp, device="cuda", dataset=args.dataset)
     state = trainer.init_state()
     adam = "generic_step" if fused_step_supported(exp, trainer.problem.spec) else "fused_step"
-    result = {"card": card, "preset": args.preset, "epochs": args.epochs,
-              "layers": list(trainer.problem.spec.layers), "n_colloc": int(state.colloc.shape[0]),
-              adam: profile_chunk(trainer._adam_step, state, args.epochs),
-              "plain_step": profile_chunk(
-                  make_adam_step(trainer.problem, trainer.learning_rate, plain=True), state,
-                  max(1, args.epochs // 10)),
-              "lbfgs_step": profile_chunk(trainer._lbfgs_step, state, 1, warmup=0)}
+    result = {"card": card, "preset": args.preset, "epochs": args.epochs, "set": args.set,
+              "layers": list(trainer.problem.spec.layers), "n_colloc": int(state.colloc.shape[0])}
+    if "adam" in steps:
+        result[adam] = profile_chunk(trainer._adam_step, state, args.epochs,
+                                     warmup=min(5, args.epochs))
+    if "plain" in steps:
+        result["plain_step"] = profile_chunk(
+            make_adam_step(trainer.problem, trainer.learning_rate, plain=True), state,
+            max(1, args.epochs // 10))
+    if "lbfgs" in steps:
+        result["lbfgs_step"] = profile_chunk(trainer._lbfgs_step, state, 1, warmup=0)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    for name in (adam, "plain_step", "lbfgs_step"):
+    for name in (n for n in (adam, "plain_step", "lbfgs_step") if n in result):
         r = result[name]
         print(json.dumps({"preset": args.preset, "step": name, "card": card,
                           **{k: r[k] for k in ("unit", "units", "wall_us_per_unit",

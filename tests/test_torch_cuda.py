@@ -1,7 +1,8 @@
 """The port on the card: the fused Taylor-2 kernel (K1) and its backward
 (K2), the fused MLP forward and its backward (K5), the served slice, the
-fused Adam-epoch kernel (K3), and the trainer with its generic Adam step and
-L-BFGS phase over the kernels.
+fused Adam-epoch kernel (K3), the mixed-precision Taylor-2 kernel (K6) and
+its backward, and the trainer with its generic Adam step (microbatched,
+under the stream policy) and L-BFGS phase over the kernels.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and skips
 where ``torch.cuda.is_available()`` is False. The file imports no jax (the
@@ -245,3 +246,141 @@ def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
     assert k_fused.LAUNCHES == k3 + 20 and state.epoch == 22
     assert k_mlp.BACKWARD_LAUNCHES > k5 and k_taylor2.BACKWARD_LAUNCHES > k2
     assert np.isfinite(summary["rel_l2_u"])
+
+
+# -- K6: the bf16 stream policy -------------------------------------------------
+
+K6_POLICIES = [(keep, me) for keep in ((), ("xx",), ("value",), ("value", "xx"))
+               for me in (False, True)]
+
+
+def _mixed(layers, keep, me):
+    return MLPSpec(layers=layers, lb=LB, ub=UB, compute_dtype="bfloat16", keep_streams=keep,
+                   mixed_elementwise=me)
+
+
+def _envelope(got, plain, exact, factor=2.0):
+    """The TPU test's envelope: the kernel's error against float64 at most
+    ``factor`` x the plain mixed version's + 1e-6 max|float64|."""
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= factor * plain_err + 1e-6 * float(exact.abs().max()), (err, plain_err)
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def _near_plain(got, plain, unrounded):
+    """K6 against the plain mixed version on the same inputs: at least ten
+    times nearer it (in relative L2) than the plain version is to the float32
+    pass without the policy, + 1e-5 for the order of float32 sums. A kernel
+    that skipped or misplaced a rounding sits about as far from the plain
+    version as the float32 pass does; one bf16 rounding that flips the other
+    way at a rare point moves the relative L2 far less."""
+    assert _rel_l2(got, plain) <= 0.1 * _rel_l2(unrounded, plain) + 1e-5, (
+        _rel_l2(got, plain), _rel_l2(unrounded, plain))
+
+
+@pytest.mark.parametrize("keep,me", K6_POLICIES,
+                         ids=[f"keep-{'-'.join(k) or 'none'}{'-me' if m else ''}"
+                              for k, m in K6_POLICIES])
+def test_k6_matches_plain_on_card(cuda_device, keep, me):  # noqa: F811
+    """K6 forward against the plain mixed recurrence and K6's backward against
+    the plain reverse mode under the policy (taylor2_backward_reference), on
+    the same inputs; both within the TPU test's envelope against float64 and
+    the backward near autograd through the plain recurrence, for every flag
+    combination; two backward calls agree bit for bit."""
+    layers, n = (2, 64, 64, 64, 1), 1000
+    spec32, params, spec64, params64 = _net(layers, 6, cuda_device)
+    spec = _mixed(layers, keep, me)
+    x = torch.from_numpy(numpy_points(n, seed=18)).to(cuda_device)
+    before = k_taylor2.MIXED_LAUNCHES
+    got = k_taylor2.taylor2(spec, params, x)
+    assert k_taylor2.MIXED_LAUNCHES == before + 1
+    plain = mlp_taylor_2_reference(spec, params, x)
+    unrounded = mlp_taylor_2_reference(spec32, params, x)
+    exact = mlp_taylor_2_reference(spec64, params64, x.double())
+    for g, p, u, e in zip(got, plain, unrounded, exact):
+        _near_plain(g, p, u)
+        _envelope(g, p, e)
+    rng = np.random.default_rng(19)
+    cot = [torch.from_numpy((rng.standard_normal((n, 1)) / n).astype(np.float32))
+           .to(cuda_device) for _ in range(4)]
+    before = k_taylor2.MIXED_BACKWARD_LAUNCHES
+    grad = k_taylor2.taylor2_backward(spec, params, x, cot)
+    again = k_taylor2.taylor2_backward(spec, params, x, cot)
+    torch.cuda.synchronize()
+    assert k_taylor2.MIXED_BACKWARD_LAUNCHES == before + 2 and torch.equal(grad, again)
+    leaves = [t.clone().requires_grad_(True) for p in params for t in (p["W"], p["b"])]
+    net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+    outs = mlp_taylor_2_reference(spec, net, x)
+    auto = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
+    plain_g = k_taylor2.taylor2_backward_reference(spec, params, x, cot)
+    unrounded_g = k_taylor2.taylor2_backward_reference(spec32, params, x, cot)
+    exact_g = k_taylor2.taylor2_backward_reference(spec64, params64, x.double(),
+                                                   [c.double() for c in cot])
+    for g, p, u, a, e in zip(k_taylor2.split_grad(grad, leaves), plain_g, unrounded_g, auto,
+                             exact_g):
+        _near_plain(g, p, u)
+        _envelope(g, a, e)
+        assert float((g - a).abs().max()) <= 0.2 * float(a.abs().max())
+
+
+def test_mixed_spec_on_card_reaches_k6_only(cuda_device):  # noqa: F811
+    """mlp_taylor_2 with a mixed spec on a CUDA tensor launches K6 forward and
+    backward, never K1 or K2."""
+    layers = (2, 32, 32, 1)
+    spec = _mixed(layers, ("xx",), False)
+    _, params, _, _ = _net(layers, 7, cuda_device)
+    leaves = [t.clone().requires_grad_(True) for p in params for t in (p["W"], p["b"])]
+    net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+    x = torch.from_numpy(numpy_points(100, seed=20)).to(cuda_device)
+    k1 = (k_taylor2.LAUNCHES, k_taylor2.BACKWARD_LAUNCHES)
+    k6 = (k_taylor2.MIXED_LAUNCHES, k_taylor2.MIXED_BACKWARD_LAUNCHES)
+    outs = mlp_taylor_2(spec, net, x)
+    torch.autograd.grad(sum(o.sum() for o in outs), leaves)
+    torch.cuda.synchronize()
+    assert (k_taylor2.LAUNCHES, k_taylor2.BACKWARD_LAUNCHES) == k1
+    k6_after = (k_taylor2.MIXED_LAUNCHES, k_taylor2.MIXED_BACKWARD_LAUNCHES)
+    assert k6_after == (k6[0] + 1, k6[1] + 1)
+
+
+@pytest.mark.parametrize("spec_kw,match", [
+    ({"compute_dtype": "bfloat16", "dtype": torch.float64}, "float32 masters|float32 points"),
+    ({"compute_dtype": "float16"}, "computes in bfloat16"),
+], ids=["f64-masters", "float16"])
+def test_k6_raises_on_card_instead_of_falling_back(cuda_device, spec_kw, match):  # noqa: F811
+    spec = MLPSpec(layers=(2, 16, 1), lb=LB, ub=UB, **spec_kw)
+    params = init_mlp(spec, torch.Generator().manual_seed(8), cuda_device)
+    x = torch.from_numpy(numpy_points(10, seed=21)).to(cuda_device).to(spec.dtype)
+    before = (k_taylor2.MIXED_LAUNCHES, k_taylor2.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        mlp_taylor_2(spec, params, x)
+    assert (k_taylor2.MIXED_LAUNCHES, k_taylor2.LAUNCHES) == before
+
+
+def test_mixed_microbatched_trainer_on_card(cuda_device):  # noqa: F811
+    """burgers_scale cut to a small net and batch, max policy in 4
+    microbatches: every epoch launches K6 forward and backward once per
+    microbatch, K1, K2 and K3 never."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(get_preset("burgers_scale"), {
+        "model.layers": (2, 32, 32, 1), "sampling.n_f": 1024, "sampling.microbatch": 4,
+        "model.compute_dtype": "bfloat16", "model.mixed_elementwise": True,
+        "train.epochs": 5, "train.chunk": 5, "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    state = trainer.init_state()
+    before = (k_taylor2.MIXED_LAUNCHES, k_taylor2.MIXED_BACKWARD_LAUNCHES, k_taylor2.LAUNCHES,
+              k_taylor2.BACKWARD_LAUNCHES, k_fused.LAUNCHES)
+    state, _ = trainer.train(state)
+    after = (k_taylor2.MIXED_LAUNCHES, k_taylor2.MIXED_BACKWARD_LAUNCHES, k_taylor2.LAUNCHES,
+             k_taylor2.BACKWARD_LAUNCHES, k_fused.LAUNCHES)
+    # the final evaluation adds K6 forward launches over the grid
+    assert after[0] - before[0] >= 20 and after[1] - before[1] == 20
+    assert after[2:] == before[2:]
+    assert state.epoch == 5

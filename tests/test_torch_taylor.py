@@ -61,10 +61,21 @@ def test_cpu_tensor_never_launches():
     ids=["compute_dtype", "keep_streams"],
 )
 def test_mixed_stream_policy_raises(extra):
+    """The policy computes on the CPU (keep_streams without compute_dtype is
+    plain float32, as in JAX); the kernel wrapper, K6 for a mixed spec and K1
+    otherwise, raises on a CPU tensor instead of falling back."""
     spec = MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra)
     params = params_from_jax(numpy_params(SMALL, seed=0), CPU)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        mlp_taylor_2(spec, params, torch.zeros(3, 2))
+    x = torch.from_numpy(numpy_points(7, seed=1))
+    got = mlp_taylor_2(spec, params, x)
+    assert all(bool(torch.isfinite(t).all()) and t.dtype == torch.float32 for t in got)
+    before = (k_taylor2.LAUNCHES, k_taylor2.MIXED_LAUNCHES)
+    if not spec.mixed:
+        plain = mlp_taylor_2(MLPSpec(layers=SMALL, lb=LB, ub=UB), params, x)
+        assert all(torch.equal(g, w) for g, w in zip(got, plain))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k_taylor2.taylor2(spec, params, x)
+    assert (k_taylor2.LAUNCHES, k_taylor2.MIXED_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("width", [1, 20, 64, 200, 256])

@@ -376,8 +376,7 @@ def test_burgers_shock_grid_is_the_native_one(monkeypatch):
 
 
 @pytest.mark.parametrize("preset,match", [
-    ("euler_admm", "slice 2"), ("twosin_weak", "slice 2"), ("burgers_scale", "slice 3"),
-    ("euler_weak", "slice 2"),
+    ("euler_admm", "slice 2"), ("twosin_weak", "slice 2"), ("euler_weak", "slice 2"),
 ])
 def test_out_of_slice_presets_raise(preset, match):
     with pytest.raises(NotImplementedError, match=match):
