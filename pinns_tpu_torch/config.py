@@ -135,7 +135,7 @@ class TrainConfig:
     checkpoint_every: int = 0  # 0 = only final
     seed: int = 1234
     out_dir: str = ""  # empty = no file output
-    profile_dir: str = ""
+    profile_dir: str = ""  # trace the second chunk with torch.profiler into this directory
     stop_tol: float = 0.0  # stop once |loss| <= stop_tol, checked per chunk
     swa_frac: float = 0.0  # SWA: slice 2
 

@@ -22,9 +22,12 @@ the port differentiates the training residual on the card with it, outside
 the fused Adam step. :func:`mlp_taylor2_kernel` binds K1 and K2 as one
 ``torch.autograd.Function``; the plain version of K2 is
 :func:`taylor2_backward_reference`, the reverse mode that
-``csrc/fused_step.cu`` also writes out. K2 recomputes the forward per tile,
-keeps the pre-activation streams in an L2-resident scratch and reduces
-per-block partial gradients in block order (bit-for-bit repeatable).
+``csrc/fused_step.cu`` also writes out. K2 runs the whole call layer by
+layer as register-tiled float32 products over the four streams stacked into
+one matrix (:func:`backward_plan` gives its padding, its split of dW's sum
+and its scratch), keeps the pre-activation streams of every hidden layer,
+and sums the partial gradients in a fixed order, in double (bit-for-bit
+repeatable).
 
 K6, the Taylor-2 pass under the bf16 stream policy of a mixed spec
 (``ops.taylor._StreamPolicy``), is K1's kernel instantiated for the policy
@@ -44,6 +47,7 @@ they never fall back to the plain version.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -54,9 +58,9 @@ from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.taylor import POLICY_STREAMS, _StreamPolicy, taylor2_layer
 
 LAUNCHES = 0  # K1 launches in this process (chip_smoke.py reads it)
-BACKWARD_LAUNCHES = 0  # K2 calls (backward kernel + reduction) in this process
+BACKWARD_LAUNCHES = 0  # K2 calls in this process (one host call issues all its launches)
 MIXED_LAUNCHES = 0  # K6 launches
-MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls (backward kernel + reduction)
+MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
@@ -64,9 +68,21 @@ _POINTS_PER_THREAD = 4
 _SMEM_PER_BLOCK = 112 * 1024  # two blocks per H100 SM (228 KB each)
 _MAX_TILE = 128
 _MAX_THREADS = 640  # the kernel's __launch_bounds__
-_BWD_SMEM = 200 * 1024
-_BWD_MAX_TILE = 64
-MAX_GRID = 264  # backward blocks: two per SM of an H100
+# the backward's products (csrc/taylor2_backward.cu::gemm_kernel): a block
+# of GEMM_THREADS threads computes a GEMM_TILE x GEMM_TILE tile from three
+# stages of 8-deep tiles of A and B with padded rows; the points are padded
+# to a multiple of GEMM_TILE, so that a row tile lies in one stream, and the
+# elementwise passes and db's per-tile sums walk tiles of GEMM_TILE points
+GEMM_TILE = 128
+GEMM_THREADS = 256
+GEMM_SMEM = 4 * 3 * 2 * 8 * (GEMM_TILE + 4)
+# the split of dW's sum over the stacked rows: enough chunks that the widest
+# product keeps about SPLIT_WARPS warps busy (a warp computes a 32 x 64 piece
+# of dW: 28 pieces at width 200, so 64 splits at 8,192 points), each chunk of
+# at most MAX_SPLIT_TILES row tiles, so that no float32 chain runs longer than
+# 1,024 rows
+SPLIT_WARPS = 2048
+MAX_SPLIT_TILES = 8
 
 
 def launch_config(layers: Sequence[int]) -> Tuple[int, int]:
@@ -91,20 +107,70 @@ def smem_bytes(layers: Sequence[int], tile: int) -> int:
     return 4 * 2 * 4 * max(layers) * (tile + 4)
 
 
-def backward_config(layers: Sequence[int], n: int) -> Tuple[int, int]:
-    """(points per tile, blocks) of K2 for n points: the largest multiple of
-    4 points (at most 64) whose three buffers of four streams fit 200 KB, and
-    one block per tile up to MAX_GRID."""
-    wmax = max(layers)
-    if wmax > MAX_WIDTH:
-        raise ValueError(f"taylor2 backward kernel takes widths up to {MAX_WIDTH}, got {wmax}")
-    tile = _BWD_SMEM // (4 * 3 * 4 * wmax) - 4
-    tile = min(_BWD_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
-    return tile, max(1, min(MAX_GRID, -(-n // tile)))
+def _ld_h(width: int) -> int:
+    """The row pitch of a stacked input of this width: its columns, the
+    bias's indicator, padded to 4 floats (``ld_h`` in the kernel)."""
+    return (width + 4) // 4 * 4
 
 
-def backward_smem_bytes(layers: Sequence[int], tile: int) -> int:
-    return 4 * 3 * 4 * max(layers) * (tile + 4)
+def _align4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How K2 (K6's backward) lays out a call of n points: the points padded
+    to ``n_pad`` (a multiple of GEMM_TILE, so a row tile of the 4 n_pad
+    stacked stream rows lies in one stream), dW's sum over those rows cut
+    into ``splits`` chunks of ``split_rows`` (the last one shorter), and the
+    parts of its float32 scratch (in floats, each rounded up to 16 bytes, in
+    the kernel's order): db's per-tile sums (doubles), the stacked input
+    streams, the pre-activations of every hidden layer, the stacked inputs
+    of one layer (each row holds the bias's indicator after the streams and
+    is padded to 16 bytes), two adjoint buffers, the split partials, and the
+    bf16-rounded weights of a mixed spec. The kernel lays the scratch out
+    itself and refuses a plan that does not fit it."""
+
+    n_pad: int
+    split_rows: int
+    splits: int
+    sums: int
+    h0: int
+    pstore: int
+    hbuf: int
+    gbuf: int
+    partials: int
+    wq: int
+
+    @property
+    def scratch_floats(self) -> int:
+        return (self.sums + self.h0 + self.pstore + self.hbuf + self.gbuf + self.partials
+                + self.wq)
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.scratch_floats
+
+
+def backward_plan(layers: Sequence[int], n: int, mixed: bool = False) -> BackwardPlan:
+    """K2's plan for ``n`` points through a net of these widths."""
+    layers = tuple(int(w) for w in layers)
+    if max(layers) > MAX_WIDTH:
+        raise ValueError(f"taylor2 backward kernel takes widths up to {MAX_WIDTH}, "
+                         f"got {max(layers)}")
+    n_pad = max(1, -(-n // GEMM_TILE)) * GEMM_TILE
+    rows = 4 * n_pad
+    tiles = rows // GEMM_TILE
+    pieces = max(-(-din // 32) * -(-dout // 64) for din, dout in zip(layers[:-1], layers[1:]))
+    per_split = min(MAX_SPLIT_TILES, -(-tiles // -(-SPLIT_WARPS // pieces)))
+    splits = -(-tiles // per_split)
+    n_params = sum(din * dout + dout for din, dout in zip(layers[:-1], layers[1:]))
+    return BackwardPlan(
+        n_pad=n_pad, split_rows=per_split * GEMM_TILE, splits=splits,
+        sums=_align4(2 * (len(layers) - 1) * (n_pad // GEMM_TILE) * max(layers)),
+        h0=rows * _ld_h(2), pstore=rows * sum(layers[1:-1]), hbuf=rows * _ld_h(max(layers)),
+        gbuf=2 * rows * max(layers), partials=_align4(splits * n_params),
+        wq=_align4(n_params) if mixed else 0)
 
 
 def _lib():
@@ -129,12 +195,13 @@ def _backward_lib():
     lib = build.load_library("taylor2_backward")
     if not getattr(lib, "_pinns_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        q = ctypes.c_longlong
         lib.pinns_taylor2_backward.argtypes = [
-            p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, p, p, p, i, p,
+            p, i, p, p, i, f, f, f, f, i, i, i, p, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor2_backward.restype = i
-        lib.pinns_taylor2_mixed_backward.argtypes = [  # K6's backward: + the policy word
-            p, i, p, p, i, i, f, f, f, f, i, i, p, p, p, p, p, p, p, i, p,
+        lib.pinns_taylor2_mixed_backward.argtypes = [  # K6's: + the policy word
+            p, i, p, p, i, i, f, f, f, f, i, i, i, p, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor2_mixed_backward.restype = i
         lib.pinns_taylor2_backward_error_string.argtypes = [i]
@@ -265,8 +332,9 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     flat gradient (``pack_params`` order) of sum over points of
     gu . u + gux . u_x + gut . u_t + guxx . u_xx, where ``cotangents`` =
     (gu, gux, gut, guxx), each (N, out_dim) float32, contiguous, on ``x``'s
-    CUDA device. One backward launch and one reduction; raises on anything
-    the kernel does not take."""
+    CUDA device. One host call that issues every product, elementwise pass
+    and the reduction (``backward_plan``); raises on anything the kernel
+    does not take."""
     global BACKWARD_LAUNCHES, MIXED_BACKWARD_LAUNCHES
     kernel = "taylor2_mixed backward" if spec.mixed else "taylor2 backward"
     if len(cotangents) != 4:
@@ -279,27 +347,23 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
     if n == 0:
         return grad.zero_()
-    tile, grid = backward_config(layers, n)
-    partials = torch.empty((grid, spec.n_params), dtype=torch.float32, device=x.device)
-    pstore = torch.empty(grid * (len(layers) - 2) * 4 * max(layers) * tile,
-                         dtype=torch.float32, device=x.device)
+    plan = backward_plan(layers, n, spec.mixed)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
     lib = _backward_lib()
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
     head = (x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1)
-    tail = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, grid,
-            *(g.data_ptr() for g in cotangents), partials.data_ptr(), pstore.data_ptr(),
-            grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    tail = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], plan.n_pad, plan.split_rows,
+            plan.splits, *(g.data_ptr() for g in cotangents), scratch.data_ptr(),
+            plan.scratch_floats, grad.data_ptr(), x.device.index or 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if spec.mixed:
         err = lib.pinns_taylor2_mixed_backward(*head, policy_flags(spec), *tail)
     else:
         err = lib.pinns_taylor2_backward(*head, *tail)
     if err != 0:
         msg = lib.pinns_taylor2_backward_error_string(err).decode()
-        raise RuntimeError(
-            f"{kernel} kernel launch failed: CUDA error {err} ({msg}); "
-            f"tile={tile} grid={grid} smem={backward_smem_bytes(layers, tile)} B"
-        )
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg}); {plan}")
     with _launches_lock:
         if spec.mixed:
             MIXED_BACKWARD_LAUNCHES += 1

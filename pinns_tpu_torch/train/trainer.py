@@ -619,13 +619,20 @@ class Trainer:
         lbfgs_chunk = max(1, min(chunk // 100 or 1, 10))
         t0 = time.time()
         epoch = int(state.epoch)
+        n_chunks = 0
         while epoch < total:
             phase = self._phase(epoch)
             length = min(chunk if phase == "adam" else lbfgs_chunk, total - epoch)
             if phase == "adam" and exp.optimizer.kind == "hybrid":
                 length = min(length, exp.optimizer.switch_epoch - epoch)
             step = self._adam_step if phase == "adam" else self._lbfgs_step
-            state, metrics = run_chunk(step, state, length)
+            if exp.train.profile_dir and n_chunks == 1:
+                # the second chunk, past the first one's warm-up (as the JAX
+                # trainer traces it with jax.profiler)
+                state, metrics = self._profiled_chunk(step, state, length)
+            else:
+                state, metrics = run_chunk(step, state, length)
+            n_chunks += 1
             epoch += length
             last = None
             if epoch >= total or self._crossed(epoch, length, exp.train.log_every):
@@ -643,6 +650,25 @@ class Trainer:
         if exp.train.out_dir:
             self.save_checkpoint(state, tag="final")
         return state, summary
+
+    def _profiled_chunk(self, step, state, length):
+        """run_chunk under torch.profiler (the card's kernels too, on a CUDA
+        device); the trace goes to train.profile_dir as
+        <name>_e<first epoch>.json, for chrome://tracing or Perfetto."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        first = int(state.epoch)
+        with profile(activities=activities) as prof:
+            state, metrics = run_chunk(step, state, length)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(self.exp.train.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.exp.train.profile_dir, f"{self.exp.name}_e{first}.json"))
+        return state, metrics
 
     # -- reporting --------------------------------------------------------
     def _log_chunk(self, epoch, phase, metrics, t0):

@@ -14,8 +14,9 @@ The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
 (the profiler's CUDA activity), their sum, the device's idle share
-1 - device time / wall time, and the host operations that took the most CPU
-time. Needs one NVIDIA GPU; imports no jax.
+1 - device time / wall time, the host operations that took the most CPU
+time, and the peak device memory of the step (warm-up included). Needs one
+NVIDIA GPU; imports no jax.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def profile_chunk(step, state, epochs: int, warmup: int = 5) -> dict:
 
     from pinns_tpu_torch.train.trainer import run_chunk
 
+    torch.cuda.reset_peak_memory_stats()
     if warmup:
         run_chunk(step, state, warmup)
     torch.cuda.synchronize()
@@ -62,6 +64,7 @@ def profile_chunk(step, state, epochs: int, warmup: int = 5) -> dict:
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us_per_unit"])[:12])
     top_host = dict(sorted(host.items(), key=lambda kv: -kv[1]["self_us_per_unit"])[:15])
     return {"units": units, "unit": "lbfgs_iteration" if units != epochs else "epoch",
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "wall_us_per_unit": wall_us / units, "device_us_per_unit": device_us,
             "idle_share": 1.0 - device_us / (wall_us / units),
             "kernels_per_unit": sum(k["calls_per_unit"] for k in kernels.values()),
@@ -118,7 +121,7 @@ def main(argv=None) -> int:
         print(json.dumps({"preset": args.preset, "step": name, "card": card,
                           **{k: r[k] for k in ("unit", "units", "wall_us_per_unit",
                                                "device_us_per_unit", "idle_share",
-                                               "kernels_per_unit")}}))
+                                               "kernels_per_unit", "peak_device_bytes")}}))
     return 0
 
 

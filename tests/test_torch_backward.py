@@ -6,7 +6,10 @@ torch.autograd, and the CPU-side behaviour of the kernel wrappers.
   ``mlp_apply_reference``;
 - K2 (``ops/kernels/taylor2.py::taylor2_backward_reference``, the algorithm
   of ``csrc/taylor2_backward.cu``) against autograd through
-  ``mlp_taylor_2_reference``, for arbitrary stream cotangents.
+  ``mlp_taylor_2_reference``, for arbitrary stream cotangents;
+- K2's layout and summation order (stacked stream rows, padding, the bias
+  folded into the products, split-K partials over ``backward_plan``),
+  written out in PyTorch, against ``taylor2_backward_reference``.
 
 Both in float64 to 1e-10 relative (per leaf, of its max): the same products
 summed in other orders. Inputs come from numpy with a seed.
@@ -18,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from pinns_tpu_torch.models.mlp import MLPSpec, mlp_apply, mlp_apply_reference
+from pinns_tpu_torch.models.mlp import (MLPSpec, input_scale, mlp_apply, mlp_apply_reference,
+                                        normalize_inputs)
 from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
 from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
-from pinns_tpu_torch.ops.taylor import mlp_taylor_2, mlp_taylor_2_reference
+from pinns_tpu_torch.ops.taylor import (POLICY_STREAMS, _StreamPolicy, mlp_taylor_2,
+                                        mlp_taylor_2_reference)
 from torch_port_util import LB, UB, NARROW, numpy_params, numpy_points
 
 NETS = [(2, 8, 8, 1), (2, 10, 10, 10, 3), (2, 5, 1)]
@@ -107,22 +112,133 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
 
 
 def test_launch_configs_fit_the_card():
-    """Tiles, threads and grids of K5 and K2 at the presets' widths: within
-    the kernels' launch bounds and the H100's 227 KB of shared memory a block."""
+    """Tiles, threads and grids of K5, and K2's plan, at the presets' widths:
+    within the kernels' launch bounds and the H100's 227 KB of shared memory a
+    block; K2's splits cover its 4 n_pad stacked rows exactly, and its scratch
+    at 8x200 is the size PERF.md states."""
     wide = (2,) + (200,) * 8 + (1,)
     assert k_mlp.forward_config(NARROW) == (128, 640)
     assert k_mlp.forward_config(wide) == (64, 640)
+    tile = k_taylor2.GEMM_TILE
+    assert k_taylor2.GEMM_THREADS % 32 == 0 and k_taylor2.GEMM_THREADS <= 1024
+    assert tile * tile == k_taylor2.GEMM_THREADS * 8 * 8  # an 8 x 8 register tile a thread
+    assert k_taylor2.GEMM_SMEM <= 48 * 1024  # static shared memory
     for layers in (NARROW, wide, (2, 256, 256, 3)):
-        tile, threads = k_mlp.forward_config(layers)
-        assert tile % 4 == 0 and threads % 32 == 0 and threads <= 640
-        assert k_mlp.smem_bytes(layers, tile, 2) <= 227 * 1024
-        tile, grid = k_mlp.backward_config(layers, 100_000)
-        assert grid == k_mlp.MAX_GRID and k_mlp.smem_bytes(layers, tile, 3) <= 227 * 1024
-        tile, grid = k_taylor2.backward_config(layers, 1000)
-        assert tile % 4 == 0 and grid == -(-1000 // tile)
-        assert k_taylor2.backward_smem_bytes(layers, tile) <= 227 * 1024
+        tile_k5, threads = k_mlp.forward_config(layers)
+        assert tile_k5 % 4 == 0 and threads % 32 == 0 and threads <= 640
+        assert k_mlp.smem_bytes(layers, tile_k5, 2) <= 227 * 1024
+        tile_k5, grid = k_mlp.backward_config(layers, 100_000)
+        assert grid == k_mlp.MAX_GRID and k_mlp.smem_bytes(layers, tile_k5, 3) <= 227 * 1024
+        for n in (1, 37, 1000, 8_192, 10_456, 65_536, 1_048_576):
+            plan = k_taylor2.backward_plan(layers, n)
+            rows = 4 * plan.n_pad
+            assert plan.n_pad % tile == 0 and n <= plan.n_pad < n + tile
+            assert plan.split_rows % tile == 0
+            assert plan.split_rows <= k_taylor2.MAX_SPLIT_TILES * tile
+            assert plan.splits <= max(k_taylor2.SPLIT_WARPS, rows // plan.split_rows)
+            assert (plan.splits - 1) * plan.split_rows < rows <= plan.splits * plan.split_rows
+            parts = dataclasses.astuple(plan)[3:]  # the scratch's parts, each on 16 bytes
+            assert all(part % 4 == 0 for part in parts) and sum(parts) == plan.scratch_floats
     assert k_mlp.backward_config(NARROW, 100) == (64, 2)
-    assert k_taylor2.backward_config(NARROW, 10_456) == (64, 164)
+    shape = lambda p: (p.n_pad, p.split_rows, p.splits)  # noqa: E731
+    assert shape(k_taylor2.backward_plan(NARROW, 10_456)) == (10_496, 128, 328)
+    assert shape(k_taylor2.backward_plan(wide, 8_192)) == (8_192, 512, 64)
+    assert shape(k_taylor2.backward_plan(wide, 65_536)) == (65_536, 1_024, 256)
+    assert k_taylor2.backward_plan(wide, 8_192).scratch_bytes == 362_572_032
+    assert k_taylor2.backward_plan(wide, 8_192, mixed=True).scratch_bytes == 363_700_848
+    assert k_taylor2.backward_plan(wide, 65_536).scratch_bytes == 2_611_602_432
+
+
+# -- K2's layout and order, written out in PyTorch ---------------------------
+
+def _stack(streams, ones):
+    """Four (n_pad, d) streams stacked stream-major, with the bias's
+    indicator column (1 on value rows) when ``ones``."""
+    if ones:
+        streams = [torch.cat([s, torch.full_like(s[:, :1], float(i == 0))], dim=1)
+                   for i, s in enumerate(streams)]
+    return torch.cat(streams, dim=0)
+
+
+def _kernel_order_grad(spec, params, x, cot):
+    """The flat gradient as csrc/taylor2_backward.cu lays it out and sums
+    it: the four streams of n_pad points (padded points at (0, 0), zero
+    cotangents) stacked into one matrix per layer; the forward as
+    H [W; b] with per-stream weights; gH = G W^T with the weights each
+    stream's forward dot used; dW = H^T G over the wrapper's split chunks,
+    the partials summed in split order; db = the value rows of G summed per
+    row tile, then over the tiles."""
+    plan = k_taylor2.backward_plan(spec.layers, x.shape[0], spec.mixed)
+    pol = _StreamPolicy(spec)
+    dtype, n, n_pad = spec.dtype, x.shape[0], plan.n_pad
+    xp = torch.zeros((n_pad, 2), dtype=dtype)
+    xp[:n] = x
+    h = normalize_inputs(spec, xp)
+    scale = input_scale(spec, xp.device)
+    ex, et = torch.zeros_like(h), torch.zeros_like(h)
+    ex[:, 0], et[:, 1] = scale[0], scale[1]
+    H = [_stack((h, ex, et, torch.zeros_like(h)), ones=True)]
+    saved = []  # (pre-activations, tanh factors) of each hidden layer
+    for l, layer in enumerate(params[:-1]):
+        P = [H[-1][i * n_pad:(i + 1) * n_pad]
+             @ torch.cat([layer["W"] if l == 0 else pol.weight(layer["W"], name), layer["b"]])
+             for i, name in enumerate(POLICY_STREAMS)]
+        p, px, pt, pxx = (pol.act(v, name, l == 0) for v, name in zip(P, POLICY_STREAMS))
+        s = torch.tanh(p)
+        sp = 1.0 - s * s
+        spp = -2.0 * s * sp
+        out = (pol.store(s, "value"), pol.store(sp * px, "deriv"), pol.store(sp * pt, "deriv"),
+               pol.store(spp * px * px + sp * pxx, "xx"))
+        saved.append((tuple(v.to(dtype) for v in (p, px, pt, pxx)),
+                      tuple(v.to(dtype) for v in (s, sp, spp))))
+        H.append(_stack([v.to(dtype) for v in out], ones=True))
+    pad = lambda g: torch.cat([g, torch.zeros((n_pad - n, g.shape[1]), dtype=dtype)])  # noqa: E731
+    G = _stack([pad(g) for g in cot], ones=False)
+    grads = [None] * len(params)
+    for l in range(len(params) - 1, -1, -1):
+        rows = [slice(z * plan.split_rows, (z + 1) * plan.split_rows)
+                for z in range(plan.splits)]
+        dW = torch.zeros((params[l]["W"].shape), dtype=dtype)
+        for r in rows:
+            dW = dW + H[l][r, :-1].T @ G[r]
+        tile = k_taylor2.GEMM_TILE
+        db = sum(G[t:t + tile].sum(dim=0, keepdim=True) for t in range(0, n_pad, tile))
+        grads[l] = torch.cat([dW, db])
+        if l > 0:
+            W = params[l]["W"]
+            gH = [G[i * n_pad:(i + 1) * n_pad] @ pol.weight(W, name).T
+                  for i, name in enumerate(POLICY_STREAMS)]
+            G = _stack(k_taylor2._act_backward(*saved[l - 1], gH), ones=False)
+    return torch.cat([g.reshape(-1) for g in grads])
+
+
+KERNEL_ORDER_CASES = [(layers, n, keep, dtype) for layers in NETS for n in (1, 37, 34 * 128 + 1)
+                      for keep in (None, ("xx",)) for dtype in (torch.float64, torch.float32)]
+
+
+@pytest.mark.parametrize(
+    "layers,n,keep,dtype", KERNEL_ORDER_CASES,
+    ids=[f"{'-'.join(map(str, c[0]))}-n{c[1]}-{'f32' if c[2] is None else 'keep_xx'}-"
+         f"{str(c[3])[6:]}" for c in KERNEL_ORDER_CASES])
+def test_kernel_layout_and_order_match_the_plain_backward(layers, n, keep, dtype):
+    """K2's stacked, padded, bias-folded, split-K layout (K6's backward's
+    under keep {xx}, with per-stream weights) against taylor2_backward_
+    reference: 1e-12 of each leaf's max in float64, 1e-5 in float32 (the
+    same products summed in another order: at most 3e-15 and 2e-6 here)."""
+    mixed = {} if keep is None else {"compute_dtype": "bfloat16", "keep_streams": keep}
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=dtype, **mixed)
+    params = [{k: torch.tensor(v, dtype=dtype) for k, v in layer.items()}
+              for layer in numpy_params(layers, 31)]
+    x = torch.tensor(numpy_points(n, 32), dtype=dtype)
+    rng = np.random.default_rng(33)
+    cot = [torch.tensor(rng.standard_normal((n, layers[-1])) / n, dtype=dtype)
+           for _ in range(4)]
+    got = _kernel_order_grad(spec, params, x, cot)
+    want = k_taylor2.taylor2_backward_reference(spec, params, x, cot)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for i, (g, w) in enumerate(zip(k_taylor2.split_grad(got, want), want)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=tol * float(w.abs().max()), err_msg=f"leaf {i}")
 
 
 def test_split_grad_and_check_call():

@@ -197,9 +197,13 @@ def test_mlp_forward_kernels_match_plain_on_card(cuda_device, layers, n):  # noq
         off += p.numel()
 
 
+WIDE = (2,) + (200,) * 8 + (1,)  # burgers_scale's net
+
+
 @pytest.mark.parametrize("layers,n", [((2,) + (20,) * 8 + (1,), 1000),
                                       ((2, 256, 256, 3), 777),
-                                      ((2, 64, 1), 3)])
+                                      ((2, 64, 1), 3),
+                                      (WIDE, 8_192), (WIDE, 8_191), (WIDE, 1)])
 def test_taylor2_backward_kernel_matches_plain_on_card(cuda_device, layers, n):  # noqa: F811
     """K2 against the plain reverse mode, judged against float64, and the
     autograd Function (K1 + K2) against autograd through the plain
@@ -227,6 +231,26 @@ def test_taylor2_backward_kernel_matches_plain_on_card(cuda_device, layers, n): 
     via_fn = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
     for a, b in zip(via_fn, k_taylor2.split_grad(grad, leaves)):
         assert torch.equal(a, b)
+
+
+def test_taylor2_backward_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch):  # noqa: F811
+    """The kernel lays out its scratch itself: a plan with less scratch than
+    that layout needs, or a split that is not whole row tiles, raises and
+    counts no call."""
+    import dataclasses
+
+    spec, params, _, _ = _net(WIDE, 5, cuda_device)
+    n = 1_000
+    x = torch.from_numpy(numpy_points(n, seed=16)).to(cuda_device)
+    cot = [torch.ones((n, 1), device=cuda_device) for _ in range(4)]
+    plan = k_taylor2.backward_plan(spec.layers, n)
+    before = k_taylor2.BACKWARD_LAUNCHES
+    for bad in (dataclasses.replace(plan, gbuf=plan.gbuf - 4),
+                dataclasses.replace(plan, split_rows=plan.split_rows + 4)):
+        monkeypatch.setattr(k_taylor2, "backward_plan", lambda *args, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k_taylor2.taylor2_backward(spec, params, x, cot)
+    assert k_taylor2.BACKWARD_LAUNCHES == before
 
 
 def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
@@ -282,16 +306,34 @@ def _near_plain(got, plain, unrounded):
         _rel_l2(got, plain), _rel_l2(unrounded, plain))
 
 
+K6_SHAPES = [((2, 64, 64, 64, 1), 1000), (WIDE, 8_192), (WIDE, 8_191), (WIDE, 1)]
+
+
+def _close_plain(got, plain, tol):
+    """max|got - plain| <= tol max|plain| (chip_smoke.py's K6_PLAIN_TOL test)."""
+    assert float((got - plain).abs().max()) <= tol * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("layers,n", K6_SHAPES, ids=[f"{max(l)}w-n{n}" for l, n in K6_SHAPES])
 @pytest.mark.parametrize("keep,me", K6_POLICIES,
                          ids=[f"keep-{'-'.join(k) or 'none'}{'-me' if m else ''}"
                               for k, m in K6_POLICIES])
-def test_k6_matches_plain_on_card(cuda_device, keep, me):  # noqa: F811
+def test_k6_matches_plain_on_card(cuda_device, keep, me, layers, n):  # noqa: F811
     """K6 forward against the plain mixed recurrence and K6's backward against
     the plain reverse mode under the policy (taylor2_backward_reference), on
-    the same inputs; both within the TPU test's envelope against float64 and
-    the backward near autograd through the plain recurrence, for every flag
-    combination; two backward calls agree bit for bit."""
-    layers, n = (2, 64, 64, 64, 1), 1000
+    the same inputs, for every flag combination; two backward calls agree bit
+    for bit.
+
+    At the small net: both within the TPU test's envelope against float64,
+    near the plain version (_near_plain), and the backward near autograd
+    through the plain recurrence. At 8x200 (one burgers_scale microbatch, a
+    ragged N): the smoke's phase-16 test, within 3e-5 max|plain| of the plain
+    version per stream and leaf, and within the envelope against float64
+    beside the plain version. Autograd rounds the cotangents to bf16, which
+    at this depth moves a bias leaf that cancels by more than 0.2 of itself.
+    At one point no average hides a bf16 rounding that a float32 sum in
+    another order flips (2^-8 of a value): there within 1e-2 max|plain|."""
+    small = layers != WIDE
     spec32, params, spec64, params64 = _net(layers, 6, cuda_device)
     spec = _mixed(layers, keep, me)
     x = torch.from_numpy(numpy_points(n, seed=18)).to(cuda_device)
@@ -301,9 +343,6 @@ def test_k6_matches_plain_on_card(cuda_device, keep, me):  # noqa: F811
     plain = mlp_taylor_2_reference(spec, params, x)
     unrounded = mlp_taylor_2_reference(spec32, params, x)
     exact = mlp_taylor_2_reference(spec64, params64, x.double())
-    for g, p, u, e in zip(got, plain, unrounded, exact):
-        _near_plain(g, p, u)
-        _envelope(g, p, e)
     rng = np.random.default_rng(19)
     cot = [torch.from_numpy((rng.standard_normal((n, 1)) / n).astype(np.float32))
            .to(cuda_device) for _ in range(4)]
@@ -313,18 +352,29 @@ def test_k6_matches_plain_on_card(cuda_device, keep, me):  # noqa: F811
     torch.cuda.synchronize()
     assert k_taylor2.MIXED_BACKWARD_LAUNCHES == before + 2 and torch.equal(grad, again)
     leaves = [t.clone().requires_grad_(True) for p in params for t in (p["W"], p["b"])]
-    net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
-    outs = mlp_taylor_2_reference(spec, net, x)
-    auto = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
     plain_g = k_taylor2.taylor2_backward_reference(spec, params, x, cot)
     unrounded_g = k_taylor2.taylor2_backward_reference(spec32, params, x, cot)
     exact_g = k_taylor2.taylor2_backward_reference(spec64, params64, x.double(),
                                                    [c.double() for c in cot])
-    for g, p, u, a, e in zip(k_taylor2.split_grad(grad, leaves), plain_g, unrounded_g, auto,
-                             exact_g):
-        _near_plain(g, p, u)
-        _envelope(g, a, e)
-        assert float((g - a).abs().max()) <= 0.2 * float(a.abs().max())
+    pairs = list(zip(got, plain, unrounded, exact)) + list(
+        zip(k_taylor2.split_grad(grad, leaves), plain_g, unrounded_g, exact_g))
+    if small:
+        net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        outs = mlp_taylor_2_reference(spec, net, x)
+        auto = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
+        for i, (g, p, u, e) in enumerate(pairs):
+            _near_plain(g, p, u)
+            if i < len(got):
+                _envelope(g, p, e)
+            else:
+                a = auto[i - len(got)]
+                _envelope(g, a, e)
+                assert float((g - a).abs().max()) <= 0.2 * float(a.abs().max())
+    else:
+        for g, p, u, e in pairs:
+            _close_plain(g, p, 3e-5 if n > 1 else 1e-2)
+            if n > 1:
+                _envelope(g, p, e)
 
 
 def test_mixed_spec_on_card_reaches_k6_only(cuda_device):  # noqa: F811

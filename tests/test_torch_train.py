@@ -267,6 +267,24 @@ def test_trainer_cpu_logs_checkpoints_and_never_launches(tmp_path, monkeypatch):
                                  train_state_to_numpy(s2)["params"])
 
 
+def test_profile_dir_traces_the_second_chunk(tmp_path):
+    """train.profile_dir set: Trainer.train traces its second chunk with
+    torch.profiler and writes the trace there, as the JAX trainer does with
+    jax.profiler; the run itself is the one without the profiler."""
+    trace_dir = tmp_path / "trace"
+    exp = _tiny(tmp_path / "out", **{"train.profile_dir": str(trace_dir)})
+    state, summary = ttrainer.Trainer(exp, device="cpu", dataset=GRID).train()
+    plain, _ = ttrainer.Trainer(_tiny(tmp_path / "plain"), device="cpu", dataset=GRID).train()
+    assert sorted(os.listdir(trace_dir)) == ["abgrall_admm_e2.json"]
+    with open(trace_dir / "abgrall_admm_e2.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+    torch.utils._pytree.tree_map(np.testing.assert_array_equal,
+                                 train_state_to_numpy(state)["params"],
+                                 train_state_to_numpy(plain)["params"])
+    assert summary["epochs"] == 6
+
+
 def test_hybrid_raises_at_the_lbfgs_switch(tmp_path, monkeypatch):
     """The L-BFGS phase no longer raises at the switch: a hybrid run trains
     through it with the JAX Trainer's phases and chunk lengths (Adam chunks
