@@ -13,6 +13,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   3 kernel  Taylor-2 kernel vs the plain PyTorch recurrence on the card: the
             served 8x20 model within TOL; a seeded random 8x200 net against
             the float64 recurrence (see compare_f64)
+  3b ragged K1 and K6 (keep {}, keep {xx}, max) at ragged and edge shapes:
+            8x200 at N 1, 31, 8,191 and 65,537, 8x50 (no whole column groups,
+            4-byte weight copies) and 8x20 (the narrow design) at N 1, 31 and
+            8,191; held over at least 8,191 points (phase 3's f64 oracle for
+            K1, K6_PLAIN_TOL and K6_FACTOR for K6), and a call of fewer points
+            equal bit for bit to the same points inside the 8,191-point call
   4 slice   committed JAX fixture -> export -> ServedModel(device="cuda")
             -> predict(25,600 points); u, f and rel-L2 against JAX's, and the
             kernel launch count of that run
@@ -153,6 +159,10 @@ SCALE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "burgers_s
 # the JAX package's recommended keep {xx}, the TPU kernel's own keep {}, and
 # bench.py's mixed run (max)
 K6_POLICIES = ("keep_none", "keep_xx", "max")
+# phase 3b: (layers, N) of K1 and K6 off the main path's shapes
+RAGGED_SHAPES = [(WIDE, 1), (WIDE, 31), (WIDE, 8_191), (WIDE, 65_537),
+                 ((2,) + (50,) * 8 + (1,), 1), ((2,) + (50,) * 8 + (1,), 31),
+                 ((2,) + (50,) * 8 + (1,), 8_191), (NARROW, 1), (NARROW, 31), (NARROW, 8_191)]
 K6_SHAPES = [(WIDE, 8_192), (WIDE, 65_536)]  # one burgers_scale microbatch, and a larger call
 K6_MAIN = ("keep_xx", WIDE, 8_192)
 # the TPU test's envelope (89afc4b^:tests/test_pallas.py:87-109): K6 against
@@ -1135,6 +1145,49 @@ def close_plain(name: str, got, plain) -> float:
     return err
 
 
+def phase_ragged(card: str) -> None:
+    """3b: K1 and K6 at RAGGED_SHAPES. A point's sums do not depend on the
+    other points or on its place in the grid, so a call of n < 8,191 points
+    equals the same points inside an 8,191-point call bit for bit; the
+    larger call is held as phases 3 and 16 hold theirs."""
+    from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+
+    for layers, n in RAGGED_SHAPES:
+        params = init_mlp(MLPSpec(layers=layers, lb=LB, ub=UB),
+                          torch.Generator().manual_seed(n + 3), "cuda")
+        spec64 = dataclasses.replace(mixed_spec(layers, "f32"), dtype=torch.float64)
+        held = max(n, 8_191)
+        x = points(held, seed=held + 5, device="cuda")
+        rows = {}
+        for policy in ("f32",) + K6_POLICIES:
+            spec = mixed_spec(layers, policy)
+            with torch.no_grad():
+                got = k_taylor2.taylor2(spec, params, x[:n])
+                full = k_taylor2.taylor2(spec, params, x) if held > n else got
+                plain = mlp_taylor_2_reference(spec, params, x)
+                exact = mlp_taylor_2_reference(spec64, net_f64(params), x.double())
+            torch.cuda.synchronize()
+            err = 0.0
+            for name, g, f, p, e in zip(STREAMS, got, full, plain, exact):
+                tag = f"ragged {policy} {len(layers) - 2}x{max(layers)} N {n} {name}"
+                check(torch.equal(g, f[:n]), f"{tag}: differs from the same points in {held}")
+                if policy == "f32":
+                    row = compare_f64(tag, host(f), host(p), host(e))
+                    err = max(err, row["max_abs_err_vs_plain"])
+                else:
+                    compare_f64(tag, host(f), host(p), host(e), K6_FACTOR)
+                    err = max(err, close_plain(tag, host(f), host(p)))
+            rows[policy] = {"max_abs_err_vs_plain": err,
+                            "design": k_taylor2.launch_config(layers, spec.mixed).design}
+        emit(card, phase="ragged", net=f"{len(layers) - 2}x{max(layers)}", n=n, held_over=held,
+             criterion="bit-equal to the same points in the held call; held call: f32 "
+                       f"|K1 - f64| <= {F64_FACTOR} |plain - f64| + 1e-6 max|f64|, K6 "
+                       f"|K6 - plain| <= {K6_PLAIN_TOL} max|plain| and <= {K6_FACTOR} x the "
+                       "plain version's error against f64", policies=rows)
+
+
 def phase_k6(card: str, nets: dict) -> dict:
     """16: K6 forward and backward against the plain mixed version on the
     same inputs, and within the TPU test's envelope against float64."""
@@ -1452,7 +1505,9 @@ def main() -> int:
             main_err = max(r["max_abs_err"] for r in rows.values())
         emit(card, phase="kernel", net=f"{len(layers) - 2}x{max(layers)}", n=n,
              criterion="f64_oracle" if layers == WIDE else "tol_vs_plain",
-             tile_threads=list(k_taylor2.launch_config(layers)), streams=rows)
+             launch=dataclasses.asdict(k_taylor2.launch_config(layers)), streams=rows)
+
+    timed(card, "ragged", phase_ragged, card)
 
     # -- 4 the slice against JAX ----------------------------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -9,11 +9,14 @@ memory; the plain PyTorch version is ``ops.taylor.mlp_taylor_2_reference``.
 What bounds it on the H100: at width 200 the fp32 FMA issue rate (full fp32,
 no tensor cores or TF32, by the numerics rule) and the shared-memory loads
 that feed the FMAs; at width 20 and small N the launch and per-layer barrier
-latency. The design answers with 16 FMAs per weight load (4 streams x 4
-points a thread), streams kept on chip across all layers, one launch per call,
-and a tile whose buffers fit half an SM's shared memory. The TPU kernel's
-lane packing has no counterpart: the same CUDA kernel takes every width up to
-256.
+latency. Two designs answer, one launch a call each (:func:`launch_config`
+picks one by the widths): above width 32 the TPU kernel's own layout, the
+four streams of a 32-point tile stacked into one matrix in shared memory and
+multiplied by each layer's weights, which arrive through a cp.async ring,
+with 8 x 8 register tiles (64 FMAs per four 16-byte shared loads); at width
+32 and below a per-tile kernel (16 FMAs per weight load, up to 128
+points a block). The TPU kernel's lane packing has no counterpart: the
+same kernels take every width up to 256.
 
 The backward of K1, K2 (``csrc/taylor2_backward.cu``), turns the cotangents
 of the four streams into dW and db. The TPU package had no kernel for it (its
@@ -64,10 +67,27 @@ MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
+# The forward's two designs (csrc/taylor2.cu), one launch a call each. A net
+# whose widths are all at most NARROW_WIDTH takes the narrow design, a
+# per-tile kernel: a thread owns one unit and 4 points of all four streams,
+# the tile is the largest multiple of 4 points (at most 128) whose two
+# ping-pong buffers fit _NARROW_SMEM. Any wider net takes the tiled design:
+# TILE_POINTS points a block, their 4 TILE_POINTS stacked stream rows (row =
+# 4 point + stream) in shared memory k-major, a thread an 8 x 8 register
+# tile (the four streams of two points by 8 units) of each layer's product,
+# W_l fed in slices of SLICE_DEPTH rows through a ring of STAGES stages (and,
+# under the bf16 policy, two slots of the bf16-rounded slices).
+NARROW_WIDTH = 32
 _POINTS_PER_THREAD = 4
-_SMEM_PER_BLOCK = 112 * 1024  # two blocks per H100 SM (228 KB each)
-_MAX_TILE = 128
-_MAX_THREADS = 640  # the kernel's __launch_bounds__
+_NARROW_SMEM = 112 * 1024  # two narrow blocks per H100 SM
+_NARROW_MAX_TILE = 128
+_NARROW_MAX_THREADS = 640  # the narrow kernel's __launch_bounds__
+TILE_POINTS = 32
+TILE_ROWS = 4 * TILE_POINTS
+SLICE_DEPTH = 16
+STAGES = 3
+TILED_MAX_THREADS = 512  # the tiled kernel's __launch_bounds__
+SMEM_LIMIT = 232_448  # the H100's 227 KB of shared memory a block
 # the backward's products (csrc/taylor2_backward.cu::gemm_kernel): a block
 # of GEMM_THREADS threads computes a GEMM_TILE x GEMM_TILE tile from three
 # stages of 8-deep tiles of A and B with padded rows; the points are padded
@@ -85,26 +105,36 @@ SPLIT_WARPS = 2048
 MAX_SPLIT_TILES = 8
 
 
-def launch_config(layers: Sequence[int]) -> Tuple[int, int]:
-    """(points per block, threads per block) for a net of these widths.
+@dataclasses.dataclass(frozen=True)
+class LaunchConfig:
+    """A forward launch: the design ("narrow" or "tiled"), points and threads
+    a block, and its dynamic shared memory in bytes."""
 
-    The tile is the largest multiple of 4 points (at most 128) whose two
-    ping-pong buffers of four streams fit ``_SMEM_PER_BLOCK``; the block gets
-    one thread per (unit, 4-point group) of its widest layer, up to 640.
-    """
+    design: str
+    tile: int
+    threads: int
+    smem: int
+
+
+def launch_config(layers: Sequence[int], mixed: bool = False) -> LaunchConfig:
+    """How K1, or K6 for a ``mixed`` spec, launches for a net of these widths
+    (the kernel refuses any other configuration)."""
     layers = tuple(int(w) for w in layers)
     wmax = max(layers)
     if wmax > MAX_WIDTH:
         raise ValueError(f"taylor2 kernel takes widths up to {MAX_WIDTH}, got {wmax}")
-    tile = _SMEM_PER_BLOCK // (4 * 2 * 4 * wmax) - 4  # bytes/(f32*bufs*streams*rows) - pad
-    tile = min(_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
-    items = (tile // _POINTS_PER_THREAD) * max(layers[1:])
-    threads = min(_MAX_THREADS, -(-items // 32) * 32)
-    return tile, threads
-
-
-def smem_bytes(layers: Sequence[int], tile: int) -> int:
-    return 4 * 2 * 4 * max(layers) * (tile + 4)
+    if wmax <= NARROW_WIDTH:
+        tile = _NARROW_SMEM // (4 * 2 * 4 * wmax) - 4  # bytes/(f32*bufs*streams*rows) - pad
+        tile = min(_NARROW_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
+        items = (tile // _POINTS_PER_THREAD) * max(layers[1:])
+        threads = min(_NARROW_MAX_THREADS, -(-items // 32) * 32)
+        return LaunchConfig("narrow", tile, threads, 4 * 2 * 4 * wmax * (tile + 4))
+    win = max(layers[:-1])  # the widest layer input
+    groups = -(-win // 8)  # 8-unit column groups
+    threads = max(TILE_ROWS, 16 * groups)
+    pitch = 8 * groups
+    smem = 4 * (win * TILE_ROWS + (STAGES + (2 if mixed else 0)) * SLICE_DEPTH * pitch)
+    return LaunchConfig("tiled", TILE_POINTS, threads, smem)
 
 
 def _ld_h(width: int) -> int:
@@ -293,7 +323,7 @@ def taylor2(
         check_mixed(kernel, spec)
     check_call(kernel, spec, params, x)
     layers = spec.layers
-    tile, threads = launch_config(layers)
+    cfg = launch_config(layers, spec.mixed)
     flat = pack_params(params)
     n = x.shape[0]
     outs = tuple(
@@ -306,7 +336,7 @@ def taylor2(
     dims = (ctypes.c_int * len(layers))(*layers)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     head = (x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1)
-    tail = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, threads,
+    tail = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], cfg.tile, cfg.threads,
             *(o.data_ptr() for o in outs), x.device.index or 0, stream)
     if spec.mixed:
         err = lib.pinns_taylor2_mixed_forward(*head, policy_flags(spec), *tail)
@@ -316,7 +346,7 @@ def taylor2(
         msg = lib.pinns_cuda_error_string(err).decode()
         raise RuntimeError(
             f"{kernel} kernel launch failed: CUDA error {err} ({msg}); "
-            f"tile={tile} threads={threads} smem={smem_bytes(layers, tile)} B"
+            f"{cfg}"
         )
     with _launches_lock:
         if spec.mixed:

@@ -77,10 +77,11 @@ def export_predict(
 class ServedModel:
     """A loaded artifact: ``predict(x) -> {field: (N, 1) np.ndarray}``.
 
-    The weights and PDE coefficients are moved to ``device`` once, here.
+    The weights and PDE coefficients are moved to ``device`` once, here:
+    the card unless the caller asks for the CPU (raises without one).
     """
 
-    def __init__(self, path: str, device="cpu"):
+    def __init__(self, path: str, device="cuda"):
         self.device = resolve_device(device)
         with open(os.path.join(path, _META_NAME)) as f:
             self.meta = json.load(f)
@@ -126,11 +127,11 @@ class ServedModel:
             return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
 
-def load_exported(path: str, device="cpu") -> ServedModel:
+def load_exported(path: str, device="cuda") -> ServedModel:
     return ServedModel(path, device=device)
 
 
-def make_http_server(path: str, host: str = "127.0.0.1", port: int = 8080, device="cpu"):
+def make_http_server(path: str, host: str = "127.0.0.1", port: int = 8080, device="cuda"):
     """Minimal stdlib prediction server over an artifact, on ``device``.
 
     Endpoints:

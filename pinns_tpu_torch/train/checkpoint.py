@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from pinns_tpu_torch.device import resolve_device
 from pinns_tpu_torch.opt.adam import tree_map
 
 
@@ -62,8 +63,10 @@ def save_checkpoint(path: str, state, meta: Optional[Dict] = None) -> None:
         json.dump(meta or {}, fh)
 
 
-def load_checkpoint(path: str, device="cpu"):
-    """Restore the ``TrainState`` of ``save_checkpoint`` onto ``device``."""
+def load_checkpoint(path: str, device="cuda"):
+    """Restore the ``TrainState`` of ``save_checkpoint`` onto ``device`` (the
+    card unless the caller asks for the CPU; raises without one)."""
+    device = resolve_device(device)
     return state_from_dict(torch.load(path, map_location="cpu", weights_only=True), device)
 
 

@@ -186,9 +186,10 @@ class Problem:
         return torch.cat([self.residuals(params, ch, plain) for ch in _chunks(colloc, m)])
 
 
-def build_problem(exp: Experiment, device="cpu", dataset: Optional[str] = None) -> Problem:
+def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None) -> Problem:
     """Load the dataset (``dataset`` overrides ``exp.data.dataset``) and put
-    the supervised training set on ``device``."""
+    the supervised training set on ``device`` (the card unless the caller
+    asks for the CPU; raises without one)."""
     check_slice(exp)
     device = resolve_device(device)
     ds = load_burgers_mat(dataset or exp.data.dataset)
@@ -564,7 +565,7 @@ class Trainer:
     logging, snapshots, checkpoints, final rel-L2 evaluation."""
 
     def __init__(self, exp: Experiment, problem: Optional[Problem] = None,
-                 device="cpu", dataset: Optional[str] = None):
+                 device="cuda", dataset: Optional[str] = None):
         self.exp = exp
         self.problem = problem if problem is not None else build_problem(exp, device, dataset)
         self.device = self.problem.device

@@ -377,6 +377,51 @@ def test_k6_matches_plain_on_card(cuda_device, keep, me, layers, n):  # noqa: F8
                 _envelope(g, p, e)
 
 
+# The forward alone at ragged and edge shapes: the tiled design at 8x200 and
+# at a width that is no multiple of its 8-unit column groups or 16-byte rows
+# (8x50), the narrow design at 8x20 (launch_config's choice is checked).
+FWD_SHAPES = [(WIDE, 1), (WIDE, 31), (WIDE, 8_191), (WIDE, 65_537),
+              ((2,) + (50,) * 8 + (1,), 31), ((2,) + (50,) * 8 + (1,), 8_191),
+              ((2,) + (20,) * 8 + (1,), 1), ((2,) + (20,) * 8 + (1,), 31),
+              ((2,) + (20,) * 8 + (1,), 8_191)]
+FWD_POLICIES = {"f32": None, "keep-none": ((), False), "keep-xx": (("xx",), False),
+                "max": ((), True)}
+
+
+@pytest.mark.parametrize("layers,n", FWD_SHAPES,
+                         ids=[f"{len(l) - 2}x{max(l)}-n{n}" for l, n in FWD_SHAPES])
+@pytest.mark.parametrize("policy", list(FWD_POLICIES))
+def test_forward_design_on_card(cuda_device, policy, layers, n):  # noqa: F811
+    """K1 (f32) and K6 (the burgers_scale policies) in one launch each, at
+    ragged N, held over at least 8,191 points: K1 against float64 within 4x
+    the plain version's error; K6 within the TPU test's envelope (2x) and 3e-5
+    max|plain| of the plain mixed version per stream. A point's sums do not
+    depend on the other points or on its place in the grid, so a call of
+    fewer points equals, bit for bit, the same points inside an 8,191-point
+    call: a few points average out no bf16 rounding that a float32 sum in
+    another order flips (2^-8 of a value), and bit-equality leaves no room."""
+    spec32, params, spec64, params64 = _net(layers, 9, cuda_device)
+    spec = spec32 if FWD_POLICIES[policy] is None else _mixed(layers, *FWD_POLICIES[policy])
+    cfg = k_taylor2.launch_config(layers, spec.mixed)
+    assert cfg.design == ("narrow" if max(layers) <= k_taylor2.NARROW_WIDTH else "tiled")
+    held = max(n, 8_191)
+    x = torch.from_numpy(numpy_points(held, seed=22)).to(cuda_device)
+    before = (k_taylor2.LAUNCHES, k_taylor2.MIXED_LAUNCHES)
+    got = k_taylor2.taylor2(spec, params, x[:n])
+    torch.cuda.synchronize()
+    assert (k_taylor2.LAUNCHES, k_taylor2.MIXED_LAUNCHES) == (
+        before[0] + (0 if spec.mixed else 1), before[1] + (1 if spec.mixed else 0))
+    full = k_taylor2.taylor2(spec, params, x) if held > n else got
+    plain = mlp_taylor_2_reference(spec, params, x)
+    exact = mlp_taylor_2_reference(spec64, params64, x.double())
+    for g, f, p, e in zip(got, full, plain, exact):
+        assert g.shape == (n, 1) and torch.equal(g, f[:n])
+        assert bool(torch.isfinite(f).all())
+        _envelope(f, p, e, 2.0 if spec.mixed else 4.0)
+        if spec.mixed:
+            _close_plain(f, p, 3e-5)
+
+
 def test_mixed_spec_on_card_reaches_k6_only(cuda_device):  # noqa: F811
     """mlp_taylor_2 with a mixed spec on a CUDA tensor launches K6 forward and
     backward, never K1 or K2."""

@@ -24,8 +24,8 @@ from pinns_tpu.models.mlp import MLPSpec as JSpec
 from pinns_tpu.ops.taylor import mlp_taylor_2 as jax_taylor_2
 from pinns_tpu_torch.models.mlp import MLPSpec
 from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
-from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
 from pinns_tpu_torch.ops.taylor import mlp_taylor_2, mlp_taylor_2_reference
+from test_torch_taylor import TWIN_NETS, TWIN_NS, tiled_twin, twin_case
 from torch_port_util import LB, UB, numpy_params, numpy_points
 
 LAYERS = (2, 64, 64, 64, 1)
@@ -125,6 +125,35 @@ def test_k6_backward_reference_matches_autograd(keep, me):
         err, auto_err = float((g - e).abs().max()), float((a - e).abs().max())
         assert err <= 2.0 * auto_err + 1e-6 * float(e.abs().max()), (i, err, auto_err)
         assert float((g - a).abs().max()) <= 0.2 * float(a.abs().max()), i
+
+
+# the policies of burgers_scale's cells (experiments/presets.py::STREAM_POLICIES)
+TWIN_POLICIES = {"keep-none": ((), False), "keep-xx": (("xx",), False), "max": ((), True)}
+K6_PLAIN_TOL = 3e-5  # chip_smoke.py: K6 against the plain mixed version, of max|plain|
+
+
+@pytest.mark.parametrize("n", TWIN_NS)
+@pytest.mark.parametrize("net", sorted(TWIN_NETS))
+@pytest.mark.parametrize("policy", sorted(TWIN_POLICIES))
+def test_tiled_twin_under_the_policy(policy, net, n):
+    """K6's tiled design (bf16(W) on the quantized streams' rows, the policy's
+    rounding in the epilogue) against the plain mixed recurrence, within
+    K6_PLAIN_TOL of max|plain| per stream (the same roundings; float32 sums
+    in another order), and against JAX's mixed pass within the relative L2
+    of test_policy_streams_match_jax."""
+    keep, me = TWIN_POLICIES[policy]
+    kw = dict(compute_dtype="bfloat16", keep_streams=keep, mixed_elementwise=me)
+    spec, jparams, params, x = twin_case(net, n, seed=42, **kw)
+    assert spec.mixed
+    got = tiled_twin(spec, params, torch.from_numpy(x))
+    plain = mlp_taylor_2_reference(spec, params, torch.from_numpy(x))
+    want = jax_taylor_2(JSpec(layers=spec.layers, lb=LB, ub=UB, **kw), _jax_net(jparams),
+                        jnp.asarray(x))
+    for name, g, p, w in zip(("u", "u_x", "u_t", "u_xx"), got, plain, want):
+        assert g.dtype == torch.float32 and g.shape == (n, 1)
+        err = float((g - p).abs().max())
+        assert err <= K6_PLAIN_TOL * float(p.abs().max()), (name, err)
+        assert _rel(g, w) <= 1e-3, name
 
 
 def test_unmixed_spec_ignores_keep_streams():

@@ -65,3 +65,38 @@ def test_kernel_wrapper_raises_on_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensor"):
         k_taylor2.taylor2(spec, params, torch.zeros(4, 2))
     assert k_taylor2.LAUNCHES == before
+
+
+def _entry_points(tmp_path):
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.serve import ServedModel, load_exported, make_http_server
+    from pinns_tpu_torch.train import checkpoint, trainer
+
+    exp = get_preset("abgrall_admm")
+    missing = str(tmp_path / "missing")  # read only after the device is resolved
+    return {
+        "Trainer": lambda: trainer.Trainer(exp),
+        "build_problem": lambda: trainer.build_problem(exp),
+        "ServedModel": lambda: ServedModel(missing),
+        "load_exported": lambda: load_exported(missing),
+        "make_http_server": lambda: make_http_server(missing, port=0),
+        "load_checkpoint": lambda: checkpoint.load_checkpoint(missing),
+    }
+
+
+@pytest.mark.parametrize("entry", ["Trainer", "build_problem", "ServedModel", "load_exported",
+                                   "make_http_server", "load_checkpoint"])
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
+    """Called without a device on a machine with no card, each Python entry
+    point raises RuntimeError from resolve_device before it reads a file or
+    loads data: none of them runs on the CPU unless asked to."""
+    from pinns_tpu_torch.train import trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_data(*args, **kwargs):
+        raise AssertionError("the data was loaded: the entry point ran on the CPU")
+
+    monkeypatch.setattr(trainer, "load_burgers_mat", no_data)
+    with pytest.raises(RuntimeError, match="is_available"):
+        _entry_points(tmp_path)[entry]()

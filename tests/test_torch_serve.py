@@ -12,14 +12,29 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from pinns_tpu_torch.interop import load_params_npz
 from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
 from pinns_tpu_torch.serve import ServedModel, export_predict, load_exported, make_http_server
 from pinns_tpu_torch.train.evaluate import relative_l2
-from torch_port_util import FIXTURE, assert_close, numpy_points
+from torch_port_util import FIXTURE, TOL, assert_close, numpy_points
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def report_bad_rows(name, bad):
+    """Print, before a comparison fails, which rows failed it (ROADMAP P1: an
+    order-dependent CPU mismatch seen twice in full xdist runs): their count,
+    first and last index, whether they form one contiguous block, and this
+    process's intra-op threading. ``bad`` is the (N,) mask of failing rows."""
+    rows = np.flatnonzero(bad)
+    if rows.size == 0:
+        return
+    print(f"P1 diagnostic, {name}: {rows.size} of {bad.size} rows differ, first {rows[0]}, "
+          f"last {rows[-1]}, contiguous block {bool(rows[-1] - rows[0] + 1 == rows.size)}; "
+          f"torch.get_num_threads() {torch.get_num_threads()}\n"
+          f"{torch.__config__.parallel_info()}")
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +68,11 @@ def test_fixture_slice_matches_jax(artifact, fixture_npz):
     out = served.predict(fixture_npz["X_star"], pad_to_bucket=True)
     for k in ("u", "f"):
         assert out[k].shape == (25_600, 1)
-        assert_close(k, out[k], fixture_npz[f"{k}_jax"])
+        want = fixture_npz[f"{k}_jax"]
+        rtol, atol_rel = TOL[k]
+        bad = np.abs(out[k] - want) > atol_rel * float(np.abs(want).max()) + rtol * np.abs(want)
+        report_bad_rows(f"served {k} vs JAX", bad.any(axis=1))
+        assert_close(k, out[k], want)
     rel = relative_l2(out["u"], fixture_npz["u_star"])
     assert abs(rel - float(fixture_npz["rel_l2_jax"])) <= 1e-5
     assert k_taylor2.LAUNCHES == before  # CPU tensors take the plain path
@@ -160,4 +179,5 @@ def test_cli_export_and_predict(tmp_path, artifact, fixture_npz):
     with np.load(out) as z:
         np.testing.assert_array_equal(z["x"], x)
         for k in ("u", "f"):
+            report_bad_rows(f"CLI {k} vs in-process predict", (z[k] != want[k]).any(axis=1))
             np.testing.assert_array_equal(z[k], want[k])
