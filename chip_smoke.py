@@ -42,8 +42,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   times     ms per epoch of the kernel step and the plain step (CUDA events,
             medians) at 8x20 and 8x200, and wall time per 1,000-epoch chunk
   10 k5     the fused MLP forward (K5) and its backward against the plain
-            versions at 8x20 (N 100, 25,600) and 8x200 (N 65,536, against
-            float64); two backward calls agree bit for bit
+            versions: the narrow design at 8x20 (N 100, 25,600); the wide
+            design, against float64, at 8x200 (N 100, 2,000, 8,192, 65,536)
+            and on the Euler trunk 2x200x5x3 (out_dim 3, N 200); two backward
+            calls agree bit for bit
   11 k2     the Taylor-2 backward (K2) against autograd through the plain
             recurrence at 8x20 (N 1,000 and 10,456) and 8x200 (N 1,000,
             8,192 and 65,536); its plan (padding, dW's split, scratch)
@@ -109,6 +111,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "burgers_forward_8x20.npz")
 NARROW = (2,) + (20,) * 8 + (1,)  # burgers_forward / abgrall_admm
 WIDE = (2,) + (200,) * 8 + (1,)  # abgrall_visc, burgers_scale
+EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk (presets.py: euler_*)
 LB, UB = (-1.0, 0.0), (1.0, 0.99)
 # (layers, N): the served shapes of the main path (25,600 grid points, padded
 # to the 32,768 bucket), a small request, a 1M-point batch, and the wide net
@@ -136,11 +139,13 @@ STEP_TOL = {"loss": (1e-4, 1e-6), "grad": (1e-4, 1e-5), "adam": (1e-6, 1e-7),
 TRAIN_EPOCHS = 10_000  # the fixture's band_epochs
 BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
 LBFGS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "lbfgs_hybrid.npz")
-# K5 at the data term's 100 points and the served grid's 25,600 (8x20), and
-# the wide net at 65,536; K2 at abgrall_admm's N_f, burgers_forward's anchored
-# batch (10,000 LHS + 456 IC/BC points), the wide net, one burgers_scale
-# microbatch, and a larger call
-K5_SHAPES = [(NARROW, 100), (NARROW, 25_600), (WIDE, 65_536)]
+# K5 at the data term's 100 points and the served grid's 25,600 (8x20); the
+# wide design at burgers_scale's data term (100 points), 2,000, 8,192 and
+# 65,536 points and on the Euler trunk (out_dim 3) at 200; K2 at
+# abgrall_admm's N_f, burgers_forward's anchored batch (10,000 LHS + 456
+# IC/BC points), the wide net, one burgers_scale microbatch, and a larger call
+K5_SHAPES = [(NARROW, 100), (NARROW, 25_600), (WIDE, 100), (WIDE, 2_000), (WIDE, 8_192),
+             (WIDE, 65_536), (EULER, 200)]
 K2_SHAPES = [(NARROW, 1_000), (NARROW, 10_456), (WIDE, 1_000), (WIDE, 8_192), (WIDE, 65_536)]
 REPLAY_STEP = 5  # the fixture state the L-BFGS replay starts from
 LONG_SOLVE = 200
@@ -675,8 +680,8 @@ def phase_mlp_kernels(card: str, nets: dict) -> dict:
         spec64 = dataclasses.replace(spec, dtype=torch.float64)
         x = points(n, seed=n + 1, device="cuda")
         # a seeded cotangent at the scale of a mean over the points
-        g = torch.from_numpy((np.random.default_rng(n + 2).standard_normal((n, 1)) / n)
-                             .astype(np.float32)).cuda()
+        rng = np.random.default_rng(n + 2)
+        g = torch.from_numpy((rng.standard_normal((n, layers[-1])) / n).astype(np.float32)).cuda()
         with torch.no_grad():
             u = k_mlp.mlp_forward(spec, params, x)
             grad = k_mlp.mlp_backward(spec, params, x, g)
@@ -688,16 +693,20 @@ def phase_mlp_kernels(card: str, nets: dict) -> dict:
             torch.cuda.synchronize()
         check(torch.equal(grad, again), f"K5 backward at {n} points: two calls differ")
         net = f"{len(layers) - 2}x{max(layers)}"
-        if layers == WIDE:
+        wide = k_mlp.design(layers) == "wide"
+        if wide:
             fwd = compare_f64("u", host(u), host(u_plain), host(u64))
             fwd["max_abs_err"] = fwd["max_abs_err_vs_plain"]
         else:
             fwd = compare("u", host(u), host(u_plain))
         bwd = close_grad(host(grad), flat_np(g_plain), layers, flat_np(g64))
         out[(layers, n)] = (fwd["max_abs_err"], bwd["max_abs_err"])
-        emit(card, phase="k5", net=net, n=n, forward=fwd, backward=bwd,
-             forward_config=list(k_mlp.forward_config(layers)),
-             backward_config=list(k_mlp.backward_config(layers, n)), bitwise_repeatable=True)
+        config = ({"forward_plan": dataclasses.asdict(k_mlp.mlp_forward_plan(layers, n)),
+                   "backward_plan": dataclasses.asdict(k_mlp.mlp_backward_plan(layers, n))}
+                  if wide else {"forward_config": list(k_mlp.forward_config(layers)),
+                                "backward_config": list(k_mlp.backward_config(layers, n))})
+        emit(card, phase="k5", net=net, out_dim=layers[-1], n=n, design=k_mlp.design(layers),
+             forward=fwd, backward=bwd, bitwise_repeatable=True, **config)
     return out
 
 
@@ -1004,7 +1013,7 @@ def phase_slice3_times(card: str, nets: dict, bf) -> dict:
         leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
         net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
         x = points(n, seed=n + 5, device="cuda")
-        g = torch.ones((n, 1), device="cuda")
+        g = torch.ones((n, layers[-1]), device="cuda")
         with torch.no_grad():
             fwd = event_ms(lambda: k_mlp.mlp_forward(spec, params, x))
             fwd_plain = event_ms(lambda: mlp_apply_reference(spec, params, x))
@@ -1012,7 +1021,8 @@ def phase_slice3_times(card: str, nets: dict, bf) -> dict:
         bwd_plain = event_ms(lambda: torch.autograd.grad(
             mlp_apply_reference(spec, net, x), leaves, g))
         out[("k5", layers, n)] = (fwd, fwd_plain, bwd, bwd_plain)
-        emit(card, phase="times", what="k5", net=f"{len(layers) - 2}x{max(layers)}", n=n,
+        emit(card, phase="times", what="k5", net=f"{len(layers) - 2}x{max(layers)}",
+             out_dim=layers[-1], n=n, design=k_mlp.design(layers),
              forward_ms=fwd, forward_plain_ms=fwd_plain, backward_ms=bwd,
              backward_plain_ms=bwd_plain, reps=REPS, clock="cuda_events",
              forward_bound_ms=mlp_bound(layers, n)[0],
@@ -1478,9 +1488,11 @@ def main() -> int:
     loaded = load_params_npz(FIXTURE)
     check(loaded["spec"].layers == NARROW, f"fixture widths {loaded['spec'].layers}")
     wide = MLPSpec(layers=WIDE, lb=LB, ub=UB)
+    euler = MLPSpec(layers=EULER, lb=LB, ub=UB)
     nets = {
         NARROW: (loaded["spec"], params_from_jax(loaded["params"], device)),
         WIDE: (wide, init_mlp(wide, torch.Generator().manual_seed(200), device)),
+        EULER: (euler, init_mlp(euler, torch.Generator().manual_seed(203), device)),
     }
     main_err = None
     for layers, n in KERNEL_SHAPES:
@@ -1603,7 +1615,8 @@ def main() -> int:
     t6 = timed(card, "times-k6", phase_k6_times, card, nets)
 
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
-    k5_main, k2_main = (NARROW, 100), (NARROW, 1_000)
+    k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
+    k5_wide_launches = scale["f32"]["launches"]
     k6_launches = scale[K6_MAIN[0]]["launches"]
     k6_times = t6[K6_MAIN]
     print(json.dumps({"kernels": [{
@@ -1636,6 +1649,14 @@ def main() -> int:
         "ms": t3[("k5",) + k5_main][0],
         "plain_ms": t3[("k5",) + k5_main][1],
         **bound_fields(mlp_bound(*k5_main)),
+        # the wide design at burgers_scale's data term; its launches: phase 18, f32
+        "wide_8x200_n100": {
+            "launches": k5_wide_launches["mlp_forward"],
+            "max_abs_err": k5[k5_wide][0],
+            "ms": t3[("k5",) + k5_wide][0],
+            "plain_ms": t3[("k5",) + k5_wide][1],
+            **bound_fields(mlp_bound(*k5_wide)),
+        },
     }, {
         "name": "mlp_backward",
         "route": "cuda",
@@ -1646,6 +1667,13 @@ def main() -> int:
         "ms": t3[("k5",) + k5_main][2],
         "plain_ms": t3[("k5",) + k5_main][3],
         **bound_fields(mlp_bound(*k5_main, backward=True)),
+        "wide_8x200_n100": {
+            "launches": k5_wide_launches["mlp_backward"],
+            "max_abs_err": k5[k5_wide][1],
+            "ms": t3[("k5",) + k5_wide][2],
+            "plain_ms": t3[("k5",) + k5_wide][3],
+            **bound_fields(mlp_bound(*k5_wide, backward=True)),
+        },
     }, {
         "name": "taylor2_backward",
         "route": "cuda",

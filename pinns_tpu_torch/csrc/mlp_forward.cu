@@ -1,64 +1,85 @@
 // Fused forward of the domain-normalized tanh MLP, and its hand-written
-// backward, for Hopper (sm_90a).
+// backward, for Hopper (sm_90a): K5.
 //
 // Replaces the TPU kernel `mlp_forward_pallas` / `_forward_kernel`
 // (pinns_tpu/ops/pallas/fused_mlp.py at git 89afc4b^, lines 92-146), which
 // computed u = W_L tanh(... tanh(W_0 normalize(x) + b_0) ...) + b_L in one
 // pass and had no VJP. The port differentiates the data misfit of the
 // training loss on the card, so this file also holds the backward: the
-// cotangent of u -> dW, db of every layer.
-//
-// Forward (forward_kernel). One block per tile of points. The activations of
-// the current layer stay in shared memory as [unit][point], point fastest,
-// ping-ponged between two buffers; no activation goes back to device memory.
-// A thread owns one output unit and 4 consecutive points: one float4 load and
-// 4 FMAs per weight it reads. Weights are read row-major from the packed
-// parameter buffer (L2-resident).
-//
-// Backward (backward_kernel, then reduce_kernel). Block b walks the tiles
-// b, b + grid, b + 2 grid, ... For each tile it runs the forward again,
-// writing each hidden layer's output to a per-block global scratch
-// (L2-resident: 35 KB a block at 8x20), seeds the head with the cotangent and
-// goes back layer by layer in shared memory:
-//   dW_l[k][j] += sum_t X_l[k][t] G_l[j][t]        db_l[j] += sum_t G_l[j][t]
-//   G_{l-1}[k][t] = (1 - X_l[k][t]^2) sum_j W_l[k][j] G_l[j][t]
+// cotangent of u -> dW, db of every layer:
+//   dW_l = X_l^T G_l        db_l = sum over points of G_l
+//   G_{l-1} = (1 - X_l^2) (G_l W_l^T)
 // with X_l the input of layer l (the tanh output of layer l-1) and G_l the
-// adjoint of layer l's pre-activation. Block b adds its tiles, in tile order,
-// into its own row of partial gradients; reduce_kernel sums the rows in block
-// order, one thread per parameter. No atomics: two calls agree bit for bit.
+// adjoint of layer l's pre-activation (the cotangent at the head).
 // ops/kernels/mlp_forward.py::mlp_backward_reference is this algorithm in
-// plain PyTorch, held against torch.autograd by the CPU tests.
+// plain PyTorch, held against torch.autograd and jax.grad by the CPU tests.
+// Two designs, picked from the widths by ops/kernels/mlp_forward.py::design;
+// neither uses atomics, so two calls agree bit for bit.
 //
-// What bounds it on the H100: at 8x20 and the N_u = 100 data points of the
-// training loss, latency: one or two blocks, a chain of barrier-separated
-// layer phases, one launch forward and two backward. At 8x200 and large N the
-// fp32 FMA issue rate of the products (no tensor cores: the port keeps full
-// fp32) and, in the backward, the grid x n_params partial rows the reduction
-// reads. wgmma, TMA weight staging and a split-K reduction sized to the card
-// are later work.
+// Narrow (every width <= 32: the 8x20 nets of burgers_forward and
+// abgrall_admm, on host-bound paths where launches cost more than FMAs).
+// Forward (forward_kernel): one block per tile of points; the activations of
+// the current layer stay in shared memory as [unit][point], point fastest,
+// ping-ponged between two buffers. A thread owns one output unit and 4
+// consecutive points: one float4 load and 4 FMAs per weight it reads.
+// Backward (backward_kernel, then reduce_kernel): block b walks the tiles
+// b, b + grid, ...; per tile it runs the forward again, writing each hidden
+// layer's output to a per-block global scratch, seeds the head with the
+// cotangent and goes back layer by layer in shared memory, adding its tiles
+// into its own row of partial gradients; reduce_kernel sums the rows in
+// block order, one thread per parameter.
+//
+// Wide (any wider net: burgers_scale's 8x200, the Euler trunk 2x200x5x3).
+// The whole call, layer by layer, as dense products over all its points on
+// the engine of layer_gemm.cuh (K2's), with a block tile that the plan
+// (mlp_backward_plan) picks from the number of points: 32 x 32 tiles of 64
+// threads (4 x 4 register tiles) spread a call of a few hundred points over
+// many SMs; 128 x 128 tiles of 256 threads (8 x 8 register tiles, K2's) feed
+// the FMAs best at tens of thousands. Points are padded to n_pad, a multiple
+// of the 128-point row tile, with the point (0, 0) and a zero cotangent.
+// Every input H_l carries one more column, 1, so that the flat [W_l; b_l]
+// (b_l follows W_l in pack_params order) is one (din + 1) x dout matrix:
+//   forward   an input pass writes H_0 = [x^, t^, 1, 0]; per hidden layer
+//             one product H_l+1 = tanh(H_l [W_l; b_l]) with the tanh and the
+//             next indicator in its epilogue; the head, u = H_L-1 [W; b],
+//             on the small tile (1-3 columns). The wide forward and the
+//             backward's recompute run the same code, so the backward sees
+//             the forward's activations bit for bit;
+//   backward  the forward again, keeping every hidden output; the head's
+//             adjoints seeded with the cotangent; per layer, head first, one
+//             launch of two products, dW_l = H_l^T G (TN, split over row
+//             chunks of at most 1,024 rows into per-split partials) and gH =
+//             G W_l^T (NT, split over its depth into partials where a call
+//             has few rows); one elementwise pass that sums gH's partials in
+//             order and writes G_l-1 = (1 - H_l^2) gH, summing it per
+//             128-point tile in double (db_l-1); then wide_reduce_kernel: one
+//             thread per parameter, in double, a weight's partials and a
+//             bias's per-tile sums, each in a fixed order.
+// 28 launches for the backward of the 8x200 net, 10 for its forward, all
+// from one host call on the caller's stream. The caller allocates the
+// scratch, one buffer that the launcher lays out and checks against its
+// size. Every kernel here is in namespace k5, and the engine's kernels are
+// instantiated on K5's own tile types, so a profile tells them from K2's.
+//
+// What bounds it on the H100: at the data term's 100 points, latency: the
+// chain of dependent launches and each product's 26-stage pipeline, about
+// 56 MFLOP a backward call. At 8x200 and tens of thousands of points the
+// fp32 FMA rate of the products (no tensor cores: the port keeps full fp32),
+// as for K2 (37-41% of the fp32 peak there; PERF.md, Findings).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-namespace {
+#include "layer_gemm.cuh"
 
-constexpr int kMaxLayers = 32;
+namespace {
+namespace k5 {
+
 constexpr int kR = 4;              // points per thread item (one float4)
 constexpr int kFwdThreads = 640;   // forward block size bound
 constexpr int kBwdThreads = 256;   // backward block size
 
-struct Net {
-  int n_layers;
-  int max_width;
-  int n_params;
-  int dims[kMaxLayers + 1];
-  int w_off[kMaxLayers];  // offsets of W_l (din x dout, row-major) in the flat params
-  int b_off[kMaxLayers];  // offsets of b_l (dout)
-};
-
-struct Box {
-  float lb0, lb1, ub0, ub1;
-};
+// -- the narrow design --------------------------------------------------------
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -274,32 +295,239 @@ __global__ void reduce_kernel(const float* __restrict__ partials, int rows, int 
   grad[i] = s;
 }
 
-bool make_net(const int* dims, int n_layers, Net* net) {
-  if (n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2) return false;
-  net->n_layers = n_layers;
-  net->max_width = 0;
-  int off = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] < 1) return false;
-    net->dims[l] = dims[l];
-    if (dims[l] > net->max_width) net->max_width = dims[l];
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    net->w_off[l] = off;
-    off += dims[l] * dims[l + 1];
-    net->b_off[l] = off;
-    off += dims[l + 1];
-  }
-  net->n_params = off;
-  return true;
-}
-
 // Dynamic shared memory: `buffers` x max_width rows x (tile + 4) floats
 // (ops/kernels/mlp_forward.py::smem_bytes).
 size_t smem_bytes(int buffers, int max_width, int tile) {
   return sizeof(float) * static_cast<size_t>(buffers) * static_cast<size_t>(max_width) *
          static_cast<size_t>(tile + 4);
 }
+
+
+// -- the wide design ----------------------------------------------------------
+
+// The plan's block tiles: 32 x 32 of 64 threads with 4 x 4 register tiles,
+// and K2's 128 x 128 of 256 threads with 8 x 8 register tiles.
+struct SmallTile : TileCfg<64, 4, 4, 1, 8> {};
+struct LargeTile : TileCfg<256, 8, 8, 2, 2> {};
+constexpr int kMaxGhSplits = 4;  // ops/kernels/mlp_forward.py::MAX_GH_SPLITS
+
+// The hidden layers' epilogue: H_l+1(m, n) = tanh of the sum (the bias came
+// in through H_l's indicator column), and H_l+1's own indicator after its
+// last unit.
+struct TanhStore {
+  static __device__ __forceinline__ void store(float* __restrict__ C, int ldc, int m, int n,
+                                               int N, float v) {
+    float* row = C + static_cast<long long>(m) * ldc;
+    row[n] = tanhf(v);
+    if (n == N - 1) row[N] = 1.0f;
+  }
+};
+
+// H_0 (n_pad x ld_h(2) = 4): normalized (x, t), the indicator 1 and a zero;
+// points past n at (0, 0).
+__global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
+                             float4* __restrict__ H) {
+  const float rx = box.ub0 - box.lb0, rt = box.ub1 - box.lb1;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pad; p += gridDim.x * blockDim.x) {
+    float xv = 0.0f, tv = 0.0f;
+    if (p < n) {
+      xv = x[2 * p];
+      tv = x[2 * p + 1];
+    }
+    H[p] = make_float4(2.0f * (xv - box.lb0) / rx - 1.0f, 2.0f * (tv - box.lb1) / rt - 1.0f,
+                       1.0f, 0.0f);
+  }
+}
+
+// The head's adjoints G (n_pad x d): the cotangent, zero past n; sums (tiles
+// x d) receives their per-tile sums (db of the head).
+__global__ void seed_kernel(const float* __restrict__ gout, int n, int d, float* __restrict__ G,
+                            double* __restrict__ sums) {
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  double db = 0.0;
+  for (int i = 0; i < kTile / kEwRows; ++i) {
+    const long long p = ew_point(i);
+    if (j >= d) continue;
+    const long long at = p * d + j;
+    const float v = p < n ? gout[at] : 0.0f;
+    G[at] = v;
+    db += v;
+  }
+  tile_column_sum(db, j, d, sums);
+}
+
+// Backward through the tanh of the layer whose output H (n_pad x ld_h(d))
+// is: gH, the adjoints of that output, is the sum of `parts` split partials
+// (n_pad x d each, `plane` floats apart), taken in split order; G (n_pad x d)
+// receives the adjoints of the pre-activation, (1 - H^2) gH, and sums
+// (tiles x d) their per-tile sums in double (db).
+__global__ void backward_act_kernel(const float* __restrict__ H, const float* __restrict__ gh,
+                                    int parts, long long plane, float* __restrict__ G, int d,
+                                    double* __restrict__ sums) {
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  const int ld = ld_h(d);
+  double db = 0.0;
+  // unrolled, so that a thread's loads are all in flight at once
+#pragma unroll
+  for (int i = 0; i < kTile / kEwRows; ++i) {
+    const long long p = ew_point(i);
+    if (j >= d) continue;
+    const long long at = p * d + j;
+    float g = gh[at];
+#pragma unroll
+    for (int z = 1; z < kMaxGhSplits; ++z) {
+      if (z < parts) g += gh[z * plane + at];
+    }
+    const float s = H[p * ld + j];
+    const float v = (1.0f - s * s) * g;
+    G[at] = v;
+    db += v;
+  }
+  tile_column_sum(db, j, d, sums);
+}
+
+__global__ void wide_reduce_kernel(const float* __restrict__ partials, int splits,
+                                   const double* __restrict__ sums, int tiles, Net net,
+                                   float* __restrict__ grad) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= net.n_params) return;
+  reduce_param(i, partials, splits, sums, tiles, net, grad);
+}
+
+// H_l+1 = tanh(H_l [W_l; b_l]) for the hidden layers from H_0 = h0; hidden
+// layer l writes out[l] (n_pad x ld_h(dims[l + 1])). The wide forward and
+// the backward's recompute both run it.
+template <class Cfg>
+cudaError_t hidden_products(const Net& net, const float* params, const float* h0, int n_pad,
+                            float* const* out, cudaStream_t s) {
+  for (int l = 0; l + 1 < net.n_layers; ++l) {
+    const int din = net.dims[l], dout = net.dims[l + 1];
+    const float* W = params + net.w_off[l];
+    const Gemm g{l == 0 ? h0 : out[l - 1], W, W, out[l], ld_h(din), dout, ld_h(dout), n_pad,
+                 dout, din + 1, din + 1, 0, 1, 0};
+    const cudaError_t e = gemm<Cfg, false, false, TanhStore>(g, 1, s);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// The launchers carve `scratch` into parts that each start on 16 bytes.
+struct Carve {
+  float* base;
+  long long used;
+  float* take(long long floats) {
+    float* part = base + used;
+    used += (floats + 3) / 4 * 4;
+    return part;
+  }
+};
+
+// u (n x dims[L]) = the head's product over the last hidden output.
+template <class Cfg>
+int forward_wide(const float* x, int n, const float* params, const Net& net, const Box& box,
+                 int n_pad, float* scratch, long long scratch_floats, float* u, cudaStream_t s) {
+  Carve c{scratch, 0};
+  float* h0 = c.take(4LL * n_pad);
+  const long long plane = static_cast<long long>(n_pad) * ld_h(net.max_width);
+  float* hbuf = c.take(2 * plane);
+  if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
+  float* out[kMaxLayers];
+  for (int l = 0; l + 1 < net.n_layers; ++l) out[l] = hbuf + (l % 2) * plane;
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
+                                                       reinterpret_cast<float4*>(h0));
+  PINNS_CHECK(cudaGetLastError());
+  PINNS_CHECK(hidden_products<Cfg>(net, params, h0, n_pad, out, s));
+  const int l = net.n_layers - 1, din = net.dims[l], dout = net.dims[l + 1];
+  const float* W = params + net.w_off[l];
+  const Gemm head{l == 0 ? h0 : out[l - 1], W, W, u, ld_h(din), dout, dout, n, dout, din + 1,
+                  din + 1, 0, 1, 0};
+  PINNS_CHECK((gemm<SmallTile, false, false>(head, 1, s)));
+  return static_cast<int>(cudaSuccess);
+}
+
+template <class Cfg>
+int backward_wide(const float* x, int n, const float* params, const Net& net, const Box& box,
+                  int n_pad, int split_rows, int splits, int gh_splits, const float* gout,
+                  float* scratch, long long scratch_floats, float* grad, cudaStream_t s) {
+  const int L = net.n_layers, tiles = n_pad / kTile;
+  // hidden layer l's output at hstore + h_off[l]; the per-tile db sums of
+  // layer l at sums + l tiles max_width
+  long long h_off[kMaxLayers];
+  long long h_end = 0;
+  for (int l = 0; l + 1 < L; ++l) {
+    h_off[l] = h_end;
+    h_end += static_cast<long long>(n_pad) * ld_h(net.dims[l + 1]);
+  }
+  const long long sums_stride = static_cast<long long>(tiles) * net.max_width;
+  Carve c{scratch, 0};
+  double* sums = reinterpret_cast<double*>(c.take(2 * L * sums_stride));
+  float* h0 = c.take(4LL * n_pad);
+  float* hstore = c.take(h_end);
+  const long long plane = static_cast<long long>(n_pad) * net.max_width;
+  float* G = c.take(plane);
+  float* gh_parts = c.take(gh_splits * plane);
+  float* partials = c.take(static_cast<long long>(splits) * net.n_params);
+  if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
+  float* H[kMaxLayers];
+  for (int l = 0; l + 1 < L; ++l) H[l] = hstore + h_off[l];
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
+                                                       reinterpret_cast<float4*>(h0));
+  PINNS_CHECK(cudaGetLastError());
+  PINNS_CHECK(hidden_products<Cfg>(net, params, h0, n_pad, H, s));
+
+  // head first: G holds the adjoints of layer l's pre-activation; the layer's
+  // gH goes to gh_parts, from which the tanh's backward writes the layer
+  // below's into G
+  const dim3 ew_block(32, kEwRows);
+  seed_kernel<<<dim3((net.dims[L] + 31) / 32, tiles), ew_block, 0, s>>>(
+      gout, n, net.dims[L], G, sums + (L - 1) * sums_stride);
+  PINNS_CHECK(cudaGetLastError());
+  for (int l = L - 1; l >= 0; --l) {
+    const int din = net.dims[l], dout = net.dims[l + 1];
+    const float* Hl = l == 0 ? h0 : H[l - 1];  // the input of layer l
+    // dW_l = H_l^T G over the rows, split into row chunks
+    const Gemm dw{Hl, G, G, partials + net.w_off[l], ld_h(din), dout, dout, din, dout, n_pad,
+                  split_rows, net.n_params, 1, 0};
+    const int dw_bx = (din + Cfg::kBM - 1) / Cfg::kBM, dw_by = (dout + Cfg::kBN - 1) / Cfg::kBN;
+    if (l == 0) {
+      PINNS_CHECK((gemm<Cfg, true, false>(dw, splits, s)));
+      break;
+    }
+    // with gH = G W_l^T, its sum over dout split into gh_splits chunks of
+    // whole depth tiles
+    const float* W = params + net.w_off[l];
+    const int gh_k = (dout + gh_splits * kDepth - 1) / (gh_splits * kDepth) * kDepth;
+    const Gemm gh{G, W, W, gh_parts, dout, dout, din, n_pad, din, dout, gh_k, plane, 1, 0};
+    const int gh_bx = (n_pad + Cfg::kBM - 1) / Cfg::kBM, gh_by = (din + Cfg::kBN - 1) / Cfg::kBN;
+    gemm_pair_kernel<Cfg, true>
+        <<<dw_bx * dw_by * splits + gh_bx * gh_by * gh_splits, Cfg::kThreads, 0, s>>>(
+            dw, dw_bx, dw_by, splits, gh, gh_bx, gh_by);
+    PINNS_CHECK(cudaGetLastError());
+    backward_act_kernel<<<dim3((din + 31) / 32, tiles), ew_block, 0, s>>>(
+        Hl, gh_parts, gh_splits, plane, G, din, sums + (l - 1) * sums_stride);
+    PINNS_CHECK(cudaGetLastError());
+  }
+  wide_reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, splits, sums, tiles,
+                                                                  net, grad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The checks both wide launchers make of a plan (n >= 1): a padding that is
+// a whole number of row tiles, a tile the file instantiates, an aligned
+// scratch, operands that 32-bit offsets reach.
+bool wide_plan_ok(const int* dims, int n_layers, int n, int n_pad, int tile, const float* scratch,
+                  Net* net) {
+  if (n < 1 || n_pad < n || n_pad % kTile != 0 || n_pad / kTile > 65535 ||
+      (tile != SmallTile::kBM && tile != LargeTile::kBM) ||
+      (reinterpret_cast<size_t>(scratch) & 15) != 0 || !make_net(dims, n_layers, net)) {
+    return false;
+  }
+  return static_cast<long long>(n_pad) * ld_h(net->max_width) <= 0x7fffffffLL;
+}
+
+}  // namespace k5
+
+using namespace k5;
 
 }  // namespace
 
@@ -356,6 +584,69 @@ extern "C" int pinns_mlp_backward(const float* x, int n, const float* params, co
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, grid, net.n_params, grad);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide design's forward: u = MLP(x), (n, dims[n_layers]), on `stream`.
+// The points are padded to n_pad and the products take the block tile
+// `tile` (32 or 128); `scratch` (16-byte aligned, scratch_floats floats)
+// holds, each part on 16 bytes, h0 (n_pad x 4) and two hidden outputs
+// (n_pad x ld_h(max_width) each). ops/kernels/mlp_forward.py::
+// mlp_forward_plan computes the same plan; one that does not fit this layout
+// is refused with cudaErrorInvalidValue. Returns the CUDA error code of the
+// first launch that failed (0 on success).
+extern "C" int pinns_mlp_forward_wide(const float* x, int n, const float* params,
+                                      const int* dims, int n_layers, float lb0, float lb1,
+                                      float ub0, float ub1, int n_pad, int tile, float* scratch,
+                                      long long scratch_floats, float* u, int device,
+                                      void* stream) {
+  Net net;
+  if (!wide_plan_ok(dims, n_layers, n, n_pad, tile, scratch, &net)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PINNS_CHECK(cudaSetDevice(device));
+  const Box box{lb0, lb1, ub0, ub1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == SmallTile::kBM
+             ? forward_wide<SmallTile>(x, n, params, net, box, n_pad, scratch, scratch_floats,
+                                       u, s)
+             : forward_wide<LargeTile>(x, n, params, net, box, n_pad, scratch, scratch_floats,
+                                       u, s);
+}
+
+// The wide design's backward: grad (flat, params order) = d/dparams of sum
+// over points of gout . u, on `stream`; gout is (n, dims[n_layers]). dW's
+// sum over the n_pad rows is cut into `splits` chunks of split_rows (whole
+// depth tiles), gH's over a layer's dout into gh_splits chunks; `scratch`
+// holds, in this order and each part on 16 bytes: sums, n_layers x tiles x
+// max_width doubles (tiles = n_pad / 128); h0, n_pad x 4; the hidden
+// outputs, n_pad x ld_h(dims[l + 1]) each in layer order; G and gH's
+// partials, 1 + gh_splits planes of n_pad x max_width; partials, splits x
+// n_params.
+// ops/kernels/mlp_forward.py::mlp_backward_plan computes the same plan; one
+// that does not fit this layout (a split that does not cover the rows
+// exactly, a smaller scratch, ...) is refused with cudaErrorInvalidValue.
+extern "C" int pinns_mlp_backward_wide(const float* x, int n, const float* params,
+                                       const int* dims, int n_layers, float lb0, float lb1,
+                                       float ub0, float ub1, int n_pad, int tile, int split_rows,
+                                       int splits, int gh_splits, const float* gout, float* scratch,
+                                       long long scratch_floats, float* grad, int device,
+                                       void* stream) {
+  Net net;
+  if (!wide_plan_ok(dims, n_layers, n, n_pad, tile, scratch, &net) || split_rows < 1 ||
+      split_rows % kDepth != 0 || splits < 1 || splits > 65535 || gh_splits < 1 ||
+      gh_splits > kMaxGhSplits ||
+      static_cast<long long>(splits) * split_rows < n_pad ||
+      static_cast<long long>(splits - 1) * split_rows >= n_pad) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PINNS_CHECK(cudaSetDevice(device));
+  const Box box{lb0, lb1, ub0, ub1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tile == SmallTile::kBM
+             ? backward_wide<SmallTile>(x, n, params, net, box, n_pad, split_rows, splits,
+                                        gh_splits, gout, scratch, scratch_floats, grad, s)
+             : backward_wide<LargeTile>(x, n, params, net, box, n_pad, split_rows, splits,
+                                        gh_splits, gout, scratch, scratch_floats, grad, s);
 }
 
 extern "C" const char* pinns_mlp_error_string(int code) {

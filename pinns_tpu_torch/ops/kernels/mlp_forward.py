@@ -4,24 +4,35 @@ backward's algorithm in plain PyTorch.
 
 Replaces the TPU kernel ``mlp_forward_pallas`` (``_forward_kernel``;
 ``pinns_tpu/ops/pallas/fused_mlp.py`` at git ``89afc4b^``, lines 92-146):
-u = W_L tanh(... tanh(W_0 normalize(x) + b_0) ...) + b_L in one launch. The
-TPU kernel had no VJP; the port differentiates the data misfit on the card,
-so the backward (cotangent of u -> dW, db) is a hand-written kernel too. The
-plain version of the forward is ``models.mlp.mlp_apply_reference``, of the
-backward :func:`mlp_backward_reference`.
+u = W_L tanh(... tanh(W_0 normalize(x) + b_0) ...) + b_L. The TPU kernel had
+no VJP; the port differentiates the data misfit on the card, so the backward
+(cotangent of u -> dW, db) is a hand-written kernel too. The plain version of
+the forward is ``models.mlp.mlp_apply_reference``, of the backward
+:func:`mlp_backward_reference`.
 
-What bounds the kernels on the H100, and the design, are in the header of
-``csrc/mlp_forward.cu``: one launch forward; the backward recomputes the
-forward per tile, keeps the hidden outputs in an L2-resident scratch, and
-reduces per-block partial gradients in block order (bit-for-bit repeatable).
+Two designs, picked by :func:`design` from the widths (the header of
+``csrc/mlp_forward.cu`` has both and what bounds them on the H100):
 
-The wrappers validate what the kernels assume and raise otherwise; on a CPU
-tensor they raise too. They never fall back to the plain version.
+- "narrow", every width at most NARROW_WIDTH (the 8x20 nets of
+  ``burgers_forward`` and ``abgrall_admm``): one launch forward, a per-tile
+  kernel that keeps the activations in shared memory; the backward recomputes
+  the forward per tile and reduces per-block partial gradients in block order
+  (:func:`forward_config`, :func:`backward_config`);
+- "wide", any wider net (``burgers_scale``'s 8x200, the Euler trunk
+  2x200x5x3): the whole call, layer by layer, as register-tiled products on
+  K2's engine (``csrc/layer_gemm.cuh``), with a block tile that the plan picks
+  from the number of points so that a call of 100 points spreads over many
+  SMs (:func:`mlp_forward_plan`, :func:`mlp_backward_plan`).
+
+Both are bit-for-bit repeatable (no atomics). The wrappers validate what the
+kernels assume and raise otherwise; on a CPU tensor they raise too. They
+never fall back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import List, Sequence, Tuple
 
@@ -37,6 +48,8 @@ _launches_lock = threading.Lock()
 
 MAX_WIDTH = 256
 MAX_LAYERS = 32
+NARROW_WIDTH = 32  # a net whose widths are all at most this takes the narrow design
+# the narrow design
 _POINTS_PER_THREAD = 4
 _FWD_SMEM = 112 * 1024  # two forward blocks per H100 SM
 _BWD_SMEM = 200 * 1024
@@ -44,6 +57,33 @@ _FWD_MAX_TILE = 128
 _BWD_MAX_TILE = 64
 _FWD_MAX_THREADS = 640  # the forward kernel's __launch_bounds__
 MAX_GRID = 264  # backward blocks: two per SM of an H100
+# the wide design: points padded to a multiple of EW_TILE (the row tile of
+# the elementwise passes and of db's per-tile sums); the products' block tile
+# SMALL_TILE (32 x 32, 64 threads) unless the hidden layers' products cut
+# into LARGE_TILE (128 x 128, 256 threads: K2's) tiles give at least
+# LARGE_TILE_MIN_BLOCKS blocks, about one an SM (at width 200 from 8,192
+# points: scripts/k5_tile_sweep.py, PERF.md). dW's sum over the rows is
+# split into chunks of whole SPLIT_STEP rows, at most MAX_SPLIT_ROWS (no
+# float32 chain longer than 1,024 rows), enough of them that the widest
+# layer's dW takes about SPLIT_BLOCKS blocks; where gH = G W^T has fewer
+# blocks than that on the small tile, its sum over the layer's width is split
+# too, into at most MAX_GH_SPLITS chunks that the next elementwise pass adds up
+EW_TILE = 128
+SMALL_TILE = 32
+LARGE_TILE = 128
+LARGE_TILE_MIN_BLOCKS = 128
+SPLIT_BLOCKS = 396
+SPLIT_STEP = 32
+MAX_SPLIT_ROWS = 1024
+MAX_GH_SPLITS = 4
+
+
+def design(layers: Sequence[int]) -> str:
+    """"narrow" or "wide": the K5 design that a net of these widths takes."""
+    wmax = max(layers)
+    if wmax > MAX_WIDTH:
+        raise ValueError(f"mlp_forward kernel takes widths up to {MAX_WIDTH}, got {wmax}")
+    return "narrow" if wmax <= NARROW_WIDTH else "wide"
 
 
 def _tile(layers: Sequence[int], buffers: int, budget: int, cap: int) -> int:
@@ -74,6 +114,84 @@ def smem_bytes(layers: Sequence[int], tile: int, buffers: int) -> int:
     return 4 * buffers * max(layers) * (tile + 4)
 
 
+def _ld_h(width: int) -> int:
+    """The row pitch of a layer input of this width: its columns, the bias's
+    indicator, padded to 4 floats (``ld_h`` in the kernel)."""
+    return (width + 4) // 4 * 4
+
+
+def _align4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """How the wide design lays out a call of n points: the points padded to
+    ``n_pad`` (a multiple of EW_TILE), the products' block ``tile``, dW's sum
+    over the n_pad rows cut into ``splits`` chunks of ``split_rows`` (the
+    last one shorter), gH's over a layer's width into ``gh_splits`` chunks
+    (all three 0 in a forward plan), and the parts of its float32 scratch (in
+    floats, each rounded up to 16 bytes, in the kernel's order): db's
+    per-tile sums (doubles), the input H_0 = [x^, t^, 1, 0], the hidden
+    outputs (every layer's in a backward plan, two ping-pong buffers in a
+    forward plan), the adjoints G and gH's partials, dW's split partials. The
+    kernel lays the scratch out itself and refuses a plan that does not fit
+    it."""
+
+    tile: int
+    n_pad: int
+    split_rows: int
+    splits: int
+    gh_splits: int
+    sums: int
+    h0: int
+    hidden: int
+    gbuf: int
+    partials: int
+
+    @property
+    def scratch_floats(self) -> int:
+        return self.sums + self.h0 + self.hidden + self.gbuf + self.partials
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.scratch_floats
+
+
+def _wide_layout(layers: Sequence[int], n: int) -> Tuple[Tuple[int, ...], int, int]:
+    layers = tuple(int(w) for w in layers)
+    design(layers)  # the width limit
+    n_pad = max(1, -(-n // EW_TILE)) * EW_TILE
+    hidden = layers[1:-1] or layers
+    blocks = (n_pad // LARGE_TILE) * -(-max(hidden) // LARGE_TILE)
+    return layers, n_pad, LARGE_TILE if blocks >= LARGE_TILE_MIN_BLOCKS else SMALL_TILE
+
+
+def mlp_forward_plan(layers: Sequence[int], n: int) -> WidePlan:
+    """The wide forward's plan for ``n`` points through a net of these widths."""
+    layers, n_pad, tile = _wide_layout(layers, n)
+    return WidePlan(tile=tile, n_pad=n_pad, split_rows=0, splits=0, gh_splits=0, sums=0,
+                    h0=4 * n_pad, hidden=2 * n_pad * _ld_h(max(layers)), gbuf=0, partials=0)
+
+
+def mlp_backward_plan(layers: Sequence[int], n: int) -> WidePlan:
+    """The wide backward's plan for ``n`` points through a net of these widths."""
+    layers, n_pad, tile = _wide_layout(layers, n)
+    pairs = list(zip(layers[:-1], layers[1:]))
+    steps = n_pad // SPLIT_STEP
+    pieces = max(-(-din // tile) * -(-dout // tile) for din, dout in pairs)
+    per_split = min(MAX_SPLIT_ROWS // SPLIT_STEP, -(-steps // -(-SPLIT_BLOCKS // pieces)))
+    splits = -(-steps // per_split)
+    gh_blocks = -(-n_pad // tile) * -(-max(layers[1:-1] or (1,)) // tile)
+    gh_splits = max(1, min(MAX_GH_SPLITS, SPLIT_BLOCKS // gh_blocks)) if tile == SMALL_TILE else 1
+    n_params = sum(din * dout + dout for din, dout in pairs)
+    return WidePlan(
+        tile=tile, n_pad=n_pad, split_rows=per_split * SPLIT_STEP, splits=splits,
+        gh_splits=gh_splits, sums=_align4(2 * (len(layers) - 1) * (n_pad // EW_TILE) * max(layers)),
+        h0=4 * n_pad, hidden=sum(n_pad * _ld_h(w) for w in layers[1:-1]),
+        gbuf=(1 + gh_splits) * n_pad * max(layers), partials=_align4(splits * n_params))
+
+
 def _lib():
     lib = build.load_library("mlp_forward")
     if not getattr(lib, "_pinns_typed", False):
@@ -82,6 +200,13 @@ def _lib():
         lib.pinns_mlp_forward.restype = i
         lib.pinns_mlp_backward.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, i, p]
         lib.pinns_mlp_backward.restype = i
+        q = ctypes.c_longlong
+        lib.pinns_mlp_forward_wide.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, q, p, i, p]
+        lib.pinns_mlp_forward_wide.restype = i
+        lib.pinns_mlp_backward_wide.argtypes = [
+            p, i, p, p, i, f, f, f, f, i, i, i, i, i, p, p, q, p, i, p,
+        ]
+        lib.pinns_mlp_backward_wide.restype = i
         lib.pinns_mlp_error_string.argtypes = [i]
         lib.pinns_mlp_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -102,29 +227,39 @@ def _raise(lib, err: int, what: str, **cfg) -> None:
 
 
 def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """u = MLP(x), (N, out_dim) float32, from one kernel launch. ``x`` is the
-    (N, 2) float32 raw points, contiguous on a CUDA device; ``params`` the
+    """u = MLP(x), (N, out_dim) float32, from one host call: one kernel launch
+    (narrow design) or the wide design's layer products. ``x`` is the (N, 2)
+    float32 raw points, contiguous on a CUDA device; ``params`` the
     JAX-layout layers on the same device. Raises on anything else."""
     global LAUNCHES
     _check_spec(spec)
     check_call("mlp_forward", spec, params, x)
-    tile, threads = forward_config(spec.layers)
+    layers = spec.layers
+    wide = design(layers) == "wide"
     n = x.shape[0]
     u = torch.empty((n, spec.out_dim), dtype=torch.float32, device=x.device)
     if n == 0:
         return u
     lib = _lib()
-    layers = spec.layers
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
-    err = lib.pinns_mlp_forward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1,
-        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, threads, u.data_ptr(),
-        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    box = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if wide:
+        plan = mlp_forward_plan(layers, n)
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+        err = lib.pinns_mlp_forward_wide(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, plan.n_pad,
+            plan.tile, scratch.data_ptr(), plan.scratch_floats, u.data_ptr(),
+            x.device.index or 0, stream)
+    else:
+        tile, threads = forward_config(layers)
+        err = lib.pinns_mlp_forward(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, tile, threads,
+            u.data_ptr(), x.device.index or 0, stream)
     if err != 0:
-        _raise(lib, err, "forward", tile=tile, threads=threads,
-               smem=smem_bytes(layers, tile, 2))
+        _raise(lib, err, "forward", **(dataclasses.asdict(plan) if wide else {
+            "tile": tile, "threads": threads, "smem": smem_bytes(layers, tile, 2)}))
     with _launches_lock:
         LAUNCHES += 1
     return u
@@ -133,31 +268,44 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
 def mlp_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
                  g_out: torch.Tensor) -> torch.Tensor:
     """The flat gradient (``pack_params`` order) of sum over points of
-    g_out . MLP(x), from the backward kernel and its block-order reduction.
-    ``g_out`` is (N, out_dim) float32, contiguous, on ``x``'s device."""
+    g_out . MLP(x), from one host call: the backward kernel and its
+    block-order reduction (narrow design) or the wide design's layer products
+    and fixed-order reduction. ``g_out`` is (N, out_dim) float32, contiguous,
+    on ``x``'s device."""
     global BACKWARD_LAUNCHES
     _check_spec(spec)
     check_call("mlp_forward backward", spec, params, x, g_out)
     layers = spec.layers
+    wide = design(layers) == "wide"
     n = x.shape[0]
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
     if n == 0:
         return grad.zero_()
-    tile, grid = backward_config(layers, n)
-    partials = torch.empty((grid, spec.n_params), dtype=torch.float32, device=x.device)
-    hstore = torch.empty(grid * (len(layers) - 2) * max(layers) * tile, dtype=torch.float32,
-                         device=x.device)
     lib = _lib()
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
-    err = lib.pinns_mlp_backward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1,
-        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], tile, grid, g_out.data_ptr(),
-        partials.data_ptr(), hstore.data_ptr(), grad.data_ptr(), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    box = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if wide:
+        plan = mlp_backward_plan(layers, n)
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+        err = lib.pinns_mlp_backward_wide(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, plan.n_pad,
+            plan.tile, plan.split_rows, plan.splits, plan.gh_splits, g_out.data_ptr(),
+            scratch.data_ptr(),
+            plan.scratch_floats, grad.data_ptr(), x.device.index or 0, stream)
+    else:
+        tile, grid = backward_config(layers, n)
+        partials = torch.empty((grid, spec.n_params), dtype=torch.float32, device=x.device)
+        hstore = torch.empty(grid * (len(layers) - 2) * max(layers) * tile,
+                             dtype=torch.float32, device=x.device)
+        err = lib.pinns_mlp_backward(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, tile, grid,
+            g_out.data_ptr(), partials.data_ptr(), hstore.data_ptr(), grad.data_ptr(),
+            x.device.index or 0, stream)
     if err != 0:
-        _raise(lib, err, "backward", tile=tile, grid=grid, smem=smem_bytes(layers, tile, 3))
+        _raise(lib, err, "backward", **(dataclasses.asdict(plan) if wide else {
+            "tile": tile, "grid": grid, "smem": smem_bytes(layers, tile, 3)}))
     with _launches_lock:
         BACKWARD_LAUNCHES += 1
     return grad

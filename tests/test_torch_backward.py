@@ -9,7 +9,11 @@ torch.autograd, and the CPU-side behaviour of the kernel wrappers.
   ``mlp_taylor_2_reference``, for arbitrary stream cotangents;
 - K2's layout and summation order (stacked stream rows, padding, the bias
   folded into the products, split-K partials over ``backward_plan``),
-  written out in PyTorch, against ``taylor2_backward_reference``.
+  written out in PyTorch, against ``taylor2_backward_reference``;
+- the wide K5's layout and summation order (padding, the bias's indicator
+  column, split-K partials over ``mlp_backward_plan``, per-tile db), written
+  out in PyTorch, against ``mlp_apply_reference`` and
+  ``mlp_backward_reference``, and its plans.
 
 Both in float64 to 1e-10 relative (per leaf, of its max): the same products
 summed in other orders. Inputs come from numpy with a seed.
@@ -30,6 +34,7 @@ from pinns_tpu_torch.ops.taylor import (POLICY_STREAMS, _StreamPolicy, mlp_taylo
 from torch_port_util import LB, UB, NARROW, numpy_params, numpy_points
 
 NETS = [(2, 8, 8, 1), (2, 10, 10, 10, 3), (2, 5, 1)]
+EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk
 
 
 def _case(layers, seed, dtype=torch.float64, n=37):
@@ -118,17 +123,21 @@ def test_launch_configs_fit_the_card():
     at 8x200 is the size PERF.md states."""
     wide = (2,) + (200,) * 8 + (1,)
     assert k_mlp.forward_config(NARROW) == (128, 640)
-    assert k_mlp.forward_config(wide) == (64, 640)
+    # K5 above width 32 takes the wide design (its plan: test_wide_plan_fits_its_layout)
+    assert k_mlp.design(NARROW) == "narrow" and k_mlp.design(wide) == "wide"
+    assert k_mlp.design(EULER) == "wide" and k_mlp.design((2, 32, 32, 1)) == "narrow"
+    assert [k_mlp.mlp_backward_plan(wide, n).tile for n in (100, 2_000, 8_192)] == [32, 32, 128]
     tile = k_taylor2.GEMM_TILE
     assert k_taylor2.GEMM_THREADS % 32 == 0 and k_taylor2.GEMM_THREADS <= 1024
     assert tile * tile == k_taylor2.GEMM_THREADS * 8 * 8  # an 8 x 8 register tile a thread
     assert k_taylor2.GEMM_SMEM <= 48 * 1024  # static shared memory
-    for layers in (NARROW, wide, (2, 256, 256, 3)):
+    for layers in (NARROW, (2, 32, 32, 3)):  # the narrow K5
         tile_k5, threads = k_mlp.forward_config(layers)
         assert tile_k5 % 4 == 0 and threads % 32 == 0 and threads <= 640
         assert k_mlp.smem_bytes(layers, tile_k5, 2) <= 227 * 1024
         tile_k5, grid = k_mlp.backward_config(layers, 100_000)
         assert grid == k_mlp.MAX_GRID and k_mlp.smem_bytes(layers, tile_k5, 3) <= 227 * 1024
+    for layers in (NARROW, wide, (2, 256, 256, 3)):
         for n in (1, 37, 1000, 8_192, 10_456, 65_536, 1_048_576):
             plan = k_taylor2.backward_plan(layers, n)
             rows = 4 * plan.n_pad
@@ -239,6 +248,105 @@ def test_kernel_layout_and_order_match_the_plain_backward(layers, n, keep, dtype
     for i, (g, w) in enumerate(zip(k_taylor2.split_grad(got, want), want)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=tol * float(w.abs().max()), err_msg=f"leaf {i}")
+
+
+# -- the wide K5's layout and order, written out in PyTorch ---------------------
+
+def _k5_wide_order(spec, params, x, g_out):
+    """u and the gradient as csrc/mlp_forward.cu's wide design lays them out
+    and sums them: n_pad points (padded points at (0, 0), zero cotangents);
+    every layer input carries the bias's indicator column, so a layer is one
+    product H [W; b]; the hidden outputs kept; dW = H^T G over the plan's
+    split chunks, the partials summed in split order; db = G summed per
+    EW_TILE-point row tile, then over the tiles; gH = G W_l^T over the plan's
+    gh_splits chunks of the layer's width (whole 8-deep tiles), summed in
+    order; G_l-1 = (1 - H_l^2) gH."""
+    plan = k_mlp.mlp_backward_plan(spec.layers, x.shape[0])
+    dtype, n, n_pad = spec.dtype, x.shape[0], plan.n_pad
+    xp = torch.zeros((n_pad, 2), dtype=dtype)
+    xp[:n] = x
+    ones = torch.ones((n_pad, 1), dtype=dtype)
+    wb = [torch.cat([layer["W"], layer["b"]]) for layer in params]
+    H = [torch.cat([normalize_inputs(spec, xp), ones], dim=1)]
+    for w in wb[:-1]:
+        H.append(torch.cat([torch.tanh(H[-1] @ w), ones], dim=1))
+    u = (H[-1] @ wb[-1])[:n]
+    G = torch.cat([g_out, torch.zeros((n_pad - n, g_out.shape[1]), dtype=dtype)])
+    grads = [None] * (2 * len(params))
+    tile = k_mlp.EW_TILE
+    for l in range(len(params) - 1, -1, -1):
+        dW = torch.zeros_like(params[l]["W"])
+        for z in range(plan.splits):
+            rows = slice(z * plan.split_rows, (z + 1) * plan.split_rows)
+            dW = dW + H[l][rows, :-1].T @ G[rows]
+        grads[2 * l] = dW
+        grads[2 * l + 1] = sum(G[t:t + tile].sum(dim=0, keepdim=True)
+                               for t in range(0, n_pad, tile))
+        if l > 0:
+            dout = G.shape[1]
+            step = -(-dout // (8 * plan.gh_splits)) * 8
+            gh = sum(G[:, k:k + step] @ params[l]["W"][:, k:k + step].T
+                     for k in range(0, dout, step))
+            G = (1.0 - H[l][:, :-1] * H[l][:, :-1]) * gh
+    return u, grads
+
+
+K5_WIDE_ORDER_CASES = [(layers, n) for layers in NETS + [(2, 40, 40, 3)] for n in (1, 37, 129)]
+
+
+@pytest.mark.parametrize("layers,n", K5_WIDE_ORDER_CASES,
+                         ids=[f"{'-'.join(map(str, c[0]))}-n{c[1]}" for c in K5_WIDE_ORDER_CASES])
+def test_k5_wide_layout_and_order_match_the_plain_versions(layers, n):
+    """The wide K5's padded, bias-folded, split-K layout against
+    mlp_apply_reference and mlp_backward_reference in float64: 1e-10 of each
+    leaf's max (the same products summed in other orders)."""
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=torch.float64)
+    params = [{k: torch.tensor(v, dtype=torch.float64) for k, v in layer.items()}
+              for layer in numpy_params(layers, 41)]
+    x = torch.tensor(numpy_points(n, 42), dtype=torch.float64)
+    g = torch.tensor(np.random.default_rng(43).standard_normal((n, layers[-1])) / n,
+                     dtype=torch.float64)
+    u, got = _k5_wide_order(spec, params, x, g)
+    _assert_leaves([u], [mlp_apply_reference(spec, params, x)])
+    _assert_leaves(got, k_mlp.mlp_backward_reference(spec, params, x, g))
+
+
+WIDE_PLAN_CASES = [(layers, n) for layers in (NARROW, (2,) + (200,) * 8 + (1,), EULER)
+                   for n in (1, 100, 200, 2_000, 8_192, 65_536)]
+
+
+@pytest.mark.parametrize("layers,n", WIDE_PLAN_CASES,
+                         ids=[f"{len(c[0]) - 2}x{max(c[0])}-out{c[0][-1]}-n{c[1]}"
+                              for c in WIDE_PLAN_CASES])
+def test_wide_plan_fits_its_layout(layers, n):
+    """The wide K5's plans at the presets' widths: the padding is whole row
+    tiles, the tile one the kernel instantiates, the splits cover the padded
+    rows exactly in chunks of at most 1,024 rows, and the scratch's parts lie
+    on 16 bytes and add up to it."""
+    for plan in (k_mlp.mlp_forward_plan(layers, n), k_mlp.mlp_backward_plan(layers, n)):
+        assert plan.n_pad % k_mlp.EW_TILE == 0 and n <= plan.n_pad < n + k_mlp.EW_TILE
+        assert plan.tile in (k_mlp.SMALL_TILE, k_mlp.LARGE_TILE)
+        parts = dataclasses.astuple(plan)[5:]
+        assert all(part % 4 == 0 for part in parts) and sum(parts) == plan.scratch_floats
+    plan = k_mlp.mlp_backward_plan(layers, n)
+    assert plan.split_rows % k_mlp.SPLIT_STEP == 0 and plan.split_rows <= 1024
+    assert (plan.splits - 1) * plan.split_rows < plan.n_pad <= plan.splits * plan.split_rows
+    assert 1 <= plan.gh_splits <= k_mlp.MAX_GH_SPLITS
+    assert plan.gh_splits == 1 or plan.tile == k_mlp.SMALL_TILE
+    assert k_mlp.mlp_forward_plan(layers, n).tile == plan.tile
+
+
+def test_wide_plan_at_the_scale_shapes():
+    """burgers_scale's 8x200 net: the data term's 100 points on the small
+    tile, dW in 32-row chunks and gH in four, 65,536 points on the large
+    tile; the scratch at 65,536 points is the size PERF.md states."""
+    wide = (2,) + (200,) * 8 + (1,)
+    shape = lambda p: (p.tile, p.n_pad, p.split_rows, p.splits, p.gh_splits)  # noqa: E731
+    assert shape(k_mlp.mlp_backward_plan(wide, 100)) == (32, 128, 32, 4, 4)
+    assert shape(k_mlp.mlp_backward_plan(wide, 2_000)) == (32, 2_048, 256, 8, 1)
+    assert shape(k_mlp.mlp_backward_plan(wide, 65_536)) == (128, 65_536, 672, 98, 1)
+    assert k_mlp.mlp_backward_plan(wide, 65_536).scratch_bytes == 651_720_784
+    assert k_mlp.mlp_forward_plan(wide, 65_536).scratch_bytes == 108_003_328
 
 
 def test_split_grad_and_check_call():

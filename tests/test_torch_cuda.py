@@ -166,13 +166,19 @@ def _net(layers, seed, device):
     return spec, params, spec64, params64
 
 
+WIDE = (2,) + (200,) * 8 + (1,)  # burgers_scale's net
+EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk
+
+
 @pytest.mark.parametrize("layers,n", [((2,) + (20,) * 8 + (1,), 1000),
                                       ((2, 256, 256, 3), 777),
-                                      ((2, 64, 1), 3)])
+                                      ((2, 64, 1), 3),
+                                      (WIDE, 1), (WIDE, 100), (WIDE, 2_000), (WIDE, 8_191),
+                                      (EULER, 200)])
 def test_mlp_forward_kernels_match_plain_on_card(cuda_device, layers, n):  # noqa: F811
     """K5 forward against mlp_apply_reference, K5 backward against the
     plain backward, both judged against float64; two backward calls agree bit
-    for bit."""
+    for bit. Every net but the 8x20 takes the wide design."""
     from pinns_tpu_torch.models.mlp import mlp_apply_reference
     from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
 
@@ -195,9 +201,6 @@ def test_mlp_forward_kernels_match_plain_on_card(cuda_device, layers, n):  # noq
     for p, e in zip(plain, exact):
         _f64_oracle(grad[off:off + p.numel()].view(p.shape), p, e)
         off += p.numel()
-
-
-WIDE = (2,) + (200,) * 8 + (1,)  # burgers_scale's net
 
 
 @pytest.mark.parametrize("layers,n", [((2,) + (20,) * 8 + (1,), 1000),
@@ -251,6 +254,29 @@ def test_taylor2_backward_refuses_a_plan_that_does_not_fit(cuda_device, monkeypa
         with pytest.raises(RuntimeError, match="invalid argument"):
             k_taylor2.taylor2_backward(spec, params, x, cot)
     assert k_taylor2.BACKWARD_LAUNCHES == before
+
+
+def test_mlp_backward_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch):  # noqa: F811
+    """The wide K5 lays out its scratch itself: a plan with less scratch than
+    that layout needs, a split that is not whole row tiles, or a tile it does
+    not instantiate raises and counts no call."""
+    import dataclasses
+
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+
+    spec, params, _, _ = _net(WIDE, 6, cuda_device)
+    n = 1_000
+    x = torch.from_numpy(numpy_points(n, seed=18)).to(cuda_device)
+    g = torch.ones((n, 1), device=cuda_device)
+    plan = k_mlp.mlp_backward_plan(spec.layers, n)
+    before = k_mlp.BACKWARD_LAUNCHES
+    for bad in (dataclasses.replace(plan, partials=plan.partials - 4),
+                dataclasses.replace(plan, split_rows=plan.split_rows + 4),
+                dataclasses.replace(plan, tile=64)):
+        monkeypatch.setattr(k_mlp, "mlp_backward_plan", lambda *args, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k_mlp.mlp_backward(spec, params, x, g)
+    assert k_mlp.BACKWARD_LAUNCHES == before
 
 
 def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811

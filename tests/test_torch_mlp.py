@@ -1,7 +1,9 @@
-"""Port parity: pinns_tpu_torch.models.mlp + interop against pinns_tpu.models.mlp."""
+"""Port parity: pinns_tpu_torch.models.mlp + interop against pinns_tpu.models.mlp,
+and K5's plain backward against jax.grad of the JAX forward."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from pinns_tpu_torch.interop import (
     save_params_npz,
 )
 from pinns_tpu_torch.models.mlp import MLP, MLPSpec, init_mlp, mlp_apply, normalize_inputs
+from pinns_tpu_torch.ops.kernels.mlp_forward import mlp_backward_reference
 from torch_port_util import LB, NARROW, SMALL, UB, numpy_params, numpy_points
 
 CPU = torch.device("cpu")
@@ -63,6 +66,32 @@ def test_mlp_apply_matches_jax(layers):
     ))
     assert got.shape == (300, 1)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("layers", [(2, 10, 10, 10, 3), (2, 40, 40, 40, 3), NARROW],
+                         ids=["10x3-out3", "40x3-out3", "20x8"])
+def test_mlp_backward_reference_matches_jax_grad(layers):
+    """K5's plain backward (the algorithm of csrc/mlp_forward.cu) against
+    jax.grad of the JAX package's mlp_apply, on the same numpy params and
+    cotangent, both in float64: 1e-10 of each leaf's max (the same products
+    summed in other orders)."""
+    n = 53
+    jparams = numpy_params(layers, seed=5)
+    x = numpy_points(n, seed=6)
+    g = np.random.default_rng(7).standard_normal((n, layers[-1]))
+    with jax.enable_x64(True):
+        jspec = jmlp.MLPSpec(layers=layers, lb=LB, ub=UB, dtype=jnp.float64)
+        jp = [{k: jnp.asarray(v, jnp.float64) for k, v in p.items()} for p in jparams]
+        want = jax.grad(lambda ps: jnp.sum(jnp.asarray(g) * jmlp.mlp_apply(
+            jspec, ps, jnp.asarray(x, jnp.float64))))(jp)
+        want = [np.asarray(layer[k]) for layer in want for k in ("W", "b")]
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=torch.float64)
+    params = [{k: v.double() for k, v in p.items()} for p in params_from_jax(jparams, CPU)]
+    got = mlp_backward_reference(spec, params, torch.from_numpy(x).double(), torch.from_numpy(g))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, i
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-10, atol=1e-10 * np.abs(b).max(),
+                                   err_msg=f"leaf {i}")
 
 
 def test_mlp_module_is_mlp_apply():
