@@ -27,20 +27,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   6 times   CUDA-event medians of kernel vs plain, host-clock medians of
             served predict
   7 step-kernel  the fused Adam-epoch kernel vs the plain step on the card:
-            at abgrall_admm's shape (8x20, N_f 1000, N_u 100, admm rho 10)
-            loss, terms, gradient, the Adam stage on the kernel's gradient,
-            z/dual and misfit within STEP_TOL; at abgrall_l1's 8x200 net
-            (l1_sq_norm) against the float64 plain step; the Philox points
-            in [lb, ub) with mean and variance within 4 sigma; bit-for-bit
-            repeatability; the launch count
+            the narrow design at abgrall_admm's shape (8x20, N_f 1000, N_u
+            100, admm rho 10): loss, terms, gradient, the Adam stage on the
+            kernel's gradient, z/dual and misfit within STEP_TOL; the wide
+            design at abgrall_l1's 8x200 net (l1_sq_norm) and at abgrall_admm
+            with that net: gradient and loss against the float64 plain step,
+            the Adam stage on the kernel's own gradient (close_adam_params),
+            the drawn points equal to the plain step's, z/dual and misfit
+            (admm) within STEP_TOL; the Philox points in [lb, ub) with mean
+            and variance within 4 sigma; two calls equal bit for bit on every
+            output; the launch count
   8 train-slice  the committed JAX fixture (abgrall_admm, seed 1234) replayed
             step by step through the kernel, each step fed JAX's points
   9 train   Trainer(abgrall_admm, device="cuda").train() for TRAIN_EPOCHS
             epochs on the kernel with its own Philox stream: loss and ADMM
             misfit fall, all finite, u rel-L2 inside the band the fixture
             records from three JAX seeds; the launch counts of that run
+  9b train-wide  Trainer(abgrall_l1) on the TwoSin grid through the wide K3
+            for WIDE_EPOCHS epochs: finite losses that fall, one K3 call an
+            epoch, no call of a plain version
   times     ms per epoch of the kernel step and the plain step (CUDA events,
-            medians) at 8x20 and 8x200, and wall time per 1,000-epoch chunk
+            medians) at 8x20 and 8x200 beside step_bound, and wall time per
+            1,000-epoch chunk at each
   10 k5     the fused MLP forward (K5) and its backward against the plain
             versions: the narrow design at 8x20 (N 100, 25,600); the wide
             design, against float64, at 8x200 (N 100, 2,000, 8,192, 65,536)
@@ -137,6 +145,7 @@ STEP_TOL = {"loss": (1e-4, 1e-6), "grad": (1e-4, 1e-5), "adam": (1e-6, 1e-7),
             "colloc": (0.0, 0.0), "z": (1e-4, 1e-5), "dual": (1e-4, 1e-5),
             "admm_misfit": (1e-4, 1e-6)}
 TRAIN_EPOCHS = 10_000  # the fixture's band_epochs
+WIDE_EPOCHS = 300  # phase 9b: abgrall_l1's 8x200 net through the wide K3
 BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
 LBFGS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "lbfgs_hybrid.npz")
 # K5 at the data term's 100 points and the served grid's 25,600 (8x20); the
@@ -443,30 +452,109 @@ def phase_step_kernel(card: str) -> dict:
          launches=k_fused.LAUNCHES - before)
     out["narrow"] = (trainer, state)
 
-    # -- abgrall_l1's 8x200 net (l1_sq_norm) against the float64 plain step
-    exp = get_preset("abgrall_l1")  # its grid is not committed: train on TwoSin's
-    wide = tr.Trainer(exp, device="cuda", dataset="twosin_burgers_shock")
-    ws = wide.init_state(seed=12)
-    r = call(wide.problem, ws)
-    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda",
-                           dataset="twosin_burgers_shock")
-    g64, aux64 = plain_gradient(p64, ws.params, ws.colloc, ws.admm, torch.float64)
-    g32, aux32 = plain_gradient(wide.problem, ws.params, ws.colloc, ws.admm)
-    rows = {}
-    for name, got, plain, exact in zip(
-            [f"leaf{i}" for i in range(2 * (len(WIDE) - 1))],
-            split_leaves(host(r["grad"]), WIDE), split_leaves(host(g32), WIDE),
-            split_leaves(host(g64), WIDE)):
-        rows[name] = compare_f64(name, got, plain, exact)
-    m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
-    rows["loss"] = compare_f64("loss", m["loss"], aux32["loss"], aux64["loss"])
-    emit(card, phase="step-kernel", preset="abgrall_l1", net="8x200", criterion="f64_oracle",
-         rows={k: rows[k] for k in ("leaf0", "leaf1", "leaf14", "leaf16", "leaf17", "loss")},
-         worst_ratio=max(v["max_abs_err_vs_f64"] / max(v["plain_err_vs_f64"], 1e-30)
-                         for k, v in rows.items() if k != "loss"),
-         tiles=list(k_fused.launch_config(WIDE)))
-    out["wide"] = (wide, ws)
+    # -- the wide design at 8x200 against the float64 plain step: abgrall_l1
+    # (l1_sq_norm) and abgrall_admm with the wide net (z, dual and misfit).
+    # abgrall_l1's grid is not committed: both train on TwoSin's
+    out["wide_grad_err"] = 0.0
+    for preset, updates, seed in (("abgrall_l1", {}, 12),
+                                  ("abgrall_admm", {"model.layers": WIDE}, 13)):
+        exp = override(get_preset(preset), updates)
+        wide = tr.Trainer(exp, device="cuda", dataset="twosin_burgers_shock")
+        problem, lr = wide.problem, wide.learning_rate
+        check(k_fused.design(problem.spec.layers) == "wide", f"{preset}: not the wide design")
+        ws = wide.init_state(seed=seed)
+        before = k_fused.LAUNCHES
+        r = call(problem, ws)
+        again = call(problem, ws)
+        torch.cuda.synchronize()
+        check(k_fused.LAUNCHES == before + 2, "LAUNCHES does not count the step calls")
+        check(all(torch.equal(r[k], again[k]) for k in r if r[k] is not None),
+              f"{preset} at 8x200: two calls of one step differ")
+        p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda",
+                               dataset="twosin_burgers_shock")
+        g64, aux64 = plain_gradient(p64, ws.params, ws.colloc, ws.admm, torch.float64)
+        g32, aux32 = plain_gradient(problem, ws.params, ws.colloc, ws.admm)
+        rows = {}
+        for name, got, plain, exact in zip(
+                [f"leaf{i}" for i in range(2 * (len(WIDE) - 1))],
+                split_leaves(host(r["grad"]), WIDE), split_leaves(host(g32), WIDE),
+                split_leaves(host(g64), WIDE)):
+            rows[name] = compare_f64(name, got, plain, exact)
+        m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
+        rows["loss"] = compare_f64("loss", m["loss"], aux32["loss"], aux64["loss"])
+        opt = ws.opt_state
+        mu, nu = pack_params(opt.mu["net"]), pack_params(opt.nu["net"])
+        upd, adam = adam_update(r["grad"], AdamState(opt.count, mu, nu), lr)
+        rows["adam_params"] = close_adam_params(host(r["params"]),
+                                                host(pack_params(ws.params["net"]) + upd), lr)
+        rows["adam_mu"] = close("adam", host(r["mu"]), host(adam.mu))
+        rows["adam_nu"] = close("adam", host(r["nu"]), host(adam.nu))
+        new_net = k_fused.unpack_params(r["params"], WIDE)
+        admm_new, colloc_new, _, mis = tr._post_update(
+            problem, dict(ws.params, net=new_net), ws.admm, ws.colloc, ws.key, None, ws.epoch,
+            plain=True)
+        rows["colloc"] = close("colloc", host(r["colloc"]), host(colloc_new))
+        if ws.admm is not None:
+            rows["z"] = close("z", host(r["z"]), host(admm_new.z))
+            rows["dual"] = close("dual", host(r["dual"]), host(admm_new.dual),
+                                 scale=float(ws.admm.dual.abs().max()
+                                             + problem.exp.loss.rho * admm_new.z.abs().max()))
+            rows["admm_misfit"] = close("admm_misfit", m["admm_misfit"], float(mis),
+                                        scale=float(admm_new.z.abs().max()))
+        err = float(np.abs(host(r["grad"]).astype(np.float64) - host(g32)).max())
+        out["wide_grad_err"] = max(out["wide_grad_err"], err)
+        emit(card, phase="step-kernel", preset=preset, net="8x200", design="wide",
+             criterion="f64_oracle (gradient, loss); STEP_TOL vs plain step (Adam, points, "
+                       "z, dual, misfit)",
+             rows={k: rows[k] for k in rows if not k.startswith("leaf")
+                   or k in ("leaf0", "leaf1", "leaf14", "leaf16", "leaf17")},
+             worst_ratio=max(v["max_abs_err_vs_f64"] / max(v["plain_err_vs_f64"], 1e-30)
+                             for k, v in rows.items() if k.startswith("leaf")),
+             grad_max_abs_err_vs_plain=err, plan=dataclasses.asdict(
+                 k_fused.step_plan(WIDE, problem.exp.sampling.n_f, problem.exp.data.n_u)),
+             bitwise_repeatable=True, launches=k_fused.LAUNCHES - before)
+        if preset == "abgrall_l1":
+            out["wide"] = (wide, ws)
     return out
+
+
+def phase_train_wide(card: str) -> dict:
+    """9b: abgrall_l1's 8x200 net trained through the wide K3 (on the TwoSin
+    grid, its own not being committed) for WIDE_EPOCHS epochs."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = override(get_preset("abgrall_l1"), {
+            "train.epochs": WIDE_EPOCHS, "train.log_every": 50, "train.out_dir": tmp})
+        trainer = Trainer(exp, device="cuda", dataset="twosin_burgers_shock")
+        check(k_fused.design(trainer.problem.spec.layers) == "wide", "not the wide design")
+        reset_counts()
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            state, _ = trainer.train(epochs=1)  # the first epoch on its own: its loss
+            state, summary = trainer.train(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        with open(os.path.join(tmp, "abgrall_l1_metrics.jsonl")) as f:
+            logs = [r for r in (json.loads(line) for line in f) if "summary" not in r]
+    check(counts["fused_step"] == WIDE_EPOCHS,
+          f"fused_step launched {counts['fused_step']} times in {WIDE_EPOCHS} epochs")
+    check(plain.calls == 0, f"{plain.calls} calls of a plain version")
+    check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float)),
+          "non-finite metrics")
+    check(all(bool(torch.isfinite(p).all()) for layer in state.params["net"] for p in layer.values()),
+          "non-finite params")
+    first, last = logs[0], logs[-1]
+    check(first["epoch"] == 1 and last["epoch"] == WIDE_EPOCHS, "log epochs")
+    check(last["loss"] < first["loss"], f"loss did not fall: {first['loss']} -> {last['loss']}")
+    emit(card, phase="train-wide", preset="abgrall_l1", net="8x200", dataset="twosin_burgers_shock",
+         epochs=WIDE_EPOCHS, wall_s=wall, loss=[first["loss"], last["loss"]],
+         rel_l2_u=summary["rel_l2_u"], launches=counts, plain_calls=plain.calls)
+    return {"launches": counts["fused_step"]}
 
 
 def phase_train_slice(card: str) -> None:
@@ -578,7 +666,7 @@ def phase_train(card: str) -> dict:
 
 def phase_step_times(card: str, nets: dict) -> dict:
     """times: ms per epoch of the kernel step and the plain step, and wall
-    time of a 1,000-epoch chunk on the kernel."""
+    time of a 1,000-epoch chunk on the kernel, for each net."""
     from pinns_tpu_torch.train import trainer as tr
 
     out = {}
@@ -592,15 +680,15 @@ def phase_step_times(card: str, nets: dict) -> dict:
              bound_ms=step_bound(trainer.problem.spec.layers, trainer.exp.sampling.n_f,
                                  trainer.exp.data.n_u)[0])
         out[net] = (ms, plain)
-    trainer, state = nets["8x20"]
-    tr.run_chunk(trainer._adam_step, state, 10)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr.run_chunk(trainer._adam_step, state, 1000)
-    torch.cuda.synchronize()
-    chunk = time.perf_counter() - t0
-    emit(card, phase="times", what="train_chunk", net="8x20", epochs=1000, wall_s=chunk,
-         epochs_per_s=1000 / chunk, clock="host")
+    for net, (trainer, state) in nets.items():
+        tr.run_chunk(trainer._adam_step, state, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_chunk(trainer._adam_step, state, 1000)
+        torch.cuda.synchronize()
+        chunk = time.perf_counter() - t0
+        emit(card, phase="times", what="train_chunk", net=net, epochs=1000, wall_s=chunk,
+             epochs_per_s=1000 / chunk, clock="host")
     return out
 
 
@@ -1596,6 +1684,7 @@ def main() -> int:
     step = timed(card, "step-kernel", phase_step_kernel, card)
     timed(card, "train-slice", phase_train_slice, card)
     train = timed(card, "train", phase_train, card)
+    train_wide = timed(card, "train-wide", phase_train_wide, card)
     epoch_ms = timed(card, "times", phase_step_times, card,
                      {"8x20": step["narrow"], "8x200": step["wide"]})
 
@@ -1639,6 +1728,14 @@ def main() -> int:
         "ms": epoch_ms["8x20"][0],
         "plain_ms": epoch_ms["8x20"][1],
         **bound_fields(step_bound(NARROW, 1_000, 100)),
+        # the wide design at abgrall_l1's net; its launches: phase 9b
+        "wide_8x200": {
+            "launches": train_wide["launches"],
+            "max_abs_err": step["wide_grad_err"],
+            "ms": epoch_ms["8x200"][0],
+            "plain_ms": epoch_ms["8x200"][1],
+            **bound_fields(step_bound(WIDE, 1_000, 100)),
+        },
     }, {
         "name": "mlp_forward",
         "route": "cuda",

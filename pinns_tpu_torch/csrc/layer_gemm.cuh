@@ -1,6 +1,7 @@
-// The layer-product engine shared by the whole-call backward kernels: K2 and
-// K6's backward (csrc/taylor2_backward.cu) and the wide design of K5's
-// forward and backward (csrc/mlp_forward.cu). Register-tiled SIMT float32
+// The layer-product engine shared by the whole-call kernels: K2 and K6's
+// backward (csrc/taylor2_backward.cu), the wide design of K5's forward and
+// backward (csrc/mlp_forward.cu) and the wide design of K3's Adam epoch
+// (csrc/fused_step.cu). Register-tiled SIMT float32
 // products (TF32 is barred by the numerics rule), the elementwise passes'
 // row tiles and db's per-tile double sums, and the fixed-order reduction of a
 // call's partial gradients.
@@ -13,8 +14,8 @@
 // elsewhere (any width, any leading dimension). A warp skips the FMAs of the
 // rows and columns that lie past the matrix. Every launch names its tile
 // (TileCfg): K2 and K6's backward take 128 x 128 tiles of 256 threads with
-// 8 x 8 register tiles; K5 instantiates the engine with tile types of its own
-// (csrc/mlp_forward.cu, namespace k5), so that a profile tells its products
+// 8 x 8 register tiles; K5 and K3 instantiate the engine with tile types of
+// their own (namespaces k5 and k3), so that a profile tells their products
 // from K2's.
 
 #pragma once
@@ -408,6 +409,18 @@ inline bool make_net(const int* dims, int n_layers, Net* net) {
   net->n_params = off;
   return true;
 }
+
+// The whole-call launchers carve their `scratch` into parts that each start
+// on 16 bytes.
+struct Carve {
+  float* base;
+  long long used;
+  float* take(long long floats) {
+    float* part = base + used;
+    used += (floats + 3) / 4 * 4;
+    return part;
+  }
+};
 
 #define PINNS_CHECK(expr)                          \
   do {                                             \

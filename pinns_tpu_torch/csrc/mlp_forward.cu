@@ -411,17 +411,6 @@ cudaError_t hidden_products(const Net& net, const float* params, const float* h0
   return cudaSuccess;
 }
 
-// The launchers carve `scratch` into parts that each start on 16 bytes.
-struct Carve {
-  float* base;
-  long long used;
-  float* take(long long floats) {
-    float* part = base + used;
-    used += (floats + 3) / 4 * 4;
-    return part;
-  }
-};
-
 // u (n x dims[L]) = the head's product over the last hidden output.
 template <class Cfg>
 int forward_wide(const float* x, int n, const float* params, const Net& net, const Box& box,

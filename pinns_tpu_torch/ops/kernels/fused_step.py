@@ -12,10 +12,20 @@ it on the card. ``loss_and_grad_reference`` is the kernel's hand-written
 reverse mode in plain PyTorch, held against ``torch.autograd`` by the CPU
 tests: the guard on the math the CUDA code implements.
 
-What bounds the kernel on the H100, and the design, are in the header of
-``csrc/fused_step.cu``: four launches per epoch, per-block partial gradients
-reduced in block order (bit-for-bit repeatable), pre-activation streams kept in
-an L2-resident scratch for the backward.
+Two designs, picked by :func:`design` from the widths (the header of
+``csrc/fused_step.cu`` has both and what bounds them on the H100):
+
+- "narrow", every width at most NARROW_WIDTH (``abgrall_admm``'s 8x20): four
+  launches an epoch, per-tile blocks that walk their points through the
+  layers in shared memory and write per-block partial gradients, reduced in
+  block order (:func:`launch_config`);
+- "wide", any wider net (``abgrall_l1/l2/visc``'s 8x200): the whole epoch as
+  layer products on the engine of ``csrc/layer_gemm.cuh`` over one stacked
+  batch of the collocation and data points, on a block tile that fills the
+  card at the presets' 1,100 points (:func:`step_plan`);
+  :func:`wide_loss_and_grad_reference` is its algorithm in plain PyTorch.
+
+Both are bit-for-bit repeatable (no atomics).
 
 The wrapper validates what the kernel assumes and raises otherwise; on a CPU
 tensor it raises too. It never falls back to the plain step.
@@ -24,6 +34,8 @@ tensor it raises too. It never falls back to the plain step.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,16 +53,33 @@ _launches_lock = threading.Lock()
 KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
 MAX_WIDTH = 256
 MAX_LAYERS = 32
+NARROW_WIDTH = 32  # a net whose widths are all at most this takes the narrow design
+# the narrow design
 _GRAD_SMEM = 200 * 1024
 _TAIL_SMEM = 112 * 1024
 _MAX_TILE = 64
+# the wide design: each segment of the stacked batch (the collocation points,
+# then the data points) padded to whole EW_TILE-point tiles (the point tile of
+# the elementwise passes and of db's and the loss's per-tile sums); the
+# products' block tile TILE (32 x 32, 64 threads); dW's sum over the stacked
+# rows split into chunks of SPLIT_ROWS rows that never straddle the two
+# segments, the longest for which the widest layer's dW still takes
+# SPLIT_BLOCKS blocks. Each chunk's sum is one float32 chain, so shorter
+# chunks are more accurate: at the presets' 1,100 points this target takes
+# the shortest, 128 rows (scripts/k3_tile_sweep.py --f64 weighs the split in
+# time and in error against float64)
+EW_TILE = 32
+TILE = 32
+SPLIT_BLOCKS = 1600
+SPLIT_ROWS = (1024, 512, 256, 128)
 # argument slots, in the order of the enums in csrc/fused_step.cu
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
-         "grad_out", "partials", "pstore", "tail_partials")
+         "grad_out", "partials", "pstore", "tail_partials", "scratch")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
-_INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device")
+_INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
+         "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats")
 
 
 def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
@@ -93,9 +122,118 @@ def _tile(widest: int, n_buffers: int, budget: int) -> int:
 
 
 def launch_config(layers: Sequence[int]) -> Tuple[int, int]:
-    """(grad-kernel tile, tail-kernel tile) in points per block."""
+    """(grad-kernel tile, tail-kernel tile) in points per block: the narrow design."""
     widest = max(layers)
     return _tile(widest, 3, _GRAD_SMEM), _tile(widest, 2, _TAIL_SMEM)
+
+
+def design(layers: Sequence[int]) -> str:
+    """"narrow" or "wide": the K3 design that a net of these widths takes."""
+    wmax = max(layers)
+    if wmax > MAX_WIDTH:
+        raise ValueError(f"fused_step kernel takes widths up to {MAX_WIDTH}, got {wmax}")
+    return "narrow" if wmax <= NARROW_WIDTH else "wide"
+
+
+def _ld_h(width: int) -> int:
+    """The row pitch of a stacked input of this width: its columns, the
+    bias's indicator, padded to 4 floats (``ld_h`` in the kernel)."""
+    return (width + 4) // 4 * 4
+
+
+def _align4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """How an epoch launches. The narrow design: points a grad block
+    (``tile``) and a tail block (``tail_tile``); every other field 0. The
+    wide design: each segment of the stacked batch padded (``nf_pad``
+    collocation points, then ``nu_pad`` data points), the products' block
+    ``tile``, dW's sum over the 4 (nf_pad + nu_pad) stacked rows cut into
+    ``splits`` chunks of ``split_rows`` (the last one shorter; the first
+    4 nf_pad / split_rows over collocation rows), and the parts of its
+    float32 scratch (in floats, each rounded up to 16 bytes, in the kernel's
+    order): db's per-tile sums, the loss's and the tail's per-tile sums (all
+    doubles), the stacked input H_0, the pre-activations of every hidden
+    layer, the stacked inputs of one layer, two adjoint buffers, the head's
+    output, dW's split partials and the gradient. The kernel lays the scratch
+    out itself and refuses a plan that does not fit it."""
+
+    design: str
+    tile: int
+    tail_tile: int = 0
+    nf_pad: int = 0
+    nu_pad: int = 0
+    split_rows: int = 0
+    splits: int = 0
+    sums: int = 0
+    loss_part: int = 0
+    tail_part: int = 0
+    h0: int = 0
+    pstore: int = 0
+    hbuf: int = 0
+    gbuf: int = 0
+    head: int = 0
+    partials: int = 0
+    grad: int = 0
+
+    @property
+    def rows(self) -> int:
+        """The stacked rows of the training pass: four streams a point."""
+        return 4 * (self.nf_pad + self.nu_pad)
+
+    @property
+    def scratch_floats(self) -> int:
+        return (self.sums + self.loss_part + self.tail_part + self.h0 + self.pstore + self.hbuf
+                + self.gbuf + self.head + self.partials + self.grad)
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.scratch_floats
+
+
+def _wide_plan(layers: Sequence[int], n_f: int, n_u: int) -> StepPlan:
+    layers = tuple(int(w) for w in layers)
+    nf_pad = max(1, -(-n_f // EW_TILE)) * EW_TILE
+    nu_pad = max(1, -(-n_u // EW_TILE)) * EW_TILE
+    n_pad = nf_pad + nu_pad
+    rows = 4 * n_pad
+    pairs = list(zip(layers[:-1], layers[1:]))
+    pieces = max(-(-din // TILE) * -(-dout // TILE) for din, dout in pairs)
+    fits = [r for r in SPLIT_ROWS if (4 * nf_pad) % r == 0]
+    split_rows = next((r for r in fits if pieces * -(-rows // r) >= SPLIT_BLOCKS), fits[-1])
+    splits = -(-rows // split_rows)
+    n_params = sum(din * dout + dout for din, dout in pairs)
+    tiles = n_pad // EW_TILE
+    return StepPlan(
+        design="wide", tile=TILE, nf_pad=nf_pad, nu_pad=nu_pad, split_rows=split_rows,
+        splits=splits, sums=_align4(2 * (len(layers) - 1) * tiles * max(layers)),
+        loss_part=_align4(2 * tiles), tail_part=_align4(2 * (nf_pad // EW_TILE)), h0=rows * 4,
+        pstore=rows * sum(layers[1:-1]), hbuf=rows * _ld_h(max(layers)),
+        gbuf=2 * rows * max(layers), head=rows, partials=_align4(splits * n_params),
+        grad=_align4(n_params))
+
+
+def step_plan(layers: Sequence[int], n_f: int, n_u: int) -> StepPlan:
+    """The plan of an epoch of ``n_f`` collocation and ``n_u`` data points
+    through a net of these widths (cached: the step asks for it every epoch)."""
+    return _cached_plan(tuple(layers), n_f, n_u)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(layers: Tuple[int, ...], n_f: int, n_u: int) -> StepPlan:
+    if design(layers) == "narrow":
+        tile, tail_tile = launch_config(layers)
+        return StepPlan(design="narrow", tile=tile, tail_tile=tail_tile)
+    return _wide_plan(layers, n_f, n_u)
+
+
+def product_blocks(plan: StepPlan, layers: Sequence[int]) -> int:
+    """Blocks of a wide plan's widest hidden-layer product over the stacked
+    rows (the forward's P = H [W; b], and gH = G W^T of the backward)."""
+    return -(-plan.rows // plan.tile) * -(-max(layers[1:-1]) // plan.tile)
 
 
 def _lib():
@@ -142,7 +280,8 @@ def fused_adam_step(
     metrics_out: Optional[torch.Tensor] = None,
     want_grad: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """One Adam epoch in one call of the CUDA step (four launches).
+    """One Adam epoch in one call of the CUDA step: four launches (narrow
+    design) or the wide design's layer products, all from one host call.
 
     ``params``/``mu``/``nu`` are flat float32 buffers in ``pack_params`` order;
     ``count`` is Adam's step count before this step. The new batch is the
@@ -183,9 +322,7 @@ def fused_adam_step(
     if n_f < 1 or n_u < 1:
         raise ValueError("fused_step kernel needs at least one collocation and one data point")
 
-    tile, tail_tile = launch_config(layers)
-    nb_grad = -(-n_f // tile) + -(-n_u // tile)
-    nb_tail = -(-n_f // tail_tile)
+    plan = step_plan(layers, n_f, n_u)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     out = {
         "params": empty(n_params), "mu": empty(n_params), "nu": empty(n_params),
@@ -195,11 +332,18 @@ def fused_adam_step(
         "metrics": metrics_out if metrics_out is not None else empty(7),
         "grad": empty(n_params) if want_grad else None,
     }
-    scratch = {
-        "partials": empty(nb_grad, n_params + 1),
-        "pstore": empty(nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
-        "tail_partials": empty(nb_tail),
-    }
+    if plan.design == "narrow":
+        tile, tail_tile = plan.tile, plan.tail_tile
+        nb_grad = -(-n_f // tile) + -(-n_u // tile)
+        scratch = {
+            "partials": empty(nb_grad, n_params + 1),
+            "pstore": empty(nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
+            "tail_partials": empty(-(-n_f // tail_tile)),
+            "scratch": None,
+        }
+    else:
+        scratch = {"partials": None, "pstore": None, "tail_partials": None,
+                   "scratch": empty(plan.scratch_floats)}
     tensors = {
         "params": params, "mu": mu, "nu": nu, "x_data": x_data, "u_data": u_data,
         "colloc": colloc, "z": z, "dual": dual, "new_colloc": new_colloc,
@@ -217,8 +361,10 @@ def fused_adam_step(
     }
     ints = {
         "n_u": n_u, "n_f": n_f, "kind": KINDS[kind], "explicit_inner": int(explicit_inner),
-        "tile": tile, "tail_tile": tail_tile, "seed": int(seed), "epoch": int(epoch),
+        "tile": plan.tile, "tail_tile": plan.tail_tile, "seed": int(seed), "epoch": int(epoch),
         "device": dev.index if dev.index is not None else torch.cuda.current_device(),
+        "nf_pad": plan.nf_pad, "nu_pad": plan.nu_pad, "split_rows": plan.split_rows,
+        "splits": plan.splits, "scratch_floats": plan.scratch_floats,
     }
     lib = _lib()
     c_dims = (ctypes.c_int * len(layers))(*layers)
@@ -231,7 +377,7 @@ def fused_adam_step(
     if err != 0:
         msg = lib.pinns_fused_step_error_string(err).decode()
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} ({msg}); "
-                           f"tile={tile} tail_tile={tail_tile} widths={layers}")
+                           f"widths={layers} plan={dataclasses.asdict(plan)}")
     with _launches_lock:
         LAUNCHES += 1
     return out
@@ -344,3 +490,130 @@ def loss_and_grad_reference(
     for i, layer in enumerate(net):
         shaped += [grads[2 * i].reshape(layer["W"].shape), grads[2 * i + 1].reshape(layer["b"].shape)]
     return data_term + res_term, data_term, res_term, shaped
+
+
+def wide_loss_and_grad_reference(
+    spec: MLPSpec, net: Params, x_data, u_data, colloc, z, dual, *,
+    kind: str, lam1: float, lam2: float, rho: float, explicit_inner: bool = False,
+):
+    """The wide design's loss and gradient by its own algorithm, in plain
+    PyTorch, for any widths (the plan of a wide net of these widths):
+
+    - one stacked batch: the collocation points padded to ``nf_pad``, then
+      the data points padded to ``nu_pad``, each segment its four streams
+      one after another; every stacked input carries the bias's indicator
+      column (1 on value rows), so that a layer is one product with
+      [W; b];
+    - the forward as those products, keeping every hidden layer's
+      pre-activation streams; the head's (u, u_x, u_t, u_xx) on every row;
+    - the seeds: dL/df of a collocation point by the kind (2 sign(f) / N_f
+      for ``l1_sq_norm``), 2 (u - u_data) / N_u on a data point's value row,
+      exactly 0 on its derivative rows and on padded points;
+    - per layer, head first: dW as the split partials H^T G over the plan's
+      row chunks, db as per-tile sums of the value rows' adjoints, gH = G W^T
+      through the tanh rules;
+    - the reductions in double, in a fixed order: the collocation splits and
+      tiles apart from the data ones, g = S res + dat for ``l1_sq_norm``
+      (S = sum |f| from the loss's per-tile sums) and res + dat otherwise.
+
+    Returns (loss, data_term, res_term, grads) as
+    :func:`loss_and_grad_reference`; the sums that the kernel takes in
+    double are double here too.
+    """
+    from pinns_tpu_torch.models.mlp import input_scale, normalize_inputs
+
+    layers = spec.layers
+    n_f, n_u = colloc.shape[0], x_data.shape[0]
+    plan = _wide_plan(layers, n_f, n_u)
+    nf, nu = plan.nf_pad, plan.nu_pad
+    dt = colloc.dtype
+    tiles_f, tiles = nf // EW_TILE, (nf + nu) // EW_TILE
+    sizes = (nf,) * 4 + (nu,) * 4  # the eight blocks of rows: (segment, stream)
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((n - t.shape[0],) + tuple(t.shape[1:]))])
+
+    def blocks(m):
+        """[[4 stream blocks of the collocation segment], [... of the data one]]."""
+        b = torch.split(m, sizes)
+        return [list(b[:4]), list(b[4:])]
+
+    def stack(segs):
+        return torch.cat(segs[0] + segs[1])
+
+    def act(p):
+        """The tanh Taylor rule, segment by segment: H from P."""
+        out = []
+        for a, ax, at, axx in blocks(p):
+            s = torch.tanh(a)
+            d1 = 1.0 - s * s
+            d2 = -2.0 * s * d1
+            out.append([s, d1 * ax, d1 * at, d2 * ax * ax + d1 * axx])
+        return stack(out)
+
+    ind = stack([[torch.ones(nf, 1, dtype=dt)] + [torch.zeros(nf, 1, dtype=dt)] * 3,
+                 [torch.ones(nu, 1, dtype=dt)] + [torch.zeros(nu, 1, dtype=dt)] * 3])
+    scale = input_scale(spec, colloc.device).to(dt)
+    zero2 = lambda n: torch.zeros(n, 2, dtype=dt)  # noqa: E731
+    tangent = lambda n, k: zero2(n).index_fill(1, torch.tensor([k]), float(scale[k]))  # noqa: E731
+    h = stack([[normalize_inputs(spec, pad(pts, n)), tangent(n, 0), tangent(n, 1), zero2(n)]
+               for pts, n in ((colloc, nf), (x_data, nu))])
+    wb = [torch.cat([layer["W"], layer["b"]]) for layer in net]
+    hs, ps = [h], []
+    for l in range(len(net) - 1):
+        ps.append(torch.cat([hs[-1], ind], 1) @ wb[l])
+        hs.append(act(ps[-1]))
+    (u, ux, ut, uxx), (ud, _, _, _) = blocks(torch.cat([hs[-1], ind], 1) @ wb[-1])
+
+    f = ut + lam1 * u * ux - lam2 * uxx
+    if kind == "admm":
+        q = f - pad(z, nf) + pad(dual, nf) / rho
+        gf = rho * q + (pad(dual, nf) if explicit_inner else 0.0)
+        val = 0.5 * rho * q * q + (pad(dual, nf) * f if explicit_inner else 0.0)
+    elif kind == "l1_sq_norm":
+        gf, val = 2.0 * torch.sign(f) / n_f, torch.abs(f)
+    elif kind in ("mean_sq", "l2_sq_norm"):
+        gf, val = 2.0 * f / n_f, f * f
+    else:
+        raise ValueError(f"unknown residual kind {kind!r}")
+    live_f = (torch.arange(nf) < n_f).to(dt)[:, None]
+    live_u = (torch.arange(nu) < n_u).to(dt)[:, None]
+    gf, val = gf * live_f, val * live_f
+    d = (ud - pad(u_data, nu)) * live_u
+    zu = torch.zeros(nu, 1, dtype=dt)
+    g = stack([[gf * lam1 * ux, gf * lam1 * u, gf, -lam2 * gf], [2.0 * d / n_u, zu, zu, zu]])
+
+    def in_order(parts):
+        total = torch.zeros_like(parts[0], dtype=torch.float64)
+        for part in parts:
+            total = total + part
+        return total
+
+    loss_part = torch.cat([val, d * d]).double().view(tiles, EW_TILE).sum(1)
+    s_res, s_dat = in_order(loss_part[:tiles_f]), in_order(loss_part[tiles_f:])
+    sr, splits_f = plan.split_rows, 4 * nf // plan.split_rows
+    grads: List[torch.Tensor] = [None] * (2 * len(net))  # type: ignore[list-item]
+    for l in range(len(net) - 1, -1, -1):
+        split = [(hs[l][z * sr:(z + 1) * sr].T @ g[z * sr:(z + 1) * sr]).double()
+                 for z in range(plan.splits)]
+        value = torch.cat([blocks(g)[0][0], blocks(g)[1][0]]).double()
+        per_tile = value.view(tiles, EW_TILE, -1).sum(1)
+        for k, (res, dat) in enumerate(((in_order(split[:splits_f]), in_order(split[splits_f:])),
+                                        (in_order(per_tile[:tiles_f]),
+                                         in_order(per_tile[tiles_f:])))):
+            total = s_res * res + dat if kind == "l1_sq_norm" else res + dat
+            grads[2 * l + k] = total.to(dt).reshape(net[l]["b"].shape if k else net[l]["W"].shape)
+        if l > 0:
+            gh = g @ net[l]["W"].T
+            out = []
+            for (p, px, pt, pxx), (a, ax, at, axx) in zip(blocks(ps[l - 1]), blocks(gh)):
+                s = torch.tanh(p)
+                d1 = 1.0 - s * s
+                d2 = -2.0 * s * d1
+                gp = d1 * (a - 2.0 * s * (ax * px + at * pt + axx * pxx)
+                           + (6.0 * s * s - 2.0) * axx * px * px)
+                out.append([gp, ax * d1 + 2.0 * axx * d2 * px, at * d1, axx * d1])
+            g = stack(out)
+    s_f, data_term = s_res.to(dt), s_dat.to(dt) / n_u
+    res_term = {"admm": s_f, "l1_sq_norm": s_f * s_f / n_f}.get(kind, s_f / n_f)
+    return data_term + res_term, data_term, res_term, grads

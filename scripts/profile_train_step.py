@@ -13,8 +13,8 @@ The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
-(the profiler's CUDA activity), their sum, the sum over K5's kernels
-(named in namespace k5), the device's idle share 1 - device time / wall
+(the profiler's CUDA activity), their sum, the sums over K3's and K5's
+kernels (named in namespaces k3 and k5), the device's idle share 1 - device time / wall
 time, the host operations that took the most CPU time, and the peak device
 memory of the step (warm-up included). Needs one
 NVIDIA GPU; imports no jax.
@@ -63,18 +63,21 @@ def profile_chunk(step, state, epochs: int, warmup: int = 5) -> dict:
                              "calls_per_unit": evt.count / units}
     device_us = sum(k["us_per_unit"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us_per_unit"])[:12])
-    # K5 (csrc/mlp_forward.cu): every kernel and engine instantiation of it
-    # is named in namespace k5
-    k5 = {name: k for name, k in kernels.items() if "k5::" in name}
+    # K3 (csrc/fused_step.cu) and K5 (csrc/mlp_forward.cu): every kernel and
+    # engine instantiation of each is named in namespace k3 or k5
+    named = {}
+    for ns in ("k3", "k5"):
+        mine = {name: k for name, k in kernels.items() if f"{ns}::" in name}
+        named.update({f"{ns}_us_per_unit": sum(k["us_per_unit"] for k in mine.values()),
+                      f"{ns}_kernels_per_unit": sum(k["calls_per_unit"] for k in mine.values()),
+                      f"{ns}_kernels": mine})
     top_host = dict(sorted(host.items(), key=lambda kv: -kv[1]["self_us_per_unit"])[:15])
     return {"units": units, "unit": "lbfgs_iteration" if units != epochs else "epoch",
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "wall_us_per_unit": wall_us / units, "device_us_per_unit": device_us,
             "idle_share": 1.0 - device_us / (wall_us / units),
             "kernels_per_unit": sum(k["calls_per_unit"] for k in kernels.values()),
-            "k5_us_per_unit": sum(k["us_per_unit"] for k in k5.values()),
-            "k5_kernels_per_unit": sum(k["calls_per_unit"] for k in k5.values()),
-            "top_kernels": top, "k5_kernels": k5, "top_host_ops": top_host}
+            **named, "top_kernels": top, "top_host_ops": top_host}
 
 
 def main(argv=None) -> int:
@@ -127,7 +130,8 @@ def main(argv=None) -> int:
         print(json.dumps({"preset": args.preset, "step": name, "card": card,
                           **{k: r[k] for k in ("unit", "units", "wall_us_per_unit",
                                                "device_us_per_unit", "idle_share",
-                                               "kernels_per_unit", "k5_us_per_unit",
+                                               "kernels_per_unit", "k3_us_per_unit",
+                                               "k3_kernels_per_unit", "k5_us_per_unit",
                                                "peak_device_bytes")}}))
     return 0
 

@@ -1,6 +1,6 @@
 """The port on the card: the fused Taylor-2 kernel (K1) and its backward
 (K2), the fused MLP forward and its backward (K5), the served slice, the
-fused Adam-epoch kernel (K3), the mixed-precision Taylor-2 kernel (K6) and
+fused Adam-epoch kernel (K3, both designs), the mixed-precision Taylor-2 kernel (K6) and
 its backward, and the trainer with its generic Adam step (microbatched,
 under the stream policy) and L-BFGS phase over the kernels.
 
@@ -66,60 +66,139 @@ def test_served_model_on_card(cuda_device, tmp_path):  # noqa: F811
     assert abs(relative_l2(out["u"], fx["u_star"]) - float(fx["rel_l2_jax"])) <= 1e-5
 
 
+WIDE = (2,) + (200,) * 8 + (1,)  # burgers_scale's and abgrall_l1's net
+EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk
+
+
+def _close_or_f64(got, plain, exact, wide):
+    """The kernel within rtol 1e-4 and atol 1e-5 max|plain| of the plain
+    float32 version; a wide net's value that misses it must pass the float64
+    oracle instead (_f64_oracle), as chip_smoke.py's phase 7 holds it."""
+    got, plain = torch.as_tensor(got).double().cpu(), torch.as_tensor(plain).double().cpu()
+    ok = bool(((got - plain).abs() <= 1e-5 * float(plain.abs().max()) + 1e-4 * plain.abs()).all())
+    if ok:
+        return
+    assert wide, (float((got - plain).abs().max()), float(plain.abs().max()))
+    _f64_oracle(got, plain, torch.as_tensor(exact).double().cpu())
+
+
+@pytest.mark.parametrize("layers,n_f", [((2, 16, 16, 16, 1), 77), ((2, 64, 64, 64, 1), 77),
+                                        ((2, 64, 64, 64, 1), 1_000), (WIDE, 77), (WIDE, 1_000)],
+                         ids=["16-77", "64-77", "64-1000", "8x200-77", "8x200-1000"])
 @pytest.mark.parametrize("kind,explicit_inner", [("admm", False), ("admm", True), ("mean_sq", False),
                                                  ("l2_sq_norm", False), ("l1_sq_norm", False)])
-def test_fused_step_matches_its_reference_on_card(cuda_device, kind, explicit_inner):  # noqa: F811
+def test_fused_step_matches_its_reference_on_card(cuda_device, kind, explicit_inner, layers,
+                                                  n_f):  # noqa: F811
     """The CUDA step's loss and gradient against the hand-written reverse mode
     in plain PyTorch on the same card, and its Adam stage and ADMM tail
-    against the plain functions fed the kernel's own gradient and params."""
+    against the plain functions fed the kernel's own gradient and params; two
+    calls agree bit for bit. The 16-wide net takes the narrow design, the
+    wider ones the wide design, whose values are held against float64 where
+    they miss the plain version's tolerance."""
     from pinns_tpu_torch.losses.admm import ADMMState, admm_misfit, admm_update
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
     from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
     from pinns_tpu_torch.opt.adam import AdamState, adam_update
 
-    layers = (2, 16, 16, 16, 1)
     spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    spec64 = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=torch.float64)
+    wide = k_fused.design(layers) == "wide"
+    assert wide == (max(layers) > 32)
     net = init_mlp(spec, torch.Generator().manual_seed(3), cuda_device)
+    net64 = [{k: v.double() for k, v in p.items()} for p in net]
     rng = np.random.default_rng(5)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
-    colloc, x_data = t(numpy_points(77, seed=6)), t(numpy_points(13, seed=7))
+    colloc, x_data = t(numpy_points(n_f, seed=6)), t(numpy_points(13, seed=7))
     u_data = t(rng.standard_normal((13, 1)))
-    z = t(0.1 * rng.standard_normal((77, 1))) if kind == "admm" else None
-    dual = t(1 + 0.1 * rng.standard_normal((77, 1))) if kind == "admm" else None
+    z = t(0.1 * rng.standard_normal((n_f, 1))) if kind == "admm" else None
+    dual = t(1 + 0.1 * rng.standard_normal((n_f, 1))) if kind == "admm" else None
+    d64 = lambda v: None if v is None else v.double()  # noqa: E731
     flat = pack_params(net)
     mu, nu = 0.01 * torch.ones_like(flat), 1e-4 * torch.ones_like(flat)
-    new = t(numpy_points(77, seed=8))
+    new = t(numpy_points(n_f, seed=8))
     cfg = dict(kind=kind, lam1=0.9, lam2=0.01, rho=10.0, lr=1e-3, explicit_inner=explicit_inner)
     before = k_fused.LAUNCHES
     r = k_fused.fused_adam_step(spec, flat, mu, nu, 4, x_data, u_data, colloc, z, dual, seed=9,
                                 epoch=5, new_colloc=new, want_grad=True, **cfg)
+    again = k_fused.fused_adam_step(spec, flat, mu, nu, 4, x_data, u_data, colloc, z, dual,
+                                    seed=9, epoch=5, new_colloc=new, want_grad=True, **cfg)
     torch.cuda.synchronize()
-    assert k_fused.LAUNCHES == before + 1
+    assert k_fused.LAUNCHES == before + 2
+    assert all(torch.equal(r[k], again[k]) for k in r if r[k] is not None)
+    ref = dict(kind=kind, lam1=0.9, lam2=0.01, rho=10.0, explicit_inner=explicit_inner)
     loss, data_term, res_term, grads = k_fused.loss_and_grad_reference(
-        spec, net, x_data, u_data, colloc, z, dual, kind=kind, lam1=0.9, lam2=0.01, rho=10.0,
-        explicit_inner=explicit_inner)
+        spec, net, x_data, u_data, colloc, z, dual, **ref)
+    exact = k_fused.loss_and_grad_reference(spec64, net64, x_data.double(), u_data.double(),
+                                            colloc.double(), d64(z), d64(dual), **ref)
     got = r["grad"].cpu().numpy()
     off = 0
-    for g in grads:
+    for g, e in zip(grads, exact[3]):
         w = g.reshape(-1).cpu().numpy()
-        np.testing.assert_allclose(got[off:off + w.size], w, rtol=1e-4,
-                                   atol=1e-5 * np.abs(w).max())
+        if wide:
+            _close_or_f64(got[off:off + w.size], w, e.reshape(-1), wide)
+        else:
+            np.testing.assert_allclose(got[off:off + w.size], w, rtol=1e-4,
+                                       atol=1e-5 * np.abs(w).max())
         off += w.size
     m = r["metrics"].cpu().numpy()  # trainer.METRIC_KEYS order
-    np.testing.assert_allclose(m[[5, 1, 6]], [float(loss), float(data_term), float(res_term)],
-                               rtol=1e-4)
+    if wide:
+        for i, (p, e) in zip((5, 1, 6), zip((loss, data_term, res_term), exact[:3])):
+            _close_or_f64(torch.tensor([float(m[i])]), torch.tensor([float(p)]),
+                          torch.tensor([float(e)]), wide)
+    else:
+        np.testing.assert_allclose(m[[5, 1, 6]], [float(loss), float(data_term), float(res_term)],
+                                   rtol=1e-4)
     upd, adam = adam_update(r["grad"], AdamState(4, mu, nu), 1e-3)
     np.testing.assert_allclose(r["params"].cpu().numpy(), (flat + upd).cpu().numpy(),
                                rtol=1e-6, atol=1e-7)
     assert torch.equal(r["colloc"], new)
     if kind == "admm":
-        uu, ux, ut, uxx = mlp_taylor_2_reference(
-            spec, k_fused.unpack_params(r["params"], layers), new)
+        new_net = k_fused.unpack_params(r["params"], layers)
+        uu, ux, ut, uxx = mlp_taylor_2_reference(spec, new_net, new)
         f = ut + 0.9 * uu * ux - 0.01 * uxx
-        want = admm_update(f, ADMMState(z, dual), 10.0, 77)
-        np.testing.assert_allclose(r["z"].cpu().numpy(), want.z.cpu().numpy(), rtol=1e-4,
-                                   atol=1e-5 * float(want.z.abs().max()))
-        np.testing.assert_allclose(m[0], float(admm_misfit(f, want)), rtol=1e-4, atol=1e-7)
+        want = admm_update(f, ADMMState(z, dual), 10.0, n_f)
+        u64, ux64, ut64, uxx64 = mlp_taylor_2_reference(
+            spec64, [{k: v.double() for k, v in p.items()} for p in new_net], new.double())
+        f64 = ut64 + 0.9 * u64 * ux64 - 0.01 * uxx64
+        want64 = admm_update(f64, ADMMState(z.double(), dual.double()), 10.0, n_f)
+        if wide:
+            _close_or_f64(r["z"], want.z, want64.z, wide)
+            _close_or_f64(torch.tensor([float(m[0])]), torch.tensor([float(admm_misfit(f, want))]),
+                          torch.tensor([float(admm_misfit(f64, want64))]), wide)
+        else:
+            np.testing.assert_allclose(r["z"].cpu().numpy(), want.z.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-5 * float(want.z.abs().max()))
+            np.testing.assert_allclose(m[0], float(admm_misfit(f, want)), rtol=1e-4, atol=1e-7)
+
+
+def test_fused_step_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch):  # noqa: F811
+    """The wide K3 lays out its scratch itself: a plan with less scratch than
+    that layout needs, a split that straddles the two segments, a tile it
+    does not instantiate, or a padding short of the points raises and counts
+    no call."""
+    import dataclasses
+
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+
+    spec = MLPSpec(layers=WIDE, lb=LB, ub=UB)
+    flat = pack_params(init_mlp(spec, torch.Generator().manual_seed(3), cuda_device))
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    colloc, x_data, u_data = t(numpy_points(1_000, 6)), t(numpy_points(100, 7)), t(np.ones((100, 1)))
+    plan = k_fused.step_plan(WIDE, 1_000, 100)
+    assert plan.design == "wide"
+    before = k_fused.LAUNCHES
+    for bad in (dataclasses.replace(plan, grad=plan.grad - 4),
+                dataclasses.replace(plan, split_rows=plan.split_rows + 8),
+                dataclasses.replace(plan, tile=64),
+                dataclasses.replace(plan, tile=128),
+                dataclasses.replace(plan, nf_pad=plan.nf_pad - 128)):
+        monkeypatch.setattr(k_fused, "step_plan", lambda *args, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k_fused.fused_adam_step(spec, flat, flat, flat, 1, x_data, u_data, colloc, None, None,
+                                    kind="l1_sq_norm", lam1=1.0, lam2=0.0, rho=10.0, lr=1e-3,
+                                    explicit_inner=False, seed=1, epoch=1)
+    assert k_fused.LAUNCHES == before
 
 
 def test_trainer_on_card_runs_the_fused_step(cuda_device):  # noqa: F811
@@ -164,10 +243,6 @@ def _net(layers, seed, device):
     spec64 = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=torch.float64)
     params64 = [{k: v.double() for k, v in p.items()} for p in params]
     return spec, params, spec64, params64
-
-
-WIDE = (2,) + (200,) * 8 + (1,)  # burgers_scale's net
-EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk
 
 
 @pytest.mark.parametrize("layers,n", [((2,) + (20,) * 8 + (1,), 1000),
