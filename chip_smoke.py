@@ -1,8 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU, end to end: the Burgers serving
 path, the abgrall_admm Adam phase, the L-BFGS phase of the hybrid schedule
-with the generic Adam step (abgrall_admm and burgers_forward), and the scale
+with the generic Adam step (abgrall_admm and burgers_forward), the scale
 slice (burgers_scale at 1,048,576 points in 128 microbatches, float32 and the
-bf16 stream policy on kernel K6).
+bf16 stream policy on kernel K6), and the Euler strong-form slice
+(euler_admm served and trained on the Taylor-1 kernel K7a and K5).
 
     python3 chip_smoke.py
 
@@ -91,6 +92,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             128 backward launches of K1/K2 (f32) or K6 (mixed) per epoch, no
             K3 and no plain call; ms per epoch and peak device memory
   times     K6 forward and backward against plain (CUDA events)
+  19 euler-serve  the native abgrall_eulers grid (300 x 157) against the
+            committed JAX fixture (euler_admm.npz) within 1e-12; the
+            fixture's trunk (2x200x5x3) -> export -> ServedModel: rho, u, E
+            and f1, f2, f3 at the 47,100 grid points and at ragged N against
+            JAX's (TOL) and against the plain version on the card; K7a's
+            launches in that predict; one HTTP round trip; the served
+            predict's time at 47,100 points
+  20 k7a    the Taylor-1 kernel (K7a) and its backward against the plain
+            versions at the Euler trunk (against float64, compare_f64) and at
+            2x20x3x3 (TOL of plain float32; a gradient leaf whose sum cancels
+            against float64), N 1,000, 8,192, 65,536; two backward calls
+            agree bit for bit
+  21 euler-step  one euler_admm Adam step on the card (K5 + K7a under
+            autograd) from the fixture's JAX state at its points: loss and
+            every gradient leaf (close_grad), z and dual of each component,
+            the new params; then the fixture's short replay
+  22 euler-train  euler_admm through Trainer.train at the fixture's reduced
+            schedule for JAX's three band seeds: no plain call, every epoch
+            on K7a and K5, the median rel-L2 of each field in the band of
+            JAX's three seeds; euler_admm_tuned once at the same schedule
+            (curriculum, field weights; its rel-L2 printed, not held)
+  times     the Euler epoch (CUDA events) and a 1,000-epoch chunk; K7a and
+            its backward against autograd through plain at N 1,000 and 65,536
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -120,6 +144,7 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "burgers_forward
 NARROW = (2,) + (20,) * 8 + (1,)  # burgers_forward / abgrall_admm
 WIDE = (2,) + (200,) * 8 + (1,)  # abgrall_visc, burgers_scale
 EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk (presets.py: euler_*)
+EULER_NARROW = (2,) + (20,) * 3 + (3,)
 LB, UB = (-1.0, 0.0), (1.0, 0.99)
 # (layers, N): the served shapes of the main path (25,600 grid points, padded
 # to the 32,768 bucket), a small request, a 1M-point batch, and the wide net
@@ -131,10 +156,16 @@ STREAMS = ("u", "u_x", "u_t", "u_xx")
 # rtol and atol (as a multiple of max|reference|) per stream: u_xx sums eight
 # layers of products in another order, so it gets ten times the absolute room
 TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
-       "u_xx": (1e-5, 1e-4), "f": (1e-5, 1e-4)}
+       "u_xx": (1e-5, 1e-4), "f": (1e-5, 1e-4),
+       # the Euler fields; f1, f2, f3 sum products of three fields, which
+       # cancel: their absolute room scales with max|f|
+       "rho": (1e-5, 1e-5), "E": (1e-5, 1e-5), "f1": (1e-5, 1e-4), "f2": (1e-5, 1e-4),
+       "f3": (1e-5, 1e-4),
+       # K7a's streams against the plain float32 version at a narrow net
+       "y": (1e-5, 1e-5), "y_x": (1e-5, 1e-5), "y_t": (1e-5, 1e-5)}
 F64_FACTOR = 4.0
 REPS = 20
-KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward")
+KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -143,7 +174,10 @@ STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_a
 # from a residual evaluated in another order.
 STEP_TOL = {"loss": (1e-4, 1e-6), "grad": (1e-4, 1e-5), "adam": (1e-6, 1e-7),
             "colloc": (0.0, 0.0), "z": (1e-4, 1e-5), "dual": (1e-4, 1e-5),
-            "admm_misfit": (1e-4, 1e-6)}
+            "admm_misfit": (1e-4, 1e-6), "k7a_grad": (1e-5, 1e-5),
+            # each leaf's sum and sum of squares after an Euler step: Adam may
+            # flip an entry whose gradient is within rounding of zero (2 lr)
+            "leaf_sums": (1e-4, 1e-4)}
 TRAIN_EPOCHS = 10_000  # the fixture's band_epochs
 WIDE_EPOCHS = 300  # phase 9b: abgrall_l1's 8x200 net through the wide K3
 BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
@@ -193,6 +227,17 @@ K6_FACTOR = 2.0
 K6_PLAIN_TOL = 3e-5
 SCALE_EPOCHS = 5
 SCALE_POLICIES = ("f32", "keep_xx", "max")
+EULER_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "euler_admm.npz")
+EULER_FIELDS = ("rho", "u", "E")
+EULER_OUT = EULER_FIELDS + ("f1", "f2", "f3")
+EULER_RAGGED = (1, 37, 8_191)
+# K7a at the Euler batch's 1,000 points, 8,192 and 65,536, on the trunk and
+# on a narrow net; timed at 1,000 and 65,536
+K7A_SHAPES = [(EULER, 1_000), (EULER, 8_192), (EULER, 65_536),
+              (EULER_NARROW, 1_000), (EULER_NARROW, 8_192), (EULER_NARROW, 65_536)]
+K7A_MAIN = (EULER, 1_000)
+K7A_TIMES = [(EULER, 1_000), (EULER, 65_536)]
+EULER_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
 # published peaks of one H100 SXM (dense), for the bounds in the kernels line
 PEAK_FP32, PEAK_BF16, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
@@ -353,7 +398,7 @@ def plain_gradient(problem, params, colloc, admm, dtype=None):
     cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)  # noqa: E731
     params = tr.tree_map(lambda t: cast(t).detach().clone().requires_grad_(True), params)
     if admm is not None:
-        admm = type(admm)(z=cast(admm.z), dual=cast(admm.dual))
+        admm = type(admm)(z=tr.tree_map(cast, admm.z), dual=tr.tree_map(cast, admm.dual))
     loss, aux = tr.make_loss_fn(problem, plain=True)(params, cast(colloc), admm)
     g = torch.autograd.grad(loss, tr.tree_leaves(params["net"]))
     return torch.cat([t.reshape(-1) for t in g]), {k: float(v.detach()) for k, v in aux.items()}
@@ -700,14 +745,16 @@ class PlainCalls:
     def __init__(self):
         from pinns_tpu_torch.models import mlp
         from pinns_tpu_torch.ops import taylor
-        from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
+        from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
         from pinns_tpu_torch.train import trainer
 
         self.sites = [(m, name) for name, mods in (
             ("mlp_apply_reference", (mlp, trainer)),
             ("mlp_taylor_2_reference", (taylor, trainer)),
+            ("mlp_taylor_1_reference", (taylor, trainer)),
             ("mlp_backward_reference", (mlp_forward,)),
             ("taylor2_backward_reference", (taylor2, fused_step)),
+            ("taylor1_backward_reference", (taylor1,)),
         ) for m in mods]
         self.calls = 0
 
@@ -731,22 +778,24 @@ class PlainCalls:
 
 def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
-    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
+    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
 
     return {"taylor2": taylor2.LAUNCHES, "fused_step": fused_step.LAUNCHES,
             "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
             "taylor2_backward": taylor2.BACKWARD_LAUNCHES,
             "taylor2_mixed": taylor2.MIXED_LAUNCHES,
-            "taylor2_mixed_backward": taylor2.MIXED_BACKWARD_LAUNCHES}
+            "taylor2_mixed_backward": taylor2.MIXED_BACKWARD_LAUNCHES,
+            "taylor1": taylor1.LAUNCHES, "taylor1_backward": taylor1.BACKWARD_LAUNCHES}
 
 
 def reset_counts() -> None:
-    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor2
+    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
 
     taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = 0
     taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
     fused_step.LAUNCHES = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
+    taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
 
 
 def net_f64(params):
@@ -1528,6 +1577,369 @@ def phase_k6_times(card: str, nets: dict) -> dict:
     return out
 
 
+# -- 19-22 and times: the Euler strong-form slice (K7a, K5 at out_dim 3) -----
+
+def taylor1_ops(layers, n: int):
+    """The products of one Taylor-1 pass: three streams, 2 FLOP a MAC."""
+    return [(3 * 2.0 * sum(_macs(layers)) * n, PEAK_FP32)]
+
+
+def taylor1_bound(layers, n):
+    return bound(taylor1_ops(layers, n), 8 * n + 12 * n * layers[-1] + 4 * n_params(layers))
+
+
+def taylor1_backward_bound(layers, n):
+    """The forward recomputed (the backward gets only x and the params), dW
+    of every layer and gH of every layer but the first, for three streams."""
+    m = _macs(layers)
+    ops = taylor1_ops(layers, n) + [(3 * 2.0 * (sum(m) + sum(m[1:])) * n, PEAK_FP32)]
+    return bound(ops, 8 * n + 12 * n * layers[-1] + 8 * n_params(layers))
+
+
+def euler_fixture() -> dict:
+    with np.load(EULER_FIXTURE, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def net_from_flat(flat: np.ndarray, layers) -> list:
+    leaves = split_leaves(flat, layers)
+    return [{"W": w.reshape(din, dout), "b": b.reshape(1, dout)}
+            for w, b, din, dout in zip(leaves[0::2], leaves[1::2], layers[:-1], layers[1:])]
+
+
+def k7a_net(layers, seed: int, device):
+    """A seeded random net with nonzero biases (the bias rides on the value
+    rows only), and its float64 twin."""
+    from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    params = init_mlp(spec, torch.Generator().manual_seed(seed), device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for p in params:
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=gen))
+    return spec, params, dataclasses.replace(spec, dtype=torch.float64), net_f64(params)
+
+
+def phase_euler_serve(card: str) -> dict:
+    """19: the native Euler grid against the JAX fixture, and the fixture's
+    trunk served on the card (K7a) against JAX's outputs and the plain version."""
+    from pinns_tpu_torch.data.datasets import load_euler_mat
+    from pinns_tpu_torch.data.generators import make_abgrall_eulers_grid
+    from pinns_tpu_torch.interop import params_from_jax
+    from pinns_tpu_torch.models.mlp import MLPSpec
+    from pinns_tpu_torch.ops.residuals import euler_combine
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
+    from pinns_tpu_torch.serve import ServedModel, export_predict, make_http_server
+
+    fx = euler_fixture()
+    ds = load_euler_mat("abgrall_eulers")
+    check(ds.fields["rho"].shape == (157, 300) and ds.provenance == "native",
+          f"Euler grid {ds.fields['rho'].shape} {ds.provenance}")
+    g = make_abgrall_eulers_grid()
+    xi, ti = fx["grid_idx"][:, 0], fx["grid_idx"][:, 1]
+    grid_err = max(
+        [float(np.abs(g["x"].ravel() - fx["grid_x"]).max()),
+         float(np.abs(g["t"].ravel() - fx["grid_t"]).max())]
+        + [float(np.abs(g[key][xi, ti] - fx[f"grid_{name}"]).max())
+           for name, key in zip(EULER_FIELDS, ("rhosol", "usol", "Enersol"))])
+    check(grid_err <= 1e-12, f"Euler grid differs from JAX's by {grid_err}")
+    layers = tuple(int(w) for w in fx["layers"])
+    check(layers == EULER, f"fixture widths {layers}")
+    gamma = float(fx["gamma"])
+    spec = MLPSpec(layers=layers, lb=tuple(fx["lb"]), ub=tuple(fx["ub"]))
+    check(spec.lb == tuple(float(v) for v in ds.lb) and spec.ub == tuple(float(v) for v in ds.ub),
+          "the fixture's bounds are not the grid's")
+    net = net_from_flat(fx["params_0"], layers)
+    x = fx["predict_x"]
+    check(np.array_equal(x, ds.X_star), "the fixture's points are not the grid's")
+    with tempfile.TemporaryDirectory() as tmp:
+        art = export_predict(spec, net, os.path.join(tmp, "euler"), 0.0, 0.0,
+                             experiment="euler_admm", pde="euler", gamma=gamma)
+        served = ServedModel(art, device="cuda")
+        check(served.fields == sorted(EULER_OUT, key=str), f"fields {served.fields}")
+        reset_counts()
+        out = served.predict(x, pad_to_bucket=True)
+        launches = kernel_counts()
+        check(launches["taylor1"] == 1 and launches["taylor2"] == 0, f"launches {launches}")
+        vs_jax = {k: compare(k, out[k].ravel(), fx[f"predict_{k}"]) for k in EULER_OUT}
+        params = params_from_jax(net, "cuda")
+        with torch.inference_mode():
+            y, yx, yt = mlp_taylor_1_reference(spec, params, torch.from_numpy(x).cuda())
+            fields, res = euler_combine(y, yx, yt, gamma)
+        plain = dict(zip(EULER_OUT, (host(t) for t in fields + res)))
+        vs_plain = {k: compare(k, out[k], plain[k]) for k in EULER_OUT}
+        perm = np.random.default_rng(19).permutation(x.shape[0])
+        ragged = {}
+        for n in EULER_RAGGED:
+            idx = perm[:n]
+            o = served.predict(x[idx])
+            ragged[n] = max(compare(k, o[k].ravel(), fx[f"predict_{k}"][idx])["max_abs_err"]
+                            for k in EULER_OUT)
+        server = make_http_server(art, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            code, _, body = http(base + "/meta")
+            check(code == 200 and json.loads(body)["pde"] == "euler", "GET /meta")
+            x8 = x[perm[:8]]
+            code, _, body = http(base + "/predict", json.dumps({"x": x8.tolist()}).encode())
+            check(code == 200, f"JSON POST answered {code}: {body[:200]!r}")
+            want8 = served.predict(x8, pad_to_bucket=True)
+            got8 = {k: np.asarray(v, np.float32) for k, v in json.loads(body).items()}
+            check(sorted(got8) == sorted(want8)
+                  and all(np.array_equal(got8[k], want8[k]) for k in want8), "JSON predict")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "HTTP server thread did not stop")
+        predict_ms = host_ms(lambda: served.predict(x, pad_to_bucket=True))
+    emit(card, phase="euler-serve", grid=[157, 300], grid_err_vs_jax=grid_err, n=int(x.shape[0]),
+         bucket=served.bucket_size(x.shape[0]), vs_jax=vs_jax, vs_plain=vs_plain,
+         ragged_max_abs_err=ragged, http_points=8, launches=launches)
+    emit(card, phase="times", what="served_predict", net="2x200x5x3", pde="euler",
+         n=int(x.shape[0]), ms=predict_ms, points_per_s=x.shape[0] / (predict_ms / 1e3),
+         reps=REPS, clock="host")
+    return {"launches": launches, "predict_ms": predict_ms}
+
+
+def phase_k7a(card: str) -> dict:
+    """20: K7a and its backward against the plain versions on the card."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
+
+    out = {}
+    for layers, n in K7A_SHAPES:
+        spec, params, spec64, params64 = k7a_net(layers, 207, "cuda")
+        x = points(n, seed=n + 7, device="cuda")
+        rng = np.random.default_rng(n + 8)
+        cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32)).cuda()
+               for _ in range(3)]
+        with torch.inference_mode():
+            got = k_taylor1.taylor1(spec, params, x)
+            grad = k_taylor1.taylor1_backward(spec, params, x, cot)
+            again = k_taylor1.taylor1_backward(spec, params, x, cot)
+            plain = mlp_taylor_1_reference(spec, params, x)
+            exact = mlp_taylor_1_reference(spec64, params64, x.double())
+            pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
+            egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
+                                                         [c.double() for c in cot])
+        torch.cuda.synchronize()
+        check(torch.equal(grad, again), f"K7a backward not repeatable at {layers}, N {n}")
+        wide = max(layers) > 32
+        streams = {}
+        for name, g, p, e in zip(("y", "y_x", "y_t"), got, plain, exact):
+            streams[name] = (compare_f64(name, host(g), host(p), host(e)) if wide
+                             else compare(name, host(g), host(p)))
+        leaves, off = [], 0
+        for p, e in zip(pgrad, egrad):
+            g = host(grad[off:off + p.numel()])
+            off += p.numel()
+            row = measure("k7a_grad", g, host(p).ravel())
+            if wide or not row["ok"]:
+                row = dict(compare_f64("k7a_grad", g, host(p).ravel(), host(e).ravel()),
+                           max_abs_err=float(np.abs(g - host(p).ravel()).max()))
+            leaves.append(row)
+        fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        bwd_err = max(r["max_abs_err"] for r in leaves)
+        out[(layers, n)] = (fwd_err, bwd_err)
+        emit(card, phase="k7a", net=f"{len(layers) - 2}x{max(layers)}", out_dim=layers[-1], n=n,
+             criterion="f64_oracle" if wide else "tol_vs_plain",
+             plan=dataclasses.asdict(k_taylor1.taylor1_plan(layers, n, backward=True)),
+             streams=streams, forward_max_abs_err=fwd_err, backward_max_abs_err=bwd_err,
+             leaves_by_f64_oracle=sum("bound" in r for r in leaves), bit_equal=True)
+    return out
+
+
+def euler_state(fx: dict, device):
+    """The port's TrainState at the fixture's JAX initial state: params,
+    zero Adam moments, the tuple ADMM state, JAX's first batch."""
+    from pinns_tpu_torch.interop import train_state_from_jax
+
+    layers = tuple(int(w) for w in fx["layers"])
+    net = net_from_flat(fx["params_0"], layers)
+    zeros = [{k: np.zeros_like(v) for k, v in layer.items()} for layer in net]
+    coeffs = {"lambda1": np.ones(1, np.float32), "lambda2": np.zeros(1, np.float32)}
+    zc = {k: np.zeros_like(v) for k, v in coeffs.items()}
+    return train_state_from_jax({
+        "params": {"net": net, "coeffs": coeffs}, "count": 0,
+        "mu": {"net": zeros, "coeffs": zc}, "nu": {"net": zeros, "coeffs": zc},
+        "z": tuple(v.reshape(-1, 1) for v in fx["z_0"]),
+        "dual": tuple(v.reshape(-1, 1) for v in fx["dual_0"]),
+        "colloc": fx["colloc_0"], "epoch": 0}, device, key=int(fx["seed"]))
+
+
+def phase_euler_step(card: str) -> dict:
+    """21: one euler_admm Adam step on the card against JAX's, from the
+    fixture's state at its points, then the fixture's short replay."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train import trainer as tr
+
+    fx = euler_fixture()
+    layers = tuple(int(w) for w in fx["layers"])
+    exp = get_preset("euler_admm")
+    problem = tr.build_problem(exp, "cuda")
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    check(problem.spec.layers == layers, "fixture widths")
+    check(np.array_equal(host(problem.x_data), fx["x_data"])
+          and all(np.array_equal(host(problem.targets[k]), fx[f"{k}_data"]) for k in EULER_FIELDS),
+          "the port's IC/BC training set differs from JAX's")
+    state = euler_state(fx, problem.device)
+    lr, rho = exp.optimizer.learning_rate, exp.loss.rho
+    params = tr.tree_map(lambda t: t.detach().clone().requires_grad_(True), state.params)
+    reset_counts()
+    loss, aux = tr.make_loss_fn(problem)(params, state.colloc, state.admm)
+    grad = torch.autograd.grad(loss, tr.tree_leaves(params["net"]))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(launches["taylor1"] == 1 and launches["taylor1_backward"] == 1
+          and launches["mlp_forward"] == 1 and launches["mlp_backward"] == 1,
+          f"the loss's launches {launches}")
+    g64, _ = plain_gradient(p64, state.params, state.colloc, state.admm, torch.float64)
+    rows = {"loss": close("loss", float(loss.detach()), fx["loss_0"], scale=abs(float(fx["loss_0"]))),
+            "grad_0": close_grad(flat_np(grad), fx["grad_0"], layers, host(g64))}
+    step = tr.make_step(problem, lr)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(problem.device)  # noqa: E731
+    steps = max(int(k.split("_")[1]) for k in fx if k.startswith("metrics_"))
+    replay = []
+    for k in range(1, steps + 1):
+        z_prev = fx[f"dual_{k - 1}"]
+        state, m = step(state, new_colloc=t(fx[f"colloc_{k}"]))
+        m = {n: float(v) for n, v in m.items()}
+        want = dict(zip(tr.METRIC_KEYS, fx[f"metrics_{k}"].tolist()))
+        r = {n: close("loss", m[n], want[n], scale=abs(want["loss"]))
+             for n in ("loss", "data_term", "res_term")}
+        r["admm_misfit"] = close("admm_misfit", m["admm_misfit"], want["admm_misfit"],
+                                 scale=float(np.abs(fx[f"z_{k}"]).max()))
+        z = np.stack([host(v).ravel() for v in state.admm.z])
+        dual = np.stack([host(v).ravel() for v in state.admm.dual])
+        r["z"] = close("z", z, fx[f"z_{k}"])
+        r["dual"] = close("dual", dual, fx[f"dual_{k}"],
+                          scale=float(np.abs(z_prev).max() + rho * np.abs(fx[f"z_{k}"]).max()))
+        got = [host(v).astype(np.float64) for layer in state.params["net"] for v in layer.values()]
+        sums = np.asarray([(v.sum(), (v * v).sum()) for v in got])
+        r["leaf_sums"] = close("leaf_sums", sums, fx[f"sums_{k}"])
+        if k == 1:
+            r["params"] = close_adam_params(flat_np(tr.tree_leaves(state.params["net"])),
+                                            fx["params_1"], lr)
+        replay.append(r)
+    emit(card, phase="euler-step", preset="euler_admm", seed=int(fx["seed"]), step_0=rows,
+         launches=launches, replay_steps=len(replay), per_step=replay)
+    return {"grad_err": rows["grad_0"]["max_abs_err"]}
+
+
+def reduced_euler(preset: str, epochs: int, seed: int):
+    """``preset`` through Trainer.train on the card for ``epochs`` epochs:
+    (trainer, summary, logs, launches, plain calls, wall seconds); the counts
+    are set to 0 just before train and read just after."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train import trainer as tr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = override(get_preset(preset), {"train.epochs": epochs, "train.seed": seed,
+                                            "train.log_every": 1000, "train.out_dir": tmp})
+        trainer = tr.Trainer(exp, device="cuda")
+        state = trainer.init_state()
+        reset_counts()
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            state, summary = trainer.train(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        with open(os.path.join(tmp, f"{preset}_metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f if "summary" not in line]
+    check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
+    # an epoch: one loss forward and backward of K7a and K5, one K7a forward
+    # at the new points; the evaluation one more K7a forward
+    want = {"taylor1": 2 * epochs + 1, "taylor1_backward": epochs, "mlp_forward": epochs,
+            "mlp_backward": epochs, "fused_step": 0, "taylor2": 0, "taylor2_backward": 0}
+    check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
+    check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float))
+          and all(math.isfinite(summary[f"rel_l2_{f}"]) for f in EULER_FIELDS),
+          "non-finite metrics")
+    check(logs[-1]["loss"] < logs[0]["loss"], f"loss did not fall: {logs[0]['loss']} -> "
+          f"{logs[-1]['loss']}")
+    return trainer, summary, logs, launches, wall
+
+
+def phase_euler_train(card: str) -> dict:
+    """22: euler_admm at the fixture's reduced schedule for JAX's three band
+    seeds, the median rel-L2 of each field in the band; euler_admm_tuned once."""
+    fx = euler_fixture()
+    epochs, seeds, band_rel = int(fx["band_epochs"]), fx["band_seeds"].tolist(), fx["band_rel_l2"]
+    band = {f: (float(band_rel[:, i].min()) - EULER_MARGIN,
+                float(band_rel[:, i].max()) + EULER_MARGIN) for i, f in enumerate(EULER_FIELDS)}
+    runs = []
+    for seed in seeds:
+        trainer, summary, logs, launches, wall = reduced_euler("euler_admm", epochs, seed)
+        runs.append({"seed": seed, **{f: summary[f"rel_l2_{f}"] for f in EULER_FIELDS},
+                     "truth": summary["truth"], "wall_s": wall, "loss": [logs[0]["loss"],
+                     logs[-1]["loss"]], "launches": launches})
+        if seed == seeds[0]:
+            first = {"trainer": trainer, "launches": launches, "wall_s": wall}
+    median = {f: statistics.median(r[f] for r in runs) for f in EULER_FIELDS}
+    for f in EULER_FIELDS:
+        check(band[f][0] <= median[f] <= band[f][1],
+              f"median {f} rel-L2 {median[f]} outside the JAX band {band[f]}")
+    _, tuned, logs, t_launches, t_wall = reduced_euler("euler_admm_tuned", epochs, seeds[0])
+    emit(card, phase="euler-train", preset="euler_admm", epochs=epochs, runs=runs,
+         median_rel_l2=median, band={f: list(b) for f, b in band.items()},
+         jax_seeds={str(s): dict(zip(EULER_FIELDS, r)) for s, r in zip(seeds, band_rel.tolist())},
+         tuned={"seed": seeds[0], **{f: tuned[f"rel_l2_{f}"] for f in EULER_FIELDS},
+                "wall_s": t_wall, "launches": t_launches, "held": False})
+    return first
+
+
+def phase_euler_times(card: str, train: dict) -> dict:
+    """times: the Euler epoch through the trainer's step and the plain step
+    (CUDA events), a 1,000-epoch chunk, and K7a and its backward against
+    autograd through the plain version."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
+    from pinns_tpu_torch.train import trainer as tr
+
+    trainer = train["trainer"]
+    state = trainer.init_state(seed=3)
+    step = trainer._adam_step
+    plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
+    ms = event_ms(lambda: step(state))
+    plain_ms = event_ms(lambda: plain_step(state))
+    tr.run_chunk(step, state, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_chunk(step, state, 1000)
+    torch.cuda.synchronize()
+    chunk = time.perf_counter() - t0
+    emit(card, phase="times", what="euler_epoch", preset="euler_admm", epoch_ms=ms,
+         plain_ms=plain_ms, reps=REPS, clock="cuda_events", chunk_epochs=1000,
+         chunk_wall_s=chunk, epochs_per_s=1000 / chunk)
+    out = {"epoch": (ms, plain_ms, 1000 / chunk)}
+    for layers, n in K7A_TIMES:
+        spec, params, _, _ = k7a_net(layers, 207, "cuda")
+        leaves = [t.detach().clone().requires_grad_(True) for p in params for t in p.values()]
+        net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        x = points(n, seed=n + 9, device="cuda")
+        cot = [torch.ones((n, layers[-1]), device="cuda") for _ in range(3)]
+        with torch.no_grad():
+            fwd = event_ms(lambda: k_taylor1.taylor1(spec, params, x))
+            fwd_plain = event_ms(lambda: mlp_taylor_1_reference(spec, params, x))
+            bwd = event_ms(lambda: k_taylor1.taylor1_backward(spec, params, x, cot))
+        bwd_plain = event_ms(lambda: torch.autograd.grad(
+            mlp_taylor_1_reference(spec, net, x), leaves, cot))
+        out[(layers, n)] = (fwd, fwd_plain, bwd, bwd_plain)
+        emit(card, phase="times", what="k7a", net=f"{len(layers) - 2}x{max(layers)}", n=n,
+             forward_ms=fwd, forward_plain_ms=fwd_plain, backward_ms=bwd,
+             backward_plain_ms=bwd_plain, reps=REPS, clock="cuda_events",
+             forward_bound_ms=taylor1_bound(layers, n)[0],
+             backward_bound_ms=taylor1_backward_bound(layers, n)[0],
+             plain="mlp_taylor_1_reference; backward by autograd through it")
+    return out
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1703,6 +2115,13 @@ def main() -> int:
     scale = timed(card, "burgers_scale", phase_burgers_scale, card)
     t6 = timed(card, "times-k6", phase_k6_times, card, nets)
 
+    # -- 19-22 and times: the Euler slice (K7a, K5 at out_dim 3) ------------
+    timed(card, "euler-serve", phase_euler_serve, card)
+    k7a = timed(card, "k7a", phase_k7a, card)
+    timed(card, "euler-step", phase_euler_step, card)
+    euler = timed(card, "euler-train", phase_euler_train, card)
+    t7 = timed(card, "times-euler", phase_euler_times, card, euler)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -1801,6 +2220,26 @@ def main() -> int:
         "ms": k6_times[2],
         "plain_ms": k6_times[3],
         **bound_fields(k6_times[5]),
+    }, {
+        "name": "taylor1",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor1.cu",
+        "replaces": "pinns_tpu/ops/taylor.py:91",
+        "launches": euler["launches"]["taylor1"],
+        "max_abs_err": k7a[K7A_MAIN][0],
+        "ms": t7[K7A_MAIN][0],
+        "plain_ms": t7[K7A_MAIN][1],
+        **bound_fields(taylor1_bound(*K7A_MAIN)),
+    }, {
+        "name": "taylor1_backward",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor1.cu",
+        "replaces": "pinns_tpu/ops/taylor.py:91",
+        "launches": euler["launches"]["taylor1_backward"],
+        "max_abs_err": k7a[K7A_MAIN][1],
+        "ms": t7[K7A_MAIN][2],
+        "plain_ms": t7[K7A_MAIN][3],
+        **bound_fields(taylor1_backward_bound(*K7A_MAIN)),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,14 +10,16 @@
 
 ``train`` runs the preset's schedule (on cuda, an Adam epoch inside the fused
 step's scope is one call of K3, any other goes through the kernels under
-autograd) and prints the summary keys of the JAX CLI (``rel_l2_u``,
-``lambda1``, ``lambda2``, ``truth``, ``epochs``). ``--set`` overrides any
+autograd: K5 and K1/K2, or K7a for the Euler presets) and prints the summary
+keys of the JAX CLI (``rel_l2_u``, or ``rel_l2_rho`` / ``rel_l2_u`` /
+``rel_l2_E`` for Euler, ``lambda1``, ``lambda2``, ``truth``, ``epochs``). ``--set`` overrides any
 config field by its dotted key, as the JAX CLI's does: the value is a Python
 literal, else a string, e.g. the bf16 stream policy of ``burgers_scale``:
 
   --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)" ``export``
 takes a params file (``pinns_tpu_torch.interop`` format, e.g. written from a
-JAX run by ``scripts/make_torch_port_fixture.py``). ``--device`` defaults to
+JAX run by ``scripts/make_torch_port_fixture.py``); its ``pde`` key makes a
+Burgers or an Euler artifact. ``--device`` defaults to
 cuda and raises when no card is visible; pass ``--device cpu`` for the plain
 PyTorch path.
 """
@@ -75,7 +77,7 @@ def cmd_export(args) -> int:
     path = export_predict(
         loaded["spec"], loaded["params"], args.out,
         lambda1=loaded["lambda1"], lambda2=loaded["lambda2"],
-        experiment=loaded["experiment"],
+        experiment=loaded["experiment"], pde=loaded["pde"], gamma=loaded["gamma"],
     )
     print(path)
     return 0

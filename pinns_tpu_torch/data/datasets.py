@@ -16,7 +16,11 @@ port's solvers come with slice 7, so it reads, in this order:
    (``tests/fixtures/torch_port/<key>.npz``; ``twosin_burgers_shock``, which
    the JAX package generated once on the CPU).
 
-A key with none of these raises ``FileNotFoundError``.
+A key with none of these raises ``FileNotFoundError``. The Euler key
+``abgrall_eulers`` is generated instead of read from a fixture: the port's own
+copy of the JAX package's exact Riemann solver (``data.generators``) builds
+it in numpy float64, provenance 'native', as the JAX package does when the
+reference ``.mat`` is absent.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ BURGERS_DATASETS = {
     "burgers_shock": "Burgers/Data/burgers_shock.mat",
     "abgrall_burgers_shock": "Burgers/Data/Abgrall_burgers_shock.mat",
     "twosin_burgers_shock": "Burgers/Data/TwoSin_burgers_shock.mat",
+}
+EULER_DATASETS = {
+    "abgrall_eulers": "Eulers/Data/Abgrall_eulers.mat",
 }
 GRID_DIR = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "torch_port"
 
@@ -122,8 +129,43 @@ def load_burgers_mat(name_or_path: str = "twosin_burgers_shock") -> GridDataset:
     )
 
 
+def _euler_grid(name_or_path: str) -> dict:
+    """The Euler grid's arrays: an explicit .mat/.npz path, the reference
+    .mat under ``$PINNS_TPU_DATA_ROOT``, else the native exact grid."""
+    if name_or_path not in EULER_DATASETS:
+        if os.path.exists(name_or_path):
+            return _read_grid(name_or_path)
+        raise FileNotFoundError(
+            f"dataset {name_or_path!r} is neither a known key "
+            f"({sorted(EULER_DATASETS)}) nor an existing .mat/.npz file"
+        )
+    root = os.environ.get("PINNS_TPU_DATA_ROOT")
+    if root:
+        mat = os.path.join(root, EULER_DATASETS[name_or_path])
+        if os.path.exists(mat):
+            return _read_grid(mat)
+    from pinns_tpu_torch.data.generators import make_abgrall_eulers_grid
+
+    return dict(make_abgrall_eulers_grid(), _provenance="native")
+
+
 def load_euler_mat(name_or_path: str = "abgrall_eulers") -> GridDataset:
-    raise NotImplementedError("Euler datasets are ported with slice 2 (Euler)")
+    """Load the Euler {x, t, rhosol, usol, Enersol} grid from a dataset key or
+    a path; the key builds the exact grid natively when no reference .mat is
+    found (see the module docstring)."""
+    d = _euler_grid(name_or_path)
+    name = name_or_path if name_or_path in EULER_DATASETS else Path(name_or_path).stem
+    return GridDataset(
+        x=d["x"],
+        t=d["t"],
+        fields={  # stored (Nx, Nt) -> (Nt, Nx)
+            "rho": np.real(d["rhosol"]).T,
+            "u": np.real(d["usol"]).T,
+            "E": np.real(d["Enersol"]).T,
+        },
+        name=name,
+        provenance=d["_provenance"],
+    )
 
 
 def ic_bc_candidates(ds: GridDataset) -> np.ndarray:

@@ -10,8 +10,10 @@ so conversion is a copy in each direction. A whole training state
 The params file (``.npz``) holds
   ``layers`` (int64), ``lb``/``ub`` (float64, as the spec holds them),
   ``W{i}``/``b{i}`` per layer, ``lambda1``/``lambda2`` (the Burgers
-  coefficients), and optionally ``experiment`` (a name string).
-Other keys are ignored on load, so a file may carry extra arrays beside them.
+  coefficients), ``pde`` ('burgers' or 'euler') and ``gamma`` (the Euler
+  system's ratio of specific heats), and optionally ``experiment`` (a name
+  string). A file without ``pde`` is a Burgers one (``gamma`` 1.4). Other
+  keys are ignored on load, so a file may carry extra arrays beside them.
 """
 
 from __future__ import annotations
@@ -60,11 +62,13 @@ def save_params_npz(
     lambda1: float,
     lambda2: float,
     experiment: Optional[str] = None,
+    pde: str = "burgers",
+    gamma: float = 1.4,
     **extra: np.ndarray,
 ) -> str:
     """Write ``params`` (port tensors or JAX-layout numpy) with the spec's
-    widths and bounds and the Burgers coefficients; ``extra`` arrays ride
-    along under their own names."""
+    widths and bounds, the Burgers coefficients and the PDE; ``extra`` arrays
+    ride along under their own names."""
     if params and isinstance(params[0]["W"], torch.Tensor):
         params = params_to_numpy(params)
     if len(params) != len(spec.layers) - 1:
@@ -77,6 +81,8 @@ def save_params_npz(
         "ub": np.asarray(spec.ub, np.float64),
         "lambda1": np.asarray(lambda1, np.float32).reshape(()),
         "lambda2": np.asarray(lambda2, np.float32).reshape(()),
+        "pde": np.asarray(pde),
+        "gamma": np.asarray(gamma, np.float64).reshape(()),
     }
     for i, layer in enumerate(params):
         arrays[f"W{i}"] = np.asarray(layer["W"], np.float32)
@@ -89,7 +95,7 @@ def save_params_npz(
 
 def load_params_npz(path: str) -> dict:
     """Read a params file: ``{"spec", "params" (numpy, JAX layout),
-    "lambda1", "lambda2", "experiment"}``."""
+    "lambda1", "lambda2", "pde", "gamma", "experiment"}``."""
     with np.load(path, allow_pickle=False) as z:
         layers = tuple(int(w) for w in z["layers"])
         spec = MLPSpec(layers=layers, lb=tuple(z["lb"]), ub=tuple(z["ub"]))
@@ -107,6 +113,8 @@ def load_params_npz(path: str) -> dict:
             "params": params,
             "lambda1": float(z["lambda1"]),
             "lambda2": float(z["lambda2"]),
+            "pde": str(z["pde"]) if "pde" in z else "burgers",
+            "gamma": float(z["gamma"]) if "gamma" in z else 1.4,
             "experiment": str(z["experiment"]) if "experiment" in z else None,
         }
 

@@ -1,0 +1,304 @@
+"""Wrapper of K7a, the Taylor-1 streams of the tanh MLP and their backward
+(``csrc/taylor1.cu``), bound as one ``torch.autograd.Function``, and the
+backward's algorithm in plain PyTorch.
+
+K7a computes (y, y_x, y_t), each (N, out_dim) float32, for N points (N, 2):
+the value stream s = tanh(p) and the derivative streams h_d = (1 - s^2) p_d
+through every hidden layer, the bias on the value stream only, the input
+rescale's chain rule on the first layer. It replaces the XLA program of
+``pinns_tpu/ops/taylor.py::mlp_taylor_1`` (``:91-129``; JAX had no Pallas
+kernel for it), which carries the strong Euler residual at every collocation
+and served point. Its plain versions are ``ops.taylor.mlp_taylor_1_reference``
+(forward) and :func:`taylor1_backward_reference` (the reverse mode, also in
+float64).
+
+The design is K2's whole-call layer-product design with three streams and no
+second-order term, on the engine of ``csrc/layer_gemm.cuh``: the three
+streams stacked stream-major into one (3 n_pad x width) matrix per layer, the
+bias's indicator column 1 on value rows and 0 on derivative rows, one product
+P = H [W; b] and one elementwise pass a hidden layer (the header of
+``csrc/taylor1.cu`` has the rest and what bounds it on the H100).
+:func:`taylor1_plan` picks the block tile from the number of points (K5's
+rule: 32 x 32 until the products give about one 128 x 128 block an SM), dW's
+split and the scratch.
+
+It takes float32 specs only: a mixed stream policy raises, naming the slice
+that would bring it. The wrappers validate what the kernels assume and raise
+otherwise; they never fall back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import threading
+from typing import List, Sequence, Tuple
+
+import torch
+
+from pinns_tpu_torch.models.mlp import MLPSpec, Params, input_scale, normalize_inputs
+from pinns_tpu_torch.ops.kernels import build
+from pinns_tpu_torch.ops.kernels.taylor2 import check_call, pack_params, split_grad
+from pinns_tpu_torch.ops.taylor import _StreamPolicy, taylor1_layer
+
+LAUNCHES = 0  # K7a forward calls in this process (chip_smoke.py reads it)
+BACKWARD_LAUNCHES = 0  # K7a backward calls (one host call issues all its launches)
+_launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
+
+STREAMS = 3
+MAX_WIDTH = 256
+MAX_LAYERS = 32
+# points padded to a multiple of EW_TILE (the row tile of the elementwise
+# passes and of db's per-tile sums), so that a product's row tile lies in one
+# stream; the block tile SMALL_TILE (32 x 32, 64 threads) unless the hidden
+# products cut into LARGE_TILE (128 x 128, 256 threads) tiles give at least
+# LARGE_TILE_MIN_BLOCKS blocks (K5's rule); dW's sum over the stacked rows
+# split into chunks of whole SPLIT_STEP rows, at most MAX_SPLIT_ROWS, enough
+# of them that the widest layer's dW takes about SPLIT_BLOCKS blocks (K3's
+# target: short float32 chains)
+EW_TILE = 128
+SMALL_TILE = 32
+LARGE_TILE = 128
+LARGE_TILE_MIN_BLOCKS = 128
+SPLIT_BLOCKS = 1600
+SPLIT_STEP = 32
+MAX_SPLIT_ROWS = 1024
+
+
+def _ld_h(width: int) -> int:
+    """The row pitch of a stacked input of this width: its columns, the
+    bias's indicator, padded to 4 floats (``ld_h`` in the kernel)."""
+    return (width + 4) // 4 * 4
+
+
+def _align4(floats: int) -> int:
+    return -(-floats // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Taylor1Plan:
+    """How K7a lays out a call of n points: the points padded to ``n_pad``,
+    the products' block ``tile``, dW's sum over the 3 n_pad stacked rows cut
+    into ``splits`` chunks of ``split_rows`` (0 and 0 in a forward plan), and
+    the parts of its float32 scratch (in floats, each rounded up to 16 bytes,
+    in the kernel's order): db's per-tile sums (doubles), the stacked input
+    streams H_0, the pre-activations (one layer's in a forward plan, every
+    hidden layer's in a backward plan), one layer's stacked inputs, two
+    adjoint buffers and the split partials. The kernel lays the scratch out
+    itself and refuses a plan that does not fit it."""
+
+    tile: int
+    n_pad: int
+    split_rows: int
+    splits: int
+    sums: int
+    h0: int
+    pstore: int
+    hbuf: int
+    gbuf: int
+    partials: int
+
+    @property
+    def scratch_floats(self) -> int:
+        return self.sums + self.h0 + self.pstore + self.hbuf + self.gbuf + self.partials
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.scratch_floats
+
+
+def taylor1_plan(layers: Sequence[int], n: int, backward: bool = False) -> Taylor1Plan:
+    """K7a's plan for ``n`` points through a net of these widths (the
+    forward's, or the backward's with ``backward``)."""
+    layers = tuple(int(w) for w in layers)
+    if max(layers) > MAX_WIDTH:
+        raise ValueError(f"taylor1 kernel takes widths up to {MAX_WIDTH}, got {max(layers)}")
+    if len(layers) - 1 > MAX_LAYERS:
+        raise ValueError(f"taylor1 kernel takes up to {MAX_LAYERS} layers")
+    n_pad = max(1, -(-n // EW_TILE)) * EW_TILE
+    rows = STREAMS * n_pad
+    hidden = layers[1:-1] or layers
+    blocks = (rows // LARGE_TILE) * -(-max(hidden) // LARGE_TILE)
+    tile = LARGE_TILE if blocks >= LARGE_TILE_MIN_BLOCKS else SMALL_TILE
+    wmax = max(layers)
+    h0, hbuf = rows * _ld_h(2), rows * _ld_h(wmax)
+    if not backward:
+        return Taylor1Plan(tile=tile, n_pad=n_pad, split_rows=0, splits=0, sums=0, h0=h0,
+                           pstore=rows * wmax, hbuf=hbuf, gbuf=0, partials=0)
+    pairs = list(zip(layers[:-1], layers[1:]))
+    steps = rows // SPLIT_STEP
+    pieces = max(-(-din // tile) * -(-dout // tile) for din, dout in pairs)
+    per_split = min(MAX_SPLIT_ROWS // SPLIT_STEP, -(-steps // -(-SPLIT_BLOCKS // pieces)))
+    splits = -(-steps // per_split)
+    n_params = sum(din * dout + dout for din, dout in pairs)
+    return Taylor1Plan(
+        tile=tile, n_pad=n_pad, split_rows=per_split * SPLIT_STEP, splits=splits,
+        sums=_align4(2 * len(pairs) * (n_pad // EW_TILE) * wmax), h0=h0,
+        pstore=rows * sum(layers[1:-1]), hbuf=hbuf, gbuf=2 * rows * wmax,
+        partials=_align4(splits * n_params))
+
+
+def _lib():
+    lib = build.load_library("taylor1")
+    if not getattr(lib, "_pinns_typed", False):
+        p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.pinns_taylor1_forward.argtypes = [
+            p, i, p, p, i, f, f, f, f, i, i, p, q, p, p, p, i, p,
+        ]
+        lib.pinns_taylor1_forward.restype = i
+        lib.pinns_taylor1_backward.argtypes = [
+            p, i, p, p, i, f, f, f, f, i, i, i, i, p, p, p, p, q, p, i, p,
+        ]
+        lib.pinns_taylor1_backward.restype = i
+        lib.pinns_taylor1_error_string.argtypes = [i]
+        lib.pinns_taylor1_error_string.restype = ctypes.c_char_p
+        lib._pinns_typed = True
+    return lib
+
+
+def check_spec(spec: MLPSpec) -> None:
+    """Raise unless K7a takes ``spec``: float32 streams (``check_call``
+    checks the dtypes of the tensors)."""
+    if spec.mixed:
+        raise ValueError(
+            "the taylor1 kernel (K7a) takes float32 specs only; the mixed stream "
+            "policy on the Taylor-1 streams is left to a later slice (ROADMAP queue 2, K7a)")
+
+
+def _raise(lib, err: int, what: str, plan: Taylor1Plan) -> None:
+    msg = lib.pinns_taylor1_error_string(err).decode()
+    raise RuntimeError(f"taylor1 {what} launch failed: CUDA error {err} ({msg}); {plan}")
+
+
+def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, y_x, y_t), each (N, out_dim) float32, from one host call of K7a's
+    forward. ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA
+    device; ``params`` the JAX-layout layers on the same device. Raises on
+    anything else."""
+    global LAUNCHES
+    check_spec(spec)
+    check_call("taylor1", spec, params, x)
+    layers = spec.layers
+    n = x.shape[0]
+    outs = tuple(torch.empty((n, spec.out_dim), dtype=torch.float32, device=x.device)
+                 for _ in range(STREAMS))
+    if n == 0:
+        return outs
+    plan = taylor1_plan(layers, n)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+    lib = _lib()
+    dims = (ctypes.c_int * len(layers))(*layers)
+    flat = pack_params(params)
+    err = lib.pinns_taylor1_forward(
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+        spec.ub[0], spec.ub[1], plan.n_pad, plan.tile, scratch.data_ptr(),
+        plan.scratch_floats, *(o.data_ptr() for o in outs), x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        _raise(lib, err, "forward", plan)
+    with _launches_lock:
+        LAUNCHES += 1
+    return outs
+
+
+def taylor1_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
+                     cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K7a's backward: the flat gradient (``pack_params`` order) of sum over
+    points of gy . y + gyx . y_x + gyt . y_t, where ``cotangents`` = (gy, gyx,
+    gyt), each (N, out_dim) float32, contiguous, on ``x``'s CUDA device. One
+    host call that issues every product, elementwise pass and the reduction
+    (``taylor1_plan``); raises on anything the kernel does not take."""
+    global BACKWARD_LAUNCHES
+    if len(cotangents) != STREAMS:
+        raise ValueError(f"taylor1 backward takes {STREAMS} stream cotangents, "
+                         f"got {len(cotangents)}")
+    check_spec(spec)
+    check_call("taylor1 backward", spec, params, x, *cotangents)
+    layers = spec.layers
+    n = x.shape[0]
+    grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return grad.zero_()
+    plan = taylor1_plan(layers, n, backward=True)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+    lib = _lib()
+    dims = (ctypes.c_int * len(layers))(*layers)
+    flat = pack_params(params)
+    err = lib.pinns_taylor1_backward(
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+        spec.ub[0], spec.ub[1], plan.n_pad, plan.tile, plan.split_rows, plan.splits,
+        *(g.data_ptr() for g in cotangents), scratch.data_ptr(), plan.scratch_floats,
+        grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        _raise(lib, err, "backward", plan)
+    with _launches_lock:
+        BACKWARD_LAUNCHES += 1
+    return grad
+
+
+class _Taylor1(torch.autograd.Function):
+    """K7a's forward, its backward as the VJP (w.r.t. the params only).
+    Saves only (x, params): the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *leaves):
+        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        ctx.spec = spec
+        ctx.save_for_backward(x, *leaves)
+        return taylor1(spec, params, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cotangents):
+        x, *leaves = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("the taylor1 kernels give no gradient with respect "
+                                      "to the input points")
+        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        grad = taylor1_backward(ctx.spec, params, x, [g.contiguous() for g in cotangents])
+        return (None, None, *split_grad(grad, leaves))
+
+
+def mlp_taylor1_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
+    """(y, y_x, y_t) through K7a, differentiable in the params through its
+    backward. CUDA tensors only (the wrappers raise on anything else)."""
+    leaves = [t for layer in params for t in (layer["W"], layer["b"])]
+    return _Taylor1.apply(spec, x, *leaves)
+
+
+def taylor1_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
+                               cotangents) -> List[torch.Tensor]:
+    """K7a's backward in plain PyTorch: [dW_0, db_0, dW_1, ...] (W leaves
+    (din, dout), b leaves (1, dout)) of sum over points of the cotangents
+    (gy, gyx, gyt), each (N, out_dim), dotted with (y, y_x, y_t). It computes
+    in ``spec.dtype`` (float64 with a float64 spec, params, points and
+    cotangents). For a hidden layer with s = tanh p and output adjoints
+    (gh, ghx, ght): gp = (1 - s^2) (gh - 2 s (ghx px + ght pt)),
+    gpx = ghx (1 - s^2), gpt = ght (1 - s^2)."""
+    pol = _StreamPolicy(spec)
+    h = normalize_inputs(spec, x)
+    scale = input_scale(spec, x.device)
+    ex = torch.zeros_like(h)
+    ex[:, 0] = scale[0]
+    et = torch.zeros_like(h)
+    et[:, 1] = scale[1]
+    streams = (h, ex, et)
+    saved = []  # (pre-activation streams, tanh factors) of each hidden layer
+    inputs = [streams]
+    for i, layer in enumerate(net[:-1]):
+        pre, tanh, streams = taylor1_layer(pol, streams, layer["W"], layer["b"], i == 0)
+        saved.append((pre, tanh))
+        inputs.append(streams)
+    grads: List[torch.Tensor] = [None] * (2 * len(net))  # type: ignore[list-item]
+    G = tuple(g.reshape(x.shape[0], -1) for g in cotangents)
+    for l in range(len(net) - 1, -1, -1):
+        X = inputs[l]
+        grads[2 * l] = sum(X[s].T @ G[s] for s in range(STREAMS))
+        grads[2 * l + 1] = G[0].sum(dim=0, keepdim=True)
+        if l > 0:
+            w = net[l]["W"]
+            gh, ghx, ght = (g @ w.T for g in G)
+            (_, px, pt), (s, sp) = saved[l - 1]
+            G = (sp * (gh - 2.0 * s * (ghx * px + ght * pt)), ghx * sp, ght * sp)
+    return grads

@@ -1,5 +1,5 @@
 """Taylor-mode derivative streams through the tanh MLP (port of
-``pinns_tpu/ops/taylor.py::mlp_taylor_2``).
+``pinns_tpu/ops/taylor.py::mlp_taylor_2`` and ``mlp_taylor_1``).
 
 One forward pass carries (value, d/dx, d/dt, d2/dx2) layer by layer:
 
@@ -21,6 +21,16 @@ plain PyTorch recurrence (``mlp_taylor_2_reference``); a CUDA tensor runs the
 fused kernel K1 (float32) or K6 (the mixed policy on float32 masters), each
 differentiable in the params through its backward kernel
 (``ops.kernels.taylor2``). Each either launches or raises.
+
+``mlp_taylor_1`` carries the first-order streams only (value, d/dx, d/dt:
+the Euler residuals need no second derivative):
+
+  P = H @ W + b    Px = Hx @ W    Pt = Ht @ W
+  H = tanh(P)      Hx = (1 - H^2) Px    Ht = (1 - H^2) Pt
+
+with the same dispatch: the plain recurrence (``mlp_taylor_1_reference``) on
+the CPU, kernel K7a and its backward (``ops.kernels.taylor1``) on a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, embed_streams, normalize_inputs
 
 Streams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Streams1 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # the policy's name for each of the four streams (u, u_x, u_t, u_xx)
 POLICY_STREAMS = ("value", "deriv", "deriv", "xx")
 
@@ -76,9 +87,9 @@ class _StreamPolicy:
         return w.to(self.cdtype).to(self.spec.dtype)
 
 
-def _check(spec: MLPSpec) -> None:
+def _check(spec: MLPSpec, name: str = "mlp_taylor_2") -> None:
     if spec.in_dim != 2:
-        raise ValueError("mlp_taylor_2 expects in_dim == 2 (x, t)")
+        raise ValueError(f"{name} expects in_dim == 2 (x, t)")
 
 
 def taylor2_layer(pol: _StreamPolicy, streams, w, b, first: bool):
@@ -133,3 +144,53 @@ def mlp_taylor_2(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams:
     from pinns_tpu_torch.ops.kernels.taylor2 import mlp_taylor2_kernel
 
     return mlp_taylor2_kernel(spec, params, x)
+
+
+def taylor1_layer(pol: _StreamPolicy, streams, w, b, first: bool):
+    """One hidden layer of the first-order recurrence under the policy: the
+    pre-activation streams after ``act`` (p, px, pt), the tanh factors
+    (s, s') and the stored output streams, in the JAX package's operation
+    order (``pinns_tpu/ops/taylor.py:114-124``)."""
+    h, hx, ht = streams
+    p = pol.act(pol.dot(h, w, "value", first) + b, "value", first)
+    px = pol.act(pol.dot(hx, w, "deriv", first), "deriv", first)
+    pt = pol.act(pol.dot(ht, w, "deriv", first), "deriv", first)
+    s = torch.tanh(p)
+    sp = 1.0 - s * s
+    out = (pol.store(s, "value"), pol.store(sp * px, "deriv"), pol.store(sp * pt, "deriv"))
+    return (p, px, pt), (s, sp), out
+
+
+def mlp_taylor_1_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams1:
+    """(y, y_x, y_t), each (N, out_dim) in ``spec.dtype``: the plain PyTorch
+    first-order recurrence (``pinns_tpu/ops/taylor.py:91-129``) on ``x``'s
+    device, the derivatives taken w.r.t. the raw (x, t) through the input
+    rescale."""
+    _check(spec, "mlp_taylor_1")
+    pol = _StreamPolicy(spec)
+    h, hx, ht, _ = embed_streams(spec, normalize_inputs(spec, x))
+    streams = (h, hx, ht)
+    for i, layer in enumerate(params[:-1]):
+        # the first layer consumes exact coordinates: never quantized
+        _, _, streams = taylor1_layer(pol, streams, layer["W"], layer["b"], i == 0)
+    h, hx, ht = streams
+    w, b = params[-1]["W"], params[-1]["b"]
+    y_x, y_t = pol.dot(hx, w, "deriv"), pol.dot(ht, w, "deriv")
+    n = x.shape[0]
+    # a net without hidden layers keeps (1, out) tangent rows: broadcast them
+    return pol.dot(h, w, "value") + b, y_x.expand(n, -1), y_t.expand(n, -1)
+
+
+def mlp_taylor_1(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams1:
+    """Value and first derivatives along x and t of the MLP at x (N, 2).
+
+    CPU tensors take the plain recurrence; anything else goes to the fused
+    kernel K7a, differentiable in the params through its backward kernel
+    (``ops.kernels.taylor1``), which raises on what it cannot take.
+    """
+    _check(spec, "mlp_taylor_1")
+    if x.device.type == "cpu":
+        return mlp_taylor_1_reference(spec, params, x)
+    from pinns_tpu_torch.ops.kernels.taylor1 import mlp_taylor1_kernel
+
+    return mlp_taylor1_kernel(spec, params, x)

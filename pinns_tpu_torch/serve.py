@@ -10,9 +10,10 @@ has its own artifact: a directory with
                   params-file format of ``pinns_tpu_torch.interop``.
 
 ``ServedModel(path, device=...)`` puts the weights on its device once and
-answers ``predict(x)`` through ``train.evaluate.burgers_fields`` — on a CUDA
-device, the fused Taylor-2 kernel. Ensemble artifacts and calibrated bands
-come with slice 4.
+answers ``predict(x)`` through ``train.evaluate.burgers_fields`` ({f, u}) or,
+for an artifact whose ``pde`` is 'euler', ``euler_fields`` ({rho, u, E, f1,
+f2, f3}) — on a CUDA device, the fused Taylor-2 kernel (K1) or the Taylor-1
+kernel (K7a). Ensemble artifacts and calibrated bands come with slice 4.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ from pinns_tpu_torch import __version__
 from pinns_tpu_torch.device import pin_numerics, resolve_device
 from pinns_tpu_torch.interop import load_params_npz, params_from_jax, save_params_npz
 from pinns_tpu_torch.models.mlp import MLPSpec
-from pinns_tpu_torch.train.evaluate import burgers_fields
+from pinns_tpu_torch.train.evaluate import burgers_fields, euler_fields
 
 _META_NAME = "meta.json"
 _PARAMS_NAME = "params.npz"
+# the artifact's output names per PDE, sorted as the JAX export lists them
+FIELDS = {"burgers": ["f", "u"], "euler": ["E", "f1", "f2", "f3", "rho", "u"]}
 
 
 def export_predict(
@@ -42,31 +45,34 @@ def export_predict(
     lambda1: float,
     lambda2: float,
     experiment: Optional[str] = None,
+    pde: str = "burgers",
+    gamma: float = 1.4,
 ) -> str:
-    """Write a serving artifact for the Burgers prediction function
-    (fields + residual) with the given params (port tensors or JAX-layout
-    numpy). Returns ``path``. Euler artifacts come with slice 2."""
+    """Write a serving artifact for the prediction function (fields and
+    residuals) of ``pde`` ('burgers' or 'euler', whose net has the 3 outputs
+    rho, u, E) with the given params (port tensors or JAX-layout numpy).
+    Returns ``path``."""
+    if pde not in FIELDS:
+        raise ValueError(f"unknown pde {pde!r}: expected one of {sorted(FIELDS)}")
     os.makedirs(path, exist_ok=True)
     save_params_npz(
         os.path.join(path, _PARAMS_NAME), spec, params, lambda1, lambda2,
-        experiment=experiment,
+        experiment=experiment, pde=pde, gamma=gamma,
     )
+    config = {"layers": list(spec.layers), "lb": list(spec.lb), "ub": list(spec.ub),
+              "lambda1": float(lambda1), "lambda2": float(lambda2)}
+    if pde == "euler":
+        config["gamma"] = float(gamma)
     meta = {
         "experiment": experiment,
-        "fields": ["f", "u"],
+        "fields": FIELDS[pde],
         "input": {"shape": ["b", 2], "dtype": "float32"},
-        "pde": "burgers",
+        "pde": pde,
         "provenance": {
             "framework": f"pinns_tpu_torch {__version__}",
             "exported_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
             "export_backend": f"torch {torch.__version__}",
-            "config": {
-                "layers": list(spec.layers),
-                "lb": list(spec.lb),
-                "ub": list(spec.ub),
-                "lambda1": float(lambda1),
-                "lambda2": float(lambda2),
-            },
+            "config": config,
         },
     }
     with open(os.path.join(path, _META_NAME), "w") as f:
@@ -85,12 +91,12 @@ class ServedModel:
         self.device = resolve_device(device)
         with open(os.path.join(path, _META_NAME)) as f:
             self.meta = json.load(f)
-        if self.meta.get("pde", "burgers") != "burgers":
-            raise NotImplementedError(
-                f"pde {self.meta['pde']!r}: Euler artifacts come with slice 2"
-            )
+        self.pde = self.meta.get("pde", "burgers")
+        if self.pde not in FIELDS:
+            raise ValueError(f"artifact pde {self.pde!r}: expected one of {sorted(FIELDS)}")
         loaded = load_params_npz(os.path.join(path, _PARAMS_NAME))
         self.spec: MLPSpec = loaded["spec"]
+        self.gamma = loaded["gamma"]
         self.params = params_from_jax(loaded["params"], self.device)
         self.lambda1 = torch.tensor(loaded["lambda1"], dtype=torch.float32, device=self.device)
         self.lambda2 = torch.tensor(loaded["lambda2"], dtype=torch.float32, device=self.device)
@@ -123,7 +129,10 @@ class ServedModel:
         pin_numerics()  # another caller in this process may have lowered them
         with torch.inference_mode():
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            out = burgers_fields(self.spec, self.params, xt, self.lambda1, self.lambda2)
+            if self.pde == "euler":
+                out = euler_fields(self.spec, self.params, xt, self.gamma)
+            else:
+                out = burgers_fields(self.spec, self.params, xt, self.lambda1, self.lambda2)
             return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
 

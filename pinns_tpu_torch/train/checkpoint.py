@@ -29,7 +29,7 @@ def state_to_dict(state) -> dict:
         "adam": {"count": int(opt.count), "mu": tree_map(cpu, opt.mu),
                  "nu": tree_map(cpu, opt.nu)},
         "admm": None if state.admm is None
-        else {"z": cpu(state.admm.z), "dual": cpu(state.admm.dual)},
+        else {"z": tree_map(cpu, state.admm.z), "dual": tree_map(cpu, state.admm.dual)},
         "colloc": cpu(state.colloc),
         "key": int(state.key),
         "epoch": int(state.epoch),
@@ -48,7 +48,8 @@ def state_from_dict(d: dict, device):
         params=tree_map(dev, d["params"]),
         opt_state=AdamState(count=int(d["adam"]["count"]), mu=tree_map(dev, d["adam"]["mu"]),
                             nu=tree_map(dev, d["adam"]["nu"])),
-        admm=None if admm is None else ADMMState(z=dev(admm["z"]), dual=dev(admm["dual"])),
+        admm=None if admm is None else ADMMState(z=tree_map(dev, admm["z"]),
+                                                 dual=tree_map(dev, admm["dual"])),
         colloc=dev(d["colloc"]),
         key=int(d["key"]),
         epoch=int(d["epoch"]),

@@ -4,9 +4,9 @@
 a ``Problem`` and the params tree {'net', 'coeffs'}, as in JAX, and evaluates
 the network fields and PDE residuals in one pass under the problem's spec, so
 a run with a mixed stream policy is evaluated through that policy, as JAX's
-is: on a CUDA device through the fused Taylor-2 kernel (K1, or K6 for a
-mixed spec). ``burgers_fields`` is the same pass for callers that
-hold a bare network and coefficients (the served model).
+is: on a CUDA device through the fused Taylor kernels (K1, or K6 for a mixed
+spec, for Burgers; K7a for Euler). ``burgers_fields`` and ``euler_fields``
+are the same passes for callers that hold a bare network (the served model).
 """
 
 from __future__ import annotations
@@ -36,13 +36,23 @@ def burgers_fields(
     return {"u": u, "f": f}
 
 
+def euler_fields(spec: MLPSpec, net: Params, x: torch.Tensor,
+                 gamma: float = 1.4) -> Dict[str, torch.Tensor]:
+    """{'rho', 'u', 'E', 'f1', 'f2', 'f3'}, each (N, 1), of an Euler network
+    at points x (N, 2)."""
+    from pinns_tpu_torch.ops.residuals import euler_residuals
+
+    (rho, u, e), (f1, f2, f3) = euler_residuals(spec, net, x, gamma)
+    return {"rho": rho, "u": u, "E": e, "f1": f1, "f2": f2, "f3": f3}
+
+
 def predict_fields(problem, params, x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Network fields and PDE residuals at points x (N, 2): {'u', 'f'} for
-    Burgers. Euler ({'rho','u','E','f1','f2','f3'}) comes with slice 2."""
-    if problem.exp.pde.kind != "burgers":
-        raise NotImplementedError(
-            f"pde {problem.exp.pde.kind!r}: the Euler prediction path is ported "
-            "with slice 2"
-        )
+    Burgers, {'rho', 'u', 'E', 'f1', 'f2', 'f3'} for Euler."""
+    exp = problem.exp
+    if exp.pde.kind == "euler":
+        return euler_fields(problem.spec, params["net"], x, exp.pde.gamma)
+    if exp.pde.kind != "burgers":
+        raise ValueError(f"unknown pde kind {exp.pde.kind!r}")
     lam1, lam2 = problem.effective_coeffs(params)
     return burgers_fields(problem.spec, params["net"], x, lam1, lam2)

@@ -1,5 +1,5 @@
-"""The training core for the Burgers strong form (port of
-``pinns_tpu/train/trainer.py``).
+"""The training core for the strong form of Burgers and of the Euler system
+(port of ``pinns_tpu/train/trainer.py``).
 
 One Adam epoch does what the JAX step does, in the reference's order
 (``Abgrall_ADMM.py:220-226``):
@@ -16,9 +16,10 @@ back once per logged chunk, in place of ``lax.scan`` in ``make_chunked``;
 ``optimizer.switch_epoch`` under 'hybrid'.
 
 The loss goes through ``mlp_apply`` (data term) and ``mlp_taylor_2``
-(residual), which dispatch on the device: the plain PyTorch versions on the
-CPU, the hand-written kernels on a CUDA device (K5 forward and backward, K1
-forward and K2 backward), differentiated by ``torch.autograd`` around them.
+(Burgers residual) or ``mlp_taylor_1`` (Euler residuals), which dispatch on
+the device: the plain PyTorch versions on the CPU, the hand-written kernels on
+a CUDA device (K5 forward and backward; K1 forward and K2 backward; K7a
+forward and backward), differentiated by ``torch.autograd`` around them.
 ``plain=True`` forces the plain versions on any device (the card's checks
 hold the kernels against them). Two Adam steps compute an epoch:
 - ``make_adam_step``: autograd through that loss, then Adam. The CPU trainer
@@ -29,7 +30,13 @@ hold the kernels against them). Two Adam steps compute an epoch:
   the configuration is inside its scope.
 
 Resampling draws with counter-based Philox keyed by the run's seed and the
-epoch (``data.sampling.philox_uniform``), so both steps draw the same points.
+epoch (``data.sampling.philox_uniform``), so both steps draw the same points,
+inside the time curriculum's bounds when it is on (``_curriculum_bounds``).
+
+The Euler system (``pde.kind == 'euler'``) has three residuals (mass,
+momentum, energy) from one Taylor-1 pass of a 3-output net: every residual
+term sums over them, the ADMM state is a tuple, and the data term sums the
+three fields' misfits, weighted by ``loss.data_field_weights``.
 
 The residual term runs over ``sampling.microbatch`` chunks of the batch when
 it is above 1 (``_residual_term``), each under the ``microbatch_remat``
@@ -38,9 +45,9 @@ policy, and the spec carries the model's stream policy (``compute_dtype``,
 the card.
 
 What the port leaves to later slices, each raising ``NotImplementedError``
-with the slice's name: Euler, the weak form, causal/entropy/gradient
-weighting, RAD, the time curriculum and SWA (slice 2); ensembles (slice 4);
-multi-GPU (slice 6).
+with the slice's name: the weak form, causal/entropy/gradient weighting, the
+mixed formulation, RAD, SWA and Fourier/path features (slice 2b); an L-BFGS
+phase on the Euler system; ensembles (slice 4); multi-GPU (slice 6).
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from pinns_tpu_torch.data.datasets import (
     ic_bc_candidates,
     interior_training_set,
     load_burgers_mat,
+    load_euler_mat,
 )
 from pinns_tpu_torch.data.sampling import latin_hypercube, philox_uniform, scale_to_bounds, uniform_box
 from pinns_tpu_torch.device import pin_numerics, resolve_device
@@ -73,7 +81,13 @@ from pinns_tpu_torch.losses.admm import (
 )
 from pinns_tpu_torch.losses.misfit import data_misfit, residual_penalty
 from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply, mlp_apply_reference
-from pinns_tpu_torch.ops.taylor import mlp_taylor_2, mlp_taylor_2_reference
+from pinns_tpu_torch.ops.residuals import euler_combine
+from pinns_tpu_torch.ops.taylor import (
+    mlp_taylor_1,
+    mlp_taylor_1_reference,
+    mlp_taylor_2,
+    mlp_taylor_2_reference,
+)
 from pinns_tpu_torch.opt.adam import (
     AdamState,
     adam_init,
@@ -92,6 +106,7 @@ from pinns_tpu_torch.train.metrics import MetricsLogger
 METRIC_KEYS = ("admm_misfit", "data_term", "lambda1", "lambda2", "lbfgs_iters",
                "loss", "res_term")
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+EULER_FIELDS = ("rho", "u", "E")
 
 
 class TrainState(NamedTuple):
@@ -108,20 +123,22 @@ def check_slice(exp: Experiment) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings a feature
     ``exp`` uses and the port does not have yet."""
     later = []
-    slice2 = "slice 2 (Euler and the weak form)"
+    slice2 = "slice 2b (the weak form and shock capture)"
     m, s, lo, o = exp.model, exp.sampling, exp.loss, exp.optimizer
     checks = [
-        (exp.pde.kind != "burgers", f"pde.kind={exp.pde.kind!r}", slice2),
+        (exp.pde.kind not in ("burgers", "euler"), f"pde.kind={exp.pde.kind!r}",
+         "no slice (burgers and euler only)"),
         (lo.residual_kind == "flux" or lo.admm_form != "strong",
          "the weak-form (flux) residual", slice2),
         (lo.causal_eps > 0.0, "causal weighting", slice2),
         (lo.entropy_weight > 0.0, "the entropy penalty", slice2),
         (lo.grad_weight_kappa != 0.0, "gradient weighting", slice2),
-        (bool(lo.strong_equations), "the mixed formulation", slice2),
+        (bool(lo.strong_equations), "the mixed formulation (strong equations)", slice2),
         (s.strategy == "rad", "RAD resampling", slice2),
-        (s.t_curriculum_epochs > 0, "the time curriculum", slice2),
         (exp.train.swa_frac > 0.0, "SWA", slice2),
         (m.n_fourier > 0 or m.n_paths > 0, "Fourier / shock-path features", slice2),
+        (exp.pde.kind == "euler" and o.kind != "adam", f"optimizer.kind={o.kind!r} on Euler "
+         "(the L-BFGS phase)", "a later slice (the Euler L-BFGS branch, ROADMAP queue 1)"),
         (exp.mesh.ensemble > 1, "ensembles", "slice 4 (ensembles)"),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
@@ -165,25 +182,38 @@ class Problem:
             lam2 = torch.exp(lam2)
         return lam1, lam2
 
-    def residuals(self, params, colloc, plain: bool = False) -> torch.Tensor:
-        """Strong-form Burgers residual f (N, 1) at collocation points.
+    @property
+    def euler(self) -> bool:
+        return self.exp.pde.kind == "euler"
 
-        ``plain`` forces the plain Taylor-2 recurrence on any device;
-        otherwise a CUDA tensor takes K1, differentiable through K2.
+    def residuals(self, params, colloc, plain: bool = False):
+        """Strong-form residual(s) at collocation points: Burgers' f (N, 1),
+        or the Euler system's (f1, f2, f3), each (N, 1).
+
+        ``plain`` forces the plain Taylor recurrence on any device; otherwise
+        a CUDA tensor takes K1 (Burgers, differentiable through K2) or K7a
+        (Euler, differentiable through its backward).
         """
+        if self.euler:
+            taylor1 = mlp_taylor_1_reference if plain else mlp_taylor_1
+            y, y_x, y_t = taylor1(self.spec, params["net"], colloc)
+            return euler_combine(y, y_x, y_t, self.exp.pde.gamma)[1]
         lam1, lam2 = self.effective_coeffs(params)
         taylor = mlp_taylor_2_reference if plain else mlp_taylor_2
         u, u_x, u_t, u_xx = taylor(self.spec, params["net"], colloc)
         return u_t + lam1 * u * u_x - lam2 * u_xx
 
-    def residuals_chunked(self, params, colloc, plain: bool = False) -> torch.Tensor:
+    def residuals_chunked(self, params, colloc, plain: bool = False):
         """Residuals over the full batch, evaluated microbatch by microbatch
         (``sampling.microbatch`` chunks), so peak activation memory is
         n_f / microbatch: the ADMM updates at large n_f."""
         m = self.exp.sampling.microbatch
         if m <= 1:
             return self.residuals(params, colloc, plain)
-        return torch.cat([self.residuals(params, ch, plain) for ch in _chunks(colloc, m)])
+        parts = [self.residuals(params, ch, plain) for ch in _chunks(colloc, m)]
+        if self.euler:
+            return tuple(torch.cat(comp) for comp in zip(*parts))
+        return torch.cat(parts)
 
 
 def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None) -> Problem:
@@ -192,7 +222,8 @@ def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None)
     asks for the CPU; raises without one)."""
     check_slice(exp)
     device = resolve_device(device)
-    ds = load_burgers_mat(dataset or exp.data.dataset)
+    load = load_euler_mat if exp.pde.kind == "euler" else load_burgers_mat
+    ds = load(dataset or exp.data.dataset)
     build = interior_training_set if exp.data.selection == "interior" else build_ic_bc_training_set
     x_data, targets = build(ds, exp.data.n_u, seed=exp.data.seed, noise=exp.data.noise)
     dtype = _DTYPES[exp.model.dtype]
@@ -215,9 +246,30 @@ def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None)
     )
 
 
-def _resample(problem: Problem, key: int, epoch: int) -> torch.Tensor:
-    """The uniform collocation batch of ``epoch``: Philox(key, epoch)."""
-    return philox_uniform(key, epoch, problem.exp.sampling.n_f, problem.lb, problem.ub,
+def _curriculum_bounds(problem: Problem, epoch: int):
+    """(lb, ub) with the time curriculum applied (``pinns_tpu/train/
+    trainer.py:343-357``): the sampled t-range grows linearly to the full
+    domain over ``t_curriculum_epochs``, frac = clip((epoch + 1) / T, floor,
+    1), in float32 as JAX computes it."""
+    cfg = problem.exp.sampling
+    if cfg.t_curriculum_epochs <= 0:
+        return problem.lb, problem.ub
+    f32 = np.float32
+    lb = np.asarray(problem.lb, f32)
+    ub = np.array(problem.ub, f32)
+    frac = np.clip((f32(epoch) + f32(1.0)) / f32(cfg.t_curriculum_epochs),
+                   f32(cfg.t_curriculum_floor), f32(1.0))
+    ub[1] = lb[1] + (ub[1] - lb[1]) * frac
+    return lb, ub
+
+
+def _resample(problem: Problem, key: int, draw: int) -> torch.Tensor:
+    """The uniform collocation batch of ``draw``: Philox(key, draw), where
+    draw 0 is the initial batch and draw e + 1 the batch drawn after step e,
+    inside the curriculum's bounds of JAX's epoch argument for that batch (0
+    for the initial one, e after step e)."""
+    lb, ub = _curriculum_bounds(problem, max(draw - 1, 0))
+    return philox_uniform(key, draw, problem.exp.sampling.n_f, lb, ub,
                           problem.spec.dtype, problem.device)
 
 
@@ -250,6 +302,14 @@ def _chunks(a: torch.Tensor, m: int):
     if n % m:
         raise ValueError(f"collocation count {n} not divisible by microbatch {m}")
     return a.split(n // m)
+
+
+def _chunks_of(a, m: int):
+    """``_chunks`` of a tensor, or of each component of a tuple, zipped into
+    one tuple a chunk."""
+    if isinstance(a, tuple):
+        return list(zip(*(_chunks(c, m) for c in a)))
+    return _chunks(a, m)
 
 
 def _remat(policy: str, body: Callable, on_card: bool) -> Callable:
@@ -306,6 +366,8 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
         residuals = problem.residuals(params, colloc, plain=plain)
         if cfg.residual_kind == "admm":
             return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
+        if isinstance(residuals, tuple):
+            return sum(residual_penalty(f, cfg.residual_kind, n_f) for f in residuals)
         return residual_penalty(residuals, cfg.residual_kind, n_f)
 
     chunks = _chunks(colloc, m)
@@ -320,26 +382,32 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
 
         body = wrap(admm_body)
         term = zero
-        for ch, z, dual in zip(chunks, _chunks(admm_state.z, m), _chunks(admm_state.dual, m)):
+        for ch, z, dual in zip(chunks, _chunks_of(admm_state.z, m),
+                               _chunks_of(admm_state.dual, m)):
             term = term + body(ch, z, dual)
         return term
 
-    # accumulate the primitive sums (sum f^2, sum |f|); norms that are
-    # nonlinear in the batch (l1_sq) assemble afterwards
+    # accumulate the primitive sums (sum f^2, sum |f|) per residual component;
+    # norms that are nonlinear in the batch (l1_sq) assemble afterwards
     def sums_body(ch):
         f = problem.residuals(params, ch, plain=plain)
-        return torch.sum(f * f), torch.sum(torch.abs(f))
+        return tuple((torch.sum(fi * fi), torch.sum(torch.abs(fi)))
+                     for fi in (f if isinstance(f, tuple) else (f,)))
 
     body = wrap(sums_body)
-    ssq, sabs = zero, zero
+    accs = None
     for ch in chunks:
-        a, b = body(ch)
-        ssq, sabs = ssq + a, sabs + b
+        parts = body(ch)
+        if accs is None:
+            accs = [(zero, zero)] * len(parts)
+        accs = [(ssq + a, sabs + b) for (ssq, sabs), (a, b) in zip(accs, parts)]
     if cfg.residual_kind in ("mean_sq", "l2_sq_norm"):
-        return ssq / n_f
-    if cfg.residual_kind == "l1_sq_norm":
-        return sabs * sabs / n_f
-    raise ValueError(f"unknown residual kind {cfg.residual_kind!r}")
+        terms = [ssq / n_f for ssq, _ in accs]
+    elif cfg.residual_kind == "l1_sq_norm":
+        terms = [sabs * sabs / n_f for _, sabs in accs]
+    else:
+        raise ValueError(f"unknown residual kind {cfg.residual_kind!r}")
+    return terms[0] if len(terms) == 1 else sum(terms, zero)
 
 
 def make_data_term(problem: Problem, plain: bool = False) -> Callable:
@@ -347,12 +415,26 @@ def make_data_term(problem: Problem, plain: bool = False) -> Callable:
     (``plain`` forces the plain forward on any device)."""
     exp = problem.exp
     forward = mlp_apply_reference if plain else mlp_apply
+    kind, n_u = exp.loss.data_kind, exp.data.n_u
 
-    def term(params):
-        u_pred = forward(problem.spec, params["net"], problem.x_data)
-        return data_misfit(u_pred, problem.targets["u"], exp.loss.data_kind, exp.data.n_u)
+    if not problem.euler:
+        def term(params):
+            u_pred = forward(problem.spec, params["net"], problem.x_data)
+            return data_misfit(u_pred, problem.targets["u"], kind, n_u)
 
-    return term
+        return term
+
+    field_w = exp.loss.data_field_weights
+
+    def euler_term(params):
+        y = forward(problem.spec, params["net"], problem.x_data)
+        return sum(
+            (field_w[i] if field_w else 1.0)
+            * data_misfit(y[:, i:i + 1], problem.targets[name], kind, n_u)
+            for i, name in enumerate(EULER_FIELDS)
+        )
+
+    return euler_term
 
 
 def make_loss_fn(problem: Problem, plain: bool = False) -> Callable:
@@ -364,15 +446,23 @@ def make_loss_fn(problem: Problem, plain: bool = False) -> Callable:
             "residual_weight must be 1 with residual_kind='admm' — scale the "
             "penalty with loss.rho instead (the prox threshold tracks rho)"
         )
-    if loss_cfg.data_field_weights:
+    field_w = loss_cfg.data_field_weights
+    if field_w and not problem.euler:
         raise ValueError(
             "data_field_weights applies to the multi-output Euler system; "
             "for Burgers use loss.data_weight"
         )
+    if field_w and len(field_w) != len(EULER_FIELDS):
+        raise ValueError(
+            f"data_field_weights needs {len(EULER_FIELDS)} entries, got {len(field_w)}"
+        )
     dterm = make_data_term(problem, plain)
 
     def loss_fn(params, colloc, admm_state, rho=None):
-        lam1, lam2 = problem.effective_coeffs(params)
+        if problem.euler:  # the metrics' coefficient slots read 0, as in JAX
+            lam1 = lam2 = torch.zeros((1,), dtype=problem.spec.dtype, device=colloc.device)
+        else:
+            lam1, lam2 = problem.effective_coeffs(params)
         data_term = dterm(params)
         res_term = _residual_term(problem, params, colloc, admm_state, rho, plain)
         loss = loss_cfg.data_weight * data_term + loss_cfg.residual_weight * res_term
@@ -462,7 +552,9 @@ def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
         loss, aux = loss_fn(params, state.colloc, state.admm, state.rho)
         # frozen coefficients get a zero gradient, as JAX's stop_gradient gives
         wanted = tree_leaves(params["net"]) + (tree_leaves(params["coeffs"]) if train_coeffs else [])
-        got = iter(torch.autograd.grad(loss, wanted))
+        # the Euler residuals do not read the coefficients: a zero gradient
+        got = iter(g if g is not None else torch.zeros_like(p) for g, p in
+                   zip(torch.autograd.grad(loss, wanted, allow_unused=True), wanted))
         grads = {
             "net": tree_map(lambda p: next(got), params["net"]),
             "coeffs": tree_map(lambda p: next(got) if train_coeffs else torch.zeros_like(p),

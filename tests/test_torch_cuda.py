@@ -1,8 +1,9 @@
 """The port on the card: the fused Taylor-2 kernel (K1) and its backward
 (K2), the fused MLP forward and its backward (K5), the served slice, the
 fused Adam-epoch kernel (K3, both designs), the mixed-precision Taylor-2 kernel (K6) and
-its backward, and the trainer with its generic Adam step (microbatched,
-under the stream policy) and L-BFGS phase over the kernels.
+its backward, the Taylor-1 kernel (K7a) and its backward with the Euler
+slice, and the trainer with its generic Adam step (microbatched, under the
+stream policy) and L-BFGS phase over the kernels.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and skips
 where ``torch.cuda.is_available()`` is False. The file imports no jax (the
@@ -580,3 +581,95 @@ def test_mixed_microbatched_trainer_on_card(cuda_device):  # noqa: F811
     assert after[0] - before[0] >= 20 and after[1] - before[1] == 20
     assert after[2:] == before[2:]
     assert state.epoch == 5
+
+
+# -- K7a: the Taylor-1 streams (the Euler slice) ------------------------------
+
+K7A_SHAPES = [((2, 20, 20, 20, 3), 1_000), ((2, 20, 20, 20, 3), 1), (EULER, 1_000),
+              (EULER, 8_192), (EULER, 8_191), (EULER, 1), ((2, 256, 3), 777)]
+
+
+@pytest.mark.parametrize("layers,n", K7A_SHAPES,
+                         ids=[f"{len(l) - 2}x{max(l)}-n{n}" for l, n in K7A_SHAPES])
+def test_k7a_matches_plain_on_card(cuda_device, layers, n):  # noqa: F811
+    """K7a's forward and backward against the plain versions, judged against
+    float64 (the wide nets) or within rtol 1e-5 of plain float32 (the narrow
+    net); the autograd Function's gradient equals the backward kernel's; two
+    backward calls agree bit for bit."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_1_reference
+
+    spec, params, spec64, params64 = _net(layers, 9, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=18)).to(cuda_device)
+    rng = np.random.default_rng(19)
+    cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32))
+           .to(cuda_device) for _ in range(3)]
+    f0, b0 = k_taylor1.LAUNCHES, k_taylor1.BACKWARD_LAUNCHES
+    outs = k_taylor1.taylor1(spec, params, x)
+    grad = k_taylor1.taylor1_backward(spec, params, x, cot)
+    again = k_taylor1.taylor1_backward(spec, params, x, cot)
+    torch.cuda.synchronize()
+    assert (k_taylor1.LAUNCHES, k_taylor1.BACKWARD_LAUNCHES) == (f0 + 1, b0 + 2)
+    assert torch.equal(grad, again)
+    plain = mlp_taylor_1_reference(spec, params, x)
+    exact = mlp_taylor_1_reference(spec64, params64, x.double())
+    wide = max(layers) > 32
+    for g, p, e in zip(outs, plain, exact):
+        assert g.shape == (n, layers[-1])
+        _close_or_f64(g, p, e, wide)
+    pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
+    egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
+                                                 [c.double() for c in cot])
+    off = 0
+    for p, e in zip(pgrad, egrad):
+        _close_or_f64(grad[off:off + p.numel()].view(p.shape), p, e, wide)
+        off += p.numel()
+    leaves = [t.clone().requires_grad_(True) for p in params for t in (p["W"], p["b"])]
+    net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+    via = mlp_taylor_1(spec, net, x)
+    via_fn = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(via, cot)), leaves)
+    for a, b in zip(via_fn, k_taylor1.split_grad(grad, leaves)):
+        assert torch.equal(a, b)
+
+
+def test_k7a_refuses_on_card_instead_of_falling_back(cuda_device):  # noqa: F811
+    """A mixed spec and a plan whose scratch is too small raise on the card."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1
+
+    layers = (2, 20, 20, 3)
+    mixed = MLPSpec(layers=layers, lb=LB, ub=UB, compute_dtype="bfloat16")
+    params = init_mlp(mixed, torch.Generator().manual_seed(2), cuda_device)
+    x = torch.from_numpy(numpy_points(16, seed=3)).to(cuda_device)
+    with pytest.raises(ValueError, match="later slice"):
+        mlp_taylor_1(mixed, params, x)
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    real = k_taylor1.taylor1_plan
+    shrink = lambda *a, **k: __import__("dataclasses").replace(real(*a, **k), hbuf=4)  # noqa: E731
+    try:
+        k_taylor1.taylor1_plan = shrink
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k_taylor1.taylor1(spec, params, x)
+    finally:
+        k_taylor1.taylor1_plan = real
+
+
+def test_euler_trainer_on_card(cuda_device):  # noqa: F811
+    """euler_admm_tuned on the card for a few epochs: every residual through
+    K7a (forward and backward), the data term through K5."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(get_preset("euler_admm_tuned"), {"train.epochs": 6, "train.chunk": 3,
+                                                     "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    f0, b0 = k_taylor1.LAUNCHES, k_taylor1.BACKWARD_LAUNCHES
+    k5 = k_mlp.BACKWARD_LAUNCHES
+    state, summary = trainer.train()
+    # init + per epoch one loss forward and one tail forward, + the evaluation
+    assert k_taylor1.LAUNCHES - f0 == 1 + 2 * 6 + 1
+    assert k_taylor1.BACKWARD_LAUNCHES - b0 == 6 and k_mlp.BACKWARD_LAUNCHES - k5 == 6
+    assert all(np.isfinite(summary[f"rel_l2_{f}"]) for f in ("rho", "u", "E"))

@@ -61,8 +61,8 @@ def test_loader_paths_and_errors(tmp_path, monkeypatch):
         tds.load_burgers_mat("abgrall_burgers_shock")  # a key with no committed grid
     with pytest.raises(FileNotFoundError, match="neither a known key"):
         tds.load_burgers_mat(str(tmp_path / "missing.npz"))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tds.load_euler_mat()
+    euler = tds.load_euler_mat()  # the key builds the exact grid natively
+    assert euler.provenance == "native" and euler.field_names == ("rho", "u", "E")
 
 
 def test_philox_known_answers():

@@ -80,8 +80,11 @@ def test_admm_matches_jax(explicit_inner):
 
 
 def test_admm_rejects_systems_until_slice_2():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tadmm.admm_init((torch.zeros(3, 1), torch.zeros(3, 1)))
+    """Slice 2a brought the systems: a tuple of residuals gets a tuple state,
+    one component each (the values against JAX: tests/test_torch_euler.py)."""
+    st = tadmm.admm_init((torch.zeros(3, 1), torch.ones(3, 1)))
+    assert isinstance(st.z, tuple) and len(st.z) == 2
+    assert torch.equal(st.z[1], torch.ones(3, 1)) and torch.equal(st.dual[0], torch.ones(3, 1))
 
 
 def test_adam_matches_optax_over_steps():

@@ -73,9 +73,18 @@ def test_predict_fields_burgers_and_euler():
     assert torch.equal(out["u"], u) and torch.equal(out["f"], f)
     bare = burgers_fields(spec, net, x, params["coeffs"]["lambda1"], params["coeffs"]["lambda2"])
     assert torch.equal(bare["u"], u) and torch.equal(bare["f"], f)
-    euler = dataclasses.replace(problem, exp=override(exp, {"pde.kind": "euler"}))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        predict_fields(euler, params, x)
+    # the Euler branch: the six outputs of the Euler residuals of a 3-output net
+    from pinns_tpu_torch.ops.residuals import euler_residuals
+
+    layers3 = SMALL[:-1] + (3,)
+    spec3 = MLPSpec(layers=layers3, lb=LB, ub=UB)
+    net3 = params_from_jax(numpy_params(layers3, 26), CPU)
+    euler = dataclasses.replace(problem, exp=override(exp, {"pde.kind": "euler"}), spec=spec3)
+    out = predict_fields(euler, dict(params, net=net3), x)
+    fields, res = euler_residuals(spec3, net3, x, 1.4)
+    assert sorted(out) == ["E", "f1", "f2", "f3", "rho", "u"]
+    for name, want in zip(("rho", "u", "E", "f1", "f2", "f3"), fields + res):
+        assert torch.equal(out[name], want)
 
 
 def test_relative_l2():
