@@ -2,8 +2,11 @@
 path, the abgrall_admm Adam phase, the L-BFGS phase of the hybrid schedule
 with the generic Adam step (abgrall_admm and burgers_forward), the scale
 slice (burgers_scale at 1,048,576 points in 128 microbatches, float32 and the
-bf16 stream policy on kernel K6), and the Euler strong-form slice
-(euler_admm served and trained on the Taylor-1 kernel K7a and K5).
+bf16 stream policy on kernel K6), the Euler strong-form slice (euler_admm
+served and trained on the Taylor-1 kernel K7a and K5), the CLI's way from a
+trained model to serving (train --resume, export --checkpoint, eval), and the
+weak-form slice (twosin_weak and euler_inverse trained over the flux
+quadrature kernel K7b, around K7a and K5).
 
     python3 chip_smoke.py
 
@@ -115,6 +118,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (curriculum, field weights; its rel-L2 printed, not held)
   times     the Euler epoch (CUDA events) and a 1,000-epoch chunk; K7a and
             its backward against autograd through plain at N 1,000 and 65,536
+  23 p2     the CLI in this process: train abgrall_admm for P2_EPOCHS epochs
+            (K3), export --checkpoint, predict over the grid, eval
+            --checkpoint and eval --artifact, all at the train summary's u
+            rel-L2 (1e-7); train half the epochs and --resume to the end: the
+            final checkpoint equal to the uninterrupted run's bit for bit
+  24 k7b    K7b against its plain version: the edge points bit for bit; r and
+            the backward (g_y, g_yx, the coefficients' gradient) within rtol
+            1e-4 / atol 1e-5 max|plain| or the float64 criterion (compare_f64;
+            the backward against autograd through the plain forward), Burgers
+            and Euler, viscous and inviscid, N 1,000 and 65,536, centers on the
+            bounds; two backward calls bit for bit; K7a at twosin_weak's shape
+            (8x20, out 1, 16,000 points) against float64
+  25 weak-step  one step of twosin_weak and euler_inverse on the card from the
+            JAX fixture's state (weak_flux.npz): loss, every gradient leaf and
+            the coefficients' gradient (the viscosity's for euler_inverse) by
+            close_grad; then the fixture's 3-step replay (metrics, the
+            coefficients, each leaf's sums, the params after the first step)
+  26 weak-train  twosin_weak through Trainer.train at the fixture's reduced
+            schedule (3,000 epochs of the cosine schedule, uncut) for JAX's
+            three band seeds: every epoch on K7b, K7a and K5, no plain call,
+            the median u rel-L2 in the band of JAX's three seeds;
+            euler_inverse once (rel-L2 and the identified viscosity printed,
+            not held)
+  times     K7b's edge points, quadrature and backward against the plain
+            versions (CUDA events) at N 1,000 and 65,536 beside their bounds;
+            each weak preset's epoch (events) and a 1,000-epoch chunk
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -165,7 +194,7 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
        "y": (1e-5, 1e-5), "y_x": (1e-5, 1e-5), "y_t": (1e-5, 1e-5)}
 F64_FACTOR = 4.0
 REPS = 20
-KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1")
+KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1", "weakform")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -744,17 +773,22 @@ class PlainCalls:
 
     def __init__(self):
         from pinns_tpu_torch.models import mlp
-        from pinns_tpu_torch.ops import taylor
+        from pinns_tpu_torch.ops import taylor, weakform
         from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
+        from pinns_tpu_torch.ops.kernels import weakform as k_weakform
         from pinns_tpu_torch.train import trainer
 
         self.sites = [(m, name) for name, mods in (
-            ("mlp_apply_reference", (mlp, trainer)),
+            ("mlp_apply_reference", (mlp, trainer, weakform)),
             ("mlp_taylor_2_reference", (taylor, trainer)),
-            ("mlp_taylor_1_reference", (taylor, trainer)),
+            ("mlp_taylor_1_reference", (taylor, trainer, weakform)),
             ("mlp_backward_reference", (mlp_forward,)),
             ("taylor2_backward_reference", (taylor2, fused_step)),
             ("taylor1_backward_reference", (taylor1,)),
+            ("edge_points_reference", (weakform,)),
+            ("burgers_quadrature_reference", (weakform,)),
+            ("euler_quadrature_reference", (weakform,)),
+            ("flux_backward_reference", (k_weakform,)),
         ) for m in mods]
         self.calls = 0
 
@@ -778,24 +812,27 @@ class PlainCalls:
 
 def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
-    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
+    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
 
     return {"taylor2": taylor2.LAUNCHES, "fused_step": fused_step.LAUNCHES,
             "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
             "taylor2_backward": taylor2.BACKWARD_LAUNCHES,
             "taylor2_mixed": taylor2.MIXED_LAUNCHES,
             "taylor2_mixed_backward": taylor2.MIXED_BACKWARD_LAUNCHES,
-            "taylor1": taylor1.LAUNCHES, "taylor1_backward": taylor1.BACKWARD_LAUNCHES}
+            "taylor1": taylor1.LAUNCHES, "taylor1_backward": taylor1.BACKWARD_LAUNCHES,
+            "weakform_edge_points": weakform.EDGE_LAUNCHES, "weakform_flux": weakform.LAUNCHES,
+            "weakform_flux_backward": weakform.BACKWARD_LAUNCHES}
 
 
 def reset_counts() -> None:
-    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
+    from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
 
     taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = 0
     taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
     fused_step.LAUNCHES = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
     taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
+    weakform.EDGE_LAUNCHES = weakform.LAUNCHES = weakform.BACKWARD_LAUNCHES = 0
 
 
 def net_f64(params):
@@ -1940,6 +1977,448 @@ def phase_euler_times(card: str, train: dict) -> dict:
     return out
 
 
+# -- 23-26 and times: P2 and the weak-form slice (K7b around K7a and K5) ------
+
+WEAK_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "weak_flux.npz")
+WEAK_PRESETS = ("twosin_weak", "euler_inverse")
+P2_EPOCHS = 2_000
+# K7b at the presets' 1,000 cells and at 65,536, both equations, viscous and
+# inviscid; the main shape is twosin_weak's (Burgers, viscous, 1,000 cells)
+K7B_SHAPES = [(kind, viscous, n) for n in (1_000, 65_536) for kind in ("burgers", "euler")
+              for viscous in (True, False)]
+K7B_MAIN, K7B_EULER = ("burgers", True, 1_000), ("euler", True, 1_000)
+K7B_TIMES = [("burgers", True, 1_000), ("euler", True, 1_000), ("burgers", True, 65_536),
+             ("euler", True, 65_536)]
+K7B_QUAD = 4
+WEAK_EPOCHS = 3_000  # the fixture's band_epochs
+WEAK_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
+
+
+def cli_json(argv) -> dict:
+    """``python -m pinns_tpu_torch <argv>`` in this process; the JSON object
+    its last output line prints (or the line itself, for a path)."""
+    import contextlib
+
+    from pinns_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"{argv[0]} exited {rc}")
+    last = buf.getvalue().strip().splitlines()[-1]
+    return json.loads(last) if last.startswith("{") else {"line": last}
+
+
+def phase_p2(card: str) -> dict:
+    """23: the port's CLI takes its own trained model to serving on the card:
+    train abgrall_admm, export --checkpoint, predict, eval --checkpoint and
+    eval --artifact give the train summary's rel-L2; train --resume from a
+    half-way checkpoint ends where the uninterrupted run ends, bit for bit."""
+    from pinns_tpu_torch.data.datasets import load_burgers_mat
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train import checkpoint as ckpt_io
+    from pinns_tpu_torch.train.evaluate import relative_l2
+
+    preset = "abgrall_admm"
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda name: os.path.join(tmp, name)  # noqa: E731
+        final = lambda name: os.path.join(d(name), f"{preset}_final.ckpt")  # noqa: E731
+        train = ["train", "--preset", preset, "--device", "cuda"]
+        reset_counts()
+        summary = cli_json(train + ["--epochs", str(P2_EPOCHS), "--out-dir", d("whole")])
+        launches = kernel_counts()
+        check(launches["fused_step"] == P2_EPOCHS, f"train launches {launches}")
+        cli_json(train + ["--epochs", str(P2_EPOCHS // 2), "--out-dir", d("half")])
+        resumed = cli_json(train + ["--epochs", str(P2_EPOCHS), "--out-dir", d("rest"),
+                                    "--resume", final("half")])
+        a, b = (ckpt_io.state_to_dict(ckpt_io.load_checkpoint(final(n), "cuda"))
+                for n in ("whole", "rest"))
+        same = all(torch.equal(x, y) for x, y in zip(
+            [t for layer in a["params"]["net"] for t in layer.values()] + [a["colloc"]],
+            [t for layer in b["params"]["net"] for t in layer.values()] + [b["colloc"]]))
+        check(same and a["epoch"] == b["epoch"] == P2_EPOCHS and resumed == summary,
+              f"resumed run differs: {resumed} vs {summary}")
+        art = d("artifact")
+        cli_json(["export", "--preset", preset, "--checkpoint", final("whole"), "--out", art,
+                  "--device", "cuda"])
+        ds = load_burgers_mat(get_preset(preset).data.dataset)
+        np.savez(d("pts.npz"), x=ds.X_star)
+        cli_json(["predict", "--artifact", art, "--points", d("pts.npz"), "--out",
+                  d("pred.npz"), "--device", "cuda"])
+        with np.load(d("pred.npz")) as z:
+            predicted = relative_l2(z["u"], ds.star["u"])
+        by_ckpt = cli_json(["eval", "--preset", preset, "--checkpoint", final("whole"),
+                            "--device", "cuda"])
+        by_art = cli_json(["eval", "--artifact", art, "--device", "cuda"])
+    rel = {"train": summary["rel_l2_u"], "predict": predicted,
+           "eval_checkpoint": by_ckpt["rel_l2_u"], "eval_artifact": by_art["rel_l2_u"]}
+    check(all(abs(v - rel["train"]) <= 1e-7 for v in rel.values()), f"rel-L2 differ: {rel}")
+    emit(card, phase="p2", preset=preset, epochs=P2_EPOCHS, rel_l2_u=rel,
+         resume_bit_equal=True, train_launches=launches["fused_step"], truth=by_art["truth"])
+    return rel
+
+
+def k7b_inputs(kind: str, viscous: bool, n: int):
+    """K7b's inputs at n cells: centers with rows on the bounds, the edge
+    values of a smooth field (rho, E > 0 for Euler) and the coefficients."""
+    rng = np.random.default_rng(n + 5)
+    c = rng.uniform(LB, UB, size=(n, 2)).astype(np.float32)
+    c[:4] = [(LB[0], LB[1]), (UB[0], UB[1]), (LB[0], UB[1]), (UB[0], LB[1])]
+    fields = 1 if kind == "burgers" else 3
+    m = n * 4 * K7B_QUAD
+    base = np.zeros(fields) if kind == "burgers" else np.array([1.0, 0.3, 2.5])
+    y = (base + 0.3 * rng.standard_normal((m, fields))).astype(np.float32)
+    yx = rng.standard_normal((m, fields)).astype(np.float32) if viscous else None
+    coeffs = [0.377, 1e-3] if kind == "burgers" else [0.4, math.exp(-6.0)]
+    t = lambda a: None if a is None else torch.from_numpy(a).cuda()  # noqa: E731
+    g_r = rng.standard_normal((n, fields)).astype(np.float32)
+    return t(c), t(y), t(yx), torch.tensor(coeffs, device="cuda"), t(g_r)
+
+
+def close_or_f64(name: str, got, plain, exact) -> dict:
+    """K7b against its plain version: within rtol 1e-4 / atol 1e-5 max|plain|
+    (the forward repeats the plain version's operations and lands there bit
+    for bit or nearly), or else the float64 criterion (compare_f64): the
+    backward's formulas round in another order than autograd's, and a cell's
+    difference quotient amplifies float32 rounding about 25x."""
+    got, plain = np.asarray(got, np.float64), np.asarray(plain, np.float64)
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite values")
+    err = np.abs(got - plain)
+    if bool((err <= 1e-5 * np.abs(plain).max() + 1e-4 * np.abs(plain)).all()):
+        return {"max_abs_err_vs_plain": float(err.max()), "ok": True}
+    return compare_f64(name, got, plain, exact)
+
+
+def k7b_plain(kind: str, y, yx, hxe, hte, coeffs):
+    """r from the plain quadrature (gamma - 1 is coeffs[0] for Euler)."""
+    from pinns_tpu_torch.ops import weakform as twf
+
+    if kind == "burgers":
+        return twf.burgers_quadrature_reference(y, yx, hxe, hte, coeffs[0], coeffs[1], K7B_QUAD)[0]
+    gamma = float(coeffs[0].detach()) + 1.0
+    return torch.cat(twf.euler_quadrature_reference(y, yx, hxe, hte, gamma, coeffs[1],
+                                                    K7B_QUAD)[0], dim=1)
+
+
+def k7b_bytes(kind: str, viscous: bool, n: int) -> dict:
+    """The bytes each K7b function must move (each input read once, each
+    output written once), and its operations (per edge row: Burgers about 8
+    FLOP viscous, Euler about 30; the backward about twice that)."""
+    fields = 1 if kind == "burgers" else 3
+    rows = n * 4 * K7B_QUAD
+    vals = 4 * rows * fields * (2 if viscous else 1)
+    per_row = (8 if kind == "burgers" else 30)
+    return {"edge": bound([(20.0 * rows, PEAK_FP32)], 8 * n + 8 * rows + 8 * n),
+            "forward": bound([(per_row * rows, PEAK_FP32)], vals + 8 * n + 8 + 4 * n * fields),
+            "backward": bound([(2.0 * per_row * rows, PEAK_FP32)],
+                              4 * n * fields + 2 * vals + 8 * n + 16)}
+
+
+def phase_k7b(card: str) -> dict:
+    """24: K7b against its plain version on the card: the edge points bit for
+    bit; r and the backward (g_y, g_yx, the coefficients' gradient) by the
+    float64 criterion against the plain version (autograd through it for the
+    backward), viscous and inviscid, Burgers and Euler, N 1,000 and 65,536
+    with centers on the bounds; two backward calls bit-equal. K7a at
+    twosin_weak's shape (8x20, out 1, 16,000 points) against float64."""
+    from pinns_tpu_torch.models.mlp import MLPSpec
+    from pinns_tpu_torch.ops import weakform as twf
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
+
+    spec = MLPSpec(layers=(2, 4, 1), lb=LB, ub=UB)
+    hx, ht = 0.02 * (UB[0] - LB[0]), 0.02 * (UB[1] - LB[1])
+    out = {}
+    for kind, viscous, n in K7B_SHAPES:
+        c, y, yx, coeffs, g_r = k7b_inputs(kind, viscous, n)
+        pts, hxe, hte = k7b.edge_points(spec, c, hx, ht, K7B_QUAD)
+        ppts, phxe, phte = twf.edge_points_reference(spec, c, hx, ht, K7B_QUAD)
+        edge_equal = bool(torch.equal(pts, ppts) and torch.equal(hxe, phxe)
+                          and torch.equal(hte, phte))
+        check(edge_equal, f"K7b edge points differ from plain at {kind}, N {n}")
+        r = k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, K7B_QUAD)
+        gy, gyx, gc = k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs, K7B_QUAD)
+        again = k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs, K7B_QUAD)
+        torch.cuda.synchronize()
+        check(all(a is b or torch.equal(a, b) for a, b in zip((gy, gyx, gc), again)),
+              f"K7b backward not repeatable at {kind}, N {n}")
+        ref = {}
+        for dtype in (torch.float32, torch.float64):
+            args = [None if a is None else a.to(dtype).clone().requires_grad_(True)
+                    for a in (y, yx, coeffs)]
+            pr = k7b_plain(kind, args[0], args[1], hxe.to(dtype), hte.to(dtype), args[2])
+            wrt = [a for a in args if a is not None]
+            grads = torch.autograd.grad(pr, wrt, g_r.to(dtype), allow_unused=True)
+            ref[dtype] = [pr] + [torch.zeros_like(a) if g is None else g
+                                 for g, a in zip(grads, wrt)]
+        names = ["r", "g_y"] + (["g_yx"] if viscous else []) + ["g_coeffs"]
+        got = [r, gy] + ([gyx] if viscous else []) + [gc]
+        rows = {name: close_or_f64(name, host(g), host(p), host(e))
+                for name, g, p, e in zip(names, got, ref[torch.float32], ref[torch.float64])}
+        out[(kind, viscous, n)] = (rows["r"]["max_abs_err_vs_plain"],
+                                   max(v["max_abs_err_vs_plain"] for k, v in rows.items()
+                                       if k != "r"))
+        emit(card, phase="k7b", kind=kind, viscous=viscous, n=n, quad=K7B_QUAD,
+             edge_points_bit_equal=edge_equal, backward_bit_equal=True,
+             criterion="f64_oracle", outputs=rows)
+    layers, n = NARROW, 16_000
+    kspec, params, spec64, params64 = k7a_net(layers, 211, "cuda")
+    x = points(n, seed=212, device="cuda")
+    rng = np.random.default_rng(213)
+    cot = [torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).cuda()
+           for _ in range(3)]
+    with torch.inference_mode():
+        got = k_taylor1.taylor1(kspec, params, x)
+        grad = k_taylor1.taylor1_backward(kspec, params, x, cot)
+        plain = mlp_taylor_1_reference(kspec, params, x)
+        exact = mlp_taylor_1_reference(spec64, params64, x.double())
+        pgrad = k_taylor1.taylor1_backward_reference(kspec, params, x, cot)
+        egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
+                                                     [c.double() for c in cot])
+    streams = {name: compare_f64(name, host(g), host(p), host(e))
+               for name, g, p, e in zip(("y", "y_x", "y_t"), got, plain, exact)}
+    off, leaves = 0, []
+    for p, e in zip(pgrad, egrad):
+        g = host(grad[off:off + p.numel()])
+        off += p.numel()
+        leaves.append(compare_f64("k7a_grad", g, host(p).ravel(), host(e).ravel()))
+    emit(card, phase="k7b", what="k7a_at_twosin_weak", net="8x20", out_dim=1, n=n,
+         plan=dataclasses.asdict(k_taylor1.taylor1_plan(layers, n, backward=True)),
+         streams=streams, leaves=len(leaves), criterion="f64_oracle",
+         backward_max_abs_err_vs_plain=max(r["max_abs_err_vs_plain"] for r in leaves))
+    return out
+
+
+def weak_fixture() -> dict:
+    with np.load(WEAK_FIXTURE, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def weak_state(fx: dict, preset: str, device):
+    """The port's TrainState at the fixture's JAX initial state of ``preset``."""
+    from pinns_tpu_torch.interop import train_state_from_jax
+
+    p = f"{preset}_"
+    layers = tuple(int(w) for w in fx[p + "layers"])
+    net = net_from_flat(fx[p + "params_0"], layers)
+    coeffs = {"lambda1": fx[p + "coeffs_0"][0:1], "lambda2": fx[p + "coeffs_0"][1:2]}
+    zeros = [{k: np.zeros_like(v) for k, v in layer.items()} for layer in net]
+    zc = {k: np.zeros_like(v) for k, v in coeffs.items()}
+    return train_state_from_jax({
+        "params": {"net": net, "coeffs": coeffs}, "count": 0,
+        "mu": {"net": zeros, "coeffs": zc}, "nu": {"net": zeros, "coeffs": zc},
+        "colloc": fx[p + "colloc_0"], "epoch": 0}, device, key=int(fx[p + "seed"]))
+
+
+def weak_gradient(problem, params, colloc, plain: bool, dtype=torch.float32):
+    """(loss, flat net gradient, (dlambda1, dlambda2)) of the preset's loss."""
+    from pinns_tpu_torch.train import trainer as tr
+
+    params = tr.tree_map(lambda t: t.to(dtype).detach().clone().requires_grad_(True), params)
+    loss, _ = tr.make_loss_fn(problem, plain=plain)(params, colloc.to(dtype), None)
+    leaves = tr.tree_leaves(params["net"]) + [params["coeffs"][k] for k in ("lambda1", "lambda2")]
+    grads = [torch.zeros_like(p) if g is None else g for g, p in
+             zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
+    return (float(loss.detach()), flat_np(grads[:-2]), flat_np(grads[-2:]))
+
+
+def phase_weak_step(card: str) -> dict:
+    """25: one step of each weak-form preset on the card from the fixture's
+    JAX state at its points (loss, every gradient leaf, the coefficients'
+    gradient: the identified viscosity's for euler_inverse), then the
+    fixture's 3-step replay (metrics, coefficients, each leaf's sums, the
+    params after the first step)."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train import trainer as tr
+
+    fx = weak_fixture()
+    out = {}
+    for preset in WEAK_PRESETS:
+        p = f"{preset}_"
+        exp = get_preset(preset)
+        problem = tr.build_problem(exp, "cuda")
+        p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+        layers = tuple(int(w) for w in fx[p + "layers"])
+        check(problem.spec.layers == layers and problem.spec.lb == tuple(fx[p + "lb"])
+              and problem.spec.ub == tuple(fx[p + "ub"]), f"{preset}: spec")
+        check(np.array_equal(host(problem.x_data), fx[p + "x_data"]),
+              f"{preset}: the training set differs from JAX's")
+        state = weak_state(fx, preset, problem.device)
+        reset_counts()
+        loss, grad, gcoeffs = weak_gradient(problem, state.params, state.colloc, plain=False)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        viscous_net = "taylor1" if problem.viscous_static else "mlp_forward"
+        check(all(launches[k] == 1 for k in ("weakform_edge_points", "weakform_flux",
+                                              "weakform_flux_backward", "mlp_backward"))
+              and launches[viscous_net] == 1, f"{preset}: the loss's launches {launches}")
+        _, g64, gc64 = weak_gradient(p64, state.params, state.colloc, plain=True,
+                                     dtype=torch.float64)
+        rows = {"loss": close("loss", loss, fx[p + "loss_0"], scale=abs(float(fx[p + "loss_0"]))),
+                "grad_0": close_grad(grad, fx[p + "grad_0"], layers, g64)}
+        row = measure("grad", gcoeffs, fx[p + "gcoeffs_0"])
+        if not row["ok"]:
+            row = dict(compare_f64("gcoeffs", gcoeffs, fx[p + "gcoeffs_0"], gc64),
+                       max_abs_err=float(np.abs(gcoeffs - fx[p + "gcoeffs_0"]).max()))
+        rows["gcoeffs_0"] = row
+        lr = tr.learning_rate_schedule(exp.optimizer)
+        step = tr.make_step(problem, lr)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(problem.device)  # noqa: E731
+        replay, k = [], 1
+        while f"{p}metrics_{k}" in fx:
+            state, m = step(state, new_colloc=t(fx[f"{p}colloc_{k}"]))
+            m = {n: float(v) for n, v in m.items()}
+            want = dict(zip(tr.METRIC_KEYS, fx[f"{p}metrics_{k}"].tolist()))
+            r = {n: close("loss", m[n], want[n], scale=abs(want["loss"]))
+                 for n in ("loss", "data_term", "res_term", "lambda1", "lambda2")}
+            got = [host(v).astype(np.float64) for layer in state.params["net"]
+                   for v in layer.values()]
+            r["leaf_sums"] = close("leaf_sums", np.asarray([(v.sum(), (v * v).sum())
+                                                            for v in got]), fx[f"{p}sums_{k}"])
+            coeffs = np.asarray([float(state.params["coeffs"][c][0])
+                                 for c in ("lambda1", "lambda2")])
+            r["coeffs"] = close("adam", coeffs, fx[f"{p}coeffs_{k}"])
+            if k == 1:
+                r["params"] = close_adam_params(flat_np(tr.tree_leaves(state.params["net"])),
+                                                fx[p + "params_1"], exp.optimizer.learning_rate)
+            replay.append(r)
+            k += 1
+        out[preset] = rows["grad_0"]["max_abs_err"]
+        emit(card, phase="weak-step", preset=preset, seed=int(fx[p + "seed"]), step_0=rows,
+             launches=launches, replay_steps=len(replay), per_step=replay)
+    return out
+
+
+def reduced_weak(preset: str, epochs: int, seed: int):
+    """``preset`` through Trainer.train on the card for ``epochs`` epochs of
+    its cosine schedule (uncut): (trainer, summary, logs, launches, wall
+    seconds); the counts are set to 0 just before train and read just after,
+    and every epoch must have gone through K7b, K7a (or K5) and K5."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train import trainer as tr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = override(get_preset(preset), {"train.epochs": epochs, "train.seed": seed,
+                                            "train.log_every": 1000, "train.out_dir": tmp})
+        trainer = tr.Trainer(exp, device="cuda")
+        state = trainer.init_state()
+        reset_counts()
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            state, summary = trainer.train(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        with open(os.path.join(tmp, f"{preset}_metrics.jsonl")) as f:
+            logs = [json.loads(line) for line in f if "summary" not in line]
+    check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
+    euler = preset == "euler_inverse"
+    # an epoch: K7b's three calls, K7a forward and backward at the edge
+    # points, K5 forward and backward on the data term; the evaluation one
+    # K7a (Euler) or K1 (Burgers) forward over the grid
+    want = {"weakform_edge_points": epochs, "weakform_flux": epochs,
+            "weakform_flux_backward": epochs, "taylor1": epochs + int(euler),
+            "taylor1_backward": epochs, "mlp_forward": epochs, "mlp_backward": epochs,
+            "taylor2": int(not euler), "taylor2_backward": 0, "fused_step": 0}
+    check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
+    fields = EULER_FIELDS if euler else ("u",)
+    # (the causal weights rise as the early bins are fit, so the loss need
+    # not fall between logs; the band of phase 26 holds the quality)
+    check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float))
+          and all(math.isfinite(summary[f"rel_l2_{f}"]) for f in fields), "non-finite metrics")
+    return trainer, summary, logs, launches, wall
+
+
+def phase_weak_train(card: str) -> dict:
+    """26: twosin_weak at the fixture's reduced schedule (3,000 epochs of the
+    preset's cosine schedule, uncut) for JAX's three band seeds, the median
+    u rel-L2 in the band of JAX's three; euler_inverse once (printed, not
+    held)."""
+    fx = weak_fixture()
+    epochs, seeds = int(fx["band_epochs"]), fx["band_seeds"].tolist()
+    band = (float(fx["band_rel_l2"].min()) - WEAK_MARGIN,
+            float(fx["band_rel_l2"].max()) + WEAK_MARGIN)
+    runs = []
+    for seed in seeds:
+        trainer, summary, logs, launches, wall = reduced_weak("twosin_weak", epochs, seed)
+        runs.append({"seed": seed, "rel_l2_u": summary["rel_l2_u"], "truth": summary["truth"],
+                     "wall_s": wall, "loss": [logs[0]["loss"], logs[-1]["loss"]],
+                     "launches": launches})
+        if seed == seeds[0]:
+            first = {"twosin_weak": trainer, "launches": launches, "wall_s": wall}
+    median = statistics.median(r["rel_l2_u"] for r in runs)
+    check(band[0] <= median <= band[1], f"median u rel-L2 {median} outside the JAX band {band}")
+    trainer, inv, logs, inv_launches, inv_wall = reduced_weak("euler_inverse", epochs, seeds[0])
+    first.update(euler_inverse=trainer, euler_launches=inv_launches)
+    emit(card, phase="weak-train", preset="twosin_weak", epochs=epochs, runs=runs,
+         median_rel_l2_u=median, band=list(band),
+         jax_seeds=dict(zip(map(str, seeds), fx["band_rel_l2"].tolist())),
+         euler_inverse={"seed": seeds[0], **{f: inv[f"rel_l2_{f}"] for f in EULER_FIELDS},
+                        "nu": inv["lambda2"], "wall_s": inv_wall, "launches": inv_launches,
+                        "loss": [logs[0]["loss"], logs[-1]["loss"]], "held": False})
+    return first
+
+
+def phase_weak_times(card: str, train: dict) -> dict:
+    """times: K7b's three functions against their plain versions (CUDA
+    events; the backward against autograd through the plain forward) at
+    N 1,000 and 65,536; each preset's epoch by events against the plain step,
+    and a 1,000-epoch chunk."""
+    from pinns_tpu_torch.models.mlp import MLPSpec
+    from pinns_tpu_torch.ops import weakform as twf
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+    from pinns_tpu_torch.train import trainer as tr
+
+    spec = MLPSpec(layers=(2, 4, 1), lb=LB, ub=UB)
+    hx, ht = 0.02 * (UB[0] - LB[0]), 0.02 * (UB[1] - LB[1])
+    out = {}
+    for kind, viscous, n in K7B_TIMES:
+        c, y, yx, coeffs, g_r = k7b_inputs(kind, viscous, n)
+        _, hxe, hte = k7b.edge_points(spec, c, hx, ht, K7B_QUAD)
+        args = [None if a is None else a.clone().requires_grad_(True) for a in (y, yx, coeffs)]
+        wrt = [a for a in args if a is not None]
+        with torch.no_grad():
+            edge = event_ms(lambda: k7b.edge_points(spec, c, hx, ht, K7B_QUAD))
+            edge_plain = event_ms(lambda: twf.edge_points_reference(spec, c, hx, ht, K7B_QUAD))
+            fwd = event_ms(lambda: k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, K7B_QUAD))
+            fwd_plain = event_ms(lambda: k7b_plain(kind, y, yx, hxe, hte, coeffs))
+            bwd = event_ms(lambda: k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs,
+                                                     K7B_QUAD))
+        bwd_plain = event_ms(lambda: torch.autograd.grad(
+            k7b_plain(kind, args[0], args[1], hxe, hte, args[2]), wrt, g_r, allow_unused=True))
+        b = k7b_bytes(kind, viscous, n)
+        out[(kind, viscous, n)] = {"edge": (edge, edge_plain, b["edge"]),
+                                   "forward": (fwd, fwd_plain, b["forward"]),
+                                   "backward": (bwd, bwd_plain, b["backward"])}
+        emit(card, phase="times", what="k7b", kind=kind, viscous=viscous, n=n,
+             edge_ms=edge, edge_plain_ms=edge_plain, edge_bound_ms=b["edge"][0],
+             forward_ms=fwd, forward_plain_ms=fwd_plain, forward_bound_ms=b["forward"][0],
+             backward_ms=bwd, backward_plain_ms=bwd_plain, backward_bound_ms=b["backward"][0],
+             reps=REPS, clock="cuda_events",
+             plain="ops.weakform plain versions; backward by autograd through the forward")
+    for preset in WEAK_PRESETS:
+        trainer = train[preset]
+        state = trainer.init_state(seed=3)
+        step = trainer._adam_step
+        plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
+        ms = event_ms(lambda: step(state))
+        plain_ms = event_ms(lambda: plain_step(state))
+        tr.run_chunk(step, state, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_chunk(step, state, 1000)
+        torch.cuda.synchronize()
+        chunk = time.perf_counter() - t0
+        out[preset] = (ms, plain_ms, 1000 / chunk)
+        emit(card, phase="times", what="weak_epoch", preset=preset, epoch_ms=ms,
+             plain_ms=plain_ms, reps=REPS, clock="cuda_events", chunk_epochs=1000,
+             chunk_wall_s=chunk, epochs_per_s=1000 / chunk)
+    return out
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2122,6 +2601,13 @@ def main() -> int:
     euler = timed(card, "euler-train", phase_euler_train, card)
     t7 = timed(card, "times-euler", phase_euler_times, card, euler)
 
+    # -- 23-26 and times: P2 and the weak-form slice (K7b) ------------------
+    timed(card, "p2", phase_p2, card)
+    k7b_err = timed(card, "k7b", phase_k7b, card)
+    timed(card, "weak-step", phase_weak_step, card)
+    weak = timed(card, "weak-train", phase_weak_train, card)
+    t8 = timed(card, "times-weak", phase_weak_times, card, weak)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -2240,7 +2726,28 @@ def main() -> int:
         "ms": t7[K7A_MAIN][2],
         "plain_ms": t7[K7A_MAIN][3],
         **bound_fields(taylor1_backward_bound(*K7A_MAIN)),
-    }]}), flush=True)
+    }] + [{
+        "name": f"weakform_{what}",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/weakform.cu",
+        "replaces": "pinns_tpu/ops/weakform.py:87,182",
+        "launches": weak["launches"][counter],
+        "max_abs_err": 0.0 if what == "edge_points" else k7b_err[K7B_MAIN][err],
+        "ms": t8[K7B_MAIN][key][0],
+        "plain_ms": t8[K7B_MAIN][key][1],
+        **bound_fields(t8[K7B_MAIN][key][2]),
+        # the Euler system (euler_inverse: 3 fields, viscous, 1,000 cells)
+        "euler_n1000": {
+            "launches": weak["euler_launches"][counter],
+            "max_abs_err": 0.0 if what == "edge_points" else k7b_err[K7B_EULER][err],
+            "ms": t8[K7B_EULER][key][0],
+            "plain_ms": t8[K7B_EULER][key][1],
+            **bound_fields(t8[K7B_EULER][key][2]),
+        },
+    } for what, counter, key, err in (
+        ("edge_points", "weakform_edge_points", "edge", None),
+        ("flux", "weakform_flux", "forward", 0),
+        ("flux_backward", "weakform_flux_backward", "backward", 1))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,40 @@
 """Command line of the port: ``python -m pinns_tpu_torch <command>``.
 
   train    --preset NAME [--set KEY=VALUE ...] [--epochs N] [--chunk C] [--data GRID]
-           [--device cuda|cpu] [--out-dir D] [--seed S]
+           [--device cuda|cpu] [--out-dir D] [--seed S] [--resume CKPT]
                                                   train; prints the JSON summary
   export   --params P.npz --out D                 write a serving artifact
+  export   --preset NAME [--set ...] --checkpoint CKPT --out D [--device cuda|cpu]
+                                                  the same artifact from a checkpoint
+  eval     --preset NAME [--set ...] --checkpoint CKPT [--device cuda|cpu]
+  eval     --artifact D [--preset NAME] [--device cuda|cpu]
+                                                  rel-L2 per field on the preset's grid
   serve    --artifact D --port N --device cuda    HTTP server (GET /meta, POST /predict)
   predict  --artifact D --points P.npz --out O.npz --device cuda
                                                   batch inference, npz/csv in and out
 
 ``train`` runs the preset's schedule (on cuda, an Adam epoch inside the fused
 step's scope is one call of K3, any other goes through the kernels under
-autograd: K5 and K1/K2, or K7a for the Euler presets) and prints the summary
-keys of the JAX CLI (``rel_l2_u``, or ``rel_l2_rho`` / ``rel_l2_u`` /
-``rel_l2_E`` for Euler, ``lambda1``, ``lambda2``, ``truth``, ``epochs``). ``--set`` overrides any
-config field by its dotted key, as the JAX CLI's does: the value is a Python
-literal, else a string, e.g. the bf16 stream policy of ``burgers_scale``:
+autograd: K5 and K1/K2, K7a for the Euler presets, K7b around K7a or K5 for
+the weak-form presets) and prints the summary keys of the JAX CLI
+(``rel_l2_u``, or ``rel_l2_rho`` / ``rel_l2_u`` / ``rel_l2_E`` for Euler,
+``lambda1``, ``lambda2`` (the effective coefficients: the identified
+viscosity of ``euler_inverse``), ``truth``, ``epochs``). ``--resume CKPT``
+continues a checkpoint (``train.out_dir`` writes them) from its epoch to the
+schedule's end. ``--set`` overrides any config field by its dotted key, as
+the JAX CLI's does: the value is a Python literal, else a string, e.g. the
+bf16 stream policy of ``burgers_scale``:
 
-  --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)" ``export``
-takes a params file (``pinns_tpu_torch.interop`` format, e.g. written from a
-JAX run by ``scripts/make_torch_port_fixture.py``); its ``pde`` key makes a
-Burgers or an Euler artifact. ``--device`` defaults to
-cuda and raises when no card is visible; pass ``--device cpu`` for the plain
-PyTorch path.
+  --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"
+
+``export`` takes a params file (``pinns_tpu_torch.interop`` format, e.g.
+written from a JAX run by ``scripts/make_torch_port_fixture.py``; its ``pde``
+key makes a Burgers or an Euler artifact) or a checkpoint of the port's own
+training with its preset. ``eval`` prints ``Trainer.evaluate``'s JSON for a
+checkpoint, or grades an artifact against its dataset's grid. Ensemble
+artifacts (several checkpoints, ``--select``, ``--calibrate``) and band
+coverage come with slice 4. ``--device`` defaults to cuda and raises when no
+card is visible; pass ``--device cpu`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -52,34 +65,105 @@ def parse_sets(pairs) -> dict:
     return out
 
 
-def cmd_train(args) -> int:
+def _build_exp(args):
+    """The preset with ``--set`` and the command's own overrides applied."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
-    from pinns_tpu_torch.train.trainer import Trainer
 
     updates = parse_sets(args.set)
-    for key, value in (("train.epochs", args.epochs), ("train.chunk", args.chunk),
-                       ("train.out_dir", args.out_dir), ("train.seed", args.seed)):
+    for key, attr in (("train.epochs", "epochs"), ("train.chunk", "chunk"),
+                      ("train.out_dir", "out_dir"), ("train.seed", "seed")):
+        value = getattr(args, attr, None)
         if value is not None:
             updates[key] = value
-    exp = override(get_preset(args.preset), updates)
-    trainer = Trainer(exp, device=args.device, dataset=args.data)
-    _, summary = trainer.train()
+    return override(get_preset(args.preset), updates)
+
+
+def cmd_train(args) -> int:
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_build_exp(args), device=args.device, dataset=args.data)
+    state = trainer.load_checkpoint(args.resume) if args.resume else None
+    _, summary = trainer.train(state)
     print(json.dumps(summary), flush=True)
     return 0
 
 
+ENSEMBLE_SLICE = "slice 4 (ensembles)"
+
+
 def cmd_export(args) -> int:
-    from pinns_tpu_torch.interop import load_params_npz
     from pinns_tpu_torch.serve import export_predict
 
-    loaded = load_params_npz(args.params)
+    if args.params:
+        from pinns_tpu_torch.interop import load_params_npz
+
+        if args.checkpoint or args.preset:
+            raise SystemExit("export takes --params, or --preset with --checkpoint")
+        loaded = load_params_npz(args.params)
+        path = export_predict(
+            loaded["spec"], loaded["params"], args.out,
+            lambda1=loaded["lambda1"], lambda2=loaded["lambda2"],
+            experiment=loaded["experiment"], pde=loaded["pde"], gamma=loaded["gamma"],
+        )
+        print(path)
+        return 0
+    if not (args.preset and args.checkpoint):
+        raise SystemExit("export needs --params, or --preset with --checkpoint")
+    if len(args.checkpoint) > 1 or args.select or args.calibrate:
+        raise SystemExit("ensemble artifacts (several checkpoints, --select, --calibrate) "
+                         f"come with {ENSEMBLE_SLICE}")
+    from pinns_tpu_torch.train import checkpoint as ckpt_io
+    from pinns_tpu_torch.train.trainer import build_problem
+
+    exp = _build_exp(args)
+    problem = build_problem(exp, args.device, args.data)
+    state = ckpt_io.load_checkpoint(args.checkpoint[0], problem.device)
+    lam1, lam2 = problem.effective_coeffs(state.params)
     path = export_predict(
-        loaded["spec"], loaded["params"], args.out,
-        lambda1=loaded["lambda1"], lambda2=loaded["lambda2"],
-        experiment=loaded["experiment"], pde=loaded["pde"], gamma=loaded["gamma"],
+        problem.spec, state.params["net"], args.out,
+        lambda1=float(lam1.reshape(-1)[0]), lambda2=float(lam2.reshape(-1)[0]),
+        experiment=exp.name, pde=exp.pde.kind, gamma=exp.pde.gamma,
     )
     print(path)
+    return 0
+
+
+def cmd_eval(args) -> int:
+    if args.artifact:
+        return _eval_artifact(args)
+    if not (args.checkpoint and args.preset):
+        raise SystemExit("eval needs --artifact, or --preset with --checkpoint")
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_build_exp(args), device=args.device, dataset=args.data)
+    state = trainer.load_checkpoint(args.checkpoint)
+    print(json.dumps(trainer.evaluate(state)), flush=True)
+    return 0
+
+
+def _eval_artifact(args) -> int:
+    """Grade a serving artifact against its dataset's exact grid: the rel-L2
+    of each served field there (the preset defaults to the artifact's own
+    experiment)."""
+    from pinns_tpu_torch.serve import load_exported
+    from pinns_tpu_torch.train.evaluate import relative_l2
+    from pinns_tpu_torch.train.trainer import build_problem
+
+    served = load_exported(args.artifact, device=args.device)
+    if not args.preset:
+        args.preset = served.meta.get("experiment")
+        if not args.preset:
+            raise SystemExit("the artifact names no experiment: pass --preset")
+    exp = _build_exp(args)
+    ds = build_problem(exp, args.device, args.data).dataset
+    preds = served.predict(ds.X_star)
+    out = {"artifact": args.artifact, "experiment": exp.name,
+           "truth": getattr(ds, "provenance", "unknown")}
+    for name in sorted(ds.star):
+        if name in preds:
+            out[f"rel_l2_{name}"] = relative_l2(preds[name], ds.star[name])
+    print(json.dumps(out), flush=True)
     return 0
 
 
@@ -134,22 +218,39 @@ def build_parser() -> argparse.ArgumentParser:
                                  description="PyTorch port of pinns_tpu")
     sub = ap.add_subparsers(dest="command", required=True)
 
+    def add_common(p, preset_required=True):
+        p.add_argument("--preset", required=preset_required)
+        p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                       help="override a config field, e.g. sampling.n_f=4000 (repeatable)")
+        p.add_argument("--data", help="grid .mat/.npz in place of the preset's dataset")
+        p.add_argument("--device", default="cuda")
+
     p = sub.add_parser("train", help="train a preset")
-    p.add_argument("--preset", required=True)
-    p.add_argument("--set", action="append", metavar="KEY=VALUE",
-                   help="override a config field, e.g. sampling.n_f=4000 (repeatable)")
+    add_common(p)
     p.add_argument("--epochs", type=int)
     p.add_argument("--chunk", type=int, help="epochs per chunk (metrics stay on the device)")
-    p.add_argument("--data", help="grid .mat/.npz in place of the preset's dataset")
-    p.add_argument("--device", default="cuda")
     p.add_argument("--out-dir", help="metrics JSONL and checkpoints go here")
     p.add_argument("--seed", type=int)
+    p.add_argument("--resume", metavar="CKPT",
+                   help="continue this checkpoint from its epoch to the schedule's end")
     p.set_defaults(fn=cmd_train)
 
-    p = sub.add_parser("export", help="write a serving artifact from a params file")
-    p.add_argument("--params", required=True, help="params .npz (interop format)")
+    p = sub.add_parser("export", help="write a serving artifact from a params file or a "
+                                      "checkpoint")
+    add_common(p, preset_required=False)
+    p.add_argument("--params", help="params .npz (interop format)")
+    p.add_argument("--checkpoint", nargs="+", help="a checkpoint of the preset's training")
     p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--select", help="ensemble member selection (slice 4)")
+    p.add_argument("--calibrate", action="store_true", help="ensemble bands (slice 4)")
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("eval", help="evaluate a checkpoint, or grade a serving artifact")
+    add_common(p, preset_required=False)
+    p.add_argument("--checkpoint")
+    p.add_argument("--artifact", help="artifact directory (from export); the preset "
+                                      "defaults to its experiment")
+    p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("serve", help="HTTP prediction server over an artifact")
     p.add_argument("--artifact", required=True)

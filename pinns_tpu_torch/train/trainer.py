@@ -44,10 +44,19 @@ policy, and the spec carries the model's stream policy (``compute_dtype``,
 ``keep_streams``, ``mixed_elementwise``), which ``mlp_taylor_2`` follows: K6 on
 the card.
 
+The weak form (``loss.residual_kind == 'flux'``, slice 2b-i) replaces the
+strong residual by the cell-mean conservation residual at control volumes
+centred on the batch (``ops.weakform``: K7b's edge points and quadrature
+around K7a or K5 on the card), taken as a mean square or, with
+``loss.causal_eps > 0``, by the causal-in-time penalty; it needs no ADMM
+state. The Euler system's artificial viscosity rides the ``lambda2`` slot
+through ``effective_coeffs`` and stays on the device.
+
 What the port leaves to later slices, each raising ``NotImplementedError``
-with the slice's name: the weak form, causal/entropy/gradient weighting, the
-mixed formulation, RAD, SWA and Fourier/path features (slice 2b); an L-BFGS
-phase on the Euler system; ensembles (slice 4); multi-GPU (slice 6).
+with the slice's name: the weak-form ADMM, the entropy penalty, gradient
+weighting, the mixed formulation, RAD, SWA and Fourier/path features (slice
+2b-ii); an L-BFGS phase on the Euler system; ensembles (slice 4); multi-GPU
+(slice 6).
 """
 
 from __future__ import annotations
@@ -79,7 +88,7 @@ from pinns_tpu_torch.losses.admm import (
     admm_penalty,
     admm_update,
 )
-from pinns_tpu_torch.losses.misfit import data_misfit, residual_penalty
+from pinns_tpu_torch.losses.misfit import causal_residual_penalty, data_misfit, residual_penalty
 from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply, mlp_apply_reference
 from pinns_tpu_torch.ops.residuals import euler_combine
 from pinns_tpu_torch.ops.taylor import (
@@ -88,6 +97,7 @@ from pinns_tpu_torch.ops.taylor import (
     mlp_taylor_2,
     mlp_taylor_2_reference,
 )
+from pinns_tpu_torch.ops.weakform import burgers_flux_residual, euler_flux_residuals
 from pinns_tpu_torch.opt.adam import (
     AdamState,
     adam_init,
@@ -123,14 +133,13 @@ def check_slice(exp: Experiment) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings a feature
     ``exp`` uses and the port does not have yet."""
     later = []
-    slice2 = "slice 2b (the weak form and shock capture)"
+    slice2 = "slice 2b-ii (shock capture on the weak form)"
     m, s, lo, o = exp.model, exp.sampling, exp.loss, exp.optimizer
     checks = [
         (exp.pde.kind not in ("burgers", "euler"), f"pde.kind={exp.pde.kind!r}",
          "no slice (burgers and euler only)"),
-        (lo.residual_kind == "flux" or lo.admm_form != "strong",
-         "the weak-form (flux) residual", slice2),
-        (lo.causal_eps > 0.0, "causal weighting", slice2),
+        (lo.admm_form != "strong", f"the weak-form ADMM (loss.admm_form={lo.admm_form!r})",
+         slice2),
         (lo.entropy_weight > 0.0, "the entropy penalty", slice2),
         (lo.grad_weight_kappa != 0.0, "gradient weighting", slice2),
         (bool(lo.strong_equations), "the mixed formulation (strong equations)", slice2),
@@ -185,6 +194,50 @@ class Problem:
     @property
     def euler(self) -> bool:
         return self.exp.pde.kind == "euler"
+
+    @property
+    def viscous_static(self) -> bool:
+        """Config-level predicate: can the effective viscosity (the lambda2
+        slot) differ from zero? ('exp' maps any raw value above zero;
+        trainable coefficients can move it.)"""
+        pde = self.exp.pde
+        return pde.train_coeffs or pde.lambda2_transform == "exp" or pde.lambda2 != 0.0
+
+    def flux_residuals_and_entropy(self, params, centers, want_entropy: bool = False,
+                                   plain: bool = False):
+        """Weak-form cell residuals at the cell centers (``ops.weakform``):
+        Burgers' r (N, 1) or the Euler system's (r1, r2, r3), and the weak
+        entropy violation (None unless asked for; the card raises for it).
+        ``plain`` forces the plain versions on any device. (JAX's coarse-cell
+        ``scale`` serves ensemble selection and comes with slice 4.)"""
+        cfg = self.exp.loss
+        if cfg.strong_equations:
+            raise NotImplementedError(
+                "loss.strong_equations (the mixed formulation) comes with slice 2b-ii")
+        hx = cfg.flux_dx_frac * float(self.ub[0] - self.lb[0])
+        ht = cfg.flux_dt_frac * float(self.ub[1] - self.lb[1])
+        if not self.euler:
+            lam1, lam2 = self.effective_coeffs(params)
+            return burgers_flux_residual(self.spec, params["net"], centers, lam1, lam2, hx, ht,
+                                         cfg.flux_quad, want_entropy, self.viscous_static, plain)
+        # the Euler artificial viscosity rides the lambda2 slot (freeze, exp
+        # transform and identification as for Burgers), a device tensor
+        _, visc = self.effective_coeffs(params)
+        return euler_flux_residuals(self.spec, params["net"], centers, self.exp.pde.gamma, hx,
+                                    ht, cfg.flux_quad, want_entropy, visc, self.viscous_static,
+                                    plain)
+
+    @property
+    def flux(self) -> bool:
+        """The training loss takes the weak-form residual."""
+        return self.exp.loss.residual_kind == "flux" or self.exp.loss.admm_form == "flux"
+
+    def training_residuals(self, params, pts, plain: bool = False):
+        """Residuals of the trained objective at ``pts``: the weak-form cells
+        when the loss is weak-form, else the strong form."""
+        if self.flux:
+            return self.flux_residuals_and_entropy(params, pts, plain=plain)[0]
+        return self.residuals_chunked(params, pts, plain)
 
     def residuals(self, params, colloc, plain: bool = False):
         """Strong-form residual(s) at collocation points: Burgers' f (N, 1),
@@ -343,9 +396,11 @@ def _remat(policy: str, body: Callable, on_card: bool) -> Callable:
 
 
 def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain=False):
-    """Residual loss term of the strong form, accumulated over
-    ``sampling.microbatch`` chunks of the batch when it is above 1 (in chunk
-    order; ``microbatch_unroll`` is an XLA scan knob the port ignores)."""
+    """Residual loss term: the strong or the weak form, by the configured
+    penalty (the causal one when ``loss.causal_eps > 0``), accumulated over
+    ``sampling.microbatch`` chunks of the batch when it is above 1 (strong
+    form only, in chunk order; ``microbatch_unroll`` is an XLA scan knob the
+    port ignores)."""
     exp = problem.exp
     cfg = exp.loss
     n_f = colloc.shape[0]  # the ACTUAL row count, as the ADMM threshold uses
@@ -357,18 +412,32 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
             "sampling.microbatch=1 (the weights need the whole batch's "
             "time-bin losses in one pass)"
         )
-    if (cfg.residual_kind == "flux" or cfg.admm_form == "flux") and m > 1:
+    if problem.flux and m > 1:
         raise ValueError(
             "weak-form residuals (residual_kind='flux' / admm_form='flux') "
             "do not support microbatching yet"
         )
+    if problem.flux and cfg.grad_weight_kappa > 0.0:
+        raise ValueError(
+            "grad_weight_kappa is a strong-form pointwise knob; it does "
+            "not apply to the weak-form residuals"
+        )
     if m <= 1:
-        residuals = problem.residuals(params, colloc, plain=plain)
+        if problem.flux:
+            residuals, _ = problem.flux_residuals_and_entropy(params, colloc, plain=plain)
+        else:
+            residuals = problem.residuals(params, colloc, plain=plain)
         if cfg.residual_kind == "admm":
             return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
+        if cfg.causal_eps > 0.0:
+            return causal_residual_penalty(
+                residuals, colloc[:, 1], problem.lb[1], problem.ub[1], cfg.causal_eps,
+                cfg.causal_bins, relative=cfg.causal_relative)[0]
+        # the weak-form cell residual takes the plain mean square
+        kind = "mean_sq" if cfg.residual_kind == "flux" else cfg.residual_kind
         if isinstance(residuals, tuple):
-            return sum(residual_penalty(f, cfg.residual_kind, n_f) for f in residuals)
-        return residual_penalty(residuals, cfg.residual_kind, n_f)
+            return sum(residual_penalty(f, kind, n_f) for f in residuals)
+        return residual_penalty(residuals, kind, n_f)
 
     chunks = _chunks(colloc, m)
     wrap = functools.partial(_remat, exp.sampling.microbatch_remat,

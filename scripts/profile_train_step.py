@@ -11,12 +11,14 @@ plain step, and over one L-BFGS outer epoch.
 The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 --steps adam --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"``.
 The Euler slice: ``--preset euler_admm --dataset abgrall_eulers --steps adam,plain``
-(an Euler preset has no L-BFGS phase in the port yet).
+(an Euler preset has no L-BFGS phase in the port yet). The weak-form slice:
+``--preset twosin_weak --steps adam,plain`` and ``--preset euler_inverse
+--dataset abgrall_eulers --steps adam,plain``.
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
-(the profiler's CUDA activity), their sum, the sums over K3's, K5's and K7a's
-kernels (named in namespaces k3, k5 and k7), the device's idle share 1 - device time / wall
+(the profiler's CUDA activity), their sum, the sums over K3's, K5's, K7a's
+and K7b's kernels (named in namespaces k3, k5, k7 and k7b), the device's idle share 1 - device time / wall
 time, the host operations that took the most CPU time, and the peak device
 memory of the step (warm-up included). Needs one
 NVIDIA GPU; imports no jax.
@@ -65,11 +67,11 @@ def profile_chunk(step, state, epochs: int, warmup: int = 5) -> dict:
                              "calls_per_unit": evt.count / units}
     device_us = sum(k["us_per_unit"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us_per_unit"])[:12])
-    # K3 (csrc/fused_step.cu), K5 (csrc/mlp_forward.cu) and K7a
-    # (csrc/taylor1.cu): every kernel and engine instantiation of each is
-    # named in namespace k3, k5 or k7
+    # K3 (csrc/fused_step.cu), K5 (csrc/mlp_forward.cu), K7a
+    # (csrc/taylor1.cu) and K7b (csrc/weakform.cu): every kernel and engine
+    # instantiation of each is named in namespace k3, k5, k7 or k7b
     named = {}
-    for ns in ("k3", "k5", "k7"):
+    for ns in ("k3", "k5", "k7", "k7b"):
         mine = {name: k for name, k in kernels.items() if f"{ns}::" in name}
         named.update({f"{ns}_us_per_unit": sum(k["us_per_unit"] for k in mine.values()),
                       f"{ns}_kernels_per_unit": sum(k["calls_per_unit"] for k in mine.values()),
@@ -135,7 +137,9 @@ def main(argv=None) -> int:
                                                "device_us_per_unit", "idle_share",
                                                "kernels_per_unit", "k3_us_per_unit",
                                                "k3_kernels_per_unit", "k5_us_per_unit",
-                                               "k7_us_per_unit", "peak_device_bytes")}}))
+                                               "k7_us_per_unit", "k7b_us_per_unit",
+                                               "k7b_kernels_per_unit",
+                                               "peak_device_bytes")}}))
     return 0
 
 

@@ -2,7 +2,7 @@
 (K2), the fused MLP forward and its backward (K5), the served slice, the
 fused Adam-epoch kernel (K3, both designs), the mixed-precision Taylor-2 kernel (K6) and
 its backward, the Taylor-1 kernel (K7a) and its backward with the Euler
-slice, and the trainer with its generic Adam step (microbatched, under the
+slice, the weak-form flux quadrature (K7b) with its presets, and the trainer with its generic Adam step (microbatched, under the
 stream policy) and L-BFGS phase over the kernels.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and skips
@@ -673,3 +673,150 @@ def test_euler_trainer_on_card(cuda_device):  # noqa: F811
     assert k_taylor1.LAUNCHES - f0 == 1 + 2 * 6 + 1
     assert k_taylor1.BACKWARD_LAUNCHES - b0 == 6 and k_mlp.BACKWARD_LAUNCHES - k5 == 6
     assert all(np.isfinite(summary[f"rel_l2_{f}"]) for f in ("rho", "u", "E"))
+
+
+# -- K7b: the weak-form flux quadrature (slice 2b-i) ---------------------------
+
+K7B_CASES = [("burgers", True, 1_000), ("burgers", False, 1_000), ("euler", True, 1_000),
+             ("euler", False, 1_000), ("burgers", True, 65_536), ("euler", True, 65_536),
+             ("euler", False, 1)]
+
+
+def _k7b_inputs(kind, viscous, n, device):
+    """Centers (bounds and clipped cells included) and the edge values of a
+    smooth field: (centers, y, yx or None, coefficient vector)."""
+    rng = np.random.default_rng(n + 3)
+    c = rng.uniform(LB, UB, size=(n, 2)).astype(np.float32)
+    c[: min(n, 4)] = [(LB[0], LB[1]), (UB[0], UB[1]), (LB[0], UB[1]), (UB[0], LB[1])][: min(n, 4)]
+    fields = 1 if kind == "burgers" else 3
+    m = n * 16
+    base = np.zeros(fields) if kind == "burgers" else np.array([1.0, 0.3, 2.5])
+    y = (base + 0.3 * rng.standard_normal((m, fields))).astype(np.float32)
+    yx = rng.standard_normal((m, fields)).astype(np.float32) if viscous else None
+    coeffs = [0.377, 1e-3] if kind == "burgers" else [0.4, float(np.exp(-6.0))]
+    t = lambda a: None if a is None else torch.from_numpy(a).to(device)  # noqa: E731
+    return t(c), t(y), t(yx), torch.tensor(coeffs, dtype=torch.float32, device=device)
+
+
+def _k7b_plain(kind, y, yx, hxe, hte, coeffs):
+    from pinns_tpu_torch.ops import weakform as twf
+
+    if kind == "burgers":
+        return twf.burgers_quadrature_reference(y, yx, hxe, hte, coeffs[0], coeffs[1], 4)[0]
+    return torch.cat(twf.euler_quadrature_reference(y, yx, hxe, hte, float(coeffs[0].detach()) + 1.0,
+                                                    coeffs[1], 4)[0], dim=1)
+
+
+@pytest.mark.parametrize("kind,viscous,n", K7B_CASES,
+                         ids=[f"{k}-{'visc' if v else 'invisc'}-n{n}" for k, v, n in K7B_CASES])
+def test_k7b_matches_plain_on_card(cuda_device, kind, viscous, n):  # noqa: F811
+    """K7b's edge points equal the plain version's bit for bit; r and the
+    backward (g_y, g_yx, the coefficients' gradient) lie within the float64
+    criterion of the plain version (autograd through it for the backward);
+    two backward calls agree bit for bit; each call counts one launch."""
+    from pinns_tpu_torch.ops import weakform as twf
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+
+    spec = MLPSpec(layers=(2, 4, 1), lb=LB, ub=UB)
+    c, y, yx, coeffs = _k7b_inputs(kind, viscous, n, cuda_device)
+    hx, ht = 0.02 * (UB[0] - LB[0]), 0.02 * (UB[1] - LB[1])
+    counts = (k7b.EDGE_LAUNCHES, k7b.LAUNCHES, k7b.BACKWARD_LAUNCHES)
+    pts, hxe, hte = k7b.edge_points(spec, c, hx, ht, 4)
+    ppts, phxe, phte = twf.edge_points_reference(spec, c, hx, ht, 4)
+    assert torch.equal(pts, ppts) and torch.equal(hxe, phxe) and torch.equal(hte, phte)
+    r = k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, 4)
+    g_r = torch.from_numpy(np.random.default_rng(n).standard_normal(tuple(r.shape))
+                           .astype(np.float32)).to(cuda_device)
+    gy, gyx, gc = k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs, 4)
+    gy2, gyx2, gc2 = k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs, 4)
+    torch.cuda.synchronize()
+    assert (k7b.EDGE_LAUNCHES, k7b.LAUNCHES, k7b.BACKWARD_LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2)
+    assert torch.equal(gy, gy2) and torch.equal(gc, gc2)
+    assert gyx is None if not viscous else torch.equal(gyx, gyx2)
+    outs = {}
+    for dtype in (torch.float32, torch.float64):
+        args = [t if t is None else t.to(dtype).clone().requires_grad_(True)
+                for t in (y, yx, coeffs)]
+        pr = _k7b_plain(kind, args[0], args[1], hxe.to(dtype), hte.to(dtype), args[2])
+        wrt = [a for a in args if a is not None]
+        grads = torch.autograd.grad(pr, wrt, g_r.to(dtype), allow_unused=True)
+        outs[dtype] = [pr.detach()] + [torch.zeros_like(a) if g is None else g
+                                       for g, a in zip(grads, wrt)]
+    # (the plain Euler version takes gamma as a float: gamma - 1's gradient is 0)
+    got = [r, gy] + ([gyx] if viscous else []) + [gc]
+    for g, p, e in zip(got, outs[torch.float32], outs[torch.float64]):
+        assert g.shape == p.shape
+        _close_or_f64(g, p, e, wide=True)
+
+
+def test_k7b_refuses_on_card_instead_of_falling_back(cuda_device):  # noqa: F811
+    from pinns_tpu_torch.ops import weakform as twf
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+
+    spec = MLPSpec(layers=(2, 4, 1), lb=LB, ub=UB)
+    c, y, _, coeffs = _k7b_inputs("burgers", False, 8, cuda_device)
+    with pytest.raises(ValueError, match="quadrature nodes"):
+        k7b.edge_points(spec, c, 0.04, 0.02, 9)
+    with pytest.raises(ValueError, match="float32"):
+        k7b.edge_points(spec, c.double(), 0.04, 0.02, 4)
+    h = torch.ones((8, 1), device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        k7b.flux_forward("burgers", y[:-1], None, h, h, coeffs, 4)
+    with pytest.raises(NotImplementedError, match="slice 2b-ii"):
+        twf.burgers_flux_residual(spec, init_mlp(spec, torch.Generator().manual_seed(1),
+                                                 cuda_device), c, 1.0, 0.0, 0.04, 0.02, 4,
+                                  want_entropy=True)
+
+
+def test_k7a_at_the_twosin_weak_shape(cuda_device):  # noqa: F811
+    """K7a at 8x20, out 1, 16,000 edge points (twosin_weak's residual pass)
+    against float64, forward and backward."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
+
+    layers, n = (2,) + (20,) * 8 + (1,), 16_000
+    spec, params, spec64, params64 = _net(layers, 21, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=22)).to(cuda_device)
+    rng = np.random.default_rng(23)
+    cot = [torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(cuda_device)
+           for _ in range(3)]
+    outs = k_taylor1.taylor1(spec, params, x)
+    grad = k_taylor1.taylor1_backward(spec, params, x, cot)
+    plain = mlp_taylor_1_reference(spec, params, x)
+    exact = mlp_taylor_1_reference(spec64, params64, x.double())
+    for g, p, e in zip(outs, plain, exact):
+        _f64_oracle(g.double().cpu(), p.double().cpu(), e.cpu())
+    pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
+    egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
+                                                 [c.double() for c in cot])
+    off = 0
+    for p, e in zip(pgrad, egrad):
+        _close_or_f64(grad[off:off + p.numel()].view(p.shape), p, e, wide=True)
+        off += p.numel()
+
+
+@pytest.mark.parametrize("preset", ["twosin_weak", "euler_inverse"])
+def test_weak_trainer_on_card(cuda_device, preset):  # noqa: F811
+    """A few epochs of each weak-form preset on the card: every epoch runs
+    K7b's three calls around K7a, and K5 for the data term; no plain call."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    epochs = 6
+    exp = override(get_preset(preset), {"train.epochs": epochs, "train.chunk": 3,
+                                        "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    before = (k7b.EDGE_LAUNCHES, k7b.LAUNCHES, k7b.BACKWARD_LAUNCHES,
+              k_taylor1.BACKWARD_LAUNCHES, k_mlp.BACKWARD_LAUNCHES)
+    state, summary = trainer.train()
+    after = (k7b.EDGE_LAUNCHES, k7b.LAUNCHES, k7b.BACKWARD_LAUNCHES,
+             k_taylor1.BACKWARD_LAUNCHES, k_mlp.BACKWARD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [epochs] * 5
+    fields = ("u",) if preset == "twosin_weak" else ("rho", "u", "E")
+    assert all(np.isfinite(summary[f"rel_l2_{f}"]) for f in fields)
+    assert np.isfinite(summary["lambda2"]) and summary["lambda2"] > 0

@@ -479,7 +479,7 @@ def test_euler_presets_build_like_jax(monkeypatch):
 
 
 DEFERRED = {
-    "weak_form": {"loss.residual_kind": "flux"},
+    "weak_form": {"loss.admm_form": "flux"},
     "entropy": {"loss.entropy_weight": 0.1},
     "gradient_weighting": {"loss.grad_weight_kappa": 1.0},
     "strong_equations": {"loss.strong_equations": (0,)},

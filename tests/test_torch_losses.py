@@ -56,8 +56,6 @@ def test_unknown_kinds_raise():
         tmisfit.data_misfit(t, t, "l3", 3)
     with pytest.raises(ValueError, match="unknown"):
         tmisfit.residual_penalty(t, "l3", 3)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tmisfit.causal_residual_penalty(t)
 
 
 @pytest.mark.parametrize("explicit_inner", [False, True])

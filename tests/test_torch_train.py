@@ -397,10 +397,10 @@ def test_burgers_shock_grid_is_the_native_one(monkeypatch):
     ("euler_admm", "slice 2"), ("twosin_weak", "slice 2"), ("euler_weak", "slice 2"),
 ])
 def test_out_of_slice_presets_raise(preset, match):
-    # euler_admm is inside the port since slice 2a; with the entropy penalty
-    # (euler_entropy_production, slice 2b) it is not
+    # euler_admm is inside the port since slice 2a and twosin_weak since
+    # slice 2b-i; with the entropy penalty (slice 2b-ii) neither is
     exp = get_preset(preset)
-    if preset == "euler_admm":
+    if preset in ("euler_admm", "twosin_weak"):
         exp = override(exp, {"loss.entropy_weight": 0.1})
     with pytest.raises(NotImplementedError, match=match):
         ttrainer.check_slice(exp)
