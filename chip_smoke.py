@@ -6,7 +6,10 @@ bf16 stream policy on kernel K6), the Euler strong-form slice (euler_admm
 served and trained on the Taylor-1 kernel K7a and K5), the CLI's way from a
 trained model to serving (train --resume, export --checkpoint, eval), and the
 weak-form slice (twosin_weak and euler_inverse trained over the flux
-quadrature kernel K7b, around K7a and K5).
+quadrature kernel K7b, around K7a and K5), and the shock-path slice
+(euler_weak_fast trained and served with two trainable shock paths computed
+inside K7a's and K5's input passes and the strong mass residual at the cell
+centres).
 
     python3 chip_smoke.py
 
@@ -49,7 +52,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             records from three JAX seeds; the launch counts of that run
   9b train-wide  Trainer(abgrall_l1) on the TwoSin grid through the wide K3
             for WIDE_EPOCHS epochs: finite losses that fall, one K3 call an
-            epoch, no call of a plain version
+            epoch, no call of a plain version; then ABGRALL_EPOCHS epochs on
+            its own committed grid (abgrall_burgers_shock), again through K3
   times     ms per epoch of the kernel step and the plain step (CUDA events,
             medians) at 8x20 and 8x200 beside step_bound, and wall time per
             1,000-epoch chunk at each
@@ -144,6 +148,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   times     K7b's edge points, quadrature and backward against the plain
             versions (CUDA events) at N 1,000 and 65,536 beside their bounds;
             each weak preset's epoch (events) and a 1,000-epoch chunk
+  27 k7a/k5-paths  K7a and K5 (wide) with two shock paths on the Euler trunk
+            at N 200, 1,000, 16,000 and 65,536 against float64: each stream
+            and each gradient leaf, path_c and path_a included, within 4x the
+            plain float32 version's error plus 1e-6 max|exact| (compare_f64);
+            two backward calls bit for bit
+  28 weak-paths-step  one euler_weak_fast step on the card from the JAX
+            fixture's state (euler_weak.npz): loss and every gradient leaf
+            (close_grad, the path leaves included), the launches of one loss;
+            then the fixture's 3-step replay
+  29 euler_weak_fast  the preset through Trainer.train at the fixture's
+            reduced schedule (2,000 epochs, uncut cosine) for JAX's three band
+            seeds: every epoch on K7b, K7a (edge points and centres) and K5,
+            no plain call, the median rel-L2 of each field within JAX's three
+            seeds +- PATH_MARGIN; the first seed's checkpoint through the CLI
+            (export --checkpoint, eval --artifact at the train rel-L2); the
+            fixture's JAX-trained path net served (K7a) at its grid points
+            within rtol 1e-5 / atol 1e-5 max|JAX|, and over HTTP
+  times     K7a and K5 with and without paths (events) beside their bounds,
+            the plain versions; the euler_weak_fast epoch (events) against the
+            plain step, and a 1,000-epoch chunk
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -209,6 +233,7 @@ STEP_TOL = {"loss": (1e-4, 1e-6), "grad": (1e-4, 1e-5), "adam": (1e-6, 1e-7),
             "leaf_sums": (1e-4, 1e-4)}
 TRAIN_EPOCHS = 10_000  # the fixture's band_epochs
 WIDE_EPOCHS = 300  # phase 9b: abgrall_l1's 8x200 net through the wide K3
+ABGRALL_EPOCHS = 100  # phase 9b: abgrall_l1 on its own grid
 BAND_MARGIN = 0.05  # three JAX seeds do not sample the tails of the seed spread
 LBFGS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "lbfgs_hybrid.npz")
 # K5 at the data term's 100 points and the served grid's 25,600 (8x20); the
@@ -403,14 +428,19 @@ def split_leaves(flat: np.ndarray, layers) -> list:
     return out
 
 
-def close_grad(got: np.ndarray, want: np.ndarray, layers, exact: np.ndarray) -> dict:
+def close_grad(got: np.ndarray, want: np.ndarray, layers, exact: np.ndarray,
+               sizes=None) -> dict:
     """The gradient leaf by leaf, each within STEP_TOL['grad'] of its own max.
     A leaf that misses it must pass the float64 criterion instead (compare_f64
     against ``exact``, the float64 plain gradient, beside ``want``'s own
     error): once a sum over the points cancels, float32 itself misses a
-    max-relative atol, whatever order it sums in."""
+    max-relative atol, whatever order it sums in. ``sizes`` (the leaves'
+    sizes) cuts a flat vector that is not W_0, b_0, ... of ``layers`` alone
+    (a shock-path net's)."""
     rows = []
-    for g, w, e in zip(*(split_leaves(a, layers) for a in (got, want, exact))):
+    cut = ((lambda a: np.split(a, np.cumsum(sizes)[:-1])) if sizes is not None
+           else (lambda a: split_leaves(a, layers)))
+    for g, w, e in zip(*(cut(a) for a in (got, want, exact))):
         row = measure("grad", g, w)
         if not row["ok"]:
             row = dict(compare_f64("grad", g, w, e), max_abs_err=float(np.abs(g - w).max()))
@@ -628,6 +658,28 @@ def phase_train_wide(card: str) -> dict:
     emit(card, phase="train-wide", preset="abgrall_l1", net="8x200", dataset="twosin_burgers_shock",
          epochs=WIDE_EPOCHS, wall_s=wall, loss=[first["loss"], last["loss"]],
          rel_l2_u=summary["rel_l2_u"], launches=counts, plain_calls=plain.calls)
+    # on its own grid, committed since (scripts/make_torch_abgrall_grid.py)
+    exp = override(get_preset("abgrall_l1"), {"train.epochs": ABGRALL_EPOCHS,
+                                              "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    check(trainer.problem.dataset.name == "abgrall_burgers_shock"
+          and trainer.problem.dataset.provenance == "native", "abgrall_l1's grid")
+    reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        state, own = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    own_counts = kernel_counts()
+    check(own_counts["fused_step"] == ABGRALL_EPOCHS and plain.calls == 0,
+          f"abgrall_l1 on its grid: launches {own_counts}, {plain.calls} plain calls")
+    check(math.isfinite(own["rel_l2_u"]) and all(
+        bool(torch.isfinite(p).all()) for layer in state.params["net"] for p in layer.values()),
+        "abgrall_l1 on its grid: non-finite result")
+    emit(card, phase="train-wide", preset="abgrall_l1", net="8x200",
+         dataset="abgrall_burgers_shock", epochs=ABGRALL_EPOCHS, wall_s=wall,
+         rel_l2_u=own["rel_l2_u"], truth=own["truth"], launches=own_counts,
+         plain_calls=plain.calls)
     return {"launches": counts["fused_step"]}
 
 
@@ -780,6 +832,7 @@ class PlainCalls:
 
         self.sites = [(m, name) for name, mods in (
             ("mlp_apply_reference", (mlp, trainer, weakform)),
+            ("path_streams", (mlp,)),
             ("mlp_taylor_2_reference", (taylor, trainer)),
             ("mlp_taylor_1_reference", (taylor, trainer, weakform)),
             ("mlp_backward_reference", (mlp_forward,)),
@@ -1992,6 +2045,14 @@ K7B_TIMES = [("burgers", True, 1_000), ("euler", True, 1_000), ("burgers", True,
 K7B_QUAD = 4
 WEAK_EPOCHS = 3_000  # the fixture's band_epochs
 WEAK_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
+# 27-29: the shock-path slice; its preset's K7a call at the edge points
+# (16,000: 1,000 cells x 16) and K5 call on the data term (200 points)
+PATH_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "euler_weak.npz")
+PATH_PRESET = "euler_weak_fast"
+PATH_NS = (200, 1_000, 16_000, 65_536)
+PATH_K7A_MAIN, PATH_K5_MAIN = 16_000, 200
+PATH_K7A_TIMES = (1_000, 16_000)
+PATH_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
 
 
 def cli_json(argv) -> dict:
@@ -2212,12 +2273,14 @@ def weak_state(fx: dict, preset: str, device):
 
 
 def weak_gradient(problem, params, colloc, plain: bool, dtype=torch.float32):
-    """(loss, flat net gradient, (dlambda1, dlambda2)) of the preset's loss."""
+    """(loss, flat net gradient in kernel order (``net_leaves``: a shock-path
+    net's paths last), (dlambda1, dlambda2)) of the preset's loss."""
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
     from pinns_tpu_torch.train import trainer as tr
 
     params = tr.tree_map(lambda t: t.to(dtype).detach().clone().requires_grad_(True), params)
     loss, _ = tr.make_loss_fn(problem, plain=plain)(params, colloc.to(dtype), None)
-    leaves = tr.tree_leaves(params["net"]) + [params["coeffs"][k] for k in ("lambda1", "lambda2")]
+    leaves = net_leaves(params["net"]) + [params["coeffs"][k] for k in ("lambda1", "lambda2")]
     grads = [torch.zeros_like(p) if g is None else g for g, p in
              zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
     return (float(loss.detach()), flat_np(grads[:-2]), flat_np(grads[-2:]))
@@ -2291,16 +2354,19 @@ def phase_weak_step(card: str) -> dict:
     return out
 
 
-def reduced_weak(preset: str, epochs: int, seed: int):
+def reduced_weak(preset: str, epochs: int, seed: int, out_dir: str = None):
     """``preset`` through Trainer.train on the card for ``epochs`` epochs of
     its cosine schedule (uncut): (trainer, summary, logs, launches, wall
     seconds); the counts are set to 0 just before train and read just after,
-    and every epoch must have gone through K7b, K7a (or K5) and K5."""
+    and every epoch must have gone through K7b, K7a (or K5) and K5 (K7a
+    twice under the mixed formulation: the edge points and the centres).
+    The metrics and the final checkpoint go to ``out_dir`` when given."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.train import trainer as tr
 
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = out_dir or tmp
         exp = override(get_preset(preset), {"train.epochs": epochs, "train.seed": seed,
                                             "train.log_every": 1000, "train.out_dir": tmp})
         trainer = tr.Trainer(exp, device="cuda")
@@ -2315,13 +2381,15 @@ def reduced_weak(preset: str, epochs: int, seed: int):
         with open(os.path.join(tmp, f"{preset}_metrics.jsonl")) as f:
             logs = [json.loads(line) for line in f if "summary" not in line]
     check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
-    euler = preset == "euler_inverse"
+    euler = exp.pde.kind == "euler"
+    k7a = epochs * (1 + int(bool(exp.loss.strong_equations)))
     # an epoch: K7b's three calls, K7a forward and backward at the edge
-    # points, K5 forward and backward on the data term; the evaluation one
-    # K7a (Euler) or K1 (Burgers) forward over the grid
+    # points (and at the centres, mixed), K5 forward and backward on the
+    # data term; the evaluation one K7a (Euler) or K1 (Burgers) forward over
+    # the grid
     want = {"weakform_edge_points": epochs, "weakform_flux": epochs,
-            "weakform_flux_backward": epochs, "taylor1": epochs + int(euler),
-            "taylor1_backward": epochs, "mlp_forward": epochs, "mlp_backward": epochs,
+            "weakform_flux_backward": epochs, "taylor1": k7a + int(euler),
+            "taylor1_backward": k7a, "mlp_forward": epochs, "mlp_backward": epochs,
             "taylor2": int(not euler), "taylor2_backward": 0, "fused_step": 0}
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     fields = EULER_FIELDS if euler else ("u",)
@@ -2416,6 +2484,357 @@ def phase_weak_times(card: str, train: dict) -> dict:
         emit(card, phase="times", what="weak_epoch", preset=preset, epoch_ms=ms,
              plain_ms=plain_ms, reps=REPS, clock="cuda_events", chunk_epochs=1000,
              chunk_wall_s=chunk, epochs_per_s=1000 / chunk)
+    return out
+
+
+# -- 27-29 and times: the shock-path slice (paths in K7a and K5) ---------------
+
+def path_net(layers, seed: int, device):
+    """A seeded net with two shock paths (degree 2, sharpness 12) moved off
+    their init, nonzero biases, and its float64 twin."""
+    from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB, n_paths=2, path_degree=2, path_sharpness=12.0)
+    params = init_mlp(spec, torch.Generator().manual_seed(seed), device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for p in params:
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=gen))
+    params[0]["path_c"].add_(0.3 * torch.randn((2, 3), generator=gen).to(device))
+    params[0]["path_a"].mul_(1.0 + 0.2 * torch.randn(2, generator=gen).to(device))
+    return spec, params, dataclasses.replace(spec, dtype=torch.float64), net_f64(params)
+
+
+def path_ops(spec, n: int, streams: int):
+    """The paths' own work in an input pass: about 20 FLOP a path and point
+    for the value stream, 10 more for each tangent stream."""
+    return [((10.0 + 10.0 * streams) * spec.n_paths * n, PEAK_FP32)]
+
+
+def path_bounds(spec, n: int) -> dict:
+    """The bounds of K7a's and K5's forward and backward with paths: the
+    trunk's products at the embedded widths, the paths' own work, and the
+    backward's gH of layer 0 (the adjoints of the path features)."""
+    w = spec.widths
+    m = _macs(w)
+    nb_fwd7 = 8 * n + 12 * n * w[-1] + 4 * spec.n_params
+    nb_fwd5 = 8 * n + 4 * n * w[-1] + 4 * spec.n_params
+    bwd7 = taylor1_ops(w, n) + [(3 * 2.0 * (2 * sum(m)) * n, PEAK_FP32)]
+    bwd5 = [(3 * 2.0 * sum(m) * n, PEAK_FP32)]
+    return {"k7a": bound(taylor1_ops(w, n) + path_ops(spec, n, 3), nb_fwd7),
+            "k7a_backward": bound(bwd7 + path_ops(spec, n, 3) * 3,
+                                  nb_fwd7 + 4 * spec.n_params),
+            "k5": bound([(2.0 * sum(m) * n, PEAK_FP32)] + path_ops(spec, n, 1), nb_fwd5),
+            "k5_backward": bound(bwd5 + path_ops(spec, n, 1) * 3, nb_fwd5 + 4 * spec.n_params)}
+
+
+def path_kernel_fns(kernel: str):
+    """(forward, backward) of K7a (three streams) or K5 (one):
+    forward(spec, params, x) -> outputs, backward(spec, params, x, cot) ->
+    the flat gradient."""
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+
+    if kernel == "k7a":
+        return k_taylor1.taylor1, k_taylor1.taylor1_backward
+    return (lambda s, p, x: (k_mlp.mlp_forward(s, p, x),),
+            lambda s, p, x, cot: k_mlp.mlp_backward(s, p, x, cot[0]))
+
+
+def path_kernel_call(kernel: str, spec, params, x, cot):
+    """(outputs, flat gradient) of K7a or K5 with the cotangents ``cot``."""
+    fwd, bwd = path_kernel_fns(kernel)
+    return fwd(spec, params, x), bwd(spec, params, x, cot)
+
+
+def path_plain_call(kernel: str, spec, params, x, cot):
+    """The plain versions of ``path_kernel_call``: the forward reference and
+    the backward algorithm in PyTorch (a list of leaves)."""
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
+
+    if kernel == "k7a":
+        return (mlp_taylor_1_reference(spec, params, x),
+                k_taylor1.taylor1_backward_reference(spec, params, x, cot))
+    return ((mlp_apply_reference(spec, params, x),),
+            k_mlp.mlp_backward_reference(spec, params, x, cot[0]))
+
+
+def phase_paths(card: str) -> dict:
+    """27: K7a and K5 (wide) with two shock paths on the Euler trunk against
+    float64 (compare_f64), every stream and every gradient leaf, path_c and
+    path_a included; two backward calls agree bit for bit."""
+    out = {}
+    for n in PATH_NS:
+        spec, params, spec64, params64 = path_net(EULER, 214, "cuda")
+        x = points(n, seed=n + 11, device="cuda")
+        for kernel, streams in (("k7a", 3), ("k5", 1)):
+            rng = np.random.default_rng(n + 12)
+            cot = [torch.from_numpy(rng.standard_normal((n, EULER[-1])).astype(np.float32))
+                   .cuda() for _ in range(streams)]
+            with torch.inference_mode():
+                got, grad = path_kernel_call(kernel, spec, params, x, cot)
+                _, again = path_kernel_call(kernel, spec, params, x, cot)
+                plain, pgrad = path_plain_call(kernel, spec, params, x, cot)
+                exact, egrad = path_plain_call(kernel, spec64, params64, x.double(),
+                                               [c.double() for c in cot])
+            torch.cuda.synchronize()
+            check(torch.equal(grad, again), f"{kernel} backward with paths not repeatable, N {n}")
+            check(grad.numel() == spec.n_params, f"{kernel}: {grad.numel()} gradient entries")
+            rows = {f"out{i}": compare_f64(f"{kernel} out{i}", host(g), host(p), host(e))
+                    for i, (g, p, e) in enumerate(zip(got, plain, exact))}
+            leaves, off = [], 0
+            for p, e in zip(pgrad, egrad):
+                g = host(grad[off:off + p.numel()])
+                off += p.numel()
+                leaves.append(dict(compare_f64(f"{kernel} grad", g, host(p).ravel(),
+                                               host(e).ravel()),
+                                   max_abs_err=float(np.abs(g - host(p).ravel()).max())))
+            fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+            bwd_err = max(r["max_abs_err"] for r in leaves)
+            out[(kernel, n)] = (fwd_err, bwd_err)
+            emit(card, phase="k7a/k5-paths", kernel=kernel, net="2x200x5x3", n_paths=2, n=n,
+                 criterion="f64_oracle", outputs=rows, forward_max_abs_err=fwd_err,
+                 backward_max_abs_err=bwd_err, path_c=leaves[-2], path_a=leaves[-1],
+                 leaves=len(leaves), bit_equal=True)
+    return out
+
+
+def path_fixture() -> dict:
+    with np.load(PATH_FIXTURE, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def path_fixture_net(fx: dict, flat: np.ndarray, spec) -> list:
+    """A flat fixture vector (W_0, b_0, ..., path_c, path_a) as JAX-layout
+    numpy params of ``spec``."""
+    sizes = [a for din, dout in zip(spec.widths[:-1], spec.widths[1:])
+             for a in (din * dout, dout)] + [spec.n_paths * (spec.path_degree + 1), spec.n_paths]
+    leaves = np.split(flat, np.cumsum(sizes)[:-1])
+    net = [{"W": w.reshape(din, dout), "b": b.reshape(1, dout)}
+           for w, b, din, dout in zip(leaves[0:-2:2], leaves[1:-2:2], spec.widths[:-1],
+                                      spec.widths[1:])]
+    net[0]["path_c"] = leaves[-2].reshape(spec.n_paths, spec.path_degree + 1)
+    net[0]["path_a"] = leaves[-1]
+    return net, sizes
+
+
+def phase_path_step(card: str) -> dict:
+    """28: one euler_weak_fast step on the card from the fixture's JAX state
+    (loss, every gradient leaf with the paths', the launches of one loss),
+    then the fixture's 3-step replay (metrics, coefficients, each leaf's
+    sums, the params after the first step)."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.interop import train_state_from_jax
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
+    from pinns_tpu_torch.train import trainer as tr
+
+    fx = path_fixture()
+    exp = get_preset(PATH_PRESET)
+    problem = tr.build_problem(exp, "cuda")
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    spec = problem.spec
+    check(spec.layers == tuple(int(w) for w in fx["layers"]) and spec.lb == tuple(fx["lb"])
+          and spec.ub == tuple(fx["ub"]) and spec.n_paths == int(fx["n_paths"])
+          and spec.path_degree == int(fx["path_degree"]), f"{PATH_PRESET}: spec")
+    check(np.array_equal(host(problem.x_data), fx["x_data"]), "the training set differs")
+    net, sizes = path_fixture_net(fx, fx["params_0"], spec)
+    coeffs = {"lambda1": fx["coeffs_0"][0:1], "lambda2": fx["coeffs_0"][1:2]}
+    zeros = [{k: np.zeros_like(v) for k, v in layer.items()} for layer in net]
+    zc = {k: np.zeros_like(v) for k, v in coeffs.items()}
+    state = train_state_from_jax({
+        "params": {"net": net, "coeffs": coeffs}, "count": 0,
+        "mu": {"net": zeros, "coeffs": zc}, "nu": {"net": zeros, "coeffs": zc},
+        "colloc": fx["colloc_0"], "epoch": 0}, problem.device, key=int(fx["seed"]))
+    reset_counts()
+    loss, grad, gcoeffs = weak_gradient(problem, state.params, state.colloc, plain=False)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(all(launches[k] == 1 for k in ("weakform_edge_points", "weakform_flux",
+                                          "weakform_flux_backward", "mlp_forward", "mlp_backward"))
+          and launches["taylor1"] == 2 and launches["taylor1_backward"] == 2,
+          f"the loss's launches {launches}")
+    _, g64, _ = weak_gradient(p64, state.params, state.colloc, plain=True, dtype=torch.float64)
+    rows = {"loss": close("loss", loss, fx["loss_0"], scale=abs(float(fx["loss_0"]))),
+            "grad_0": close_grad(grad, fx["grad_0"], None, g64, sizes=sizes),
+            "gcoeffs_0": close("grad", gcoeffs, fx["gcoeffs_0"], scale=1.0)}
+    step = tr.make_step(problem, tr.learning_rate_schedule(exp.optimizer))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(problem.device)  # noqa: E731
+    replay, k = [], 1
+    while f"metrics_{k}" in fx:
+        state, m = step(state, new_colloc=t(fx[f"colloc_{k}"]))
+        m = {n: float(v) for n, v in m.items()}
+        want = dict(zip(tr.METRIC_KEYS, fx[f"metrics_{k}"].tolist()))
+        r = {n: close("loss", m[n], want[n], scale=abs(want["loss"]))
+             for n in ("loss", "data_term", "res_term", "lambda1", "lambda2")}
+        got = [host(v).astype(np.float64) for v in net_leaves(state.params["net"])]
+        r["leaf_sums"] = close("leaf_sums", np.asarray([(v.sum(), (v * v).sum()) for v in got]),
+                               fx[f"sums_{k}"])
+        r["coeffs"] = close("adam", np.asarray([float(state.params["coeffs"][c][0])
+                                                for c in ("lambda1", "lambda2")]),
+                            fx[f"coeffs_{k}"])
+        if k == 1:
+            r["params"] = close_adam_params(flat_np(net_leaves(state.params["net"])),
+                                            fx["params_1"], exp.optimizer.learning_rate)
+        replay.append(r)
+        k += 1
+    emit(card, phase="weak-paths-step", preset=PATH_PRESET, seed=int(fx["seed"]), step_0=rows,
+         launches=launches, replay_steps=len(replay), per_step=replay)
+    return {"grad_err": rows["grad_0"]["max_abs_err"]}
+
+
+def phase_path_train(card: str) -> dict:
+    """29: euler_weak_fast at the fixture's reduced schedule for JAX's three
+    band seeds (the median of each field within JAX's three +- PATH_MARGIN);
+    the first seed's checkpoint exported and graded through the CLI; the
+    fixture's JAX-trained net served on the card against JAX's outputs."""
+    from pinns_tpu_torch.serve import ServedModel, export_predict, make_http_server
+
+    fx = path_fixture()
+    epochs, seeds = int(fx["band_epochs"]), fx["band_seeds"].tolist()
+    band = {f: (float(fx["band_rel_l2"][:, i].min()) - PATH_MARGIN,
+                float(fx["band_rel_l2"][:, i].max()) + PATH_MARGIN)
+            for i, f in enumerate(EULER_FIELDS)}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in seeds:
+            trainer, summary, logs, launches, wall = reduced_weak(
+                PATH_PRESET, epochs, seed, out_dir=tmp if seed == seeds[0] else None)
+            runs.append({"seed": seed, **{f: summary[f"rel_l2_{f}"] for f in EULER_FIELDS},
+                         "wall_s": wall, "loss": [logs[0]["loss"], logs[-1]["loss"]],
+                         "launches": launches})
+            if seed == seeds[0]:
+                first = {"trainer": trainer, "launches": launches, "wall_s": wall,
+                         "summary": summary}
+        medians = {f: statistics.median(r[f] for r in runs) for f in EULER_FIELDS}
+        check(all(band[f][0] <= medians[f] <= band[f][1] for f in EULER_FIELDS),
+              f"median rel-L2 {medians} outside the JAX band {band}")
+        # the port's own checkpoint, through the CLI
+        ckpt = os.path.join(tmp, f"{PATH_PRESET}_final.ckpt")
+        art = os.path.join(tmp, "artifact")
+        cli_json(["export", "--preset", PATH_PRESET, "--checkpoint", ckpt, "--out", art,
+                  "--device", "cuda"])
+        graded = cli_json(["eval", "--artifact", art, "--device", "cuda"])
+        check(all(abs(graded[f"rel_l2_{f}"] - first["summary"][f"rel_l2_{f}"]) <= 1e-6
+                  for f in EULER_FIELDS), f"eval --artifact {graded} vs train {first['summary']}")
+        # the fixture's JAX-trained path net, served
+        spec = first["trainer"].problem.spec
+        net, _ = path_fixture_net(fx, fx["band_params"], spec)
+        jart = export_predict(spec, net, os.path.join(tmp, "jax"), 1.0, 1e-3,
+                              experiment=PATH_PRESET, pde="euler", gamma=float(fx["gamma"]))
+        served = ServedModel(jart, device="cuda")
+        check(served.spec == spec, "the served spec")
+        x = fx["predict_x"]
+        reset_counts()
+        out = served.predict(x, pad_to_bucket=True)
+        served_launches = kernel_counts()
+        check(served_launches["taylor1"] == 1 and served_launches["mlp_forward"] == 0,
+              f"served launches {served_launches}")
+        vs_jax = {}
+        for k in EULER_OUT:
+            got, want = out[k].ravel().astype(np.float64), fx[f"predict_{k}"].astype(np.float64)
+            err = np.abs(got - want)
+            atol = 1e-5 * float(np.abs(want).max())
+            check(bool((err <= atol + 1e-5 * np.abs(want)).all()),
+                  f"served {k}: max err {err.max()} (atol {atol})")
+            vs_jax[k] = {"max_abs_err": float(err.max()), "atol": atol, "rtol": 1e-5}
+        server = make_http_server(jart, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            code, _, body = http(base + "/predict", json.dumps({"x": x[:8].tolist()}).encode())
+            want8 = served.predict(x[:8], pad_to_bucket=True)
+            got8 = {k: np.asarray(v, np.float32) for k, v in json.loads(body).items()}
+            check(code == 200 and all(np.array_equal(got8[k], want8[k]) for k in want8),
+                  f"HTTP predict answered {code}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "HTTP server thread did not stop")
+    emit(card, phase="euler_weak_fast", epochs=epochs, runs=runs, median_rel_l2=medians,
+         band=band, jax_seeds={str(s): dict(zip(EULER_FIELDS, r)) for s, r in
+                               zip(seeds, fx["band_rel_l2"].tolist())},
+         cli_eval_artifact=graded, served_vs_jax=vs_jax, served_launches=served_launches,
+         served_points=int(x.shape[0]), http_points=8)
+    return first
+
+
+def path_entry(train: dict, counter: str, errs: dict, times: dict, kernel: str, n: int,
+               which: int) -> dict:
+    """A path variant's keys in the kernels line: its launches in phase 29's
+    first seed, its error (phase 27) and times (``phase_path_times``) at N
+    ``n``, forward (which 0) or backward (1)."""
+    t = times[(kernel, n)]["forward" if which == 0 else "backward"]
+    return {"launches": train["launches"][counter], "max_abs_err": errs[(kernel, n)][which],
+            "ms": t[0], "plain_ms": t[1], **bound_fields(t[2])}
+
+
+def phase_path_times(card: str, train: dict) -> dict:
+    """times: K7a and K5 with and without paths (events) beside their bounds
+    and their plain versions (the backward by autograd through the plain
+    forward); the euler_weak_fast epoch against the plain step (events), and
+    a 1,000-epoch chunk."""
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_from_leaves, net_leaves
+    from pinns_tpu_torch.train import trainer as tr
+
+    out = {}
+    shapes = [("k7a", n) for n in PATH_K7A_TIMES] + [("k5", PATH_K5_MAIN)]
+    for kernel, n in shapes:
+        streams = 3 if kernel == "k7a" else 1
+        x = points(n, seed=n + 13, device="cuda")
+        cot = [torch.ones((n, EULER[-1]), device="cuda") for _ in range(streams)]
+        row = {}
+        kfwd, kbwd = path_kernel_fns(kernel)
+        for tag, (spec, params, _, _) in (("paths", path_net(EULER, 214, "cuda")),
+                                          ("no_paths", k7a_net(EULER, 214, "cuda"))):
+            with torch.no_grad():
+                row[tag] = (event_ms(lambda: kfwd(spec, params, x)),
+                            event_ms(lambda: kbwd(spec, params, x, cot)))
+        spec, params, _, _ = path_net(EULER, 214, "cuda")
+        leaves = [t.detach().clone().requires_grad_(True) for t in net_leaves(params)]
+        net = net_from_leaves(leaves, spec.n_paths)
+        with torch.no_grad():
+            fwd_plain = event_ms(lambda: path_plain_call(kernel, spec, params, x, cot)[0])
+        ref = "mlp_taylor_1_reference" if kernel == "k7a" else "mlp_apply_reference"
+
+        def plain_backward():
+            outs = path_plain_call(kernel, spec, net, x, cot)[0]
+            return torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(outs, cot)), leaves)
+
+        bwd_plain = event_ms(plain_backward)
+        b = path_bounds(spec, n)
+        fwd, bwd = row["paths"]
+        out[(kernel, n)] = {"forward": (fwd, fwd_plain, b[kernel]),
+                            "backward": (bwd, bwd_plain, b[f"{kernel}_backward"]),
+                            "no_paths": row["no_paths"]}
+        emit(card, phase="times", what=f"{kernel}_paths", net="2x200x5x3", n_paths=2, n=n,
+             forward_ms=fwd, backward_ms=bwd, no_paths_forward_ms=row["no_paths"][0],
+             no_paths_backward_ms=row["no_paths"][1],
+             path_share_forward=1.0 - row["no_paths"][0] / fwd,
+             path_share_backward=1.0 - row["no_paths"][1] / bwd,
+             forward_plain_ms=fwd_plain, backward_plain_ms=bwd_plain,
+             forward_bound_ms=b[kernel][0], backward_bound_ms=b[f"{kernel}_backward"][0],
+             reps=REPS, clock="cuda_events", plain=f"{ref}; backward by autograd through it")
+    trainer = train["trainer"]
+    state = trainer.init_state(seed=3)
+    step = trainer._adam_step
+    plain_step = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
+    ms = event_ms(lambda: step(state))
+    plain_ms = event_ms(lambda: plain_step(state))
+    tr.run_chunk(step, state, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_chunk(step, state, 1000)
+    torch.cuda.synchronize()
+    chunk = time.perf_counter() - t0
+    out["epoch"] = (ms, plain_ms, 1000 / chunk)
+    emit(card, phase="times", what="weak_epoch", preset=PATH_PRESET, epoch_ms=ms,
+         plain_ms=plain_ms, reps=REPS, clock="cuda_events", chunk_epochs=1000,
+         chunk_wall_s=chunk, epochs_per_s=1000 / chunk)
     return out
 
 
@@ -2608,6 +3027,12 @@ def main() -> int:
     weak = timed(card, "weak-train", phase_weak_train, card)
     t8 = timed(card, "times-weak", phase_weak_times, card, weak)
 
+    # -- 27-29 and times: the shock-path slice (paths in K7a and K5) --------
+    paths_err = timed(card, "k7a/k5-paths", phase_paths, card)
+    timed(card, "weak-paths-step", phase_path_step, card)
+    ewf = timed(card, "euler_weak_fast", phase_path_train, card)
+    t9 = timed(card, "times-paths", phase_path_times, card, ewf)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -2659,6 +3084,9 @@ def main() -> int:
             "plain_ms": t3[("k5",) + k5_wide][1],
             **bound_fields(mlp_bound(*k5_wide)),
         },
+        # the wide design with two shock paths on euler_weak_fast's data term
+        "paths_euler_n200": path_entry(ewf, "mlp_forward", paths_err, t9, "k5",
+                                       PATH_K5_MAIN, 0),
     }, {
         "name": "mlp_backward",
         "route": "cuda",
@@ -2676,6 +3104,8 @@ def main() -> int:
             "plain_ms": t3[("k5",) + k5_wide][3],
             **bound_fields(mlp_bound(*k5_wide, backward=True)),
         },
+        "paths_euler_n200": path_entry(ewf, "mlp_backward", paths_err, t9, "k5",
+                                       PATH_K5_MAIN, 1),
     }, {
         "name": "taylor2_backward",
         "route": "cuda",
@@ -2716,6 +3146,9 @@ def main() -> int:
         "ms": t7[K7A_MAIN][0],
         "plain_ms": t7[K7A_MAIN][1],
         **bound_fields(taylor1_bound(*K7A_MAIN)),
+        # with two shock paths at euler_weak_fast's edge points; its
+        # launches: phase 29's first seed (edge points and centres)
+        "paths_n16000": path_entry(ewf, "taylor1", paths_err, t9, "k7a", PATH_K7A_MAIN, 0),
     }, {
         "name": "taylor1_backward",
         "route": "cuda",
@@ -2726,6 +3159,8 @@ def main() -> int:
         "ms": t7[K7A_MAIN][2],
         "plain_ms": t7[K7A_MAIN][3],
         **bound_fields(taylor1_backward_bound(*K7A_MAIN)),
+        "paths_n16000": path_entry(ewf, "taylor1_backward", paths_err, t9, "k7a",
+                                   PATH_K7A_MAIN, 1),
     }] + [{
         "name": f"weakform_{what}",
         "route": "cuda",

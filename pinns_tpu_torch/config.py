@@ -31,10 +31,10 @@ class ModelConfig:
     compute_dtype: str = ""
     keep_streams: Tuple[str, ...] = ()
     mixed_elementwise: bool = False
-    n_fourier: int = 0  # Fourier features: slice 2
+    n_fourier: int = 0  # Fourier features: slice 2b-iii
     fourier_sigma: float = 3.0
     fourier_seed: int = 0
-    n_paths: int = 0  # trainable shock paths: slice 2
+    n_paths: int = 0  # trainable shock paths (slice 2b-ii)
     path_degree: int = 2
     path_sharpness: float = 8.0
 

@@ -389,9 +389,10 @@ int ew_blocks(long long items) {
 }
 
 // The flat layout of a net's parameters (W_0, b_0, W_1, ...); false unless
-// 1 <= n_layers <= kMaxLayers, the input is 2 wide and every width is >= 1.
-inline bool make_net(const int* dims, int n_layers, Net* net) {
-  if (n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2) return false;
+// 1 <= n_layers <= kMaxLayers, the input is in_dim wide (the coordinates,
+// then any shock-path features: csrc/paths.cuh) and every width is >= 1.
+inline bool make_net(const int* dims, int n_layers, Net* net, int in_dim = 2) {
+  if (n_layers < 1 || n_layers > kMaxLayers || dims[0] != in_dim) return false;
   net->n_layers = n_layers;
   net->max_width = 0;
   int off = 0;

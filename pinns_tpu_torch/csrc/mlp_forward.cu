@@ -55,6 +55,13 @@
 //             128-point tile in double (db_l-1); then wide_reduce_kernel: one
 //             thread per parameter, in double, a weight's partials and a
 //             bias's per-tile sums, each in a fixed order.
+// Shock-path features (wide design only; csrc/paths.cuh): with K paths the
+// input pass writes H_0 = [x^, t^, phi_1 .. phi_K, 1, 0 ...] from path_c
+// and path_a (after the trunk in the flat params); the backward takes layer
+// 0's gH = G W_0^T in the launch of its dW, and one pass with a thread a
+// point applies the paths' chain rule to gH's path columns, summing per
+// 128-point block in double, which the reduction sums in block order (one
+// launch more).
 // 28 launches for the backward of the 8x200 net, 10 for its forward, all
 // from one host call on the caller's stream. The caller allocates the
 // scratch, one buffer that the launcher lays out and checks against its
@@ -71,6 +78,7 @@
 #include <stddef.h>
 
 #include "layer_gemm.cuh"
+#include "paths.cuh"
 
 namespace {
 namespace k5 {
@@ -323,20 +331,25 @@ struct TanhStore {
   }
 };
 
-// H_0 (n_pad x ld_h(2) = 4): normalized (x, t), the indicator 1 and a zero;
-// points past n at (0, 0).
+// H_0 (n_pad x ld_h(2 + K)): normalized (x, t), the path features, the
+// indicator 1 and zeros (write_input_rows); points past n at (0, 0).
 __global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
-                             float4* __restrict__ H) {
-  const float rx = box.ub0 - box.lb0, rt = box.ub1 - box.lb1;
+                             Paths paths, float* __restrict__ H) {
+  const int ld = ld_h(2 + paths.k);
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pad; p += gridDim.x * blockDim.x) {
-    float xv = 0.0f, tv = 0.0f;
-    if (p < n) {
-      xv = x[2 * p];
-      tv = x[2 * p + 1];
-    }
-    H[p] = make_float4(2.0f * (xv - box.lb0) / rx - 1.0f, 2.0f * (tv - box.lb1) / rt - 1.0f,
-                       1.0f, 0.0f);
+    float xn, tn;
+    normalized_point(x, p, n, box, &xn, &tn);
+    write_input_rows(paths, xn, tn, 0.0f, 0.0f, ld, H + static_cast<long long>(p) * ld, nullptr,
+                     nullptr);
   }
+}
+
+// The path gradient's per-block partials (path_grad_block) from gH_0 (n_pad
+// x ld_g), the adjoints of H_0's columns, the path columns from 2 on.
+__global__ void path_grad_kernel(const float* __restrict__ x, int n, Box box, Paths paths,
+                                 const float* __restrict__ gh, int ld_g,
+                                 double* __restrict__ psums) {
+  path_grad_block(x, n, box, paths, gh + 2, nullptr, nullptr, ld_g, psums);
 }
 
 // The head's adjoints G (n_pad x d): the cotangent, zero past n; sums (tiles
@@ -386,12 +399,18 @@ __global__ void backward_act_kernel(const float* __restrict__ H, const float* __
   tile_column_sum(db, j, d, sums);
 }
 
+// One thread a parameter: the trunk's (reduce_param), then the paths' from
+// their per-block partials (psums, tiles x n_path).
 __global__ void wide_reduce_kernel(const float* __restrict__ partials, int splits,
                                    const double* __restrict__ sums, int tiles, Net net,
+                                   const double* __restrict__ psums, int n_path,
                                    float* __restrict__ grad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= net.n_params) return;
-  reduce_param(i, partials, splits, sums, tiles, net, grad);
+  if (i < net.n_params) {
+    reduce_param(i, partials, splits, sums, tiles, net, grad);
+  } else if (i < net.n_params + n_path) {
+    grad[i] = path_grad_sum(psums, tiles, n_path, i - net.n_params);
+  }
 }
 
 // H_l+1 = tanh(H_l [W_l; b_l]) for the hidden layers from H_0 = h0; hidden
@@ -413,17 +432,17 @@ cudaError_t hidden_products(const Net& net, const float* params, const float* h0
 
 // u (n x dims[L]) = the head's product over the last hidden output.
 template <class Cfg>
-int forward_wide(const float* x, int n, const float* params, const Net& net, const Box& box,
-                 int n_pad, float* scratch, long long scratch_floats, float* u, cudaStream_t s) {
+int forward_wide(const float* x, int n, const float* params, const Net& net, const Paths& paths,
+                 const Box& box, int n_pad, float* scratch, long long scratch_floats, float* u,
+                 cudaStream_t s) {
   Carve c{scratch, 0};
-  float* h0 = c.take(4LL * n_pad);
+  float* h0 = c.take(static_cast<long long>(n_pad) * ld_h(net.dims[0]));
   const long long plane = static_cast<long long>(n_pad) * ld_h(net.max_width);
   float* hbuf = c.take(2 * plane);
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
   float* out[kMaxLayers];
   for (int l = 0; l + 1 < net.n_layers; ++l) out[l] = hbuf + (l % 2) * plane;
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
-                                                       reinterpret_cast<float4*>(h0));
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   PINNS_CHECK(hidden_products<Cfg>(net, params, h0, n_pad, out, s));
   const int l = net.n_layers - 1, din = net.dims[l], dout = net.dims[l + 1];
@@ -435,9 +454,10 @@ int forward_wide(const float* x, int n, const float* params, const Net& net, con
 }
 
 template <class Cfg>
-int backward_wide(const float* x, int n, const float* params, const Net& net, const Box& box,
-                  int n_pad, int split_rows, int splits, int gh_splits, const float* gout,
-                  float* scratch, long long scratch_floats, float* grad, cudaStream_t s) {
+int backward_wide(const float* x, int n, const float* params, const Net& net,
+                  const Paths& paths, const Box& box, int n_pad, int split_rows, int splits,
+                  int gh_splits, const float* gout, float* scratch, long long scratch_floats,
+                  float* grad, cudaStream_t s) {
   const int L = net.n_layers, tiles = n_pad / kTile;
   // hidden layer l's output at hstore + h_off[l]; the per-tile db sums of
   // layer l at sums + l tiles max_width
@@ -450,17 +470,17 @@ int backward_wide(const float* x, int n, const float* params, const Net& net, co
   const long long sums_stride = static_cast<long long>(tiles) * net.max_width;
   Carve c{scratch, 0};
   double* sums = reinterpret_cast<double*>(c.take(2 * L * sums_stride));
-  float* h0 = c.take(4LL * n_pad);
+  float* h0 = c.take(static_cast<long long>(n_pad) * ld_h(net.dims[0]));
   float* hstore = c.take(h_end);
   const long long plane = static_cast<long long>(n_pad) * net.max_width;
   float* G = c.take(plane);
   float* gh_parts = c.take(gh_splits * plane);
   float* partials = c.take(static_cast<long long>(splits) * net.n_params);
+  double* psums = reinterpret_cast<double*>(c.take(2LL * tiles * paths.n_params()));
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
   float* H[kMaxLayers];
   for (int l = 0; l + 1 < L; ++l) H[l] = hstore + h_off[l];
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
-                                                       reinterpret_cast<float4*>(h0));
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   PINNS_CHECK(hidden_products<Cfg>(net, params, h0, n_pad, H, s));
 
@@ -478,37 +498,48 @@ int backward_wide(const float* x, int n, const float* params, const Net& net, co
     const Gemm dw{Hl, G, G, partials + net.w_off[l], ld_h(din), dout, dout, din, dout, n_pad,
                   split_rows, net.n_params, 1, 0};
     const int dw_bx = (din + Cfg::kBM - 1) / Cfg::kBM, dw_by = (dout + Cfg::kBN - 1) / Cfg::kBN;
-    if (l == 0) {
+    if (l == 0 && paths.k == 0) {
       PINNS_CHECK((gemm<Cfg, true, false>(dw, splits, s)));
       break;
     }
     // with gH = G W_l^T, its sum over dout split into gh_splits chunks of
-    // whole depth tiles
+    // whole depth tiles (layer 0's, the adjoints of the path features, in
+    // one chunk)
     const float* W = params + net.w_off[l];
-    const int gh_k = (dout + gh_splits * kDepth - 1) / (gh_splits * kDepth) * kDepth;
+    const int parts = l == 0 ? 1 : gh_splits;
+    const int gh_k = (dout + parts * kDepth - 1) / (parts * kDepth) * kDepth;
     const Gemm gh{G, W, W, gh_parts, dout, dout, din, n_pad, din, dout, gh_k, plane, 1, 0};
     const int gh_bx = (n_pad + Cfg::kBM - 1) / Cfg::kBM, gh_by = (din + Cfg::kBN - 1) / Cfg::kBN;
     gemm_pair_kernel<Cfg, true>
-        <<<dw_bx * dw_by * splits + gh_bx * gh_by * gh_splits, Cfg::kThreads, 0, s>>>(
+        <<<dw_bx * dw_by * splits + gh_bx * gh_by * parts, Cfg::kThreads, 0, s>>>(
             dw, dw_bx, dw_by, splits, gh, gh_bx, gh_by);
     PINNS_CHECK(cudaGetLastError());
+    if (l == 0) {
+      path_grad_kernel<<<tiles, kTile, kTile * sizeof(double), s>>>(x, n, box, paths, gh_parts,
+                                                                    din, psums);
+      PINNS_CHECK(cudaGetLastError());
+      break;
+    }
     backward_act_kernel<<<dim3((din + 31) / 32, tiles), ew_block, 0, s>>>(
         Hl, gh_parts, gh_splits, plane, G, din, sums + (l - 1) * sums_stride);
     PINNS_CHECK(cudaGetLastError());
   }
-  wide_reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, splits, sums, tiles,
-                                                                  net, grad);
+  const int n_path = paths.n_params();
+  wide_reduce_kernel<<<(net.n_params + n_path + 255) / 256, 256, 0, s>>>(
+      partials, splits, sums, tiles, net, psums, n_path, grad);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The checks both wide launchers make of a plan (n >= 1): a padding that is
 // a whole number of row tiles, a tile the file instantiates, an aligned
-// scratch, operands that 32-bit offsets reach.
-bool wide_plan_ok(const int* dims, int n_layers, int n, int n_pad, int tile, const float* scratch,
-                  Net* net) {
+// scratch, paths within bounds and an input width 2 + n_paths, operands that
+// 32-bit offsets reach.
+bool wide_plan_ok(const int* dims, int n_layers, int n_paths, int path_degree, int n, int n_pad,
+                  int tile, const float* scratch, Net* net) {
   if (n < 1 || n_pad < n || n_pad % kTile != 0 || n_pad / kTile > 65535 ||
       (tile != SmallTile::kBM && tile != LargeTile::kBM) ||
-      (reinterpret_cast<size_t>(scratch) & 15) != 0 || !make_net(dims, n_layers, net)) {
+      (reinterpret_cast<size_t>(scratch) & 15) != 0 || !paths_ok(n_paths, path_degree) ||
+      !make_net(dims, n_layers, net, 2 + n_paths)) {
     return false;
   }
   return static_cast<long long>(n_pad) * ld_h(net->max_width) <= 0x7fffffffLL;
@@ -576,52 +607,61 @@ extern "C" int pinns_mlp_backward(const float* x, int n, const float* params, co
 }
 
 // The wide design's forward: u = MLP(x), (n, dims[n_layers]), on `stream`.
+// dims[0] = 2 + n_paths; with n_paths > 0 `params` ends with path_c
+// (n_paths x (path_degree + 1)) and path_a (n_paths) after the trunk.
 // The points are padded to n_pad and the products take the block tile
 // `tile` (32 or 128); `scratch` (16-byte aligned, scratch_floats floats)
-// holds, each part on 16 bytes, h0 (n_pad x 4) and two hidden outputs
+// holds, each part on 16 bytes, h0 (n_pad x ld_h(dims[0])) and two hidden outputs
 // (n_pad x ld_h(max_width) each). ops/kernels/mlp_forward.py::
 // mlp_forward_plan computes the same plan; one that does not fit this layout
 // is refused with cudaErrorInvalidValue. Returns the CUDA error code of the
 // first launch that failed (0 on success).
 extern "C" int pinns_mlp_forward_wide(const float* x, int n, const float* params,
-                                      const int* dims, int n_layers, float lb0, float lb1,
-                                      float ub0, float ub1, int n_pad, int tile, float* scratch,
+                                      const int* dims, int n_layers, int n_paths,
+                                      int path_degree, float lb0, float lb1, float ub0,
+                                      float ub1, int n_pad, int tile, float* scratch,
                                       long long scratch_floats, float* u, int device,
                                       void* stream) {
   Net net;
-  if (!wide_plan_ok(dims, n_layers, n, n_pad, tile, scratch, &net)) {
+  if (!wide_plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PINNS_CHECK(cudaSetDevice(device));
   const Box box{lb0, lb1, ub0, ub1};
+  const float* pc = params + net.n_params;
+  const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? forward_wide<SmallTile>(x, n, params, net, box, n_pad, scratch, scratch_floats,
-                                       u, s)
-             : forward_wide<LargeTile>(x, n, params, net, box, n_pad, scratch, scratch_floats,
-                                       u, s);
+             ? forward_wide<SmallTile>(x, n, params, net, paths, box, n_pad, scratch,
+                                       scratch_floats, u, s)
+             : forward_wide<LargeTile>(x, n, params, net, paths, box, n_pad, scratch,
+                                       scratch_floats, u, s);
 }
 
 // The wide design's backward: grad (flat, params order) = d/dparams of sum
-// over points of gout . u, on `stream`; gout is (n, dims[n_layers]). dW's
-// sum over the n_pad rows is cut into `splits` chunks of split_rows (whole
-// depth tiles), gH's over a layer's dout into gh_splits chunks; `scratch`
-// holds, in this order and each part on 16 bytes: sums, n_layers x tiles x
-// max_width doubles (tiles = n_pad / 128); h0, n_pad x 4; the hidden
-// outputs, n_pad x ld_h(dims[l + 1]) each in layer order; G and gH's
-// partials, 1 + gh_splits planes of n_pad x max_width; partials, splits x
-// n_params.
+// over points of gout . u, on `stream`; gout is (n, dims[n_layers]), the
+// arguments as the forward's; grad has the trunk's parameters, then the
+// paths'. dW's sum over the n_pad rows is cut into `splits` chunks of
+// split_rows (whole depth tiles), gH's over a layer's dout into gh_splits
+// chunks; `scratch` holds, in this order and each part on 16 bytes: sums,
+// n_layers x tiles x max_width doubles (tiles = n_pad / 128); h0, n_pad x
+// ld_h(dims[0]); the hidden outputs, n_pad x ld_h(dims[l + 1]) each in layer
+// order; G and gH's partials, 1 + gh_splits planes of n_pad x max_width;
+// partials, splits x the trunk's n_params; psums, tiles x n_paths
+// (path_degree + 2) doubles.
 // ops/kernels/mlp_forward.py::mlp_backward_plan computes the same plan; one
 // that does not fit this layout (a split that does not cover the rows
 // exactly, a smaller scratch, ...) is refused with cudaErrorInvalidValue.
 extern "C" int pinns_mlp_backward_wide(const float* x, int n, const float* params,
-                                       const int* dims, int n_layers, float lb0, float lb1,
-                                       float ub0, float ub1, int n_pad, int tile, int split_rows,
-                                       int splits, int gh_splits, const float* gout, float* scratch,
-                                       long long scratch_floats, float* grad, int device,
-                                       void* stream) {
+                                       const int* dims, int n_layers, int n_paths,
+                                       int path_degree, float lb0, float lb1, float ub0,
+                                       float ub1, int n_pad, int tile, int split_rows,
+                                       int splits, int gh_splits, const float* gout,
+                                       float* scratch, long long scratch_floats, float* grad,
+                                       int device, void* stream) {
   Net net;
-  if (!wide_plan_ok(dims, n_layers, n, n_pad, tile, scratch, &net) || split_rows < 1 ||
+  if (!wide_plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net) ||
+      split_rows < 1 ||
       split_rows % kDepth != 0 || splits < 1 || splits > 65535 || gh_splits < 1 ||
       gh_splits > kMaxGhSplits ||
       static_cast<long long>(splits) * split_rows < n_pad ||
@@ -630,12 +670,16 @@ extern "C" int pinns_mlp_backward_wide(const float* x, int n, const float* param
   }
   PINNS_CHECK(cudaSetDevice(device));
   const Box box{lb0, lb1, ub0, ub1};
+  const float* pc = params + net.n_params;
+  const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? backward_wide<SmallTile>(x, n, params, net, box, n_pad, split_rows, splits,
-                                        gh_splits, gout, scratch, scratch_floats, grad, s)
-             : backward_wide<LargeTile>(x, n, params, net, box, n_pad, split_rows, splits,
-                                        gh_splits, gout, scratch, scratch_floats, grad, s);
+             ? backward_wide<SmallTile>(x, n, params, net, paths, box, n_pad, split_rows,
+                                        splits, gh_splits, gout, scratch, scratch_floats, grad,
+                                        s)
+             : backward_wide<LargeTile>(x, n, params, net, paths, box, n_pad, split_rows,
+                                        splits, gh_splits, gout, scratch, scratch_floats, grad,
+                                        s);
 }
 
 extern "C" const char* pinns_mlp_error_string(int code) {

@@ -41,6 +41,16 @@
 //             H_l-1 for the next dW; then one thread per parameter sums, in
 //             double and in a fixed order, a weight's partials or a bias's
 //             per-tile sums. 4 + 4 (L - 1) launches (24 at the Euler trunk).
+// Shock-path features (csrc/paths.cuh; pinns_tpu/models/mlp.py:242-291):
+// with K paths, H_0's rows become [x^, t^, phi_1 .. phi_K, 1, 0 ...] and the
+// tangent rows carry each point's phi_x and phi_t, computed in the input pass
+// from path_c and path_a (after the trunk in the flat params), so that
+// [W_0; b_0] has 2 + K + 1 rows. The backward then takes layer 0's gH too,
+// in the launch of its dW, and one pass with a thread a point applies the
+// paths' chain rule to gH's path columns of the three streams, summing per
+// 128-point block in double; the reduction sums the blocks in order. The
+// forward's launches stay as they are; the backward takes one more (25 at
+// the Euler trunk).
 // No atomics, so two calls agree bit for bit. Every launch goes on the
 // caller's stream from one host call. The caller allocates the scratch, one
 // buffer that the launcher lays out and checks against its size
@@ -62,6 +72,7 @@
 #include <stddef.h>
 
 #include "layer_gemm.cuh"
+#include "paths.cuh"
 
 namespace {
 namespace k7 {
@@ -70,23 +81,30 @@ constexpr int kStreams = 3;
 struct SmallTile : TileCfg<64, 4, 4, 1, 8> {};
 struct LargeTile : TileCfg<256, 8, 8, 2, 2> {};
 
-// H_0 (3 n_pad x ld_h(2) = 4): normalized (x, t), the indicator 1 on value
-// rows and a zero; the constant tangents (2/(ub0-lb0), 0, 0, 0) and
-// (0, 2/(ub1-lb1), 0, 0). Points past n take the streams of (0, 0).
+// H_0 (3 n_pad x ld_h(2 + K)): normalized (x, t), the path features, the
+// indicator 1 on value rows and zeros; the tangent rows (2/(ub0-lb0), 0,
+// phi_x ..) and (0, 2/(ub1-lb1), phi_t ..) (write_input_rows). Points past n
+// take the streams of (0, 0).
 __global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
-                             float4* __restrict__ H) {
-  const float rx = box.ub0 - box.lb0, rt = box.ub1 - box.lb1;
+                             Paths paths, float* __restrict__ H) {
+  const int ld = ld_h(2 + paths.k);
+  const long long sH = static_cast<long long>(n_pad) * ld;
+  const float sx = 2.0f / (box.ub0 - box.lb0), st = 2.0f / (box.ub1 - box.lb1);
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pad; p += gridDim.x * blockDim.x) {
-    float xv = 0.0f, tv = 0.0f;
-    if (p < n) {
-      xv = x[2 * p];
-      tv = x[2 * p + 1];
-    }
-    H[p] = make_float4(2.0f * (xv - box.lb0) / rx - 1.0f, 2.0f * (tv - box.lb1) / rt - 1.0f,
-                       1.0f, 0.0f);
-    H[n_pad + p] = make_float4(2.0f / rx, 0.0f, 0.0f, 0.0f);
-    H[2 * n_pad + p] = make_float4(0.0f, 2.0f / rt, 0.0f, 0.0f);
+    float xn, tn;
+    normalized_point(x, p, n, box, &xn, &tn);
+    float* row = H + static_cast<long long>(p) * ld;
+    write_input_rows(paths, xn, tn, sx, st, ld, row, row + sH, row + 2 * sH);
   }
+}
+
+// The path gradient's per-block partials (path_grad_block) from gH_0 (3 n_pad
+// x ld_g), the adjoints of H_0's columns, the path columns from 2 on.
+__global__ void path_grad_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
+                                 Paths paths, const float* __restrict__ gh, int ld_g,
+                                 double* __restrict__ psums) {
+  const long long plane = static_cast<long long>(n_pad) * ld_g;
+  path_grad_block(x, n, box, paths, gh + 2, gh + plane + 2, gh + 2 * plane + 2, ld_g, psums);
 }
 
 // The output streams of a hidden layer at its pre-activations (a, ax, at),
@@ -192,12 +210,18 @@ __global__ void seed_kernel(const float* __restrict__ g0, const float* __restric
   tile_column_sum(db, j, d, sums);
 }
 
+// One thread a parameter: the trunk's (reduce_param), then the paths' from
+// their per-block partials (psums, tiles x n_path).
 __global__ void reduce_kernel(const float* __restrict__ partials, int splits,
                               const double* __restrict__ sums, int tiles, Net net,
+                              const double* __restrict__ psums, int n_path,
                               float* __restrict__ grad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= net.n_params) return;
-  reduce_param(i, partials, splits, sums, tiles, net, grad);
+  if (i < net.n_params) {
+    reduce_param(i, partials, splits, sums, tiles, net, grad);
+  } else if (i < net.n_params + n_path) {
+    grad[i] = path_grad_sum(psums, tiles, n_path, i - net.n_params);
+  }
 }
 
 // The hidden layers of the forward from H_0 = h0: layer l's product into
@@ -223,29 +247,30 @@ int hidden_layers(const Net& net, const float* params, const float* h0, int n_pa
 
 // The checks both launchers make of a plan (n >= 1): a padding that is a
 // whole number of row tiles, a tile the file instantiates, an aligned
-// scratch, operands that 32-bit offsets reach.
-bool plan_ok(const int* dims, int n_layers, int n, int n_pad, int tile, const float* scratch,
-             Net* net) {
+// scratch, paths within bounds and an input width 2 + n_paths, operands that
+// 32-bit offsets reach.
+bool plan_ok(const int* dims, int n_layers, int n_paths, int path_degree, int n, int n_pad,
+             int tile, const float* scratch, Net* net) {
   if (n < 1 || n_pad < n || n_pad % kTile != 0 || n_pad / kTile > 65535 ||
       (tile != SmallTile::kBM && tile != LargeTile::kBM) ||
-      (reinterpret_cast<size_t>(scratch) & 15) != 0 || !make_net(dims, n_layers, net)) {
+      (reinterpret_cast<size_t>(scratch) & 15) != 0 || !paths_ok(n_paths, path_degree) ||
+      !make_net(dims, n_layers, net, 2 + n_paths)) {
     return false;
   }
   return static_cast<long long>(kStreams) * n_pad * ld_h(net->max_width) <= 0x7fffffffLL;
 }
 
 template <class Cfg>
-int forward(const float* x, int n, const float* params, const Net& net, const Box& box,
-            int n_pad, float* scratch, long long scratch_floats, float* y, float* y_x,
-            float* y_t, cudaStream_t s) {
+int forward(const float* x, int n, const float* params, const Net& net, const Paths& paths,
+            const Box& box, int n_pad, float* scratch, long long scratch_floats, float* y,
+            float* y_x, float* y_t, cudaStream_t s) {
   const long long rows = static_cast<long long>(kStreams) * n_pad;
   Carve c{scratch, 0};
-  float* h0 = c.take(rows * ld_h(2));
+  float* h0 = c.take(rows * ld_h(net.dims[0]));
   float* pbuf = c.take(rows * net.max_width);
   float* hbuf = c.take(rows * ld_h(net.max_width));
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
-                                                       reinterpret_cast<float4*>(h0));
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   const int err = hidden_layers<Cfg>(net, params, h0, n_pad, [&](int) { return pbuf; }, hbuf, s);
   if (err != 0) return err;
@@ -264,10 +289,10 @@ int forward(const float* x, int n, const float* params, const Net& net, const Bo
 }
 
 template <class Cfg>
-int backward(const float* x, int n, const float* params, const Net& net, const Box& box,
-             int n_pad, int split_rows, int splits, const float* gy, const float* gyx,
-             const float* gyt, float* scratch, long long scratch_floats, float* grad,
-             cudaStream_t s) {
+int backward(const float* x, int n, const float* params, const Net& net, const Paths& paths,
+             const Box& box, int n_pad, int split_rows, int splits, const float* gy,
+             const float* gyx, const float* gyt, float* scratch, long long scratch_floats,
+             float* grad, cudaStream_t s) {
   const int L = net.n_layers, tiles = n_pad / kTile;
   const long long rows = static_cast<long long>(kStreams) * n_pad;
   // P of hidden layer l at pstore + p_off[l]; the per-tile db sums of layer
@@ -281,14 +306,14 @@ int backward(const float* x, int n, const float* params, const Net& net, const B
   const long long sums_stride = static_cast<long long>(tiles) * net.max_width;
   Carve c{scratch, 0};
   double* sums = reinterpret_cast<double*>(c.take(2 * L * sums_stride));
-  float* h0 = c.take(rows * ld_h(2));
+  float* h0 = c.take(rows * ld_h(net.dims[0]));
   float* pstore = c.take(p_end);
   float* hbuf = c.take(rows * ld_h(net.max_width));
   float* gbuf = c.take(2 * rows * net.max_width);
   float* partials = c.take(static_cast<long long>(splits) * net.n_params);
+  double* psums = reinterpret_cast<double*>(c.take(2LL * tiles * paths.n_params()));
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
-                                                       reinterpret_cast<float4*>(h0));
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   const int err = hidden_layers<Cfg>(
       net, params, h0, n_pad, [&](int l) { return pstore + p_off[l]; }, hbuf, s);
@@ -308,11 +333,11 @@ int backward(const float* x, int n, const float* params, const Net& net, const B
     const Gemm dw{l == 0 ? h0 : hbuf, G, G, partials + net.w_off[l], ld_h(din), dout, dout, din,
                   dout, static_cast<int>(rows), split_rows, net.n_params, 1, 0};
     const int dw_bx = (din + Cfg::kBM - 1) / Cfg::kBM, dw_by = (dout + Cfg::kBN - 1) / Cfg::kBN;
-    if (l == 0) {
+    if (l == 0 && paths.k == 0) {
       PINNS_CHECK((gemm<Cfg, true, false>(dw, splits, s)));
       break;
     }
-    // with gH = G W_l^T
+    // with gH = G W_l^T (at layer 0 the adjoints of the path features)
     const float* W = params + net.w_off[l];
     const Gemm gh{G, W, W, Gn, dout, dout, din, static_cast<int>(rows), din, dout, dout,
                   0, n_pad, 0};
@@ -321,6 +346,12 @@ int backward(const float* x, int n, const float* params, const Net& net, const B
     gemm_pair_kernel<Cfg, false><<<dw_bx * dw_by * splits + gh_bx * gh_by, Cfg::kThreads, 0, s>>>(
         dw, dw_bx, dw_by, splits, gh, gh_bx, gh_by);
     PINNS_CHECK(cudaGetLastError());
+    if (l == 0) {
+      path_grad_kernel<<<tiles, kTile, kTile * sizeof(double), s>>>(x, n, n_pad, box, paths, Gn,
+                                                                    din, psums);
+      PINNS_CHECK(cudaGetLastError());
+      break;
+    }
     // gH -> the adjoints of layer l-1's pre-activations, and H_l-1 for the
     // next dW (layer 0's input streams are h0)
     const int below = net.dims[l - 1];
@@ -332,8 +363,9 @@ int backward(const float* x, int n, const float* params, const Net& net, const B
     G = Gn;
     Gn = t;
   }
-  reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, splits, sums, tiles, net,
-                                                            grad);
+  const int n_path = paths.n_params();
+  reduce_kernel<<<(net.n_params + n_path + 255) / 256, 256, 0, s>>>(
+      partials, splits, sums, tiles, net, psums, n_path, grad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,66 +376,76 @@ using namespace k7;
 }  // namespace
 
 // (y, y_x, y_t) of the MLP at x on `stream`. `dims` (host) holds n_layers + 1
-// widths; `params` (device) W_0, b_0, W_1, b_1, ... back to back. x is (n, 2),
-// each output (n, dims[n_layers]), float32, contiguous, on device `device`.
-// The points are padded to n_pad and the products take the block tile
-// `tile` (32 or 128); `scratch` (16-byte aligned, scratch_floats floats)
-// holds, each part on 16 bytes, h0 (3 n_pad x 4), one layer's
+// widths, dims[0] = 2 + n_paths; `params` (device) W_0, b_0, W_1, b_1, ...
+// back to back, then with n_paths > 0 path_c (n_paths x (path_degree + 1))
+// and path_a (n_paths). x is (n, 2), each output (n, dims[n_layers]),
+// float32, contiguous, on device `device`. The points are padded to n_pad
+// and the products take the block tile `tile` (32 or 128); `scratch`
+// (16-byte aligned, scratch_floats floats) holds, each part on 16 bytes, h0
+// (3 n_pad x ld_h(dims[0])), one layer's
 // pre-activations (3 n_pad x max_width) and one layer's stacked inputs
 // (3 n_pad x ld_h(max_width)). ops/kernels/taylor1.py::taylor1_plan computes
 // the same plan; one that does not fit this layout is refused with
 // cudaErrorInvalidValue. Returns the CUDA error code of the first launch
 // that failed (0 on success).
 extern "C" int pinns_taylor1_forward(const float* x, int n, const float* params, const int* dims,
-                                     int n_layers, float lb0, float lb1, float ub0, float ub1,
-                                     int n_pad, int tile, float* scratch,
-                                     long long scratch_floats, float* y, float* y_x, float* y_t,
-                                     int device, void* stream) {
+                                     int n_layers, int n_paths, int path_degree, float lb0,
+                                     float lb1, float ub0, float ub1, int n_pad, int tile,
+                                     float* scratch, long long scratch_floats, float* y,
+                                     float* y_x, float* y_t, int device, void* stream) {
   Net net;
-  if (!plan_ok(dims, n_layers, n, n_pad, tile, scratch, &net)) {
+  if (!plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PINNS_CHECK(cudaSetDevice(device));
   const Box box{lb0, lb1, ub0, ub1};
+  const float* pc = params + net.n_params;
+  const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? forward<SmallTile>(x, n, params, net, box, n_pad, scratch, scratch_floats, y, y_x,
-                                  y_t, s)
-             : forward<LargeTile>(x, n, params, net, box, n_pad, scratch, scratch_floats, y, y_x,
-                                  y_t, s);
+             ? forward<SmallTile>(x, n, params, net, paths, box, n_pad, scratch, scratch_floats,
+                                  y, y_x, y_t, s)
+             : forward<LargeTile>(x, n, params, net, paths, box, n_pad, scratch, scratch_floats,
+                                  y, y_x, y_t, s);
 }
 
 // grad (flat, params order) = d/dparams of sum over points of
 // gy . y + gyx . y_x + gyt . y_t, on `stream`; the arguments as the
-// forward's, with the cotangents (n, dims[n_layers]) each. dW's sum over the
-// 3 n_pad stacked rows is cut into `splits` chunks of split_rows (a
-// multiple of 32); `scratch` holds, in this order and each part on 16
-// bytes: sums, n_layers x tiles x max_width doubles (tiles = n_pad / 128);
-// h0, 3 n_pad x 4; the pre-activations of every hidden layer (3 n_pad x
+// forward's, with the cotangents (n, dims[n_layers]) each; grad has the
+// trunk's parameters, then the paths'. dW's sum over the 3 n_pad stacked
+// rows is cut into `splits` chunks of split_rows (a multiple of 32);
+// `scratch` holds, in this order and each part on 16 bytes: sums, n_layers x
+// tiles x max_width doubles (tiles = n_pad / 128); h0, 3 n_pad x
+// ld_h(dims[0]); the pre-activations of every hidden layer (3 n_pad x
 // dims[l + 1] each, in layer order); hbuf, 3 n_pad x ld_h(max_width); gbuf,
-// 2 x 3 n_pad x max_width; partials, splits x n_params.
+// 2 x 3 n_pad x max_width; partials, splits x the trunk's n_params; psums,
+// tiles x n_paths (path_degree + 2) doubles.
 extern "C" int pinns_taylor1_backward(const float* x, int n, const float* params,
-                                      const int* dims, int n_layers, float lb0, float lb1,
-                                      float ub0, float ub1, int n_pad, int tile, int split_rows,
+                                      const int* dims, int n_layers, int n_paths,
+                                      int path_degree, float lb0, float lb1, float ub0,
+                                      float ub1, int n_pad, int tile, int split_rows,
                                       int splits, const float* gy, const float* gyx,
                                       const float* gyt, float* scratch,
                                       long long scratch_floats, float* grad, int device,
                                       void* stream) {
   Net net;
   const long long rows = static_cast<long long>(kStreams) * n_pad;
-  if (!plan_ok(dims, n_layers, n, n_pad, tile, scratch, &net) || split_rows < 1 ||
+  if (!plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net) ||
+      split_rows < 1 ||
       split_rows % 32 != 0 || splits < 1 || static_cast<long long>(splits) * split_rows < rows ||
       static_cast<long long>(splits - 1) * split_rows >= rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PINNS_CHECK(cudaSetDevice(device));
   const Box box{lb0, lb1, ub0, ub1};
+  const float* pc = params + net.n_params;
+  const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? backward<SmallTile>(x, n, params, net, box, n_pad, split_rows, splits, gy, gyx,
-                                   gyt, scratch, scratch_floats, grad, s)
-             : backward<LargeTile>(x, n, params, net, box, n_pad, split_rows, splits, gy, gyx,
-                                   gyt, scratch, scratch_floats, grad, s);
+             ? backward<SmallTile>(x, n, params, net, paths, box, n_pad, split_rows, splits, gy,
+                                   gyx, gyt, scratch, scratch_floats, grad, s)
+             : backward<LargeTile>(x, n, params, net, paths, box, n_pad, split_rows, splits, gy,
+                                   gyx, gyt, scratch, scratch_floats, grad, s);
 }
 
 extern "C" const char* pinns_taylor1_error_string(int code) {

@@ -13,8 +13,10 @@ port's solvers come with slice 7, so it reads, in this order:
 2. for a dataset key, the reference ``.mat`` under ``$PINNS_TPU_DATA_ROOT``
    (the JAX package's variable) when that is set and the file exists;
 3. for a dataset key, the grid committed beside the port's test fixtures
-   (``tests/fixtures/torch_port/<key>.npz``; ``twosin_burgers_shock``, which
-   the JAX package generated once on the CPU).
+   (``tests/fixtures/torch_port/<key>.npz``: ``twosin_burgers_shock``,
+   ``burgers_shock`` and ``abgrall_burgers_shock``, which the JAX package
+   generated once on the CPU; ``scripts/make_torch_abgrall_grid.py`` writes
+   the last).
 
 A key with none of these raises ``FileNotFoundError``. The Euler key
 ``abgrall_eulers`` is generated instead of read from a fixture: the port's own

@@ -2,8 +2,9 @@
 and the params file.
 
 JAX keeps an MLP as a list of ``{"W": (din, dout), "b": (1, dout)}`` arrays
-(``pinns_tpu.models.mlp.init_mlp``); the port keeps the same layout in torch,
-so conversion is a copy in each direction. A whole training state
+(``pinns_tpu.models.mlp.init_mlp``), with a shock-path net's ``path_c`` (K,
+D + 1) and ``path_a`` (K,) on the first layer's dict; the port keeps the same
+layout in torch, so conversion is a copy in each direction. A whole training state
 (params, optax Adam moments, ADMM z/dual, collocation batch) converts with
 ``train_state_from_jax`` / ``train_state_to_numpy``.
 
@@ -12,8 +13,10 @@ The params file (``.npz``) holds
   ``W{i}``/``b{i}`` per layer, ``lambda1``/``lambda2`` (the Burgers
   coefficients), ``pde`` ('burgers' or 'euler') and ``gamma`` (the Euler
   system's ratio of specific heats), and optionally ``experiment`` (a name
-  string). A file without ``pde`` is a Burgers one (``gamma`` 1.4). Other
-  keys are ignored on load, so a file may carry extra arrays beside them.
+  string). A shock-path net adds ``path_c``/``path_a`` and the spec's
+  ``n_paths``, ``path_degree``, ``path_sharpness``. A file without ``pde``
+  is a Burgers one (``gamma`` 1.4). Other keys are ignored on load, so a file
+  may carry extra arrays beside them.
 """
 
 from __future__ import annotations
@@ -24,35 +27,37 @@ import numpy as np
 import torch
 
 from pinns_tpu_torch.losses.admm import ADMMState
-from pinns_tpu_torch.models.mlp import MLPSpec, Params
+from pinns_tpu_torch.models.mlp import PATH_KEYS, MLPSpec, Params
 from pinns_tpu_torch.opt.adam import AdamState, tree_map
 
 
 def params_from_jax(
     layers: Sequence[Dict[str, np.ndarray]], device: torch.device
 ) -> Params:
-    """JAX params (a list of ``{"W","b"}`` numpy arrays) -> float32 port
-    params on ``device``."""
+    """JAX params (a list of ``{"W","b"}`` numpy arrays, the first with
+    ``path_c``/``path_a`` for a shock-path net) -> float32 port params on
+    ``device``."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32).to(  # noqa: E731
+        device).contiguous()
     out = []
     for i, layer in enumerate(layers):
         w = np.asarray(layer["W"])
         b = np.asarray(layer["b"]).reshape(1, -1)
         if w.ndim != 2 or b.shape[1] != w.shape[1]:
             raise ValueError(f"layer {i}: W {w.shape} and b {b.shape} do not match")
-        out.append(
-            {
-                "W": torch.as_tensor(w, dtype=torch.float32).to(device).contiguous(),
-                "b": torch.as_tensor(b, dtype=torch.float32).to(device).contiguous(),
-            }
-        )
+        out.append({"W": f32(w), "b": f32(b)})
+    first = layers[0] if layers else {}
+    if any(k in first for k in PATH_KEYS):
+        c, a = np.asarray(first["path_c"]), np.asarray(first["path_a"]).reshape(-1)
+        if c.ndim != 2 or c.shape[0] != a.shape[0]:
+            raise ValueError(f"path_c {c.shape} and path_a {a.shape} do not match")
+        out[0].update(path_c=f32(c), path_a=f32(a))
     return out
 
 
 def params_to_numpy(params: Params) -> List[Dict[str, np.ndarray]]:
     """Port params -> the JAX pytree layout as numpy arrays."""
-    return [
-        {k: layer[k].detach().cpu().numpy() for k in ("W", "b")} for layer in params
-    ]
+    return [{k: v.detach().cpu().numpy() for k, v in layer.items()} for layer in params]
 
 
 def save_params_npz(
@@ -87,6 +92,12 @@ def save_params_npz(
     for i, layer in enumerate(params):
         arrays[f"W{i}"] = np.asarray(layer["W"], np.float32)
         arrays[f"b{i}"] = np.asarray(layer["b"], np.float32).reshape(1, -1)
+    if spec.n_paths:
+        arrays["path_c"] = np.asarray(params[0]["path_c"], np.float32)
+        arrays["path_a"] = np.asarray(params[0]["path_a"], np.float32).reshape(-1)
+        arrays["n_paths"] = np.asarray(spec.n_paths, np.int64)
+        arrays["path_degree"] = np.asarray(spec.path_degree, np.int64)
+        arrays["path_sharpness"] = np.asarray(spec.path_sharpness, np.float64)
     if experiment is not None:
         arrays["experiment"] = np.asarray(experiment)
     np.savez(path, **arrays, **extra)
@@ -98,11 +109,22 @@ def load_params_npz(path: str) -> dict:
     "lambda1", "lambda2", "pde", "gamma", "experiment"}``."""
     with np.load(path, allow_pickle=False) as z:
         layers = tuple(int(w) for w in z["layers"])
-        spec = MLPSpec(layers=layers, lb=tuple(z["lb"]), ub=tuple(z["ub"]))
+        paths = {}
+        if "n_paths" in z:
+            paths = {"n_paths": int(z["n_paths"]), "path_degree": int(z["path_degree"]),
+                     "path_sharpness": float(z["path_sharpness"])}
+        spec = MLPSpec(layers=layers, lb=tuple(z["lb"]), ub=tuple(z["ub"]), **paths)
         params = [
             {"W": z[f"W{i}"], "b": z[f"b{i}"]} for i in range(len(layers) - 1)
         ]
-        for i, (din, dout) in enumerate(zip(layers[:-1], layers[1:])):
+        if spec.n_paths:
+            params[0].update(path_c=z["path_c"], path_a=z["path_a"])
+            want = ((spec.n_paths, spec.path_degree + 1), (spec.n_paths,))
+            if (params[0]["path_c"].shape, params[0]["path_a"].shape) != want:
+                raise ValueError(f"{path}: path_c {params[0]['path_c'].shape}, path_a "
+                                 f"{params[0]['path_a'].shape}; the spec says {want}")
+        widths = spec.widths
+        for i, (din, dout) in enumerate(zip(widths[:-1], widths[1:])):
             if params[i]["W"].shape != (din, dout) or params[i]["b"].shape != (1, dout):
                 raise ValueError(
                     f"{path}: layer {i} has W {params[i]['W'].shape}, "

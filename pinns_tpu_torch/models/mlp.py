@@ -12,8 +12,12 @@ reads weights row-major.
 
 Slice 1 ports the affine-embedding model; slice 3 the mixed-precision
 stream policy (``compute_dtype``, ``keep_streams``, ``mixed_elementwise``, read
-by ``ops.taylor``). Fourier features and trainable shock paths come with
-slice 2.
+by ``ops.taylor``); slice 2b-ii the trainable shock-path features
+(``n_paths``): K features phi_k = tanh(a_k (x_n - s_k(t_n))) of the normalized
+coordinates appended to the first layer's input, s_k a trainable polynomial
+of degree ``path_degree`` in normalized time (coefficients ``path_c`` (K,
+D + 1)) and a_k a trainable sharpness (``path_a`` (K,)), both on
+``params[0]``. Fourier features come with slice 2b-iii.
 """
 
 from __future__ import annotations
@@ -25,7 +29,11 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-Params = List[Dict[str, torch.Tensor]]  # [{'W': (din, dout), 'b': (1, dout)}]
+# [{'W': (din, dout), 'b': (1, dout)}, ...]; with shock paths params[0] also
+# holds 'path_c' (K, D + 1) and 'path_a' (K,)
+Params = List[Dict[str, torch.Tensor]]
+PATH_KEYS = ("path_c", "path_a")
+SLICE_2B_III = "slice 2b-iii"  # Fourier features; shock paths on K1/K2/K6, K3, narrow K5
 
 
 def _float_dtype(value) -> torch.dtype:
@@ -51,8 +59,12 @@ class MLPSpec:
         ``compute_dtype`` is None or a float dtype, given as a torch dtype or
         its name ("bfloat16"); the spec is mixed only when it differs from
         ``dtype``.
-      fourier / n_paths: embeddings of the JAX package; a spec that sets
-        either raises NotImplementedError until slice 2.
+      fourier: the Fourier embedding of the JAX package; a spec that sets it
+        raises NotImplementedError until slice 2b-iii.
+      n_paths / path_degree / path_sharpness: the trainable shock-path
+        features (module docstring): their number K, the degree D of each
+        path's polynomial in normalized time, the initial sharpness. They
+        assume (x, t) inputs.
     """
 
     layers: tuple
@@ -64,14 +76,18 @@ class MLPSpec:
     mixed_elementwise: bool = False
     fourier: tuple = ()
     n_paths: int = 0
+    path_degree: int = 2
+    path_sharpness: float = 8.0
 
     def __post_init__(self):
-        if self.fourier or self.n_paths:
+        if self.fourier:
             raise NotImplementedError(
-                "Fourier features and shock-path features are ported with "
-                "slice 2 (Euler and the weak form); slice 1 takes the affine "
-                "embedding only"
+                f"Fourier features are ported with {SLICE_2B_III}; the port takes "
+                "the affine embedding and shock-path features"
             )
+        object.__setattr__(self, "n_paths", int(self.n_paths))
+        object.__setattr__(self, "path_degree", int(self.path_degree))
+        object.__setattr__(self, "path_sharpness", float(self.path_sharpness))
         object.__setattr__(self, "layers", tuple(int(w) for w in self.layers))
         object.__setattr__(self, "lb", tuple(float(v) for v in self.lb))
         object.__setattr__(self, "ub", tuple(float(v) for v in self.ub))
@@ -88,6 +104,10 @@ class MLPSpec:
                 f"lb/ub must have length layers[0]={self.layers[0]}, "
                 f"got {len(self.lb)}/{len(self.ub)}"
             )
+        if self.n_paths < 0 or self.path_degree < 0:
+            raise ValueError("n_paths and path_degree must be >= 0")
+        if self.n_paths and self.layers[0] != 2:
+            raise ValueError("shock-path features assume (x, t) inputs (in_dim == 2)")
 
     @property
     def cdtype(self):
@@ -103,14 +123,27 @@ class MLPSpec:
         return self.layers[0]
 
     @property
+    def embed_dim(self) -> int:
+        """First-layer input width: the raw coordinates and the path features."""
+        return self.in_dim + self.n_paths
+
+    @property
+    def widths(self) -> tuple:
+        """The layers' widths with the first layer's input embedded."""
+        return (self.embed_dim,) + self.layers[1:]
+
+    @property
     def out_dim(self) -> int:
         return self.layers[-1]
 
     @property
+    def n_path_params(self) -> int:
+        return self.n_paths * (self.path_degree + 2)  # path_c + path_a
+
+    @property
     def n_params(self) -> int:
-        return sum(
-            din * dout + dout for din, dout in zip(self.layers[:-1], self.layers[1:])
-        )
+        w = self.widths
+        return sum(din * dout + dout for din, dout in zip(w[:-1], w[1:])) + self.n_path_params
 
 
 def _truncated_normal(shape, generator: torch.Generator, dtype) -> torch.Tensor:
@@ -129,10 +162,14 @@ def init_mlp(
     """Initialize params: truncated-normal W (std sqrt(2/(din+dout))), zero b.
 
     The draws come from ``generator`` (a CPU generator, so a seed gives the
-    same weights on every device) and are then moved to ``device``.
+    same weights on every device) and are then moved to ``device``. Shock
+    paths start as JAX's do (``pinns_tpu/models/mlp.py:194-206``, no draw):
+    constant-in-time fronts at 2 (k + 1/2) / K - 1 in normalized x, sharpness
+    ``path_sharpness``.
     """
     params = []
-    for din, dout in zip(spec.layers[:-1], spec.layers[1:]):
+    widths = spec.widths
+    for din, dout in zip(widths[:-1], widths[1:]):
         std = math.sqrt(2.0 / (din + dout))
         w = std * _truncated_normal((din, dout), generator, spec.dtype)
         params.append(
@@ -141,6 +178,13 @@ def init_mlp(
                 "b": torch.zeros((1, dout), dtype=spec.dtype, device=device),
             }
         )
+    if spec.n_paths:
+        k = spec.n_paths
+        c = torch.zeros((k, spec.path_degree + 1), dtype=spec.dtype)
+        c[:, 0] = (2.0 * (torch.arange(k, dtype=spec.dtype) + 0.5) / k) - 1.0
+        params[0]["path_c"] = c.to(device)
+        params[0]["path_a"] = torch.full((k,), spec.path_sharpness, dtype=spec.dtype,
+                                         device=device)
     return params
 
 
@@ -162,22 +206,105 @@ def input_scale(spec: MLPSpec, device: torch.device) -> torch.Tensor:
     return 2.0 / (ub - lb)
 
 
-def embed_streams(spec: MLPSpec, h: torch.Tensor):
-    """Initial Taylor streams of the affine embedding w.r.t. the RAW inputs.
+def path_streams(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: torch.Tensor):
+    """Shock-path features of the NORMALIZED coordinates h = (x_n, t_n) and
+    their streams w.r.t. the RAW inputs (``pinns_tpu/models/mlp.py:242-275``,
+    in its operation order):
 
-    Returns (h, dx, dt, None): the tangents are the constant (1, 2) rows
-    (scale_x, 0) and (0, scale_t), and the second-derivative stream is
-    identically zero (None), as in the JAX package's affine branch.
+      phi_k = tanh(z_k), z_k = a_k (x_n - s_k(t_n)), s_k(t_n) = sum_j c_kj t_n^j
+
+    Returns (phi, phi_x, phi_t, phi_xx), each (N, K): phi' = 1 - phi^2,
+    phi'' = -2 phi phi', the time chain through s'(t_n), and the input
+    rescale's factors."""
+    c, a = layer0["path_c"], layer0["path_a"]
+    scale = input_scale(spec, h.device)
+    xn, tn = h[:, 0:1], h[:, 1:2]
+    deg = spec.path_degree
+    powers = torch.cat([tn ** j for j in range(deg + 1)], dim=1)  # (N, D+1); t^0 = 1
+    s = powers @ c.T
+    if deg >= 1:
+        dpow = torch.cat([float(j) * tn ** (j - 1) for j in range(1, deg + 1)], dim=1)
+        sp = dpow @ c[:, 1:].T
+    else:
+        sp = torch.zeros_like(s)
+    z = a * (xn - s)
+    phi = torch.tanh(z)
+    d1 = 1.0 - phi * phi
+    d2 = -2.0 * phi * d1
+    zx = a * scale[0]  # (K,): constant per path
+    zt = -(a * scale[1]) * sp  # (N, K)
+    return phi, d1 * zx, d1 * zt, d2 * (zx * zx)
+
+
+def path_backward_reference(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: torch.Tensor,
+                            gv: torch.Tensor, gx: Optional[torch.Tensor] = None,
+                            gt: Optional[torch.Tensor] = None):
+    """(d path_c, d path_a) of sum over points of gv . phi + gx . phi_x +
+    gt . phi_t, the adjoints (N, K) of :func:`path_streams`' first three
+    outputs (gx, gt None: zero), by the chain rule the kernels K7a and K5
+    apply (``csrc/paths.cuh``). With d1 = 1 - phi^2, d2 = -2 phi d1, zx =
+    a sx, zt = -a st s':
+
+      gz = gv d1 + d2 (gx zx + gt zt)
+      d a   = sum gz (x_n - s) + d1 (gx sx - gt st s')
+      d c_j = sum -gz a t_n^j - [j >= 1] gt d1 a st j t_n^(j-1)
+    """
+    c, a = layer0["path_c"], layer0["path_a"]
+    scale = input_scale(spec, h.device)
+    xn, tn = h[:, 0:1], h[:, 1:2]
+    deg = spec.path_degree
+    powers = torch.cat([tn ** j for j in range(deg + 1)], dim=1)  # (N, D+1)
+    s = powers @ c.T
+    jp = powers[:, :deg] * torch.arange(1, deg + 1, dtype=h.dtype, device=h.device)
+    sp = jp @ c[:, 1:].T if deg >= 1 else torch.zeros_like(s)
+    phi = torch.tanh(a * (xn - s))
+    d1 = 1.0 - phi * phi
+    d2 = -2.0 * phi * d1
+    gx = torch.zeros_like(gv) if gx is None else gx
+    gt = torch.zeros_like(gv) if gt is None else gt
+    gz = gv * d1 + d2 * (gx * (a * scale[0]) + gt * (-(a * scale[1]) * sp))
+    da = (gz * (xn - s) + d1 * (gx * scale[0] - gt * scale[1] * sp)).sum(dim=0)
+    dc = -((gz * a).T @ powers)
+    if deg >= 1:
+        dc[:, 1:] = dc[:, 1:] - (gt * d1 * a * scale[1]).T @ jp
+    return dc, da
+
+
+def embed_inputs(spec: MLPSpec, h: torch.Tensor,
+                 layer0: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """[h, phi]: the first layer's input; h itself without paths."""
+    if not spec.n_paths:
+        return h
+    return torch.cat([h, path_streams(spec, layer0, h)[0]], dim=1)
+
+
+def embed_streams(spec: MLPSpec, h: torch.Tensor,
+                  layer0: Optional[Dict[str, torch.Tensor]] = None):
+    """Initial Taylor streams of the embedding w.r.t. the RAW inputs
+    (``pinns_tpu/models/mlp.py:291``).
+
+    Returns (h, dx, dt, dxx). For the affine embedding the tangents are the
+    constant (1, 2) rows (scale_x, 0) and (0, scale_t), and the
+    second-derivative stream is identically zero (None), as in the JAX
+    package's affine branch. With shock paths (``layer0`` = params[0]) every
+    stream is per point, (N, embed_dim): the coordinates' columns, then the
+    path features' (``path_streams``).
     """
     scale = input_scale(spec, h.device)
     eye = torch.eye(2, dtype=spec.dtype, device=h.device)
-    return h, eye[0:1] * scale, eye[1:2] * scale, None
+    dx, dt = eye[0:1] * scale, eye[1:2] * scale
+    if not spec.n_paths:
+        return h, dx, dt, None
+    phi, phi_x, phi_t, phi_xx = path_streams(spec, layer0, h)
+    cat = lambda a, b: torch.cat([a, b], dim=1)  # noqa: E731
+    return (cat(h, phi), cat(dx.expand_as(h), phi_x), cat(dt.expand_as(h), phi_t),
+            cat(torch.zeros_like(h), phi_xx))
 
 
 def mlp_apply_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The plain forward pass: normalize -> tanh layers -> linear head, in
-    ``spec.dtype`` on ``x``'s device. (N, in) -> (N, out)."""
-    h = normalize_inputs(spec, x)
+    """The plain forward pass: normalize -> [path features] -> tanh layers ->
+    linear head, in ``spec.dtype`` on ``x``'s device. (N, in) -> (N, out)."""
+    h = embed_inputs(spec, normalize_inputs(spec, x), params[0])
     for layer in params[:-1]:
         h = torch.tanh(h @ layer["W"] + layer["b"])
     last = params[-1]
@@ -185,7 +312,8 @@ def mlp_apply_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch
 
 
 def mlp_apply(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Forward pass: normalize -> tanh layers -> linear head. (N, in) -> (N, out).
+    """Forward pass: normalize -> [path features] -> tanh layers -> linear
+    head. (N, in) -> (N, out).
 
     A CPU tensor takes the plain version (:func:`mlp_apply_reference`); any
     other goes to the fused forward kernel K5, differentiable in the params
@@ -223,9 +351,16 @@ class MLP(nn.Module):
             params = init_mlp(spec, generator, device)
         self.W = nn.ParameterList(nn.Parameter(p["W"].to(device)) for p in params)
         self.b = nn.ParameterList(nn.Parameter(p["b"].to(device)) for p in params)
+        self.path_c = self.path_a = None
+        if spec.n_paths:
+            self.path_c = nn.Parameter(params[0]["path_c"].to(device))
+            self.path_a = nn.Parameter(params[0]["path_a"].to(device))
 
     def params(self) -> Params:
-        return [{"W": w, "b": b} for w, b in zip(self.W, self.b)]
+        out = [{"W": w, "b": b} for w, b in zip(self.W, self.b)]
+        if self.spec.n_paths:
+            out[0].update(path_c=self.path_c, path_a=self.path_a)
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_apply(self.spec, self.params(), x)

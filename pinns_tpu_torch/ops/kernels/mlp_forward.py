@@ -24,6 +24,12 @@ Two designs, picked by :func:`design` from the widths (the header of
   from the number of points so that a call of 100 points spreads over many
   SMs (:func:`mlp_forward_plan`, :func:`mlp_backward_plan`).
 
+The wide design takes shock-path features (``spec.n_paths``): its input pass
+computes each point's path features from ``path_c`` and ``path_a`` and its
+backward their gradient (``csrc/paths.cuh``); the flat params and gradient
+hold the trunk's leaves, then the paths' (``taylor2.net_leaves``). The narrow
+design refuses a path spec, naming slice 2b-iii.
+
 Both are bit-for-bit repeatable (no atomics). The wrappers validate what the
 kernels assume and raise otherwise; on a CPU tensor they raise too. They
 never fall back to the plain version.
@@ -38,9 +44,24 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from pinns_tpu_torch.models.mlp import MLPSpec, Params, normalize_inputs
+from pinns_tpu_torch.models.mlp import (
+    MLPSpec,
+    Params,
+    embed_inputs,
+    normalize_inputs,
+    path_backward_reference,
+)
 from pinns_tpu_torch.ops.kernels import build
-from pinns_tpu_torch.ops.kernels.taylor2 import check_call, pack_params, split_grad
+from pinns_tpu_torch.ops.kernels.taylor2 import (
+    check_call,
+    check_paths,
+    net_from_leaves,
+    net_leaves,
+    pack_params,
+    path_args,
+    refuse_paths,
+    split_grad,
+)
 
 LAUNCHES = 0  # forward kernel launches in this process (chip_smoke.py reads it)
 BACKWARD_LAUNCHES = 0  # backward calls (kernel + reduction) in this process
@@ -132,9 +153,10 @@ class WidePlan:
     last one shorter), gH's over a layer's width into ``gh_splits`` chunks
     (all three 0 in a forward plan), and the parts of its float32 scratch (in
     floats, each rounded up to 16 bytes, in the kernel's order): db's
-    per-tile sums (doubles), the input H_0 = [x^, t^, 1, 0], the hidden
-    outputs (every layer's in a backward plan, two ping-pong buffers in a
-    forward plan), the adjoints G and gH's partials, dW's split partials. The
+    per-tile sums (doubles), the input H_0 = [x^, t^, (path features), 1,
+    0 ...], the hidden outputs (every layer's in a backward plan, two
+    ping-pong buffers in a forward plan), the adjoints G and gH's partials,
+    dW's split partials, the path gradient's per-tile partials (doubles). The
     kernel lays the scratch out itself and refuses a plan that does not fit
     it."""
 
@@ -148,10 +170,11 @@ class WidePlan:
     hidden: int
     gbuf: int
     partials: int
+    psums: int = 0
 
     @property
     def scratch_floats(self) -> int:
-        return self.sums + self.h0 + self.hidden + self.gbuf + self.partials
+        return self.sums + self.h0 + self.hidden + self.gbuf + self.partials + self.psums
 
     @property
     def scratch_bytes(self) -> int:
@@ -168,14 +191,18 @@ def _wide_layout(layers: Sequence[int], n: int) -> Tuple[Tuple[int, ...], int, i
 
 
 def mlp_forward_plan(layers: Sequence[int], n: int) -> WidePlan:
-    """The wide forward's plan for ``n`` points through a net of these widths."""
+    """The wide forward's plan for ``n`` points through a net of these widths
+    (``layers[0]`` the first layer's input width, ``spec.widths``)."""
     layers, n_pad, tile = _wide_layout(layers, n)
     return WidePlan(tile=tile, n_pad=n_pad, split_rows=0, splits=0, gh_splits=0, sums=0,
-                    h0=4 * n_pad, hidden=2 * n_pad * _ld_h(max(layers)), gbuf=0, partials=0)
+                    h0=n_pad * _ld_h(layers[0]), hidden=2 * n_pad * _ld_h(max(layers)), gbuf=0,
+                    partials=0)
 
 
-def mlp_backward_plan(layers: Sequence[int], n: int) -> WidePlan:
-    """The wide backward's plan for ``n`` points through a net of these widths."""
+def mlp_backward_plan(layers: Sequence[int], n: int, path_params: int = 0) -> WidePlan:
+    """The wide backward's plan for ``n`` points through a net of these
+    widths (``layers[0]`` the first layer's input width, ``spec.widths``)
+    and ``path_params`` path parameters (``spec.n_path_params``)."""
     layers, n_pad, tile = _wide_layout(layers, n)
     pairs = list(zip(layers[:-1], layers[1:]))
     steps = n_pad // SPLIT_STEP
@@ -188,8 +215,9 @@ def mlp_backward_plan(layers: Sequence[int], n: int) -> WidePlan:
     return WidePlan(
         tile=tile, n_pad=n_pad, split_rows=per_split * SPLIT_STEP, splits=splits,
         gh_splits=gh_splits, sums=_align4(2 * (len(layers) - 1) * (n_pad // EW_TILE) * max(layers)),
-        h0=4 * n_pad, hidden=sum(n_pad * _ld_h(w) for w in layers[1:-1]),
-        gbuf=(1 + gh_splits) * n_pad * max(layers), partials=_align4(splits * n_params))
+        h0=n_pad * _ld_h(layers[0]), hidden=sum(n_pad * _ld_h(w) for w in layers[1:-1]),
+        gbuf=(1 + gh_splits) * n_pad * max(layers), partials=_align4(splits * n_params),
+        psums=_align4(2 * (n_pad // EW_TILE) * path_params))
 
 
 def _lib():
@@ -201,10 +229,12 @@ def _lib():
         lib.pinns_mlp_backward.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, i, p]
         lib.pinns_mlp_backward.restype = i
         q = ctypes.c_longlong
-        lib.pinns_mlp_forward_wide.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, q, p, i, p]
+        lib.pinns_mlp_forward_wide.argtypes = [
+            p, i, p, p, i, i, i, f, f, f, f, i, i, p, q, p, i, p,
+        ]
         lib.pinns_mlp_forward_wide.restype = i
         lib.pinns_mlp_backward_wide.argtypes = [
-            p, i, p, p, i, f, f, f, f, i, i, i, i, i, p, p, q, p, i, p,
+            p, i, p, p, i, i, i, f, f, f, f, i, i, i, i, i, p, p, q, p, i, p,
         ]
         lib.pinns_mlp_backward_wide.restype = i
         lib.pinns_mlp_error_string.argtypes = [i]
@@ -214,11 +244,13 @@ def _lib():
 
 
 def _check_spec(spec: MLPSpec) -> None:
-    if spec.fourier or spec.n_paths:
-        raise ValueError("mlp_forward kernel implements the plain normalize -> tanh model; "
-                         "Fourier/path-embedded specs take the plain mlp_apply")
+    if spec.fourier:
+        raise ValueError("mlp_forward kernel computes no Fourier features (slice 2b-iii)")
     if len(spec.layers) - 1 > MAX_LAYERS:
         raise ValueError(f"mlp_forward kernel takes up to {MAX_LAYERS} layers")
+    if spec.n_paths and design(spec.widths) == "narrow":
+        refuse_paths("mlp_forward (narrow design)", spec)
+    check_paths("mlp_forward", spec)
 
 
 def _raise(lib, err: int, what: str, **cfg) -> None:
@@ -234,7 +266,7 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     _check_spec(spec)
     check_call("mlp_forward", spec, params, x)
-    layers = spec.layers
+    layers = spec.widths
     wide = design(layers) == "wide"
     n = x.shape[0]
     u = torch.empty((n, spec.out_dim), dtype=torch.float32, device=x.device)
@@ -249,7 +281,8 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
         plan = mlp_forward_plan(layers, n)
         scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
         err = lib.pinns_mlp_forward_wide(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, plan.n_pad,
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec), *box,
+            plan.n_pad,
             plan.tile, scratch.data_ptr(), plan.scratch_floats, u.data_ptr(),
             x.device.index or 0, stream)
     else:
@@ -267,15 +300,16 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
                  g_out: torch.Tensor) -> torch.Tensor:
-    """The flat gradient (``pack_params`` order) of sum over points of
-    g_out . MLP(x), from one host call: the backward kernel and its
+    """The flat gradient (``pack_params`` order, a shock-path net's path
+    leaves after the trunk's) of sum over points of g_out . MLP(x), from one
+    host call: the backward kernel and its
     block-order reduction (narrow design) or the wide design's layer products
     and fixed-order reduction. ``g_out`` is (N, out_dim) float32, contiguous,
     on ``x``'s device."""
     global BACKWARD_LAUNCHES
     _check_spec(spec)
     check_call("mlp_forward backward", spec, params, x, g_out)
-    layers = spec.layers
+    layers = spec.widths
     wide = design(layers) == "wide"
     n = x.shape[0]
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
@@ -287,10 +321,11 @@ def mlp_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     box = (spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if wide:
-        plan = mlp_backward_plan(layers, n)
+        plan = mlp_backward_plan(layers, n, spec.n_path_params)
         scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
         err = lib.pinns_mlp_backward_wide(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, plan.n_pad,
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec), *box,
+            plan.n_pad,
             plan.tile, plan.split_rows, plan.splits, plan.gh_splits, g_out.data_ptr(),
             scratch.data_ptr(),
             plan.scratch_floats, grad.data_ptr(), x.device.index or 0, stream)
@@ -316,10 +351,9 @@ class _MLPForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, x, *leaves):
-        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
         ctx.spec = spec
         ctx.save_for_backward(x, *leaves)
-        return mlp_forward(spec, params, x)
+        return mlp_forward(spec, net_from_leaves(leaves, spec.n_paths), x)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -328,23 +362,27 @@ class _MLPForward(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             raise NotImplementedError("the mlp_forward kernel's backward gives no gradient "
                                       "with respect to the input points")
-        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        params = net_from_leaves(leaves, ctx.spec.n_paths)
         grad = mlp_backward(ctx.spec, params, x, g_out.contiguous())
         return (None, None, *split_grad(grad, leaves))
 
 
 def mlp_apply_kernel(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
     """u = MLP(x) through K5, differentiable in the params through the K5
-    backward. CUDA tensors only (the wrappers raise on anything else)."""
-    leaves = [t for layer in params for t in (layer["W"], layer["b"])]
-    return _MLPForward.apply(spec, x, *leaves)
+    backward (shock paths included, wide design). CUDA tensors only (the
+    wrappers raise on anything else)."""
+    return _MLPForward.apply(spec, x, *net_leaves(params))
 
 
 def mlp_backward_reference(spec: MLPSpec, params: Params, x: torch.Tensor,
                            g_out: torch.Tensor) -> List[torch.Tensor]:
     """The backward kernel's algorithm in plain PyTorch: [dW_0, db_0, dW_1,
-    ...] shaped like the params, of sum over points of g_out . MLP(x)."""
-    acts = [normalize_inputs(spec, x)]  # the input of every layer
+    ...] shaped like the params, then d path_c and d path_a for a shock-path
+    net (``taylor2.net_leaves`` order), of sum over points of g_out . MLP(x).
+    The paths' gradient applies ``models.mlp.path_backward_reference`` to
+    the path columns of layer 0's input adjoints G_0 W_0^T."""
+    h = normalize_inputs(spec, x)
+    acts = [embed_inputs(spec, h, params[0])]  # the input of every layer
     for layer in params[:-1]:
         acts.append(torch.tanh(acts[-1] @ layer["W"] + layer["b"]))
     grads: List[torch.Tensor] = [None] * (2 * len(params))  # type: ignore[list-item]
@@ -354,4 +392,6 @@ def mlp_backward_reference(spec: MLPSpec, params: Params, x: torch.Tensor,
         grads[2 * l + 1] = g.sum(dim=0, keepdim=True)
         if l > 0:
             g = (1.0 - acts[l] * acts[l]) * (g @ params[l]["W"].T)
+    if spec.n_paths:
+        grads += list(path_backward_reference(spec, params[0], h, g @ params[0]["W"][2:].T))
     return grads

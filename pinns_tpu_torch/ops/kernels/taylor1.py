@@ -22,6 +22,13 @@ P = H [W; b] and one elementwise pass a hidden layer (the header of
 rule: 32 x 32 until the products give about one 128 x 128 block an SM), dW's
 split and the scratch.
 
+Shock-path features (``spec.n_paths``) ride in the input pass: each point's
+first-layer input carries its path features and their x and t streams,
+computed from ``path_c`` and ``path_a``, and the backward gives their
+gradient too (the header of ``csrc/taylor1.cu``, ``csrc/paths.cuh``). The
+flat params and gradient hold the trunk's leaves, then ``path_c`` and
+``path_a`` (``taylor2.net_leaves``).
+
 It takes float32 specs only: a mixed stream policy raises, naming the slice
 that would bring it. The wrappers validate what the kernels assume and raise
 otherwise; they never fall back to the plain version.
@@ -36,9 +43,23 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from pinns_tpu_torch.models.mlp import MLPSpec, Params, input_scale, normalize_inputs
+from pinns_tpu_torch.models.mlp import (
+    MLPSpec,
+    Params,
+    embed_streams,
+    normalize_inputs,
+    path_backward_reference,
+)
 from pinns_tpu_torch.ops.kernels import build
-from pinns_tpu_torch.ops.kernels.taylor2 import check_call, pack_params, split_grad
+from pinns_tpu_torch.ops.kernels.taylor2 import (
+    check_call,
+    check_paths,
+    net_from_leaves,
+    net_leaves,
+    pack_params,
+    path_args,
+    split_grad,
+)
 from pinns_tpu_torch.ops.taylor import _StreamPolicy, taylor1_layer
 
 LAUNCHES = 0  # K7a forward calls in this process (chip_smoke.py reads it)
@@ -84,8 +105,9 @@ class Taylor1Plan:
     in the kernel's order): db's per-tile sums (doubles), the stacked input
     streams H_0, the pre-activations (one layer's in a forward plan, every
     hidden layer's in a backward plan), one layer's stacked inputs, two
-    adjoint buffers and the split partials. The kernel lays the scratch out
-    itself and refuses a plan that does not fit it."""
+    adjoint buffers, the split partials and the path gradient's per-tile
+    partials (doubles). The kernel lays the scratch out itself and refuses a
+    plan that does not fit it."""
 
     tile: int
     n_pad: int
@@ -97,19 +119,24 @@ class Taylor1Plan:
     hbuf: int
     gbuf: int
     partials: int
+    psums: int = 0
 
     @property
     def scratch_floats(self) -> int:
-        return self.sums + self.h0 + self.pstore + self.hbuf + self.gbuf + self.partials
+        return (self.sums + self.h0 + self.pstore + self.hbuf + self.gbuf + self.partials
+                + self.psums)
 
     @property
     def scratch_bytes(self) -> int:
         return 4 * self.scratch_floats
 
 
-def taylor1_plan(layers: Sequence[int], n: int, backward: bool = False) -> Taylor1Plan:
+def taylor1_plan(layers: Sequence[int], n: int, backward: bool = False,
+                 path_params: int = 0) -> Taylor1Plan:
     """K7a's plan for ``n`` points through a net of these widths (the
-    forward's, or the backward's with ``backward``)."""
+    forward's, or the backward's with ``backward``). ``layers[0]`` is the
+    first layer's input width (``spec.widths``: 2 + the number of paths);
+    ``path_params`` the paths' parameter count (``spec.n_path_params``)."""
     layers = tuple(int(w) for w in layers)
     if max(layers) > MAX_WIDTH:
         raise ValueError(f"taylor1 kernel takes widths up to {MAX_WIDTH}, got {max(layers)}")
@@ -121,7 +148,7 @@ def taylor1_plan(layers: Sequence[int], n: int, backward: bool = False) -> Taylo
     blocks = (rows // LARGE_TILE) * -(-max(hidden) // LARGE_TILE)
     tile = LARGE_TILE if blocks >= LARGE_TILE_MIN_BLOCKS else SMALL_TILE
     wmax = max(layers)
-    h0, hbuf = rows * _ld_h(2), rows * _ld_h(wmax)
+    h0, hbuf = rows * _ld_h(layers[0]), rows * _ld_h(wmax)
     if not backward:
         return Taylor1Plan(tile=tile, n_pad=n_pad, split_rows=0, splits=0, sums=0, h0=h0,
                            pstore=rows * wmax, hbuf=hbuf, gbuf=0, partials=0)
@@ -135,7 +162,8 @@ def taylor1_plan(layers: Sequence[int], n: int, backward: bool = False) -> Taylo
         tile=tile, n_pad=n_pad, split_rows=per_split * SPLIT_STEP, splits=splits,
         sums=_align4(2 * len(pairs) * (n_pad // EW_TILE) * wmax), h0=h0,
         pstore=rows * sum(layers[1:-1]), hbuf=hbuf, gbuf=2 * rows * wmax,
-        partials=_align4(splits * n_params))
+        partials=_align4(splits * n_params),
+        psums=_align4(2 * (n_pad // EW_TILE) * path_params))
 
 
 def _lib():
@@ -143,11 +171,11 @@ def _lib():
     if not getattr(lib, "_pinns_typed", False):
         p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.pinns_taylor1_forward.argtypes = [
-            p, i, p, p, i, f, f, f, f, i, i, p, q, p, p, p, i, p,
+            p, i, p, p, i, i, i, f, f, f, f, i, i, p, q, p, p, p, i, p,
         ]
         lib.pinns_taylor1_forward.restype = i
         lib.pinns_taylor1_backward.argtypes = [
-            p, i, p, p, i, f, f, f, f, i, i, i, i, p, p, p, p, q, p, i, p,
+            p, i, p, p, i, i, i, f, f, f, f, i, i, i, i, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor1_backward.restype = i
         lib.pinns_taylor1_error_string.argtypes = [i]
@@ -158,11 +186,13 @@ def _lib():
 
 def check_spec(spec: MLPSpec) -> None:
     """Raise unless K7a takes ``spec``: float32 streams (``check_call``
-    checks the dtypes of the tensors)."""
+    checks the dtypes of the tensors) and paths within the kernel's bounds
+    (``taylor2.check_paths``)."""
     if spec.mixed:
         raise ValueError(
             "the taylor1 kernel (K7a) takes float32 specs only; the mixed stream "
             "policy on the Taylor-1 streams is left to a later slice (ROADMAP queue 2, K7a)")
+    check_paths("taylor1", spec)
 
 
 def _raise(lib, err: int, what: str, plan: Taylor1Plan) -> None:
@@ -179,7 +209,7 @@ def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor
     global LAUNCHES
     check_spec(spec)
     check_call("taylor1", spec, params, x)
-    layers = spec.layers
+    layers = spec.widths
     n = x.shape[0]
     outs = tuple(torch.empty((n, spec.out_dim), dtype=torch.float32, device=x.device)
                  for _ in range(STREAMS))
@@ -191,7 +221,8 @@ def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
     err = lib.pinns_taylor1_forward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
+        spec.lb[0], spec.lb[1],
         spec.ub[0], spec.ub[1], plan.n_pad, plan.tile, scratch.data_ptr(),
         plan.scratch_floats, *(o.data_ptr() for o in outs), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -204,7 +235,8 @@ def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor
 
 def taylor1_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
                      cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
-    """K7a's backward: the flat gradient (``pack_params`` order) of sum over
+    """K7a's backward: the flat gradient (``pack_params`` order, the paths'
+    leaves after the trunk's) of sum over
     points of gy . y + gyx . y_x + gyt . y_t, where ``cotangents`` = (gy, gyx,
     gyt), each (N, out_dim) float32, contiguous, on ``x``'s CUDA device. One
     host call that issues every product, elementwise pass and the reduction
@@ -215,18 +247,19 @@ def taylor1_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
                          f"got {len(cotangents)}")
     check_spec(spec)
     check_call("taylor1 backward", spec, params, x, *cotangents)
-    layers = spec.layers
+    layers = spec.widths
     n = x.shape[0]
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
     if n == 0:
         return grad.zero_()
-    plan = taylor1_plan(layers, n, backward=True)
+    plan = taylor1_plan(layers, n, backward=True, path_params=spec.n_path_params)
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
     lib = _lib()
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
     err = lib.pinns_taylor1_backward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
+        spec.lb[0], spec.lb[1],
         spec.ub[0], spec.ub[1], plan.n_pad, plan.tile, plan.split_rows, plan.splits,
         *(g.data_ptr() for g in cotangents), scratch.data_ptr(), plan.scratch_floats,
         grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
@@ -243,10 +276,9 @@ class _Taylor1(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, x, *leaves):
-        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
         ctx.spec = spec
         ctx.save_for_backward(x, *leaves)
-        return taylor1(spec, params, x)
+        return taylor1(spec, net_from_leaves(leaves, spec.n_paths), x)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -255,35 +287,34 @@ class _Taylor1(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             raise NotImplementedError("the taylor1 kernels give no gradient with respect "
                                       "to the input points")
-        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        params = net_from_leaves(leaves, ctx.spec.n_paths)
         grad = taylor1_backward(ctx.spec, params, x, [g.contiguous() for g in cotangents])
         return (None, None, *split_grad(grad, leaves))
 
 
 def mlp_taylor1_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
     """(y, y_x, y_t) through K7a, differentiable in the params through its
-    backward. CUDA tensors only (the wrappers raise on anything else)."""
-    leaves = [t for layer in params for t in (layer["W"], layer["b"])]
-    return _Taylor1.apply(spec, x, *leaves)
+    backward (shock paths included). CUDA tensors only (the wrappers raise on
+    anything else)."""
+    return _Taylor1.apply(spec, x, *net_leaves(params))
 
 
 def taylor1_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
                                cotangents) -> List[torch.Tensor]:
     """K7a's backward in plain PyTorch: [dW_0, db_0, dW_1, ...] (W leaves
-    (din, dout), b leaves (1, dout)) of sum over points of the cotangents
-    (gy, gyx, gyt), each (N, out_dim), dotted with (y, y_x, y_t). It computes
-    in ``spec.dtype`` (float64 with a float64 spec, params, points and
-    cotangents). For a hidden layer with s = tanh p and output adjoints
-    (gh, ghx, ght): gp = (1 - s^2) (gh - 2 s (ghx px + ght pt)),
-    gpx = ghx (1 - s^2), gpt = ght (1 - s^2)."""
+    (din, dout), b leaves (1, dout)), then d path_c and d path_a for a
+    shock-path net (``taylor2.net_leaves`` order), of sum over points of the
+    cotangents (gy, gyx, gyt), each (N, out_dim), dotted with (y, y_x, y_t).
+    It computes in ``spec.dtype`` (float64 with a float64 spec, params,
+    points and cotangents). For a hidden layer with s = tanh p and output
+    adjoints (gh, ghx, ght): gp = (1 - s^2) (gh - 2 s (ghx px + ght pt)),
+    gpx = ghx (1 - s^2), gpt = ght (1 - s^2). The paths' gradient applies
+    ``models.mlp.path_backward_reference`` to the path columns of layer 0's
+    input adjoints G_0 W_0^T, one per stream."""
     pol = _StreamPolicy(spec)
     h = normalize_inputs(spec, x)
-    scale = input_scale(spec, x.device)
-    ex = torch.zeros_like(h)
-    ex[:, 0] = scale[0]
-    et = torch.zeros_like(h)
-    et[:, 1] = scale[1]
-    streams = (h, ex, et)
+    n = x.shape[0]
+    streams = tuple(t.expand(n, -1) for t in embed_streams(spec, h, net[0])[:STREAMS])
     saved = []  # (pre-activation streams, tanh factors) of each hidden layer
     inputs = [streams]
     for i, layer in enumerate(net[:-1]):
@@ -291,7 +322,7 @@ def taylor1_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
         saved.append((pre, tanh))
         inputs.append(streams)
     grads: List[torch.Tensor] = [None] * (2 * len(net))  # type: ignore[list-item]
-    G = tuple(g.reshape(x.shape[0], -1) for g in cotangents)
+    G = tuple(g.reshape(n, -1) for g in cotangents)
     for l in range(len(net) - 1, -1, -1):
         X = inputs[l]
         grads[2 * l] = sum(X[s].T @ G[s] for s in range(STREAMS))
@@ -301,4 +332,7 @@ def taylor1_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
             gh, ghx, ght = (g @ w.T for g in G)
             (_, px, pt), (s, sp) = saved[l - 1]
             G = (sp * (gh - 2.0 * s * (ghx * px + ght * pt)), ghx * sp, ght * sp)
+    if spec.n_paths:
+        w_paths = net[0]["W"][2:]  # the path features' rows of W_0
+        grads += list(path_backward_reference(spec, net[0], h, *(g @ w_paths.T for g in G)))
     return grads

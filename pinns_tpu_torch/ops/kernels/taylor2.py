@@ -56,7 +56,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from pinns_tpu_torch.models.mlp import MLPSpec, Params, input_scale, normalize_inputs
+from pinns_tpu_torch.models.mlp import (
+    SLICE_2B_III,
+    PATH_KEYS,
+    MLPSpec,
+    Params,
+    input_scale,
+    normalize_inputs,
+)
 from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.taylor import POLICY_STREAMS, _StreamPolicy, taylor2_layer
 
@@ -67,6 +74,8 @@ MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
+MAX_PATHS = 8  # kMaxPaths, kMaxPathDegree in csrc/paths.cuh
+MAX_PATH_DEGREE = 7
 # The forward's two designs (csrc/taylor2.cu), one launch a call each. A net
 # whose widths are all at most NARROW_WIDTH takes the narrow design, a
 # per-tile kernel: a thread owns one unit and 4 points of all four streams,
@@ -240,11 +249,50 @@ def _backward_lib():
     return lib
 
 
+def net_leaves(params: Params) -> List[torch.Tensor]:
+    """The net's tensors in kernel order: W_0, b_0, W_1, b_1, ..., then a
+    shock-path net's ``path_c`` and ``path_a`` (on ``params[0]``)."""
+    leaves = [t for layer in params for t in (layer["W"], layer["b"])]
+    return leaves + [params[0][k] for k in PATH_KEYS if params and k in params[0]]
+
+
+def net_from_leaves(leaves: Sequence[torch.Tensor], n_paths: int) -> Params:
+    """The inverse of :func:`net_leaves` (``n_paths`` > 0: the last two
+    leaves are the path parameters)."""
+    trunk = leaves[:-2] if n_paths else leaves
+    params = [{"W": w, "b": b} for w, b in zip(trunk[0::2], trunk[1::2])]
+    if n_paths:
+        params[0] = dict(params[0], path_c=leaves[-2], path_a=leaves[-1])
+    return params
+
+
 def pack_params(params: Params) -> torch.Tensor:
-    """W_0, b_0, W_1, b_1, ... flattened into one buffer, in kernel order."""
-    return torch.cat(
-        [t.reshape(-1) for layer in params for t in (layer["W"], layer["b"])]
-    )
+    """:func:`net_leaves` flattened into one buffer, in kernel order."""
+    return torch.cat([t.reshape(-1) for t in net_leaves(params)])
+
+
+def check_paths(kernel: str, spec: MLPSpec) -> None:
+    """Raise unless a path spec fits the bounds of the kernels that compute
+    paths (K7a, K5's wide design; ``csrc/paths.cuh``)."""
+    if spec.n_paths > MAX_PATHS or spec.path_degree > MAX_PATH_DEGREE:
+        raise ValueError(f"the {kernel} kernel takes up to {MAX_PATHS} paths of degree up to "
+                         f"{MAX_PATH_DEGREE}, got {spec.n_paths} of degree {spec.path_degree}")
+
+
+def path_args(spec: MLPSpec) -> Tuple[int, int]:
+    """(n_paths, path_degree) as those kernels' launchers take them."""
+    return spec.n_paths, spec.path_degree if spec.n_paths else 0
+
+
+def refuse_paths(kernel: str, spec: MLPSpec) -> None:
+    """Raise unless ``spec`` has no shock-path features: the kernels that
+    compute none (K1/K2/K6, K3, K5's narrow design) come to them with
+    slice 2b-iii."""
+    if spec.n_paths:
+        raise ValueError(
+            f"the {kernel} kernel computes no shock-path features (model.n_paths="
+            f"{spec.n_paths}); they come to it with {SLICE_2B_III} (ROADMAP queue 1); "
+            "the Euler trunk takes them through K7a and K5's wide design")
 
 
 def split_grad(flat: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -267,11 +315,15 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
         raise ValueError(f"{kernel} kernel takes (N, 2) points, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel} kernel needs contiguous points")
-    layers = spec.layers
+    layers = spec.widths
     if len(params) != len(layers) - 1:
         raise ValueError(f"{len(params)} layers of params for widths {layers}")
     for i, (layer, din, dout) in enumerate(zip(params, layers[:-1], layers[1:])):
-        for name, shape in (("W", (din, dout)), ("b", (1, dout))):
+        shapes = [("W", (din, dout)), ("b", (1, dout))]
+        if i == 0 and spec.n_paths:
+            shapes += [("path_c", (spec.n_paths, spec.path_degree + 1)),
+                       ("path_a", (spec.n_paths,))]
+        for name, shape in shapes:
             t = layer[name]
             if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
                 raise ValueError(
@@ -319,6 +371,7 @@ def taylor2(
     """
     global LAUNCHES, MIXED_LAUNCHES
     kernel = "taylor2_mixed" if spec.mixed else "taylor2"
+    refuse_paths(kernel, spec)
     if spec.mixed:
         check_mixed(kernel, spec)
     check_call(kernel, spec, params, x)
@@ -369,6 +422,7 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     kernel = "taylor2_mixed backward" if spec.mixed else "taylor2 backward"
     if len(cotangents) != 4:
         raise ValueError(f"{kernel} takes 4 stream cotangents, got {len(cotangents)}")
+    refuse_paths(kernel, spec)
     if spec.mixed:
         check_mixed(kernel, spec)
     check_call(kernel, spec, params, x, *cotangents)
@@ -429,7 +483,8 @@ class _Taylor2(torch.autograd.Function):
 def mlp_taylor2_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
     """(u, u_x, u_t, u_xx) through K1 (K6 for a mixed spec), differentiable
     in the params through K2 (K6's backward). CUDA tensors only (the wrappers
-    raise on anything else)."""
+    raise on anything else, a shock-path spec included)."""
+    refuse_paths("taylor2", spec)
     leaves = [t for layer in params for t in (layer["W"], layer["b"])]
     return _Taylor2.apply(spec, x, *leaves)
 

@@ -15,7 +15,7 @@ order sum of the coefficient gradient's per-block partials). Each counts one
 launch on its counter. The wrappers take float32 CUDA tensors only and raise
 on anything else (CPU tensors included: the plain versions are the CPU's),
 on Q > 8, and never fall back to the plain versions. The entropy of slice
-2b-ii is not computed here (``ops.weakform`` raises before calling).
+2b-iii is not computed here (``ops.weakform`` raises before calling).
 """
 
 from __future__ import annotations

@@ -120,8 +120,9 @@ def mlp_taylor_2_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> St
     (float32 matmuls, TF32 off)."""
     _check(spec)
     pol = _StreamPolicy(spec)
-    # hxx is None (identically zero) for the affine embedding
-    streams = embed_streams(spec, normalize_inputs(spec, x))
+    # hxx is None (identically zero) for the affine embedding; per point
+    # (N, embed_dim) streams with shock paths
+    streams = embed_streams(spec, normalize_inputs(spec, x), params[0])
     for i, layer in enumerate(params[:-1]):
         # the first layer consumes exact coordinates: never quantized
         _, _, streams = taylor2_layer(pol, streams, layer["W"], layer["b"], i == 0)
@@ -168,7 +169,7 @@ def mlp_taylor_1_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> St
     rescale."""
     _check(spec, "mlp_taylor_1")
     pol = _StreamPolicy(spec)
-    h, hx, ht, _ = embed_streams(spec, normalize_inputs(spec, x))
+    h, hx, ht, _ = embed_streams(spec, normalize_inputs(spec, x), params[0])
     streams = (h, hx, ht)
     for i, layer in enumerate(params[:-1]):
         # the first layer consumes exact coordinates: never quantized

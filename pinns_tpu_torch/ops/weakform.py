@@ -24,7 +24,7 @@ tensor (or ``plain=True``) takes the plain versions; any other goes to
 kernel K7b's edge-point kernel, then K7a (viscous) or K5 (inviscid), then
 K7b's quadrature kernel, differentiable through its backward
 (``ops.kernels.weakform``). The kernels do not compute the entropy: asking
-for it on the card raises, naming slice 2b-ii.
+for it on the card raises, naming slice 2b-iii.
 
 The quadrature sums run over q in order, in float32, in the operation order
 of the JAX package's expressions.
@@ -40,7 +40,7 @@ import torch
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, mlp_apply, mlp_apply_reference
 from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_1_reference
 
-ENTROPY_SLICE = "slice 2b-ii (the entropy penalty)"
+ENTROPY_SLICE = "slice 2b-iii (the entropy penalty)"
 
 
 def gauss_legendre(q: int) -> Tuple[np.ndarray, np.ndarray]:

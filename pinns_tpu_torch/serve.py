@@ -6,8 +6,9 @@ has its own artifact: a directory with
 
   ``meta.json``   the keys of the JAX artifact's meta (``experiment``,
                   ``fields``, ``input``, ``pde``, ``provenance``);
-  ``params.npz``  the weights, widths, bounds and PDE coefficients in the
-                  params-file format of ``pinns_tpu_torch.interop``.
+  ``params.npz``  the weights (a shock-path net's path leaves and spec
+                  fields included), widths, bounds and PDE coefficients in
+                  the params-file format of ``pinns_tpu_torch.interop``.
 
 ``ServedModel(path, device=...)`` puts the weights on its device once and
 answers ``predict(x)`` through ``train.evaluate.burgers_fields`` ({f, u}) or,

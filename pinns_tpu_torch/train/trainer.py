@@ -50,13 +50,17 @@ centred on the batch (``ops.weakform``: K7b's edge points and quadrature
 around K7a or K5 on the card), taken as a mean square or, with
 ``loss.causal_eps > 0``, by the causal-in-time penalty; it needs no ADMM
 state. The Euler system's artificial viscosity rides the ``lambda2`` slot
-through ``effective_coeffs`` and stays on the device.
+through ``effective_coeffs`` and stays on the device. Slice 2b-ii adds the
+mixed formulation (``loss.strong_equations``: the selected Euler equations
+take the strong pointwise residual at the cell centres, one more Taylor-1
+pass, K7a on the card) and the trainable shock-path features
+(``model.n_paths``, computed inside K7a and K5 on the card): the
+``euler_weak`` and ``euler_weak_fast`` presets.
 
 What the port leaves to later slices, each raising ``NotImplementedError``
 with the slice's name: the weak-form ADMM, the entropy penalty, gradient
-weighting, the mixed formulation, RAD, SWA and Fourier/path features (slice
-2b-ii); an L-BFGS phase on the Euler system; ensembles (slice 4); multi-GPU
-(slice 6).
+weighting, RAD, SWA, Fourier features and the Euler L-BFGS branch (slice
+2b-iii); ensembles (slice 4); multi-GPU (slice 6).
 """
 
 from __future__ import annotations
@@ -133,7 +137,7 @@ def check_slice(exp: Experiment) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings a feature
     ``exp`` uses and the port does not have yet."""
     later = []
-    slice2 = "slice 2b-ii (shock capture on the weak form)"
+    slice2 = "slice 2b-iii (the rest of shock capture on the weak form)"
     m, s, lo, o = exp.model, exp.sampling, exp.loss, exp.optimizer
     checks = [
         (exp.pde.kind not in ("burgers", "euler"), f"pde.kind={exp.pde.kind!r}",
@@ -142,12 +146,11 @@ def check_slice(exp: Experiment) -> None:
          slice2),
         (lo.entropy_weight > 0.0, "the entropy penalty", slice2),
         (lo.grad_weight_kappa != 0.0, "gradient weighting", slice2),
-        (bool(lo.strong_equations), "the mixed formulation (strong equations)", slice2),
         (s.strategy == "rad", "RAD resampling", slice2),
         (exp.train.swa_frac > 0.0, "SWA", slice2),
-        (m.n_fourier > 0 or m.n_paths > 0, "Fourier / shock-path features", slice2),
+        (m.n_fourier > 0, "Fourier features", slice2),
         (exp.pde.kind == "euler" and o.kind != "adam", f"optimizer.kind={o.kind!r} on Euler "
-         "(the L-BFGS phase)", "a later slice (the Euler L-BFGS branch, ROADMAP queue 1)"),
+         "(the Euler L-BFGS branch)", slice2),
         (exp.mesh.ensemble > 1, "ensembles", "slice 4 (ensembles)"),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
@@ -209,11 +212,18 @@ class Problem:
         Burgers' r (N, 1) or the Euler system's (r1, r2, r3), and the weak
         entropy violation (None unless asked for; the card raises for it).
         ``plain`` forces the plain versions on any device. (JAX's coarse-cell
-        ``scale`` serves ensemble selection and comes with slice 4.)"""
+        ``scale`` serves ensemble selection and comes with slice 4.)
+
+        The mixed formulation (``loss.strong_equations``, Euler only; JAX's
+        ``:235-251``): equation i in it takes the strong pointwise residual
+        at the same centers, from one more Taylor-1 pass (K7a on the card)
+        shared by the selected equations, in place of its cell mean."""
         cfg = self.exp.loss
-        if cfg.strong_equations:
-            raise NotImplementedError(
-                "loss.strong_equations (the mixed formulation) comes with slice 2b-ii")
+        if cfg.strong_equations and not self.euler:
+            raise ValueError(
+                "loss.strong_equations is the Euler mixed formulation; "
+                "Burgers has a single equation"
+            )
         hx = cfg.flux_dx_frac * float(self.ub[0] - self.lb[0])
         ht = cfg.flux_dt_frac * float(self.ub[1] - self.lb[1])
         if not self.euler:
@@ -223,9 +233,18 @@ class Problem:
         # the Euler artificial viscosity rides the lambda2 slot (freeze, exp
         # transform and identification as for Burgers), a device tensor
         _, visc = self.effective_coeffs(params)
-        return euler_flux_residuals(self.spec, params["net"], centers, self.exp.pde.gamma, hx,
-                                    ht, cfg.flux_quad, want_entropy, visc, self.viscous_static,
-                                    plain)
+        rs, ent = euler_flux_residuals(self.spec, params["net"], centers, self.exp.pde.gamma,
+                                       hx, ht, cfg.flux_quad, want_entropy, visc,
+                                       self.viscous_static, plain)
+        if cfg.strong_equations:
+            if any(i not in (0, 1, 2) for i in cfg.strong_equations):
+                raise ValueError(
+                    "loss.strong_equations indices must be in {0, 1, 2} "
+                    "(mass, momentum, energy)"
+                )
+            strong = self.residuals(params, centers, plain)
+            rs = tuple(strong[i] if i in cfg.strong_equations else rs[i] for i in range(3))
+        return rs, ent
 
     @property
     def flux(self) -> bool:
@@ -288,6 +307,9 @@ def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None)
         compute_dtype=exp.model.compute_dtype or None,
         keep_streams=exp.model.keep_streams,
         mixed_elementwise=exp.model.mixed_elementwise,
+        n_paths=exp.model.n_paths,
+        path_degree=exp.model.path_degree,
+        path_sharpness=exp.model.path_sharpness,
     )
     return Problem(
         exp=exp,

@@ -13,7 +13,8 @@ The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 The Euler slice: ``--preset euler_admm --dataset abgrall_eulers --steps adam,plain``
 (an Euler preset has no L-BFGS phase in the port yet). The weak-form slice:
 ``--preset twosin_weak --steps adam,plain`` and ``--preset euler_inverse
---dataset abgrall_eulers --steps adam,plain``.
+--dataset abgrall_eulers --steps adam,plain``; the shock-path slice:
+``--preset euler_weak_fast --dataset abgrall_eulers --steps adam,plain``.
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name

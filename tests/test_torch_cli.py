@@ -20,6 +20,7 @@ import torch
 from pinns_tpu_torch import cli
 from pinns_tpu_torch.config import override
 from pinns_tpu_torch.experiments import get_preset
+from pinns_tpu_torch.interop import load_params_npz
 from pinns_tpu_torch.train import checkpoint as ckpt_io
 from pinns_tpu_torch.train.trainer import Trainer
 
@@ -27,6 +28,7 @@ SMALL_SETS = {
     "abgrall_admm": ["model.layers=(2, 12, 12, 1)", "sampling.n_f=64"],
     "twosin_weak": ["model.layers=(2, 12, 12, 1)", "sampling.n_f=64"],
     "euler_inverse": ["model.layers=(2, 12, 12, 3)", "sampling.n_f=32", "data.n_u=64"],
+    "euler_weak_fast": ["model.layers=(2, 12, 12, 3)", "sampling.n_f=32", "data.n_u=64"],
 }
 
 
@@ -75,10 +77,11 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, capsys, preset):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("preset", ["abgrall_admm", "euler_inverse"])
+@pytest.mark.parametrize("preset", ["abgrall_admm", "euler_inverse", "euler_weak_fast"])
 def test_train_export_predict_eval_round_trip(tmp_path, capsys, preset):
     """train -> export --checkpoint -> predict and eval: the served fields are
-    the trainer's prediction, and both evals give the train summary's rel-L2."""
+    the trainer's prediction, and both evals give the train summary's rel-L2
+    (a shock-path net's artifact carries its paths and spec fields)."""
     assert _train(preset, tmp_path / "run", 4) == 0
     summary = _last_json(capsys)
     ckpt = _final(tmp_path / "run", preset)
@@ -88,6 +91,8 @@ def test_train_export_predict_eval_round_trip(tmp_path, capsys, preset):
     assert capsys.readouterr().out.strip() == art
     meta = json.load(open(os.path.join(art, "meta.json")))
     assert meta["experiment"] == preset and meta["pde"] == get_preset(preset).pde.kind
+    spec = load_params_npz(os.path.join(art, "params.npz"))["spec"]
+    assert spec.n_paths == get_preset(preset).model.n_paths
 
     exp = override(get_preset(preset), cli.parse_sets(SMALL_SETS[preset]))
     trainer = Trainer(exp, device="cpu")

@@ -675,6 +675,122 @@ def test_euler_trainer_on_card(cuda_device):  # noqa: F811
     assert all(np.isfinite(summary[f"rel_l2_{f}"]) for f in ("rho", "u", "E"))
 
 
+# -- shock paths in K7a's and K5's input passes (slice 2b-ii) --------------------
+
+PATH_SHAPES = [("k7a", EULER, 1_000), ("k7a", EULER, 8_191), ("k7a", EULER, 1),
+               ("k7a", (2, 20, 20, 3), 777), ("k5", EULER, 200), ("k5", EULER, 8_191),
+               ("k5", EULER, 1)]
+
+
+def _path_net(layers, seed, device):
+    """A path net (K 2, degree 2) with its paths moved off their init:
+    curved fronts and unequal sharpness, nonzero biases."""
+    kw = dict(layers=layers, lb=LB, ub=UB, n_paths=2, path_degree=2, path_sharpness=12.0)
+    spec, spec64 = MLPSpec(**kw), MLPSpec(dtype=torch.float64, **kw)
+    params = init_mlp(spec, torch.Generator().manual_seed(seed), device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for p in params:
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=gen))
+    params[0]["path_c"].add_(0.3 * torch.randn((2, 3), generator=gen).to(device))
+    params[0]["path_a"].mul_(1.0 + 0.2 * torch.randn(2, generator=gen).to(device))
+    params64 = [{k: v.double() for k, v in p.items()} for p in params]
+    return spec, params, spec64, params64
+
+
+@pytest.mark.parametrize("kernel,layers,n", PATH_SHAPES,
+                         ids=[f"{k}-{len(l) - 2}x{max(l)}-n{n}" for k, l, n in PATH_SHAPES])
+def test_path_kernels_match_plain_on_card(cuda_device, kernel, layers, n):  # noqa: F811
+    """K7a and K5 (wide) with two shock paths: the forward and every gradient
+    leaf, path_c and path_a included, by the float64 criterion (the narrow
+    K7a net within rtol 1e-5 of plain float32 first); the autograd
+    Function's gradient equals the backward kernel's; two backward calls
+    agree bit for bit."""
+    from pinns_tpu_torch.models.mlp import mlp_apply, mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_1_reference
+
+    spec, params, spec64, params64 = _path_net(layers, 21, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=22)).to(cuda_device)
+    rng = np.random.default_rng(23)
+    streams = 3 if kernel == "k7a" else 1
+    cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32))
+           .to(cuda_device) for _ in range(streams)]
+    if kernel == "k7a":
+        outs = k_taylor1.taylor1(spec, params, x)
+        grad = k_taylor1.taylor1_backward(spec, params, x, cot)
+        again = k_taylor1.taylor1_backward(spec, params, x, cot)
+        plain = mlp_taylor_1_reference(spec, params, x)
+        exact = mlp_taylor_1_reference(spec64, params64, x.double())
+        pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
+        egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
+                                                     [c.double() for c in cot])
+        fn = mlp_taylor_1
+    else:
+        outs = (k_mlp.mlp_forward(spec, params, x),)
+        grad = k_mlp.mlp_backward(spec, params, x, cot[0])
+        again = k_mlp.mlp_backward(spec, params, x, cot[0])
+        plain = (mlp_apply_reference(spec, params, x),)
+        exact = (mlp_apply_reference(spec64, params64, x.double()),)
+        pgrad = k_mlp.mlp_backward_reference(spec, params, x, cot[0])
+        egrad = k_mlp.mlp_backward_reference(spec64, params64, x.double(), cot[0].double())
+        fn = lambda s, p, xx: (mlp_apply(s, p, xx),)  # noqa: E731
+    torch.cuda.synchronize()
+    assert torch.equal(grad, again)
+    assert grad.numel() == spec.n_params == sum(p.numel() for p in pgrad)
+    wide = max(layers) > 32
+    for g, p, e in zip(outs, plain, exact):
+        _close_or_f64(g, p, e, wide)
+    off = 0
+    for p, e in zip(pgrad, egrad):
+        _close_or_f64(grad[off:off + p.numel()].view(p.shape), p, e, wide)
+        off += p.numel()
+    leaves = [t.clone().requires_grad_(True) for t in k_taylor2.net_leaves(params)]
+    via = fn(spec, k_taylor2.net_from_leaves(leaves, spec.n_paths), x)
+    via_fn = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(via, cot)), leaves)
+    for a, b in zip(via_fn, k_taylor2.split_grad(grad, leaves)):
+        assert torch.equal(a, b)
+
+
+def test_kernels_without_paths_refuse_them_on_card(cuda_device):  # noqa: F811
+    """K1/K2 and K5's narrow design raise on a path spec, naming slice 2b-iii."""
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2
+
+    spec, params, _, _ = _path_net((2, 20, 20, 1), 24, cuda_device)
+    x = torch.from_numpy(numpy_points(16, seed=25)).to(cuda_device)
+    with pytest.raises(ValueError, match="slice 2b-iii"):
+        mlp_taylor_2(spec, params, x)
+    with pytest.raises(ValueError, match="slice 2b-iii"):
+        k_mlp.mlp_forward(spec, params, x)
+
+
+def test_euler_weak_fast_trainer_on_card(cuda_device):  # noqa: F811
+    """euler_weak_fast on the card for a few epochs: the edge points through
+    K7a with paths (viscous), the strong mass residual at the centres through
+    K7a again, the data term through K5, the cell means through K7b."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.kernels import weakform as k_weak
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(get_preset("euler_weak_fast"), {"train.epochs": 6, "train.chunk": 3,
+                                                    "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    before = (k_taylor1.LAUNCHES, k_taylor1.BACKWARD_LAUNCHES, k_mlp.LAUNCHES,
+              k_mlp.BACKWARD_LAUNCHES, k_weak.LAUNCHES)
+    state, summary = trainer.train()
+    after = (k_taylor1.LAUNCHES, k_taylor1.BACKWARD_LAUNCHES, k_mlp.LAUNCHES,
+             k_mlp.BACKWARD_LAUNCHES, k_weak.LAUNCHES)
+    # an epoch: K7a at the edge points and at the centres, forward and
+    # backward; K5 on the data term; K7b once; + the evaluation's K7a
+    assert [a - b for a, b in zip(after, before)] == [2 * 6 + 1, 2 * 6, 6, 6, 6]
+    assert state.epoch == 6 and state.params["net"][0]["path_c"].shape == (2, 3)
+    assert all(np.isfinite(summary[f"rel_l2_{f}"]) for f in ("rho", "u", "E"))
+
+
 # -- K7b: the weak-form flux quadrature (slice 2b-i) ---------------------------
 
 K7B_CASES = [("burgers", True, 1_000), ("burgers", False, 1_000), ("euler", True, 1_000),

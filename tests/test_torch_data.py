@@ -57,8 +57,11 @@ def test_loader_paths_and_errors(tmp_path, monkeypatch):
     monkeypatch.delenv("PINNS_TPU_DATA_ROOT", raising=False)
     assert tds.resolve_grid_path("twosin_burgers_shock") == GRID
     assert tds.load_burgers_mat(GRID).name == "twosin_burgers_shock"
-    with pytest.raises(FileNotFoundError, match="slice 7"):
-        tds.load_burgers_mat("abgrall_burgers_shock")  # a key with no committed grid
+    assert tds.load_burgers_mat("abgrall_burgers_shock").provenance == "native"
+    with monkeypatch.context() as m:  # a key with no committed grid
+        m.setattr(tds, "GRID_DIR", tmp_path)
+        with pytest.raises(FileNotFoundError, match="slice 7"):
+            tds.load_burgers_mat("abgrall_burgers_shock")
     with pytest.raises(FileNotFoundError, match="neither a known key"):
         tds.load_burgers_mat(str(tmp_path / "missing.npz"))
     euler = tds.load_euler_mat()  # the key builds the exact grid natively

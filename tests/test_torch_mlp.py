@@ -131,6 +131,16 @@ def test_init_mlp_deterministic_per_seed():
     "extra", [{"fourier": ((1.0, 2.0),)}, {"n_paths": 2}], ids=["fourier", "paths"]
 )
 def test_unported_embeddings_raise(extra):
+    """Fourier features raise, naming the slice that brings them. Shock
+    paths came with slice 2b-ii: a path spec builds, and what JAX's spec
+    refuses (inputs other than (x, t), a negative degree) raises."""
+    if "n_paths" in extra:
+        assert MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra).embed_dim == SMALL[0] + 2
+        with pytest.raises(ValueError, match=r"\(x, t\)"):
+            MLPSpec(layers=(3,) + SMALL[1:], lb=LB + (0.0,), ub=UB + (1.0,), **extra)
+        with pytest.raises(ValueError, match="path_degree"):
+            MLPSpec(layers=SMALL, lb=LB, ub=UB, path_degree=-1, **extra)
+        return
     with pytest.raises(NotImplementedError, match="slice 2"):
         MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra)
 

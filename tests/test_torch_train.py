@@ -393,15 +393,53 @@ def test_burgers_shock_grid_is_the_native_one(monkeypatch):
     np.testing.assert_array_equal(port.star["u"], jax_ds.star["u"])
 
 
+def test_abgrall_grid_is_the_native_one(monkeypatch):
+    """The committed abgrall_burgers_shock grid equals the JAX package's
+    regeneration (generators.make_abgrall_burgers_grid, 257 x 257)."""
+    from pinns_tpu.data import generators
+    from pinns_tpu_torch.data.datasets import load_burgers_mat
+
+    monkeypatch.delenv("PINNS_TPU_DATA_ROOT", raising=False)
+    port = load_burgers_mat("abgrall_burgers_shock")
+    native = generators.make_abgrall_burgers_grid()
+    jax_ds = jds.GridDataset(x=native["x"].astype(np.float32), t=native["t"].astype(np.float32),
+                             fields={"u": native["usol"].astype(np.float32).T})
+    assert port.provenance == "native" and port.fields["u"].shape == (257, 257)
+    np.testing.assert_array_equal(port.X_star, jax_ds.X_star)
+    np.testing.assert_array_equal(port.star["u"], jax_ds.star["u"])
+
+
+@pytest.mark.parametrize("preset", ["hwan_l2", "abgrall_l1", "abgrall_l2", "abgrall_visc"])
+def test_abgrall_presets_build_on_their_grid(monkeypatch, preset):
+    """The four presets that train on abgrall_burgers_shock build their
+    problem from the committed grid, with JAX's training set on it."""
+    from pinns_tpu_torch.data.datasets import load_burgers_mat
+
+    monkeypatch.delenv("PINNS_TPU_DATA_ROOT", raising=False)
+    problem = ttrainer.build_problem(get_preset(preset), "cpu")
+    ds = load_burgers_mat("abgrall_burgers_shock")
+    exp = JPRESETS[preset]
+    build = (jds.interior_training_set if exp.data.selection == "interior"
+             else jds.build_ic_bc_training_set)
+    jds_grid = jds.GridDataset(x=ds.x, t=ds.t, fields={"u": ds.fields["u"]})
+    x_data, targets = build(jds_grid, exp.data.n_u, seed=exp.data.seed, noise=exp.data.noise)
+    assert problem.dataset.name == "abgrall_burgers_shock"
+    assert problem.spec.lb == tuple(float(v) for v in ds.lb)
+    np.testing.assert_array_equal(problem.x_data.numpy(), np.asarray(x_data, np.float32))
+    np.testing.assert_array_equal(problem.targets["u"].numpy(),
+                                  np.asarray(targets["u"], np.float32))
+    colloc = ttrainer.init_collocation(problem, 1234)
+    assert colloc.shape[0] >= problem.exp.sampling.n_f and torch.isfinite(colloc).all()
+
+
 @pytest.mark.parametrize("preset,match", [
     ("euler_admm", "slice 2"), ("twosin_weak", "slice 2"), ("euler_weak", "slice 2"),
 ])
 def test_out_of_slice_presets_raise(preset, match):
-    # euler_admm is inside the port since slice 2a and twosin_weak since
-    # slice 2b-i; with the entropy penalty (slice 2b-ii) neither is
-    exp = get_preset(preset)
-    if preset in ("euler_admm", "twosin_weak"):
-        exp = override(exp, {"loss.entropy_weight": 0.1})
+    # euler_admm is inside the port since slice 2a, twosin_weak since slice
+    # 2b-i and euler_weak since slice 2b-ii; with the entropy penalty (slice
+    # 2b-iii) none is
+    exp = override(get_preset(preset), {"loss.entropy_weight": 0.1})
     with pytest.raises(NotImplementedError, match=match):
         ttrainer.check_slice(exp)
 

@@ -467,9 +467,12 @@ def test_check_slice_lets_the_weak_presets_through():
     for name in ("twosin_weak", "euler_inverse"):
         ttrainer.check_slice(get_preset(name))
     ttrainer.check_slice(override(get_preset("twosin_weak"), {"pde.lambda2": 0.0}))
-    for name in ("euler_weak", "euler_weak_fast", "euler_weak_tail"):
-        with pytest.raises(NotImplementedError, match="slice 2b-ii"):
-            ttrainer.check_slice(get_preset(name))
+    # euler_weak and euler_weak_fast came with slice 2b-ii; the tail's
+    # L-BFGS branch comes with slice 2b-iii
+    for name in ("euler_weak", "euler_weak_fast"):
+        ttrainer.check_slice(get_preset(name))
+    with pytest.raises(NotImplementedError, match="slice 2b-iii"):
+        ttrainer.check_slice(get_preset("euler_weak_tail"))
 
 
 @pytest.mark.parametrize("extra,match", [
@@ -613,3 +616,111 @@ def test_weak_step_replays_the_fixture(preset):
         np.testing.assert_array_equal(state.colloc.numpy(), fx[f"{p}colloc_{k}"])
         k += 1
     assert k == 4
+
+
+# -- euler_weak_fast at full width (slice 2b-ii) ---------------------------------
+
+EW_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port", "euler_weak.npz")
+
+
+def _ew_fixture():
+    with np.load(EW_FIXTURE, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _path_net_from_flat(fx, flat):
+    """A flat fixture vector (W_0, b_0, ..., path_c, path_a) as JAX-layout
+    numpy params."""
+    layers = tuple(int(v) for v in fx["layers"])
+    k, d = int(fx["n_paths"]), int(fx["path_degree"])
+    widths = (layers[0] + k,) + layers[1:]
+    n_trunk = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    net = _net_from_flat(flat[:n_trunk], widths)
+    net[0]["path_c"] = flat[n_trunk:n_trunk + k * (d + 1)].reshape(k, d + 1)
+    net[0]["path_a"] = flat[n_trunk + k * (d + 1):]
+    return net
+
+
+def test_euler_weak_step_replays_the_fixture():
+    """euler_weak_fast at full width (2x200x5x3, two shock paths, the strong
+    mass equation) from JAX's initial state (seed 1234): the loss and every
+    leaf's gradient, path_c and path_a included; then the fixture's 3 Adam
+    steps fed JAX's batches: the metrics, the coefficients and each leaf's
+    sum and sum of squares."""
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
+
+    fx = _ew_fixture()
+    preset = "euler_weak_fast"
+    problem = ttrainer.build_problem(get_preset(preset), "cpu")
+    spec = problem.spec
+    assert spec.layers == tuple(int(v) for v in fx["layers"])
+    assert (spec.n_paths, spec.path_degree, spec.path_sharpness) == (
+        int(fx["n_paths"]), int(fx["path_degree"]), float(fx["path_sharpness"]))
+    assert spec.lb == tuple(fx["lb"]) and spec.ub == tuple(fx["ub"])
+    np.testing.assert_array_equal(problem.x_data.numpy(), fx["x_data"])
+    net = _path_net_from_flat(fx, fx["params_0"])
+    c0 = fx["coeffs_0"]
+    coeffs = {"lambda1": c0[0:1], "lambda2": c0[1:2]}
+    zeros = lambda tree: [{k: np.zeros_like(v) for k, v in l.items()} for l in tree]  # noqa: E731
+    zc = {k: np.zeros_like(v) for k, v in coeffs.items()}
+    state = train_state_from_jax({
+        "params": {"net": net, "coeffs": coeffs}, "count": 0,
+        "mu": {"net": zeros(net), "coeffs": zc}, "nu": {"net": zeros(net), "coeffs": zc},
+        "colloc": fx["colloc_0"], "epoch": 0}, CPU, key=int(fx["seed"]))
+    problem64 = ttrainer.build_problem(override(get_preset(preset), {"model.dtype": "float64"}),
+                                       "cpu")
+    flat = {}
+    for dtype, prob in ((torch.float32, problem), (torch.float64, problem64)):
+        params = ttrainer.tree_map(lambda t: t.to(dtype).clone().requires_grad_(True),
+                                   state.params)
+        loss, _ = ttrainer.make_loss_fn(prob)(params, state.colloc.to(dtype), None)
+        flat[dtype] = (float(loss.detach()), _grads(loss, net_leaves(params["net"])))
+    loss, grads = flat[torch.float32]
+    np.testing.assert_allclose(loss, float(fx["loss_0"]), rtol=1e-4)
+    want, at = fx["grad_0"], 0
+    assert sum(g.numel() for g in grads) == want.size == spec.n_params
+    for i, (g, e) in enumerate(zip(grads, flat[torch.float64][1])):
+        assert_grad(f"leaf {i}", g.numpy().ravel(), want[at:at + g.numel()], e.numpy().ravel())
+        at += g.numel()
+    step = ttrainer.make_adam_step(problem, ttrainer.learning_rate_schedule(
+        problem.exp.optimizer))
+    k = 1
+    while f"metrics_{k}" in fx:
+        state, m = step(state, new_colloc=torch.from_numpy(fx[f"colloc_{k}"]))
+        got = {n: float(v) for n, v in m.items()}
+        want_m = dict(zip(METRIC_KEYS, fx[f"metrics_{k}"].tolist()))
+        for n in ("loss", "data_term", "res_term", "lambda1", "lambda2"):
+            np.testing.assert_allclose(got[n], want_m[n], rtol=1e-4,
+                                       atol=1e-6 * abs(want_m["loss"]), err_msg=f"{n} step {k}")
+        np.testing.assert_allclose(
+            [float(state.params["coeffs"][c][0]) for c in ("lambda1", "lambda2")],
+            fx[f"coeffs_{k}"], rtol=1e-6, atol=1e-7, err_msg=f"coeffs step {k}")
+        vals = [v.detach().double().numpy() for v in net_leaves(state.params["net"])]
+        sums = np.asarray([(v.sum(), (v * v).sum()) for v in vals])
+        np.testing.assert_allclose(sums, fx[f"sums_{k}"], rtol=1e-4, atol=1e-4,
+                                   err_msg=f"leaf sums step {k}")
+        np.testing.assert_array_equal(state.colloc.numpy(), fx[f"colloc_{k}"])
+        k += 1
+    assert k == 4
+
+
+def test_euler_weak_artifact_serves_the_fixture(tmp_path):
+    """The first band seed's trained path net (2,000 JAX epochs) exported as
+    an Euler artifact and served on the CPU at the fixture's grid points:
+    rho, u, E and the three strong residuals within rtol 1e-5 / atol 1e-5
+    max|JAX| of JAX's predict_fields."""
+    from pinns_tpu_torch.serve import ServedModel, export_predict
+
+    fx = _ew_fixture()
+    problem = ttrainer.build_problem(get_preset("euler_weak_fast"), "cpu")
+    net = _path_net_from_flat(fx, fx["band_params"])
+    art = export_predict(problem.spec, net, str(tmp_path / "art"), lambda1=1.0, lambda2=1e-3,
+                         experiment="euler_weak_fast", pde="euler", gamma=float(fx["gamma"]))
+    served = ServedModel(art, device="cpu")
+    assert served.spec == problem.spec
+    np.testing.assert_array_equal(fx["predict_x"], problem.dataset.X_star[fx["predict_idx"]])
+    out = served.predict(fx["predict_x"])
+    for name in ("rho", "u", "E", "f1", "f2", "f3"):
+        want = fx[f"predict_{name}"]
+        np.testing.assert_allclose(out[name].ravel(), want, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(want).max()), err_msg=name)
