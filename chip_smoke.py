@@ -9,7 +9,8 @@ weak-form slice (twosin_weak and euler_inverse trained over the flux
 quadrature kernel K7b, around K7a and K5), and the shock-path slice
 (euler_weak_fast trained and served with two trainable shock paths computed
 inside K7a's and K5's input passes and the strong mass residual at the cell
-centres).
+centres), and ensembles (train --ensemble and sweep over rho and seeds,
+the Adam epochs of all members in one call of the member-batched kernel K8).
 
     python3 chip_smoke.py
 
@@ -168,6 +169,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   times     K7a and K5 with and without paths (events) beside their bounds,
             the plain versions; the euler_weak_fast epoch (events) against the
             plain step, and a 1,000-epoch chunk
+  30 k8     K8, the member-batched narrow K3, at abgrall_admm's 8x20 for E =
+            1, 3 and 8 with rhos 10, 20, 30, ... and seeds 1234 + i: every
+            output of every member equal to a solo K3 call (torch.equal) over
+            5 chained epochs, and the first epoch of each member within
+            STEP_TOL of the plain step at its rho; one host call an epoch
+  31 ensemble-cli  this slice's main path, the CLI in this process: train
+            abgrall_admm --ensemble 4 for 510 epochs (500 Adam epochs on K8,
+            then 10 L-BFGS outer epochs of at most 20 iterations per member)
+            with --select: no plain call, K8 once an epoch; each member's
+            final checkpoint equal to its solo run's (train --seed 1234+i) bit
+            for bit, and --resume from the epoch-500 set ending at the same
+            states; sweep --grid loss.rho=10,40 --grid train.seed=1234,7 for
+            300 epochs as one 4-member unit, every row ok
+  times     a K8 epoch (events) and a 1,000-epoch chunk's member-epochs a
+            second at E = 1, 8 and 32 beside the solo K3 step; the plain
+            per-member loop at E = 8
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -449,16 +466,17 @@ def close_grad(got: np.ndarray, want: np.ndarray, layers, exact: np.ndarray,
             "leaves_by_f64_oracle": sum("bound" in r for r in rows)}
 
 
-def plain_gradient(problem, params, colloc, admm, dtype=None):
+def plain_gradient(problem, params, colloc, admm, dtype=None, rho=None):
     """(flat gradient of the net, aux) of the plain loss by torch.autograd,
-    computed in ``dtype`` when given (``problem`` must then be built in it)."""
+    computed in ``dtype`` when given (``problem`` must then be built in it),
+    at ``rho`` when given (else loss.rho)."""
     from pinns_tpu_torch.train import trainer as tr
 
     cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)  # noqa: E731
     params = tr.tree_map(lambda t: cast(t).detach().clone().requires_grad_(True), params)
     if admm is not None:
         admm = type(admm)(z=tr.tree_map(cast, admm.z), dual=tr.tree_map(cast, admm.dual))
-    loss, aux = tr.make_loss_fn(problem, plain=True)(params, cast(colloc), admm)
+    loss, aux = tr.make_loss_fn(problem, plain=True)(params, cast(colloc), admm, rho)
     g = torch.autograd.grad(loss, tr.tree_leaves(params["net"]))
     return torch.cat([t.reshape(-1) for t in g]), {k: float(v.detach()) for k, v in aux.items()}
 
@@ -475,6 +493,48 @@ def close_adam_params(got: np.ndarray, want: np.ndarray, lr: float) -> dict:
     check(row["max_abs_err"] <= row["bound"] and row["share_above_1e-6"] <= 0.01,
           f"params after the step: {row}")
     return row
+
+
+def hold_narrow_step(problem, lr: float, state, r: dict) -> dict:
+    """One narrow K3 (or K8 member) epoch's outputs ``r`` from ``state``
+    against the plain step at the state's rho: the loss and its terms, the
+    gradient (close_grad, float64 for a cancelling leaf), the Adam stage on
+    the kernel's gradient, the drawn points, z, dual and the misfit, each
+    within STEP_TOL. Returns the rows."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+    from pinns_tpu_torch.opt.adam import AdamState, adam_update
+    from pinns_tpu_torch.train import trainer as tr
+
+    rho = problem.exp.loss.rho if state.rho is None else state.rho
+    g_plain, aux = plain_gradient(problem, state.params, state.colloc, state.admm, rho=rho)
+    p64 = tr.build_problem(override(problem.exp, {"model.dtype": "float64"}), "cuda")
+    g64, _ = plain_gradient(p64, state.params, state.colloc, state.admm, torch.float64, rho=rho)
+    m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
+    # a term is held at the loss's absolute accuracy: once ADMM has converged
+    # res_term is a sum of squares of cancelling differences
+    rows = {k: close("loss", m[k], aux[k], scale=aux["loss"])
+            for k in ("loss", "data_term", "res_term")}
+    rows["grad"] = close_grad(host(r["grad"]), host(g_plain), problem.spec.layers, host(g64))
+    upd, adam = adam_update(r["grad"], AdamState(state.opt_state.count,
+                                                 pack_params(state.opt_state.mu["net"]),
+                                                 pack_params(state.opt_state.nu["net"])), lr)
+    rows["adam_params"] = close("adam", host(r["params"]),
+                                host(pack_params(state.params["net"]) + upd))
+    rows["adam_mu"] = close("adam", host(r["mu"]), host(adam.mu))
+    rows["adam_nu"] = close("adam", host(r["nu"]), host(adam.nu))
+    new_net = k_fused.unpack_params(r["params"], problem.spec.layers)
+    admm_new, colloc_new, _, mis = tr._post_update(
+        problem, dict(state.params, net=new_net), state.admm, state.colloc, state.key,
+        state.rho, state.epoch, plain=True)
+    rows["colloc"] = close("colloc", host(r["colloc"]), host(colloc_new))
+    rows["z"] = close("z", host(r["z"]), host(admm_new.z))
+    rows["dual"] = close("dual", host(r["dual"]), host(admm_new.dual),
+                         scale=float(state.admm.dual.abs().max() + rho * admm_new.z.abs().max()))
+    rows["admm_misfit"] = close("admm_misfit", m["admm_misfit"], float(mis),
+                                scale=float(admm_new.z.abs().max()))
+    return rows
 
 
 def phase_step_kernel(card: str) -> dict:
@@ -516,33 +576,7 @@ def phase_step_kernel(card: str) -> dict:
     check(all(torch.equal(r[k], again[k]) for k in ("params", "mu", "nu", "colloc", "z",
                                                     "dual", "metrics", "grad")),
           "two calls of one step differ")
-    g_plain, aux = plain_gradient(problem, state.params, state.colloc, state.admm)
-    p64 = tr.build_problem(override(problem.exp, {"model.dtype": "float64"}), "cuda")
-    g64, _ = plain_gradient(p64, state.params, state.colloc, state.admm, torch.float64)
-    m = dict(zip(tr.METRIC_KEYS, host(r["metrics"])))
-    # a term is held at the loss's absolute accuracy: once ADMM has converged
-    # res_term is a sum of squares of cancelling differences
-    rows = {k: close("loss", m[k], aux[k], scale=aux["loss"])
-            for k in ("loss", "data_term", "res_term")}
-    rows["grad"] = close_grad(host(r["grad"]), host(g_plain), problem.spec.layers, host(g64))
-    upd, adam = adam_update(r["grad"], AdamState(state.opt_state.count,
-                                                 pack_params(state.opt_state.mu["net"]),
-                                                 pack_params(state.opt_state.nu["net"])), lr)
-    rows["adam_params"] = close("adam", host(r["params"]),
-                                host(pack_params(state.params["net"]) + upd))
-    rows["adam_mu"] = close("adam", host(r["mu"]), host(adam.mu))
-    rows["adam_nu"] = close("adam", host(r["nu"]), host(adam.nu))
-    new_net = k_fused.unpack_params(r["params"], problem.spec.layers)
-    admm_new, colloc_new, _, mis = tr._post_update(
-        problem, dict(state.params, net=new_net), state.admm, state.colloc, state.key,
-        None, state.epoch, plain=True)
-    rows["colloc"] = close("colloc", host(r["colloc"]), host(colloc_new))
-    rows["z"] = close("z", host(r["z"]), host(admm_new.z))
-    rows["dual"] = close("dual", host(r["dual"]), host(admm_new.dual),
-                         scale=float(state.admm.dual.abs().max()
-                                     + problem.exp.loss.rho * admm_new.z.abs().max()))
-    rows["admm_misfit"] = close("admm_misfit", m["admm_misfit"], float(mis),
-                                scale=float(admm_new.z.abs().max()))
+    rows = hold_narrow_step(problem, lr, state, r)
     pts = host(r["colloc"]).astype(np.float64)
     lb, ub = np.asarray(problem.spec.lb), np.asarray(problem.spec.ub)
     check(bool(((pts >= lb) & (pts < ub)).all()), "drawn points outside [lb, ub)")
@@ -868,6 +902,7 @@ def kernel_counts() -> dict:
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
 
     return {"taylor2": taylor2.LAUNCHES, "fused_step": fused_step.LAUNCHES,
+            "fused_step_ensemble": fused_step.ENSEMBLE_LAUNCHES,
             "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
             "taylor2_backward": taylor2.BACKWARD_LAUNCHES,
             "taylor2_mixed": taylor2.MIXED_LAUNCHES,
@@ -882,7 +917,7 @@ def reset_counts() -> None:
 
     taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = 0
     taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
-    fused_step.LAUNCHES = 0
+    fused_step.LAUNCHES = fused_step.ENSEMBLE_LAUNCHES = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
     taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
     weakform.EDGE_LAUNCHES = weakform.LAUNCHES = weakform.BACKWARD_LAUNCHES = 0
@@ -2838,6 +2873,262 @@ def phase_path_times(card: str, train: dict) -> dict:
     return out
 
 
+# -- 30-32: ensembles (slice 4a, K8) -------------------------------------------
+K8_MEMBERS = (1, 3, 8)  # phase 30's member counts
+K8_EPOCHS = 5  # chained epochs of phase 30
+K8_TIMES = (1, 8, 32)  # phase 32's member counts
+K8_MAIN = 8  # the member count of the kernels line's K8 entry
+ENS_CLI = {"members": 4, "epochs": 510, "switch": 500, "lbfgs_iters": 20, "sweep_epochs": 300}
+K8_OUTPUTS = ("params", "mu", "nu", "colloc", "z", "dual", "metrics", "grad")
+
+
+def k8_call(problem, lr: float, bufs: dict, count: int, epoch: int, table):
+    """One K8 call on stacked buffers {params, mu, nu (E, P), colloc, z, dual}."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+
+    exp = problem.exp
+    return k_fused.fused_adam_ensemble_step(
+        problem.spec, bufs["params"], bufs["mu"], bufs["nu"], count, problem.x_data,
+        problem.targets["u"].contiguous(), bufs["colloc"], bufs["z"], bufs["dual"], table,
+        kind=exp.loss.residual_kind, lam1=exp.pde.lambda1, lam2=exp.pde.lambda2, lr=lr,
+        explicit_inner=exp.loss.explicit_inner, epoch=epoch, want_grad=True)
+
+
+def k3_call(problem, lr: float, bufs: dict, count: int, epoch: int, seed: int, rho: float):
+    """One solo K3 call on a member's buffers."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+
+    exp = problem.exp
+    return k_fused.fused_adam_step(
+        problem.spec, bufs["params"], bufs["mu"], bufs["nu"], count, problem.x_data,
+        problem.targets["u"].contiguous(), bufs["colloc"], bufs["z"], bufs["dual"],
+        kind=exp.loss.residual_kind, lam1=exp.pde.lambda1, lam2=exp.pde.lambda2, rho=rho, lr=lr,
+        explicit_inner=exp.loss.explicit_inner, seed=seed, epoch=epoch, want_grad=True)
+
+
+def k8_members(n: int):
+    """Phase 30's members: seeds 1234 + i, rhos 10, 20, 30, ..."""
+    return [1234 + i for i in range(n)], [10.0 * (i + 1) for i in range(n)]
+
+
+def stacked_bufs(stacked, n_params: int) -> dict:
+    from pinns_tpu_torch.ops.kernels.fused_step import flat_net
+
+    opt = stacked.opt_state
+    return {"params": flat_net(stacked.params["net"], n_params),
+            "mu": flat_net(opt.mu["net"], n_params), "nu": flat_net(opt.nu["net"], n_params),
+            "colloc": stacked.colloc, "z": stacked.admm.z, "dual": stacked.admm.dual}
+
+
+def phase_k8(card: str) -> dict:
+    """30: K8 against solo K3 at abgrall_admm's 8x20 for E = 1, 3 and 8 with
+    distinct rhos and seeds: every output of every member equal to a solo K3
+    call bit for bit over K8_EPOCHS chained epochs; the first epoch of each
+    member within STEP_TOL of the plain step at its rho (hold_narrow_step)."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.train import trainer as tr
+
+    trainer = tr.Trainer(get_preset("abgrall_admm"), device="cuda")
+    problem, lr = trainer.problem, trainer.learning_rate
+    n_params, n_f = problem.spec.n_params, problem.exp.sampling.n_f
+    out = {"grad_err": 0.0}
+    for n in K8_MEMBERS:
+        seeds, rhos = k8_members(n)
+        stacked = ens.init_ensemble_states(trainer, seeds, rhos)
+        first = ens.unstack_states(stacked)
+        table = k_fused.member_table(seeds, rhos, n_f, problem.device)
+        cur = stacked_bufs(stacked, n_params)
+        solo = [{k: v[m].clone() for k, v in cur.items()} for m in range(n)]
+        before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES)
+        rows = {}
+        for t in range(K8_EPOCHS):
+            r8 = k8_call(problem, lr, cur, t, t + 1, table)
+            rs = [k3_call(problem, lr, solo[m], t, t + 1, seeds[m], rhos[m]) for m in range(n)]
+            torch.cuda.synchronize()
+            for m in range(n):
+                for k in K8_OUTPUTS:
+                    check(torch.equal(r8[k][m], rs[m][k]),
+                          f"K8 at E={n}, epoch {t + 1}: member {m}'s {k} differs from solo K3")
+            if t == 0:
+                for m in range(n):
+                    rows[f"m{m}"] = hold_narrow_step(problem, lr, first[m],
+                                                     {k: r8[k][m] for k in K8_OUTPUTS})
+                    out["grad_err"] = max(out["grad_err"], rows[f"m{m}"]["grad"]["max_abs_err"])
+            cur = {k: r8[k] for k in ("params", "mu", "nu", "colloc", "z", "dual")}
+            solo = [{k: rs[m][k] for k in cur} for m in range(n)]
+        k8_calls = k_fused.ENSEMBLE_LAUNCHES - before[0]
+        check(k8_calls == K8_EPOCHS and k_fused.LAUNCHES - before[1] == n * K8_EPOCHS,
+              f"E={n}: {k8_calls} K8 calls for {K8_EPOCHS} epochs")
+        emit(card, phase="k8", preset="abgrall_admm", net="8x20", members=n, seeds=seeds,
+             rhos=rhos, epochs=K8_EPOCHS, bit_equal_to_solo_k3=True,
+             criterion="torch.equal vs solo K3 on every output; STEP_TOL vs the plain step "
+                       "at the member's rho (epoch 1)",
+             rows={m: {k: v["max_abs_err"] for k, v in r.items()} for m, r in rows.items()},
+             k8_host_calls=k8_calls)
+    # the wrapper refuses a member table of another member count
+    stacked = ens.init_ensemble_states(trainer, *k8_members(3))
+    bad = k_fused.member_table(*k8_members(2), n_f, problem.device)
+    try:
+        k8_call(problem, lr, stacked_bufs(stacked, n_params), 0, 1, bad)
+        check(False, "K8 took a member table of the wrong length")
+    except ValueError:
+        pass
+    return out
+
+
+def cli_lines(argv) -> list:
+    """``python -m pinns_tpu_torch <argv>`` in this process: its exit code
+    and the JSON objects of its output lines."""
+    import contextlib
+
+    from pinns_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+
+
+def same_state(a_path: str, b_path: str) -> bool:
+    """Two checkpoints hold equal tensors (params, Adam moments, z, dual, batch)."""
+    from pinns_tpu_torch.opt.adam import tree_leaves
+    from pinns_tpu_torch.train import checkpoint as ckpt_io
+
+    a, b = (ckpt_io.state_to_dict(ckpt_io.load_checkpoint(p, "cuda")) for p in (a_path, b_path))
+    ta = tree_leaves([a["params"], a["adam"]["mu"], a["adam"]["nu"], a["admm"], a["colloc"]])
+    tb = tree_leaves([b["params"], b["adam"]["mu"], b["adam"]["nu"], b["admm"], b["colloc"]])
+    return (a["epoch"] == b["epoch"] and a["adam"]["count"] == b["adam"]["count"]
+            and len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb)))
+
+
+def phase_ensemble_cli(card: str) -> dict:
+    """31: the CLI on the card, this slice's main path: train --ensemble 4
+    over the hybrid switch (Adam through K8, then each member's L-BFGS outer
+    epochs on K5/K1/K2) with --select; each member's final checkpoint equal
+    to its solo run's bit for bit, and --resume from the epoch-500 set ending
+    at the same states; sweep over rho x seed as one 4-member unit, every row
+    ok. The counts of the ensemble run are this slice's launches."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+
+    c = ENS_CLI
+    n, preset = c["members"], "abgrall_admm"
+    common = ["--preset", preset, "--device", "cuda", "--epochs", str(c["epochs"]),
+              "--set", f"optimizer.switch_epoch={c['switch']}",
+              "--set", f"optimizer.lbfgs.max_iters={c['lbfgs_iters']}",
+              "--set", f"train.checkpoint_every={c['switch']}"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda name: os.path.join(tmp, name)  # noqa: E731
+        reset_counts()
+        with PlainCalls() as plain:
+            t0 = time.perf_counter()
+            rc, lines = cli_lines(["train", *common, "--ensemble", str(n), "--select",
+                                   "--out-dir", d("ens")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        check(rc == 0, f"train --ensemble exited {rc}")
+        check(plain.calls == 0, f"{plain.calls} calls of a plain version on the ensemble path")
+        check(launches["fused_step_ensemble"] == c["switch"] and launches["fused_step"] == 0,
+              f"ensemble launches {launches}")
+        check(launches["mlp_forward"] > 0 and launches["taylor2_backward"] > 0,
+              f"the L-BFGS epochs launched no kernel: {launches}")
+        summaries, pick = lines[:n], lines[n]
+        check([s["seed"] for s in summaries] == [1234 + i for i in range(n)]
+              and all(s["epochs"] == c["epochs"] and math.isfinite(s["rel_l2_u"])
+                      for s in summaries), f"member summaries {summaries}")
+        check(0 <= pick["selected_member"] < n and len(pick["scores"]) == n
+              and all(math.isfinite(s["score"]) for s in pick["scores"]), f"--select {pick}")
+        solo = []
+        for i in range(n):
+            rc, sl = cli_lines(["train", *common, "--seed", str(1234 + i), "--out-dir", d(f"s{i}")])
+            check(rc == 0, f"solo train exited {rc}")
+            solo.append(sl[-1]["rel_l2_u"])
+            check(same_state(d(f"ens/{preset}_final_m{i}.ckpt"), d(f"s{i}/{preset}_final.ckpt")),
+                  f"member {i}'s final state differs from its solo run")
+        rc, _ = cli_lines(["train", *common, "--ensemble", str(n), "--resume",
+                           d(f"ens/{preset}_e{c['switch']}"), "--out-dir", d("res")])
+        check(rc == 0, f"train --ensemble --resume exited {rc}")
+        for i in range(n):
+            check(same_state(d(f"ens/{preset}_final_m{i}.ckpt"), d(f"res/{preset}_final_m{i}.ckpt")),
+                  f"member {i}: the resumed run ends elsewhere")
+        before = k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES
+        rc, rows = cli_lines(["sweep", "--preset", preset, "--device", "cuda",
+                              "--grid", "loss.rho=10,40", "--grid", "train.seed=1234,7",
+                              "--epochs", str(c["sweep_epochs"]), "--out", d("sweep.jsonl")])
+        sweep_k8 = k_fused.ENSEMBLE_LAUNCHES - before[0]
+        check(rc == 0 and len(rows) == 4 and all(r["status"] == "ok" for r in rows),
+              f"sweep: rc {rc}, rows {rows}")
+        check(sweep_k8 == c["sweep_epochs"] and k_fused.LAUNCHES == before[1],
+              f"the sweep ran {sweep_k8} K8 calls and {k_fused.LAUNCHES - before[1]} solo ones")
+    out.update(launches=launches, wall_s=wall)
+    emit(card, phase="ensemble-cli", preset=preset, members=n, epochs=c["epochs"],
+         switch=c["switch"], lbfgs_iters=c["lbfgs_iters"], wall_s=wall, launches=launches,
+         rel_l2_u=[s["rel_l2_u"] for s in summaries], solo_rel_l2_u=solo,
+         members_bit_equal_to_solo=True, resume_bit_equal=True,
+         selected=pick["selected_member"], sweep_rows=rows, sweep_k8_calls=sweep_k8)
+    return out
+
+
+def ensemble_bound(n: int):
+    """K8's epoch for n members: n times K3's work and its per-member bytes;
+    the data points read once."""
+    one = taylor2_ops(NARROW, 1_000) * 4 + [(3 * 2.0 * sum(_macs(NARROW)) * 100, PEAK_FP32)]
+    nbytes = n * (24 * n_params(NARROW) + 32 * 1_000) + 12 * 100
+    return bound([(f * n, r) for f, r in one], nbytes)
+
+
+def phase_ensemble_times(card: str) -> dict:
+    """32: a K8 epoch (CUDA events) and a 1,000-epoch chunk's member-epochs a
+    second at E = 1, 8 and 32 beside the solo K3 step, K8's host calls
+    counted; the plain per-member loop at E = K8_MAIN."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.train import trainer as tr
+
+    trainer = tr.Trainer(get_preset("abgrall_admm"), device="cuda")
+    state = trainer.init_state()
+    solo_ms = event_ms(lambda: trainer._adam_step(state))
+    tr.run_chunk(trainer._adam_step, state, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_chunk(trainer._adam_step, state, 1000)
+    torch.cuda.synchronize()
+    solo_chunk = time.perf_counter() - t0
+    emit(card, phase="times", what="k3_solo", net="8x20", epoch_ms=solo_ms, clock="cuda_events",
+         chunk_wall_s=solo_chunk, epochs_per_s=1000 / solo_chunk)
+    out = {"solo": (solo_ms, 1000 / solo_chunk)}
+    k8 = k_fused.make_fused_ensemble_step(trainer.problem, trainer.learning_rate)
+    for n in K8_TIMES:
+        stacked = ens.init_ensemble_states(trainer, [1234 + i for i in range(n)])
+        ms = event_ms(lambda: k8(stacked))
+        chunk = ens.make_ensemble_chunk(trainer, 1000)
+        ens.make_ensemble_chunk(trainer, 10)(stacked)
+        torch.cuda.synchronize()
+        before = k_fused.ENSEMBLE_LAUNCHES
+        t0 = time.perf_counter()
+        chunk(stacked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = k_fused.ENSEMBLE_LAUNCHES - before
+        check(calls == 1000, f"E={n}: {calls} K8 calls for 1,000 epochs")
+        plain_ms = None
+        if n == K8_MAIN:
+            plain = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
+            members = ens.unstack_states(stacked)
+            plain_ms = event_ms(lambda: [plain(m) for m in members])
+        b = ensemble_bound(n)
+        emit(card, phase="times", what="k8", net="8x20", members=n, epoch_ms=ms,
+             clock="cuda_events", chunk_wall_s=wall, member_epochs_per_s=n * 1000 / wall,
+             vs_solo_chunk=(n * 1000 / wall) / out["solo"][1], k8_host_calls=calls,
+             plain_member_loop_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+        out[n] = (ms, n * 1000 / wall, plain_ms, b)
+    return out
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3033,6 +3324,11 @@ def main() -> int:
     ewf = timed(card, "euler_weak_fast", phase_path_train, card)
     t9 = timed(card, "times-paths", phase_path_times, card, ewf)
 
+    # -- 30-32: ensembles (K8, the member-batched narrow K3) ----------------
+    k8 = timed(card, "k8", phase_k8, card)
+    ens_cli = timed(card, "ensemble-cli", phase_ensemble_cli, card)
+    t10 = timed(card, "times-ensemble", phase_ensemble_times, card)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -3161,6 +3457,22 @@ def main() -> int:
         **bound_fields(taylor1_backward_bound(*K7A_MAIN)),
         "paths_n16000": path_entry(ewf, "taylor1_backward", paths_err, t9, "k7a",
                                    PATH_K7A_MAIN, 1),
+    }, {
+        "name": "fused_step_ensemble",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/fused_step.cu",
+        "replaces": "pinns_tpu/parallel/ensemble.py:66",
+        "launches": ens_cli["launches"]["fused_step_ensemble"],
+        "max_abs_err": k8["grad_err"],
+        "ms": t10[K8_MAIN][0],
+        "plain_ms": t10[K8_MAIN][2],
+        **bound_fields(t10[K8_MAIN][3]),
+        "members": K8_MAIN,
+        "member_epochs_per_s": t10[K8_MAIN][1],
+        # the other member counts of phase 32, and the solo K3 beside them
+        **{f"e{n}": {"ms": t10[n][0], "member_epochs_per_s": t10[n][1],
+                     **bound_fields(t10[n][3])} for n in K8_TIMES if n != K8_MAIN},
+        "solo_k3": {"ms": t10["solo"][0], "epochs_per_s": t10["solo"][1]},
     }] + [{
         "name": f"weakform_{what}",
         "route": "cuda",

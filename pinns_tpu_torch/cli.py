@@ -3,6 +3,11 @@
   train    --preset NAME [--set KEY=VALUE ...] [--epochs N] [--chunk C] [--data GRID]
            [--device cuda|cpu] [--out-dir D] [--seed S] [--resume CKPT]
                                                   train; prints the JSON summary
+  train    --preset NAME --ensemble E [--select] [--resume PREFIX] [...]
+                                                  E members, seeds S .. S + E - 1
+  sweep    --preset NAME --grid KEY=V1,V2,... [--grid ...] [--retries R] [--out F.jsonl]
+           [--epochs N] [--serial] [--set ...] [--device cuda|cpu]
+                                                  the cartesian grid; one line a config
   export   --params P.npz --out D                 write a serving artifact
   export   --preset NAME [--set ...] --checkpoint CKPT --out D [--device cuda|cpu]
                                                   the same artifact from a checkpoint
@@ -27,13 +32,25 @@ bf16 stream policy of ``burgers_scale``:
 
   --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"
 
+``train --ensemble E`` (default ``mesh.ensemble``) trains E members, seeds
+``train.seed`` to ``train.seed + E - 1``, through the whole schedule
+(``parallel.ensemble.run_ensemble``: on the card an Adam epoch of a preset
+inside the fused step's narrow scope is one call of K8 for all members, any
+other runs each member's solo step in turn); each member prints its summary
+line, and ``--select`` prints the member that the ground-truth-free score
+picks. ``--resume PREFIX`` continues the ``PREFIX_m<i>.ckpt`` set that
+``train.checkpoint_every`` wrote. ``sweep`` runs the cartesian product of the
+``--grid`` lists (``parallel.sweep.run_sweep``): configurations that differ
+only in ``train.seed`` and ``loss.rho`` train as one ensemble; it exits 1 if
+any configuration failed.
+
 ``export`` takes a params file (``pinns_tpu_torch.interop`` format, e.g.
 written from a JAX run by ``scripts/make_torch_port_fixture.py``; its ``pde``
 key makes a Burgers or an Euler artifact) or a checkpoint of the port's own
 training with its preset. ``eval`` prints ``Trainer.evaluate``'s JSON for a
 checkpoint, or grades an artifact against its dataset's grid. Ensemble
 artifacts (several checkpoints, ``--select``, ``--calibrate``) and band
-coverage come with slice 4. ``--device`` defaults to cuda and raises when no
+coverage come with slice 4b. ``--device`` defaults to cuda and raises when no
 card is visible; pass ``--device cpu`` for the plain PyTorch path.
 """
 
@@ -82,14 +99,101 @@ def _build_exp(args):
 def cmd_train(args) -> int:
     from pinns_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(_build_exp(args), device=args.device, dataset=args.data)
-    state = trainer.load_checkpoint(args.resume) if args.resume else None
-    _, summary = trainer.train(state)
-    print(json.dumps(summary), flush=True)
+    exp = _build_exp(args)
+    n = exp.mesh.ensemble if args.ensemble is None else args.ensemble
+    if n < 1:
+        raise SystemExit(f"--ensemble takes a member count of at least 1, got {n}")
+    trainer = Trainer(exp, device=args.device, dataset=args.data)
+    if n == 1:
+        if args.select:
+            raise SystemExit("--select picks a member of an ensemble: pass --ensemble E > 1")
+        state = trainer.load_checkpoint(args.resume) if args.resume else None
+        _, summary = trainer.train(state)
+        print(json.dumps(summary), flush=True)
+        return 0
+    return _train_ensemble(args, exp, trainer, n)
+
+
+def _train_ensemble(args, exp, trainer, n: int) -> int:
+    """``train --ensemble n``: members of seeds train.seed + i, each one's
+    summary line, then the pick of ``--select``."""
+    import os
+
+    from pinns_tpu_torch.parallel.ensemble import (
+        run_ensemble,
+        select_member,
+        selection_scores,
+        stack_states,
+    )
+
+    seeds = [exp.train.seed + i for i in range(n)]
+    stacked = None
+    if args.resume:
+        members = []
+        for i in range(n):
+            path = f"{args.resume}_m{i}.ckpt"
+            if not os.path.exists(path):
+                raise SystemExit(f"ensemble resume: missing member checkpoint {path} "
+                                 "(--resume takes the prefix of the _m<i>.ckpt set)")
+            members.append(trainer.load_checkpoint(path))
+        stacked = stack_states(members)
+    stacked, summaries = run_ensemble(trainer, seeds, stacked=stacked)
+    for seed, summary in zip(seeds, summaries):
+        print(json.dumps(dict(summary, seed=seed)), flush=True)
+    if args.select:
+        scores = selection_scores(trainer, stacked, n)
+        pick = select_member(scores)
+        print(json.dumps({"selected_member": pick, "seed": seeds[pick],
+                          "checkpoint": f"{exp.name}_final_m{pick}.ckpt",
+                          "scores": scores}), flush=True)
     return 0
 
 
-ENSEMBLE_SLICE = "slice 4 (ensembles)"
+def _split_top_level(text: str):
+    """Split on commas outside (), [] and {}: tuple values such as
+    model.layers=(2,8,1),(2,16,1) stay whole."""
+    parts, depth, cur = [], 0, []
+    for ch in text:
+        if ch in "([{":
+            depth += 1
+        elif ch in ")]}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return [p for p in parts if p]
+
+
+def cmd_sweep(args) -> int:
+    from pinns_tpu_torch.parallel.sweep import cartesian_grid, run_sweep
+
+    exp = _build_exp(args)
+    lists = {}
+    for spec in args.grid:
+        if "=" not in spec:
+            raise SystemExit(f"--grid expects KEY=V1,V2,..., got {spec!r}")
+        key, values = spec.split("=", 1)
+        lists[key] = [_parse_value(v) for v in _split_top_level(values)]
+    grid = cartesian_grid(lists)
+    results = run_sweep(exp, grid, retries=args.retries, out_path=args.out, epochs=args.epochs,
+                        concurrent=False if args.serial else None, device=args.device,
+                        dataset=args.data)
+    ok = sum(1 for r in results if r.status == "ok")
+    print(f"{ok}/{len(results)} configurations succeeded", flush=True)
+    for r in results:
+        line = {"overrides": r.overrides, "status": r.status}
+        if r.summary:
+            line.update({k: v for k, v in r.summary.items() if k.startswith("rel_l2")})
+        if r.error:
+            line["error"] = r.error.strip().splitlines()[-1]
+        print(json.dumps(line), flush=True)
+    return 0 if ok == len(results) else 1
+
+
+ENSEMBLE_SLICE = "slice 4b (ensemble serving)"
 
 
 def cmd_export(args) -> int:
@@ -232,8 +336,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", help="metrics JSONL and checkpoints go here")
     p.add_argument("--seed", type=int)
     p.add_argument("--resume", metavar="CKPT",
-                   help="continue this checkpoint from its epoch to the schedule's end")
+                   help="continue this checkpoint from its epoch to the schedule's end; "
+                        "with --ensemble, the PREFIX of the <prefix>_m<i>.ckpt set")
+    p.add_argument("--ensemble", type=int, default=None, metavar="E",
+                   help="train E members, seeds train.seed .. train.seed + E - 1 "
+                        "(default: mesh.ensemble)")
+    p.add_argument("--select", action="store_true",
+                   help="after an --ensemble run, score the members without ground truth "
+                        "(training-data misfit + fresh-batch residual) and print the pick")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("sweep", help="hyperparameter sweep over a cartesian grid")
+    add_common(p)
+    p.add_argument("--grid", action="append", required=True, metavar="KEY=V1,V2,...")
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--retries", type=int, default=1)
+    p.add_argument("--out", default=None, help="JSONL results path")
+    p.add_argument("--serial", action="store_true",
+                   help="run the units in turn (the only way on one card)")
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("export", help="write a serving artifact from a params file or a "
                                       "checkpoint")
@@ -241,8 +362,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--params", help="params .npz (interop format)")
     p.add_argument("--checkpoint", nargs="+", help="a checkpoint of the preset's training")
     p.add_argument("--out", required=True, help="artifact directory")
-    p.add_argument("--select", help="ensemble member selection (slice 4)")
-    p.add_argument("--calibrate", action="store_true", help="ensemble bands (slice 4)")
+    p.add_argument("--select", help="ensemble member selection (slice 4b)")
+    p.add_argument("--calibrate", action="store_true", help="ensemble bands (slice 4b)")
     p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("eval", help="evaluate a checkpoint, or grade a serving artifact")

@@ -122,7 +122,7 @@ class DataConfig:
 @_frozen
 class MeshConfig:
     data_parallel: int = 1  # multi-GPU: slice 6
-    ensemble: int = 1  # ensembles: slice 4
+    ensemble: int = 1  # members of train's ensemble (slice 4a: parallel.ensemble)
 
 
 @_frozen

@@ -58,6 +58,20 @@
 // a chain of ~26 barrier-separated layer phases, plus four launches and the
 // host's work between epochs.
 //
+// K8, the member-batched narrow design (replaces the vmapped step of
+// pinns_tpu/parallel/ensemble.py:66-116, jax.vmap(step) over an ensemble's
+// members): the same four launches with the member m as blockIdx.y. Member
+// m's buffers (params, Adam moments, batch, z/dual, their outputs, its
+// metrics row and its scratch) lie at m times their per-member size
+// (member_step); its Philox seed, ADMM rho and prox threshold come from
+// members[m]; the data, the coefficients, lr, the bias corrections and the
+// epoch are shared. The tile plan does not depend on the member count, so
+// each member's blocks do exactly the solo call's arithmetic in its order:
+// member m of an E-member call equals a solo call of member m bit for bit (a
+// solo call is member 0 of a call without a member table). At abgrall_admm's
+// 8x20 a solo epoch fills 18 of the card's 396 grad-block slots (3 blocks of
+// ~65 KB an SM); E members fill 18 E of them in one launch.
+//
 // Wide (any wider net: abgrall_l1/l2/visc's 8x200). The whole epoch, layer by
 // layer, as dense products over all its points on the engine of
 // layer_gemm.cuh, on 32 x 32 block tiles of 64 threads (so that a product
@@ -116,6 +130,13 @@ constexpr int kMetricLoss = 5, kMetricData = 1, kMetricRes = 6, kMetricMisfit = 
 constexpr int kMetricLam1 = 2, kMetricLam2 = 3, kMetricLbfgs = 4;
 enum Kind { kAdmm = 0, kMeanSq = 1, kL2Sq = 2, kL1Sq = 3 };
 
+// One member of a member-batched narrow call (K8): its Philox seed's words,
+// its ADMM rho and its prox threshold 1/(rho N_f), each as float32.
+struct Member {
+  unsigned seed_lo, seed_hi;
+  float rho, threshold;
+};
+
 struct Step {
   const float* params;      // flat W_0, b_0, W_1, ... (as ops/kernels/taylor2.pack_params)
   const float* mu;
@@ -137,6 +158,7 @@ struct Step {
   float* partials;          // narrow scratch [n_grad_blocks][n_params + 1]
   float* pstore;            // narrow scratch [n_grad_blocks][n_layers-1][4][max_width][tile]
   float* tail_partials;     // narrow scratch [n_tail_blocks]
+  const Member* members;    // narrow: one entry a member, or null (a solo call: the scalars)
   float lb0, lb1, ub0, ub1, lam1, lam2, rho, lr;
   float one_minus_b1, b1, one_minus_b2, b2, eps, bc1, bc2, threshold;
   int n_u, n_f, kind, explicit_inner, tile, tail_tile, nb_f, nb_u, nb_tail;
@@ -292,8 +314,49 @@ __device__ __forceinline__ float block_sum_ordered(const float* red, int n) {
   return s;
 }
 
+template <typename T>
+__device__ __forceinline__ T* member_ptr(T* p, int m, long long per_member) {
+  return p == nullptr ? p : p + static_cast<long long>(m) * per_member;
+}
+
+// Member m's view of a narrow call: each per-member buffer offset by m times
+// its size (64-bit), the seed, rho and threshold from members[m] when the
+// call has a member table. The shared inputs (x_data, u_data) stay.
+__device__ __forceinline__ Step member_step(const Net& net, Step st, int m) {
+  const long long P = net.n_params, F = st.n_f;
+  const long long nb = st.nb_f + st.nb_u;
+  st.params = member_ptr(st.params, m, P);
+  st.mu = member_ptr(st.mu, m, P);
+  st.nu = member_ptr(st.nu, m, P);
+  st.colloc = member_ptr(st.colloc, m, 2 * F);
+  st.z = member_ptr(st.z, m, F);
+  st.dual = member_ptr(st.dual, m, F);
+  st.new_colloc = member_ptr(st.new_colloc, m, 2 * F);
+  st.params_out = member_ptr(st.params_out, m, P);
+  st.mu_out = member_ptr(st.mu_out, m, P);
+  st.nu_out = member_ptr(st.nu_out, m, P);
+  st.colloc_out = member_ptr(st.colloc_out, m, 2 * F);
+  st.z_out = member_ptr(st.z_out, m, F);
+  st.dual_out = member_ptr(st.dual_out, m, F);
+  st.metrics = member_ptr(st.metrics, m, 7);
+  st.grad_out = member_ptr(st.grad_out, m, P);
+  st.partials = member_ptr(st.partials, m, nb * (P + 1));
+  st.pstore = member_ptr(st.pstore, m,
+                         nb * (net.n_layers - 1) * 4 * net.max_width * st.tile);
+  st.tail_partials = member_ptr(st.tail_partials, m, st.nb_tail);
+  if (st.members != nullptr) {
+    const Member mb = st.members[m];
+    st.seed_lo = mb.seed_lo;
+    st.seed_hi = mb.seed_hi;
+    st.rho = mb.rho;
+    st.threshold = mb.threshold;
+  }
+  return st;
+}
+
 __global__ void __launch_bounds__(kThreads)
-grad_kernel(Net net, Step st) {
+grad_kernel(Net net, Step call) {
+  const Step st = member_step(net, call, blockIdx.y);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = st.tile, ts = T + 4;
@@ -488,7 +551,8 @@ grad_kernel(Net net, Step st) {
 
 // One thread per parameter: the gradient summed over blocks in block order,
 // then Adam (optax's scale_by_adam + scale(-lr)), one rounding per operation.
-__global__ void adam_kernel(Net net, Step st) {
+__global__ void adam_kernel(Net net, Step call) {
+  const Step st = member_step(net, call, blockIdx.y);
   const int nb = st.nb_f + st.nb_u;
   const long long row = net.n_params + 1;
   float S = 0.0f, D = 0.0f;
@@ -528,7 +592,8 @@ __global__ void adam_kernel(Net net, Step st) {
 
 // The new batch, then (for 'admm') z/dual at it with the new params.
 __global__ void __launch_bounds__(kThreads)
-tail_kernel(Net net, Step st) {
+tail_kernel(Net net, Step call) {
+  const Step st = member_step(net, call, blockIdx.y);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = st.tail_tile, ts = T + 4;
@@ -586,8 +651,9 @@ tail_kernel(Net net, Step st) {
   if (threadIdx.x == 0) st.tail_partials[blockIdx.x] = block_sum_ordered(red, T);
 }
 
-__global__ void finalize_kernel(Step st) {
+__global__ void finalize_kernel(Net net, Step call) {
   if (threadIdx.x != 0) return;
+  const Step st = member_step(net, call, blockIdx.y);
   float mis = 0.0f;
   if (st.kind == kAdmm) {
     for (int b = 0; b < st.nb_tail; ++b) mis += st.tail_partials[b];
@@ -604,9 +670,12 @@ size_t tail_smem(int max_width, int tile) {
   return sizeof(float) * (8u * static_cast<size_t>(max_width) * (tile + 4) + tile);
 }
 
-int narrow_epoch(const Net& net, Step st, cudaStream_t s) {
+// One epoch of `n_members` members (K8; 1 and no member table: K3's solo
+// epoch), each launch with the member as blockIdx.y.
+int narrow_epoch(const Net& net, Step st, int n_members, cudaStream_t s) {
   const int tile = st.tile, tail_tile = st.tail_tile;
-  if (tile < kR || tile % kR || tail_tile < kR || tail_tile % kR) {
+  if (tile < kR || tile % kR || tail_tile < kR || tail_tile % kR || n_members < 1 ||
+      n_members > 65535 || (n_members > 1 && st.members == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   st.nb_f = (st.n_f + tile - 1) / tile;
@@ -618,13 +687,14 @@ int narrow_epoch(const Net& net, Step st, cudaStream_t s) {
                                    static_cast<int>(gsm)));
   PINNS_CHECK(cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(tsm)));
-  grad_kernel<<<st.nb_f + st.nb_u, kThreads, gsm, s>>>(net, st);
+  const unsigned E = static_cast<unsigned>(n_members);
+  grad_kernel<<<dim3(st.nb_f + st.nb_u, E), kThreads, gsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  adam_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(net, st);
+  adam_kernel<<<dim3((net.n_params + 255) / 256, E), 256, 0, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  tail_kernel<<<st.nb_tail, kThreads, tsm, s>>>(net, st);
+  tail_kernel<<<dim3(st.nb_tail, E), kThreads, tsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  finalize_kernel<<<1, 32, 0, s>>>(st);
+  finalize_kernel<<<dim3(1, E), 32, 0, s>>>(net, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1150,7 +1220,7 @@ using namespace k3;
 enum PtrArg {
   kParams, kMu, kNu, kXData, kUData, kColloc, kZ, kDual, kNewColloc,
   kParamsOut, kMuOut, kNuOut, kCollocOut, kZOut, kDualOut, kMetrics, kGradOut,
-  kPartials, kPstore, kTailPartials, kScratch, kNumPtrs
+  kPartials, kPstore, kTailPartials, kScratch, kMembers, kNumPtrs
 };
 enum FloatArg {
   kLb0, kLb1, kUb0, kUb1, kLam1, kLam2, kRho, kLr, kOneMinusB1, kB1, kOneMinusB2,
@@ -1158,7 +1228,7 @@ enum FloatArg {
 };
 enum IntArg {
   kNU, kNF, kKind, kExplicit, kPlanTile, kTailTile, kSeed, kEpoch, kDevice, kNfPad, kNuPad,
-  kSplitRows, kSplits, kScratchFloats, kNumInts
+  kSplitRows, kSplits, kScratchFloats, kNMembers, kNumInts
 };
 
 extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
@@ -1173,8 +1243,11 @@ extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
 // on device `ints[kDevice]`; the wrapper validated their shapes. A net whose
 // widths are all at most 32 takes the narrow design (kPlanTile the grad
 // kernel's tile, kTailTile, and the partials, pstore and tail_partials
-// scratch); any other the wide design (kPlanTile the products' block tile,
-// the plan's other ints and `scratch`), which refuses a plan that does not fit
+// scratch), for kNMembers members (K8: every per-member buffer stacked
+// member after member, kMembers their device table; 1 and a null table: a
+// solo epoch, whose seed, rho and threshold are the scalars); any other the
+// wide design (kPlanTile the products' block tile, the plan's other ints and
+// `scratch`; one member, no table), which refuses a plan that does not fit
 // its layout with cudaErrorInvalidValue. Returns the CUDA error code of the
 // first launch that failed (0 on success).
 extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* ptrs,
@@ -1206,6 +1279,7 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   st.partials = fp(kPartials);
   st.pstore = fp(kPstore);
   st.tail_partials = fp(kTailPartials);
+  st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
   st.lb0 = floats[kLb0];
   st.lb1 = floats[kLb1];
   st.ub0 = floats[kUb0];
@@ -1238,7 +1312,9 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
 
   PINNS_CHECK(cudaSetDevice(static_cast<int>(ints[kDevice])));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (net.max_width <= kNarrowWidth) return narrow_epoch(net, st, s);
+  const int n_members = static_cast<int>(ints[kNMembers]);
+  if (net.max_width <= kNarrowWidth) return narrow_epoch(net, st, n_members, s);
+  if (n_members != 1 || st.members != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const WidePlan wp{static_cast<int>(ints[kNfPad]), static_cast<int>(ints[kNuPad]),
                     static_cast<int>(ints[kPlanTile]), static_cast<int>(ints[kSplitRows]),
                     static_cast<int>(ints[kSplits])};

@@ -177,6 +177,34 @@ def train_state_from_jax(tree: dict, device: torch.device, key: Optional[int] = 
     )
 
 
+def _member_of(tree, i: int):
+    """Member ``i`` of a numpy tree with a leading member axis."""
+    if isinstance(tree, dict):
+        return {k: _member_of(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_member_of(v, i) for v in tree)
+    return None if tree is None else np.asarray(tree)[i]
+
+
+def ensemble_state_from_jax(stacked_tree: dict, device: torch.device, keys: Sequence[int]):
+    """A port ensemble state (``parallel.ensemble.stack_states``) from JAX's
+    stacked ``TrainState`` given as numpy: the tree of
+    :func:`train_state_from_jax` with a leading member axis on every array
+    (``count`` and ``epoch`` included) and, for a rho-swept ensemble,
+    ``rho`` (E,). ``keys`` are the members' Philox seeds."""
+    from pinns_tpu_torch.parallel.ensemble import stack_states
+
+    rho = stacked_tree.get("rho")
+    members = []
+    for i, key in enumerate(keys):
+        tree = _member_of({k: v for k, v in stacked_tree.items() if k not in ("key", "rho")}, i)
+        state = train_state_from_jax(tree, device, key=int(key))
+        if rho is not None:
+            state = state._replace(rho=float(np.asarray(rho)[i]))
+        members.append(state)
+    return stack_states(members)
+
+
 def train_state_to_numpy(state) -> dict:
     """The inverse of :func:`train_state_from_jax`: a port ``TrainState`` as
     the numpy tree that function takes."""

@@ -27,6 +27,14 @@ Two designs, picked by :func:`design` from the widths (the header of
 
 Both are bit-for-bit repeatable (no atomics).
 
+K8, the member-batched narrow design (:func:`fused_adam_ensemble_step`): one
+host call runs the four launches for E members of an ensemble at once, each
+launch with the member as its grid's y index; every member has its own
+params, Adam moments, batch, ADMM state, Philox seed and rho
+(:func:`member_table`). A solo call is the same path with one member and no
+table, so member m of a K8 call equals a solo call of member m bit for bit.
+Its plain version is the per-member loop of the plain step.
+
 The wrapper validates what the kernel assumes and raises otherwise; on a CPU
 tensor it raises too. It never falls back to the plain step.
 """
@@ -36,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,10 +53,11 @@ import torch
 
 from pinns_tpu_torch.models.mlp import MLPSpec, Params
 from pinns_tpu_torch.ops.kernels import build
-from pinns_tpu_torch.ops.kernels.taylor2 import pack_params, taylor2_backward_reference
+from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves, taylor2_backward_reference
 from pinns_tpu_torch.opt.adam import B1, B2, EPS, AdamState, bias_corrections
 
-LAUNCHES = 0  # kernel launches (one per epoch) in this process; chip_smoke.py reads it
+LAUNCHES = 0  # solo host calls (one per epoch) in this process; chip_smoke.py reads it
+ENSEMBLE_LAUNCHES = 0  # K8's host calls (one per epoch for all members)
 _launches_lock = threading.Lock()
 
 KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
@@ -72,14 +82,15 @@ EW_TILE = 32
 TILE = 32
 SPLIT_BLOCKS = 1600
 SPLIT_ROWS = (1024, 512, 256, 128)
+MAX_MEMBERS = 65_535  # K8: the member is the launches' grid y index
 # argument slots, in the order of the enums in csrc/fused_step.cu
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
-         "grad_out", "partials", "pstore", "tail_partials", "scratch")
+         "grad_out", "partials", "pstore", "tail_partials", "scratch", "members")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
 _INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
-         "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats")
+         "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats", "n_members")
 
 
 def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
@@ -87,9 +98,8 @@ def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
 
     The scope of the TPU kernel (``fused_step.py:49-76``) plus what that
     check left implicit: the strong form without entropy, gradient or causal
-    weighting, one output, widths up to 256, no input embedding (shock paths
-    come to K3 with slice 2b-iii), and no per-run rho override (checked per
-    step).
+    weighting, one output, widths up to 256, and no input embedding (shock
+    paths come to K3 with slice 2b-iii).
     """
     lo, s = exp.loss, exp.sampling
     reasons = [
@@ -258,6 +268,138 @@ def _lib():
     return lib
 
 
+def member_table(seeds: Sequence[int], rhos: Sequence[float], n_f: int,
+                 device) -> torch.Tensor:
+    """K8's per-member scalars as an (E, 4) int32 device table, one row a
+    member: the Philox seed's low and high words, then rho and the prox
+    threshold 1/(rho N_f) as float32 bits, each rounded as a solo call rounds
+    them. Build it once per ensemble: it does not change between epochs."""
+    if len(seeds) != len(rhos):
+        raise ValueError(f"member_table: {len(seeds)} seeds but {len(rhos)} rhos")
+    seed = np.asarray([int(v) & 0xFFFFFFFFFFFFFFFF for v in seeds], np.uint64)
+    rho = np.asarray([float(v) for v in rhos], np.float64)
+    tab = np.empty((len(seed), 4), np.uint32)
+    tab[:, 0] = (seed & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    tab[:, 1] = (seed >> np.uint64(32)).astype(np.uint32)
+    tab[:, 2] = rho.astype(np.float32).view(np.uint32)
+    tab[:, 3] = (1.0 / (rho * n_f)).astype(np.float32).view(np.uint32)
+    return torch.from_numpy(tab.view(np.int32)).to(device)
+
+
+def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_data, colloc,
+           z, dual, *, kind: str, lam1: float, lam2: float, rho: Optional[float], lr: float,
+           explicit_inner: bool, seed: int, epoch: int, members=None, new_colloc=None,
+           metrics_out=None, want_grad: bool = False) -> Dict[str, torch.Tensor]:
+    """One host call of the CUDA step for ``n_members`` members, every
+    per-member tensor with a leading member axis (the shared x_data and
+    u_data without one). ``members`` (:func:`member_table`) gives each member
+    its seed, rho and threshold (``rho`` is then None); without it (one
+    member) ``seed`` and ``rho`` do. Validates, allocates the outputs and the scratch, launches; counts
+    nothing (its callers do)."""
+    dev = colloc.device
+    layers = spec.layers
+    n_params = spec.n_params
+    E = n_members
+    n_f, n_u = colloc.shape[-2], x_data.shape[0]
+    if kind not in KINDS:
+        raise ValueError(f"fused_step kernel: residual kind {kind!r} not in {sorted(KINDS)}")
+    if (kind == "admm") != (z is not None and dual is not None):
+        raise ValueError("fused_step kernel: z/dual are given exactly when kind == 'admm'")
+    if spec.in_dim != 2 or spec.out_dim != 1 or max(layers) > MAX_WIDTH \
+            or not 2 <= len(layers) - 1 <= MAX_LAYERS:
+        raise ValueError(f"fused_step kernel: unsupported widths {layers}")
+    if not 1 <= E <= MAX_MEMBERS:
+        raise ValueError(f"fused_step kernel: {E} members (takes 1 to {MAX_MEMBERS})")
+    if (E > 1 or members is not None) and design(layers) != "narrow":
+        raise ValueError(f"fused_step kernel: the member-batched step (K8) is the narrow "
+                         f"design's; widths {layers} take the wide one, one member a call")
+    if (members is None) != (rho is not None):
+        raise ValueError("fused_step kernel: a member table, or (one member) a rho")
+    if E > 1 and members is None:
+        raise ValueError("fused_step kernel: several members need a member table")
+    shapes = {"params": (params, (E, n_params)), "mu": (mu, (E, n_params)),
+              "nu": (nu, (E, n_params)), "x_data": (x_data, (n_u, 2)),
+              "u_data": (u_data, (n_u, 1)), "colloc": (colloc, (E, n_f, 2))}
+    if z is not None:
+        shapes.update(z=(z, (E, n_f, 1)), dual=(dual, (E, n_f, 1)))
+    if new_colloc is not None:
+        shapes["new_colloc"] = (new_colloc, (E, n_f, 2))
+    if metrics_out is not None:
+        shapes["metrics_out"] = (metrics_out, (E, 7))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"fused_step kernel: {name} must be contiguous float32 {shape} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if members is not None and (tuple(members.shape) != (E, 4) or members.dtype != torch.int32
+                                or members.device != dev or not members.is_contiguous()):
+        raise ValueError(f"fused_step kernel: the member table must be contiguous int32 "
+                         f"({E}, 4) on {dev}, got {members.dtype} {tuple(members.shape)} "
+                         f"on {members.device}")
+    if n_f < 1 or n_u < 1:
+        raise ValueError("fused_step kernel needs at least one collocation and one data point")
+    if dev.type != "cuda":
+        raise ValueError(f"fused_step kernel needs CUDA tensors, got device {dev}")
+
+    plan = step_plan(layers, n_f, n_u)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    out = {
+        "params": empty(E, n_params), "mu": empty(E, n_params), "nu": empty(E, n_params),
+        "colloc": empty(E, n_f, 2),
+        "z": empty(E, n_f, 1) if z is not None else None,
+        "dual": empty(E, n_f, 1) if z is not None else None,
+        "metrics": metrics_out if metrics_out is not None else empty(E, 7),
+        "grad": empty(E, n_params) if want_grad else None,
+    }
+    if plan.design == "narrow":
+        tile, tail_tile = plan.tile, plan.tail_tile
+        nb_grad = -(-n_f // tile) + -(-n_u // tile)
+        scratch = {
+            "partials": empty(E, nb_grad, n_params + 1),
+            "pstore": empty(E, nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
+            "tail_partials": empty(E, -(-n_f // tail_tile)),
+            "scratch": None,
+        }
+    else:
+        scratch = {"partials": None, "pstore": None, "tail_partials": None,
+                   "scratch": empty(plan.scratch_floats)}
+    tensors = {
+        "params": params, "mu": mu, "nu": nu, "x_data": x_data, "u_data": u_data,
+        "colloc": colloc, "z": z, "dual": dual, "new_colloc": new_colloc,
+        "params_out": out["params"], "mu_out": out["mu"], "nu_out": out["nu"],
+        "colloc_out": out["colloc"], "z_out": out["z"], "dual_out": out["dual"],
+        "metrics": out["metrics"], "grad_out": out["grad"], "members": members, **scratch,
+    }
+    bc1, bc2 = bias_corrections(count)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    floats = {
+        "lb0": spec.lb[0], "lb1": spec.lb[1], "ub0": spec.ub[0], "ub1": spec.ub[1],
+        "lam1": lam1, "lam2": lam2, "rho": 0.0 if rho is None else rho, "lr": lr,
+        "one_minus_b1": 1.0 - B1, "b1": B1, "one_minus_b2": 1.0 - B2, "b2": B2, "eps": EPS,
+        "bc1": bc1, "bc2": bc2, "threshold": 0.0 if rho is None else 1.0 / (rho * n_f),
+    }
+    ints = {
+        "n_u": n_u, "n_f": n_f, "kind": KINDS[kind], "explicit_inner": int(explicit_inner),
+        "tile": plan.tile, "tail_tile": plan.tail_tile, "seed": int(seed), "epoch": int(epoch),
+        "device": dev.index if dev.index is not None else torch.cuda.current_device(),
+        "nf_pad": plan.nf_pad, "nu_pad": plan.nu_pad, "split_rows": plan.split_rows,
+        "splits": plan.splits, "scratch_floats": plan.scratch_floats, "n_members": E,
+    }
+    lib = _lib()
+    c_dims = (ctypes.c_int * len(layers))(*layers)
+    c_ptrs = (ctypes.c_longlong * len(_PTRS))(
+        *(tensors[k].data_ptr() if tensors[k] is not None else 0 for k in _PTRS))
+    c_floats = (ctypes.c_float * len(_FLOATS))(*(f32(floats[k]) for k in _FLOATS))
+    c_ints = (ctypes.c_longlong * len(_INTS))(*(int(ints[k]) for k in _INTS))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.pinns_fused_step(c_dims, len(layers) - 1, c_ptrs, c_floats, c_ints, stream)
+    if err != 0:
+        msg = lib.pinns_fused_step_error_string(err).decode()
+        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} ({msg}); "
+                           f"widths={layers} members={E} plan={dataclasses.asdict(plan)}")
+    return out
+
+
 def fused_adam_step(
     spec: MLPSpec,
     params: torch.Tensor,
@@ -291,121 +433,88 @@ def fused_adam_step(
     Returns new tensors {params, mu, nu, colloc, z, dual, metrics, grad}; the
     inputs are not modified. ``metrics`` (7 floats, ``METRIC_KEYS`` order) is
     ``metrics_out`` when given; ``grad`` is the reduced gradient the Adam
-    stage used when ``want_grad``, else None.
+    stage used when ``want_grad``, else None. (The member-batched call with
+    one member, :func:`_epoch`.)
     """
     global LAUNCHES
-    dev = colloc.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_step kernel needs CUDA tensors, got device {dev}")
-    layers = spec.layers
-    n_params = spec.n_params
-    n_f, n_u = colloc.shape[0], x_data.shape[0]
-    if kind not in KINDS:
-        raise ValueError(f"fused_step kernel: residual kind {kind!r} not in {sorted(KINDS)}")
-    if (kind == "admm") != (z is not None and dual is not None):
-        raise ValueError("fused_step kernel: z/dual are given exactly when kind == 'admm'")
-    if spec.in_dim != 2 or spec.out_dim != 1 or max(layers) > MAX_WIDTH \
-            or not 2 <= len(layers) - 1 <= MAX_LAYERS:
-        raise ValueError(f"fused_step kernel: unsupported widths {layers}")
-    shapes = {"params": (params, (n_params,)), "mu": (mu, (n_params,)),
-              "nu": (nu, (n_params,)), "x_data": (x_data, (n_u, 2)),
-              "u_data": (u_data, (n_u, 1)), "colloc": (colloc, (n_f, 2))}
-    if z is not None:
-        shapes.update(z=(z, (n_f, 1)), dual=(dual, (n_f, 1)))
-    if new_colloc is not None:
-        shapes["new_colloc"] = (new_colloc, (n_f, 2))
-    if metrics_out is not None:
-        shapes["metrics_out"] = (metrics_out, (7,))
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"fused_step kernel: {name} must be contiguous float32 {shape} "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if n_f < 1 or n_u < 1:
-        raise ValueError("fused_step kernel needs at least one collocation and one data point")
-
-    plan = step_plan(layers, n_f, n_u)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    out = {
-        "params": empty(n_params), "mu": empty(n_params), "nu": empty(n_params),
-        "colloc": empty(n_f, 2),
-        "z": empty(n_f, 1) if z is not None else None,
-        "dual": empty(n_f, 1) if z is not None else None,
-        "metrics": metrics_out if metrics_out is not None else empty(7),
-        "grad": empty(n_params) if want_grad else None,
-    }
-    if plan.design == "narrow":
-        tile, tail_tile = plan.tile, plan.tail_tile
-        nb_grad = -(-n_f // tile) + -(-n_u // tile)
-        scratch = {
-            "partials": empty(nb_grad, n_params + 1),
-            "pstore": empty(nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
-            "tail_partials": empty(-(-n_f // tail_tile)),
-            "scratch": None,
-        }
-    else:
-        scratch = {"partials": None, "pstore": None, "tail_partials": None,
-                   "scratch": empty(plan.scratch_floats)}
-    tensors = {
-        "params": params, "mu": mu, "nu": nu, "x_data": x_data, "u_data": u_data,
-        "colloc": colloc, "z": z, "dual": dual, "new_colloc": new_colloc,
-        "params_out": out["params"], "mu_out": out["mu"], "nu_out": out["nu"],
-        "colloc_out": out["colloc"], "z_out": out["z"], "dual_out": out["dual"],
-        "metrics": out["metrics"], "grad_out": out["grad"], **scratch,
-    }
-    bc1, bc2 = bias_corrections(count)
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    floats = {
-        "lb0": spec.lb[0], "lb1": spec.lb[1], "ub0": spec.ub[0], "ub1": spec.ub[1],
-        "lam1": lam1, "lam2": lam2, "rho": rho, "lr": lr,
-        "one_minus_b1": 1.0 - B1, "b1": B1, "one_minus_b2": 1.0 - B2, "b2": B2, "eps": EPS,
-        "bc1": bc1, "bc2": bc2, "threshold": 1.0 / (rho * n_f),
-    }
-    ints = {
-        "n_u": n_u, "n_f": n_f, "kind": KINDS[kind], "explicit_inner": int(explicit_inner),
-        "tile": plan.tile, "tail_tile": plan.tail_tile, "seed": int(seed), "epoch": int(epoch),
-        "device": dev.index if dev.index is not None else torch.cuda.current_device(),
-        "nf_pad": plan.nf_pad, "nu_pad": plan.nu_pad, "split_rows": plan.split_rows,
-        "splits": plan.splits, "scratch_floats": plan.scratch_floats,
-    }
-    lib = _lib()
-    c_dims = (ctypes.c_int * len(layers))(*layers)
-    c_ptrs = (ctypes.c_longlong * len(_PTRS))(
-        *(tensors[k].data_ptr() if tensors[k] is not None else 0 for k in _PTRS))
-    c_floats = (ctypes.c_float * len(_FLOATS))(*(f32(floats[k]) for k in _FLOATS))
-    c_ints = (ctypes.c_longlong * len(_INTS))(*(int(ints[k]) for k in _INTS))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.pinns_fused_step(c_dims, len(layers) - 1, c_ptrs, c_floats, c_ints, stream)
-    if err != 0:
-        msg = lib.pinns_fused_step_error_string(err).decode()
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} ({msg}); "
-                           f"widths={layers} plan={dataclasses.asdict(plan)}")
+    one = lambda t: None if t is None else t.unsqueeze(0)  # noqa: E731
+    if colloc.dim() != 2:
+        raise ValueError(f"fused_step kernel: colloc must be (N_f, 2), got {tuple(colloc.shape)}")
+    r = _epoch(spec, 1, one(params), one(mu), one(nu), count, x_data, u_data, one(colloc),
+               one(z), one(dual), kind=kind, lam1=lam1, lam2=lam2, rho=rho, lr=lr,
+               explicit_inner=explicit_inner, seed=seed, epoch=epoch,
+               new_colloc=one(new_colloc), metrics_out=one(metrics_out), want_grad=want_grad)
     with _launches_lock:
         LAUNCHES += 1
+    out = {k: None if v is None else v[0] for k, v in r.items()}
+    if metrics_out is not None:
+        out["metrics"] = metrics_out
     return out
 
 
+def fused_adam_ensemble_step(
+    spec: MLPSpec,
+    params: torch.Tensor,
+    mu: torch.Tensor,
+    nu: torch.Tensor,
+    count: int,
+    x_data: torch.Tensor,
+    u_data: torch.Tensor,
+    colloc: torch.Tensor,
+    z: Optional[torch.Tensor],
+    dual: Optional[torch.Tensor],
+    members: torch.Tensor,
+    *,
+    kind: str,
+    lam1: float,
+    lam2: float,
+    lr: float,
+    explicit_inner: bool,
+    epoch: int,
+    new_colloc: Optional[torch.Tensor] = None,
+    metrics_out: Optional[torch.Tensor] = None,
+    want_grad: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """K8: one Adam epoch of E ensemble members in one host call of the CUDA
+    step (the narrow design's four launches, each over all members).
+
+    ``params``/``mu``/``nu`` are (E, n_params) in ``pack_params`` order,
+    ``colloc`` (E, N_f, 2), ``z``/``dual`` (E, N_f, 1) or None, and
+    ``members`` the (E, 4) table of :func:`member_table` (each member's seed,
+    rho and threshold); the data, the coefficients, ``lr``, Adam's shared
+    ``count`` and the ``epoch`` are the members' common ones (they run in
+    lockstep). ``new_colloc`` (E, N_f, 2) replaces the Philox draws and
+    ``metrics_out`` (E, 7) receives the metrics. Returns new (E, ...) tensors
+    as :func:`fused_adam_step` does; member m of them equals a solo call of
+    member m bit for bit.
+    """
+    global ENSEMBLE_LAUNCHES
+    r = _epoch(spec, params.shape[0], params, mu, nu, count, x_data, u_data, colloc, z, dual,
+               kind=kind, lam1=lam1, lam2=lam2, rho=None, lr=lr, explicit_inner=explicit_inner,
+               seed=0, epoch=epoch, members=members, new_colloc=new_colloc,
+               metrics_out=metrics_out, want_grad=want_grad)
+    with _launches_lock:
+        ENSEMBLE_LAUNCHES += 1
+    return r
+
+
 def unpack_params(flat: torch.Tensor, layers: Sequence[int]) -> Params:
-    """JAX-layout layers as views of a flat buffer in ``pack_params`` order."""
+    """JAX-layout layers as views of a flat buffer in ``pack_params`` order;
+    a leading member axis of ``flat`` (E, n_params) leads every leaf."""
+    lead = tuple(flat.shape[:-1])
     out, off = [], 0
     for din, dout in zip(layers[:-1], layers[1:]):
-        w = flat[off:off + din * dout].view(din, dout)
+        w = flat[..., off:off + din * dout].view(*lead, din, dout)
         off += din * dout
-        out.append({"W": w, "b": flat[off:off + dout].view(1, dout)})
+        out.append({"W": w, "b": flat[..., off:off + dout].view(*lead, 1, dout)})
         off += dout
     return out
 
 
-def make_fused_adam_step(problem, learning_rate: float):
-    """``step(state, out=None, new_colloc=None) -> (state, metrics)``: the plain step's contract
-    (``train.trainer.make_adam_step``) with one CUDA step call per epoch.
-
-    Raises ``NotImplementedError`` for a configuration outside the kernel's
-    scope: on the card nothing falls back to the plain step.
-    """
-    from pinns_tpu_torch.losses.admm import ADMMState
-    from pinns_tpu_torch.train.trainer import METRIC_KEYS, TrainState
-
+def _step_config(problem, learning_rate: float) -> dict:
+    """The step's configuration arguments (residual kind, the effective
+    coefficients, lr, explicit_inner); raises ``NotImplementedError`` for a
+    configuration outside the kernel's scope."""
     exp, spec = problem.exp, problem.spec
     why = fused_step_supported(exp, spec)
     if why:
@@ -415,38 +524,108 @@ def make_fused_adam_step(problem, learning_rate: float):
         )
     lam2_raw = exp.pde.lambda2
     lam2 = float(np.exp(np.float32(lam2_raw))) if exp.pde.lambda2_transform == "exp" else lam2_raw
-    cfg = dict(kind=exp.loss.residual_kind, lam1=exp.pde.lambda1, lam2=lam2,
-               rho=exp.loss.rho, lr=learning_rate, explicit_inner=exp.loss.explicit_inner)
+    return dict(kind=exp.loss.residual_kind, lam1=exp.pde.lambda1, lam2=lam2,
+                lr=learning_rate, explicit_inner=exp.loss.explicit_inner)
+
+
+def flat_net(net: Params, n_params: int) -> torch.Tensor:
+    """The flat buffer (..., n_params), in ``pack_params`` order, whose views
+    the net's leaves are (as :func:`unpack_params` and the ensemble's stack
+    lay them out: the step's outputs feed the next epoch as they are); a net
+    laid out otherwise is packed into a new buffer."""
+    leaves = net_leaves(net)
+    lead = tuple(leaves[0].shape[:-2])
+    base = leaves[0]._base
+    if (base is not None and base.is_contiguous() and base.numel() == math.prod(lead) * n_params
+            and leaves[0].data_ptr() == base.data_ptr()
+            and all(t._base is base for t in leaves)):
+        return base.view(*lead, n_params)
+    return torch.cat([t.reshape(*lead, -1) for t in leaves], dim=-1)
+
+
+def _after_epoch(state, r: dict, layers: Sequence[int]):
+    """The state after an epoch whose outputs are ``r`` (a member axis leads
+    every tensor of an ensemble's), and the metrics as views of its row."""
+    from pinns_tpu_torch.losses.admm import ADMMState
+    from pinns_tpu_torch.train.trainer import METRIC_KEYS
+
+    opt = state.opt_state
+    new_state = state._replace(
+        params=dict(state.params, net=unpack_params(r["params"], layers)),
+        opt_state=AdamState(count=opt.count + 1,
+                            mu=dict(opt.mu, net=unpack_params(r["mu"], layers)),
+                            nu=dict(opt.nu, net=unpack_params(r["nu"], layers))),
+        admm=None if state.admm is None else ADMMState(z=r["z"], dual=r["dual"]),
+        colloc=r["colloc"], epoch=state.epoch + 1,
+    )
+    return new_state, {k: r["metrics"][..., i] for i, k in enumerate(METRIC_KEYS)}
+
+
+def make_fused_ensemble_step(problem, learning_rate: float):
+    """K8's step over a stacked ensemble state (``parallel.ensemble``):
+    ``step(stacked, out=None, new_colloc=None) -> (stacked, metrics)``, one
+    host call an epoch for all members. ``out``, an (E, 7) float32 row,
+    receives the metrics; ``new_colloc`` (E, N_f, 2) replaces the Philox
+    draws. Each member trains with its own seed (``stacked.key``) and rho
+    (``stacked.rho``, else ``loss.rho``).
+
+    Raises ``NotImplementedError`` outside K3's scope or for a net wider
+    than the narrow design's: those ensembles run the member loop.
+    """
+    exp, spec = problem.exp, problem.spec
+    cfg = _step_config(problem, learning_rate)
+    if design(spec.layers) != "narrow":
+        raise NotImplementedError(
+            f"widths {spec.layers} take K3's wide design, which runs one member a call; "
+            "their ensembles run the member loop (parallel.ensemble.make_ensemble_chunk)")
+    u_data = problem.targets["u"].contiguous()
+    cached = {}  # the member table of the last (seeds, rhos): constant over a run
+
+    def step(stacked, out: Optional[torch.Tensor] = None,
+             new_colloc: Optional[torch.Tensor] = None):
+        n = len(stacked.key)
+        rhos = stacked.rho if stacked.rho is not None else (exp.loss.rho,) * n
+        if cached.get("key") != (stacked.key, rhos):
+            cached["key"] = (stacked.key, rhos)
+            cached["table"] = member_table(stacked.key, rhos, stacked.colloc.shape[1],
+                                           stacked.colloc.device)
+        opt, admm = stacked.opt_state, stacked.admm
+        r = fused_adam_ensemble_step(
+            spec, flat_net(stacked.params["net"], spec.n_params),
+            flat_net(opt.mu["net"], spec.n_params), flat_net(opt.nu["net"], spec.n_params),
+            opt.count, problem.x_data, u_data, stacked.colloc,
+            admm.z if admm is not None else None, admm.dual if admm is not None else None,
+            cached["table"], epoch=stacked.epoch + 1, new_colloc=new_colloc, metrics_out=out,
+            **cfg,
+        )
+        return _after_epoch(stacked, r, spec.layers)
+
+    return step
+
+
+def make_fused_adam_step(problem, learning_rate: float):
+    """``step(state, out=None, new_colloc=None) -> (state, metrics)``: the plain step's contract
+    (``train.trainer.make_adam_step``) with one CUDA step call per epoch.
+
+    Raises ``NotImplementedError`` for a configuration outside the kernel's
+    scope: on the card nothing falls back to the plain step.
+    """
+    exp, spec = problem.exp, problem.spec
+    cfg = _step_config(problem, learning_rate)
     u_data = problem.targets["u"].contiguous()
 
     def step(state, out: Optional[torch.Tensor] = None,
              new_colloc: Optional[torch.Tensor] = None):
-        if state.rho is not None:
-            raise NotImplementedError(
-                "the fused CUDA step bakes loss.rho in and cannot honor a per-run "
-                "TrainState.rho (rho-swept ensembles come with slice 4)")
-        net = state.params["net"]
+        opt, admm = state.opt_state, state.admm
         r = fused_adam_step(
-            spec, pack_params(net), pack_params(state.opt_state.mu["net"]),
-            pack_params(state.opt_state.nu["net"]), state.opt_state.count,
-            problem.x_data, u_data, state.colloc,
-            state.admm.z if state.admm is not None else None,
-            state.admm.dual if state.admm is not None else None,
-            seed=state.key, epoch=state.epoch + 1, new_colloc=new_colloc, metrics_out=out,
-            **cfg,
+            spec, flat_net(state.params["net"], spec.n_params),
+            flat_net(opt.mu["net"], spec.n_params), flat_net(opt.nu["net"], spec.n_params),
+            opt.count, problem.x_data, u_data, state.colloc,
+            admm.z if admm is not None else None, admm.dual if admm is not None else None,
+            rho=exp.loss.rho if state.rho is None else state.rho, seed=state.key,
+            epoch=state.epoch + 1, new_colloc=new_colloc, metrics_out=out, **cfg,
         )
-        opt = state.opt_state
-        new_state = TrainState(
-            params=dict(state.params, net=unpack_params(r["params"], spec.layers)),
-            opt_state=AdamState(
-                count=opt.count + 1,
-                mu=dict(opt.mu, net=unpack_params(r["mu"], spec.layers)),
-                nu=dict(opt.nu, net=unpack_params(r["nu"], spec.layers)),
-            ),
-            admm=None if state.admm is None else ADMMState(z=r["z"], dual=r["dual"]),
-            colloc=r["colloc"], key=state.key, epoch=state.epoch + 1, rho=state.rho,
-        )
-        return new_state, {k: r["metrics"][i] for i, k in enumerate(METRIC_KEYS)}
+        return _after_epoch(state, r, spec.layers)
 
     return step
 

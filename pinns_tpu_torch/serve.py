@@ -14,7 +14,7 @@ has its own artifact: a directory with
 answers ``predict(x)`` through ``train.evaluate.burgers_fields`` ({f, u}) or,
 for an artifact whose ``pde`` is 'euler', ``euler_fields`` ({rho, u, E, f1,
 f2, f3}) — on a CUDA device, the fused Taylor-2 kernel (K1) or the Taylor-1
-kernel (K7a). Ensemble artifacts and calibrated bands come with slice 4.
+kernel (K7a). Ensemble artifacts and calibrated bands come with slice 4b.
 """
 
 from __future__ import annotations
@@ -205,7 +205,7 @@ def make_http_server(path: str, host: str = "127.0.0.1", port: int = 8080, devic
                 if want_bands:
                     raise ValueError(
                         "artifact carries no calibration metadata; calibrated "
-                        "bands need an ensemble artifact (port slice 4)"
+                        "bands need an ensemble artifact (port slice 4b)"
                     )
                 out = served.predict(x, pad_to_bucket=True)
                 if binary:

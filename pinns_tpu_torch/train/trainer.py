@@ -60,7 +60,8 @@ pass, K7a on the card) and the trainable shock-path features
 What the port leaves to later slices, each raising ``NotImplementedError``
 with the slice's name: the weak-form ADMM, the entropy penalty, gradient
 weighting, RAD, SWA, Fourier features and the Euler L-BFGS branch (slice
-2b-iii); ensembles (slice 4); multi-GPU (slice 6).
+2b-iii); multi-GPU (slice 6). Ensembles and sweeps train through
+``pinns_tpu_torch.parallel`` (slice 4a); serving them comes with slice 4b.
 """
 
 from __future__ import annotations
@@ -151,7 +152,6 @@ def check_slice(exp: Experiment) -> None:
         (m.n_fourier > 0, "Fourier features", slice2),
         (exp.pde.kind == "euler" and o.kind != "adam", f"optimizer.kind={o.kind!r} on Euler "
          "(the Euler L-BFGS branch)", slice2),
-        (exp.mesh.ensemble > 1, "ensembles", "slice 4 (ensembles)"),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
     ]
@@ -212,7 +212,8 @@ class Problem:
         Burgers' r (N, 1) or the Euler system's (r1, r2, r3), and the weak
         entropy violation (None unless asked for; the card raises for it).
         ``plain`` forces the plain versions on any device. (JAX's coarse-cell
-        ``scale`` serves ensemble selection and comes with slice 4.)
+        ``scale`` serves ensemble selection's coarse battery and comes with
+        slice 2b-iii, beside the entropy it needs.)
 
         The mixed formulation (``loss.strong_equations``, Euler only; JAX's
         ``:235-251``): equation i in it takes the strong pointwise residual

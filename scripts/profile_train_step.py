@@ -6,7 +6,7 @@ plain step, and over one L-BFGS outer epoch.
     python scripts/profile_train_step.py [--preset abgrall_admm] [--epochs 200]
         [--dataset twosin_burgers_shock] [--lbfgs-iters 100]
         [--out chiprun_out/profile_train_step.json]
-        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs]
+        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs] [--ensemble E]
 
 The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 --steps adam --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"``.
@@ -15,6 +15,9 @@ The Euler slice: ``--preset euler_admm --dataset abgrall_eulers --steps adam,pla
 ``--preset twosin_weak --steps adam,plain`` and ``--preset euler_inverse
 --dataset abgrall_eulers --steps adam,plain``; the shock-path slice:
 ``--preset euler_weak_fast --dataset abgrall_eulers --steps adam,plain``.
+An ensemble: ``--ensemble 8 --steps adam`` profiles the Adam epochs of 8
+members (seeds train.seed + i): one K8 call an epoch inside K3's narrow
+scope, else the member loop; a unit is then an epoch of all members.
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
@@ -39,20 +42,26 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile_chunk(step, state, epochs: int, warmup: int = 5) -> dict:
-    """Profile ``epochs`` steps; numbers are per unit, where a unit is an
-    epoch, or an L-BFGS iteration when the step reports lbfgs_iters."""
-    from torch.profiler import ProfilerActivity, profile
-
+def solo_chunks(step):
+    """``run(state, epochs) -> (state, metrics)`` over one step function."""
     from pinns_tpu_torch.train.trainer import run_chunk
+
+    return lambda state, epochs: run_chunk(step, state, epochs)
+
+
+def profile_chunk(run, state, epochs: int, warmup: int = 5) -> dict:
+    """Profile ``run(state, epochs)`` (:func:`solo_chunks`, or an ensemble's
+    chunk); numbers are per unit, where a unit is an epoch, or an L-BFGS
+    iteration when the step reports lbfgs_iters."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.reset_peak_memory_stats()
     if warmup:
-        run_chunk(step, state, warmup)
+        run(state, warmup)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, metrics = run_chunk(step, state, epochs)
+        _, metrics = run(state, epochs)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     units = int(metrics["lbfgs_iters"].sum()) or epochs
@@ -97,6 +106,8 @@ def main(argv=None) -> int:
                     help="override a config field, as the train CLI's --set")
     ap.add_argument("--steps", default="adam,plain,lbfgs",
                     help="which of adam, plain, lbfgs to profile (comma-separated)")
+    ap.add_argument("--ensemble", type=int, default=1, metavar="E",
+                    help="profile the Adam epochs of an E-member ensemble")
     ap.add_argument("--out", default="chiprun_out/profile_train_step.json")
     args = ap.parse_args(argv)
     steps = set(args.steps.split(","))
@@ -118,22 +129,37 @@ def main(argv=None) -> int:
     state = trainer.init_state()
     adam = "generic_step" if fused_step_supported(exp, trainer.problem.spec) else "fused_step"
     result = {"card": card, "preset": args.preset, "epochs": args.epochs, "set": args.set,
-              "layers": list(trainer.problem.spec.layers), "n_colloc": int(state.colloc.shape[0])}
-    if "adam" in steps:
-        result[adam] = profile_chunk(trainer._adam_step, state, args.epochs,
+              "layers": list(trainer.problem.spec.layers), "n_colloc": int(state.colloc.shape[0]),
+              "members": args.ensemble}
+    if "adam" in steps and args.ensemble > 1:
+        from pinns_tpu_torch.parallel.ensemble import (
+            batched_on_card,
+            init_ensemble_states,
+            make_ensemble_chunk,
+        )
+
+        adam = "fused_step_ensemble" if batched_on_card(trainer) else "member_loop"
+        stacked = init_ensemble_states(
+            trainer, [exp.train.seed + i for i in range(args.ensemble)])
+        result[adam] = profile_chunk(lambda s, n: make_ensemble_chunk(trainer, n)(s), stacked,
+                                     args.epochs, warmup=min(5, args.epochs))
+    elif "adam" in steps:
+        result[adam] = profile_chunk(solo_chunks(trainer._adam_step), state, args.epochs,
                                      warmup=min(5, args.epochs))
     if "plain" in steps:
         result["plain_step"] = profile_chunk(
-            make_adam_step(trainer.problem, trainer.learning_rate, plain=True), state,
-            max(1, args.epochs // 10))
+            solo_chunks(make_adam_step(trainer.problem, trainer.learning_rate, plain=True)),
+            state, max(1, args.epochs // 10))
     if "lbfgs" in steps:
-        result["lbfgs_step"] = profile_chunk(trainer._lbfgs_step, state, 1, warmup=0)
+        result["lbfgs_step"] = profile_chunk(solo_chunks(trainer._lbfgs_step), state, 1,
+                                             warmup=0)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     for name in (n for n in (adam, "plain_step", "lbfgs_step") if n in result):
         r = result[name]
         print(json.dumps({"preset": args.preset, "step": name, "card": card,
+                          "members": args.ensemble if name == adam else 1,
                           **{k: r[k] for k in ("unit", "units", "wall_us_per_unit",
                                                "device_us_per_unit", "idle_share",
                                                "kernels_per_unit", "k3_us_per_unit",

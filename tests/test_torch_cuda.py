@@ -1,6 +1,7 @@
 """The port on the card: the fused Taylor-2 kernel (K1) and its backward
 (K2), the fused MLP forward and its backward (K5), the served slice, the
-fused Adam-epoch kernel (K3, both designs), the mixed-precision Taylor-2 kernel (K6) and
+fused Adam-epoch kernel (K3, both designs, and K8, its member-batched narrow
+design with the ensemble trainer), the mixed-precision Taylor-2 kernel (K6) and
 its backward, the Taylor-1 kernel (K7a) and its backward with the Euler
 slice, the weak-form flux quadrature (K7b) with its presets, and the trainer with its generic Adam step (microbatched, under the
 stream policy) and L-BFGS phase over the kernels.
@@ -226,6 +227,74 @@ def test_trainer_on_card_runs_the_fused_step(cuda_device):  # noqa: F811
     after = counts()
     assert after[0] == before[0] and state.epoch == 30 and np.isfinite(summary["rel_l2_u"])
     assert all(a >= b + 30 for a, b in zip(after[1:], before[1:]))
+
+
+@pytest.mark.parametrize("kind", ["admm", "l1_sq_norm"])
+def test_k8_members_equal_solo_k3_on_card(cuda_device, kind):  # noqa: F811
+    """K8 over three members with their own seeds and rhos, two chained
+    epochs: every output of member m equal to a solo K3 call of member m bit
+    for bit, one host call an epoch."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+
+    layers, n_f, n = (2, 16, 16, 16, 1), 77, 3
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    seeds, rhos = [9, 10, 2**33 + 11], [1.0, 10.0, 40.0]
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    rng = np.random.default_rng(5)
+    x_data, u_data = t(numpy_points(13, seed=7)), t(rng.standard_normal((13, 1)))
+    flat = torch.stack([pack_params(init_mlp(spec, torch.Generator().manual_seed(3 + m),
+                                             cuda_device)) for m in range(n)])
+    cur = {"params": flat, "mu": torch.zeros_like(flat), "nu": torch.zeros_like(flat),
+           "colloc": torch.stack([t(numpy_points(n_f, seed=6 + m)) for m in range(n)]),
+           "z": t(0.1 * rng.standard_normal((n, n_f, 1))) if kind == "admm" else None,
+           "dual": t(np.ones((n, n_f, 1))) if kind == "admm" else None}
+    solo = [{k: None if v is None else v[m].clone() for k, v in cur.items()} for m in range(n)]
+    cfg = dict(kind=kind, lam1=0.9, lam2=0.01, lr=1e-3, explicit_inner=False)
+    table = k_fused.member_table(seeds, rhos, n_f, cuda_device)
+    before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES)
+    for epoch in (1, 2):
+        r8 = k_fused.fused_adam_ensemble_step(
+            spec, cur["params"], cur["mu"], cur["nu"], epoch - 1, x_data, u_data, cur["colloc"],
+            cur["z"], cur["dual"], table, epoch=epoch, want_grad=True, **cfg)
+        rs = [k_fused.fused_adam_step(spec, s["params"], s["mu"], s["nu"], epoch - 1, x_data,
+                                      u_data, s["colloc"], s["z"], s["dual"], rho=rhos[m],
+                                      seed=seeds[m], epoch=epoch, want_grad=True, **cfg)
+              for m, s in enumerate(solo)]
+        torch.cuda.synchronize()
+        for m in range(n):
+            for k, v in r8.items():
+                if v is not None:
+                    assert torch.equal(v[m], rs[m][k]), (epoch, m, k)
+        cur = {k: r8[k] for k in cur}
+        solo = [{k: rs[m][k] for k in cur} for m in range(n)]
+    assert (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES) == (before[0] + 2, before[1] + 2 * n)
+
+
+def test_ensemble_trainer_on_card_runs_k8(cuda_device, tmp_path):  # noqa: F811
+    """run_ensemble on the card: the Adam epochs of abgrall_admm's members
+    in one K8 call each; each member equal to its solo run bit for bit."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.train.trainer import Trainer, tree_leaves
+
+    exp = override(get_preset("abgrall_admm"), {"train.epochs": 30, "train.chunk": 10,
+                                                "train.log_every": 0})
+    trainer = Trainer(exp, device="cuda")
+    assert ens.batched_on_card(trainer)
+    before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES)
+    stacked, summaries = ens.run_ensemble(trainer, [1234, 7, 99], rhos=[10.0, 20.0, 40.0])
+    assert (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES) == (before[0] + 30, before[1])
+    for member, seed, rho, summary in zip(ens.unstack_states(stacked), [1234, 7, 99],
+                                          [10.0, 20.0, 40.0], summaries):
+        solo_tr = Trainer(override(exp, {"loss.rho": rho}), device="cuda")
+        solo, solo_summary = solo_tr.train(solo_tr.init_state(seed=seed))
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves([member.params, member.admm.z, member.colloc]),
+            tree_leaves([solo.params, solo.admm.z, solo.colloc])))
+        assert summary["rel_l2_u"] == solo_summary["rel_l2_u"]
 
 
 def _f64_oracle(got, plain, exact):
