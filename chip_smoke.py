@@ -10,7 +10,10 @@ quadrature kernel K7b, around K7a and K5), and the shock-path slice
 (euler_weak_fast trained and served with two trainable shock paths computed
 inside K7a's and K5's input passes and the strong mass residual at the cell
 centres), and ensembles (train --ensemble and sweep over rho and seeds,
-the Adam epochs of all members in one call of the member-batched kernel K8).
+the Adam epochs of all members in one call of the member-batched kernel K8),
+and serving them (export --calibrate / --select, predict --bands, eval
+--artifact, HTTP bands over K8s: K1 with a member axis and the member
+reduction).
 
     python3 chip_smoke.py
 
@@ -185,6 +188,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   times     a K8 epoch (events) and a 1,000-epoch chunk's member-epochs a
             second at E = 1, 8 and 32 beside the solo K3 step; the plain
             per-member loop at E = 8
+  33 k8s    K8s (a), K1 with the member as blockIdx.y, at 8x20 (narrow) and
+            8x200 (tiled), E = 1, 3, 8, N = 1, 31, 25,600: every member's
+            four streams equal a solo K1 call (torch.equal); K8s (c), the
+            member reduction, against float64 by compare_f64 at E = 3 and 8
+            on the Euler ensemble's shape (47,100 points, 6 fields, 3 dx)
+  34 ens-fixture  the committed JAX ensembles (ensemble_serve.npz: Burgers
+            8x20 E 4, the full-width euler_weak_fast trunk with two shock
+            paths E 3) through uq_calibration on the card against JAX's rows
+            (hold_rows), exported and served on the card: mean and dx rtol
+            1e-5 / atol 1e-5 max (1e-4 for f, f1..f3), std atol 1e-5 of
+            max|mean|; the served points' Mondrian bins against JAX's
+  35 ensemble-serve  this slice's main path, the CLI and HTTP in this
+            process, no plain call: phase 31's four abgrall_admm members ->
+            export --calibrate (--mond-feature std and dx) -> predict --bands
+            -> eval --artifact -> HTTP (/meta, bands by JSON and npy, a 400
+            for bands on a point artifact); train euler_weak_fast --ensemble
+            8 for ENS_EULER epochs -> export --calibrate (dx) at the 47,100
+            grid points -> the same -> export --select rank --anchor, with
+            meta['selection']
+  times     served ensemble predict (host clock) at 25,600 (Burgers, E 8)
+            and 47,100 points (Euler, E 8) with and without bands; K8s (a)
+            against 8 solo K1 calls and the plain version, (c) beside its
+            bound and torch.std_mean (CUDA events)
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -203,6 +229,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -235,7 +262,8 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
        "y": (1e-5, 1e-5), "y_x": (1e-5, 1e-5), "y_t": (1e-5, 1e-5)}
 F64_FACTOR = 4.0
 REPS = 20
-KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1", "weakform")
+KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1", "weakform",
+           "ensemble")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -860,6 +888,7 @@ class PlainCalls:
     def __init__(self):
         from pinns_tpu_torch.models import mlp
         from pinns_tpu_torch.ops import taylor, weakform
+        from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
         from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
         from pinns_tpu_torch.ops.kernels import weakform as k_weakform
         from pinns_tpu_torch.train import trainer
@@ -876,6 +905,8 @@ class PlainCalls:
             ("burgers_quadrature_reference", (weakform,)),
             ("euler_quadrature_reference", (weakform,)),
             ("flux_backward_reference", (k_weakform,)),
+            ("taylor2_members_reference", (taylor2,)),
+            ("member_stats_reference", (k_ensemble,)),
         ) for m in mods]
         self.calls = 0
 
@@ -899,9 +930,11 @@ class PlainCalls:
 
 def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
 
-    return {"taylor2": taylor2.LAUNCHES, "fused_step": fused_step.LAUNCHES,
+    return {"taylor2": taylor2.LAUNCHES, "taylor2_members": taylor2.MEMBER_LAUNCHES,
+            "member_stats": k_ensemble.LAUNCHES, "fused_step": fused_step.LAUNCHES,
             "fused_step_ensemble": fused_step.ENSEMBLE_LAUNCHES,
             "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
             "taylor2_backward": taylor2.BACKWARD_LAUNCHES,
@@ -913,9 +946,11 @@ def kernel_counts() -> dict:
 
 
 def reset_counts() -> None:
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
 
-    taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = 0
+    taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = taylor2.MEMBER_LAUNCHES = 0
+    k_ensemble.LAUNCHES = 0
     taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
     fused_step.LAUNCHES = fused_step.ENSEMBLE_LAUNCHES = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
@@ -3003,13 +3038,16 @@ def same_state(a_path: str, b_path: str) -> bool:
             and len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb)))
 
 
-def phase_ensemble_cli(card: str) -> dict:
-    """31: the CLI on the card, this slice's main path: train --ensemble 4
+def phase_ensemble_cli(card: str, keep: str) -> dict:
+    """31: the CLI on the card, slice 4a's main path: train --ensemble 4
     over the hybrid switch (Adam through K8, then each member's L-BFGS outer
     epochs on K5/K1/K2) with --select; each member's final checkpoint equal
     to its solo run's bit for bit, and --resume from the epoch-500 set ending
     at the same states; sweep over rho x seed as one 4-member unit, every row
-    ok. The counts of the ensemble run are this slice's launches."""
+    ok. The counts of the ensemble run are slice 4a's launches. The members'
+    final checkpoints are copied into ``keep`` for phase 35."""
+    import shutil
+
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
 
     c = ENS_CLI
@@ -3035,6 +3073,8 @@ def phase_ensemble_cli(card: str) -> dict:
               f"ensemble launches {launches}")
         check(launches["mlp_forward"] > 0 and launches["taylor2_backward"] > 0,
               f"the L-BFGS epochs launched no kernel: {launches}")
+        for i in range(n):
+            shutil.copy(d(f"ens/{preset}_final_m{i}.ckpt"), keep)
         summaries, pick = lines[:n], lines[n]
         check([s["seed"] for s in summaries] == [1234 + i for i in range(n)]
               and all(s["epochs"] == c["epochs"] and math.isfinite(s["rel_l2_u"])
@@ -3126,6 +3166,498 @@ def phase_ensemble_times(card: str) -> dict:
              vs_solo_chunk=(n * 1000 / wall) / out["solo"][1], k8_host_calls=calls,
              plain_member_loop_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
         out[n] = (ms, n * 1000 / wall, plain_ms, b)
+    return out
+
+
+# -- 33-35: serving an ensemble (K8s: the member-batched K1, the reduction) -----
+
+ENS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "ensemble_serve.npz")
+K8S_MEMBERS = (1, 3, 8)
+K8S_NS = (1, 31, 25_600)
+K8S_MAIN = (NARROW, 8, 25_600)  # the kernels line's K8s (a): phase 35's Burgers shape, E 8
+K8S_REDUCE = (8, 47_100, 6, 3)  # and (c): the Euler ensemble's E, N, fields, dx fields
+ENS_EULER = {"members": 8, "epochs": 300}  # phase 35's euler_weak_fast ensemble
+
+
+def net_of(flat: np.ndarray, spec) -> list:
+    """JAX-layout numpy params from a flat vector in the port's order."""
+    from pinns_tpu_torch.ops.kernels.taylor2 import nets_from_flat
+
+    nets = nets_from_flat(spec, torch.from_numpy(np.ascontiguousarray(flat[None])))
+    return [{k: v.numpy() for k, v in layer.items()} for layer in nets[0]]
+
+
+def reduce_inputs(e: int, n: int, c: int, cd: int, seed: int, device):
+    """Members that agree to 1e-4 (a one-pass variance would cancel)."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((1, n, c))
+    vals = (base + 1e-4 * rng.standard_normal((e, n, c))).astype(np.float32)
+    dx = rng.standard_normal((e, n, cd)).astype(np.float32)
+    return torch.from_numpy(vals).to(device), torch.from_numpy(dx).to(device)
+
+
+def reduce_bound(e: int, n: int, c: int, cd: int):
+    """K8s (c): the stacks read once, mean, std and dx written once; ~4 E
+    flops a value."""
+    return bound([(4.0 * e * n * (c + cd), PEAK_FP32)], 4 * e * n * (c + cd) + 4 * n * (2 * c + cd))
+
+
+def members_bound(layers, e: int, n: int):
+    """K8s (a): E solo K1 calls' operations; x read once, E nets and E x 4
+    streams."""
+    ops = [(f * e, r) for f, r in taylor2_ops(layers, n)]
+    return bound(ops, 8 * n + 16 * n * layers[-1] * e + 4 * n_params(layers) * e)
+
+
+def phase_k8s(card: str) -> dict:
+    """33: K8s (a) at 8x20 (narrow) and 8x200 (tiled), E = 1, 3, 8, N = 1,
+    31, 25,600: every member's four streams equal a solo K1 call (torch.equal);
+    (c) against float64 by compare_f64 at E = 3 and 8 on the Euler ensemble's
+    shape."""
+    from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ens
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.parallel.ensemble import pack_members
+
+    out = {}
+    for layers in (NARROW, WIDE):
+        spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+        nets = [init_mlp(spec, torch.Generator().manual_seed(330 + m), "cuda") for m in range(8)]
+        for e in K8S_MEMBERS:
+            flat = pack_members(nets[:e])
+            for n in K8S_NS:
+                x = points(n, seed=331 + n, device="cuda")
+                with torch.inference_mode():
+                    before = k_taylor2.MEMBER_LAUNCHES
+                    got = k_taylor2.taylor2_members(spec, flat, x)
+                    solo = [k_taylor2.taylor2(spec, net, x) for net in nets[:e]]
+                    torch.cuda.synchronize()
+                check(k_taylor2.MEMBER_LAUNCHES == before + 1, "K8s (a) is one launch a call")
+                for m in range(e):
+                    check(all(torch.equal(g[m], s) for g, s in zip(got, solo[m])),
+                          f"K8s (a) {len(layers) - 2}x{max(layers)} E={e} N={n}: member {m} "
+                          "differs from its solo K1 call")
+                if (layers, e, n) == K8S_MAIN:
+                    with torch.inference_mode():
+                        plain = k_taylor2.taylor2_members_reference(spec, flat, x)
+                    out["members_err"] = max(float((g - p).abs().max())
+                                             for g, p in zip(got, plain))
+        emit(card, phase="k8s", part="a", net=f"{len(layers) - 2}x{max(layers)}",
+             members=K8S_MEMBERS, n=K8S_NS, bit_equal_to_solo_k1=True,
+             launch=dataclasses.asdict(k_taylor2.launch_config(layers)))
+    e_main, n, c, cd = K8S_REDUCE
+    for e in (3, e_main):
+        vals, dx = reduce_inputs(e, n, c, cd, seed=333 + e, device="cuda")
+        with torch.inference_mode():
+            got = k_ens.member_stats(vals, dx)
+            plain = k_ens.member_stats_reference(vals, dx)
+            exact = k_ens.member_stats_reference(vals.double(), dx.double())
+            torch.cuda.synchronize()
+        rows = {name: compare_f64(f"K8s (c) {name} E={e}", host(g), host(p), host(x))
+                for name, g, p, x in zip(("mean", "std", "dx"), got, plain, exact)}
+        if e == e_main:
+            out["reduce_err"] = max(r["max_abs_err_vs_plain"] for r in rows.values())
+        emit(card, phase="k8s", part="c", members=e, n=n, fields=c, dx_fields=cd,
+             criterion="compare_f64", rows=rows)
+    return out
+
+
+def served_fixture_ensemble(fx: dict, kind: str):
+    """The fixture's members as JAX-layout nets, and their coefficients."""
+    from pinns_tpu_torch.models.mlp import MLPSpec
+
+    paths = {}
+    if f"{kind}_n_paths" in fx:
+        paths = {"n_paths": int(fx[f"{kind}_n_paths"]),
+                 "path_degree": int(fx[f"{kind}_path_degree"]),
+                 "path_sharpness": float(fx[f"{kind}_path_sharpness"])}
+    spec = MLPSpec(layers=tuple(int(v) for v in fx[f"{kind}_layers"]),
+                   lb=tuple(fx[f"{kind}_lb"]), ub=tuple(fx[f"{kind}_ub"]), **paths)
+    nets = [net_of(f, spec) for f in fx[f"{kind}_params"]]
+    return spec, nets, [float(v) for v in fx[f"{kind}_lambda1"]], \
+        [float(v) for v in fx[f"{kind}_lambda2"]]
+
+
+def hold_rows(name: str, got: dict, want: dict, n: int, windows: dict) -> dict:
+    """A calibration row of the port's predictions against JAX's. k_conf95
+    and each mond_k within rtol 1e-3 of JAX's, or inside its window
+    (``quantile_windows``): a quantile picks one score, and where members
+    agree to 1e-4 the std, a difference, carries float32 noise of 1e-3 of
+    itself, so the pick moves as far as the scores around it move. k95 rtol
+    1e-3; mond_edges and the rest rtol 1e-4. Coverages within 2/n + 1e-3: a
+    point whose error lies within float32 noise of its band's edge k std
+    flips, as a point near a Mondrian edge changes its bin, and no more
+    than 0.1% of the points may (the grid's 47,100 Euler points put five
+    such flips into cov_conf95 of E on the CPU's plain versions alone).
+    Every key is held before the first failure raises."""
+    check(sorted(got) == sorted(want), f"{name}: keys {sorted(got)} vs {sorted(want)}")
+    worst, bad, by_window = 0.0, [], []
+    for k, w in want.items():
+        g = got[k]
+        if k == "mond_feature":
+            check(g == w, f"{name} {k}")
+            continue
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        if k.startswith("cov"):
+            ok = bool(np.all(np.abs(g - w) <= 2.0 / n + 1e-3))
+        else:
+            rtol = 1e-3 if k in ("k_conf95", "k95", "mond_k") else 1e-4
+            close_ = np.abs(g - w) <= rtol * np.abs(w)
+            ok = bool(np.all(close_))
+            if not ok and k in windows:
+                lo, hi = (np.asarray(v, np.float64) for v in windows[k])
+                ok = bool(np.all(close_ | ((g >= lo) & (g <= hi))))
+                by_window += [k] if ok else []
+            worst = max(worst, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))))
+        if not ok:
+            bad.append(f"{k}: port {g.tolist()} vs JAX {w.tolist()}, window "
+                       f"{[np.asarray(v).tolist() for v in windows.get(k, ())]}")
+    check(not bad, f"{name}: {bad}")
+    return {"max_rel_err": worst, "held_by_window": by_window}
+
+
+def quantile_windows(kind: str, fx: dict, grid: dict, exact: dict, feature: str,
+                     alpha: float = 0.05, n_bins: int = 4) -> dict:
+    """Per network field, the windows of k_conf95 and mond_k: calibration_
+    stats's quantiles (method 'higher') of JAX's scores s over its
+    calibration subset, each score moved down and up by d, how far it moves
+    between JAX's predictions and the port's (s = |mean - exact| / (std +
+    1e-12)). A quantile is monotone in the scores, so the port's, over the
+    same points, lies in [q(s - d), q(s + d)]; mond_k's bins are JAX's (its
+    feature at those points over its edges). The two packages' mean and std
+    at the subset are first held as the served outputs are."""
+    idx = fx[f"{kind}_cal_idx"]
+    m = idx.size
+    level = min(1.0, math.ceil((m + 1) * (1.0 - alpha)) / m)
+    q = lambda v, lvl: float(np.quantile(v, lvl, method="higher"))  # noqa: E731
+    out = {}
+    for j, field in enumerate(str(f) for f in fx[f"{kind}_cal_fields"]):
+        ex = np.asarray(exact[field], np.float64)[idx, 0]
+        mp, sp = (np.asarray(grid[field][s], np.float64)[idx, 0] for s in ("mean", "std"))
+        mj, sj, dxj = (np.asarray(fx[f"{kind}_cal_{s}"], np.float64)[:, j]
+                       for s in ("mean", "std", "dx"))
+        scale = float(np.abs(mj).max())
+        check(bool(np.all(np.abs(mp - mj) <= 1e-5 * scale + 1e-5 * np.abs(mj))) and
+              bool(np.all(np.abs(sp - sj) <= 1e-5 * scale)),
+              f"{kind} {field}: the calibration subset's mean or std off JAX's")
+        s_j = np.abs(mj - ex) / (sj + 1e-12)
+        d = np.abs(np.abs(mp - ex) / (sp + 1e-12) - s_j)
+        k_win = (q(s_j - d, level), q(s_j + d, level))
+        feat = dxj if feature == "dx" else sj
+        edges = np.quantile(feat[: m // 2], np.linspace(0.0, 1.0, n_bins + 1)[1:-1])
+        half = np.arange(m // 2, m)
+        bins = np.searchsorted(edges, feat[half], side="right")
+        lo, hi = [], []
+        for b in range(n_bins):
+            sel = half[bins == b]
+            if sel.size >= 20:
+                lvl = min(1.0, math.ceil((sel.size + 1) * (1.0 - alpha)) / sel.size)
+                lo.append(q(s_j[sel] - d[sel], lvl))
+                hi.append(q(s_j[sel] + d[sel], lvl))
+            else:
+                lo.append(k_win[0])
+                hi.append(k_win[1])
+        out[field] = {"k_conf95": k_win, "mond_k": (lo, hi)}
+    return out
+
+
+def phase_ens_fixture(card: str) -> dict:
+    """34: the committed JAX fixture's ensembles (Burgers 8x20 E 4, the
+    full-width euler_weak_fast trunk with two shock paths E 3) through the
+    port's uq_calibration on the card against JAX's rows (hold_rows), then
+    exported and served (ServedModel on the card): mean, std and dx against
+    JAX's ensemble_predict, the Mondrian bins at the served points against
+    JAX's."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.interop import params_from_jax
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.serve import ServedModel, export_ensemble
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    with np.load(ENS_FIXTURE, allow_pickle=False) as z:
+        fx = {k: z[k] for k in z.files}
+    out = {}
+    for kind in ("burgers", "euler"):
+        preset = str(fx[f"{kind}_preset"])
+        trainer = Trainer(get_preset(preset), device="cuda")
+        spec, nets, lam1, lam2 = served_fixture_ensemble(fx, kind)
+        check(np.allclose(trainer.problem.spec.lb, spec.lb) and
+              np.allclose(trainer.problem.spec.ub, spec.ub), f"{kind}: grid bounds differ")
+        stacked = types.SimpleNamespace(params=ens.stack_params([
+            {"net": params_from_jax(net, trainer.device),
+             "coeffs": {"lambda1": torch.tensor([a], device=trainer.device),
+                        "lambda2": torch.tensor([b], device=trainer.device)}}
+            for net, a, b in zip(nets, lam1, lam2)]))
+        want_cal = json.loads(str(fx[f"{kind}_calibration"]))
+        ds = trainer.problem.dataset
+        grid = ens.ensemble_predict(trainer, stacked, ds.X_star)
+        rows = {}
+        cal = {}
+        for feature in ("std", "dx"):
+            cal[feature] = ens.uq_calibration(trainer, stacked, mond_feature=feature)
+            windows = quantile_windows(kind, fx, grid, ds.star, feature)
+            for field, row in cal[feature].items():
+                rows[f"{field}/{feature}"] = hold_rows(f"{kind} {field} {feature}", row,
+                                                        want_cal[feature][field], ds.n_points,
+                                                        windows[field])
+        with tempfile.TemporaryDirectory() as tmp:
+            art = export_ensemble(spec, nets, os.path.join(tmp, "ens"), lam1, lam2,
+                                  experiment=preset, pde=trainer.exp.pde.kind,
+                                  gamma=trainer.exp.pde.gamma, calibration=cal["dx"])
+            served = ServedModel(art, device="cuda")
+            x = fx[f"{kind}_x"]
+            reset_counts()
+            got = served.predict(x, pad_to_bucket=True)
+            launches = kernel_counts()
+        check(launches["member_stats"] == 1 and launches["taylor1"] == len(nets)
+              and launches["taylor2_members"] == (1 if kind == "burgers" else 0),
+              f"{kind}: served launches {launches}")
+        errs = {}
+        for k, g in got.items():
+            # mean and dx rtol 1e-5 / atol 1e-5 max|JAX| (1e-4 for the
+            # residuals f, f1..f3); the std, a difference, atol alone, of
+            # the max|mean| of its field
+            name, _, what = k.partition("_")
+            want = fx[f"{kind}_{name}_{what or 'mean'}"]
+            scale = float(np.abs(want if what == "dx" else fx[f"{kind}_{name}_mean"]).max())
+            atol = (1e-4 if name.startswith("f") else 1e-5) * scale
+            err = np.abs(np.asarray(g, np.float64) - want)
+            rtol_part = 0.0 if what == "std" else 1e-5 * np.abs(want)
+            check(bool(np.all(err <= atol + rtol_part)),
+                  f"{kind} {k}: max err {float(err.max())} > atol {atol}")
+            errs[k] = float(err.max())
+        moved = {}
+        for field, row in want_cal["dx"].items():
+            edges = np.asarray(row["mond_edges"])
+            fj, fp = fx[f"{kind}_{field}_dx"].ravel(), got[f"{field}_dx"].ravel()
+            bins = np.searchsorted(edges, fp, side="right") != np.searchsorted(edges, fj,
+                                                                                side="right")
+            near = np.min(np.abs(fj[:, None] - edges[None, :]), axis=1) <= \
+                1e-4 * np.abs(edges).max() + 1e-5 * np.abs(fj).max()
+            check(not np.any(bins & ~near) and bins.sum() <= 1e-3 * fj.size,
+                  f"{kind} {field}: {int(bins.sum())} points changed their Mondrian bin")
+            moved[field] = int(bins.sum())
+        out[kind] = max(errs.values())
+        emit(card, phase="ens-fixture", ensemble=kind, preset=preset, members=len(nets),
+             net=f"{len(spec.layers) - 2}x{max(spec.layers)}", paths=spec.n_paths,
+             n=int(x.shape[0]), max_abs_err=errs, calibration=rows, bins_moved=moved,
+             launches={k: v for k, v in launches.items() if v})
+    return out
+
+
+def serve_checks(art: str, point_art: str, x: np.ndarray, fields) -> dict:
+    """The HTTP server over an ensemble artifact on the card: /meta, bands by
+    JSON and by npy equal to the served model's own, and a 400 for bands on
+    a point artifact."""
+    from pinns_tpu_torch.serve import ServedModel, make_http_server
+
+    served = ServedModel(art, device="cuda")
+    want = served.add_bands(served.predict(x, pad_to_bucket=True))
+    check(all(f"{f}_band" in want for f in fields), f"bands {sorted(want)}")
+    out = {}
+    for path in (art, point_art):
+        server = make_http_server(path, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            if path == point_art:
+                code, _, body = http(base + "/predict", json.dumps(
+                    {"x": x[:4].tolist(), "bands": True}).encode())
+                check(code == 400 and "calibration" in json.loads(body)["error"],
+                      f"bands on a point artifact answered {code}")
+                out["point_bands_status"] = code
+                continue
+            code, _, body = http(base + "/meta")
+            check(code == 200 and json.loads(body) == served.meta, "GET /meta")
+            code, _, body = http(base + "/predict", json.dumps(
+                {"x": x[:8].tolist(), "bands": True}).encode())
+            check(code == 200, f"JSON bands answered {code}: {body[:200]!r}")
+            w8 = served.add_bands(served.predict(x[:8], pad_to_bucket=True))
+            got = {k: np.asarray(v, np.float32) for k, v in json.loads(body).items()}
+            check(sorted(got) == sorted(w8) and all(
+                np.array_equal(got[k], np.asarray(w8[k], np.float32)) for k in w8),
+                "JSON bands differ")
+            buf = io.BytesIO()
+            np.save(buf, x)
+            code, ctype, body = http(base + "/predict?bands=1", buf.getvalue(),
+                                     "application/x-npy")
+            check(code == 200 and ctype == "application/x-npz", f"npy bands answered {code}")
+            with np.load(io.BytesIO(body)) as z:
+                check(sorted(z.files) == sorted(want) and all(
+                    np.array_equal(z[k], np.asarray(want[k], np.float32)) for k in want),
+                    "npy bands differ")
+            out.update(json_points=8, npy_points=int(x.shape[0]))
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "HTTP server thread did not stop")
+    return out
+
+
+def serve_ensemble_cli(tmp: str, preset: str, ckpts, sets, features, x) -> dict:
+    """export --calibrate for each Mondrian feature, predict --bands and eval
+    --artifact on each artifact, the CLI in this process."""
+    from pinns_tpu_torch.train.evaluate import DX_FIELDS
+
+    out = {}
+    pts = os.path.join(tmp, f"{preset}_pts.npz")
+    np.savez(pts, x=x)
+    for feature in features:
+        art = os.path.join(tmp, f"{preset}_{feature}")
+        rc, rows = cli_lines(["export", "--preset", preset, *sets, "--checkpoint", *ckpts,
+                              "--calibrate", "--mond-feature", feature, "--out", art,
+                              "--device", "cuda"])
+        check(rc == 0 and [r["field"] for r in rows] == list(DX_FIELDS[
+            "euler" if preset.startswith("euler") else "burgers"]), f"export rows {rows}")
+        check(all(r["mond_feature"] == feature and math.isfinite(r["k_conf95"]) for r in rows),
+              f"calibration rows {rows}")
+        pred = os.path.join(tmp, f"{preset}_{feature}_pred.npz")
+        rc, _ = cli_lines(["predict", "--artifact", art, "--points", pts, "--out", pred,
+                           "--bands", "--device", "cuda"])
+        check(rc == 0, f"predict --bands exited {rc}")
+        with np.load(pred) as z:
+            bands = {k: z[k] for k in z.files if k.endswith("_band")}
+        check(len(bands) == len(rows) and all(
+            b.shape == (x.shape[0], 1) and bool(np.isfinite(b).all()) and bool((b >= 0).all())
+            for b in bands.values()), f"predict --bands gave {sorted(bands)}")
+        graded = cli_json(["eval", "--artifact", art, *sets, "--device", "cuda"])
+        covs = {k: v for k, v in graded.items() if k.startswith("band_cov")}
+        check(len(covs) == 2 * len(rows) and all(0.0 <= v <= 1.0 for v in covs.values()),
+              f"eval --artifact band keys {graded}")
+        out[feature] = {"artifact": art, "k_conf95": {r["field"]: r["k_conf95"] for r in rows},
+                        "eval": {k: v for k, v in graded.items()
+                                 if k.startswith(("band_", "rel_l2_"))}}
+    return out
+
+
+def phase_ensemble_serve(card: str, ckpt_dir: str, tmp: str) -> dict:
+    """35: this slice's main path, the CLI and the HTTP server on the card,
+    no plain call: phase 31's four abgrall_admm members -> export --calibrate
+    (--mond-feature std and dx) -> predict --bands -> eval --artifact -> HTTP
+    (bands by JSON and npy; a 400 for bands on phase 4's point artifact);
+    then train euler_weak_fast --ensemble 8 for ENS_EULER epochs (the member
+    loop) -> export --calibrate --mond-feature dx at the 47,100 grid points
+    -> the same serving checks -> export --select rank --anchor (the same
+    members) with meta['selection']. The counts of this run are the slice's
+    launches."""
+    from pinns_tpu_torch.data.datasets import load_burgers_mat, load_euler_mat
+
+    point_art = os.path.join(tmp, "point")
+    cli_json(["export", "--params", FIXTURE, "--out", point_art])
+    burgers = [os.path.join(ckpt_dir, f"abgrall_admm_final_m{i}.ckpt")
+               for i in range(ENS_CLI["members"])]
+    c = ENS_EULER
+    reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        xb = load_burgers_mat("twosin_burgers_shock").X_star
+        rb = serve_ensemble_cli(tmp, "abgrall_admm", burgers, [], ("std", "dx"), xb)
+        hb = serve_checks(rb["dx"]["artifact"], point_art, xb[:4_096], ("u",))
+        burgers_launches = kernel_counts()
+        t1 = time.perf_counter()
+        rc, lines = cli_lines(["train", "--preset", PATH_PRESET, "--ensemble", str(c["members"]),
+                               "--epochs", str(c["epochs"]), "--device", "cuda",
+                               "--out-dir", os.path.join(tmp, "ewf")])
+        check(rc == 0 and len(lines) == c["members"], f"train --ensemble exited {rc}")
+        t2 = time.perf_counter()
+        members = [os.path.join(tmp, "ewf", f"{PATH_PRESET}_final_m{i}.ckpt")
+                   for i in range(c["members"])]
+        xe = load_euler_mat("abgrall_eulers").X_star
+        re_ = serve_ensemble_cli(tmp, PATH_PRESET, members, [], ("dx",), xe)
+        he = serve_checks(re_["dx"]["artifact"], point_art, xe[:4_096], ("rho", "u", "E"))
+        sel_art = os.path.join(tmp, "selected")
+        rc, sel = cli_lines(["export", "--preset", PATH_PRESET, "--checkpoint", *members,
+                             "--select", "rank", "--anchor", *members, "--out", sel_art,
+                             "--device", "cuda"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    launches = kernel_counts()
+    check(rc == 0 and sel[-1]["by"] == "rank" and 0 <= sel[-1]["selected"] < c["members"],
+          f"export --select: {sel}")
+    with open(os.path.join(sel_art, "meta.json")) as f:
+        selection = json.load(f)["selection"]
+    check(selection["selected"] == sel[-1]["selected"] and selection["anchor"] == members
+          and len(selection["scores"]) == c["members"], f"meta['selection'] {selection}")
+    check(plain.calls == 0, f"{plain.calls} calls of a plain version on the serving path")
+    check(burgers_launches["taylor2_members"] > 0 and burgers_launches["member_stats"] > 0
+          and burgers_launches["taylor1"] > 0, f"Burgers serving launches {burgers_launches}")
+    check(launches["member_stats"] > burgers_launches["member_stats"]
+          and launches["taylor1"] > burgers_launches["taylor1"],
+          f"Euler serving launches {launches}")
+    emit(card, phase="ensemble-serve", burgers={"members": len(burgers), **rb, "http": hb},
+         euler={"preset": PATH_PRESET, **c, "train_s": t2 - t1,
+                "rel_l2": [{k: v for k, v in ln.items() if k.startswith("rel_l2")}
+                           for ln in lines], **re_, "http": he,
+                "selected": sel[-1]["selected"]},
+         launches=launches, burgers_launches=burgers_launches, plain_calls=plain.calls,
+         wall_s={"burgers": t1 - t0, "euler": t3 - t1})
+    return {"launches": launches, "burgers_art": rb["dx"]["artifact"],
+            "euler_art": re_["dx"]["artifact"]}
+
+
+def phase_ens_serve_times(card: str, serve: dict) -> dict:
+    """times: served ensemble predict (host clock, medians) at 25,600 points
+    (Burgers, E 8: the fixture's members and four more) and 47,100 (Euler,
+    phase 35's E 8), with and without bands; K8s (a) against E solo K1 calls
+    and the plain version, and (c) beside its bound and torch.std_mean, by
+    CUDA events."""
+    from pinns_tpu_torch.data.datasets import load_euler_mat
+    from pinns_tpu_torch.models.mlp import MLPSpec
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ens
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.parallel.ensemble import pack_members
+    from pinns_tpu_torch.interop import params_from_jax
+    from pinns_tpu_torch.serve import ServedModel, export_ensemble
+
+    with np.load(ENS_FIXTURE, allow_pickle=False) as z:
+        fx = {k: z[k] for k in z.files}
+    spec, nets, lam1, lam2 = served_fixture_ensemble(fx, "burgers")
+    rng = np.random.default_rng(350)
+    nets = nets + [[{k: (v * (1.0 + 0.01 * rng.standard_normal(v.shape))).astype(np.float32)
+                     for k, v in layer.items()} for layer in nets[0]] for _ in range(4)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cal = json.loads(str(fx["burgers_calibration"]))["dx"]
+        art = export_ensemble(spec, nets, os.path.join(tmp, "b8"), lam1 * 2, lam2 * 2,
+                              experiment="burgers_forward", calibration=cal)
+        cases = (("burgers", art, fx["burgers_x"]),
+                 ("euler", serve["euler_art"], load_euler_mat("abgrall_eulers").X_star))
+        for kind, path, x in cases:
+            served = ServedModel(path, device="cuda")
+            plain_ms = host_ms(lambda: served.predict(x, pad_to_bucket=True))
+            bands_ms = host_ms(lambda: served.add_bands(served.predict(x, pad_to_bucket=True)))
+            out[kind] = (plain_ms, bands_ms)
+            emit(card, phase="times", what="served_ensemble_predict", ensemble=kind,
+                 members=served.members, n=int(x.shape[0]), ms=plain_ms, bands_ms=bands_ms,
+                 points_per_s=x.shape[0] / (plain_ms / 1e3), reps=REPS, clock="host")
+    layers, e, n = K8S_MAIN
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    tnets = [params_from_jax(net, "cuda") for net in nets[:e]]
+    flat = pack_members(tnets)
+    x = points(n, seed=351, device="cuda")
+    with torch.inference_mode():
+        ms = event_ms(lambda: k_taylor2.taylor2_members(spec, flat, x))
+        solo_ms = event_ms(lambda: [k_taylor2.taylor2(spec, net, x) for net in tnets])
+        plain_ms = event_ms(lambda: k_taylor2.taylor2_members_reference(spec, flat, x))
+    b = members_bound(layers, e, n)
+    out["members"] = (ms, plain_ms, b, solo_ms)
+    emit(card, phase="times", what="k8s_members", net="8x20", members=e, n=n, kernel_ms=ms,
+         solo_k1_calls_ms=solo_ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+         reps=REPS, clock="cuda_events")
+    e, n, c, cd = K8S_REDUCE
+    vals, dx = reduce_inputs(e, n, c, cd, seed=352, device="cuda")
+    with torch.inference_mode():
+        ms = event_ms(lambda: k_ens.member_stats(vals, dx))
+        plain_ms = event_ms(lambda: k_ens.member_stats_reference(vals, dx))
+        lib_ms = event_ms(lambda: torch.std_mean(vals, dim=0, correction=0))
+    b = reduce_bound(e, n, c, cd)
+    out["reduce"] = (ms, plain_ms, b, lib_ms)
+    emit(card, phase="times", what="k8s_reduce", members=e, n=n, fields=c, dx_fields=cd,
+         kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         library="torch.std_mean over dim 0 (mean and std only, no dx)", bound_ms=b[0],
+         bound_by=b[1], reps=REPS, clock="cuda_events")
     return out
 
 
@@ -3324,10 +3856,17 @@ def main() -> int:
     ewf = timed(card, "euler_weak_fast", phase_path_train, card)
     t9 = timed(card, "times-paths", phase_path_times, card, ewf)
 
-    # -- 30-32: ensembles (K8, the member-batched narrow K3) ----------------
-    k8 = timed(card, "k8", phase_k8, card)
-    ens_cli = timed(card, "ensemble-cli", phase_ensemble_cli, card)
-    t10 = timed(card, "times-ensemble", phase_ensemble_times, card)
+    with tempfile.TemporaryDirectory() as ens_tmp:
+        # -- 30-32: ensembles (K8, the member-batched narrow K3) ------------
+        k8 = timed(card, "k8", phase_k8, card)
+        ens_cli = timed(card, "ensemble-cli", phase_ensemble_cli, card, ens_tmp)
+        t10 = timed(card, "times-ensemble", phase_ensemble_times, card)
+
+        # -- 33-35 and times: serving an ensemble (K8s) ---------------------
+        k8s = timed(card, "k8s", phase_k8s, card)
+        timed(card, "ens-fixture", phase_ens_fixture, card)
+        serve = timed(card, "ensemble-serve", phase_ensemble_serve, card, ens_tmp, ens_tmp)
+        t11 = timed(card, "times-ens-serve", phase_ens_serve_times, card, serve)
 
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
@@ -3473,6 +4012,31 @@ def main() -> int:
         **{f"e{n}": {"ms": t10[n][0], "member_epochs_per_s": t10[n][1],
                      **bound_fields(t10[n][3])} for n in K8_TIMES if n != K8_MAIN},
         "solo_k3": {"ms": t10["solo"][0], "epochs_per_s": t10["solo"][1]},
+    }, {
+        "name": "taylor2_members",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor2.cu",
+        "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:420",
+        "launches": serve["launches"]["taylor2_members"],
+        "max_abs_err": k8s["members_err"],
+        "ms": t11["members"][0],
+        "plain_ms": t11["members"][1],
+        **bound_fields(t11["members"][2]),
+        "members": K8S_MAIN[1],
+        "solo_k1_calls_ms": t11["members"][3],
+    }, {
+        "name": "member_stats",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/ensemble.cu",
+        "replaces": "pinns_tpu/parallel/ensemble.py:340",
+        "launches": serve["launches"]["member_stats"],
+        "max_abs_err": k8s["reduce_err"],
+        "ms": t11["reduce"][0],
+        "plain_ms": t11["reduce"][1],
+        "bound_ms": t11["reduce"][2][0],
+        "bound_by": t11["reduce"][2][1],
+        # torch.std_mean over the members: mean and std, not the dx mean
+        "library_ms": t11["reduce"][3],
     }] + [{
         "name": f"weakform_{what}",
         "route": "cuda",

@@ -11,11 +11,15 @@
   export   --params P.npz --out D                 write a serving artifact
   export   --preset NAME [--set ...] --checkpoint CKPT --out D [--device cuda|cpu]
                                                   the same artifact from a checkpoint
+  export   --preset NAME --checkpoint M0 ... ME-1 --out D [--calibrate]
+           [--mond-feature dx|std]                an ensemble artifact (mean, std, bands)
+  export   --preset NAME --checkpoint M0 ... --select score|consensus|rank
+           [--anchor A0 ...] --out D              the member picked without ground truth
   eval     --preset NAME [--set ...] --checkpoint CKPT [--device cuda|cpu]
   eval     --artifact D [--preset NAME] [--device cuda|cpu]
-                                                  rel-L2 per field on the preset's grid
+                                                  rel-L2 (and band coverage) per field
   serve    --artifact D --port N --device cuda    HTTP server (GET /meta, POST /predict)
-  predict  --artifact D --points P.npz --out O.npz --device cuda
+  predict  --artifact D --points P.npz --out O.npz [--bands] --device cuda
                                                   batch inference, npz/csv in and out
 
 ``train`` runs the preset's schedule (on cuda, an Adam epoch inside the fused
@@ -47,11 +51,21 @@ any configuration failed.
 ``export`` takes a params file (``pinns_tpu_torch.interop`` format, e.g.
 written from a JAX run by ``scripts/make_torch_port_fixture.py``; its ``pde``
 key makes a Burgers or an Euler artifact) or a checkpoint of the port's own
-training with its preset. ``eval`` prints ``Trainer.evaluate``'s JSON for a
-checkpoint, or grades an artifact against its dataset's grid. Ensemble
-artifacts (several checkpoints, ``--select``, ``--calibrate``) and band
-coverage come with slice 4b. ``--device`` defaults to cuda and raises when no
-card is visible; pass ``--device cpu`` for the plain PyTorch path.
+training with its preset. Several checkpoints (the ``<name>_final_m<i>.ckpt``
+that ``train --ensemble`` writes) make an ensemble artifact
+(``serve.export_ensemble``); ``--calibrate`` bakes the split-conformal and
+Mondrian band factors measured on the preset's grid into it
+(``parallel.ensemble.uq_calibration``, binned on ``--mond-feature``, by
+default the predicted |d/dx|) and prints one row a field; ``--select``
+scores the members without ground truth (seed ``train.seed + 777``, the
+consensus against ``--anchor``'s members or the members themselves) and
+exports the pick as a point artifact with ``meta["selection"]``. ``eval``
+prints ``Trainer.evaluate``'s JSON for a checkpoint, or grades an artifact
+against its dataset's grid (with the coverage of the served bands for an
+ensemble: ``band_k_*``, ``band_cov_*``, ``band_cov_mond_*``). ``predict
+--bands`` adds each calibrated field's ``{name}_band`` half-width.
+``--device`` defaults to cuda and raises when no card is visible; pass
+``--device cpu`` for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -193,16 +207,13 @@ def cmd_sweep(args) -> int:
     return 0 if ok == len(results) else 1
 
 
-ENSEMBLE_SLICE = "slice 4b (ensemble serving)"
-
-
 def cmd_export(args) -> int:
     from pinns_tpu_torch.serve import export_predict
 
     if args.params:
         from pinns_tpu_torch.interop import load_params_npz
 
-        if args.checkpoint or args.preset:
+        if args.checkpoint or args.preset or args.select or args.calibrate:
             raise SystemExit("export takes --params, or --preset with --checkpoint")
         loaded = load_params_npz(args.params)
         path = export_predict(
@@ -214,21 +225,102 @@ def cmd_export(args) -> int:
         return 0
     if not (args.preset and args.checkpoint):
         raise SystemExit("export needs --params, or --preset with --checkpoint")
-    if len(args.checkpoint) > 1 or args.select or args.calibrate:
-        raise SystemExit("ensemble artifacts (several checkpoints, --select, --calibrate) "
-                         f"come with {ENSEMBLE_SLICE}")
-    from pinns_tpu_torch.train import checkpoint as ckpt_io
-    from pinns_tpu_torch.train.trainer import build_problem
+    # JAX's refusals, before anything is loaded
+    if args.select and args.calibrate:
+        raise SystemExit("--select exports a single member (no ensemble spread to "
+                         "calibrate); use a plain ensemble export for calibrated bands")
+    if args.select and len(args.checkpoint) < 2:
+        raise SystemExit("--select needs >= 2 member checkpoints to rank")
+    if args.calibrate and len(args.checkpoint) < 2:
+        raise SystemExit("--calibrate needs an ensemble: pass every member checkpoint "
+                         "(calibration is the conformal factor over member spread)")
+    from pinns_tpu_torch.train.trainer import Trainer
 
     exp = _build_exp(args)
-    problem = build_problem(exp, args.device, args.data)
-    state = ckpt_io.load_checkpoint(args.checkpoint[0], problem.device)
-    lam1, lam2 = problem.effective_coeffs(state.params)
-    path = export_predict(
-        problem.spec, state.params["net"], args.out,
-        lambda1=float(lam1.reshape(-1)[0]), lambda2=float(lam2.reshape(-1)[0]),
-        experiment=exp.name, pde=exp.pde.kind, gamma=exp.pde.gamma,
-    )
+    trainer = Trainer(exp, device=args.device, dataset=args.data)
+    if args.select:
+        return _export_selected(args, trainer)
+    states = [trainer.load_checkpoint(c) for c in args.checkpoint]
+    if len(states) == 1:
+        path = _export_member(trainer, states[0], args.out)
+    else:
+        path = _export_ensemble(args, trainer, states)
+    print(path)
+    return 0
+
+
+def _coeffs(problem, params):
+    """The effective Burgers coefficients of a member as floats."""
+    lam1, lam2 = problem.effective_coeffs(params)
+    return float(lam1.reshape(-1)[0]), float(lam2.reshape(-1)[0])
+
+
+def _export_member(trainer, state, out: str) -> str:
+    from pinns_tpu_torch.serve import export_predict
+
+    problem, exp = trainer.problem, trainer.exp
+    lam1, lam2 = _coeffs(problem, state.params)
+    return export_predict(problem.spec, state.params["net"], out, lambda1=lam1, lambda2=lam2,
+                          experiment=exp.name, pde=exp.pde.kind, gamma=exp.pde.gamma)
+
+
+def _stacked(states):
+    """The members' params as a stacked state (prediction, calibration and
+    selection read nothing else)."""
+    from pinns_tpu_torch.parallel.ensemble import stack_params
+
+    return states[0]._replace(params=stack_params([s.params for s in states]))
+
+
+def _export_ensemble(args, trainer, states) -> str:
+    """An ensemble artifact of the member checkpoints; with --calibrate the
+    band factors on the preset's grid, one printed row a field."""
+    from pinns_tpu_torch.parallel.ensemble import uq_calibration
+    from pinns_tpu_torch.serve import export_ensemble
+
+    problem, exp = trainer.problem, trainer.exp
+    cal = None
+    if args.calibrate:
+        cal = uq_calibration(trainer, _stacked(states), mond_feature=args.mond_feature)
+        for field, row in cal.items():
+            print(json.dumps({"field": field, **{
+                k: ([round(float(x), 4) for x in v] if isinstance(v, list)
+                    else v if isinstance(v, str) else round(float(v), 4))
+                for k, v in row.items()}}), flush=True)
+    coeffs = [_coeffs(problem, s.params) for s in states]
+    return export_ensemble(problem.spec, [s.params["net"] for s in states], args.out,
+                           [c[0] for c in coeffs], [c[1] for c in coeffs], experiment=exp.name,
+                           pde=exp.pde.kind, gamma=exp.pde.gamma, calibration=cal)
+
+
+def _export_selected(args, trainer) -> int:
+    """``export --select``: score the member checkpoints without ground truth
+    and export the pick as a point artifact, the scores and the pick in its
+    meta (JAX's ``_export_selected``)."""
+    import os
+
+    from pinns_tpu_torch.parallel.ensemble import select_member, selection_scores
+
+    states = [trainer.load_checkpoint(c) for c in args.checkpoint]
+    stacked = _stacked(states)
+    anchor_params = None
+    if args.select in ("consensus", "rank"):
+        anchor_params = (_stacked([trainer.load_checkpoint(c) for c in args.anchor]).params
+                         if args.anchor else stacked.params)
+    scores = selection_scores(trainer, stacked, len(states), seed=trainer.exp.train.seed + 777,
+                              anchor_params=anchor_params)
+    sel = select_member(scores, by=args.select)
+    print(json.dumps({"selected": sel, "by": args.select, "scores": scores}), flush=True)
+    path = _export_member(trainer, states[sel], args.out)
+    meta_path = os.path.join(path, "meta.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["selection"] = {"by": args.select, "selected": sel,
+                         "checkpoints": list(args.checkpoint),
+                         "anchor": list(args.anchor) if args.anchor else None,
+                         "scores": scores}
+    with open(meta_path, "w") as f:
+        json.dump(meta, f, indent=1)
     print(path)
     return 0
 
@@ -249,7 +341,9 @@ def cmd_eval(args) -> int:
 def _eval_artifact(args) -> int:
     """Grade a serving artifact against its dataset's exact grid: the rel-L2
     of each served field there (the preset defaults to the artifact's own
-    experiment)."""
+    experiment) and, for an ensemble, the coverage of its band: ``band_k_*``
+    (the global factor), ``band_cov_*`` (|mean - exact| <= k std) and, for a
+    Mondrian calibration, ``band_cov_mond_*`` (``ServedModel.band_ks``)."""
     from pinns_tpu_torch.serve import load_exported
     from pinns_tpu_torch.train.evaluate import relative_l2
     from pinns_tpu_torch.train.trainer import build_problem
@@ -265,8 +359,19 @@ def _eval_artifact(args) -> int:
     out = {"artifact": args.artifact, "experiment": exp.name,
            "truth": getattr(ds, "provenance", "unknown")}
     for name in sorted(ds.star):
-        if name in preds:
-            out[f"rel_l2_{name}"] = relative_l2(preds[name], ds.star[name])
+        if name not in preds:
+            continue
+        exact = np.asarray(ds.star[name])
+        out[f"rel_l2_{name}"] = relative_l2(preds[name], exact)
+        std = preds.get(f"{name}_std")
+        if std is not None:
+            k = served.band_k(name)
+            err = np.abs(np.asarray(preds[name]) - exact)
+            out[f"band_k_{name}"] = round(float(k), 4)
+            out[f"band_cov_{name}"] = float(np.mean(err <= k * np.asarray(std)))
+            if ((served.meta.get("calibration") or {}).get(name) or {}).get("mond_k"):
+                kpt = served.band_ks(name, std, feature=preds.get(f"{name}_dx"))
+                out[f"band_cov_mond_{name}"] = float(np.mean(err <= kpt * np.asarray(std)))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -306,6 +411,11 @@ def cmd_predict(args) -> int:
     served = load_exported(args.artifact, device=args.device)
     x = np.atleast_2d(np.asarray(_read_points(args.points), np.float32))
     out = served.predict(x)
+    if args.bands:
+        if not served.meta.get("calibration"):  # the HTTP policy: no silent 2 std band
+            raise SystemExit("artifact carries no calibration metadata; export with "
+                             "--calibrate to emit bands")
+        out = served.add_bands(out)
     if args.out.endswith(".npz"):
         np.savez(args.out, x=x, **{k: np.asarray(v, np.float32) for k, v in out.items()})
     else:
@@ -360,10 +470,23 @@ def build_parser() -> argparse.ArgumentParser:
                                       "checkpoint")
     add_common(p, preset_required=False)
     p.add_argument("--params", help="params .npz (interop format)")
-    p.add_argument("--checkpoint", nargs="+", help="a checkpoint of the preset's training")
+    p.add_argument("--checkpoint", nargs="+",
+                   help="a checkpoint of the preset's training, or every member checkpoint "
+                        "(train --ensemble writes <name>_final_m<i>.ckpt) for an ensemble")
     p.add_argument("--out", required=True, help="artifact directory")
-    p.add_argument("--select", help="ensemble member selection (slice 4b)")
-    p.add_argument("--calibrate", action="store_true", help="ensemble bands (slice 4b)")
+    p.add_argument("--calibrate", action="store_true",
+                   help="bake split-conformal and Mondrian band factors, measured on the "
+                        "preset's grid, into the ensemble artifact's meta.json")
+    p.add_argument("--mond-feature", choices=("std", "dx"), default="dx",
+                   help="the Mondrian binning feature: the predicted |d(field)/dx| (default; "
+                        "the artifact then serves {field}_dx) or the predicted std")
+    p.add_argument("--select", choices=("score", "consensus", "rank"),
+                   help="export the one member picked without ground truth: 'score' the "
+                        "lowest data misfit + residual mean square, 'consensus' the nearest "
+                        "to the anchor ensemble's mean, 'rank' the rank sum of both")
+    p.add_argument("--anchor", nargs="+", default=None,
+                   help="anchor ensemble checkpoints of --select consensus/rank (default: "
+                        "the --checkpoint members)")
     p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("eval", help="evaluate a checkpoint, or grade a serving artifact")
@@ -384,6 +507,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--artifact", required=True)
     p.add_argument("--points", required=True, help=".npz with key 'x', or a 2-column csv")
     p.add_argument("--out", required=True, help=".npz or .csv")
+    p.add_argument("--bands", action="store_true",
+                   help="add the calibrated half-width {field}_band of a calibrated ensemble")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_predict)
     return ap

@@ -84,6 +84,14 @@
 // products (scripts/hmma_accumulation.py), and a pre-activation a few ulps
 // off flips the policy's next bf16 rounding away from the plain version's.
 // At width 20 and small N, the launch and the per-layer barriers.
+//
+// K8s (a), the member axis (pinns_taylor2_forward_members): E nets of one
+// shape in one launch, member m as blockIdx.y, its weights at m P of one
+// (E, P) buffer and its streams at m N C of each (E, N, C) output. It
+// replaces the vmap of JAX's ensemble prediction over the stacked members
+// (pinns_tpu/parallel/ensemble.py:340, pinns_tpu/serve.py:126). Each member's
+// blocks run a solo call's arithmetic, so its streams equal a solo call's bit
+// for bit; the work is E times a solo call's, bounded as above.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -124,7 +132,14 @@ narrow_kernel(const float* __restrict__ x, int n,
               const float* __restrict__ params, Net net, Policy q,
               float lb0, float lb1, float ub0, float ub1, int tile,
               float* __restrict__ u, float* __restrict__ ux,
-              float* __restrict__ ut, float* __restrict__ uxx) {
+              float* __restrict__ ut, float* __restrict__ uxx,
+              long long param_stride, long long out_stride) {
+  // member blockIdx.y: its weights at m param_stride, its streams at m out_stride
+  params += blockIdx.y * param_stride;
+  u += blockIdx.y * out_stride;
+  ux += blockIdx.y * out_stride;
+  ut += blockIdx.y * out_stride;
+  uxx += blockIdx.y * out_stride;
   extern __shared__ float4 smem4[];
   float* in = reinterpret_cast<float*>(smem4);
   const int ts = tile + 4;              // row stride, padded against bank conflicts
@@ -386,8 +401,15 @@ template <int kPol>
 __global__ void __launch_bounds__(kTiledMaxThreads, 1)
 tiled_kernel(const float* __restrict__ x, int n, const float* __restrict__ params, Net net,
              float lb0, float lb1, float ub0, float ub1, int mp, float* __restrict__ u,
-             float* __restrict__ ux, float* __restrict__ ut, float* __restrict__ uxx) {
+             float* __restrict__ ux, float* __restrict__ ut, float* __restrict__ uxx,
+             long long param_stride, long long out_stride) {
   constexpr bool kMixed = kPol >= 0;
+  // member blockIdx.y, as in the narrow design
+  params += blockIdx.y * param_stride;
+  u += blockIdx.y * out_stride;
+  ux += blockIdx.y * out_stride;
+  ut += blockIdx.y * out_stride;
+  uxx += blockIdx.y * out_stride;
   constexpr int kCode = kMixed ? kPol & 7 : 0;  // the rows of layers > 0 that take bf16(W)
   const Policy q{kMixed && (kPol & 1) != 0, kMixed && (kPol & 2) != 0,
                  kMixed && (kPol & 4) != 0, kMixed && (kPol & 8) != 0};
@@ -571,12 +593,20 @@ int tiled_threads(int max_width) {
 // the tiled design, which takes tile == kTP and threads == tiled_threads of
 // its widest layer input. Anything else is refused. Returns the CUDA error
 // code of the launch (0 on success).
+//
+// `members` nets of these widths in one launch (K8s's member axis, the grid's
+// y): member m's params start at m param_stride floats (param_stride >= the
+// net's parameter count) and its four outputs at m n dims[n_layers] floats of
+// each output buffer. The tile plan does not depend on `members`, and member
+// m's blocks run exactly the arithmetic of a one-member call on its weights,
+// so every member's streams equal a solo call's bit for bit.
 template <bool kMixed>
-int launch(const float* x, int n, const float* params, const int* dims, int n_layers,
-           const Policy& q, float lb0, float lb1, float ub0, float ub1, int tile,
-           int threads, float* u, float* ux, float* ut, float* uxx, int device,
-           void* stream) {
-  if (n < 0 || n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2) {
+int launch(const float* x, int n, const float* params, int members, long long param_stride,
+           const int* dims, int n_layers, const Policy& q, float lb0, float lb1, float ub0,
+           float ub1, int tile, int threads, float* u, float* ux, float* ut, float* uxx,
+           int device, void* stream) {
+  if (n < 0 || n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2 || members < 1 ||
+      members > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Net net;
@@ -598,6 +628,11 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
     net.b_off[l] = off;
     off += dims[l + 1];
   }
+  if (members > 1) {
+    if (param_stride < off) return static_cast<int>(cudaErrorInvalidValue);
+    if (param_stride % 4 != 0) net.vec_mask = 0;  // a later member's rows lose 16-byte alignment
+  }
+  const long long out_stride = static_cast<long long>(n) * dims[n_layers];
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool narrow = widest <= kNarrowWidth;
@@ -612,15 +647,15 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n == 0) return static_cast<int>(cudaSuccess);
-    const unsigned blocks = static_cast<unsigned>((n + tile - 1) / tile);
+    const dim3 blocks(static_cast<unsigned>((n + tile - 1) / tile), static_cast<unsigned>(members));
     narrow_kernel<kMixed><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, n, params, net, q, lb0, lb1, ub0, ub1, tile, u, ux, ut, uxx);
+        x, n, params, net, q, lb0, lb1, ub0, ub1, tile, u, ux, ut, uxx, param_stride, out_stride);
     return static_cast<int>(cudaGetLastError());
   }
   net.max_width = widest_in;
   if (tile != kTP) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>((n + kTP - 1) / kTP);
+  const dim3 blocks(static_cast<unsigned>((n + kTP - 1) / kTP), static_cast<unsigned>(members));
   if (threads != tiled_threads(widest_in) || threads > kTiledMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -631,7 +666,7 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
                                          static_cast<int>(smem));
     if (e != cudaSuccess || n == 0) return static_cast<int>(e);
     kernel<<<blocks, threads, smem, st>>>(x, n, params, net, lb0, lb1, ub0, ub1, mp, u, ux, ut,
-                                          uxx);
+                                          uxx, param_stride, out_stride);
     return static_cast<int>(cudaGetLastError());
   };
   if (!kMixed) return go(tiled_kernel<-1>);
@@ -659,8 +694,22 @@ extern "C" int pinns_taylor2_forward(const float* x, int n, const float* params,
                                      int threads, float* u, float* ux,
                                      float* ut, float* uxx, int device,
                                      void* stream) {
-  return launch<false>(x, n, params, dims, n_layers, Policy{false, false, false, false}, lb0,
-                       lb1, ub0, ub1, tile, threads, u, ux, ut, uxx, device, stream);
+  return launch<false>(x, n, params, 1, 0, dims, n_layers, Policy{false, false, false, false},
+                       lb0, lb1, ub0, ub1, tile, threads, u, ux, ut, uxx, device, stream);
+}
+
+// K8s (a): K1 for `members` nets of one shape in one launch; member m's
+// params at params + m param_stride, its streams at m n dims[n_layers] floats
+// into each output buffer (E, n, out); the rest as `launch`.
+extern "C" int pinns_taylor2_forward_members(const float* x, int n, const float* params,
+                                             int members, long long param_stride,
+                                             const int* dims, int n_layers, float lb0,
+                                             float lb1, float ub0, float ub1, int tile,
+                                             int threads, float* u, float* ux, float* ut,
+                                             float* uxx, int device, void* stream) {
+  return launch<false>(x, n, params, members, param_stride, dims, n_layers,
+                       Policy{false, false, false, false}, lb0, lb1, ub0, ub1, tile, threads, u,
+                       ux, ut, uxx, device, stream);
 }
 
 // K6: the fused pass under the bf16 stream policy; `params` are the float32
@@ -672,8 +721,8 @@ extern "C" int pinns_taylor2_mixed_forward(const float* x, int n, const float* p
                                            int tile, int threads, float* u, float* ux,
                                            float* ut, float* uxx, int device, void* stream) {
   if (policy < 0 || policy > 15) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(x, n, params, dims, n_layers, decode_policy(policy), lb0, lb1, ub0, ub1,
-                      tile, threads, u, ux, ut, uxx, device, stream);
+  return launch<true>(x, n, params, 1, 0, dims, n_layers, decode_policy(policy), lb0, lb1, ub0,
+                      ub1, tile, threads, u, ux, ut, uxx, device, stream);
 }
 
 extern "C" const char* pinns_cuda_error_string(int code) {

@@ -17,6 +17,11 @@ The params file (``.npz``) holds
   ``n_paths``, ``path_degree``, ``path_sharpness``. A file without ``pde``
   is a Burgers one (``gamma`` 1.4). Other keys are ignored on load, so a file
   may carry extra arrays beside them.
+
+An ensemble's file (:func:`save_ensemble_npz`, the served ensemble artifact's
+weights) holds E member nets of one spec: the same keys with a leading member
+axis on ``W{i}``, ``b{i}``, ``path_c``, ``path_a``, ``lambda1`` and
+``lambda2`` (each member's own coefficients), and ``members`` (E).
 """
 
 from __future__ import annotations
@@ -74,30 +79,54 @@ def save_params_npz(
     """Write ``params`` (port tensors or JAX-layout numpy) with the spec's
     widths and bounds, the Burgers coefficients and the PDE; ``extra`` arrays
     ride along under their own names."""
-    if params and isinstance(params[0]["W"], torch.Tensor):
-        params = params_to_numpy(params)
-    if len(params) != len(spec.layers) - 1:
-        raise ValueError(
-            f"{len(params)} layers of params for spec widths {spec.layers}"
-        )
+    return _save(path, spec, [params], [lambda1], [lambda2], experiment, pde, gamma, False,
+                 extra)
+
+
+def save_ensemble_npz(path: str, spec: MLPSpec, members: Sequence, lambda1s: Sequence[float],
+                      lambda2s: Sequence[float], experiment: Optional[str] = None,
+                      pde: str = "burgers", gamma: float = 1.4) -> str:
+    """Write E member nets of ``spec`` (port tensors or JAX-layout numpy) and
+    each member's Burgers coefficients into one params file with a leading
+    member axis (the module docstring has the keys)."""
+    if not members or len(members) != len(lambda1s) or len(members) != len(lambda2s):
+        raise ValueError(f"{len(members)} members, {len(lambda1s)} lambda1, "
+                         f"{len(lambda2s)} lambda2")
+    return _save(path, spec, members, lambda1s, lambda2s, experiment, pde, gamma, True, {})
+
+
+def _save(path, spec, members, lambda1s, lambda2s, experiment, pde, gamma, stacked, extra):
+    members = [params_to_numpy(p) if p and isinstance(p[0]["W"], torch.Tensor) else p
+               for p in members]
+    for params in members:
+        if len(params) != len(spec.layers) - 1:
+            raise ValueError(
+                f"{len(params)} layers of params for spec widths {spec.layers}"
+            )
+    # one member: the arrays as they are; an ensemble: stacked on axis 0
+    join = (lambda xs: np.stack(xs)) if stacked else (lambda xs: xs[0])  # noqa: E731
     arrays = {
         "layers": np.asarray(spec.layers, np.int64),
         "lb": np.asarray(spec.lb, np.float64),
         "ub": np.asarray(spec.ub, np.float64),
-        "lambda1": np.asarray(lambda1, np.float32).reshape(()),
-        "lambda2": np.asarray(lambda2, np.float32).reshape(()),
+        "lambda1": join([np.asarray(v, np.float32).reshape(()) for v in lambda1s]),
+        "lambda2": join([np.asarray(v, np.float32).reshape(()) for v in lambda2s]),
         "pde": np.asarray(pde),
         "gamma": np.asarray(gamma, np.float64).reshape(()),
     }
-    for i, layer in enumerate(params):
-        arrays[f"W{i}"] = np.asarray(layer["W"], np.float32)
-        arrays[f"b{i}"] = np.asarray(layer["b"], np.float32).reshape(1, -1)
+    for i in range(len(spec.layers) - 1):
+        arrays[f"W{i}"] = join([np.asarray(p[i]["W"], np.float32) for p in members])
+        arrays[f"b{i}"] = join([np.asarray(p[i]["b"], np.float32).reshape(1, -1)
+                                for p in members])
     if spec.n_paths:
-        arrays["path_c"] = np.asarray(params[0]["path_c"], np.float32)
-        arrays["path_a"] = np.asarray(params[0]["path_a"], np.float32).reshape(-1)
+        arrays["path_c"] = join([np.asarray(p[0]["path_c"], np.float32) for p in members])
+        arrays["path_a"] = join([np.asarray(p[0]["path_a"], np.float32).reshape(-1)
+                                 for p in members])
         arrays["n_paths"] = np.asarray(spec.n_paths, np.int64)
         arrays["path_degree"] = np.asarray(spec.path_degree, np.int64)
         arrays["path_sharpness"] = np.asarray(spec.path_sharpness, np.float64)
+    if stacked:
+        arrays["members"] = np.asarray(len(members), np.int64)
     if experiment is not None:
         arrays["experiment"] = np.asarray(experiment)
     np.savez(path, **arrays, **extra)
@@ -106,9 +135,14 @@ def save_params_npz(
 
 def load_params_npz(path: str) -> dict:
     """Read a params file: ``{"spec", "params" (numpy, JAX layout),
-    "lambda1", "lambda2", "pde", "gamma", "experiment"}``."""
+    "lambda1", "lambda2", "pde", "gamma", "experiment", "members"}``. For an
+    ensemble's file ``members`` is E, every params array has the leading
+    member axis and the coefficients are (E,) arrays; for one net it is None
+    and they are floats."""
     with np.load(path, allow_pickle=False) as z:
         layers = tuple(int(w) for w in z["layers"])
+        members = int(z["members"]) if "members" in z else None
+        lead = () if members is None else (members,)
         paths = {}
         if "n_paths" in z:
             paths = {"n_paths": int(z["n_paths"]), "path_degree": int(z["path_degree"]),
@@ -119,26 +153,41 @@ def load_params_npz(path: str) -> dict:
         ]
         if spec.n_paths:
             params[0].update(path_c=z["path_c"], path_a=z["path_a"])
-            want = ((spec.n_paths, spec.path_degree + 1), (spec.n_paths,))
+            want = (lead + (spec.n_paths, spec.path_degree + 1), lead + (spec.n_paths,))
             if (params[0]["path_c"].shape, params[0]["path_a"].shape) != want:
                 raise ValueError(f"{path}: path_c {params[0]['path_c'].shape}, path_a "
                                  f"{params[0]['path_a'].shape}; the spec says {want}")
         widths = spec.widths
         for i, (din, dout) in enumerate(zip(widths[:-1], widths[1:])):
-            if params[i]["W"].shape != (din, dout) or params[i]["b"].shape != (1, dout):
+            if params[i]["W"].shape != lead + (din, dout) or \
+                    params[i]["b"].shape != lead + (1, dout):
                 raise ValueError(
                     f"{path}: layer {i} has W {params[i]['W'].shape}, "
-                    f"b {params[i]['b'].shape}; widths say ({din}, {dout})"
+                    f"b {params[i]['b'].shape}; widths say {lead + (din, dout)}"
                 )
+        coeff = float if members is None else (lambda a: np.asarray(a, np.float32))  # noqa: E731
+        lam1, lam2 = coeff(z["lambda1"]), coeff(z["lambda2"])
+        if members is not None and (lam1.shape, lam2.shape) != (lead, lead):
+            raise ValueError(f"{path}: lambda1 {lam1.shape}, lambda2 {lam2.shape} for "
+                             f"{members} members")
         return {
             "spec": spec,
             "params": params,
-            "lambda1": float(z["lambda1"]),
-            "lambda2": float(z["lambda2"]),
+            "lambda1": lam1,
+            "lambda2": lam2,
             "pde": str(z["pde"]) if "pde" in z else "burgers",
             "gamma": float(z["gamma"]) if "gamma" in z else 1.4,
             "experiment": str(z["experiment"]) if "experiment" in z else None,
+            "members": members,
         }
+
+
+def unstack_params(stacked: Sequence[Dict[str, np.ndarray]], members: int
+                   ) -> List[List[Dict[str, np.ndarray]]]:
+    """The member nets of JAX-layout params with a leading member axis
+    (:func:`load_params_npz` of an ensemble's file), as numpy."""
+    return [[{k: np.asarray(v)[i] for k, v in layer.items()} for layer in stacked]
+            for i in range(members)]
 
 
 def _to_torch(tree, device):

@@ -200,19 +200,26 @@ def _raise(lib, err: int, what: str, plan: Taylor1Plan) -> None:
     raise RuntimeError(f"taylor1 {what} launch failed: CUDA error {err} ({msg}); {plan}")
 
 
-def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor
+def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor, out=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, y_x, y_t), each (N, out_dim) float32, from one host call of K7a's
     forward. ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA
-    device; ``params`` the JAX-layout layers on the same device. Raises on
-    anything else."""
+    device; ``params`` the JAX-layout layers on the same device. ``out``, if
+    given, is the three contiguous (N, out_dim) float32 tensors to write (a
+    served ensemble's member slices of one (E, N, out_dim) buffer each).
+    Raises on anything else."""
     global LAUNCHES
     check_spec(spec)
-    check_call("taylor1", spec, params, x)
+    if out is None:
+        outs = tuple(torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32,
+                                 device=x.device) for _ in range(STREAMS))
+    else:
+        outs = tuple(out)
+        if len(outs) != STREAMS:
+            raise ValueError(f"taylor1 writes {STREAMS} streams, got {len(outs)} outputs")
+    check_call("taylor1", spec, params, x, *outs)
     layers = spec.widths
     n = x.shape[0]
-    outs = tuple(torch.empty((n, spec.out_dim), dtype=torch.float32, device=x.device)
-                 for _ in range(STREAMS))
     if n == 0:
         return outs
     plan = taylor1_plan(layers, n)

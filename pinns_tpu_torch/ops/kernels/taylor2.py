@@ -65,9 +65,11 @@ from pinns_tpu_torch.models.mlp import (
     normalize_inputs,
 )
 from pinns_tpu_torch.ops.kernels import build
+from pinns_tpu_torch.ops import taylor
 from pinns_tpu_torch.ops.taylor import POLICY_STREAMS, _StreamPolicy, taylor2_layer
 
 LAUNCHES = 0  # K1 launches in this process (chip_smoke.py reads it)
+MEMBER_LAUNCHES = 0  # K8s (a) launches: K1 over the members of an ensemble
 BACKWARD_LAUNCHES = 0  # K2 calls in this process (one host call issues all its launches)
 MIXED_LAUNCHES = 0  # K6 launches
 MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls
@@ -224,6 +226,10 @@ def _lib():
             p, i, p, p, i, i, f, f, f, f, i, i, p, p, p, p, i, p,
         ]
         lib.pinns_taylor2_mixed_forward.restype = i
+        lib.pinns_taylor2_forward_members.argtypes = [  # K8s (a): + members, param stride
+            p, i, p, i, ctypes.c_longlong, p, i, f, f, f, f, i, i, p, p, p, p, i, p,
+        ]
+        lib.pinns_taylor2_forward_members.restype = i
         lib.pinns_cuda_error_string.argtypes = [i]
         lib.pinns_cuda_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -334,7 +340,8 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
     for t in per_point:
         if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != x.device \
                 or not t.is_contiguous():
-            raise ValueError(f"{kernel} kernel: cotangents must be contiguous float32 {want} "
+            raise ValueError(f"{kernel} kernel: per-point tensors (cotangents, outputs) must "
+                             f"be contiguous float32 {want} "
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -407,6 +414,77 @@ def taylor2(
         else:
             LAUNCHES += 1
     return outs
+
+
+def nets_from_flat(spec: MLPSpec, flat: torch.Tensor) -> List[Params]:
+    """The member nets of an (E, S) buffer (S >= ``spec.n_params``) whose row
+    m holds member m's :func:`pack_params`, as views of its rows."""
+    shapes = [s for din, dout in zip(spec.widths[:-1], spec.widths[1:])
+              for s in ((din, dout), (1, dout))]
+    if spec.n_paths:
+        shapes += [(spec.n_paths, spec.path_degree + 1), (spec.n_paths,)]
+    nets = []
+    for row in flat:
+        leaves, off = [], 0
+        for shape in shapes:
+            size = int(torch.Size(shape).numel())
+            leaves.append(row[off:off + size].view(shape))
+            off += size
+        nets.append(net_from_leaves(leaves, spec.n_paths))
+    return nets
+
+
+def taylor2_members(spec: MLPSpec, flat: torch.Tensor, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8s (a): (u, u_x, u_t, u_xx), each (E, N, out_dim) float32, of the E
+    member nets in ``flat`` (E, S) float32 contiguous on ``x``'s CUDA device,
+    row m member m's :func:`pack_params` (S >= ``spec.n_params``; an S that is
+    a multiple of 4 keeps the tiled design's 16-byte weight copies), from one
+    launch of K1 with the member as the grid's y. Member m's streams equal a
+    solo :func:`taylor2` call on its net bit for bit. Float32 specs without
+    shock paths only; raises on anything else."""
+    global MEMBER_LAUNCHES
+    kernel = "taylor2 members"
+    refuse_paths(kernel, spec)
+    if spec.mixed:
+        raise ValueError(f"the {kernel} kernel takes float32 specs; the member axis of K6 "
+                         "(a mixed stream policy) is later work (ROADMAP queue 2)")
+    if flat.ndim != 2 or flat.dtype != torch.float32 or flat.device != x.device \
+            or not flat.is_contiguous() or flat.shape[1] < spec.n_params:
+        raise ValueError(f"{kernel}: want a contiguous float32 (E, >= {spec.n_params}) buffer "
+                         f"on {x.device}, got {flat.dtype} {tuple(flat.shape)} on {flat.device}")
+    check_call(kernel, spec, nets_from_flat(spec, flat[:1])[0], x)
+    e, n = flat.shape[0], x.shape[0]
+    if not 1 <= e <= 65535:
+        raise ValueError(f"{kernel}: 1 to 65,535 members, got {e}")
+    cfg = launch_config(spec.layers)
+    outs = tuple(torch.empty((e, n, spec.out_dim), dtype=torch.float32, device=x.device)
+                 for _ in range(4))
+    if n == 0:
+        return outs
+    lib = _lib()
+    layers = spec.layers
+    dims = (ctypes.c_int * len(layers))(*layers)
+    err = lib.pinns_taylor2_forward_members(
+        x.data_ptr(), n, flat.data_ptr(), e, flat.shape[1], dims, len(layers) - 1,
+        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], cfg.tile, cfg.threads,
+        *(o.data_ptr() for o in outs), x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.pinns_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg}); {cfg}, "
+                           f"{e} members")
+    with _launches_lock:
+        MEMBER_LAUNCHES += 1
+    return outs
+
+
+def taylor2_members_reference(spec: MLPSpec, flat: torch.Tensor, x: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`taylor2_members`: the plain recurrence
+    (``ops.taylor.mlp_taylor_2_reference``) member by member, stacked."""
+    per = [taylor.mlp_taylor_2_reference(spec, net, x) for net in nets_from_flat(spec, flat)]
+    return tuple(torch.stack([p[s] for p in per]) for s in range(4))
 
 
 def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,

@@ -25,8 +25,15 @@ Either way member i equals the solo run of its seed and rho bit for bit.
 :func:`run_ensemble` runs the trainer's whole schedule (the hybrid switch
 included) with per-member logs, snapshots, checkpoints and summaries;
 :func:`selection_scores` and :func:`select_member` pick a member without
-ground truth. Serving an ensemble (mean and std bands, calibration) comes
-with slice 4b.
+ground truth.
+
+Serving an ensemble: :func:`ensemble_predict` (per field the members' mean,
+std and, with ``want_dx``, the |mean d/dx| front feature, over
+:func:`ensemble_stats`: on the card K8s (a), the member-batched K1, or solo
+K7a calls into one buffer, then K8s (c), the member reduction),
+:func:`uq_calibration` and its numpy cores :func:`calibration_stats` and
+:func:`mond_band_factors` (split-conformal and Mondrian band factors, copies
+of JAX's, line for line). ``serve.export_ensemble`` writes the artifact.
 """
 
 from __future__ import annotations
@@ -61,8 +68,10 @@ def _stack_net(nets) -> list:
     return net_from_leaves(leaves, int("path_c" in template[0]))
 
 
-def _stack_tree(trees):
-    """A params-shaped tree of members stacked: the net flat, the rest by torch.stack."""
+def stack_params(trees) -> dict:
+    """Member params-shaped trees ({'net', ...}: params or Adam moments)
+    stacked as a stacked state holds them: the nets as views of one (E,
+    n_params) buffer, the rest by torch.stack."""
     stack = lambda *xs: torch.stack(xs)  # noqa: E731
     return {k: _stack_net([t[k] for t in trees]) if k == "net"
             else tree_map(stack, *(t[k] for t in trees)) for k in trees[0]}
@@ -91,10 +100,10 @@ def stack_states(states: Sequence[TrainState]) -> TrainState:
         admm = ADMMState(z=tree_map(stack, *(s.admm.z for s in states)),
                          dual=tree_map(stack, *(s.admm.dual for s in states)))
     return TrainState(
-        params=_stack_tree([s.params for s in states]),
+        params=stack_params([s.params for s in states]),
         opt_state=AdamState(count=s0.opt_state.count,
-                            mu=_stack_tree([s.opt_state.mu for s in states]),
-                            nu=_stack_tree([s.opt_state.nu for s in states])),
+                            mu=stack_params([s.opt_state.mu for s in states]),
+                            nu=stack_params([s.opt_state.nu for s in states])),
         admm=admm,
         colloc=torch.stack([s.colloc for s in states]),
         key=tuple(int(s.key) for s in states),
@@ -219,31 +228,40 @@ def _primaries(problem, params, pts) -> Dict[str, torch.Tensor]:
             if not (k == "f" or (k[0] == "f" and k[1:].isdigit()))}
 
 
+def n_members(stacked_params: dict) -> int:
+    return int(net_leaves(stacked_params["net"])[0].shape[0])
+
+
+def member_params(stacked_params: dict, i: int) -> dict:
+    """Member ``i`` of a stacked params tree (views)."""
+    return tree_map(lambda t: t[i], stacked_params)
+
+
 def scores_at(trainer: Trainer, stacked: TrainState, pts: torch.Tensor, n: Optional[int] = None,
               anchor_params=None) -> List[dict]:
     """:func:`selection_scores` at the given points (N, 2): one dict a member
     with ``data_term``, ``resid_ms``, ``score`` and, with ``anchor_params``
-    (a stacked params tree), ``consensus``."""
+    (a stacked params tree), ``consensus``. Only ``stacked.params`` is read."""
     from pinns_tpu_torch.train.trainer import make_data_term
 
     problem = trainer.problem
-    members = unstack_states(stacked, n)
+    n = n_members(stacked.params) if n is None else n
+    members = [member_params(stacked.params, i) for i in range(n)]
     dterm = make_data_term(problem)
     w = float(problem.exp.loss.data_weight)
     d, ms = [], []
     with torch.no_grad():
-        for m in members:
-            d.append(dterm(m.params).to(torch.float32))
-            res = problem.training_residuals(m.params, pts)
+        for params in members:
+            d.append(dterm(params).to(torch.float32))
+            res = problem.training_residuals(params, pts)
             res = res if isinstance(res, tuple) else (res,)
             ms.append(sum(torch.mean(torch.square(f.to(torch.float32))) for f in res) / len(res))
         d = torch.stack([t.reshape(()) for t in d]).cpu().numpy()
         ms = torch.stack([t.reshape(()) for t in ms]).cpu().numpy()
         consensus = None
         if anchor_params is not None:
-            n_anchor = net_leaves(anchor_params["net"])[0].shape[0]
-            anchor = [_primaries(problem, tree_map(lambda t, i=i: t[i], anchor_params), pts)
-                      for i in range(n_anchor)]
+            anchor = [_primaries(problem, member_params(anchor_params, i), pts)
+                      for i in range(n_members(anchor_params))]
             mean = {k: torch.mean(torch.stack([a[k] for a in anchor]), dim=0)
                     for k in anchor[0]}
             names = sorted(mean)
@@ -254,7 +272,7 @@ def scores_at(trainer: Trainer, stacked: TrainState, pts: torch.Tensor, n: Optio
                 per = [norm(p[k] - mean[k]) / (norm(mean[k]) + 1e-12) for k in names]
                 return sum(per) / len(per)
 
-            consensus = torch.stack([dist(m.params) for m in members]).cpu().numpy()
+            consensus = torch.stack([dist(params) for params in members]).cpu().numpy()
     return [
         {"member": i, "data_term": float(d[i]), "resid_ms": float(ms[i]),
          "score": float(w * d[i] + ms[i]),
@@ -303,6 +321,229 @@ def select_member(scores: Sequence[dict], by: str = "score") -> int:
         rs, rc = ranks("score"), ranks("consensus")
         return int(min(range(len(scores)), key=lambda i: (rs[i] + rc[i], scores[i]["consensus"])))
     return int(min(range(len(scores)), key=lambda i: scores[i][by]))
+
+
+# -- prediction and calibration (serving an ensemble) ----------------------------
+
+def pack_members(nets: Sequence) -> torch.Tensor:
+    """The member nets' :func:`pack_params` as the rows of one contiguous
+    (E, S) float32 buffer, S the parameter count rounded up to a multiple of
+    4 (so that K8s (a) keeps the tiled design's 16-byte weight copies)."""
+    rows = [pack_params(net) for net in nets]
+    p = rows[0].numel()
+    flat = torch.zeros((len(rows), -(-p // 4) * 4), dtype=rows[0].dtype, device=rows[0].device)
+    for m, row in enumerate(rows):
+        flat[m, :p] = row
+    return flat
+
+
+def member_outputs(spec, pde: str, flat: torch.Tensor, x: torch.Tensor, lambda1=None,
+                   lambda2=None, gamma: float = 1.4, want_dx: bool = False):
+    """The members' network fields and residuals at x (N, 2), stacked:
+    (names, values (E, N, C) in the order of ``names``, dx (E, N, Cd) in the
+    order of ``train.evaluate.DX_FIELDS[pde]`` or None). ``flat`` (E, S)
+    holds the members' nets (:func:`pack_members`); ``lambda1``/``lambda2``
+    are the Burgers coefficients, broadcastable to (E, 1, 1).
+
+    On a CUDA tensor: Burgers' four Taylor-2 streams of every member from
+    one launch of K8s (a), the member-batched K1, and the combine f = u_t +
+    lambda1 u u_x - lambda2 u_xx once on the (E, N, 1) streams; the Euler
+    members and every member's dx from solo K7a calls, each writing its
+    slices of one preallocated (E, N, .) buffer (for Euler, dx is the x
+    stream of those same calls). On the CPU the plain versions."""
+    from pinns_tpu_torch.ops import taylor
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.residuals import euler_combine
+
+    e, n = flat.shape[0], x.shape[0]
+    on_card = x.device.type == "cuda"
+    nets = k_taylor2.nets_from_flat(spec, flat)
+
+    def taylor1_streams():
+        bufs = tuple(torch.empty((e, n, spec.out_dim), dtype=flat.dtype, device=x.device)
+                     for _ in range(3))
+        for m, net in enumerate(nets):
+            if on_card:
+                k_taylor1.taylor1(spec, net, x, out=tuple(b[m] for b in bufs))
+            else:
+                for b, t in zip(bufs, taylor.mlp_taylor_1_reference(spec, net, x)):
+                    b[m].copy_(t)
+        return bufs
+
+    if pde == "euler":
+        y, y_x, y_t = taylor1_streams()
+        _, fs = euler_combine(*(t.view(e * n, 3) for t in (y, y_x, y_t)), gamma)
+        values = torch.cat([y] + [f.view(e, n, 1) for f in fs], dim=2)
+        return ("rho", "u", "E", "f1", "f2", "f3"), values, y_x if want_dx else None
+    if pde != "burgers":
+        raise ValueError(f"unknown pde {pde!r}")
+    members = k_taylor2.taylor2_members if on_card else k_taylor2.taylor2_members_reference
+    u, u_x, u_t, u_xx = members(spec, flat, x)
+    f = u_t + lambda1 * u * u_x - lambda2 * u_xx
+    return ("u", "f"), torch.cat([u, f], dim=2), taylor1_streams()[1] if want_dx else None
+
+
+def ensemble_stats(spec, pde: str, flat: torch.Tensor, x: torch.Tensor, lambda1=None,
+                   lambda2=None, gamma: float = 1.4, want_dx: bool = False) -> dict:
+    """``{field: {'mean': (N, 1), 'std': (N, 1), 'members': (E, N, 1)}}`` of
+    the members' fields and residuals at x (:func:`member_outputs`), with
+    ``'dx'`` = |mean of the members' d(field)/dx| on the network fields under
+    ``want_dx``, as tensors on x's device. The statistics come from one launch
+    of K8s (c), the member reduction, on a CUDA tensor (its plain version on
+    the CPU): the mean in float32 and the population std (ddof 0) by a second
+    pass over the deviations, as JAX's ``jnp.mean`` / ``jnp.std``."""
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
+    from pinns_tpu_torch.train.evaluate import DX_FIELDS
+
+    names, values, dx = member_outputs(spec, pde, flat, x, lambda1, lambda2, gamma, want_dx)
+    on_card = x.device.type == "cuda"
+    reduce = k_ensemble.member_stats if on_card else k_ensemble.member_stats_reference
+    mean, std, dx_abs = reduce(values.to(torch.float32), None if dx is None else
+                               dx.to(torch.float32))
+    out = {name: {"mean": mean[:, j:j + 1], "std": std[:, j:j + 1],
+                  "members": values[:, :, j:j + 1]} for j, name in enumerate(names)}
+    if dx is not None:
+        for j, name in enumerate(DX_FIELDS[pde]):
+            out[name]["dx"] = dx_abs[:, j:j + 1]
+    return out
+
+
+def ensemble_predict(trainer: Trainer, stacked: TrainState, x, want_dx: bool = False) -> dict:
+    """Deep-ensemble prediction, as JAX's ``ensemble_predict``: ``{field:
+    {'mean': (N, 1), 'std': (N, 1), 'members': (E, N, 1)}}`` as numpy, and
+    with ``want_dx`` ``'dx'`` = |mean of the members' d(field)/dx| on the
+    network fields (the serving-time front feature of the Mondrian bands).
+    Each member's Burgers coefficients are its own (``effective_coeffs``).
+    Only ``stacked.params`` is read (:func:`ensemble_stats` has the kernels)."""
+    problem = trainer.problem
+    spec = problem.spec
+    e = n_members(stacked.params)
+    members = [member_params(stacked.params, i) for i in range(e)]
+    pin_numerics()
+    with torch.no_grad():
+        coeffs = [problem.effective_coeffs(p) for p in members]
+        lam1, lam2 = (torch.stack([c[k].reshape(()) for c in coeffs]).view(e, 1, 1)
+                      for k in (0, 1))
+        xt = torch.as_tensor(np.asarray(x), dtype=spec.dtype).to(problem.device).contiguous()
+        stats = ensemble_stats(spec, problem.exp.pde.kind,
+                               pack_members([p["net"] for p in members]), xt, lam1, lam2,
+                               problem.exp.pde.gamma, want_dx)
+    return {name: {k: v.cpu().numpy() for k, v in row.items()} for name, row in stats.items()}
+
+
+def calibration_stats(exact, mean, std, grad_mag=None, ks=(1.0, 2.0, 3.0), alpha=0.05,
+                      n_cal=1024, seed=0, n_bins=4, bin_feature=None,
+                      feature_name="std") -> dict:
+    """Coverage and conformal band factors of an ensemble's ``mean`` +- k
+    ``std`` against ``exact`` (numpy, line for line JAX's
+    ``calibration_stats``): raw coverage at k std for each k, the shock
+    decile of ``grad_mag`` (``cov2s_shock``), the leaky whole-grid factor
+    ``k95``, split-conformal ``k_conf95`` from a held-out random subset of
+    ``n_cal`` points (``default_rng(seed)``) with ``cov_conf95`` verified on
+    the rest, and the Mondrian factors: points binned by ``bin_feature``
+    (default the predicted std; ``feature_name`` is recorded as
+    ``mond_feature``) over ``mond_edges`` fit on one half of the calibration
+    subset, one conformal quantile ``mond_k`` a bin from the other half (the
+    global factor for a bin of fewer than 20), ``cov_mond95`` and
+    ``cov_mond95_shock`` on the rest."""
+    exact = np.asarray(exact, np.float64)
+    mean = np.asarray(mean, np.float64)
+    std = np.asarray(std, np.float64)
+    err = np.abs(mean - exact)
+    row = {f"cov{k:g}s": float(np.mean(err <= k * std + 1e-12)) for k in ks}
+    shock_mask = None
+    if grad_mag is not None:
+        gm = np.asarray(grad_mag, np.float64).ravel()
+        shock_mask = gm >= np.quantile(gm, 0.9)
+        row["cov2s_shock"] = float(
+            np.mean(err.ravel()[shock_mask] <= 2.0 * std.ravel()[shock_mask] + 1e-12))
+    row["mean_std"] = float(np.mean(std))
+    row["rmse"] = float(np.sqrt(np.mean(err**2)))
+    scores = err.ravel() / (std.ravel() + 1e-12)
+    row["k95"] = float(np.quantile(scores, 1.0 - alpha))
+    n = scores.size
+    m = int(min(n_cal, n // 4)) or 1
+    idx = np.random.default_rng(seed).permutation(n)
+    cal, rest = idx[:m], idx[m:]
+    level = min(1.0, np.ceil((m + 1) * (1.0 - alpha)) / m)
+    k_conf = float(np.quantile(scores[cal], level, method="higher"))
+    row["k_conf95"] = k_conf
+    band_ok = err.ravel() <= k_conf * std.ravel() + 1e-12
+    row["cov_conf95"] = float(np.mean(band_ok[rest]))
+    rest_shock = None
+    if shock_mask is not None:
+        rest_shock = np.zeros(n, bool)
+        rest_shock[rest] = True
+        rest_shock &= shock_mask
+        if rest_shock.any():
+            row["cov_conf95_shock"] = float(np.mean(band_ok[rest_shock]))
+    if n_bins > 1 and m >= 2:
+        s_all = (np.asarray(bin_feature, np.float64).ravel()
+                 if bin_feature is not None else std.ravel())
+        row["mond_feature"] = feature_name
+        cal_edges, cal_scores = cal[: m // 2], cal[m // 2:]
+        edges = np.quantile(s_all[cal_edges], np.linspace(0.0, 1.0, n_bins + 1)[1:-1])
+        bin_of = np.searchsorted(edges, s_all, side="right")
+        mond_k = []
+        for b in range(n_bins):
+            sel = cal_scores[bin_of[cal_scores] == b]
+            if sel.size >= 20:
+                lvl = min(1.0, np.ceil((sel.size + 1) * (1.0 - alpha)) / sel.size)
+                mond_k.append(float(np.quantile(scores[sel], lvl, method="higher")))
+            else:
+                mond_k.append(k_conf)
+        k_pt = np.asarray(mond_k)[bin_of]
+        mond_ok = err.ravel() <= k_pt * std.ravel() + 1e-12
+        row["mond_edges"] = [float(e) for e in edges]
+        row["mond_k"] = mond_k
+        row["cov_mond95"] = float(np.mean(mond_ok[rest]))
+        if rest_shock is not None and rest_shock.any():
+            row["cov_mond95_shock"] = float(np.mean(mond_ok[rest_shock]))
+    return row
+
+
+def mond_band_factors(cal_row: dict, std, default: float = 2.0, feature=None) -> np.ndarray:
+    """Per-point band factors from one :func:`calibration_stats` row, as JAX's
+    ``mond_band_factors``: each point's Mondrian factor, binned by its own
+    value of the row's ``mond_feature`` over ``mond_edges`` (``std``, or the
+    predicted |d/dx| passed as ``feature`` for a 'dx' row), else a constant
+    array of ``k_conf95`` (or ``default``). A 'dx' row without a feature, or
+    a row without bins, takes the constant."""
+    edges, mond_k = cal_row.get("mond_edges"), cal_row.get("mond_k")
+    std = np.asarray(std, np.float64)
+    if not edges or not mond_k:
+        return np.full(std.shape, float(cal_row.get("k_conf95", default)))
+    needs_dx = cal_row.get("mond_feature", "std") == "dx"
+    if needs_dx and feature is None:
+        return np.full(std.shape, float(cal_row.get("k_conf95", default)))
+    feat = np.asarray(feature, np.float64) if needs_dx else std
+    idx = np.searchsorted(np.asarray(edges, np.float64), feat, side="right")
+    return np.asarray(mond_k, np.float64)[idx]
+
+
+def uq_calibration(trainer: Trainer, stacked: TrainState, ks=(1.0, 2.0, 3.0), n_bins: int = 4,
+                   mond_feature: str = "std") -> dict:
+    """Coverage calibration of the ensemble on the dataset's dense grid, as
+    JAX's ``uq_calibration``: :func:`ensemble_predict` at ``X_star`` (with
+    the dx feature when ``mond_feature`` is 'dx'), the shock decile from the
+    |x-gradient| of the exact (Nt, Nx) field (``np.gradient`` along x), then
+    :func:`calibration_stats` per primary field: ``{field: row}``."""
+    if mond_feature not in ("std", "dx"):
+        raise ValueError(f"unknown mond_feature {mond_feature!r} (expected 'std' or 'dx')")
+    ds = trainer.problem.dataset
+    preds = ensemble_predict(trainer, stacked, ds.X_star, want_dx=mond_feature == "dx")
+    out = {}
+    for name, p in preds.items():
+        if name not in ds.star:  # the residuals have no exact field
+            continue
+        gx = np.abs(np.gradient(np.asarray(ds.fields[name], np.float64), axis=1))
+        grad_mag = np.broadcast_to(gx.reshape(-1, 1), np.asarray(p["mean"]).shape)
+        out[name] = calibration_stats(
+            ds.star[name], p["mean"], p["std"], grad_mag=grad_mag, ks=ks, n_bins=n_bins,
+            bin_feature=p.get("dx") if mond_feature == "dx" else None,
+            feature_name=mond_feature)
+    return out
 
 
 # -- the schedule ----------------------------------------------------------------

@@ -14,7 +14,19 @@ has its own artifact: a directory with
 answers ``predict(x)`` through ``train.evaluate.burgers_fields`` ({f, u}) or,
 for an artifact whose ``pde`` is 'euler', ``euler_fields`` ({rho, u, E, f1,
 f2, f3}) — on a CUDA device, the fused Taylor-2 kernel (K1) or the Taylor-1
-kernel (K7a). Ensemble artifacts and calibrated bands come with slice 4b.
+kernel (K7a).
+
+An ensemble artifact (:func:`export_ensemble`, JAX's ``export_ensemble``)
+serves each field's member mean ``{name}`` and std ``{name}_std`` and, when
+its calibration bins on the front feature, ``{name}_dx`` (|mean d/dx|); its
+``params.npz`` holds the E members with a leading member axis
+(``interop.save_ensemble_npz``) and its ``meta.json`` JAX's keys, the
+``calibration`` block (split-conformal ``k_conf95`` and the Mondrian
+``mond_edges`` / ``mond_k``) included. ``ServedModel.predict`` answers it
+through ``parallel.ensemble.ensemble_stats`` (on the card the member-batched
+K1 or K7a, and the member reduction K8s), and ``band_ks`` gives the
+calibrated per-point band factors that the HTTP server and ``predict
+--bands`` multiply by the std.
 """
 
 from __future__ import annotations
@@ -29,9 +41,15 @@ import torch
 
 from pinns_tpu_torch import __version__
 from pinns_tpu_torch.device import pin_numerics, resolve_device
-from pinns_tpu_torch.interop import load_params_npz, params_from_jax, save_params_npz
+from pinns_tpu_torch.interop import (
+    load_params_npz,
+    params_from_jax,
+    save_ensemble_npz,
+    save_params_npz,
+    unstack_params,
+)
 from pinns_tpu_torch.models.mlp import MLPSpec
-from pinns_tpu_torch.train.evaluate import burgers_fields, euler_fields
+from pinns_tpu_torch.train.evaluate import DX_FIELDS, burgers_fields, euler_fields
 
 _META_NAME = "meta.json"
 _PARAMS_NAME = "params.npz"
@@ -53,20 +71,78 @@ def export_predict(
     residuals) of ``pde`` ('burgers' or 'euler', whose net has the 3 outputs
     rho, u, E) with the given params (port tensors or JAX-layout numpy).
     Returns ``path``."""
-    if pde not in FIELDS:
-        raise ValueError(f"unknown pde {pde!r}: expected one of {sorted(FIELDS)}")
+    _check_pde(pde)
     os.makedirs(path, exist_ok=True)
     save_params_npz(
         os.path.join(path, _PARAMS_NAME), spec, params, lambda1, lambda2,
         experiment=experiment, pde=pde, gamma=gamma,
     )
-    config = {"layers": list(spec.layers), "lb": list(spec.lb), "ub": list(spec.ub),
-              "lambda1": float(lambda1), "lambda2": float(lambda2)}
+    meta = _meta(spec, experiment, pde, gamma, FIELDS[pde],
+                 {"lambda1": float(lambda1), "lambda2": float(lambda2)})
+    _write_meta(path, meta)
+    return path
+
+
+# the calibration keys an ensemble artifact keeps per field (JAX's export_ensemble)
+CALIBRATION_KEYS = ("k_conf95", "cov_conf95", "cov2s", "k95", "mond_edges", "mond_k",
+                    "cov_mond95", "cov_mond95_shock")
+
+
+def export_ensemble(
+    spec: MLPSpec,
+    members,
+    path: str,
+    lambda1s,
+    lambda2s,
+    experiment: Optional[str] = None,
+    pde: str = "burgers",
+    gamma: float = 1.4,
+    calibration: Optional[dict] = None,
+) -> str:
+    """Write an ensemble artifact (JAX's ``export_ensemble``) of the E member
+    nets ``members`` (port tensors or JAX-layout numpy), each with its
+    Burgers coefficients: outputs ``{name}`` (the members' mean) and
+    ``{name}_std`` per field. ``calibration`` is ``parallel.ensemble.
+    uq_calibration``'s output: its kept keys (``CALIBRATION_KEYS`` and
+    ``mond_feature``) go into ``meta.json`` under ``calibration``; a row that
+    bins on 'dx' adds the ``{name}_dx`` outputs of the front feature.
+    Returns ``path``."""
+    _check_pde(pde)
+    want_dx = bool(calibration) and any(
+        row.get("mond_feature") == "dx" for row in calibration.values())
+    fields = [f for name in FIELDS[pde] for f in (name, f"{name}_std")]
+    if want_dx:
+        fields += [f"{name}_dx" for name in DX_FIELDS[pde]]
+    os.makedirs(path, exist_ok=True)
+    save_ensemble_npz(os.path.join(path, _PARAMS_NAME), spec, list(members), list(lambda1s),
+                      list(lambda2s), experiment=experiment, pde=pde, gamma=gamma)
+    meta = _meta(spec, experiment, pde, gamma, sorted(fields),
+                 {"lambda1": [float(v) for v in lambda1s],
+                  "lambda2": [float(v) for v in lambda2s]})
+    meta["ensemble_members"] = len(members)
+    if calibration:
+        meta["calibration"] = {
+            f: {**{k: ([float(v) for v in row[k]] if isinstance(row[k], list) else float(row[k]))
+                   for k in CALIBRATION_KEYS if k in row},
+                **({"mond_feature": row["mond_feature"]} if "mond_feature" in row else {})}
+            for f, row in calibration.items()
+        }
+    _write_meta(path, meta)
+    return path
+
+
+def _check_pde(pde: str) -> None:
+    if pde not in FIELDS:
+        raise ValueError(f"unknown pde {pde!r}: expected one of {sorted(FIELDS)}")
+
+
+def _meta(spec: MLPSpec, experiment, pde: str, gamma: float, fields, coeffs: dict) -> dict:
+    config = {"layers": list(spec.layers), "lb": list(spec.lb), "ub": list(spec.ub), **coeffs}
     if pde == "euler":
         config["gamma"] = float(gamma)
-    meta = {
+    return {
         "experiment": experiment,
-        "fields": FIELDS[pde],
+        "fields": list(fields),
         "input": {"shape": ["b", 2], "dtype": "float32"},
         "pde": pde,
         "provenance": {
@@ -76,19 +152,26 @@ def export_predict(
             "config": config,
         },
     }
+
+
+def _write_meta(path: str, meta: dict) -> None:
     with open(os.path.join(path, _META_NAME), "w") as f:
         json.dump(meta, f, indent=1)
-    return path
 
 
 class ServedModel:
     """A loaded artifact: ``predict(x) -> {field: (N, 1) np.ndarray}``.
 
     The weights and PDE coefficients are moved to ``device`` once, here:
-    the card unless the caller asks for the CPU (raises without one).
+    the card unless the caller asks for the CPU (raises without one). An
+    ensemble artifact's members go into one (E, S) buffer
+    (``parallel.ensemble.pack_members``) and its coefficients into (E, 1, 1)
+    tensors.
     """
 
     def __init__(self, path: str, device="cuda"):
+        from pinns_tpu_torch.parallel.ensemble import pack_members
+
         self.device = resolve_device(device)
         with open(os.path.join(path, _META_NAME)) as f:
             self.meta = json.load(f)
@@ -98,9 +181,18 @@ class ServedModel:
         loaded = load_params_npz(os.path.join(path, _PARAMS_NAME))
         self.spec: MLPSpec = loaded["spec"]
         self.gamma = loaded["gamma"]
-        self.params = params_from_jax(loaded["params"], self.device)
-        self.lambda1 = torch.tensor(loaded["lambda1"], dtype=torch.float32, device=self.device)
-        self.lambda2 = torch.tensor(loaded["lambda2"], dtype=torch.float32, device=self.device)
+        self.members = loaded["members"]
+        coeff = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)  # noqa: E731
+        if self.members is None:
+            self.params = params_from_jax(loaded["params"], self.device)
+            self.lambda1, self.lambda2 = coeff(loaded["lambda1"]), coeff(loaded["lambda2"])
+        else:
+            nets = [params_from_jax(p, self.device)
+                    for p in unstack_params(loaded["params"], self.members)]
+            self.flat = pack_members(nets)
+            self.lambda1, self.lambda2 = (coeff(loaded[k]).view(-1, 1, 1)
+                                          for k in ("lambda1", "lambda2"))
+            self.want_dx = any(k.endswith("_dx") for k in self.fields)
 
     @property
     def fields(self):
@@ -130,11 +222,59 @@ class ServedModel:
         pin_numerics()  # another caller in this process may have lowered them
         with torch.inference_mode():
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            if self.pde == "euler":
+            if self.members is not None:
+                out = self._ensemble(xt)
+            elif self.pde == "euler":
                 out = euler_fields(self.spec, self.params, xt, self.gamma)
             else:
                 out = burgers_fields(self.spec, self.params, xt, self.lambda1, self.lambda2)
             return {k: v[:n].cpu().numpy() for k, v in out.items()}
+
+    def _ensemble(self, xt: torch.Tensor) -> Dict[str, torch.Tensor]:
+        from pinns_tpu_torch.parallel.ensemble import ensemble_stats
+
+        stats = ensemble_stats(self.spec, self.pde, self.flat, xt, self.lambda1, self.lambda2,
+                               self.gamma, self.want_dx)
+        out = {}
+        for name, row in stats.items():
+            out[name], out[f"{name}_std"] = row["mean"], row["std"]
+            if "dx" in row:
+                out[f"{name}_dx"] = row["dx"]
+        return out
+
+    def band_k(self, field: str, default: float = 2.0) -> float:
+        """The calibrated global factor of ``mean +- k std`` (the conformal
+        ``k_conf95``), ``default`` when the artifact carries none."""
+        cal = self.meta.get("calibration") or {}
+        return float(cal.get(field, {}).get("k_conf95", default))
+
+    def band_ks(self, field: str, std, default: float = 2.0, feature=None) -> np.ndarray:
+        """Per-point band factors, as JAX's ``ServedModel.band_ks``: the
+        Mondrian factor of each point's bin (its value of the baked
+        ``mond_feature`` over ``mond_edges``: the std, or the front feature
+        ``{field}_dx`` passed as ``feature`` for a 'dx' calibration), else a
+        constant array of :meth:`band_k`. A 'dx' calibration without a
+        feature takes the constant rather than binning the wrong feature."""
+        from pinns_tpu_torch.parallel.ensemble import mond_band_factors
+
+        cal = (self.meta.get("calibration") or {}).get(field, {})
+        return mond_band_factors(cal, std, default, feature)
+
+    def add_bands(self, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """``out`` with ``{name}_band`` = band_ks(name, std, {name}_dx) std,
+        the calibrated ~95% half-width, for every calibrated field of a
+        predict's output. Raises ValueError on an artifact without
+        calibration: a 2 std band would be silently overconfident at fronts."""
+        cal = self.meta.get("calibration") or {}
+        if not cal:
+            raise ValueError("artifact carries no calibration metadata; export with "
+                             "--calibrate to serve bands")
+        for k in list(out):
+            if k.endswith("_std") and k[:-len("_std")] in cal:
+                name = k[:-len("_std")]
+                out[f"{name}_band"] = self.band_ks(
+                    name, out[k], feature=out.get(f"{name}_dx")) * np.asarray(out[k], np.float64)
+        return out
 
 
 def load_exported(path: str, device="cuda") -> ServedModel:
@@ -151,11 +291,13 @@ def make_http_server(path: str, host: str = "127.0.0.1", port: int = 8080, devic
       POST /predict with Content-Type application/x-npy and a raw .npy (N, 2)
                         float array body returns an application/x-npz body
                         holding one float32 array per field.
-    Bands (``"bands": true`` or ``?bands=1``) need a calibrated ensemble
-    artifact, which the port cannot export yet: such a request gets a 400, as
-    the JAX server answers on an uncalibrated artifact. Every error is a JSON
-    400 with a diagnostic. Requests are padded to power-of-two buckets
-    (``ServedModel.bucket_size``).
+    On an ensemble artifact every field comes with ``{name}_std`` (and
+    ``{name}_dx`` for a 'dx' calibration). Bands (``"bands": true`` in JSON,
+    ``?bands=1`` with npy) add ``{name}_band`` = ``band_ks(name, std,
+    feature={name}_dx) * std`` for each calibrated field
+    (``ServedModel.add_bands``); an artifact without calibration gets a 400,
+    as the JAX server answers. Every error is a JSON 400 with a diagnostic.
+    Requests are padded to power-of-two buckets (``ServedModel.bucket_size``).
 
     Returns the unstarted ThreadingHTTPServer; call ``serve_forever()``.
     """
@@ -202,12 +344,9 @@ def make_http_server(path: str, host: str = "127.0.0.1", port: int = 8080, devic
                     x = req["x"]
                     want_bands = bool(req.get("bands"))
                 x = np.asarray(x, np.float32)
-                if want_bands:
-                    raise ValueError(
-                        "artifact carries no calibration metadata; calibrated "
-                        "bands need an ensemble artifact (port slice 4b)"
-                    )
                 out = served.predict(x, pad_to_bucket=True)
+                if want_bands:
+                    out = served.add_bands(out)
                 if binary:
                     buf = io.BytesIO()
                     np.savez(buf, **{k: np.asarray(v, np.float32) for k, v in out.items()})

@@ -18,6 +18,10 @@ import torch
 
 from pinns_tpu_torch.models.mlp import MLPSpec, Params
 
+# the network's outputs per PDE, in output order: the fields whose
+# x-derivative is the front feature of a 'dx' calibration
+DX_FIELDS = {"burgers": ("u",), "euler": ("rho", "u", "E")}
+
 
 def relative_l2(pred, exact) -> float:
     """||exact - pred||_2 / ||exact||_2 over flattened arrays."""
@@ -56,3 +60,14 @@ def predict_fields(problem, params, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         raise ValueError(f"unknown pde kind {exp.pde.kind!r}")
     lam1, lam2 = problem.effective_coeffs(params)
     return burgers_fields(problem.spec, params["net"], x, lam1, lam2)
+
+
+def predict_field_dx(problem, params, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The x-derivative of each network field at points x (N, 2) from one
+    Taylor-1 pass (K7a on a CUDA tensor), the serving-time front feature of
+    the Mondrian bands (``parallel.ensemble.uq_calibration(mond_feature=
+    'dx')``): {'u'} for Burgers, {'rho', 'u', 'E'} for Euler, each (N, 1)."""
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1
+
+    _, y_x, _ = mlp_taylor_1(problem.spec, params["net"], x)
+    return dict(zip(DX_FIELDS[problem.exp.pde.kind], y_x.split(1, dim=1)))

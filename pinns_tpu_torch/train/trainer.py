@@ -61,7 +61,8 @@ What the port leaves to later slices, each raising ``NotImplementedError``
 with the slice's name: the weak-form ADMM, the entropy penalty, gradient
 weighting, RAD, SWA, Fourier features and the Euler L-BFGS branch (slice
 2b-iii); multi-GPU (slice 6). Ensembles and sweeps train through
-``pinns_tpu_torch.parallel`` (slice 4a); serving them comes with slice 4b.
+``pinns_tpu_torch.parallel`` (slice 4a) and serve through
+``serve.export_ensemble``.
 """
 
 from __future__ import annotations

@@ -125,11 +125,17 @@ def test_train_export_predict_eval_round_trip(tmp_path, capsys, preset):
 
 
 def test_export_refuses_ensemble_features(tmp_path):
-    for extra in (["--checkpoint", "a.ckpt", "b.ckpt"], ["--checkpoint", "a.ckpt", "--select",
-                                                         "score"],
-                  ["--checkpoint", "a.ckpt", "--calibrate"]):
-        with pytest.raises(SystemExit, match="slice 4"):
+    """JAX's refusals of the ensemble options, before anything is loaded:
+    --calibrate with one checkpoint, --select with one, --select with
+    --calibrate; and --params with either."""
+    for extra, match in ((["--checkpoint", "a.ckpt", "--calibrate"], "needs an ensemble"),
+                         (["--checkpoint", "a.ckpt", "--select", "score"], ">= 2 member"),
+                         (["--checkpoint", "a.ckpt", "b.ckpt", "--select", "rank",
+                           "--calibrate"], "single member")):
+        with pytest.raises(SystemExit, match=match):
             cli.main(["export", "--preset", "abgrall_admm", "--out", str(tmp_path), *extra])
+    with pytest.raises(SystemExit, match="--params"):
+        cli.main(["export", "--params", "p.npz", "--calibrate", "--out", str(tmp_path)])
     with pytest.raises(SystemExit, match="--params"):
         cli.main(["export", "--out", str(tmp_path)])
     with pytest.raises(SystemExit, match="--checkpoint"):

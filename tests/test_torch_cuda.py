@@ -1005,3 +1005,85 @@ def test_weak_trainer_on_card(cuda_device, preset):  # noqa: F811
     fields = ("u",) if preset == "twosin_weak" else ("rho", "u", "E")
     assert all(np.isfinite(summary[f"rel_l2_{f}"]) for f in fields)
     assert np.isfinite(summary["lambda2"]) and summary["lambda2"] > 0
+
+
+K8S_SHAPES = [((2,) + (20,) * 8 + (1,), e, n) for e in (1, 3, 8) for n in (1, 31, 2_000)] + \
+    [(WIDE, e, n) for e in (1, 3) for n in (1, 31, 2_000)]
+
+
+@pytest.mark.parametrize("layers,e,n", K8S_SHAPES,
+                         ids=[f"{max(l)}w-e{e}-n{n}" for l, e, n in K8S_SHAPES])
+def test_k8s_members_equal_solo_k1_on_card(cuda_device, layers, e, n):  # noqa: F811
+    """K8s (a): every member's four streams from one member-batched K1
+    launch equal a solo K1 call on its net bit for bit, narrow and tiled."""
+    from pinns_tpu_torch.parallel.ensemble import pack_members
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    nets = [init_mlp(spec, torch.Generator().manual_seed(30 + m), cuda_device)
+            for m in range(e)]
+    x = torch.from_numpy(numpy_points(n, seed=31)).to(cuda_device)
+    before = k_taylor2.MEMBER_LAUNCHES
+    got = k_taylor2.taylor2_members(spec, pack_members(nets), x)
+    torch.cuda.synchronize()
+    assert k_taylor2.MEMBER_LAUNCHES == before + 1
+    for m, net in enumerate(nets):
+        for g, s in zip(got, k_taylor2.taylor2(spec, net, x)):
+            assert g.shape == (e, n, 1) and torch.equal(g[m], s), m
+
+
+@pytest.mark.parametrize("e,dx", [(3, True), (8, True), (8, False), (1, True)])
+def test_k8s_reduction_on_card(cuda_device, e, dx):  # noqa: F811
+    """K8s (c): mean, population std and |mean dx| against float64, within
+    4x the plain float32 version's error plus 1e-6 max|exact|; members that
+    agree to 1e-4, where a one-pass variance would cancel."""
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ens
+
+    rng = np.random.default_rng(32 + e)
+    base = rng.standard_normal((1, 4_099, 3))
+    vals = torch.from_numpy((base + 1e-4 * rng.standard_normal((e, 4_099, 3))).astype(
+        np.float32)).to(cuda_device)
+    dxs = torch.from_numpy(rng.standard_normal((e, 4_099, 2)).astype(np.float32)).to(
+        cuda_device) if dx else None
+    before = k_ens.LAUNCHES
+    got = k_ens.member_stats(vals, dxs)
+    torch.cuda.synchronize()
+    assert k_ens.LAUNCHES == before + 1
+    plain = k_ens.member_stats_reference(vals, dxs)
+    exact = k_ens.member_stats_reference(vals.double(), None if dxs is None else dxs.double())
+    for g, p, x in zip(got, plain, exact):
+        if x is None:
+            assert g is None and p is None
+            continue
+        err = float((g.double() - x).abs().max())
+        plain_err = float((p.double() - x).abs().max())
+        assert err <= 4.0 * plain_err + 1e-6 * float(x.abs().max())
+
+
+def test_served_ensemble_on_card(cuda_device, tmp_path):  # noqa: F811
+    """A calibrated ensemble artifact served on the card: K8s (a) once, K7a
+    once a member for dx, K8s (c) once a predict; the outputs against the
+    same artifact served by the plain versions on the CPU."""
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ens
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.serve import export_ensemble
+
+    spec = MLPSpec(layers=(2,) + (20,) * 8 + (1,), lb=LB, ub=UB)
+    nets = [init_mlp(spec, torch.Generator().manual_seed(40 + m), torch.device("cpu"))
+            for m in range(4)]
+    cal = {"u": {"k_conf95": 3.0, "mond_edges": [0.1, 0.5, 1.0], "mond_k": [2.0, 3.0, 4.0, 5.0],
+                 "mond_feature": "dx"}}
+    art = export_ensemble(spec, nets, str(tmp_path / "ens"), [1.0, 1.1, 1.2, 1.3],
+                          [0.003] * 4, experiment="burgers_forward", calibration=cal)
+    x = numpy_points(3_000, seed=41)
+    before = (k_taylor2.MEMBER_LAUNCHES, k_taylor1.LAUNCHES, k_ens.LAUNCHES)
+    served = ServedModel(art, device=cuda_device)
+    out = served.add_bands(served.predict(x, pad_to_bucket=True))
+    after = (k_taylor2.MEMBER_LAUNCHES, k_taylor1.LAUNCHES, k_ens.LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 4, 1]
+    want = ServedModel(art, device="cpu")
+    want = want.add_bands(want.predict(x))
+    assert sorted(out) == sorted(want) == ["f", "f_std", "u", "u_band", "u_dx", "u_std"]
+    for k in want:
+        name = k.split("_")[0]
+        atol = (1e-4 if name == "f" else 1e-5) * float(np.abs(want[name]).max())
+        np.testing.assert_allclose(out[k], want[k], rtol=1e-4, atol=atol, err_msg=k)
