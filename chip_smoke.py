@@ -111,10 +111,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             launches in that predict; one HTTP round trip; the served
             predict's time at 47,100 points
   20 k7a    the Taylor-1 kernel (K7a) and its backward against the plain
-            versions at the Euler trunk (against float64, compare_f64) and at
-            2x20x3x3 (TOL of plain float32; a gradient leaf whose sum cancels
-            against float64), N 1,000, 8,192, 65,536; two backward calls
-            agree bit for bit
+            versions at the Euler trunk (the wide design, against float64,
+            compare_f64) and at 2x20x3x3 (both designs, TOL of plain
+            float32; a gradient leaf whose sum cancels against float64), N
+            1,000, 8,192, 65,536, and at 8x20 x 16,000 and 25,600 (both
+            designs); the narrow design's forward equal to the wide one's
+            bit for bit; two backward calls agree bit for bit; the launches
+            a call of each design
   21 euler-step  one euler_admm Adam step on the card (K5 + K7a under
             autograd) from the fixture's JAX state at its points: loss and
             every gradient leaf (close_grad), z and dual of each component,
@@ -126,6 +129,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (curriculum, field weights; its rel-L2 printed, not held)
   times     the Euler epoch (CUDA events) and a 1,000-epoch chunk; K7a and
             its backward against autograd through plain at N 1,000 and 65,536
+            on the trunk, at 8x20 x 16,000 and 25,600 (the narrow design,
+            beside the wide one), with the launches a call
   23 p2     the CLI in this process: train abgrall_admm for P2_EPOCHS epochs
             (K3), export --checkpoint, predict over the grid, eval
             --checkpoint and eval --artifact, all at the train summary's u
@@ -191,8 +196,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   33 k8s    K8s (a), K1 with the member as blockIdx.y, at 8x20 (narrow) and
             8x200 (tiled), E = 1, 3, 8, N = 1, 31, 25,600: every member's
             four streams equal a solo K1 call (torch.equal); K8s (c), the
-            member reduction, against float64 by compare_f64 at E = 3 and 8
-            on the Euler ensemble's shape (47,100 points, 6 fields, 3 dx)
+            member reduction, against float64 by compare_f64 and equal to
+            its arithmetic spelled in member order (torch.equal) at E = 1,
+            3, 8, 16, 32, 33 on the Euler ensemble's shape (47,100 points, 6
+            fields, 3 dx), and at E 8 on 47,101 points (scalar loads) and 7
   34 ens-fixture  the committed JAX ensembles (ensemble_serve.npz: Burgers
             8x20 E 4, the full-width euler_weak_fast trunk with two shock
             paths E 3) through uq_calibration on the card against JAX's rows
@@ -210,7 +217,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   times     served ensemble predict (host clock) at 25,600 (Burgers, E 8)
             and 47,100 points (Euler, E 8) with and without bands; K8s (a)
             against 8 solo K1 calls and the plain version, (c) beside its
-            bound and torch.std_mean (CUDA events)
+            bound, its plain version and torch.std_mean (CUDA events, the
+            three in turns over 200 rounds)
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -331,11 +339,16 @@ EULER_FIELDS = ("rho", "u", "E")
 EULER_OUT = EULER_FIELDS + ("f1", "f2", "f3")
 EULER_RAGGED = (1, 37, 8_191)
 # K7a at the Euler batch's 1,000 points, 8,192 and 65,536, on the trunk and
-# on a narrow net; timed at 1,000 and 65,536
+# on a narrow net, and at 8x20 x 25,600 (a served Burgers ensemble's d/dx);
+# each net of widths <= 32 through both designs; timed at 1,000 and 65,536
+# (the trunk) and at 16,000 (twosin_weak's edge points, the narrow design's
+# main shape) and 25,600 (8x20)
 K7A_SHAPES = [(EULER, 1_000), (EULER, 8_192), (EULER, 65_536),
-              (EULER_NARROW, 1_000), (EULER_NARROW, 8_192), (EULER_NARROW, 65_536)]
+              (EULER_NARROW, 1_000), (EULER_NARROW, 8_192), (EULER_NARROW, 65_536),
+              (NARROW, 25_600)]
 K7A_MAIN = (EULER, 1_000)
-K7A_TIMES = [(EULER, 1_000), (EULER, 65_536)]
+K7A_NARROW_MAIN = (NARROW, 16_000)
+K7A_TIMES = [(EULER, 1_000), (EULER, 65_536), K7A_NARROW_MAIN, (NARROW, 25_600)]
 EULER_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
 # published peaks of one H100 SXM (dense), for the bounds in the kernels line
 PEAK_FP32, PEAK_BF16, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -412,6 +425,27 @@ def event_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def event_ms_turns(fns, reps: int) -> list:
+    """Median milliseconds of each of ``fns`` by CUDA events, after warm-up,
+    timed in turns (one call of each, ``reps`` rounds), so that two launch-
+    and host-bound calls meet the host's drift alike."""
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [statistics.median(ts) for ts in times]
 
 
 def host_ms(fn) -> float:
@@ -941,6 +975,8 @@ def kernel_counts() -> dict:
             "taylor2_mixed": taylor2.MIXED_LAUNCHES,
             "taylor2_mixed_backward": taylor2.MIXED_BACKWARD_LAUNCHES,
             "taylor1": taylor1.LAUNCHES, "taylor1_backward": taylor1.BACKWARD_LAUNCHES,
+            "taylor1_narrow": taylor1.NARROW_LAUNCHES,
+            "taylor1_narrow_backward": taylor1.NARROW_BACKWARD_LAUNCHES,
             "weakform_edge_points": weakform.EDGE_LAUNCHES, "weakform_flux": weakform.LAUNCHES,
             "weakform_flux_backward": weakform.BACKWARD_LAUNCHES}
 
@@ -955,6 +991,7 @@ def reset_counts() -> None:
     fused_step.LAUNCHES = fused_step.ENSEMBLE_LAUNCHES = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
     taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
+    taylor1.NARROW_LAUNCHES = taylor1.NARROW_BACKWARD_LAUNCHES = 0
     weakform.EDGE_LAUNCHES = weakform.LAUNCHES = weakform.BACKWARD_LAUNCHES = 0
 
 
@@ -1865,50 +1902,68 @@ def phase_euler_serve(card: str) -> dict:
 
 
 def phase_k7a(card: str) -> dict:
-    """20: K7a and its backward against the plain versions on the card."""
+    """20: K7a and its backward against the plain versions on the card, each
+    net of widths <= 32 through both designs, whose forwards agree bit for
+    bit; two backward calls of a design agree bit for bit."""
     from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
     from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference
 
     out = {}
-    for layers, n in K7A_SHAPES:
+    for layers, n in K7A_SHAPES + [K7A_NARROW_MAIN]:
         spec, params, spec64, params64 = k7a_net(layers, 207, "cuda")
         x = points(n, seed=n + 7, device="cuda")
         rng = np.random.default_rng(n + 8)
         cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32)).cuda()
                for _ in range(3)]
         with torch.inference_mode():
-            got = k_taylor1.taylor1(spec, params, x)
-            grad = k_taylor1.taylor1_backward(spec, params, x, cot)
-            again = k_taylor1.taylor1_backward(spec, params, x, cot)
             plain = mlp_taylor_1_reference(spec, params, x)
             exact = mlp_taylor_1_reference(spec64, params64, x.double())
             pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
             egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
                                                          [c.double() for c in cot])
-        torch.cuda.synchronize()
-        check(torch.equal(grad, again), f"K7a backward not repeatable at {layers}, N {n}")
         wide = max(layers) > 32
-        streams = {}
-        for name, g, p, e in zip(("y", "y_x", "y_t"), got, plain, exact):
-            streams[name] = (compare_f64(name, host(g), host(p), host(e)) if wide
-                             else compare(name, host(g), host(p)))
-        leaves, off = [], 0
-        for p, e in zip(pgrad, egrad):
-            g = host(grad[off:off + p.numel()])
-            off += p.numel()
-            row = measure("k7a_grad", g, host(p).ravel())
-            if wide or not row["ok"]:
-                row = dict(compare_f64("k7a_grad", g, host(p).ravel(), host(e).ravel()),
-                           max_abs_err=float(np.abs(g - host(p).ravel()).max()))
-            leaves.append(row)
-        fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
-        bwd_err = max(r["max_abs_err"] for r in leaves)
-        out[(layers, n)] = (fwd_err, bwd_err)
-        emit(card, phase="k7a", net=f"{len(layers) - 2}x{max(layers)}", out_dim=layers[-1], n=n,
-             criterion="f64_oracle" if wide else "tol_vs_plain",
-             plan=dataclasses.asdict(k_taylor1.taylor1_plan(layers, n, backward=True)),
-             streams=streams, forward_max_abs_err=fwd_err, backward_max_abs_err=bwd_err,
-             leaves_by_f64_oracle=sum("bound" in r for r in leaves), bit_equal=True)
+        designs = ("wide",) if k_taylor1.default_design(layers) == "wide" else ("narrow", "wide")
+        fwd = {}
+        for design in designs:
+            with torch.inference_mode():
+                got = k_taylor1.taylor1(spec, params, x, design=design)
+                grad = k_taylor1.taylor1_backward(spec, params, x, cot, design=design)
+                again = k_taylor1.taylor1_backward(spec, params, x, cot, design=design)
+            torch.cuda.synchronize()
+            fwd[design] = got
+            check(torch.equal(grad, again),
+                  f"K7a {design} backward not repeatable at {layers}, N {n}")
+            streams = {}
+            for name, g, p, e in zip(("y", "y_x", "y_t"), got, plain, exact):
+                streams[name] = (compare_f64(name, host(g), host(p), host(e)) if wide
+                                 else compare(name, host(g), host(p)))
+            leaves, off = [], 0
+            for p, e in zip(pgrad, egrad):
+                g = host(grad[off:off + p.numel()])
+                off += p.numel()
+                row = measure("k7a_grad", g, host(p).ravel())
+                if wide or not row["ok"]:
+                    row = dict(compare_f64("k7a_grad", g, host(p).ravel(), host(e).ravel()),
+                               max_abs_err=float(np.abs(g - host(p).ravel()).max()))
+                leaves.append(row)
+            fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+            bwd_err = max(r["max_abs_err"] for r in leaves)
+            out[(layers, n, design)] = (fwd_err, bwd_err)
+            plans = [k_taylor1.taylor1_plan(layers, n, b, design=design) for b in (False, True)]
+            emit(card, phase="k7a", design=design, net=f"{len(layers) - 2}x{max(layers)}",
+                 out_dim=layers[-1], n=n, criterion="f64_oracle" if wide else "tol_vs_plain",
+                 launches_forward=plans[0].launches, launches_backward=plans[1].launches,
+                 plan=dataclasses.asdict(plans[1]), streams=streams,
+                 forward_max_abs_err=fwd_err, backward_max_abs_err=bwd_err,
+                 leaves_by_f64_oracle=sum("bound" in r for r in leaves), bit_equal=True)
+        if len(designs) == 2:
+            check(all(torch.equal(a, b) for a, b in zip(fwd["narrow"], fwd["wide"])),
+                  f"K7a's narrow forward differs from its wide forward at {layers}, N {n}")
+            emit(card, phase="k7a", what="narrow_vs_wide_forward",
+                 net=f"{len(layers) - 2}x{max(layers)}", n=n, bit_equal=True)
+    for (layers, n, design), v in list(out.items()):
+        if design == k_taylor1.default_design(layers):
+            out[(layers, n)] = v  # the design the widths pick
     return out
 
 
@@ -2084,16 +2139,26 @@ def phase_euler_times(card: str, train: dict) -> dict:
         net = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
         x = points(n, seed=n + 9, device="cuda")
         cot = [torch.ones((n, layers[-1]), device="cuda") for _ in range(3)]
+        design = k_taylor1.default_design(layers)
         with torch.no_grad():
             fwd = event_ms(lambda: k_taylor1.taylor1(spec, params, x))
             fwd_plain = event_ms(lambda: mlp_taylor_1_reference(spec, params, x))
             bwd = event_ms(lambda: k_taylor1.taylor1_backward(spec, params, x, cot))
+            # a narrow net through the wide design too, the two side by side
+            other = {} if design == "wide" else {
+                "wide_forward_ms": event_ms(lambda: k_taylor1.taylor1(spec, params, x,
+                                                                      design="wide")),
+                "wide_backward_ms": event_ms(lambda: k_taylor1.taylor1_backward(
+                    spec, params, x, cot, design="wide"))}
         bwd_plain = event_ms(lambda: torch.autograd.grad(
             mlp_taylor_1_reference(spec, net, x), leaves, cot))
         out[(layers, n)] = (fwd, fwd_plain, bwd, bwd_plain)
-        emit(card, phase="times", what="k7a", net=f"{len(layers) - 2}x{max(layers)}", n=n,
+        emit(card, phase="times", what="k7a", design=design,
+             net=f"{len(layers) - 2}x{max(layers)}", n=n,
+             launches_forward=k_taylor1.taylor1_plan(layers, n).launches,
+             launches_backward=k_taylor1.taylor1_plan(layers, n, True).launches,
              forward_ms=fwd, forward_plain_ms=fwd_plain, backward_ms=bwd,
-             backward_plain_ms=bwd_plain, reps=REPS, clock="cuda_events",
+             backward_plain_ms=bwd_plain, **other, reps=REPS, clock="cuda_events",
              forward_bound_ms=taylor1_bound(layers, n)[0],
              backward_bound_ms=taylor1_backward_bound(layers, n)[0],
              plain="mlp_taylor_1_reference; backward by autograd through it")
@@ -2457,10 +2522,14 @@ def reduced_weak(preset: str, epochs: int, seed: int, out_dir: str = None):
     # points (and at the centres, mixed), K5 forward and backward on the
     # data term; the evaluation one K7a (Euler) or K1 (Burgers) forward over
     # the grid
+    # the edge points' K7a on its narrow design at twosin_weak's 8x20, on
+    # the wide one at the Euler trunk
     want = {"weakform_edge_points": epochs, "weakform_flux": epochs,
             "weakform_flux_backward": epochs, "taylor1": k7a + int(euler),
-            "taylor1_backward": k7a, "mlp_forward": epochs, "mlp_backward": epochs,
-            "taylor2": int(not euler), "taylor2_backward": 0, "fused_step": 0}
+            "taylor1_backward": k7a, "taylor1_narrow": 0 if euler else k7a,
+            "taylor1_narrow_backward": 0 if euler else k7a, "mlp_forward": epochs,
+            "mlp_backward": epochs, "taylor2": int(not euler), "taylor2_backward": 0,
+            "fused_step": 0}
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     fields = EULER_FIELDS if euler else ("u",)
     # (the causal weights rise as the early bins are fit, so the loss need
@@ -3176,6 +3245,10 @@ K8S_MEMBERS = (1, 3, 8)
 K8S_NS = (1, 31, 25_600)
 K8S_MAIN = (NARROW, 8, 25_600)  # the kernels line's K8s (a): phase 35's Burgers shape, E 8
 K8S_REDUCE = (8, 47_100, 6, 3)  # and (c): the Euler ensemble's E, N, fields, dx fields
+# (c) at each member bucket (<= 8, 16, 32 in registers; 33 two reads), and
+# at E 8 with N C odd (scalar loads) and at 7 points
+K8S_REDUCE_MEMBERS = (1, 3, 8, 16, 32, 33)
+REDUCE_REPS = 200
 ENS_EULER = {"members": 8, "epochs": 300}  # phase 35's euler_weak_fast ensemble
 
 
@@ -3246,20 +3319,45 @@ def phase_k8s(card: str) -> dict:
              members=K8S_MEMBERS, n=K8S_NS, bit_equal_to_solo_k1=True,
              launch=dataclasses.asdict(k_taylor2.launch_config(layers)))
     e_main, n, c, cd = K8S_REDUCE
-    for e in (3, e_main):
-        vals, dx = reduce_inputs(e, n, c, cd, seed=333 + e, device="cuda")
+    for e, n_e in [(e, n) for e in K8S_REDUCE_MEMBERS] + [(e_main, n + 1), (e_main, 7)]:
+        vals, dx = reduce_inputs(e, n_e, c, cd, seed=333 + e, device="cuda")
         with torch.inference_mode():
             got = k_ens.member_stats(vals, dx)
             plain = k_ens.member_stats_reference(vals, dx)
             exact = k_ens.member_stats_reference(vals.double(), dx.double())
+            spelled = member_stats_spelled(vals, dx)
             torch.cuda.synchronize()
         rows = {name: compare_f64(f"K8s (c) {name} E={e}", host(g), host(p), host(x))
                 for name, g, p, x in zip(("mean", "std", "dx"), got, plain, exact)}
-        if e == e_main:
+        check(all(torch.equal(g, w) for g, w in zip(got, spelled)),
+              f"K8s (c) at E {e}, N {n_e} differs from its arithmetic spelled in member order")
+        if (e, n_e) == (e_main, n):
             out["reduce_err"] = max(r["max_abs_err_vs_plain"] for r in rows.values())
-        emit(card, phase="k8s", part="c", members=e, n=n, fields=c, dx_fields=cd,
-             criterion="compare_f64", rows=rows)
+        emit(card, phase="k8s", part="c", members=e, n=n_e, fields=c, dx_fields=cd,
+             criterion="compare_f64", rows=rows, equal_to_spelled_member_order=True)
     return out
+
+
+def member_stats_spelled(vals, dx):
+    """K8s (c)'s arithmetic in plain PyTorch, one float32 op a kernel in
+    member order (no contraction): the sum, / E, the squared deviations'
+    sum, / E, sqrt; |the dx sum / E|."""
+    e = vals.shape[0]
+    s = torch.zeros_like(vals[0])
+    for k in range(e):
+        s = s + vals[k]
+    # a tensor divisor: PyTorch divides by a CPU scalar as a product with its
+    # reciprocal, which is not the division the kernel does
+    fe = torch.full_like(s, e)
+    mu = s / fe
+    q = torch.zeros_like(mu)
+    for k in range(e):
+        t = vals[k] - mu
+        q = q + t * t
+    sd = torch.zeros_like(dx[0])
+    for k in range(e):
+        sd = sd + dx[k]
+    return mu, torch.sqrt(q / fe), torch.abs(sd / torch.full_like(sd, e))
 
 
 def served_fixture_ensemble(fx: dict, kind: str):
@@ -3582,7 +3680,9 @@ def phase_ensemble_serve(card: str, ckpt_dir: str, tmp: str) -> dict:
           and len(selection["scores"]) == c["members"], f"meta['selection'] {selection}")
     check(plain.calls == 0, f"{plain.calls} calls of a plain version on the serving path")
     check(burgers_launches["taylor2_members"] > 0 and burgers_launches["member_stats"] > 0
-          and burgers_launches["taylor1"] > 0, f"Burgers serving launches {burgers_launches}")
+          and burgers_launches["taylor1"] > 0
+          and burgers_launches["taylor1_narrow"] == burgers_launches["taylor1"],
+          f"Burgers serving launches {burgers_launches}")
     check(launches["member_stats"] > burgers_launches["member_stats"]
           and launches["taylor1"] > burgers_launches["taylor1"],
           f"Euler serving launches {launches}")
@@ -3649,15 +3749,17 @@ def phase_ens_serve_times(card: str, serve: dict) -> dict:
     e, n, c, cd = K8S_REDUCE
     vals, dx = reduce_inputs(e, n, c, cd, seed=352, device="cuda")
     with torch.inference_mode():
-        ms = event_ms(lambda: k_ens.member_stats(vals, dx))
-        plain_ms = event_ms(lambda: k_ens.member_stats_reference(vals, dx))
-        lib_ms = event_ms(lambda: torch.std_mean(vals, dim=0, correction=0))
+        # launch- and host-bound calls of a few microseconds of device time:
+        # in turns, REDUCE_REPS rounds
+        ms, plain_ms, lib_ms = event_ms_turns(
+            [lambda: k_ens.member_stats(vals, dx), lambda: k_ens.member_stats_reference(vals, dx),
+             lambda: torch.std_mean(vals, dim=0, correction=0)], REDUCE_REPS)
     b = reduce_bound(e, n, c, cd)
     out["reduce"] = (ms, plain_ms, b, lib_ms)
     emit(card, phase="times", what="k8s_reduce", members=e, n=n, fields=c, dx_fields=cd,
          kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
          library="torch.std_mean over dim 0 (mean and std only, no dx)", bound_ms=b[0],
-         bound_by=b[1], reps=REPS, clock="cuda_events")
+         bound_by=b[1], reps=REDUCE_REPS, clock="cuda_events, in turns")
     return out
 
 
@@ -3996,7 +4098,20 @@ def main() -> int:
         **bound_fields(taylor1_backward_bound(*K7A_MAIN)),
         "paths_n16000": path_entry(ewf, "taylor1_backward", paths_err, t9, "k7a",
                                    PATH_K7A_MAIN, 1),
-    }, {
+    }] + [{
+        # K7a's narrow design (8x20): twosin_weak's edge points, phase 26's
+        # first seed its launches
+        "name": f"taylor1_narrow{suffix}",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/taylor1.cu",
+        "replaces": "pinns_tpu/ops/taylor.py:91",
+        "launches": weak["launches"][f"taylor1_narrow{suffix}"],
+        "max_abs_err": k7a[K7A_NARROW_MAIN][i],
+        "ms": t7[K7A_NARROW_MAIN][2 * i],
+        "plain_ms": t7[K7A_NARROW_MAIN][2 * i + 1],
+        **bound_fields(bound_fn(*K7A_NARROW_MAIN)),
+    } for i, (suffix, bound_fn) in enumerate((("", taylor1_bound),
+                                              ("_backward", taylor1_backward_bound)))] + [{
         "name": "fused_step_ensemble",
         "route": "cuda",
         "source": "pinns_tpu_torch/csrc/fused_step.cu",

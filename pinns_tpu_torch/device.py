@@ -74,3 +74,11 @@ def resolve_device(name: Union[str, torch.device]) -> torch.device:
     elif device.type != "cpu":
         raise RuntimeError(f"unsupported device {str(device)!r}; use 'cpu' or 'cuda'")
     return device
+
+
+def raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``index``, as
+    the kernels' launchers take it: ``torch.cuda.current_stream(index).
+    cuda_stream`` without building the Stream object, which costs a few
+    microseconds a call on the host."""
+    return torch._C._cuda_getCurrentRawStream(index)

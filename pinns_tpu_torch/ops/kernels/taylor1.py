@@ -12,15 +12,27 @@ and served point. Its plain versions are ``ops.taylor.mlp_taylor_1_reference``
 (forward) and :func:`taylor1_backward_reference` (the reverse mode, also in
 float64).
 
-The design is K2's whole-call layer-product design with three streams and no
-second-order term, on the engine of ``csrc/layer_gemm.cuh``: the three
-streams stacked stream-major into one (3 n_pad x width) matrix per layer, the
-bias's indicator column 1 on value rows and 0 on derivative rows, one product
-P = H [W; b] and one elementwise pass a hidden layer (the header of
-``csrc/taylor1.cu`` has the rest and what bounds it on the H100).
-:func:`taylor1_plan` picks the block tile from the number of points (K5's
-rule: 32 x 32 until the products give about one 128 x 128 block an SM), dW's
-split and the scratch.
+Two designs, picked by :func:`taylor1_plan` from the widths and the paths
+(the header of ``csrc/taylor1.cu`` has the rest and what bounds them on the
+H100):
+
+- "wide", any net wider than 32 and every shock-path net: whole-call layer
+  products on the engine of ``csrc/layer_gemm.cuh``, the three streams stacked
+  stream-major into one (3 n_pad x width) matrix per layer with the bias's
+  indicator column (1 on value rows, 0 on derivative rows), each product's
+  block tile holding the value, x and t sums of the same points, so the tanh
+  rule runs in its epilogue (forward) and its adjoint in gH's (backward):
+  L + 1 launches forward, 2 L + 2 backward (one more with paths). The plan
+  picks the block tile from the number of points (K5's rule: 32 x 32 until
+  the products give about one 128 x 128 block an SM), dW's split and the
+  scratch.
+- "narrow", every width at most 32 and no paths (the 8x20 nets): K1's
+  per-tile kernel with three streams, one launch forward; the backward a
+  per-tile kernel and a fixed-order reduction, two launches.
+
+Each output's float32 sum is the same in both, so their forwards agree bit
+for bit. The wrappers take a ``design`` argument that only tests and
+``chip_smoke.py`` pass, to hold the two against each other.
 
 Shock-path features (``spec.n_paths``) ride in the input pass: each point's
 first-layer input carries its path features and their x and t streams,
@@ -38,11 +50,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 from typing import List, Sequence, Tuple
 
 import torch
 
+from pinns_tpu_torch.device import raw_stream
 from pinns_tpu_torch.models.mlp import (
     MLPSpec,
     Params,
@@ -62,28 +76,47 @@ from pinns_tpu_torch.ops.kernels.taylor2 import (
 )
 from pinns_tpu_torch.ops.taylor import _StreamPolicy, taylor1_layer
 
-LAUNCHES = 0  # K7a forward calls in this process (chip_smoke.py reads it)
+LAUNCHES = 0  # K7a forward calls in this process, both designs (chip_smoke.py reads it)
 BACKWARD_LAUNCHES = 0  # K7a backward calls (one host call issues all its launches)
+NARROW_LAUNCHES = 0  # of those, the narrow design's forward calls
+NARROW_BACKWARD_LAUNCHES = 0  # and its backward calls
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 STREAMS = 3
 MAX_WIDTH = 256
 MAX_LAYERS = 32
-# points padded to a multiple of EW_TILE (the row tile of the elementwise
-# passes and of db's per-tile sums), so that a product's row tile lies in one
+DESIGNS = ("wide", "narrow")
+# the wide design: points padded to a multiple of EW_TILE (the row tile of
+# the input and path passes), so that a product's row tile lies in one
 # stream; the block tile SMALL_TILE (32 x 32, 64 threads) unless the hidden
 # products cut into LARGE_TILE (128 x 128, 256 threads) tiles give at least
-# LARGE_TILE_MIN_BLOCKS blocks (K5's rule); dW's sum over the stacked rows
-# split into chunks of whole SPLIT_STEP rows, at most MAX_SPLIT_ROWS, enough
-# of them that the widest layer's dW takes about SPLIT_BLOCKS blocks (K3's
-# target: short float32 chains)
+# LARGE_TILE_MIN_BLOCKS blocks (K5's rule); gH's three-stream tiles, which
+# share a launch with dW's, take GRAD_TILE_POINTS points at either tile
+# (db's per-tile sums follow them); dW's sum over the stacked rows split into
+# chunks of whole SPLIT_STEP rows, at most MAX_SPLIT_ROWS, enough of them
+# that the widest layer's dW takes about SPLIT_BLOCKS blocks (K3's target:
+# short float32 chains)
 EW_TILE = 128
 SMALL_TILE = 32
 LARGE_TILE = 128
+GRAD_TILE_POINTS = 32
 LARGE_TILE_MIN_BLOCKS = 128
 SPLIT_BLOCKS = 1600
 SPLIT_STEP = 32
 MAX_SPLIT_ROWS = 1024
+# the narrow design: a net whose widths are all at most NARROW_WIDTH, without
+# paths; forward tiles of up to NARROW_MAX_TILE points whose two
+# three-stream buffers fit NARROW_SMEM (K1's), at most NARROW_MAX_THREADS
+# threads; backward tiles of up to NARROW_BWD_MAX_TILE points whose three
+# buffer triples fit NARROW_BWD_SMEM, at most NARROW_MAX_GRID blocks (K5's)
+NARROW_WIDTH = 32
+NARROW_SMEM = 112 * 1024
+NARROW_MAX_TILE = 128
+NARROW_MAX_THREADS = 640
+NARROW_BWD_SMEM = 200 * 1024
+NARROW_BWD_MAX_TILE = 64
+NARROW_MAX_GRID = 264
+POINTS_PER_THREAD = 4
 
 
 def _ld_h(width: int) -> int:
@@ -98,72 +131,139 @@ def _align4(floats: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Taylor1Plan:
-    """How K7a lays out a call of n points: the points padded to ``n_pad``,
-    the products' block ``tile``, dW's sum over the 3 n_pad stacked rows cut
-    into ``splits`` chunks of ``split_rows`` (0 and 0 in a forward plan), and
-    the parts of its float32 scratch (in floats, each rounded up to 16 bytes,
-    in the kernel's order): db's per-tile sums (doubles), the stacked input
-    streams H_0, the pre-activations (one layer's in a forward plan, every
-    hidden layer's in a backward plan), one layer's stacked inputs, two
-    adjoint buffers, the split partials and the path gradient's per-tile
-    partials (doubles). The kernel lays the scratch out itself and refuses a
-    plan that does not fit it."""
+    """How K7a lays out a call of n points.
 
+    ``design`` "wide": the points padded to ``n_pad``, dW's block ``tile``
+    (32 or 128), dW's sum over the 3 n_pad stacked rows cut into ``splits``
+    chunks of ``split_rows`` (0 and 0 in a forward plan), and the parts of its
+    float32 scratch (in floats, each rounded up to 16 bytes, in the kernel's
+    order): db's per-tile sums (doubles, one per three-stream tile of
+    points), the stacked input streams H_0, the stacked inputs ``hbuf`` (two
+    ping-pong buffers in a forward plan, every hidden layer's outputs in a
+    backward plan, which applies the rule's adjoint at them), two adjoint
+    buffers, the split partials and the path gradient's per-128-point
+    partials (doubles).
+
+    ``design`` "narrow": ``tile`` points a block, ``threads`` a forward block,
+    ``grid`` backward blocks; the scratch (backward only) holds the blocks'
+    partials and their kept hidden output streams (``hbuf``).
+
+    ``launches`` is the kernel launches of one host call. The kernel lays the
+    scratch out itself and refuses a plan that does not fit it."""
+
+    design: str
     tile: int
     n_pad: int
     split_rows: int
     splits: int
     sums: int
     h0: int
-    pstore: int
     hbuf: int
     gbuf: int
     partials: int
     psums: int = 0
+    threads: int = 0
+    grid: int = 0
+    launches: int = 0
+
+    @property
+    def parts(self) -> Tuple[int, ...]:
+        """The scratch's parts in the kernel's order (floats)."""
+        if self.design == "narrow":
+            return (self.partials, self.hbuf)
+        return (self.sums, self.h0, self.hbuf, self.gbuf, self.partials, self.psums)
 
     @property
     def scratch_floats(self) -> int:
-        return (self.sums + self.h0 + self.pstore + self.hbuf + self.gbuf + self.partials
-                + self.psums)
+        return sum(self.parts)
 
     @property
     def scratch_bytes(self) -> int:
         return 4 * self.scratch_floats
 
 
+def default_design(layers: Sequence[int]) -> str:
+    """"narrow" or "wide": the K7a design that a net of these widths takes
+    (``layers[0]`` 2 + the number of paths: a path net takes the wide one)."""
+    layers = tuple(int(w) for w in layers)
+    return "narrow" if layers[0] == 2 and max(layers) <= NARROW_WIDTH else "wide"
+
+
+def _narrow_plan(layers: Tuple[int, ...], n: int, backward: bool) -> Taylor1Plan:
+    wmax = max(layers)
+    if not backward:
+        tile = NARROW_SMEM // (4 * 2 * STREAMS * wmax) - 4
+        tile = min(NARROW_MAX_TILE, tile - tile % POINTS_PER_THREAD)
+        items = (tile // POINTS_PER_THREAD) * max(layers[1:])
+        threads = min(NARROW_MAX_THREADS, -(-items // 32) * 32)
+        return Taylor1Plan(design="narrow", tile=tile, n_pad=-(-n // tile) * tile, split_rows=0,
+                           splits=0, sums=0, h0=0, hbuf=0, gbuf=0, partials=0,
+                           threads=threads, grid=-(-n // tile), launches=1)
+    tile = NARROW_BWD_SMEM // (4 * 3 * STREAMS * wmax) - 4
+    tile = min(NARROW_BWD_MAX_TILE, tile - tile % POINTS_PER_THREAD)
+    grid = max(1, min(NARROW_MAX_GRID, -(-n // tile)))
+    n_params = sum(din * dout + dout for din, dout in zip(layers[:-1], layers[1:]))
+    return Taylor1Plan(
+        design="narrow", tile=tile, n_pad=-(-n // tile) * tile, split_rows=0, splits=0,
+        sums=0, h0=0, hbuf=_align4(grid * (len(layers) - 2) * STREAMS * wmax * tile), gbuf=0,
+        partials=_align4(grid * n_params), grid=grid, launches=2)
+
+
 def taylor1_plan(layers: Sequence[int], n: int, backward: bool = False,
-                 path_params: int = 0) -> Taylor1Plan:
+                 path_params: int = 0, design: str = None) -> Taylor1Plan:
     """K7a's plan for ``n`` points through a net of these widths (the
     forward's, or the backward's with ``backward``). ``layers[0]`` is the
     first layer's input width (``spec.widths``: 2 + the number of paths);
-    ``path_params`` the paths' parameter count (``spec.n_path_params``)."""
-    layers = tuple(int(w) for w in layers)
+    ``path_params`` the paths' parameter count (``spec.n_path_params``);
+    ``design`` None for the one the widths pick (:func:`default_design`), or a
+    design to hold against the other (the narrow one only where the widths
+    allow it). Plans are cached: a call computes each shape's once."""
+    return _plan(tuple(int(w) for w in layers), int(n), bool(backward), int(path_params),
+                 design)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(layers: Tuple[int, ...], n: int, backward: bool, path_params: int,
+          design: str) -> Taylor1Plan:
     if max(layers) > MAX_WIDTH:
         raise ValueError(f"taylor1 kernel takes widths up to {MAX_WIDTH}, got {max(layers)}")
     if len(layers) - 1 > MAX_LAYERS:
         raise ValueError(f"taylor1 kernel takes up to {MAX_LAYERS} layers")
+    auto = default_design(layers)
+    design = auto if design is None else design
+    if design not in DESIGNS:
+        raise ValueError(f"taylor1 designs are {DESIGNS}, got {design!r}")
+    if design == "narrow":
+        if auto != "narrow":
+            raise ValueError(f"taylor1's narrow design takes nets without paths whose widths "
+                             f"are at most {NARROW_WIDTH}, got {layers}")
+        return _narrow_plan(layers, n, backward)
     n_pad = max(1, -(-n // EW_TILE)) * EW_TILE
     rows = STREAMS * n_pad
     hidden = layers[1:-1] or layers
     blocks = (rows // LARGE_TILE) * -(-max(hidden) // LARGE_TILE)
     tile = LARGE_TILE if blocks >= LARGE_TILE_MIN_BLOCKS else SMALL_TILE
     wmax = max(layers)
-    h0, hbuf = rows * _ld_h(layers[0]), rows * _ld_h(wmax)
+    n_layers = len(layers) - 1
+    h0 = rows * _ld_h(layers[0])
     if not backward:
-        return Taylor1Plan(tile=tile, n_pad=n_pad, split_rows=0, splits=0, sums=0, h0=h0,
-                           pstore=rows * wmax, hbuf=hbuf, gbuf=0, partials=0)
+        return Taylor1Plan(design="wide", tile=tile, n_pad=n_pad, split_rows=0, splits=0,
+                           sums=0, h0=h0, hbuf=2 * rows * _ld_h(wmax), gbuf=0,
+                           partials=0, launches=n_layers + 1)
     pairs = list(zip(layers[:-1], layers[1:]))
     steps = rows // SPLIT_STEP
     pieces = max(-(-din // tile) * -(-dout // tile) for din, dout in pairs)
     per_split = min(MAX_SPLIT_ROWS // SPLIT_STEP, -(-steps // -(-SPLIT_BLOCKS // pieces)))
     splits = -(-steps // per_split)
     n_params = sum(din * dout + dout for din, dout in pairs)
+    tiles = n_pad // GRAD_TILE_POINTS
     return Taylor1Plan(
-        tile=tile, n_pad=n_pad, split_rows=per_split * SPLIT_STEP, splits=splits,
-        sums=_align4(2 * len(pairs) * (n_pad // EW_TILE) * wmax), h0=h0,
-        pstore=rows * sum(layers[1:-1]), hbuf=hbuf, gbuf=2 * rows * wmax,
-        partials=_align4(splits * n_params),
-        psums=_align4(2 * (n_pad // EW_TILE) * path_params))
+        design="wide", tile=tile, n_pad=n_pad, split_rows=per_split * SPLIT_STEP,
+        splits=splits, sums=_align4(2 * n_layers * tiles * wmax), h0=h0,
+        hbuf=rows * sum(_ld_h(w) for w in layers[1:-1]),
+        gbuf=2 * rows * wmax, partials=_align4(splits * n_params),
+        psums=_align4(2 * (n_pad // EW_TILE) * path_params),
+        launches=2 * n_layers + 2 + (1 if layers[0] > 2 else 0))
 
 
 def _lib():
@@ -178,6 +278,14 @@ def _lib():
             p, i, p, p, i, i, i, f, f, f, f, i, i, i, i, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor1_backward.restype = i
+        lib.pinns_taylor1_narrow_forward.argtypes = [
+            p, i, p, p, i, f, f, f, f, i, i, p, p, p, i, p,
+        ]
+        lib.pinns_taylor1_narrow_forward.restype = i
+        lib.pinns_taylor1_narrow_backward.argtypes = [
+            p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, q, p, i, p,
+        ]
+        lib.pinns_taylor1_narrow_backward.restype = i
         lib.pinns_taylor1_error_string.argtypes = [i]
         lib.pinns_taylor1_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -200,15 +308,18 @@ def _raise(lib, err: int, what: str, plan: Taylor1Plan) -> None:
     raise RuntimeError(f"taylor1 {what} launch failed: CUDA error {err} ({msg}); {plan}")
 
 
-def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor, out=None
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor, out=None, design: str = None,
+            flat: torch.Tensor = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, y_x, y_t), each (N, out_dim) float32, from one host call of K7a's
     forward. ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA
     device; ``params`` the JAX-layout layers on the same device. ``out``, if
     given, is the three contiguous (N, out_dim) float32 tensors to write (a
     served ensemble's member slices of one (E, N, out_dim) buffer each).
-    Raises on anything else."""
-    global LAUNCHES
+    ``flat``, if given, is ``params`` already packed in ``pack_params``
+    order (a served ensemble's member row, which ``params`` views), read in
+    place of packing them. ``design`` as :func:`taylor1_plan`'s. Raises on
+    anything else."""
+    global LAUNCHES, NARROW_LAUNCHES
     check_spec(spec)
     if out is None:
         outs = tuple(torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32,
@@ -222,33 +333,46 @@ def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor, out=None
     n = x.shape[0]
     if n == 0:
         return outs
-    plan = taylor1_plan(layers, n)
-    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+    plan = taylor1_plan(layers, n, design=design)
     lib = _lib()
     dims = (ctypes.c_int * len(layers))(*layers)
-    flat = pack_params(params)
-    err = lib.pinns_taylor1_forward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
-        spec.lb[0], spec.lb[1],
-        spec.ub[0], spec.ub[1], plan.n_pad, plan.tile, scratch.data_ptr(),
-        plan.scratch_floats, *(o.data_ptr() for o in outs), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if flat is None:
+        flat = pack_params(params)
+    elif (flat.dtype != torch.float32 or flat.device != x.device or not flat.is_contiguous()
+          or flat.numel() < spec.n_params):
+        raise ValueError(f"taylor1: flat params must be a contiguous float32 vector of at least "
+                         f"{spec.n_params} on {x.device}, got {flat.dtype} "
+                         f"{tuple(flat.shape)} on {flat.device}")
+    stream = raw_stream(x.device.index or 0)
+    if plan.design == "narrow":
+        err = lib.pinns_taylor1_narrow_forward(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+            spec.ub[0], spec.ub[1], plan.tile, plan.threads, *(o.data_ptr() for o in outs),
+            x.device.index or 0, stream)
+    else:
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+        err = lib.pinns_taylor1_forward(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
+            spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], plan.n_pad, plan.tile,
+            scratch.data_ptr(), plan.scratch_floats, *(o.data_ptr() for o in outs),
+            x.device.index or 0, stream)
     if err != 0:
         _raise(lib, err, "forward", plan)
     with _launches_lock:
         LAUNCHES += 1
+        NARROW_LAUNCHES += plan.design == "narrow"
     return outs
 
 
 def taylor1_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
-                     cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
+                     cotangents: Sequence[torch.Tensor], design: str = None) -> torch.Tensor:
     """K7a's backward: the flat gradient (``pack_params`` order, the paths'
     leaves after the trunk's) of sum over
     points of gy . y + gyx . y_x + gyt . y_t, where ``cotangents`` = (gy, gyx,
     gyt), each (N, out_dim) float32, contiguous, on ``x``'s CUDA device. One
-    host call that issues every product, elementwise pass and the reduction
-    (``taylor1_plan``); raises on anything the kernel does not take."""
-    global BACKWARD_LAUNCHES
+    host call that issues every launch of the plan's design (``taylor1_plan``;
+    ``design`` as its); raises on anything the kernel does not take."""
+    global BACKWARD_LAUNCHES, NARROW_BACKWARD_LAUNCHES
     if len(cotangents) != STREAMS:
         raise ValueError(f"taylor1 backward takes {STREAMS} stream cotangents, "
                          f"got {len(cotangents)}")
@@ -259,21 +383,31 @@ def taylor1_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
     if n == 0:
         return grad.zero_()
-    plan = taylor1_plan(layers, n, backward=True, path_params=spec.n_path_params)
+    plan = taylor1_plan(layers, n, backward=True, path_params=spec.n_path_params,
+                        design=design)
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
     lib = _lib()
     dims = (ctypes.c_int * len(layers))(*layers)
     flat = pack_params(params)
-    err = lib.pinns_taylor1_backward(
-        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
-        spec.lb[0], spec.lb[1],
-        spec.ub[0], spec.ub[1], plan.n_pad, plan.tile, plan.split_rows, plan.splits,
-        *(g.data_ptr() for g in cotangents), scratch.data_ptr(), plan.scratch_floats,
-        grad.data_ptr(), x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = raw_stream(x.device.index or 0)
+    if plan.design == "narrow":
+        err = lib.pinns_taylor1_narrow_backward(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+            spec.ub[0], spec.ub[1], plan.tile, plan.grid, *(g.data_ptr() for g in cotangents),
+            scratch.data_ptr(), plan.scratch_floats, grad.data_ptr(), x.device.index or 0,
+            stream)
+    else:
+        err = lib.pinns_taylor1_backward(
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
+            spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], plan.n_pad, plan.tile,
+            plan.split_rows, plan.splits, *(g.data_ptr() for g in cotangents),
+            scratch.data_ptr(), plan.scratch_floats, grad.data_ptr(), x.device.index or 0,
+            stream)
     if err != 0:
         _raise(lib, err, "backward", plan)
     with _launches_lock:
         BACKWARD_LAUNCHES += 1
+        NARROW_BACKWARD_LAUNCHES += plan.design == "narrow"
     return grad
 
 

@@ -348,9 +348,10 @@ def member_outputs(spec, pde: str, flat: torch.Tensor, x: torch.Tensor, lambda1=
     On a CUDA tensor: Burgers' four Taylor-2 streams of every member from
     one launch of K8s (a), the member-batched K1, and the combine f = u_t +
     lambda1 u u_x - lambda2 u_xx once on the (E, N, 1) streams; the Euler
-    members and every member's dx from solo K7a calls, each writing its
-    slices of one preallocated (E, N, .) buffer (for Euler, dx is the x
-    stream of those same calls). On the CPU the plain versions."""
+    members and every member's dx from solo K7a calls, each reading its row
+    of ``flat`` and writing its slices of one preallocated (E, N, .) buffer
+    (for Euler, dx is the x stream of those same calls). On the CPU the plain
+    versions."""
     from pinns_tpu_torch.ops import taylor
     from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
     from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
@@ -365,7 +366,7 @@ def member_outputs(spec, pde: str, flat: torch.Tensor, x: torch.Tensor, lambda1=
                      for _ in range(3))
         for m, net in enumerate(nets):
             if on_card:
-                k_taylor1.taylor1(spec, net, x, out=tuple(b[m] for b in bufs))
+                k_taylor1.taylor1(spec, net, x, out=tuple(b[m] for b in bufs), flat=flat[m])
             else:
                 for b, t in zip(bufs, taylor.mlp_taylor_1_reference(spec, net, x)):
                     b[m].copy_(t)

@@ -713,14 +713,80 @@ def test_k7a_refuses_on_card_instead_of_falling_back(cuda_device):  # noqa: F811
     with pytest.raises(ValueError, match="later slice"):
         mlp_taylor_1(mixed, params, x)
     spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    cot = [torch.zeros((16, 3), device=cuda_device) for _ in range(3)]
     real = k_taylor1.taylor1_plan
-    shrink = lambda *a, **k: __import__("dataclasses").replace(real(*a, **k), hbuf=4)  # noqa: E731
+
+    def shrink(*a, **k):
+        # the stacked inputs (wide), the kept outputs (narrow backward) and the
+        # narrow forward's threads cut below what the kernels take
+        return __import__("dataclasses").replace(real(*a, **k), hbuf=4, threads=2048)
+
     try:
         k_taylor1.taylor1_plan = shrink
-        with pytest.raises(RuntimeError, match="invalid argument"):
-            k_taylor1.taylor1(spec, params, x)
+        for design in ("wide", "narrow"):
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                k_taylor1.taylor1(spec, params, x, design=design)
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                k_taylor1.taylor1_backward(spec, params, x, cot, design=design)
     finally:
         k_taylor1.taylor1_plan = real
+    with pytest.raises(ValueError, match="narrow design"):
+        k_taylor1.taylor1(MLPSpec(layers=(2, 64, 3), lb=LB, ub=UB),
+                          init_mlp(MLPSpec(layers=(2, 64, 3), lb=LB, ub=UB),
+                                   torch.Generator().manual_seed(2), cuda_device), x,
+                          design="narrow")
+
+
+K7A_DESIGN_NS = (1, 31, 1_000, 16_000, 25_600)
+
+
+@pytest.mark.parametrize("layers", [(2,) + (20,) * 8 + (1,), (2, 20, 20, 20, 3)],
+                         ids=["8x20", "3x20"])
+def test_k7a_narrow_forward_equals_wide_on_card(cuda_device, layers):  # noqa: F811
+    """K7a's narrow design (one launch) and its wide design give the same
+    streams bit for bit at N 1, 31, 1,000, 16,000 and 25,600: each output is
+    the same float32 chain in both."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+
+    spec, params, _, _ = _net(layers, 24, cuda_device)
+    for n in K7A_DESIGN_NS:
+        x = torch.from_numpy(numpy_points(n, seed=25 + n)).to(cuda_device)
+        n0 = k_taylor1.NARROW_LAUNCHES
+        narrow = k_taylor1.taylor1(spec, params, x)
+        wide = k_taylor1.taylor1(spec, params, x, design="wide")
+        torch.cuda.synchronize()
+        assert k_taylor1.NARROW_LAUNCHES == n0 + 1
+        for a, b in zip(narrow, wide):
+            assert a.shape == (n, layers[-1]) and torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("design", ["narrow", "wide"])
+@pytest.mark.parametrize("n", [1, 1_000, 16_000])
+def test_k7a_backward_designs_on_card(cuda_device, design, n):  # noqa: F811
+    """Both designs' backwards at 8x20: two calls agree bit for bit, and each
+    leaf within rtol 1e-4 / atol 1e-5 max|plain| of the plain reverse mode or,
+    where a sum cancels, within 4x its error from float64."""
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+
+    layers = (2,) + (20,) * 8 + (1,)
+    spec, params, spec64, params64 = _net(layers, 26, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=27)).to(cuda_device)
+    rng = np.random.default_rng(28)
+    cot = [torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(cuda_device)
+           for _ in range(3)]
+    b0 = k_taylor1.NARROW_BACKWARD_LAUNCHES
+    grad = k_taylor1.taylor1_backward(spec, params, x, cot, design=design)
+    again = k_taylor1.taylor1_backward(spec, params, x, cot, design=design)
+    torch.cuda.synchronize()
+    assert k_taylor1.NARROW_BACKWARD_LAUNCHES == b0 + (2 if design == "narrow" else 0)
+    assert torch.equal(grad, again)
+    pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
+    egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x.double(),
+                                                 [c.double() for c in cot])
+    off = 0
+    for p, e in zip(pgrad, egrad):
+        _close_or_f64(grad[off:off + p.numel()].view(p.shape), p, e, wide=True)
+        off += p.numel()
 
 
 def test_euler_trainer_on_card(cuda_device):  # noqa: F811
@@ -1057,6 +1123,63 @@ def test_k8s_reduction_on_card(cuda_device, e, dx):  # noqa: F811
         err = float((g.double() - x).abs().max())
         plain_err = float((p.double() - x).abs().max())
         assert err <= 4.0 * plain_err + 1e-6 * float(x.abs().max())
+
+
+def _member_stats_spelled(vals, dxs):
+    """K8s (c)'s arithmetic spelled in plain PyTorch, one float32 op at a
+    time in member order (each op its own kernel: no contraction)."""
+    e = vals.shape[0]
+    s = torch.zeros_like(vals[0])
+    for k in range(e):
+        s = s + vals[k]
+    # a tensor divisor: PyTorch divides by a CPU scalar as a product with its
+    # reciprocal, which is not the division the kernel does
+    fe = torch.full_like(s, e)
+    mu = s / fe
+    q = torch.zeros_like(mu)
+    for k in range(e):
+        t = vals[k] - mu
+        q = q + t * t
+    std = torch.sqrt(q / fe)
+    if dxs is None:
+        return mu, std, None
+    sd = torch.zeros_like(dxs[0])
+    for k in range(e):
+        sd = sd + dxs[k]
+    return mu, std, torch.abs(sd / torch.full_like(sd, e))
+
+
+K8S_REDUCE_CASES = [(e, n, c, cd) for e in (1, 3, 8, 32, 33) for n, c, cd in
+                    ((4_099, 3, 2), (4_100, 6, 3), (4_097, 1, 1))]
+
+
+@pytest.mark.parametrize("e,n,c,cd", K8S_REDUCE_CASES,
+                         ids=[f"e{e}-n{n}-c{c}-d{cd}" for e, n, c, cd in K8S_REDUCE_CASES])
+def test_k8s_reduction_bits_on_card(cuda_device, e, n, c, cd):  # noqa: F811
+    """K8s (c) at E 1, 3, 8, 32 (members in registers) and 33 (two reads),
+    with N C and N Cd multiples of 4 (16-byte loads) or not: equal bit for
+    bit to its arithmetic spelled in plain PyTorch in member order, and
+    within 4x the plain float32 error of float64."""
+    from pinns_tpu_torch.ops.kernels import ensemble as k_ens
+
+    rng = np.random.default_rng(40 + e)
+    base = rng.standard_normal((1, n, c))
+    vals = torch.from_numpy((base + 1e-4 * rng.standard_normal((e, n, c))).astype(
+        np.float32)).to(cuda_device)
+    dxs = torch.from_numpy(rng.standard_normal((e, n, cd)).astype(np.float32)).to(cuda_device)
+    for dx in (dxs, None):
+        got = k_ens.member_stats(vals, dx)
+        spelled = _member_stats_spelled(vals, dx)
+        plain = k_ens.member_stats_reference(vals, dx)
+        exact = k_ens.member_stats_reference(vals.double(), None if dx is None else dx.double())
+        torch.cuda.synchronize()
+        for g, w, p, x in zip(got, spelled, plain, exact):
+            if x is None:
+                assert g is None
+                continue
+            assert torch.equal(g, w)
+            err = float((g.double() - x).abs().max())
+            assert err <= 4.0 * float((p.double() - x).abs().max()) + 1e-6 * float(x.abs().max())
 
 
 def test_served_ensemble_on_card(cuda_device, tmp_path):  # noqa: F811

@@ -238,15 +238,16 @@ def test_taylor1_vjp_matches_jax():
 # -- K7a's layout and order, written out in PyTorch -------------------------------
 
 def _k7a_order(spec, params, x, cot):
-    """(y, y_x, y_t) and the gradient as csrc/taylor1.cu lays them out and
-    sums them: the three streams of n_pad points (padded points at (0, 0),
-    zero cotangents) stacked stream-major with the bias's indicator column (1
-    on value rows, 0 on derivative rows), so a layer is one product
-    H [W; b]; the pre-activations kept; the head once a stream; dW = H^T G
-    over the plan's split chunks, the partials summed in split order; db = the
-    value rows of G summed per EW_TILE-point tile, then over the tiles; gH =
-    G W^T; the rule's adjoint at the kept pre-activations."""
-    plan = k_taylor1.taylor1_plan(spec.layers, x.shape[0], backward=True)
+    """(y, y_x, y_t) and the gradient as csrc/taylor1.cu's wide design lays
+    them out and sums them: the three streams of n_pad points (padded points
+    at (0, 0), zero cotangents) stacked stream-major with the bias's
+    indicator column (1 on value rows, 0 on derivative rows), so a layer is
+    one product H [W; b]; every layer's outputs kept; the head's three
+    streams; dW = H^T G over the plan's split chunks, the partials summed in
+    split order; db = the value rows of G summed per three-stream tile of
+    points (GRAD_TILE_POINTS), then over the tiles; gH = G W^T; the rule's
+    adjoint at the kept outputs (s, hx, ht): d1 gh - 2 s (ghx hx + ght ht)."""
+    plan = k_taylor1.taylor1_plan(spec.layers, x.shape[0], backward=True, design="wide")
     dtype, n, n_pad = spec.dtype, x.shape[0], plan.n_pad
     xp = torch.zeros((n_pad, 2), dtype=dtype)
     xp[:n] = x
@@ -259,10 +260,9 @@ def _k7a_order(spec, params, x, cot):
         return torch.cat([torch.cat([s, torch.full_like(s[:, :1], float(i == 0))], dim=1)
                           for i, s in enumerate(streams)])
 
-    H, P = [stack((h, ex, et))], []
+    H = [stack((h, ex, et))]
     for layer in params[:-1]:
         p = H[-1] @ torch.cat([layer["W"], layer["b"]])
-        P.append(p)
         s = torch.tanh(p[:n_pad])
         d1 = 1.0 - s * s
         H.append(stack((s, d1 * p[n_pad:2 * n_pad], d1 * p[2 * n_pad:])))
@@ -277,17 +277,16 @@ def _k7a_order(spec, params, x, cot):
             rows = slice(z * plan.split_rows, (z + 1) * plan.split_rows)
             dW = dW + H[l][rows, :-1].T @ G[rows]
         grads[2 * l] = dW
-        tile = k_taylor1.EW_TILE
+        tile = k_taylor1.GRAD_TILE_POINTS
         grads[2 * l + 1] = sum(G[t:t + tile].sum(dim=0, keepdim=True)
                                for t in range(0, n_pad, tile))
         if l > 0:
             gh = G @ params[l]["W"].T
-            p = P[l - 1]
-            s = torch.tanh(p[:n_pad])
+            h = H[l][:, :-1]
+            s, hx, ht = h[:n_pad], h[n_pad:2 * n_pad], h[2 * n_pad:]
             d1 = 1.0 - s * s
             g0, gx, gt = gh[:n_pad], gh[n_pad:2 * n_pad], gh[2 * n_pad:]
-            px, pt = p[n_pad:2 * n_pad], p[2 * n_pad:]
-            G = torch.cat([d1 * (g0 - 2.0 * s * (gx * px + gt * pt)), gx * d1, gt * d1])
+            G = torch.cat([d1 * g0 - 2.0 * s * (gx * hx + gt * ht), gx * d1, gt * d1])
     return outs, grads
 
 
@@ -321,30 +320,48 @@ K7A_PLAN_CASES = [(layers, n) for layers in (EULER, (2, 20, 20, 20, 3))
 @pytest.mark.parametrize("layers,n", K7A_PLAN_CASES,
                          ids=[f"{'-'.join(map(str, c[0]))}-n{c[1]}" for c in K7A_PLAN_CASES])
 def test_k7a_plan_fits_its_layout(layers, n):
-    """K7a's plans: the padding is whole row tiles, the tile one the kernel
-    instantiates, the splits cover the 3 n_pad stacked rows exactly in
-    chunks of at most 1,024 rows, and the scratch's parts lie on 16 bytes and
-    add up to it."""
-    fwd, bwd = k_taylor1.taylor1_plan(layers, n), k_taylor1.taylor1_plan(layers, n, True)
+    """K7a's wide plans (the narrow net's too, asked for by name): the
+    padding is whole row tiles, the tile one the kernel instantiates, the
+    splits cover the 3 n_pad stacked rows exactly in chunks of at most 1,024
+    rows, db's per-tile sums follow the three-stream tiles, and the scratch's
+    parts lie on 16 bytes and add up to it; a narrow plan's blocks cover the
+    points."""
+    fwd = k_taylor1.taylor1_plan(layers, n, design="wide")
+    bwd = k_taylor1.taylor1_plan(layers, n, True, design="wide")
     for plan in (fwd, bwd):
+        assert plan.design == "wide"
         assert plan.n_pad % k_taylor1.EW_TILE == 0 and n <= plan.n_pad < n + k_taylor1.EW_TILE
         assert plan.tile in (k_taylor1.SMALL_TILE, k_taylor1.LARGE_TILE)
-        parts = dataclasses.astuple(plan)[4:]
-        assert all(part % 4 == 0 for part in parts) and sum(parts) == plan.scratch_floats
+        assert all(part % 4 == 0 for part in plan.parts) and sum(plan.parts) == plan.scratch_floats
     rows = 3 * bwd.n_pad
     assert bwd.split_rows % k_taylor1.SPLIT_STEP == 0 and bwd.split_rows <= 1024
     assert (bwd.splits - 1) * bwd.split_rows < rows <= bwd.splits * bwd.split_rows
-    assert fwd.tile == bwd.tile and fwd.splits == 0
+    assert fwd.tile == bwd.tile and fwd.splits == 0 and fwd.gbuf == 0
+    tiles = bwd.n_pad // k_taylor1.GRAD_TILE_POINTS
+    assert bwd.sums == -(-2 * (len(layers) - 1) * tiles * max(layers) // 4) * 4
+    if k_taylor1.default_design(layers) == "narrow":
+        for backward, launches in ((False, 1), (True, 2)):
+            plan = k_taylor1.taylor1_plan(layers, n, backward)
+            assert plan.design == "narrow" and plan.launches == launches
+            assert plan.tile % 4 == 0 and plan.grid >= 1
+            assert backward or plan.grid * plan.tile >= n
 
 
 def test_k7a_plan_at_the_euler_shapes():
     """The Euler trunk: the batch's 1,000 points on the small tile in
-    96-row chunks, 65,536 points on the large tile; the scratch sizes
-    PERF.md states."""
+    96-row chunks, 65,536 points on the large tile; 7 launches forward and
+    14 backward; the backward's scratch at 65,536 points within twice the
+    one that stored P of every hidden layer beside one layer's inputs."""
     shape = lambda p: (p.tile, p.n_pad, p.split_rows, p.splits)  # noqa: E731
     assert shape(k_taylor1.taylor1_plan(EULER, 1_000, True)) == (32, 1_024, 96, 32)
-    assert shape(k_taylor1.taylor1_plan(EULER, 65_536, True)) == (128, 65_536, 512, 384)
+    big = k_taylor1.taylor1_plan(EULER, 65_536, True)
+    assert shape(big) == (128, 65_536, 512, 384)
     assert k_taylor1.taylor1_plan(EULER, 1_000).tile == 32
+    assert k_taylor1.taylor1_plan(EULER, 1_000).launches == 7 and big.launches == 14
+    rows, wmax = 3 * 65_536, 200
+    single = (2 * 6 * (65_536 // 128) * wmax + rows * 4 + rows * 1_000 + rows * 204
+              + 2 * rows * wmax + big.partials)
+    assert big.scratch_floats <= 2 * single
 
 
 def test_k7a_refuses_cpu_tensors_and_mixed_specs():

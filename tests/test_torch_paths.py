@@ -431,7 +431,9 @@ def test_kernels_without_paths_refuse_a_path_spec():
 
 def test_plans_widen_the_input_rows():
     """K7a's and K5's plans size H_0 by the embedded width and hold the
-    paths' per-tile partials in the backward."""
+    paths' per-tile partials in the backward; a path net takes K7a's wide
+    design, whose backward keeps every hidden layer's stacked outputs and
+    takes one launch more for the paths' gradient."""
     _, spec = specs(layers=(2, 200, 200, 3))
     w = spec.widths
     assert w[0] == 4
@@ -439,8 +441,13 @@ def test_plans_widen_the_input_rows():
     n_pad = 1024
     assert f.h0 == b.h0 == 3 * n_pad * 8
     assert b.psums == 2 * (n_pad // 128) * spec.n_path_params and f.psums == 0
+    assert f.design == b.design == "wide" and b.hbuf == 3 * n_pad * 204 * 2
     plain = k7a.taylor1_plan((2, 200, 200, 3), 1000, True)
     assert plain.h0 == 3 * n_pad * 4 and plain.psums == 0
+    assert (f.launches, b.launches, plain.launches) == (4, 9, 8)
+    _, narrow = specs(layers=(2, 20, 20, 3))
+    assert k7a.default_design(narrow.widths) == "wide"
+    assert k7a.default_design((2, 20, 20, 3)) == "narrow"
     kb = k5.mlp_backward_plan(w, 200, spec.n_path_params)
     assert kb.h0 == 256 * 8 and kb.psums == 2 * 2 * spec.n_path_params
     assert math.isclose(kb.scratch_floats, kb.sums + kb.h0 + kb.hidden + kb.gbuf
