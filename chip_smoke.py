@@ -13,7 +13,8 @@ centres), and ensembles (train --ensemble and sweep over rho and seeds,
 the Adam epochs of all members in one call of the member-batched kernel K8),
 and serving them (export --calibrate / --select, predict --bands, eval
 --artifact, HTTP bands over K8s: K1 with a member axis and the member
-reduction).
+reduction), and K9: the fused step's chunks (solo K3 and K8) as captured
+CUDA graphs, replayed from a device-side epoch cursor.
 
     python3 chip_smoke.py
 
@@ -53,11 +54,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   9 train   Trainer(abgrall_admm, device="cuda").train() for TRAIN_EPOCHS
             epochs on the kernel with its own Philox stream: loss and ADMM
             misfit fall, all finite, u rel-L2 inside the band the fixture
-            records from three JAX seeds; the launch counts of that run
+            records from three JAX seeds; every epoch inside a replay of K9's
+            graphs (GRAPH_EPOCHS), no host call of K3 (LAUNCHES); the launch
+            counts of that run
   9b train-wide  Trainer(abgrall_l1) on the TwoSin grid through the wide K3
-            for WIDE_EPOCHS epochs: finite losses that fall, one K3 call an
-            epoch, no call of a plain version; then ABGRALL_EPOCHS epochs on
-            its own committed grid (abgrall_burgers_shock), again through K3
+            for WIDE_EPOCHS epochs: finite losses that fall, every epoch in a
+            K9 replay, no call of a plain version; then ABGRALL_EPOCHS epochs
+            on its own committed grid (abgrall_burgers_shock), again through K3
   times     ms per epoch of the kernel step and the plain step (CUDA events,
             medians) at 8x20 and 8x200 beside step_bound, and wall time per
             1,000-epoch chunk at each
@@ -181,18 +184,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             1, 3 and 8 with rhos 10, 20, 30, ... and seeds 1234 + i: every
             output of every member equal to a solo K3 call (torch.equal) over
             5 chained epochs, and the first epoch of each member within
-            STEP_TOL of the plain step at its rho; one host call an epoch
+            STEP_TOL of the plain step at its rho; one host call an epoch;
+            the same epochs as one graphed K8 chunk (K9) equal to the
+            chained calls bit for bit
   31 ensemble-cli  this slice's main path, the CLI in this process: train
             abgrall_admm --ensemble 4 for 510 epochs (500 Adam epochs on K8,
             then 10 L-BFGS outer epochs of at most 20 iterations per member)
-            with --select: no plain call, K8 once an epoch; each member's
+            with --select: no plain call, every Adam epoch a replayed K8
+            epoch (K9); each member's
             final checkpoint equal to its solo run's (train --seed 1234+i) bit
             for bit, and --resume from the epoch-500 set ending at the same
             states; sweep --grid loss.rho=10,40 --grid train.seed=1234,7 for
             300 epochs as one 4-member unit, every row ok
   times     a K8 epoch (events) and a 1,000-epoch chunk's member-epochs a
-            second at E = 1, 8 and 32 beside the solo K3 step; the plain
-            per-member loop at E = 8
+            second at E = 1, 8 and 32 (the chunk replayed from K9's graphs)
+            beside the solo K3 step; the plain per-member loop at E = 8
   33 k8s    K8s (a), K1 with the member as blockIdx.y, at 8x20 (narrow) and
             8x200 (tiled), E = 1, 3, 8, N = 1, 31, 25,600: every member's
             four streams equal a solo K1 call (torch.equal); K8s (c), the
@@ -219,6 +225,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             against 8 solo K1 calls and the plain version, (c) beside its
             bound, its plain version and torch.std_mean (CUDA events, the
             three in turns over 200 rounds)
+  36 k9     K9: chunks replayed from captured CUDA graphs against the
+            per-epoch loop (the plain version), torch.equal on params, mu,
+            nu, colloc, z, dual and every metrics row: the narrow K3 at
+            abgrall_admm's 8x20 for L = 1, 2, 7, 1,000 and 2 x 500 against
+            1 x 1,000; the wide K3 at 8x200 (abgrall_l1's l1_sq_norm, and
+            admm) for L = 1, 3, 50; K8 at E = 1, 3, 8, 32 with distinct rhos
+            and seeds, drawn and fed given points
+  times     1,000-epoch chunks graphed against the per-epoch loop, 10
+            alternating turns a side (host clock): epochs a second at 8x20
+            and 8x200, member-epochs a second for K8 at E 8 and 32; the
+            one-off capture time, the replays and replayed epochs
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -741,8 +758,10 @@ def phase_train_wide(card: str) -> dict:
         counts = kernel_counts()
         with open(os.path.join(tmp, "abgrall_l1_metrics.jsonl")) as f:
             logs = [r for r in (json.loads(line) for line in f) if "summary" not in r]
-    check(counts["fused_step"] == WIDE_EPOCHS,
-          f"fused_step launched {counts['fused_step']} times in {WIDE_EPOCHS} epochs")
+    check(counts["fused_step"] + counts["fused_chunk_epochs"] == WIDE_EPOCHS
+          and counts["fused_chunk_epochs"] == WIDE_EPOCHS,
+          f"K3 in {WIDE_EPOCHS} epochs: {counts['fused_step']} host calls, "
+          f"{counts['fused_chunk_epochs']} replayed epochs")
     check(plain.calls == 0, f"{plain.calls} calls of a plain version")
     check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float)),
           "non-finite metrics")
@@ -767,7 +786,8 @@ def phase_train_wide(card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     own_counts = kernel_counts()
-    check(own_counts["fused_step"] == ABGRALL_EPOCHS and plain.calls == 0,
+    check(own_counts["fused_chunk_epochs"] == ABGRALL_EPOCHS and own_counts["fused_step"] == 0
+          and plain.calls == 0,
           f"abgrall_l1 on its grid: launches {own_counts}, {plain.calls} plain calls")
     check(math.isfinite(own["rel_l2_u"]) and all(
         bool(torch.isfinite(p).all()) for layer in state.params["net"] for p in layer.values()),
@@ -776,7 +796,7 @@ def phase_train_wide(card: str) -> dict:
          dataset="abgrall_burgers_shock", epochs=ABGRALL_EPOCHS, wall_s=wall,
          rel_l2_u=own["rel_l2_u"], truth=own["truth"], launches=own_counts,
          plain_calls=plain.calls)
-    return {"launches": counts["fused_step"]}
+    return {"launches": counts["fused_step"] + counts["fused_chunk_epochs"]}
 
 
 def phase_train_slice(card: str) -> None:
@@ -855,18 +875,22 @@ def phase_train(card: str) -> dict:
         exp = override(get_preset("abgrall_admm"), {
             "train.epochs": TRAIN_EPOCHS, "train.log_every": 1000, "train.out_dir": tmp})
         trainer = Trainer(exp, device="cuda")
-        k_fused.LAUNCHES = 0
-        k_taylor2.LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         state, _ = trainer.train(epochs=1)  # the first epoch on its own: its misfit and loss
         state, summary = trainer.train(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, t2_launches = k_fused.LAUNCHES, k_taylor2.LAUNCHES
+        counts = kernel_counts()
+        launches, t2_launches = counts["fused_step"], counts["taylor2"]
+        graph_epochs, replays = counts["fused_chunk_epochs"], counts["fused_chunk_replays"]
         with open(os.path.join(tmp, "abgrall_admm_metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
     logs = [r for r in records if "summary" not in r]
-    check(launches == TRAIN_EPOCHS, f"fused_step launched {launches} times in {TRAIN_EPOCHS} epochs")
+    # K9: every Adam epoch inside a replay of the captured graphs; K3 makes no
+    # host call of its own (the warm-up and the capture count in neither)
+    check(launches + graph_epochs == TRAIN_EPOCHS and graph_epochs == TRAIN_EPOCHS,
+          f"K3: {launches} host calls and {graph_epochs} replayed epochs in {TRAIN_EPOCHS}")
     check(t2_launches > 0, "the train path never launched the taylor2 kernel")
     check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float)),
           "non-finite metrics")
@@ -882,8 +906,10 @@ def phase_train(card: str) -> dict:
     emit(card, phase="train", preset="abgrall_admm", epochs=TRAIN_EPOCHS, wall_s=wall,
          loss=[first["loss"], last["loss"]], admm_misfit=[first["admm_misfit"], last["admm_misfit"]],
          rel_l2_u=rel, band=list(band), jax_seeds=band_rel.tolist(),
-         fused_step_launches=launches, taylor2_launches=t2_launches, summary=summary)
-    return {"launches": launches, "state": state, "loss": last["loss"]}
+         fused_step_host_calls=launches, fused_chunk_epochs=graph_epochs,
+         fused_chunk_replays=replays, taylor2_launches=t2_launches, summary=summary)
+    return {"launches": launches + graph_epochs, "replays": replays, "state": state,
+            "loss": last["loss"]}
 
 
 def phase_step_times(card: str, nets: dict) -> dict:
@@ -970,6 +996,8 @@ def kernel_counts() -> dict:
     return {"taylor2": taylor2.LAUNCHES, "taylor2_members": taylor2.MEMBER_LAUNCHES,
             "member_stats": k_ensemble.LAUNCHES, "fused_step": fused_step.LAUNCHES,
             "fused_step_ensemble": fused_step.ENSEMBLE_LAUNCHES,
+            "fused_chunk_replays": fused_step.GRAPH_REPLAYS,
+            "fused_chunk_epochs": fused_step.GRAPH_EPOCHS,
             "mlp_forward": mlp_forward.LAUNCHES, "mlp_backward": mlp_forward.BACKWARD_LAUNCHES,
             "taylor2_backward": taylor2.BACKWARD_LAUNCHES,
             "taylor2_mixed": taylor2.MIXED_LAUNCHES,
@@ -989,6 +1017,7 @@ def reset_counts() -> None:
     k_ensemble.LAUNCHES = 0
     taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
     fused_step.LAUNCHES = fused_step.ENSEMBLE_LAUNCHES = 0
+    fused_step.GRAPH_REPLAYS = fused_step.GRAPH_EPOCHS = 0
     mlp_forward.LAUNCHES = mlp_forward.BACKWARD_LAUNCHES = 0
     taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
     taylor1.NARROW_LAUNCHES = taylor1.NARROW_BACKWARD_LAUNCHES = 0
@@ -1232,8 +1261,8 @@ def phase_hybrid(card: str, adam: dict) -> dict:
         with open(os.path.join(tmp, "abgrall_admm_metrics.jsonl")) as f:
             logs = [json.loads(line) for line in f if "summary" not in line]
     check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
-    check(launches["fused_step"] == 0 and adam["launches"] == TRAIN_EPOCHS,
-          "K3 launched outside the Adam phase")
+    check(launches["fused_step"] == launches["fused_chunk_epochs"] == 0
+          and adam["launches"] == TRAIN_EPOCHS, "K3 launched outside the Adam phase")
     check(all(launches[k] > 0 for k in ("mlp_forward", "mlp_backward", "taylor2",
                                         "taylor2_backward")), f"launches {launches}")
     check(len(iters) == HYBRID_OUTER and state.epoch == TRAIN_EPOCHS + HYBRID_OUTER,
@@ -1312,7 +1341,8 @@ def phase_burgers_forward(card: str) -> dict:
         check(bool(fused_step_supported(trainer.exp, trainer.problem.spec)),
               "burgers_forward in K3's scope")
         check(plain_calls == 0, f"{plain_calls} calls of plain versions on the path")
-        check(launches["fused_step"] == 0, "K3 launched outside its scope")
+        check(launches["fused_step"] == launches["fused_chunk_epochs"] == 0,
+              "K3 launched outside its scope")
         check(launches["mlp_backward"] >= sched["adam"]
               and launches["taylor2_backward"] >= sched["adam"], f"launches {launches}")
         check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float))
@@ -1719,8 +1749,8 @@ def phase_burgers_scale(card: str) -> dict:
         # adds one forward over the grid
         check(launches[bwd] == m * SCALE_EPOCHS and launches[fwd] == m * SCALE_EPOCHS + 1,
               f"{policy}: launches {launches}")
-        check(launches["fused_step"] == 0 and launches[other[0]] == launches[other[1]] == 0,
-              f"{policy}: launches {launches}")
+        check(launches["fused_step"] == launches["fused_chunk_epochs"] == 0
+              and launches[other[0]] == launches[other[1]] == 0, f"{policy}: launches {launches}")
         check(launches["mlp_forward"] == launches["mlp_backward"] == SCALE_EPOCHS,
               f"{policy}: launches {launches}")
         check(len(logs) == SCALE_EPOCHS and all(math.isfinite(v) for v in losses),
@@ -2223,7 +2253,8 @@ def phase_p2(card: str) -> dict:
         reset_counts()
         summary = cli_json(train + ["--epochs", str(P2_EPOCHS), "--out-dir", d("whole")])
         launches = kernel_counts()
-        check(launches["fused_step"] == P2_EPOCHS, f"train launches {launches}")
+        check(launches["fused_chunk_epochs"] == P2_EPOCHS and launches["fused_step"] == 0,
+              f"train launches {launches}")
         cli_json(train + ["--epochs", str(P2_EPOCHS // 2), "--out-dir", d("half")])
         resumed = cli_json(train + ["--epochs", str(P2_EPOCHS), "--out-dir", d("rest"),
                                     "--resume", final("half")])
@@ -2250,7 +2281,8 @@ def phase_p2(card: str) -> dict:
            "eval_checkpoint": by_ckpt["rel_l2_u"], "eval_artifact": by_art["rel_l2_u"]}
     check(all(abs(v - rel["train"]) <= 1e-7 for v in rel.values()), f"rel-L2 differ: {rel}")
     emit(card, phase="p2", preset=preset, epochs=P2_EPOCHS, rel_l2_u=rel,
-         resume_bit_equal=True, train_launches=launches["fused_step"], truth=by_art["truth"])
+         resume_bit_equal=True, train_launches=launches["fused_chunk_epochs"],
+         truth=by_art["truth"])
     return rel
 
 
@@ -2529,7 +2561,7 @@ def reduced_weak(preset: str, epochs: int, seed: int, out_dir: str = None):
             "taylor1_backward": k7a, "taylor1_narrow": 0 if euler else k7a,
             "taylor1_narrow_backward": 0 if euler else k7a, "mlp_forward": epochs,
             "mlp_backward": epochs, "taylor2": int(not euler), "taylor2_backward": 0,
-            "fused_step": 0}
+            "fused_step": 0, "fused_chunk_epochs": 0}
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     fields = EULER_FIELDS if euler else ("u",)
     # (the causal weights rise as the early bins are fit, so the loss need
@@ -3047,8 +3079,10 @@ def phase_k8(card: str) -> dict:
         solo = [{k: v[m].clone() for k, v in cur.items()} for m in range(n)]
         before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES)
         rows = {}
+        per_epoch_metrics = []
         for t in range(K8_EPOCHS):
             r8 = k8_call(problem, lr, cur, t, t + 1, table)
+            per_epoch_metrics.append(r8["metrics"])
             rs = [k3_call(problem, lr, solo[m], t, t + 1, seeds[m], rhos[m]) for m in range(n)]
             torch.cuda.synchronize()
             for m in range(n):
@@ -3065,12 +3099,19 @@ def phase_k8(card: str) -> dict:
         k8_calls = k_fused.ENSEMBLE_LAUNCHES - before[0]
         check(k8_calls == K8_EPOCHS and k_fused.LAUNCHES - before[1] == n * K8_EPOCHS,
               f"E={n}: {k8_calls} K8 calls for {K8_EPOCHS} epochs")
+        # the same epochs as one graphed chunk (K9 over K8), bit for bit
+        graphed, gm = ens.make_ensemble_chunk(trainer, K8_EPOCHS)(stacked)
+        check(all(torch.equal(v, cur[k])
+                  for k, v in stacked_bufs(graphed, n_params).items())
+              and torch.equal(torch.stack([gm[k] for k in tr.METRIC_KEYS], -1),
+                              torch.stack(per_epoch_metrics)),
+              f"E={n}: the graphed K8 chunk differs from the chained K8 calls")
         emit(card, phase="k8", preset="abgrall_admm", net="8x20", members=n, seeds=seeds,
              rhos=rhos, epochs=K8_EPOCHS, bit_equal_to_solo_k3=True,
              criterion="torch.equal vs solo K3 on every output; STEP_TOL vs the plain step "
                        "at the member's rho (epoch 1)",
              rows={m: {k: v["max_abs_err"] for k, v in r.items()} for m, r in rows.items()},
-             k8_host_calls=k8_calls)
+             k8_host_calls=k8_calls, graphed_chunk_bit_equal=True)
     # the wrapper refuses a member table of another member count
     stacked = ens.init_ensemble_states(trainer, *k8_members(3))
     bad = k_fused.member_table(*k8_members(2), n_f, problem.device)
@@ -3138,7 +3179,9 @@ def phase_ensemble_cli(card: str, keep: str) -> dict:
         launches = kernel_counts()
         check(rc == 0, f"train --ensemble exited {rc}")
         check(plain.calls == 0, f"{plain.calls} calls of a plain version on the ensemble path")
-        check(launches["fused_step_ensemble"] == c["switch"] and launches["fused_step"] == 0,
+        # K9 over K8: every Adam epoch of the members inside a replay
+        check(launches["fused_chunk_epochs"] == c["switch"]
+              and launches["fused_step_ensemble"] == launches["fused_step"] == 0,
               f"ensemble launches {launches}")
         check(launches["mlp_forward"] > 0 and launches["taylor2_backward"] > 0,
               f"the L-BFGS epochs launched no kernel: {launches}")
@@ -3163,21 +3206,24 @@ def phase_ensemble_cli(card: str, keep: str) -> dict:
         for i in range(n):
             check(same_state(d(f"ens/{preset}_final_m{i}.ckpt"), d(f"res/{preset}_final_m{i}.ckpt")),
                   f"member {i}: the resumed run ends elsewhere")
-        before = k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES
+        before = k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS
         rc, rows = cli_lines(["sweep", "--preset", preset, "--device", "cuda",
                               "--grid", "loss.rho=10,40", "--grid", "train.seed=1234,7",
                               "--epochs", str(c["sweep_epochs"]), "--out", d("sweep.jsonl")])
-        sweep_k8 = k_fused.ENSEMBLE_LAUNCHES - before[0]
+        sweep_k8 = k_fused.GRAPH_EPOCHS - before[2]
         check(rc == 0 and len(rows) == 4 and all(r["status"] == "ok" for r in rows),
               f"sweep: rc {rc}, rows {rows}")
-        check(sweep_k8 == c["sweep_epochs"] and k_fused.LAUNCHES == before[1],
-              f"the sweep ran {sweep_k8} K8 calls and {k_fused.LAUNCHES - before[1]} solo ones")
+        check(sweep_k8 == c["sweep_epochs"] and k_fused.LAUNCHES == before[1]
+              and k_fused.ENSEMBLE_LAUNCHES == before[0],
+              f"the sweep replayed {sweep_k8} K8 epochs and made "
+              f"{k_fused.ENSEMBLE_LAUNCHES - before[0]} K8 and "
+              f"{k_fused.LAUNCHES - before[1]} solo host calls")
     out.update(launches=launches, wall_s=wall)
     emit(card, phase="ensemble-cli", preset=preset, members=n, epochs=c["epochs"],
          switch=c["switch"], lbfgs_iters=c["lbfgs_iters"], wall_s=wall, launches=launches,
          rel_l2_u=[s["rel_l2_u"] for s in summaries], solo_rel_l2_u=solo,
          members_bit_equal_to_solo=True, resume_bit_equal=True,
-         selected=pick["selected_member"], sweep_rows=rows, sweep_k8_calls=sweep_k8)
+         selected=pick["selected_member"], sweep_rows=rows, sweep_k8_epochs=sweep_k8)
     return out
 
 
@@ -3191,8 +3237,9 @@ def ensemble_bound(n: int):
 
 def phase_ensemble_times(card: str) -> dict:
     """32: a K8 epoch (CUDA events) and a 1,000-epoch chunk's member-epochs a
-    second at E = 1, 8 and 32 beside the solo K3 step, K8's host calls
-    counted; the plain per-member loop at E = K8_MAIN."""
+    second at E = 1, 8 and 32 (the chunk replayed from K9's graphs, its
+    epochs counted) beside the solo K3 step; the plain per-member loop at
+    E = K8_MAIN."""
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
     from pinns_tpu_torch.parallel import ensemble as ens
@@ -3217,13 +3264,13 @@ def phase_ensemble_times(card: str) -> dict:
         chunk = ens.make_ensemble_chunk(trainer, 1000)
         ens.make_ensemble_chunk(trainer, 10)(stacked)
         torch.cuda.synchronize()
-        before = k_fused.ENSEMBLE_LAUNCHES
+        before = k_fused.GRAPH_EPOCHS
         t0 = time.perf_counter()
         chunk(stacked)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        calls = k_fused.ENSEMBLE_LAUNCHES - before
-        check(calls == 1000, f"E={n}: {calls} K8 calls for 1,000 epochs")
+        calls = k_fused.GRAPH_EPOCHS - before
+        check(calls == 1000, f"E={n}: {calls} replayed K8 epochs for 1,000 epochs")
         plain_ms = None
         if n == K8_MAIN:
             plain = tr.make_adam_step(trainer.problem, trainer.learning_rate, plain=True)
@@ -3232,9 +3279,170 @@ def phase_ensemble_times(card: str) -> dict:
         b = ensemble_bound(n)
         emit(card, phase="times", what="k8", net="8x20", members=n, epoch_ms=ms,
              clock="cuda_events", chunk_wall_s=wall, member_epochs_per_s=n * 1000 / wall,
-             vs_solo_chunk=(n * 1000 / wall) / out["solo"][1], k8_host_calls=calls,
+             vs_solo_chunk=(n * 1000 / wall) / out["solo"][1], k8_replayed_epochs=calls,
              plain_member_loop_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
         out[n] = (ms, n * 1000 / wall, plain_ms, b)
+    return out
+
+
+# -- 36 and times: K9, the fused step's chunk as captured CUDA graphs -----------
+K9_NARROW_LENGTHS = (1, 2, 7, 1_000)  # abgrall_admm's 8x20 (the narrow K3)
+K9_WIDE_LENGTHS = (1, 3, 50)  # abgrall_l1 (l1_sq_norm) and abgrall_admm at 8x200 (wide)
+K9_MEMBERS = (1, 3, 8, 32)  # K8
+K9_K8_EPOCHS = 7
+K9_TURNS = 10  # alternating turns a side of the graphed and the per-epoch chunk
+K9_CHUNK = 1_000
+
+
+def chunk_tensors(state, metrics) -> dict:
+    """A chunk's result by name: the state's tensors (the nets flat) and its
+    metrics rows (length, [E,] 7)."""
+    from pinns_tpu_torch.ops.kernels.fused_step import flat_net
+    from pinns_tpu_torch.train.trainer import METRIC_KEYS
+
+    opt, net = state.opt_state, state.params["net"]
+    n = sum(layer["W"].shape[-2] * layer["W"].shape[-1] + layer["b"].shape[-1] for layer in net)
+    out = {"params": flat_net(net, n), "mu": flat_net(opt.mu["net"], n),
+           "nu": flat_net(opt.nu["net"], n), "colloc": state.colloc,
+           "metrics": torch.stack([metrics[k] for k in METRIC_KEYS], -1)}
+    if state.admm is not None:
+        out.update(z=state.admm.z, dual=state.admm.dual)
+    return out
+
+
+def hold_chunk(name: str, got, want) -> float:
+    """A graphed chunk's (state, metrics) against the per-epoch loop's:
+    torch.equal on every tensor and every metrics row, the epoch and Adam's
+    count equal; returns max|got - want| over them (0.0)."""
+    check(got[0].epoch == want[0].epoch and got[0].opt_state.count == want[0].opt_state.count,
+          f"{name}: epoch or count differs")
+    a, b = chunk_tensors(*got), chunk_tensors(*want)
+    check(a.keys() == b.keys(), f"{name}: outputs {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        check(a[k].shape == b[k].shape and torch.equal(a[k], b[k]),
+              f"{name}: {k} differs from the per-epoch loop")
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def phase_k9(card: str) -> dict:
+    """36: K9, graphed chunks against per-epoch loops, bit for bit on params,
+    mu, nu, colloc, z, dual and every metrics row: the narrow K3 at
+    abgrall_admm's 8x20 for L = 1, 2, 7 and 1,000, and 2 x 500 against
+    1 x 1,000; the wide K3 at 8x200 for l1_sq_norm (abgrall_l1) and admm
+    (abgrall_admm with that net) at L = 1, 3 and 50; K8 at E = 1, 3, 8 and 32
+    with distinct rhos and seeds, drawn and fed given points."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.train import trainer as tr
+
+    errs, rows = [], {}
+
+    def held(name, got, want):
+        errs.append(hold_chunk(name, got, want))
+        rows[name] = True
+
+    reset_counts()
+    cases = [("8x20-admm", get_preset("abgrall_admm"), K9_NARROW_LENGTHS),
+             ("8x200-l1_sq_norm", get_preset("abgrall_l1"), K9_WIDE_LENGTHS),
+             ("8x200-admm", override(get_preset("abgrall_admm"), {"model.layers": WIDE}),
+              K9_WIDE_LENGTHS)]
+    for name, exp, lengths in cases:
+        trainer = tr.Trainer(exp, device="cuda")
+        run = trainer._get_chunk("adam")
+        check(getattr(run, "runner", None) is not None, f"{name}: the chunk is not graphed")
+        state = trainer.init_state()
+        for length in lengths:
+            held(f"{name}-L{length}", run(state, length),
+                 tr.run_chunk(trainer._adam_step, state, length))
+        if name == "8x20-admm":
+            half = run(state, K9_CHUNK // 2)
+            rest = run(half[0], K9_CHUNK // 2)
+            whole = run(state, K9_CHUNK)
+            two = (rest[0], {k: torch.cat([half[1][k], rest[1][k]]) for k in rest[1]})
+            held("8x20-admm-2x500-vs-1x1000", two, whole)
+    trainer = tr.Trainer(get_preset("abgrall_admm"), device="cuda")
+    k8 = k_fused.make_fused_ensemble_step(trainer.problem, trainer.learning_rate)
+    n_f = trainer.exp.sampling.n_f
+    for n in K9_MEMBERS:
+        stacked = ens.init_ensemble_states(trainer, *k8_members(n))
+        feed = points(K9_K8_EPOCHS * n * n_f, seed=36 + n, device="cuda").view(
+            K9_K8_EPOCHS, n, n_f, 2)
+        for fed in (None, feed):
+            tag = f"k8-e{n}-{'fed' if fed is not None else 'drawn'}"
+            held(tag, ens.make_ensemble_chunk(trainer, K9_K8_EPOCHS)(stacked, new_colloc=fed),
+                 tr.run_chunk(k8, stacked, K9_K8_EPOCHS, fed))
+    counts = kernel_counts()
+    emit(card, phase="k9", criterion="torch.equal of every output and metrics row vs the "
+         "per-epoch loop", cases=rows, max_abs_err=max(errs),
+         fused_chunk_replays=counts["fused_chunk_replays"],
+         fused_chunk_epochs=counts["fused_chunk_epochs"])
+    return {"max_abs_err": max(errs)}
+
+
+def phase_k9_times(card: str) -> dict:
+    """times: 1,000-epoch chunks graphed (K9) against the per-epoch loop in
+    K9_TURNS alternating turns a side (host clock, each chunk ending in a
+    synchronize): epochs a second at 8x20 (abgrall_admm) and 8x200
+    (abgrall_l1), member-epochs a second for K8 at E 8 and 32; the one-off
+    capture time (warm-up epoch and both graphs), the replays and replayed
+    epochs of the graphed turns; each beside the chunk's bound (the epoch's
+    bound times 1,000)."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.train import trainer as tr
+
+    cells = {}
+    for name, preset in (("8x20", "abgrall_admm"), ("8x200", "abgrall_l1")):
+        trainer = tr.Trainer(get_preset(preset), device="cuda")
+        state = trainer.init_state()
+        run = trainer._get_chunk("adam")
+        layers, n_f = trainer.problem.spec.layers, trainer.exp.sampling.n_f
+        b = step_bound(layers, n_f, trainer.exp.data.n_u)
+        cells[name] = (1, run.runner, lambda run=run, state=state: run(state, K9_CHUNK),
+                       lambda trainer=trainer, state=state: tr.run_chunk(
+                           trainer._adam_step, state, K9_CHUNK), (b[0] * K9_CHUNK, b[1]))
+    trainer = tr.Trainer(get_preset("abgrall_admm"), device="cuda")
+    k8 = k_fused.make_fused_ensemble_step(trainer.problem, trainer.learning_rate)
+    for n in (K8_MAIN, 32):
+        stacked = ens.init_ensemble_states(trainer, *k8_members(n))
+        chunk = ens.make_ensemble_chunk(trainer, K9_CHUNK)
+        b = ensemble_bound(n)
+        cells[f"k8_e{n}"] = (n, None, lambda chunk=chunk, stacked=stacked: chunk(stacked),
+                             lambda stacked=stacked: tr.run_chunk(k8, stacked, K9_CHUNK),
+                             (b[0] * K9_CHUNK, b[1]))
+    out = {}
+    for name, (n, runner, graphed, loop, b) in cells.items():
+        graphed()  # captures (the trainer's runner, or K8's for this member count)
+        loop()
+        torch.cuda.synchronize()
+        if runner is None:
+            runner = ens.k8_chunk(trainer, n)
+        reset_counts()
+        times = {"graphed": [], "per_epoch": []}
+        for turn in range(K9_TURNS):
+            order = (("graphed", graphed), ("per_epoch", loop))
+            for side, fn in (order if turn % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[side].append(time.perf_counter() - t0)
+        counts = kernel_counts()
+        check(counts["fused_chunk_epochs"] == K9_TURNS * K9_CHUNK,
+              f"{name}: {counts['fused_chunk_epochs']} replayed epochs")
+        ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+        rate = {k: n * K9_CHUNK / (v / 1e3) for k, v in ms.items()}
+        emit(card, phase="times", what="k9_chunk", cell=name, members=n, epochs=K9_CHUNK,
+             turns=K9_TURNS, clock="host", graphed_ms=ms["graphed"],
+             per_epoch_ms=ms["per_epoch"], graphed_per_s=rate["graphed"],
+             per_epoch_per_s=rate["per_epoch"], unit="member-epochs" if n > 1 else "epochs",
+             speedup=ms["per_epoch"] / ms["graphed"], graphed_s=times["graphed"],
+             per_epoch_s=times["per_epoch"], capture_s=runner.capture_seconds[0],
+             replays=counts["fused_chunk_replays"], replayed_epochs=counts["fused_chunk_epochs"],
+             bound_ms=b[0], bound_by=b[1])
+        out[name] = (ms["graphed"], ms["per_epoch"], b, runner.capture_seconds[0])
     return out
 
 
@@ -3970,6 +4178,10 @@ def main() -> int:
         serve = timed(card, "ensemble-serve", phase_ensemble_serve, card, ens_tmp, ens_tmp)
         t11 = timed(card, "times-ens-serve", phase_ens_serve_times, card, serve)
 
+    # -- 36 and times: K9, the fused step's chunk as captured CUDA graphs ------
+    k9 = timed(card, "k9", phase_k9, card)
+    t12 = timed(card, "times-k9", phase_k9_times, card)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -4116,7 +4328,9 @@ def main() -> int:
         "route": "cuda",
         "source": "pinns_tpu_torch/csrc/fused_step.cu",
         "replaces": "pinns_tpu/parallel/ensemble.py:66",
-        "launches": ens_cli["launches"]["fused_step_ensemble"],
+        # K8 epochs of phase 31's main path: host calls and replayed epochs
+        "launches": (ens_cli["launches"]["fused_step_ensemble"]
+                     + ens_cli["launches"]["fused_chunk_epochs"]),
         "max_abs_err": k8["grad_err"],
         "ms": t10[K8_MAIN][0],
         "plain_ms": t10[K8_MAIN][2],
@@ -4127,6 +4341,23 @@ def main() -> int:
         **{f"e{n}": {"ms": t10[n][0], "member_epochs_per_s": t10[n][1],
                      **bound_fields(t10[n][3])} for n in K8_TIMES if n != K8_MAIN},
         "solo_k3": {"ms": t10["solo"][0], "epochs_per_s": t10["solo"][1]},
+    }, {
+        # K9: the chunk as captured CUDA graphs of the fused step's epochs;
+        # launches = phase 9's replays, times = a 1,000-epoch chunk, its
+        # plain version the per-epoch loop, the bound the epoch's x 1,000
+        "name": "fused_chunk",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/fused_step.cu",
+        "replaces": "pinns_tpu/train/trainer.py:835",
+        "launches": train["replays"],
+        "max_abs_err": k9["max_abs_err"],
+        "ms": t12["8x20"][0],
+        "plain_ms": t12["8x20"][1],
+        **bound_fields(t12["8x20"][2]),
+        "epochs": K9_CHUNK,
+        "capture_s": t12["8x20"][3],
+        **{cell: {"ms": t12[cell][0], "plain_ms": t12[cell][1], **bound_fields(t12[cell][2]),
+                  "capture_s": t12[cell][3]} for cell in ("8x200", "k8_e8", "k8_e32")},
     }, {
         "name": "taylor2_members",
         "route": "cuda",

@@ -60,7 +60,8 @@
 //
 // K8, the member-batched narrow design (replaces the vmapped step of
 // pinns_tpu/parallel/ensemble.py:66-116, jax.vmap(step) over an ensemble's
-// members): the same four launches with the member m as blockIdx.y. Member
+// members): the same four launches with the member m as blockIdx.y (the
+// finalize launch: one block, a thread a member). Member
 // m's buffers (params, Adam moments, batch, z/dual, their outputs, its
 // metrics row and its scratch) lie at m times their per-member size
 // (member_step); its Philox seed, ADMM rho and prox threshold come from
@@ -105,6 +106,20 @@
 // tensor cores: the residual path keeps full fp32), and the chain of
 // dependent launches. One persistent launch or a CUDA graph of the epoch is
 // later work.
+//
+// K9, the chunk as one device program (replaces the lax.scan of
+// pinns_tpu/train/trainer.py::make_chunked, :835-870, and of
+// pinns_tpu/parallel/ensemble.py::make_ensemble_chunk, :109): with a device
+// cursor (Step::cursor), the kernels read the epoch's words (the Philox
+// epoch, Adam's bias corrections) from row *cursor of the chunk's schedule,
+// write the epoch's row of the metrics and read its row of any given points;
+// the last launch of the epoch (finalize_kernel, wide_finalize_kernel)
+// advances the cursor. Every other argument of an epoch is fixed, so epochs
+// between two fixed state buffers can be captured once as a CUDA graph and
+// replayed for every epoch of a chunk (ops/kernels/fused_step.py::
+// FusedChunk). With a null cursor every kernel does what the per-epoch call
+// does; with one, the same arithmetic, so a replayed chunk equals the
+// per-epoch loop bit for bit.
 //
 // The Adam and tail arithmetic rounds after every operation (no contraction),
 // as the plain PyTorch step does.
@@ -159,6 +174,10 @@ struct Step {
   float* pstore;            // narrow scratch [n_grad_blocks][n_layers-1][4][max_width][tile]
   float* tail_partials;     // narrow scratch [n_tail_blocks]
   const Member* members;    // narrow: one entry a member, or null (a solo call: the scalars)
+  int* cursor;              // K9: the epoch's row of sched, metrics and new_colloc, or null
+  const uint4* sched;       // K9: a row an epoch: epoch_lo, epoch_hi, bc1 and bc2 (float32 bits)
+  long long metrics_stride;     // K9: floats from one row of metrics to the next
+  long long new_colloc_stride;  // K9: floats from one row of new_colloc to the next
   float lb0, lb1, ub0, ub1, lam1, lam2, rho, lr;
   float one_minus_b1, b1, one_minus_b2, b2, eps, bc1, bc2, threshold;
   int n_u, n_f, kind, explicit_inner, tile, tail_tile, nb_f, nb_u, nb_tail;
@@ -317,6 +336,22 @@ __device__ __forceinline__ float block_sum_ordered(const float* red, int n) {
 template <typename T>
 __device__ __forceinline__ T* member_ptr(T* p, int m, long long per_member) {
   return p == nullptr ? p : p + static_cast<long long>(m) * per_member;
+}
+
+// K9: with a cursor, the epoch's words from row *cursor of the schedule in
+// place of the by-value ones, and the epoch's rows of metrics and of the
+// given points; with none, the call as it is.
+__device__ __forceinline__ Step at_cursor(Step st) {
+  if (st.cursor == nullptr) return st;
+  const int row = *st.cursor;
+  const uint4 w = st.sched[row];
+  st.epoch_lo = w.x;
+  st.epoch_hi = w.y;
+  st.bc1 = __uint_as_float(w.z);
+  st.bc2 = __uint_as_float(w.w);
+  st.metrics += row * st.metrics_stride;
+  if (st.new_colloc != nullptr) st.new_colloc += row * st.new_colloc_stride;
+  return st;
 }
 
 // Member m's view of a narrow call: each per-member buffer offset by m times
@@ -552,7 +587,7 @@ grad_kernel(Net net, Step call) {
 // One thread per parameter: the gradient summed over blocks in block order,
 // then Adam (optax's scale_by_adam + scale(-lr)), one rounding per operation.
 __global__ void adam_kernel(Net net, Step call) {
-  const Step st = member_step(net, call, blockIdx.y);
+  const Step st = member_step(net, at_cursor(call), blockIdx.y);
   const int nb = st.nb_f + st.nb_u;
   const long long row = net.n_params + 1;
   float S = 0.0f, D = 0.0f;
@@ -593,7 +628,7 @@ __global__ void adam_kernel(Net net, Step call) {
 // The new batch, then (for 'admm') z/dual at it with the new params.
 __global__ void __launch_bounds__(kThreads)
 tail_kernel(Net net, Step call) {
-  const Step st = member_step(net, call, blockIdx.y);
+  const Step st = member_step(net, at_cursor(call), blockIdx.y);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = st.tail_tile, ts = T + 4;
@@ -651,15 +686,22 @@ tail_kernel(Net net, Step call) {
   if (threadIdx.x == 0) st.tail_partials[blockIdx.x] = block_sum_ordered(red, T);
 }
 
-__global__ void finalize_kernel(Net net, Step call) {
-  if (threadIdx.x != 0) return;
-  const Step st = member_step(net, call, blockIdx.y);
-  float mis = 0.0f;
-  if (st.kind == kAdmm) {
-    for (int b = 0; b < st.nb_tail; ++b) mis += st.tail_partials[b];
-    mis /= static_cast<float>(st.n_f);
+// One block, a thread a member: the misfit from the tail's partials, then
+// (K9) the cursor on to the next epoch once every thread has read it.
+__global__ void finalize_kernel(Net net, Step call, int n_members) {
+  const Step at = at_cursor(call);
+  for (int m = threadIdx.x; m < n_members; m += blockDim.x) {
+    const Step st = member_step(net, at, m);
+    float mis = 0.0f;
+    if (st.kind == kAdmm) {
+      for (int b = 0; b < st.nb_tail; ++b) mis += st.tail_partials[b];
+      mis /= static_cast<float>(st.n_f);
+    }
+    st.metrics[kMetricMisfit] = mis;
   }
-  st.metrics[kMetricMisfit] = mis;
+  if (call.cursor == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) *call.cursor += 1;
 }
 
 size_t grad_smem(int max_width, int tile) {
@@ -670,9 +712,21 @@ size_t tail_smem(int max_width, int tile) {
   return sizeof(float) * (8u * static_cast<size_t>(max_width) * (tile + 4) + tile);
 }
 
+// Raise, never lower, a kernel's dynamic shared memory limit: a captured
+// graph (K9) keeps the size its launches were captured with.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess || static_cast<size_t>(a.maxDynamicSharedSizeBytes) >= bytes) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 // One epoch of `n_members` members (K8; 1 and no member table: K3's solo
-// epoch), each launch with the member as blockIdx.y.
-int narrow_epoch(const Net& net, Step st, int n_members, cudaStream_t s) {
+// epoch), each launch with the member as blockIdx.y. `launch_only` (K9's
+// capture) leaves out the kernels' set-up, which an earlier call made.
+int narrow_epoch(const Net& net, Step st, int n_members, bool launch_only, cudaStream_t s) {
   const int tile = st.tile, tail_tile = st.tail_tile;
   if (tile < kR || tile % kR || tail_tile < kR || tail_tile % kR || n_members < 1 ||
       n_members > 65535 || (n_members > 1 && st.members == nullptr)) {
@@ -683,10 +737,10 @@ int narrow_epoch(const Net& net, Step st, int n_members, cudaStream_t s) {
   st.nb_tail = (st.n_f + tail_tile - 1) / tail_tile;
   const size_t gsm = grad_smem(net.max_width, tile);
   const size_t tsm = tail_smem(net.max_width, tail_tile);
-  PINNS_CHECK(cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(gsm)));
-  PINNS_CHECK(cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(tsm)));
+  if (!launch_only) {
+    PINNS_CHECK(allow_smem(grad_kernel, gsm));
+    PINNS_CHECK(allow_smem(tail_kernel, tsm));
+  }
   const unsigned E = static_cast<unsigned>(n_members);
   grad_kernel<<<dim3(st.nb_f + st.nb_u, E), kThreads, gsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
@@ -694,7 +748,7 @@ int narrow_epoch(const Net& net, Step st, int n_members, cudaStream_t s) {
   PINNS_CHECK(cudaGetLastError());
   tail_kernel<<<dim3(st.nb_tail, E), kThreads, tsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  finalize_kernel<<<dim3(1, E), 32, 0, s>>>(net, st);
+  finalize_kernel<<<1, 32, 0, s>>>(net, st, n_members);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -757,7 +811,8 @@ __global__ void input_kernel(Step st, const float* __restrict__ colloc, Rows rw,
 // The new batch: Philox-4x32-10 in the words and order of tail_kernel (or
 // the given points) into colloc_out, and its H_0 (one segment of nf_pad
 // points) for the tail's forward.
-__global__ void draw_kernel(Step st, int nf_pad, float4* __restrict__ H) {
+__global__ void draw_kernel(Step call, int nf_pad, float4* __restrict__ H) {
+  const Step st = at_cursor(call);
   const Rows rw{nf_pad, nf_pad};
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nf_pad; i += gridDim.x * blockDim.x) {
     float xv = 0.0f, tv = 0.0f;
@@ -968,7 +1023,8 @@ struct Reduce {
 // One thread per parameter: its gradient from the collocation sums (scaled
 // by S = sum |f| for 'l1_sq_norm') and the data sums, rounded once, then
 // Adam as the narrow adam_kernel; thread 0 writes the loss metrics.
-__global__ void wide_adam_kernel(Net net, Step st, Reduce rd) {
+__global__ void wide_adam_kernel(Net net, Step call, Reduce rd) {
+  const Step st = at_cursor(call);
   double S = 0.0, D = 0.0;
   for (int c = 0; c < rd.tiles_f; ++c) S += rd.loss_part[c];
   for (int c = rd.tiles_f; c < rd.tiles; ++c) D += rd.loss_part[c];
@@ -1042,8 +1098,11 @@ tail_head_kernel(const float* __restrict__ head, Step st, int nf_pad,
   if (threadIdx.x == 0) tail_part[blockIdx.x] = sum;
 }
 
-__global__ void wide_finalize_kernel(Step st, const double* __restrict__ tail_part, int tiles) {
+// The misfit from the tail's per-tile sums, then (K9) the cursor on to the
+// next epoch.
+__global__ void wide_finalize_kernel(Step call, const double* __restrict__ tail_part, int tiles) {
   if (threadIdx.x != 0) return;
+  const Step st = at_cursor(call);
   float mis = 0.0f;
   if (st.kind == kAdmm) {
     double sum = 0.0;
@@ -1051,6 +1110,7 @@ __global__ void wide_finalize_kernel(Step st, const double* __restrict__ tail_pa
     mis = static_cast<float>(sum) / static_cast<float>(st.n_f);
   }
   st.metrics[kMetricMisfit] = mis;
+  if (call.cursor != nullptr) *call.cursor += 1;
 }
 
 // The wide plan (ops/kernels/fused_step.py::step_plan): the segments'
@@ -1220,7 +1280,7 @@ using namespace k3;
 enum PtrArg {
   kParams, kMu, kNu, kXData, kUData, kColloc, kZ, kDual, kNewColloc,
   kParamsOut, kMuOut, kNuOut, kCollocOut, kZOut, kDualOut, kMetrics, kGradOut,
-  kPartials, kPstore, kTailPartials, kScratch, kMembers, kNumPtrs
+  kPartials, kPstore, kTailPartials, kScratch, kMembers, kCursor, kSched, kNumPtrs
 };
 enum FloatArg {
   kLb0, kLb1, kUb0, kUb1, kLam1, kLam2, kRho, kLr, kOneMinusB1, kB1, kOneMinusB2,
@@ -1228,7 +1288,8 @@ enum FloatArg {
 };
 enum IntArg {
   kNU, kNF, kKind, kExplicit, kPlanTile, kTailTile, kSeed, kEpoch, kDevice, kNfPad, kNuPad,
-  kSplitRows, kSplits, kScratchFloats, kNMembers, kNumInts
+  kSplitRows, kSplits, kScratchFloats, kNMembers, kMetricsStride, kNewCollocStride,
+  kLaunchOnly, kNumInts
 };
 
 extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
@@ -1248,8 +1309,15 @@ extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
 // solo epoch, whose seed, rho and threshold are the scalars); any other the
 // wide design (kPlanTile the products' block tile, the plan's other ints and
 // `scratch`; one member, no table), which refuses a plan that does not fit
-// its layout with cudaErrorInvalidValue. Returns the CUDA error code of the
-// first launch that failed (0 on success).
+// its layout with cudaErrorInvalidValue. K9: a non-null kCursor (an int on
+// the device) makes every launch read the epoch's words from row *cursor of
+// kSched (4 words a row) and take its rows of metrics and new_colloc
+// (kMetricsStride, kNewCollocStride floats apart), the epoch's last launch
+// advancing the cursor; kEpoch and kBc1/kBc2 are then unused. kLaunchOnly
+// issues the launches alone (no cudaSetDevice, no kernel attributes: what a
+// stream capture takes), after an earlier call on this device made the
+// set-up. Returns the CUDA error code of the first launch that failed (0 on
+// success).
 extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* ptrs,
                                 const float* floats, const long long* ints, void* stream) {
   Net net;
@@ -1280,6 +1348,13 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   st.pstore = fp(kPstore);
   st.tail_partials = fp(kTailPartials);
   st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
+  st.cursor = reinterpret_cast<int*>(ptrs[kCursor]);
+  st.sched = reinterpret_cast<const uint4*>(ptrs[kSched]);
+  st.metrics_stride = ints[kMetricsStride];
+  st.new_colloc_stride = ints[kNewCollocStride];
+  if (st.cursor != nullptr && (st.sched == nullptr || (ptrs[kSched] & 15) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   st.lb0 = floats[kLb0];
   st.lb1 = floats[kLb1];
   st.ub0 = floats[kUb0];
@@ -1310,10 +1385,11 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   st.epoch_lo = static_cast<unsigned>(epoch & 0xFFFFFFFFull);
   st.epoch_hi = static_cast<unsigned>(epoch >> 32);
 
-  PINNS_CHECK(cudaSetDevice(static_cast<int>(ints[kDevice])));
+  const bool launch_only = ints[kLaunchOnly] != 0;
+  if (!launch_only) PINNS_CHECK(cudaSetDevice(static_cast<int>(ints[kDevice])));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_members = static_cast<int>(ints[kNMembers]);
-  if (net.max_width <= kNarrowWidth) return narrow_epoch(net, st, n_members, s);
+  if (net.max_width <= kNarrowWidth) return narrow_epoch(net, st, n_members, launch_only, s);
   if (n_members != 1 || st.members != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const WidePlan wp{static_cast<int>(ints[kNfPad]), static_cast<int>(ints[kNuPad]),
                     static_cast<int>(ints[kPlanTile]), static_cast<int>(ints[kSplitRows]),

@@ -46,6 +46,7 @@ import dataclasses
 import functools
 import math
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +59,8 @@ from pinns_tpu_torch.opt.adam import B1, B2, EPS, AdamState, bias_corrections
 
 LAUNCHES = 0  # solo host calls (one per epoch) in this process; chip_smoke.py reads it
 ENSEMBLE_LAUNCHES = 0  # K8's host calls (one per epoch for all members)
+GRAPH_REPLAYS = 0  # K9: replays of a captured chunk graph (solo K3 or K8)
+GRAPH_EPOCHS = 0  # K9: epochs run inside those replays (an epoch of all members counts one)
 _launches_lock = threading.Lock()
 
 KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
@@ -86,11 +89,13 @@ MAX_MEMBERS = 65_535  # K8: the member is the launches' grid y index
 # argument slots, in the order of the enums in csrc/fused_step.cu
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
-         "grad_out", "partials", "pstore", "tail_partials", "scratch", "members")
+         "grad_out", "partials", "pstore", "tail_partials", "scratch", "members", "cursor",
+         "sched")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
 _INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
-         "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats", "n_members")
+         "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats", "n_members",
+         "metrics_stride", "new_colloc_stride", "launch_only")
 
 
 def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
@@ -286,21 +291,50 @@ def member_table(seeds: Sequence[int], rhos: Sequence[float], n_f: int,
     return torch.from_numpy(tab.view(np.int32)).to(device)
 
 
+def _scratch(plan: StepPlan, spec: MLPSpec, n_members: int, n_f: int, n_u: int,
+             device) -> Dict[str, Optional[torch.Tensor]]:
+    """The scratch of an epoch of ``n_members`` members under ``plan``."""
+    layers, n_params = spec.layers, spec.n_params
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)  # noqa: E731
+    if plan.design == "narrow":
+        tile, tail_tile = plan.tile, plan.tail_tile
+        nb_grad = -(-n_f // tile) + -(-n_u // tile)
+        return {
+            "partials": empty(n_members, nb_grad, n_params + 1),
+            "pstore": empty(n_members, nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
+            "tail_partials": empty(n_members, -(-n_f // tail_tile)),
+            "scratch": None,
+        }
+    return {"partials": None, "pstore": None, "tail_partials": None,
+            "scratch": empty(plan.scratch_floats)}
+
+
 def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_data, colloc,
            z, dual, *, kind: str, lam1: float, lam2: float, rho: Optional[float], lr: float,
            explicit_inner: bool, seed: int, epoch: int, members=None, new_colloc=None,
-           metrics_out=None, want_grad: bool = False) -> Dict[str, torch.Tensor]:
+           metrics_out=None, want_grad: bool = False, out=None, scratch=None, chunk=None,
+           launch_only: bool = False) -> Dict[str, torch.Tensor]:
     """One host call of the CUDA step for ``n_members`` members, every
     per-member tensor with a leading member axis (the shared x_data and
     u_data without one). ``members`` (:func:`member_table`) gives each member
     its seed, rho and threshold (``rho`` is then None); without it (one
-    member) ``seed`` and ``rho`` do. Validates, allocates the outputs and the scratch, launches; counts
-    nothing (its callers do)."""
+    member) ``seed`` and ``rho`` do. Validates, allocates the outputs and the
+    scratch, launches; counts nothing (its callers do).
+
+    K9 (:class:`FusedChunk`): ``out`` (params, mu, nu, colloc, z, dual) and
+    ``scratch`` (:func:`_scratch`) are buffers to write in place of new
+    tensors; ``chunk`` = (cursor, sched) makes every launch take the epoch
+    from row ``cursor`` of ``sched`` (:func:`chunk_schedule`; ``count`` and
+    ``epoch`` unused), write that row of ``metrics_out`` (rows, E, 7) and
+    read that row of ``new_colloc`` (rows, E, N_f, 2), and advances the
+    cursor; ``launch_only`` issues the launches alone, as a stream capture
+    needs (an earlier call on the device made the set-up)."""
     dev = colloc.device
     layers = spec.layers
     n_params = spec.n_params
     E = n_members
     n_f, n_u = colloc.shape[-2], x_data.shape[0]
+    rows = () if chunk is None else (chunk[1].shape[0],)
     if kind not in KINDS:
         raise ValueError(f"fused_step kernel: residual kind {kind!r} not in {sorted(KINDS)}")
     if (kind == "admm") != (z is not None and dual is not None):
@@ -317,15 +351,23 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         raise ValueError("fused_step kernel: a member table, or (one member) a rho")
     if E > 1 and members is None:
         raise ValueError("fused_step kernel: several members need a member table")
+    if chunk is not None and (metrics_out is None or want_grad):
+        raise ValueError("fused_step kernel: a chunk's epochs write their metrics rows and "
+                         "no gradient")
     shapes = {"params": (params, (E, n_params)), "mu": (mu, (E, n_params)),
               "nu": (nu, (E, n_params)), "x_data": (x_data, (n_u, 2)),
               "u_data": (u_data, (n_u, 1)), "colloc": (colloc, (E, n_f, 2))}
     if z is not None:
         shapes.update(z=(z, (E, n_f, 1)), dual=(dual, (E, n_f, 1)))
     if new_colloc is not None:
-        shapes["new_colloc"] = (new_colloc, (E, n_f, 2))
+        shapes["new_colloc"] = (new_colloc, rows + (E, n_f, 2))
     if metrics_out is not None:
-        shapes["metrics_out"] = (metrics_out, (E, 7))
+        shapes["metrics_out"] = (metrics_out, rows + (E, 7))
+    if out is not None:
+        shapes.update({f"{k}_out": (out[k], shapes[k][1])
+                       for k in ("params", "mu", "nu", "colloc")})
+        if z is not None:
+            shapes.update(z_out=(out["z"], (E, n_f, 1)), dual_out=(out["dual"], (E, n_f, 1)))
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev \
                 or not t.is_contiguous():
@@ -336,6 +378,13 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         raise ValueError(f"fused_step kernel: the member table must be contiguous int32 "
                          f"({E}, 4) on {dev}, got {members.dtype} {tuple(members.shape)} "
                          f"on {members.device}")
+    if chunk is not None:
+        cursor, sched = chunk
+        if tuple(cursor.shape) != (1,) or cursor.dtype != torch.int32 or cursor.device != dev \
+                or sched.dim() != 2 or sched.shape[1] != 4 or sched.dtype != torch.int32 \
+                or sched.device != dev or not sched.is_contiguous():
+            raise ValueError("fused_step kernel: a chunk's cursor is one int32 and its "
+                             f"schedule (rows, 4) int32, both on {dev}")
     if n_f < 1 or n_u < 1:
         raise ValueError("fused_step kernel needs at least one collocation and one data point")
     if dev.type != "cuda":
@@ -343,32 +392,24 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
 
     plan = step_plan(layers, n_f, n_u)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    out = {
-        "params": empty(E, n_params), "mu": empty(E, n_params), "nu": empty(E, n_params),
-        "colloc": empty(E, n_f, 2),
-        "z": empty(E, n_f, 1) if z is not None else None,
-        "dual": empty(E, n_f, 1) if z is not None else None,
-        "metrics": metrics_out if metrics_out is not None else empty(E, 7),
-        "grad": empty(E, n_params) if want_grad else None,
-    }
-    if plan.design == "narrow":
-        tile, tail_tile = plan.tile, plan.tail_tile
-        nb_grad = -(-n_f // tile) + -(-n_u // tile)
-        scratch = {
-            "partials": empty(E, nb_grad, n_params + 1),
-            "pstore": empty(E, nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
-            "tail_partials": empty(E, -(-n_f // tail_tile)),
-            "scratch": None,
+    if out is None:
+        out = {
+            "params": empty(E, n_params), "mu": empty(E, n_params), "nu": empty(E, n_params),
+            "colloc": empty(E, n_f, 2),
+            "z": empty(E, n_f, 1) if z is not None else None,
+            "dual": empty(E, n_f, 1) if z is not None else None,
         }
-    else:
-        scratch = {"partials": None, "pstore": None, "tail_partials": None,
-                   "scratch": empty(plan.scratch_floats)}
+    out = dict(out, metrics=metrics_out if metrics_out is not None else empty(E, 7),
+               grad=empty(E, n_params) if want_grad else None)
+    if scratch is None:
+        scratch = _scratch(plan, spec, E, n_f, n_u, dev)
     tensors = {
         "params": params, "mu": mu, "nu": nu, "x_data": x_data, "u_data": u_data,
         "colloc": colloc, "z": z, "dual": dual, "new_colloc": new_colloc,
         "params_out": out["params"], "mu_out": out["mu"], "nu_out": out["nu"],
         "colloc_out": out["colloc"], "z_out": out["z"], "dual_out": out["dual"],
         "metrics": out["metrics"], "grad_out": out["grad"], "members": members, **scratch,
+        "cursor": None if chunk is None else chunk[0], "sched": None if chunk is None else chunk[1],
     }
     bc1, bc2 = bias_corrections(count)
     f32 = lambda v: float(np.float32(v))  # noqa: E731
@@ -384,6 +425,8 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         "device": dev.index if dev.index is not None else torch.cuda.current_device(),
         "nf_pad": plan.nf_pad, "nu_pad": plan.nu_pad, "split_rows": plan.split_rows,
         "splits": plan.splits, "scratch_floats": plan.scratch_floats, "n_members": E,
+        "metrics_stride": 7 * E, "new_colloc_stride": 2 * n_f * E,
+        "launch_only": int(launch_only),
     }
     lib = _lib()
     c_dims = (ctypes.c_int * len(layers))(*layers)
@@ -543,20 +586,21 @@ def flat_net(net: Params, n_params: int) -> torch.Tensor:
     return torch.cat([t.reshape(*lead, -1) for t in leaves], dim=-1)
 
 
-def _after_epoch(state, r: dict, layers: Sequence[int]):
-    """The state after an epoch whose outputs are ``r`` (a member axis leads
-    every tensor of an ensemble's), and the metrics as views of its row."""
+def _after_epoch(state, r: dict, layers: Sequence[int], epochs: int = 1):
+    """The state after ``epochs`` epochs whose outputs are ``r`` (a member
+    axis leads every tensor of an ensemble's), and the metrics as views of
+    their rows."""
     from pinns_tpu_torch.losses.admm import ADMMState
     from pinns_tpu_torch.train.trainer import METRIC_KEYS
 
     opt = state.opt_state
     new_state = state._replace(
         params=dict(state.params, net=unpack_params(r["params"], layers)),
-        opt_state=AdamState(count=opt.count + 1,
+        opt_state=AdamState(count=opt.count + epochs,
                             mu=dict(opt.mu, net=unpack_params(r["mu"], layers)),
                             nu=dict(opt.nu, net=unpack_params(r["nu"], layers))),
         admm=None if state.admm is None else ADMMState(z=r["z"], dual=r["dual"]),
-        colloc=r["colloc"], epoch=state.epoch + 1,
+        colloc=r["colloc"], epoch=state.epoch + epochs,
     )
     return new_state, {k: r["metrics"][..., i] for i, k in enumerate(METRIC_KEYS)}
 
@@ -574,10 +618,7 @@ def make_fused_ensemble_step(problem, learning_rate: float):
     """
     exp, spec = problem.exp, problem.spec
     cfg = _step_config(problem, learning_rate)
-    if design(spec.layers) != "narrow":
-        raise NotImplementedError(
-            f"widths {spec.layers} take K3's wide design, which runs one member a call; "
-            "their ensembles run the member loop (parallel.ensemble.make_ensemble_chunk)")
+    _narrow_members(spec)
     u_data = problem.targets["u"].contiguous()
     cached = {}  # the member table of the last (seeds, rhos): constant over a run
 
@@ -603,9 +644,18 @@ def make_fused_ensemble_step(problem, learning_rate: float):
     return step
 
 
+def _narrow_members(spec: MLPSpec) -> None:
+    if design(spec.layers) != "narrow":
+        raise NotImplementedError(
+            f"widths {spec.layers} take K3's wide design, which runs one member a call; "
+            "their ensembles run the member loop (parallel.ensemble.make_ensemble_chunk)")
+
+
 def make_fused_adam_step(problem, learning_rate: float):
     """``step(state, out=None, new_colloc=None) -> (state, metrics)``: the plain step's contract
     (``train.trainer.make_adam_step``) with one CUDA step call per epoch.
+    ``step.graphed(max_len=...)`` makes the step's K9 runner
+    (:class:`FusedChunk`), which ``train.trainer.make_chunked`` takes.
 
     Raises ``NotImplementedError`` for a configuration outside the kernel's
     scope: on the card nothing falls back to the plain step.
@@ -627,7 +677,209 @@ def make_fused_adam_step(problem, learning_rate: float):
         )
         return _after_epoch(state, r, spec.layers)
 
+    step.graphed = functools.partial(FusedChunk, problem, learning_rate)
     return step
+
+
+# -- K9: a chunk of epochs as captured CUDA graphs -------------------------------
+
+def chunk_schedule(count: int, epoch: int, length: int) -> np.ndarray:
+    """K9: the schedule of ``length`` epochs from Adam's ``count`` and the
+    state's ``epoch``, a row an epoch as the per-epoch step takes them: the
+    Philox epoch ``epoch + 1 + i`` as its low and high words, then Adam's bias
+    corrections at ``count + i`` (:func:`opt.adam.bias_corrections`: numpy's
+    float32 power, whose bits a device ``powf`` need not give) as float32
+    bits. (length, 4) int32, the kernel's ``sched``."""
+    tab = np.empty((length, 4), np.uint32)
+    e = np.arange(length, dtype=np.uint64) + np.uint64(epoch + 1)
+    tab[:, 0] = (e & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    tab[:, 1] = (e >> np.uint64(32)).astype(np.uint32)
+    tab[:, 2:] = np.asarray([bias_corrections(count + i) for i in range(length)],
+                            np.float32).view(np.uint32)
+    return tab.view(np.int32)
+
+
+# the epochs of each captured graph, as (from, to) buffers: A is 0, B is 1
+GRAPH_EPOCH_BUFFERS = {"pair": ((0, 1), (1, 0)), "single": ((0, 1),)}
+
+
+def replay_plan(length: int) -> Tuple[str, ...]:
+    """K9: the graphs a chunk of ``length`` epochs replays, in order: the
+    two-epoch graph (A -> B -> A) length // 2 times, then for an odd length
+    the one-epoch graph (A -> B); the state ends in B then, else in A."""
+    return ("pair",) * (length // 2) + ("single",) * (length % 2)
+
+
+def hand_back(state, final: dict, metrics: torch.Tensor, length: int, layers: Sequence[int],
+              stacked: bool):
+    """The state after ``length`` epochs from ``state`` whose last one wrote
+    ``final`` (a runner's buffers, every tensor (E, ...)), as tensors of the
+    caller's own (one device copy each: the next replay may write the
+    buffers), and the metrics, a copy of the chunk's rows of ``metrics``
+    (rows, E, 7): {metric: (length,)} solo, {metric: (length, E)} stacked."""
+    own = {k: None if v is None else v.clone() for k, v in final.items()}
+    own["metrics"] = metrics[:length].clone()
+    if not stacked:
+        own = {k: None if v is None else (v[:, 0] if k == "metrics" else v[0])
+               for k, v in own.items()}
+    return _after_epoch(state, own, layers, length)
+
+
+class FusedChunk:
+    """K9: chunks of the fused step's Adam epochs (solo K3, or K8 over
+    ``n_members`` members of a stacked state) as captured CUDA graphs.
+
+    Allocated once: two state buffers A and B (params, mu, nu as (E,
+    n_params), colloc, z, dual), the epoch's scratch, a device cursor, a
+    schedule of ``max_len`` rows (:func:`chunk_schedule`) and ``max_len``
+    metrics rows. Captured once, after one uncaptured warm-up epoch on the
+    runner's own buffers (the kernels' set-up, outside capture): a graph of
+    two epochs (A -> B -> A) and one of one epoch (A -> B), each launch
+    reading its epoch's row through the cursor. A chunk of L epochs
+    (:meth:`run`) copies the state into A, writes L schedule rows, zeroes
+    the cursor and replays :func:`replay_plan` (L), with no host sync; the
+    state comes back in tensors of the caller's own (:func:`hand_back`).
+    Every epoch runs the per-epoch call's kernels in its order and
+    arithmetic, so a chunk equals the per-epoch loop bit for bit.
+
+    The graphs hold the solo seed and rho as the captured launches took
+    them; a state of another seed or rho captures anew. K8's member table
+    is a buffer the graphs read: another ensemble's seeds and rhos are
+    copied into it. Given points (``new_colloc``) take a second pair of
+    graphs that read them through the cursor. A chunk longer than
+    ``max_len`` reallocates the rows and captures anew. A capture or replay
+    that fails raises; nothing falls back to the per-epoch loop.
+
+    ``n_members`` None runs the trainer's solo state, an int a stacked state
+    of that many members (``parallel.ensemble``); ``max_len`` (default
+    ``train.chunk``) is the longest chunk it runs without capturing anew.
+    Raises ``NotImplementedError`` outside K3's scope (K8: outside its narrow
+    design) and ``ValueError`` off the card.
+    """
+
+    def __init__(self, problem, learning_rate: float, n_members: Optional[int] = None,
+                 max_len: Optional[int] = None):
+        exp, spec = problem.exp, problem.spec
+        self.cfg = _step_config(problem, learning_rate)
+        self.stacked = n_members is not None
+        if self.stacked:
+            _narrow_members(spec)
+        if problem.device.type != "cuda":
+            raise ValueError(f"K9 runs on a CUDA device, got {problem.device}")
+        self.exp, self.spec, self.device = exp, spec, problem.device
+        self.n_members = int(n_members) if self.stacked else 1
+        self.x_data = problem.x_data
+        self.u_data = problem.targets["u"].contiguous()
+        self.n_f, n_u = exp.sampling.n_f, self.x_data.shape[0]
+        E, P, F = self.n_members, spec.n_params, self.n_f
+        admm = exp.loss.residual_kind == "admm"
+        zeros = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+            shape, dtype=dtype, device=self.device)
+        self.bufs = tuple({"params": zeros(E, P), "mu": zeros(E, P), "nu": zeros(E, P),
+                           "colloc": zeros(E, F, 2), "z": zeros(E, F, 1) if admm else None,
+                           "dual": zeros(E, F, 1) if admm else None} for _ in range(2))
+        self.scratch = _scratch(step_plan(spec.layers, F, n_u), spec, E, F, n_u, self.device)
+        self.cursor = zeros(1, dtype=torch.int32)
+        self.table = zeros(E, 4, dtype=torch.int32) if self.stacked else None
+        self.key = None
+        self.graphs: Dict[bool, Dict[str, torch.cuda.CUDAGraph]] = {}
+        self.capture_seconds: List[float] = []
+        self._rows(max(1, int(exp.train.chunk if max_len is None else max_len)))
+
+    def _rows(self, n: int) -> None:
+        """Schedule and metrics rows for chunks of up to ``n`` epochs (the
+        graphs hold their addresses: capture anew)."""
+        self.max_len = n
+        self.sched = torch.zeros((n, 4), dtype=torch.int32, device=self.device)
+        self.metrics = torch.zeros((n, self.n_members, 7), dtype=torch.float32,
+                                   device=self.device)
+        self.feed = None
+        self.graphs.clear()
+
+    def _set_key(self, state) -> None:
+        """The seeds and rhos the graphs run: the solo ones captured into
+        them, K8's copied into its member table."""
+        if self.stacked:
+            if len(state.key) != self.n_members:
+                raise ValueError(f"K9: a {len(state.key)}-member state for a runner of "
+                                 f"{self.n_members}")
+            rhos = state.rho if state.rho is not None else (self.exp.loss.rho,) * self.n_members
+            key = (tuple(int(k) for k in state.key), tuple(float(r) for r in rhos))
+            if key != self.key:
+                self.table.copy_(member_table(*key, self.n_f, self.device))
+        else:
+            key = (int(state.key), float(self.exp.loss.rho if state.rho is None else state.rho))
+            if key != self.key:
+                self.graphs.clear()
+        self.key = key
+
+    def _launch(self, src: dict, dst: dict, fed: bool, launch_only: bool) -> None:
+        seed, rho = (0, None) if self.stacked else self.key
+        _epoch(self.spec, self.n_members, src["params"], src["mu"], src["nu"], 0, self.x_data,
+               self.u_data, src["colloc"], src["z"], src["dual"], rho=rho, seed=seed, epoch=0,
+               members=self.table, new_colloc=self.feed if fed else None,
+               metrics_out=self.metrics, out=dst, scratch=self.scratch,
+               chunk=(self.cursor, self.sched), launch_only=launch_only, **self.cfg)
+
+    def _capture(self, fed: bool) -> Dict[str, torch.cuda.CUDAGraph]:
+        t0 = time.perf_counter()
+        a, b = self.bufs
+        self.cursor.zero_()
+        self._launch(a, b, fed, launch_only=False)  # the warm-up: the set-up, outside capture
+        torch.cuda.synchronize(self.device)
+        graphs = {name: torch.cuda.CUDAGraph() for name in GRAPH_EPOCH_BUFFERS}
+        for name, epochs in GRAPH_EPOCH_BUFFERS.items():
+            with torch.cuda.graph(graphs[name]):
+                for i, j in epochs:
+                    self._launch(self.bufs[i], self.bufs[j], fed, launch_only=True)
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return graphs
+
+    def _load(self, state, dst: dict) -> None:
+        """The state's tensors into the buffers ``dst`` (one that already is
+        its buffer is left as it is)."""
+        P, opt, admm = self.spec.n_params, state.opt_state, state.admm
+        if (admm is None) != (dst["z"] is None):
+            raise ValueError("K9: the state's ADMM state does not match the residual kind")
+        src = {"params": flat_net(state.params["net"], P), "mu": flat_net(opt.mu["net"], P),
+               "nu": flat_net(opt.nu["net"], P), "colloc": state.colloc,
+               "z": None if admm is None else admm.z, "dual": None if admm is None else admm.dual}
+        for k, t in src.items():
+            if t is not None and t.data_ptr() != dst[k].data_ptr():
+                dst[k].copy_(t.reshape(dst[k].shape))
+
+    def run(self, state, length: int, new_colloc: Optional[torch.Tensor] = None):
+        """``length`` epochs from ``state``: (state, metrics) as the
+        per-epoch loop (``train.trainer.run_chunk``) gives them, bit for bit.
+        ``new_colloc`` ((length, N_f, 2), or (length, E, N_f, 2) stacked)
+        replaces the Philox draws."""
+        global GRAPH_REPLAYS, GRAPH_EPOCHS
+        if length < 1:
+            raise ValueError(f"K9: a chunk of {length} epochs")
+        if length > self.max_len:
+            self._rows(length)
+        fed = new_colloc is not None
+        if fed and self.feed is None:
+            self.feed = torch.zeros((self.max_len, self.n_members, self.n_f, 2),
+                                    dtype=torch.float32, device=self.device)
+        self._set_key(state)
+        if fed not in self.graphs:
+            self.graphs[fed] = self._capture(fed)
+        self._load(state, self.bufs[0])
+        sched = chunk_schedule(state.opt_state.count, state.epoch, length)
+        self.sched[:length].copy_(torch.from_numpy(sched), non_blocking=True)
+        if fed:
+            self.feed[:length].copy_(new_colloc.reshape(self.feed[:length].shape))
+        self.cursor.zero_()
+        plan = replay_plan(length)
+        for name in plan:
+            self.graphs[fed][name].replay()
+        with _launches_lock:
+            GRAPH_REPLAYS += len(plan)
+            GRAPH_EPOCHS += length
+        return hand_back(state, self.bufs[length % 2], self.metrics, length, self.spec.layers,
+                         self.stacked)
 
 
 def loss_and_grad_reference(

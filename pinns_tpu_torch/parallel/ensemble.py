@@ -12,10 +12,11 @@ one (E, n_params) buffer each, in ``pack_params`` order, so that the
 member-batched kernel takes them as they are
 (``ops.kernels.fused_step.flat_net``).
 
-An epoch of the ensemble (:func:`make_ensemble_chunk`) is
-- on the card, for an Adam epoch inside K3's scope at the narrow widths
-  (``abgrall_admm``, ``burgers_admm_batch``): one host call of K8, the
-  member-batched fused Adam epoch (``ops.kernels.fused_step``);
+A chunk of the ensemble (:func:`make_ensemble_chunk`) is
+- on the card, for Adam epochs inside K3's scope at the narrow widths
+  (``abgrall_admm``, ``burgers_admm_batch``): K8, the member-batched fused
+  Adam epoch (``ops.kernels.fused_step``), its epochs replayed from captured
+  CUDA graphs (K9, one runner a member count, kept on the trainer);
 - otherwise the member loop: each member's solo step in turn (the wide K3,
   the generic step over the kernels, the weak form, L-BFGS; the plain step
   on the CPU), each with its own seed and rho. JAX's vmapped L-BFGS leaves a
@@ -167,13 +168,24 @@ def evaluate_ensemble(trainer: Trainer, stacked: TrainState, n: int) -> List[dic
 # -- stepping ------------------------------------------------------------------
 
 def batched_on_card(trainer: Trainer) -> bool:
-    """Whether an Adam epoch of this trainer's ensembles is one K8 call: on the
-    card, inside K3's scope, at the narrow design's widths."""
+    """Whether an Adam epoch of this trainer's ensembles is one K8 epoch: on
+    the card, inside K3's scope, at the narrow design's widths."""
     from pinns_tpu_torch.ops.kernels.fused_step import design, fused_step_supported
 
     problem = trainer.problem
     return (problem.device.type == "cuda" and not fused_step_supported(problem.exp, problem.spec)
             and design(problem.spec.layers) == "narrow")
+
+
+def k8_chunk(trainer: Trainer, n: int):
+    """K9 over K8 for ``n`` members (``ops.kernels.fused_step.FusedChunk``),
+    made at first use and kept on the trainer with its captured graphs."""
+    from pinns_tpu_torch.ops.kernels.fused_step import FusedChunk
+
+    key = ("k8", n)
+    if key not in trainer._chunks:
+        trainer._chunks[key] = FusedChunk(trainer.problem, trainer.learning_rate, n_members=n)
+    return trainer._chunks[key]
 
 
 def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
@@ -182,7 +194,8 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
     buffer with no host sync inside the chunk (the L-BFGS solve syncs in its
     line search, as a solo one does). ``phase`` is 'adam' or 'lbfgs' (one
     whole inner solve an epoch). ``new_colloc`` (chunk, E, N_f, 2) replaces
-    the Philox draws (the tests feed JAX's batches)."""
+    the Philox draws (the tests feed JAX's batches). K8's chunks replay its
+    graphs (:func:`k8_chunk`); the member loop runs the rest."""
     if trainer.exp.sampling.strategy == "rad":
         raise NotImplementedError(f"RAD resampling in an ensemble: {SLICE_2B}")
     if phase == "adam":
@@ -191,27 +204,20 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
         step = trainer._lbfgs_step
     else:
         raise ValueError(f"unknown phase {phase!r}")
-    batched = None
-    if phase == "adam" and batched_on_card(trainer):
-        from pinns_tpu_torch.ops.kernels.fused_step import make_fused_ensemble_step
-
-        batched = make_fused_ensemble_step(trainer.problem, trainer.learning_rate)
+    batched = phase == "adam" and batched_on_card(trainer)
 
     def run(stacked: TrainState, new_colloc: Optional[torch.Tensor] = None):
         n = len(stacked.key)
+        if batched:
+            return k8_chunk(trainer, n).run(stacked, chunk, new_colloc)
         buf = torch.empty((chunk, n, len(METRIC_KEYS)), dtype=torch.float32,
                           device=stacked.colloc.device)
-        feed = (lambda t, i: None) if new_colloc is None else (  # noqa: E731
-            lambda t, i: new_colloc[t] if i is None else new_colloc[t, i])
-        if batched is not None:
+        members = [_own(m) for m in unstack_states(stacked, n)]
+        for i in range(n):
             for t in range(chunk):
-                stacked, _ = batched(stacked, buf[t], feed(t, None))
-        else:
-            members = [_own(m) for m in unstack_states(stacked, n)]
-            for i in range(n):
-                for t in range(chunk):
-                    members[i], _ = step(members[i], buf[t, i], feed(t, i))
-            stacked = stack_states(members)
+                members[i], _ = step(members[i], buf[t, i],
+                                     None if new_colloc is None else new_colloc[t, i])
+        stacked = stack_states(members)
         return stacked, {k: buf[:, :, j] for j, k in enumerate(METRIC_KEYS)}
 
     return run

@@ -4,8 +4,9 @@ package's replacement for the reference's MPI master-worker farm).
 The grid is the cartesian product of dotted-key override lists
 (:func:`cartesian_grid`). Configurations that differ only in value axes
 (``train.seed``, ``loss.rho``) form one ensemble unit
-(``parallel.ensemble.run_ensemble``: on the card one K8 call an Adam epoch
-for all its members, inside K3's narrow scope); any other configuration is a
+(``parallel.ensemble.run_ensemble``: on the card one K8 epoch for all its
+members, replayed from captured graphs (K9), inside K3's narrow scope); any
+other configuration is a
 solo unit, retried ``retries`` times on failure. Units run in order on the
 one card: running units concurrently over several cards comes with slice 6.
 Every result is recorded, failures included, and streamed to a JSONL file

@@ -10,10 +10,12 @@ One Adam epoch does what the JAX step does, in the reference's order
 
 and one L-BFGS outer epoch (``make_lbfgs_step``) a whole inner solve of the
 loss at the current batch and ADMM state, then the same resample -> z/dual
-tail. A chunk of epochs keeps its per-step metrics in one device buffer, read
-back once per logged chunk, in place of ``lax.scan`` in ``make_chunked``;
-``Trainer.train`` switches from Adam to L-BFGS chunks at
-``optimizer.switch_epoch`` under 'hybrid'.
+tail. A chunk of epochs (:func:`make_chunked`, the port of JAX's, whose
+``lax.scan`` makes the chunk one device call) keeps its per-step metrics in
+one device buffer, read back once per logged chunk: on the card the fused
+step's chunk is replayed from captured CUDA graphs (K9), every other step's
+is the per-epoch loop (:func:`run_chunk`). ``Trainer.train`` switches from
+Adam to L-BFGS chunks at ``optimizer.switch_epoch`` under 'hybrid'.
 
 The loss goes through ``mlp_apply`` (data term) and ``mlp_taylor_2``
 (Burgers residual) or ``mlp_taylor_1`` (Euler residuals), which dispatch on
@@ -734,15 +736,51 @@ def make_lbfgs_step(problem: Problem):
     return step
 
 
-def run_chunk(step, state: TrainState, length: int):
-    """``length`` steps; the per-step metrics go into ONE (length, 7) float32
-    device buffer, with no device->host sync inside the chunk. Returns
-    (state, {metric: (length,) tensor})."""
-    buf = torch.empty((length, len(METRIC_KEYS)), dtype=torch.float32,
+def run_chunk(step, state: TrainState, length: int,
+              new_colloc: Optional[torch.Tensor] = None):
+    """``length`` steps, one host call of ``step`` an epoch: the per-epoch
+    loop (K9's plain version). The per-step metrics go into ONE (length, 7)
+    float32 device buffer, with no device->host sync inside the chunk;
+    ``new_colloc`` (length, N_f, 2) replaces the Philox draws. A stacked
+    ensemble state with its member-batched step (K8's,
+    ``ops.kernels.fused_step.make_fused_ensemble_step``) runs the same way,
+    with a member axis after the epoch's in the buffer and the feed.
+    Returns (state, {metric: (length,) or (length, E) tensor})."""
+    lead = tuple(state.colloc.shape[:-2])  # (E,) for a stacked state
+    buf = torch.empty((length, *lead, len(METRIC_KEYS)), dtype=torch.float32,
                       device=state.colloc.device)
     for i in range(length):
-        state, _ = step(state, buf[i])
-    return state, {k: buf[:, j] for j, k in enumerate(METRIC_KEYS)}
+        state, _ = step(state, buf[i], None if new_colloc is None else new_colloc[i])
+    return state, {k: buf[..., j] for j, k in enumerate(METRIC_KEYS)}
+
+
+def make_chunked(step, chunk: int):
+    """``run(state, length=chunk, new_colloc=None) -> (state, {metric:
+    (length,) tensor})``: ``length`` epochs of ``step`` as one unit, the
+    port of JAX's ``make_chunked`` (its ``lax.scan`` over the step, one
+    device call a chunk).
+
+    The fused step on the card (K3, whose step carries ``graphed``) runs as
+    K9: its epochs replayed from captured CUDA graphs
+    (``ops.kernels.fused_step.FusedChunk``, made once here and kept for
+    every chunk of up to ``chunk`` epochs), bit for bit the per-epoch loop's
+    result. Every other step (the CPU's plain step, the generic step,
+    L-BFGS) runs the per-epoch loop, :func:`run_chunk`. ``new_colloc``
+    (length, N_f, 2) replaces the Philox draws."""
+    graphed = getattr(step, "graphed", None)
+    if graphed is not None:
+        runner = graphed(max_len=chunk)
+
+        def run(state, length: int = chunk, new_colloc: Optional[torch.Tensor] = None):
+            return runner.run(state, length, new_colloc)
+
+        run.runner = runner
+        return run
+
+    def run(state, length: int = chunk, new_colloc: Optional[torch.Tensor] = None):
+        return run_chunk(step, state, length, new_colloc)
+
+    return run
 
 
 class Trainer:
@@ -757,6 +795,9 @@ class Trainer:
         self.learning_rate = learning_rate_schedule(exp.optimizer)
         self._adam_step = make_step(self.problem, self.learning_rate)
         self._lbfgs_step = make_lbfgs_step(self.problem)
+        # the chunk runners (make_chunked) by phase, as JAX's _get_chunk
+        # caches them; parallel.ensemble keeps K8's here too
+        self._chunks: Dict[Any, Any] = {}
         self.logger = MetricsLogger(out_dir=exp.train.out_dir or None, name=exp.name)
 
     # -- state ------------------------------------------------------------
@@ -793,6 +834,13 @@ class Trainer:
             return "lbfgs"
         return "adam" if epoch < opt.switch_epoch else "lbfgs"
 
+    def _get_chunk(self, phase: str):
+        """The phase's chunk runner (:func:`make_chunked`), made at first use."""
+        if phase not in self._chunks:
+            step = self._adam_step if phase == "adam" else self._lbfgs_step
+            self._chunks[phase] = make_chunked(step, self.exp.train.chunk)
+        return self._chunks[phase]
+
     def train(self, state: Optional[TrainState] = None, epochs: Optional[int] = None):
         """Run the configured schedule; returns (state, summary dict)."""
         exp = self.exp
@@ -811,13 +859,13 @@ class Trainer:
             length = min(chunk if phase == "adam" else lbfgs_chunk, total - epoch)
             if phase == "adam" and exp.optimizer.kind == "hybrid":
                 length = min(length, exp.optimizer.switch_epoch - epoch)
-            step = self._adam_step if phase == "adam" else self._lbfgs_step
+            run = self._get_chunk(phase)
             if exp.train.profile_dir and n_chunks == 1:
                 # the second chunk, past the first one's warm-up (as the JAX
                 # trainer traces it with jax.profiler)
-                state, metrics = self._profiled_chunk(step, state, length)
+                state, metrics = self._profiled_chunk(run, state, length)
             else:
-                state, metrics = run_chunk(step, state, length)
+                state, metrics = run(state, length)
             n_chunks += 1
             epoch += length
             last = None
@@ -837,10 +885,12 @@ class Trainer:
             self.save_checkpoint(state, tag="final")
         return state, summary
 
-    def _profiled_chunk(self, step, state, length):
-        """run_chunk under torch.profiler (the card's kernels too, on a CUDA
-        device); the trace goes to train.profile_dir as
-        <name>_e<first epoch>.json, for chrome://tracing or Perfetto."""
+    def _profiled_chunk(self, run, state, length):
+        """A chunk runner's ``length`` epochs (:meth:`_get_chunk`: the
+        replayed graphs of the fused step on the card, else the per-epoch
+        loop) under torch.profiler (the card's kernels too, on a CUDA
+        device); the trace goes to train.profile_dir as <name>_e<first
+        epoch>.json, for chrome://tracing or Perfetto."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -848,7 +898,7 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         first = int(state.epoch)
         with profile(activities=activities) as prof:
-            state, metrics = run_chunk(step, state, length)
+            state, metrics = run(state, length)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         os.makedirs(self.exp.train.profile_dir, exist_ok=True)

@@ -6,7 +6,7 @@ plain step, and over one L-BFGS outer epoch.
     python scripts/profile_train_step.py [--preset abgrall_admm] [--epochs 200]
         [--dataset twosin_burgers_shock] [--lbfgs-iters 100]
         [--out chiprun_out/profile_train_step.json]
-        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs] [--ensemble E]
+        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs] [--ensemble E] [--graph]
 
 The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 --steps adam --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"``.
@@ -18,6 +18,13 @@ The Euler slice: ``--preset euler_admm --dataset abgrall_eulers --steps adam,pla
 An ensemble: ``--ensemble 8 --steps adam`` profiles the Adam epochs of 8
 members (seeds train.seed + i): one K8 call an epoch inside K3's narrow
 scope, else the member loop; a unit is then an epoch of all members.
+``--graph`` also profiles, in the same process and on the same state, the
+fused step's chunk as K9 runs it in training (``train.trainer.make_chunked``:
+the epochs replayed from captured CUDA graphs; for an ensemble K8's graphs,
+``parallel.ensemble.make_ensemble_chunk``), reported as ``fused_chunk``
+beside the per-epoch ``fused_step`` (``fused_chunk_ensemble`` beside
+``fused_step_ensemble``); the warm-up epochs before the window capture the
+graphs.
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
@@ -43,7 +50,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def solo_chunks(step):
-    """``run(state, epochs) -> (state, metrics)`` over one step function."""
+    """``run(state, epochs) -> (state, metrics)`` over one step function: the
+    per-epoch loop (a stacked state with K8's step too)."""
     from pinns_tpu_torch.train.trainer import run_chunk
 
     return lambda state, epochs: run_chunk(step, state, epochs)
@@ -108,6 +116,8 @@ def main(argv=None) -> int:
                     help="which of adam, plain, lbfgs to profile (comma-separated)")
     ap.add_argument("--ensemble", type=int, default=1, metavar="E",
                     help="profile the Adam epochs of an E-member ensemble")
+    ap.add_argument("--graph", action="store_true",
+                    help="also profile the fused step's chunk replayed from CUDA graphs (K9)")
     ap.add_argument("--out", default="chiprun_out/profile_train_step.json")
     args = ap.parse_args(argv)
     steps = set(args.steps.split(","))
@@ -131,21 +141,36 @@ def main(argv=None) -> int:
     result = {"card": card, "preset": args.preset, "epochs": args.epochs, "set": args.set,
               "layers": list(trainer.problem.spec.layers), "n_colloc": int(state.colloc.shape[0]),
               "members": args.ensemble}
+    graph = None
     if "adam" in steps and args.ensemble > 1:
+        from pinns_tpu_torch.ops.kernels.fused_step import make_fused_ensemble_step
         from pinns_tpu_torch.parallel.ensemble import (
             batched_on_card,
             init_ensemble_states,
             make_ensemble_chunk,
         )
 
-        adam = "fused_step_ensemble" if batched_on_card(trainer) else "member_loop"
         stacked = init_ensemble_states(
             trainer, [exp.train.seed + i for i in range(args.ensemble)])
-        result[adam] = profile_chunk(lambda s, n: make_ensemble_chunk(trainer, n)(s), stacked,
-                                     args.epochs, warmup=min(5, args.epochs))
+        ensemble_chunk = lambda s, n: make_ensemble_chunk(trainer, n)(s)  # noqa: E731
+        if batched_on_card(trainer):
+            adam = "fused_step_ensemble"
+            per_epoch = solo_chunks(make_fused_ensemble_step(trainer.problem,
+                                                             trainer.learning_rate))
+            if args.graph:
+                graph = "fused_chunk_ensemble"
+                result[graph] = profile_chunk(ensemble_chunk, stacked, args.epochs,
+                                              warmup=min(5, args.epochs))
+        else:
+            adam, per_epoch = "member_loop", ensemble_chunk
+        result[adam] = profile_chunk(per_epoch, stacked, args.epochs, warmup=min(5, args.epochs))
     elif "adam" in steps:
         result[adam] = profile_chunk(solo_chunks(trainer._adam_step), state, args.epochs,
                                      warmup=min(5, args.epochs))
+        if args.graph and adam == "fused_step":
+            graph = "fused_chunk"
+            result[graph] = profile_chunk(trainer._get_chunk("adam"), state, args.epochs,
+                                          warmup=min(5, args.epochs))
     if "plain" in steps:
         result["plain_step"] = profile_chunk(
             solo_chunks(make_adam_step(trainer.problem, trainer.learning_rate, plain=True)),
@@ -156,10 +181,10 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    for name in (n for n in (adam, "plain_step", "lbfgs_step") if n in result):
+    for name in (n for n in (adam, graph, "plain_step", "lbfgs_step") if n in result):
         r = result[name]
         print(json.dumps({"preset": args.preset, "step": name, "card": card,
-                          "members": args.ensemble if name == adam else 1,
+                          "members": args.ensemble if name in (adam, graph) else 1,
                           **{k: r[k] for k in ("unit", "units", "wall_us_per_unit",
                                                "device_us_per_unit", "idle_share",
                                                "kernels_per_unit", "k3_us_per_unit",

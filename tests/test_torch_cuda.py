@@ -212,9 +212,11 @@ def test_trainer_on_card_runs_the_fused_step(cuda_device):  # noqa: F811
     exp = override(get_preset("abgrall_admm"), {"train.epochs": 30, "train.chunk": 10,
                                                 "train.log_every": 0})
     trainer = Trainer(exp, device="cuda")
-    before = k_fused.LAUNCHES
+    before = (k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS, k_fused.GRAPH_REPLAYS)
     state, summary = trainer.train()
-    assert k_fused.LAUNCHES == before + 30 and state.epoch == 30
+    # K9: every epoch inside a replay of the captured graphs, no host call
+    assert (k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS, k_fused.GRAPH_REPLAYS) == (
+        before[0], before[1] + 30, before[2] + 15) and state.epoch == 30
     assert np.isfinite(summary["rel_l2_u"])
     # outside K3's scope the trainer takes the generic step over K5, K1 and K2
     from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
@@ -284,9 +286,11 @@ def test_ensemble_trainer_on_card_runs_k8(cuda_device, tmp_path):  # noqa: F811
                                                 "train.log_every": 0})
     trainer = Trainer(exp, device="cuda")
     assert ens.batched_on_card(trainer)
-    before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES)
+    before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS)
     stacked, summaries = ens.run_ensemble(trainer, [1234, 7, 99], rhos=[10.0, 20.0, 40.0])
-    assert (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES) == (before[0] + 30, before[1])
+    # K9 over K8: every Adam epoch of all members inside a replay
+    assert (k_fused.ENSEMBLE_LAUNCHES, k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS) == (
+        before[0], before[1], before[2] + 30)
     for member, seed, rho, summary in zip(ens.unstack_states(stacked), [1234, 7, 99],
                                           [10.0, 20.0, 40.0], summaries):
         solo_tr = Trainer(override(exp, {"loss.rho": rho}), device="cuda")
@@ -295,6 +299,137 @@ def test_ensemble_trainer_on_card_runs_k8(cuda_device, tmp_path):  # noqa: F811
             tree_leaves([member.params, member.admm.z, member.colloc]),
             tree_leaves([solo.params, solo.admm.z, solo.colloc])))
         assert summary["rel_l2_u"] == solo_summary["rel_l2_u"]
+
+
+def _state_tensors(state):
+    """A state's tensors and its chunk's metrics, by name, for torch.equal."""
+    from pinns_tpu_torch.ops.kernels.fused_step import flat_net
+
+    opt = state.opt_state
+    n = sum(layer["W"].shape[-2] * layer["W"].shape[-1] + layer["b"].shape[-1]
+            for layer in state.params["net"])
+    out = {"params": flat_net(state.params["net"], n), "mu": flat_net(opt.mu["net"], n),
+           "nu": flat_net(opt.nu["net"], n), "colloc": state.colloc}
+    if state.admm is not None:
+        out.update(z=state.admm.z, dual=state.admm.dual)
+    return out
+
+
+def _assert_same_chunk(a, b):
+    (sa, ma), (sb, mb) = a, b
+    assert (sa.epoch, sa.opt_state.count) == (sb.epoch, sb.opt_state.count)
+    ta, tb = _state_tensors(sa), _state_tensors(sb)
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        assert torch.equal(ta[k], tb[k]), k
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+
+
+@pytest.mark.parametrize("layers,kind", [((2,) + (20,) * 8 + (1,), "admm"),
+                                         ((2, 16, 16, 16, 1), "l1_sq_norm"),
+                                         ((2, 40, 40, 40, 1), "admm"),
+                                         ((2, 40, 40, 40, 1), "l1_sq_norm")],
+                         ids=["8x20-admm", "16-l1", "40-admm", "40-l1"])
+def test_graphed_chunk_equals_the_loop_on_card(cuda_device, layers, kind):  # noqa: F811
+    """K9: the fused step's chunk replayed from captured graphs (narrow and
+    wide designs) equals the per-epoch loop bit for bit on every tensor and
+    metrics row, at odd and even lengths, split or whole, fed or drawn; its
+    epochs run in replays, with no host call of the step."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("abgrall_admm"), {
+        "model.layers": layers, "loss.residual_kind": kind, "sampling.n_f": 200,
+        "train.chunk": 8})
+    trainer = tr.Trainer(exp, device="cuda")
+    assert k_fused.design(layers) == ("wide" if max(layers) > 32 else "narrow")
+    run = trainer._get_chunk("adam")
+    state = trainer.init_state()
+    for length in (1, 2, 7):
+        before = (k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS)
+        got = run(state, length)
+        assert (k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS) == (before[0], before[1] + length)
+        _assert_same_chunk(got, tr.run_chunk(trainer._adam_step, state, length))
+    half, _ = run(state, 3)
+    _assert_same_chunk(run(half, 3), tr.run_chunk(trainer._adam_step, half, 3))
+    whole, _ = run(state, 6)
+    assert all(torch.equal(a, b) for a, b in zip(_state_tensors(run(half, 3)[0]).values(),
+                                                  _state_tensors(whole).values()))
+    feed = torch.from_numpy(np.stack([numpy_points(200, seed=s) for s in range(5)])).to(
+        cuda_device)
+    _assert_same_chunk(run(state, 5, new_colloc=feed),
+                       tr.run_chunk(trainer._adam_step, state, 5, new_colloc=feed))
+    # a longer chunk than the runner holds reallocates and captures anew;
+    # another seed captures anew
+    _assert_same_chunk(run(state, 11), tr.run_chunk(trainer._adam_step, state, 11))
+    other = trainer.init_state(seed=7)
+    _assert_same_chunk(run(other, 3), tr.run_chunk(trainer._adam_step, other, 3))
+    # the returned state is the caller's: writing into it leaves the next chunk alone
+    out, _ = run(state, 2)
+    _state_tensors(out)["params"].add_(1.0)
+    _assert_same_chunk(run(state, 2), tr.run_chunk(trainer._adam_step, state, 2))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_graphed_k8_chunk_equals_the_loop_on_card(cuda_device, n):  # noqa: F811
+    """K9 over K8: an ensemble's chunk replayed from captured graphs equals
+    the per-epoch K8 loop bit for bit, members of distinct seeds and rhos,
+    with and without given points; another ensemble's seeds and rhos go
+    through the member table without a new capture."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel import ensemble as ens
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("abgrall_admm"), {"sampling.n_f": 200, "train.chunk": 8})
+    trainer = tr.Trainer(exp, device="cuda")
+    k8 = k_fused.make_fused_ensemble_step(trainer.problem, trainer.learning_rate)
+    loop = lambda stacked, length, feed=None: tr.run_chunk(k8, stacked, length, feed)  # noqa: E731
+
+    stacked = ens.init_ensemble_states(trainer, [1234 + i for i in range(n)],
+                                       [10.0 * (i + 1) for i in range(n)])
+    for length in (1, 4, 7):
+        before = (k_fused.ENSEMBLE_LAUNCHES, k_fused.GRAPH_EPOCHS)
+        got = ens.make_ensemble_chunk(trainer, length)(stacked)
+        assert (k_fused.ENSEMBLE_LAUNCHES, k_fused.GRAPH_EPOCHS) == (before[0],
+                                                                     before[1] + length)
+        _assert_same_chunk(got, loop(stacked, length))
+    feed = torch.from_numpy(np.stack([[numpy_points(200, seed=10 * t + m) for m in range(n)]
+                                      for t in range(3)])).to(cuda_device)
+    _assert_same_chunk(ens.make_ensemble_chunk(trainer, 3)(stacked, new_colloc=feed),
+                       loop(stacked, 3, feed))
+    runner = ens.k8_chunk(trainer, n)
+    captures = len(runner.capture_seconds)
+    other = ens.init_ensemble_states(trainer, [99 + i for i in range(n)],
+                                     [40.0 + i for i in range(n)])
+    _assert_same_chunk(ens.make_ensemble_chunk(trainer, 5)(other), loop(other, 5))
+    assert len(runner.capture_seconds) == captures
+
+
+def test_graphed_chunk_raises_on_a_failed_launch(cuda_device, monkeypatch):  # noqa: F811
+    """A graphed chunk whose launches fail raises with the CUDA error and
+    runs no epoch: nothing falls back to the per-epoch loop."""
+    import dataclasses
+
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("abgrall_l1"), {"model.layers": (2, 40, 40, 1),
+                                              "sampling.n_f": 200, "train.chunk": 4})
+    trainer = tr.Trainer(exp, device="cuda", dataset="twosin_burgers_shock")
+    plan = k_fused.step_plan((2, 40, 40, 1), 200, trainer.problem.x_data.shape[0])
+    monkeypatch.setattr(k_fused, "step_plan",
+                        lambda *args: dataclasses.replace(plan, tile=64))
+    before = (k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS, k_fused.GRAPH_REPLAYS)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        trainer._get_chunk("adam")(trainer.init_state(), 4)
+    assert (k_fused.LAUNCHES, k_fused.GRAPH_EPOCHS, k_fused.GRAPH_REPLAYS) == before
 
 
 def _f64_oracle(got, plain, exact):
@@ -436,9 +571,11 @@ def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
     exp = override(get_preset("abgrall_admm"), {
         "train.epochs": 22, "train.chunk": 10, "train.log_every": 0,
         "optimizer.switch_epoch": 20, "optimizer.lbfgs.max_iters": 20})
-    k3, k5, k2 = k_fused.LAUNCHES, k_mlp.BACKWARD_LAUNCHES, k_taylor2.BACKWARD_LAUNCHES
+    k3, k5, k2 = k_fused.GRAPH_EPOCHS, k_mlp.BACKWARD_LAUNCHES, k_taylor2.BACKWARD_LAUNCHES
+    k3_calls = k_fused.LAUNCHES
     state, summary = Trainer(exp, device="cuda").train()
-    assert k_fused.LAUNCHES == k3 + 20 and state.epoch == 22
+    assert k_fused.GRAPH_EPOCHS == k3 + 20 and k_fused.LAUNCHES == k3_calls
+    assert state.epoch == 22
     assert k_mlp.BACKWARD_LAUNCHES > k5 and k_taylor2.BACKWARD_LAUNCHES > k2
     assert np.isfinite(summary["rel_l2_u"])
 
