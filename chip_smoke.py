@@ -181,7 +181,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the plain versions; the euler_weak_fast epoch (events) against the
             plain step, and a 1,000-epoch chunk
   30 k8     K8, the member-batched narrow K3, at abgrall_admm's 8x20 for E =
-            1, 3 and 8 with rhos 10, 20, 30, ... and seeds 1234 + i: every
+            1, 3, 8 and 32 with rhos 10, 20, 30, ... and seeds 1234 + i: every
             output of every member equal to a solo K3 call (torch.equal) over
             5 chained epochs, and the first epoch of each member within
             STEP_TOL of the plain step at its rho; one host call an epoch;
@@ -235,7 +235,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   times     1,000-epoch chunks graphed against the per-epoch loop, 10
             alternating turns a side (host clock): epochs a second at 8x20
             and 8x200, member-epochs a second for K8 at E 8 and 32; the
-            one-off capture time, the replays and replayed epochs
+            one-off capture time, the replays and replayed epochs; at 8x20
+            and for K8 each narrow K3 kernel's device time an epoch
+            (torch.profiler) beside its bound and the 64-point design's
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -663,9 +665,11 @@ def phase_step_kernel(card: str) -> dict:
     check(bool((np.abs(pts.mean(0) - mean) <= 4 * np.sqrt(var / n)).all()), "point mean")
     check(bool((np.abs(pts.var(0) - var) <= 4 * var * np.sqrt(0.8 / n)).all()), "point variance")
     out["grad_err"] = rows["grad"]["max_abs_err"]
+    out["plan"] = k_fused.step_plan(problem.spec.layers, problem.exp.sampling.n_f,
+                                    problem.exp.data.n_u)
     emit(card, phase="step-kernel", preset="abgrall_admm", net="8x20", n_f=problem.exp.sampling.n_f,
          n_u=problem.exp.data.n_u, criterion="STEP_TOL vs plain step", rows=rows,
-         tiles=list(k_fused.launch_config(problem.spec.layers)), bitwise_repeatable=True,
+         plan=dataclasses.asdict(out["plan"]), bitwise_repeatable=True,
          launches=k_fused.LAUNCHES - before)
     out["narrow"] = (trainer, state)
 
@@ -1478,6 +1482,33 @@ def step_bound(layers, n_f, n_u):
     ops = taylor2_ops(layers, n_f) * 4 + [(3 * 2.0 * sum(_macs(layers)) * n_u, PEAK_FP32)]
     nbytes = 24 * n_params(layers) + 32 * n_f + 12 * n_u
     return bound(ops, nbytes)
+
+
+def narrow_grad_bound(layers, n_f, n_u, members: int = 1):
+    """K3's narrow grad kernel: at the collocation points the Taylor-2
+    forward, dW and gH of the four streams; at the data points the value
+    stream's (all the data term needs); the params, the points, z and dual
+    read once and the gradient and loss written once, a member each."""
+    ops = taylor2_ops(layers, n_f) * 3 + [(3 * 2.0 * sum(_macs(layers)) * n_u, PEAK_FP32)]
+    nbytes = members * (8 * n_params(layers) + 16 * n_f + 4) + 12 * n_u
+    return bound([(f * members, r) for f, r in ops], nbytes)
+
+
+def narrow_tail_bound(layers, n_f, members: int = 1):
+    """K3's narrow tail kernel: the Taylor-2 forward at the new points; the
+    new params and the dual read, the points, z, dual and the misfit written."""
+    ops = taylor2_ops(layers, n_f)
+    nbytes = members * (4 * n_params(layers) + 20 * n_f + 4)
+    return bound([(f * members, r) for f, r in ops], nbytes)
+
+
+def narrow_bound_fields(members: int) -> dict:
+    """The narrow grad and tail kernels' bounds in microseconds, with what
+    bounds each, at abgrall_admm's 8x20, N_f 1,000 and N_u 100."""
+    grad = narrow_grad_bound(NARROW, 1_000, 100, members)
+    tail = narrow_tail_bound(NARROW, 1_000, members)
+    return {"grad_bound_us": 1e3 * grad[0], "grad_bound_by": grad[1],
+            "tail_bound_us": 1e3 * tail[0], "tail_bound_by": tail[1]}
 
 
 def policies() -> dict:
@@ -3010,7 +3041,7 @@ def phase_path_times(card: str, train: dict) -> dict:
 
 
 # -- 30-32: ensembles (slice 4a, K8) -------------------------------------------
-K8_MEMBERS = (1, 3, 8)  # phase 30's member counts
+K8_MEMBERS = (1, 3, 8, 32)  # phase 30's member counts
 K8_EPOCHS = 5  # chained epochs of phase 30
 K8_TIMES = (1, 8, 32)  # phase 32's member counts
 K8_MAIN = 8  # the member count of the kernels line's K8 entry
@@ -3057,7 +3088,7 @@ def stacked_bufs(stacked, n_params: int) -> dict:
 
 
 def phase_k8(card: str) -> dict:
-    """30: K8 against solo K3 at abgrall_admm's 8x20 for E = 1, 3 and 8 with
+    """30: K8 against solo K3 at abgrall_admm's 8x20 for E = 1, 3, 8 and 32 with
     distinct rhos and seeds: every output of every member equal to a solo K3
     call bit for bit over K8_EPOCHS chained epochs; the first epoch of each
     member within STEP_TOL of the plain step at its rho (hold_narrow_step)."""
@@ -3292,6 +3323,16 @@ K9_MEMBERS = (1, 3, 8, 32)  # K8
 K9_K8_EPOCHS = 7
 K9_TURNS = 10  # alternating turns a side of the graphed and the per-epoch chunk
 K9_CHUNK = 1_000
+# the narrow K3's kernels in a graphed epoch (device microseconds) under the
+# design of 64-point tiles (18 grad blocks, 16 tail blocks at N_f 1,000) that
+# the 8-point tiles replaced: scripts/profile_train_step.py --graph on an
+# NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's
+K9_PRIOR_US = {
+    "8x20": {"grad_kernel": 87.3, "tail_kernel": 27.7, "adam_kernel": 4.5,
+             "finalize_kernel": 1.9, "epoch_device": 121.4},
+    "k8_e8": {"grad_kernel": 129.4, "epoch_device": 164.5},
+    "k8_e32": {"grad_kernel": 309.6, "epoch_device": 386.7},
+}
 
 
 def chunk_tensors(state, metrics) -> dict:
@@ -3381,6 +3422,28 @@ def phase_k9(card: str) -> dict:
     return {"max_abs_err": max(errs)}
 
 
+def k3_kernel_us(fn, epochs: int) -> dict:
+    """Device microseconds an epoch of each K3 kernel (its name in namespace
+    k3) in one call of ``fn``, a chunk of ``epochs`` epochs, by
+    torch.profiler; "epoch_device" their sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        if us > 0 and "k3::" in evt.key:
+            name = evt.key.split("k3::")[1].split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + us / epochs
+    check(bool(out), "the profiler saw no K3 kernel on the device")
+    out["epoch_device"] = sum(out.values())
+    return out
+
+
 def phase_k9_times(card: str) -> dict:
     """times: 1,000-epoch chunks graphed (K9) against the per-epoch loop in
     K9_TURNS alternating turns a side (host clock, each chunk ending in a
@@ -3388,7 +3451,9 @@ def phase_k9_times(card: str) -> dict:
     (abgrall_l1), member-epochs a second for K8 at E 8 and 32; the one-off
     capture time (warm-up epoch and both graphs), the replays and replayed
     epochs of the graphed turns; each beside the chunk's bound (the epoch's
-    bound times 1,000)."""
+    bound times 1,000). At 8x20 and for K8, one more graphed chunk under
+    torch.profiler gives each narrow kernel's device time an epoch, beside
+    its bound and the 64-point design's (K9_PRIOR_US)."""
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
     from pinns_tpu_torch.parallel import ensemble as ens
@@ -3434,6 +3499,11 @@ def phase_k9_times(card: str) -> dict:
               f"{name}: {counts['fused_chunk_epochs']} replayed epochs")
         ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
         rate = {k: n * K9_CHUNK / (v / 1e3) for k, v in ms.items()}
+        kernels = {}
+        if name in K9_PRIOR_US:
+            us = k3_kernel_us(graphed, K9_CHUNK)
+            kernels = {"kernel_us": us, "prior_64_point_design_us": K9_PRIOR_US[name],
+                       **narrow_bound_fields(n), "kernel_clock": "torch.profiler (device)"}
         emit(card, phase="times", what="k9_chunk", cell=name, members=n, epochs=K9_CHUNK,
              turns=K9_TURNS, clock="host", graphed_ms=ms["graphed"],
              per_epoch_ms=ms["per_epoch"], graphed_per_s=rate["graphed"],
@@ -3441,8 +3511,9 @@ def phase_k9_times(card: str) -> dict:
              speedup=ms["per_epoch"] / ms["graphed"], graphed_s=times["graphed"],
              per_epoch_s=times["per_epoch"], capture_s=runner.capture_seconds[0],
              replays=counts["fused_chunk_replays"], replayed_epochs=counts["fused_chunk_epochs"],
-             bound_ms=b[0], bound_by=b[1])
-        out[name] = (ms["graphed"], ms["per_epoch"], b, runner.capture_seconds[0])
+             bound_ms=b[0], bound_by=b[1], **kernels)
+        out[name] = (ms["graphed"], ms["per_epoch"], b, runner.capture_seconds[0],
+                     kernels.get("kernel_us"))
     return out
 
 
@@ -4207,6 +4278,17 @@ def main() -> int:
         "ms": epoch_ms["8x20"][0],
         "plain_ms": epoch_ms["8x20"][1],
         **bound_fields(step_bound(NARROW, 1_000, 100)),
+        # the narrow design's grad and tail kernels, redesigned from 64-point
+        # tiles (18 grad blocks) to 8-point grad and 7-point tail tiles that
+        # fill the card: their device time in a graphed 8x20 epoch (phase
+        # 36's times)
+        "narrow_design": {
+            "grad_tile": step["plan"].tile, "tail_tile": step["plan"].tail_tile,
+            "grad_blocks": step["plan"].blocks, "tail_blocks": step["plan"].tail_blocks,
+            "grad_kernel_us": t12["8x20"][4]["grad_kernel"],
+            "tail_kernel_us": t12["8x20"][4]["tail_kernel"],
+            **narrow_bound_fields(1),
+        },
         # the wide design at abgrall_l1's net; its launches: phase 9b
         "wide_8x200": {
             "launches": train_wide["launches"],

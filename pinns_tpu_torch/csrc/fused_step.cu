@@ -39,29 +39,49 @@
 // from K2's and K5's.
 //
 // Narrow (every width <= 32: abgrall_admm's 8x20 and the other 8x20 nets),
-// four launches:
-//   1 grad_kernel    one block per tile of points (colloc tiles, then data
-//                    tiles). Forward through the hidden layers, keeping the
-//                    pre-activation streams P (4 per unit) of every layer in
-//                    a global scratch (L2-resident: 2.9 MB at 8x20), then the
-//                    backward layer by layer in shared memory. Each block
-//                    writes its partial gradient and its partial loss sum.
-//   2 adam_kernel    one thread per parameter: sums the partials over blocks
-//                    in block order, then Adam. Block 0 writes the loss
-//                    metrics.
-//   3 tail_kernel    one block per tile of the new batch: Philox-4x32-10
-//                    draws the points (or takes given ones), the Taylor-2
-//                    forward with the NEW params gives f, then z/dual and a
-//                    partial sum of |f - z|.
-//   4 finalize_kernel  admm_misfit = mean |f - z| from the tail partials.
-// What bounds it on the H100 at 8x20 and N_f = 1000: latency: 16 blocks, each
-// a chain of ~26 barrier-separated layer phases, plus four launches and the
-// host's work between epochs.
+// four launches, their blocks tiles of at most 8 points, so that a solo
+// epoch spreads over the card's 132 SMs:
+//   1 grad_kernel    one block per 8-point tile (collocation tiles, then
+//                    data tiles; fewer points only where a block's shared
+//                    memory would not hold the net: 18 or more layers of
+//                    width 32): 138 blocks of 256 threads at N_f 1,000 and
+//                    N_u 100. The params, and every layer's input streams H_l
+//                    and pre-activation streams P_l, stay in the block's
+//                    shared memory (65 KB at 8x20): nothing of the pass goes
+//                    to device memory but the block's partial gradient and
+//                    loss sum. A layer is one barrier-separated phase; every
+//                    chain is short: a forward or gH item (two units of a
+//                    point) one fmaf chain over the fan-in (fan-out) a
+//                    stream and unit, a dW item (a 2 x 2 block of entries)
+//                    four chains an entry over the tile's points, db one
+//                    (18 phases at 8x20: 8 forward layers, the head and
+//                    seeds, 9 backward layers).
+//   2 adam_kernel    a block per 32 parameters, a warp per group of tile
+//                    rows: the partials summed over the tiles in double
+//                    (collocation and data tiles apart; each group in row
+//                    order, the 8 groups joined in order), then Adam, a
+//                    thread a parameter. Thread 0 writes the loss metrics.
+//   3 tail_kernel    one block per 7-point tile of the new batch (143 at N_f
+//                    1,000), a thread two units of a point (128 threads):
+//                    Philox-4x32-10 draws the points (or takes given ones),
+//                    the grad kernel's forward with the NEW params gives f,
+//                    then z/dual and the tile's sum of |f - z|.
+//   4 finalize_kernel  admm_misfit = mean |f - z| from the tiles' sums, a
+//                    warp a member (double, a fixed shuffle tree).
+// Each point's forward arithmetic (k ascending, fmaf from zero, the bias
+// after, the tanh rule) and its gH are those of the 64-point tiles this
+// design replaced, so at lr 0 the drawn points, z and dual of an epoch equal
+// that design's bit for bit; the sums over points (dW, db, the loss, the
+// misfit) run in the order above. What bounds it on the H100 at 8x20 and
+// N_f = 1000: latency, not the operations (about 70 MFLOP in the grad
+// kernel and 23 in the tail, 1.0 and 0.3 us at the fp32 peak): a block is a
+// chain of layer phases, each a fan-in-long chain of dependent shared-memory
+// loads and FMAs (PERF.md §5 and §6 have the device times).
 //
 // K8, the member-batched narrow design (replaces the vmapped step of
 // pinns_tpu/parallel/ensemble.py:66-116, jax.vmap(step) over an ensemble's
 // members): the same four launches with the member m as blockIdx.y (the
-// finalize launch: one block, a thread a member). Member
+// finalize launch: one block, a warp a member). Member
 // m's buffers (params, Adam moments, batch, z/dual, their outputs, its
 // metrics row and its scratch) lie at m times their per-member size
 // (member_step); its Philox seed, ADMM rho and prox threshold come from
@@ -70,8 +90,7 @@
 // each member's blocks do exactly the solo call's arithmetic in its order:
 // member m of an E-member call equals a solo call of member m bit for bit (a
 // solo call is member 0 of a call without a member table). At abgrall_admm's
-// 8x20 a solo epoch fills 18 of the card's 396 grad-block slots (3 blocks of
-// ~65 KB an SM); E members fill 18 E of them in one launch.
+// 8x20 a solo epoch runs 138 grad blocks, E members 138 E in one launch.
 //
 // Wide (any wider net: abgrall_l1/l2/visc's 8x200). The whole epoch, layer by
 // layer, as dense products over all its points on the engine of
@@ -133,9 +152,11 @@
 namespace {
 namespace k3 {
 
-constexpr int kR = 4;             // points per thread item (one float4 per stream)
-constexpr int kThreads = 256;     // block size of the grad and tail kernels
+constexpr int kThreads = 256;     // block size of the narrow grad and tail kernels
+constexpr int kAdamCols = 32, kAdamGroups = 8;  // the narrow Adam kernel's block
+constexpr int kTailThreads = 128;  // least block size of the narrow tail kernel
 constexpr int kNarrowWidth = 32;  // ops/kernels/fused_step.py::NARROW_WIDTH
+constexpr size_t kSmemLimit = 232448;  // a block's shared memory on sm_90 (227 KB)
 // the wide design's point tile (ops/kernels/fused_step.py::EW_TILE): each
 // segment of the stacked batch is padded to whole tiles; the elementwise
 // passes run one thread a (point, unit) in blocks of kPts points x 32 units,
@@ -171,7 +192,6 @@ struct Step {
   float* metrics;           // 7 floats in trainer.METRIC_KEYS order
   float* grad_out;          // (n_params) reduced gradient, or null
   float* partials;          // narrow scratch [n_grad_blocks][n_params + 1]
-  float* pstore;            // narrow scratch [n_grad_blocks][n_layers-1][4][max_width][tile]
   float* tail_partials;     // narrow scratch [n_tail_blocks]
   const Member* members;    // narrow: one entry a member, or null (a solo call: the scalars)
   int* cursor;              // K9: the epoch's row of sched, metrics and new_colloc, or null
@@ -185,18 +205,6 @@ struct Step {
 };
 
 // -- the narrow design --------------------------------------------------------
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, const float (&v)[kR]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ float get(const float4& v, int r) {
-  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
-}
 
 // Philox-4x32-10 (Salmon et al., SC'11); data/sampling.py::philox4x32_10
 // computes the same words.
@@ -214,116 +222,154 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-// Input streams of point slot p: normalized (x, t) and the constant tangents
-// (2/(ub0-lb0), 0), (0, 2/(ub1-lb1)); the second-derivative stream is zero.
-__device__ __forceinline__ void input_streams(float* buf, int plane, int ts, int p,
-                                              float xv, float tv, const Step& st) {
-  const float rx = st.ub0 - st.lb0, rt = st.ub1 - st.lb1;
-  buf[0 * plane + 0 * ts + p] = 2.0f * (xv - st.lb0) / rx - 1.0f;
-  buf[0 * plane + 1 * ts + p] = 2.0f * (tv - st.lb1) / rt - 1.0f;
-  buf[1 * plane + 0 * ts + p] = 2.0f / rx;
-  buf[1 * plane + 1 * ts + p] = 0.0f;
-  buf[2 * plane + 0 * ts + p] = 0.0f;
-  buf[2 * plane + 1 * ts + p] = 2.0f / rt;
-  buf[3 * plane + 0 * ts + p] = 0.0f;
-  buf[3 * plane + 1 * ts + p] = 0.0f;
+// A narrow block's shared memory, in floats, each part on 16 bytes
+// (ops/kernels/fused_step.py::narrow_smem): the params; `planes` planes of
+// max_width x (tile + 1) float4, a layer's four streams (value, d/dx, d/dt,
+// d2/dx2) of unit k at point p in element k (tile + 1) + p; the tile's loss
+// terms. The one float4 of padding a unit puts the eight units that a
+// quarter warp of dW items reads at one point on distinct banks. The grad
+// kernel takes 2 n_layers + 1 planes (H_0 .. H_L-1, P_0 .. P_L-2, two
+// adjoint planes), the tail kernel 2 (its layers' inputs in turn).
+inline size_t narrow_smem(const Net& net, int tile, int planes) {
+  return sizeof(float) * (static_cast<size_t>(net.n_params + 3) / 4 * 4 +
+                          4u * static_cast<size_t>(net.max_width) * (tile + 1) * planes +
+                          static_cast<size_t>(tile + 3) / 4 * 4);
 }
 
-// Taylor-2 forward through the hidden layers of a tile whose input streams
-// are in `in`. Stores each layer's pre-activation streams in `pstore` when it
-// is not null. Returns the buffer that holds the last hidden layer's output.
-__device__ float* hidden_forward(const Net& net, const float* __restrict__ params,
-                                 float* in, float* out, int tile, int ts, int plane,
-                                 float* __restrict__ pstore) {
-  const int groups = tile / kR;
-  for (int l = 0; l < net.n_layers - 1; ++l) {
-    const int din = net.dims[l], dout = net.dims[l + 1];
-    const float* __restrict__ W = params + net.w_off[l];
-    const float* __restrict__ b = params + net.b_off[l];
-    for (int item = threadIdx.x; item < groups * dout; item += blockDim.x) {
-      const int g = item / dout;
-      const int j = item - g * dout;
-      const int pc = g * kR;
-      float a[kR] = {0.f, 0.f, 0.f, 0.f}, ax[kR] = {0.f, 0.f, 0.f, 0.f};
-      float at[kR] = {0.f, 0.f, 0.f, 0.f}, axx[kR] = {0.f, 0.f, 0.f, 0.f};
+// dst[0, n) = src[0, n) by the whole block, kStage loads a thread in flight
+// before their stores.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
+  constexpr int kStage = 24;
+  for (int base = threadIdx.x; base < n; base += kStage * blockDim.x) {
+    float v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = base + u * blockDim.x;
+      v[u] = i < n ? src[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < n) dst[i] = v[u];
+    }
+  }
+}
+
+// A block holds a tile of at most kThreads / max_width points (its forward
+// runs a thread for two units of a point, its backward loops over its items).
+inline bool narrow_tile_ok(const Net& net, int tile) {
+  return tile >= 1 && tile * net.max_width <= kThreads;
+}
+
+// The input streams of point slot p into H_0 (units x, t): normalized (x, t)
+// and the constant tangents (2/(ub0-lb0), 0), (0, 2/(ub1-lb1)); the
+// second-derivative stream is zero.
+__device__ __forceinline__ void input_streams(float4* H, int ts, int p, float xv, float tv,
+                                              const Step& st) {
+  const float rx = st.ub0 - st.lb0, rt = st.ub1 - st.lb1;
+  H[0 * ts + p] = make_float4(2.0f * (xv - st.lb0) / rx - 1.0f, 2.0f / rx, 0.0f, 0.0f);
+  H[1 * ts + p] = make_float4(2.0f * (tv - st.lb1) / rt - 1.0f, 0.0f, 2.0f / rt, 0.0f);
+}
+
+// The tanh Taylor rule at one (unit, point): the output streams (s, s' px,
+// s' pt, s'' px^2 + s' pxx) from the pre-activation streams a.
+__device__ __forceinline__ float4 tanh_rule(float4 a) {
+  const float t = tanhf(a.x);
+  const float d1 = 1.0f - t * t;
+  const float d2 = -2.0f * t * d1;
+  const float hx = d1 * a.y;
+  const float ht = d1 * a.z;
+  const float hxx = d2 * a.y * a.y + d1 * a.w;
+  return make_float4(t, hx, ht, hxx);
+}
+
+// Its adjoint: the adjoints of the pre-activation streams from g, those of
+// the output streams, the pre-activation streams pv and s = tanh(pv.x).
+__device__ __forceinline__ float4 tanh_adjoint(float4 g, float4 pv, float s) {
+  const float gh = g.x, ghx = g.y, ght = g.z, ghxx = g.w;
+  const float pxr = pv.y, ptr = pv.z, pxxr = pv.w;
+  const float d1 = 1.0f - s * s, d2 = -2.0f * s * d1;
+  const float o3 = ghxx * d1;
+  const float o1 = ghx * d1 + 2.0f * ghxx * d2 * pxr;
+  const float o2 = ght * d1;
+  const float o0 = d1 * (gh - 2.0f * s * (ghx * pxr + ght * ptr + ghxx * pxxr) +
+                         (6.0f * s * s - 2.0f) * ghxx * pxr * pxr);
+  return make_float4(o0, o1, o2, o3);
+}
+
+// acc.s = fmaf(h.s, w, acc.s) for each stream s.
+__device__ __forceinline__ void fma4(float4& acc, float4 h, float w) {
+  acc.x = fmaf(h.x, w, acc.x);
+  acc.y = fmaf(h.y, w, acc.y);
+  acc.z = fmaf(h.z, w, acc.z);
+  acc.w = fmaf(h.w, w, acc.w);
+}
+
+// acc.s = fmaf(h.s, g.s, acc.s) for each stream s.
+__device__ __forceinline__ void mac4(float4& acc, float4 h, float4 g) {
+  acc.x = fmaf(h.x, g.x, acc.x);
+  acc.y = fmaf(h.y, g.y, acc.y);
+  acc.z = fmaf(h.z, g.z, acc.z);
+  acc.w = fmaf(h.w, g.w, acc.w);
+}
+
+// Taylor-2 forward of a tile through the hidden layers, from H_0 in the
+// first plane of H, the params in `w` (shared memory). Thread e computes
+// units jj and jj + ceil(dout / 2) (jj = e / T) at point e % T, so that one
+// load of the point's input streams feeds both: each pre-activation stream
+// one fmaf chain over the fan-in, k ascending from zero, the bias added
+// after, then the tanh rule (each point's arithmetic as the 64-point design
+// had it); a layer is one barrier-separated phase. kKeep (the grad kernel):
+// layer l's output H_l+1 goes to plane l + 1 of H and its pre-activations
+// P_l to plane l of P, both kept for the backward; otherwise the layers'
+// inputs take H's first two planes in turn. Returns the last hidden layer's
+// output.
+template <bool kKeep>
+__device__ const float4* tile_forward(const Net& net, const float* w, float4* H, float4* P,
+                                      int T, int plane) {
+  const int ts = T + 1, p = threadIdx.x % T, jj = threadIdx.x / T;
+  for (int l = 0; l + 1 < net.n_layers; ++l) {
+    const int din = net.dims[l], dout = net.dims[l + 1], half = (dout + 1) / 2;
+    const float4* in = H + (kKeep ? l : (l & 1)) * plane;
+    float4* out = H + (kKeep ? l + 1 : ((l + 1) & 1)) * plane;
+    if (jj < half) {
+      const float* W = w + net.w_off[l];
+      const int j0 = jj, j1 = jj + half;
+      const bool two = j1 < dout;
+      const int j1c = two ? j1 : j0;
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
 #pragma unroll 4
       for (int k = 0; k < din; ++k) {
-        const float w = __ldg(W + k * dout + j);
-        const float4 h = ld4(in + 0 * plane + k * ts + pc);
-        const float4 hx = ld4(in + 1 * plane + k * ts + pc);
-        const float4 ht = ld4(in + 2 * plane + k * ts + pc);
-        const float4 hxx = ld4(in + 3 * plane + k * ts + pc);
-        a[0] = fmaf(h.x, w, a[0]);     a[1] = fmaf(h.y, w, a[1]);
-        a[2] = fmaf(h.z, w, a[2]);     a[3] = fmaf(h.w, w, a[3]);
-        ax[0] = fmaf(hx.x, w, ax[0]);  ax[1] = fmaf(hx.y, w, ax[1]);
-        ax[2] = fmaf(hx.z, w, ax[2]);  ax[3] = fmaf(hx.w, w, ax[3]);
-        at[0] = fmaf(ht.x, w, at[0]);  at[1] = fmaf(ht.y, w, at[1]);
-        at[2] = fmaf(ht.z, w, at[2]);  at[3] = fmaf(ht.w, w, at[3]);
-        axx[0] = fmaf(hxx.x, w, axx[0]);  axx[1] = fmaf(hxx.y, w, axx[1]);
-        axx[2] = fmaf(hxx.z, w, axx[2]);  axx[3] = fmaf(hxx.w, w, axx[3]);
+        const float4 h = in[k * ts + p];
+        fma4(a, h, W[k * dout + j0]);
+        fma4(b, h, W[k * dout + j1c]);
       }
-      const float bj = b[j];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) a[r] += bj;
-      if (pstore != nullptr) {
-        float* P = pstore + (static_cast<long long>(l) * 4 * net.max_width + j) * tile + pc;
-        const long long sstride = static_cast<long long>(net.max_width) * tile;
-        st4(P + 0 * sstride, a);
-        st4(P + 1 * sstride, ax);
-        st4(P + 2 * sstride, at);
-        st4(P + 3 * sstride, axx);
+      a.x += w[net.b_off[l] + j0];
+      b.x += w[net.b_off[l] + j1c];
+      if (kKeep) P[l * plane + j0 * ts + p] = a;
+      out[j0 * ts + p] = tanh_rule(a);
+      if (two) {
+        if (kKeep) P[l * plane + j1 * ts + p] = b;
+        out[j1 * ts + p] = tanh_rule(b);
       }
-      float s[kR], sxo[kR], sto[kR], sxxo[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float t = tanhf(a[r]);
-        const float d1 = 1.0f - t * t;
-        const float d2 = -2.0f * t * d1;
-        s[r] = t;
-        sxo[r] = d1 * ax[r];
-        sto[r] = d1 * at[r];
-        sxxo[r] = d2 * ax[r] * ax[r] + d1 * axx[r];
-      }
-      st4(out + 0 * plane + j * ts + pc, s);
-      st4(out + 1 * plane + j * ts + pc, sxo);
-      st4(out + 2 * plane + j * ts + pc, sto);
-      st4(out + 3 * plane + j * ts + pc, sxxo);
     }
     __syncthreads();
-    float* tmp = in;
-    in = out;
-    out = tmp;
   }
-  return in;
+  return H + (kKeep ? net.n_layers - 1 : ((net.n_layers - 1) & 1)) * plane;
 }
 
-// Head (dout == 1) of point group g: (u, u_x, u_t, u_xx) of its 4 points.
-__device__ __forceinline__ void head(const Net& net, const float* __restrict__ params,
-                                     const float* in, int ts, int plane, int pc,
-                                     float (&u)[kR], float (&ux)[kR], float (&ut)[kR],
-                                     float (&uxx)[kR]) {
+// The head (one output) at point p from the last hidden layer's output X:
+// (u, u_x, u_t, u_xx).
+__device__ __forceinline__ float4 tile_head(const Net& net, const float* w, const float4* X,
+                                            int ts, int p) {
   const int l = net.n_layers - 1;
   const int din = net.dims[l];
-  const float* __restrict__ W = params + net.w_off[l];
-  const float b = params[net.b_off[l]];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) u[r] = ux[r] = ut[r] = uxx[r] = 0.0f;
-  for (int k = 0; k < din; ++k) {
-    const float w = __ldg(W + k);
-    const float4 h = ld4(in + 0 * plane + k * ts + pc);
-    const float4 hx = ld4(in + 1 * plane + k * ts + pc);
-    const float4 ht = ld4(in + 2 * plane + k * ts + pc);
-    const float4 hxx = ld4(in + 3 * plane + k * ts + pc);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      u[r] = fmaf(get(h, r), w, u[r]);
-      ux[r] = fmaf(get(hx, r), w, ux[r]);
-      ut[r] = fmaf(get(ht, r), w, ut[r]);
-      uxx[r] = fmaf(get(hxx, r), w, uxx[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kR; ++r) u[r] += b;
+  const float* W = w + net.w_off[l];
+  float4 y = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int k = 0; k < din; ++k) fma4(y, X[k * ts + p], W[k]);
+  y.x += w[net.b_off[l]];
+  return y;
 }
 
 // Deterministic block sum of red[0..n): thread 0 adds in index order.
@@ -376,8 +422,6 @@ __device__ __forceinline__ Step member_step(const Net& net, Step st, int m) {
   st.metrics = member_ptr(st.metrics, m, 7);
   st.grad_out = member_ptr(st.grad_out, m, P);
   st.partials = member_ptr(st.partials, m, nb * (P + 1));
-  st.pstore = member_ptr(st.pstore, m,
-                         nb * (net.n_layers - 1) * 4 * net.max_width * st.tile);
   st.tail_partials = member_ptr(st.tail_partials, m, st.nb_tail);
   if (st.members != nullptr) {
     const Member mb = st.members[m];
@@ -389,217 +433,214 @@ __device__ __forceinline__ Step member_step(const Net& net, Step st, int m) {
   return st;
 }
 
+// One block a tile of st.tile points: the forward keeping every layer's
+// input and pre-activation streams in shared memory, the head and the
+// seeds, then the backward layer by layer. A backward layer is one phase of
+// three kinds of item, gH first (the longest chains), in whole warps: gH =
+// gP W^T through the tanh rule of the layer below, a thread two units of a
+// point, one fmaf chain over the fan-out a stream and unit; dW, a thread a
+// 2 x 2 block of entries, a chain over the tile's points a stream and entry
+// (the four streams joined in a fixed order); db[j], a chain over the
+// points. A thread's two units (entries) share its loads of the point's
+// streams. The block writes its partial gradient and its partial loss sum
+// (row blockIdx.x of the partials).
 __global__ void __launch_bounds__(kThreads)
 grad_kernel(Net net, Step call) {
   const Step st = member_step(net, call, blockIdx.y);
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int T = st.tile, ts = T + 4;
-  const int plane = net.max_width * ts;
-  float* bufA = smem;
-  float* bufB = smem + 4 * plane;
-  float* bufG = smem + 8 * plane;
-  float* red = smem + 12 * plane;  // T floats
+  const int T = st.tile, ts = T + 1, plane = net.max_width * ts, L = net.n_layers;
+  float* w = reinterpret_cast<float*>(smem4);
+  float4* H = smem4 + (net.n_params + 3) / 4;  // H_l, the input streams of layer l
+  float4* P = H + L * plane;                    // P_l, the pre-activation streams of layer l
+  float4* G = P + (L - 1) * plane;              // the adjoints of a layer's P
+  float4* Gn = G + plane;                       // and of the layer's below
+  float* red = reinterpret_cast<float*>(Gn + plane);
   const bool data_blk = blockIdx.x >= static_cast<unsigned>(st.nb_f);
   const int local = data_blk ? blockIdx.x - st.nb_f : blockIdx.x;
   const int n_pts = data_blk ? st.n_u : st.n_f;
   const float* pts = data_blk ? st.x_data : st.colloc;
   const int p0 = local * T;
-  const int L = net.n_layers;
-  float* pstore = st.pstore +
-      static_cast<long long>(blockIdx.x) * (L - 1) * 4 * net.max_width * T;
   float* part = st.partials + static_cast<long long>(blockIdx.x) * (net.n_params + 1);
-  const float* __restrict__ params = st.params;
 
-  for (int p = threadIdx.x; p < T; p += blockDim.x) {
-    float xv = 0.0f, tv = 0.0f;
-    if (p0 + p < n_pts) {
-      xv = pts[2 * (p0 + p)];
-      tv = pts[2 * (p0 + p) + 1];
+  // the point's coordinates and its seeds' inputs (u_data, or z and dual),
+  // loaded beside the params so that their latencies overlap
+  const int i = p0 + threadIdx.x;
+  const bool mine = threadIdx.x < T && i < n_pts;
+  float xv = 0.0f, tv = 0.0f, in_a = 0.0f, in_b = 0.0f;
+  if (mine) {
+    xv = pts[2 * i];
+    tv = pts[2 * i + 1];
+    if (data_blk) {
+      in_a = st.u_data[i];
+    } else if (st.kind == kAdmm) {
+      in_a = st.z[i];
+      in_b = st.dual[i];
     }
-    input_streams(bufA, plane, ts, p, xv, tv, st);
   }
+  stage(w, st.params, net.n_params);
+  if (threadIdx.x < T) input_streams(H, ts, threadIdx.x, xv, tv, st);
   __syncthreads();
-  float* X = hidden_forward(net, params, bufA, bufB, T, ts, plane, pstore);
-  float* Y = X == bufA ? bufB : bufA;
-  float* G = bufG;
+  const float4* X = tile_forward<true>(net, w, H, P, T, plane);
 
-  // Head and seeds: the adjoints of (u, u_x, u_t, u_xx), one row each of G.
-  for (int g = threadIdx.x; g < T / kR; g += blockDim.x) {
-    const int pc = g * kR;
-    float u[kR], ux[kR], ut[kR], uxx[kR];
-    head(net, params, X, ts, plane, pc, u, ux, ut, uxx);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int i = p0 + pc + r;
-      float gu = 0.0f, gux = 0.0f, gut = 0.0f, guxx = 0.0f, val = 0.0f;
-      if (i < n_pts) {
-        if (data_blk) {
-          const float d = u[r] - st.u_data[i];
-          gu = 2.0f * d / static_cast<float>(st.n_u);
-          val = d * d;
-        } else {
-          const float f = ut[r] + st.lam1 * u[r] * ux[r] - st.lam2 * uxx[r];
-          float gf;
-          if (st.kind == kAdmm) {
-            const float dual = st.dual[i];
-            const float q = f - st.z[i] + dual / st.rho;
-            gf = st.rho * q;
-            val = 0.5f * st.rho * q * q;
-            if (st.explicit_inner) {
-              gf += dual;
-              val += dual * f;
-            }
-          } else if (st.kind == kL1Sq) {
-            gf = 2.0f * static_cast<float>((f > 0.0f) - (f < 0.0f)) / static_cast<float>(st.n_f);
-            val = fabsf(f);
-          } else {  // mean_sq, l2_sq_norm
-            gf = 2.0f * f / static_cast<float>(st.n_f);
-            val = f * f;
+  // Head and seeds: the adjoints of (u, u_x, u_t, u_xx), the head's G.
+  if (threadIdx.x < T) {
+    const int p = threadIdx.x;
+    const float4 y = tile_head(net, w, X, ts, p);
+    const float u = y.x, ux = y.y, ut = y.z, uxx = y.w;
+    float gu = 0.0f, gux = 0.0f, gut = 0.0f, guxx = 0.0f, val = 0.0f;
+    if (mine) {
+      if (data_blk) {
+        const float d = u - in_a;
+        gu = 2.0f * d / static_cast<float>(st.n_u);
+        val = d * d;
+      } else {
+        const float f = ut + st.lam1 * u * ux - st.lam2 * uxx;
+        float gf;
+        if (st.kind == kAdmm) {
+          const float dual = in_b;
+          const float q = f - in_a + dual / st.rho;
+          gf = st.rho * q;
+          val = 0.5f * st.rho * q * q;
+          if (st.explicit_inner) {
+            gf += dual;
+            val += dual * f;
           }
-          gu = gf * st.lam1 * ux[r];
-          gux = gf * st.lam1 * u[r];
-          gut = gf;
-          guxx = -st.lam2 * gf;
+        } else if (st.kind == kL1Sq) {
+          gf = 2.0f * static_cast<float>((f > 0.0f) - (f < 0.0f)) / static_cast<float>(st.n_f);
+          val = fabsf(f);
+        } else {  // mean_sq, l2_sq_norm
+          gf = 2.0f * f / static_cast<float>(st.n_f);
+          val = f * f;
         }
+        gu = gf * st.lam1 * ux;
+        gux = gf * st.lam1 * u;
+        gut = gf;
+        guxx = -st.lam2 * gf;
       }
-      G[0 * plane + pc + r] = gu;
-      G[1 * plane + pc + r] = gux;
-      G[2 * plane + pc + r] = gut;
-      G[3 * plane + pc + r] = guxx;
-      red[pc + r] = val;
     }
+    G[p] = make_float4(gu, gux, gut, guxx);
+    red[p] = val;
   }
   __syncthreads();
   if (threadIdx.x == 0) part[net.n_params] = block_sum_ordered(red, T);
 
-  // Backward, head first. X holds the layer's input streams, G the adjoints
-  // of its pre-activation streams; Y receives those of the layer below.
-  const int groups = T / kR;
+  // Backward, head first: H_l holds layer l's input streams, G the adjoints
+  // of its pre-activation streams; Gn receives those of the layer below.
   for (int l = L - 1; l >= 0; --l) {
     const int din = net.dims[l], dout = net.dims[l + 1];
-    if (l < L - 1) {
-      // recompute the input streams of layer l
-      if (l == 0) {
-        for (int p = threadIdx.x; p < T; p += blockDim.x) {
-          float xv = 0.0f, tv = 0.0f;
-          if (p0 + p < n_pts) {
-            xv = pts[2 * (p0 + p)];
-            tv = pts[2 * (p0 + p) + 1];
-          }
-          input_streams(X, plane, ts, p, xv, tv, st);
-        }
-      } else {
-        const float* P = pstore + static_cast<long long>(l - 1) * 4 * net.max_width * T;
-        const long long sstride = static_cast<long long>(net.max_width) * T;
-        for (int e = threadIdx.x; e < din * T; e += blockDim.x) {
-          const int k = e / T, t = e - k * T;
-          const float p = P[k * T + t], px = P[sstride + k * T + t];
-          const float pt = P[2 * sstride + k * T + t], pxx = P[3 * sstride + k * T + t];
-          const float s = tanhf(p), d1 = 1.0f - s * s, d2 = -2.0f * s * d1;
-          X[0 * plane + k * ts + t] = s;
-          X[1 * plane + k * ts + t] = d1 * px;
-          X[2 * plane + k * ts + t] = d1 * pt;
-          X[3 * plane + k * ts + t] = d2 * px * px + d1 * pxx;
-        }
-      }
-      __syncthreads();
-    }
-    const float* __restrict__ W = params + net.w_off[l];
-    const int n_wgrad = din * dout + dout;
-    const int n_items = n_wgrad + (l > 0 ? din * groups : 0);
-    const float* Pb = l > 0 ? pstore + static_cast<long long>(l - 1) * 4 * net.max_width * T
-                            : nullptr;
-    const long long sstride = static_cast<long long>(net.max_width) * T;
-    for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-      if (item < din * dout) {
-        // dW[k][j] = sum_t sum_s X[s][k][t] G[s][j][t]
-        const int k = item / dout, j = item - k * dout;
-        float acc = 0.0f;
-        for (int t = 0; t < T; t += kR) {
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const float4 xv = ld4(X + s * plane + k * ts + t);
-            const float4 gv = ld4(G + s * plane + j * ts + t);
-            acc = fmaf(xv.x, gv.x, acc);
-            acc = fmaf(xv.y, gv.y, acc);
-            acc = fmaf(xv.z, gv.z, acc);
-            acc = fmaf(xv.w, gv.w, acc);
-          }
-        }
-        part[net.w_off[l] + item] = acc;
-      } else if (item < n_wgrad) {
-        // db[j] = sum_t G[0][j][t]
-        const int j = item - din * dout;
-        float acc = 0.0f;
-        for (int t = 0; t < T; ++t) acc += G[j * ts + t];
-        part[net.b_off[l] + j] = acc;
-      } else {
-        // adjoints of layer l's inputs (gH = gP W^T), then through the tanh
-        // of layer l-1 to that layer's pre-activations
-        const int e = item - n_wgrad;
-        const int g = e / din, k = e - g * din;
-        const int pc = g * kR;
-        float gh[kR] = {0.f, 0.f, 0.f, 0.f}, ghx[kR] = {0.f, 0.f, 0.f, 0.f};
-        float ght[kR] = {0.f, 0.f, 0.f, 0.f}, ghxx[kR] = {0.f, 0.f, 0.f, 0.f};
+    const int hk = (din + 1) / 2, hj = (dout + 1) / 2;
+    const float4* Hl = H + l * plane;
+    const float* W = w + net.w_off[l];
+    // gH's items fill whole warps, so that no warp runs two kinds of item
+    const int n_gh = l > 0 ? hk * T : 0, gh_end = (n_gh + 31) / 32 * 32, n_dw = hk * hj;
+    for (int item = threadIdx.x; item < gh_end + n_dw + dout; item += blockDim.x) {
+      if (item < gh_end) {
+        if (item >= n_gh) continue;
+        // the adjoints of layer l's inputs k0 = kk and k1 = kk + hk at point
+        // p (gH = gP W^T, one chain over j a stream), then through the tanh
+        // of layer l-1 (s from H_l, its streams from P_l-1) to that layer's
+        // pre-activations
+        const int kk = item / T, p = item - kk * T;
+        const int k0 = kk, k1 = kk + hk;
+        const bool two = k1 < din;
+        const int k1c = two ? k1 : k0;
+        float4 g0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), g1 = g0;
+#pragma unroll 4
         for (int j = 0; j < dout; ++j) {
-          const float w = __ldg(W + k * dout + j);
-          const float4 g0 = ld4(G + 0 * plane + j * ts + pc);
-          const float4 g1 = ld4(G + 1 * plane + j * ts + pc);
-          const float4 g2 = ld4(G + 2 * plane + j * ts + pc);
-          const float4 g3 = ld4(G + 3 * plane + j * ts + pc);
-#pragma unroll
-          for (int r = 0; r < kR; ++r) {
-            gh[r] = fmaf(get(g0, r), w, gh[r]);
-            ghx[r] = fmaf(get(g1, r), w, ghx[r]);
-            ght[r] = fmaf(get(g2, r), w, ght[r]);
-            ghxx[r] = fmaf(get(g3, r), w, ghxx[r]);
-          }
+          const float4 g = G[j * ts + p];
+          fma4(g0, g, W[k0 * dout + j]);
+          fma4(g1, g, W[k1c * dout + j]);
         }
-        const float4 p = ld4(Pb + k * T + pc);
-        const float4 px = ld4(Pb + sstride + k * T + pc);
-        const float4 pt = ld4(Pb + 2 * sstride + k * T + pc);
-        const float4 pxx = ld4(Pb + 3 * sstride + k * T + pc);
-        float o0[kR], o1[kR], o2[kR], o3[kR];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float pr = get(p, r), pxr = get(px, r), ptr = get(pt, r), pxxr = get(pxx, r);
-          const float s = tanhf(pr), d1 = 1.0f - s * s, d2 = -2.0f * s * d1;
-          o3[r] = ghxx[r] * d1;
-          o1[r] = ghx[r] * d1 + 2.0f * ghxx[r] * d2 * pxr;
-          o2[r] = ght[r] * d1;
-          o0[r] = d1 * (gh[r] - 2.0f * s * (ghx[r] * pxr + ght[r] * ptr + ghxx[r] * pxxr) +
-                        (6.0f * s * s - 2.0f) * ghxx[r] * pxr * pxr);
+        const float4* Pl = P + (l - 1) * plane;
+        Gn[k0 * ts + p] = tanh_adjoint(g0, Pl[k0 * ts + p], Hl[k0 * ts + p].x);
+        if (two) Gn[k1 * ts + p] = tanh_adjoint(g1, Pl[k1 * ts + p], Hl[k1 * ts + p].x);
+      } else if (item < gh_end + n_dw) {
+        // dW[k][j] = sum_p sum_s H_l[k][p].s G[j][p].s for k in (kk, kk + hk)
+        // and j in (jj, jj + hj): a chain over the points a stream and an
+        // entry, the four streams joined in a fixed order
+        const int e = item - gh_end, kk = e / hj, jj = e - kk * hj;
+        const int k1 = kk + hk, j1 = jj + hj;
+        const int k1c = k1 < din ? k1 : kk, j1c = j1 < dout ? j1 : jj;
+        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float4 a00 = zero, a01 = zero, a10 = zero, a11 = zero;
+#pragma unroll 4
+        for (int p = 0; p < T; ++p) {
+          const float4 h0 = Hl[kk * ts + p], h1 = Hl[k1c * ts + p];
+          const float4 q0 = G[jj * ts + p], q1 = G[j1c * ts + p];
+          mac4(a00, h0, q0);
+          mac4(a01, h0, q1);
+          mac4(a10, h1, q0);
+          mac4(a11, h1, q1);
         }
-        st4(Y + 0 * plane + k * ts + pc, o0);
-        st4(Y + 1 * plane + k * ts + pc, o1);
-        st4(Y + 2 * plane + k * ts + pc, o2);
-        st4(Y + 3 * plane + k * ts + pc, o3);
+        float* dW = part + net.w_off[l];
+        dW[kk * dout + jj] = (a00.x + a00.y) + (a00.z + a00.w);
+        if (j1 < dout) dW[kk * dout + j1] = (a01.x + a01.y) + (a01.z + a01.w);
+        if (k1 < din) {
+          dW[k1 * dout + jj] = (a10.x + a10.y) + (a10.z + a10.w);
+          if (j1 < dout) dW[k1 * dout + j1] = (a11.x + a11.y) + (a11.z + a11.w);
+        }
+      } else {
+        // db[j] = sum_p G[j][p].value
+        const int j = item - gh_end - n_dw;
+        float acc = 0.0f;
+        for (int p = 0; p < T; ++p) acc += G[j * ts + p].x;
+        part[net.b_off[l] + j] = acc;
       }
     }
     __syncthreads();
-    float* tmp = G;
-    G = Y;
-    Y = tmp;
+    float4* tmp = G;
+    G = Gn;
+    Gn = tmp;
   }
 }
 
-// One thread per parameter: the gradient summed over blocks in block order,
-// then Adam (optax's scale_by_adam + scale(-lr)), one rounding per operation.
-__global__ void adam_kernel(Net net, Step call) {
+// One block a slice of kAdamCols parameters of a member, a warp a group of
+// the tiles' partial rows (row b in group b mod kAdamGroups): each thread
+// sums, in double and in row order, its column's rows of its group and the
+// loss column's (every block needs S, the collocation tiles' loss sum, to
+// scale an l1_sq_norm gradient), the collocation rows apart from the data
+// rows; the groups' sums are joined in group order. Then a thread a
+// parameter: g = S res + dat (l1_sq_norm) or res + dat, rounded once, and
+// Adam (optax's scale_by_adam + scale(-lr)), one rounding per operation.
+// Thread 0 of block 0 writes the loss metrics.
+__global__ void __launch_bounds__(kAdamCols * kAdamGroups)
+adam_kernel(Net net, Step call) {
   const Step st = member_step(net, at_cursor(call), blockIdx.y);
+  __shared__ double red[4][kAdamGroups][kAdamCols];
+  const int c = threadIdx.x % kAdamCols, grp = threadIdx.x / kAdamCols;
+  const int i = blockIdx.x * kAdamCols + c;
   const int nb = st.nb_f + st.nb_u;
   const long long row = net.n_params + 1;
-  float S = 0.0f, D = 0.0f;
-  for (int b = 0; b < st.nb_f; ++b) S += st.partials[b * row + net.n_params];
-  for (int b = st.nb_f; b < nb; ++b) D += st.partials[b * row + net.n_params];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float* col = st.partials + (i < net.n_params ? i : net.n_params);
+  const float* loss = st.partials + net.n_params;
+  double sum[4] = {0.0, 0.0, 0.0, 0.0};  // res, dat of the column; S, D of the loss
+#pragma unroll 4
+  for (int b = grp; b < st.nb_f; b += kAdamGroups) {
+    sum[0] += col[b * row];
+    sum[2] += loss[b * row];
+  }
+#pragma unroll 2
+  for (int b = st.nb_f + grp; b < nb; b += kAdamGroups) {
+    sum[1] += col[b * row];
+    sum[3] += loss[b * row];
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) red[q][grp][c] = sum[q];
+  __syncthreads();
+  if (grp != 0) return;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    sum[q] = red[q][0][c];
+    for (int g = 1; g < kAdamGroups; ++g) sum[q] += red[q][g][c];
+  }
+  const double res = sum[0], dat = sum[1], S = sum[2], D = sum[3];
   if (i == 0) {
     const float n_f = static_cast<float>(st.n_f);
-    const float data_term = D / static_cast<float>(st.n_u);
-    float res_term = S;  // admm: sum of the per-point penalties
-    if (st.kind == kMeanSq || st.kind == kL2Sq) res_term = S / n_f;
-    if (st.kind == kL1Sq) res_term = S * S / n_f;
+    const float Sf = static_cast<float>(S);
+    const float data_term = static_cast<float>(D) / static_cast<float>(st.n_u);
+    float res_term = Sf;  // admm: sum of the per-point penalties
+    if (st.kind == kMeanSq || st.kind == kL2Sq) res_term = Sf / n_f;
+    if (st.kind == kL1Sq) res_term = Sf * Sf / n_f;
     st.metrics[kMetricData] = data_term;
     st.metrics[kMetricRes] = res_term;
     st.metrics[kMetricLoss] = data_term + res_term;
@@ -608,11 +649,7 @@ __global__ void adam_kernel(Net net, Step call) {
     st.metrics[kMetricLbfgs] = 0.0f;
   }
   if (i >= net.n_params) return;
-  float g_res = 0.0f, g_dat = 0.0f;
-  for (int b = 0; b < st.nb_f; ++b) g_res += st.partials[b * row + i];
-  for (int b = st.nb_f; b < nb; ++b) g_dat += st.partials[b * row + i];
-  const float g = st.kind == kL1Sq ? __fadd_rn(__fmul_rn(S, g_res), g_dat)
-                                   : __fadd_rn(g_res, g_dat);
+  const float g = static_cast<float>(st.kind == kL1Sq ? S * res + dat : res + dat);
   if (st.grad_out != nullptr) st.grad_out[i] = g;
   const float m = __fadd_rn(__fmul_rn(st.one_minus_b1, g), __fmul_rn(st.b1, st.mu[i]));
   const float v = __fadd_rn(__fmul_rn(st.one_minus_b2, __fmul_rn(g, g)),
@@ -625,91 +662,89 @@ __global__ void adam_kernel(Net net, Step call) {
   st.params_out[i] = __fadd_rn(st.params[i], upd);
 }
 
-// The new batch, then (for 'admm') z/dual at it with the new params.
+// One block a tile of st.tail_tile points of the new batch, a thread two
+// units of a point of a layer: the points, then (for 'admm') z/dual at them
+// with the new params, through the grad kernel's forward (nothing kept),
+// and the tile's sum of |f - z|.
 __global__ void __launch_bounds__(kThreads)
 tail_kernel(Net net, Step call) {
   const Step st = member_step(net, at_cursor(call), blockIdx.y);
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int T = st.tail_tile, ts = T + 4;
-  const int plane = net.max_width * ts;
-  float* bufA = smem;
-  float* bufB = smem + 4 * plane;
-  float* red = smem + 8 * plane;
+  const int T = st.tail_tile, ts = T + 1, plane = net.max_width * ts;
+  float* w = reinterpret_cast<float*>(smem4);
+  float4* H = smem4 + (net.n_params + 3) / 4;
+  float* red = reinterpret_cast<float*>(H + 2 * plane);
   const int p0 = blockIdx.x * T;
-  for (int p = threadIdx.x; p < T; p += blockDim.x) {
-    const int i = p0 + p;
+  // the point's dual, loaded now so that its latency overlaps the forward
+  const bool mine = threadIdx.x < T && p0 + static_cast<int>(threadIdx.x) < st.n_f;
+  const float dual = mine && st.kind == kAdmm ? st.dual[p0 + threadIdx.x] : 0.0f;
+  if (threadIdx.x < T) {
+    const int p = threadIdx.x, i = p0 + p;
     float xv = 0.0f, tv = 0.0f;
     if (i < st.n_f) {
       if (st.new_colloc != nullptr) {
         xv = st.new_colloc[2 * i];
         tv = st.new_colloc[2 * i + 1];
       } else {
-        const uint4 w = philox4x32_10(
+        const uint4 r = philox4x32_10(
             make_uint4(static_cast<unsigned>(i), st.epoch_lo, st.epoch_hi, 0u),
             make_uint2(st.seed_lo, st.seed_hi));
-        const float u0 = static_cast<float>(w.x >> 8) * 5.9604644775390625e-08f;
-        const float u1 = static_cast<float>(w.y >> 8) * 5.9604644775390625e-08f;
+        const float u0 = static_cast<float>(r.x >> 8) * 5.9604644775390625e-08f;
+        const float u1 = static_cast<float>(r.y >> 8) * 5.9604644775390625e-08f;
         xv = __fadd_rn(st.lb0, __fmul_rn(__fsub_rn(st.ub0, st.lb0), u0));
         tv = __fadd_rn(st.lb1, __fmul_rn(__fsub_rn(st.ub1, st.lb1), u1));
       }
       st.colloc_out[2 * i] = xv;
       st.colloc_out[2 * i + 1] = tv;
     }
-    input_streams(bufA, plane, ts, p, xv, tv, st);
+    input_streams(H, ts, p, xv, tv, st);
   }
   if (st.kind != kAdmm) return;  // no ADMM state: the tail only draws
+  stage(w, st.params_out, net.n_params);
   __syncthreads();
-  const float* X = hidden_forward(net, st.params_out, bufA, bufB, T, ts, plane, nullptr);
-  for (int g = threadIdx.x; g < T / kR; g += blockDim.x) {
-    const int pc = g * kR;
-    float u[kR], ux[kR], ut[kR], uxx[kR];
-    head(net, st.params_out, X, ts, plane, pc, u, ux, ut, uxx);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int i = p0 + pc + r;
-      float val = 0.0f;
-      if (i < st.n_f) {
-        const float f = ut[r] + st.lam1 * u[r] * ux[r] - st.lam2 * uxx[r];
-        const float dual = st.dual[i];
-        const float v = __fadd_rn(f, __fdiv_rn(dual, st.rho));
-        const float mag = fmaxf(__fsub_rn(fabsf(v), st.threshold), 0.0f);
-        const float z = static_cast<float>((v > 0.0f) - (v < 0.0f)) * mag;
-        st.z_out[i] = z;
-        st.dual_out[i] = __fadd_rn(dual, __fmul_rn(st.rho, __fsub_rn(f, z)));
-        val = fabsf(__fsub_rn(f, z));
-      }
-      red[pc + r] = val;
+  const float4* X = tile_forward<false>(net, w, H, nullptr, T, plane);
+  if (threadIdx.x < T) {
+    const int p = threadIdx.x, i = p0 + p;
+    const float4 y = tile_head(net, w, X, ts, p);
+    const float u = y.x, ux = y.y, ut = y.z, uxx = y.w;
+    float val = 0.0f;
+    if (mine) {
+      const float f = ut + st.lam1 * u * ux - st.lam2 * uxx;
+      const float v = __fadd_rn(f, __fdiv_rn(dual, st.rho));
+      const float mag = fmaxf(__fsub_rn(fabsf(v), st.threshold), 0.0f);
+      const float z = static_cast<float>((v > 0.0f) - (v < 0.0f)) * mag;
+      st.z_out[i] = z;
+      st.dual_out[i] = __fadd_rn(dual, __fmul_rn(st.rho, __fsub_rn(f, z)));
+      val = fabsf(__fsub_rn(f, z));
     }
+    red[p] = val;
   }
   __syncthreads();
   if (threadIdx.x == 0) st.tail_partials[blockIdx.x] = block_sum_ordered(red, T);
 }
 
-// One block, a thread a member: the misfit from the tail's partials, then
-// (K9) the cursor on to the next epoch once every thread has read it.
+// One block, a warp a member (members w, w + warps, ...): the misfit from
+// the tail's per-tile sums, lane l summing tiles l, l + 32, ... in double,
+// the lanes joined by a fixed shuffle tree; then (K9) the cursor on to the
+// next epoch once every warp has read it.
 __global__ void finalize_kernel(Net net, Step call, int n_members) {
   const Step at = at_cursor(call);
-  for (int m = threadIdx.x; m < n_members; m += blockDim.x) {
+  const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  for (int m = threadIdx.x / 32; m < n_members; m += warps) {
     const Step st = member_step(net, at, m);
-    float mis = 0.0f;
-    if (st.kind == kAdmm) {
-      for (int b = 0; b < st.nb_tail; ++b) mis += st.tail_partials[b];
-      mis /= static_cast<float>(st.n_f);
+    if (st.kind != kAdmm) {
+      if (lane == 0) st.metrics[kMetricMisfit] = 0.0f;
+      continue;
     }
-    st.metrics[kMetricMisfit] = mis;
+    double sum = 0.0;
+    for (int b = lane; b < st.nb_tail; b += 32) sum += st.tail_partials[b];
+#pragma unroll
+    for (int off = 16; off >= 1; off /= 2) sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (lane == 0) st.metrics[kMetricMisfit] = static_cast<float>(sum) / static_cast<float>(st.n_f);
   }
   if (call.cursor == nullptr) return;
   __syncthreads();
   if (threadIdx.x == 0) *call.cursor += 1;
-}
-
-size_t grad_smem(int max_width, int tile) {
-  return sizeof(float) * (12u * static_cast<size_t>(max_width) * (tile + 4) + tile);
-}
-
-size_t tail_smem(int max_width, int tile) {
-  return sizeof(float) * (8u * static_cast<size_t>(max_width) * (tile + 4) + tile);
 }
 
 // Raise, never lower, a kernel's dynamic shared memory limit: a captured
@@ -727,16 +762,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // epoch), each launch with the member as blockIdx.y. `launch_only` (K9's
 // capture) leaves out the kernels' set-up, which an earlier call made.
 int narrow_epoch(const Net& net, Step st, int n_members, bool launch_only, cudaStream_t s) {
-  const int tile = st.tile, tail_tile = st.tail_tile;
-  if (tile < kR || tile % kR || tail_tile < kR || tail_tile % kR || n_members < 1 ||
-      n_members > 65535 || (n_members > 1 && st.members == nullptr)) {
+  const size_t gsm = narrow_smem(net, st.tile, 2 * net.n_layers + 1);
+  const size_t tsm = narrow_smem(net, st.tail_tile, 2);
+  if (!narrow_tile_ok(net, st.tile) || !narrow_tile_ok(net, st.tail_tile) ||
+      gsm > kSmemLimit || tsm > kSmemLimit || n_members < 1 || n_members > 65535 ||
+      (n_members > 1 && st.members == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  st.nb_f = (st.n_f + tile - 1) / tile;
-  st.nb_u = (st.n_u + tile - 1) / tile;
-  st.nb_tail = (st.n_f + tail_tile - 1) / tail_tile;
-  const size_t gsm = grad_smem(net.max_width, tile);
-  const size_t tsm = tail_smem(net.max_width, tail_tile);
+  st.nb_f = (st.n_f + st.tile - 1) / st.tile;
+  st.nb_u = (st.n_u + st.tile - 1) / st.tile;
+  st.nb_tail = (st.n_f + st.tail_tile - 1) / st.tail_tile;
   if (!launch_only) {
     PINNS_CHECK(allow_smem(grad_kernel, gsm));
     PINNS_CHECK(allow_smem(tail_kernel, tsm));
@@ -744,11 +779,14 @@ int narrow_epoch(const Net& net, Step st, int n_members, bool launch_only, cudaS
   const unsigned E = static_cast<unsigned>(n_members);
   grad_kernel<<<dim3(st.nb_f + st.nb_u, E), kThreads, gsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  adam_kernel<<<dim3((net.n_params + 255) / 256, E), 256, 0, s>>>(net, st);
+  adam_kernel<<<dim3((net.n_params + kAdamCols - 1) / kAdamCols, E), kAdamCols * kAdamGroups, 0,
+                s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  tail_kernel<<<dim3(st.nb_tail, E), kThreads, tsm, s>>>(net, st);
+  const int tail_need = (st.tail_tile * ((net.max_width + 1) / 2) + 31) / 32 * 32;
+  const int tail_threads = tail_need > kTailThreads ? tail_need : kTailThreads;
+  tail_kernel<<<dim3(st.nb_tail, E), tail_threads, tsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  finalize_kernel<<<1, 32, 0, s>>>(net, st, n_members);
+  finalize_kernel<<<1, 256, 0, s>>>(net, st, n_members);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1280,7 +1318,7 @@ using namespace k3;
 enum PtrArg {
   kParams, kMu, kNu, kXData, kUData, kColloc, kZ, kDual, kNewColloc,
   kParamsOut, kMuOut, kNuOut, kCollocOut, kZOut, kDualOut, kMetrics, kGradOut,
-  kPartials, kPstore, kTailPartials, kScratch, kMembers, kCursor, kSched, kNumPtrs
+  kPartials, kTailPartials, kScratch, kMembers, kCursor, kSched, kNumPtrs
 };
 enum FloatArg {
   kLb0, kLb1, kUb0, kUb1, kLam1, kLam2, kRho, kLr, kOneMinusB1, kB1, kOneMinusB2,
@@ -1303,8 +1341,8 @@ extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
 // arrays follow the enums above. All device buffers are float32, contiguous,
 // on device `ints[kDevice]`; the wrapper validated their shapes. A net whose
 // widths are all at most 32 takes the narrow design (kPlanTile the grad
-// kernel's tile, kTailTile, and the partials, pstore and tail_partials
-// scratch), for kNMembers members (K8: every per-member buffer stacked
+// kernel's tile, kTailTile, and the partials and tail_partials scratch;
+// it refuses a tile whose block does not fit), for kNMembers members (K8: every per-member buffer stacked
 // member after member, kMembers their device table; 1 and a null table: a
 // solo epoch, whose seed, rho and threshold are the scalars); any other the
 // wide design (kPlanTile the products' block tile, the plan's other ints and
@@ -1345,7 +1383,6 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   st.metrics = fp(kMetrics);
   st.grad_out = fp(kGradOut);
   st.partials = fp(kPartials);
-  st.pstore = fp(kPstore);
   st.tail_partials = fp(kTailPartials);
   st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
   st.cursor = reinterpret_cast<int*>(ptrs[kCursor]);

@@ -16,9 +16,10 @@ Two designs, picked by :func:`design` from the widths (the header of
 ``csrc/fused_step.cu`` has both and what bounds them on the H100):
 
 - "narrow", every width at most NARROW_WIDTH (``abgrall_admm``'s 8x20): four
-  launches an epoch, per-tile blocks that walk their points through the
-  layers in shared memory and write per-block partial gradients, reduced in
-  block order (:func:`launch_config`);
+  launches an epoch, blocks of 8-point tiles (138 at N_f 1,000 and N_u 100)
+  that keep their points' streams in shared memory through the forward and
+  the backward and write per-tile partial gradients, reduced in a fixed
+  order (:func:`launch_config`);
 - "wide", any wider net (``abgrall_l1/l2/visc``'s 8x200): the whole epoch as
   layer products on the engine of ``csrc/layer_gemm.cuh`` over one stacked
   batch of the collocation and data points, on a block tile that fills the
@@ -67,10 +68,18 @@ KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
 MAX_WIDTH = 256
 MAX_LAYERS = 32
 NARROW_WIDTH = 32  # a net whose widths are all at most this takes the narrow design
-# the narrow design
-_GRAD_SMEM = 200 * 1024
-_TAIL_SMEM = 112 * 1024
-_MAX_TILE = 64
+# the narrow design: a block of NARROW_THREADS threads holds a tile of at
+# most NARROW_THREADS / NARROW_WIDTH = 8 points (its forward runs a thread
+# for two units of a point, its backward loops over its items). The grad
+# kernel takes the first of NARROW_TILES whose block fits SMEM_LIMIT (8
+# points: 138 blocks at N_f 1,000 and N_u 100; 2 points fit the deepest net
+# of MAX_LAYERS), the tail always TAIL_TILE (143 blocks at N_f 1,000, the
+# largest tile with which the tail too fills the card's 132 SMs; its block
+# fits every narrow net)
+NARROW_THREADS = 256
+NARROW_TILES = (8, 4, 2)
+TAIL_TILE = 7
+SMEM_LIMIT = 232_448  # a block's shared memory on sm_90 (227 KB)
 # the wide design: each segment of the stacked batch (the collocation points,
 # then the data points) padded to whole EW_TILE-point tiles (the point tile of
 # the elementwise passes and of db's and the loss's per-tile sums); the
@@ -89,8 +98,7 @@ MAX_MEMBERS = 65_535  # K8: the member is the launches' grid y index
 # argument slots, in the order of the enums in csrc/fused_step.cu
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
-         "grad_out", "partials", "pstore", "tail_partials", "scratch", "members", "cursor",
-         "sched")
+         "grad_out", "partials", "tail_partials", "scratch", "members", "cursor", "sched")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
 _INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
@@ -131,17 +139,28 @@ def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
     return [why for bad, why in reasons if bad]
 
 
-def _tile(widest: int, n_buffers: int, budget: int) -> int:
-    """Largest multiple of 4 points (at most _MAX_TILE) whose stream buffers
-    (n_buffers x 4 streams x widest rows x (tile + 4) floats) fit the budget."""
-    tile = budget // (4 * n_buffers * 4 * widest) - 4
-    return min(_MAX_TILE, tile - tile % 4)
+def _n_params(layers: Sequence[int]) -> int:
+    return sum(din * dout + dout for din, dout in zip(layers[:-1], layers[1:]))
+
+
+def narrow_smem(layers: Sequence[int], tile: int, planes: int) -> int:
+    """Bytes of a narrow block's shared memory (``narrow_smem`` in the
+    kernel): the params, ``planes`` planes of max(layers) x (tile + 1)
+    float4 (a layer's four streams; the padding keeps dW's reads off shared
+    banks) and the tile's loss terms, each part on 16 bytes. The grad kernel
+    takes 2 n_layers + 1 planes (every layer's input and pre-activation
+    streams, two adjoint planes), the tail kernel 2."""
+    return 4 * (_align4(_n_params(layers)) + 4 * max(layers) * (tile + 1) * planes
+                + _align4(tile))
 
 
 def launch_config(layers: Sequence[int]) -> Tuple[int, int]:
-    """(grad-kernel tile, tail-kernel tile) in points per block: the narrow design."""
-    widest = max(layers)
-    return _tile(widest, 3, _GRAD_SMEM), _tile(widest, 2, _TAIL_SMEM)
+    """(grad-kernel tile, tail-kernel tile) in points per block: the narrow
+    design, the first of NARROW_TILES whose block fits SMEM_LIMIT (0, which
+    the kernel refuses, if none does) and TAIL_TILE."""
+    planes = 2 * (len(layers) - 1) + 1
+    tile = next((t for t in NARROW_TILES if narrow_smem(layers, t, planes) <= SMEM_LIMIT), 0)
+    return tile, TAIL_TILE
 
 
 def design(layers: Sequence[int]) -> str:
@@ -165,8 +184,12 @@ def _align4(floats: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class StepPlan:
     """How an epoch launches. The narrow design: points a grad block
-    (``tile``) and a tail block (``tail_tile``); every other field 0. The
-    wide design: each segment of the stacked batch padded (``nf_pad``
+    (``tile``; ``blocks`` of them, the collocation tiles then the data tiles)
+    and a tail block (``tail_tile``, ``tail_blocks``), each kernel's shared
+    memory in bytes (``smem``, ``tail_smem``: :func:`narrow_smem`), and a
+    member's scratch in floats: the tiles' partial gradients and loss sums
+    (``partials``, blocks x (n_params + 1)) and the tail's sums of |f - z|
+    (``tail_part``, tail_blocks); every other field 0. The wide design: each segment of the stacked batch padded (``nf_pad``
     collocation points, then ``nu_pad`` data points), the products' block
     ``tile``, dW's sum over the 4 (nf_pad + nu_pad) stacked rows cut into
     ``splits`` chunks of ``split_rows`` (the last one shorter; the first
@@ -181,6 +204,10 @@ class StepPlan:
     design: str
     tile: int
     tail_tile: int = 0
+    blocks: int = 0
+    tail_blocks: int = 0
+    smem: int = 0
+    tail_smem: int = 0
     nf_pad: int = 0
     nu_pad: int = 0
     split_rows: int = 0
@@ -222,7 +249,7 @@ def _wide_plan(layers: Sequence[int], n_f: int, n_u: int) -> StepPlan:
     fits = [r for r in SPLIT_ROWS if (4 * nf_pad) % r == 0]
     split_rows = next((r for r in fits if pieces * -(-rows // r) >= SPLIT_BLOCKS), fits[-1])
     splits = -(-rows // split_rows)
-    n_params = sum(din * dout + dout for din, dout in pairs)
+    n_params = _n_params(layers)
     tiles = n_pad // EW_TILE
     return StepPlan(
         design="wide", tile=TILE, nf_pad=nf_pad, nu_pad=nu_pad, split_rows=split_rows,
@@ -243,7 +270,12 @@ def step_plan(layers: Sequence[int], n_f: int, n_u: int) -> StepPlan:
 def _cached_plan(layers: Tuple[int, ...], n_f: int, n_u: int) -> StepPlan:
     if design(layers) == "narrow":
         tile, tail_tile = launch_config(layers)
-        return StepPlan(design="narrow", tile=tile, tail_tile=tail_tile)
+        blocks, tail_blocks = -(-n_f // tile) + -(-n_u // tile), -(-n_f // tail_tile)
+        return StepPlan(design="narrow", tile=tile, tail_tile=tail_tile, blocks=blocks,
+                        tail_blocks=tail_blocks,
+                        smem=narrow_smem(layers, tile, 2 * (len(layers) - 1) + 1),
+                        tail_smem=narrow_smem(layers, tail_tile, 2),
+                        partials=blocks * (_n_params(layers) + 1), tail_part=tail_blocks)
     return _wide_plan(layers, n_f, n_u)
 
 
@@ -291,22 +323,14 @@ def member_table(seeds: Sequence[int], rhos: Sequence[float], n_f: int,
     return torch.from_numpy(tab.view(np.int32)).to(device)
 
 
-def _scratch(plan: StepPlan, spec: MLPSpec, n_members: int, n_f: int, n_u: int,
+def _scratch(plan: StepPlan, spec: MLPSpec, n_members: int,
              device) -> Dict[str, Optional[torch.Tensor]]:
     """The scratch of an epoch of ``n_members`` members under ``plan``."""
-    layers, n_params = spec.layers, spec.n_params
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)  # noqa: E731
     if plan.design == "narrow":
-        tile, tail_tile = plan.tile, plan.tail_tile
-        nb_grad = -(-n_f // tile) + -(-n_u // tile)
-        return {
-            "partials": empty(n_members, nb_grad, n_params + 1),
-            "pstore": empty(n_members, nb_grad * (len(layers) - 2) * 4 * max(layers) * tile),
-            "tail_partials": empty(n_members, -(-n_f // tail_tile)),
-            "scratch": None,
-        }
-    return {"partials": None, "pstore": None, "tail_partials": None,
-            "scratch": empty(plan.scratch_floats)}
+        return {"partials": empty(n_members, plan.blocks, spec.n_params + 1),
+                "tail_partials": empty(n_members, plan.tail_blocks), "scratch": None}
+    return {"partials": None, "tail_partials": None, "scratch": empty(plan.scratch_floats)}
 
 
 def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_data, colloc,
@@ -402,7 +426,7 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
     out = dict(out, metrics=metrics_out if metrics_out is not None else empty(E, 7),
                grad=empty(E, n_params) if want_grad else None)
     if scratch is None:
-        scratch = _scratch(plan, spec, E, n_f, n_u, dev)
+        scratch = _scratch(plan, spec, E, dev)
     tensors = {
         "params": params, "mu": mu, "nu": nu, "x_data": x_data, "u_data": u_data,
         "colloc": colloc, "z": z, "dual": dual, "new_colloc": new_colloc,
@@ -778,7 +802,7 @@ class FusedChunk:
         self.bufs = tuple({"params": zeros(E, P), "mu": zeros(E, P), "nu": zeros(E, P),
                            "colloc": zeros(E, F, 2), "z": zeros(E, F, 1) if admm else None,
                            "dual": zeros(E, F, 1) if admm else None} for _ in range(2))
-        self.scratch = _scratch(step_plan(spec.layers, F, n_u), spec, E, F, n_u, self.device)
+        self.scratch = _scratch(step_plan(spec.layers, F, n_u), spec, E, self.device)
         self.cursor = zeros(1, dtype=torch.int32)
         self.table = zeros(E, 4, dtype=torch.int32) if self.stacked else None
         self.key = None

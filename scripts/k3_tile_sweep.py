@@ -5,23 +5,29 @@ against another's.
 
     python scripts/k3_tile_sweep.py [--nets 8x20,8x200] [--n-f 1000,4000]
         [--n-u 100] [--kinds admm,l1_sq_norm] [--split-blocks 396,800,1600]
-        [--reps 20] [--f64] [--profile] [--tree DIR] [--save FILE]
+        [--narrow-tiles 8,4] [--lr 1e-3] [--reps 20] [--f64] [--profile]
+        [--tree DIR] [--save FILE]
     python scripts/k3_tile_sweep.py --chunk 1000 [--chunk-reps 3] [--nets ...]
         [--reps 20] [--tree DIR]
+    python scripts/k3_tile_sweep.py --compare A.npz B.npz
 
 Prints the card's name and power limit, then one JSON line per (net, N_f,
 kind, split target): the CUDA-event median of ``--reps`` epochs after
 warm-up (one host call each, host work included) and the plan.
 ``--split-blocks`` times the wide design at each of these targets for the
-blocks of dW's split (the narrow design, and ``--tree``, run their own
-plan). ``--f64`` adds each gradient leaf's error against the float64
+blocks of dW's split, ``--narrow-tiles`` the narrow design at each of these
+grad-kernel tiles (``--tree`` runs its own plan). ``--f64`` adds each gradient leaf's error against the float64
 hand-written reverse mode (``loss_and_grad_reference``) over the float32
 one's error, and the worst leaf. ``--profile`` adds an epoch's device time,
 summed over its kernels by torch.profiler, its kernel count and its kernels'
 times. ``--save FILE`` writes every epoch's outputs (params, mu, nu, colloc,
 z, dual, metrics, grad) to an ``.npz``, so that two trees' outputs can be
-compared bit for bit. Random weights and inputs from seeds (abgrall_l1's and
-abgrall_admm's settings: lambda1 1, lambda2 0, rho 10, lr 1e-3).
+compared bit for bit; ``--lr 0`` keeps the params, so that the tail's
+outputs (colloc, z, dual) of two trees compare whatever their gradients.
+``--compare A B`` prints, for every array the two files share, whether they
+are equal bit for bit and their largest difference. Random weights and
+inputs from seeds (abgrall_l1's and abgrall_admm's settings: lambda1 1,
+lambda2 0, rho 10, lr 1e-3).
 
 ``--chunk N`` times the trainer's own step instead, as ``chip_smoke.py``'s
 times phase does: for each net (8x20: ``abgrall_admm`` on its grid; 8x200:
@@ -120,15 +126,17 @@ def sweep(args, k3, card) -> dict:
     from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
 
     lb, ub = (-1.0, 0.0), (1.0, 0.99)
-    split0 = getattr(k3, "SPLIT_BLOCKS", None)
     saved = {}
     for net in args.nets.split(","):
         layers = NETS[net]
         spec = MLPSpec(layers=layers, lb=lb, ub=ub)
         flat = pack_params(init_mlp(spec, torch.Generator().manual_seed(200), "cuda"))
-        own = split0 is None or args.tree or k3.design(layers) == "narrow"
-        targets = [split0] if own or not args.split_blocks else \
-            [int(v) for v in args.split_blocks.split(",")]
+        knob = "NARROW_TILES" if k3.design(layers) == "narrow" else "SPLIT_BLOCKS"
+        values = args.narrow_tiles if knob == "NARROW_TILES" else args.split_blocks
+        own = args.tree or not values or not hasattr(k3, knob)
+        default = getattr(k3, knob, None)
+        targets = [default] if own else [
+            (int(v),) if knob == "NARROW_TILES" else int(v) for v in values.split(",")]
         for n_f in (int(v) for v in args.n_f.split(",")):
             rng = np.random.default_rng(n_f)
             t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
@@ -144,16 +152,17 @@ def sweep(args, k3, card) -> dict:
                 def epoch():
                     return k3.fused_adam_step(
                         spec, flat, mu, nu, 4, x_data, u_data, colloc, zk, dk, kind=kind,
-                        lam1=1.0, lam2=0.0, rho=10.0, lr=1e-3, explicit_inner=False, seed=9,
-                        epoch=5, want_grad=True)
+                        lam1=1.0, lam2=0.0, rho=10.0, lr=args.lr, explicit_inner=False,
+                        seed=9, epoch=5, want_grad=True)
 
                 for target in targets:
                     if not own:
-                        k3.SPLIT_BLOCKS = target
+                        setattr(k3, knob, target)
                         k3._cached_plan.cache_clear()
                     try:
                         row = {"net": net, "n_f": n_f, "n_u": args.n_u, "kind": kind,
-                               "split_blocks": target, "epoch_ms": event_ms(epoch, args.reps)}
+                               knob.lower(): target, "lr": args.lr,
+                               "epoch_ms": event_ms(epoch, args.reps)}
                         if args.profile:
                             row["device_us"], row["kernels"], row["us_by_kernel"] = device_us(epoch)
                         r = epoch()
@@ -164,9 +173,9 @@ def sweep(args, k3, card) -> dict:
                                                   colloc, zk, dk, kind))
                     finally:
                         if not own:
-                            k3.SPLIT_BLOCKS = split0
+                            setattr(k3, knob, default)
                             k3._cached_plan.cache_clear()
-                    if target == split0:
+                    if target == default:
                         for key, v in r.items():
                             if v is not None:
                                 saved[f"{net}_{n_f}_{kind}_{key}"] = v.cpu().numpy()
@@ -203,6 +212,19 @@ def chunks(args, card) -> None:
                           "clock": "cuda_events (epoch), host (chunks)"}), flush=True)
 
 
+def compare(a: str, b: str) -> int:
+    """Every array two ``--save`` files share: equal bit for bit, and the
+    largest difference; 0 when all are equal."""
+    with np.load(a) as za, np.load(b) as zb:
+        keys = sorted(set(za.files) & set(zb.files))
+        rows = {k: (bool(np.array_equal(za[k], zb[k])),
+                    float(np.abs(za[k].astype(np.float64) - zb[k]).max())) for k in keys}
+    for k, (same, diff) in rows.items():
+        print(json.dumps({"key": k, "bit_equal": same, "max_abs_diff": diff}))
+    print(json.dumps({"compared": len(rows), "bit_equal": sum(v[0] for v in rows.values())}))
+    return 0 if all(v[0] for v in rows.values()) else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nets", default="8x20,8x200")
@@ -211,6 +233,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kinds", default="admm,l1_sq_norm")
     ap.add_argument("--split-blocks", default=None,
                     help="comma-separated SPLIT_BLOCKS values to time (wide design)")
+    ap.add_argument("--narrow-tiles", default=None,
+                    help="comma-separated grad-kernel tiles to time (narrow design)")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"), default=None)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--profile", action="store_true")
@@ -219,6 +245,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=None)
     ap.add_argument("--save", default=None)
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare(*args.compare)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
     if not torch.cuda.is_available():

@@ -69,6 +69,7 @@ def test_served_model_on_card(cuda_device, tmp_path):  # noqa: F811
 
 
 WIDE = (2,) + (200,) * 8 + (1,)  # burgers_scale's and abgrall_l1's net
+NARROW = (2,) + (20,) * 8 + (1,)  # abgrall_admm's net
 EULER = (2,) + (200,) * 5 + (3,)  # the Euler slices' trunk
 
 
@@ -84,9 +85,11 @@ def _close_or_f64(got, plain, exact, wide):
     _f64_oracle(got, plain, torch.as_tensor(exact).double().cpu())
 
 
-@pytest.mark.parametrize("layers,n_f", [((2, 16, 16, 16, 1), 77), ((2, 64, 64, 64, 1), 77),
-                                        ((2, 64, 64, 64, 1), 1_000), (WIDE, 77), (WIDE, 1_000)],
-                         ids=["16-77", "64-77", "64-1000", "8x200-77", "8x200-1000"])
+@pytest.mark.parametrize("layers,n_f", [((2, 16, 16, 16, 1), 77), (NARROW, 1_000), (NARROW, 4_000),
+                                        ((2, 64, 64, 64, 1), 77), ((2, 64, 64, 64, 1), 1_000),
+                                        (WIDE, 77), (WIDE, 1_000)],
+                         ids=["16-77", "8x20-1000", "8x20-4000", "64-77", "64-1000", "8x200-77",
+                              "8x200-1000"])
 @pytest.mark.parametrize("kind,explicit_inner", [("admm", False), ("admm", True), ("mean_sq", False),
                                                  ("l2_sq_norm", False), ("l1_sq_norm", False)])
 def test_fused_step_matches_its_reference_on_card(cuda_device, kind, explicit_inner, layers,
@@ -94,9 +97,10 @@ def test_fused_step_matches_its_reference_on_card(cuda_device, kind, explicit_in
     """The CUDA step's loss and gradient against the hand-written reverse mode
     in plain PyTorch on the same card, and its Adam stage and ADMM tail
     against the plain functions fed the kernel's own gradient and params; two
-    calls agree bit for bit. The 16-wide net takes the narrow design, the
-    wider ones the wide design, whose values are held against float64 where
-    they miss the plain version's tolerance."""
+    calls agree bit for bit. The 16-wide net and abgrall_admm's 8x20 (at its
+    N_f 1,000 and at 4,000) take the narrow design, the wider ones the wide
+    design, whose values are held against float64 where they miss the plain
+    version's tolerance."""
     from pinns_tpu_torch.losses.admm import ADMMState, admm_misfit, admm_update
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
     from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
@@ -173,6 +177,50 @@ def test_fused_step_matches_its_reference_on_card(cuda_device, kind, explicit_in
             np.testing.assert_allclose(m[0], float(admm_misfit(f, want)), rtol=1e-4, atol=1e-7)
 
 
+@pytest.mark.parametrize("layers,n_f", [(NARROW, 1_000), ((2, 16, 16, 16, 1), 77)],
+                         ids=["8x20-1000", "16-77"])
+def test_fused_step_tail_at_lr_0_on_card(cuda_device, layers, n_f):  # noqa: F811
+    """At lr 0 the narrow step leaves the params as they are, so its tail
+    runs at the params it was given: the drawn points equal the Philox
+    reference (data.sampling.philox_uniform) bit for bit, and z, dual and
+    the misfit agree with the plain ADMM update at those params and points
+    within the fused-step test's tolerances (z and the misfit rtol 1e-4 /
+    atol 1e-5 max|z|; dual atol 1e-5 of max|dual| + rho max|z|, the scale
+    it is built from)."""
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.losses.admm import ADMMState, admm_misfit, admm_update
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    assert k_fused.design(layers) == "narrow"
+    net = init_mlp(spec, torch.Generator().manual_seed(4), cuda_device)
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    colloc, x_data = t(numpy_points(n_f, seed=6)), t(numpy_points(100, seed=7))
+    u_data = t(rng.standard_normal((100, 1)))
+    z, dual = t(0.1 * rng.standard_normal((n_f, 1))), t(1 + 0.1 * rng.standard_normal((n_f, 1)))
+    flat = pack_params(net)
+    mu, nu = 0.01 * torch.ones_like(flat), 1e-4 * torch.ones_like(flat)
+    seed, epoch, rho = 2**33 + 9, 5, 10.0
+    r = k_fused.fused_adam_step(spec, flat, mu, nu, 4, x_data, u_data, colloc, z, dual,
+                                kind="admm", lam1=0.9, lam2=0.01, rho=rho, lr=0.0,
+                                explicit_inner=False, seed=seed, epoch=epoch)
+    torch.cuda.synchronize()
+    assert torch.equal(r["params"], flat)
+    assert torch.equal(r["colloc"], philox_uniform(seed, epoch, n_f, LB, UB, device=cuda_device))
+    uu, ux, ut, uxx = mlp_taylor_2_reference(spec, net, r["colloc"])
+    f = ut + 0.9 * uu * ux - 0.01 * uxx
+    want = admm_update(f, ADMMState(z, dual), rho, n_f)
+    zmax = float(want.z.abs().max())
+    np.testing.assert_allclose(r["z"].cpu().numpy(), want.z.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5 * zmax)
+    np.testing.assert_allclose(r["dual"].cpu().numpy(), want.dual.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5 * (float(dual.abs().max()) + rho * zmax))
+    np.testing.assert_allclose(float(r["metrics"][0]), float(admm_misfit(f, want)), rtol=1e-4,
+                               atol=1e-7)
+
+
 def test_fused_step_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch):  # noqa: F811
     """The wide K3 lays out its scratch itself: a plan with less scratch than
     that layout needs, a split that straddles the two segments, a tile it
@@ -195,6 +243,32 @@ def test_fused_step_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch): 
                 dataclasses.replace(plan, tile=64),
                 dataclasses.replace(plan, tile=128),
                 dataclasses.replace(plan, nf_pad=plan.nf_pad - 128)):
+        monkeypatch.setattr(k_fused, "step_plan", lambda *args, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            k_fused.fused_adam_step(spec, flat, flat, flat, 1, x_data, u_data, colloc, None, None,
+                                    kind="l1_sq_norm", lam1=1.0, lam2=0.0, rho=10.0, lr=1e-3,
+                                    explicit_inner=False, seed=1, epoch=1)
+    assert k_fused.LAUNCHES == before
+
+
+def test_fused_step_refuses_a_narrow_tile_that_does_not_fit(cuda_device, monkeypatch):  # noqa: F811
+    """The narrow K3 runs a thread a (point, unit) of a layer in blocks of
+    256 threads: a tile of more points than that holds at the net's width,
+    or none, raises and counts no call."""
+    import dataclasses
+
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+
+    spec = MLPSpec(layers=NARROW, lb=LB, ub=UB)
+    flat = pack_params(init_mlp(spec, torch.Generator().manual_seed(3), cuda_device))
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    colloc, x_data, u_data = t(numpy_points(1_000, 6)), t(numpy_points(100, 7)), t(np.ones((100, 1)))
+    plan = k_fused.step_plan(NARROW, 1_000, 100)
+    assert plan.design == "narrow"
+    before = k_fused.LAUNCHES
+    for bad in (dataclasses.replace(plan, tile=16), dataclasses.replace(plan, tail_tile=16),
+                dataclasses.replace(plan, tile=0)):
         monkeypatch.setattr(k_fused, "step_plan", lambda *args, bad=bad: bad)
         with pytest.raises(RuntimeError, match="invalid argument"):
             k_fused.fused_adam_step(spec, flat, flat, flat, 1, x_data, u_data, colloc, None, None,

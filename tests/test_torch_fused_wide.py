@@ -31,6 +31,7 @@ from pinns_tpu.train import trainer as jtrainer
 from pinns_tpu_torch.config import override
 from pinns_tpu_torch.experiments import get_preset
 from pinns_tpu_torch.losses.admm import ADMMState
+from pinns_tpu_torch.models.mlp import MLPSpec
 from pinns_tpu_torch.ops.kernels import fused_step as k_fused
 from pinns_tpu_torch.train import trainer as ttrainer
 from torch_port_util import NARROW, numpy_params, numpy_points
@@ -154,9 +155,65 @@ def test_step_plan_at_the_presets_widths():
     assert 49 * plan.splits >= k_fused.SPLIT_BLOCKS
     assert plan.rows * 204 < 2 ** 31 and plan.splits < 65_536  # the kernel's 32-bit offsets
     narrow = k_fused.step_plan(NARROW, 1_000, 100)
-    assert narrow.design == "narrow" and narrow.scratch_floats == 0
-    assert (narrow.tile, narrow.tail_tile) == k_fused.launch_config(NARROW) == (64, 64)
+    assert narrow.design == "narrow"
+    assert (narrow.tile, narrow.tail_tile) == k_fused.launch_config(NARROW) == (8, 7)
+    # 125 collocation and 13 data tiles, 143 tail tiles: both fill the 132 SMs
+    assert (narrow.blocks, narrow.tail_blocks) == (138, 143)
+    # shared memory a block: the params, 19 (2) planes of 20 x (8 + 1)
+    # (7 + 1) float4, the tile's loss terms
+    assert (narrow.smem, narrow.tail_smem) == (66_848, 17_248)
+    # a member's scratch (PERF.md): 138 rows of 3,021 + 1 floats, 143 floats
+    assert (narrow.partials, narrow.tail_part) == (138 * 3_022, 143)
+    assert narrow.scratch_floats == 417_179
     assert k_fused.step_plan(get_preset("abgrall_admm").model.layers, 1_000, 100).design == "narrow"
+
+
+NARROW_NETS = [NARROW, (2, 16, 16, 16, 1), (2,) + (32,) * 16 + (1,), (2,) + (32,) * 17 + (1,),
+               (2,) + (32,) * 31 + (1,)]
+
+
+@pytest.mark.parametrize("layers", NARROW_NETS,
+                         ids=["8x20", "3x16", "16x32", "17x32", "31x32"])
+def test_narrow_tiles_fit_a_block(layers):
+    """A narrow block runs one thread a (point, unit) of a layer and keeps the
+    params and every layer's streams in shared memory: its tile is the
+    first of 8, 4, 2 points whose block fits 227 KB, the tail's always 7;
+    the 8x20 nets and every net of up to 17 layers of width 32 keep 8 points
+    (18 layers take 4, 32 layers 2), and every narrow net's tail block fits."""
+    tile, tail_tile = k_fused.launch_config(layers)
+    assert tile in k_fused.NARROW_TILES and tail_tile == k_fused.TAIL_TILE == 7
+    for t, planes in ((tile, 2 * (len(layers) - 1) + 1), (tail_tile, 2)):
+        assert t * max(layers) <= k_fused.NARROW_THREADS
+        assert k_fused.narrow_smem(layers, t, planes) <= 227 * 1024
+    if tile < k_fused.NARROW_TILES[0]:
+        assert k_fused.narrow_smem(layers, 2 * tile, 2 * (len(layers) - 1) + 1) > 227 * 1024
+    assert tile == {18: 4, 32: 2}.get(len(layers) - 1, 8)
+
+
+@pytest.mark.parametrize("n_f,n_u", [(1, 1), (77, 13), (1_000, 100), (4_000, 100)])
+def test_narrow_plan_fills_the_card(n_f, n_u):
+    """The narrow plan at abgrall_admm's 8x20: a tile for every 8 points,
+    collocation tiles then data tiles, so that a solo grad launch and its
+    tail launch each run at least 132 blocks from N_f 1,000 on; the plan, and
+    so each member's scratch and arithmetic, does not depend on the member
+    count (K8's member m equals a solo call bit for bit)."""
+    plan = k_fused.step_plan(NARROW, n_f, n_u)
+    assert (plan.tile, plan.tail_tile) == (8, 7)
+    assert plan.blocks == math.ceil(n_f / plan.tile) + math.ceil(n_u / plan.tile)
+    assert plan.tail_blocks == math.ceil(n_f / plan.tail_tile)
+    if n_f >= 1_000:
+        assert plan.blocks >= 132 and plan.tail_blocks >= 132
+    assert plan.smem <= 227 * 1024 and plan.tail_smem <= 227 * 1024
+    spec = MLPSpec(layers=NARROW, lb=(-1.0, 0.0), ub=(1.0, 0.99))
+    one = k_fused._scratch(plan, spec, 1, "cpu")
+    for members in (3, 32):
+        many = k_fused._scratch(plan, spec, members, "cpu")
+        assert one["scratch"] is None and many["scratch"] is None
+        for name in ("partials", "tail_partials"):
+            assert many[name].shape == (members,) + one[name].shape[1:]
+    assert one["partials"].shape == (1, plan.blocks, spec.n_params + 1)
+    assert one["partials"][0].numel() == plan.partials
+    assert one["tail_partials"][0].numel() == plan.tail_part
 
 
 @pytest.mark.parametrize("n_f,n_u", [(1, 1), (77, 13), (1_000, 100), (4_000, 100),
