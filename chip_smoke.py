@@ -14,7 +14,9 @@ the Adam epochs of all members in one call of the member-batched kernel K8),
 and serving them (export --calibrate / --select, predict --bands, eval
 --artifact, HTTP bands over K8s: K1 with a member axis and the member
 reduction), and K9: the fused step's chunks (solo K3 and K8) as captured
-CUDA graphs, replayed from a device-side epoch cursor.
+CUDA graphs, replayed from a device-side epoch cursor, and K10: the L-BFGS
+solve of the hybrid phase on the device (K3's value-and-grad, the control and
+direction kernels, replayed from a captured graph).
 
     python3 chip_smoke.py
 
@@ -74,15 +76,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             8,192 and 65,536); its plan (padding, dW's split, scratch)
   12 cross-check  the generic loss's gradient (K5 + K1/K2 under autograd)
             against K3's grad kernel at the JAX fixture's state
-  13 lbfgs-replay  lbfgs_minimize on the card from that state for 1, 2, 5
-            iterations against JAX's float32 iterates (equal n_iters), a
-            200-iteration solve's final loss within 1% of JAX's; the ms per
-            iteration and per value-and-grad, and host syncs per iteration
+  13 lbfgs-replay  the host loop (opt/lbfgs.py::lbfgs_minimize, K10's plain
+            version) on the card from that state for 1, 2, 5 iterations
+            against JAX's float32 iterates (equal n_iters), a 200-iteration
+            solve's final loss within 1% of JAX's; the ms per iteration and
+            per value-and-grad, and host syncs per iteration
   14 hybrid phase 9's state continued through Trainer.train over the switch:
             10 L-BFGS outer epochs (of at most 300 iterations, the fixture's
-            schedule) on K5/K1/K2, no plain call, K3 never
-            launched again; loss does not rise; u rel-L2 in the band of
-            three JAX seeds at the same schedule
+            schedule), each solve on K10 (K3's value-and-grad, the control
+            and direction kernels; one device read a graph replay), the tail
+            on K1, the data-term metric on K5's forward: no backward of K5 or
+            K2, no plain call, no host loop, K3's epoch never launched again;
+            loss does not rise; u rel-L2 in the band of three JAX seeds at
+            the same schedule
   15 burgers_forward  a reduced schedule (the fixture's: 3,000 cosine Adam
             epochs on the generic step, one L-BFGS outer epoch of at most
             1,000 iterations) for JAX's three band seeds: no plain call, the
@@ -238,6 +244,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             one-off capture time, the replays and replayed epochs; at 8x20
             and for K8 each narrow K3 kernel's device time an epoch
             (torch.profiler) beside its bound and the 64-point design's
+  37 k10    K10 from phase 13's state: K3's value-and-grad mode against the
+            autograd gradient and its plain version (phase 12's criterion,
+            close_grad); the reset, control and direction kernels against
+            their plain versions bit for bit after every launch of a solve
+            stepped one evaluation at a time (the history filled and its head
+            wrapped); the graphed solve against JAX's iterates at 1, 2, 5
+            iterations (equal n_iters, x within ITERATE_STEP_TOL /
+            ITERATE_ULP_TOL), the long solve's f inside LONG_SOLVE_BAND and
+            at or below the 5-iteration f, equal to the stepwise solve and to
+            a second solve bit for bit; times: the long solve on K10 and on
+            the host loop in K10_TURNS alternating turns (ms, device time,
+            launches and host syncs per iteration), each kernel's device time
+            on the heaviest input the solve met beside its plain version and
+            its bound
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -290,7 +310,7 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
 F64_FACTOR = 4.0
 REPS = 20
 KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1", "weakform",
-           "ensemble")
+           "ensemble", "lbfgs")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -954,6 +974,7 @@ class PlainCalls:
         from pinns_tpu_torch.ops import taylor, weakform
         from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
         from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
+        from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
         from pinns_tpu_torch.ops.kernels import weakform as k_weakform
         from pinns_tpu_torch.train import trainer
 
@@ -971,6 +992,12 @@ class PlainCalls:
             ("flux_backward_reference", (k_weakform,)),
             ("taylor2_members_reference", (taylor2,)),
             ("member_stats_reference", (k_ensemble,)),
+            ("value_and_grad_reference", (fused_step,)),
+            ("reset_reference", (k_lbfgs,)),
+            ("control_reference", (k_lbfgs,)),
+            ("direction_reference", (k_lbfgs,)),
+            # the host loop, K10's algorithm as the CPU runs it
+            ("lbfgs_minimize", (trainer,)),
         ) for m in mods]
         self.calls = 0
 
@@ -996,6 +1023,8 @@ def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
     from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
     return {"taylor2": taylor2.LAUNCHES, "taylor2_members": taylor2.MEMBER_LAUNCHES,
             "member_stats": k_ensemble.LAUNCHES, "fused_step": fused_step.LAUNCHES,
@@ -1010,12 +1039,18 @@ def kernel_counts() -> dict:
             "taylor1_narrow": taylor1.NARROW_LAUNCHES,
             "taylor1_narrow_backward": taylor1.NARROW_BACKWARD_LAUNCHES,
             "weakform_edge_points": weakform.EDGE_LAUNCHES, "weakform_flux": weakform.LAUNCHES,
-            "weakform_flux_backward": weakform.BACKWARD_LAUNCHES}
+            "weakform_flux_backward": weakform.BACKWARD_LAUNCHES,
+            "fused_value_and_grad": fused_step.VALUE_AND_GRAD_LAUNCHES,
+            "lbfgs_reset": k_lbfgs.RESET_LAUNCHES, "lbfgs_control": k_lbfgs.CONTROL_LAUNCHES,
+            "lbfgs_direction": k_lbfgs.DIRECTION_LAUNCHES, "lbfgs_replays": k_lbfgs.GRAPH_REPLAYS,
+            "lbfgs_solves": k_lbfgs.SOLVES, "lbfgs_host_syncs": host_lbfgs.HOST_SYNCS}
 
 
 def reset_counts() -> None:
     from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
     taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = taylor2.MEMBER_LAUNCHES = 0
     k_ensemble.LAUNCHES = 0
@@ -1026,6 +1061,9 @@ def reset_counts() -> None:
     taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
     taylor1.NARROW_LAUNCHES = taylor1.NARROW_BACKWARD_LAUNCHES = 0
     weakform.EDGE_LAUNCHES = weakform.LAUNCHES = weakform.BACKWARD_LAUNCHES = 0
+    fused_step.VALUE_AND_GRAD_LAUNCHES = 0
+    k_lbfgs.RESET_LAUNCHES = k_lbfgs.CONTROL_LAUNCHES = k_lbfgs.DIRECTION_LAUNCHES = 0
+    k_lbfgs.GRAPH_REPLAYS = k_lbfgs.SOLVES = host_lbfgs.HOST_SYNCS = 0
 
 
 def net_f64(params):
@@ -1229,7 +1267,11 @@ def phase_lbfgs_replay(card: str) -> dict:
 
 def phase_hybrid(card: str, adam: dict) -> dict:
     """14: phase 9's abgrall_admm state continued through Trainer.train over
-    the switch: HYBRID_OUTER L-BFGS outer epochs."""
+    the switch: HYBRID_OUTER L-BFGS outer epochs, each solve on K10 (K3's
+    value-and-grad, the control and direction kernels, replayed from a
+    captured graph; the device read only for the done flag), the tail on K1
+    and the data-term metric on K5's forward: no backward of K5 or K2, no
+    plain call and no host loop."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.train.trainer import Trainer
@@ -1266,9 +1308,15 @@ def phase_hybrid(card: str, adam: dict) -> dict:
             logs = [json.loads(line) for line in f if "summary" not in line]
     check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
     check(launches["fused_step"] == launches["fused_chunk_epochs"] == 0
-          and adam["launches"] == TRAIN_EPOCHS, "K3 launched outside the Adam phase")
-    check(all(launches[k] > 0 for k in ("mlp_forward", "mlp_backward", "taylor2",
-                                        "taylor2_backward")), f"launches {launches}")
+          and adam["launches"] == TRAIN_EPOCHS, "K3's epoch launched outside the Adam phase")
+    check(all(launches[k] > 0 for k in ("mlp_forward", "taylor2", "fused_value_and_grad",
+                                        "lbfgs_control", "lbfgs_direction")),
+          f"launches {launches}")
+    check(launches["mlp_backward"] == launches["taylor2_backward"] == 0,
+          f"K5's or K2's backward launched in the L-BFGS phase: {launches}")
+    check(launches["lbfgs_solves"] == launches["lbfgs_reset"] == HYBRID_OUTER
+          and launches["lbfgs_host_syncs"] == launches["lbfgs_replays"],
+          f"K10's solves and device reads: {launches}")
     check(len(iters) == HYBRID_OUTER and state.epoch == TRAIN_EPOCHS + HYBRID_OUTER,
           f"{len(iters)} L-BFGS outer epochs")
     check(logs[-1]["phase"] == "lbfgs" and logs[-1]["lbfgs_iters"] == iters[-1], "the log")
@@ -1277,7 +1325,8 @@ def phase_hybrid(card: str, adam: dict) -> dict:
     rel = summary["rel_l2_u"]
     check(band[0] <= rel <= band[1], f"u rel-L2 {rel} outside the JAX band {band}")
     emit(card, phase="hybrid", preset="abgrall_admm", adam_epochs=TRAIN_EPOCHS,
-         lbfgs_outer=len(iters), lbfgs_max_iters=max_iters, lbfgs_iters=iters, wall_s=wall, loss=[adam["loss"], loss],
+         lbfgs_outer=len(iters), lbfgs_max_iters=max_iters, lbfgs_iters=iters, wall_s=wall,
+         ms_per_lbfgs_iter=1e3 * wall / max(1, sum(iters)), loss=[adam["loss"], loss],
          admm_misfit=logs[-1]["admm_misfit"], rel_l2_u=rel, band=list(band),
          jax_seeds=band_rel.tolist(), launches=launches, plain_calls=plain.calls,
          summary=summary)
@@ -3214,8 +3263,9 @@ def phase_ensemble_cli(card: str, keep: str) -> dict:
         check(launches["fused_chunk_epochs"] == c["switch"]
               and launches["fused_step_ensemble"] == launches["fused_step"] == 0,
               f"ensemble launches {launches}")
-        check(launches["mlp_forward"] > 0 and launches["taylor2_backward"] > 0,
-              f"the L-BFGS epochs launched no kernel: {launches}")
+        check(launches["mlp_forward"] > 0 and launches["lbfgs_solves"] > 0
+              and launches["fused_value_and_grad"] > 0 and launches["taylor2_backward"] == 0,
+              f"the L-BFGS epochs ran off K10: {launches}")
         for i in range(n):
             shutil.copy(d(f"ens/{preset}_final_m{i}.ckpt"), keep)
         summaries, pick = lines[:n], lines[n]
@@ -4042,6 +4092,299 @@ def phase_ens_serve_times(card: str, serve: dict) -> dict:
     return out
 
 
+# -- 37: K10, the L-BFGS solve on the device -------------------------------------
+
+K10_TURNS = 5  # alternating long solves a side (K10, the host loop) for the times
+K10_REPS = 20  # launches a kernel's device time is averaged over
+PROFILE_TRIES = 3  # profiler windows tried before a device time is "not measured"
+
+
+def device_profile(fn) -> dict:
+    """torch.profiler over one call of ``fn``: the device microseconds and
+    launches of every kernel by name (copies apart), and their sums. A
+    window that records no device activity (CUPTI has dropped a short
+    window's events on the card) is run again, PROFILE_TRIES times in all;
+    then every field is None: not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels, copies = {}, 0.0
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if us is None else us
+            if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if evt.key.startswith(("Memcpy", "Memset")):
+                copies += us
+            else:
+                kernels[evt.key] = {"us": us, "launches": evt.count}
+        if kernels:
+            return {"device_us": sum(k["us"] for k in kernels.values()) + copies,
+                    "copies_us": copies, "kernels": sum(k["launches"] for k in kernels.values()),
+                    "by_name": kernels}
+    return {"device_us": None, "copies_us": None, "kernels": None, "by_name": {}}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key without its anonymous namespace and its arguments."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def graph_ms(fn) -> float:
+    """Device milliseconds of one ``fn()``: K10_REPS calls captured in one
+    CUDA graph (after one call outside it), its replays timed by CUDA events,
+    the median of 5 replays over K10_REPS. ``fn`` issues launch-only work."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(K10_REPS):
+            fn()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / K10_REPS)
+    return statistics.median(times)
+
+
+def k10_bounds(n: int, count: int, n_f: int, n_u: int) -> dict:
+    """(bound_ms, bound_by) of each K10 kernel at n params and ``count``
+    history pairs: the control kernel at an iteration's end (d, gt, x, g,
+    g_best read, s, y, x, g written; about ten operations an entry), the
+    direction kernel (g, x, the count pairs and their rho read; d, xt and
+    g_best written; 8 count n operations), the reset (x0 read, x, xt and gt
+    written) and K3's value-and-grad (narrow_grad_bound)."""
+    f32 = 4.0
+    return {"lbfgs_control": bound([(10.0 * n, PEAK_FP32)], f32 * 9 * n),
+            "lbfgs_direction": bound([(8.0 * count * n, PEAK_FP32)],
+                                     f32 * ((2 * count + 2) * n + count + 3 * n)),
+            "lbfgs_reset": bound([(0.0, PEAK_FP32)], f32 * 4 * n),
+            "fused_value_and_grad": narrow_grad_bound(NARROW, n_f, n_u)}
+
+
+def phase_k10(card: str) -> dict:
+    """37: K10 from the JAX fixture's state (phase 13's): each kernel against
+    its plain version, the solve against JAX's iterates, and its times
+    beside the host loop's in this process."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.train import trainer as tr
+
+    problem, params, colloc, admm, _, fx = replay_state()
+    exp, spec = problem.exp, problem.spec
+    cfg = exp.optimizer.lbfgs
+    check(not k_lbfgs.lbfgs_device_supported(exp, spec), "abgrall_admm outside K10's scope")
+    x0, unravel = lb_mod.ravel_tree(params)
+    n, off, rho = x0.numel(), k_lbfgs.net_offset(params), exp.loss.rho
+    lcfg = k_fused.loss_config(exp)
+    u_data = problem.targets["u"].contiguous()
+    opts = dict(ftol=cfg.ftol, gtol=cfg.gtol, max_ls=cfg.max_ls)
+
+    # -- K3's value-and-grad mode against autograd's gradient (phase 12's
+    # criterion) and against its plain version, at x0
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    g64, aux64 = plain_gradient(p64, params, colloc, admm, torch.float64)
+    g_auto, aux = plain_gradient(problem, params, colloc, admm)
+    grad, loss = torch.zeros_like(x0), torch.zeros(1, device="cuda")
+    k_fused.fused_value_and_grad(spec, x0[off:], grad[off:], loss, problem.x_data, u_data,
+                                 colloc, admm.z, admm.dual, rho=rho, **lcfg)
+    f_plain, g_plain = k_fused.value_and_grad_reference(spec, x0[off:], problem.x_data, u_data,
+                                                        colloc, admm.z, admm.dual, rho=rho, **lcfg)
+    torch.cuda.synchronize()
+    check(float(grad[:off].abs().max()) == 0.0, "the coefficients' gradient is not 0")
+    vg_rows = {
+        "vs_autograd": close_grad(host(grad[off:]), host(g_auto), spec.layers, host(g64)),
+        "vs_plain": close_grad(host(grad[off:]), host(g_plain), spec.layers, host(g64)),
+        "loss_vs_autograd": close("loss", float(loss), aux["loss"], scale=aux64["loss"]),
+        "loss_vs_plain": close("loss", float(loss), float(f_plain), scale=aux64["loss"])}
+
+    # -- the control and direction kernels against their plain versions, bit
+    # for bit, step by step over the long solve (count up to m, the head
+    # wrapped), K3's value-and-grad the evaluation; snapshots for the times
+    b = k_lbfgs.Buffers.alloc(n, cfg.history, "cuda")
+    twin = b.clone()
+    k_lbfgs.reset(b, x0, max_iters=LONG_SOLVE, **opts)
+    k_lbfgs.reset_reference(twin, x0, LONG_SOLVE, cfg.max_ls,
+                            k_lbfgs.solve_constants(ftol=cfg.ftol, gtol=cfg.gtol))
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip((b.si, b.sf, b.vec), (twin.si, twin.sf, twin.vec))),
+          "the reset kernel differs from its plain version")
+
+    def evaluate():
+        k_fused.fused_value_and_grad(
+            spec, b.vec[k_lbfgs.XT, off:], b.vec[k_lbfgs.GT, off:],
+            b.sf[k_lbfgs.F_PHI_T:k_lbfgs.F_PHI_T + 1], problem.x_data, u_data, colloc, admm.z,
+            admm.dual, rho=rho, skip=b.si[:1], **lcfg)
+
+    steps, snaps = 0, {}
+    while not int(b.si[k_lbfgs.I_DONE]):
+        evaluate()
+        for which, kernel, plain in (("control", k_lbfgs.control, k_lbfgs.control_reference),
+                                     ("direction", k_lbfgs.direction,
+                                      k_lbfgs.direction_reference)):
+            before = b.clone()
+            twin = b.clone()
+            kernel(b)
+            plain(twin)
+            torch.cuda.synchronize()
+            for name, got, want in zip(("si", "sf", "vec", "hist", "rho"), b.tensors(),
+                                       twin.tensors()):
+                check(torch.equal(got, want),
+                      f"K10 {which} kernel differs from its plain version in {name} "
+                      f"at step {steps}")
+            # the heaviest launch of each: the direction at the fullest
+            # history, the control that ends an iteration and stores a pair
+            full = int(before.si[k_lbfgs.I_COUNT])
+            if which == "direction" and int(before.si[k_lbfgs.I_NEED_DIR]) \
+                    and full >= snaps.get("direction_count", -1):
+                snaps["direction"], snaps["direction_count"] = before, full
+            if which == "control" and int(b.si[k_lbfgs.I_K]) > int(before.si[k_lbfgs.I_K]) \
+                    and int(b.si[k_lbfgs.I_COUNT]) >= snaps.get("control_count", -1):
+                snaps["control"], snaps["control_count"] = before, int(b.si[k_lbfgs.I_COUNT])
+        steps += 1
+    stepwise = k_lbfgs.result(b, k_lbfgs.read_head(b))
+    branches = k_lbfgs.branches_taken(b)
+    check("direction" in snaps and "control" in snaps, "the lockstep ended no iteration")
+
+    # -- the graphed solve: JAX's iterates at 1, 2, 5; the long solve's f in
+    # the band and at or below the 5-iteration f; equal to the stepwise solve
+    # and to itself bit for bit
+    solver = k_lbfgs.DeviceLBFGS(problem)
+    solve = lambda k: solver.minimize(x0, off, colloc, admm, rho, max_iters=k,  # noqa: E731
+                                      history=cfg.history, **opts)
+    rows = {}
+    x0_np = fx["x0"].astype(np.float64)
+    for k in (1, 2, 5):
+        res = solve(k)
+        want = fx[f"x_{k}"].astype(np.float64)
+        err = float(np.abs(host(res.x).astype(np.float64) - want).max())
+        step = float(np.abs(want - x0_np).max())
+        bnd = ITERATE_STEP_TOL * step + ITERATE_ULP_TOL * float(np.abs(want).max())
+        check(err <= bnd, f"K10 x after {k} iterations: err {err} > {bnd}")
+        check(res.n_iters == int(fx[f"n_iters_{k}"]),
+              f"K10 n_iters {res.n_iters} != JAX {int(fx[f'n_iters_{k}'])}")
+        rows[f"k{k}"] = {"max_abs_err": err, "bound": bnd, "jax_step": step,
+                         "n_iters": res.n_iters, "n_evals": [res.n_evals, int(fx[f"n_evals_{k}"])],
+                         "f": close("loss", float(res.f), float(fx[f"f_{k}"]))}
+    f5 = float(res.f)
+    long = solve(LONG_SOLVE)
+    again = solve(LONG_SOLVE)
+    check(torch.equal(long.x, again.x) and torch.equal(long.f, again.f)
+          and (long.n_iters, long.n_evals) == (again.n_iters, again.n_evals),
+          "two K10 solves differ")
+    check(torch.equal(long.x, stepwise.x) and long.n_evals == stepwise.n_evals,
+          "the graphed solve differs from the same steps launched one by one")
+    f_jax, f = float(fx[f"f_{LONG_SOLVE}"]), float(long.f)
+    band = (f_jax * (1 - LONG_SOLVE_BAND), f_jax * (1 + LONG_SOLVE_BAND))
+    check(band[0] <= f <= band[1], f"K10 f after the long solve {f} outside {band}")
+    check(f <= f5, f"K10's long solve ended at {f}, above the 5-iteration {f5}")
+
+    # -- times: the long solve on K10 and on the host loop, in turns
+    loss_fn = tr.make_loss_fn(problem)
+    fun = lambda x: loss_fn(unravel(x), colloc, admm)[0]  # noqa: E731
+    host_solve = lambda: lb_mod.lbfgs_minimize(  # noqa: E731
+        fun, x0, max_iters=LONG_SOLVE, history=cfg.history, **opts)
+    ref = host_solve()
+    walls = {"k10": [], "host_loop": []}
+    syncs = {}
+    for _ in range(K10_TURNS):
+        for name, fn in (("k10", lambda: solve(LONG_SOLVE)), ("host_loop", host_solve)):
+            before = lb_mod.HOST_SYNCS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            syncs[name] = lb_mod.HOST_SYNCS - before
+    iters = {"k10": long.n_iters, "host_loop": ref.n_iters}
+    evals = {"k10": long.n_evals, "host_loop": ref.n_evals}
+    profs = {"k10": device_profile(lambda: solve(LONG_SOLVE)),
+             "host_loop": device_profile(host_solve)}
+    per = lambda v, k: None if v is None else v / iters[k]  # noqa: E731
+    times = {name: {
+        "ms_per_iter": 1e3 * statistics.median(walls[name]) / iters[name],
+        "wall_ms": [1e3 * w for w in walls[name]],
+        "device_us_per_iter": per(profs[name]["device_us"], name),
+        "launches_per_iter": per(profs[name]["kernels"], name),
+        "syncs_per_iter": syncs[name] / iters[name], "n_iters": iters[name],
+        "n_evals": evals[name], "evals_per_iter": evals[name] / iters[name],
+        "idle_share": None if profs[name]["device_us"] is None else
+        1.0 - profs[name]["device_us"] / (1e6 * statistics.median(walls[name])),
+    } for name in walls}
+    times["k10"]["by_kernel_us_per_iter"] = {
+        kernel_name(key): v["us"] / iters["k10"] for key, v in profs["k10"]["by_name"].items()}
+    times["k10"]["by_kernel_launches_per_iter"] = {
+        kernel_name(key): v["launches"] / iters["k10"]
+        for key, v in profs["k10"]["by_name"].items()}
+    times["k10"]["capture_s"] = solver.capture_seconds
+
+    # -- each kernel's device time (a graph of K10_REPS launches, each after
+    # the copies that restore its input, less a graph of the copies alone)
+    # beside its plain version's and its bound, on the heaviest input the
+    # lockstep met
+    work = k_lbfgs.Buffers.alloc(n, cfg.history, "cuda")
+
+    def restore(snap):
+        for dst, src in zip(work.tensors(), snap.tensors()):
+            dst.copy_(src)
+
+    kern = {}
+    for which, kernel, plain in (
+            ("lbfgs_control", k_lbfgs._launch_control, k_lbfgs.control_reference),
+            ("lbfgs_direction", lambda w: k_lbfgs._launch_direction(w, launch_only=True),
+             k_lbfgs.direction_reference)):
+        snap = snaps[which.split("_")[1]]
+        ms = graph_ms(lambda: (restore(snap), kernel(work))) - graph_ms(lambda: restore(snap))
+        kern[which] = (ms, event_ms(lambda: (restore(snap), plain(work))))
+    consts = k_lbfgs.solve_constants(ftol=cfg.ftol, gtol=cfg.gtol)
+    kern["lbfgs_reset"] = (
+        graph_ms(lambda: k_lbfgs._launch_reset(work, x0, LONG_SOLVE, cfg.max_ls, consts)),
+        event_ms(lambda: k_lbfgs.reset_reference(work, x0, LONG_SOLVE, cfg.max_ls, consts)))
+    partials = torch.empty((k_fused.step_plan(spec.layers, colloc.shape[0],
+                                              problem.x_data.shape[0]).blocks,
+                            spec.n_params + 1), device="cuda")
+    vg = lambda launch_only=False: k_fused._value_and_grad_call(  # noqa: E731
+        spec, x0[off:], grad[off:], loss, problem.x_data, u_data, colloc, admm.z, admm.dual,
+        rho=rho, partials=partials, launch_only=launch_only, **lcfg)
+    kern["fused_value_and_grad"] = (
+        graph_ms(lambda: vg(launch_only=True)),
+        event_ms(lambda: k_fused.value_and_grad_reference(
+            spec, x0[off:], problem.x_data, u_data, colloc, admm.z, admm.dual, rho=rho,
+            **lcfg)))
+    vg_host_ms = event_ms(vg)
+    bounds = k10_bounds(n, snaps["direction_count"], colloc.shape[0], problem.x_data.shape[0])
+    emit(card, phase="k10", state=f"abgrall_admm_steps.npz step {REPLAY_STEP}",
+         value_and_grad=vg_rows, lockstep={"steps": steps, "bit_equal": True,
+                                           "branches": branches,
+                                           "direction_count": snaps["direction_count"],
+                                           "count_at_end": int(b.si[k_lbfgs.I_COUNT]),
+                                           "head_at_end": int(b.si[k_lbfgs.I_HEAD])},
+         rows=rows, long_solve={"max_iters": LONG_SOLVE, "n_iters": long.n_iters,
+                                "n_evals": long.n_evals, "f": f, "f_jax": f_jax,
+                                "jax_n_iters": int(fx[f"n_iters_{LONG_SOLVE}"]),
+                                "jax_n_evals": int(fx[f"n_evals_{LONG_SOLVE}"]),
+                                "band": list(band), "bitwise_repeatable": True,
+                                "host_loop_f": float(ref.f)},
+         times=times, kernels={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0],
+                                   "bound_by": bounds[k][1]} for k, v in kern.items()},
+         value_and_grad_host_call_ms=vg_host_ms,
+         clock="host for the solves, the profiler for their device time, events over "
+               "captured graphs for the kernels, events for the plain versions")
+    return {"kernels": kern, "bounds": bounds, "times": times,
+            "max_abs_err": vg_rows["vs_plain"]["max_abs_err"]}
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4253,6 +4596,9 @@ def main() -> int:
     k9 = timed(card, "k9", phase_k9, card)
     t12 = timed(card, "times-k9", phase_k9_times, card)
 
+    # -- 37: K10, the L-BFGS solve on the device (phase 14 ran it in training) --
+    k10 = timed(card, "k10", phase_k10, card)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -4323,7 +4669,9 @@ def main() -> int:
         "route": "cuda",
         "source": "pinns_tpu_torch/csrc/mlp_forward.cu",
         "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103",
-        "launches": hybrid["launches"]["mlp_backward"],
+        # since K10 the hybrid's L-BFGS phase runs no backward of K5: its
+        # launches are burgers_forward's generic Adam epochs (phase 15)
+        "launches": bf["launches"]["mlp_backward"],
         "max_abs_err": k5[k5_main][1],
         "ms": t3[("k5",) + k5_main][2],
         "plain_ms": t3[("k5",) + k5_main][3],
@@ -4342,7 +4690,7 @@ def main() -> int:
         "route": "cuda",
         "source": "pinns_tpu_torch/csrc/taylor2_backward.cu",
         "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:391",
-        "launches": hybrid["launches"]["taylor2_backward"],
+        "launches": bf["launches"]["taylor2_backward"],
         "max_abs_err": k2[k2_main],
         "ms": t3[("k2",) + k2_main][0],
         "plain_ms": t3[("k2",) + k2_main][1],
@@ -4486,7 +4834,28 @@ def main() -> int:
     } for what, counter, key, err in (
         ("edge_points", "weakform_edge_points", "edge", None),
         ("flux", "weakform_flux", "forward", 0),
-        ("flux_backward", "weakform_flux_backward", "backward", 1))]}), flush=True)
+        ("flux_backward", "weakform_flux_backward", "backward", 1))] + [{
+        # K10: launches = phase 14's (the hybrid's 10 L-BFGS outer epochs, the
+        # launches inside its graph replays); the control and direction
+        # kernels bit-equal to their plain versions (phase 37); times on the
+        # heaviest input phase 37's solve met, by the profiler
+        "name": name,
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/" + (
+            "fused_step.cu" if name == "fused_value_and_grad" else "lbfgs.cu"),
+        "replaces": replaces,
+        "launches": hybrid["launches"][name],
+        "max_abs_err": k10["max_abs_err"] if name == "fused_value_and_grad" else 0.0,
+        "ms": k10["kernels"][name][0],
+        "plain_ms": k10["kernels"][name][1],
+        **bound_fields(k10["bounds"][name]),
+        **({"solve": {"preset": "abgrall_admm", "max_iters": LONG_SOLVE, **k10["times"]["k10"],
+                      "host_loop": k10["times"]["host_loop"]}} if name == "lbfgs_control" else {}),
+    } for name, replaces in (
+        ("lbfgs_control", "pinns_tpu/opt/lbfgs.py:194"),
+        ("lbfgs_direction", "pinns_tpu/opt/lbfgs.py:167"),
+        ("lbfgs_reset", "pinns_tpu/opt/lbfgs.py:194"),
+        ("fused_value_and_grad", "pinns_tpu/opt/lbfgs.py:206"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

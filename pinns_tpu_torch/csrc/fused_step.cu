@@ -140,6 +140,16 @@
 // does; with one, the same arithmetic, so a replayed chunk equals the
 // per-epoch loop bit for bit.
 //
+// The value-and-grad mode (kValueAndGrad; the narrow design, one member):
+// the loss of the step's configuration and its gradient at the given params
+// and the fixed batch, z, dual and rho, for K10's L-BFGS solve
+// (csrc/lbfgs.cu). It launches the grad kernel and the Adam kernel, which
+// sums the partials as an epoch does and writes the gradient to grad_out and
+// the loss to loss_out, then returns before Adam: no tail, no metrics row.
+// With a non-null `skip` both launches return at once while *skip != 0 (the
+// solve's done flag), so that a captured solve step costs nothing after the
+// end. The epoch path never sets either, so its arithmetic is unchanged.
+//
 // The Adam and tail arithmetic rounds after every operation (no contraction),
 // as the plain PyTorch step does.
 
@@ -191,6 +201,8 @@ struct Step {
   float* dual_out;
   float* metrics;           // 7 floats in trainer.METRIC_KEYS order
   float* grad_out;          // (n_params) reduced gradient, or null
+  float* loss_out;          // value_and_grad: the loss (1 float)
+  const int* skip;          // value_and_grad: launches return while *skip != 0 (or null)
   float* partials;          // narrow scratch [n_grad_blocks][n_params + 1]
   float* tail_partials;     // narrow scratch [n_tail_blocks]
   const Member* members;    // narrow: one entry a member, or null (a solo call: the scalars)
@@ -201,6 +213,7 @@ struct Step {
   float lb0, lb1, ub0, ub1, lam1, lam2, rho, lr;
   float one_minus_b1, b1, one_minus_b2, b2, eps, bc1, bc2, threshold;
   int n_u, n_f, kind, explicit_inner, tile, tail_tile, nb_f, nb_u, nb_tail;
+  int value_and_grad;       // K10: the grad kernel and the partials' sum only
   unsigned seed_lo, seed_hi, epoch_lo, epoch_hi;
 };
 
@@ -446,6 +459,7 @@ __device__ __forceinline__ Step member_step(const Net& net, Step st, int m) {
 // (row blockIdx.x of the partials).
 __global__ void __launch_bounds__(kThreads)
 grad_kernel(Net net, Step call) {
+  if (call.skip != nullptr && *call.skip != 0) return;
   const Step st = member_step(net, call, blockIdx.y);
   extern __shared__ float4 smem4[];
   const int T = st.tile, ts = T + 1, plane = net.max_width * ts, L = net.n_layers;
@@ -605,6 +619,7 @@ grad_kernel(Net net, Step call) {
 // Thread 0 of block 0 writes the loss metrics.
 __global__ void __launch_bounds__(kAdamCols * kAdamGroups)
 adam_kernel(Net net, Step call) {
+  if (call.skip != nullptr && *call.skip != 0) return;
   const Step st = member_step(net, at_cursor(call), blockIdx.y);
   __shared__ double red[4][kAdamGroups][kAdamCols];
   const int c = threadIdx.x % kAdamCols, grp = threadIdx.x / kAdamCols;
@@ -641,16 +656,21 @@ adam_kernel(Net net, Step call) {
     float res_term = Sf;  // admm: sum of the per-point penalties
     if (st.kind == kMeanSq || st.kind == kL2Sq) res_term = Sf / n_f;
     if (st.kind == kL1Sq) res_term = Sf * Sf / n_f;
-    st.metrics[kMetricData] = data_term;
-    st.metrics[kMetricRes] = res_term;
-    st.metrics[kMetricLoss] = data_term + res_term;
-    st.metrics[kMetricLam1] = st.lam1;
-    st.metrics[kMetricLam2] = st.lam2;
-    st.metrics[kMetricLbfgs] = 0.0f;
+    if (st.value_and_grad) {
+      *st.loss_out = data_term + res_term;
+    } else {
+      st.metrics[kMetricData] = data_term;
+      st.metrics[kMetricRes] = res_term;
+      st.metrics[kMetricLoss] = data_term + res_term;
+      st.metrics[kMetricLam1] = st.lam1;
+      st.metrics[kMetricLam2] = st.lam2;
+      st.metrics[kMetricLbfgs] = 0.0f;
+    }
   }
   if (i >= net.n_params) return;
   const float g = static_cast<float>(st.kind == kL1Sq ? S * res + dat : res + dat);
   if (st.grad_out != nullptr) st.grad_out[i] = g;
+  if (st.value_and_grad) return;
   const float m = __fadd_rn(__fmul_rn(st.one_minus_b1, g), __fmul_rn(st.b1, st.mu[i]));
   const float v = __fadd_rn(__fmul_rn(st.one_minus_b2, __fmul_rn(g, g)),
                             __fmul_rn(st.b2, st.nu[i]));
@@ -782,6 +802,7 @@ int narrow_epoch(const Net& net, Step st, int n_members, bool launch_only, cudaS
   adam_kernel<<<dim3((net.n_params + kAdamCols - 1) / kAdamCols, E), kAdamCols * kAdamGroups, 0,
                 s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
+  if (st.value_and_grad) return 0;  // K10: the loss and the gradient, nothing more
   const int tail_need = (st.tail_tile * ((net.max_width + 1) / 2) + 31) / 32 * 32;
   const int tail_threads = tail_need > kTailThreads ? tail_need : kTailThreads;
   tail_kernel<<<dim3(st.nb_tail, E), tail_threads, tsm, s>>>(net, st);
@@ -1318,7 +1339,7 @@ using namespace k3;
 enum PtrArg {
   kParams, kMu, kNu, kXData, kUData, kColloc, kZ, kDual, kNewColloc,
   kParamsOut, kMuOut, kNuOut, kCollocOut, kZOut, kDualOut, kMetrics, kGradOut,
-  kPartials, kTailPartials, kScratch, kMembers, kCursor, kSched, kNumPtrs
+  kPartials, kTailPartials, kScratch, kMembers, kCursor, kSched, kLossOut, kSkip, kNumPtrs
 };
 enum FloatArg {
   kLb0, kLb1, kUb0, kUb1, kLam1, kLam2, kRho, kLr, kOneMinusB1, kB1, kOneMinusB2,
@@ -1327,7 +1348,7 @@ enum FloatArg {
 enum IntArg {
   kNU, kNF, kKind, kExplicit, kPlanTile, kTailTile, kSeed, kEpoch, kDevice, kNfPad, kNuPad,
   kSplitRows, kSplits, kScratchFloats, kNMembers, kMetricsStride, kNewCollocStride,
-  kLaunchOnly, kNumInts
+  kLaunchOnly, kValueAndGrad, kNumInts
 };
 
 extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
@@ -1354,7 +1375,10 @@ extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
 // advancing the cursor; kEpoch and kBc1/kBc2 are then unused. kLaunchOnly
 // issues the launches alone (no cudaSetDevice, no kernel attributes: what a
 // stream capture takes), after an earlier call on this device made the
-// set-up. Returns the CUDA error code of the first launch that failed (0 on
+// set-up. kValueAndGrad (with kLossOut, kGradOut and optionally kSkip) runs
+// the value-and-grad mode; it refuses the wide design, a member table, more
+// than one member and a cursor. Returns the CUDA error code of the first
+// launch that failed (0 on
 // success).
 extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* ptrs,
                                 const float* floats, const long long* ints, void* stream) {
@@ -1382,6 +1406,8 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   st.dual_out = fp(kDualOut);
   st.metrics = fp(kMetrics);
   st.grad_out = fp(kGradOut);
+  st.loss_out = fp(kLossOut);
+  st.skip = reinterpret_cast<const int*>(ptrs[kSkip]);
   st.partials = fp(kPartials);
   st.tail_partials = fp(kTailPartials);
   st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
@@ -1415,6 +1441,12 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   st.tile = static_cast<int>(ints[kPlanTile]);
   st.tail_tile = static_cast<int>(ints[kTailTile]);
   st.nb_f = st.nb_u = st.nb_tail = 0;
+  st.value_and_grad = static_cast<int>(ints[kValueAndGrad]);
+  if (st.value_and_grad &&
+      (net.max_width > kNarrowWidth || ints[kNMembers] != 1 || st.members != nullptr ||
+       st.loss_out == nullptr || st.grad_out == nullptr || st.cursor != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const unsigned long long seed = static_cast<unsigned long long>(ints[kSeed]);
   const unsigned long long epoch = static_cast<unsigned long long>(ints[kEpoch]);
   st.seed_lo = static_cast<unsigned>(seed & 0xFFFFFFFFull);

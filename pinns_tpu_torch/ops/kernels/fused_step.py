@@ -36,8 +36,14 @@ params, Adam moments, batch, ADMM state, Philox seed and rho
 table, so member m of a K8 call equals a solo call of member m bit for bit.
 Its plain version is the per-member loop of the plain step.
 
-The wrapper validates what the kernel assumes and raises otherwise; on a CPU
-tensor it raises too. It never falls back to the plain step.
+K10's value-and-grad (:func:`fused_value_and_grad`): the narrow design's grad
+kernel and the partials' sum alone, the loss and the gradient at given
+params, for the L-BFGS solve on the device (``ops/kernels/lbfgs.py``). Its
+plain version is :func:`value_and_grad_reference`, which it runs on CPU
+tensors.
+
+The epoch wrappers validate what the kernel assumes and raise otherwise; on
+a CPU tensor they raise too. Nothing falls back to the plain step.
 """
 
 from __future__ import annotations
@@ -62,6 +68,9 @@ LAUNCHES = 0  # solo host calls (one per epoch) in this process; chip_smoke.py r
 ENSEMBLE_LAUNCHES = 0  # K8's host calls (one per epoch for all members)
 GRAPH_REPLAYS = 0  # K9: replays of a captured chunk graph (solo K3 or K8)
 GRAPH_EPOCHS = 0  # K9: epochs run inside those replays (an epoch of all members counts one)
+# K10: value-and-grad calls (two launches each): host calls, and those run
+# inside the replays of K10's captured solve steps (ops/kernels/lbfgs.py)
+VALUE_AND_GRAD_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
@@ -98,12 +107,13 @@ MAX_MEMBERS = 65_535  # K8: the member is the launches' grid y index
 # argument slots, in the order of the enums in csrc/fused_step.cu
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
-         "grad_out", "partials", "tail_partials", "scratch", "members", "cursor", "sched")
+         "grad_out", "partials", "tail_partials", "scratch", "members", "cursor", "sched",
+         "loss_out", "skip")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
 _INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
          "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats", "n_members",
-         "metrics_stride", "new_colloc_stride", "launch_only")
+         "metrics_stride", "new_colloc_stride", "launch_only", "value_and_grad")
 
 
 def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
@@ -434,9 +444,9 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         "colloc_out": out["colloc"], "z_out": out["z"], "dual_out": out["dual"],
         "metrics": out["metrics"], "grad_out": out["grad"], "members": members, **scratch,
         "cursor": None if chunk is None else chunk[0], "sched": None if chunk is None else chunk[1],
+        "loss_out": None, "skip": None,
     }
     bc1, bc2 = bias_corrections(count)
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
     floats = {
         "lb0": spec.lb[0], "lb1": spec.lb[1], "ub0": spec.ub[0], "ub1": spec.ub[1],
         "lam1": lam1, "lam2": lam2, "rho": 0.0 if rho is None else rho, "lr": lr,
@@ -450,21 +460,28 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         "nf_pad": plan.nf_pad, "nu_pad": plan.nu_pad, "split_rows": plan.split_rows,
         "splits": plan.splits, "scratch_floats": plan.scratch_floats, "n_members": E,
         "metrics_stride": 7 * E, "new_colloc_stride": 2 * n_f * E,
-        "launch_only": int(launch_only),
+        "launch_only": int(launch_only), "value_and_grad": 0,
     }
+    _call(layers, tensors, floats, ints, dev,
+          f"widths={layers} members={E} plan={dataclasses.asdict(plan)}")
+    return out
+
+
+def _call(layers: Sequence[int], tensors: dict, floats: dict, ints: dict, dev, what: str):
+    """One host call of ``pinns_fused_step`` with the argument slots by name
+    (a missing pointer is null); raises with ``what`` on a failed launch."""
     lib = _lib()
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
     c_dims = (ctypes.c_int * len(layers))(*layers)
     c_ptrs = (ctypes.c_longlong * len(_PTRS))(
-        *(tensors[k].data_ptr() if tensors[k] is not None else 0 for k in _PTRS))
+        *(tensors[k].data_ptr() if tensors.get(k) is not None else 0 for k in _PTRS))
     c_floats = (ctypes.c_float * len(_FLOATS))(*(f32(floats[k]) for k in _FLOATS))
     c_ints = (ctypes.c_longlong * len(_INTS))(*(int(ints[k]) for k in _INTS))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pinns_fused_step(c_dims, len(layers) - 1, c_ptrs, c_floats, c_ints, stream)
     if err != 0:
         msg = lib.pinns_fused_step_error_string(err).decode()
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} ({msg}); "
-                           f"widths={layers} members={E} plan={dataclasses.asdict(plan)}")
-    return out
+        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} ({msg}); {what}")
 
 
 def fused_adam_step(
@@ -589,10 +606,17 @@ def _step_config(problem, learning_rate: float) -> dict:
             f"experiment {exp.name!r} is outside the fused CUDA step's scope ({'; '.join(why)}); "
             "train.trainer.make_step gives it the generic Adam step over the kernel ops"
         )
+    return dict(loss_config(exp), lr=learning_rate)
+
+
+def loss_config(exp) -> dict:
+    """The loss's configuration arguments of the kernel: the residual kind,
+    the effective coefficients (lambda2 through its transform, rounded as the
+    JAX step rounds it) and explicit_inner."""
     lam2_raw = exp.pde.lambda2
     lam2 = float(np.exp(np.float32(lam2_raw))) if exp.pde.lambda2_transform == "exp" else lam2_raw
     return dict(kind=exp.loss.residual_kind, lam1=exp.pde.lambda1, lam2=lam2,
-                lr=learning_rate, explicit_inner=exp.loss.explicit_inner)
+                explicit_inner=exp.loss.explicit_inner)
 
 
 def flat_net(net: Params, n_params: int) -> torch.Tensor:
@@ -904,6 +928,123 @@ class FusedChunk:
             GRAPH_EPOCHS += length
         return hand_back(state, self.bufs[length % 2], self.metrics, length, self.spec.layers,
                          self.stacked)
+
+
+# -- K10's value-and-grad: the narrow grad kernel and the partials' sum ---------
+
+def fused_value_and_grad(
+    spec: MLPSpec,
+    params: torch.Tensor,
+    grad: torch.Tensor,
+    loss: torch.Tensor,
+    x_data: torch.Tensor,
+    u_data: torch.Tensor,
+    colloc: torch.Tensor,
+    z: Optional[torch.Tensor],
+    dual: Optional[torch.Tensor],
+    *,
+    kind: str,
+    lam1: float,
+    lam2: float,
+    rho: float,
+    explicit_inner: bool,
+    partials: Optional[torch.Tensor] = None,
+    skip: Optional[torch.Tensor] = None,
+    launch_only: bool = False,
+) -> None:
+    """K3's value-and-grad mode, K10's evaluation: the loss of the step's
+    configuration at the flat ``params`` (n_params, ``pack_params`` order)
+    and the fixed batch, z, dual and rho, into ``loss`` (1,), and its
+    gradient into ``grad`` (n_params,): the narrow grad kernel and the
+    partials' sum of an Adam epoch, two launches, no Adam, tail or metrics.
+    With ``skip`` (an int32 (1,) tensor, K10's done flag) both launches
+    return at once while it is not 0. ``partials`` is the scratch
+    (blocks, n_params + 1) of :func:`step_plan`, allocated when None.
+    ``launch_only`` issues the launches alone (a stream capture).
+
+    On CPU tensors the plain version, :func:`value_and_grad_reference`; on
+    CUDA tensors the kernel, or it raises (the narrow design only).
+    """
+    global VALUE_AND_GRAD_LAUNCHES
+    _value_and_grad_call(spec, params, grad, loss, x_data, u_data, colloc, z, dual, kind=kind,
+                         lam1=lam1, lam2=lam2, rho=rho, explicit_inner=explicit_inner,
+                         partials=partials, skip=skip, launch_only=launch_only)
+    if params.device.type == "cuda":
+        with _launches_lock:
+            VALUE_AND_GRAD_LAUNCHES += 1
+
+
+def _value_and_grad_call(spec: MLPSpec, params, grad, loss, x_data, u_data, colloc, z, dual, *,
+                         kind: str, lam1: float, lam2: float, rho: float, explicit_inner: bool,
+                         partials=None, skip=None, launch_only: bool = False) -> None:
+    """:func:`fused_value_and_grad` without the count (K10's warm-up and
+    graph capture, whose replays its runner counts)."""
+    dev = params.device
+    layers = spec.layers
+    n_f, n_u, P = colloc.shape[0], x_data.shape[0], spec.n_params
+    if kind not in KINDS:
+        raise ValueError(f"value_and_grad: residual kind {kind!r} not in {sorted(KINDS)}")
+    if (kind == "admm") != (z is not None and dual is not None):
+        raise ValueError("value_and_grad: z/dual are given exactly when kind == 'admm'")
+    if spec.in_dim != 2 or spec.out_dim != 1 or design(layers) != "narrow" \
+            or not 2 <= len(layers) - 1 <= MAX_LAYERS or launch_config(layers)[0] == 0:
+        raise ValueError(f"value_and_grad takes K3's narrow design, got widths {layers}")
+    shapes = {"params": (params, (P,)), "grad": (grad, (P,)), "loss": (loss, (1,)),
+              "x_data": (x_data, (n_u, 2)), "u_data": (u_data, (n_u, 1)),
+              "colloc": (colloc, (n_f, 2))}
+    if z is not None:
+        shapes.update(z=(z, (n_f, 1)), dual=(dual, (n_f, 1)))
+    plan = step_plan(layers, n_f, n_u)
+    if partials is not None:
+        shapes["partials"] = (partials, (plan.blocks, P + 1))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"value_and_grad: {name} must be contiguous float32 {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if skip is not None and (tuple(skip.shape) != (1,) or skip.dtype != torch.int32
+                             or skip.device != dev):
+        raise ValueError(f"value_and_grad: skip must be one int32 on {dev}")
+    if n_f < 1 or n_u < 1:
+        raise ValueError("value_and_grad needs at least one collocation and one data point")
+    if dev.type == "cpu":
+        if skip is not None and int(skip[0]) != 0:
+            return
+        f, g = value_and_grad_reference(spec, params, x_data, u_data, colloc, z, dual,
+                                        kind=kind, lam1=lam1, lam2=lam2, rho=rho,
+                                        explicit_inner=explicit_inner)
+        loss.copy_(f.reshape(1))
+        grad.copy_(g)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"value_and_grad needs CPU or CUDA tensors, got device {dev}")
+    if partials is None:
+        partials = torch.empty((plan.blocks, P + 1), dtype=torch.float32, device=dev)
+    tensors = {"params": params, "x_data": x_data, "u_data": u_data, "colloc": colloc, "z": z,
+               "dual": dual, "grad_out": grad, "loss_out": loss, "partials": partials,
+               "skip": skip}
+    floats = dict.fromkeys(_FLOATS, 0.0)
+    floats.update(lb0=spec.lb[0], lb1=spec.lb[1], ub0=spec.ub[0], ub1=spec.ub[1], lam1=lam1,
+                  lam2=lam2, rho=rho if kind == "admm" else 0.0)
+    ints = dict.fromkeys(_INTS, 0)
+    ints.update(n_u=n_u, n_f=n_f, kind=KINDS[kind], explicit_inner=int(explicit_inner),
+                tile=plan.tile, tail_tile=plan.tail_tile,
+                device=dev.index if dev.index is not None else torch.cuda.current_device(),
+                n_members=1, launch_only=int(launch_only), value_and_grad=1)
+    _call(layers, tensors, floats, ints, dev, f"value_and_grad widths={layers}")
+
+
+def value_and_grad_reference(
+    spec: MLPSpec, params: torch.Tensor, x_data, u_data, colloc, z, dual, *,
+    kind: str, lam1: float, lam2: float, rho: float, explicit_inner: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The value-and-grad mode in plain PyTorch: (loss (0-d), gradient
+    (n_params,) in ``pack_params`` order) at the flat ``params``, by
+    :func:`loss_and_grad_reference`, the kernel's algorithm."""
+    f, _, _, grads = loss_and_grad_reference(
+        spec, unpack_params(params, spec.layers), x_data, u_data, colloc, z, dual, kind=kind,
+        lam1=lam1, lam2=lam2, rho=rho, explicit_inner=explicit_inner)
+    return f, torch.cat([g.reshape(-1) for g in grads])
 
 
 def loss_and_grad_reference(

@@ -1,0 +1,712 @@
+"""K10: the L-BFGS solve on the device (``csrc/lbfgs.cu``), its wrappers, the
+kernels' algorithm in plain PyTorch, and the solver the trainer's L-BFGS
+phase takes on the card.
+
+Replaces the XLA program of ``pinns_tpu/opt/lbfgs.py::lbfgs_minimize``
+(``:194``, its ``lax.while_loop`` ``:306``), with ``_zoom_linesearch``
+(``:38``) and ``_two_loop_direction`` (``:167``): what
+``opt/lbfgs.py::lbfgs_minimize`` computes from the host, branch for branch,
+with every decision taken on the device. A solve is a chain of *evaluation
+steps*, each
+
+    value-and-grad (phi, g) at the trial point -> control -> direction
+
+where the value-and-grad is K3's (``fused_step.fused_value_and_grad``: the
+narrow grad kernel and the partials' sum) for a configuration inside
+:func:`lbfgs_device_supported`, and the control and direction kernels carry
+the solve's state in device memory (:class:`Buffers`). :class:`DeviceLBFGS`
+captures ``STEPS_PER_REPLAY`` steps once as a CUDA graph and replays it,
+reading the device only for the done flag after each replay (one read, in
+``opt.lbfgs.HOST_SYNCS``); after the end every launch reads the flag and
+returns. ``opt/lbfgs.py::lbfgs_minimize``, the host loop, stays the
+algorithm's plain version (the card runs it outside K10's scope).
+
+The kernels' plain versions (:func:`reset_reference`,
+:func:`control_reference`, :func:`direction_reference`) step the same state
+on tensors in the kernels' arithmetic: numpy float32 for the scalars, one
+torch operation a rounding for the vectors, and every sum in the kernels'
+fixed order (:func:`block_sum_reference`), so a kernel and its plain version
+agree bit for bit on the same inputs. Each wrapper runs the plain version on
+CPU tensors and the kernel on CUDA tensors (or raises); nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pinns_tpu_torch.models.mlp import MLPSpec
+from pinns_tpu_torch.ops.kernels import build
+from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+
+RESET_LAUNCHES = 0  # reset kernel launches (one a solve)
+CONTROL_LAUNCHES = 0  # control kernel launches: host calls and those inside replays
+DIRECTION_LAUNCHES = 0  # direction kernel launches: host calls and those inside replays
+GRAPH_REPLAYS = 0  # replays of a captured graph of STEPS_PER_REPLAY evaluation steps
+SOLVES = 0  # device solves (DeviceLBFGS.minimize on the card)
+_lock = threading.Lock()
+
+# evaluation steps a replay runs between two reads of the done flag: a solve
+# of n_evals evaluations reads the device about n_evals / 16 + 1 times and
+# runs at most 15 empty steps after its end
+STEPS_PER_REPLAY = 16
+THREADS = 1024  # the kernels' block (csrc/lbfgs.cu: kThreads)
+WARPS = THREADS // 32
+
+# the state's int slots (csrc/lbfgs.cu: IntSlot)
+(I_DONE, I_CONVERGED, I_K, I_EVALS, I_STAGE, I_NEED_DIR, I_LS_EVALS, I_COUNT, I_HEAD, I_MODE,
+ I_BRANCHES, I_MAX_ITERS, I_MAX_LS) = range(13)
+N_INTS = 13
+# the float slots (FloatSlot)
+(F_F, F_GAMMA, F_DPHI0, F_A_LO, F_PHI_LO, F_DPHI_LO, F_A_HI, F_PHI_HI, F_A_PREV, F_PHI_PREV,
+ F_DPHI_PREV, F_A_TRIAL, F_A_BEST, F_F_BEST, F_PHI_T, F_C1, F_C2, F_FTOL, F_GTOL, F_EPS_DEAD,
+ F_EPS_CURV, F_TINY, F_A_MAX, F_EPS_STEP) = range(24)
+N_FLOATS = 24
+# the rows of vec: the iterate, its gradient, the direction, the trial point
+# (the value-and-grad's input), the trial's gradient (its output), the
+# search's best gradient
+X, G, D, XT, GT, GB = range(6)
+N_ROWS = 6
+STAGE_INIT, STAGE_SEARCH = 0, 1
+# the branches a solve took, or-ed into si[I_BRANCHES] (csrc/lbfgs.cu: Branch)
+BRANCHES = {"extend": 1 << 0, "zoom_hi": 1 << 1, "zoom_rev": 1 << 2, "zoom_cond_hi": 1 << 3,
+            "zoom_lo": 1 << 4, "swap": 1 << 5, "accept": 1 << 6, "out_of_budget": 1 << 7,
+            "interval_dead": 1 << 8, "fallback": 1 << 9, "failed": 1 << 10,
+            "descent_guard": 1 << 11, "curvature_skip": 1 << 12, "stored": 1 << 13}
+# the constants of the algorithm other than its options, as JAX's float32
+# arithmetic rounds them: the interval-dead test, the curvature test, the
+# floors of s.y and y.y, the bracket's largest step, the floor of sum|g|
+CONSTANTS = (1e-12, 1e-10, 1e-30, 1e8, 1e-12)
+
+
+def lbfgs_device_supported(exp, spec: MLPSpec) -> List[str]:
+    """Why ``exp``'s L-BFGS phase is outside K10's scope (empty when it is
+    inside): its loss must be one that K3's narrow grad kernel computes.
+
+    K3's scope (``fused_step.fused_step_supported``) without its Adam-only
+    limits, which the value-and-grad does not read (the learning-rate
+    schedule, the sampling strategy and the time curriculum, which only
+    choose the batch, and ``admm_update_points``, the tail's); with K3's
+    narrow design (every width at most ``NARROW_WIDTH``), since the
+    value-and-grad is that design's.
+    """
+    lo = exp.loss
+    reasons = [
+        (exp.pde.kind != "burgers", f"pde.kind={exp.pde.kind!r}"),
+        (exp.pde.train_coeffs, "trainable PDE coefficients (their gradient is not K3's)"),
+        (exp.sampling.microbatch > 1, "microbatching"),
+        (lo.data_kind != "mse_sum", f"loss.data_kind={lo.data_kind!r}"),
+        (lo.data_weight != 1.0 or lo.residual_weight != 1.0, "loss weights other than 1"),
+        (lo.residual_kind not in k_fused.KINDS, f"loss.residual_kind={lo.residual_kind!r}"),
+        (lo.admm_form != "strong", "the weak-form ADMM residual"),
+        (lo.entropy_weight > 0.0 or lo.grad_weight_kappa != 0.0 or lo.causal_eps > 0.0,
+         "entropy, gradient or causal weighting"),
+        (spec.dtype != torch.float32 or spec.mixed, "a dtype other than float32 or a mixed policy"),
+        (spec.n_paths > 0 or spec.fourier, "shock-path or Fourier features"),
+        (spec.in_dim != 2 or spec.out_dim != 1, f"widths {spec.layers} (needs 2 -> ... -> 1)"),
+        (max(spec.layers) > k_fused.NARROW_WIDTH,
+         f"a width above {k_fused.NARROW_WIDTH} (K3's wide design has no value-and-grad mode)"),
+        (not 2 <= len(spec.layers) - 1 <= k_fused.MAX_LAYERS,
+         f"{len(spec.layers) - 1} layers (needs 2 to {k_fused.MAX_LAYERS})"),
+    ]
+    out = [why for bad, why in reasons if bad]
+    if not out and k_fused.launch_config(spec.layers)[0] == 0:
+        out.append(f"widths {spec.layers}: no grad tile of K3's fits a block")
+    return out
+
+
+def net_offset(params) -> int:
+    """Where the net begins in ``ravel_tree(params)``: the solve's flat
+    order is JAX's ``ravel_pytree`` order (dict keys sorted), so the frozen
+    coefficients come first and the net follows in ``pack_params`` order,
+    the order K3 reads."""
+    if sorted(params) != ["coeffs", "net"]:
+        raise ValueError(f"K10: params with keys {sorted(params)} (needs coeffs and net)")
+    return int(sum(t.numel() for t in params["coeffs"].values()))
+
+
+# -- the state -------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Buffers:
+    """A solve's device state: ``si`` (N_INTS int32), ``sf`` (N_FLOATS
+    float32), ``vec`` (N_ROWS, n) float32, ``hist`` (2, m, n) (the s rows,
+    then the y rows) and ``rho`` (m)."""
+
+    si: torch.Tensor
+    sf: torch.Tensor
+    vec: torch.Tensor
+    hist: torch.Tensor
+    rho: torch.Tensor
+
+    @staticmethod
+    def alloc(n: int, m: int, device) -> "Buffers":
+        z = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+            shape, dtype=dtype, device=device)
+        return Buffers(si=z(N_INTS, dtype=torch.int32), sf=z(N_FLOATS), vec=z(N_ROWS, n),
+                       hist=z(2, m, n), rho=z(m))
+
+    @property
+    def n(self) -> int:
+        return self.vec.shape[1]
+
+    @property
+    def m(self) -> int:
+        return self.rho.shape[0]
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """(si, sf, vec, hist, rho), the buffers themselves."""
+        return self.si, self.sf, self.vec, self.hist, self.rho
+
+    def clone(self) -> "Buffers":
+        return Buffers(*(t.clone() for t in self.tensors()))
+
+    def check(self) -> None:
+        n, m, dev = self.n, self.m, self.si.device
+        for name, t, shape, dtype in (("si", self.si, (N_INTS,), torch.int32),
+                                      ("sf", self.sf, (N_FLOATS,), torch.float32),
+                                      ("vec", self.vec, (N_ROWS, n), torch.float32),
+                                      ("hist", self.hist, (2, m, n), torch.float32),
+                                      ("rho", self.rho, (m,), torch.float32)):
+            if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"K10: {name} must be contiguous {dtype} {shape} on {dev}, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if n < 1 or m < 1:
+            raise ValueError(f"K10: n = {n}, m = {m}")
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"K10 needs CPU or CUDA tensors, got device {dev}")
+
+
+def _load(b: Buffers) -> Tuple[np.ndarray, np.ndarray]:
+    return b.si.cpu().numpy().copy(), b.sf.cpu().numpy().copy()
+
+
+def _store(b: Buffers, I: np.ndarray, F: np.ndarray) -> None:
+    b.si.copy_(torch.from_numpy(I))
+    b.sf.copy_(torch.from_numpy(F))
+
+
+def _t(v, like: torch.Tensor) -> torch.Tensor:
+    """A numpy float32 scalar as a 0-d float32 tensor beside ``like``."""
+    return torch.tensor(float(v), dtype=torch.float32, device=like.device)
+
+
+def _f32(t: torch.Tensor) -> np.float32:
+    return np.float32(t.item())
+
+
+# -- the plain versions ----------------------------------------------------------
+
+def block_sum_reference(terms: torch.Tensor) -> torch.Tensor:
+    """The kernels' sum of ``terms`` (n,) float32, 0-d: thread t adds
+    entries t, t + THREADS, ... in turn from 0, each warp's 32 sums meet in
+    the butterfly of offsets 16, 8, 4, 2, 1, and the WARPS warps' sums in the
+    butterfly of offsets WARPS / 2, ..., 1."""
+    n = terms.shape[0]
+    k = -(-n // THREADS)
+    padded = torch.zeros(k * THREADS, dtype=terms.dtype, device=terms.device)
+    padded[:n] = terms
+    rows = padded.view(k, THREADS)
+    acc = torch.zeros(THREADS, dtype=terms.dtype, device=terms.device)
+    for r in range(k):
+        acc = acc + rows[r]
+    w = acc.view(WARPS, 32)
+    for off in (16, 8, 4, 2, 1):
+        w = w[:, :off] + w[:, off:2 * off]
+    w = w.reshape(WARPS)
+    off = WARPS // 2
+    while off >= 1:
+        w = w[:off] + w[off:2 * off]
+        off //= 2
+    return w[0]
+
+
+def block_dot_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return block_sum_reference(a * b)
+
+
+def two_loop_reference(g, s_hist, y_hist, rho, count: int, head: int, gamma) -> torch.Tensor:
+    """d = -H g over the ``count`` newest pairs of the circular history (m, n)
+    that ends before ``head``, in the direction kernel's arithmetic."""
+    m = s_hist.shape[0]
+    q = g.clone()
+    alpha = {}
+    for j in range(count):  # newest first
+        idx = (head - 1 - j) % m
+        alpha[idx] = rho[idx] * block_dot_reference(s_hist[idx], q)
+        q = q - alpha[idx] * y_hist[idx]
+    r = _t(gamma, g) * q
+    for j in range(count):  # oldest first
+        idx = (head - count + j) % m
+        beta = rho[idx] * block_dot_reference(y_hist[idx], r)
+        r = r + (alpha[idx] - beta) * s_hist[idx]
+    return -r
+
+
+def reset_reference(b: Buffers, x0: torch.Tensor, max_iters: int, max_ls: int,
+                    consts: np.ndarray) -> None:
+    """A solve's initial state: the trial point x0 (stage init), gamma 1."""
+    I = np.zeros(N_INTS, np.int32)
+    F = np.zeros(N_FLOATS, np.float32)
+    I[I_STAGE], I[I_MAX_ITERS], I[I_MAX_LS] = STAGE_INIT, max_iters, max_ls
+    F[F_GAMMA] = 1.0
+    F[F_C1:F_EPS_STEP + 1] = consts
+    _store(b, I, F)
+    b.vec[X].copy_(x0)
+    b.vec[XT].copy_(x0)
+    b.vec[GT].zero_()
+
+
+def _search_update(I, F, phi, dphi) -> Tuple[bool, bool, bool]:
+    """``csrc/lbfgs.cu::search_update``: one evaluation into the search.
+    Returns (better, ended, ok)."""
+    a, f0, dphi0 = F[F_A_TRIAL], F[F_F], F[F_DPHI0]
+    evals = I[I_LS_EVALS] + 1
+    I[I_LS_EVALS] = evals
+    out_of_budget = evals >= I[I_MAX_LS]
+    wolfe1 = phi <= f0 + F[F_C1] * a * dphi0
+    wolfe2 = abs(dphi) <= -F[F_C2] * dphi0
+    accept = bool(wolfe1 and wolfe2)
+    br = 0
+    if I[I_MODE] == 0:  # alg. 3.5: bracket
+        hi_cond = (not wolfe1) or (phi >= F[F_PHI_PREV] and evals > 1)
+        to_rev = (not hi_cond) and dphi >= 0
+        if hi_cond:
+            F[F_A_LO], F[F_PHI_LO], F[F_DPHI_LO] = F[F_A_PREV], F[F_PHI_PREV], F[F_DPHI_PREV]
+            F[F_A_HI], F[F_PHI_HI] = a, phi
+            br |= BRANCHES["zoom_hi"]
+        elif to_rev:
+            F[F_A_HI], F[F_PHI_HI] = F[F_A_PREV], F[F_PHI_PREV]
+            F[F_A_LO], F[F_PHI_LO], F[F_DPHI_LO] = a, phi, dphi
+            br |= BRANCHES["zoom_rev"]
+        if hi_cond or to_rev:
+            I[I_MODE] = 1
+            F[F_A_TRIAL] = np.float32(0.5) * (F[F_A_LO] + F[F_A_HI])
+        else:
+            F[F_A_TRIAL] = np.minimum(np.float32(2) * a, F[F_A_MAX])
+            br |= BRANCHES["extend"]
+        F[F_A_PREV], F[F_PHI_PREV], F[F_DPHI_PREV] = a, phi, dphi
+    else:  # alg. 3.6 with bisection trial points
+        cond_hi = (not wolfe1) or phi >= F[F_PHI_LO]
+        swap = (not cond_hi) and dphi * (F[F_A_HI] - F[F_A_LO]) >= 0
+        if cond_hi:
+            F[F_A_HI], F[F_PHI_HI] = a, phi
+            br |= BRANCHES["zoom_cond_hi"]
+        else:
+            if swap:
+                F[F_A_HI], F[F_PHI_HI] = F[F_A_LO], F[F_PHI_LO]
+                br |= BRANCHES["swap"]
+            F[F_A_LO], F[F_PHI_LO], F[F_DPHI_LO] = a, phi, dphi
+            br |= BRANCHES["zoom_lo"]
+        F[F_A_TRIAL] = np.float32(0.5) * (F[F_A_LO] + F[F_A_HI])
+    interval_dead = I[I_MODE] == 1 and (
+        abs(F[F_A_HI] - F[F_A_LO]) <= F[F_EPS_DEAD] * np.maximum(np.float32(1), abs(F[F_A_HI])))
+    fail = (not accept) and (out_of_budget or interval_dead)
+    better = bool((wolfe1 and phi < F[F_F_BEST]) or accept)
+    if better:
+        F[F_A_BEST], F[F_F_BEST] = a, phi
+    ok = bool(accept or F[F_F_BEST] < f0)
+    if accept:
+        br |= BRANCHES["accept"]
+    if fail:
+        br |= (BRANCHES["out_of_budget"] if out_of_budget else 0) | (
+            BRANCHES["interval_dead"] if interval_dead else 0)
+        br |= BRANCHES["fallback"] if ok else BRANCHES["failed"]
+    I[I_BRANCHES] |= br
+    return better, bool(accept or fail), ok
+
+
+def control_reference(b: Buffers) -> None:
+    """The control kernel in plain PyTorch: takes the evaluation at the
+    trial point (phi in sf[F_PHI_T], its gradient in vec[GT]); see
+    ``csrc/lbfgs.cu::control_kernel``."""
+    I, F = _load(b)
+    if I[I_DONE]:
+        return
+    x, g, d, xt, gt, gb = b.vec
+    m = b.m
+    if I[I_STAGE] == STAGE_INIT:  # the first evaluation: f and g at x0
+        g.copy_(gt)
+        F[F_F] = F[F_PHI_T]
+        I[I_EVALS] = 1
+        if _f32(gt.abs().max()) <= F[F_GTOL]:  # an already-converged start
+            I[I_DONE] = I[I_CONVERGED] = 1
+        else:
+            I[I_NEED_DIR] = 1
+        _store(b, I, F)
+        return
+    dphi = _f32(block_dot_reference(gt, d))
+    better, ended, ok = _search_update(I, F, F[F_PHI_T], dphi)
+    if better:
+        gb.copy_(gt)
+    if not ended:  # the next trial point
+        xt.copy_(x + _t(F[F_A_TRIAL], x) * d)
+        _store(b, I, F)
+        return
+    # the end of the iteration: x_new = x + a d, s = x_new - x, y = g_new - g
+    xn = x + _t(F[F_A_BEST], x) * d
+    s, y = xn - x, gb - g
+    sy, ss, yy = (_f32(block_sum_reference(v)) for v in (s * y, s * s, y * y))
+    store = ok and sy > F[F_EPS_CURV] * np.sqrt(ss) * np.sqrt(yy)
+    head = int(I[I_HEAD])
+    if store:
+        b.rho[head] = float(np.float32(1) / np.maximum(sy, F[F_TINY]))
+        b.hist[0, head].copy_(s)
+        b.hist[1, head].copy_(y)
+        I[I_HEAD] = (head + 1) % m
+        I[I_COUNT] = min(int(I[I_COUNT]) + 1, m)
+        F[F_GAMMA] = sy / np.maximum(yy, F[F_TINY])
+        I[I_BRANCHES] |= BRANCHES["stored"]
+    elif ok:
+        I[I_BRANCHES] |= BRANCHES["curvature_skip"]
+    f_old = F[F_F]
+    if ok:
+        F[F_F] = F[F_F_BEST]
+        x.copy_(xn)
+        g.copy_(gb)
+    f = F[F_F]
+    g_small = _f32(g.abs().max()) <= F[F_GTOL]  # SciPy's stopping rules
+    f_flat = ok and (f_old - f) <= F[F_FTOL] * np.maximum(np.maximum(abs(f_old), abs(f)),
+                                                          np.float32(1))
+    converged = bool(g_small or f_flat)
+    I[I_K] += 1
+    I[I_EVALS] += I[I_LS_EVALS]
+    I[I_CONVERGED] = converged
+    if converged or I[I_K] >= I[I_MAX_ITERS] or not ok:
+        I[I_DONE] = 1
+    else:
+        I[I_NEED_DIR] = 1
+    _store(b, I, F)
+
+
+def direction_reference(b: Buffers) -> None:
+    """The direction kernel in plain PyTorch: at an iteration's start the
+    two-loop direction, the descent guard, the first step, the search's
+    initial state and the trial point; see
+    ``csrc/lbfgs.cu::direction_kernel``."""
+    I, F = _load(b)
+    if I[I_DONE] or not I[I_NEED_DIR]:
+        return
+    x, g, d, xt, gt, gb = b.vec
+    count = int(I[I_COUNT])
+    d.copy_(two_loop_reference(g, b.hist[0], b.hist[1], b.rho, count, int(I[I_HEAD]),
+                               F[F_GAMMA]))
+    dg = _f32(block_dot_reference(d, g))
+    guard = not dg < 0  # not a descent direction: steepest descent
+    if guard:
+        d.copy_(-g)
+        dg = _f32(block_dot_reference(g, d))
+        I[I_BRANCHES] |= BRANCHES["descent_guard"]
+    if count == 0:
+        gsum = _f32(block_sum_reference(g.abs()))
+        init = np.minimum(np.float32(1), np.float32(1) / np.maximum(gsum, F[F_EPS_STEP]))
+    else:
+        init = np.float32(1)
+    f = F[F_F]
+    F[F_DPHI0] = dg
+    F[F_A_LO], F[F_PHI_LO], F[F_DPHI_LO] = 0, f, dg
+    F[F_A_HI], F[F_PHI_HI] = 0, f
+    F[F_A_PREV], F[F_PHI_PREV], F[F_DPHI_PREV] = 0, f, dg
+    F[F_A_TRIAL], F[F_A_BEST], F[F_F_BEST] = init, 0, f
+    I[I_MODE] = I[I_LS_EVALS] = I[I_NEED_DIR] = 0
+    I[I_STAGE] = STAGE_SEARCH
+    gb.copy_(g)
+    xt.copy_(x + _t(init, x) * d)
+    _store(b, I, F)
+
+
+# -- the kernels -----------------------------------------------------------------
+
+def _lib():
+    lib = build.load_library("lbfgs")
+    if not getattr(lib, "_pinns_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pinns_lbfgs_slots.argtypes = [p, p, p, p]
+        lib.pinns_lbfgs_slots.restype = i
+        lib.pinns_lbfgs_max_floats.argtypes = []
+        lib.pinns_lbfgs_max_floats.restype = i
+        lib.pinns_lbfgs_reset.argtypes = [p, p, p, p, i, i, i, p, p]
+        lib.pinns_lbfgs_reset.restype = i
+        lib.pinns_lbfgs_control.argtypes = [p, p, p, p, p, i, i, p]
+        lib.pinns_lbfgs_control.restype = i
+        lib.pinns_lbfgs_direction.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.pinns_lbfgs_direction.restype = i
+        lib.pinns_lbfgs_error_string.argtypes = [i]
+        lib.pinns_lbfgs_error_string.restype = ctypes.c_char_p
+        got = [ctypes.c_int() for _ in range(4)]
+        lib.pinns_lbfgs_slots(*(ctypes.byref(v) for v in got))
+        want = (N_INTS, N_FLOATS, N_ROWS, THREADS)
+        if tuple(v.value for v in got) != want:
+            raise RuntimeError(f"lbfgs.cu slots {[v.value for v in got]} != the wrapper's "
+                               f"{list(want)}")
+        lib._pinns_typed = True
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().pinns_lbfgs_error_string(err).decode()
+        raise RuntimeError(f"K10 {what} launch failed: CUDA error {err} ({msg})")
+
+
+def _stream(b: Buffers) -> int:
+    return torch.cuda.current_stream(b.si.device).cuda_stream
+
+
+def _ptrs(b: Buffers):
+    return b.si.data_ptr(), b.sf.data_ptr(), b.vec.data_ptr(), b.hist.data_ptr(), b.rho.data_ptr()
+
+
+def solve_constants(c1: float = 1e-4, c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5
+                    ) -> np.ndarray:
+    """The float32 constants a reset writes: c1, c2, ftol, gtol, CONSTANTS."""
+    return np.asarray((c1, c2, ftol, gtol) + CONSTANTS, np.float32)
+
+
+def _launch_reset(b: Buffers, x0: torch.Tensor, max_iters: int, max_ls: int,
+                  consts: np.ndarray) -> None:
+    si, sf, vec, _, _ = _ptrs(b)
+    _raise_on(_lib().pinns_lbfgs_reset(si, sf, vec, x0.data_ptr(), b.n, int(max_iters),
+                                       int(max_ls), consts.ctypes.data, _stream(b)), "reset")
+
+
+def _launch_control(b: Buffers) -> None:
+    _raise_on(_lib().pinns_lbfgs_control(*_ptrs(b), b.n, b.m, _stream(b)), "control")
+
+
+def _launch_direction(b: Buffers, launch_only: bool = False) -> None:
+    _raise_on(_lib().pinns_lbfgs_direction(*_ptrs(b), b.n, b.m, int(launch_only), _stream(b)),
+              "direction")
+
+
+def reset(b: Buffers, x0: torch.Tensor, *, max_iters: int, max_ls: int = 50, c1: float = 1e-4,
+          c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5) -> None:
+    """A solve's initial state from ``x0`` (n,) float32: the trial point is
+    x0, the first step takes its evaluation. Plain on CPU tensors."""
+    global RESET_LAUNCHES
+    b.check()
+    if tuple(x0.shape) != (b.n,) or x0.dtype != torch.float32 or x0.device != b.si.device \
+            or not x0.is_contiguous():
+        raise ValueError(f"K10: x0 must be contiguous float32 ({b.n},) on {b.si.device}")
+    consts = solve_constants(c1, c2, ftol, gtol)
+    if b.si.device.type == "cpu":
+        reset_reference(b, x0, max_iters, max_ls, consts)
+        return
+    _launch_reset(b, x0, max_iters, max_ls, consts)
+    with _lock:
+        RESET_LAUNCHES += 1
+
+
+def control(b: Buffers) -> None:
+    """The control kernel (``csrc/lbfgs.cu``); plain on CPU tensors."""
+    global CONTROL_LAUNCHES
+    b.check()
+    if b.si.device.type == "cpu":
+        control_reference(b)
+        return
+    _launch_control(b)
+    with _lock:
+        CONTROL_LAUNCHES += 1
+
+
+def direction(b: Buffers) -> None:
+    """The direction kernel (``csrc/lbfgs.cu``); plain on CPU tensors."""
+    global DIRECTION_LAUNCHES
+    b.check()
+    if b.si.device.type == "cpu":
+        direction_reference(b)
+        return
+    if b.n + b.m > _lib().pinns_lbfgs_max_floats():
+        raise ValueError(f"K10: n + m = {b.n + b.m} exceeds the direction kernel's shared memory")
+    _launch_direction(b)
+    with _lock:
+        DIRECTION_LAUNCHES += 1
+
+
+# -- the solve -------------------------------------------------------------------
+
+def read_head(b: Buffers) -> np.ndarray:
+    """si[:4] (done, converged, k, evals) on the host: the solve's one kind
+    of device read, counted in ``opt.lbfgs.HOST_SYNCS``."""
+    host_lbfgs.HOST_SYNCS += 1
+    return b.si[:4].cpu().numpy()
+
+
+def result(b: Buffers, head: np.ndarray) -> host_lbfgs.LBFGSResult:
+    """The solve's result from its buffers (tensors of the caller's own)."""
+    return host_lbfgs.LBFGSResult(
+        x=b.vec[X].clone(), f=b.sf[F_F].clone(), g=b.vec[G].clone(), n_iters=int(head[I_K]),
+        n_evals=int(head[I_EVALS]), converged=bool(head[I_CONVERGED]))
+
+
+def run_steps(b: Buffers, evaluate: Callable[[], None]) -> host_lbfgs.LBFGSResult:
+    """Evaluation steps (``evaluate``, control, direction) from a reset state,
+    STEPS_PER_REPLAY at a time between reads of the done flag: the solve as
+    K10 runs it, each step through the wrappers (the plain versions on the
+    CPU)."""
+    while True:
+        for _ in range(STEPS_PER_REPLAY):
+            evaluate()
+            control(b)
+            direction(b)
+        head = read_head(b)
+        if head[I_DONE]:
+            return result(b, head)
+
+
+def lbfgs_minimize_device(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
+                          max_iters: int = 5000, history: int = 50, ftol: float = 1e-7,
+                          gtol: float = 1e-5, max_ls: int = 50, c1: float = 1e-4,
+                          c2: float = 0.9) -> host_lbfgs.LBFGSResult:
+    """K10's state machine over any float32 function of a flat vector (its
+    gradient by torch.autograd): ``opt.lbfgs.lbfgs_minimize``'s contract,
+    stepped evaluation by evaluation. The tests run it on the CPU (the plain
+    versions); on the card the trainer runs :class:`DeviceLBFGS`."""
+    b = Buffers.alloc(x0.shape[0], history, x0.device)
+    vg = host_lbfgs.value_and_grad(fun)
+
+    def evaluate():
+        if int(b.si[I_DONE]):
+            return
+        f, g = vg(b.vec[XT].clone())
+        b.sf[F_PHI_T] = f
+        b.vec[GT].copy_(g)
+
+    reset(b, x0.detach().contiguous(), max_iters=max_iters, max_ls=max_ls, c1=c1, c2=c2,
+          ftol=ftol, gtol=gtol)
+    return run_steps(b, evaluate)
+
+
+class DeviceLBFGS:
+    """K10 for one problem inside :func:`lbfgs_device_supported`: the loss
+    ``make_loss_fn(problem)(params, colloc, admm, rho)[0]`` minimized over
+    the flat params (``ravel_tree`` order, the frozen coefficients included
+    with a zero gradient), its value-and-grad K3's
+    (``fused_step.fused_value_and_grad``) at the net part of the trial
+    point.
+
+    On the card: the solve's buffers and a copy of the batch, z and dual are
+    allocated once per shape; STEPS_PER_REPLAY evaluation steps (K3's two
+    launches, control, direction) are captured once per (rho, shape) as a
+    CUDA graph after a warm-up of the same launches with the done flag set
+    (the kernels' set-up, outside capture). A solve resets the state (one
+    launch), then replays the graph and reads the done flag after each
+    replay, until it is set. On the CPU the same steps run as the plain
+    versions, one host call each. A build, capture or launch that fails
+    raises.
+    """
+
+    def __init__(self, problem):
+        exp, spec = problem.exp, problem.spec
+        why = lbfgs_device_supported(exp, spec)
+        if why:
+            raise NotImplementedError(
+                f"experiment {exp.name!r} is outside K10's scope ({'; '.join(why)}); "
+                "train.trainer.make_lbfgs_step runs the host loop for it")
+        self.exp, self.spec, self.device = exp, spec, problem.device
+        self.cfg = k_fused.loss_config(exp)
+        self.x_data = problem.x_data
+        self.u_data = problem.targets["u"].contiguous()
+        self.shape: Optional[Tuple[int, int, int, int]] = None
+        self.graphs: Dict[float, torch.cuda.CUDAGraph] = {}
+        self.capture_seconds: List[float] = []
+
+    def _alloc(self, n: int, m: int, n_f: int, offset: int) -> None:
+        dev = self.device
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        self.bufs = Buffers.alloc(n, m, dev)
+        admm = self.cfg["kind"] == "admm"
+        self.colloc = z(n_f, 2)
+        self.z = z(n_f, 1) if admm else None
+        self.dual = z(n_f, 1) if admm else None
+        plan = k_fused.step_plan(self.spec.layers, n_f, self.x_data.shape[0])
+        self.partials = z(plan.blocks, self.spec.n_params + 1)
+        self.shape = (n, m, n_f, offset)
+        self.graphs.clear()
+
+    def _evaluate(self, rho: float, launch_only: bool = False) -> None:
+        """The step's value-and-grad at the trial point (uncounted: the
+        replays are)."""
+        b, off = self.bufs, self.shape[3]
+        k_fused._value_and_grad_call(
+            self.spec, b.vec[XT, off:], b.vec[GT, off:], b.sf[F_PHI_T:F_PHI_T + 1], self.x_data,
+            self.u_data, self.colloc, self.z, self.dual, rho=rho, partials=self.partials,
+            skip=b.si[I_DONE:I_DONE + 1], launch_only=launch_only, **self.cfg)
+
+    def _capture(self, rho: float) -> torch.cuda.CUDAGraph:
+        t0 = time.perf_counter()
+        b = self.bufs
+        b.si.zero_()
+        b.si[I_DONE] = 1  # the warm-up's launches return at once
+        self._evaluate(rho)
+        _launch_control(b)
+        _launch_direction(b)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(STEPS_PER_REPLAY):
+                self._evaluate(rho, launch_only=True)
+                _launch_control(b)
+                _launch_direction(b, launch_only=True)
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return graph
+
+    def minimize(self, x0: torch.Tensor, offset: int, colloc: torch.Tensor, admm, rho: float, *,
+                 max_iters: int, history: int = 50, ftol: float = 1e-7, gtol: float = 1e-5,
+                 max_ls: int = 50) -> host_lbfgs.LBFGSResult:
+        """Minimize from the flat ``x0`` (``ravel_tree`` order, the net from
+        ``offset`` on: :func:`net_offset`) at the batch ``colloc`` and the
+        ADMM state ``admm`` (None for another residual kind) with ADMM
+        weight ``rho``. Returns ``opt.lbfgs.LBFGSResult`` with tensors of
+        the caller's own."""
+        global GRAPH_REPLAYS, CONTROL_LAUNCHES, DIRECTION_LAUNCHES, SOLVES
+        n, n_f = x0.shape[0], colloc.shape[0]
+        if n - offset != self.spec.n_params:
+            raise ValueError(f"K10: {n} params with the net from {offset}: the net has "
+                             f"{self.spec.n_params}")
+        if (admm is None) != (self.cfg["kind"] != "admm"):
+            raise ValueError("K10: an ADMM state exactly when the residual kind is 'admm'")
+        if self.shape != (n, history, n_f, offset):
+            self._alloc(n, history, n_f, offset)
+        b = self.bufs
+        self.colloc.copy_(colloc)
+        if admm is not None:
+            self.z.copy_(admm.z)
+            self.dual.copy_(admm.dual)
+        rho = float(np.float32(rho))
+        opts = dict(max_iters=max_iters, max_ls=max_ls, ftol=ftol, gtol=gtol)
+        if self.device.type == "cpu":
+            reset(b, x0.detach().contiguous(), **opts)
+            return run_steps(b, lambda: self._evaluate(rho))
+        if rho not in self.graphs:
+            self.graphs[rho] = self._capture(rho)
+        graph = self.graphs[rho]
+        reset(b, x0.detach().contiguous(), **opts)
+        while True:
+            graph.replay()
+            with _lock:
+                GRAPH_REPLAYS += 1
+                CONTROL_LAUNCHES += STEPS_PER_REPLAY
+                DIRECTION_LAUNCHES += STEPS_PER_REPLAY
+            with k_fused._launches_lock:
+                k_fused.VALUE_AND_GRAD_LAUNCHES += STEPS_PER_REPLAY
+            head = read_head(b)
+            if head[I_DONE]:
+                with _lock:
+                    SOLVES += 1
+                return result(b, head)
+
+
+def branches_taken(b: Buffers) -> List[str]:
+    """The names of the branches a solve took (si[I_BRANCHES])."""
+    bits = int(b.si[I_BRANCHES])
+    return [name for name, bit in BRANCHES.items() if bits & bit]

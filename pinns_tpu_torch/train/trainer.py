@@ -690,30 +690,47 @@ def make_step(problem: Problem, learning_rate):
     return make_adam_step(problem, learning_rate)
 
 
-def make_lbfgs_step(problem: Problem):
+def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     """One outer epoch of the L-BFGS phase: the full inner solve of the loss
     at the current batch and ADMM state, then the shared resample -> z/dual
     tail (``_post_update``, whatever ``admm_update_points`` says), as
     ``Abgrall_ADMM.py:216-226`` and the JAX step do.
 
     The solve runs over every param, frozen coefficients included (they get a
-    zero gradient). The metrics rebuild the loss terms from the solver's own
+    zero gradient). On a CUDA device a configuration inside
+    ``ops.kernels.lbfgs.lbfgs_device_supported`` solves on the card (K10:
+    ``DeviceLBFGS``, K3's value-and-grad, reading the device only for the
+    done flag); every other one, the CPU, and ``host_loop`` (the card's
+    checks) run the host loop ``opt.lbfgs.lbfgs_minimize`` over the loss
+    under autograd. The metrics rebuild the loss terms from the solver's own
     final value: one forward of the data term, ``res_term = f - data_weight *
     data_term``; ``lbfgs_iters`` is the solve's iteration count.
     """
     loss_fn = make_loss_fn(problem)
     dterm = make_data_term(problem)
-    cfg = problem.exp.optimizer.lbfgs
-    data_weight = problem.exp.loss.data_weight
+    exp = problem.exp
+    cfg = exp.optimizer.lbfgs
+    data_weight = exp.loss.data_weight
+    solver = None
+    if problem.device.type == "cuda" and not host_loop:
+        from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+        if not k_lbfgs.lbfgs_device_supported(exp, problem.spec):
+            solver = k_lbfgs.DeviceLBFGS(problem)
 
     def step(state: TrainState, out: Optional[torch.Tensor] = None,
              new_colloc: Optional[torch.Tensor] = None):
         x0, unravel = ravel_tree(state.params)
-        res = lbfgs_minimize(
-            lambda x: loss_fn(unravel(x), state.colloc, state.admm, state.rho)[0],
-            x0.detach(), max_iters=cfg.max_iters, history=cfg.history, ftol=cfg.ftol,
-            gtol=cfg.gtol, max_ls=cfg.max_ls,
-        )
+        opts = dict(max_iters=cfg.max_iters, history=cfg.history, ftol=cfg.ftol, gtol=cfg.gtol,
+                    max_ls=cfg.max_ls)
+        if solver is not None:
+            res = solver.minimize(x0.detach(), k_lbfgs.net_offset(state.params), state.colloc,
+                                  state.admm, exp.loss.rho if state.rho is None else state.rho,
+                                  **opts)
+        else:
+            res = lbfgs_minimize(
+                lambda x: loss_fn(unravel(x), state.colloc, state.admm, state.rho)[0],
+                x0.detach(), **opts)
         params = unravel(res.x)
         with torch.no_grad():
             lam1, lam2 = problem.effective_coeffs(params)
@@ -733,6 +750,7 @@ def make_lbfgs_step(problem: Problem):
         )
         return new_state, _write_metrics(metrics, out)
 
+    step.solver = solver  # K10's DeviceLBFGS, or None: the host loop
     return step
 
 

@@ -1,12 +1,15 @@
 """Where the time of a training epoch goes on the card: torch.profiler over a
 chunk of epochs of the trainer's Adam step (the fused CUDA step K3, or the
 generic step over the kernels for a configuration outside K3's scope), of the
-plain step, and over one L-BFGS outer epoch.
+plain step, and over one L-BFGS outer epoch: the trainer's (K10 inside its
+scope, ``ops.kernels.lbfgs.lbfgs_device_supported``) and, with
+``lbfgs_host``, the host loop over the kernels under autograd on the same
+state.
 
     python scripts/profile_train_step.py [--preset abgrall_admm] [--epochs 200]
         [--dataset twosin_burgers_shock] [--lbfgs-iters 100]
         [--out chiprun_out/profile_train_step.json]
-        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs] [--ensemble E] [--graph]
+        [--set KEY=VALUE ...] [--steps adam,plain,lbfgs,lbfgs_host] [--ensemble E] [--graph]
 
 The scale slice: ``--preset burgers_scale --dataset burgers_shock --epochs 3
 --steps adam --set model.compute_dtype=bfloat16 --set "model.keep_streams=('xx',)"``.
@@ -28,11 +31,11 @@ graphs.
 
 For each step it reports, per epoch (per iteration for L-BFGS): the wall time
 (host clock, ending in a synchronize), the device time of every kernel by name
-(the profiler's CUDA activity), their sum, the sums over K3's, K5's, K7a's
-and K7b's kernels (named in namespaces k3, k5, k7 and k7b), the device's idle share 1 - device time / wall
-time, the host operations that took the most CPU time, and the peak device
-memory of the step (warm-up included). Needs one
-NVIDIA GPU; imports no jax.
+(the profiler's CUDA activity), their sum, the sums over K3's, K5's, K7a's,
+K7b's and K10's kernels (named in namespaces k3, k5, k7, k7b and k10), the
+device's idle share 1 - device time / wall time, the host operations that
+took the most CPU time, and the peak device memory of the step (warm-up
+included). Needs one NVIDIA GPU; imports no jax.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ def profile_chunk(run, state, epochs: int, warmup: int = 5) -> dict:
     # (csrc/taylor1.cu) and K7b (csrc/weakform.cu): every kernel and engine
     # instantiation of each is named in namespace k3, k5, k7 or k7b
     named = {}
-    for ns in ("k3", "k5", "k7", "k7b"):
+    for ns in ("k3", "k5", "k7", "k7b", "k10"):
         mine = {name: k for name, k in kernels.items() if f"{ns}::" in name}
         named.update({f"{ns}_us_per_unit": sum(k["us_per_unit"] for k in mine.values()),
                       f"{ns}_kernels_per_unit": sum(k["calls_per_unit"] for k in mine.values()),
@@ -113,7 +116,7 @@ def main(argv=None) -> int:
     ap.add_argument("--set", action="append", metavar="KEY=VALUE",
                     help="override a config field, as the train CLI's --set")
     ap.add_argument("--steps", default="adam,plain,lbfgs",
-                    help="which of adam, plain, lbfgs to profile (comma-separated)")
+                    help="which of adam, plain, lbfgs, lbfgs_host to profile (comma-separated)")
     ap.add_argument("--ensemble", type=int, default=1, metavar="E",
                     help="profile the Adam epochs of an E-member ensemble")
     ap.add_argument("--graph", action="store_true",
@@ -128,7 +131,7 @@ def main(argv=None) -> int:
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels.fused_step import fused_step_supported
-    from pinns_tpu_torch.train.trainer import Trainer, make_adam_step
+    from pinns_tpu_torch.train.trainer import Trainer, make_adam_step, make_lbfgs_step
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -176,12 +179,19 @@ def main(argv=None) -> int:
             solo_chunks(make_adam_step(trainer.problem, trainer.learning_rate, plain=True)),
             state, max(1, args.epochs // 10))
     if "lbfgs" in steps:
-        result["lbfgs_step"] = profile_chunk(solo_chunks(trainer._lbfgs_step), state, 1,
-                                             warmup=0)
+        # K10 captures its graph in its first solve: one outer epoch before the window
+        result["lbfgs_step"] = profile_chunk(
+            solo_chunks(trainer._lbfgs_step), state, 1,
+            warmup=int(trainer._lbfgs_step.solver is not None))
+        result["lbfgs_step"]["solver"] = "k10" if trainer._lbfgs_step.solver else "host_loop"
+    if "lbfgs_host" in steps:
+        result["lbfgs_host_loop"] = profile_chunk(
+            solo_chunks(make_lbfgs_step(trainer.problem, host_loop=True)), state, 1, warmup=0)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    for name in (n for n in (adam, graph, "plain_step", "lbfgs_step") if n in result):
+    for name in (n for n in (adam, graph, "plain_step", "lbfgs_step", "lbfgs_host_loop")
+                 if n in result):
         r = result[name]
         print(json.dumps({"preset": args.preset, "step": name, "card": card,
                           "members": args.ensemble if name in (adam, graph) else 1,
@@ -190,7 +200,8 @@ def main(argv=None) -> int:
                                                "kernels_per_unit", "k3_us_per_unit",
                                                "k3_kernels_per_unit", "k5_us_per_unit",
                                                "k7_us_per_unit", "k7b_us_per_unit",
-                                               "k7b_kernels_per_unit",
+                                               "k7b_kernels_per_unit", "k10_us_per_unit",
+                                               "k10_kernels_per_unit",
                                                "peak_device_bytes")}}))
     return 0
 

@@ -13,6 +13,8 @@ GPU machine has none), so it also runs without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -635,10 +637,12 @@ def test_mlp_backward_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch)
 
 def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
     """abgrall_admm through the switch on the card: Adam epochs on K3, then
-    L-BFGS outer epochs over K5/K1/K2; nothing raises."""
+    L-BFGS outer epochs on K10 (K3's value-and-grad, no backward of K5 or
+    K2; the tail's K1 and the data term's K5 forward); nothing raises."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
     from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
     from pinns_tpu_torch.train.trainer import Trainer
 
@@ -646,11 +650,14 @@ def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
         "train.epochs": 22, "train.chunk": 10, "train.log_every": 0,
         "optimizer.switch_epoch": 20, "optimizer.lbfgs.max_iters": 20})
     k3, k5, k2 = k_fused.GRAPH_EPOCHS, k_mlp.BACKWARD_LAUNCHES, k_taylor2.BACKWARD_LAUNCHES
-    k3_calls = k_fused.LAUNCHES
+    k3_calls, solves = k_fused.LAUNCHES, k_lbfgs.SOLVES
+    k5_fwd, k1 = k_mlp.LAUNCHES, k_taylor2.LAUNCHES
     state, summary = Trainer(exp, device="cuda").train()
     assert k_fused.GRAPH_EPOCHS == k3 + 20 and k_fused.LAUNCHES == k3_calls
     assert state.epoch == 22
-    assert k_mlp.BACKWARD_LAUNCHES > k5 and k_taylor2.BACKWARD_LAUNCHES > k2
+    assert k_lbfgs.SOLVES == solves + 2
+    assert k_mlp.BACKWARD_LAUNCHES == k5 and k_taylor2.BACKWARD_LAUNCHES == k2
+    assert k_mlp.LAUNCHES > k5_fwd and k_taylor2.LAUNCHES > k1
     assert np.isfinite(summary["rel_l2_u"])
 
 
@@ -1421,3 +1428,218 @@ def test_served_ensemble_on_card(cuda_device, tmp_path):  # noqa: F811
         name = k.split("_")[0]
         atol = (1e-4 if name == "f" else 1e-5) * float(np.abs(want[name]).max())
         np.testing.assert_allclose(out[k], want[k], rtol=1e-4, atol=atol, err_msg=k)
+
+
+# -- K10: the L-BFGS solve on the device -----------------------------------------
+
+LBFGS_FIXTURE = os.path.join(os.path.dirname(FIXTURE), "lbfgs_hybrid.npz")
+STEPS_FIXTURE = os.path.join(os.path.dirname(FIXTURE), "abgrall_admm_steps.npz")
+
+
+def _k10_fixture_state(device):
+    """The abgrall_admm problem on the card and the JAX state the L-BFGS
+    fixture starts from: (problem, params, colloc, admm, lbfgs fixture)."""
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.losses.admm import ADMMState
+    from pinns_tpu_torch.ops.kernels.fused_step import unpack_params
+    from pinns_tpu_torch.train import trainer as tr
+
+    with np.load(STEPS_FIXTURE) as z:
+        fx = {k: z[k] for k in z.files}
+    with np.load(LBFGS_FIXTURE) as z:
+        lb = {k: z[k] for k in z.files}
+    k = int(lb["replay_step"])
+    problem = tr.build_problem(get_preset("abgrall_admm"), device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    params = {"net": unpack_params(t(fx[f"params_{k}"]), problem.spec.layers),
+              "coeffs": {"lambda1": torch.full((1,), float(fx["lambda1"]), device=device),
+                         "lambda2": torch.full((1,), float(fx["lambda2"]), device=device)}}
+    return problem, params, t(fx[f"colloc_{k}"]), ADMMState(z=t(fx[f"z_{k}"]),
+                                                              dual=t(fx[f"dual_{k}"])), lb
+
+
+@pytest.mark.parametrize("kind,explicit_inner", [("admm", False), ("admm", True), ("mean_sq", False),
+                                                 ("l2_sq_norm", False), ("l1_sq_norm", False)])
+@pytest.mark.parametrize("layers,n_f", [(NARROW, 1_000), ((2, 16, 16, 16, 1), 77)],
+                         ids=["8x20-1000", "16-77"])
+def test_k10_value_and_grad_on_card(cuda_device, layers, n_f, kind, explicit_inner):  # noqa: F811
+    """K3's value-and-grad mode: its gradient and loss equal the Adam
+    epoch's (want_grad; the same kernels) bit for bit, lie within the fused
+    step's tolerance of the plain version, repeat bit for bit, and a set
+    skip flag leaves both outputs untouched."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    net = init_mlp(spec, torch.Generator().manual_seed(3), cuda_device)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device)  # noqa: E731
+    colloc, x_data = t(numpy_points(n_f, seed=6)), t(numpy_points(13, seed=7))
+    u_data = t(rng.standard_normal((13, 1)))
+    z = t(0.1 * rng.standard_normal((n_f, 1))) if kind == "admm" else None
+    dual = t(1 + 0.1 * rng.standard_normal((n_f, 1))) if kind == "admm" else None
+    flat = pack_params(net)
+    cfg = dict(kind=kind, lam1=0.9, lam2=0.01, rho=10.0, explicit_inner=explicit_inner)
+    ep = k_fused.fused_adam_step(spec, flat, torch.zeros_like(flat), torch.zeros_like(flat), 0,
+                                 x_data, u_data, colloc, z, dual, lr=1e-3, seed=9, epoch=5,
+                                 want_grad=True, **cfg)
+    outs = []
+    before = k_fused.VALUE_AND_GRAD_LAUNCHES
+    for _ in range(2):
+        grad, loss = torch.full_like(flat, float("nan")), torch.full((1,), float("nan"),
+                                                                    device=cuda_device)
+        k_fused.fused_value_and_grad(spec, flat, grad, loss, x_data, u_data, colloc, z, dual,
+                                     **cfg)
+        outs.append((grad, loss))
+    torch.cuda.synchronize()
+    assert k_fused.VALUE_AND_GRAD_LAUNCHES == before + 2
+    (grad, loss), (grad2, loss2) = outs
+    assert torch.equal(grad, ep["grad"]) and float(loss) == float(ep["metrics"][5])
+    assert torch.equal(grad, grad2) and torch.equal(loss, loss2)
+    f, g = k_fused.value_and_grad_reference(spec, flat, x_data, u_data, colloc, z, dual, **cfg)
+    np.testing.assert_allclose(float(loss), float(f), rtol=1e-4)
+    off = 0
+    for layer in net:
+        for leaf in (layer["W"], layer["b"]):
+            w = g[off:off + leaf.numel()].cpu().numpy()
+            np.testing.assert_allclose(grad[off:off + leaf.numel()].cpu().numpy(), w, rtol=1e-4,
+                                       atol=1e-5 * np.abs(w).max())
+            off += leaf.numel()
+    skip = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    g3, l3 = grad.clone(), loss.clone()
+    k_fused.fused_value_and_grad(spec, flat + 1.0, g3, l3, x_data, u_data, colloc, z, dual,
+                                 skip=skip, **cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(g3, grad) and torch.equal(l3, loss)
+
+
+def _k10_lockstep(b, evaluate, steps: int) -> dict:
+    """``steps`` evaluation steps through the kernels, each kernel beside its
+    plain version on a copy of the same state: every buffer equal bit for
+    bit after every launch. Returns the branches taken and the steps run."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    ran = 0
+    for _ in range(steps):
+        evaluate()
+        for kernel, plain in ((k_lbfgs.control, k_lbfgs.control_reference),
+                              (k_lbfgs.direction, k_lbfgs.direction_reference)):
+            twin = b.clone()
+            kernel(b)
+            plain(twin)
+            torch.cuda.synchronize()
+            for name, got, want in zip(("si", "sf", "vec", "hist", "rho"),
+                                       (b.si, b.sf, b.vec, b.hist, b.rho),
+                                       (twin.si, twin.sf, twin.vec, twin.hist, twin.rho)):
+                assert torch.equal(got, want), (kernel.__name__, ran, name)
+        ran += 1
+        if int(b.si[k_lbfgs.I_DONE]):
+            break
+    return {"branches": k_lbfgs.branches_taken(b), "steps": ran}
+
+
+def test_k10_kernels_equal_their_plain_versions_on_card(cuda_device):  # noqa: F811
+    """The control and direction kernels against their plain versions, bit
+    for bit, step by step, at abgrall_admm's 8x20 from the fixture's state
+    (K3's value-and-grad, 40 steps); the reset kernel against its plain
+    version."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+
+    problem, params, colloc, admm, _ = _k10_fixture_state(cuda_device)
+    x0, _ = ravel_tree(params)
+    off = k_lbfgs.net_offset(params)
+    b = k_lbfgs.Buffers.alloc(x0.numel(), 50, cuda_device)
+    twin = b.clone()
+    k_lbfgs.reset(b, x0, max_iters=5000)
+    k_lbfgs.reset_reference(twin, x0, 5000, 50, k_lbfgs.solve_constants())
+    assert all(torch.equal(u, v) for u, v in zip((b.si, b.sf, b.vec), (twin.si, twin.sf, twin.vec)))
+    cfg = k_fused.loss_config(problem.exp)
+
+    def k3():
+        k_fused.fused_value_and_grad(
+            problem.spec, b.vec[k_lbfgs.XT, off:], b.vec[k_lbfgs.GT, off:],
+            b.sf[k_lbfgs.F_PHI_T:k_lbfgs.F_PHI_T + 1], problem.x_data,
+            problem.targets["u"].contiguous(), colloc, admm.z, admm.dual, rho=10.0,
+            skip=b.si[:1], **cfg)
+
+    run = _k10_lockstep(b, k3, 40)
+    assert {"accept", "stored"} <= set(run["branches"]) and int(b.si[k_lbfgs.I_K]) >= 10
+
+
+@pytest.mark.parametrize("n", [5, 1_500, 7_000, 9_000])
+def test_k10_direction_paths_equal_plain_on_card(cuda_device, n):  # noqa: F811
+    """The direction kernel's two-loop in registers (1, 2 and 8 entries a
+    thread) and in shared memory (above 8,192 entries) against the plain
+    versions, bit for bit after every launch, with a history of 3 that fills
+    and wraps: a Rosenbrock (n 5) or a quartic valley (autograd's
+    value-and-grad)."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import value_and_grad
+
+    rng = np.random.default_rng(n)
+    if n == 5:
+        x0 = torch.tensor([-1.2, 1.0, -1.2, 1.0, 0.5], device=cuda_device)
+        fun = lambda x: torch.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2  # noqa: E731
+                                  + (1.0 - x[:-1]) ** 2)
+    else:
+        a = torch.from_numpy(rng.uniform(0.5, 5.0, n).astype(np.float32)).to(cuda_device)
+        c = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
+        x0 = torch.zeros(n, device=cuda_device)
+        fun = lambda x: torch.sum(a * (x - c) ** 2 + 0.1 * (x - c) ** 4)  # noqa: E731
+    vg = value_and_grad(fun)
+    r = k_lbfgs.Buffers.alloc(n, 3, cuda_device)
+    k_lbfgs.reset(r, x0, max_iters=12, gtol=0.0)
+
+    def evaluate():
+        if not int(r.si[k_lbfgs.I_DONE]):
+            f, g = vg(r.vec[k_lbfgs.XT].clone())
+            r.sf[k_lbfgs.F_PHI_T] = f
+            r.vec[k_lbfgs.GT].copy_(g)
+
+    run = _k10_lockstep(r, evaluate, 200)
+    assert int(r.si[k_lbfgs.I_K]) > 4 and int(r.si[k_lbfgs.I_COUNT]) == 3, run
+
+
+def test_k10_solve_on_card(cuda_device):  # noqa: F811
+    """DeviceLBFGS from the fixture's state: JAX's n_iters at 1, 2 and 5
+    iterations with x within chip_smoke.py's phase-13 bound; two solves bit
+    for bit; the graphed solve equal to the same steps through the wrappers
+    one launch at a time; one device read a replay."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+
+    problem, params, colloc, admm, fx = _k10_fixture_state(cuda_device)
+    x0, _ = ravel_tree(params)
+    off = k_lbfgs.net_offset(params)
+    solver = k_lbfgs.DeviceLBFGS(problem)
+    x0_np = fx["x0"].astype(np.float64)
+    assert np.array_equal(x0.cpu().numpy(), fx["x0"])
+    for k in (1, 2, 5):
+        replays, syncs = k_lbfgs.GRAPH_REPLAYS, host_lbfgs.HOST_SYNCS
+        res = solver.minimize(x0, off, colloc, admm, 10.0, max_iters=k)
+        assert k_lbfgs.GRAPH_REPLAYS - replays == host_lbfgs.HOST_SYNCS - syncs >= 1
+        want = fx[f"x_{k}"].astype(np.float64)
+        err = float(np.abs(res.x.cpu().numpy() - want).max())
+        bound = 1e-2 * float(np.abs(want - x0_np).max()) + 1e-6 * float(np.abs(want).max())
+        assert err <= bound and res.n_iters == int(fx[f"n_iters_{k}"]), (k, err, bound, res)
+    again = solver.minimize(x0, off, colloc, admm, 10.0, max_iters=5)
+    assert torch.equal(again.x, res.x) and torch.equal(again.f, res.f)
+    assert (again.n_iters, again.n_evals) == (res.n_iters, res.n_evals)
+
+    b = k_lbfgs.Buffers.alloc(x0.numel(), 50, cuda_device)
+    z, dual = admm.z.clone(), admm.dual.clone()
+
+    def k3():
+        k_fused.fused_value_and_grad(
+            problem.spec, b.vec[k_lbfgs.XT, off:], b.vec[k_lbfgs.GT, off:],
+            b.sf[k_lbfgs.F_PHI_T:k_lbfgs.F_PHI_T + 1], problem.x_data,
+            problem.targets["u"].contiguous(), colloc, z, dual, rho=10.0, skip=b.si[:1],
+            **k_fused.loss_config(problem.exp))
+
+    k_lbfgs.reset(b, x0, max_iters=5)
+    stepwise = k_lbfgs.run_steps(b, k3)
+    assert torch.equal(stepwise.x, res.x) and stepwise.n_evals == res.n_evals

@@ -26,6 +26,7 @@ MODULES = [
     "pinns_tpu_torch.ops.kernels.mlp_forward", "pinns_tpu_torch.opt.lbfgs",
     "pinns_tpu_torch.data.generators", "pinns_tpu_torch.ops.kernels.taylor1",
     "pinns_tpu_torch.ops.weakform", "pinns_tpu_torch.ops.kernels.weakform",
+    "pinns_tpu_torch.ops.kernels.lbfgs",
 ]
 
 
