@@ -15,8 +15,9 @@ and serving them (export --calibrate / --select, predict --bands, eval
 --artifact, HTTP bands over K8s: K1 with a member axis and the member
 reduction), and K9: the fused step's chunks (solo K3 and K8) as captured
 CUDA graphs, replayed from a device-side epoch cursor, and K10: the L-BFGS
-solve of the hybrid phase on the device (K3's value-and-grad, the control and
-direction kernels, replayed from a captured graph).
+solve of the hybrid phase on the device (K3's value-and-grad, the control
+kernel and the direction kernel on a thread block cluster, replayed from a
+captured graph).
 
     python3 chip_smoke.py
 
@@ -134,7 +135,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   22 euler-train  euler_admm through Trainer.train at the fixture's reduced
             schedule for JAX's three band seeds: no plain call, every epoch
             on K7a and K5, the median rel-L2 of each field in the band of
-            JAX's three seeds; euler_admm_tuned once at the same schedule
+            JAX's three seeds; euler_admm_tuned once for UNHELD_EPOCHS
             (curriculum, field weights; its rel-L2 printed, not held)
   times     the Euler epoch (CUDA events) and a 1,000-epoch chunk; K7a and
             its backward against autograd through plain at N 1,000 and 65,536
@@ -161,8 +162,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             schedule (3,000 epochs of the cosine schedule, uncut) for JAX's
             three band seeds: every epoch on K7b, K7a and K5, no plain call,
             the median u rel-L2 in the band of JAX's three seeds;
-            euler_inverse once (rel-L2 and the identified viscosity printed,
-            not held)
+            euler_inverse once for UNHELD_EPOCHS (rel-L2 and the identified
+            viscosity printed, not held)
   times     K7b's edge points, quadrature and backward against the plain
             versions (CUDA events) at N 1,000 and 65,536 beside their bounds;
             each weak preset's epoch (events) and a 1,000-epoch chunk
@@ -257,7 +258,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the host loop in K10_TURNS alternating turns (ms, device time,
             launches and host syncs per iteration), each kernel's device time
             on the heaviest input the solve met beside its plain version and
-            its bound
+            its bound; the layouts (csrc/lbfgs.cu): the direction kernel
+            (a cluster: the pairs resident at the fixture's 3,023 params)
+            taking the descent guard (a seeded history, an uphill gamma) and
+            the streamed design at the scope's largest net (K10_WIDE params,
+            a quartic valley stepped in lockstep) bit for bit against their
+            plain versions; the direction kernel's streamed design timed
+            on the same heaviest input as the plan's resident one
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -389,6 +396,10 @@ K7A_MAIN = (EULER, 1_000)
 K7A_NARROW_MAIN = (NARROW, 16_000)
 K7A_TIMES = [(EULER, 1_000), (EULER, 65_536), K7A_NARROW_MAIN, (NARROW, 25_600)]
 EULER_MARGIN = 0.05  # as BAND_MARGIN: three JAX seeds at the reduced schedule
+# the epochs of the runs printed and held to no band (euler_admm_tuned in
+# phase 22, euler_inverse in phase 26): two logs of the loss (log_every
+# 1,000), so that its fall is checked, and well inside the time limit
+UNHELD_EPOCHS = 2_000
 # published peaks of one H100 SXM (dense), for the bounds in the kernels line
 PEAK_FP32, PEAK_BF16, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
@@ -2193,7 +2204,8 @@ def reduced_euler(preset: str, epochs: int, seed: int):
 
 def phase_euler_train(card: str) -> dict:
     """22: euler_admm at the fixture's reduced schedule for JAX's three band
-    seeds, the median rel-L2 of each field in the band; euler_admm_tuned once."""
+    seeds, the median rel-L2 of each field in the band; euler_admm_tuned once
+    for UNHELD_EPOCHS."""
     fx = euler_fixture()
     epochs, seeds, band_rel = int(fx["band_epochs"]), fx["band_seeds"].tolist(), fx["band_rel_l2"]
     band = {f: (float(band_rel[:, i].min()) - EULER_MARGIN,
@@ -2210,11 +2222,13 @@ def phase_euler_train(card: str) -> dict:
     for f in EULER_FIELDS:
         check(band[f][0] <= median[f] <= band[f][1],
               f"median {f} rel-L2 {median[f]} outside the JAX band {band[f]}")
-    _, tuned, logs, t_launches, t_wall = reduced_euler("euler_admm_tuned", epochs, seeds[0])
+    _, tuned, logs, t_launches, t_wall = reduced_euler("euler_admm_tuned", UNHELD_EPOCHS,
+                                                        seeds[0])
     emit(card, phase="euler-train", preset="euler_admm", epochs=epochs, runs=runs,
          median_rel_l2=median, band={f: list(b) for f, b in band.items()},
          jax_seeds={str(s): dict(zip(EULER_FIELDS, r)) for s, r in zip(seeds, band_rel.tolist())},
-         tuned={"seed": seeds[0], **{f: tuned[f"rel_l2_{f}"] for f in EULER_FIELDS},
+         tuned={"seed": seeds[0], "epochs": UNHELD_EPOCHS,
+                **{f: tuned[f"rel_l2_{f}"] for f in EULER_FIELDS},
                 "wall_s": t_wall, "launches": t_launches, "held": False})
     return first
 
@@ -2654,8 +2668,8 @@ def reduced_weak(preset: str, epochs: int, seed: int, out_dir: str = None):
 def phase_weak_train(card: str) -> dict:
     """26: twosin_weak at the fixture's reduced schedule (3,000 epochs of the
     preset's cosine schedule, uncut) for JAX's three band seeds, the median
-    u rel-L2 in the band of JAX's three; euler_inverse once (printed, not
-    held)."""
+    u rel-L2 in the band of JAX's three; euler_inverse once for
+    UNHELD_EPOCHS (printed, not held)."""
     fx = weak_fixture()
     epochs, seeds = int(fx["band_epochs"]), fx["band_seeds"].tolist()
     band = (float(fx["band_rel_l2"].min()) - WEAK_MARGIN,
@@ -2670,12 +2684,14 @@ def phase_weak_train(card: str) -> dict:
             first = {"twosin_weak": trainer, "launches": launches, "wall_s": wall}
     median = statistics.median(r["rel_l2_u"] for r in runs)
     check(band[0] <= median <= band[1], f"median u rel-L2 {median} outside the JAX band {band}")
-    trainer, inv, logs, inv_launches, inv_wall = reduced_weak("euler_inverse", epochs, seeds[0])
+    trainer, inv, logs, inv_launches, inv_wall = reduced_weak("euler_inverse", UNHELD_EPOCHS,
+                                                              seeds[0])
     first.update(euler_inverse=trainer, euler_launches=inv_launches)
     emit(card, phase="weak-train", preset="twosin_weak", epochs=epochs, runs=runs,
          median_rel_l2_u=median, band=list(band),
          jax_seeds=dict(zip(map(str, seeds), fx["band_rel_l2"].tolist())),
-         euler_inverse={"seed": seeds[0], **{f: inv[f"rel_l2_{f}"] for f in EULER_FIELDS},
+         euler_inverse={"seed": seeds[0], "epochs": UNHELD_EPOCHS,
+                        **{f: inv[f"rel_l2_{f}"] for f in EULER_FIELDS},
                         "nu": inv["lambda2"], "wall_s": inv_wall, "launches": inv_launches,
                         "loss": [logs[0]["loss"], logs[-1]["loss"]], "held": False})
     return first
@@ -4096,6 +4112,7 @@ def phase_ens_serve_times(card: str, serve: dict) -> dict:
 
 K10_TURNS = 5  # alternating long solves a side (K10, the host loop) for the times
 K10_REPS = 20  # launches a kernel's device time is averaged over
+K10_WIDE = 31_811  # the scope's largest net: 32 layers of width 32 and two coefficients
 PROFILE_TRIES = 3  # profiler windows tried before a device time is "not measured"
 
 
@@ -4169,6 +4186,57 @@ def k10_bounds(n: int, count: int, n_f: int, n_u: int) -> dict:
                                      f32 * ((2 * count + 2) * n + count + 3 * n)),
             "lbfgs_reset": bound([(0.0, PEAK_FP32)], f32 * 4 * n),
             "fused_value_and_grad": narrow_grad_bound(NARROW, n_f, n_u)}
+
+
+def k10_layout_checks(n: int, m: int) -> dict:
+    """The direction kernel against its plain version on the descent guard
+    (a seeded full history with an uphill gamma) at n params, and both
+    kernels in lockstep with their plain versions on the streamed design at
+    the scope's largest net (K10_WIDE params, a quartic valley, a history of
+    m): every buffer bit-equal after every launch."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import value_and_grad
+
+    def same(b, twin, what):
+        torch.cuda.synchronize()
+        for name, got, want in zip(("si", "sf", "vec", "hist", "rho"), b.tensors(),
+                                   twin.tensors()):
+            check(torch.equal(got, want), f"K10 {what} differs from its plain version in {name}")
+
+    guard = k_lbfgs.seeded_state(n, m, m, 9, seed=37, device="cuda", gamma=-1.0)
+    twin = guard.clone()
+    k_lbfgs.direction(guard)
+    k_lbfgs.direction_reference(twin)
+    same(guard, twin, "direction kernel on the descent guard")
+    check(k_lbfgs.branches_taken(guard) == ["descent_guard"], "the descent guard was not taken")
+
+    plan = k_lbfgs.cluster_plan(K10_WIDE, m)
+    check(not plan.resident, f"the plan at {K10_WIDE} params is resident")
+    rng = np.random.default_rng(K10_WIDE)
+    a = torch.from_numpy(rng.uniform(0.5, 5.0, K10_WIDE).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.standard_normal(K10_WIDE).astype(np.float32)).cuda()
+    vg = value_and_grad(lambda x: torch.sum(a * (x - c) ** 2 + 0.1 * (x - c) ** 4))
+    b = k_lbfgs.Buffers.alloc(K10_WIDE, m, "cuda")
+    k_lbfgs.reset(b, torch.zeros(K10_WIDE, device="cuda"), max_iters=8, gtol=0.0)
+    steps = 0
+    while not int(b.si[k_lbfgs.I_DONE]):
+        f, g = vg(b.vec[k_lbfgs.XT].clone())
+        b.sf[k_lbfgs.F_PHI_T] = f
+        b.vec[k_lbfgs.GT].copy_(g)
+        for which, kernel, plain in (("control", k_lbfgs.control, k_lbfgs.control_reference),
+                                     ("direction", k_lbfgs.direction,
+                                      k_lbfgs.direction_reference)):
+            twin = b.clone()
+            kernel(b)
+            plain(twin)
+            same(b, twin, f"{which} kernel (streamed, step {steps})")
+        steps += 1
+    return {"descent_guard": {"n": n, "count": m, "bit_equal": True},
+            "streamed": {"n": K10_WIDE, "m": m, "plan": dataclasses.asdict(plan),
+                         "steps": steps, "n_iters": int(b.si[k_lbfgs.I_K]),
+                         "count_at_end": int(b.si[k_lbfgs.I_COUNT]),
+                         "branches": k_lbfgs.branches_taken(b), "bit_equal": True},
+            "plan": dataclasses.asdict(k_lbfgs.cluster_plan(n, m))}
 
 
 def phase_k10(card: str) -> dict:
@@ -4256,6 +4324,8 @@ def phase_k10(card: str) -> dict:
     stepwise = k_lbfgs.result(b, k_lbfgs.read_head(b))
     branches = k_lbfgs.branches_taken(b)
     check("direction" in snaps and "control" in snaps, "the lockstep ended no iteration")
+    check(k_lbfgs.cluster_plan(n, cfg.history).resident, "the fixture's plan is not resident")
+    layouts = k10_layout_checks(n, cfg.history)
 
     # -- the graphed solve: JAX's iterates at 1, 2, 5; the long solve's f in
     # the band and at or below the 5-iteration f; equal to the stepwise solve
@@ -4341,12 +4411,23 @@ def phase_k10(card: str) -> dict:
 
     kern = {}
     for which, kernel, plain in (
-            ("lbfgs_control", k_lbfgs._launch_control, k_lbfgs.control_reference),
+            ("lbfgs_control", k_lbfgs._launch_control,
+             k_lbfgs.control_reference),
             ("lbfgs_direction", lambda w: k_lbfgs._launch_direction(w, launch_only=True),
              k_lbfgs.direction_reference)):
         snap = snaps[which.split("_")[1]]
         ms = graph_ms(lambda: (restore(snap), kernel(work))) - graph_ms(lambda: restore(snap))
         kern[which] = (ms, event_ms(lambda: (restore(snap), plain(work))))
+    # the direction kernel's streamed design on the same input (the plan's
+    # resident design is in kern)
+    streamed = k_lbfgs.ClusterPlan(False, -(-n // k_lbfgs.THREADS),
+                                   k_lbfgs.direction_smem(n, cfg.history, False))
+    snap = snaps["direction"]
+    restore(snap)
+    k_lbfgs._launch_direction(work, plan=streamed)  # sets the design up
+    layouts["ms"] = {"direction_streamed": graph_ms(
+        lambda: (restore(snap), k_lbfgs._launch_direction(work, True, streamed)))
+        - graph_ms(lambda: restore(snap))}
     consts = k_lbfgs.solve_constants(ftol=cfg.ftol, gtol=cfg.gtol)
     kern["lbfgs_reset"] = (
         graph_ms(lambda: k_lbfgs._launch_reset(work, x0, LONG_SOLVE, cfg.max_ls, consts)),
@@ -4378,6 +4459,7 @@ def phase_k10(card: str) -> dict:
                                 "host_loop_f": float(ref.f)},
          times=times, kernels={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": bounds[k][0],
                                    "bound_by": bounds[k][1]} for k, v in kern.items()},
+         layouts=layouts,
          value_and_grad_host_call_ms=vg_host_ms,
          clock="host for the solves, the profiler for their device time, events over "
                "captured graphs for the kernels, events for the plain versions")

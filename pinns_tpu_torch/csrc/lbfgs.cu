@@ -42,32 +42,64 @@
 // numpy rounds them. min and max propagate NaN, as jnp.minimum / maximum do.
 //
 // Every sum runs in one fixed order, so two solves from one state agree bit
-// for bit (no atomics): a thread sums entries t, t + 1024, ... in turn, a
-// warp's 32 sums meet in a butterfly (offsets 16, 8, 4, 2, 1), and the 32
-// warps' sums in the same butterfly (block_sum). The plain versions in
-// ops/kernels/lbfgs.py spell the same order, so they agree with these
-// kernels bit for bit.
+// for bit (no atomics): a virtual block of 1024 threads, thread t summing
+// entries t, t + 1024, ... in turn, a warp's 32 sums meeting in a butterfly
+// (offsets 16, 8, 4, 2, 1), and the 32 warps' sums in the same tree. The
+// plain versions in ops/kernels/lbfgs.py spell that order
+// (block_sum_reference), so they agree with these kernels bit for bit.
 //
-// What bounds it on the H100: latency, on one SM. Each kernel is one block
-// of 1024 threads: at abgrall_admm's 8x20 (n = 3,023) the vectors are 12 KB,
-// and the two-loop at a full history (m = 50) reads 1.2 MB of (s, y) pairs
-// that stay in the 50 MB L2; its bound is those bytes (0.37 us at
-// 3.35 TB/s), its time the 2 count dependent block reductions, about 1 us a
-// step (PERF.md §6). The direction kernel holds q in registers (up to
-// 8 entries a thread; shared memory beyond 8,192) and issues each step's
-// loads before its reduction. The search's steps cost one to four
-// reductions. A cluster that holds the history across the shared memory of
-// 16 CTAs is later work.
+// The layout: the reset and control kernels run that virtual block as one
+// block (the control kernel's warp sums meet behind one __syncthreads); the
+// direction kernel runs it as a thread block cluster of kCtas = 8 CTAs of 128
+// threads. Local thread j of rank c is virtual thread 128 c + j and owns the
+// same entries as in one block. On the cluster a sum never passes a
+// __syncthreads or a cluster barrier: each warp reduces its
+// part by the butterfly, and lane r < 8 sends the warp's sum to CTA r, into
+// slot red[turn][k][warp] of its shared memory: by st.async, whose bytes
+// complete CTA r's mbarrier bar[turn] (release, cluster scope), or, to its
+// own CTA, by a shared store and an arrival. Every warp of every CTA waits
+// on its own CTA's barrier (acquire) and runs the 32-way tree on the 32
+// sums in warp order, so every CTA holds the same bits. The two turns make
+// the slots safe to reuse: no warp can reach exchange j + 2 before every
+// warp has sent exchange j + 1, which each does after reading exchange j's
+// sums. One exchange carries up to kMaxSums sums (d.g and sum|g| here; the
+// control kernel's s.y, s.s and y.y behind its one barrier), each in its own
+// tree. Thread 0 of every CTA does the
+// scalar work on identical inputs; rank 0 alone writes si and sf. One
+// cluster barrier follows the mbarriers' initialisation, and one precedes
+// the exit (no CTA exits while another may still write into its shared
+// memory); both are split into an arrive and a later wait.
+//
+// What bounds it on the H100: latency. At abgrall_admm's 8x20 (n = 3,023)
+// the vectors are 12 KB, and the two-loop at a full history (m = 50) reads
+// 1.2 MB of (s, y) pairs; its bound is those bytes once (0.37 us at
+// 3.35 TB/s), its time 2 count dependent exchanges of about 0.5 us each
+// (scripts/k10_step_clock.py: the butterfly, the DSMEM round trip and the
+// tree). Spread over 8 SMs, a step reads 3 KB an SM, and loading the next
+// step's vector before each exchange hides L2's latency. The direction
+// kernel's *resident* design also keeps each CTA's entries of the pairs in
+// its shared memory, stored as the first loop reads them, so the second
+// loop reads no global memory and each pair leaves L2 once a launch; the
+// *streamed* design reads them again (the scope's deepest nets, whose pairs
+// no CTA holds). q lives in registers up to 8 entries a thread, else in
+// shared memory.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 namespace k10 {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;  // the virtual block
 constexpr int kWarps = kThreads / 32;
-constexpr size_t kSmemLimit = 232448;  // a block's shared memory on sm_90 (227 KB)
+constexpr int kMaxSums = 3;                // sums one exchange carries
+constexpr int kMaxPer = 8;                 // entries of q a thread holds in registers
+constexpr int kCtas = 8;                   // the direction kernel's cluster (portable)
+constexpr int kCtaThreads = kThreads / kCtas;
+constexpr size_t kSmemLimit = 232448;      // a block's shared memory on sm_90 (227 KB)
+constexpr size_t kStaticReserve = 1024;    // the static shared memory the plan reserves (Shared)
+constexpr int kErrUnplaced = -2;           // the cluster cannot be placed on the card
 
 // the state's int slots (ops/kernels/lbfgs.py: I_DONE, ...)
 enum IntSlot {
@@ -94,13 +126,15 @@ enum Branch {
 // the control kernel's per-launch decisions (not kept)
 enum Temp { kTBetter, kTEnded, kTOk, kTStore, kTOldHead, kNumTemps };
 
-struct Shared {
+struct __align__(16) Shared {
+  float red[2][kMaxSums][kWarps];  // the exchanges' slots, two turns
+  unsigned long long bar[2];       // their mbarriers
   int i[kNumInts];
   float f[kNumFloats];
   int t[kNumTemps];
   float f_old;
-  float red[2][kWarps];
 };
+static_assert(sizeof(Shared) <= kStaticReserve, "Shared outgrew the plan's reserve");
 
 struct Consts {
   float c1, c2, ftol, gtol, eps_dead, eps_curv, tiny, a_max, eps_step;
@@ -126,33 +160,196 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The block's sum of every thread's v, in every thread: the lanes by a
-// butterfly, the 32 warp sums by the same butterfly. One barrier; the two
-// halves of red take turns, so the next reduction never writes a half that
-// a thread may still read.
-__device__ __forceinline__ float block_sum(float v, Shared& sh, int& turn) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) sh.red[turn][threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = warp_sum(sh.red[turn][threadIdx.x & 31]);
-  turn ^= 1;
-  return v;
+template <bool kMax>
+__device__ __forceinline__ float combine(float a, float b) {
+  return kMax ? max_nan(a, b) : __fadd_rn(a, b);
 }
 
-__device__ __forceinline__ float block_max(float v, Shared& sh, int& turn) {
-  v = warp_max(v);
-  if ((threadIdx.x & 31) == 0) sh.red[turn][threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = warp_max(sh.red[turn][threadIdx.x & 31]);
-  turn ^= 1;
-  return v;
+// The 32 warp sums w (shared memory, warp order) in the butterfly's tree,
+// in registers: w[l] + w[l + off] for off = 16, ..., 1, lane 0's sum bit for
+// bit (every lane of the butterfly holds it). Each level a loop of constant
+// bounds, so that r stays in registers.
+template <bool kMax>
+__device__ __forceinline__ float tree32(const float* w) {
+  float r[kWarps];
+#pragma unroll
+  for (int l = 0; l < kWarps; l += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(w + l);
+    r[l] = v.x;
+    r[l + 1] = v.y;
+    r[l + 2] = v.z;
+    r[l + 3] = v.w;
+  }
+#pragma unroll
+  for (int l = 0; l < 16; ++l) r[l] = combine<kMax>(r[l], r[l + 16]);
+#pragma unroll
+  for (int l = 0; l < 8; ++l) r[l] = combine<kMax>(r[l], r[l + 8]);
+#pragma unroll
+  for (int l = 0; l < 4; ++l) r[l] = combine<kMax>(r[l], r[l + 4]);
+#pragma unroll
+  for (int l = 0; l < 2; ++l) r[l] = combine<kMax>(r[l], r[l + 2]);
+  return combine<kMax>(r[0], r[1]);
 }
 
-// This thread's part of a . b: entries t, t + kThreads, ... in turn.
-__device__ __forceinline__ float dot_part(const float* a, const float* b, int n) {
-  float p = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) p = __fadd_rn(p, __fmul_rn(a[i], b[i]));
-  return p;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_ranks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `addr` (this CTA's shared memory) in CTA `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Relaxed: the arrive orders no memory (a release here is a GPU-scope
+// MEMBAR). The barriers' initialisation is published by
+// fence.mbarrier_init; the exit's barrier only keeps every CTA alive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// This thread's virtual thread: rank * blockDim.x + threadIdx.x.
+__device__ __forceinline__ int virtual_thread() {
+  return static_cast<int>(cluster_rank() * blockDim.x + threadIdx.x);
+}
+
+// One exchange's state in every thread: the turn, the two barriers' phase
+// parities, and where the thread sits in the virtual block. kCluster false:
+// the control kernel's one block, whose sums meet behind a __syncthreads.
+template <bool kCluster>
+struct Exchange {
+  Shared* sh;
+  uint32_t rank, ranks;
+  int t;  // the virtual thread: rank * blockDim.x + threadIdx.x
+  int turn;
+  uint32_t parity;
+};
+
+// Initialise the exchange's barriers and arrive on the cluster barrier that
+// publishes them; the caller waits on it (cluster_wait) before its first
+// gather. A phase of bar[turn] completes after one arrival a warp of this
+// CTA (its own sum, stored locally), thread 0's arrival that expects the
+// bytes of the other CTAs' warps, and those bytes.
+template <bool kCluster>
+__device__ __forceinline__ Exchange<kCluster> exchange_begin(Shared& sh) {
+  Exchange<kCluster> ex;
+  if constexpr (kCluster) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(&sh.bar[b])),
+                     "r"(1 + static_cast<int>(blockDim.x) / 32)
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster_arrive();
+    ex.rank = cluster_rank();
+    ex.ranks = cluster_ranks();
+  } else {
+    ex.rank = 0;
+    ex.ranks = 1;
+  }
+  ex.sh = &sh;
+  ex.t = virtual_thread();
+  ex.turn = 0;
+  ex.parity = 0;
+  return ex;
+}
+
+// The virtual block's K sums (or maxima) of every thread's v[k], in every
+// thread of every CTA, each in the block's tree (see the file's head). Lane
+// r < 8 of each warp sends the warp's sums to CTA r: to its own CTA by a
+// shared store and an arrival (release), to the others by st.async, whose
+// bytes complete the remote barrier's transaction count (release, cluster
+// scope); every thread waits on its own CTA's barrier (acquire, cluster).
+// One block: lane 0 of each warp stores, then one __syncthreads.
+template <int K, bool kMax, bool kCluster>
+__device__ __forceinline__ void gather(float (&v)[K], Exchange<kCluster>& ex) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = kMax ? warp_max(v[k]) : warp_sum(v[k]);
+  Shared& sh = *ex.sh;
+  const uint32_t lane = threadIdx.x & 31;
+  const int warp = ex.t >> 5;
+  if constexpr (!kCluster) {
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) sh.red[ex.turn][k][warp] = v[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = tree32<kMax>(sh.red[ex.turn][k]);
+    ex.turn ^= 1;
+    return;
+  }
+  const uint32_t bar = smem_addr(&sh.bar[ex.turn]);
+  uint64_t state;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 %0, [%1], %2;"
+                 : "=l"(state)
+                 : "r"(bar), "r"(K * 4 * (kWarps - static_cast<int>(blockDim.x) / 32))
+                 : "memory");
+  }
+  if (lane == ex.rank) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) sh.red[ex.turn][k][warp] = v[k];
+    asm volatile("mbarrier.arrive.release.cta.shared::cta.b64 %0, [%1];"
+                 : "=l"(state)
+                 : "r"(bar)
+                 : "memory");
+  } else if (lane < ex.ranks) {
+    const uint32_t remote_bar = map_rank(bar, lane);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      asm volatile(
+          "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+              map_rank(smem_addr(&sh.red[ex.turn][k][warp]), lane)),
+          "r"(__float_as_uint(v[k])), "r"(remote_bar)
+          : "memory");
+    }
+  }
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "K10_WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@!P1 bra K10_WAIT;\n}" ::"r"(bar),
+      "r"((ex.parity >> ex.turn) & 1u)
+      : "memory");
+  ex.parity ^= 1u << ex.turn;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = tree32<kMax>(sh.red[ex.turn][k]);
+  ex.turn ^= 1;
+}
+
+template <bool kCluster>
+__device__ __forceinline__ float gather_sum(float v, Exchange<kCluster>& ex) {
+  float s[1] = {v};
+  gather<1, false>(s, ex);
+  return s[0];
+}
+
+template <bool kCluster>
+__device__ __forceinline__ float gather_max(float v, Exchange<kCluster>& ex) {
+  float s[1] = {v};
+  gather<1, true>(s, ex);
+  return s[0];
 }
 
 __device__ __forceinline__ void load_state(Shared& sh, const int* si, const float* sf) {
@@ -161,10 +358,13 @@ __device__ __forceinline__ void load_state(Shared& sh, const int* si, const floa
   __syncthreads();
 }
 
-__device__ __forceinline__ void store_state(const Shared& sh, int* si, float* sf) {
+// Rank 0 writes the state.
+__device__ __forceinline__ void finish(const Shared& sh, int* si, float* sf, uint32_t rank) {
   __syncthreads();
-  if (threadIdx.x < kNumInts) si[threadIdx.x] = sh.i[threadIdx.x];
-  if (threadIdx.x < kNumFloats) sf[threadIdx.x] = sh.f[threadIdx.x];
+  if (rank == 0) {
+    if (threadIdx.x < kNumInts) si[threadIdx.x] = sh.i[threadIdx.x];
+    if (threadIdx.x < kNumFloats) sf[threadIdx.x] = sh.f[threadIdx.x];
+  }
 }
 
 // One evaluation (phi, dphi) at a = F[kATrial] into the search (thread 0):
@@ -278,12 +478,7 @@ __global__ void reset_kernel(int* si, float* sf, float* vec, const float* x0, in
 __global__ void __launch_bounds__(kThreads)
 control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, int m) {
   __shared__ Shared sh;
-  load_state(sh, si, sf);
-  if (sh.i[kDone]) return;
-  int* I = sh.i;
-  float* F = sh.f;
-  int* T = sh.t;
-  int turn = 0;
+  const int t = virtual_thread();
   const size_t N = n;
   float* x = vec + kX * N;
   float* g = vec + kG * N;
@@ -291,14 +486,23 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
   float* xt = vec + kXT * N;
   const float* gt = vec + kGT * N;
   float* gb = vec + kGB * N;
+  // this thread's parts of phi' = gt . d and of max|gt|, read beside the
+  // state (the first evaluation takes the maximum, every other the dot)
+  float part = 0.0f, mx = 0.0f;
+  for (int i = t; i < n; i += kThreads) {
+    part = __fadd_rn(part, __fmul_rn(gt[i], d[i]));
+    mx = max_nan(mx, fabsf(gt[i]));
+  }
+  load_state(sh, si, sf);
+  if (sh.i[kDone]) return;
+  auto ex = exchange_begin<false>(sh);
+  int* I = sh.i;
+  float* F = sh.f;
+  int* T = sh.t;
 
   if (I[kStage] == kInit) {  // the first evaluation: f and g at x0
-    float mx = 0.0f;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      g[i] = gt[i];
-      mx = max_nan(mx, fabsf(gt[i]));
-    }
-    mx = block_max(mx, sh, turn);
+    for (int i = t; i < n; i += kThreads) g[i] = gt[i];
+    mx = gather_max(mx, ex);
     if (threadIdx.x == 0) {
       F[kF] = F[kPhiT];
       I[kEvals] = 1;
@@ -309,36 +513,36 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
         I[kNeedDir] = 1;
       }
     }
-    store_state(sh, si, sf);
+    finish(sh, si, sf, 0);
     return;
   }
 
-  const float dphi = block_sum(dot_part(gt, d, n), sh, turn);
+  const float dphi = gather_sum(part, ex);
   if (threadIdx.x == 0) search_update(I, F, T, F[kPhiT], dphi);
   __syncthreads();
   if (T[kTBetter]) {
-    for (int i = threadIdx.x; i < n; i += kThreads) gb[i] = gt[i];
+    for (int i = t; i < n; i += kThreads) gb[i] = gt[i];
   }
   if (!T[kTEnded]) {  // the next trial point
     const float a = F[kATrial];
-    for (int i = threadIdx.x; i < n; i += kThreads) xt[i] = __fadd_rn(x[i], __fmul_rn(a, d[i]));
-    store_state(sh, si, sf);
+    for (int i = t; i < n; i += kThreads) xt[i] = __fadd_rn(x[i], __fmul_rn(a, d[i]));
+    finish(sh, si, sf, 0);
     return;
   }
 
-  // the end of the iteration: x_new = x + a d, s = x_new - x, y = g_new - g
+  // the end of the iteration: x_new = x + a d, s = x_new - x, y = g_new - g;
+  // s.y, s.s and y.y in one exchange, each in its own tree
   const float a = F[kABest];
-  float psy = 0.0f, pss = 0.0f, pyy = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  float p[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = t; i < n; i += kThreads) {
     const float s = __fsub_rn(__fadd_rn(x[i], __fmul_rn(a, d[i])), x[i]);
     const float y = __fsub_rn(gb[i], g[i]);
-    psy = __fadd_rn(psy, __fmul_rn(s, y));
-    pss = __fadd_rn(pss, __fmul_rn(s, s));
-    pyy = __fadd_rn(pyy, __fmul_rn(y, y));
+    p[0] = __fadd_rn(p[0], __fmul_rn(s, y));
+    p[1] = __fadd_rn(p[1], __fmul_rn(s, s));
+    p[2] = __fadd_rn(p[2], __fmul_rn(y, y));
   }
-  const float sy = block_sum(psy, sh, turn);
-  const float ss = block_sum(pss, sh, turn);
-  const float yy = block_sum(pyy, sh, turn);
+  gather<3, false>(p, ex);
+  const float sy = p[0], ss = p[1], yy = p[2];
   if (threadIdx.x == 0) {
     const bool ok = T[kTOk];
     const float ns = __fsqrt_rn(ss), ny = __fsqrt_rn(yy);
@@ -361,8 +565,8 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
   const bool ok = T[kTOk], store = T[kTStore];
   float* hs = hist + static_cast<size_t>(T[kTOldHead]) * N;
   float* hy = hist + (static_cast<size_t>(m) + T[kTOldHead]) * N;
-  float mx = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  mx = 0.0f;
+  for (int i = t; i < n; i += kThreads) {
     const float xn = __fadd_rn(x[i], __fmul_rn(a, d[i]));
     if (store) {
       hs[i] = __fsub_rn(xn, x[i]);
@@ -374,7 +578,7 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
     }
     mx = max_nan(mx, fabsf(g[i]));
   }
-  mx = block_max(mx, sh, turn);
+  mx = gather_max(mx, ex);
   if (threadIdx.x == 0) {  // SciPy's stopping rules
     const float f_old = sh.f_old, f = F[kF];
     const bool g_small = mx <= F[kGtol];
@@ -391,190 +595,264 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
       I[kNeedDir] = 1;
     }
   }
-  store_state(sh, si, sf);
+  finish(sh, si, sf, 0);
 }
 
-// The pair j of the first loop (newest first) and of the second (oldest
-// first) in the circular history.
+// The pair j of the first loop (newest first) in the circular history; the
+// second loop walks the same slots back (j = count - 1, ..., 0).
 __device__ __forceinline__ int newest(int head, int j, int m) { return ((head - 1 - j) % m + m) % m; }
-__device__ __forceinline__ int oldest(int head, int count, int j, int m) {
-  return ((head - count + j) % m + m) % m;
-}
 
-// The two-loop recursion, d = -r, with q (then r) in registers: a thread
-// holds entries t, t + kThreads, ..., kPer of them (n <= kThreads kPer). Each step
-// issues the loads of its axpy's vector and of the next step's dot vector
-// before its reduction, so that their latency (L2) runs under the barrier.
-// The arithmetic and its order are two_loop_shared's.
+// q (then r) of this thread: kPer entries in registers, or (kPer = 0) its
+// per entries in shared memory, entry k at s[k * blockDim.x].
 template <int kPer>
-__device__ void two_loop_registers(float* d, const float* g, const float* hist, const float* rho,
-                                   float* alpha, int n, int m, int count, int head, float gamma,
-                                   Shared& sh, int& turn) {
-  const size_t N = n;
-  float q[kPer], a[kPer], b[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    q[k] = i < n ? g[i] : 0.0f;
-  }
-  // first loop: alpha = rho s.q, q -= alpha y; a holds s, b holds y
-  if (count > 0) {
-    const float* s = hist + static_cast<size_t>(newest(head, 0, m)) * N;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      a[k] = i < n ? s[i] : 0.0f;
-    }
-  }
-  for (int j = 0; j < count; ++j) {
-    const int idx = newest(head, j, m);
-    const float* y = hist + (static_cast<size_t>(m) + idx) * N;
-    const float* s_next = hist + static_cast<size_t>(newest(head, j + 1, m)) * N;
-    float nxt[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      b[k] = i < n ? y[i] : 0.0f;
-      nxt[k] = i < n && j + 1 < count ? s_next[i] : 0.0f;
-    }
-    float p = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (threadIdx.x + k * kThreads < n) p = __fadd_rn(p, __fmul_rn(a[k], q[k]));
-    }
-    const float al = __fmul_rn(rho[idx], block_sum(p, sh, turn));
-    if (threadIdx.x == 0) alpha[idx] = al;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      q[k] = __fsub_rn(q[k], __fmul_rn(al, b[k]));
-      a[k] = nxt[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) q[k] = __fmul_rn(gamma, q[k]);
-  // second loop: beta = rho y.r, r += (alpha - beta) s; a holds y, b holds s
-  if (count > 0) {
-    const float* y = hist + (static_cast<size_t>(m) + oldest(head, count, 0, m)) * N;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      a[k] = i < n ? y[i] : 0.0f;
-    }
-  }
-  for (int j = 0; j < count; ++j) {
-    const int idx = oldest(head, count, j, m);
-    const float* s = hist + static_cast<size_t>(idx) * N;
-    const float* y_next = hist + (static_cast<size_t>(m) + oldest(head, count, j + 1, m)) * N;
-    float nxt[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      b[k] = i < n ? s[i] : 0.0f;
-      nxt[k] = i < n && j + 1 < count ? y_next[i] : 0.0f;
-    }
-    float p = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (threadIdx.x + k * kThreads < n) p = __fadd_rn(p, __fmul_rn(a[k], q[k]));
-    }
-    // alpha[idx] was written before the first loop's last barrier
-    const float beta = __fmul_rn(rho[idx], block_sum(p, sh, turn));
-    const float corr = __fsub_rn(alpha[idx], beta);
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      q[k] = __fadd_rn(q[k], __fmul_rn(corr, b[k]));
-      a[k] = nxt[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    if (i < n) d[i] = -q[k];
-  }
-}
+struct QVec {
+  float r[kPer];
+  __device__ __forceinline__ float& operator[](int k) { return r[k]; }
+};
+template <>
+struct QVec<0> {
+  float* s;
+  __device__ __forceinline__ float& operator[](int k) { return s[k * blockDim.x]; }
+};
 
-// The two-loop recursion for any n, q (then r) in shared memory (n floats),
-// a thread its own entries: no barrier but the reductions'.
-__device__ void two_loop_shared(float* d, const float* g, const float* hist, const float* rho,
-                                float* alpha, float* q, int n, int m, int count, int head,
-                                float gamma, Shared& sh, int& turn) {
-  const size_t N = n;
-  for (int i = threadIdx.x; i < n; i += kThreads) q[i] = g[i];
-  for (int j = 0; j < count; ++j) {
-    const int idx = newest(head, j, m);
-    const float* s = hist + static_cast<size_t>(idx) * N;
-    const float* y = hist + (static_cast<size_t>(m) + idx) * N;
-    const float al = __fmul_rn(rho[idx], block_sum(dot_part(s, q, n), sh, turn));
-    if (threadIdx.x == 0) alpha[idx] = al;
-    for (int i = threadIdx.x; i < n; i += kThreads) q[i] = __fsub_rn(q[i], __fmul_rn(al, y[i]));
-  }
-  for (int i = threadIdx.x; i < n; i += kThreads) q[i] = __fmul_rn(gamma, q[i]);
-  for (int j = 0; j < count; ++j) {
-    const int idx = oldest(head, count, j, m);
-    const float* s = hist + static_cast<size_t>(idx) * N;
-    const float* y = hist + (static_cast<size_t>(m) + idx) * N;
-    const float beta = __fmul_rn(rho[idx], block_sum(dot_part(y, q, n), sh, turn));
-    const float corr = __fsub_rn(alpha[idx], beta);
-    for (int i = threadIdx.x; i < n; i += kThreads) q[i] = __fadd_rn(q[i], __fmul_rn(corr, s[i]));
-  }
-  for (int i = threadIdx.x; i < n; i += kThreads) d[i] = -q[i];
-}
-
-// Dynamic shared memory: alpha (m floats), then, above kMaxPer x kThreads
-// entries, q (n floats).
-constexpr int kMaxPer = 8;
-
-__global__ void __launch_bounds__(kThreads)
+// The direction kernel: one cluster of kCtas = 8 CTAs of 128 threads, the
+// virtual block's thread t owning entries t, t + 1024, ...
+// (per of them). kPer: q in registers (1, 2, 4, 8 entries) or in shared
+// memory (0). The first loop reads each pair from global memory (L2), the
+// next step's dot vector loaded before each exchange; kResident: it also
+// stores this thread's entries into the CTA's shared memory, from which the
+// second loop reads them (else from global memory again, the streamed
+// design). Dynamic shared memory, in floats: alpha (a row of m for each
+// warp: its lane 0 writes, its lanes read), rho of the count newest pairs
+// (m), their slots in the circular history (m ints), q when kPer = 0 (per x
+// blockDim.x), the resident pairs (slot j's s, then its y, each per x
+// blockDim.x, m slots).
+template <int kPer, bool kResident>
+__global__ void __launch_bounds__(kCtaThreads)
 direction_kernel(int* si, float* sf, float* vec, const float* hist, const float* rho, int n,
                  int m) {
   __shared__ Shared sh;
-  extern __shared__ float dyn[];
-  load_state(sh, si, sf);
-  if (sh.i[kDone] || !sh.i[kNeedDir]) return;
-  int* I = sh.i;
-  float* F = sh.f;
-  int turn = 0;
+  extern __shared__ __align__(16) float dyn[];
+  constexpr bool kRegs = kPer > 0;
+  const int tpb = blockDim.x, tid = threadIdx.x, t = virtual_thread();
   const size_t N = n;
   const float* x = vec + kX * N;
   const float* g = vec + kG * N;
   float* d = vec + kD * N;
   float* xt = vec + kXT * N;
   float* gb = vec + kGB * N;
-  float* alpha = dyn;
-  const int count = I[kCount], head = I[kHead];
-  const float gamma = F[kGamma];
-  const int per = (n + kThreads - 1) / kThreads;
-  if (per <= 1) {
-    two_loop_registers<1>(d, g, hist, rho, alpha, n, m, count, head, gamma, sh, turn);
-  } else if (per <= 2) {
-    two_loop_registers<2>(d, g, hist, rho, alpha, n, m, count, head, gamma, sh, turn);
-  } else if (per <= 4) {
-    two_loop_registers<4>(d, g, hist, rho, alpha, n, m, count, head, gamma, sh, turn);
-  } else if (per <= kMaxPer) {
-    two_loop_registers<kMaxPer>(d, g, hist, rho, alpha, n, m, count, head, gamma, sh, turn);
-  } else {
-    two_loop_shared(d, g, hist, rho, alpha, dyn + m, n, m, count, head, gamma, sh, turn);
+  QVec<kPer> q;
+  // g's and x's entries (registers), read beside the state
+  float gr[kRegs ? kPer : 1], xr[kRegs ? kPer : 1];
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = t + k * kThreads;
+      gr[k] = i < n ? g[i] : 0.0f;
+      xr[k] = i < n ? x[i] : 0.0f;
+      q[k] = gr[k];
+    }
   }
-  float p = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads) p = __fadd_rn(p, __fmul_rn(d[i], g[i]));
-  float dg = block_sum(p, sh, turn);
+  load_state(sh, si, sf);
+  if (sh.i[kDone] || !sh.i[kNeedDir]) return;
+  const int count = sh.i[kCount], head = sh.i[kHead];
+  const float gamma = sh.f[kGamma];
+  const int per = (n + kThreads - 1) / kThreads;
+  const int walk = kRegs ? kPer : per;  // the entries a thread walks
+  // entry k of this thread exists: always below the last (kPer is per)
+  auto in_range = [&](int k) { return (kRegs && k < kPer - 1) || t + k * kThreads < n; };
+  float* alpha = dyn + (tid >> 5) * m;
+  float* rho_s = dyn + (tpb >> 5) * m;
+  int* slot = reinterpret_cast<int*>(rho_s + m);
+  float* qs = rho_s + 2 * m;
+  float* hs = qs + (kRegs ? 0 : per * tpb);
+  for (int j = tid; j < count; j += tpb) {
+    slot[j] = newest(head, j, m);
+    rho_s[j] = rho[slot[j]];
+  }
+  __syncthreads();  // rho_s and slot
+  auto ex = exchange_begin<true>(sh);
+  if constexpr (!kRegs) {
+    q.s = qs + tid;
+    for (int k = 0; k < per; ++k) {
+      const int i = t + k * kThreads;
+      q[k] = i < n ? g[i] : 0.0f;
+    }
+  }
+  cluster_wait();  // every CTA's barriers initialised
+
+  // this thread's entries of slot j's s (which 0) or y (which 1): in global
+  // memory (entry k at [k * kThreads]) and, resident, in the CTA's copy
+  // (entry k at [k * tpb]); the second loop reads them at `back`
+  auto global_row = [&](int j, int which) -> const float* {
+    return hist + (static_cast<size_t>(which) * m + slot[j]) * N + t;
+  };
+  auto copy_row = [&](int j, int which) -> float* {
+    return hs + static_cast<size_t>(2 * j + which) * per * tpb + tid;
+  };
+  auto back = [&](int j, int which) -> const float* {
+    if (kResident) return copy_row(j, which);
+    return global_row(j, which);
+  };
+  const int back_stride = kResident ? tpb : kThreads;
+
+  if constexpr (kRegs) {
+    // first loop, newest first: alpha = rho s.q, q -= alpha y; the step's
+    // dot vector a was loaded a step ahead
+    float a[kPer];
+    if (count > 0) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        a[k] = in_range(k) ? global_row(0, 0)[k * kThreads] : 0.0f;
+      }
+    }
+    for (int j = 0; j < count; ++j) {
+      const float* y = global_row(j, 1);
+      float b[kPer], nxt[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const bool valid = in_range(k);
+        b[k] = valid ? y[k * kThreads] : 0.0f;
+        nxt[k] = valid && j + 1 < count ? global_row(j + 1, 0)[k * kThreads] : 0.0f;
+      }
+      float p = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (in_range(k)) p = __fadd_rn(p, __fmul_rn(a[k], q[k]));
+      }
+      const float al = __fmul_rn(rho_s[j], gather_sum(p, ex));
+      if ((tid & 31) == 0) alpha[j] = al;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        q[k] = __fsub_rn(q[k], __fmul_rn(al, b[k]));
+        if (kResident && k < per) {  // the copy holds per entries a thread
+          copy_row(j, 0)[k * tpb] = a[k];
+          copy_row(j, 1)[k * tpb] = b[k];
+        }
+        a[k] = nxt[k];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) q[k] = __fmul_rn(gamma, q[k]);
+    // second loop, oldest first: beta = rho y.r, r += (alpha - beta) s
+    if (count > 0) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        a[k] = in_range(k) ? back(count - 1, 1)[k * back_stride] : 0.0f;
+      }
+    }
+    for (int j = count - 1; j >= 0; --j) {
+      const float* s = back(j, 0);
+      float b[kPer], nxt[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const bool valid = in_range(k);
+        b[k] = valid ? s[k * back_stride] : 0.0f;
+        nxt[k] = valid && j > 0 ? back(j - 1, 1)[k * back_stride] : 0.0f;
+      }
+      float p = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (in_range(k)) p = __fadd_rn(p, __fmul_rn(a[k], q[k]));
+      }
+      const float beta = __fmul_rn(rho_s[j], gather_sum(p, ex));
+      const float corr = __fsub_rn(alpha[j], beta);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        q[k] = __fadd_rn(q[k], __fmul_rn(corr, b[k]));
+        a[k] = nxt[k];
+      }
+    }
+  } else {
+    for (int j = 0; j < count; ++j) {
+      const float* s = global_row(j, 0);
+      const float* y = global_row(j, 1);
+      float p = 0.0f;
+      for (int k = 0; k < per; ++k) {
+        if (in_range(k)) {
+          const float sk = s[k * kThreads];
+          if (kResident) copy_row(j, 0)[k * tpb] = sk;
+          p = __fadd_rn(p, __fmul_rn(sk, q[k]));
+        }
+      }
+      const float al = __fmul_rn(rho_s[j], gather_sum(p, ex));
+      if ((tid & 31) == 0) alpha[j] = al;
+      for (int k = 0; k < per; ++k) {
+        if (in_range(k)) {
+          const float yk = y[k * kThreads];
+          if (kResident) copy_row(j, 1)[k * tpb] = yk;
+          q[k] = __fsub_rn(q[k], __fmul_rn(al, yk));
+        }
+      }
+    }
+    __syncwarp();
+    for (int k = 0; k < per; ++k) q[k] = __fmul_rn(gamma, q[k]);
+    for (int j = count - 1; j >= 0; --j) {
+      const float* y = back(j, 1);
+      const float* s = back(j, 0);
+      float p = 0.0f;
+      for (int k = 0; k < per; ++k) {
+        if (in_range(k)) p = __fadd_rn(p, __fmul_rn(y[k * back_stride], q[k]));
+      }
+      const float beta = __fmul_rn(rho_s[j], gather_sum(p, ex));
+      const float corr = __fsub_rn(alpha[j], beta);
+      for (int k = 0; k < per; ++k) {
+        if (in_range(k)) q[k] = __fadd_rn(q[k], __fmul_rn(corr, s[k * back_stride]));
+      }
+    }
+  }
+
+  // d = -r; d.g and (for the first step) sum|g| in one exchange
+  auto g_at = [&](int k, int i) {
+    if constexpr (kRegs) return gr[k];
+    else return g[i];
+  };
+  float pd[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < walk; ++k) {
+    const int i = t + k * kThreads;
+    if (in_range(k)) {
+      const float gi = g_at(k, i);
+      const float di = -q[k];
+      d[i] = di;
+      pd[0] = __fadd_rn(pd[0], __fmul_rn(di, gi));
+      pd[1] = __fadd_rn(pd[1], fabsf(gi));
+    }
+  }
+  gather<2, false>(pd, ex);
+  float dg = pd[0];
+  const float gsum = pd[1];
   const bool guard = !(dg < 0.0f);  // not a descent direction: steepest descent
   if (guard) {
-    p = 0.0f;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const float di = -g[i];
-      d[i] = di;
-      p = __fadd_rn(p, __fmul_rn(g[i], di));
+    float p = 0.0f;
+#pragma unroll
+    for (int k = 0; k < walk; ++k) {
+      const int i = t + k * kThreads;
+      if (in_range(k)) {
+        const float gi = g_at(k, i);
+        const float di = -gi;
+        d[i] = di;
+        p = __fadd_rn(p, __fmul_rn(gi, di));
+      }
     }
-    dg = block_sum(p, sh, turn);
+    dg = gather_sum(p, ex);
   }
-  float gsum = 0.0f;
-  if (count == 0) {
-    p = 0.0f;
-    for (int i = threadIdx.x; i < n; i += kThreads) p = __fadd_rn(p, fabsf(g[i]));
-    gsum = block_sum(p, sh, turn);
-  }
+  cluster_arrive();
+  // d's and x's entries: -q, or -g after the guard (the values just stored)
+  auto d_at = [&](int k, int i) {
+    if constexpr (kRegs) return guard ? -gr[k] : -q[k];
+    else return d[i];
+  };
+  auto x_at = [&](int k, int i) {
+    if constexpr (kRegs) return xr[k];
+    else return x[i];
+  };
+  const float a =
+      count == 0 ? min_nan(1.0f, __fdiv_rn(1.0f, max_nan(gsum, sh.f[kEpsStep]))) : 1.0f;
   if (threadIdx.x == 0) {
+    int* I = sh.i;
+    float* F = sh.f;
     const float f = F[kF];
     F[kDphi0] = dg;
     F[kALo] = 0.0f;
@@ -585,8 +863,7 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     F[kAPrev] = 0.0f;
     F[kPhiPrev] = f;
     F[kDphiPrev] = dg;
-    F[kATrial] =
-        count == 0 ? min_nan(1.0f, __fdiv_rn(1.0f, max_nan(gsum, F[kEpsStep]))) : 1.0f;
+    F[kATrial] = a;
     F[kABest] = 0.0f;
     F[kFBest] = f;
     I[kMode] = 0;
@@ -595,13 +872,16 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     I[kNeedDir] = 0;
     if (guard) I[kBranches] |= kBrDescentGuard;
   }
-  __syncthreads();
-  const float a = F[kATrial];
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    gb[i] = g[i];
-    xt[i] = __fadd_rn(x[i], __fmul_rn(a, d[i]));
+#pragma unroll
+  for (int k = 0; k < walk; ++k) {
+    const int i = t + k * kThreads;
+    if (in_range(k)) {
+      gb[i] = g_at(k, i);
+      xt[i] = __fadd_rn(x_at(k, i), __fmul_rn(a, d_at(k, i)));
+    }
   }
-  store_state(sh, si, sf);
+  finish(sh, si, sf, ex.rank);
+  cluster_wait();  // the exit's (its arrive came after the last gather)
 }
 
 // Raise, never lower, a kernel's dynamic shared memory limit (a captured
@@ -613,6 +893,64 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (e != cudaSuccess || static_cast<size_t>(a.maxDynamicSharedSizeBytes) >= bytes) return e;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// One cluster of kCtas CTAs of kCtaThreads threads. Outside a capture
+// (launch_only 0) it first sets the kernel's shared memory limit and asks
+// whether such a cluster can be placed at all (kErrUnplaced if not).
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), size_t smem, int launch_only, void* stream,
+                   Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCtas, 1, 1);
+  cfg.blockDim = dim3(kCtaThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!launch_only) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int placed = 0;
+    e = cudaOccupancyMaxActiveClusters(&placed, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (placed < 1) return kErrUnplaced;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+using DirectionKernel = void (*)(int*, float*, float*, const float*, const float*, int, int);
+
+// The instantiation for per entries a thread: q in exactly per registers up
+// to kMaxPer, else in shared memory.
+template <bool kResident>
+DirectionKernel direction_for(int per) {
+  switch (per) {
+    case 1: return direction_kernel<1, kResident>;
+    case 2: return direction_kernel<2, kResident>;
+    case 3: return direction_kernel<3, kResident>;
+    case 4: return direction_kernel<4, kResident>;
+    case 5: return direction_kernel<5, kResident>;
+    case 6: return direction_kernel<6, kResident>;
+    case 7: return direction_kernel<7, kResident>;
+    case 8: return direction_kernel<8, kResident>;
+    default: return direction_kernel<0, kResident>;
+  }
+}
+
+// The direction kernel's shared memory a CTA, as the wrapper's plan counts
+// it: kStaticReserve and the dynamic part (direction_kernel's comment).
+size_t direction_smem(int n, int m, bool resident) {
+  const size_t tpb = kCtaThreads, per = (n + kThreads - 1) / kThreads, M = m;
+  const size_t floats = (tpb / 32) * M + 2 * M + (per > kMaxPer ? per * tpb : 0) +
+                        (resident ? 2 * M * per * tpb : 0);
+  return kStaticReserve + sizeof(float) * floats;
 }
 
 }  // namespace k10
@@ -628,16 +966,21 @@ extern "C" int pinns_lbfgs_slots(int* n_ints, int* n_floats, int* n_rows, int* t
   return 0;
 }
 
-// The largest n + m the direction kernel's shared memory holds.
-extern "C" int pinns_lbfgs_max_floats() {
-  return static_cast<int>((kSmemLimit - sizeof(Shared)) / sizeof(float));
+// The direction kernel's shared memory a CTA at (n, m, resident), as
+// ops/kernels/lbfgs.py::direction_smem counts it; -1 for an empty shape.
+extern "C" long long pinns_lbfgs_direction_smem(int n, int m, int resident) {
+  if (n < 1 || m < 1) return -1;
+  return static_cast<long long>(direction_smem(n, m, resident != 0));
 }
 
 // Every entry point launches on `stream` and returns the CUDA error code of
-// its launch (0 on success). Pointers are device pointers of contiguous
-// buffers the wrapper checked: si (kNumInts int32), sf (kNumFloats float32),
-// vec (kRows x n float32), hist (2 x m x n), rho (m), x0 (n). `consts` (host)
-// holds c1, c2, ftol, gtol, 1e-12, 1e-10, 1e-30, 1e8 and 1e-12 as float32.
+// its launch (0 on success; kErrUnplaced when the cluster cannot be placed).
+// Pointers are device pointers of contiguous buffers the wrapper checked:
+// si (kNumInts int32), sf (kNumFloats float32), vec (kRows x n float32), hist
+// (2 x m x n), rho (m), x0 (n). `consts` (host) holds c1, c2, ftol, gtol,
+// 1e-12, 1e-10, 1e-30, 1e8 and 1e-12 as float32. The direction kernel's
+// `launch_only` (a stream capture) leaves out the shared memory limit and
+// the placement check, which an earlier call with the same arguments made.
 extern "C" int pinns_lbfgs_reset(void* si, void* sf, void* vec, const void* x0, int n,
                                  int max_iters, int max_ls, const float* consts, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -649,6 +992,7 @@ extern "C" int pinns_lbfgs_reset(void* si, void* sf, void* vec, const void* x0, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The control kernel on one block.
 extern "C" int pinns_lbfgs_control(void* si, void* sf, void* vec, void* hist, void* rho, int n,
                                    int m, void* stream) {
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -658,26 +1002,26 @@ extern "C" int pinns_lbfgs_control(void* si, void* sf, void* vec, void* hist, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// `launch_only` (a stream capture) leaves out the kernel attribute, which an
-// earlier call with the same n and m set.
+// The direction kernel on a cluster of 8 CTAs, the pairs resident in their
+// shared memory or streamed, as the wrapper's cluster_plan chose; a plan
+// whose shared memory exceeds a block's is refused.
 extern "C" int pinns_lbfgs_direction(void* si, void* sf, void* vec, const void* hist,
-                                     const void* rho, int n, int m, int launch_only,
-                                     void* stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(m) + (n > kMaxPer * kThreads ? n : 0));
-  if (n < 1 || m < 1 || smem + sizeof(Shared) > kSmemLimit) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!launch_only) {
-    const cudaError_t e = allow_smem(direction_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  direction_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(si), static_cast<float*>(sf), static_cast<float*>(vec),
-      static_cast<const float*>(hist), static_cast<const float*>(rho), n, m);
-  return static_cast<int>(cudaGetLastError());
+                                     const void* rho, int n, int m, int resident,
+                                     int launch_only, void* stream) {
+  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = direction_smem(n, m, resident != 0);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (n + kThreads - 1) / kThreads;
+  const DirectionKernel kernel = resident ? direction_for<true>(per) : direction_for<false>(per);
+  return launch_cluster(kernel, smem - kStaticReserve, launch_only, stream,
+                        static_cast<int*>(si), static_cast<float*>(sf), static_cast<float*>(vec),
+                        static_cast<const float*>(hist), static_cast<const float*>(rho), n, m);
 }
 
 extern "C" const char* pinns_lbfgs_error_string(int code) {
+  if (code == kErrUnplaced) {
+    return "the card cannot place the kernel's thread block cluster "
+           "(cudaOccupancyMaxActiveClusters gave 0)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -14,8 +14,13 @@ steps*, each
 where the value-and-grad is K3's (``fused_step.fused_value_and_grad``: the
 narrow grad kernel and the partials' sum) for a configuration inside
 :func:`lbfgs_device_supported`, and the control and direction kernels carry
-the solve's state in device memory (:class:`Buffers`). :class:`DeviceLBFGS`
-captures ``STEPS_PER_REPLAY`` steps once as a CUDA graph and replays it,
+the solve's state in device memory (:class:`Buffers`). The direction kernel
+runs as a thread block cluster of ``CLUSTER`` CTAs (:func:`cluster_plan`:
+at ``abgrall_admm``'s 3,023 params the history's pairs resident in their
+shared memory; each step's sum gathered through distributed shared memory);
+the control kernel as one block; both keep one 1,024-thread block's sum
+order, so their bits do not depend on the layout.
+:class:`DeviceLBFGS` captures ``STEPS_PER_REPLAY`` steps once as a CUDA graph and replays it,
 reading the device only for the done flag after each replay (one read, in
 ``opt.lbfgs.HOST_SYNCS``); after the end every launch reads the flag and
 returns. ``opt/lbfgs.py::lbfgs_minimize``, the host loop, stays the
@@ -57,8 +62,12 @@ _lock = threading.Lock()
 # of n_evals evaluations reads the device about n_evals / 16 + 1 times and
 # runs at most 15 empty steps after its end
 STEPS_PER_REPLAY = 16
-THREADS = 1024  # the kernels' block (csrc/lbfgs.cu: kThreads)
+THREADS = 1024  # the kernels' virtual block (csrc/lbfgs.cu: kThreads)
 WARPS = THREADS // 32
+CLUSTER = 8  # the direction kernel's CTAs (csrc/lbfgs.cu: kCtas)
+SMEM_LIMIT = 232_448  # a block's shared memory on sm_90 (csrc/lbfgs.cu: kSmemLimit)
+STATIC_SMEM = 1_024  # the static shared memory the plan reserves (kStaticReserve)
+MAX_REGISTER_ENTRIES = 8  # entries of q a thread holds in registers (kMaxPer)
 
 # the state's int slots (csrc/lbfgs.cu: IntSlot)
 (I_DONE, I_CONVERGED, I_K, I_EVALS, I_STAGE, I_NEED_DIR, I_LS_EVALS, I_COUNT, I_HEAD, I_MODE,
@@ -120,6 +129,43 @@ def lbfgs_device_supported(exp, spec: MLPSpec) -> List[str]:
     if not out and k_fused.launch_config(spec.layers)[0] == 0:
         out.append(f"widths {spec.layers}: no grad tile of K3's fits a block")
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """The direction kernel's layout at (n, m) on its CLUSTER CTAs of
+    ``THREADS // CLUSTER`` threads: each thread ``per`` entries of a
+    vector; the pairs ``resident`` in the CTAs' shared memory or streamed
+    from global memory; ``smem`` bytes of shared memory a CTA."""
+
+    resident: bool
+    per: int
+    smem: int
+
+
+def direction_smem(n: int, m: int, resident: bool) -> int:
+    """Shared memory a CTA of the direction kernel takes (csrc/lbfgs.cu::
+    direction_smem): the static reserve, then in floats alpha (m a warp),
+    rho and the pairs' slots (m each), q when it does not fit in registers
+    (per entries a thread) and the resident pairs (2 m per entries a
+    thread)."""
+    tpb, per = THREADS // CLUSTER, -(-n // THREADS)
+    floats = (tpb // 32) * m + 2 * m + (per * tpb if per > MAX_REGISTER_ENTRIES else 0) \
+        + (2 * m * per * tpb if resident else 0)
+    return STATIC_SMEM + 4 * floats
+
+
+def cluster_plan(n: int, m: int) -> ClusterPlan:
+    """The direction kernel's layout for n params and a history of m: the
+    pairs resident where the CTAs hold them in SMEM_LIMIT, else streamed.
+    Raises where not even the streamed layout fits."""
+    per = -(-n // THREADS)
+    for resident in (True, False):
+        smem = direction_smem(n, m, resident)
+        if smem <= SMEM_LIMIT:
+            return ClusterPlan(resident, per, smem)
+    raise ValueError(f"K10: n = {n}, m = {m} needs {smem} bytes of shared memory a CTA even "
+                     f"with the pairs streamed (limit {SMEM_LIMIT})")
 
 
 def net_offset(params) -> int:
@@ -263,6 +309,38 @@ def reset_reference(b: Buffers, x0: torch.Tensor, max_iters: int, max_ls: int,
     b.vec[X].copy_(x0)
     b.vec[XT].copy_(x0)
     b.vec[GT].zero_()
+
+
+def seeded_state(n: int, m: int, count: int, head: int, seed: int, device="cpu",
+                 gamma: Optional[float] = None) -> Buffers:
+    """A state at an iteration's start (stage search, need_dir set) with
+    ``count`` pairs of a seeded history ending before ``head``: s normal,
+    y = s w with w uniform in [0.5, 2] (so s.y > 0), rho = 1 / s.y, gamma
+    s.y / y.y of the newest pair unless given; x and g normal, f 1, the
+    default constants. For the kernels' checks and timings; a negative
+    ``gamma`` turns the two-loop's direction uphill (the descent guard)."""
+    rng = np.random.default_rng(seed)
+    b = Buffers.alloc(n, m, "cpu")
+    I = np.zeros(N_INTS, np.int32)
+    F = np.zeros(N_FLOATS, np.float32)
+    I[I_STAGE], I[I_NEED_DIR], I[I_COUNT], I[I_HEAD] = STAGE_SEARCH, 1, count, head % m
+    I[I_MAX_ITERS], I[I_MAX_LS] = 1_000, 50
+    F[F_F], F[F_GAMMA] = 1.0, 1.0
+    F[F_C1:F_EPS_STEP + 1] = solve_constants()
+    for j in range(count):  # oldest first
+        idx = (head - count + j) % m
+        s = rng.standard_normal(n).astype(np.float32)
+        y = (s * rng.uniform(0.5, 2.0, n)).astype(np.float32)
+        sy, yy = np.float32(s @ y), np.float32(y @ y)
+        b.hist[0, idx], b.hist[1, idx] = torch.from_numpy(s), torch.from_numpy(y)
+        b.rho[idx] = float(np.float32(1.0) / sy)
+        F[F_GAMMA] = sy / yy
+    if gamma is not None:
+        F[F_GAMMA] = gamma
+    _store(b, I, F)
+    b.vec[X] = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    b.vec[G] = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    return Buffers(*(t.to(device) for t in b.tensors()))
 
 
 def _search_update(I, F, phi, dphi) -> Tuple[bool, bool, bool]:
@@ -431,13 +509,13 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pinns_lbfgs_slots.argtypes = [p, p, p, p]
         lib.pinns_lbfgs_slots.restype = i
-        lib.pinns_lbfgs_max_floats.argtypes = []
-        lib.pinns_lbfgs_max_floats.restype = i
+        lib.pinns_lbfgs_direction_smem.argtypes = [i, i, i]
+        lib.pinns_lbfgs_direction_smem.restype = ctypes.c_longlong
         lib.pinns_lbfgs_reset.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.pinns_lbfgs_reset.restype = i
         lib.pinns_lbfgs_control.argtypes = [p, p, p, p, p, i, i, p]
         lib.pinns_lbfgs_control.restype = i
-        lib.pinns_lbfgs_direction.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.pinns_lbfgs_direction.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.pinns_lbfgs_direction.restype = i
         lib.pinns_lbfgs_error_string.argtypes = [i]
         lib.pinns_lbfgs_error_string.restype = ctypes.c_char_p
@@ -454,7 +532,7 @@ def _lib():
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().pinns_lbfgs_error_string(err).decode()
-        raise RuntimeError(f"K10 {what} launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"K10 {what} launch failed: error {err} ({msg})")
 
 
 def _stream(b: Buffers) -> int:
@@ -482,9 +560,18 @@ def _launch_control(b: Buffers) -> None:
     _raise_on(_lib().pinns_lbfgs_control(*_ptrs(b), b.n, b.m, _stream(b)), "control")
 
 
-def _launch_direction(b: Buffers, launch_only: bool = False) -> None:
-    _raise_on(_lib().pinns_lbfgs_direction(*_ptrs(b), b.n, b.m, int(launch_only), _stream(b)),
-              "direction")
+def _launch_direction(b: Buffers, launch_only: bool = False,
+                      plan: Optional[ClusterPlan] = None) -> None:
+    """The direction kernel on ``plan`` (``cluster_plan(n, m)`` by default);
+    ``launch_only`` inside a stream capture. The library's count of the
+    plan's shared memory must be the wrapper's."""
+    plan = cluster_plan(b.n, b.m) if plan is None else plan
+    lib = _lib()
+    got = lib.pinns_lbfgs_direction_smem(b.n, b.m, int(plan.resident))
+    if got != plan.smem:
+        raise RuntimeError(f"lbfgs.cu counts {got} bytes of shared memory for {plan}")
+    _raise_on(lib.pinns_lbfgs_direction(*_ptrs(b), b.n, b.m, int(plan.resident),
+                                        int(launch_only), _stream(b)), "direction")
 
 
 def reset(b: Buffers, x0: torch.Tensor, *, max_iters: int, max_ls: int = 50, c1: float = 1e-4,
@@ -524,8 +611,6 @@ def direction(b: Buffers) -> None:
     if b.si.device.type == "cpu":
         direction_reference(b)
         return
-    if b.n + b.m > _lib().pinns_lbfgs_max_floats():
-        raise ValueError(f"K10: n + m = {b.n + b.m} exceeds the direction kernel's shared memory")
     _launch_direction(b)
     with _lock:
         DIRECTION_LAUNCHES += 1
@@ -601,7 +686,8 @@ class DeviceLBFGS:
     launch), then replays the graph and reads the done flag after each
     replay, until it is set. On the CPU the same steps run as the plain
     versions, one host call each. A build, capture or launch that fails
-    raises.
+    raises, and so does a cluster the card cannot place (checked by
+    ``cudaOccupancyMaxActiveClusters`` in the warm-up).
     """
 
     def __init__(self, problem):
@@ -648,7 +734,7 @@ class DeviceLBFGS:
         b.si[I_DONE] = 1  # the warm-up's launches return at once
         self._evaluate(rho)
         _launch_control(b)
-        _launch_direction(b)
+        _launch_direction(b)  # sets the kernel up; raises if the cluster cannot be placed
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):

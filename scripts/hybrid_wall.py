@@ -9,7 +9,7 @@ schedule (the fixture's: 10,000 Adam epochs, 10 outer epochs of at most 300
 iterations).
 
     python scripts/hybrid_wall.py [--adam 10000] [--outer 10] [--max-iters 300]
-        [--turns k10,host,k10] [--out FILE]
+        [--turns k10,host,k10,split] [--out FILE]
 
 Prints one JSON line a turn: the wall seconds of the outer epochs (host
 clock, ending in a synchronize), each outer epoch's iterations, the seconds
@@ -17,13 +17,27 @@ an iteration, the host syncs of the solves (``opt.lbfgs.HOST_SYNCS``), the
 final u rel-L2, and the card's name and power limit. Needs one
 NVIDIA GPU; imports no jax. ``--out`` also writes the lines as one JSON
 list.
+
+A ``split`` turn runs K10's outer epochs with each piece of the step
+bracketed by synchronizes and timed on the host clock: ``ravel_tree``, the
+solve's set-up (``DeviceLBFGS.minimize`` up to its first graph replay: the
+batch, z and dual copies, the reset launch, and the graph's capture in the
+first outer epoch), its replays and done-flag reads, ``_post_update`` (the
+resample and the z/dual update through K1) and the rest of the step (the
+unravel, the data term through K5, the metrics). It prints each piece's
+milliseconds an outer epoch (median and all), the outer epoch's own, and
+the iterations. Each piece's time is synchronized wall time: its host work
+and the device time of what it launched (K1 and K5 in ``_post_update`` and
+the rest), not separated, plus the cost of the synchronizes themselves.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -31,6 +45,91 @@ import time
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+class Pieces:
+    """K10's outer epoch in timed pieces (a ``split`` turn): while entered,
+    ``trainer.ravel_tree``, ``trainer._post_update``, ``solver.minimize`` and
+    ``torch.cuda.CUDAGraph.replay`` are wrapped so that each call is
+    bracketed by synchronizes and its host-clock milliseconds are added to
+    the current outer epoch's row."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.rows = []
+        self._saved = []
+
+    @staticmethod
+    def _now() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def _add(self, key: str, ms: float) -> None:
+        if self.rows:  # a call outside an outer epoch is not counted
+            self.rows[-1][key] = self.rows[-1].get(key, 0.0) + ms
+
+    def _wrap(self, owner, name: str, key: str) -> None:
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+
+        def timed(*a, **k):
+            t0 = self._now()
+            try:
+                return fn(*a, **k)
+            finally:
+                self._add(key, 1e3 * (self._now() - t0))
+        setattr(owner, name, timed)
+
+    def __enter__(self):
+        from pinns_tpu_torch.train import trainer as tr
+
+        self._wrap(tr, "ravel_tree", "ravel_tree")
+        self._wrap(tr, "_post_update", "post_update")
+        replay = torch.cuda.CUDAGraph.replay
+        pieces = self
+
+        def first_replay(graph):
+            row = pieces.rows[-1] if pieces.rows else {}
+            if "_minimize_t0" in row:  # minimize's entry to its first replay
+                row["setup"] = 1e3 * (pieces._now() - row.pop("_minimize_t0"))
+            return replay(graph)
+        self._saved.append((torch.cuda.CUDAGraph, "replay", replay))
+        torch.cuda.CUDAGraph.replay = first_replay
+        minimize = self.solver.minimize
+
+        def timed_minimize(*a, **k):
+            t0 = self._now()
+            self.rows[-1]["_minimize_t0"] = t0
+            try:
+                return minimize(*a, **k)
+            finally:
+                self._add("minimize", 1e3 * (self._now() - t0))
+        self._saved.append((self.solver, "minimize", minimize))
+        self.solver.minimize = timed_minimize
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+        return False
+
+    @contextlib.contextmanager
+    def outer_epoch(self):
+        self.rows.append({})
+        t0 = self._now()
+        yield
+        row = self.rows[-1]
+        row["outer_epoch"] = 1e3 * (self._now() - t0)
+        row.pop("_minimize_t0", None)
+        row.setdefault("setup", row["minimize"])  # a solve with no replay
+        row["replays"] = row["minimize"] - row["setup"]
+        row["rest"] = row["outer_epoch"] - row["ravel_tree"] - row["minimize"] - row["post_update"]
+
+    def summary(self) -> dict:
+        keys = ("outer_epoch", "ravel_tree", "setup", "replays", "post_update", "rest")
+        return {k: {"median": statistics.median(r[k] for r in self.rows),
+                    "all": [r[k] for r in self.rows]} for k in keys}
 
 
 def main(argv=None) -> int:
@@ -62,14 +161,20 @@ def main(argv=None) -> int:
     rows = []
     for turn in args.turns.split(","):
         trainer = Trainer(exp, device="cuda")
-        step = trainer._lbfgs_step if turn == "k10" else make_lbfgs_step(trainer.problem,
-                                                                         host_loop=True)
-        if turn == "k10" and step.solver is None:
+        on_k10 = turn in ("k10", "split")
+        step = trainer._lbfgs_step if on_k10 else make_lbfgs_step(trainer.problem,
+                                                                  host_loop=True)
+        if on_k10 and step.solver is None:
             raise RuntimeError("abgrall_admm's L-BFGS step is not on K10")
         iters = []
+        pieces = Pieces(step.solver) if turn == "split" else None
 
-        def counted(st, out=None, new_colloc=None, step=step, iters=iters):
-            st, m = step(st, out, new_colloc)
+        def counted(st, out=None, new_colloc=None, step=step, iters=iters, pieces=pieces):
+            if pieces is None:
+                st, m = step(st, out, new_colloc)
+            else:
+                with pieces.outer_epoch():
+                    st, m = step(st, out, new_colloc)
             iters.append(int(m["lbfgs_iters"]))
             return st, m
 
@@ -77,7 +182,8 @@ def main(argv=None) -> int:
         syncs = host_lbfgs.HOST_SYNCS
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        final, summary = trainer.train(state)
+        with (pieces if pieces is not None else contextlib.nullcontext()):
+            final, summary = trainer.train(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         row = {"turn": turn, "card": card, "adam_epochs": args.adam, "outer": len(iters),
@@ -85,6 +191,8 @@ def main(argv=None) -> int:
                "s_per_iter": wall / max(1, sum(iters)),
                "host_syncs": host_lbfgs.HOST_SYNCS - syncs,
                "rel_l2_u": summary["rel_l2_u"], "final_epoch": final.epoch}
+        if pieces is not None:
+            row["ms_per_outer_epoch"] = pieces.summary()
         rows.append(row)
         print(json.dumps(row), flush=True)
     if args.out:

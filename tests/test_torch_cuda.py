@@ -1513,17 +1513,19 @@ def test_k10_value_and_grad_on_card(cuda_device, layers, n_f, kind, explicit_inn
     assert torch.equal(g3, grad) and torch.equal(l3, loss)
 
 
-def _k10_lockstep(b, evaluate, steps: int) -> dict:
-    """``steps`` evaluation steps through the kernels, each kernel beside its
-    plain version on a copy of the same state: every buffer equal bit for
-    bit after every launch. Returns the branches taken and the steps run."""
+def _k10_lockstep(b, evaluate, steps: int, direction=None) -> dict:
+    """``steps`` evaluation steps through the kernels (the direction kernel
+    through ``direction``, a launch of another design, when given), each
+    kernel beside its plain version on a copy of the same state: every
+    buffer equal bit for bit after every launch. Returns the branches taken
+    and the steps run."""
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
 
     ran = 0
     for _ in range(steps):
         evaluate()
         for kernel, plain in ((k_lbfgs.control, k_lbfgs.control_reference),
-                              (k_lbfgs.direction, k_lbfgs.direction_reference)):
+                              (direction or k_lbfgs.direction, k_lbfgs.direction_reference)):
             twin = b.clone()
             kernel(b)
             plain(twin)
@@ -1643,3 +1645,104 @@ def test_k10_solve_on_card(cuda_device):  # noqa: F811
     k_lbfgs.reset(b, x0, max_iters=5)
     stepwise = k_lbfgs.run_steps(b, k3)
     assert torch.equal(stepwise.x, res.x) and stepwise.n_evals == res.n_evals
+
+
+def _k10_fixture_lockstep(cuda_device, m: int, steps: int, direction=None) -> dict:
+    """The lockstep from the fixture's state at abgrall_admm's 8x20 (K3's
+    value-and-grad) with a history of m; returns the run and the state."""
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+
+    problem, params, colloc, admm, _ = _k10_fixture_state(cuda_device)
+    x0, _ = ravel_tree(params)
+    off = k_lbfgs.net_offset(params)
+    b = k_lbfgs.Buffers.alloc(x0.numel(), m, cuda_device)
+    k_lbfgs.reset(b, x0, max_iters=5000)
+    cfg = k_fused.loss_config(problem.exp)
+
+    def k3():
+        k_fused.fused_value_and_grad(
+            problem.spec, b.vec[k_lbfgs.XT, off:], b.vec[k_lbfgs.GT, off:],
+            b.sf[k_lbfgs.F_PHI_T:k_lbfgs.F_PHI_T + 1], problem.x_data,
+            problem.targets["u"].contiguous(), colloc, admm.z, admm.dual, rho=10.0,
+            skip=b.si[:1], **cfg)
+
+    return _k10_lockstep(b, k3, steps, direction), b
+
+
+def test_k10_resident_history_wraps_on_card(cuda_device):  # noqa: F811
+    """The resident design (the pairs in the 8 CTAs' shared memory) at
+    abgrall_admm's 3,023 params with a history of 8 that fills and whose
+    head wraps: both kernels equal their plain versions after every launch."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    assert k_lbfgs.cluster_plan(3_023, 8).resident
+    run, b = _k10_fixture_lockstep(cuda_device, 8, 40)
+    assert int(b.si[k_lbfgs.I_COUNT]) == 8 and int(b.si[k_lbfgs.I_K]) > 9, run
+
+
+@pytest.mark.parametrize("count", [0, 3, 50])
+def test_k10_descent_guard_on_card(cuda_device, count):  # noqa: F811
+    """The direction kernel takes the descent guard (a seeded history with a
+    negative gamma) and equals its plain version bit for bit, at an empty,
+    a partial and a full history."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    b = k_lbfgs.seeded_state(3_023, 50, count, 9, seed=count, device=cuda_device, gamma=-1.0)
+    twin = b.clone()
+    k_lbfgs.direction(b)
+    k_lbfgs.direction_reference(twin)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(b.tensors(), twin.tensors()))
+    assert k_lbfgs.branches_taken(b) == ["descent_guard"]
+
+
+def test_k10_streamed_plan_on_card(cuda_device):  # noqa: F811
+    """The streamed design at the scope's largest net (31,811 params, 32
+    entries a thread, q in shared memory) with a history of 50: a quartic
+    valley's lockstep, both kernels equal to their plain versions after
+    every launch; a full seeded history through the direction kernel too."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import value_and_grad
+
+    n = 31_811
+    assert not k_lbfgs.cluster_plan(n, 50).resident
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.uniform(0.5, 5.0, n).astype(np.float32)).to(cuda_device)
+    c = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
+    vg = value_and_grad(lambda x: torch.sum(a * (x - c) ** 2 + 0.1 * (x - c) ** 4))
+    r = k_lbfgs.Buffers.alloc(n, 50, cuda_device)
+    k_lbfgs.reset(r, torch.zeros(n, device=cuda_device), max_iters=8, gtol=0.0)
+
+    def evaluate():
+        if not int(r.si[k_lbfgs.I_DONE]):
+            f, g = vg(r.vec[k_lbfgs.XT].clone())
+            r.sf[k_lbfgs.F_PHI_T] = f
+            r.vec[k_lbfgs.GT].copy_(g)
+
+    run = _k10_lockstep(r, evaluate, 100)
+    assert int(r.si[k_lbfgs.I_K]) > 4 and "stored" in run["branches"], run
+    b = k_lbfgs.seeded_state(n, 50, 50, 7, seed=3, device=cuda_device)
+    twin = b.clone()
+    k_lbfgs.direction(b)
+    k_lbfgs.direction_reference(twin)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(b.tensors(), twin.tensors()))
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_k10_cluster_layouts_on_card(cuda_device, resident):  # noqa: F811
+    """Both designs phase 37 of chip_smoke.py times at the fixture's 3,023
+    params (the pairs resident, the plan's; or streamed) keep the plain
+    versions' bits over 30 steps from the fixture's state."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    plan = k_lbfgs.ClusterPlan(resident, 3, k_lbfgs.direction_smem(3_023, 50, resident))
+    assert k_lbfgs.cluster_plan(3_023, 50).resident
+
+    def direction(b):
+        k_lbfgs._launch_direction(b, plan=plan)
+
+    run, b = _k10_fixture_lockstep(cuda_device, 50, 30, direction)
+    assert {"accept", "stored"} <= set(run["branches"]), run

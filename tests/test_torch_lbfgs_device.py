@@ -362,3 +362,111 @@ def test_block_sum_reference_order():
         w = (w[:off] + w[off:2 * off]).astype(np.float32)
         off //= 2
     assert got == float(w[0])
+
+
+def _cluster_sum_model(v: np.ndarray, cluster: int) -> np.ndarray:
+    """The cluster kernels' sum of ``v`` (float32), spelled as their
+    dataflow (``csrc/lbfgs.cu``'s head): ``cluster`` CTAs of THREADS //
+    cluster threads, local thread j of rank c the virtual thread
+    c * THREADS // cluster + j, adding its entries t, t + THREADS, ... in
+    turn; each warp of each CTA reduces by the butterfly (lane l takes lane
+    l ^ off, offsets 16, ..., 1); lane r of every warp stores the warp's sum
+    into slot (virtual warp) of CTA r; every CTA runs the 32-way tree on its
+    32 slots in warp order. Returns each CTA's total."""
+    threads, warps = k_lbfgs.THREADS, k_lbfgs.WARPS
+    tpb = threads // cluster
+    rows = -(-v.shape[0] // threads)
+    padded = np.zeros(rows * threads, np.float32)
+    padded[:v.shape[0]] = v
+    padded = padded.reshape(rows, threads)
+    slots = np.full((cluster, warps), np.nan, np.float32)
+    for c in range(cluster):
+        part = np.zeros(tpb, np.float32)
+        for r in range(rows):  # a thread's entries in turn
+            part = (part + padded[r, c * tpb:(c + 1) * tpb]).astype(np.float32)
+        for w in range(tpb // 32):
+            lanes = part[32 * w:32 * w + 32]
+            for off in (16, 8, 4, 2, 1):
+                lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
+            assert np.unique(lanes.view(np.uint32)).size == 1  # every lane holds the sum
+            for r in range(cluster):  # lane r stores into CTA r
+                slots[r, c * (tpb // 32) + w] = lanes[r]
+    totals = np.zeros(cluster, np.float32)
+    for r in range(cluster):
+        w, off = slots[r], warps // 2
+        while off:
+            w = (w[:off] + w[off:2 * off]).astype(np.float32)
+            off //= 2
+        totals[r] = w[0]
+    return totals
+
+
+@pytest.mark.parametrize("n", [1, 100, 3_023, 8_193, 33_000])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_cluster_dataflow_keeps_block_sum_bits(cluster, n):
+    """The cluster layout's sum (per-CTA thread partials, per-warp
+    butterflies, the 32 warp sums gathered in warp order into every CTA, the
+    final tree) equals block_sum_reference, the plain versions' sum, bit for
+    bit in every CTA, on seeded float32 terms spread over six decades: at
+    the direction kernel's 8 CTAs, and at 16 (the tree does not depend on
+    how the 32 warps are spread over the CTAs)."""
+    rng = np.random.default_rng(cluster * 100_003 + n)
+    v = (rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    got = _cluster_sum_model(v, cluster)
+    want = np.float32(k_lbfgs.block_sum_reference(torch.from_numpy(v)).item())
+    assert (got.view(np.uint32) == want.view(np.uint32)).all(), (got, want)
+
+
+def _largest_scope_net():
+    """The deepest width-32 net inside K10's scope and its flat size (the
+    net and abgrall_admm's two frozen coefficients)."""
+    from pinns_tpu_torch.models.mlp import MLPSpec
+
+    base = get_preset("abgrall_admm")
+    best = None
+    for depth in range(1, k_fused.MAX_LAYERS + 2):
+        layers = (2,) + (k_fused.NARROW_WIDTH,) * depth + (1,)
+        spec = MLPSpec(layers=layers, lb=(0.0, 0.0), ub=(1.0, 1.0))
+        exp = override(base, {"model.layers": layers})
+        if not k_lbfgs.lbfgs_device_supported(exp, spec):
+            best = (layers, spec.n_params + 2)
+    return best
+
+
+def test_cluster_plan_fits_shared_memory():
+    """cluster_plan keeps a CTA's shared memory within a block's 232,448
+    bytes over a grid of n and m, counts it as direction_smem does, holds
+    the pairs resident wherever they fit on the 8 CTAs and streams them
+    elsewhere: resident at abgrall_admm's n = 3,023, m = 50, streamed at the
+    scope's largest net; it refuses a history no design holds."""
+    assert k_lbfgs.CLUSTER == 8
+    for n in (1, 100, 1_024, 3_023, 7_523, 8_193, 31_811, 33_000):
+        for m in (1, 3, 10, 50, 100):
+            plan = k_lbfgs.cluster_plan(n, m)
+            assert plan.smem <= k_lbfgs.SMEM_LIMIT == 232_448
+            assert plan.smem == k_lbfgs.direction_smem(n, m, plan.resident)
+            assert plan.per == -(-n // 1024)
+            assert plan.resident == (k_lbfgs.direction_smem(n, m, True) <= k_lbfgs.SMEM_LIMIT)
+    main = k_lbfgs.cluster_plan(3_023, 50)
+    assert (main.resident, main.per) == (True, 3)
+    assert not k_lbfgs.cluster_plan(8_193, 50).resident
+    layers, n = _largest_scope_net()
+    assert len(layers) - 1 == k_fused.MAX_LAYERS and n == 31_811
+    assert not k_lbfgs.cluster_plan(n, 50).resident
+    with pytest.raises(ValueError, match="shared memory"):
+        k_lbfgs.cluster_plan(3_023, 20_000)
+
+
+def test_seeded_state_descent_guard():
+    """The seeded states the card checks start from: with a negative gamma
+    the plain direction takes the descent guard (d = -g); with the
+    history's own gamma it does not, and it sets the search's state."""
+    for count in (0, 3, 50):
+        b = k_lbfgs.seeded_state(3_023, 50, count, 9, seed=count, gamma=-1.0)
+        k_lbfgs.direction(b)
+        assert k_lbfgs.branches_taken(b) == ["descent_guard"]
+        assert torch.equal(b.vec[k_lbfgs.D], -b.vec[k_lbfgs.G])
+    b = k_lbfgs.seeded_state(3_023, 50, 50, 9, seed=1)
+    k_lbfgs.direction(b)
+    assert k_lbfgs.branches_taken(b) == [] and float(b.sf[k_lbfgs.F_DPHI0]) < 0
+    assert int(b.si[k_lbfgs.I_NEED_DIR]) == 0 and int(b.si[k_lbfgs.I_STAGE]) == k_lbfgs.STAGE_SEARCH
