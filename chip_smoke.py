@@ -17,7 +17,10 @@ reduction), and K9: the fused step's chunks (solo K3 and K8) as captured
 CUDA graphs, replayed from a device-side epoch cursor, and K10: the L-BFGS
 solve of the hybrid phase on the device (K3's value-and-grad, the control
 kernel and the direction kernel on a thread block cluster, replayed from a
-captured graph).
+captured graph), and slice 2b-iii's first part: the entropy penalty on the
+weak form through K7b's entropy mode, and the Euler L-BFGS branch
+(euler_weak_tail resumed from euler_weak_fast members through the CLI, its
+solve on K10's kernels around autograd through the Euler loss).
 
     python3 chip_smoke.py
 
@@ -265,6 +268,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             a quartic valley stepped in lockstep) bit for bit against their
             plain versions; the direction kernel's streamed design timed
             on the same heaviest input as the plan's resident one
+  38 k7b-entropy  K7b's entropy mode (the weak entropy violation relu(e)^2
+            from the same quadrature, its adjoint in the backward) against
+            the plain quadrature with want_entropy: Burgers and Euler,
+            viscous and inviscid, N 1,000 and 65,536, r, relu(e)^2 and the
+            backward by the float64 criterion, r bit-equal to the mode
+            without the entropy, two calls bit-equal, times beside
+            k7b_entropy_bytes; an entropy-weighted (ENTROPY_WEIGHT) step of
+            twosin_weak and of euler_weak_fast at full width from their
+            fixtures: loss and gradient against the plain path and float64,
+            the entropy mode's one forward and one backward launch, no plain
+            call
+  39 euler-tail  the Euler L-BFGS branch: K10's direction and control
+            kernels bit-equal to their plain versions at the Euler trunk's
+            162,413 params and a full history of 50 pairs (a seeded
+            history, a quartic valley), each timed beside its bound;
+            euler_weak_tail's solve from the JAX fixture
+            (euler_weak_tail.npz) at max_iters 1, 2, 5 on K10
+            (AutogradLBFGS) and on the host loop: n_iters and n_evals equal
+            to JAX's, f within STEP_TOL; a TAIL_TIMED_ITERS-iteration outer
+            epoch on K10 (the done flag read once a replay and once a step)
+            and on the host loop in turns (ms, device time, launches, host
+            syncs per iteration); this slice's main path: train --preset
+            euler_weak_tail --resume from two of phase 35's members for two
+            outer epochs, then export --select rank of the tails against
+            them: every solve on K10, no plain call
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -1051,6 +1079,8 @@ def kernel_counts() -> dict:
             "taylor1_narrow_backward": taylor1.NARROW_BACKWARD_LAUNCHES,
             "weakform_edge_points": weakform.EDGE_LAUNCHES, "weakform_flux": weakform.LAUNCHES,
             "weakform_flux_backward": weakform.BACKWARD_LAUNCHES,
+            "weakform_flux_entropy": weakform.ENTROPY_LAUNCHES,
+            "weakform_flux_entropy_backward": weakform.ENTROPY_BACKWARD_LAUNCHES,
             "fused_value_and_grad": fused_step.VALUE_AND_GRAD_LAUNCHES,
             "lbfgs_reset": k_lbfgs.RESET_LAUNCHES, "lbfgs_control": k_lbfgs.CONTROL_LAUNCHES,
             "lbfgs_direction": k_lbfgs.DIRECTION_LAUNCHES, "lbfgs_replays": k_lbfgs.GRAPH_REPLAYS,
@@ -1072,6 +1102,7 @@ def reset_counts() -> None:
     taylor1.LAUNCHES = taylor1.BACKWARD_LAUNCHES = 0
     taylor1.NARROW_LAUNCHES = taylor1.NARROW_BACKWARD_LAUNCHES = 0
     weakform.EDGE_LAUNCHES = weakform.LAUNCHES = weakform.BACKWARD_LAUNCHES = 0
+    weakform.ENTROPY_LAUNCHES = weakform.ENTROPY_BACKWARD_LAUNCHES = 0
     fused_step.VALUE_AND_GRAD_LAUNCHES = 0
     k_lbfgs.RESET_LAUNCHES = k_lbfgs.CONTROL_LAUNCHES = k_lbfgs.DIRECTION_LAUNCHES = 0
     k_lbfgs.GRAPH_REPLAYS = k_lbfgs.SOLVES = host_lbfgs.HOST_SYNCS = 0
@@ -4467,6 +4498,457 @@ def phase_k10(card: str) -> dict:
             "max_abs_err": vg_rows["vs_plain"]["max_abs_err"]}
 
 
+# -- 38-39: slice 2b-iii, part 1 (K7b's entropy mode, the Euler L-BFGS branch) --
+
+ENTROPY_WEIGHT = 0.1  # phase 38's entropy-weighted steps
+ENTROPY_PRESETS = ("twosin_weak", "euler_weak_fast")
+TAIL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "euler_weak_tail.npz")
+TAIL_PRESET = "euler_weak_tail"
+K10_EULER_N = 162_413  # the Euler trunk with two paths and the two coefficients
+# evaluation steps of the direction / control lockstep at K10_EULER_N (more
+# until an iteration has ended, at most four times as many)
+TAIL_LOCKSTEP = 12
+TAIL_TIMED_ITERS = 50  # the capped outer epoch timed beside the host loop
+TAIL_TURNS = 3  # alternating outer epochs a side for those times
+TAIL_CLI = {"members": 2, "outer": 2, "max_iters": 20}  # the CLI tail from phase 35's members
+
+
+def k7b_entropy_plain(kind: str, y, yx, hxe, hte, coeffs):
+    """(r, ent) of the plain quadrature with the entropy (gamma - 1 is
+    coeffs[0] for Euler)."""
+    from pinns_tpu_torch.ops import weakform as twf
+
+    if kind == "burgers":
+        return twf.burgers_quadrature_reference(y, yx, hxe, hte, coeffs[0], coeffs[1], K7B_QUAD,
+                                                True)
+    gamma = float(coeffs[0].detach()) + 1.0
+    rs, ent = twf.euler_quadrature_reference(y, yx, hxe, hte, gamma, coeffs[1], K7B_QUAD, True)
+    return torch.cat(rs, dim=1), ent
+
+
+def k7b_entropy_bytes(kind: str, viscous: bool, n: int) -> dict:
+    """k7b_bytes with the entropy mode's extra traffic (e and relu(e)^2
+    written, g_ent and e read back: 8 bytes a cell each way) and operations
+    (per edge row: Burgers about 6 FLOP more, Euler about 20 with its two
+    logs, counted as operations of the float32 rate)."""
+    fields = 1 if kind == "burgers" else 3
+    rows = n * 4 * K7B_QUAD
+    vals = 4 * rows * fields * (2 if viscous else 1)
+    per_row = (8 + 6) if kind == "burgers" else (30 + 20)
+    return {"forward": bound([(per_row * rows, PEAK_FP32)],
+                             vals + 8 * n + 8 + 4 * n * fields + 8 * n),
+            "backward": bound([(2.0 * per_row * rows, PEAK_FP32)],
+                              4 * n * fields + 8 * n + 2 * vals + 8 * n + 16)}
+
+
+def phase_k7b_entropy(card: str) -> dict:
+    """38: K7b's entropy mode against its plain version on the card: r,
+    relu(e)^2 and the backward with both cotangents (g_y, g_yx, the
+    coefficients' gradient) by the float64 criterion (autograd through the
+    plain quadrature with want_entropy for the backward), Burgers and Euler,
+    viscous and inviscid, N 1,000 and 65,536; r equal bit for bit to the
+    mode without the entropy; two calls of each bit-equal; times by events
+    beside k7b_entropy_bytes. Then one entropy-weighted step of each of
+    twosin_weak and euler_weak_fast at full width from its fixture state:
+    the loss and every gradient leaf against the plain path on the card
+    and against float64, the entropy mode's launches counted."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.models.mlp import MLPSpec
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+    from pinns_tpu_torch.train import trainer as tr
+
+    spec = MLPSpec(layers=(2, 4, 1), lb=LB, ub=UB)
+    hx, ht = 0.02 * (UB[0] - LB[0]), 0.02 * (UB[1] - LB[1])
+    out = {"kernels": {}, "times": {}, "steps": {}}
+    for kind, viscous, n in K7B_SHAPES:
+        c, y, yx, coeffs, g_r = k7b_inputs(kind, viscous, n)
+        g_ent = torch.from_numpy(np.random.default_rng(n + 9).standard_normal((n, 1))
+                                 .astype(np.float32)).cuda()
+        gamma = float(coeffs[0]) + 1.0 if kind == "euler" else 1.4
+        _, hxe, hte = k7b.edge_points(spec, c, hx, ht, K7B_QUAD)
+        fwd = lambda: k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, K7B_QUAD,  # noqa: E731
+                                       True, gamma)
+        r, ent, e = fwd()
+        again = fwd()
+        r0 = k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, K7B_QUAD)
+        bwd = lambda: k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs,  # noqa: E731
+                                        K7B_QUAD, g_ent, e, gamma)
+        gy, gyx, gc = bwd()
+        gagain = bwd()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((r, ent, e), again)),
+              f"K7b entropy forward not repeatable at {kind}, N {n}")
+        check(all(a is b or torch.equal(a, b) for a, b in zip((gy, gyx, gc), gagain)),
+              f"K7b entropy backward not repeatable at {kind}, N {n}")
+        check(torch.equal(r, r0), f"K7b r moves with the entropy mode at {kind}, N {n}")
+        ref = {}
+        for dtype in (torch.float32, torch.float64):
+            args = [None if a is None else a.to(dtype).clone().requires_grad_(True)
+                    for a in (y, yx, coeffs)]
+            pr, pent = k7b_entropy_plain(kind, args[0], args[1], hxe.to(dtype), hte.to(dtype),
+                                         args[2])
+            wrt = [a for a in args if a is not None]
+            grads = torch.autograd.grad(
+                torch.sum(pr * g_r.to(dtype)) + torch.sum(pent * g_ent.to(dtype)), wrt,
+                allow_unused=True)
+            ref[dtype] = [pr, pent] + [torch.zeros_like(a) if g is None else g
+                                       for g, a in zip(grads, wrt)]
+        names = ["r", "ent", "g_y"] + (["g_yx"] if viscous else []) + ["g_coeffs"]
+        got = [r, ent, gy] + ([gyx] if viscous else []) + [gc]
+        rows = {name: close_or_f64(name, host(g), host(p), host(x))
+                for name, g, p, x in zip(names, got, ref[torch.float32], ref[torch.float64])}
+        active = float((ent > 0).float().mean())
+        check(0.0 < active, f"K7b entropy inactive everywhere at {kind}, N {n}")
+        with torch.no_grad():
+            t_fwd = event_ms(fwd)
+            t_fwd_plain = event_ms(lambda: k7b_entropy_plain(kind, y, yx, hxe, hte, coeffs))
+            t_bwd = event_ms(bwd)
+        args = [None if a is None else a.clone().requires_grad_(True) for a in (y, yx, coeffs)]
+        wrt = [a for a in args if a is not None]
+
+        def plain_backward():
+            pr, pent = k7b_entropy_plain(kind, args[0], args[1], hxe, hte, args[2])
+            return torch.autograd.grad(torch.sum(pr * g_r) + torch.sum(pent * g_ent), wrt,
+                                       allow_unused=True)
+
+        t_bwd_plain = event_ms(plain_backward)
+        b = k7b_entropy_bytes(kind, viscous, n)
+        key = (kind, viscous, n)
+        out["kernels"][key] = (max(rows[k]["max_abs_err_vs_plain"] for k in ("r", "ent")),
+                               max(v["max_abs_err_vs_plain"] for k, v in rows.items()
+                                   if k not in ("r", "ent")))
+        out["times"][key] = {"forward": (t_fwd, t_fwd_plain, b["forward"]),
+                             "backward": (t_bwd, t_bwd_plain, b["backward"])}
+        emit(card, phase="k7b-entropy", kind=kind, viscous=viscous, n=n, quad=K7B_QUAD,
+             active_share=active, bit_equal_across_calls=True, r_equal_without_entropy=True,
+             criterion="f64_oracle", outputs=rows, forward_ms=t_fwd,
+             forward_plain_ms=t_fwd_plain, forward_bound_ms=b["forward"][0],
+             backward_ms=t_bwd, backward_plain_ms=t_bwd_plain,
+             backward_bound_ms=b["backward"][0], reps=REPS, clock="cuda_events")
+
+    wfx, pfx = weak_fixture(), path_fixture()
+    for preset in ENTROPY_PRESETS:
+        exp = override(get_preset(preset), {"loss.entropy_weight": ENTROPY_WEIGHT})
+        problem = tr.build_problem(exp, "cuda")
+        p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+        if preset == "twosin_weak":
+            state = weak_state(wfx, preset, problem.device)
+            sizes = None
+            layers = problem.spec.layers
+        else:
+            net, sizes = path_fixture_net(pfx, pfx["band_params"], problem.spec)
+            from pinns_tpu_torch.interop import params_from_jax
+
+            params = {"net": params_from_jax(net, problem.device),
+                      "coeffs": {"lambda1": torch.ones(1, device="cuda"),
+                                 "lambda2": torch.full((1,), 1e-3, device="cuda")}}
+            state = tr.TrainState(params=params, opt_state=None, admm=None,
+                                  colloc=torch.from_numpy(pfx["colloc_0"]).cuda(), key=0,
+                                  epoch=0)
+            layers = None
+        reset_counts()
+        with PlainCalls() as plain:
+            loss, grad, gco = weak_gradient(problem, state.params, state.colloc, plain=False)
+            torch.cuda.synchronize()
+        launches = kernel_counts()
+        check(plain.calls == 0 and launches["weakform_flux_entropy"] == 1
+              and launches["weakform_flux_entropy_backward"] == 1,
+              f"{preset}: the entropy-weighted loss's launches {launches}, "
+              f"{plain.calls} plain calls")
+        ploss, pgrad, _ = weak_gradient(problem, state.params, state.colloc, plain=True)
+        eloss, egrad, _ = weak_gradient(p64, state.params, state.colloc, plain=True,
+                                        dtype=torch.float64)
+        no_ent = weak_gradient(tr.build_problem(get_preset(preset), "cuda"), state.params,
+                               state.colloc, plain=False)[0]
+        check(loss != no_ent, f"{preset}: the entropy weight leaves the loss as it was")
+        rows = {"loss_vs_plain": close("loss", loss, ploss, scale=abs(eloss)),
+                "loss_vs_f64": close("loss", loss, eloss, scale=abs(eloss)),
+                "grad": close_grad(grad, pgrad, layers, egrad, sizes=sizes)}
+        out["steps"][preset] = {"launches": launches, "grad_err": rows["grad"]["max_abs_err"]}
+        emit(card, phase="k7b-entropy", what="weighted_step", preset=preset,
+             entropy_weight=ENTROPY_WEIGHT, loss=loss, loss_without_entropy=no_ent, rows=rows,
+             launches={k: v for k, v in launches.items() if v}, plain_calls=plain.calls)
+    return out
+
+
+def tail_fixture() -> dict:
+    with np.load(TAIL_FIXTURE, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def tail_state(problem):
+    """The tail fixture's start on the card: (params tree, colloc), the
+    params euler_weak.npz's band_params with the fixture's coefficients."""
+    from pinns_tpu_torch.interop import params_from_jax
+
+    fx, pfx = tail_fixture(), path_fixture()
+    net, _ = path_fixture_net(pfx, pfx["band_params"], problem.spec)
+    dev = problem.device
+    params = {"net": params_from_jax(net, dev),
+              "coeffs": {"lambda1": torch.from_numpy(fx["coeffs"][0:1]).to(dev),
+                         "lambda2": torch.from_numpy(fx["coeffs"][1:2]).to(dev)}}
+    return params, torch.from_numpy(fx["colloc"]).to(dev), fx
+
+
+def k10_euler_lockstep(n: int, m: int) -> dict:
+    """The control and direction kernels against their plain versions, bit
+    for bit after every launch, at n params from a seeded full history of m
+    pairs (the head wraps as pairs are stored), a quartic valley the
+    evaluation (its value and gradient at the seeded x replace the seeded
+    ones, so that the searches end as a solve's do); TAIL_LOCKSTEP
+    evaluation steps, more until an iteration has stored a pair. Returns
+    the snapshots the times start from: the direction at the full history,
+    the control that stores a pair."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import value_and_grad
+
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.uniform(0.5, 5.0, n).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    vg = value_and_grad(lambda x: torch.sum(a * (x - c) ** 2 + 0.1 * (x - c) ** 4))
+    b = k_lbfgs.seeded_state(n, m, m, 9, seed=43, device="cuda")
+    f, g = vg(b.vec[k_lbfgs.X].clone())
+    b.sf[k_lbfgs.F_F] = f
+    b.vec[k_lbfgs.G].copy_(g)
+    snaps, launches = {}, {"control": 0, "direction": 0}
+    for step in range(4 * TAIL_LOCKSTEP):
+        for which, kernel, plain in (("direction", k_lbfgs.direction,
+                                      k_lbfgs.direction_reference),
+                                     ("control", k_lbfgs.control, k_lbfgs.control_reference)):
+            if which == "control":
+                f, g = vg(b.vec[k_lbfgs.XT].clone())
+                b.sf[k_lbfgs.F_PHI_T] = f
+                b.vec[k_lbfgs.GT].copy_(g)
+            before, twin = b.clone(), b.clone()
+            kernel(b)
+            plain(twin)
+            torch.cuda.synchronize()
+            for name, got, want in zip(("si", "sf", "vec", "hist", "rho"), b.tensors(),
+                                       twin.tensors()):
+                check(torch.equal(got, want), f"K10 {which} kernel differs from its plain "
+                      f"version in {name} at n {n}, step {step}")
+            launches[which] += 1
+            if which == "direction" and int(before.si[k_lbfgs.I_NEED_DIR]):
+                snaps.setdefault("direction", before)
+            if which == "control" and (int(b.si[k_lbfgs.I_BRANCHES])
+                                       & k_lbfgs.BRANCHES["stored"]):
+                snaps.setdefault("control", before)
+        if int(b.si[k_lbfgs.I_DONE]) or (step + 1 >= TAIL_LOCKSTEP and len(snaps) == 2):
+            break
+    check(len(snaps) == 2, f"the lockstep at the Euler n met {sorted(snaps)} only")
+    return {"steps": step + 1, "launches": launches, "branches": k_lbfgs.branches_taken(b),
+            "count_at_end": int(b.si[k_lbfgs.I_COUNT]), "head_at_end": int(b.si[k_lbfgs.I_HEAD]),
+            "n_iters": int(b.si[k_lbfgs.I_K]), "snaps": snaps}
+
+
+def k10_kernel_ms(snap, which: str) -> tuple:
+    """(kernel ms, plain ms) of the direction or control kernel from a
+    snapshot: a graph of K10_REPS launches, each after the copies that
+    restore what it reads and writes (si, sf, vec, rho: the history it reads
+    is rewritten with the same values), less a graph of the copies alone;
+    the plain version by events over 3 calls."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    work = snap.clone()
+
+    def restore():
+        for dst, src in ((work.si, snap.si), (work.sf, snap.sf), (work.vec, snap.vec),
+                         (work.rho, snap.rho)):
+            dst.copy_(src)
+
+    launch = ((lambda: k_lbfgs._launch_direction(work, launch_only=True))
+              if which == "direction" else (lambda: k_lbfgs._launch_control(work)))
+    ms = graph_ms(lambda: (restore(), launch())) - graph_ms(restore)
+    plain = (k_lbfgs.direction_reference if which == "direction"
+             else k_lbfgs.control_reference)
+    times = []
+    for _ in range(3):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(work)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return ms, statistics.median(times)
+
+
+def timed_outer(step, state, reps: int) -> dict:
+    """Wall ms of ``reps`` calls of an L-BFGS outer epoch ``step`` from the
+    same state, each ending in a sync, and the host syncs of the last."""
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+
+    walls, iters = [], None
+    for _ in range(reps):
+        before = lb_mod.HOST_SYNCS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state)
+        iters = int(float(m["lbfgs_iters"]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+        syncs = lb_mod.HOST_SYNCS - before
+    return {"wall_ms": walls, "n_iters": iters, "syncs": syncs}
+
+
+def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
+    """39: the Euler L-BFGS branch on the card. K10's direction and control
+    kernels against their plain versions bit for bit at the Euler trunk's
+    n = 162,413 and a full history of 50 pairs, each timed beside its bound;
+    the outer epoch of euler_weak_tail from the JAX fixture's state at
+    max_iters 1, 2 and 5, on K10 (AutogradLBFGS, the trainer's solver here)
+    and on the host loop, against JAX's n_iters, n_evals and f; a capped
+    outer epoch of TAIL_TIMED_ITERS iterations timed on K10 (the done flag
+    read once a replay of 16 steps and once a step) and on the host loop in
+    turns, with each side's device time, launches and host syncs by the
+    profiler; then this slice's main path: ``train --preset euler_weak_tail
+    --resume`` from two of phase 35's euler_weak_fast members for
+    TAIL_CLI['outer'] outer epochs, and ``export --select rank`` of the two
+    tails against the members, no plain call, every solve on K10."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = get_preset(TAIL_PRESET)
+    cfg = exp.optimizer.lbfgs
+    problem = tr.build_problem(exp, "cuda")
+    check(k_lbfgs.lbfgs_device_supported(exp, problem.spec) != [],
+          "euler_weak_tail inside K3's scope")
+    # -- the kernels at the Euler trunk's n
+    plan = k_lbfgs.cluster_plan(K10_EULER_N, cfg.history)
+    check(not plan.resident, f"the plan at n {K10_EULER_N} is resident")
+    lock = k10_euler_lockstep(K10_EULER_N, cfg.history)
+    kern = {which: k10_kernel_ms(lock["snaps"][which], which)
+            for which in ("direction", "control") if which in lock["snaps"]}
+    bounds = k10_bounds(K10_EULER_N, cfg.history, 1, 1)
+
+    # -- the fixture's outer epochs against JAX
+    params, colloc, fx = tail_state(problem)
+    x0, unravel = lb_mod.ravel_tree(params)
+    check(x0.numel() == K10_EULER_N, f"the Euler tail's n {x0.numel()}")
+    loss_fn = tr.make_loss_fn(problem)
+    fun = lambda x: loss_fn(unravel(x), colloc, None)[0]  # noqa: E731
+    f0 = float(fun(x0).detach())
+    rows = {}
+    opts = dict(history=cfg.history, ftol=cfg.ftol, gtol=cfg.gtol, max_ls=cfg.max_ls)
+    solver = k_lbfgs.AutogradLBFGS()
+    for k in (int(i) for i in fx["iters"]):
+        for name, solve in (("k10", lambda: solver.minimize(fun, x0, max_iters=k, **opts)),
+                            ("host_loop", lambda: lb_mod.lbfgs_minimize(fun, x0, max_iters=k,
+                                                                         **opts))):
+            res = solve()
+            got = (res.n_iters, res.n_evals)
+            want = (int(fx[f"n_iters_{k}"]), int(fx[f"n_evals_{k}"]))
+            check(got == want, f"{name} at max_iters {k}: (n_iters, n_evals) {got} != JAX {want}")
+            leaves = [host(v).astype(np.float64) for v in net_leaves(unravel(res.x)["net"])]
+            rows[f"{name}_k{k}"] = {
+                "n_iters": res.n_iters, "n_evals": res.n_evals,
+                "f": close("loss", float(res.f), float(fx[f"f_{k}"])),
+                "leaf_sums": measure("leaf_sums", np.asarray(
+                    [(v.sum(), (v * v).sum()) for v in leaves]), fx[f"sums_{k}"])}
+    check(abs(f0 - float(fx["loss_0"])) <= 1e-4 * abs(float(fx["loss_0"])),
+          f"the tail fixture's loss {f0} vs JAX {float(fx['loss_0'])}")
+
+    # -- times: a capped outer epoch on K10 (both sync rates) and on the host loop
+    capped = tr.build_problem(override(exp, {"optimizer.lbfgs.max_iters": TAIL_TIMED_ITERS}),
+                              "cuda")
+    state = tr.TrainState(params=params, opt_state=None, admm=None, colloc=colloc, key=0,
+                          epoch=int(fx["epoch"]))
+    steps = {"k10": tr.make_lbfgs_step(capped), "host_loop": tr.make_lbfgs_step(capped,
+                                                                               host_loop=True)}
+    check(isinstance(steps["k10"].solver, k_lbfgs.AutogradLBFGS)
+          and steps["host_loop"].solver is None, "the outer epochs' solvers")
+    steps["k10_sync_each_step"] = tr.make_lbfgs_step(capped)
+    steps["k10_sync_each_step"].solver.sync_every = 1
+    for fn in steps.values():  # warm-up
+        fn(state)
+    walls = {name: [] for name in steps}
+    for _ in range(TAIL_TURNS):
+        for name, fn in steps.items():
+            r = timed_outer(fn, state, 1)
+            walls[name] += r["wall_ms"]
+            walls[name + "_iters"], walls[name + "_syncs"] = r["n_iters"], r["syncs"]
+    times = {}
+    for name, fn in steps.items():
+        prof = device_profile(lambda: fn(state))
+        it = walls[name + "_iters"]
+        wall = statistics.median(walls[name])
+        times[name] = {
+            "ms_per_iter": wall / it, "wall_ms": walls[name], "n_iters": it,
+            "syncs_per_iter": walls[name + "_syncs"] / it,
+            "device_us_per_iter": None if prof["device_us"] is None else prof["device_us"] / it,
+            "launches_per_iter": None if prof["kernels"] is None else prof["kernels"] / it,
+            "idle_share": None if prof["device_us"] is None else
+            1.0 - prof["device_us"] / (1e3 * wall)}
+        if name == "k10":
+            times[name]["by_kernel_us_per_iter"] = {
+                kernel_name(key): v["us"] / it for key, v in prof["by_name"].items()
+                if "k10" in key or "lbfgs" in key}
+    check(walls["k10_iters"] == walls["host_loop_iters"] == walls["k10_sync_each_step_iters"],
+          f"the capped outer epochs took {walls['k10_iters']}, {walls['host_loop_iters']} and "
+          f"{walls['k10_sync_each_step_iters']} iterations")
+
+    # -- the main path: the CLI tail from phase 35's members, then the pick
+    tmp = os.path.dirname(members[0])
+    tails = []
+    reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        summaries = []
+        for i, member in enumerate(members[:TAIL_CLI["members"]]):
+            out_dir = os.path.join(tmp, f"tail_m{i}")
+            summaries.append(cli_json([
+                "train", "--preset", TAIL_PRESET, "--resume", member, "--out-dir", out_dir,
+                "--set", f"optimizer.switch_epoch={member_epoch}",
+                "--set", f"train.epochs={member_epoch + TAIL_CLI['outer']}",
+                "--set", f"optimizer.lbfgs.max_iters={TAIL_CLI['max_iters']}",
+                "--device", "cuda"]))
+            tails.append(os.path.join(out_dir, f"{TAIL_PRESET}_final.ckpt"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = kernel_counts()
+        sel_art = os.path.join(tmp, "tail_selected")
+        anchors = members[:TAIL_CLI["members"]]
+        rc, sel = cli_lines(["export", "--preset", TAIL_PRESET, "--checkpoint", *tails,
+                             "--select", "rank", "--anchor", *anchors, "--out", sel_art,
+                             "--device", "cuda"])
+        t2 = time.perf_counter()
+    solves = TAIL_CLI["members"] * TAIL_CLI["outer"]
+    check(plain.calls == 0, f"{plain.calls} calls of a plain version on the tail's path")
+    check(launches["lbfgs_solves"] == solves and launches["lbfgs_reset"] == solves
+          and launches["lbfgs_control"] > 0 and launches["lbfgs_direction"] > 0
+          and launches["lbfgs_replays"] == 0 and launches["fused_value_and_grad"] == 0,
+          f"the tail's K10 launches {launches}")
+    check(all(launches[k] > 0 for k in ("weakform_edge_points", "weakform_flux",
+                                         "weakform_flux_backward", "taylor1", "taylor1_backward",
+                                         "mlp_forward", "mlp_backward")),
+          f"the tail's loss launches {launches}")
+    check(all(summary["epochs"] == member_epoch + TAIL_CLI["outer"] and all(
+        math.isfinite(summary[f"rel_l2_{f}"]) for f in EULER_FIELDS) for summary in summaries),
+        f"the tails' summaries {summaries}")
+    check(rc == 0 and sel[-1]["by"] == "rank" and 0 <= sel[-1]["selected"] < len(tails),
+          f"export --select rank of the tails: {sel}")
+    with open(os.path.join(sel_art, "meta.json")) as f:
+        selection = json.load(f)["selection"]
+    check(selection["anchor"] == anchors, f"meta['selection'] {selection}")
+    emit(card, phase="euler-tail", n=K10_EULER_N, history=cfg.history,
+         plan=dataclasses.asdict(plan),
+         lockstep={k: v for k, v in lock.items() if k != "snaps"},
+         kernels={which: {"ms": v[0], "plain_ms": v[1],
+                          "bound_ms": bounds[f"lbfgs_{which}"][0],
+                          "bound_by": bounds[f"lbfgs_{which}"][1]} for which, v in kern.items()},
+         fixture={"f_0": f0, "jax_loss_0": float(fx["loss_0"]), **rows},
+         outer_epoch={"max_iters": TAIL_TIMED_ITERS, **times},
+         cli={"members": TAIL_CLI["members"], "member_epoch": member_epoch,
+              "outer": TAIL_CLI["outer"], "max_iters": TAIL_CLI["max_iters"],
+              "rel_l2": [{f: s[f"rel_l2_{f}"] for f in EULER_FIELDS} for s in summaries],
+              "selected": sel[-1]["selected"], "train_s": t1 - t0, "select_s": t2 - t1},
+         launches={k: v for k, v in launches.items() if v}, plain_calls=plain.calls)
+    return {"kernels": kern, "bounds": bounds, "launches": launches, "times": times}
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4674,12 +5156,20 @@ def main() -> int:
         serve = timed(card, "ensemble-serve", phase_ensemble_serve, card, ens_tmp, ens_tmp)
         t11 = timed(card, "times-ens-serve", phase_ens_serve_times, card, serve)
 
-    # -- 36 and times: K9, the fused step's chunk as captured CUDA graphs ------
-    k9 = timed(card, "k9", phase_k9, card)
-    t12 = timed(card, "times-k9", phase_k9_times, card)
+        # -- 36 and times: K9, the fused step's chunk as captured CUDA graphs --
+        k9 = timed(card, "k9", phase_k9, card)
+        t12 = timed(card, "times-k9", phase_k9_times, card)
 
-    # -- 37: K10, the L-BFGS solve on the device (phase 14 ran it in training) --
-    k10 = timed(card, "k10", phase_k10, card)
+        # -- 37: K10, the L-BFGS solve on the device (phase 14 ran it in training)
+        k10 = timed(card, "k10", phase_k10, card)
+
+        # -- 38-39: K7b's entropy mode; the Euler L-BFGS branch from phase 35's
+        # euler_weak_fast members (this slice's main path)
+        ent = timed(card, "k7b-entropy", phase_k7b_entropy, card)
+        ewf_members = [os.path.join(ens_tmp, "ewf", f"{PATH_PRESET}_final_m{i}.ckpt")
+                       for i in range(ENS_EULER["members"])]
+        tail = timed(card, "euler-tail", phase_euler_tail, card, ewf_members,
+                     ENS_EULER["epochs"])
 
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
@@ -4913,6 +5403,16 @@ def main() -> int:
             "plain_ms": t8[K7B_EULER][key][1],
             **bound_fields(t8[K7B_EULER][key][2]),
         },
+        # the entropy mode (phase 38): launches in the entropy-weighted loss
+        # of twosin_weak (Burgers) and of euler_weak_fast (Euler), times at
+        # 1,000 cells
+        **({} if what == "edge_points" else {f"entropy_{kind}_n1000": {
+            "launches": ent["steps"][preset]["launches"][counter.replace("flux", "flux_entropy")],
+            "max_abs_err": ent["kernels"][(kind, True, 1_000)][err],
+            "ms": ent["times"][(kind, True, 1_000)][key][0],
+            "plain_ms": ent["times"][(kind, True, 1_000)][key][1],
+            **bound_fields(ent["times"][(kind, True, 1_000)][key][2]),
+        } for kind, preset in zip(("burgers", "euler"), ENTROPY_PRESETS)}),
     } for what, counter, key, err in (
         ("edge_points", "weakform_edge_points", "edge", None),
         ("flux", "weakform_flux", "forward", 0),
@@ -4933,6 +5433,19 @@ def main() -> int:
         **bound_fields(k10["bounds"][name]),
         **({"solve": {"preset": "abgrall_admm", "max_iters": LONG_SOLVE, **k10["times"]["k10"],
                       "host_loop": k10["times"]["host_loop"]}} if name == "lbfgs_control" else {}),
+        # the Euler branch (phase 39): launches of the CLI tail, the kernels
+        # at the trunk's 162,413 params and a full history of 50 pairs
+        **({f"euler_tail_n{K10_EULER_N}": {
+            "launches": tail["launches"][name],
+            "max_abs_err": 0.0,
+            "ms": tail["kernels"][name.split("_")[1]][0],
+            "plain_ms": tail["kernels"][name.split("_")[1]][1],
+            **bound_fields(tail["bounds"][name]),
+            **({"outer_epoch": {"max_iters": TAIL_TIMED_ITERS, **tail["times"]}}
+               if name == "lbfgs_control" else {}),
+        }} if name in ("lbfgs_control", "lbfgs_direction") else {}),
+        **({"euler_tail_launches": tail["launches"]["lbfgs_reset"]}
+           if name == "lbfgs_reset" else {}),
     } for name, replaces in (
         ("lbfgs_control", "pinns_tpu/opt/lbfgs.py:194"),
         ("lbfgs_direction", "pinns_tpu/opt/lbfgs.py:167"),

@@ -13,7 +13,10 @@ steps*, each
 
 where the value-and-grad is K3's (``fused_step.fused_value_and_grad``: the
 narrow grad kernel and the partials' sum) for a configuration inside
-:func:`lbfgs_device_supported`, and the control and direction kernels carry
+:func:`lbfgs_device_supported` (:class:`DeviceLBFGS`), else autograd through
+the loss over the kernels it runs (K7a, K7b, K5, K1 / K2:
+:class:`AutogradLBFGS`, every other float32 configuration on the card, the
+Euler L-BFGS branch among them), and the control and direction kernels carry
 the solve's state in device memory (:class:`Buffers`). The direction kernel
 runs as a thread block cluster of ``CLUSTER`` CTAs (:func:`cluster_plan`:
 at ``abgrall_admm``'s 3,023 params the history's pairs resident in their
@@ -23,8 +26,11 @@ order, so their bits do not depend on the layout.
 :class:`DeviceLBFGS` captures ``STEPS_PER_REPLAY`` steps once as a CUDA graph and replays it,
 reading the device only for the done flag after each replay (one read, in
 ``opt.lbfgs.HOST_SYNCS``); after the end every launch reads the flag and
-returns. ``opt/lbfgs.py::lbfgs_minimize``, the host loop, stays the
-algorithm's plain version (the card runs it outside K10's scope).
+returns. :class:`AutogradLBFGS` launches its steps from the host and reads
+the flag once every ``sync_every`` steps; its evaluations after the end
+write nothing (a device-side select on the flag). ``opt/lbfgs.py::
+lbfgs_minimize``, the host loop, stays the algorithm's plain version (the
+CPU's, float64's, and the card's checks').
 
 The kernels' plain versions (:func:`reset_reference`,
 :func:`control_reference`, :func:`direction_reference`) step the same state
@@ -55,7 +61,7 @@ RESET_LAUNCHES = 0  # reset kernel launches (one a solve)
 CONTROL_LAUNCHES = 0  # control kernel launches: host calls and those inside replays
 DIRECTION_LAUNCHES = 0  # direction kernel launches: host calls and those inside replays
 GRAPH_REPLAYS = 0  # replays of a captured graph of STEPS_PER_REPLAY evaluation steps
-SOLVES = 0  # device solves (DeviceLBFGS.minimize on the card)
+SOLVES = 0  # device solves (DeviceLBFGS.minimize and AutogradLBFGS.minimize on the card)
 _lock = threading.Lock()
 
 # evaluation steps a replay runs between two reads of the done flag: a solve
@@ -632,13 +638,16 @@ def result(b: Buffers, head: np.ndarray) -> host_lbfgs.LBFGSResult:
         n_evals=int(head[I_EVALS]), converged=bool(head[I_CONVERGED]))
 
 
-def run_steps(b: Buffers, evaluate: Callable[[], None]) -> host_lbfgs.LBFGSResult:
+def run_steps(b: Buffers, evaluate: Callable[[], None],
+              sync_every: int = STEPS_PER_REPLAY) -> host_lbfgs.LBFGSResult:
     """Evaluation steps (``evaluate``, control, direction) from a reset state,
-    STEPS_PER_REPLAY at a time between reads of the done flag: the solve as
-    K10 runs it, each step through the wrappers (the plain versions on the
+    ``sync_every`` at a time between reads of the done flag: the solve as K10
+    runs it, each step through the wrappers (the plain versions on the
     CPU)."""
+    if sync_every < 1:
+        raise ValueError(f"K10: sync_every = {sync_every}")
     while True:
-        for _ in range(STEPS_PER_REPLAY):
+        for _ in range(sync_every):
             evaluate()
             control(b)
             direction(b)
@@ -647,27 +656,61 @@ def run_steps(b: Buffers, evaluate: Callable[[], None]) -> host_lbfgs.LBFGSResul
             return result(b, head)
 
 
-def lbfgs_minimize_device(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
-                          max_iters: int = 5000, history: int = 50, ftol: float = 1e-7,
-                          gtol: float = 1e-5, max_ls: int = 50, c1: float = 1e-4,
-                          c2: float = 0.9) -> host_lbfgs.LBFGSResult:
-    """K10's state machine over any float32 function of a flat vector (its
-    gradient by torch.autograd): ``opt.lbfgs.lbfgs_minimize``'s contract,
-    stepped evaluation by evaluation. The tests run it on the CPU (the plain
-    versions); on the card the trainer runs :class:`DeviceLBFGS`."""
-    b = Buffers.alloc(x0.shape[0], history, x0.device)
-    vg = host_lbfgs.value_and_grad(fun)
+class AutogradLBFGS:
+    """K10 over any float32 function of a flat vector, its gradient by
+    torch.autograd: ``opt.lbfgs.lbfgs_minimize``'s contract, stepped
+    evaluation by evaluation through the reset, control and direction
+    kernels (their plain versions on CPU tensors). The trainer takes it on
+    the card for every float32 L-BFGS phase outside
+    :func:`lbfgs_device_supported` (the Euler branch, ``burgers_inverse``,
+    the 8x200 nets), the evaluation being autograd through the loss over the
+    kernels it runs.
 
-    def evaluate():
-        if int(b.si[I_DONE]):
-            return
-        f, g = vg(b.vec[XT].clone())
-        b.sf[F_PHI_T] = f
-        b.vec[GT].copy_(g)
+    An evaluation reads the trial point ``vec[XT]`` and writes ``vec[GT]``
+    and ``sf[F_PHI_T]`` by device copies, with no read of the device: once
+    the done flag is set its writes select the old values
+    (``torch.where`` on the flag), and the control and direction kernels
+    return at once, so the steps run between two reads of the flag after
+    the end leave every buffer as it was. The host reads the flag once every
+    ``sync_every`` steps (one sync, ``opt.lbfgs.HOST_SYNCS``). The buffers
+    are kept for the next solve of the same (n, history)."""
 
-    reset(b, x0.detach().contiguous(), max_iters=max_iters, max_ls=max_ls, c1=c1, c2=c2,
-          ftol=ftol, gtol=gtol)
-    return run_steps(b, evaluate)
+    def __init__(self, sync_every: int = STEPS_PER_REPLAY):
+        self.sync_every = sync_every
+        self.bufs: Optional[Buffers] = None
+
+    def _evaluate(self, fun: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        b = self.bufs
+        with torch.enable_grad():
+            x = b.vec[XT].clone().requires_grad_(True)
+            f = fun(x)
+            (g,) = torch.autograd.grad(f, x)
+        with torch.no_grad():
+            done = b.si[I_DONE] != 0
+            b.sf[F_PHI_T:F_PHI_T + 1].copy_(
+                torch.where(done, b.sf[F_PHI_T], f.detach().to(torch.float32)).reshape(1))
+            b.vec[GT].copy_(torch.where(done, b.vec[GT], g))
+
+    def minimize(self, fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
+                 max_iters: int = 5000, history: int = 50, ftol: float = 1e-7,
+                 gtol: float = 1e-5, max_ls: int = 50, c1: float = 1e-4,
+                 c2: float = 0.9) -> host_lbfgs.LBFGSResult:
+        """Minimize ``fun`` from the flat float32 ``x0``; returns
+        ``opt.lbfgs.LBFGSResult`` with tensors of the caller's own."""
+        global SOLVES
+        n = x0.shape[0]
+        if x0.dtype != torch.float32:
+            raise ValueError(f"K10 solves in float32, got x0 of {x0.dtype}")
+        b = self.bufs
+        if b is None or (b.n, b.m, b.si.device) != (n, history, x0.device):
+            self.bufs = Buffers.alloc(n, history, x0.device)
+        reset(self.bufs, x0.detach().contiguous(), max_iters=max_iters, max_ls=max_ls, c1=c1,
+              c2=c2, ftol=ftol, gtol=gtol)
+        res = run_steps(self.bufs, lambda: self._evaluate(fun), self.sync_every)
+        if x0.device.type == "cuda":
+            with _lock:
+                SOLVES += 1
+        return res
 
 
 class DeviceLBFGS:

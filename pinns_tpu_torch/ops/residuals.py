@@ -14,7 +14,9 @@ p = (gamma - 1)(E - rho u^2 / 2):
 
 The streams come from the fused kernels on CUDA (K1, K7a); the combine stays
 plain torch, in the JAX package's float32 operation order, as XLA did it
-outside the kernels. The entropy production of slice 2b is not ported yet.
+outside the kernels. The shock-capture terms read the same streams:
+:func:`euler_entropy_production`, the physical-entropy rate whose negative
+part the entropy penalty squares.
 """
 
 from __future__ import annotations
@@ -78,6 +80,27 @@ def euler_combine(y, y_x, y_t, gamma: float = 1.4):
     f2 = (rho_t * u + rho * u_t) + (rho_x * u * u + 2.0 * rho * u * u_x) + p_x
     f3 = e_t + (u_x * e + u * e_x) + (u_x * p + u * p_x)
     return (rho, u, e), (f1, f2, f3)
+
+
+def euler_entropy_production(y, y_x, y_t, gamma: float = 1.4, eps: float = 1e-3):
+    """D = S_t + u S_x for the specific entropy S = log p - gamma log rho,
+    (N, 1), from the Taylor-1 streams (``pinns_tpu/ops/residuals.py:116``).
+    Admissible weak solutions have D >= 0; the penalty squares relu(-D). p
+    and rho are clamped at ``eps`` by ``torch.maximum``, whose gradient at a
+    tie is half, as JAX's ``jnp.maximum``."""
+    rho, u, e = y[:, 0:1], y[:, 1:2], y[:, 2:3]
+    rho_x, u_x, e_x = y_x[:, 0:1], y_x[:, 1:2], y_x[:, 2:3]
+    rho_t, u_t, e_t = y_t[:, 0:1], y_t[:, 1:2], y_t[:, 2:3]
+    g = gamma
+    p = (g - 1.0) * (e - 0.5 * rho * u * u)
+    p_x = (g - 1.0) * (e_x - 0.5 * (rho_x * u * u + 2.0 * rho * u * u_x))
+    p_t = (g - 1.0) * (e_t - 0.5 * (rho_t * u * u + 2.0 * rho * u * u_t))
+    floor = torch.tensor(eps, dtype=y.dtype, device=y.device)
+    p_c = torch.maximum(p, floor)
+    rho_c = torch.maximum(rho, floor)
+    s_x = p_x / p_c - g * rho_x / rho_c
+    s_t = p_t / p_c - g * rho_t / rho_c
+    return s_t + u * s_x
 
 
 def euler_pressure(rho, u, e, gamma: float = 1.4):

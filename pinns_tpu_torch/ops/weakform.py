@@ -23,8 +23,10 @@ on the device of the centers, as ``ops.taylor.mlp_taylor_1`` does: a CPU
 tensor (or ``plain=True``) takes the plain versions; any other goes to
 kernel K7b's edge-point kernel, then K7a (viscous) or K5 (inviscid), then
 K7b's quadrature kernel, differentiable through its backward
-(``ops.kernels.weakform``). The kernels do not compute the entropy: asking
-for it on the card raises, naming slice 2b-iii.
+(``ops.kernels.weakform``), the entropy violation from its entropy mode.
+The clamps of p and rho under the Euler entropy's logs are
+``torch.maximum``, whose gradient at a tie is half, as JAX's
+``jnp.maximum``.
 
 The quadrature sums run over q in order, in float32, in the operation order
 of the JAX package's expressions.
@@ -40,7 +42,7 @@ import torch
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, mlp_apply, mlp_apply_reference
 from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_1_reference
 
-ENTROPY_SLICE = "slice 2b-iii (the entropy penalty)"
+EPS = 1e-3  # the floor of p and rho under the Euler entropy's logs
 
 
 def gauss_legendre(q: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -123,28 +125,33 @@ def burgers_quadrature_reference(u, ux, hxe, hte, lambda1, lambda2, quad: int,
     return r, ent
 
 
-def euler_entropy_x(y, y_x, gamma: float, eps: float = 1e-3):
+def _floor(v: torch.Tensor, eps: float) -> torch.Tensor:
+    """max(v, eps), half the gradient at a tie (JAX's ``jnp.maximum``)."""
+    return torch.maximum(v, torch.tensor(eps, dtype=v.dtype, device=v.device))
+
+
+def euler_entropy_x(y, y_x, gamma: float, eps: float = EPS):
     """d(eta)/dx along an edge from the primitive fields and their
     x-derivatives (``pinns_tpu/ops/weakform.py:154``)."""
     rho, u, e = y[..., 0:1], y[..., 1:2], y[..., 2:3]
     rho_x, u_x, e_x = y_x[..., 0:1], y_x[..., 1:2], y_x[..., 2:3]
     p = (gamma - 1.0) * (e - 0.5 * rho * u * u)
-    p_safe = torch.clamp(p, min=eps)
-    rho_safe = torch.clamp(rho, min=eps)
+    p_safe = _floor(p, eps)
+    rho_safe = _floor(rho, eps)
     p_x = (gamma - 1.0) * (e_x - 0.5 * u * u * rho_x - rho * u * u_x)
     s = torch.log(p_safe) - gamma * torch.log(rho_safe)
     s_x = p_x / p_safe - gamma * rho_x / rho_safe
     return -(rho_x * s + rho * s_x) / (gamma - 1.0)
 
 
-def euler_conserved_flux(y, gamma: float, eps: float = 1e-3):
+def euler_conserved_flux(y, gamma: float, eps: float = EPS):
     """(U, F, eta, q): the conserved variables, their fluxes, and the convex
     entropy pair of the gamma law (``pinns_tpu/ops/weakform.py:168``)."""
     rho, u, e = y[..., 0:1], y[..., 1:2], y[..., 2:3]
     p = (gamma - 1.0) * (e - 0.5 * rho * u * u)
     cons = torch.cat([rho, rho * u, e], dim=-1)
     flux = torch.cat([rho * u, rho * u * u + p, u * (e + p)], dim=-1)
-    s = torch.log(torch.clamp(p, min=eps)) - gamma * torch.log(torch.clamp(rho, min=eps))
+    s = torch.log(_floor(p, eps)) - gamma * torch.log(_floor(rho, eps))
     eta = -rho * s / (gamma - 1.0)
     return cons, flux, eta, u * eta
 
@@ -190,15 +197,9 @@ def _coeffs(values, like: torch.Tensor) -> torch.Tensor:
                       for v in values])
 
 
-def _on_card(centers: torch.Tensor, plain: bool, want_entropy: bool) -> bool:
-    """Whether the kernels take this call; raises for the entropy there."""
-    if plain or centers.device.type == "cpu":
-        return False
-    if want_entropy:
-        raise NotImplementedError(
-            "the weak entropy violation is not computed by the flux kernel (K7b); "
-            f"it comes with {ENTROPY_SLICE}")
-    return True
+def _on_card(centers: torch.Tensor, plain: bool) -> bool:
+    """Whether the kernels take this call."""
+    return not (plain or centers.device.type == "cpu")
 
 
 def _edge_values(spec: MLPSpec, params: Params, pts: torch.Tensor, viscous: bool,
@@ -219,7 +220,7 @@ def burgers_flux_residual(spec: MLPSpec, params: Params, centers: torch.Tensor, 
     (r, ent), each (N, 1), ent None unless asked for. ``viscous`` is the
     static flag of the JAX package (the lambda2 term and its derivative
     pass); ``lambda1`` / ``lambda2`` are tensors on the centers' device."""
-    if not _on_card(centers, plain, want_entropy):
+    if not _on_card(centers, plain):
         pts, hxe, hte = edge_points_reference(spec, centers, hx, ht, quad)
         u, ux = _edge_values(spec, params, pts, viscous, plain=True)
         return burgers_quadrature_reference(u, ux, hxe, hte, lambda1, lambda2, quad,
@@ -229,6 +230,8 @@ def burgers_flux_residual(spec: MLPSpec, params: Params, centers: torch.Tensor, 
     pts, hxe, hte = k7b.edge_points(spec, centers, hx, ht, quad)
     u, ux = _edge_values(spec, params, pts, viscous, plain=False)
     coeffs = _coeffs((lambda1, lambda2), u)
+    if want_entropy:
+        return k7b.flux_quadrature("burgers", u, ux, hxe, hte, coeffs, quad, entropy=True)
     return k7b.flux_quadrature("burgers", u, ux, hxe, hte, coeffs, quad), None
 
 
@@ -239,7 +242,7 @@ def euler_flux_residuals(spec: MLPSpec, params: Params, centers: torch.Tensor, g
     energy) at the cell centers (N, 2): ((r1, r2, r3), ent), each (N, 1).
     ``visc`` (a tensor on the centers' device when ``viscous``) is the
     artificial viscosity on the conserved variables."""
-    if not _on_card(centers, plain, want_entropy):
+    if not _on_card(centers, plain):
         pts, hxe, hte = edge_points_reference(spec, centers, hx, ht, quad)
         y, yx = _edge_values(spec, params, pts, viscous, plain=True)
         return euler_quadrature_reference(y, yx, hxe, hte, gamma, visc, quad, want_entropy)
@@ -250,5 +253,10 @@ def euler_flux_residuals(spec: MLPSpec, params: Params, centers: torch.Tensor, g
     # (gamma - 1, visc): gamma - 1 rounded from the float64 difference, as the
     # plain version's (gamma - 1.0) * (...) rounds it
     coeffs = _coeffs((gamma - 1.0, visc), y)
-    r = k7b.flux_quadrature("euler", y, yx, hxe, hte, coeffs, quad)
-    return (r[:, 0:1], r[:, 1:2], r[:, 2:3]), None
+    ent = None
+    if want_entropy:
+        r, ent = k7b.flux_quadrature("euler", y, yx, hxe, hte, coeffs, quad, entropy=True,
+                                     gamma=gamma)
+    else:
+        r = k7b.flux_quadrature("euler", y, yx, hxe, hte, coeffs, quad)
+    return (r[:, 0:1], r[:, 1:2], r[:, 2:3]), ent

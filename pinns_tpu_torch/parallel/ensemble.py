@@ -244,10 +244,11 @@ def member_params(stacked_params: dict, i: int) -> dict:
 
 
 def scores_at(trainer: Trainer, stacked: TrainState, pts: torch.Tensor, n: Optional[int] = None,
-              anchor_params=None) -> List[dict]:
+              anchor_params=None, coarse_scales: Sequence[float] = ()) -> List[dict]:
     """:func:`selection_scores` at the given points (N, 2): one dict a member
-    with ``data_term``, ``resid_ms``, ``score`` and, with ``anchor_params``
-    (a stacked params tree), ``consensus``. Only ``stacked.params`` is read."""
+    with ``data_term``, ``resid_ms``, ``score``, for each coarse scale s
+    ``coarse_r<s>`` and ``coarse_ent<s>`` and, with ``anchor_params`` (a
+    stacked params tree), ``consensus``. Only ``stacked.params`` is read."""
     from pinns_tpu_torch.train.trainer import make_data_term
 
     problem = trainer.problem
@@ -264,6 +265,18 @@ def scores_at(trainer: Trainer, stacked: TrainState, pts: torch.Tensor, n: Optio
             ms.append(sum(torch.mean(torch.square(f.to(torch.float32))) for f in res) / len(res))
         d = torch.stack([t.reshape(()) for t in d]).cpu().numpy()
         ms = torch.stack([t.reshape(()) for t in ms]).cpu().numpy()
+        coarse = {}
+        for s in coarse_scales:
+            # the weak-form cells at s times the configured half-widths, and
+            # their entropy violation, whatever residual the members trained
+            rows = [problem.flux_residuals_and_entropy(params, pts, True, scale=float(s))
+                    for params in members]
+            coarse[f"coarse_r{s:g}"] = torch.stack([
+                sum(torch.mean(torch.abs(f.to(torch.float32))) for f in leaves) / len(leaves)
+                for leaves in (r if isinstance(r, tuple) else (r,) for r, _ in rows)
+            ]).cpu().numpy()
+            coarse[f"coarse_ent{s:g}"] = torch.stack(
+                [torch.mean(ent.to(torch.float32)) for _, ent in rows]).cpu().numpy()
         consensus = None
         if anchor_params is not None:
             anchor = [_primaries(problem, member_params(anchor_params, i), pts)
@@ -281,7 +294,7 @@ def scores_at(trainer: Trainer, stacked: TrainState, pts: torch.Tensor, n: Optio
             consensus = torch.stack([dist(params) for params in members]).cpu().numpy()
     return [
         {"member": i, "data_term": float(d[i]), "resid_ms": float(ms[i]),
-         "score": float(w * d[i] + ms[i]),
+         "score": float(w * d[i] + ms[i]), **{k: float(v[i]) for k, v in sorted(coarse.items())},
          **({"consensus": float(consensus[i])} if consensus is not None else {})}
         for i in range(len(members))
     ]
@@ -296,16 +309,18 @@ def selection_scores(trainer: Trainer, stacked: TrainState, n: int, seed: int = 
     ``n_points`` shared by all members, drawn with ``uniform_box`` from
     ``seed``), ``score`` = data_weight data_term + resid_ms, and
     ``consensus`` (the mean per-field relative-L2 distance to the anchor
-    ensemble's mean prediction) when ``anchor_params`` is given. The draw is
-    the port's own: JAX's threefry points differ."""
-    if coarse_scales:
-        raise NotImplementedError(f"the coarse-cell battery needs the entropy: {SLICE_2B}")
+    ensemble's mean prediction) when ``anchor_params`` is given. With
+    ``coarse_scales`` each scale s adds the coarse-cell battery:
+    ``coarse_r<s>`` (the mean |r| of the weak-form cells at s times the
+    configured half-widths, averaged over the equations) and
+    ``coarse_ent<s>`` (their mean entropy violation). The draw is the port's
+    own: JAX's threefry points differ."""
     from pinns_tpu_torch.data.sampling import uniform_box
 
     problem = trainer.problem
     pts = uniform_box(torch.Generator().manual_seed(int(seed)), n_points, problem.lb,
                       problem.ub, problem.spec.dtype, problem.device)
-    return scores_at(trainer, stacked, pts, n, anchor_params)
+    return scores_at(trainer, stacked, pts, n, anchor_params, coarse_scales)
 
 
 def select_member(scores: Sequence[dict], by: str = "score") -> int:

@@ -59,10 +59,18 @@ pass, K7a on the card) and the trainable shock-path features
 (``model.n_paths``, computed inside K7a and K5 on the card): the
 ``euler_weak`` and ``euler_weak_fast`` presets.
 
+Slice 2b-iii, part 1 brings the shock-capture terms of the loss and the
+Euler L-BFGS branch: the entropy penalty (``loss.entropy_weight``: the strong
+form's pointwise admissibility violation from the residual's own streams,
+``Problem.residuals_and_entropy``; the weak form's from K7b's quadrature),
+gradient weighting (``loss.grad_weight_kappa``: every consumer of the strong
+residual sees the weighted field), and L-BFGS on the Euler system, whose
+solve runs on K10's kernels around autograd through the loss on the card
+(``ops.kernels.lbfgs.AutogradLBFGS``).
+
 What the port leaves to later slices, each raising ``NotImplementedError``
-with the slice's name: the weak-form ADMM, the entropy penalty, gradient
-weighting, RAD, SWA, Fourier features and the Euler L-BFGS branch (slice
-2b-iii); multi-GPU (slice 6). Ensembles and sweeps train through
+with the slice's name: the weak-form ADMM, RAD, SWA and Fourier features
+(slice 2b-iii); multi-GPU (slice 6). Ensembles and sweeps train through
 ``pinns_tpu_torch.parallel`` (slice 4a) and serve through
 ``serve.export_ensemble``.
 """
@@ -98,7 +106,7 @@ from pinns_tpu_torch.losses.admm import (
 )
 from pinns_tpu_torch.losses.misfit import causal_residual_penalty, data_misfit, residual_penalty
 from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply, mlp_apply_reference
-from pinns_tpu_torch.ops.residuals import euler_combine
+from pinns_tpu_torch.ops.residuals import euler_combine, euler_entropy_production
 from pinns_tpu_torch.ops.taylor import (
     mlp_taylor_1,
     mlp_taylor_1_reference,
@@ -142,19 +150,15 @@ def check_slice(exp: Experiment) -> None:
     ``exp`` uses and the port does not have yet."""
     later = []
     slice2 = "slice 2b-iii (the rest of shock capture on the weak form)"
-    m, s, lo, o = exp.model, exp.sampling, exp.loss, exp.optimizer
+    m, s, lo = exp.model, exp.sampling, exp.loss
     checks = [
         (exp.pde.kind not in ("burgers", "euler"), f"pde.kind={exp.pde.kind!r}",
          "no slice (burgers and euler only)"),
         (lo.admm_form != "strong", f"the weak-form ADMM (loss.admm_form={lo.admm_form!r})",
          slice2),
-        (lo.entropy_weight > 0.0, "the entropy penalty", slice2),
-        (lo.grad_weight_kappa != 0.0, "gradient weighting", slice2),
         (s.strategy == "rad", "RAD resampling", slice2),
         (exp.train.swa_frac > 0.0, "SWA", slice2),
         (m.n_fourier > 0, "Fourier features", slice2),
-        (exp.pde.kind == "euler" and o.kind != "adam", f"optimizer.kind={o.kind!r} on Euler "
-         "(the Euler L-BFGS branch)", slice2),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
     ]
@@ -210,13 +214,14 @@ class Problem:
         return pde.train_coeffs or pde.lambda2_transform == "exp" or pde.lambda2 != 0.0
 
     def flux_residuals_and_entropy(self, params, centers, want_entropy: bool = False,
-                                   plain: bool = False):
+                                   plain: bool = False, scale: float = 1.0):
         """Weak-form cell residuals at the cell centers (``ops.weakform``):
         Burgers' r (N, 1) or the Euler system's (r1, r2, r3), and the weak
-        entropy violation (None unless asked for; the card raises for it).
-        ``plain`` forces the plain versions on any device. (JAX's coarse-cell
-        ``scale`` serves ensemble selection's coarse battery and comes with
-        slice 2b-iii, beside the entropy it needs.)
+        entropy violation relu(e)^2 (N, 1) (None unless asked for; K7b's
+        entropy mode on the card). ``plain`` forces the plain versions on any
+        device. ``scale`` multiplies the cells' half-widths: coarse control
+        volumes, whose cell means see a misplaced shock, for ensemble
+        selection's coarse battery (JAX's ``:196-215``).
 
         The mixed formulation (``loss.strong_equations``, Euler only; JAX's
         ``:235-251``): equation i in it takes the strong pointwise residual
@@ -230,6 +235,8 @@ class Problem:
             )
         hx = cfg.flux_dx_frac * float(self.ub[0] - self.lb[0])
         ht = cfg.flux_dt_frac * float(self.ub[1] - self.lb[1])
+        if scale != 1.0:
+            hx, ht = hx * scale, ht * scale
         if not self.euler:
             lam1, lam2 = self.effective_coeffs(params)
             return burgers_flux_residual(self.spec, params["net"], centers, lam1, lam2, hx, ht,
@@ -262,22 +269,66 @@ class Problem:
             return self.flux_residuals_and_entropy(params, pts, plain=plain)[0]
         return self.residuals_chunked(params, pts, plain)
 
-    def residuals(self, params, colloc, plain: bool = False):
-        """Strong-form residual(s) at collocation points: Burgers' f (N, 1),
-        or the Euler system's (f1, f2, f3), each (N, 1).
+    def residuals_and_entropy(self, params, colloc, want_entropy: bool = False,
+                              plain: bool = False):
+        """(residuals, per-point entropy_sq or None) from ONE Taylor pass
+        (JAX's ``:136-189``): Burgers' f (N, 1) or the Euler system's (f1,
+        f2, f3), each (N, 1).
+
+        With ``loss.grad_weight_kappa`` > 0 the residual field is the
+        gradient-weighted w f, w = 1 / (1 + kappa s^2), with the shock
+        indicator s (u_x for Burgers, |(rho_x, u_x)| for Euler) detached, so
+        that the penalty, the ADMM updates and the misfit all see the same
+        weighted field. The entropy term (asked for when
+        ``loss.entropy_weight`` > 0) is the squared admissibility violation,
+        from the streams the residual already computed: Burgers relu(u u_t +
+        lambda1 u^2 u_x)^2, or relu(u f - lambda2 u_x^2)^2 when the
+        viscosity can be nonzero; Euler relu(-(S_t + u S_x))^2
+        (``ops.residuals.euler_entropy_production``).
 
         ``plain`` forces the plain Taylor recurrence on any device; otherwise
         a CUDA tensor takes K1 (Burgers, differentiable through K2) or K7a
         (Euler, differentiable through its backward).
         """
+        kappa = self.exp.loss.grad_weight_kappa
         if self.euler:
             taylor1 = mlp_taylor_1_reference if plain else mlp_taylor_1
             y, y_x, y_t = taylor1(self.spec, params["net"], colloc)
-            return euler_combine(y, y_x, y_t, self.exp.pde.gamma)[1]
+            residuals = euler_combine(y, y_x, y_t, self.exp.pde.gamma)[1]
+            ent = None
+            if want_entropy:
+                d = euler_entropy_production(y, y_x, y_t, self.exp.pde.gamma)
+                ent = torch.clamp(-d, min=0.0) ** 2
+            if kappa > 0.0:
+                s2 = y_x[:, 0:1].detach() ** 2 + y_x[:, 1:2].detach() ** 2
+                w = 1.0 / (1.0 + kappa * s2)
+                residuals = tuple(w * fi for fi in residuals)
+            return residuals, ent
         lam1, lam2 = self.effective_coeffs(params)
         taylor = mlp_taylor_2_reference if plain else mlp_taylor_2
         u, u_x, u_t, u_xx = taylor(self.spec, params["net"], colloc)
-        return u_t + lam1 * u * u_x - lam2 * u_xx
+        f = u_t + lam1 * u * u_x - lam2 * u_xx
+        ent = None
+        if want_entropy:
+            if self.viscous_static:
+                # u f - lambda2 u_x^2 completes -lambda2 (u u_x)_x, the
+                # viscous entropy balance (zero on exact solutions)
+                e = u * f - lam2 * u_x * u_x
+            else:
+                e = u * u_t + lam1 * u * u * u_x
+            ent = torch.clamp(e, min=0.0) ** 2
+        if kappa > 0.0:
+            f = f / (1.0 + kappa * u_x.detach() ** 2)
+        return f, ent
+
+    def residuals(self, params, colloc, plain: bool = False):
+        """Strong-form residual(s) at collocation points, gradient-weighted
+        when ``loss.grad_weight_kappa`` > 0 (:meth:`residuals_and_entropy`)."""
+        return self.residuals_and_entropy(params, colloc, False, plain)[0]
+
+    def entropy_sq(self, params, colloc, plain: bool = False):
+        """The per-point squared entropy-admissibility violation (N, 1)."""
+        return self.residuals_and_entropy(params, colloc, True, plain)[1]
 
     def residuals_chunked(self, params, colloc, plain: bool = False):
         """Residuals over the full batch, evaluated microbatch by microbatch
@@ -423,15 +474,17 @@ def _remat(policy: str, body: Callable, on_card: bool) -> Callable:
 
 def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain=False):
     """Residual loss term: the strong or the weak form, by the configured
-    penalty (the causal one when ``loss.causal_eps > 0``), accumulated over
-    ``sampling.microbatch`` chunks of the batch when it is above 1 (strong
-    form only, in chunk order; ``microbatch_unroll`` is an XLA scan knob the
-    port ignores)."""
+    penalty (the causal one when ``loss.causal_eps > 0``), plus
+    ``entropy_weight * sum(entropy_sq) / n_f`` when the entropy penalty is
+    on, accumulated over ``sampling.microbatch`` chunks of the batch when it
+    is above 1 (strong form only, in chunk order; ``microbatch_unroll`` is an
+    XLA scan knob the port ignores)."""
     exp = problem.exp
     cfg = exp.loss
     n_f = colloc.shape[0]  # the ACTUAL row count, as the ADMM threshold uses
     m = exp.sampling.microbatch
     rho = cfg.rho if rho is None else rho
+    ew = cfg.entropy_weight
     if cfg.causal_eps > 0.0 and (cfg.residual_kind not in ("mean_sq", "flux") or m > 1):
         raise ValueError(
             "loss.causal_eps requires residual_kind='mean_sq' or 'flux' and "
@@ -450,20 +503,25 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
         )
     if m <= 1:
         if problem.flux:
-            residuals, _ = problem.flux_residuals_and_entropy(params, colloc, plain=plain)
+            residuals, ent = problem.flux_residuals_and_entropy(params, colloc, ew > 0.0, plain)
         else:
-            residuals = problem.residuals(params, colloc, plain=plain)
+            residuals, ent = problem.residuals_and_entropy(params, colloc, ew > 0.0, plain)
         if cfg.residual_kind == "admm":
-            return admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
-        if cfg.causal_eps > 0.0:
-            return causal_residual_penalty(
+            term = admm_penalty(residuals, admm_state, rho, cfg.explicit_inner)
+        elif cfg.causal_eps > 0.0:
+            term = causal_residual_penalty(
                 residuals, colloc[:, 1], problem.lb[1], problem.ub[1], cfg.causal_eps,
                 cfg.causal_bins, relative=cfg.causal_relative)[0]
-        # the weak-form cell residual takes the plain mean square
-        kind = "mean_sq" if cfg.residual_kind == "flux" else cfg.residual_kind
-        if isinstance(residuals, tuple):
-            return sum(residual_penalty(f, kind, n_f) for f in residuals)
-        return residual_penalty(residuals, kind, n_f)
+        else:
+            # the weak-form cell residual takes the plain mean square
+            kind = "mean_sq" if cfg.residual_kind == "flux" else cfg.residual_kind
+            if isinstance(residuals, tuple):
+                term = sum(residual_penalty(f, kind, n_f) for f in residuals)
+            else:
+                term = residual_penalty(residuals, kind, n_f)
+        if ew > 0.0:
+            term = term + ew * torch.sum(ent) / n_f
+        return term
 
     chunks = _chunks(colloc, m)
     wrap = functools.partial(_remat, exp.sampling.microbatch_remat,
@@ -472,8 +530,9 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
     if cfg.residual_kind == "admm":
         # the augmented-Lagrangian penalty is additive over points
         def admm_body(ch, z, dual):
-            f = problem.residuals(params, ch, plain=plain)
-            return admm_penalty(f, ADMMState(z=z, dual=dual), rho, cfg.explicit_inner)
+            f, ent = problem.residuals_and_entropy(params, ch, ew > 0.0, plain)
+            pen = admm_penalty(f, ADMMState(z=z, dual=dual), rho, cfg.explicit_inner)
+            return pen + ew * torch.sum(ent) / n_f if ew > 0.0 else pen
 
         body = wrap(admm_body)
         term = zero
@@ -482,26 +541,31 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
             term = term + body(ch, z, dual)
         return term
 
-    # accumulate the primitive sums (sum f^2, sum |f|) per residual component;
-    # norms that are nonlinear in the batch (l1_sq) assemble afterwards
+    # accumulate the primitive sums (sum f^2, sum |f|) per residual component
+    # and the entropy's sum; norms that are nonlinear in the batch (l1_sq)
+    # assemble afterwards
     def sums_body(ch):
-        f = problem.residuals(params, ch, plain=plain)
-        return tuple((torch.sum(fi * fi), torch.sum(torch.abs(fi)))
+        f, ent = problem.residuals_and_entropy(params, ch, ew > 0.0, plain)
+        sums = tuple((torch.sum(fi * fi), torch.sum(torch.abs(fi)))
                      for fi in (f if isinstance(f, tuple) else (f,)))
+        return sums, (torch.sum(ent) if ew > 0.0 else zero)
 
     body = wrap(sums_body)
-    accs = None
+    accs, ent_sum = None, zero
     for ch in chunks:
-        parts = body(ch)
+        parts, ent_part = body(ch)
         if accs is None:
             accs = [(zero, zero)] * len(parts)
         accs = [(ssq + a, sabs + b) for (ssq, sabs), (a, b) in zip(accs, parts)]
+        ent_sum = ent_sum + ent_part
     if cfg.residual_kind in ("mean_sq", "l2_sq_norm"):
         terms = [ssq / n_f for ssq, _ in accs]
     elif cfg.residual_kind == "l1_sq_norm":
         terms = [sabs * sabs / n_f for _, sabs in accs]
     else:
         raise ValueError(f"unknown residual kind {cfg.residual_kind!r}")
+    if ew > 0.0:  # JAX's order: the entropy's term first, then each component's
+        return sum(terms, ew * ent_sum / n_f)
     return terms[0] if len(terms) == 1 else sum(terms, zero)
 
 
@@ -541,6 +605,8 @@ def make_loss_fn(problem: Problem, plain: bool = False) -> Callable:
             "residual_weight must be 1 with residual_kind='admm' — scale the "
             "penalty with loss.rho instead (the prox threshold tracks rho)"
         )
+    if loss_cfg.grad_weight_kappa < 0.0:
+        raise ValueError("grad_weight_kappa must be >= 0")
     field_w = loss_cfg.data_field_weights
     if field_w and not problem.euler:
         raise ValueError(
@@ -697,13 +763,15 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     ``Abgrall_ADMM.py:216-226`` and the JAX step do.
 
     The solve runs over every param, frozen coefficients included (they get a
-    zero gradient). On a CUDA device a configuration inside
-    ``ops.kernels.lbfgs.lbfgs_device_supported`` solves on the card (K10:
-    ``DeviceLBFGS``, K3's value-and-grad, reading the device only for the
-    done flag); every other one, the CPU, and ``host_loop`` (the card's
-    checks) run the host loop ``opt.lbfgs.lbfgs_minimize`` over the loss
-    under autograd. The metrics rebuild the loss terms from the solver's own
-    final value: one forward of the data term, ``res_term = f - data_weight *
+    zero gradient). On a CUDA device the solve runs on K10's kernels: a
+    configuration inside ``ops.kernels.lbfgs.lbfgs_device_supported`` with
+    K3's value-and-grad (``DeviceLBFGS``), every other float32 one (the
+    Euler branch, ``euler_weak_tail``, among them) with autograd through the
+    loss as the evaluation (``AutogradLBFGS``); each reads the device only
+    for the done flag. The CPU, float64 and ``host_loop`` (the card's checks)
+    run the host loop ``opt.lbfgs.lbfgs_minimize`` over the loss under
+    autograd. The metrics rebuild the loss terms from the solver's own final
+    value: one forward of the data term, ``res_term = f - data_weight *
     data_term``; ``lbfgs_iters`` is the solve's iteration count.
     """
     loss_fn = make_loss_fn(problem)
@@ -711,26 +779,29 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     exp = problem.exp
     cfg = exp.optimizer.lbfgs
     data_weight = exp.loss.data_weight
-    solver = None
+    solver, k3 = None, False
     if problem.device.type == "cuda" and not host_loop:
         from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
 
         if not k_lbfgs.lbfgs_device_supported(exp, problem.spec):
-            solver = k_lbfgs.DeviceLBFGS(problem)
+            solver, k3 = k_lbfgs.DeviceLBFGS(problem), True
+        elif problem.spec.dtype == torch.float32:
+            solver = k_lbfgs.AutogradLBFGS()
 
     def step(state: TrainState, out: Optional[torch.Tensor] = None,
              new_colloc: Optional[torch.Tensor] = None):
         x0, unravel = ravel_tree(state.params)
         opts = dict(max_iters=cfg.max_iters, history=cfg.history, ftol=cfg.ftol, gtol=cfg.gtol,
                     max_ls=cfg.max_ls)
-        if solver is not None:
+        fun = lambda x: loss_fn(unravel(x), state.colloc, state.admm, state.rho)[0]  # noqa: E731
+        if k3:
             res = solver.minimize(x0.detach(), k_lbfgs.net_offset(state.params), state.colloc,
                                   state.admm, exp.loss.rho if state.rho is None else state.rho,
                                   **opts)
+        elif solver is not None:
+            res = solver.minimize(fun, x0.detach(), **opts)
         else:
-            res = lbfgs_minimize(
-                lambda x: loss_fn(unravel(x), state.colloc, state.admm, state.rho)[0],
-                x0.detach(), **opts)
+            res = lbfgs_minimize(fun, x0.detach(), **opts)
         params = unravel(res.x)
         with torch.no_grad():
             lam1, lam2 = problem.effective_coeffs(params)
@@ -750,7 +821,7 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
         )
         return new_state, _write_metrics(metrics, out)
 
-    step.solver = solver  # K10's DeviceLBFGS, or None: the host loop
+    step.solver = solver  # K10's DeviceLBFGS or AutogradLBFGS, or None: the host loop
     return step
 
 

@@ -1232,10 +1232,95 @@ def test_k7b_refuses_on_card_instead_of_falling_back(cuda_device):  # noqa: F811
     h = torch.ones((8, 1), device=cuda_device)
     with pytest.raises(ValueError, match="shape"):
         k7b.flux_forward("burgers", y[:-1], None, h, h, coeffs, 4)
-    with pytest.raises(NotImplementedError, match="slice 2b-ii"):
-        twf.burgers_flux_residual(spec, init_mlp(spec, torch.Generator().manual_seed(1),
-                                                 cuda_device), c, 1.0, 0.0, 0.04, 0.02, 4,
-                                  want_entropy=True)
+    # the entropy's backward needs the forward's e beside its cotangent
+    with pytest.raises(ValueError, match="g_ent and e"):
+        k7b.flux_backward("burgers", torch.zeros((8, 1), device=cuda_device), y, None, h, h,
+                          coeffs, 4, g_ent=torch.zeros((8, 1), device=cuda_device))
+    r, ent = twf.burgers_flux_residual(spec, init_mlp(spec, torch.Generator().manual_seed(1),
+                                                      cuda_device), c, 1.0, 0.0, 0.04, 0.02, 4,
+                                       want_entropy=True)
+    assert ent.shape == (8, 1) and ent.device.type == "cuda"
+
+
+@pytest.mark.parametrize("kind,viscous,n", K7B_CASES,
+                         ids=[f"{k}-{'visc' if v else 'invisc'}-n{n}" for k, v, n in K7B_CASES])
+def test_k7b_entropy_matches_plain_on_card(cuda_device, kind, viscous, n):  # noqa: F811
+    """K7b's entropy mode: r bit-equal to the mode without it, relu(e)^2 and
+    the backward with both cotangents within the float64 criterion of the
+    plain quadrature with want_entropy (autograd through it), two calls bit
+    for bit, one launch counted in each entropy counter."""
+    from pinns_tpu_torch.ops import weakform as twf
+    from pinns_tpu_torch.ops.kernels import weakform as k7b
+
+    spec = MLPSpec(layers=(2, 4, 1), lb=LB, ub=UB)
+    c, y, yx, coeffs = _k7b_inputs(kind, viscous, n, cuda_device)
+    gamma = float(coeffs[0]) + 1.0 if kind == "euler" else 1.4
+    _, hxe, hte = k7b.edge_points(spec, c, 0.02 * (UB[0] - LB[0]), 0.02 * (UB[1] - LB[1]), 4)
+    counts = (k7b.ENTROPY_LAUNCHES, k7b.ENTROPY_BACKWARD_LAUNCHES)
+    r, ent, e = k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, 4, True, gamma)
+    assert torch.equal(r, k7b.flux_forward(kind, y, yx, hxe, hte, coeffs, 4))
+    rng = np.random.default_rng(n + 1)
+    g_r = torch.from_numpy(rng.standard_normal(tuple(r.shape)).astype(np.float32)).to(cuda_device)
+    g_ent = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32)).to(cuda_device)
+    got = k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs, 4, g_ent, e, gamma)
+    again = k7b.flux_backward(kind, g_r, y, yx, hxe, hte, coeffs, 4, g_ent, e, gamma)
+    torch.cuda.synchronize()
+    assert (k7b.ENTROPY_LAUNCHES, k7b.ENTROPY_BACKWARD_LAUNCHES) == (counts[0] + 1,
+                                                                     counts[1] + 2)
+    assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+    outs = {}
+    for dtype in (torch.float32, torch.float64):
+        args = [t if t is None else t.to(dtype).clone().requires_grad_(True)
+                for t in (y, yx, coeffs)]
+        h = (hxe.to(dtype), hte.to(dtype))
+        if kind == "burgers":
+            pr, pent = twf.burgers_quadrature_reference(args[0], args[1], *h, args[2][0],
+                                                        args[2][1], 4, True)
+        else:
+            rs, pent = twf.euler_quadrature_reference(args[0], args[1], *h, gamma, args[2][1],
+                                                      4, True)
+            pr = torch.cat(rs, dim=1)
+        wrt = [a for a in args if a is not None]
+        loss = torch.sum(pr * g_r.to(dtype)) + torch.sum(pent * g_ent.to(dtype))
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        outs[dtype] = [pent.detach()] + [torch.zeros_like(a) if g is None else g
+                                         for g, a in zip(grads, wrt)]
+    gy, gyx, gc = got
+    for g, p, x in zip([ent, gy] + ([gyx] if viscous else []) + [gc], outs[torch.float32],
+                       outs[torch.float64]):
+        assert g.shape == p.shape
+        _close_or_f64(g, p, x, wide=True)
+
+
+def test_euler_tail_runs_k10_on_card(cuda_device):  # noqa: F811
+    """euler_weak_tail's L-BFGS outer epoch on the card (a 2x48 path trunk:
+    K5's wide design, the one that takes shock paths; N_f 64) takes
+    AutogradLBFGS: K10's reset, control and direction kernels, one solve
+    counted, no host loop; its iterations equal the host loop's on the
+    card (host_loop=True) and its loss agrees."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("euler_weak_tail"), {
+        "model.layers": (2, 48, 48, 3), "sampling.n_f": 64, "data.n_u": 64,
+        "optimizer.lbfgs.max_iters": 5})
+    trainer = tr.Trainer(exp, device="cuda")
+    state = trainer.init_state()
+    step = trainer._lbfgs_step
+    assert isinstance(step.solver, k_lbfgs.AutogradLBFGS)
+    before = (k_lbfgs.SOLVES, k_lbfgs.RESET_LAUNCHES, k_lbfgs.DIRECTION_LAUNCHES)
+    new, m = step(state)
+    torch.cuda.synchronize()
+    after = (k_lbfgs.SOLVES, k_lbfgs.RESET_LAUNCHES, k_lbfgs.DIRECTION_LAUNCHES)
+    assert after[0] == before[0] + 1 and after[1] == before[1] + 1 and after[2] > before[2]
+    host = tr.make_lbfgs_step(trainer.problem, host_loop=True)
+    assert host.solver is None
+    _, hm = host(state)
+    assert float(m["lbfgs_iters"]) == float(hm["lbfgs_iters"])
+    assert np.isfinite(float(m["loss"]))
+    np.testing.assert_allclose(float(m["loss"]), float(hm["loss"]), rtol=1e-4)
 
 
 def test_k7a_at_the_twosin_weak_shape(cuda_device):  # noqa: F811

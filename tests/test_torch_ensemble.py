@@ -372,12 +372,10 @@ def test_k8_wrapper_raises():
 
 
 def test_later_slices_raise():
-    """The coarse-cell battery (slice 2b-iii), a device mesh (slice 6) and
-    RAD in an ensemble (slice 2b-iii) raise naming their slices."""
+    """A device mesh (slice 6) and RAD in an ensemble (slice 2b-iii) raise
+    naming their slices (the coarse-cell battery came with slice 2b-iii's
+    first part: tests/test_torch_shock_capture.py)."""
     ttr = _trainer()
-    stacked = tens.init_ensemble_states(ttr, SEEDS[:2])
-    with pytest.raises(NotImplementedError, match="slice 2b-iii"):
-        tens.selection_scores(ttr, stacked, 2, coarse_scales=(2.0,))
     with pytest.raises(NotImplementedError, match="slice 6"):
         tens.run_ensemble(ttr, SEEDS[:2], mesh=object())
     with pytest.raises(NotImplementedError, match="slice 2b-iii"):

@@ -502,27 +502,32 @@ DEFERRED = {
     "strong_equations": {"loss.strong_equations": (0,)},
     "lbfgs": {"optimizer.kind": "hybrid"},
     "paths": {"model.n_paths": 2},
+    "fourier": {"model.n_fourier": 4},
+    "rad": {"sampling.strategy": "rad"},
 }
 DEFERRED_MATCH = {"weak_form": "weak-form", "entropy": "entropy", "gradient_weighting":
                   "gradient weighting", "strong_equations": "strong equations",
-                  "lbfgs": "L-BFGS", "paths": "shock-path"}
+                  "lbfgs": "L-BFGS", "paths": "shock-path", "fourier": "Fourier features",
+                  "rad": "RAD"}
 
 
-# deferred by the Euler strong-form slice, brought by slice 2b-ii
-PORTED = {"strong_equations", "paths"}
+# deferred by the Euler strong-form slice: the mixed formulation and the
+# shock paths brought by slice 2b-ii, the entropy penalty, gradient
+# weighting and the Euler L-BFGS branch by slice 2b-iii's first part
+PORTED = {"strong_equations", "paths", "entropy", "gradient_weighting", "lbfgs"}
 
 
 @pytest.mark.parametrize("feature", sorted(DEFERRED))
 def test_check_slice_refuses_deferred_euler_features(feature):
     """Each Euler feature the port does not bring yet raises, naming it and
-    the slice that brings it; the mixed formulation and the shock paths,
-    which slice 2b-ii brought, pass, and a refusal for another feature no
-    longer names them."""
+    the slice that brings it; the features slices 2b-ii and 2b-iii have
+    brought pass, and a refusal for a feature still deferred (Fourier
+    features) no longer names them."""
     exp = override(get_preset("euler_admm"), DEFERRED[feature])
     if feature in PORTED:
         ttrainer.check_slice(exp)
-        with pytest.raises(NotImplementedError, match="entropy") as err:
-            ttrainer.check_slice(override(exp, DEFERRED["entropy"]))
+        with pytest.raises(NotImplementedError, match="Fourier features") as err:
+            ttrainer.check_slice(override(exp, DEFERRED["fourier"]))
         assert DEFERRED_MATCH[feature] not in str(err.value)
         return
     with pytest.raises(NotImplementedError, match=DEFERRED_MATCH[feature]) as err:

@@ -104,14 +104,63 @@ PROBLEMS = {
 }
 
 
+def _euler_problem():
+    """euler_weak_tail's loss (weak form, the strong mass residual, two shock
+    paths) at a 2x16 path net, N_f 64, float32: (JAX solve, port loss of the
+    flat params, x0)."""
+    if "euler" not in _CACHE:
+        from pinns_tpu.config import override as joverride
+        from pinns_tpu.experiments.presets import PRESETS as JPRESETS
+        from test_torch_paths import TRUNK, path_net
+
+        upd = {"model.layers": TRUNK, "sampling.n_f": 64, "data.n_u": 64}
+        jp = jtrainer.build_problem(joverride(JPRESETS["euler_weak_tail"], upd))
+        tp = ttrainer.build_problem(override(get_preset("euler_weak_tail"), upd), "cpu")
+        net = path_net(seed=41)
+        rng = np.random.default_rng(42)
+        c = np.stack([rng.uniform(tp.lb[i], tp.ub[i], 64) for i in range(2)],
+                     axis=1).astype(np.float32)
+        coeffs = {"lambda1": np.ones(1, np.float32), "lambda2": np.full(1, 1e-3, np.float32)}
+        jparams = {"net": [{k: jnp.asarray(v) for k, v in layer.items()} for layer in net],
+                   "coeffs": {k: jnp.asarray(v) for k, v in coeffs.items()}}
+        jx0, junravel = ravel_pytree(jparams)
+        jloss = jtrainer.make_loss_fn(jp)
+        colloc = jnp.asarray(c)
+        solve = jax.jit(lambda x, iters: jax_lbfgs(
+            lambda y: jloss(junravel(y), colloc, None)[0], x, max_iters=iters))
+        tparams = {"net": [{k: torch.from_numpy(v) for k, v in layer.items()} for layer in net],
+                   "coeffs": {k: torch.from_numpy(v) for k, v in coeffs.items()}}
+        flat, unravel = tl.ravel_tree(tparams)
+        np.testing.assert_array_equal(flat.numpy(), np.asarray(jx0))  # ravel_pytree's order
+        tloss = ttrainer.make_loss_fn(tp)
+        tc = torch.from_numpy(c)
+        _CACHE["euler"] = (solve, lambda x: tloss(unravel(x), tc, None)[0], flat)
+    return _CACHE["euler"]
+
+
 @pytest.mark.parametrize("max_iters", [1, 2, 5, 20])
-@pytest.mark.parametrize("name", ["quadratic", "rosenbrock", "abgrall_admm_3x16"])
+@pytest.mark.parametrize("name", ["quadratic", "rosenbrock", "abgrall_admm_3x16",
+                                  "euler_weak_small"])
 def test_k10_plain_matches_jax_float32(name, max_iters):
     """(a) K10's plain state machine against JAX's float32 solve and the
     port's host loop: equal n_iters and n_evals, x within phase 13's bound.
     The 3x16 ADMM loss runs as the card runs it: DeviceLBFGS over K3's
-    value-and-grad (its plain version here)."""
-    if name == "abgrall_admm_3x16":
+    value-and-grad (its plain version here). euler_weak_small runs the
+    solver the card takes for euler_weak_tail: AutogradLBFGS, autograd
+    through the Euler path loss as the evaluation; reading the done flag
+    after every step instead of every 16 gives the same buffers bit for bit
+    (the evaluations after the end leave the state as it was)."""
+    if name == "euler_weak_small":
+        solve, fun, x0_t = _euler_problem()
+        x0 = x0_t.numpy()
+        want = solve(jnp.asarray(x0), max_iters)
+        solver = k_lbfgs.AutogradLBFGS()
+        got = solver.minimize(fun, x0_t, max_iters=max_iters)
+        host = tl.lbfgs_minimize(fun, x0_t, max_iters=max_iters)
+        each = k_lbfgs.AutogradLBFGS(sync_every=1)
+        each.minimize(fun, x0_t, max_iters=max_iters)
+        assert all(torch.equal(a, b) for a, b in zip(solver.bufs.tensors(), each.bufs.tensors()))
+    elif name == "abgrall_admm_3x16":
         solve, tp, params, colloc, admm, x0 = _admm_problem()
         want = solve(jnp.asarray(x0), max_iters)
         flat, unravel = tl.ravel_tree(params)
@@ -123,7 +172,7 @@ def test_k10_plain_matches_jax_float32(name, max_iters):
     else:
         jfun, tfun, x0 = PROBLEMS[name]
         want = jax_lbfgs(jfun, jnp.asarray(x0), max_iters=max_iters)
-        got = k_lbfgs.lbfgs_minimize_device(tfun, torch.from_numpy(x0), max_iters=max_iters)
+        got = k_lbfgs.AutogradLBFGS().minimize(tfun, torch.from_numpy(x0), max_iters=max_iters)
         host = tl.lbfgs_minimize(tfun, torch.from_numpy(x0), max_iters=max_iters)
     assert got.x.dtype == torch.float32 and got.converged == bool(want.converged)
     _assert_iterates(got, want, x0)

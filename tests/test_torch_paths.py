@@ -394,10 +394,11 @@ def test_interop_round_trip_of_a_path_net(tmp_path):
 # -- what the slice leaves ---------------------------------------------------------
 
 def test_check_slice_takes_the_slice_and_names_slice_2b_iii():
-    for name in ("euler_weak", "euler_weak_fast"):
+    for name in ("euler_weak", "euler_weak_fast", "euler_weak_tail"):
         ttrainer.check_slice(get_preset(name))
-    with pytest.raises(NotImplementedError, match="L-BFGS branch.*slice 2b-iii"):
-        ttrainer.check_slice(get_preset("euler_weak_tail"))
+    with pytest.raises(NotImplementedError, match="RAD resampling.*slice 2b-iii"):
+        ttrainer.check_slice(override(get_preset("euler_weak_tail"),
+                                      {"sampling.strategy": "rad"}))
     with pytest.raises(NotImplementedError, match="Fourier features.*slice 2b-iii"):
         ttrainer.check_slice(override(get_preset("euler_weak_fast"), {"model.n_fourier": 4}))
     with pytest.raises(NotImplementedError, match="slice 2b-iii"):

@@ -437,9 +437,9 @@ def test_abgrall_presets_build_on_their_grid(monkeypatch, preset):
 ])
 def test_out_of_slice_presets_raise(preset, match):
     # euler_admm is inside the port since slice 2a, twosin_weak since slice
-    # 2b-i and euler_weak since slice 2b-ii; with the entropy penalty (slice
-    # 2b-iii) none is
-    exp = override(get_preset(preset), {"loss.entropy_weight": 0.1})
+    # 2b-i and euler_weak since slice 2b-ii; with Fourier features (a later
+    # part of slice 2b-iii, after the entropy penalty) none is
+    exp = override(get_preset(preset), {"model.n_fourier": 4})
     with pytest.raises(NotImplementedError, match=match):
         ttrainer.check_slice(exp)
 

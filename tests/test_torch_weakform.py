@@ -343,13 +343,15 @@ def test_small_nets_match_the_fixture(kind):
 
 
 def test_entropy_on_cuda_raises_naming_the_slice():
-    """The card's path has no entropy: asking for it raises before any
-    launch (a meta tensor stands in for a CUDA one here)."""
+    """Off the CPU the entropy goes to K7b's entropy mode (slice 2b-iii), not
+    to the plain version: a tensor that is not on the CPU reaches K7b's
+    wrappers, which raise for one that is not CUDA either (a meta tensor
+    stands in for a CUDA one here) before any launch."""
     spec = MLPSpec(layers=SMALL["burgers"], lb=TW_LB, ub=TW_UB)
     c = torch.zeros((4, 2), device="meta")
-    with pytest.raises(NotImplementedError, match="slice 2b-ii"):
+    with pytest.raises(ValueError, match="K7b takes CUDA tensors"):
         twf.burgers_flux_residual(spec, [], c, 1.0, 0.0, 0.1, 0.1, 4, True, False)
-    with pytest.raises(NotImplementedError, match="slice 2b-ii"):
+    with pytest.raises(ValueError, match="K7b takes CUDA tensors"):
         twf.euler_flux_residuals(spec, [], c, GAMMA, 0.1, 0.1, 4, True)
 
 
@@ -467,12 +469,13 @@ def test_check_slice_lets_the_weak_presets_through():
     for name in ("twosin_weak", "euler_inverse"):
         ttrainer.check_slice(get_preset(name))
     ttrainer.check_slice(override(get_preset("twosin_weak"), {"pde.lambda2": 0.0}))
-    # euler_weak and euler_weak_fast came with slice 2b-ii; the tail's
-    # L-BFGS branch comes with slice 2b-iii
-    for name in ("euler_weak", "euler_weak_fast"):
+    # euler_weak and euler_weak_fast came with slice 2b-ii, the tail's
+    # L-BFGS branch with slice 2b-iii's first part; Fourier features come
+    # with a later part of slice 2b-iii
+    for name in ("euler_weak", "euler_weak_fast", "euler_weak_tail"):
         ttrainer.check_slice(get_preset(name))
     with pytest.raises(NotImplementedError, match="slice 2b-iii"):
-        ttrainer.check_slice(get_preset("euler_weak_tail"))
+        ttrainer.check_slice(override(get_preset("euler_weak_tail"), {"model.n_fourier": 4}))
 
 
 @pytest.mark.parametrize("extra,match", [
