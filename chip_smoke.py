@@ -20,7 +20,10 @@ kernel and the direction kernel on a thread block cluster, replayed from a
 captured graph), and slice 2b-iii's first part: the entropy penalty on the
 weak form through K7b's entropy mode, and the Euler L-BFGS branch
 (euler_weak_tail resumed from euler_weak_fast members through the CLI, its
-solve on K10's kernels around autograd through the Euler loss).
+solve on K10's kernels around autograd through the Euler loss), and K10's
+outer epochs as chunks on the card (the flagship's L-BFGS phase: each solve
+replayed to its done flag, then K3's post-update mode and the reset in place
+as one more graph).
 
     python3 chip_smoke.py
 
@@ -87,12 +90,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             per value-and-grad, and host syncs per iteration
   14 hybrid phase 9's state continued through Trainer.train over the switch:
             10 L-BFGS outer epochs (of at most 300 iterations, the fixture's
-            schedule), each solve on K10 (K3's value-and-grad, the control
-            and direction kernels; one device read a graph replay), the tail
-            on K1, the data-term metric on K5's forward: no backward of K5 or
-            K2, no plain call, no host loop, K3's epoch never launched again;
-            loss does not rise; u rel-L2 in the band of three JAX seeds at
-            the same schedule
+            schedule) as chunks of K10's runner (LBFGSChunk): each solve on
+            K10 (K3's value-and-grad, the control and direction kernels; one
+            device read a graph replay), then K3's post-update mode (the
+            batch, z, dual, the data-term metric and the metrics row) and the
+            reset in place, replayed as one graph: no launch of K1, K5 or K2
+            and no torch Philox draw in the L-BFGS phase, no plain call, no
+            host loop, K3's epoch never launched again, host syncs equal to
+            the solve replays; loss does not rise; u rel-L2 in the band of
+            three JAX seeds at the same schedule
   15 burgers_forward  a reduced schedule (the fixture's: 3,000 cosine Adam
             epochs on the generic step, one L-BFGS outer epoch of at most
             1,000 iterations) for JAX's three band seeds: no plain call, the
@@ -293,6 +299,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             euler_weak_tail --resume from two of phase 35's members for two
             outer epochs, then export --select rank of the tails against
             them: every solve on K10, no plain call
+  40 lbfgs-chunk  K10's outer epochs as chunks: K3's post-update mode
+            against its plain version on the card at the fixture's state
+            (abgrall_admm at 8x20, N_f 1,000, N_U 100): the batch equal to
+            philox_uniform, z, dual, the misfit and the data term within
+            POST_TOL or the float64 criterion; chunks of L = 1, 3 and 10
+            outer epochs, drawn and fed, bit-equal (x, batch, z, dual, every
+            metrics row) to the same kernels driven one outer epoch a host
+            call; one outer epoch from the fixture's state at 5 iterations
+            against JAX's (phase 37's criteria); times from phase 9's state
+            at phase 14's schedule in turns: ms an outer epoch on the runner
+            and on the per-outer-epoch step, and each one's wall time outside
+            the solve (the solves bracketed by synchronizes); the post-update
+            mode's device time beside its plain version and its bound
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -1006,9 +1025,13 @@ def phase_step_times(card: str, nets: dict) -> dict:
 class PlainCalls:
     """Counts calls of the plain versions of the kernels while active: it
     wraps them where the port looks them up (their modules and the
-    trainer's namespace)."""
+    trainer's namespace). ``sites`` ((module, name) pairs) counts other
+    functions instead (phase 14: the torch Philox draw)."""
 
-    def __init__(self):
+    def __init__(self, sites=None):
+        if sites is not None:
+            self.sites, self.calls = list(sites), 0
+            return
         from pinns_tpu_torch.models import mlp
         from pinns_tpu_torch.ops import taylor, weakform
         from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
@@ -1032,6 +1055,7 @@ class PlainCalls:
             ("taylor2_members_reference", (taylor2,)),
             ("member_stats_reference", (k_ensemble,)),
             ("value_and_grad_reference", (fused_step,)),
+            ("post_update_reference", (fused_step,)),
             ("reset_reference", (k_lbfgs,)),
             ("control_reference", (k_lbfgs,)),
             ("direction_reference", (k_lbfgs,)),
@@ -1084,7 +1108,9 @@ def kernel_counts() -> dict:
             "fused_value_and_grad": fused_step.VALUE_AND_GRAD_LAUNCHES,
             "lbfgs_reset": k_lbfgs.RESET_LAUNCHES, "lbfgs_control": k_lbfgs.CONTROL_LAUNCHES,
             "lbfgs_direction": k_lbfgs.DIRECTION_LAUNCHES, "lbfgs_replays": k_lbfgs.GRAPH_REPLAYS,
-            "lbfgs_solves": k_lbfgs.SOLVES, "lbfgs_host_syncs": host_lbfgs.HOST_SYNCS}
+            "lbfgs_solves": k_lbfgs.SOLVES, "lbfgs_host_syncs": host_lbfgs.HOST_SYNCS,
+            "fused_post_update": fused_step.POST_UPDATE_LAUNCHES,
+            "lbfgs_chunk_epochs": k_lbfgs.CHUNK_EPOCHS}
 
 
 def reset_counts() -> None:
@@ -1106,6 +1132,7 @@ def reset_counts() -> None:
     fused_step.VALUE_AND_GRAD_LAUNCHES = 0
     k_lbfgs.RESET_LAUNCHES = k_lbfgs.CONTROL_LAUNCHES = k_lbfgs.DIRECTION_LAUNCHES = 0
     k_lbfgs.GRAPH_REPLAYS = k_lbfgs.SOLVES = host_lbfgs.HOST_SYNCS = 0
+    fused_step.POST_UPDATE_LAUNCHES = k_lbfgs.CHUNK_EPOCHS = 0
 
 
 def net_f64(params):
@@ -1309,14 +1336,18 @@ def phase_lbfgs_replay(card: str) -> dict:
 
 def phase_hybrid(card: str, adam: dict) -> dict:
     """14: phase 9's abgrall_admm state continued through Trainer.train over
-    the switch: HYBRID_OUTER L-BFGS outer epochs, each solve on K10 (K3's
-    value-and-grad, the control and direction kernels, replayed from a
-    captured graph; the device read only for the done flag), the tail on K1
-    and the data-term metric on K5's forward: no backward of K5 or K2, no
-    plain call and no host loop."""
+    the switch: HYBRID_OUTER L-BFGS outer epochs as chunks of K10's runner
+    (LBFGSChunk): each solve on K10 (K3's value-and-grad, the control and
+    direction kernels, replayed from a captured graph; the device read only
+    for the done flag), then K3's post-update mode and the reset in place as
+    one more graph: no launch of K1, K5 or K2, no torch Philox draw, no
+    plain call and no host loop in the L-BFGS phase (its counts are read
+    after its last chunk, before the final evaluation's forward)."""
     from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.data import sampling
     from pinns_tpu_torch.experiments import get_preset
-    from pinns_tpu_torch.train.trainer import Trainer
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.train import trainer as tr
 
     with np.load(LBFGS_FIXTURE, allow_pickle=False) as z:
         band_rel, adam_epochs, outer = z["hybrid_rel_l2"], int(z["hybrid_adam"]), int(z["hybrid_outer"])
@@ -1329,36 +1360,47 @@ def phase_hybrid(card: str, adam: dict) -> dict:
         exp = override(get_preset("abgrall_admm"), {
             "train.epochs": TRAIN_EPOCHS + HYBRID_OUTER, "optimizer.switch_epoch": TRAIN_EPOCHS,
             "optimizer.lbfgs.max_iters": max_iters, "train.log_every": 1000, "train.out_dir": tmp})
-        trainer = Trainer(exp, device="cuda")
-        iters = []
-        lbfgs_step = trainer._lbfgs_step
+        trainer = tr.Trainer(exp, device="cuda")
+        run = trainer._get_chunk("lbfgs")
+        check(isinstance(getattr(run, "runner", None), k_lbfgs.LBFGSChunk),
+              "abgrall_admm's L-BFGS phase is not on K10's chunk runner")
+        iters, counts = [], {}
 
-        def step(st, out=None, new_colloc=None):
-            st, m = lbfgs_step(st, out, new_colloc)
-            iters.append(int(m["lbfgs_iters"]))
+        def chunk(st, length, new_colloc=None):
+            st, m = run(st, length, new_colloc)
+            iters.append(m["lbfgs_iters"])
+            counts.update(kernel_counts())  # the phase's counts, before the evaluation
             return st, m
 
-        trainer._lbfgs_step = step
+        trainer._chunks["lbfgs"] = chunk
         reset_counts()
-        with PlainCalls() as plain:
+        philox = PlainCalls([(tr, "philox_uniform"), (sampling, "philox_uniform")])
+        with PlainCalls() as plain, philox:
             t0 = time.perf_counter()
             state, summary = trainer.train(state)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = kernel_counts()
+        launches = counts
         with open(os.path.join(tmp, "abgrall_admm_metrics.jsonl")) as f:
             logs = [json.loads(line) for line in f if "summary" not in line]
+    chunks = len(iters)
+    iters = [int(v) for v in torch.cat(iters).tolist()] if iters else []
     check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
+    check(philox.calls == 0, f"{philox.calls} torch Philox draws in the L-BFGS phase")
     check(launches["fused_step"] == launches["fused_chunk_epochs"] == 0
           and adam["launches"] == TRAIN_EPOCHS, "K3's epoch launched outside the Adam phase")
-    check(all(launches[k] > 0 for k in ("mlp_forward", "taylor2", "fused_value_and_grad",
-                                        "lbfgs_control", "lbfgs_direction")),
+    check(all(launches[k] > 0 for k in ("fused_value_and_grad", "lbfgs_control",
+                                        "lbfgs_direction", "fused_post_update")),
           f"launches {launches}")
+    check(launches["taylor2"] == launches["mlp_forward"] == 0,
+          f"K1 or K5 launched in the L-BFGS phase: {launches}")
     check(launches["mlp_backward"] == launches["taylor2_backward"] == 0,
           f"K5's or K2's backward launched in the L-BFGS phase: {launches}")
-    check(launches["lbfgs_solves"] == launches["lbfgs_reset"] == HYBRID_OUTER
+    check(launches["lbfgs_solves"] == launches["lbfgs_chunk_epochs"]
+          == launches["fused_post_update"] == HYBRID_OUTER
+          and launches["lbfgs_reset"] == HYBRID_OUTER + chunks
           and launches["lbfgs_host_syncs"] == launches["lbfgs_replays"],
-          f"K10's solves and device reads: {launches}")
+          f"K10's solves, post-updates, resets and device reads: {launches}")
     check(len(iters) == HYBRID_OUTER and state.epoch == TRAIN_EPOCHS + HYBRID_OUTER,
           f"{len(iters)} L-BFGS outer epochs")
     check(logs[-1]["phase"] == "lbfgs" and logs[-1]["lbfgs_iters"] == iters[-1], "the log")
@@ -1367,11 +1409,11 @@ def phase_hybrid(card: str, adam: dict) -> dict:
     rel = summary["rel_l2_u"]
     check(band[0] <= rel <= band[1], f"u rel-L2 {rel} outside the JAX band {band}")
     emit(card, phase="hybrid", preset="abgrall_admm", adam_epochs=TRAIN_EPOCHS,
-         lbfgs_outer=len(iters), lbfgs_max_iters=max_iters, lbfgs_iters=iters, wall_s=wall,
-         ms_per_lbfgs_iter=1e3 * wall / max(1, sum(iters)), loss=[adam["loss"], loss],
-         admm_misfit=logs[-1]["admm_misfit"], rel_l2_u=rel, band=list(band),
-         jax_seeds=band_rel.tolist(), launches=launches, plain_calls=plain.calls,
-         summary=summary)
+         lbfgs_outer=len(iters), lbfgs_chunks=chunks, lbfgs_max_iters=max_iters,
+         lbfgs_iters=iters, wall_s=wall, ms_per_lbfgs_iter=1e3 * wall / max(1, sum(iters)),
+         loss=[adam["loss"], loss], admm_misfit=logs[-1]["admm_misfit"], rel_l2_u=rel,
+         band=list(band), jax_seeds=band_rel.tolist(), launches=launches,
+         plain_calls=plain.calls, philox_calls=philox.calls, summary=summary)
     return {"launches": launches}
 
 
@@ -4949,6 +4991,259 @@ def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
     return {"kernels": kern, "bounds": bounds, "launches": launches, "times": times}
 
 
+# -- 40: K10's outer epochs as chunks (LBFGSChunk, K3's post-update mode) --------
+
+# the post-update mode against its plain version: (rtol, atol as a multiple
+# of max|plain| or of the scale of the terms a difference cancels), else the
+# float64 criterion (hold_post)
+POST_TOL = {"z": (1e-5, 1e-5), "dual": (1e-5, 1e-5), "admm_misfit": (1e-5, 1e-5),
+            "data_term": (1e-5, 1e-5)}
+CHUNK_LENGTHS = (1, 3, 10)
+CHUNK_MAX_ITERS = 50  # the iterations of phase 40's bit-for-bit chunks
+CHUNK_TURNS = 3  # alternating chunks a side (the runner, the per-outer-epoch step)
+
+
+def post_update_bound(layers, n_f: int, n_u: int):
+    """K3's post-update mode: the tail's Taylor-2 forward at the new points
+    and the value stream's forward at the data points; the params, the dual,
+    the data points and their targets read once, the points, z, dual and the
+    metrics row written once (with the solve's f and iterations read)."""
+    ops = taylor2_ops(layers, n_f) + [(2.0 * sum(_macs(layers)) * n_u, PEAK_FP32)]
+    return bound(ops, 4 * n_params(layers) + 20 * n_f + 12 * n_u + 4 * 9)
+
+
+def hold_post(name: str, got, plain, exact, scale=None) -> dict:
+    """A post-update output against its plain version within POST_TOL[name]
+    (atol relative to ``scale``, default max|plain|), or else by the float64
+    criterion (compare_f64's: its error against the float64 twin at most
+    F64_FACTOR times the plain version's plus 1e-6 max|exact|); raises if
+    neither holds."""
+    rtol, atol_rel = POST_TOL[name]
+    got, plain, exact = (np.asarray(a, np.float64).ravel() for a in (got, plain, exact))
+    check(bool(np.isfinite(got).all()), f"post-update {name}: non-finite values")
+    err = np.abs(got - plain)
+    atol = atol_rel * (float(np.abs(plain).max()) if scale is None else scale)
+    e_k, e_p = float(np.abs(got - exact).max()), float(np.abs(plain - exact).max())
+    row = {"max_abs_err": float(err.max()), "rtol": rtol, "atol": atol,
+           "tol_ok": bool((err <= atol + rtol * np.abs(plain)).all()),
+           "err_vs_f64": e_k, "plain_err_vs_f64": e_p,
+           "f64_ok": e_k <= F64_FACTOR * e_p + 1e-6 * float(np.abs(exact).max())}
+    check(row["tol_ok"] or row["f64_ok"], f"post-update {name}: {row}")
+    return row
+
+
+class SolveClock:
+    """While entered, every K10 solve's replays (DeviceLBFGS.replay_until_done,
+    the runner's and the per-outer-epoch step's) are bracketed by
+    synchronizes and their host-clock milliseconds summed in ``ms``."""
+
+    def __enter__(self):
+        from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+        self.cls, self.saved, self.ms = k_lbfgs.DeviceLBFGS, k_lbfgs.DeviceLBFGS.replay_until_done, 0.0
+        clock = self
+
+        def timed(solver, graph):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return clock.saved(solver, graph)
+            finally:
+                torch.cuda.synchronize()
+                clock.ms += 1e3 * (time.perf_counter() - t0)
+        self.cls.replay_until_done = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.replay_until_done = self.saved
+
+
+def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
+    """40: K10's outer epochs as chunks (LBFGSChunk). K3's post-update mode
+    against its plain version at the fixture's state; chunks of
+    CHUNK_LENGTHS outer epochs, drawn and fed, bit for bit against the same
+    kernels driven one outer epoch a host call; one outer epoch against
+    JAX's iterate at 5 iterations; the times of an outer epoch on the runner
+    and on the per-outer-epoch step from phase 9's state, in turns."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.train import trainer as tr
+
+    problem, params, colloc, admm, _, fx = replay_state()
+    exp, spec = problem.exp, problem.spec
+    check(not k_lbfgs.lbfgs_chunk_supported(exp, spec), "abgrall_admm outside the chunk scope")
+    lcfg = k_fused.loss_config(exp)
+    x0, _ = lb_mod.ravel_tree(params)
+    off, rho = k_lbfgs.net_offset(params), exp.loss.rho
+    u_data = problem.targets["u"].contiguous()
+    n_f, n_u = colloc.shape[0], problem.x_data.shape[0]
+
+    # -- (a) the post-update mode against its plain version, row 1 of 3
+    rows_n, seed, epoch = 3, 1234, 7
+    sched = torch.from_numpy(k_fused.chunk_schedule(0, epoch, rows_n)).cuda()
+    table = k_fused.member_table([seed], [rho], n_f, "cuda")
+    iters_in = torch.tensor([61], dtype=torch.int32, device="cuda")
+
+    def bufs(dtype=torch.float32):
+        return {"colloc": colloc.to(dtype).clone(), "z": admm.z.to(dtype).clone(),
+                "dual": admm.dual.to(dtype).clone(), "f_in": torch.tensor([0.5], dtype=dtype,
+                                                                          device="cuda"),
+                "metrics": torch.zeros(rows_n, 7, dtype=dtype, device="cuda"),
+                "cursor": torch.ones(1, dtype=torch.int32, device="cuda")}
+
+    def post(fn, b, sp=spec, p=x0[off:], x=problem.x_data, u=u_data, **kw):
+        fn(sp, p, x, u, b["colloc"], b["z"], b["dual"], b["metrics"], b["cursor"], sched, table,
+           b["f_in"], iters_in, kind=lcfg["kind"], lam1=lcfg["lam1"], lam2=lcfg["lam2"], **kw)
+
+    kb, pb, eb = bufs(), bufs(), bufs(torch.float64)
+    before = kernel_counts()["fused_post_update"]
+    post(k_fused.fused_post_update, kb)
+    post(k_fused.post_update_reference, pb)
+    drawn = philox_uniform(seed, epoch + 2, n_f, spec.lb, spec.ub, torch.float32, "cuda")
+    eb["colloc"] = drawn.double()
+    post(k_fused.post_update_reference, eb, sp=dataclasses.replace(spec, dtype=torch.float64),
+         p=x0[off:].double(), x=problem.x_data.double(), u=u_data.double(), fixed=True)
+    torch.cuda.synchronize()
+    check(kernel_counts()["fused_post_update"] == before + 1, "the post-update was not launched")
+    check(torch.equal(kb["colloc"], drawn) and torch.equal(pb["colloc"], drawn),
+          "the post-update's batch is not philox_uniform's")
+    km, pm, em = (dict(zip(tr.METRIC_KEYS, host(b["metrics"][1]))) for b in (kb, pb, eb))
+    z_scale = float(pb["z"].abs().max())
+    post_rows = {
+        "z": hold_post("z", host(kb["z"]), host(pb["z"]), host(eb["z"])),
+        "dual": hold_post("dual", host(kb["dual"]), host(pb["dual"]), host(eb["dual"]),
+                          scale=float(admm.dual.abs().max()) + rho * z_scale),
+        "admm_misfit": hold_post("admm_misfit", km["admm_misfit"], pm["admm_misfit"],
+                                 em["admm_misfit"], scale=z_scale),
+        "data_term": hold_post("data_term", km["data_term"], pm["data_term"], em["data_term"])}
+    check(float(kb["metrics"][[0, 2]].abs().max()) == 0.0 and int(kb["cursor"][0]) == 2,
+          "the post-update wrote another row or left the cursor")
+    check(km["loss"] == np.float32(0.5) and km["lbfgs_iters"] == 61.0
+          and km["res_term"] == np.float32(np.float32(0.5) - np.float32(km["data_term"]))
+          and (km["lambda1"], km["lambda2"]) == (np.float32(lcfg["lam1"]), np.float32(lcfg["lam2"])),
+          f"the post-update's metrics row {km}")
+
+    # -- (b) chunks of L outer epochs against L chunks of one, bit for bit
+    capped = dataclasses.replace(problem, exp=override(exp, {
+        "optimizer.lbfgs.max_iters": CHUNK_MAX_ITERS}))
+    runner = k_lbfgs.LBFGSChunk(capped, max_len=max(CHUNK_LENGTHS))
+    state0 = tr.TrainState(params=params, opt_state=None, admm=admm, colloc=colloc, key=seed,
+                           epoch=REPLAY_STEP, rho=None)
+    flat = lambda st: lb_mod.ravel_tree(st.params)[0]  # noqa: E731
+    bits = {}
+    reset_counts()
+    for length in CHUNK_LENGTHS:
+        for fed in (False, True):
+            feed = torch.stack([points(n_f, seed=100 * length + i, device="cuda")
+                                for i in range(length)]) if fed else None
+            got, gm = runner.run(state0, length, feed)
+            one, ms = state0, []
+            for i in range(length):
+                one, m = runner.run(one, 1, None if feed is None else feed[i:i + 1])
+                ms.append(m)
+            torch.cuda.synchronize()
+            same = (torch.equal(flat(got), flat(one)) and torch.equal(got.colloc, one.colloc)
+                    and torch.equal(got.admm.z, one.admm.z)
+                    and torch.equal(got.admm.dual, one.admm.dual)
+                    and all(torch.equal(gm[k], torch.cat([m[k] for m in ms]))
+                            for k in tr.METRIC_KEYS))
+            check(same and got.epoch == one.epoch == REPLAY_STEP + length,
+                  f"a chunk of {length} ({'fed' if fed else 'drawn'}) differs from "
+                  f"{length} one-epoch chunks")
+            check(not fed or torch.equal(got.colloc, feed[-1]), "the fed batch")
+            bits[f"L{length}_{'fed' if fed else 'drawn'}"] = {
+                "bit_equal": True, "lbfgs_iters": [int(v) for v in gm["lbfgs_iters"].tolist()]}
+    bit_counts = kernel_counts()
+    check(bit_counts["lbfgs_chunk_epochs"] == 4 * sum(CHUNK_LENGTHS), f"counts {bit_counts}")
+
+    # -- (c) one outer epoch from the fixture's state against JAX's iterate
+    five = k_lbfgs.LBFGSChunk(dataclasses.replace(problem, exp=override(exp, {
+        "optimizer.lbfgs.max_iters": 5})), max_len=1)
+    got, gm = five.run(state0, 1)
+    want = fx["x_5"].astype(np.float64)
+    err = float(np.abs(host(flat(got)).astype(np.float64) - want).max())
+    step = float(np.abs(want - fx["x0"].astype(np.float64)).max())
+    bnd = ITERATE_STEP_TOL * step + ITERATE_ULP_TOL * float(np.abs(want).max())
+    check(err <= bnd, f"the chunk's outer epoch x: err {err} > {bnd}")
+    check(int(gm["lbfgs_iters"][0]) == int(fx["n_iters_5"]),
+          f"n_iters {int(gm['lbfgs_iters'][0])} != JAX {int(fx['n_iters_5'])}")
+    jax_row = {"max_abs_err": err, "bound": bnd, "jax_step": step,
+               "n_iters": int(gm["lbfgs_iters"][0]),
+               "f": close("loss", float(gm["loss"][0]), float(fx["f_5"]))}
+
+    # -- (d) times: an outer epoch on the runner and on the per-outer-epoch
+    # step, from phase 9's state at phase 14's schedule, in turns
+    with np.load(LBFGS_FIXTURE, allow_pickle=False) as z:
+        max_iters = int(z["hybrid_max_iters"])
+    tproblem = tr.build_problem(override(get_preset("abgrall_admm"), {
+        "optimizer.lbfgs.max_iters": max_iters}), "cuda")
+    trunner = k_lbfgs.LBFGSChunk(tproblem, max_len=HYBRID_OUTER)
+    tstep = tr.make_lbfgs_step(tproblem)
+    st9 = adam["state"]
+    sides = {"runner": lambda: trunner.run(st9, HYBRID_OUTER),
+             "per_outer_epoch_step": lambda: tr.run_chunk(tstep, st9, HYBRID_OUTER)}
+    walls = {k: [] for k in sides}
+    iters = {}
+    for name, fn in sides.items():  # the captures, outside the times
+        fn()
+    for _ in range(CHUNK_TURNS):
+        for name, fn in sides.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            iters[name] = [int(v) for v in m["lbfgs_iters"].tolist()]
+    times = {}
+    for name, fn in sides.items():
+        with SolveClock() as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            split = 1e3 * (time.perf_counter() - t0)
+        prof = device_profile(fn)
+        wall_ms = 1e3 * statistics.median(walls[name])
+        times[name] = {
+            "ms_per_outer_epoch": wall_ms / HYBRID_OUTER,
+            "wall_ms": [1e3 * w for w in walls[name]],
+            "split_ms_per_outer_epoch": split / HYBRID_OUTER,
+            "solve_ms_per_outer_epoch": clock.ms / HYBRID_OUTER,
+            "outside_solve_ms_per_outer_epoch": (split - clock.ms) / HYBRID_OUTER,
+            "device_us_per_outer_epoch": None if prof["device_us"] is None
+            else prof["device_us"] / HYBRID_OUTER,
+            "launches_per_outer_epoch": None if prof["kernels"] is None
+            else prof["kernels"] / HYBRID_OUTER,
+            "idle_share": None if prof["device_us"] is None
+            else 1.0 - prof["device_us"] / (1e3 * wall_ms),
+            "lbfgs_iters": iters[name]}
+    times["runner"]["capture_s"] = trunner.capture_seconds + trunner.solver.capture_seconds
+
+    # -- (e) the post-update mode's device time: a graph of K10_REPS calls,
+    # each after the cursor's reset, less a graph of the resets alone
+    kb["cursor"].zero_()
+    kernel_ms = graph_ms(lambda: (kb["cursor"].zero_(), post(
+        k_fused._post_update_call, kb, launch_only=True))) - graph_ms(
+        lambda: kb["cursor"].zero_())
+    plain_ms = event_ms(lambda: (pb["cursor"].zero_(), post(k_fused.post_update_reference, pb)))
+    pbound = post_update_bound(spec.layers, n_f, n_u)
+    emit(card, phase="lbfgs-chunk", state=f"abgrall_admm_steps.npz step {REPLAY_STEP}",
+         post_update=post_rows, chunks=bits, chunk_max_iters=CHUNK_MAX_ITERS, jax=jax_row,
+         times=times, schedule={"outer": HYBRID_OUTER, "max_iters": max_iters,
+                                "turns": CHUNK_TURNS},
+         kernel={"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": pbound[0],
+                 "bound_by": pbound[1]},
+         clock="host for the outer epochs (the solves bracketed by synchronizes in the split "
+               "turn), the profiler for their device time, events over a captured graph for "
+               "the post-update mode, events for its plain version")
+    return {"kernel": (kernel_ms, plain_ms), "bound": pbound, "times": times,
+            "max_abs_err": post_rows["z"]["max_abs_err"]}
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5171,6 +5466,9 @@ def main() -> int:
         tail = timed(card, "euler-tail", phase_euler_tail, card, ewf_members,
                      ENS_EULER["epochs"])
 
+    # -- 40: K10's outer epochs as chunks (phase 14 ran them in training)
+    chunk = timed(card, "lbfgs-chunk", phase_lbfgs_chunk, card, train)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -5220,7 +5518,9 @@ def main() -> int:
         "route": "cuda",
         "source": "pinns_tpu_torch/csrc/mlp_forward.cu",
         "replaces": "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103",
-        "launches": hybrid["launches"]["mlp_forward"],
+        # since K10's chunks the hybrid's L-BFGS phase runs no K5: its
+        # launches are burgers_forward's generic Adam epochs (phase 15)
+        "launches": bf["launches"]["mlp_forward"],
         "max_abs_err": k5[k5_main][0],
         "ms": t3[("k5",) + k5_main][0],
         "plain_ms": t3[("k5",) + k5_main][1],
@@ -5450,7 +5750,23 @@ def main() -> int:
         ("lbfgs_control", "pinns_tpu/opt/lbfgs.py:194"),
         ("lbfgs_direction", "pinns_tpu/opt/lbfgs.py:167"),
         ("lbfgs_reset", "pinns_tpu/opt/lbfgs.py:194"),
-        ("fused_value_and_grad", "pinns_tpu/opt/lbfgs.py:206"))]}), flush=True)
+        ("fused_value_and_grad", "pinns_tpu/opt/lbfgs.py:206"))] + [{
+        # K3's post-update mode, the tail of K10's outer epochs in chunks:
+        # launches = phase 14's (one a replay of the post-update graph),
+        # max_abs_err = z against its plain version (phase 40), times in
+        # phase 40; the outer epoch on the runner beside the per-outer-epoch
+        # step (host clock, phase 40's turns)
+        "name": "fused_post_update",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/fused_step.cu",
+        "replaces": "pinns_tpu/train/trainer.py:663",
+        "launches": hybrid["launches"]["fused_post_update"],
+        "max_abs_err": chunk["max_abs_err"],
+        "ms": chunk["kernel"][0],
+        "plain_ms": chunk["kernel"][1],
+        **bound_fields(chunk["bound"]),
+        "outer_epoch": chunk["times"],
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

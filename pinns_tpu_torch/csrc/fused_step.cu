@@ -150,6 +150,33 @@
 // solve's done flag), so that a captured solve step costs nothing after the
 // end. The epoch path never sets either, so its arithmetic is unchanged.
 //
+// The post-update mode (pinns_fused_post_update; the narrow design, one
+// member): what follows one of K10's L-BFGS outer solves
+// (ops/kernels/lbfgs.py::LBFGSChunk), the tail kernel and the finalize kernel
+// alone, with no grad or Adam launch. The tail reads the params from the
+// solve's iterate (params_out: the net's part of K10's vec[X] row), takes the
+// Philox epoch words from the chunk's schedule at the cursor (the points at
+// the cursor's row of new_colloc when fed; a fixed batch gives its own points
+// as new_colloc, with a row stride of 0), and writes the new batch, z and
+// dual IN PLACE: colloc_out, z_out and dual_out are the solve's own colloc,
+// z and dual, the buffers the captured solve reads. That aliasing is safe
+// because no thread reads what another writes: a tail thread reads dual[i]
+// before it writes dual_out[i] and z_out[i], for its own point i alone; it
+// never reads z; it reads the old colloc only as a fixed batch's given
+// point i, which it writes back unchanged; and the data tiles read only
+// x_data, u_data and the params. The tail's grid has ceil(N_u / tail_tile)
+// more blocks: the data points as forward-only tiles, each writing its sum
+// of (u - u_data)^2 after the collocation tiles' sums. The finalize kernel
+// sums those in double in its fixed order (data_term = D / N_u) and writes
+// the cursor's metrics row: loss (the solve's f, sf[F_F], from f_in),
+// data_term, res_term = f - data_term (JAX's res.f - data_weight * data_term;
+// K10's scope has data_weight 1), lambda1, lambda2, admm_misfit (0 for
+// another residual kind, which only draws or keeps its batch) and
+// lbfgs_iters (si[I_K], from iters_in); then it advances the cursor. Seed,
+// rho and the threshold come from a one-member table, so that one captured
+// graph serves every seed and rho. The epoch path never sets post_update,
+// so its arithmetic is unchanged.
+//
 // The Adam and tail arithmetic rounds after every operation (no contraction),
 // as the plain PyTorch step does.
 
@@ -203,6 +230,8 @@ struct Step {
   float* grad_out;          // (n_params) reduced gradient, or null
   float* loss_out;          // value_and_grad: the loss (1 float)
   const int* skip;          // value_and_grad: launches return while *skip != 0 (or null)
+  const float* f_in;        // post_update: the solve's f (K10's sf[F_F])
+  const int* iters_in;      // post_update: the solve's iterations (K10's si[I_K])
   float* partials;          // narrow scratch [n_grad_blocks][n_params + 1]
   float* tail_partials;     // narrow scratch [n_tail_blocks]
   const Member* members;    // narrow: one entry a member, or null (a solo call: the scalars)
@@ -213,7 +242,9 @@ struct Step {
   float lb0, lb1, ub0, ub1, lam1, lam2, rho, lr;
   float one_minus_b1, b1, one_minus_b2, b2, eps, bc1, bc2, threshold;
   int n_u, n_f, kind, explicit_inner, tile, tail_tile, nb_f, nb_u, nb_tail;
+  int nb_tail_data;         // post_update: the tail's data tiles, after its nb_tail
   int value_and_grad;       // K10: the grad kernel and the partials' sum only
+  int post_update;          // K10's outer epoch: the tail and the finalize only
   unsigned seed_lo, seed_hi, epoch_lo, epoch_hi;
 };
 
@@ -682,10 +713,36 @@ adam_kernel(Net net, Step call) {
   st.params_out[i] = __fadd_rn(st.params[i], upd);
 }
 
+// The post-update mode's data tile (blocks nb_tail on): the forward of its
+// data points with the params, nothing kept, and the tile's sum of
+// (u - u_data)^2 into its slot of the tail's sums.
+__device__ void data_tile(const Net& net, const Step& st, float* w, float4* H, float* red, int T,
+                          int plane) {
+  const int ts = T + 1, p0 = (blockIdx.x - st.nb_tail) * T;
+  const bool mine = threadIdx.x < T && p0 + static_cast<int>(threadIdx.x) < st.n_u;
+  const float ud = mine ? st.u_data[p0 + threadIdx.x] : 0.0f;
+  if (threadIdx.x < T) {
+    const int i = p0 + threadIdx.x;
+    const float xv = mine ? st.x_data[2 * i] : 0.0f;
+    const float tv = mine ? st.x_data[2 * i + 1] : 0.0f;
+    input_streams(H, ts, threadIdx.x, xv, tv, st);
+  }
+  stage(w, st.params_out, net.n_params);
+  __syncthreads();
+  const float4* X = tile_forward<false>(net, w, H, nullptr, T, plane);
+  if (threadIdx.x < T) {
+    const float d = tile_head(net, w, X, ts, threadIdx.x).x - ud;
+    red[threadIdx.x] = mine ? d * d : 0.0f;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) st.tail_partials[blockIdx.x] = block_sum_ordered(red, T);
+}
+
 // One block a tile of st.tail_tile points of the new batch, a thread two
 // units of a point of a layer: the points, then (for 'admm') z/dual at them
 // with the new params, through the grad kernel's forward (nothing kept),
-// and the tile's sum of |f - z|.
+// and the tile's sum of |f - z|. In the post-update mode the blocks from
+// nb_tail on are data tiles (data_tile).
 __global__ void __launch_bounds__(kThreads)
 tail_kernel(Net net, Step call) {
   const Step st = member_step(net, at_cursor(call), blockIdx.y);
@@ -694,6 +751,10 @@ tail_kernel(Net net, Step call) {
   float* w = reinterpret_cast<float*>(smem4);
   float4* H = smem4 + (net.n_params + 3) / 4;
   float* red = reinterpret_cast<float*>(H + 2 * plane);
+  if (blockIdx.x >= static_cast<unsigned>(st.nb_tail)) {
+    data_tile(net, st, w, H, red, T, plane);
+    return;
+  }
   const int p0 = blockIdx.x * T;
   // the point's dual, loaded now so that its latency overlaps the forward
   const bool mine = threadIdx.x < T && p0 + static_cast<int>(threadIdx.x) < st.n_f;
@@ -743,24 +804,44 @@ tail_kernel(Net net, Step call) {
   if (threadIdx.x == 0) st.tail_partials[blockIdx.x] = block_sum_ordered(red, T);
 }
 
+// Lane 0's sum of parts[0, n) in double: lane l adds l, l + 32, ... in turn,
+// the lanes joined by a fixed shuffle tree.
+__device__ __forceinline__ double warp_sum_ordered(const float* parts, int n, int lane) {
+  double sum = 0.0;
+  for (int b = lane; b < n; b += 32) sum += parts[b];
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2) sum += __shfl_down_sync(0xffffffffu, sum, off);
+  return sum;
+}
+
 // One block, a warp a member (members w, w + warps, ...): the misfit from
-// the tail's per-tile sums, lane l summing tiles l, l + 32, ... in double,
-// the lanes joined by a fixed shuffle tree; then (K9) the cursor on to the
-// next epoch once every warp has read it.
+// the tail's per-tile sums (warp_sum_ordered); in the post-update mode (one
+// member) the same warp then sums the data tiles' parts the same way and
+// writes the rest of the metrics row; then (K9) the cursor on to the next
+// epoch once every warp has read it.
 __global__ void finalize_kernel(Net net, Step call, int n_members) {
   const Step at = at_cursor(call);
   const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
   for (int m = threadIdx.x / 32; m < n_members; m += warps) {
     const Step st = member_step(net, at, m);
-    if (st.kind != kAdmm) {
-      if (lane == 0) st.metrics[kMetricMisfit] = 0.0f;
-      continue;
+    float misfit = 0.0f;
+    if (st.kind == kAdmm) {
+      misfit = static_cast<float>(warp_sum_ordered(st.tail_partials, st.nb_tail, lane)) /
+               static_cast<float>(st.n_f);
     }
-    double sum = 0.0;
-    for (int b = lane; b < st.nb_tail; b += 32) sum += st.tail_partials[b];
-#pragma unroll
-    for (int off = 16; off >= 1; off /= 2) sum += __shfl_down_sync(0xffffffffu, sum, off);
-    if (lane == 0) st.metrics[kMetricMisfit] = static_cast<float>(sum) / static_cast<float>(st.n_f);
+    if (lane == 0) st.metrics[kMetricMisfit] = misfit;
+    if (!st.post_update) continue;
+    const double D = warp_sum_ordered(st.tail_partials + st.nb_tail, st.nb_tail_data, lane);
+    if (lane == 0) {
+      const float data_term = static_cast<float>(D) / static_cast<float>(st.n_u);
+      const float f = *st.f_in;
+      st.metrics[kMetricLoss] = f;
+      st.metrics[kMetricData] = data_term;
+      st.metrics[kMetricRes] = __fsub_rn(f, data_term);
+      st.metrics[kMetricLam1] = st.lam1;
+      st.metrics[kMetricLam2] = st.lam2;
+      st.metrics[kMetricLbfgs] = static_cast<float>(*st.iters_in);
+    }
   }
   if (call.cursor == nullptr) return;
   __syncthreads();
@@ -808,6 +889,25 @@ int narrow_epoch(const Net& net, Step st, int n_members, bool launch_only, cudaS
   tail_kernel<<<dim3(st.nb_tail, E), tail_threads, tsm, s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
   finalize_kernel<<<1, 256, 0, s>>>(net, st, n_members);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The post-update mode: the tail (its collocation tiles, then its data
+// tiles) and the finalize of one member, no grad or Adam launch.
+int narrow_post_update(const Net& net, Step st, bool launch_only, cudaStream_t s) {
+  const size_t tsm = narrow_smem(net, st.tail_tile, 2);
+  if (!narrow_tile_ok(net, st.tail_tile) || tsm > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  st.nb_tail = (st.n_f + st.tail_tile - 1) / st.tail_tile;
+  st.nb_tail_data = (st.n_u + st.tail_tile - 1) / st.tail_tile;
+  st.post_update = 1;
+  if (!launch_only) PINNS_CHECK(allow_smem(tail_kernel, tsm));
+  const int tail_need = (st.tail_tile * ((net.max_width + 1) / 2) + 31) / 32 * 32;
+  const int tail_threads = tail_need > kTailThreads ? tail_need : kTailThreads;
+  tail_kernel<<<dim3(st.nb_tail + st.nb_tail_data, 1), tail_threads, tsm, s>>>(net, st);
+  PINNS_CHECK(cudaGetLastError());
+  finalize_kernel<<<1, 256, 0, s>>>(net, st, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1339,7 +1439,8 @@ using namespace k3;
 enum PtrArg {
   kParams, kMu, kNu, kXData, kUData, kColloc, kZ, kDual, kNewColloc,
   kParamsOut, kMuOut, kNuOut, kCollocOut, kZOut, kDualOut, kMetrics, kGradOut,
-  kPartials, kTailPartials, kScratch, kMembers, kCursor, kSched, kLossOut, kSkip, kNumPtrs
+  kPartials, kTailPartials, kScratch, kMembers, kCursor, kSched, kLossOut, kSkip, kFIn,
+  kItersIn, kNumPtrs
 };
 enum FloatArg {
   kLb0, kLb1, kUb0, kUb1, kLam1, kLam2, kRho, kLr, kOneMinusB1, kB1, kOneMinusB2,
@@ -1357,6 +1458,84 @@ extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
   *n_ints = kNumInts;
   return 0;
 }
+
+namespace {
+
+// The call's Step from the argument arrays (the enums above); false for a
+// malformed call. Every mode's own fields start at zero.
+bool fill_step(const int* dims, int n_layers, const long long* ptrs, const float* floats,
+               const long long* ints, Net* net, Step* out) {
+  if (n_layers < 2 || !make_net(dims, n_layers, net) || dims[n_layers] != 1 ||
+      ints[kNU] < 1 || ints[kNF] < 1 || ints[kKind] < 0 || ints[kKind] > 3) {
+    return false;
+  }
+  auto fp = [&](int k) { return reinterpret_cast<float*>(ptrs[k]); };
+  Step st;
+  st.params = fp(kParams);
+  st.mu = fp(kMu);
+  st.nu = fp(kNu);
+  st.x_data = fp(kXData);
+  st.u_data = fp(kUData);
+  st.colloc = fp(kColloc);
+  st.z = fp(kZ);
+  st.dual = fp(kDual);
+  st.new_colloc = fp(kNewColloc);
+  st.params_out = fp(kParamsOut);
+  st.mu_out = fp(kMuOut);
+  st.nu_out = fp(kNuOut);
+  st.colloc_out = fp(kCollocOut);
+  st.z_out = fp(kZOut);
+  st.dual_out = fp(kDualOut);
+  st.metrics = fp(kMetrics);
+  st.grad_out = fp(kGradOut);
+  st.loss_out = fp(kLossOut);
+  st.skip = reinterpret_cast<const int*>(ptrs[kSkip]);
+  st.f_in = fp(kFIn);
+  st.iters_in = reinterpret_cast<const int*>(ptrs[kItersIn]);
+  st.partials = fp(kPartials);
+  st.tail_partials = fp(kTailPartials);
+  st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
+  st.cursor = reinterpret_cast<int*>(ptrs[kCursor]);
+  st.sched = reinterpret_cast<const uint4*>(ptrs[kSched]);
+  st.metrics_stride = ints[kMetricsStride];
+  st.new_colloc_stride = ints[kNewCollocStride];
+  if (st.cursor != nullptr && (st.sched == nullptr || (ptrs[kSched] & 15) != 0)) return false;
+  st.lb0 = floats[kLb0];
+  st.lb1 = floats[kLb1];
+  st.ub0 = floats[kUb0];
+  st.ub1 = floats[kUb1];
+  st.lam1 = floats[kLam1];
+  st.lam2 = floats[kLam2];
+  st.rho = floats[kRho];
+  st.lr = floats[kLr];
+  st.one_minus_b1 = floats[kOneMinusB1];
+  st.b1 = floats[kB1];
+  st.one_minus_b2 = floats[kOneMinusB2];
+  st.b2 = floats[kB2];
+  st.eps = floats[kEps];
+  st.bc1 = floats[kBc1];
+  st.bc2 = floats[kBc2];
+  st.threshold = floats[kThreshold];
+  st.n_u = static_cast<int>(ints[kNU]);
+  st.n_f = static_cast<int>(ints[kNF]);
+  st.kind = static_cast<int>(ints[kKind]);
+  st.explicit_inner = static_cast<int>(ints[kExplicit]);
+  st.tile = static_cast<int>(ints[kPlanTile]);
+  st.tail_tile = static_cast<int>(ints[kTailTile]);
+  st.nb_f = st.nb_u = st.nb_tail = st.nb_tail_data = 0;
+  st.value_and_grad = static_cast<int>(ints[kValueAndGrad]);
+  st.post_update = 0;
+  const unsigned long long seed = static_cast<unsigned long long>(ints[kSeed]);
+  const unsigned long long epoch = static_cast<unsigned long long>(ints[kEpoch]);
+  st.seed_lo = static_cast<unsigned>(seed & 0xFFFFFFFFull);
+  st.seed_hi = static_cast<unsigned>(seed >> 32);
+  st.epoch_lo = static_cast<unsigned>(epoch & 0xFFFFFFFFull);
+  st.epoch_hi = static_cast<unsigned>(epoch >> 32);
+  *out = st;
+  return true;
+}
+
+}  // namespace
 
 // One epoch on `stream`. `dims` (host) holds n_layers + 1 widths; the other
 // arrays follow the enums above. All device buffers are float32, contiguous,
@@ -1383,77 +1562,15 @@ extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
 extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* ptrs,
                                 const float* floats, const long long* ints, void* stream) {
   Net net;
-  if (n_layers < 2 || !make_net(dims, n_layers, &net) || dims[n_layers] != 1 ||
-      ints[kNU] < 1 || ints[kNF] < 1 || ints[kKind] < 0 || ints[kKind] > 3) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto fp = [&](int k) { return reinterpret_cast<float*>(ptrs[k]); };
   Step st;
-  st.params = fp(kParams);
-  st.mu = fp(kMu);
-  st.nu = fp(kNu);
-  st.x_data = fp(kXData);
-  st.u_data = fp(kUData);
-  st.colloc = fp(kColloc);
-  st.z = fp(kZ);
-  st.dual = fp(kDual);
-  st.new_colloc = fp(kNewColloc);
-  st.params_out = fp(kParamsOut);
-  st.mu_out = fp(kMuOut);
-  st.nu_out = fp(kNuOut);
-  st.colloc_out = fp(kCollocOut);
-  st.z_out = fp(kZOut);
-  st.dual_out = fp(kDualOut);
-  st.metrics = fp(kMetrics);
-  st.grad_out = fp(kGradOut);
-  st.loss_out = fp(kLossOut);
-  st.skip = reinterpret_cast<const int*>(ptrs[kSkip]);
-  st.partials = fp(kPartials);
-  st.tail_partials = fp(kTailPartials);
-  st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
-  st.cursor = reinterpret_cast<int*>(ptrs[kCursor]);
-  st.sched = reinterpret_cast<const uint4*>(ptrs[kSched]);
-  st.metrics_stride = ints[kMetricsStride];
-  st.new_colloc_stride = ints[kNewCollocStride];
-  if (st.cursor != nullptr && (st.sched == nullptr || (ptrs[kSched] & 15) != 0)) {
+  if (!fill_step(dims, n_layers, ptrs, floats, ints, &net, &st)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  st.lb0 = floats[kLb0];
-  st.lb1 = floats[kLb1];
-  st.ub0 = floats[kUb0];
-  st.ub1 = floats[kUb1];
-  st.lam1 = floats[kLam1];
-  st.lam2 = floats[kLam2];
-  st.rho = floats[kRho];
-  st.lr = floats[kLr];
-  st.one_minus_b1 = floats[kOneMinusB1];
-  st.b1 = floats[kB1];
-  st.one_minus_b2 = floats[kOneMinusB2];
-  st.b2 = floats[kB2];
-  st.eps = floats[kEps];
-  st.bc1 = floats[kBc1];
-  st.bc2 = floats[kBc2];
-  st.threshold = floats[kThreshold];
-  st.n_u = static_cast<int>(ints[kNU]);
-  st.n_f = static_cast<int>(ints[kNF]);
-  st.kind = static_cast<int>(ints[kKind]);
-  st.explicit_inner = static_cast<int>(ints[kExplicit]);
-  st.tile = static_cast<int>(ints[kPlanTile]);
-  st.tail_tile = static_cast<int>(ints[kTailTile]);
-  st.nb_f = st.nb_u = st.nb_tail = 0;
-  st.value_and_grad = static_cast<int>(ints[kValueAndGrad]);
   if (st.value_and_grad &&
       (net.max_width > kNarrowWidth || ints[kNMembers] != 1 || st.members != nullptr ||
        st.loss_out == nullptr || st.grad_out == nullptr || st.cursor != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned long long seed = static_cast<unsigned long long>(ints[kSeed]);
-  const unsigned long long epoch = static_cast<unsigned long long>(ints[kEpoch]);
-  st.seed_lo = static_cast<unsigned>(seed & 0xFFFFFFFFull);
-  st.seed_hi = static_cast<unsigned>(seed >> 32);
-  st.epoch_lo = static_cast<unsigned>(epoch & 0xFFFFFFFFull);
-  st.epoch_hi = static_cast<unsigned>(epoch >> 32);
-
   const bool launch_only = ints[kLaunchOnly] != 0;
   if (!launch_only) PINNS_CHECK(cudaSetDevice(static_cast<int>(ints[kDevice])));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1463,10 +1580,48 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   const WidePlan wp{static_cast<int>(ints[kNfPad]), static_cast<int>(ints[kNuPad]),
                     static_cast<int>(ints[kPlanTile]), static_cast<int>(ints[kSplitRows]),
                     static_cast<int>(ints[kSplits])};
-  float* scratch = fp(kScratch);
+  float* scratch = reinterpret_cast<float*>(ptrs[kScratch]);
   if (!wide_plan_ok(net, st, wp, scratch)) return static_cast<int>(cudaErrorInvalidValue);
   const long long scratch_floats = ints[kScratchFloats];
   return wide_epoch(net, st, wp, scratch, scratch_floats, s);
+}
+
+// The post-update mode (the header's): the narrow tail and finalize kernels
+// of one member after one of K10's solves, on `stream`, with the arrays of
+// pinns_fused_step. It needs kParamsOut (the solve's net params), kColloc
+// and kCollocOut (the solve's batch, written in place), for 'admm' kZ =
+// kZOut and kDual = kDualOut (the solve's z and dual, updated in place),
+// kXData, kUData, kTailPartials (ceil(N_f / tail_tile) + ceil(N_u /
+// tail_tile) floats), kMetrics (rows of 7, kMetricsStride apart), kCursor
+// and kSched (the Philox epoch words a row), kMembers (one row: the seed,
+// rho and the threshold), kFIn and kItersIn (K10's sf[F_F] and si[I_K]);
+// kNewColloc is the fed points (kNewCollocStride floats a row), or the
+// batch itself with a stride of 0 (a fixed batch), or null (the Philox
+// draw). It refuses the wide design, another member count, a missing
+// buffer and z / dual buffers that do not match the kind.
+extern "C" int pinns_fused_post_update(const int* dims, int n_layers, const long long* ptrs,
+                                       const float* floats, const long long* ints,
+                                       void* stream) {
+  Net net;
+  Step st;
+  if (!fill_step(dims, n_layers, ptrs, floats, ints, &net, &st)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool admm = st.kind == kAdmm;
+  const bool state_ok = admm ? (st.z != nullptr && st.z == st.z_out && st.dual != nullptr &&
+                                st.dual == st.dual_out)
+                             : (st.z == nullptr && st.z_out == nullptr && st.dual == nullptr &&
+                                st.dual_out == nullptr);
+  if (net.max_width > kNarrowWidth || ints[kNMembers] != 1 || st.members == nullptr ||
+      st.value_and_grad || st.cursor == nullptr || st.metrics == nullptr ||
+      st.f_in == nullptr || st.iters_in == nullptr || st.params_out == nullptr ||
+      st.colloc == nullptr || st.colloc_out != st.colloc || st.tail_partials == nullptr ||
+      st.x_data == nullptr || st.u_data == nullptr || !state_ok) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool launch_only = ints[kLaunchOnly] != 0;
+  if (!launch_only) PINNS_CHECK(cudaSetDevice(static_cast<int>(ints[kDevice])));
+  return narrow_post_update(net, st, launch_only, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* pinns_fused_step_error_string(int code) {

@@ -27,9 +27,12 @@
 //                   of the circular history, the descent guard, the first step
 //                   min(1, 1/sum|g|), the search's initial state and xt.
 //
-// reset_kernel writes a solve's initial state (xt = x0, stage init). Once the
-// done flag is set every launch of a step reads it and returns, so a replay
-// of R steps past the end costs R empty launches of each kernel.
+// reset_kernel writes a solve's initial state (xt = x0, stage init); with
+// no x0 it resets in place from the iterate x that the last solve left
+// (ops/kernels/lbfgs.py::LBFGSChunk: the next outer epoch's x0 is that x, so
+// no host copy). Once the done flag is set every launch of a step reads it
+// and returns, so a replay of R steps past the end costs R empty launches of
+// each kernel.
 //
 // The state lives in device memory: an int array (si) and a float array (sf)
 // whose slots are the enums below (ops/kernels/lbfgs.py names them I_* and
@@ -467,10 +470,14 @@ __global__ void reset_kernel(int* si, float* sf, float* vec, const float* x0, in
     sf[kAMax] = c.a_max;
     sf[kEpsStep] = c.eps_step;
   }
+  // a null x0: the reset in place, the next solve from the last one's
+  // iterate (x stays, xt takes it); each thread reads only its own entries
   const size_t N = n;
+  const float* src = x0 != nullptr ? x0 : vec + kX * N;
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    vec[kX * N + i] = x0[i];
-    vec[kXT * N + i] = x0[i];
+    const float v = src[i];
+    if (x0 != nullptr) vec[kX * N + i] = v;
+    vec[kXT * N + i] = v;
     vec[kGT * N + i] = 0.0f;
   }
 }
@@ -977,7 +984,8 @@ extern "C" long long pinns_lbfgs_direction_smem(int n, int m, int resident) {
 // its launch (0 on success; kErrUnplaced when the cluster cannot be placed).
 // Pointers are device pointers of contiguous buffers the wrapper checked:
 // si (kNumInts int32), sf (kNumFloats float32), vec (kRows x n float32), hist
-// (2 x m x n), rho (m), x0 (n). `consts` (host) holds c1, c2, ftol, gtol,
+// (2 x m x n), rho (m), x0 (n; null for the reset in place from vec's x
+// row). `consts` (host) holds c1, c2, ftol, gtol,
 // 1e-12, 1e-10, 1e-30, 1e8 and 1e-12 as float32. The direction kernel's
 // `launch_only` (a stream capture) leaves out the shared memory limit and
 // the placement check, which an earlier call with the same arguments made.

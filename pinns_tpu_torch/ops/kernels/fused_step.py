@@ -42,6 +42,13 @@ params, for the L-BFGS solve on the device (``ops/kernels/lbfgs.py``). Its
 plain version is :func:`value_and_grad_reference`, which it runs on CPU
 tensors.
 
+K3's post-update mode (:func:`fused_post_update`): the narrow design's tail
+and finalize kernels alone, what follows one of K10's outer solves (the new
+batch, z and dual written in place into the solve's buffers, the data term
+from the same launches and the metrics row at a device cursor), for K10's
+chunk of outer epochs (``ops/kernels/lbfgs.py::LBFGSChunk``). Its plain
+version is :func:`post_update_reference`, which it runs on CPU tensors.
+
 The epoch wrappers validate what the kernel assumes and raise otherwise; on
 a CPU tensor they raise too. Nothing falls back to the plain step.
 """
@@ -71,6 +78,9 @@ GRAPH_EPOCHS = 0  # K9: epochs run inside those replays (an epoch of all members
 # K10: value-and-grad calls (two launches each): host calls, and those run
 # inside the replays of K10's captured solve steps (ops/kernels/lbfgs.py)
 VALUE_AND_GRAD_LAUNCHES = 0
+# K3's post-update mode (tail and finalize, two launches each): host calls,
+# and those run inside the replays of K10's chunk runner (LBFGSChunk)
+POST_UPDATE_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
@@ -108,7 +118,7 @@ MAX_MEMBERS = 65_535  # K8: the member is the launches' grid y index
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
          "grad_out", "partials", "tail_partials", "scratch", "members", "cursor", "sched",
-         "loss_out", "skip")
+         "loss_out", "skip", "f_in", "iters_in")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
 _INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
@@ -299,8 +309,9 @@ def _lib():
     lib = build.load_library("fused_step")
     if not getattr(lib, "_pinns_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pinns_fused_step.argtypes = [p, i, p, p, p, p]
-        lib.pinns_fused_step.restype = i
+        for entry in (lib.pinns_fused_step, lib.pinns_fused_post_update):
+            entry.argtypes = [p, i, p, p, p, p]
+            entry.restype = i
         lib.pinns_fused_step_sizes.argtypes = [p, p, p]
         lib.pinns_fused_step_sizes.restype = i
         lib.pinns_fused_step_error_string.argtypes = [i]
@@ -467,9 +478,11 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
     return out
 
 
-def _call(layers: Sequence[int], tensors: dict, floats: dict, ints: dict, dev, what: str):
-    """One host call of ``pinns_fused_step`` with the argument slots by name
-    (a missing pointer is null); raises with ``what`` on a failed launch."""
+def _call(layers: Sequence[int], tensors: dict, floats: dict, ints: dict, dev, what: str,
+          entry: str = "pinns_fused_step"):
+    """One host call of ``entry`` (``pinns_fused_step`` or
+    ``pinns_fused_post_update``) with the argument slots by name (a missing
+    pointer is null); raises with ``what`` on a failed launch."""
     lib = _lib()
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     c_dims = (ctypes.c_int * len(layers))(*layers)
@@ -478,7 +491,7 @@ def _call(layers: Sequence[int], tensors: dict, floats: dict, ints: dict, dev, w
     c_floats = (ctypes.c_float * len(_FLOATS))(*(f32(floats[k]) for k in _FLOATS))
     c_ints = (ctypes.c_longlong * len(_INTS))(*(int(ints[k]) for k in _INTS))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.pinns_fused_step(c_dims, len(layers) - 1, c_ptrs, c_floats, c_ints, stream)
+    err = getattr(lib, entry)(c_dims, len(layers) - 1, c_ptrs, c_floats, c_ints, stream)
     if err != 0:
         msg = lib.pinns_fused_step_error_string(err).decode()
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err} ({msg}); {what}")
@@ -1045,6 +1058,196 @@ def value_and_grad_reference(
         spec, unpack_params(params, spec.layers), x_data, u_data, colloc, z, dual, kind=kind,
         lam1=lam1, lam2=lam2, rho=rho, explicit_inner=explicit_inner)
     return f, torch.cat([g.reshape(-1) for g in grads])
+
+
+# -- K3's post-update mode: the tail and finalize after one of K10's solves ------
+
+def post_update_tail(layers: Sequence[int], n_f: int, n_u: int) -> Tuple[int, int]:
+    """(collocation tiles, data tiles) of the post-update mode's tail
+    launch, whose sums its scratch holds in that order."""
+    _, tail = launch_config(layers)
+    return -(-n_f // tail), -(-n_u // tail)
+
+
+def fused_post_update(
+    spec: MLPSpec,
+    params: torch.Tensor,
+    x_data: torch.Tensor,
+    u_data: torch.Tensor,
+    colloc: torch.Tensor,
+    z: Optional[torch.Tensor],
+    dual: Optional[torch.Tensor],
+    metrics: torch.Tensor,
+    cursor: torch.Tensor,
+    sched: torch.Tensor,
+    members: torch.Tensor,
+    f_in: torch.Tensor,
+    iters_in: torch.Tensor,
+    *,
+    kind: str,
+    lam1: float,
+    lam2: float,
+    feed: Optional[torch.Tensor] = None,
+    fixed: bool = False,
+    tail_partials: Optional[torch.Tensor] = None,
+    launch_only: bool = False,
+) -> None:
+    """K3's post-update mode, after one of K10's outer solves: the narrow
+    tail and finalize kernels of one member (two launches, no grad or Adam).
+
+    ``params`` (n_params,) is the solve's net (K10's ``vec[X]`` from the
+    net's offset on). The new batch goes into ``colloc`` (N_f, 2) IN PLACE:
+    the Philox draw of ``members``' seed (a one-row :func:`member_table`,
+    which also gives rho and the threshold) at the epoch words of row
+    ``cursor`` of ``sched`` (:func:`chunk_schedule`), row ``cursor`` of
+    ``feed`` (rows, N_f, 2) when given, or the batch itself when ``fixed``.
+    Under ``kind`` 'admm' the residual there with ``params`` updates ``z``
+    and ``dual`` (N_f, 1) in place (the threshold divides by the batch's
+    row count). Row ``cursor`` of ``metrics`` (rows, 7, ``METRIC_KEYS``
+    order) gets the solve's f (``f_in``, K10's sf[F_F:F_F + 1]) as the loss,
+    the data term at ``params`` over ``x_data``/``u_data``, res_term = f -
+    data_term, lambda1/2, the misfit mean|f - z| (0 for another kind) and
+    the iterations (``iters_in``, K10's si[I_K:I_K + 1]); then the cursor
+    advances. ``tail_partials`` is the scratch (:func:`post_update_tail`'s
+    tiles), allocated when None; ``launch_only`` issues the launches alone
+    (a stream capture).
+
+    On CPU tensors the plain version, :func:`post_update_reference`; on CUDA
+    tensors the kernels, or it raises.
+    """
+    global POST_UPDATE_LAUNCHES
+    _post_update_call(spec, params, x_data, u_data, colloc, z, dual, metrics, cursor, sched,
+                      members, f_in, iters_in, kind=kind, lam1=lam1, lam2=lam2, feed=feed,
+                      fixed=fixed, tail_partials=tail_partials, launch_only=launch_only)
+    if params.device.type == "cuda":
+        with _launches_lock:
+            POST_UPDATE_LAUNCHES += 1
+
+
+def _post_update_call(spec: MLPSpec, params, x_data, u_data, colloc, z, dual, metrics, cursor,
+                      sched, members, f_in, iters_in, *, kind: str, lam1: float, lam2: float,
+                      feed=None, fixed: bool = False, tail_partials=None,
+                      launch_only: bool = False) -> None:
+    """:func:`fused_post_update` without the count (K10's chunk runner
+    counts its replays)."""
+    dev = params.device
+    layers = spec.layers
+    n_f, n_u, P = colloc.shape[0], x_data.shape[0], spec.n_params
+    if kind not in KINDS:
+        raise ValueError(f"post_update: residual kind {kind!r} not in {sorted(KINDS)}")
+    if (kind == "admm") != (z is not None and dual is not None):
+        raise ValueError("post_update: z/dual are given exactly when kind == 'admm'")
+    if fixed and feed is not None:
+        raise ValueError("post_update: a fixed batch takes no fed points")
+    if spec.in_dim != 2 or spec.out_dim != 1 or design(layers) != "narrow" \
+            or not 2 <= len(layers) - 1 <= MAX_LAYERS:
+        raise ValueError(f"post_update takes K3's narrow design, got widths {layers}")
+    rows = metrics.shape[0] if metrics.dim() == 2 else -1
+    floats = {"params": (params, (P,)), "x_data": (x_data, (n_u, 2)), "u_data": (u_data, (n_u, 1)),
+              "colloc": (colloc, (n_f, 2)), "metrics": (metrics, (rows, 7)), "f_in": (f_in, (1,))}
+    if z is not None:
+        floats.update(z=(z, (n_f, 1)), dual=(dual, (n_f, 1)))
+    if feed is not None:
+        floats["feed"] = (feed, (rows, n_f, 2))
+    tiles = sum(post_update_tail(layers, n_f, n_u))
+    if tail_partials is not None:
+        floats["tail_partials"] = (tail_partials, (tiles,))
+    for name, (t, shape) in floats.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"post_update: {name} must be contiguous float32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    ints = {"cursor": (cursor, (1,)), "iters_in": (iters_in, (1,)), "sched": (sched, (rows, 4)),
+            "members": (members, (1, 4))}
+    for name, (t, shape) in ints.items():
+        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"post_update: {name} must be contiguous int32 {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if n_f < 1 or n_u < 1 or rows < 1:
+        raise ValueError("post_update needs a collocation point, a data point and a row")
+    if dev.type == "cpu":
+        post_update_reference(spec, params, x_data, u_data, colloc, z, dual, metrics, cursor,
+                              sched, members, f_in, iters_in, kind=kind, lam1=lam1, lam2=lam2,
+                              feed=feed, fixed=fixed)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"post_update needs CPU or CUDA tensors, got device {dev}")
+    if tail_partials is None:
+        tail_partials = torch.empty(tiles, dtype=torch.float32, device=dev)
+    plan = step_plan(layers, n_f, n_u)
+    tensors = {"params_out": params, "x_data": x_data, "u_data": u_data, "colloc": colloc,
+               "colloc_out": colloc, "z": z, "z_out": z, "dual": dual, "dual_out": dual,
+               "new_colloc": colloc if fixed else feed, "metrics": metrics,
+               "tail_partials": tail_partials, "members": members, "cursor": cursor,
+               "sched": sched, "f_in": f_in, "iters_in": iters_in}
+    floats = dict.fromkeys(_FLOATS, 0.0)
+    floats.update(lb0=spec.lb[0], lb1=spec.lb[1], ub0=spec.ub[0], ub1=spec.ub[1], lam1=lam1,
+                  lam2=lam2)
+    ints = dict.fromkeys(_INTS, 0)
+    ints.update(n_u=n_u, n_f=n_f, kind=KINDS[kind], tile=plan.tile, tail_tile=plan.tail_tile,
+                device=dev.index if dev.index is not None else torch.cuda.current_device(),
+                n_members=1, metrics_stride=7, new_colloc_stride=0 if fixed else 2 * n_f,
+                launch_only=int(launch_only))
+    _call(layers, tensors, floats, ints, dev, f"post_update widths={layers}",
+          entry="pinns_fused_post_update")
+
+
+def member_scalars(members: torch.Tensor) -> Tuple[int, float, float]:
+    """(seed, rho, threshold) of a one-row :func:`member_table`, as the
+    kernel reads them (rho and the threshold float32)."""
+    w = members[0].cpu().numpy().view(np.uint32)
+    f = w[2:].view(np.float32)
+    return int(w[0]) | int(w[1]) << 32, float(f[0]), float(f[1])
+
+
+def post_update_reference(spec: MLPSpec, params, x_data, u_data, colloc, z, dual, metrics,
+                          cursor, sched, members, f_in, iters_in, *, kind: str, lam1: float,
+                          lam2: float, feed=None, fixed: bool = False) -> None:
+    """The post-update mode in plain PyTorch: the trainer's L-BFGS tail
+    (``train.trainer._post_update``: the batch, then z/dual at it with the
+    new params), its data-term metric (``make_data_term``) and res_term =
+    f - data_term, on the tensors :func:`fused_post_update` takes, in place.
+    The batch is ``data.sampling.philox_uniform`` (seed and epoch words as
+    the kernel reads them), the fed row or the batch itself; the residual
+    the plain Taylor-2 recurrence; z and dual ``losses.admm``'s update with
+    the table's float32 rho and threshold."""
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.losses.misfit import data_misfit
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.prox import soft_threshold
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+
+    row = int(cursor[0])
+    words = sched[row].cpu().numpy().view(np.uint32)
+    seed, rho, threshold = member_scalars(members)
+    n_f, n_u = colloc.shape[0], x_data.shape[0]
+    net = unpack_params(params, spec.layers)
+    if fixed:
+        new = colloc
+    elif feed is not None:
+        new = feed[row]
+    else:
+        new = philox_uniform(seed, int(words[0]) | int(words[1]) << 32, n_f, spec.lb, spec.ub,
+                             torch.float32, colloc.device)
+    dt = metrics.dtype  # float32, or float64 for a float64 twin of the mode
+    misfit = torch.zeros((), dtype=dt, device=colloc.device)
+    if kind == "admm":
+        u, u_x, u_t, u_xx = mlp_taylor_2_reference(spec, net, new)
+        f = u_t + lam1 * u * u_x - lam2 * u_xx
+        z_new = soft_threshold(f + dual / rho, threshold)
+        dual.copy_(dual + rho * (f - z_new))
+        z.copy_(z_new)
+        misfit = torch.mean(torch.abs(f - z_new))
+    if not fixed:
+        colloc.copy_(new)
+    data_term = data_misfit(mlp_apply_reference(spec, net, x_data), u_data, "mse_sum", n_u)
+    f_val = f_in[0].to(dt)
+    scalar = lambda v: torch.tensor(v, dtype=dt, device=colloc.device)  # noqa: E731
+    # METRIC_KEYS order: admm_misfit, data_term, lambda1, lambda2, lbfgs_iters, loss, res_term
+    metrics[row] = torch.stack([misfit, data_term, scalar(lam1), scalar(lam2),
+                                iters_in[0].to(dt), f_val, f_val - data_term])
+    cursor += 1
 
 
 def loss_and_grad_reference(

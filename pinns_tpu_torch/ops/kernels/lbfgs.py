@@ -32,6 +32,13 @@ write nothing (a device-side select on the flag). ``opt/lbfgs.py::
 lbfgs_minimize``, the host loop, stays the algorithm's plain version (the
 CPU's, float64's, and the card's checks').
 
+:class:`LBFGSChunk` runs a chunk of outer epochs on the card (JAX's
+``make_chunked`` over its ``make_lbfgs_step``): each solve's graph replayed to
+its done flag, then one more graph, K3's post-update mode
+(``fused_step.fused_post_update``: the next batch, z, dual and the metrics
+row, in place in the solve's buffers) and the reset in place, which starts
+the next solve from this one's iterate.
+
 The kernels' plain versions (:func:`reset_reference`,
 :func:`control_reference`, :func:`direction_reference`) step the same state
 on tensors in the kernels' arithmetic: numpy float32 for the scalars, one
@@ -57,11 +64,12 @@ from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.kernels import fused_step as k_fused
 from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
-RESET_LAUNCHES = 0  # reset kernel launches (one a solve)
+RESET_LAUNCHES = 0  # reset kernel launches (one a solve; LBFGSChunk's in place too)
 CONTROL_LAUNCHES = 0  # control kernel launches: host calls and those inside replays
 DIRECTION_LAUNCHES = 0  # direction kernel launches: host calls and those inside replays
 GRAPH_REPLAYS = 0  # replays of a captured graph of STEPS_PER_REPLAY evaluation steps
 SOLVES = 0  # device solves (DeviceLBFGS.minimize and AutogradLBFGS.minimize on the card)
+CHUNK_EPOCHS = 0  # outer epochs LBFGSChunk ran on the card (a post-update replay each)
 _lock = threading.Lock()
 
 # evaluation steps a replay runs between two reads of the done flag: a solve
@@ -303,17 +311,20 @@ def two_loop_reference(g, s_hist, y_hist, rho, count: int, head: int, gamma) -> 
     return -r
 
 
-def reset_reference(b: Buffers, x0: torch.Tensor, max_iters: int, max_ls: int,
+def reset_reference(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_ls: int,
                     consts: np.ndarray) -> None:
-    """A solve's initial state: the trial point x0 (stage init), gamma 1."""
+    """A solve's initial state: the trial point x0 (stage init), gamma 1;
+    with x0 None the reset in place, from the iterate vec[X] that the last
+    solve left."""
     I = np.zeros(N_INTS, np.int32)
     F = np.zeros(N_FLOATS, np.float32)
     I[I_STAGE], I[I_MAX_ITERS], I[I_MAX_LS] = STAGE_INIT, max_iters, max_ls
     F[F_GAMMA] = 1.0
     F[F_C1:F_EPS_STEP + 1] = consts
     _store(b, I, F)
-    b.vec[X].copy_(x0)
-    b.vec[XT].copy_(x0)
+    if x0 is not None:
+        b.vec[X].copy_(x0)
+    b.vec[XT].copy_(b.vec[X])
     b.vec[GT].zero_()
 
 
@@ -555,11 +566,13 @@ def solve_constants(c1: float = 1e-4, c2: float = 0.9, ftol: float = 1e-7, gtol:
     return np.asarray((c1, c2, ftol, gtol) + CONSTANTS, np.float32)
 
 
-def _launch_reset(b: Buffers, x0: torch.Tensor, max_iters: int, max_ls: int,
+def _launch_reset(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_ls: int,
                   consts: np.ndarray) -> None:
+    """The reset kernel; x0 None resets in place (a null pointer)."""
     si, sf, vec, _, _ = _ptrs(b)
-    _raise_on(_lib().pinns_lbfgs_reset(si, sf, vec, x0.data_ptr(), b.n, int(max_iters),
-                                       int(max_ls), consts.ctypes.data, _stream(b)), "reset")
+    _raise_on(_lib().pinns_lbfgs_reset(si, sf, vec, 0 if x0 is None else x0.data_ptr(), b.n,
+                                       int(max_iters), int(max_ls), consts.ctypes.data,
+                                       _stream(b)), "reset")
 
 
 def _launch_control(b: Buffers) -> None:
@@ -580,14 +593,16 @@ def _launch_direction(b: Buffers, launch_only: bool = False,
                                         int(launch_only), _stream(b)), "direction")
 
 
-def reset(b: Buffers, x0: torch.Tensor, *, max_iters: int, max_ls: int = 50, c1: float = 1e-4,
-          c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5) -> None:
+def reset(b: Buffers, x0: Optional[torch.Tensor], *, max_iters: int, max_ls: int = 50,
+          c1: float = 1e-4, c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5) -> None:
     """A solve's initial state from ``x0`` (n,) float32: the trial point is
-    x0, the first step takes its evaluation. Plain on CPU tensors."""
+    x0, the first step takes its evaluation. ``x0`` None resets in place:
+    the next solve starts from the iterate ``vec[X]`` the last one left (no
+    copy of it). Plain on CPU tensors."""
     global RESET_LAUNCHES
     b.check()
-    if tuple(x0.shape) != (b.n,) or x0.dtype != torch.float32 or x0.device != b.si.device \
-            or not x0.is_contiguous():
+    if x0 is not None and (tuple(x0.shape) != (b.n,) or x0.dtype != torch.float32
+                           or x0.device != b.si.device or not x0.is_contiguous()):
         raise ValueError(f"K10: x0 must be contiguous float32 ({b.n},) on {b.si.device}")
     consts = solve_constants(c1, c2, ftol, gtol)
     if b.si.device.type == "cpu":
@@ -789,6 +804,40 @@ class DeviceLBFGS:
         self.capture_seconds.append(time.perf_counter() - t0)
         return graph
 
+    def _shape(self, n: int, m: int, n_f: int, offset: int) -> None:
+        """The buffers for a solve of this shape (allocated anew, and the
+        graphs captured anew, when it changes)."""
+        if n - offset != self.spec.n_params:
+            raise ValueError(f"K10: {n} params with the net from {offset}: the net has "
+                             f"{self.spec.n_params}")
+        if self.shape != (n, m, n_f, offset):
+            self._alloc(n, m, n_f, offset)
+
+    def solve_graph(self, rho: float) -> torch.cuda.CUDAGraph:
+        """The captured STEPS_PER_REPLAY evaluation steps at ADMM weight
+        ``rho`` (float32), captured at first use."""
+        if rho not in self.graphs:
+            self.graphs[rho] = self._capture(rho)
+        return self.graphs[rho]
+
+    def replay_until_done(self, graph: torch.cuda.CUDAGraph) -> np.ndarray:
+        """Replays of ``graph`` from a reset state, the done flag read after
+        each (one host sync), until it is set; returns si[:4]."""
+        global GRAPH_REPLAYS, CONTROL_LAUNCHES, DIRECTION_LAUNCHES, SOLVES
+        while True:
+            graph.replay()
+            with _lock:
+                GRAPH_REPLAYS += 1
+                CONTROL_LAUNCHES += STEPS_PER_REPLAY
+                DIRECTION_LAUNCHES += STEPS_PER_REPLAY
+            with k_fused._launches_lock:
+                k_fused.VALUE_AND_GRAD_LAUNCHES += STEPS_PER_REPLAY
+            head = read_head(self.bufs)
+            if head[I_DONE]:
+                with _lock:
+                    SOLVES += 1
+                return head
+
     def minimize(self, x0: torch.Tensor, offset: int, colloc: torch.Tensor, admm, rho: float, *,
                  max_iters: int, history: int = 50, ftol: float = 1e-7, gtol: float = 1e-5,
                  max_ls: int = 50) -> host_lbfgs.LBFGSResult:
@@ -797,15 +846,9 @@ class DeviceLBFGS:
         ADMM state ``admm`` (None for another residual kind) with ADMM
         weight ``rho``. Returns ``opt.lbfgs.LBFGSResult`` with tensors of
         the caller's own."""
-        global GRAPH_REPLAYS, CONTROL_LAUNCHES, DIRECTION_LAUNCHES, SOLVES
-        n, n_f = x0.shape[0], colloc.shape[0]
-        if n - offset != self.spec.n_params:
-            raise ValueError(f"K10: {n} params with the net from {offset}: the net has "
-                             f"{self.spec.n_params}")
         if (admm is None) != (self.cfg["kind"] != "admm"):
             raise ValueError("K10: an ADMM state exactly when the residual kind is 'admm'")
-        if self.shape != (n, history, n_f, offset):
-            self._alloc(n, history, n_f, offset)
+        self._shape(x0.shape[0], history, colloc.shape[0], offset)
         b = self.bufs
         self.colloc.copy_(colloc)
         if admm is not None:
@@ -816,23 +859,204 @@ class DeviceLBFGS:
         if self.device.type == "cpu":
             reset(b, x0.detach().contiguous(), **opts)
             return run_steps(b, lambda: self._evaluate(rho))
-        if rho not in self.graphs:
-            self.graphs[rho] = self._capture(rho)
-        graph = self.graphs[rho]
+        graph = self.solve_graph(rho)
         reset(b, x0.detach().contiguous(), **opts)
-        while True:
-            graph.replay()
+        return result(b, self.replay_until_done(graph))
+
+
+# the sampling strategies whose next batch K3's post-update mode makes: the
+# uniform Philox draw, or a fixed batch kept as it is
+CHUNK_STRATEGIES = ("resample_uniform", "fixed_uniform", "fixed_lhs", "fixed_lhs_anchored")
+
+
+def lbfgs_chunk_supported(exp, spec: MLPSpec) -> List[str]:
+    """Why ``exp``'s L-BFGS phase cannot run as :class:`LBFGSChunk`'s
+    chunks (empty when it can): K10's scope (:func:`lbfgs_device_supported`)
+    and a next batch that K3's post-update mode makes (the uniform draw over
+    the whole domain, or a fixed batch)."""
+    out = lbfgs_device_supported(exp, spec)
+    s = exp.sampling
+    if s.strategy not in CHUNK_STRATEGIES:
+        out.append(f"sampling.strategy={s.strategy!r} (K3's post-update draws uniformly or "
+                   "keeps a fixed batch)")
+    if s.t_curriculum_epochs > 0:
+        out.append("the time curriculum (K3's post-update draws over the whole domain)")
+    return out
+
+
+class LBFGSChunk:
+    """K10's outer epochs as chunks on the card: the port of JAX's
+    ``make_chunked(make_lbfgs_step)`` (``pinns_tpu/train/trainer.py:835``
+    over ``:724``) for a configuration inside :func:`lbfgs_chunk_supported`.
+
+    An outer epoch is a whole solve at the current batch and ADMM state
+    (:class:`DeviceLBFGS`'s captured graph of STEPS_PER_REPLAY evaluation
+    steps, replayed until the done flag is set, the flag read once a replay),
+    then the *post-update graph*: K3's post-update mode
+    (``fused_step.fused_post_update``: the next batch, z and dual written in
+    place into the buffers the solve graph reads, the data term and the
+    metrics row at a device cursor) and the reset in place for the next
+    outer epoch (its x0 is this solve's iterate, ``vec[X]``). Inside a chunk
+    the host reads nothing but the done flags, and no torch operation runs
+    between outer epochs.
+
+    Allocated once per (n, history, N_f) (with the solver's buffers): a
+    one-row member table (the seed, rho and the threshold, copied in per
+    chunk, so one graph serves every seed and rho), a schedule of
+    ``max_len`` rows of Philox epoch words (``fused_step.chunk_schedule``),
+    ``max_len`` metrics rows, the tail's scratch and a cursor; the fed points
+    (``new_colloc``) take rows of their own and a second post-update graph.
+    :meth:`run` ravels the state once, loads the batch, z, dual and the
+    rows, resets from x0, runs the outer epochs and hands the state back
+    once, as tensors of the caller's own (the next chunk writes the
+    buffers). On the CPU the same structure runs on the plain versions (the
+    solve's steps, ``post_update_reference``, ``reset_reference`` in
+    place), one host call each. A build, capture or launch that fails
+    raises; nothing falls back.
+
+    ``max_len`` (default ``train.chunk``) is the longest chunk it runs
+    without allocating and capturing anew. Raises ``NotImplementedError``
+    outside :func:`lbfgs_chunk_supported`.
+    """
+
+    def __init__(self, problem, max_len: Optional[int] = None):
+        exp, spec = problem.exp, problem.spec
+        why = lbfgs_chunk_supported(exp, spec)
+        if why:
+            raise NotImplementedError(
+                f"experiment {exp.name!r} is outside K10's chunk scope ({'; '.join(why)}); "
+                "train.trainer.make_lbfgs_step runs it an outer epoch a host call")
+        self.exp, self.spec, self.device = exp, spec, problem.device
+        self.solver = DeviceLBFGS(problem)
+        self.cfg = k_fused.loss_config(exp)
+        self.drawn = exp.sampling.strategy == "resample_uniform"
+        lb = exp.optimizer.lbfgs
+        self.history = lb.history
+        self.opts = dict(max_iters=lb.max_iters, max_ls=lb.max_ls, ftol=lb.ftol, gtol=lb.gtol)
+        self.consts = solve_constants(ftol=lb.ftol, gtol=lb.gtol)
+        zeros = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+            shape, dtype=dtype, device=self.device)
+        self._zeros = zeros
+        self.cursor = zeros(1, dtype=torch.int32)
+        self.table = zeros(1, 4, dtype=torch.int32)
+        self.tail_partials: Optional[torch.Tensor] = None
+        self.shape: Optional[Tuple[int, int, int]] = None
+        self.graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
+        self.capture_seconds: List[float] = []
+        self._rows(max(1, int(exp.train.chunk if max_len is None else max_len)))
+
+    def _rows(self, n: int) -> None:
+        """Schedule and metrics rows for chunks of up to ``n`` outer epochs
+        (the graphs hold their addresses: capture anew)."""
+        self.max_len = n
+        self.sched = self._zeros(n, 4, dtype=torch.int32)
+        self.metrics = self._zeros(n, 7)
+        self.feed: Optional[torch.Tensor] = None
+        self.graphs.clear()
+
+    def _shape(self, n: int, n_f: int, offset: int) -> None:
+        """The solver's buffers and the tail's scratch for this shape (the
+        post-update graphs hold their addresses: capture anew)."""
+        if self.shape == (n, n_f, offset):
+            return
+        self.solver._shape(n, self.history, n_f, offset)
+        self.tail_partials = self._zeros(
+            sum(k_fused.post_update_tail(self.spec.layers, n_f, self.solver.x_data.shape[0])))
+        self.feed = None
+        self.graphs.clear()
+        self.shape = (n, n_f, offset)
+
+    def _post(self, fed: bool, launch_only: bool) -> None:
+        """The post-update mode, then the reset in place (plain on the CPU;
+        uncounted on the card: the replays are)."""
+        s, b, off = self.solver, self.solver.bufs, self.shape[2]
+        k_fused._post_update_call(
+            self.spec, b.vec[X, off:], s.x_data, s.u_data, s.colloc, s.z, s.dual, self.metrics,
+            self.cursor, self.sched, self.table, b.sf[F_F:F_F + 1], b.si[I_K:I_K + 1],
+            kind=self.cfg["kind"], lam1=self.cfg["lam1"], lam2=self.cfg["lam2"],
+            feed=self.feed if fed else None, fixed=not self.drawn,
+            tail_partials=self.tail_partials, launch_only=launch_only)
+        if self.device.type == "cpu":
+            reset_reference(b, None, self.opts["max_iters"], self.opts["max_ls"], self.consts)
+        else:
+            _launch_reset(b, None, self.opts["max_iters"], self.opts["max_ls"], self.consts)
+
+    def _capture(self, fed: bool) -> torch.cuda.CUDAGraph:
+        t0 = time.perf_counter()
+        self.cursor.zero_()
+        self._post(fed, launch_only=False)  # the warm-up: the set-up, outside capture
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._post(fed, launch_only=True)
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return graph
+
+    def run(self, state, length: int, new_colloc: Optional[torch.Tensor] = None):
+        """``length`` outer epochs from ``state``: (state, {metric: (length,)
+        tensor}) as ``train.trainer.run_chunk`` of the L-BFGS step gives
+        them. ``new_colloc`` (length, N_f, 2) replaces the Philox draws (a
+        fixed batch ignores it, as the step does)."""
+        global RESET_LAUNCHES, CHUNK_EPOCHS
+        if length < 1:
+            raise ValueError(f"K10: a chunk of {length} outer epochs")
+        if length > self.max_len:
+            self._rows(length)
+        x0, unravel = host_lbfgs.ravel_tree(state.params)
+        n_f = state.colloc.shape[0]
+        self._shape(x0.numel(), n_f, net_offset(state.params))
+        s, b = self.solver, self.solver.bufs
+        if (state.admm is None) != (s.z is None):
+            raise ValueError("K10: the state's ADMM state does not match the residual kind")
+        fed = self.drawn and new_colloc is not None
+        if fed and self.feed is None:
+            self.feed = self._zeros(self.max_len, n_f, 2)
+        rho = self.exp.loss.rho if state.rho is None else state.rho
+        rho32 = float(np.float32(rho))
+        cuda = self.device.type == "cuda"
+        if cuda:  # capture first: the warm-ups write the buffers
+            graph = s.solve_graph(rho32)
+            if fed not in self.graphs:
+                self.graphs[fed] = self._capture(fed)
+        s.colloc.copy_(state.colloc)
+        if state.admm is not None:
+            s.z.copy_(state.admm.z)
+            s.dual.copy_(state.admm.dual)
+        self.table.copy_(k_fused.member_table([state.key], [rho], n_f, self.device))
+        # the Philox epoch words of each outer epoch (the schedule's bias
+        # corrections are Adam's and unread here)
+        sched = k_fused.chunk_schedule(0, int(state.epoch), length)
+        self.sched[:length].copy_(torch.from_numpy(sched))
+        if fed:
+            self.feed[:length].copy_(new_colloc.reshape(length, n_f, 2))
+        self.cursor.zero_()
+        reset(b, x0.contiguous(), **self.opts)
+        for _ in range(length):
+            if not cuda:
+                run_steps(b, lambda: s._evaluate(rho32))
+                self._post(fed, launch_only=False)
+                continue
+            s.replay_until_done(graph)
+            self.graphs[fed].replay()
             with _lock:
-                GRAPH_REPLAYS += 1
-                CONTROL_LAUNCHES += STEPS_PER_REPLAY
-                DIRECTION_LAUNCHES += STEPS_PER_REPLAY
+                RESET_LAUNCHES += 1
+                CHUNK_EPOCHS += 1
             with k_fused._launches_lock:
-                k_fused.VALUE_AND_GRAD_LAUNCHES += STEPS_PER_REPLAY
-            head = read_head(b)
-            if head[I_DONE]:
-                with _lock:
-                    SOLVES += 1
-                return result(b, head)
+                k_fused.POST_UPDATE_LAUNCHES += 1
+        return self._hand_back(state, unravel, length)
+
+    def _hand_back(self, state, unravel, length: int):
+        from pinns_tpu_torch.losses.admm import ADMMState
+        from pinns_tpu_torch.train.trainer import METRIC_KEYS
+
+        s = self.solver
+        metrics = self.metrics[:length].clone()
+        new_state = state._replace(
+            params=unravel(s.bufs.vec[X].clone()), colloc=s.colloc.clone(),
+            admm=None if state.admm is None else ADMMState(z=s.z.clone(), dual=s.dual.clone()),
+            epoch=state.epoch + length)
+        return new_state, {k: metrics[:, i] for i, k in enumerate(METRIC_KEYS)}
 
 
 def branches_taken(b: Buffers) -> List[str]:

@@ -205,6 +205,9 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
     else:
         raise ValueError(f"unknown phase {phase!r}")
     batched = phase == "adam" and batched_on_card(trainer)
+    # K10's chunk runner, member by member, as a solo run's L-BFGS chunks
+    # take it (so that a member equals its solo run bit for bit)
+    solo_chunks = phase == "lbfgs" and getattr(step, "graphed", None) is not None
 
     def run(stacked: TrainState, new_colloc: Optional[torch.Tensor] = None):
         n = len(stacked.key)
@@ -214,6 +217,11 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
                           device=stacked.colloc.device)
         members = [_own(m) for m in unstack_states(stacked, n)]
         for i in range(n):
+            if solo_chunks:
+                members[i], m = trainer._get_chunk("lbfgs")(
+                    members[i], chunk, None if new_colloc is None else new_colloc[:, i])
+                buf[:, i] = torch.stack([m[k] for k in METRIC_KEYS], dim=1)
+                continue
             for t in range(chunk):
                 members[i], _ = step(members[i], buf[t, i],
                                      None if new_colloc is None else new_colloc[t, i])

@@ -13,8 +13,10 @@ loss at the current batch and ADMM state, then the same resample -> z/dual
 tail. A chunk of epochs (:func:`make_chunked`, the port of JAX's, whose
 ``lax.scan`` makes the chunk one device call) keeps its per-step metrics in
 one device buffer, read back once per logged chunk: on the card the fused
-step's chunk is replayed from captured CUDA graphs (K9), every other step's
-is the per-epoch loop (:func:`run_chunk`). ``Trainer.train`` switches from
+step's chunk is replayed from captured CUDA graphs (K9), the L-BFGS outer
+epochs inside K10's chunk scope run on the device with K3's post-update mode
+as their tail (``ops.kernels.lbfgs.LBFGSChunk``), and every other step's
+chunk is the per-epoch loop (:func:`run_chunk`). ``Trainer.train`` switches from
 Adam to L-BFGS chunks at ``optimizer.switch_epoch`` under 'hybrid'.
 
 The loss goes through ``mlp_apply`` (data term) and ``mlp_taylor_2``
@@ -773,6 +775,14 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     autograd. The metrics rebuild the loss terms from the solver's own final
     value: one forward of the data term, ``res_term = f - data_weight *
     data_term``; ``lbfgs_iters`` is the solve's iteration count.
+
+    On the card, a configuration inside
+    ``ops.kernels.lbfgs.lbfgs_chunk_supported`` also carries
+    ``step.graphed``, K10's chunk runner (``LBFGSChunk``: the outer epochs
+    of a chunk on the device, K3's post-update mode as the tail), which
+    :func:`make_chunked` takes as it takes K3's. The runner is chosen by
+    that scope, never after a failure; ``step`` itself stays the per-outer-
+    epoch drive (the card's comparisons).
     """
     loss_fn = make_loss_fn(problem)
     dterm = make_data_term(problem)
@@ -822,6 +832,8 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
         return new_state, _write_metrics(metrics, out)
 
     step.solver = solver  # K10's DeviceLBFGS or AutogradLBFGS, or None: the host loop
+    if k3 and not k_lbfgs.lbfgs_chunk_supported(exp, problem.spec):
+        step.graphed = functools.partial(k_lbfgs.LBFGSChunk, problem)
     return step
 
 
@@ -853,9 +865,12 @@ def make_chunked(step, chunk: int):
     K9: its epochs replayed from captured CUDA graphs
     (``ops.kernels.fused_step.FusedChunk``, made once here and kept for
     every chunk of up to ``chunk`` epochs), bit for bit the per-epoch loop's
-    result. Every other step (the CPU's plain step, the generic step,
-    L-BFGS) runs the per-epoch loop, :func:`run_chunk`. ``new_colloc``
-    (length, N_f, 2) replaces the Philox draws."""
+    result. The L-BFGS step on the card inside K10's chunk scope carries
+    ``graphed`` too: its outer epochs run as ``ops.kernels.lbfgs.
+    LBFGSChunk``'s chunks. Every other step (the CPU's plain step, the
+    generic step, the other L-BFGS steps) runs the per-epoch loop,
+    :func:`run_chunk`. ``new_colloc`` (length, N_f, 2) replaces the Philox
+    draws."""
     graphed = getattr(step, "graphed", None)
     if graphed is not None:
         runner = graphed(max_len=chunk)

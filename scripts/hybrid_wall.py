@@ -1,15 +1,16 @@
 """The hybrid phase's L-BFGS outer epochs on the card, K10 beside the host
 loop: ``abgrall_admm`` trained for ``--adam`` Adam epochs (K3 in K9's
 graphs), then from that one state ``--outer`` L-BFGS outer epochs of at most
-``--max-iters`` iterations each, in turns: the trainer's step (K10,
-``ops.kernels.lbfgs.DeviceLBFGS``) and the host loop
-(``train.trainer.make_lbfgs_step(host_loop=True)``: ``opt.lbfgs`` over the
-kernels under autograd). The defaults are ``chip_smoke.py`` phase 14's
-schedule (the fixture's: 10,000 Adam epochs, 10 outer epochs of at most 300
-iterations).
+``--max-iters`` iterations each, in turns: the trainer's per-outer-epoch step
+(K10, ``ops.kernels.lbfgs.DeviceLBFGS``, the tail on K1 and K5: ``k10``), the
+host loop (``train.trainer.make_lbfgs_step(host_loop=True)``: ``opt.lbfgs``
+over the kernels under autograd: ``host``) and the trainer's chunks of outer
+epochs (``ops.kernels.lbfgs.LBFGSChunk``, K3's post-update mode as the tail:
+``runner``). The defaults are ``chip_smoke.py`` phase 14's schedule (the
+fixture's: 10,000 Adam epochs, 10 outer epochs of at most 300 iterations).
 
     python scripts/hybrid_wall.py [--adam 10000] [--outer 10] [--max-iters 300]
-        [--turns k10,host,k10,split] [--out FILE]
+        [--turns k10,host,k10,split,runner,runner_split] [--out FILE]
 
 Prints one JSON line a turn: the wall seconds of the outer epochs (host
 clock, ending in a synchronize), each outer epoch's iterations, the seconds
@@ -29,6 +30,12 @@ milliseconds an outer epoch (median and all), the outer epoch's own, and
 the iterations. Each piece's time is synchronized wall time: its host work
 and the device time of what it launched (K1 and K5 in ``_post_update`` and
 the rest), not separated, plus the cost of the synchronizes themselves.
+
+A ``runner_split`` turn runs the runner's chunks with each chunk and each
+solve's replays (``DeviceLBFGS.replay_until_done``) bracketed by
+synchronizes, and prints the milliseconds an outer epoch of the chunks,
+inside the solves and outside them (the post-update graph's replay, the
+chunk's ravel, loads, reset and hand-back).
 """
 
 from __future__ import annotations
@@ -132,6 +139,61 @@ class Pieces:
                     "all": [r[k] for r in self.rows]} for k in keys}
 
 
+def runner_turn(trainer, state, turn: str, card: str, args) -> dict:
+    """One turn on the trainer's chunks of outer epochs (LBFGSChunk); a
+    ``runner_split`` turn also sums the solves' synchronized wall time."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+
+    run = trainer._get_chunk("lbfgs")
+    if not isinstance(getattr(run, "runner", None), k_lbfgs.LBFGSChunk):
+        raise RuntimeError("abgrall_admm's L-BFGS phase is not on K10's chunk runner")
+    iters, solve_ms, chunk_ms = [], [0.0], [0.0]
+
+    def chunk(st, length, new_colloc=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = run(st, length, new_colloc)
+        torch.cuda.synchronize()
+        chunk_ms[0] += 1e3 * (time.perf_counter() - t0)
+        iters.append(m["lbfgs_iters"])
+        return st, m
+
+    trainer._chunks["lbfgs"] = chunk
+    replay = k_lbfgs.DeviceLBFGS.replay_until_done
+
+    def timed(solver, graph):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return replay(solver, graph)
+        finally:
+            torch.cuda.synchronize()
+            solve_ms[0] += 1e3 * (time.perf_counter() - t0)
+
+    if turn == "runner_split":
+        k_lbfgs.DeviceLBFGS.replay_until_done = timed
+    syncs = host_lbfgs.HOST_SYNCS
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, summary = trainer.train(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        k_lbfgs.DeviceLBFGS.replay_until_done = replay
+    iters = [int(v) for v in torch.cat(iters).tolist()] if iters else []
+    row = {"turn": turn, "card": card, "adam_epochs": args.adam, "outer": len(iters),
+           "max_iters": args.max_iters, "wall_s": wall, "lbfgs_iters": iters,
+           "s_per_iter": wall / max(1, sum(iters)), "host_syncs": host_lbfgs.HOST_SYNCS - syncs,
+           "rel_l2_u": summary["rel_l2_u"], "final_epoch": final.epoch}
+    if turn == "runner_split":
+        n = max(1, len(iters))
+        row["ms_per_outer_epoch"] = {"outer_epoch": chunk_ms[0] / n, "solve": solve_ms[0] / n,
+                                     "outside_solve": (chunk_ms[0] - solve_ms[0]) / n}
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--adam", type=int, default=10_000)
@@ -161,6 +223,10 @@ def main(argv=None) -> int:
     rows = []
     for turn in args.turns.split(","):
         trainer = Trainer(exp, device="cuda")
+        if turn in ("runner", "runner_split"):
+            rows.append(runner_turn(trainer, state, turn, card, args))
+            print(json.dumps(rows[-1]), flush=True)
+            continue
         on_k10 = turn in ("k10", "split")
         step = trainer._lbfgs_step if on_k10 else make_lbfgs_step(trainer.problem,
                                                                   host_loop=True)

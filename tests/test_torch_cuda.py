@@ -637,8 +637,11 @@ def test_mlp_backward_refuses_a_plan_that_does_not_fit(cuda_device, monkeypatch)
 
 def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
     """abgrall_admm through the switch on the card: Adam epochs on K3, then
-    L-BFGS outer epochs on K10 (K3's value-and-grad, no backward of K5 or
-    K2; the tail's K1 and the data term's K5 forward); nothing raises."""
+    L-BFGS outer epochs as K10's chunk runner (K3's value-and-grad, then
+    K3's post-update mode and the reset in place, one post-update an outer
+    epoch; no launch of K5, forward or backward, and no backward of K2);
+    K1 runs for the initial ADMM state and the final evaluation; nothing
+    raises."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
@@ -652,12 +655,14 @@ def test_hybrid_trainer_on_card(cuda_device):  # noqa: F811
     k3, k5, k2 = k_fused.GRAPH_EPOCHS, k_mlp.BACKWARD_LAUNCHES, k_taylor2.BACKWARD_LAUNCHES
     k3_calls, solves = k_fused.LAUNCHES, k_lbfgs.SOLVES
     k5_fwd, k1 = k_mlp.LAUNCHES, k_taylor2.LAUNCHES
+    chunk_epochs, posts = k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES
     state, summary = Trainer(exp, device="cuda").train()
     assert k_fused.GRAPH_EPOCHS == k3 + 20 and k_fused.LAUNCHES == k3_calls
     assert state.epoch == 22
     assert k_lbfgs.SOLVES == solves + 2
+    assert k_lbfgs.CHUNK_EPOCHS == chunk_epochs + 2 and k_fused.POST_UPDATE_LAUNCHES == posts + 2
     assert k_mlp.BACKWARD_LAUNCHES == k5 and k_taylor2.BACKWARD_LAUNCHES == k2
-    assert k_mlp.LAUNCHES > k5_fwd and k_taylor2.LAUNCHES > k1
+    assert k_mlp.LAUNCHES == k5_fwd and k_taylor2.LAUNCHES > k1
     assert np.isfinite(summary["rel_l2_u"])
 
 
@@ -1831,3 +1836,126 @@ def test_k10_cluster_layouts_on_card(cuda_device, resident):  # noqa: F811
 
     run, b = _k10_fixture_lockstep(cuda_device, 50, 30, direction)
     assert {"accept", "stored"} <= set(run["branches"]), run
+
+
+@pytest.mark.parametrize("count", [0, 50])
+def test_k10_reset_in_place_on_card(cuda_device, count):  # noqa: F811
+    """The reset kernel in place (no x0: the iterate vec[X] stays, the trial
+    point takes it) equals reset_reference from a copy of vec[X] bit for
+    bit on every buffer, the history left as it was."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    b = k_lbfgs.seeded_state(3_023, 50, count, 9, seed=count, device=cuda_device)
+    b.vec[k_lbfgs.GT].fill_(5.0)
+    twin = b.clone()
+    k_lbfgs.reset(b, None, max_iters=300, max_ls=50, ftol=1e-12, gtol=1e-7)
+    k_lbfgs.reset_reference(twin, twin.vec[k_lbfgs.X].clone(), 300, 50,
+                            k_lbfgs.solve_constants(ftol=1e-12, gtol=1e-7))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(b.tensors(), twin.tensors()))
+
+
+@pytest.mark.parametrize("kind,fixed", [("admm", False), ("admm", True), ("mean_sq", False)],
+                         ids=["drawn_admm", "fixed_admm", "drawn_mean_sq"])
+def test_post_update_mode_on_card(cuda_device, kind, fixed):  # noqa: F811
+    """K3's post-update mode at the fixture's state (8x20, N_f 1,000, N_u
+    100) against its plain version on the same card tensors: the batch
+    philox_uniform's bit for bit (or the fixed batch kept), z, dual and the
+    misfit within the fused step's tolerance (STEP_TOL of chip_smoke.py,
+    the dual's atol scaled by the terms its update cancels), the data term
+    within rtol 1e-5, the rest of the metrics row exact, one row written,
+    the cursor moved on; two calls bit-equal."""
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+    from pinns_tpu_torch.train.trainer import METRIC_KEYS
+
+    problem, params, colloc, admm, _ = _k10_fixture_state(cuda_device)
+    x0, _ = ravel_tree(params)
+    off = k_lbfgs.net_offset(params)
+    n_f = colloc.shape[0]
+    sched = torch.from_numpy(k_fused.chunk_schedule(0, 11, 2)).to(cuda_device)
+    table = k_fused.member_table([99], [10.0], n_f, cuda_device)
+
+    def run(fn):
+        b = {"colloc": colloc.clone(), "metrics": torch.zeros(2, 7, device=cuda_device),
+             "cursor": torch.ones(1, dtype=torch.int32, device=cuda_device),
+             "z": admm.z.clone() if kind == "admm" else None,
+             "dual": admm.dual.clone() if kind == "admm" else None}
+        fn(problem.spec, x0[off:], problem.x_data, problem.targets["u"].contiguous(),
+           b["colloc"], b["z"], b["dual"], b["metrics"], b["cursor"], sched, table,
+           torch.full((1,), 0.25, device=cuda_device),
+           torch.full((1,), 40, dtype=torch.int32, device=cuda_device), kind=kind, lam1=1.0,
+           lam2=0.0, fixed=fixed)
+        torch.cuda.synchronize()
+        return b
+
+    got, again, plain = (run(k_fused.fused_post_update), run(k_fused.fused_post_update),
+                         run(k_fused.post_update_reference))
+    want_batch = colloc if fixed else philox_uniform(99, 13, n_f, problem.spec.lb,
+                                                     problem.spec.ub, torch.float32, cuda_device)
+    assert torch.equal(got["colloc"], want_batch) and torch.equal(plain["colloc"], want_batch)
+    assert all(v is None or torch.equal(v, again[k]) for k, v in got.items())
+    g, p = got["metrics"][1].tolist(), plain["metrics"][1].tolist()
+    m, w = dict(zip(METRIC_KEYS, g)), dict(zip(METRIC_KEYS, p))
+    if kind == "admm":
+        zmax = float(plain["z"].abs().max())
+        np.testing.assert_allclose(got["z"].cpu().numpy(), plain["z"].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5 * zmax)
+        np.testing.assert_allclose(got["dual"].cpu().numpy(), plain["dual"].cpu().numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-5 * (float(admm.dual.abs().max()) + 10.0 * zmax))
+        np.testing.assert_allclose(m["admm_misfit"], w["admm_misfit"], rtol=1e-4,
+                                   atol=1e-6 * zmax)
+    else:
+        assert m["admm_misfit"] == 0.0
+    np.testing.assert_allclose(m["data_term"], w["data_term"], rtol=1e-5)
+    assert (m["loss"], m["lbfgs_iters"], m["lambda1"], m["lambda2"]) == (0.25, 40.0, 1.0, 0.0)
+    assert m["res_term"] == float(np.float32(0.25) - np.float32(m["data_term"]))
+    assert float(got["metrics"][0].abs().max()) == 0.0 and int(got["cursor"][0]) == 2
+
+
+@pytest.mark.parametrize("fed", [False, True], ids=["drawn", "fed"])
+def test_lbfgs_chunk_equals_one_epoch_chunks_on_card(cuda_device, fed):  # noqa: F811
+    """K10's runner at the fixture's state (abgrall_admm 8x20, at most 20
+    iterations an outer epoch): a chunk of 3 outer epochs equals 3 chunks
+    of one bit for bit (x, batch, z, dual, every metrics row); every solve
+    and post-update replayed, one device read a solve replay, no K1 or K5
+    launch."""
+    import dataclasses
+
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+    from pinns_tpu_torch.train import trainer as tr
+
+    problem, params, colloc, admm, _ = _k10_fixture_state(cuda_device)
+    problem = dataclasses.replace(problem, exp=override(problem.exp, {
+        "optimizer.lbfgs.max_iters": 20}))
+    runner = k_lbfgs.LBFGSChunk(problem, max_len=3)
+    state = tr.TrainState(params=params, opt_state=None, admm=admm, colloc=colloc, key=1234,
+                          epoch=5, rho=None)
+    feed = torch.from_numpy(np.stack([numpy_points(colloc.shape[0], seed=s) for s in range(3)])
+                            ).to(cuda_device) if fed else None
+    before = (k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES, k_lbfgs.GRAPH_REPLAYS,
+              host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES, k_mlp.LAUNCHES)
+    got, gm = runner.run(state, 3, feed)
+    one, rows = state, []
+    for i in range(3):
+        one, m = runner.run(one, 1, None if feed is None else feed[i:i + 1])
+        rows.append(m)
+    torch.cuda.synchronize()
+    after = (k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES, k_lbfgs.GRAPH_REPLAYS,
+             host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES, k_mlp.LAUNCHES)
+    d = [a - b for a, b in zip(after, before)]
+    assert d[0] == d[1] == 6 and d[2] == d[3] > 0 and d[4] == d[5] == 0, d
+    assert torch.equal(ravel_tree(got.params)[0], ravel_tree(one.params)[0])
+    assert torch.equal(got.colloc, one.colloc) and torch.equal(got.admm.z, one.admm.z)
+    assert torch.equal(got.admm.dual, one.admm.dual)
+    assert all(torch.equal(gm[k], torch.cat([m[k] for m in rows])) for k in gm)
+    assert not fed or torch.equal(got.colloc, feed[-1])
+    assert got.epoch == one.epoch == 8 and all(0 < v <= 20 for v in gm["lbfgs_iters"].tolist())
