@@ -312,6 +312,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             and on the per-outer-epoch step, and each one's wall time outside
             the solve (the solves bracketed by synchronizes); the post-update
             mode's device time beside its plain version and its bound
+  41 generic-chunk  K11, the generic step's Philox draw, bit-equal to
+            philox_uniform at n_f 1,000 and 1,048,576, epochs 0, 1 and
+            2^32 + 5, from the schedule row at a device cursor, timed beside
+            it; K9 for the generic step (ops/kernels/generic_chunk.py: one
+            captured epoch replayed L times) against the per-epoch loop by
+            torch.equal on params, mu, nu, colloc, z, dual and every metrics
+            row for every generic family in scope (euler_admm,
+            euler_admm_tuned, twosin_weak, euler_weak_fast, euler_inverse,
+            burgers_forward, hwan_admm, burgers_inverse) at L = 1, 2, 7 and
+            2 x 50 = 1 x 100, drawn and fed; then 1,000-epoch graphed chunks
+            against the per-epoch loop in alternating turns for euler_admm,
+            twosin_weak, euler_weak_fast, euler_inverse and burgers_forward:
+            ms an epoch, device time, idle share, launches, step calls and
+            graph replays an epoch. Phases 15, 22, 26 and 29 train every
+            Adam epoch inside its replays (GRAPH_EPOCHS) and draw with K11
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -364,7 +379,7 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
 F64_FACTOR = 4.0
 REPS = 20
 KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1", "weakform",
-           "ensemble", "lbfgs")
+           "ensemble", "lbfgs", "sampling")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -1037,6 +1052,7 @@ class PlainCalls:
         from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
         from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2
         from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+        from pinns_tpu_torch.ops.kernels import sampling as k_sampling
         from pinns_tpu_torch.ops.kernels import weakform as k_weakform
         from pinns_tpu_torch.train import trainer
 
@@ -1059,6 +1075,7 @@ class PlainCalls:
             ("reset_reference", (k_lbfgs,)),
             ("control_reference", (k_lbfgs,)),
             ("direction_reference", (k_lbfgs,)),
+            ("philox_draw_reference", (k_sampling, trainer)),
             # the host loop, K10's algorithm as the CPU runs it
             ("lbfgs_minimize", (trainer,)),
         ) for m in mods]
@@ -1086,10 +1103,15 @@ def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
     from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
+    from pinns_tpu_torch.ops.kernels import generic_chunk as k_generic
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.ops.kernels import sampling as k_sampling
     from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
-    return {"taylor2": taylor2.LAUNCHES, "taylor2_members": taylor2.MEMBER_LAUNCHES,
+    return {"taylor2": taylor2.LAUNCHES, "philox_draw": k_sampling.LAUNCHES,
+            "generic_chunk_replays": k_generic.GRAPH_REPLAYS,
+            "generic_chunk_epochs": k_generic.GRAPH_EPOCHS,
+            "generic_chunk_captures": k_generic.CAPTURES, "taylor2_members": taylor2.MEMBER_LAUNCHES,
             "member_stats": k_ensemble.LAUNCHES, "fused_step": fused_step.LAUNCHES,
             "fused_step_ensemble": fused_step.ENSEMBLE_LAUNCHES,
             "fused_chunk_replays": fused_step.GRAPH_REPLAYS,
@@ -1116,9 +1138,13 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     from pinns_tpu_torch.ops.kernels import ensemble as k_ensemble
     from pinns_tpu_torch.ops.kernels import fused_step, mlp_forward, taylor1, taylor2, weakform
+    from pinns_tpu_torch.ops.kernels import generic_chunk as k_generic
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.ops.kernels import sampling as k_sampling
     from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
+    k_sampling.LAUNCHES = 0
+    k_generic.GRAPH_REPLAYS = k_generic.GRAPH_EPOCHS = k_generic.CAPTURES = 0
     taylor2.LAUNCHES = taylor2.BACKWARD_LAUNCHES = taylor2.MEMBER_LAUNCHES = 0
     k_ensemble.LAUNCHES = 0
     taylor2.MIXED_LAUNCHES = taylor2.MIXED_BACKWARD_LAUNCHES = 0
@@ -1481,7 +1507,8 @@ def phase_burgers_forward(card: str) -> dict:
         check(launches["fused_step"] == launches["fused_chunk_epochs"] == 0,
               "K3 launched outside its scope")
         check(launches["mlp_backward"] >= sched["adam"]
-              and launches["taylor2_backward"] >= sched["adam"], f"launches {launches}")
+              and launches["taylor2_backward"] >= sched["adam"]
+              and launches["generic_chunk_epochs"] == sched["adam"], f"launches {launches}")
         check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float))
               and math.isfinite(summary["rel_l2_u"]), "non-finite metrics")
         check([r["phase"] for r in logs][-1] == "lbfgs" and logs[-1]["lbfgs_iters"] > 0,
@@ -2263,9 +2290,14 @@ def reduced_euler(preset: str, epochs: int, seed: int):
             logs = [json.loads(line) for line in f if "summary" not in line]
     check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
     # an epoch: one loss forward and backward of K7a and K5, one K7a forward
-    # at the new points; the evaluation one more K7a forward
-    want = {"taylor1": 2 * epochs + 1, "taylor1_backward": epochs, "mlp_forward": epochs,
-            "mlp_backward": epochs, "fused_step": 0, "taylor2": 0, "taylor2_backward": 0}
+    # at the new points, one K11 draw (the initial batch is drawn before the
+    # counts are reset); the evaluation one more K7a forward.
+    # Every epoch runs in a replay of K9's generic graph, which counts the
+    # captured epoch's launches; each capture's warm-up epoch runs them too
+    n = epochs + launches["generic_chunk_captures"]
+    want = {"taylor1": 2 * n + 1, "taylor1_backward": n, "mlp_forward": n,
+            "mlp_backward": n, "philox_draw": n, "generic_chunk_epochs": epochs,
+            "fused_step": 0, "taylor2": 0, "taylor2_backward": 0}
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     check(all(math.isfinite(v) for r in logs for v in r.values() if isinstance(v, float))
           and all(math.isfinite(summary[f"rel_l2_{f}"]) for f in EULER_FIELDS),
@@ -2716,18 +2748,22 @@ def reduced_weak(preset: str, epochs: int, seed: int, out_dir: str = None):
             logs = [json.loads(line) for line in f if "summary" not in line]
     check(plain.calls == 0, f"{plain.calls} calls of plain versions on the path")
     euler = exp.pde.kind == "euler"
-    k7a = epochs * (1 + int(bool(exp.loss.strong_equations)))
+    # every epoch in a replay of K9's generic graph; each capture's warm-up
+    # epoch runs the kernels too
+    n = epochs + launches["generic_chunk_captures"]
+    k7a = n * (1 + int(bool(exp.loss.strong_equations)))
     # an epoch: K7b's three calls, K7a forward and backward at the edge
     # points (and at the centres, mixed), K5 forward and backward on the
     # data term; the evaluation one K7a (Euler) or K1 (Burgers) forward over
     # the grid
     # the edge points' K7a on its narrow design at twosin_weak's 8x20, on
     # the wide one at the Euler trunk
-    want = {"weakform_edge_points": epochs, "weakform_flux": epochs,
-            "weakform_flux_backward": epochs, "taylor1": k7a + int(euler),
+    want = {"weakform_edge_points": n, "weakform_flux": n,
+            "weakform_flux_backward": n, "taylor1": k7a + int(euler),
             "taylor1_backward": k7a, "taylor1_narrow": 0 if euler else k7a,
-            "taylor1_narrow_backward": 0 if euler else k7a, "mlp_forward": epochs,
-            "mlp_backward": epochs, "taylor2": int(not euler), "taylor2_backward": 0,
+            "taylor1_narrow_backward": 0 if euler else k7a, "mlp_forward": n,
+            "mlp_backward": n, "taylor2": int(not euler), "taylor2_backward": 0,
+            "philox_draw": n, "generic_chunk_epochs": epochs,
             "fused_step": 0, "fused_chunk_epochs": 0}
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     fields = EULER_FIELDS if euler else ("u",)
@@ -3474,34 +3510,29 @@ K9_PRIOR_US = {
 }
 
 
-def chunk_tensors(state, metrics) -> dict:
-    """A chunk's result by name: the state's tensors (the nets flat) and its
-    metrics rows (length, [E,] 7)."""
-    from pinns_tpu_torch.ops.kernels.fused_step import flat_net
-    from pinns_tpu_torch.train.trainer import METRIC_KEYS
-
-    opt, net = state.opt_state, state.params["net"]
-    n = sum(layer["W"].shape[-2] * layer["W"].shape[-1] + layer["b"].shape[-1] for layer in net)
-    out = {"params": flat_net(net, n), "mu": flat_net(opt.mu["net"], n),
-           "nu": flat_net(opt.nu["net"], n), "colloc": state.colloc,
-           "metrics": torch.stack([metrics[k] for k in METRIC_KEYS], -1)}
-    if state.admm is not None:
-        out.update(z=state.admm.z, dual=state.admm.dual)
-    return out
-
-
 def hold_chunk(name: str, got, want) -> float:
     """A graphed chunk's (state, metrics) against the per-epoch loop's:
-    torch.equal on every tensor and every metrics row, the epoch and Adam's
-    count equal; returns max|got - want| over them (0.0)."""
-    check(got[0].epoch == want[0].epoch and got[0].opt_state.count == want[0].opt_state.count,
+    torch.equal on every tensor (the params and Adam trees, z, dual, the
+    batch; a stacked state's with its member axis) and every metrics row, the
+    epoch and Adam's count equal; returns the largest |got - want| (0.0)."""
+    from pinns_tpu_torch.opt.adam import tree_leaves
+    from pinns_tpu_torch.train.trainer import METRIC_KEYS
+
+    (sa, ma), (sb, mb) = got, want
+    check(sa.epoch == sb.epoch and sa.opt_state.count == sb.opt_state.count,
           f"{name}: epoch or count differs")
-    a, b = chunk_tensors(*got), chunk_tensors(*want)
-    check(a.keys() == b.keys(), f"{name}: outputs {sorted(a)} vs {sorted(b)}")
-    for k in a:
-        check(a[k].shape == b[k].shape and torch.equal(a[k], b[k]),
-              f"{name}: {k} differs from the per-epoch loop")
-    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    def leaves(s, m):
+        admm = [] if s.admm is None else [s.admm.z, s.admm.dual]
+        return tree_leaves([s.params, s.opt_state.mu, s.opt_state.nu, admm, s.colloc]) + [
+            torch.stack([m[k] for k in METRIC_KEYS], -1)]
+
+    a, b = leaves(sa, ma), leaves(sb, mb)
+    check(len(a) == len(b), f"{name}: {len(a)} outputs vs {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(x.shape == y.shape and torch.equal(x, y),
+              f"{name}: output {i} differs from the per-epoch loop")
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
 
 
 def phase_k9(card: str) -> dict:
@@ -4259,6 +4290,19 @@ def k10_bounds(n: int, count: int, n_f: int, n_u: int) -> dict:
                                      f32 * ((2 * count + 2) * n + count + 3 * n)),
             "lbfgs_reset": bound([(0.0, PEAK_FP32)], f32 * 4 * n),
             "fused_value_and_grad": narrow_grad_bound(NARROW, n_f, n_u)}
+
+
+def outer_epoch_bound(n: int, iters: int, history: int, n_f: int, n_u: int, post) -> tuple:
+    """An L-BFGS outer epoch's least time on K10's runner: each of its
+    ``iters`` iterations' value-and-grad, control and direction bounds (the
+    direction's at the pairs held then, up to ``history``), plus the
+    post-update's ``post`` (bound_ms, bound_by)."""
+    total = post[0]
+    for k in range(iters):
+        b = k10_bounds(n, min(k, history), n_f, n_u)
+        total += sum(b[name][0] for name in ("fused_value_and_grad", "lbfgs_control",
+                                              "lbfgs_direction"))
+    return total, "operations"
 
 
 def k10_layout_checks(n: int, m: int) -> dict:
@@ -5071,6 +5115,7 @@ def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
     from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.opt.adam import tree_leaves
     from pinns_tpu_torch.train import trainer as tr
 
     problem, params, colloc, admm, _, fx = replay_state()
@@ -5222,6 +5267,12 @@ def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
             else 1.0 - prof["device_us"] / (1e3 * wall_ms),
             "lbfgs_iters": iters[name]}
     times["runner"]["capture_s"] = trunner.capture_seconds + trunner.solver.capture_seconds
+    n_all = sum(t.numel() for t in tree_leaves(st9.params))
+    pbound = post_update_bound(spec.layers, n_f, n_u)
+    outer = [outer_epoch_bound(n_all, k, tproblem.exp.optimizer.lbfgs.history, n_f, n_u,
+                               pbound)[0] for k in iters["runner"]]
+    times["runner"]["bound_ms_per_outer_epoch"] = statistics.mean(outer)
+    times["runner"]["bound_by"] = "operations"
 
     # -- (e) the post-update mode's device time: a graph of K10_REPS calls,
     # each after the cursor's reset, less a graph of the resets alone
@@ -5230,7 +5281,6 @@ def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
         k_fused._post_update_call, kb, launch_only=True))) - graph_ms(
         lambda: kb["cursor"].zero_())
     plain_ms = event_ms(lambda: (pb["cursor"].zero_(), post(k_fused.post_update_reference, pb)))
-    pbound = post_update_bound(spec.layers, n_f, n_u)
     emit(card, phase="lbfgs-chunk", state=f"abgrall_admm_steps.npz step {REPLAY_STEP}",
          post_update=post_rows, chunks=bits, chunk_max_iters=CHUNK_MAX_ITERS, jax=jax_row,
          times=times, schedule={"outer": HYBRID_OUTER, "max_iters": max_iters,
@@ -5242,6 +5292,235 @@ def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
                "the post-update mode, events for its plain version")
     return {"kernel": (kernel_ms, plain_ms), "bound": pbound, "times": times,
             "max_abs_err": post_rows["z"]["max_abs_err"]}
+
+
+# -- 41: K9 for the generic step and K11, the Philox draw ---------------------------
+
+GENERIC_FAMILIES = ("euler_admm", "euler_admm_tuned", "twosin_weak", "euler_weak_fast",
+                    "euler_inverse", "burgers_forward", "hwan_admm", "burgers_inverse")
+GENERIC_TIMED = ("euler_admm", "twosin_weak", "euler_weak_fast", "euler_inverse",
+                 "burgers_forward")
+GENERIC_LENGTHS = (1, 2, 7)
+GENERIC_SPLIT = 50  # 2 x 50 against 1 x 100 and the per-epoch loop's 100
+GENERIC_FED = 7  # epochs of the fed chunks
+GENERIC_CHUNK = 1_000  # the timed graphed chunk
+GENERIC_LOOP = 200  # the timed per-epoch loop (its ms an epoch do not depend on the length)
+GENERIC_TURNS = 3  # alternating turns a side
+GENERIC_PROFILED = (100, 20)  # epochs under the profiler: graphed, per-epoch
+GENERIC_MEMBERS = ("twosin_weak", 3, 20)  # an ensemble on the member loop: E, epochs
+K11_NS = (1_000, 1_048_576)  # the presets' batches; burgers_scale's
+K11_EPOCHS = (0, 1, 2**32 + 5)
+
+
+def k11_bound(n: int):
+    """K11 writes 8 n bytes and reads one schedule row and the cursor; its
+    floating point is 3 operations a coordinate (Philox's integer rounds are
+    not in the card's table of peak rates)."""
+    return bound([(6.0 * n, PEAK_FP32)], 8 * n + 72 + 8)
+
+
+def generic_epoch_bound(trainer):
+    """The least time of a generic Adam epoch: the sum of its net kernels'
+    bounds (the loss forward and backward at the residual points, the
+    tail's forward at the new points for ADMM, the data term's K5 forward
+    and backward); K7b, K11 and the elementwise ops left out (bytes, small)."""
+    exp, spec = trainer.exp, trainer.problem.spec
+    n_f, n_u = exp.sampling.n_f, int(trainer.problem.x_data.shape[0])
+    if exp.sampling.strategy != "resample_uniform":
+        n_f = int(trainer.init_state().colloc.shape[0])
+    layers = spec.widths
+    parts = [mlp_bound(layers, n_u), mlp_bound(layers, n_u, backward=True)]
+    if trainer.problem.flux:
+        edge = 4 * exp.loss.flux_quad * n_f  # the cells' edge points
+        parts += [taylor1_bound(layers, edge), taylor1_backward_bound(layers, edge)]
+        if exp.loss.strong_equations:
+            parts += [taylor1_bound(layers, n_f), taylor1_backward_bound(layers, n_f)]
+    elif exp.pde.kind == "euler":
+        parts += [taylor1_bound(layers, n_f), taylor1_backward_bound(layers, n_f)]
+    else:
+        parts += [taylor2_bound(layers, n_f), taylor2_backward_bound(layers, n_f)]
+    if exp.loss.residual_kind == "admm":
+        parts.append(taylor1_bound(layers, n_f) if exp.pde.kind == "euler"
+                     else taylor2_bound(layers, n_f))
+    return sum(p[0] for p in parts), "operations"
+
+
+def phase_generic_chunk(card: str) -> dict:
+    """41: K11 against philox_uniform bit for bit (n 1,000 and 1,048,576,
+    epochs 0, 1, 2^32 + 5, from the schedule row at the device cursor); the
+    multi-tensor Adam with its rate and bias corrections as device tensors
+    beside host scalars on the card (reported); for each generic family in
+    scope, the graphed chunk (K9 for the generic step) against the per-epoch
+    loop by torch.equal on params, mu, nu, colloc, z, dual and every metrics
+    row at L = 1, 2, 7 and 2 x 50 = 1 x 100 (= the loop's 100), drawn, and
+    at L 7 fed; then, for the timed presets, 1,000-epoch graphed chunks
+    against the per-epoch loop in alternating turns: ms an epoch (host
+    clock), device time, idle share and launches an epoch (the profiler),
+    step calls and graph replays an epoch."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import generic_chunk as k_generic
+    from pinns_tpu_torch.ops.kernels import sampling as k_sampling
+    from pinns_tpu_torch.opt.adam import AdamState, adam_update, bias_corrections
+    from pinns_tpu_torch.train import schedule
+    from pinns_tpu_torch.train import trainer as tr
+
+    # K11: bit for bit, and its times beside the plain draw at the same shapes
+    lb, ub = (-1.0, 0.0), (1.0, float(np.float32(0.37)))
+    cursor = torch.ones(1, dtype=torch.int64, device="cuda")
+    k11 = {}
+    for n in K11_NS:
+        for epoch in K11_EPOCHS:
+            rows = np.concatenate([schedule.schedule_rows(1234, 0, e, 1, 1e-3,
+                                                          lambda e: (lb, ub))
+                                   for e in (7, epoch - 1)])
+            sched = torch.from_numpy(rows).cuda()
+            got = k_sampling.philox_draw(sched, cursor, n)
+            want = philox_uniform(1234, epoch, n, lb, ub, torch.float32, "cuda")
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K11 differs from philox_uniform at n {n}, "
+                  f"epoch {epoch}")
+        ms = graph_ms(lambda: k_sampling.philox_draw(sched, cursor, n))
+        plain = event_ms(lambda: philox_uniform(1234, 5, n, lb, ub, torch.float32, "cuda"))
+        k11[n] = (ms, plain, k11_bound(n))
+        emit(card, phase="times", what="k11", n=n, kernel_ms=ms, plain_ms=plain,
+             clock="cuda_events (kernel: a captured graph of launches)", bound_ms=k11_bound(n)[0],
+             bound_by=k11_bound(n)[1], plain="philox_uniform (torch int64 ops)")
+    # Adam's divisions by device tensors against host scalars, on the card
+    gen = torch.Generator().manual_seed(41)
+    leaves = [torch.randn(s, generator=gen).cuda() for s in ((200, 200), (1, 200), (200, 3))]
+    mu = [torch.randn(t.shape, generator=gen).cuda() * 1e-3 for t in leaves]
+    nu = [torch.rand(t.shape, generator=gen).cuda() * 1e-6 for t in leaves]
+    opt = AdamState(count=1234, mu=mu, nu=nu)
+    bc = bias_corrections(1234)
+    host = adam_update(leaves, opt, 1e-3)[0]
+    dev = adam_update(leaves, opt, torch.tensor(1e-3, device="cuda"),
+                      bias=tuple(torch.tensor(v, device="cuda") for v in bc))[0]
+    adam_diff = max(float((a - b).abs().max()) for a, b in zip(host, dev))
+    adam_same = all(torch.equal(a, b) for a, b in zip(host, dev))
+
+    errs, cases = [], {}
+
+    def held(name, got, want):
+        errs.append(hold_chunk(name, got, want))
+        cases[name] = True
+
+    reset_counts()
+    for preset in GENERIC_FAMILIES:
+        trainer = tr.Trainer(get_preset(preset), device="cuda")
+        check(not k_generic.generic_chunk_supported(trainer.exp, trainer.problem.spec),
+              f"{preset} outside the generic chunk's scope")
+        run = trainer._get_chunk("adam")
+        check(isinstance(getattr(run, "runner", None), k_generic.GenericChunk),
+              f"{preset}: the chunk is not graphed")
+        step, state = trainer._adam_step, trainer.init_state()
+        for length in GENERIC_LENGTHS:
+            held(f"{preset}-L{length}", run(state, length), tr.run_chunk(step, state, length))
+        half = run(state, GENERIC_SPLIT)
+        rest = run(half[0], GENERIC_SPLIT)
+        whole = run(state, 2 * GENERIC_SPLIT)
+        two = (rest[0], {k: torch.cat([half[1][k], rest[1][k]]) for k in rest[1]})
+        held(f"{preset}-2x{GENERIC_SPLIT}-vs-1x{2 * GENERIC_SPLIT}", two, whole)
+        held(f"{preset}-L{2 * GENERIC_SPLIT}-vs-loop", whole,
+             tr.run_chunk(step, state, 2 * GENERIC_SPLIT))
+        n = int(state.colloc.shape[0])
+        feed = points(GENERIC_FED * n, seed=41, device="cuda").view(GENERIC_FED, n, 2)
+        held(f"{preset}-fed-L{GENERIC_FED}", run(state, GENERIC_FED, feed),
+             tr.run_chunk(step, state, GENERIC_FED, feed))
+    # the ensemble's member loop: each member through the solo runner, equal
+    # to its solo chunk and to the per-epoch loop
+    from pinns_tpu_torch.parallel import ensemble as ens
+
+    preset, n_members, epochs = GENERIC_MEMBERS
+    trainer = tr.Trainer(get_preset(preset), device="cuda")
+    seeds = [1234 + i for i in range(n_members)]
+    stacked = ens.init_ensemble_states(trainer, seeds)
+    got_stack, got_m = ens.make_ensemble_chunk(trainer, epochs)(stacked)
+    for i, (member, solo) in enumerate(zip(ens.unstack_states(got_stack, n_members),
+                                           (trainer.init_state(seed=s) for s in seeds))):
+        want = trainer._get_chunk("adam")(solo, epochs)
+        loop = tr.run_chunk(trainer._adam_step, solo, epochs)
+        mine = (member, {k: v[:, i] for k, v in got_m.items()})
+        held(f"{preset}-member{i}-vs-solo-chunk", mine, want)
+        held(f"{preset}-member{i}-vs-loop", mine, loop)
+    counts = kernel_counts()
+    emit(card, phase="generic-chunk", criterion="torch.equal of every output and metrics row "
+         "vs the per-epoch loop", cases=cases, max_abs_err=max(errs),
+         k11_criterion="torch.equal vs philox_uniform", k11_ns=list(K11_NS),
+         k11_epochs=list(K11_EPOCHS), adam_device_scalars_equal_host=adam_same,
+         adam_device_scalars_max_diff=adam_diff, replays=counts["generic_chunk_replays"],
+         replayed_epochs=counts["generic_chunk_epochs"],
+         captures=counts["generic_chunk_captures"])
+
+    times = {}
+    for preset in GENERIC_TIMED:
+        trainer = tr.Trainer(override(get_preset(preset), {"train.chunk": GENERIC_CHUNK}),
+                             device="cuda")
+        run, state = trainer._get_chunk("adam"), trainer.init_state()
+        runner = run.runner
+        step = trainer._adam_step
+        calls = {"step": 0, "epoch": 0}
+
+        def counted_step(*a, **k):
+            calls["step"] += 1
+            return step(*a, **k)
+
+        epoch_fn = runner.epoch
+
+        def counted_epoch(*a, **k):
+            calls["epoch"] += 1
+            return epoch_fn(*a, **k)
+
+        runner.epoch = counted_epoch
+        sides = {"graphed": (GENERIC_CHUNK, lambda: run(state, GENERIC_CHUNK)),
+                 "per_epoch": (GENERIC_LOOP,
+                               lambda: tr.run_chunk(counted_step, state, GENERIC_LOOP))}
+        for _, fn in sides.values():  # captures and warms up
+            fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        calls.update(step=0, epoch=0)
+        wall = {k: [] for k in sides}
+        for turn in range(GENERIC_TURNS):
+            order = list(sides.items())
+            for side, (length, fn) in (order if turn % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall[side].append(1e3 * (time.perf_counter() - t0) / length)
+        counts = kernel_counts()
+        check(counts["generic_chunk_epochs"] == GENERIC_TURNS * GENERIC_CHUNK
+              and calls["epoch"] == 0 and calls["step"] == GENERIC_TURNS * GENERIC_LOOP,
+              f"{preset}: replayed epochs {counts['generic_chunk_epochs']}, epoch calls "
+              f"{calls['epoch']}, step calls {calls['step']}")
+        ms = {k: statistics.median(v) for k, v in wall.items()}
+        prof = {"graphed": device_profile(lambda: run(state, GENERIC_PROFILED[0])),
+                "per_epoch": device_profile(
+                    lambda: tr.run_chunk(step, state, GENERIC_PROFILED[1]))}
+        dev, launches, idle = {}, {}, {}
+        for side, epochs in zip(("graphed", "per_epoch"), GENERIC_PROFILED):
+            us = prof[side]["device_us"]
+            dev[side] = None if us is None else us / epochs / 1e3
+            launches[side] = None if us is None else prof[side]["kernels"] / epochs
+            idle[side] = None if us is None else max(0.0, 1.0 - dev[side] / ms[side])
+        k11_us = sum(v["us"] for k, v in prof["graphed"]["by_name"].items()
+                     if "k11::" in k) / GENERIC_PROFILED[0]
+        b = generic_epoch_bound(trainer)
+        emit(card, phase="times", what="generic_chunk", preset=preset,
+             epochs=GENERIC_CHUNK, loop_epochs=GENERIC_LOOP, turns=GENERIC_TURNS, clock="host",
+             graphed_ms_per_epoch=ms["graphed"], per_epoch_ms_per_epoch=ms["per_epoch"],
+             graphed_turns=wall["graphed"], per_epoch_turns=wall["per_epoch"],
+             speedup=ms["per_epoch"] / ms["graphed"], device_ms_per_epoch=dev,
+             idle_share=idle, launches_per_epoch=launches, k11_device_us_per_epoch=k11_us,
+             step_calls_per_epoch={"graphed": 0.0, "per_epoch": calls["step"] / (
+                 GENERIC_TURNS * GENERIC_LOOP)},
+             graph_replays_per_epoch={"graphed": counts["generic_chunk_replays"] / (
+                 GENERIC_TURNS * GENERIC_CHUNK), "per_epoch": 0.0},
+             capture_s=runner.capture_seconds[0], epoch_bound_ms=b[0], bound_by=b[1],
+             profiled_epochs=list(GENERIC_PROFILED))
+        times[preset] = (ms["graphed"], ms["per_epoch"], b, dev, idle, launches)
+    return {"max_abs_err": max(errs), "k11": k11, "times": times}
 
 
 def main() -> int:
@@ -5468,6 +5747,9 @@ def main() -> int:
 
     # -- 40: K10's outer epochs as chunks (phase 14 ran them in training)
     chunk = timed(card, "lbfgs-chunk", phase_lbfgs_chunk, card, train)
+
+    # -- 41: K9 for the generic step and K11 (phases 15, 22, 26, 29 trained on them)
+    generic = timed(card, "generic-chunk", phase_generic_chunk, card)
 
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
@@ -5766,6 +6048,42 @@ def main() -> int:
         "plain_ms": chunk["kernel"][1],
         **bound_fields(chunk["bound"]),
         "outer_epoch": chunk["times"],
+    }, {
+        # K11, the generic step's Philox draw: launches = phase 22's first
+        # euler_admm run (its epochs' draws inside K9's generic replays, the
+        # initial batch); times at the presets' 1,000 points, and at
+        # burgers_scale's 1,048,576 (its per-epoch loop draws with K11 too)
+        "name": "philox_draw",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/sampling.cu",
+        "replaces": "pinns_tpu/train/trainer.py:360",
+        "launches": euler["launches"]["philox_draw"],
+        "max_abs_err": 0.0,
+        "ms": generic["k11"][K11_NS[0]][0],
+        "plain_ms": generic["k11"][K11_NS[0]][1],
+        **bound_fields(generic["k11"][K11_NS[0]][2]),
+        f"n{K11_NS[1]}": {"ms": generic["k11"][K11_NS[1]][0],
+                          "plain_ms": generic["k11"][K11_NS[1]][1],
+                          **bound_fields(generic["k11"][K11_NS[1]][2])},
+    }, {
+        # K9 for the generic step: launches = phase 22's first run's graph
+        # replays; max_abs_err over phase 41's chunks against the per-epoch
+        # loop (bit for bit); ms an epoch in a 1,000-epoch euler_admm chunk,
+        # its plain version the per-epoch loop, the bound the sum of the
+        # epoch's kernel bounds; the other presets beside it
+        "name": "generic_chunk",
+        "route": "cuda",
+        "source": "pinns_tpu_torch/ops/kernels/generic_chunk.py",
+        "replaces": "pinns_tpu/train/trainer.py:835",
+        "launches": euler["launches"]["generic_chunk_replays"],
+        "max_abs_err": generic["max_abs_err"],
+        "ms": generic["times"]["euler_admm"][0],
+        "plain_ms": generic["times"]["euler_admm"][1],
+        **bound_fields(generic["times"]["euler_admm"][2]),
+        "unit": "ms an epoch",
+        **{preset: {"ms": t[0], "plain_ms": t[1], **bound_fields(t[2]), "device_ms": t[3],
+                    "idle_share": t[4], "launches_per_epoch": t[5]}
+           for preset, t in generic["times"].items() if preset != "euler_admm"},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -185,6 +185,7 @@
 #include <stdint.h>
 
 #include "layer_gemm.cuh"
+#include "philox.cuh"
 
 namespace {
 namespace k3 {
@@ -249,22 +250,6 @@ struct Step {
 };
 
 // -- the narrow design --------------------------------------------------------
-
-// Philox-4x32-10 (Salmon et al., SC'11); data/sampling.py::philox4x32_10
-// computes the same words.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
 
 // A narrow block's shared memory, in floats, each part on 16 bytes
 // (ops/kernels/fused_step.py::narrow_smem): the params; `planes` planes of

@@ -19,6 +19,8 @@ from typing import Sequence
 
 import torch
 
+from pinns_tpu_torch.device import constant
+
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox-4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
@@ -26,8 +28,8 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
 
 def scale_to_bounds(unit: torch.Tensor, lb, ub) -> torch.Tensor:
     """Map unit-cube samples to the box [lb, ub]."""
-    lb = torch.as_tensor(lb, dtype=unit.dtype, device=unit.device)
-    ub = torch.as_tensor(ub, dtype=unit.dtype, device=unit.device)
+    lb = constant(lb, unit.dtype, unit.device)
+    ub = constant(ub, unit.dtype, unit.device)
     return lb + (ub - lb) * unit
 
 
@@ -99,6 +101,6 @@ def philox_uniform(
         (seed & _MASK, (seed >> 32) & _MASK),
     )
     u = torch.stack([w0 >> 8, w1 >> 8], dim=1).to(dtype) * (2.0 ** -24)
-    lo = torch.tensor(lb, dtype=dtype, device=device)
-    hi = torch.tensor(ub, dtype=dtype, device=device)
+    lo = constant(lb, dtype, device)
+    hi = constant(ub, dtype, device)
     return lo + (hi - lo) * u

@@ -13,8 +13,10 @@ back.
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -82,3 +84,18 @@ def raw_stream(index: int) -> int:
     cuda_stream`` without building the Stream object, which costs a few
     microseconds a call on the host."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, shape: tuple, dtype: torch.dtype, device: torch.device
+              ) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype).reshape(shape).to(device)
+
+
+def constant(values, dtype: torch.dtype, device: Union[str, torch.device]) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype)`` on ``device``, made once per
+    (values, dtype, device) and shared by every caller: read it, never write
+    it. An epoch captured in a CUDA graph may take it, where a copy from the
+    host is illegal (the uncaptured warm-up epoch makes it first)."""
+    arr = np.asarray(values, dtype=np.float64)
+    return _constant(tuple(arr.reshape(-1).tolist()), arr.shape, dtype, torch.device(device))

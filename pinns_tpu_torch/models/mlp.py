@@ -29,6 +29,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+from pinns_tpu_torch.device import constant
+
 # [{'W': (din, dout), 'b': (1, dout)}, ...]; with shock paths params[0] also
 # holds 'path_c' (K, D + 1) and 'path_a' (K,)
 Params = List[Dict[str, torch.Tensor]]
@@ -189,9 +191,7 @@ def init_mlp(
 
 
 def _bounds(spec: MLPSpec, device: torch.device):
-    lb = torch.tensor(spec.lb, dtype=spec.dtype, device=device)
-    ub = torch.tensor(spec.ub, dtype=spec.dtype, device=device)
-    return lb, ub
+    return constant(spec.lb, spec.dtype, device), constant(spec.ub, spec.dtype, device)
 
 
 def normalize_inputs(spec: MLPSpec, x: torch.Tensor) -> torch.Tensor:

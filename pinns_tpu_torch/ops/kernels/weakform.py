@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pinns_tpu_torch.device import constant
 from pinns_tpu_torch.models.mlp import MLPSpec
 from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.weakform import EPS, gauss_legendre
@@ -324,7 +325,7 @@ def flux_backward_reference(kind: str, g_r: torch.Tensor, y: torch.Tensor,
     code, fields = KINDS[kind]
     n, q = hxe.shape[0], quad
     e_cell = e  # (the loops below name the edges e)
-    w = torch.as_tensor(gauss_legendre(q)[1], dtype=y.dtype).to(y.device)
+    w = constant(gauss_legendre(q)[1], y.dtype, y.device)
     a = g_r / (4.0 * hxe * hte)  # (N, C)
     gc = (a * hxe)[:, None, :] * w[None, :, None]  # (N, Q, C): top +, bottom -
     gf = (a * hte)[:, None, :] * w[None, :, None]  # right +, left -

@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from pinns_tpu_torch.device import constant
 from pinns_tpu_torch.models.mlp import MLPSpec, Params
 from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_2
 
@@ -95,7 +96,7 @@ def euler_entropy_production(y, y_x, y_t, gamma: float = 1.4, eps: float = 1e-3)
     p = (g - 1.0) * (e - 0.5 * rho * u * u)
     p_x = (g - 1.0) * (e_x - 0.5 * (rho_x * u * u + 2.0 * rho * u * u_x))
     p_t = (g - 1.0) * (e_t - 0.5 * (rho_t * u * u + 2.0 * rho * u * u_t))
-    floor = torch.tensor(eps, dtype=y.dtype, device=y.device)
+    floor = constant(eps, y.dtype, y.device)
     p_c = torch.maximum(p, floor)
     rho_c = torch.maximum(rho, floor)
     s_x = p_x / p_c - g * rho_x / rho_c

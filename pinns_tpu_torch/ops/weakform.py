@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pinns_tpu_torch.device import constant
 from pinns_tpu_torch.models.mlp import MLPSpec, Params, mlp_apply, mlp_apply_reference
 from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_1_reference
 
@@ -52,7 +53,7 @@ def gauss_legendre(q: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _consts(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=like.dtype).to(like.device)
+    return constant(values, like.dtype, like.device)
 
 
 def cell_edges(spec: MLPSpec, centers: torch.Tensor, hx: float, ht: float):
@@ -127,7 +128,7 @@ def burgers_quadrature_reference(u, ux, hxe, hte, lambda1, lambda2, quad: int,
 
 def _floor(v: torch.Tensor, eps: float) -> torch.Tensor:
     """max(v, eps), half the gradient at a tie (JAX's ``jnp.maximum``)."""
-    return torch.maximum(v, torch.tensor(eps, dtype=v.dtype, device=v.device))
+    return torch.maximum(v, constant(eps, v.dtype, v.device))
 
 
 def euler_entropy_x(y, y_x, gamma: float, eps: float = EPS):

@@ -20,7 +20,7 @@ staircased), each evaluated at Adam's count in float32 as optax does.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,19 +74,28 @@ def _leaves_like(tree, other) -> list:
     return out
 
 
-def adam_update(grads, state: AdamState, lr: float, b1: float = B1, b2: float = B2,
-                eps: float = EPS):
+def adam_update(grads, state: AdamState, lr: Union[float, torch.Tensor], b1: float = B1,
+                b2: float = B2, eps: float = EPS, bias: Optional[Tuple] = None):
     """(updates, new state) for ``grads``; add the updates to the params with
     :func:`apply_updates`. Each stage is one multi-tensor op over all leaves
     (``torch._foreach_*``): per element the arithmetic of the formulas above,
-    rounded after every operation, in a few launches for the whole tree."""
+    rounded after every operation, in a few launches for the whole tree.
+
+    ``lr`` is a float or a 0-d tensor on the leaves' device, in their dtype;
+    ``bias`` None takes :func:`bias_corrections` at ``state.count``, else it
+    is (1 - b1^t, 1 - b2^t) as such 0-d tensors. The generic step passes
+    tensors read from its epoch schedule on the device
+    (``train.schedule``), so that nothing of an epoch is a host value. The
+    two forms agree bit for bit on the CPU (``tests/test_torch_generic_chunk.
+    py``); on the card ``chip_smoke.py`` (phase 41) reports whether they do."""
     f = torch
     g, m, v = tree_leaves(grads), _leaves_like(grads, state.mu), _leaves_like(grads, state.nu)
     mu = f._foreach_add(f._foreach_mul(g, 1.0 - b1), f._foreach_mul(m, b1))
     nu = f._foreach_add(f._foreach_mul(f._foreach_mul(g, g), 1.0 - b2), f._foreach_mul(v, b2))
-    bc1, bc2 = bias_corrections(state.count, b1, b2)
+    bc1, bc2 = bias_corrections(state.count, b1, b2) if bias is None else bias
     den = f._foreach_add(f._foreach_sqrt(f._foreach_div(nu, bc2)), eps)
-    updates = f._foreach_mul(f._foreach_div(f._foreach_div(mu, bc1), den), -lr)
+    neg_lr = torch.neg(lr) if isinstance(lr, torch.Tensor) else -lr
+    updates = f._foreach_mul(f._foreach_div(f._foreach_div(mu, bc1), den), neg_lr)
     return _unflatten(grads, updates), AdamState(
         count=state.count + 1, mu=_unflatten(grads, mu), nu=_unflatten(grads, nu))
 

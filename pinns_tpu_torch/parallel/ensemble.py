@@ -204,10 +204,15 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
         step = trainer._lbfgs_step
     else:
         raise ValueError(f"unknown phase {phase!r}")
+    from pinns_tpu_torch.ops.kernels.fused_step import fused_step_supported
+
     batched = phase == "adam" and batched_on_card(trainer)
-    # K10's chunk runner, member by member, as a solo run's L-BFGS chunks
-    # take it (so that a member equals its solo run bit for bit)
-    solo_chunks = phase == "lbfgs" and getattr(step, "graphed", None) is not None
+    # K10's chunk runner, or K9's for the generic step (outside K3's scope),
+    # member by member, as a solo run's chunks take it (so that a member
+    # equals its solo run bit for bit); one graph serves every member's seed
+    generic = bool(fused_step_supported(trainer.exp, trainer.problem.spec))
+    solo_chunks = (getattr(step, "graphed", None) is not None
+                   and (phase == "lbfgs" or generic))
 
     def run(stacked: TrainState, new_colloc: Optional[torch.Tensor] = None):
         n = len(stacked.key)
@@ -218,7 +223,7 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
         members = [_own(m) for m in unstack_states(stacked, n)]
         for i in range(n):
             if solo_chunks:
-                members[i], m = trainer._get_chunk("lbfgs")(
+                members[i], m = trainer._get_chunk(phase)(
                     members[i], chunk, None if new_colloc is None else new_colloc[:, i])
                 buf[:, i] = torch.stack([m[k] for k in METRIC_KEYS], dim=1)
                 continue

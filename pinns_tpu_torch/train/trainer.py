@@ -13,10 +13,12 @@ loss at the current batch and ADMM state, then the same resample -> z/dual
 tail. A chunk of epochs (:func:`make_chunked`, the port of JAX's, whose
 ``lax.scan`` makes the chunk one device call) keeps its per-step metrics in
 one device buffer, read back once per logged chunk: on the card the fused
-step's chunk is replayed from captured CUDA graphs (K9), the L-BFGS outer
-epochs inside K10's chunk scope run on the device with K3's post-update mode
-as their tail (``ops.kernels.lbfgs.LBFGSChunk``), and every other step's
-chunk is the per-epoch loop (:func:`run_chunk`). ``Trainer.train`` switches from
+step's chunk is replayed from captured CUDA graphs (K9), and so is the
+generic step's inside ``ops.kernels.generic_chunk.generic_chunk_supported``
+(one captured epoch replayed, ``GenericChunk``), the L-BFGS outer epochs
+inside K10's chunk scope run on the device with K3's post-update mode as
+their tail (``ops.kernels.lbfgs.LBFGSChunk``), and every other step's chunk
+is the per-epoch loop (:func:`run_chunk`). ``Trainer.train`` switches from
 Adam to L-BFGS chunks at ``optimizer.switch_epoch`` under 'hybrid'.
 
 The loss goes through ``mlp_apply`` (data term) and ``mlp_taylor_2``
@@ -34,8 +36,13 @@ hold the kernels against them). Two Adam steps compute an epoch:
   the configuration is inside its scope.
 
 Resampling draws with counter-based Philox keyed by the run's seed and the
-epoch (``data.sampling.philox_uniform``), so both steps draw the same points,
-inside the time curriculum's bounds when it is on (``_curriculum_bounds``).
+epoch (``data.sampling.philox_uniform``; on the card K11,
+``ops.kernels.sampling.philox_draw``, and K3's tail), so every step draws the
+same points, inside the time curriculum's bounds when it is on
+(``_curriculum_bounds``). The generic step takes the draw's seed, epoch and
+bounds, its learning rate and Adam's bias corrections from a schedule row on
+the device (``train.schedule``, :func:`adam_schedule`), not from host
+scalars, so that one captured epoch serves every epoch of a chunk.
 
 The Euler system (``pde.kind == 'euler'``) has three residuals (mass,
 momentum, energy) from one Taylor-1 pass of a 3-output net: every residual
@@ -98,7 +105,7 @@ from pinns_tpu_torch.data.datasets import (
     load_euler_mat,
 )
 from pinns_tpu_torch.data.sampling import latin_hypercube, philox_uniform, scale_to_bounds, uniform_box
-from pinns_tpu_torch.device import pin_numerics, resolve_device
+from pinns_tpu_torch.device import constant, pin_numerics, resolve_device
 from pinns_tpu_torch.losses.admm import (
     ADMMState,
     admm_init,
@@ -108,6 +115,7 @@ from pinns_tpu_torch.losses.admm import (
 )
 from pinns_tpu_torch.losses.misfit import causal_residual_penalty, data_misfit, residual_penalty
 from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply, mlp_apply_reference
+from pinns_tpu_torch.ops.kernels.sampling import philox_draw, philox_draw_reference
 from pinns_tpu_torch.ops.residuals import euler_combine, euler_entropy_production
 from pinns_tpu_torch.ops.taylor import (
     mlp_taylor_1,
@@ -127,6 +135,7 @@ from pinns_tpu_torch.opt.adam import (
 )
 from pinns_tpu_torch.opt.lbfgs import lbfgs_minimize, ravel_tree
 from pinns_tpu_torch.train import checkpoint as ckpt_io
+from pinns_tpu_torch.train import schedule as epoch_schedule
 from pinns_tpu_torch.train.evaluate import predict_fields, relative_l2
 from pinns_tpu_torch.train.metrics import MetricsLogger
 
@@ -399,10 +408,32 @@ def _resample(problem: Problem, key: int, draw: int) -> torch.Tensor:
     """The uniform collocation batch of ``draw``: Philox(key, draw), where
     draw 0 is the initial batch and draw e + 1 the batch drawn after step e,
     inside the curriculum's bounds of JAX's epoch argument for that batch (0
-    for the initial one, e after step e)."""
-    lb, ub = _curriculum_bounds(problem, max(draw - 1, 0))
-    return philox_uniform(key, draw, problem.exp.sampling.n_f, lb, ub,
-                          problem.spec.dtype, problem.device)
+    for the initial one, e after step e). On a CUDA device one launch of K11
+    (``ops.kernels.sampling.philox_draw``) from a one-row schedule, else
+    ``philox_uniform``: the same points."""
+    n_f, dtype = problem.exp.sampling.n_f, problem.spec.dtype
+    if problem.device.type != "cuda":
+        lb, ub = _curriculum_bounds(problem, max(draw - 1, 0))
+        return philox_uniform(key, draw, n_f, lb, ub, dtype, problem.device)
+    rows = adam_schedule(problem, 0.0, key, 0, draw - 1, 1)
+    return philox_draw(epoch_schedule.to_device(rows, problem.device),
+                       _zero_cursor(problem.device), n_f, dtype)
+
+
+def adam_schedule(problem: Problem, learning_rate, key: int, count: int, epoch: int,
+                  length: int) -> np.ndarray:
+    """The epoch schedule (``train.schedule.schedule_rows``) of ``length``
+    Adam epochs from Adam's ``count`` and the state's ``epoch``: the draws
+    after them (Philox(key, epoch + 1 + i) in the curriculum's bounds of
+    epoch + i), the learning rate and the bias corrections at count + i."""
+    return epoch_schedule.schedule_rows(
+        key, count, epoch, length, learning_rate,
+        lambda e: _curriculum_bounds(problem, max(e, 0)))
+
+
+def _zero_cursor(device: torch.device) -> torch.Tensor:
+    """The cursor of a one-row schedule (a shared constant: never advanced)."""
+    return constant((0,), torch.int64, device)
 
 
 def init_collocation(problem: Problem, key: int) -> torch.Tensor:
@@ -652,19 +683,6 @@ def _next_batch(problem: Problem, colloc, key, epoch, new_colloc):
 
 
 @torch.no_grad()
-def _post_update_current(problem: Problem, params, admm_state, colloc, key, rho, epoch=0,
-                         new_colloc=None, plain=False):
-    """'current'-points ADMM tail: z/dual update at the batch the weight step
-    saw, THEN resample for the next step."""
-    exp = problem.exp
-    rho_val = exp.loss.rho if rho is None else rho
-    f_cur = problem.residuals_chunked(params, colloc, plain=plain)
-    admm_state = admm_update(f_cur, admm_state, rho_val, colloc.shape[0])
-    mis = admm_misfit(f_cur, admm_state)
-    return admm_state, _next_batch(problem, colloc, key, epoch, new_colloc), key, mis
-
-
-@torch.no_grad()
 def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, epoch=0,
                  new_colloc=None, plain=False):
     """Shared tail of every step: resample, then ADMM updates at the new
@@ -680,37 +698,84 @@ def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, ep
     return admm_state, colloc, key, mis
 
 
+def metrics_row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The step's metrics as one float32 row in METRIC_KEYS order."""
+    return torch.stack([metrics[k].to(torch.float32) for k in METRIC_KEYS])
+
+
 def _write_metrics(metrics: Dict[str, torch.Tensor], out: Optional[torch.Tensor]):
     """Stack the step's metrics (METRIC_KEYS order) into the float32 row
     ``out`` of a chunk's buffer; returns views of that row."""
     if out is None:
         out = torch.empty(len(METRIC_KEYS), dtype=torch.float32,
                           device=metrics["loss"].device)
-    out.copy_(torch.stack([metrics[k].to(torch.float32) for k in METRIC_KEYS]))
+    out.copy_(metrics_row(metrics))
     return {k: out[i] for i, k in enumerate(METRIC_KEYS)}
 
 
-def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
-    """The generic Adam epoch: grad step -> resample -> ADMM updates.
+def _draw_at(problem: Problem, sched, cursor, plain: bool) -> torch.Tensor:
+    """The batch that schedule row ``cursor`` draws: K11 on a CUDA schedule,
+    its plain version on the CPU or under ``plain``."""
+    draw = philox_draw_reference if plain else philox_draw
+    return draw(sched, cursor, problem.exp.sampling.n_f, problem.spec.dtype)
 
-    ``step(state, out=None, new_colloc=None) -> (state, metrics)``. ``out``, a
-    float32 row of len(METRIC_KEYS), receives the metrics when given;
-    ``new_colloc`` replaces the Philox draw of the next batch.
-    ``learning_rate`` is a float or a function of Adam's count
-    (``opt.adam.learning_rate_schedule``). The loss runs the kernels on a CUDA
-    device unless ``plain`` (then it is the plain step everywhere).
-    """
+
+@torch.no_grad()
+def _epoch_tail(problem: Problem, params, admm_state, colloc, rho, sched, cursor,
+                new_colloc=None, plain=False):
+    """The Adam epoch's tail after the weight step, in schedule form: the
+    next batch (``new_colloc`` when given, else the draw of schedule row
+    ``cursor``; fixed strategies keep ``colloc``) and the ADMM z/dual update
+    with its misfit, at the new points (JAX's and the reference's order) or,
+    under ``admm_update_points='current'``, at the points the step saw
+    before the draw. Returns (admm_state, colloc, misfit)."""
+    exp = problem.exp
+    admm = exp.loss.residual_kind == "admm"
+    current = admm and exp.loss.admm_update_points == "current"
+
+    def next_batch(pts):
+        if exp.sampling.strategy != "resample_uniform":
+            return pts
+        return new_colloc if new_colloc is not None else _draw_at(problem, sched, cursor, plain)
+
+    if not current:
+        colloc = next_batch(colloc)
+    mis = torch.zeros((), dtype=problem.spec.dtype, device=colloc.device)
+    if admm:
+        f = problem.residuals_chunked(params, colloc, plain=plain)
+        admm_state = admm_update(f, admm_state, exp.loss.rho if rho is None else rho,
+                                 colloc.shape[0])
+        mis = admm_misfit(f, admm_state)
+    if current:
+        colloc = next_batch(colloc)
+    return admm_state, colloc, mis
+
+
+def make_adam_epoch(problem: Problem, plain: bool = False):
+    """The generic Adam epoch in schedule form: grad step -> resample -> ADMM
+    updates, with every per-epoch value read from the device.
+
+    ``epoch(state, sched, cursor, new_colloc=None) -> (params, opt_state,
+    admm, colloc, metrics)``: the epoch that ``state`` steps, whose learning
+    rate, bias corrections and draw (seed, epoch, curriculum bounds) are row
+    ``cursor`` (a one-element int64 tensor) of the schedule ``sched``
+    (``train.schedule``) on the state's device; ``state.opt_state.count`` and
+    ``state.epoch`` are not read (the returned count is the input's plus 1).
+    Nothing is read back to the host, so the per-epoch step
+    (:func:`make_adam_step`) and the graphed chunk on the card
+    (``ops.kernels.generic_chunk.GenericChunk``, which captures this
+    function) run one code path. The loss runs the kernels on a CUDA device
+    unless ``plain`` (then the plain versions everywhere, the draw
+    included)."""
     loss_fn = make_loss_fn(problem, plain)
     train_coeffs = problem.exp.pde.train_coeffs
-    tail = (
-        _post_update_current
-        if problem.exp.loss.residual_kind == "admm"
-        and problem.exp.loss.admm_update_points == "current"
-        else _post_update
-    )
+    dtype = problem.spec.dtype
 
-    def step(state: TrainState, out: Optional[torch.Tensor] = None,
-             new_colloc: Optional[torch.Tensor] = None):
+    def epoch(state: TrainState, sched: torch.Tensor, cursor: torch.Tensor,
+              new_colloc: Optional[torch.Tensor] = None):
+        values = epoch_schedule.row_at(sched, cursor)
+        lr, bc1, bc2 = (values[i].to(dtype) for i in (epoch_schedule.LR, epoch_schedule.BC1,
+                                                      epoch_schedule.BC2))
         params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
         loss, aux = loss_fn(params, state.colloc, state.admm, state.rho)
         # frozen coefficients get a zero gradient, as JAX's stop_gradient gives
@@ -723,38 +788,74 @@ def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
             "coeffs": tree_map(lambda p: next(got) if train_coeffs else torch.zeros_like(p),
                                params["coeffs"]),
         }
-        lr = learning_rate(state.opt_state.count) if callable(learning_rate) else learning_rate
         with torch.no_grad():
-            updates, opt_state = adam_update(grads, state.opt_state, lr)
+            updates, opt_state = adam_update(grads, state.opt_state, lr, bias=(bc1, bc2))
             new_params = apply_updates(tree_map(lambda p: p.detach(), params), updates)
-        admm_state, colloc, key, mis = tail(
-            problem, new_params, state.admm, state.colloc, state.key, state.rho, state.epoch,
-            new_colloc, plain,
-        )
+        admm_state, colloc, mis = _epoch_tail(problem, new_params, state.admm, state.colloc,
+                                              state.rho, sched, cursor, new_colloc, plain)
         metrics = {k: v.detach() for k, v in aux.items()}
         metrics["admm_misfit"] = mis
         metrics["lbfgs_iters"] = torch.zeros((), device=mis.device)
+        return new_params, opt_state, admm_state, colloc, metrics
+
+    return epoch
+
+
+def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
+    """The generic Adam epoch: grad step -> resample -> ADMM updates.
+
+    ``step(state, out=None, new_colloc=None) -> (state, metrics)``. ``out``, a
+    float32 row of len(METRIC_KEYS), receives the metrics when given;
+    ``new_colloc`` replaces the Philox draw of the next batch.
+    ``learning_rate`` is a float or a function of Adam's count
+    (``opt.adam.learning_rate_schedule``). The step writes its epoch's row
+    of the schedule (:func:`adam_schedule`) to the device and runs
+    :func:`make_adam_epoch`'s epoch on it (``step.epoch``). The loss runs the
+    kernels on a CUDA device unless ``plain`` (then it is the plain step
+    everywhere).
+    """
+    epoch_fn = make_adam_epoch(problem, plain)
+
+    def step(state: TrainState, out: Optional[torch.Tensor] = None,
+             new_colloc: Optional[torch.Tensor] = None):
+        device = state.colloc.device
+        sched = epoch_schedule.to_device(
+            adam_schedule(problem, learning_rate, state.key, state.opt_state.count,
+                          state.epoch, 1), device)
+        params, opt_state, admm_state, colloc, metrics = epoch_fn(
+            state, sched, _zero_cursor(device), new_colloc)
         new_state = TrainState(
-            params=new_params, opt_state=opt_state, admm=admm_state, colloc=colloc,
-            key=key, epoch=state.epoch + 1, rho=state.rho,
+            params=params, opt_state=opt_state, admm=admm_state, colloc=colloc,
+            key=state.key, epoch=state.epoch + 1, rho=state.rho,
         )
         return new_state, _write_metrics(metrics, out)
 
+    step.epoch = epoch_fn
     return step
 
 
 def make_step(problem: Problem, learning_rate):
     """The Adam step the trainer runs: on a CUDA device the fused CUDA step K3
     when the configuration is inside its scope, else the generic step over
-    the kernel ops; on the CPU the plain step."""
+    the kernel ops, which carries ``step.graphed`` (K9 for the generic
+    step, ``ops.kernels.generic_chunk.GenericChunk``) inside
+    ``generic_chunk_supported``; on the CPU the plain step."""
     if problem.device.type == "cuda":
         from pinns_tpu_torch.ops.kernels.fused_step import (
             fused_step_supported,
             make_fused_adam_step,
         )
+        from pinns_tpu_torch.ops.kernels.generic_chunk import (
+            GenericChunk,
+            generic_chunk_supported,
+        )
 
         if not fused_step_supported(problem.exp, problem.spec):
             return make_fused_adam_step(problem, learning_rate)
+        step = make_adam_step(problem, learning_rate)
+        if not generic_chunk_supported(problem.exp, problem.spec):
+            step.graphed = functools.partial(GenericChunk, problem, learning_rate, step.epoch)
+        return step
     return make_adam_step(problem, learning_rate)
 
 
@@ -865,10 +966,12 @@ def make_chunked(step, chunk: int):
     K9: its epochs replayed from captured CUDA graphs
     (``ops.kernels.fused_step.FusedChunk``, made once here and kept for
     every chunk of up to ``chunk`` epochs), bit for bit the per-epoch loop's
-    result. The L-BFGS step on the card inside K10's chunk scope carries
-    ``graphed`` too: its outer epochs run as ``ops.kernels.lbfgs.
-    LBFGSChunk``'s chunks. Every other step (the CPU's plain step, the
-    generic step, the other L-BFGS steps) runs the per-epoch loop,
+    result. The generic step on the card inside ``generic_chunk_supported``
+    carries ``graphed`` (``ops.kernels.generic_chunk.GenericChunk``: one
+    captured epoch replayed ``length`` times), and so does the L-BFGS step
+    inside K10's chunk scope: its outer epochs run as ``ops.kernels.lbfgs.
+    LBFGSChunk``'s chunks. Every other step (the CPU's plain step,
+    ``burgers_scale``, the other L-BFGS steps) runs the per-epoch loop,
     :func:`run_chunk`. ``new_colloc`` (length, N_f, 2) replaces the Philox
     draws."""
     graphed = getattr(step, "graphed", None)

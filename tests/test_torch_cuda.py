@@ -1959,3 +1959,84 @@ def test_lbfgs_chunk_equals_one_epoch_chunks_on_card(cuda_device, fed):  # noqa:
     assert all(torch.equal(gm[k], torch.cat([m[k] for m in rows])) for k in gm)
     assert not fed or torch.equal(got.colloc, feed[-1])
     assert got.epoch == one.epoch == 8 and all(0 < v <= 20 for v in gm["lbfgs_iters"].tolist())
+
+
+# -- K11 and K9 for the generic step ---------------------------------------------
+
+@pytest.mark.parametrize("n", [1_000, 1_048_576])
+@pytest.mark.parametrize("epoch", [0, 1, 2**32 + 5])
+def test_generic_k11_matches_philox_uniform_on_card(cuda_device, n, epoch):  # noqa: F811
+    """K11 draws philox_uniform's points bit for bit from the schedule row at
+    the device cursor (the bounds of a curriculum row), in one launch."""
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.ops.kernels import sampling as k_sampling
+    from pinns_tpu_torch.train import schedule
+
+    lb, ub = (-1.0, 0.0), (1.0, float(np.float32(0.37)))
+    rows = np.concatenate([schedule.schedule_rows(1234, 0, e, 1, 1e-3, lambda e: (lb, ub))
+                           for e in (7, epoch - 1)])
+    sched = torch.from_numpy(rows).to(cuda_device)
+    cursor = torch.ones(1, dtype=torch.int64, device=cuda_device)
+    before = k_sampling.LAUNCHES
+    for dtype in (torch.float32, torch.float64):
+        got = k_sampling.philox_draw(sched, cursor, n, dtype)
+        want = philox_uniform(1234, epoch, n, lb, ub, dtype, cuda_device)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), dtype
+    assert k_sampling.LAUNCHES == before + 2
+    assert torch.equal(got.cpu(), philox_uniform(1234, epoch, n, lb, ub, torch.float64))
+
+
+def _generic_tensors(state):
+    from pinns_tpu_torch.opt.adam import tree_leaves
+
+    admm = [] if state.admm is None else [state.admm.z, state.admm.dual]
+    return tree_leaves([state.params, state.opt_state.mu, state.opt_state.nu, admm,
+                        state.colloc])
+
+
+def _assert_same_generic_chunk(a, b):
+    (sa, ma), (sb, mb) = a, b
+    assert (sa.epoch, sa.opt_state.count) == (sb.epoch, sb.opt_state.count)
+    ta, tb = _generic_tensors(sa), _generic_tensors(sb)
+    assert len(ta) == len(tb)
+    assert all(torch.equal(x, y) for x, y in zip(ta, tb))
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+
+
+@pytest.mark.parametrize("preset", ["euler_admm", "twosin_weak", "euler_weak_fast",
+                                    "burgers_forward"])
+def test_generic_chunk_equals_the_loop_on_card(cuda_device, preset):  # noqa: F811
+    """K9 for the generic step: the chunk replayed from one captured epoch
+    equals the per-epoch loop bit for bit (L 1, 2, 7; two chunks against
+    one; fed), every epoch in a replay and none through the step's host
+    call; the ensemble's member loop runs each member through the solo
+    runner."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import generic_chunk as k_generic
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset(preset), {"sampling.n_f": 200, "train.chunk": 8})
+    trainer = tr.Trainer(exp, device="cuda")
+    run = trainer._get_chunk("adam")
+    assert isinstance(run.runner, k_generic.GenericChunk)
+    state = trainer.init_state()
+    for length in (1, 2, 7):
+        before = k_generic.GRAPH_EPOCHS
+        got = run(state, length)
+        assert k_generic.GRAPH_EPOCHS == before + length
+        _assert_same_generic_chunk(got, tr.run_chunk(trainer._adam_step, state, length))
+    half, _ = run(state, 3)
+    whole, _ = run(state, 6)
+    _assert_same_generic_chunk(run(half, 3), tr.run_chunk(trainer._adam_step, half, 3))
+    assert all(torch.equal(a, b) for a, b in zip(_generic_tensors(run(half, 3)[0]),
+                                                  _generic_tensors(whole)))
+    n = state.colloc.shape[0]
+    feed = torch.from_numpy(np.stack([numpy_points(n, seed=s) for s in range(5)])).to(
+        cuda_device)
+    _assert_same_generic_chunk(run(state, 5, new_colloc=feed),
+                               tr.run_chunk(trainer._adam_step, state, 5, new_colloc=feed))
+    other = trainer.init_state(seed=7)
+    _assert_same_generic_chunk(run(other, 11), tr.run_chunk(trainer._adam_step, other, 11))

@@ -26,7 +26,8 @@ MODULES = [
     "pinns_tpu_torch.ops.kernels.mlp_forward", "pinns_tpu_torch.opt.lbfgs",
     "pinns_tpu_torch.data.generators", "pinns_tpu_torch.ops.kernels.taylor1",
     "pinns_tpu_torch.ops.weakform", "pinns_tpu_torch.ops.kernels.weakform",
-    "pinns_tpu_torch.ops.kernels.lbfgs",
+    "pinns_tpu_torch.ops.kernels.lbfgs", "pinns_tpu_torch.train.schedule",
+    "pinns_tpu_torch.ops.kernels.sampling", "pinns_tpu_torch.ops.kernels.generic_chunk",
 ]
 
 

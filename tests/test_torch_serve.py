@@ -6,6 +6,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import urllib.error
 import urllib.request
@@ -23,18 +24,24 @@ from torch_port_util import FIXTURE, TOL, assert_close, numpy_points
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def report_bad_rows(name, bad):
+def report_bad_rows(name, got, want, bad):
     """Print, before a comparison fails, which rows failed it (ROADMAP P1: an
-    order-dependent CPU mismatch seen twice in full xdist runs): their count,
-    first and last index, whether they form one contiguous block, and this
-    process's intra-op threading. ``bad`` is the (N,) mask of failing rows."""
+    order-dependent CPU mismatch seen in full xdist runs): their count, first
+    and last index, whether they form one contiguous block, and this
+    process's intra-op threading; and save both arrays and the mask to a
+    temporary .npz, whose path it prints, so that an occurrence shows which
+    side moved. ``bad`` is the (N,) mask of failing rows of ``got`` against
+    ``want``."""
     rows = np.flatnonzero(bad)
     if rows.size == 0:
         return
+    fd, path = tempfile.mkstemp(prefix="p1_rows_", suffix=".npz")
+    os.close(fd)
+    np.savez(path, got=np.asarray(got), want=np.asarray(want), bad=np.asarray(bad))
     print(f"P1 diagnostic, {name}: {rows.size} of {bad.size} rows differ, first {rows[0]}, "
           f"last {rows[-1]}, contiguous block {bool(rows[-1] - rows[0] + 1 == rows.size)}; "
           f"torch.get_num_threads() {torch.get_num_threads()}\n"
-          f"{torch.__config__.parallel_info()}")
+          f"{torch.__config__.parallel_info()}\nboth arrays saved to {path}")
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +78,7 @@ def test_fixture_slice_matches_jax(artifact, fixture_npz):
         want = fixture_npz[f"{k}_jax"]
         rtol, atol_rel = TOL[k]
         bad = np.abs(out[k] - want) > atol_rel * float(np.abs(want).max()) + rtol * np.abs(want)
-        report_bad_rows(f"served {k} vs JAX", bad.any(axis=1))
+        report_bad_rows(f"served {k} vs JAX", out[k], want, bad.any(axis=1))
         assert_close(k, out[k], want)
     rel = relative_l2(out["u"], fixture_npz["u_star"])
     assert abs(rel - float(fixture_npz["rel_l2_jax"])) <= 1e-5
@@ -179,5 +186,6 @@ def test_cli_export_and_predict(tmp_path, artifact, fixture_npz):
     with np.load(out) as z:
         np.testing.assert_array_equal(z["x"], x)
         for k in ("u", "f"):
-            report_bad_rows(f"CLI {k} vs in-process predict", (z[k] != want[k]).any(axis=1))
+            report_bad_rows(f"CLI {k} vs in-process predict", z[k], want[k],
+                            (z[k] != want[k]).any(axis=1))
             np.testing.assert_array_equal(z[k], want[k])
