@@ -23,7 +23,9 @@ weak form through K7b's entropy mode, and the Euler L-BFGS branch
 solve on K10's kernels around autograd through the Euler loss), and K10's
 outer epochs as chunks on the card (the flagship's L-BFGS phase: each solve
 replayed to its done flag, then K3's post-update mode and the reset in place
-as one more graph).
+as one more graph), and the rest of slice 2b-iii: Fourier features in K1/K2,
+K7a and K5 and shock paths in K1/K2, trained and served; the weak-form ADMM;
+RAD resampling and SWA averaging, solo and in an ensemble.
 
     python3 chip_smoke.py
 
@@ -327,6 +329,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             ms an epoch, device time, idle share, launches, step calls and
             graph replays an epoch. Phases 15, 22, 26 and 29 train every
             Adam epoch inside its replays (GRAPH_EPOCHS) and draw with K11
+  42 fourier-kernels  K1 (tiled) and K2, K7a (wide) and K5 (wide) with
+            Fourier features (F 16, sigma 3: input width 34) and K1/K2 with
+            two shock paths, against the plain version and float64 on every
+            stream and gradient leaf (4x the plain float32 error), two
+            backward calls bit for bit; event times beside the plain version
+            and beside the same kernel without the features
+  43 fourier-train  burgers_forward --set model.n_fourier=16 from the
+            fixture's JAX state (tests/fixtures/torch_port/slice2b_rest.npz):
+            one step and a 3-step replay against JAX, the graphed chunk
+            bit-equal to the per-epoch loop, a 2,000-epoch run; euler_admm
+            with Fourier features: one step against JAX; a JAX-trained
+            Fourier net served (predict and HTTP) against JAX's outputs;
+            300-epoch runs of euler_admm and euler_weak_fast (with paths)
+            with Fourier features and of burgers_forward with paths, their
+            launches the kernels line's
+  44 flux-admm  euler_admm --set loss.admm_form=flux at the trunk: one step
+            and a 3-step replay against JAX with z and the dual on the
+            weak-form cells, the graphed chunk bit-equal to the loop, its
+            L-BFGS outer epoch on AutogradLBFGS
+  45 rad-swa  RAD on abgrall_l2 (8x200) and hwan_admm (ADMM re-initialised):
+            p through the kernels against the plain p and JAX's on one pool,
+            three chunk boundaries with their redraws; SWA on twosin_weak
+            against a plain running mean of its snapshots; train --ensemble
+            3 with SWA, each member's SWA and final states equal to its solo
+            run's
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -1059,6 +1086,7 @@ class PlainCalls:
         self.sites = [(m, name) for name, mods in (
             ("mlp_apply_reference", (mlp, trainer, weakform)),
             ("path_streams", (mlp,)),
+            ("fourier_streams", (mlp,)),
             ("mlp_taylor_2_reference", (taylor, trainer)),
             ("mlp_taylor_1_reference", (taylor, trainer, weakform)),
             ("mlp_backward_reference", (mlp_forward,)),
@@ -3347,8 +3375,9 @@ def same_state(a_path: str, b_path: str) -> bool:
     from pinns_tpu_torch.train import checkpoint as ckpt_io
 
     a, b = (ckpt_io.state_to_dict(ckpt_io.load_checkpoint(p, "cuda")) for p in (a_path, b_path))
-    ta = tree_leaves([a["params"], a["adam"]["mu"], a["adam"]["nu"], a["admm"], a["colloc"]])
-    tb = tree_leaves([b["params"], b["adam"]["mu"], b["adam"]["nu"], b["admm"], b["colloc"]])
+    # a run without ADMM keeps None there
+    ta = tree_leaves([a["params"], a["adam"]["mu"], a["adam"]["nu"], a["admm"] or [], a["colloc"]])
+    tb = tree_leaves([b["params"], b["adam"]["mu"], b["adam"]["nu"], b["admm"] or [], b["colloc"]])
     return (a["epoch"] == b["epoch"] and a["adam"]["count"] == b["adam"]["count"]
             and len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb)))
 
@@ -5523,6 +5552,715 @@ def phase_generic_chunk(card: str) -> dict:
     return {"max_abs_err": max(errs), "k11": k11, "times": times}
 
 
+# -- 42-45: the rest of slice 2b-iii: Fourier features in K1/K2, K7a and K5,
+# K1/K2's shock paths, the weak-form ADMM, RAD and SWA ---------------------------
+
+SLICE2B_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "slice2b_rest.npz")
+# (family, widths, N, Fourier features F, paths K): PARITY's setting F 16 at
+# sigma 3; K1 at 8x20 (input width 34) and 8x200, K2 at 8x20, both with two
+# paths; K7a at the Euler trunk with and without paths; K5 at the trunk
+FEATURE_CASES = [("taylor2", NARROW, 25_600, 16, 0), ("taylor2", WIDE, 8_192, 16, 0),
+                 ("taylor2", NARROW, 1_000, 16, 0), ("taylor2", NARROW, 1_000, 0, 2),
+                 ("taylor1", EULER, 1_000, 16, 0), ("taylor1", EULER, 16_000, 16, 0),
+                 ("taylor1", EULER, 1_000, 16, 2), ("taylor1", EULER, 16_000, 16, 2),
+                 ("mlp", EULER, 1_000, 16, 0)]
+FOURIER_SIGMA = 3.0
+FOURIER_UPDATE = {"model.n_fourier": 16}
+FOURIER_TRAIN_EPOCHS = 2_000  # phase 43's burgers_forward run
+FEATURE_RUN_EPOCHS = 300  # phase 43's launch-counting runs of the other feature presets
+FEATURE_CHUNK_LEN = 7  # the graphed chunk held against the per-epoch loop
+FLUX_UPDATE = {"loss.admm_form": "flux"}
+FLUX_LBFGS_ITERS = 50
+RAD_CHUNK, RAD_CHUNKS = 50, 4  # phase 45: three chunk boundaries with their redraws
+SWA_RUN = {"epochs": 1_000, "chunk": 100, "frac": 0.25}
+SWA_ENSEMBLE = {"members": 3, "epochs": 300, "chunk": 100, "frac": 0.25}
+
+
+def slice2b_fixture() -> dict:
+    with np.load(SLICE2B_FIXTURE, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def numpy_net(widths, seed: int) -> list:
+    """scripts/make_torch_slice2b_fixture.py::numpy_net: JAX-layout float32
+    params from a numpy seed (W at the init's scale, clipped at 2 sigma; b 0.1
+    N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for din, dout in zip(widths[:-1], widths[1:]):
+        std = math.sqrt(2.0 / (din + dout))
+        out.append({"W": (std * np.clip(rng.standard_normal((din, dout)), -2.0, 2.0))
+                    .astype(np.float32),
+                    "b": (0.1 * rng.standard_normal((1, dout))).astype(np.float32)})
+    return out
+
+
+def flat_net(flat: np.ndarray, widths) -> list:
+    """A flat W_0, b_0, W_1, ... vector as JAX-layout numpy params."""
+    leaves = split_leaves(flat, widths)
+    return [{"W": w.reshape(din, dout), "b": b.reshape(1, dout)}
+            for w, b, din, dout in zip(leaves[0::2], leaves[1::2], widths[:-1], widths[1:])]
+
+
+def feature_net(layers, f: int, k: int, seed: int):
+    """A net with F Fourier features (sigma 3, B from ``seed``) and K shock
+    paths moved off their init, nonzero biases, and its float64 twin."""
+    from pinns_tpu_torch.models.mlp import MLPSpec, fourier_matrix, init_mlp
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB, n_paths=k, path_degree=2, path_sharpness=12.0,
+                   fourier=fourier_matrix(f, sigma=FOURIER_SIGMA, seed=seed) if f else ())
+    params = init_mlp(spec, torch.Generator().manual_seed(seed), "cuda")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for p in params:
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=gen))
+    if k:
+        params[0]["path_c"].add_(0.3 * torch.randn((k, 3), generator=gen).cuda())
+        params[0]["path_a"].mul_(1.0 + 0.2 * torch.randn(k, generator=gen).cuda())
+    return spec, params, dataclasses.replace(spec, dtype=torch.float64), net_f64(params)
+
+
+def feature_fns(family: str):
+    """(kernel forward, kernel backward, plain forward, plain backward,
+    streams) of a kernel family: forward(spec, params, x) -> output tuple,
+    backward(spec, params, x, cot) -> the kernel's flat gradient or the plain
+    version's leaves."""
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_taylor2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1_reference, mlp_taylor_2_reference
+
+    if family == "taylor2":
+        return (k_taylor2.taylor2, k_taylor2.taylor2_backward, mlp_taylor_2_reference,
+                k_taylor2.taylor2_backward_reference, 4)
+    if family == "taylor1":
+        return (k_taylor1.taylor1, k_taylor1.taylor1_backward, mlp_taylor_1_reference,
+                k_taylor1.taylor1_backward_reference, 3)
+    return (lambda s, p, x: (k_mlp.mlp_forward(s, p, x),),
+            lambda s, p, x, c: k_mlp.mlp_backward(s, p, x, c[0]),
+            lambda s, p, x: (mlp_apply_reference(s, p, x),),
+            lambda s, p, x, c: k_mlp.mlp_backward_reference(s, p, x, c[0]), 1)
+
+
+def embed_ops(spec, n: int, streams: int):
+    """The input pass's own work a call: per point and Fourier feature the
+    phase (2 FLOP), sin and cos counted as one operation each (a lower bound:
+    the card's accurate sinf and cosf take a range reduction and a
+    polynomial), and the derivative streams' products (2 FLOP each of the x
+    and t streams, 4 of the xx stream); per path and point about 20 FLOP for
+    the value stream and 10 more a tangent stream (path_ops)."""
+    per = 4.0 + 2.0 * min(streams - 1, 2) * 2 + (4.0 if streams == 4 else 0.0)
+    return [(per * spec.n_fourier * n, PEAK_FP32)] + path_ops(spec, n, streams)
+
+
+def feature_bound(family: str, spec, n: int, backward: bool):
+    """(bound_ms, bound_by) of a feature call: the trunk's products at the
+    embedded widths (spec.widths) as each kernel's bound counts them, plus
+    the input pass's work (embed_ops; the backward recomputes it, and with
+    paths applies their chain rule, counted as twice more)."""
+    w = spec.widths
+    streams = {"taylor2": 4, "taylor1": 3, "mlp": 1}[family]
+    nbytes = 8 * n + 4 * streams * n * w[-1] + 4 * spec.n_params
+    if family == "taylor2":
+        ops = taylor2_ops(w, n)
+        if backward:
+            ops = ops + [(2 * 8.0 * sum(_macs(w)) * n, PEAK_FP32)]
+    elif family == "taylor1":
+        ops = taylor1_ops(w, n)
+        if backward:
+            m = _macs(w)
+            ops = ops + [(3 * 2.0 * (sum(m) + sum(m[1:]) + (m[0] if spec.n_paths else 0)) * n,
+                          PEAK_FP32)]
+    else:
+        ops = [((3.0 if backward else 1.0) * 2.0 * sum(_macs(w)) * n, PEAK_FP32)]
+    extra = embed_ops(spec, n, streams)
+    if backward:
+        extra = extra + (path_ops(spec, n, streams) * 2 if spec.n_paths else [])
+        nbytes += 4 * spec.n_params
+    return bound(ops + extra, nbytes)
+
+
+def phase_features(card: str) -> dict:
+    """42: K1/K2 (tiled), K7a (wide) and K5 (wide) with Fourier features (F
+    16, sigma 3) and K1/K2 with shock paths, against the plain float32
+    version and float64 (compare_f64) on every stream and every gradient
+    leaf (path_c and path_a included); two backward calls bit for bit; then
+    event times of each kernel beside its plain version and beside the same
+    kernel on the same widths without the features."""
+    out = {}
+    for family, layers, n, f, k in FEATURE_CASES:
+        kfwd, kbwd, pfwd, pbwd, streams = feature_fns(family)
+        spec, params, spec64, params64 = feature_net(layers, f, k, 420 + n % 97)
+        x = points(n, seed=n + 42, device="cuda")
+        rng = np.random.default_rng(n + 43)
+        cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32))
+               .cuda() for _ in range(streams)]
+        with torch.inference_mode():
+            got, grad = kfwd(spec, params, x), kbwd(spec, params, x, cot)
+            again = kbwd(spec, params, x, cot)
+            plain, pgrad = pfwd(spec, params, x), pbwd(spec, params, x, cot)
+            exact = pfwd(spec64, params64, x.double())
+            egrad = pbwd(spec64, params64, x.double(), [c.double() for c in cot])
+        torch.cuda.synchronize()
+        tag = f"{family} {len(layers) - 2}x{max(layers[1:])} F{f} K{k} N {n}"
+        check(torch.equal(grad, again), f"{tag}: two backward calls differ")
+        check(grad.numel() == spec.n_params, f"{tag}: {grad.numel()} gradient entries")
+        rows = {f"out{i}": compare_f64(f"{tag} out{i}", host(g), host(p), host(e))
+                for i, (g, p, e) in enumerate(zip(got, plain, exact))}
+        leaves, off = [], 0
+        for p, e in zip(pgrad, egrad):
+            g = host(grad[off:off + p.numel()])
+            off += p.numel()
+            leaves.append(dict(compare_f64(f"{tag} grad", g, host(p).ravel(), host(e).ravel()),
+                               max_abs_err=float(np.abs(g - host(p).ravel()).max())))
+        fwd_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        bwd_err = max(r["max_abs_err"] for r in leaves)
+        bare, bare_params, _, _ = feature_net(layers, 0, 0, 420 + n % 97)
+        with torch.inference_mode():
+            t = {"forward": event_ms(lambda: kfwd(spec, params, x)),
+                 "backward": event_ms(lambda: kbwd(spec, params, x, cot)),
+                 "plain_forward": event_ms(lambda: pfwd(spec, params, x)),
+                 "plain_backward": event_ms(lambda: pbwd(spec, params, x, cot)),
+                 "no_features_forward": event_ms(lambda: kfwd(bare, bare_params, x)),
+                 "no_features_backward": event_ms(lambda: kbwd(bare, bare_params, x, cot))}
+        b = {"forward": feature_bound(family, spec, n, False),
+             "backward": feature_bound(family, spec, n, True)}
+        out[(family, layers, n, f, k)] = {"errs": (fwd_err, bwd_err), "times": t, "bounds": b}
+        emit(card, phase="fourier-kernels", kernel=family, net=f"{len(layers) - 2}x"
+             f"{max(layers[1:])}", input_width=spec.widths[0], n_fourier=f, n_paths=k, n=n,
+             criterion="f64_oracle", outputs=rows, forward_max_abs_err=fwd_err,
+             backward_max_abs_err=bwd_err, leaves=len(leaves), bit_equal=True,
+             reps=REPS, clock="cuda_events",
+             **{f"{key}_ms": v for key, v in t.items()},
+             forward_bound_ms=b["forward"][0], backward_bound_ms=b["backward"][0],
+             bound_by=[b["forward"][1], b["backward"][1]],
+             plain="the plain forward and the hand-written reverse mode in PyTorch")
+    return out
+
+
+def feature_entry(runs: dict, counter: str, res: dict, case, which: str, run: str) -> dict:
+    """A feature mode's keys in the kernels line: its launches in phase
+    43's ``run``, its error and times (phase 42) at ``case``, forward or
+    backward (``which``), beside the same kernel without the features."""
+    r = res[case]
+    i = 0 if which == "forward" else 1
+    return {"launches": runs[run]["launches"][counter], "max_abs_err": r["errs"][i],
+            "ms": r["times"][which], "plain_ms": r["times"][f"plain_{which}"],
+            "no_features_ms": r["times"][f"no_features_{which}"],
+            **bound_fields(r["bounds"][which])}
+
+
+def kernel_gradient(problem, state, plain: bool, dtype=torch.float32):
+    """(loss, flat net gradient in net_leaves order) of the training loss at
+    ``state`` through the kernels (or the plain versions), in ``dtype``."""
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
+    from pinns_tpu_torch.train import trainer as tr
+
+    cast = lambda t: t.to(dtype).detach().clone()  # noqa: E731
+    params = tr.tree_map(lambda t: cast(t).requires_grad_(True), state.params)
+    admm = None
+    if state.admm is not None:
+        admm = type(state.admm)(z=tr.tree_map(cast, state.admm.z),
+                                dual=tr.tree_map(cast, state.admm.dual))
+    loss, _ = tr.make_loss_fn(problem, plain=plain)(params, state.colloc.to(dtype), admm)
+    leaves = net_leaves(params["net"])
+    return float(loss.detach()), flat_np(torch.autograd.grad(loss, leaves))
+
+
+def fixture_state(problem, net, colloc, device, z=None, dual=None, own_admm=False):
+    """A port TrainState at JAX-layout ``net``, the preset's initial
+    coefficients, a fresh Adam state and ``colloc``; ADMM's z and dual given,
+    or (``own_admm``) initialized by the port at the batch (z = r(w_0), dual
+    = 1), as each side's init does."""
+    from pinns_tpu_torch.interop import train_state_from_jax
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = problem.exp
+    coeffs = {"lambda1": np.full(1, exp.pde.lambda1, np.float32),
+              "lambda2": np.full(1, exp.pde.lambda2, np.float32)}
+    zeros = lambda tree: [{k: np.zeros_like(v) for k, v in layer.items()}  # noqa: E731
+                          for layer in tree]
+    zc = {k: np.zeros_like(v) for k, v in coeffs.items()}
+    tree = {"params": {"net": net, "coeffs": coeffs}, "count": 0,
+            "mu": {"net": zeros(net), "coeffs": zc}, "nu": {"net": zeros(net), "coeffs": zc},
+            "colloc": colloc, "epoch": 0}
+    if z is not None:
+        split = lambda a: tuple(a[:, i:i + 1] for i in range(a.shape[1]))  # noqa: E731
+        tree["z"], tree["dual"] = split(z), split(dual)
+    state = train_state_from_jax(tree, device, key=int(exp.train.seed))
+    if own_admm:
+        with torch.no_grad():
+            state = state._replace(admm=tr.admm_init(problem.training_residuals(
+                state.params, state.colloc)))
+    return state
+
+
+def cell_error(problem, p64, params, colloc) -> float:
+    """float32's own error in the weak-form cell residuals at (params,
+    colloc): max |plain float32 - plain float64| over the components (a cell
+    residual is a difference quotient of edge means, whose rounding it
+    amplifies)."""
+    from pinns_tpu_torch.train import trainer as tr
+
+    with torch.no_grad():
+        r32 = problem.flux_residuals_and_entropy(params, colloc, plain=True)[0]
+        r64 = p64.flux_residuals_and_entropy(tr.tree_map(lambda t: t.double(), params),
+                                             colloc.double(), plain=True)[0]
+    return max(float((a.double() - b).abs().max()) for a, b in zip(r32, r64))
+
+
+def hold_cells(k: int, got, want, e_r: float, carry: float, rho: float) -> tuple:
+    """z and the dual of the weak-form ADMM after step k against JAX's,
+    beside the float32 cell error ``e_r`` at that step (cell_error): z =
+    S(r + dual / rho) may differ by each side's error in r (at most 4 e_r,
+    the float64 criterion's factor) plus the dual's difference ``carry`` /
+    rho; the dual += rho (r - z) by ``carry`` + rho (4 e_r + z's bound).
+    Returns the rows and the dual's bound (the next step's carry)."""
+    z, dual = got
+    jz, jdual = want
+    tol_z = F64_FACTOR * e_r + carry / rho + STEP_TOL["z"][1] * float(np.abs(jz).max())
+    tol_d = carry + rho * (F64_FACTOR * e_r + tol_z) + \
+        STEP_TOL["dual"][1] * float(np.abs(jdual).max())
+    rows = {"z": {"max_abs_err": float(np.abs(z - jz).max()), "bound": tol_z, "cell_err": e_r},
+            "dual": {"max_abs_err": float(np.abs(dual - jdual).max()), "bound": tol_d}}
+    check(rows["z"]["max_abs_err"] <= tol_z and rows["dual"]["max_abs_err"] <= tol_d,
+          f"step {k}: z / dual against JAX {rows}")
+    return rows, tol_d
+
+
+def replay_steps(problem, step, state, fx: dict, p: str, lr: float, fed: bool,
+                 admm: bool = False, p64=None):
+    """The fixture's JAX replay: each step fed JAX's next batch (``fed``),
+    its metrics, each leaf's sums and (``admm``) z and the dual on the new
+    batch after it, the params after the first step. With ``p64`` (the
+    float64 problem of a weak-form ADMM) z, the dual and the misfit are held
+    beside float32's own cell error (hold_cells). Returns the rows and the
+    state."""
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
+    from pinns_tpu_torch.train import trainer as tr
+
+    carry = 0.0  # the dual's bound so far: both start at 1
+    rho = problem.exp.loss.rho
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(problem.device)  # noqa: E731
+    rows, k = [], 1
+    while f"{p}metrics_{k}" in fx:
+        state, m = step(state, new_colloc=t(fx[f"{p}colloc_{k}"]) if fed else None)
+        m = {n: float(v) for n, v in m.items()}
+        want = dict(zip(tr.METRIC_KEYS, fx[f"{p}metrics_{k}"].tolist()))
+        r = {n: close("loss", m[n], want[n], scale=abs(want["loss"]))
+             for n in ("loss", "data_term", "res_term")}
+        got = [host(v).astype(np.float64) for v in net_leaves(state.params["net"])]
+        r["leaf_sums"] = close("leaf_sums", np.asarray([(v.sum(), (v * v).sum()) for v in got]),
+                               fx[f"{p}sums_{k}"])
+        if admm:
+            z = np.concatenate([host(c) for c in state.admm.z], 1)
+            dual = np.concatenate([host(c) for c in state.admm.dual], 1)
+            if p64 is None:
+                r["z"] = close("z", z, fx[f"{p}z_{k}"])
+                r["dual"] = close("dual", dual, fx[f"{p}dual_{k}"],
+                                  scale=float(np.abs(fx[f"{p}dual_{k}"]).max()))
+                r["admm_misfit"] = close("loss", m["admm_misfit"], want["admm_misfit"],
+                                         scale=abs(want["loss"]))
+            else:
+                e_r = cell_error(problem, p64, state.params, state.colloc)
+                cells, carry = hold_cells(k, (z, dual), (fx[f"{p}z_{k}"], fx[f"{p}dual_{k}"]),
+                                          e_r, carry, rho)
+                r.update(cells)
+                # the misfit mean |r - z|: each side's r and z as above
+                tol = F64_FACTOR * e_r + cells["z"]["bound"]
+                err = abs(m["admm_misfit"] - want["admm_misfit"])
+                check(err <= tol, f"step {k}: misfit {m['admm_misfit']} vs JAX "
+                      f"{want['admm_misfit']} (bound {tol})")
+                r["admm_misfit"] = {"max_abs_err": err, "bound": tol}
+        else:
+            r["admm_misfit"] = close("loss", m["admm_misfit"], want["admm_misfit"],
+                                     scale=abs(want["loss"]))
+        if k == 1:
+            r["params"] = close_adam_params(flat_np(net_leaves(state.params["net"])),
+                                            fx[p + "params_1"], lr)
+        rows.append(r)
+        k += 1
+    return rows, state
+
+
+def feature_run(card: str, name: str, exp, epochs: int, want_counters, falls: bool = True
+                ) -> dict:
+    """``exp`` through Trainer.train on the card for ``epochs`` epochs (the
+    counts set to 0 just before and read just after, no plain call): the
+    launches, wall seconds, the data term (which must fall unless
+    ``falls`` is False) and the rel-L2; every counter of ``want_counters``
+    must have launched."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(exp, {"train.epochs": epochs, "train.log_every": 0})
+    trainer = tr.Trainer(exp, device="cuda")
+    state = trainer.init_state()
+    data_term = tr.make_data_term(trainer.problem)
+    with torch.no_grad():
+        loss0 = float(data_term(state.params))
+    reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        state, summary = trainer.train(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(plain.calls == 0, f"{name}: {plain.calls} calls of plain versions on the path")
+    check(all(launches[c] > 0 for c in want_counters), f"{name}: launches {launches}")
+    with torch.no_grad():
+        loss1 = float(data_term(state.params))
+    rel = {k: v for k, v in summary.items() if k.startswith("rel_l2_")}
+    check(all(math.isfinite(v) for v in rel.values()) and math.isfinite(loss1)
+          and (loss1 < loss0 or not falls), f"{name}: data term {loss0} -> {loss1}, {rel}")
+    emit(card, phase="feature-run", run=name, epochs=epochs, wall_s=wall, data_term=[loss0, loss1],
+         **rel, launches=launches, graphed_epochs=launches["generic_chunk_epochs"])
+    return {"launches": launches, "wall_s": wall, "summary": summary, "trainer": trainer}
+
+
+def phase_fourier_train(card: str) -> dict:
+    """43: Fourier training and serving on the card. burgers_forward --set
+    model.n_fourier=16 from the fixture's JAX state: one step's loss and
+    gradient, the 3-step replay, the graphed chunk bit-equal to the
+    per-epoch loop, a 2,000-epoch run; euler_admm --set model.n_fourier=16:
+    one step against JAX; the JAX-trained Fourier net served through
+    predict and HTTP against JAX's outputs; launch-counting runs of the
+    other feature modes (Fourier on the Euler trunk, Fourier with paths on
+    euler_weak_fast, K1/K2 with paths on burgers_forward)."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.serve import ServedModel, export_predict, make_http_server
+    from pinns_tpu_torch.train import trainer as tr
+
+    fx = slice2b_fixture()
+    runs, out = {}, {}
+    # burgers_forward + Fourier
+    exp = override(get_preset("burgers_forward"), FOURIER_UPDATE)
+    problem = tr.build_problem(exp, "cuda")
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    spec = problem.spec
+    check(spec.fourier == tuple(tuple(r) for r in fx["fb_fourier"].tolist())
+          and spec.lb == tuple(fx["fb_lb"]) and spec.ub == tuple(fx["fb_ub"]),
+          "burgers_forward + Fourier: spec")
+    check(np.array_equal(host(problem.x_data), fx["fb_x_data"]), "the training set differs")
+    net = flat_net(fx["fb_params_0"], spec.widths)
+    state = fixture_state(problem, net, fx["fb_colloc_0"], problem.device)
+    reset_counts()
+    loss, grad = kernel_gradient(problem, state, plain=False)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(launches["taylor2"] == 1 and launches["taylor2_backward"] == 1
+          and launches["mlp_forward"] == 1 and launches["mlp_backward"] == 1,
+          f"burgers_forward + Fourier: the loss's launches {launches}")
+    _, g64 = kernel_gradient(p64, state, plain=True, dtype=torch.float64)
+    step_rows = {"loss": close("loss", loss, fx["fb_loss_0"], scale=abs(float(fx["fb_loss_0"]))),
+                 "grad_0": close_grad(grad, fx["fb_grad_0"], spec.widths, g64)}
+    step = tr.make_step(problem, tr.learning_rate_schedule(exp.optimizer))
+    replay, _ = replay_steps(problem, step, state, fx, "fb_", exp.optimizer.learning_rate,
+                             fed=False)
+    trainer = tr.Trainer(exp, device="cuda")
+    run = trainer._get_chunk("adam")
+    start = trainer.init_state()
+    err = hold_chunk("burgers_forward+fourier", run(start, FEATURE_CHUNK_LEN),
+                     tr.run_chunk(trainer._adam_step, start, FEATURE_CHUNK_LEN))
+    emit(card, phase="fourier-step", preset="burgers_forward", n_fourier=16, step_0=step_rows,
+         launches=launches, replay_steps=len(replay), per_step=replay,
+         graphed_chunk_equals_loop=True, chunk_epochs=FEATURE_CHUNK_LEN, chunk_max_abs_err=err)
+    out["burgers_grad_err"] = step_rows["grad_0"]["max_abs_err"]
+    runs["burgers_fourier"] = feature_run(
+        card, "burgers_forward+fourier", exp, FOURIER_TRAIN_EPOCHS,
+        ("taylor2", "taylor2_backward", "mlp_forward", "mlp_backward", "generic_chunk_epochs"))
+    # euler_admm + Fourier: one step against JAX at the fixture's params
+    eexp = override(get_preset("euler_admm"), FOURIER_UPDATE)
+    eprob = tr.build_problem(eexp, "cuda")
+    e64 = tr.build_problem(override(eexp, {"model.dtype": "float64"}), "cuda")
+    check(eprob.spec.layers == tuple(int(w) for w in fx["fe_layers"]), "euler_admm + Fourier")
+    check(np.array_equal(host(eprob.x_data), fx["fe_x_data"]), "the Euler training set differs")
+    state = fixture_state(eprob, numpy_net(eprob.spec.widths, int(fx["fe_seed"])),
+                          fx["fe_colloc_0"], eprob.device, own_admm=True)
+    z0 = close("z", np.concatenate([host(c) for c in state.admm.z], 1), fx["fe_z_0"])
+    reset_counts()
+    loss, grad = kernel_gradient(eprob, state, plain=False)
+    torch.cuda.synchronize()
+    elaunches = kernel_counts()
+    check(elaunches["taylor1"] == 1 and elaunches["taylor1_backward"] == 1
+          and elaunches["mlp_forward"] == 1, f"euler_admm + Fourier: launches {elaunches}")
+    _, g64 = kernel_gradient(e64, state, plain=True, dtype=torch.float64)
+    erows = {"z_0": z0, "loss": close("loss", loss, fx["fe_loss_0"],
+                                      scale=abs(float(fx["fe_loss_0"]))),
+             "grad_0": close_grad(grad, fx["fe_grad_0"], eprob.spec.widths, g64)}
+    emit(card, phase="fourier-step", preset="euler_admm", n_fourier=16, step_0=erows,
+         launches=elaunches)
+    out["euler_grad_err"] = erows["grad_0"]["max_abs_err"]
+    runs["euler_fourier"] = feature_run(
+        card, "euler_admm+fourier", eexp, FEATURE_RUN_EPOCHS,
+        ("taylor1", "taylor1_backward", "mlp_forward", "mlp_backward"))
+    runs["weak_fourier_paths"] = feature_run(
+        card, "euler_weak_fast+fourier", override(get_preset(PATH_PRESET), FOURIER_UPDATE),
+        FEATURE_RUN_EPOCHS, ("taylor1", "taylor1_backward", "weakform_flux"))
+    runs["burgers_paths"] = feature_run(
+        card, "burgers_forward+paths", override(get_preset("burgers_forward"),
+                                                {"model.n_paths": 2}),
+        FEATURE_RUN_EPOCHS, ("taylor2", "taylor2_backward", "mlp_forward"))
+    # the JAX-trained Fourier net, served
+    lam = fx["fb_served_lambda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        art = export_predict(spec, flat_net(fx["fb_served_params"], spec.widths),
+                             os.path.join(tmp, "jax"), float(lam[0]), float(lam[1]),
+                             experiment="burgers_forward")
+        served = ServedModel(art, device="cuda")
+        check(served.spec == spec, "the served spec")
+        x = fx["fb_served_x"]
+        reset_counts()
+        got = served.predict(x, pad_to_bucket=True)
+        served_launches = kernel_counts()
+        check(served_launches["taylor2"] == 1, f"served launches {served_launches}")
+        vs_jax = {k: compare(k, got[k], fx[f"fb_served_{k}"]) for k in ("u", "f")}
+        server = make_http_server(art, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            code, _, body = http(base + "/predict", json.dumps({"x": x[:8].tolist()}).encode())
+            want8 = served.predict(x[:8], pad_to_bucket=True)
+            got8 = {k: np.asarray(v, np.float32) for k, v in json.loads(body).items()}
+            check(code == 200 and all(np.array_equal(got8[k], want8[k]) for k in want8),
+                  f"HTTP predict answered {code}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "HTTP server thread did not stop")
+    emit(card, phase="fourier-serve", preset="burgers_forward", n_fourier=16,
+         points=int(x.shape[0]), served_vs_jax=vs_jax, served_launches=served_launches,
+         http_points=8)
+    out["runs"] = runs
+    return out
+
+
+def phase_flux_admm(card: str) -> dict:
+    """44: euler_admm --set loss.admm_form=flux at the trunk: one step from
+    the fixture's params (z and the dual on the weak-form cells) and the
+    3-step replay against JAX with z and the dual after each step; the
+    graphed chunk bit-equal to the per-epoch loop; its L-BFGS phase on
+    AutogradLBFGS (K10's kernels around autograd through the loss)."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.train import trainer as tr
+
+    fx = slice2b_fixture()
+    exp = override(get_preset("euler_admm"), FLUX_UPDATE)
+    problem = tr.build_problem(exp, "cuda")
+    p64 = tr.build_problem(override(exp, {"model.dtype": "float64"}), "cuda")
+    check(problem.admm_flux and problem.flux, "euler_admm + flux: not the weak-form ADMM")
+    check(np.array_equal(host(problem.x_data), fx["fx_x_data"]), "the training set differs")
+    state = fixture_state(problem, numpy_net(problem.spec.widths, int(fx["fx_seed"])),
+                          fx["fx_colloc_0"], problem.device, own_admm=True)
+    z0 = np.concatenate([host(c) for c in state.admm.z], 1)
+    with torch.no_grad():
+        exact = p64.flux_residuals_and_entropy(
+            tr.tree_map(lambda t: t.double(), state.params), state.colloc.double(), plain=True)[0]
+    # z_0 = the cells' residual: each side's float32 against float64
+    rows = {"z_0": compare_f64("z_0", z0, fx["fx_z_0"],
+                               np.concatenate([host(c) for c in exact], 1))}
+    reset_counts()
+    loss, grad = kernel_gradient(problem, state, plain=False)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    # the inviscid cells take K5 at the edge points, the data term K5 again
+    check(launches["weakform_flux"] == 1 and launches["weakform_flux_backward"] == 1
+          and launches["mlp_forward"] == 2 and launches["mlp_backward"] == 2,
+          f"flux ADMM: the loss's launches {launches}")
+    _, g64 = kernel_gradient(p64, state, plain=True, dtype=torch.float64)
+    rows["loss"] = close("loss", loss, fx["fx_loss_0"], scale=abs(float(fx["fx_loss_0"])))
+    rows["grad_0"] = close_grad(grad, fx["fx_grad_0"], problem.spec.widths, g64)
+    step = tr.make_step(problem, tr.learning_rate_schedule(exp.optimizer))
+    replay, _ = replay_steps(problem, step, state, fx, "fx_", exp.optimizer.learning_rate,
+                             fed=True, admm=True, p64=p64)
+    trainer = tr.Trainer(exp, device="cuda")
+    start = trainer.init_state()
+    cells = problem.flux_residuals_and_entropy(start.params, start.colloc)[0]
+    check(all(torch.equal(z, c) for z, c in zip(start.admm.z, cells)),
+          "the initial z is not the cell residual")
+    err = hold_chunk("euler_admm+flux", trainer._get_chunk("adam")(start, FEATURE_CHUNK_LEN),
+                     tr.run_chunk(trainer._adam_step, start, FEATURE_CHUNK_LEN))
+    lexp = override(exp, {"optimizer.kind": "hybrid", "optimizer.switch_epoch": 0,
+                          "optimizer.lbfgs.max_iters": FLUX_LBFGS_ITERS})
+    lprob = tr.build_problem(lexp, "cuda")
+    lstep = tr.make_lbfgs_step(lprob)
+    check(isinstance(lstep.solver, k_lbfgs.AutogradLBFGS),
+          f"the flux ADMM's L-BFGS solver is {type(lstep.solver).__name__}")
+    loss0 = float(tr.make_loss_fn(lprob)(start.params, start.colloc, start.admm)[0])
+    reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        new, m = lstep(start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    llaunches = kernel_counts()
+    check(plain.calls == 0, f"{plain.calls} plain calls in the flux ADMM's L-BFGS epoch")
+    check(float(m["loss"]) < loss0 and llaunches["lbfgs_control"] > 0
+          and llaunches["lbfgs_direction"] > 0 and llaunches["weakform_flux"] > 0,
+          f"L-BFGS epoch: loss {loss0} -> {float(m['loss'])}, launches {llaunches}")
+    emit(card, phase="flux-admm", preset="euler_admm", admm_form="flux", step_0=rows,
+         launches=launches, replay_steps=len(replay), per_step=replay,
+         graphed_chunk_equals_loop=True, chunk_epochs=FEATURE_CHUNK_LEN, chunk_max_abs_err=err,
+         lbfgs={"solver": "AutogradLBFGS", "max_iters": FLUX_LBFGS_ITERS,
+                "iters": float(m["lbfgs_iters"]), "loss": [loss0, float(m["loss"])],
+                "wall_s": wall, "launches": llaunches})
+    return {"grad_err": rows["grad_0"]["max_abs_err"], "launches": launches}
+
+
+def phase_rad_swa(card: str) -> dict:
+    """45: RAD on abgrall_l2 --set sampling.strategy=rad (8x200) and on
+    hwan_admm (ADMM re-initialised): p through the kernels against the plain
+    p and JAX's on the fixture's pool, then three chunk boundaries with
+    their redraws (each a draw from its pool, the batch fixed inside a
+    chunk). SWA on twosin_weak --set train.swa_frac=0.25 over a few chunks:
+    the mean against a plain running mean of the same snapshots; train
+    --ensemble 3 with SWA: each member's SWA state equal to its solo run's."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.interop import params_from_jax
+    from pinns_tpu_torch.ops.kernels.taylor2 import net_leaves
+    from pinns_tpu_torch.train import trainer as tr
+
+    fx = slice2b_fixture()
+    out = {}
+    for preset in ("abgrall_l2", "hwan_admm"):
+        p_ = f"rad_{preset}_"
+        exp = override(get_preset(preset), {"sampling.strategy": "rad",
+                                            "train.chunk": RAD_CHUNK})
+        trainer = tr.Trainer(exp, device="cuda")
+        problem = trainer.problem
+        state = trainer.init_state()
+        params = dict(state.params, net=params_from_jax(
+            numpy_net(problem.spec.widths, int(fx[p_ + "seed"])), problem.device))
+        pool = torch.from_numpy(fx[p_ + "pool"]).cuda()
+        with torch.no_grad():
+            reset_counts()
+            p = tr.rad_probabilities(problem, params, pool)
+            torch.cuda.synchronize()
+            plaunch = kernel_counts()
+            plain = tr.rad_probabilities(problem, params, pool, plain=True)
+        check(plaunch["taylor2"] > 0, f"{preset}: p scored off K1 {plaunch}")
+        p_rows = {"vs_plain": compare_rtol(f"{preset} p", host(p), host(plain), 1e-5),
+                  "vs_jax": compare_rtol(f"{preset} p vs JAX", host(p), fx[p_ + "p"], 1e-5)}
+        seen = []
+        orig = tr.rad_resample
+
+        def spy(problem_, st, plain_=False):
+            new = orig(problem_, st, plain_)
+            lb, ub = tr._curriculum_bounds(problem_, int(st.epoch))
+            pool_ = philox_uniform(st.key, tr.RAD_POOL + int(st.epoch),
+                                   problem_.exp.sampling.rad_pool_factor * new.colloc.shape[0],
+                                   lb, ub, torch.float32, "cuda")
+            idx = torch.cdist(new.colloc, pool_,
+                              compute_mode="donot_use_mm_for_euclid_dist").argmin(dim=1)
+            from_pool = float((pool_.index_select(0, idx) - new.colloc).abs().max())
+            moved = not torch.equal(new.colloc, st.colloc)
+            reinit = None
+            if new.admm is not None:
+                z = problem_.training_residuals(new.params, new.colloc)
+                reinit = bool(torch.equal(new.admm.z, z)
+                              and torch.equal(new.admm.dual, torch.ones_like(z)))
+            seen.append({"epoch": int(st.epoch), "max_dist_to_pool": from_pool,
+                         "moved": moved, "admm_reinit": reinit})
+            return new
+
+        tr.rad_resample = spy
+        try:
+            # hwan_admm's ADMM restarts at every redraw and its data term
+            # rises over these 200 epochs, in JAX's trainer too (0.295 ->
+            # 0.899 on the CPU)
+            run = feature_run(card, f"{preset}+rad", exp, RAD_CHUNK * RAD_CHUNKS,
+                              ("taylor2", "taylor2_backward", "philox_draw"),
+                              falls=preset != "hwan_admm")
+        finally:
+            tr.rad_resample = orig
+        check([s["epoch"] for s in seen] == [RAD_CHUNK * i for i in range(1, RAD_CHUNKS)]
+              and all(s["max_dist_to_pool"] == 0.0 and s["moved"] for s in seen)
+              and all(s["admm_reinit"] in (None, True) for s in seen),
+              f"{preset}: redraws {seen}")
+        # inside a chunk the batch stays: a chunk of the trained state
+        st = run["trainer"].init_state()
+        st1, _ = run["trainer"]._get_chunk("adam")(st, 3)
+        check(torch.equal(st1.colloc, st.colloc), f"{preset}: the batch moved inside a chunk")
+        emit(card, phase="rad", preset=preset, p=p_rows, p_launches=plaunch,
+             pool=int(pool.shape[0]), redraws=seen, chunk=RAD_CHUNK)
+        out[preset] = run
+    # SWA
+    exp = override(get_preset("twosin_weak"), {"train.swa_frac": SWA_RUN["frac"],
+                                               "train.chunk": SWA_RUN["chunk"]})
+    snaps = []
+    orig = tr.swa_update
+
+    def spy_swa(avg, n, params_):
+        snaps.append(tr.tree_map(torch.clone, params_))
+        return orig(avg, n, params_)
+
+    tr.swa_update = spy_swa
+    try:
+        run = feature_run(card, "twosin_weak+swa", exp, SWA_RUN["epochs"],
+                          ("weakform_flux", "mlp_forward"))
+    finally:
+        tr.swa_update = orig
+    trainer = run["trainer"]
+    want_n = sum(1 for e in range(SWA_RUN["chunk"], SWA_RUN["epochs"] + 1, SWA_RUN["chunk"])
+                 if e > SWA_RUN["epochs"] - round(SWA_RUN["frac"] * SWA_RUN["epochs"]))
+    check(len(snaps) == want_n == run["summary"]["swa_snapshots"],
+          f"SWA snapshots {len(snaps)}, want {want_n}")
+    mean = None
+    for i, s in enumerate(snaps):  # the plain running mean, leaf by leaf, in float32
+        leaves = [t.float() for t in net_leaves(s["net"])]
+        # by a device tensor: a true division, as JAX's (ATen multiplies by
+        # the reciprocal of a host scalar on the card)
+        n = torch.tensor(float(i + 1), device="cuda")
+        mean = leaves if mean is None else [a + (x - a) / n for a, x in zip(mean, leaves)]
+    swa_err = max(float((a - b).abs().max())
+                  for a, b in zip(net_leaves(trainer.swa_params["net"]), mean))
+    check(swa_err == 0.0, f"SWA mean differs from the plain running mean by {swa_err}")
+    swa_rel = {k: v for k, v in run["summary"].items() if k.startswith("swa_rel_l2")}
+    emit(card, phase="swa", preset="twosin_weak", snapshots=len(snaps),
+         swa_vs_plain_max_abs_err=swa_err, **swa_rel)
+    out["swa"] = run
+    # an ensemble with SWA against its members' solo runs, through the CLI
+    c = SWA_ENSEMBLE
+    common = ["--preset", "twosin_weak", "--device", "cuda", "--epochs", str(c["epochs"]),
+              "--set", f"train.swa_frac={c['frac']}", "--set", f"train.chunk={c['chunk']}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = lambda name: os.path.join(tmp, name)  # noqa: E731
+        reset_counts()
+        rc, lines = cli_lines(["train", *common, "--ensemble", str(c["members"]),
+                               "--out-dir", d("ens")])
+        launches = kernel_counts()
+        check(rc == 0, f"train --ensemble with SWA exited {rc}")
+        for i in range(c["members"]):
+            rc, _ = cli_lines(["train", *common, "--seed", str(1234 + i), "--out-dir", d(f"s{i}")])
+            check(rc == 0, f"solo train exited {rc}")
+            for tag in ("swa", "final"):
+                check(same_state(d(f"ens/twosin_weak_{tag}_m{i}.ckpt"),
+                                 d(f"s{i}/twosin_weak_{tag}.ckpt")),
+                      f"member {i}'s {tag} state differs from its solo run")
+        emit(card, phase="swa-ensemble", preset="twosin_weak", members=c["members"],
+             epochs=c["epochs"], members_equal_solo=True,
+             swa_snapshots=[s.get("swa_snapshots") for s in lines[:c["members"]]],
+             launches=launches)
+    out["swa_ensemble_launches"] = launches
+    return out
+
+
+def compare_rtol(name: str, got, want, rtol: float) -> dict:
+    """``got`` within rtol of ``want`` everywhere; raises if not."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), f"{name}: shape or finite")
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    check(rel <= rtol, f"{name}: max relative error {rel} > {rtol}")
+    return {"max_rel_err": rel, "max_abs_err": float(np.abs(got - want).max()), "rtol": rtol}
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5751,6 +6489,19 @@ def main() -> int:
     # -- 41: K9 for the generic step and K11 (phases 15, 22, 26, 29 trained on them)
     generic = timed(card, "generic-chunk", phase_generic_chunk, card)
 
+    # -- 42-45: the rest of slice 2b-iii (Fourier features in K1/K2, K7a and
+    # K5; K1/K2's shock paths; the weak-form ADMM; RAD; SWA)
+    t_2b = time.perf_counter()
+    feats = timed(card, "fourier-kernels", phase_features, card)
+    fourier = timed(card, "fourier-train", phase_fourier_train, card)
+    timed(card, "flux-admm", phase_flux_admm, card)
+    timed(card, "rad-swa", phase_rad_swa, card)
+    emit(card, phase="wall", of="phases 42-45", seconds=time.perf_counter() - t_2b)
+    fruns = fourier["runs"]
+
+    def feat(counter, family, layers, n, f, k, which, run):
+        return feature_entry(fruns, counter, feats, (family, layers, n, f, k), which, run)
+
     check(main_err is not None and math.isfinite(main_ms), "main-shape numbers missing")
     k5_main, k5_wide, k2_main = (NARROW, 100), (WIDE, 100), (NARROW, 1_000)
     k5_wide_launches = scale["f32"]["launches"]
@@ -5766,6 +6517,15 @@ def main() -> int:
         "ms": main_ms,
         "plain_ms": main_plain_ms,
         **bound_fields(taylor2_bound(*MAIN_SHAPE)),
+        # the tiled design with Fourier features (F 16: input width 34) and
+        # with two shock paths (phase 42); launches: phase 43's
+        # burgers_forward runs with each
+        "fourier_8x20_n25600": feat("taylor2", "taylor2", NARROW, 25_600, 16, 0, "forward",
+                                    "burgers_fourier"),
+        "fourier_8x200_n8192": feat("taylor2", "taylor2", WIDE, 8_192, 16, 0, "forward",
+                                    "burgers_fourier"),
+        "paths_8x20_n1000": feat("taylor2", "taylor2", NARROW, 1_000, 0, 2, "forward",
+                                 "burgers_paths"),
     }, {
         "name": "fused_step",
         "route": "cuda",
@@ -5818,6 +6578,10 @@ def main() -> int:
         # the wide design with two shock paths on euler_weak_fast's data term
         "paths_euler_n200": path_entry(ewf, "mlp_forward", paths_err, t9, "k5",
                                        PATH_K5_MAIN, 0),
+        # with Fourier features on the Euler trunk (phase 42); launches:
+        # phase 43's euler_admm run with them
+        "fourier_euler_n1000": feat("mlp_forward", "mlp", EULER, 1_000, 16, 0, "forward",
+                                    "euler_fourier"),
     }, {
         "name": "mlp_backward",
         "route": "cuda",
@@ -5839,6 +6603,8 @@ def main() -> int:
         },
         "paths_euler_n200": path_entry(ewf, "mlp_backward", paths_err, t9, "k5",
                                        PATH_K5_MAIN, 1),
+        "fourier_euler_n1000": feat("mlp_backward", "mlp", EULER, 1_000, 16, 0, "backward",
+                                    "euler_fourier"),
     }, {
         "name": "taylor2_backward",
         "route": "cuda",
@@ -5849,6 +6615,10 @@ def main() -> int:
         "ms": t3[("k2",) + k2_main][0],
         "plain_ms": t3[("k2",) + k2_main][1],
         **bound_fields(taylor2_backward_bound(*k2_main)),
+        "fourier_8x20_n1000": feat("taylor2_backward", "taylor2", NARROW, 1_000, 16, 0,
+                                   "backward", "burgers_fourier"),
+        "paths_8x20_n1000": feat("taylor2_backward", "taylor2", NARROW, 1_000, 0, 2,
+                                 "backward", "burgers_paths"),
     }, {
         "name": "taylor2_mixed",
         "route": "cuda",
@@ -5882,6 +6652,13 @@ def main() -> int:
         # with two shock paths at euler_weak_fast's edge points; its
         # launches: phase 29's first seed (edge points and centres)
         "paths_n16000": path_entry(ewf, "taylor1", paths_err, t9, "k7a", PATH_K7A_MAIN, 0),
+        # with Fourier features (F 16: input width 34) on the trunk, and with
+        # Fourier features and two paths (phase 42); launches: phase 43's
+        # euler_admm and euler_weak_fast runs with them
+        **{f"fourier_euler_n{n}": feat("taylor1", "taylor1", EULER, n, 16, 0, "forward",
+                                       "euler_fourier") for n in (1_000, 16_000)},
+        "fourier_paths_euler_n16000": feat("taylor1", "taylor1", EULER, 16_000, 16, 2,
+                                           "forward", "weak_fourier_paths"),
     }, {
         "name": "taylor1_backward",
         "route": "cuda",
@@ -5894,6 +6671,10 @@ def main() -> int:
         **bound_fields(taylor1_backward_bound(*K7A_MAIN)),
         "paths_n16000": path_entry(ewf, "taylor1_backward", paths_err, t9, "k7a",
                                    PATH_K7A_MAIN, 1),
+        **{f"fourier_euler_n{n}": feat("taylor1_backward", "taylor1", EULER, n, 16, 0,
+                                       "backward", "euler_fourier") for n in (1_000, 16_000)},
+        "fourier_paths_euler_n16000": feat("taylor1_backward", "taylor1", EULER, 16_000, 16, 2,
+                                           "backward", "weak_fourier_paths"),
     }] + [{
         # K7a's narrow design (8x20): twosin_weak's edge points, phase 26's
         # first seed its launches

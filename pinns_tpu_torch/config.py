@@ -31,7 +31,7 @@ class ModelConfig:
     compute_dtype: str = ""
     keep_streams: Tuple[str, ...] = ()
     mixed_elementwise: bool = False
-    n_fourier: int = 0  # Fourier features: slice 2b-iii
+    n_fourier: int = 0  # Fourier features (models.mlp.fourier_matrix)
     fourier_sigma: float = 3.0
     fourier_seed: int = 0
     n_paths: int = 0  # trainable shock paths (slice 2b-ii)
@@ -53,7 +53,7 @@ class PDEConfig:
 class SamplingConfig:
     n_f: int = 1000
     # 'resample_uniform' | 'fixed_uniform' | 'fixed_lhs' | 'fixed_lhs_anchored'
-    # | 'rad' (slice 2)
+    # | 'rad' (redrawn at chunk boundaries: train.trainer.rad_resample)
     strategy: str = "resample_uniform"
     rad_pool_factor: int = 8
     rad_k: float = 1.0
@@ -137,7 +137,7 @@ class TrainConfig:
     out_dir: str = ""  # empty = no file output
     profile_dir: str = ""  # trace the second chunk with torch.profiler into this directory
     stop_tol: float = 0.0  # stop once |loss| <= stop_tol, checked per chunk
-    swa_frac: float = 0.0  # SWA: slice 2
+    swa_frac: float = 0.0  # SWA over the tail: train.trainer.swa_update
 
 
 @_frozen

@@ -55,9 +55,12 @@
 //             128-point tile in double (db_l-1); then wide_reduce_kernel: one
 //             thread per parameter, in double, a weight's partials and a
 //             bias's per-tile sums, each in a fixed order.
-// Shock-path features (wide design only; csrc/paths.cuh): with K paths the
-// input pass writes H_0 = [x^, t^, phi_1 .. phi_K, 1, 0 ...] from path_c
-// and path_a (after the trunk in the flat params); the backward takes layer
+// Fourier and shock-path features (wide design only; csrc/fourier.cuh,
+// csrc/paths.cuh): with F Fourier features and K paths the input pass writes
+// H_0 = [x^, t^, sin z_1..F, cos z_1..F, phi_1 .. phi_K, 1, 0 ...] from B
+// (by value) and from path_c and path_a (after the trunk in the flat
+// params). B is fixed, so the Fourier features need no backward; with paths
+// the backward takes layer
 // 0's gH = G W_0^T in the launch of its dW, and one pass with a thread a
 // point applies the paths' chain rule to gH's path columns, summing per
 // 128-point block in double, which the reduction sums in block order (one
@@ -331,25 +334,27 @@ struct TanhStore {
   }
 };
 
-// H_0 (n_pad x ld_h(2 + K)): normalized (x, t), the path features, the
-// indicator 1 and zeros (write_input_rows); points past n at (0, 0).
+// H_0 (n_pad x ld_h(2 + 2F + K)): normalized (x, t), the Fourier and the
+// path features, the indicator 1 and zeros (write_input_rows); points past
+// n at (0, 0).
 __global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
-                             Paths paths, float* __restrict__ H) {
-  const int ld = ld_h(2 + paths.k);
+                             Fourier fo, Paths paths, float* __restrict__ H) {
+  const int ld = ld_h(embed_width(fo, paths));
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pad; p += gridDim.x * blockDim.x) {
     float xn, tn;
     normalized_point(x, p, n, box, &xn, &tn);
-    write_input_rows(paths, xn, tn, 0.0f, 0.0f, ld, H + static_cast<long long>(p) * ld, nullptr,
-                     nullptr);
+    write_input_rows(fo, paths, xn, tn, 0.0f, 0.0f, ld, 1, H + static_cast<long long>(p) * ld,
+                     nullptr, nullptr, nullptr);
   }
 }
 
 // The path gradient's per-block partials (path_grad_block) from gH_0 (n_pad
-// x ld_g), the adjoints of H_0's columns, the path columns from 2 on.
-__global__ void path_grad_kernel(const float* __restrict__ x, int n, Box box, Paths paths,
-                                 const float* __restrict__ gh, int ld_g,
+// x ld_g), the adjoints of H_0's columns, the path columns from 2 + 2F on.
+__global__ void path_grad_kernel(const float* __restrict__ x, int n, Box box, int n_fourier,
+                                 Paths paths, const float* __restrict__ gh, int ld_g,
                                  double* __restrict__ psums) {
-  path_grad_block(x, n, box, paths, gh + 2, nullptr, nullptr, ld_g, psums);
+  path_grad_block(x, n, box, paths, gh + 2 + 2 * n_fourier, nullptr, nullptr, nullptr, ld_g,
+                  psums);
 }
 
 // The head's adjoints G (n_pad x d): the cotangent, zero past n; sums (tiles
@@ -432,8 +437,8 @@ cudaError_t hidden_products(const Net& net, const float* params, const float* h0
 
 // u (n x dims[L]) = the head's product over the last hidden output.
 template <class Cfg>
-int forward_wide(const float* x, int n, const float* params, const Net& net, const Paths& paths,
-                 const Box& box, int n_pad, float* scratch, long long scratch_floats, float* u,
+int forward_wide(const float* x, int n, const float* params, const Net& net,
+                 const Fourier& fo, const Paths& paths, const Box& box, int n_pad, float* scratch, long long scratch_floats, float* u,
                  cudaStream_t s) {
   Carve c{scratch, 0};
   float* h0 = c.take(static_cast<long long>(n_pad) * ld_h(net.dims[0]));
@@ -442,7 +447,7 @@ int forward_wide(const float* x, int n, const float* params, const Net& net, con
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
   float* out[kMaxLayers];
   for (int l = 0; l + 1 < net.n_layers; ++l) out[l] = hbuf + (l % 2) * plane;
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, fo, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   PINNS_CHECK(hidden_products<Cfg>(net, params, h0, n_pad, out, s));
   const int l = net.n_layers - 1, din = net.dims[l], dout = net.dims[l + 1];
@@ -455,7 +460,7 @@ int forward_wide(const float* x, int n, const float* params, const Net& net, con
 
 template <class Cfg>
 int backward_wide(const float* x, int n, const float* params, const Net& net,
-                  const Paths& paths, const Box& box, int n_pad, int split_rows, int splits,
+                  const Fourier& fo, const Paths& paths, const Box& box, int n_pad, int split_rows, int splits,
                   int gh_splits, const float* gout, float* scratch, long long scratch_floats,
                   float* grad, cudaStream_t s) {
   const int L = net.n_layers, tiles = n_pad / kTile;
@@ -480,7 +485,7 @@ int backward_wide(const float* x, int n, const float* params, const Net& net,
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
   float* H[kMaxLayers];
   for (int l = 0; l + 1 < L; ++l) H[l] = hstore + h_off[l];
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, fo, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   PINNS_CHECK(hidden_products<Cfg>(net, params, h0, n_pad, H, s));
 
@@ -515,8 +520,8 @@ int backward_wide(const float* x, int n, const float* params, const Net& net,
             dw, dw_bx, dw_by, splits, gh, gh_bx, gh_by);
     PINNS_CHECK(cudaGetLastError());
     if (l == 0) {
-      path_grad_kernel<<<tiles, kTile, kTile * sizeof(double), s>>>(x, n, box, paths, gh_parts,
-                                                                    din, psums);
+      path_grad_kernel<<<tiles, kTile, kTile * sizeof(double), s>>>(x, n, box, fo.f, paths,
+                                                                    gh_parts, din, psums);
       PINNS_CHECK(cudaGetLastError());
       break;
     }
@@ -532,14 +537,14 @@ int backward_wide(const float* x, int n, const float* params, const Net& net,
 
 // The checks both wide launchers make of a plan (n >= 1): a padding that is
 // a whole number of row tiles, a tile the file instantiates, an aligned
-// scratch, paths within bounds and an input width 2 + n_paths, operands that
-// 32-bit offsets reach.
-bool wide_plan_ok(const int* dims, int n_layers, int n_paths, int path_degree, int n, int n_pad,
-                  int tile, const float* scratch, Net* net) {
+// scratch, Fourier features and paths within bounds and an input width 2 +
+// 2 n_fourier + n_paths, operands that 32-bit offsets reach.
+bool wide_plan_ok(const int* dims, int n_layers, int n_fourier, int n_paths, int path_degree,
+                  int n, int n_pad, int tile, const float* scratch, Net* net) {
   if (n < 1 || n_pad < n || n_pad % kTile != 0 || n_pad / kTile > 65535 ||
       (tile != SmallTile::kBM && tile != LargeTile::kBM) ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0 || !paths_ok(n_paths, path_degree) ||
-      !make_net(dims, n_layers, net, 2 + n_paths)) {
+      !fourier_ok(n_fourier) || !make_net(dims, n_layers, net, 2 + 2 * n_fourier + n_paths)) {
     return false;
   }
   return static_cast<long long>(n_pad) * ld_h(net->max_width) <= 0x7fffffffLL;
@@ -607,7 +612,9 @@ extern "C" int pinns_mlp_backward(const float* x, int n, const float* params, co
 }
 
 // The wide design's forward: u = MLP(x), (n, dims[n_layers]), on `stream`.
-// dims[0] = 2 + n_paths; with n_paths > 0 `params` ends with path_c
+// dims[0] = 2 + 2 n_fourier + n_paths; `fourier` (host) the 2 n_fourier
+// frequencies, 2 pi B[:, 0] then 2 pi B[:, 1] (csrc/fourier.cuh), null
+// without Fourier features; with n_paths > 0 `params` ends with path_c
 // (n_paths x (path_degree + 1)) and path_a (n_paths) after the trunk.
 // The points are padded to n_pad and the products take the block tile
 // `tile` (32 or 128); `scratch` (16-byte aligned, scratch_floats floats)
@@ -617,24 +624,27 @@ extern "C" int pinns_mlp_backward(const float* x, int n, const float* params, co
 // is refused with cudaErrorInvalidValue. Returns the CUDA error code of the
 // first launch that failed (0 on success).
 extern "C" int pinns_mlp_forward_wide(const float* x, int n, const float* params,
-                                      const int* dims, int n_layers, int n_paths,
+                                      const int* dims, int n_layers, int n_fourier,
+                                      const float* fourier, int n_paths,
                                       int path_degree, float lb0, float lb1, float ub0,
                                       float ub1, int n_pad, int tile, float* scratch,
                                       long long scratch_floats, float* u, int device,
                                       void* stream) {
   Net net;
-  if (!wide_plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net)) {
+  if (!wide_plan_ok(dims, n_layers, n_fourier, n_paths, path_degree, n, n_pad, tile, scratch,
+                    &net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PINNS_CHECK(cudaSetDevice(device));
   const Box box{lb0, lb1, ub0, ub1};
   const float* pc = params + net.n_params;
   const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
+  const Fourier fo = make_fourier(n_fourier, fourier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? forward_wide<SmallTile>(x, n, params, net, paths, box, n_pad, scratch,
+             ? forward_wide<SmallTile>(x, n, params, net, fo, paths, box, n_pad, scratch,
                                        scratch_floats, u, s)
-             : forward_wide<LargeTile>(x, n, params, net, paths, box, n_pad, scratch,
+             : forward_wide<LargeTile>(x, n, params, net, fo, paths, box, n_pad, scratch,
                                        scratch_floats, u, s);
 }
 
@@ -653,14 +663,16 @@ extern "C" int pinns_mlp_forward_wide(const float* x, int n, const float* params
 // that does not fit this layout (a split that does not cover the rows
 // exactly, a smaller scratch, ...) is refused with cudaErrorInvalidValue.
 extern "C" int pinns_mlp_backward_wide(const float* x, int n, const float* params,
-                                       const int* dims, int n_layers, int n_paths,
+                                       const int* dims, int n_layers, int n_fourier,
+                                       const float* fourier, int n_paths,
                                        int path_degree, float lb0, float lb1, float ub0,
                                        float ub1, int n_pad, int tile, int split_rows,
                                        int splits, int gh_splits, const float* gout,
                                        float* scratch, long long scratch_floats, float* grad,
                                        int device, void* stream) {
   Net net;
-  if (!wide_plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net) ||
+  if (!wide_plan_ok(dims, n_layers, n_fourier, n_paths, path_degree, n, n_pad, tile, scratch,
+                    &net) ||
       split_rows < 1 ||
       split_rows % kDepth != 0 || splits < 1 || splits > 65535 || gh_splits < 1 ||
       gh_splits > kMaxGhSplits ||
@@ -672,12 +684,13 @@ extern "C" int pinns_mlp_backward_wide(const float* x, int n, const float* param
   const Box box{lb0, lb1, ub0, ub1};
   const float* pc = params + net.n_params;
   const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
+  const Fourier fo = make_fourier(n_fourier, fourier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? backward_wide<SmallTile>(x, n, params, net, paths, box, n_pad, split_rows,
+             ? backward_wide<SmallTile>(x, n, params, net, fo, paths, box, n_pad, split_rows,
                                         splits, gh_splits, gout, scratch, scratch_floats, grad,
                                         s)
-             : backward_wide<LargeTile>(x, n, params, net, paths, box, n_pad, split_rows,
+             : backward_wide<LargeTile>(x, n, params, net, fo, paths, box, n_pad, split_rows,
                                         splits, gh_splits, gout, scratch, scratch_floats, grad,
                                         s);
 }

@@ -50,11 +50,14 @@
 //             parameter sums, in double and in a fixed order, a weight's
 //             partials or a bias's per-tile sums. 2 L + 2 launches (14 at the
 //             Euler trunk).
-// Shock-path features (csrc/paths.cuh; pinns_tpu/models/mlp.py:242-291):
-// with K paths, H_0's rows become [x^, t^, phi_1 .. phi_K, 1, 0 ...] and the
-// tangent rows carry each point's phi_x and phi_t, computed in the input pass
-// from path_c and path_a (after the trunk in the flat params), so that
-// [W_0; b_0] has 2 + K + 1 rows. The backward then takes layer 0's gH too,
+// Fourier and shock-path features (csrc/fourier.cuh, csrc/paths.cuh;
+// pinns_tpu/models/mlp.py:223-340): with F Fourier features and K paths,
+// H_0's rows become [x^, t^, sin z_1..F, cos z_1..F, phi_1 .. phi_K, 1, 0
+// ...] and the tangent rows carry each point's x and t streams of them,
+// computed in the input pass from B (by value) and from path_c and path_a
+// (after the trunk in the flat params), so that [W_0; b_0] has 2 + 2F + K + 1
+// rows. B is fixed, so the Fourier features need no backward of their own;
+// with paths the backward takes layer 0's gH too,
 // in the launch of its dW, and one pass with a thread a point applies the
 // paths' chain rule to gH's path columns of the three streams, summing per
 // 128-point block in double; the reduction sums the blocks in order. The
@@ -295,30 +298,33 @@ __device__ __forceinline__ int unit(const Frag& f, int j) {
   return f.n + 32 * (j / 4) + j % 4;
 }
 
-// H_0 (3 n_pad x ld_h(2 + K)): normalized (x, t), the path features, the
-// indicator 1 on value rows and zeros; the tangent rows (2/(ub0-lb0), 0,
-// phi_x ..) and (0, 2/(ub1-lb1), phi_t ..) (write_input_rows). Points past n
-// take the streams of (0, 0).
+// H_0 (3 n_pad x ld_h(2 + 2F + K)): normalized (x, t), the Fourier and the
+// path features, the indicator 1 on value rows and zeros; the tangent rows
+// (2/(ub0-lb0), 0, ..) and (0, 2/(ub1-lb1), ..) with the features' x and t
+// streams (csrc/fourier.cuh::write_input_rows). Points past n take the
+// streams of (0, 0).
 __global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
-                             Paths paths, float* __restrict__ H) {
-  const int ld = ld_h(2 + paths.k);
+                             Fourier fo, Paths paths, float* __restrict__ H) {
+  const int ld = ld_h(embed_width(fo, paths));
   const long long sH = static_cast<long long>(n_pad) * ld;
   const float sx = 2.0f / (box.ub0 - box.lb0), st = 2.0f / (box.ub1 - box.lb1);
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pad; p += gridDim.x * blockDim.x) {
     float xn, tn;
     normalized_point(x, p, n, box, &xn, &tn);
     float* row = H + static_cast<long long>(p) * ld;
-    write_input_rows(paths, xn, tn, sx, st, ld, row, row + sH, row + 2 * sH);
+    write_input_rows(fo, paths, xn, tn, sx, st, ld, 1, row, row + sH, row + 2 * sH, nullptr);
   }
 }
 
 // The path gradient's per-block partials (path_grad_block) from gH_0 (3 n_pad
-// x ld_g), the adjoints of H_0's columns, the path columns from 2 on.
+// x ld_g), the adjoints of H_0's columns, the path columns from 2 + 2F on.
 __global__ void path_grad_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
-                                 Paths paths, const float* __restrict__ gh, int ld_g,
-                                 double* __restrict__ psums) {
+                                 int n_fourier, Paths paths, const float* __restrict__ gh,
+                                 int ld_g, double* __restrict__ psums) {
   const long long plane = static_cast<long long>(n_pad) * ld_g;
-  path_grad_block(x, n, box, paths, gh + 2, gh + plane + 2, gh + 2 * plane + 2, ld_g, psums);
+  const int c = 2 + 2 * n_fourier;
+  path_grad_block(x, n, box, paths, gh + c, gh + plane + c, gh + 2 * plane + c, nullptr, ld_g,
+                  psums);
 }
 
 // The output streams of a hidden unit at its pre-activations (a, ax, at).
@@ -619,29 +625,29 @@ int hidden_layers(const Net& net, const float* params, const float* h0, int n_pa
 
 // The checks both wide launchers make of a plan (n >= 1): a padding that is
 // a whole number of row tiles, a tile the file instantiates, an aligned
-// scratch, paths within bounds and an input width 2 + n_paths, operands that
-// 32-bit offsets reach.
-bool plan_ok(const int* dims, int n_layers, int n_paths, int path_degree, int n, int n_pad,
-             int tile, const float* scratch, Net* net) {
+// scratch, Fourier features and paths within bounds and an input width 2 +
+// 2 n_fourier + n_paths, operands that 32-bit offsets reach.
+bool plan_ok(const int* dims, int n_layers, int n_fourier, int n_paths, int path_degree, int n,
+             int n_pad, int tile, const float* scratch, Net* net) {
   if (n < 1 || n_pad < n || n_pad % kTile != 0 || n_pad / kTile > 65535 ||
       (tile != SmallTile::kBM && tile != LargeTile::kBM) ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0 || !paths_ok(n_paths, path_degree) ||
-      !make_net(dims, n_layers, net, 2 + n_paths)) {
+      !fourier_ok(n_fourier) || !make_net(dims, n_layers, net, 2 + 2 * n_fourier + n_paths)) {
     return false;
   }
   return static_cast<long long>(kStreams) * n_pad * ld_h(net->max_width) <= 0x7fffffffLL;
 }
 
 template <class Cfg>
-int forward(const float* x, int n, const float* params, const Net& net, const Paths& paths,
-            const Box& box, int n_pad, float* scratch, long long scratch_floats, float* y,
+int forward(const float* x, int n, const float* params, const Net& net, const Fourier& fo,
+            const Paths& paths, const Box& box, int n_pad, float* scratch, long long scratch_floats, float* y,
             float* y_x, float* y_t, cudaStream_t s) {
   const long long rows = static_cast<long long>(kStreams) * n_pad;
   Carve c{scratch, 0};
   float* h0 = c.take(rows * ld_h(net.dims[0]));
   float* hbuf[2] = {c.take(rows * ld_h(net.max_width)), c.take(rows * ld_h(net.max_width))};
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, fo, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   // H_l (l >= 1) ping-pongs between the two buffers
   const auto Hof = [&](int l) { return hbuf[(l - 1) % 2]; };
@@ -656,8 +662,8 @@ int forward(const float* x, int n, const float* params, const Net& net, const Pa
 }
 
 template <class Cfg>
-int backward(const float* x, int n, const float* params, const Net& net, const Paths& paths,
-             const Box& box, int n_pad, int split_rows, int splits, const float* gy,
+int backward(const float* x, int n, const float* params, const Net& net, const Fourier& fo,
+             const Paths& paths, const Box& box, int n_pad, int split_rows, int splits, const float* gy,
              const float* gyx, const float* gyt, float* scratch, long long scratch_floats,
              float* grad, cudaStream_t s) {
   using T3 = typename ThreeOf<Cfg>::Grad;
@@ -680,7 +686,7 @@ int backward(const float* x, int n, const float* params, const Net& net, const P
   float* partials = c.take(static_cast<long long>(splits) * net.n_params);
   double* psums = reinterpret_cast<double*>(c.take(2LL * blocks * paths.n_params()));
   if (c.used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, paths, h0);
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, fo, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   const auto Hof = [&](int l) { return hstore + h_off[l]; };
   const int err = hidden_layers<typename ThreeOf<Cfg>::Layer>(net, params, h0, n_pad, Hof, s);
@@ -712,8 +718,8 @@ int backward(const float* x, int n, const float* params, const Net& net, const P
       pair_kernel<Cfg, T3, false><<<grid, Cfg::kThreads, 0, s>>>(dw, dw_bx, dw_by, splits, gh,
                                                                  gh_bx, nullptr, 0, Gn, nullptr);
       PINNS_CHECK(cudaGetLastError());
-      path_grad_kernel<<<blocks, kTile, kTile * sizeof(double), s>>>(x, n, n_pad, box, paths, Gn,
-                                                                     din, psums);
+      path_grad_kernel<<<blocks, kTile, kTile * sizeof(double), s>>>(x, n, n_pad, box, fo.f,
+                                                                     paths, Gn, din, psums);
       PINNS_CHECK(cudaGetLastError());
       break;
     }
@@ -757,11 +763,13 @@ __device__ __forceinline__ void narrow_inputs(float* buf, int plane, int ts,
                                               const float* __restrict__ x, int n, long long p0,
                                               int tile, const Box& box) {
   const Paths none{0, 0, nullptr, nullptr};
+  Fourier plain;
+  plain.f = 0;
   const float sx = 2.0f / (box.ub0 - box.lb0), st = 2.0f / (box.ub1 - box.lb1);
   for (int p = threadIdx.x; p < tile; p += blockDim.x) {
     float xn, tn, hv[4], hx[4], ht[4];
     normalized_point(x, p0 + p, n, box, &xn, &tn);
-    write_input_rows(none, xn, tn, sx, st, 4, hv, hx, ht);
+    write_input_rows(plain, none, xn, tn, sx, st, 4, 1, hv, hx, ht, nullptr);
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       buf[k * ts + p] = hv[k];
@@ -1033,7 +1041,9 @@ using namespace k7;
 }  // namespace
 
 // (y, y_x, y_t) of the MLP at x on `stream`, the wide design. `dims` (host)
-// holds n_layers + 1 widths, dims[0] = 2 + n_paths; `params` (device) W_0,
+// holds n_layers + 1 widths, dims[0] = 2 + 2 n_fourier + n_paths; `fourier`
+// (host) the 2 n_fourier frequencies, 2 pi B[:, 0] then 2 pi B[:, 1]
+// (csrc/fourier.cuh), null without Fourier features; `params` (device) W_0,
 // b_0, W_1, b_1, ... back to back, then with n_paths > 0 path_c (n_paths x
 // (path_degree + 1)) and path_a (n_paths). x is (n, 2), each output (n,
 // dims[n_layers]), float32, contiguous, on device `device`. The points are
@@ -1045,24 +1055,27 @@ using namespace k7;
 // cudaErrorInvalidValue. Returns the CUDA error code of the first launch
 // that failed (0 on success).
 extern "C" int pinns_taylor1_forward(const float* x, int n, const float* params, const int* dims,
-                                     int n_layers, int n_paths, int path_degree, float lb0,
+                                     int n_layers, int n_fourier, const float* fourier,
+                                     int n_paths, int path_degree, float lb0,
                                      float lb1, float ub0, float ub1, int n_pad, int tile,
                                      float* scratch, long long scratch_floats, float* y,
                                      float* y_x, float* y_t, int device, void* stream) {
   Net net;
-  if (!plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net)) {
+  if (!plan_ok(dims, n_layers, n_fourier, n_paths, path_degree, n, n_pad, tile, scratch,
+               &net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PINNS_CHECK(use_device(device));
   const Box box{lb0, lb1, ub0, ub1};
   const float* pc = params + net.n_params;
   const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
+  const Fourier fo = make_fourier(n_fourier, fourier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? forward<SmallTile>(x, n, params, net, paths, box, n_pad, scratch, scratch_floats,
-                                  y, y_x, y_t, s)
-             : forward<LargeTile>(x, n, params, net, paths, box, n_pad, scratch, scratch_floats,
-                                  y, y_x, y_t, s);
+             ? forward<SmallTile>(x, n, params, net, fo, paths, box, n_pad, scratch,
+                                  scratch_floats, y, y_x, y_t, s)
+             : forward<LargeTile>(x, n, params, net, fo, paths, box, n_pad, scratch,
+                                  scratch_floats, y, y_x, y_t, s);
 }
 
 // grad (flat, params order) = d/dparams of sum over points of
@@ -1079,7 +1092,8 @@ extern "C" int pinns_taylor1_forward(const float* x, int n, const float* params,
 // partials, splits x the trunk's n_params; psums, n_pad / 128 x n_paths
 // (path_degree + 2) doubles.
 extern "C" int pinns_taylor1_backward(const float* x, int n, const float* params,
-                                      const int* dims, int n_layers, int n_paths,
+                                      const int* dims, int n_layers, int n_fourier,
+                                      const float* fourier, int n_paths,
                                       int path_degree, float lb0, float lb1, float ub0,
                                       float ub1, int n_pad, int tile, int split_rows,
                                       int splits, const float* gy, const float* gyx,
@@ -1088,7 +1102,8 @@ extern "C" int pinns_taylor1_backward(const float* x, int n, const float* params
                                       void* stream) {
   Net net;
   const long long rows = static_cast<long long>(kStreams) * n_pad;
-  if (!plan_ok(dims, n_layers, n_paths, path_degree, n, n_pad, tile, scratch, &net) ||
+  if (!plan_ok(dims, n_layers, n_fourier, n_paths, path_degree, n, n_pad, tile, scratch,
+               &net) ||
       split_rows < 1 ||
       split_rows % 32 != 0 || splits < 1 || static_cast<long long>(splits) * split_rows < rows ||
       static_cast<long long>(splits - 1) * split_rows >= rows) {
@@ -1098,12 +1113,13 @@ extern "C" int pinns_taylor1_backward(const float* x, int n, const float* params
   const Box box{lb0, lb1, ub0, ub1};
   const float* pc = params + net.n_params;
   const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
+  const Fourier fo = make_fourier(n_fourier, fourier);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile == SmallTile::kBM
-             ? backward<SmallTile>(x, n, params, net, paths, box, n_pad, split_rows, splits, gy,
-                                   gyx, gyt, scratch, scratch_floats, grad, s)
-             : backward<LargeTile>(x, n, params, net, paths, box, n_pad, split_rows, splits, gy,
-                                   gyx, gyt, scratch, scratch_floats, grad, s);
+             ? backward<SmallTile>(x, n, params, net, fo, paths, box, n_pad, split_rows, splits,
+                                   gy, gyx, gyt, scratch, scratch_floats, grad, s)
+             : backward<LargeTile>(x, n, params, net, fo, paths, box, n_pad, split_rows, splits,
+                                   gy, gyx, gyt, scratch, scratch_floats, grad, s);
 }
 
 // (y, y_x, y_t) on `stream`, the narrow design: one launch of `threads`

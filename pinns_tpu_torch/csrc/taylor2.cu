@@ -85,6 +85,17 @@
 // off flips the policy's next bf16 rounding away from the plain version's.
 // At width 20 and small N, the launch and the per-layer barriers.
 //
+// Fourier and shock-path features (tiled design only, float32 only;
+// csrc/fourier.cuh; pinns_tpu/models/mlp.py:223-340, ops/taylor.py:146,
+// :187): with F Fourier features and K paths the first layer's input is
+// [x^, t^, sin z_1..F, cos z_1..F, phi_1..K], 2 + 2F + K wide, and the
+// block generates all four streams of each of its points' rows in S
+// (write_input_rows, a thread a point) from B (by value) and from path_c and
+// path_a (after the trunk in the flat params, at the same offset in every
+// member's row). Layer 0 then takes whole slices like any other layer, and S
+// and the slice pitch cover the wider input. The narrow design and K6 refuse
+// them (a net with features takes the tiled design at any width).
+//
 // K8s (a), the member axis (pinns_taylor2_forward_members): E nets of one
 // shape in one launch, member m as blockIdx.y, its weights at m P of one
 // (E, P) buffer and its streams at m N C of each (E, N, C) output. It
@@ -96,6 +107,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "fourier.cuh"
 #include "taylor2_policy.cuh"
 
 namespace {
@@ -105,10 +117,11 @@ constexpr int kMaxLayers = 32;
 struct Net {
   int n_layers;
   int max_width;                // rows of a stream buffer: the widest layer (narrow), input (tiled)
-  int dims[kMaxLayers + 1];     // layer widths, dims[0] == 2
+  int dims[kMaxLayers + 1];     // layer widths, dims[0] == 2 + 2F + K
   long long w_off[kMaxLayers];  // offsets of W_l (din x dout, row-major)
   long long b_off[kMaxLayers];  // offsets of b_l (dout)
   unsigned vec_mask;            // tiled: bit l, W_l's rows are 16-byte aligned (16-byte copies)
+  long long n_params;           // the trunk's parameters (the paths' follow them)
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -400,9 +413,10 @@ __device__ __forceinline__ void epilogue(const float (&acc)[8][8], const float* 
 template <int kPol>
 __global__ void __launch_bounds__(kTiledMaxThreads, 1)
 tiled_kernel(const float* __restrict__ x, int n, const float* __restrict__ params, Net net,
-             float lb0, float lb1, float ub0, float ub1, int mp, float* __restrict__ u,
-             float* __restrict__ ux, float* __restrict__ ut, float* __restrict__ uxx,
-             long long param_stride, long long out_stride) {
+             Fourier fo, int n_paths, int path_degree, float lb0, float lb1, float ub0,
+             float ub1, int mp, float* __restrict__ u, float* __restrict__ ux,
+             float* __restrict__ ut, float* __restrict__ uxx, long long param_stride,
+             long long out_stride) {
   constexpr bool kMixed = kPol >= 0;
   // member blockIdx.y, as in the narrow design
   params += blockIdx.y * param_stride;
@@ -429,29 +443,24 @@ tiled_kernel(const float* __restrict__ x, int n, const float* __restrict__ param
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) feed.issue(net, params, ring + i * kKD * mp, mp, n_hidden);
 
-  // Initial streams, generated from the raw points and four scalars.
+  // Initial streams, generated from the raw points, four scalars and the
+  // features' parameters: a thread a point writes its four rows (row 4 p +
+  // stream, column c at S[c kRows + row]).
   const float rx = ub0 - lb0, rt = ub1 - lb1;
   const float sx = 2.0f / rx, st = 2.0f / rt;
-  for (int r = tid; r < kRows; r += blockDim.x) {
-    const long long gp = p0 + r / 4;
-    float v0 = 0.0f, v1 = 0.0f;
-    switch (r & 3) {
-      case 0: {
-        float xv = 0.0f, tv = 0.0f;
-        if (gp < n) {
-          xv = x[2 * gp];
-          tv = x[2 * gp + 1];
-        }
-        v0 = 2.0f * (xv - lb0) / rx - 1.0f;
-        v1 = 2.0f * (tv - lb1) / rt - 1.0f;
-        break;
-      }
-      case 1: v0 = sx; break;
-      case 2: v1 = st; break;
-      default: break;
+  const float* pc = params + net.n_params;
+  const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
+  for (int p = tid; p < kTP; p += blockDim.x) {
+    const long long gp = p0 + p;
+    float xv = 0.0f, tv = 0.0f;
+    if (gp < n) {
+      xv = x[2 * gp];
+      tv = x[2 * gp + 1];
     }
-    S[r] = v0;
-    S[kRows + r] = v1;
+    const float xn = 2.0f * (xv - lb0) / rx - 1.0f, tn = 2.0f * (tv - lb1) / rt - 1.0f;
+    float* row = S + 4 * p;
+    write_input_rows(fo, paths, xn, tn, sx, st, net.dims[0], kRows, row, row + 1, row + 2,
+                     row + 3);
   }
 
   auto round_slice = [&](int g) {  // K6: bf16(W) of slice g, once, into its slot
@@ -490,8 +499,12 @@ tiled_kernel(const float* __restrict__ x, int n, const float* __restrict__ param
       const float* wf = ring + (g % kStages) * kKD * mp;
       const float* wb = wq + (g & 1) * kKD * mp;
       const int kc = min(kKD, din - k0);
-      if (l == 0) {  // din = 2: one partial slice, float32 weights
-        fma_slice<0, true>(S, wf, wb, k0, kc, mp, rA, c0, acc);
+      if (l == 0) {  // float32 weights: din = 2 (one partial slice) or the features' width
+        if (kc == kKD) {
+          fma_slice<0, false>(S, wf, wb, k0, kc, mp, rA, c0, acc);
+        } else {
+          fma_slice<0, true>(S, wf, wb, k0, kc, mp, rA, c0, acc);
+        }
       } else if (kc == kKD) {
         fma_slice<kCode, false>(S, wf, wb, k0, kc, mp, rA, c0, acc);
       } else {
@@ -600,13 +613,19 @@ int tiled_threads(int max_width) {
 // each output buffer. The tile plan does not depend on `members`, and member
 // m's blocks run exactly the arithmetic of a one-member call on its weights,
 // so every member's streams equal a solo call's bit for bit.
+//
+// With Fourier features or paths (`fo`, n_paths > 0; float32 only) dims[0] is
+// 2 + 2 fo.f + n_paths, the net takes the tiled design whatever its widths,
+// and a member's path_c and path_a follow its trunk.
 template <bool kMixed>
 int launch(const float* x, int n, const float* params, int members, long long param_stride,
-           const int* dims, int n_layers, const Policy& q, float lb0, float lb1, float ub0,
-           float ub1, int tile, int threads, float* u, float* ux, float* ut, float* uxx,
-           int device, void* stream) {
-  if (n < 0 || n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2 || members < 1 ||
-      members > 65535) {
+           const int* dims, int n_layers, const Fourier& fo, int n_paths, int path_degree,
+           const Policy& q, float lb0, float lb1, float ub0, float ub1, int tile, int threads,
+           float* u, float* ux, float* ut, float* uxx, int device, void* stream) {
+  const bool embed = fo.f > 0 || n_paths > 0;
+  if (n < 0 || n_layers < 1 || n_layers > kMaxLayers || members < 1 || members > 65535 ||
+      !fourier_ok(fo.f) || !paths_ok(n_paths, path_degree) || (kMixed && embed) ||
+      dims[0] != 2 + 2 * fo.f + n_paths) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Net net;
@@ -628,14 +647,16 @@ int launch(const float* x, int n, const float* params, int members, long long pa
     net.b_off[l] = off;
     off += dims[l + 1];
   }
+  net.n_params = off;
+  const long long path_params = static_cast<long long>(n_paths) * (path_degree + 2);
   if (members > 1) {
-    if (param_stride < off) return static_cast<int>(cudaErrorInvalidValue);
+    if (param_stride < off + path_params) return static_cast<int>(cudaErrorInvalidValue);
     if (param_stride % 4 != 0) net.vec_mask = 0;  // a later member's rows lose 16-byte alignment
   }
   const long long out_stride = static_cast<long long>(n) * dims[n_layers];
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool narrow = widest <= kNarrowWidth;
+  const bool narrow = widest <= kNarrowWidth && !embed;
   if (narrow) {
     if (tile < kR || tile % kR != 0 || threads < 32 || threads > kMaxThreads ||
         threads % 32 != 0) {
@@ -665,8 +686,9 @@ int launch(const float* x, int n, const float* params, int members, long long pa
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess || n == 0) return static_cast<int>(e);
-    kernel<<<blocks, threads, smem, st>>>(x, n, params, net, lb0, lb1, ub0, ub1, mp, u, ux, ut,
-                                          uxx, param_stride, out_stride);
+    kernel<<<blocks, threads, smem, st>>>(x, n, params, net, fo, n_paths, path_degree, lb0, lb1,
+                                          ub0, ub1, mp, u, ux, ut, uxx, param_stride,
+                                          out_stride);
     return static_cast<int>(cudaGetLastError());
   };
   if (!kMixed) return go(tiled_kernel<-1>);
@@ -687,15 +709,20 @@ int launch(const float* x, int n, const float* params, int members, long long pa
 
 }  // namespace
 
-// K1: the fused pass in float32 on `stream` (arguments as `launch`).
+// K1: the fused pass in float32 on `stream` (arguments as `launch`);
+// `fourier` (host memory) holds the n_fourier frequencies 2 pi B[:, 0], then
+// the n_fourier 2 pi B[:, 1] (null when n_fourier is 0).
 extern "C" int pinns_taylor2_forward(const float* x, int n, const float* params,
-                                     const int* dims, int n_layers, float lb0,
-                                     float lb1, float ub0, float ub1, int tile,
+                                     const int* dims, int n_layers, int n_fourier,
+                                     const float* fourier, int n_paths, int path_degree,
+                                     float lb0, float lb1, float ub0, float ub1, int tile,
                                      int threads, float* u, float* ux,
                                      float* ut, float* uxx, int device,
                                      void* stream) {
-  return launch<false>(x, n, params, 1, 0, dims, n_layers, Policy{false, false, false, false},
-                       lb0, lb1, ub0, ub1, tile, threads, u, ux, ut, uxx, device, stream);
+  if (!fourier_ok(n_fourier)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(x, n, params, 1, 0, dims, n_layers, make_fourier(n_fourier, fourier),
+                       n_paths, path_degree, Policy{false, false, false, false}, lb0, lb1, ub0,
+                       ub1, tile, threads, u, ux, ut, uxx, device, stream);
 }
 
 // K8s (a): K1 for `members` nets of one shape in one launch; member m's
@@ -703,11 +730,15 @@ extern "C" int pinns_taylor2_forward(const float* x, int n, const float* params,
 // into each output buffer (E, n, out); the rest as `launch`.
 extern "C" int pinns_taylor2_forward_members(const float* x, int n, const float* params,
                                              int members, long long param_stride,
-                                             const int* dims, int n_layers, float lb0,
+                                             const int* dims, int n_layers, int n_fourier,
+                                             const float* fourier, int n_paths,
+                                             int path_degree, float lb0,
                                              float lb1, float ub0, float ub1, int tile,
                                              int threads, float* u, float* ux, float* ut,
                                              float* uxx, int device, void* stream) {
+  if (!fourier_ok(n_fourier)) return static_cast<int>(cudaErrorInvalidValue);
   return launch<false>(x, n, params, members, param_stride, dims, n_layers,
+                       make_fourier(n_fourier, fourier), n_paths, path_degree,
                        Policy{false, false, false, false}, lb0, lb1, ub0, ub1, tile, threads, u,
                        ux, ut, uxx, device, stream);
 }
@@ -721,8 +752,9 @@ extern "C" int pinns_taylor2_mixed_forward(const float* x, int n, const float* p
                                            int tile, int threads, float* u, float* ux,
                                            float* ut, float* uxx, int device, void* stream) {
   if (policy < 0 || policy > 15) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(x, n, params, 1, 0, dims, n_layers, decode_policy(policy), lb0, lb1, ub0,
-                      ub1, tile, threads, u, ux, ut, uxx, device, stream);
+  return launch<true>(x, n, params, 1, 0, dims, n_layers, make_fourier(0, nullptr), 0, 0,
+                      decode_policy(policy), lb0, lb1, ub0, ub1, tile, threads, u, ux, ut, uxx,
+                      device, stream);
 }
 
 extern "C" const char* pinns_cuda_error_string(int code) {

@@ -75,6 +75,18 @@
 // bf16; JAX's op for the TPU kernel took the VJP of its XLA recompute, which
 // rounds as autograd does.
 //
+// Fourier and shock-path features (float32 only; csrc/fourier.cuh,
+// csrc/paths.cuh): with F Fourier features and K paths the input pass writes
+// the four streams of H_0 = [x^, t^, sin z_1..F, cos z_1..F, phi_1..K, 1, 0
+// ...] (the xx row carries the features' second derivatives), so layer 0's
+// dW takes 2 + 2F + K + 1 rows. B is fixed: the Fourier features need
+// nothing more. With paths, layer 0's gH = G W_0^T is taken in the launch of
+// its dW, and one pass with a thread a point applies the paths' chain rule
+// (the xx stream's phi_xx = -2 phi (1 - phi^2) zx^2 with its adjoint) to the
+// path columns of the four streams, the terms in double, summed per 128-
+// point block through a fixed tree and over the blocks in block order by
+// the reduction (one launch more).
+//
 // What bounds it on the H100: the operations. At 8x200 and one 8,192-point
 // microbatch of burgers_scale the three products of a layer are each
 // 32,768 x 200 x 200 (55 GFLOP a call, 823 us at 67 TFLOP/s fp32); the
@@ -86,6 +98,7 @@
 #include <stddef.h>
 
 #include "layer_gemm.cuh"
+#include "paths.cuh"
 #include "taylor2_policy.cuh"
 
 namespace {
@@ -98,25 +111,36 @@ constexpr int kBM = Tile::kBM;
 constexpr int kBN = Tile::kBN;
 constexpr int kGemmThreads = Tile::kThreads;
 
-// H_0 (4 n_pad x ld_h(2) = 4): normalized (x, t), the indicator 1 on value
-// rows and a zero; the constant tangents (2/(ub0-lb0), 0), (0,
-// 2/(ub1-lb1)); the second-derivative stream is zero. Points past n take
-// the streams of (0, 0).
-__global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
-                             float4* __restrict__ H) {
-  const float rx = box.ub0 - box.lb0, rt = box.ub1 - box.lb1;
+// H_0 (4 n_pad x ld_h(2 + 2F + K)): normalized (x, t), the Fourier and path
+// features, the indicator 1 on value rows and zeros; the tangent rows
+// (2/(ub0-lb0), 0, ..) and (0, 2/(ub1-lb1), ..) and the xx row (0, 0, ..)
+// with the features' streams (csrc/fourier.cuh::write_input_rows; without
+// features the second-derivative stream is zero). Points past n take the
+// streams of (0, 0).
+__global__ void input_kernel(const float* __restrict__ x, int n, int n_pad, Box box, Fourier fo,
+                             Paths paths, float* __restrict__ H) {
+  const int ld = ld_h(embed_width(fo, paths));
+  const long long sH = static_cast<long long>(n_pad) * ld;
+  const float sx = 2.0f / (box.ub0 - box.lb0), st = 2.0f / (box.ub1 - box.lb1);
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pad; p += gridDim.x * blockDim.x) {
-    float xv = 0.0f, tv = 0.0f;
-    if (p < n) {
-      xv = x[2 * p];
-      tv = x[2 * p + 1];
-    }
-    H[p] = make_float4(2.0f * (xv - box.lb0) / rx - 1.0f, 2.0f * (tv - box.lb1) / rt - 1.0f,
-                       1.0f, 0.0f);
-    H[n_pad + p] = make_float4(2.0f / rx, 0.0f, 0.0f, 0.0f);
-    H[2 * n_pad + p] = make_float4(0.0f, 2.0f / rt, 0.0f, 0.0f);
-    H[3 * n_pad + p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float xn, tn;
+    normalized_point(x, p, n, box, &xn, &tn);
+    float* row = H + static_cast<long long>(p) * ld;
+    write_input_rows(fo, paths, xn, tn, sx, st, ld, 1, row, row + sH, row + 2 * sH,
+                     row + 3 * sH);
   }
+}
+
+// The path gradient's per-block partials (path_grad_block) from gH_0 (4 n_pad
+// x ld_g), the adjoints of H_0's columns of the four streams, the path
+// columns from 2 + 2F on.
+__global__ void path_grad_kernel(const float* __restrict__ x, int n, int n_pad, Box box,
+                                 int n_fourier, Paths paths, const float* __restrict__ gh,
+                                 int ld_g, double* __restrict__ psums) {
+  const long long plane = static_cast<long long>(n_pad) * ld_g;
+  const int c = 2 + 2 * n_fourier;
+  path_grad_block(x, n, box, paths, gh + c, gh + plane + c, gh + 2 * plane + c,
+                  gh + 3 * plane + c, ld_g, psums);
 }
 
 // The tanh factors and output streams of a hidden layer at its (rounded)
@@ -275,13 +299,18 @@ __global__ void round_weights_kernel(const float* __restrict__ params, Net net,
 
 // One thread per parameter, in double: a weight sums the split partials, a
 // bias of layer l its per-tile sums (sums + l tiles max_width, tiles x
-// dims[l + 1]) in tile order.
+// dims[l + 1]) in tile order; a path parameter its blocks' partials in block
+// order (path_grad_sum).
 __global__ void reduce_kernel(const float* __restrict__ partials, int splits,
                               const double* __restrict__ sums, int tiles, Net net,
+                              const double* __restrict__ psums, int blocks, int n_path,
                               float* __restrict__ grad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= net.n_params) return;
-  reduce_param(i, partials, splits, sums, tiles, net, grad);
+  if (i < net.n_params) {
+    reduce_param(i, partials, splits, sums, tiles, net, grad);
+  } else if (i < net.n_params + n_path) {
+    grad[i] = path_grad_sum(psums, blocks, n_path, i - net.n_params);
+  }
 }
 
 // The stream bits of layer l whose dots take bf16 weights (0 for float32).
@@ -301,7 +330,11 @@ int weight_mask(const Policy& q, int l, bool mixed) {
 // ld_h(2); pstore, the stacked pre-activations of every hidden layer (4
 // n_pad x dims[l+1] each, in layer order); hbuf, 4 n_pad x
 // ld_h(max_width); gbuf, 2 x 4 n_pad x max_width; partials, splits x
-// n_params; and wq, n_params under kMixed. ops/kernels/taylor2.py::
+// n_params; wq, n_params under kMixed; and psums, n_pad / 128 x n_paths
+// (path_degree + 2) doubles. With Fourier features or paths (float32 only)
+// dims[0] = 2 + 2 fo.f + n_paths, h0 is 4 n_pad x ld_h(dims[0]) and grad
+// holds the trunk's parameters, then the paths' (path_c, path_a after the
+// trunk in `params`). ops/kernels/taylor2.py::
 // backward_plan computes the same plan; a plan that does not fit this
 // layout (a padding that is not a multiple of the row tile, a split that
 // does not cover the rows exactly, a smaller scratch) is refused with
@@ -309,20 +342,24 @@ int weight_mask(const Policy& q, int l, bool mixed) {
 // that failed (0 on success).
 template <bool kMixed>
 int launch(const float* x, int n, const float* params, const int* dims, int n_layers,
+           const Fourier& fo, int n_paths, int path_degree,
            const Policy& q, float lb0, float lb1, float ub0, float ub1, int n_pad,
            int split_rows, int splits, const float* gu, const float* gux, const float* gut,
            const float* guxx, float* scratch, long long scratch_floats, float* grad, int device,
            void* stream) {
   const long long rows = 4LL * n_pad;
   if (n < 1 || n_pad < n || n_pad % kBM != 0 || n_pad % kTile != 0 || n_layers < 1 ||
-      n_layers > kMaxLayers || dims[0] != 2 || split_rows < 1 || split_rows % kBM != 0 ||
+      n_layers > kMaxLayers || !fourier_ok(fo.f) || !paths_ok(n_paths, path_degree) ||
+      (kMixed && (fo.f > 0 || n_paths > 0)) || split_rows < 1 || split_rows % kBM != 0 ||
       splits < 1 || splits > 65535 || static_cast<long long>(splits) * split_rows < rows ||
       static_cast<long long>(splits - 1) * split_rows >= rows ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Net net;
-  if (!make_net(dims, n_layers, &net)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_net(dims, n_layers, &net, 2 + 2 * fo.f + n_paths)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // the products index their operands with 32-bit offsets
   if (rows * ld_h(net.max_width) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int L = n_layers, tiles = n_pad / kTile;
@@ -342,12 +379,17 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
     return part;
   };
   double* sums = reinterpret_cast<double*>(take(2 * L * sums_stride));
-  float* h0 = take(rows * ld_h(2));
+  float* h0 = take(rows * ld_h(dims[0]));
   float* pstore = take(p_end);
   float* hbuf = take(rows * ld_h(net.max_width));
   float* gbuf = take(2 * rows * net.max_width);
   float* partials = take(static_cast<long long>(splits) * net.n_params);
   float* wq = kMixed ? take(net.n_params) : nullptr;
+  const int blocks = n_pad / kTile;
+  const float* pc = params + net.n_params;
+  const Paths paths{n_paths, path_degree, pc, pc + n_paths * (path_degree + 1)};
+  const int n_path = paths.n_params();
+  double* psums = reinterpret_cast<double*>(take(2LL * blocks * n_path));
   if (used > scratch_floats) return static_cast<int>(cudaErrorInvalidValue);
   PINNS_CHECK(cudaSetDevice(device));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -360,8 +402,7 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
   }
 
   // forward: H_l -> P_l -> H_l+1, for the hidden layers
-  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box,
-                                                       reinterpret_cast<float4*>(h0));
+  input_kernel<<<ew_blocks(n_pad), kEwThreads, 0, s>>>(x, n, n_pad, box, fo, paths, h0);
   PINNS_CHECK(cudaGetLastError());
   for (int l = 0; l + 1 < L; ++l) {
     const int din = dims[l], dout = dims[l + 1];
@@ -389,7 +430,7 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
                   ld_h(din), dout, dout, din, dout, static_cast<int>(rows), split_rows,
                   net.n_params, 1, 0};
     const int dw_bx = (din + kBM - 1) / kBM, dw_by = (dout + kBN - 1) / kBN;
-    if (l == 0) {
+    if (l == 0 && n_paths == 0) {
       PINNS_CHECK((gemm<Tile, true, false>(dw, splits, s)));
       break;
     }
@@ -402,6 +443,12 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
         <<<dw_bx * dw_by * splits + gh_bx * gh_by, kGemmThreads, 0, s>>>(
             dw, dw_bx, dw_by, splits, gh, gh_bx, gh_by);
     PINNS_CHECK(cudaGetLastError());
+    if (l == 0) {  // gH_0's path columns: the paths' chain rule
+      path_grad_kernel<<<blocks, kTile, kTile * sizeof(double), s>>>(x, n, n_pad, box, fo.f,
+                                                                     paths, Gn, din, psums);
+      PINNS_CHECK(cudaGetLastError());
+      break;
+    }
     // gH -> the adjoints of layer l-1's pre-activations, and H_l-1 for the
     // next dW (layer 0's input streams are h0)
     const int below = dims[l - 1];
@@ -414,23 +461,29 @@ int launch(const float* x, int n, const float* params, const int* dims, int n_la
     G = Gn;
     Gn = t;
   }
-  reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, splits, sums, tiles, net,
-                                                            grad);
+  reduce_kernel<<<(net.n_params + n_path + 255) / 256, 256, 0, s>>>(
+      partials, splits, sums, tiles, net, psums, blocks, n_path, grad);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // K2: the backward of K1 (float32 streams).
+// `fourier` (host memory) holds the n_fourier frequencies 2 pi B[:, 0], then
+// the n_fourier 2 pi B[:, 1] (null when n_fourier is 0).
 extern "C" int pinns_taylor2_backward(const float* x, int n, const float* params,
-                                      const int* dims, int n_layers, float lb0, float lb1,
+                                      const int* dims, int n_layers, int n_fourier,
+                                      const float* fourier, int n_paths, int path_degree,
+                                      float lb0, float lb1,
                                       float ub0, float ub1, int n_pad, int split_rows,
                                       int splits, const float* gu, const float* gux,
                                       const float* gut, const float* guxx, float* scratch,
                                       long long scratch_floats, float* grad, int device,
                                       void* stream) {
-  return launch<false>(x, n, params, dims, n_layers, Policy{false, false, false, false}, lb0,
-                       lb1, ub0, ub1, n_pad, split_rows, splits, gu, gux, gut, guxx, scratch,
+  if (!fourier_ok(n_fourier)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(x, n, params, dims, n_layers, make_fourier(n_fourier, fourier), n_paths,
+                       path_degree, Policy{false, false, false, false}, lb0, lb1, ub0, ub1,
+                       n_pad, split_rows, splits, gu, gux, gut, guxx, scratch,
                        scratch_floats, grad, device, stream);
 }
 
@@ -447,7 +500,8 @@ extern "C" int pinns_taylor2_mixed_backward(const float* x, int n, const float* 
                                             void* stream) {
   if (policy < 0 || policy > 15) return static_cast<int>(cudaErrorInvalidValue);
   const Policy q = decode_policy(policy);
-  return launch<true>(x, n, params, dims, n_layers, q, lb0, lb1, ub0, ub1, n_pad, split_rows,
+  return launch<true>(x, n, params, dims, n_layers, make_fourier(0, nullptr), 0, 0, q, lb0, lb1,
+                      ub0, ub1, n_pad, split_rows,
                       splits, gu, gux, gut, guxx, scratch, scratch_floats, grad, device, stream);
 }
 

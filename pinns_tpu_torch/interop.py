@@ -14,7 +14,9 @@ The params file (``.npz``) holds
   coefficients), ``pde`` ('burgers' or 'euler') and ``gamma`` (the Euler
   system's ratio of specific heats), and optionally ``experiment`` (a name
   string). A shock-path net adds ``path_c``/``path_a`` and the spec's
-  ``n_paths``, ``path_degree``, ``path_sharpness``. A file without ``pde``
+  ``n_paths``, ``path_degree``, ``path_sharpness``; a net with Fourier
+  features adds ``fourier``, the spec's B (F, 2) in float64 (as the spec
+  holds it). A file without ``pde``
   is a Burgers one (``gamma`` 1.4). Other keys are ignored on load, so a file
   may carry extra arrays beside them.
 
@@ -125,6 +127,8 @@ def _save(path, spec, members, lambda1s, lambda2s, experiment, pde, gamma, stack
         arrays["n_paths"] = np.asarray(spec.n_paths, np.int64)
         arrays["path_degree"] = np.asarray(spec.path_degree, np.int64)
         arrays["path_sharpness"] = np.asarray(spec.path_sharpness, np.float64)
+    if spec.fourier:
+        arrays["fourier"] = np.asarray(spec.fourier, np.float64)
     if stacked:
         arrays["members"] = np.asarray(len(members), np.int64)
     if experiment is not None:
@@ -147,6 +151,8 @@ def load_params_npz(path: str) -> dict:
         if "n_paths" in z:
             paths = {"n_paths": int(z["n_paths"]), "path_degree": int(z["path_degree"]),
                      "path_sharpness": float(z["path_sharpness"])}
+        if "fourier" in z:
+            paths["fourier"] = tuple(tuple(float(v) for v in row) for row in z["fourier"])
         spec = MLPSpec(layers=layers, lb=tuple(z["lb"]), ub=tuple(z["ub"]), **paths)
         params = [
             {"W": z[f"W{i}"], "b": z[f"b{i}"]} for i in range(len(layers) - 1)

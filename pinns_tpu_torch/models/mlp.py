@@ -17,7 +17,10 @@ by ``ops.taylor``); slice 2b-ii the trainable shock-path features
 coordinates appended to the first layer's input, s_k a trainable polynomial
 of degree ``path_degree`` in normalized time (coefficients ``path_c`` (K,
 D + 1)) and a_k a trainable sharpness (``path_a`` (K,)), both on
-``params[0]``. Fourier features come with slice 2b-iii.
+``params[0]``; and slice 2b-iii the Fourier features (``fourier``): the rows
+of a fixed frequency matrix B (F, 2), whose features sin z, cos z, z = h 2 pi
+B^T of the normalized coordinates h follow them in the first layer's input,
+``[h, sin z, cos z, phi]``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -35,7 +39,6 @@ from pinns_tpu_torch.device import constant
 # holds 'path_c' (K, D + 1) and 'path_a' (K,)
 Params = List[Dict[str, torch.Tensor]]
 PATH_KEYS = ("path_c", "path_a")
-SLICE_2B_III = "slice 2b-iii"  # Fourier features; shock paths on K1/K2/K6, K3, narrow K5
 
 
 def _float_dtype(value) -> torch.dtype:
@@ -61,8 +64,8 @@ class MLPSpec:
         ``compute_dtype`` is None or a float dtype, given as a torch dtype or
         its name ("bfloat16"); the spec is mixed only when it differs from
         ``dtype``.
-      fourier: the Fourier embedding of the JAX package; a spec that sets it
-        raises NotImplementedError until slice 2b-iii.
+      fourier: the rows of the Fourier features' frequency matrix B (F,
+        in_dim) as a nested tuple (:func:`fourier_matrix`); empty: none.
       n_paths / path_degree / path_sharpness: the trainable shock-path
         features (module docstring): their number K, the degree D of each
         path's polynomial in normalized time, the initial sharpness. They
@@ -82,11 +85,8 @@ class MLPSpec:
     path_sharpness: float = 8.0
 
     def __post_init__(self):
-        if self.fourier:
-            raise NotImplementedError(
-                f"Fourier features are ported with {SLICE_2B_III}; the port takes "
-                "the affine embedding and shock-path features"
-            )
+        object.__setattr__(self, "fourier",
+                           tuple(tuple(float(v) for v in row) for row in self.fourier))
         object.__setattr__(self, "n_paths", int(self.n_paths))
         object.__setattr__(self, "path_degree", int(self.path_degree))
         object.__setattr__(self, "path_sharpness", float(self.path_sharpness))
@@ -101,6 +101,8 @@ class MLPSpec:
             raise ValueError(f"unknown keep_streams {sorted(bad)}")
         if len(self.layers) < 2:
             raise ValueError(f"need at least an input and an output width, got {self.layers}")
+        if self.fourier and any(len(row) != self.layers[0] for row in self.fourier):
+            raise ValueError(f"fourier rows must have length layers[0]={self.layers[0]}")
         if len(self.lb) != self.layers[0] or len(self.ub) != self.layers[0]:
             raise ValueError(
                 f"lb/ub must have length layers[0]={self.layers[0]}, "
@@ -125,9 +127,14 @@ class MLPSpec:
         return self.layers[0]
 
     @property
+    def n_fourier(self) -> int:
+        return len(self.fourier)
+
+    @property
     def embed_dim(self) -> int:
-        """First-layer input width: the raw coordinates and the path features."""
-        return self.in_dim + self.n_paths
+        """First-layer input width: the raw coordinates, the sin/cos pairs and
+        the path features."""
+        return self.in_dim + 2 * self.n_fourier + self.n_paths
 
     @property
     def widths(self) -> tuple:
@@ -206,6 +213,43 @@ def input_scale(spec: MLPSpec, device: torch.device) -> torch.Tensor:
     return 2.0 / (ub - lb)
 
 
+def fourier_matrix(n_features: int, in_dim: int = 2, sigma: float = 3.0, seed: int = 0
+                   ) -> tuple:
+    """Frequency matrix B ~ N(0, sigma^2), shape (F, in_dim), as the nested
+    tuple ``MLPSpec.fourier`` takes; deterministic in ``seed`` (the port's
+    copy of ``pinns_tpu/models/mlp.py::fourier_matrix``: the same numpy draw,
+    so the same B bit for bit)."""
+    rng = np.random.default_rng(seed)
+    b = sigma * rng.standard_normal((n_features, in_dim))
+    return tuple(tuple(float(v) for v in row) for row in b)
+
+
+def fourier_frequencies(spec: MLPSpec) -> np.ndarray:
+    """2 pi B^T, (in_dim, F) in ``spec.dtype``, rounded as the JAX package
+    rounds it (``_fourier_b``: B in the dtype, times 2 pi in the dtype)."""
+    dtype = np.float64 if spec.dtype == torch.float64 else np.float32
+    b = np.asarray(spec.fourier, dtype=dtype).T
+    return dtype(2.0 * math.pi) * b
+
+
+def fourier_streams(spec: MLPSpec, h: torch.Tensor):
+    """The Fourier features of the NORMALIZED coordinates h and their streams
+    w.r.t. the RAW inputs (``pinns_tpu/models/mlp.py:313-330``, in its
+    operation order): z = h 2 pi B^T, zx = scale_x 2 pi B[:, 0], zt = scale_t
+    2 pi B[:, 1]. Returns the (N, 2F) values [sin z, cos z], x streams [cos z
+    zx, -sin z zx], t streams [cos z zt, -sin z zt] and xx streams [-sin z zx
+    zx, -cos z zx zx]."""
+    bt = constant(fourier_frequencies(spec), spec.dtype, h.device)
+    scale = input_scale(spec, h.device)
+    z = h @ bt
+    sin_z, cos_z = torch.sin(z), torch.cos(z)
+    zx = scale[0] * bt[0]
+    zt = scale[1] * bt[1]
+    cat = lambda a, b: torch.cat([a, b], dim=1)  # noqa: E731
+    return (cat(sin_z, cos_z), cat(cos_z * zx, -sin_z * zx), cat(cos_z * zt, -sin_z * zt),
+            cat(-sin_z * zx * zx, -cos_z * zx * zx))
+
+
 def path_streams(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: torch.Tensor):
     """Shock-path features of the NORMALIZED coordinates h = (x_n, t_n) and
     their streams w.r.t. the RAW inputs (``pinns_tpu/models/mlp.py:242-275``,
@@ -238,15 +282,16 @@ def path_streams(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: torch.Tensor
 
 def path_backward_reference(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: torch.Tensor,
                             gv: torch.Tensor, gx: Optional[torch.Tensor] = None,
-                            gt: Optional[torch.Tensor] = None):
+                            gt: Optional[torch.Tensor] = None,
+                            gxx: Optional[torch.Tensor] = None):
     """(d path_c, d path_a) of sum over points of gv . phi + gx . phi_x +
-    gt . phi_t, the adjoints (N, K) of :func:`path_streams`' first three
-    outputs (gx, gt None: zero), by the chain rule the kernels K7a and K5
-    apply (``csrc/paths.cuh``). With d1 = 1 - phi^2, d2 = -2 phi d1, zx =
-    a sx, zt = -a st s':
+    gt . phi_t + gxx . phi_xx, the adjoints (N, K) of :func:`path_streams`'
+    outputs (gx, gt, gxx None: zero), by the chain rule the kernels K2, K7a
+    and K5 apply (``csrc/paths.cuh``). With d1 = 1 - phi^2, d2 = -2 phi d1,
+    zx = a sx, zt = -a st s':
 
-      gz = gv d1 + d2 (gx zx + gt zt)
-      d a   = sum gz (x_n - s) + d1 (gx sx - gt st s')
+      gz = gv d1 + d2 (gx zx + gt zt) + gxx d1 (6 phi^2 - 2) zx^2
+      d a   = sum gz (x_n - s) + d1 (gx sx - gt st s') + gxx 2 d2 a sx^2
       d c_j = sum -gz a t_n^j - [j >= 1] gt d1 a st j t_n^(j-1)
     """
     c, a = layer0["path_c"], layer0["path_a"]
@@ -262,8 +307,14 @@ def path_backward_reference(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: t
     d2 = -2.0 * phi * d1
     gx = torch.zeros_like(gv) if gx is None else gx
     gt = torch.zeros_like(gv) if gt is None else gt
-    gz = gv * d1 + d2 * (gx * (a * scale[0]) + gt * (-(a * scale[1]) * sp))
-    da = (gz * (xn - s) + d1 * (gx * scale[0] - gt * scale[1] * sp)).sum(dim=0)
+    zx = a * scale[0]
+    gz = gv * d1 + d2 * (gx * zx + gt * (-(a * scale[1]) * sp))
+    if gxx is not None:
+        gz = gz + gxx * d1 * (6.0 * phi * phi - 2.0) * zx * zx
+    da = gz * (xn - s) + d1 * (gx * scale[0] - gt * scale[1] * sp)
+    if gxx is not None:
+        da = da + gxx * 2.0 * d2 * a * scale[0] * scale[0]
+    da = da.sum(dim=0)
     dc = -((gz * a).T @ powers)
     if deg >= 1:
         dc[:, 1:] = dc[:, 1:] - (gt * d1 * a * scale[1]).T @ jp
@@ -272,10 +323,16 @@ def path_backward_reference(spec: MLPSpec, layer0: Dict[str, torch.Tensor], h: t
 
 def embed_inputs(spec: MLPSpec, h: torch.Tensor,
                  layer0: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """[h, phi]: the first layer's input; h itself without paths."""
-    if not spec.n_paths:
-        return h
-    return torch.cat([h, path_streams(spec, layer0, h)[0]], dim=1)
+    """[h, sin z, cos z, phi]: the first layer's input; h itself without
+    Fourier and path features."""
+    out = [h]
+    if spec.fourier:
+        bt = constant(fourier_frequencies(spec), spec.dtype, h.device)
+        z = h @ bt
+        out += [torch.sin(z), torch.cos(z)]
+    if spec.n_paths:
+        out.append(path_streams(spec, layer0, h)[0])
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def embed_streams(spec: MLPSpec, h: torch.Tensor,
@@ -286,23 +343,28 @@ def embed_streams(spec: MLPSpec, h: torch.Tensor,
     Returns (h, dx, dt, dxx). For the affine embedding the tangents are the
     constant (1, 2) rows (scale_x, 0) and (0, scale_t), and the
     second-derivative stream is identically zero (None), as in the JAX
-    package's affine branch. With shock paths (``layer0`` = params[0]) every
-    stream is per point, (N, embed_dim): the coordinates' columns, then the
-    path features' (``path_streams``).
+    package's affine branch. With Fourier or shock-path features (``layer0``
+    = params[0] carries the paths) every stream is per point, (N,
+    embed_dim): the coordinates' columns, then the Fourier features'
+    (:func:`fourier_streams`), then the path features' (:func:`path_streams`).
     """
     scale = input_scale(spec, h.device)
     eye = torch.eye(2, dtype=spec.dtype, device=h.device)
     dx, dt = eye[0:1] * scale, eye[1:2] * scale
-    if not spec.n_paths:
+    if not spec.n_paths and not spec.fourier:
         return h, dx, dt, None
-    phi, phi_x, phi_t, phi_xx = path_streams(spec, layer0, h)
-    cat = lambda a, b: torch.cat([a, b], dim=1)  # noqa: E731
-    return (cat(h, phi), cat(dx.expand_as(h), phi_x), cat(dt.expand_as(h), phi_t),
-            cat(torch.zeros_like(h), phi_xx))
+    streams = [[h], [dx.expand_as(h)], [dt.expand_as(h)], [torch.zeros_like(h)]]
+    if spec.fourier:
+        for acc, part in zip(streams, fourier_streams(spec, h)):
+            acc.append(part)
+    if spec.n_paths:
+        for acc, part in zip(streams, path_streams(spec, layer0, h)):
+            acc.append(part)
+    return tuple(torch.cat(acc, dim=1) for acc in streams)
 
 
 def mlp_apply_reference(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The plain forward pass: normalize -> [path features] -> tanh layers ->
+    """The plain forward pass: normalize -> [Fourier and path features] -> tanh layers ->
     linear head, in ``spec.dtype`` on ``x``'s device. (N, in) -> (N, out)."""
     h = embed_inputs(spec, normalize_inputs(spec, x), params[0])
     for layer in params[:-1]:

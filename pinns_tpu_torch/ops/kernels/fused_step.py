@@ -131,8 +131,9 @@ def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
 
     The scope of the TPU kernel (``fused_step.py:49-76``) plus what that
     check left implicit: the strong form without entropy, gradient or causal
-    weighting, one output, widths up to 256, and no input embedding (shock
-    paths come to K3 with slice 2b-iii).
+    weighting, one output, widths up to 256, and no input embedding (Fourier
+    or shock-path features take the generic step over K1/K2 and K5; K3 with
+    them is ROADMAP queue 2).
     """
     lo, s = exp.loss, exp.sampling
     reasons = [
@@ -150,7 +151,9 @@ def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
         (lo.entropy_weight > 0.0 or lo.grad_weight_kappa != 0.0 or lo.causal_eps > 0.0,
          "entropy, gradient or causal weighting"),
         (spec.dtype != torch.float32 or spec.mixed, "a dtype other than float32"),
-        (spec.n_paths > 0 or spec.fourier, "shock-path features (slice 2b-iii)"),
+        (spec.n_paths > 0 or spec.fourier,
+         "Fourier or shock-path features (K3 computes no input embedding: ROADMAP queue 2; "
+         "the generic step takes them through K1/K2 and K5)"),
         (spec.in_dim != 2 or spec.out_dim != 1, f"widths {spec.layers} (needs 2 -> ... -> 1)"),
         (max(spec.layers) > MAX_WIDTH, f"a width above {MAX_WIDTH}"),
         (len(spec.layers) - 1 > MAX_LAYERS or len(spec.layers) < 3,

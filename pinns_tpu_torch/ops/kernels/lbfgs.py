@@ -132,7 +132,9 @@ def lbfgs_device_supported(exp, spec: MLPSpec) -> List[str]:
         (lo.entropy_weight > 0.0 or lo.grad_weight_kappa != 0.0 or lo.causal_eps > 0.0,
          "entropy, gradient or causal weighting"),
         (spec.dtype != torch.float32 or spec.mixed, "a dtype other than float32 or a mixed policy"),
-        (spec.n_paths > 0 or spec.fourier, "shock-path or Fourier features"),
+        (spec.n_paths > 0 or spec.fourier,
+         "shock-path or Fourier features (K3's value-and-grad computes no input embedding: "
+         "ROADMAP queue 2; AutogradLBFGS takes them)"),
         (spec.in_dim != 2 or spec.out_dim != 1, f"widths {spec.layers} (needs 2 -> ... -> 1)"),
         (max(spec.layers) > k_fused.NARROW_WIDTH,
          f"a width above {k_fused.NARROW_WIDTH} (K3's wide design has no value-and-grad mode)"),

@@ -24,11 +24,13 @@ Two designs, picked by :func:`design` from the widths (the header of
   from the number of points so that a call of 100 points spreads over many
   SMs (:func:`mlp_forward_plan`, :func:`mlp_backward_plan`).
 
-The wide design takes shock-path features (``spec.n_paths``): its input pass
-computes each point's path features from ``path_c`` and ``path_a`` and its
-backward their gradient (``csrc/paths.cuh``); the flat params and gradient
-hold the trunk's leaves, then the paths' (``taylor2.net_leaves``). The narrow
-design refuses a path spec, naming slice 2b-iii.
+The wide design takes Fourier features (``spec.fourier``) and shock-path
+features (``spec.n_paths``): its input pass computes each point's features
+from B and from ``path_c`` and ``path_a`` (``csrc/fourier.cuh``) and its
+backward the paths' gradient (``csrc/paths.cuh``); the flat params and
+gradient hold the trunk's leaves, then the paths' (``taylor2.net_leaves``).
+Such a net takes the wide design at any width; the narrow design refuses
+it.
 
 Both are bit-for-bit repeatable (no atomics). The wrappers validate what the
 kernels assume and raise otherwise; on a CPU tensor they raise too. They
@@ -55,11 +57,11 @@ from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.kernels.taylor2 import (
     check_call,
     check_paths,
+    feature_args,
     net_from_leaves,
     net_leaves,
     pack_params,
-    path_args,
-    refuse_paths,
+    refuse_features,
     split_grad,
 )
 
@@ -100,11 +102,13 @@ MAX_GH_SPLITS = 4
 
 
 def design(layers: Sequence[int]) -> str:
-    """"narrow" or "wide": the K5 design that a net of these widths takes."""
+    """"narrow" or "wide": the K5 design that a net of these widths
+    (``spec.widths``) takes; a first width above 2 (Fourier or path
+    features) takes the wide one."""
     wmax = max(layers)
     if wmax > MAX_WIDTH:
         raise ValueError(f"mlp_forward kernel takes widths up to {MAX_WIDTH}, got {wmax}")
-    return "narrow" if wmax <= NARROW_WIDTH else "wide"
+    return "narrow" if wmax <= NARROW_WIDTH and layers[0] == 2 else "wide"
 
 
 def _tile(layers: Sequence[int], buffers: int, budget: int, cap: int) -> int:
@@ -229,12 +233,12 @@ def _lib():
         lib.pinns_mlp_backward.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, i, p]
         lib.pinns_mlp_backward.restype = i
         q = ctypes.c_longlong
-        lib.pinns_mlp_forward_wide.argtypes = [
-            p, i, p, p, i, i, i, f, f, f, f, i, i, p, q, p, i, p,
+        lib.pinns_mlp_forward_wide.argtypes = [  # taylor2.feature_args after n_layers
+            p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, p, q, p, i, p,
         ]
         lib.pinns_mlp_forward_wide.restype = i
         lib.pinns_mlp_backward_wide.argtypes = [
-            p, i, p, p, i, i, i, f, f, f, f, i, i, i, i, i, p, p, q, p, i, p,
+            p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, i, i, i, p, p, q, p, i, p,
         ]
         lib.pinns_mlp_backward_wide.restype = i
         lib.pinns_mlp_error_string.argtypes = [i]
@@ -244,12 +248,11 @@ def _lib():
 
 
 def _check_spec(spec: MLPSpec) -> None:
-    if spec.fourier:
-        raise ValueError("mlp_forward kernel computes no Fourier features (slice 2b-iii)")
     if len(spec.layers) - 1 > MAX_LAYERS:
         raise ValueError(f"mlp_forward kernel takes up to {MAX_LAYERS} layers")
-    if spec.n_paths and design(spec.widths) == "narrow":
-        refuse_paths("mlp_forward (narrow design)", spec)
+    if design(spec.widths) == "narrow":
+        refuse_features("mlp_forward (narrow design)", spec,
+                        "such a net takes the wide design (mlp_forward.design)")
     check_paths("mlp_forward", spec)
 
 
@@ -281,7 +284,7 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
         plan = mlp_forward_plan(layers, n)
         scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
         err = lib.pinns_mlp_forward_wide(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec), *box,
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *feature_args(spec), *box,
             plan.n_pad,
             plan.tile, scratch.data_ptr(), plan.scratch_floats, u.data_ptr(),
             x.device.index or 0, stream)
@@ -324,7 +327,7 @@ def mlp_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
         plan = mlp_backward_plan(layers, n, spec.n_path_params)
         scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
         err = lib.pinns_mlp_backward_wide(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec), *box,
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *feature_args(spec), *box,
             plan.n_pad,
             plan.tile, plan.split_rows, plan.splits, plan.gh_splits, g_out.data_ptr(),
             scratch.data_ptr(),
@@ -393,5 +396,6 @@ def mlp_backward_reference(spec: MLPSpec, params: Params, x: torch.Tensor,
         if l > 0:
             g = (1.0 - acts[l] * acts[l]) * (g @ params[l]["W"].T)
     if spec.n_paths:
-        grads += list(path_backward_reference(spec, params[0], h, g @ params[0]["W"][2:].T))
+        w_paths = params[0]["W"][2 + 2 * spec.n_fourier:]  # the path features' rows of W_0
+        grads += list(path_backward_reference(spec, params[0], h, g @ w_paths.T))
     return grads

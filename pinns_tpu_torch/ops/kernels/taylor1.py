@@ -34,12 +34,13 @@ Each output's float32 sum is the same in both, so their forwards agree bit
 for bit. The wrappers take a ``design`` argument that only tests and
 ``chip_smoke.py`` pass, to hold the two against each other.
 
-Shock-path features (``spec.n_paths``) ride in the input pass: each point's
-first-layer input carries its path features and their x and t streams,
-computed from ``path_c`` and ``path_a``, and the backward gives their
-gradient too (the header of ``csrc/taylor1.cu``, ``csrc/paths.cuh``). The
-flat params and gradient hold the trunk's leaves, then ``path_c`` and
-``path_a`` (``taylor2.net_leaves``).
+Fourier features (``spec.fourier``) and shock-path features
+(``spec.n_paths``) ride in the wide design's input pass: each point's
+first-layer input carries them and their x and t streams, computed from B
+and from ``path_c`` and ``path_a`` (``csrc/fourier.cuh``), and the backward
+gives the paths' gradient too (the header of ``csrc/taylor1.cu``,
+``csrc/paths.cuh``). The flat params and gradient hold the trunk's leaves,
+then ``path_c`` and ``path_a`` (``taylor2.net_leaves``).
 
 It takes float32 specs only: a mixed stream policy raises, naming the slice
 that would bring it. The wrappers validate what the kernels assume and raise
@@ -68,10 +69,10 @@ from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.kernels.taylor2 import (
     check_call,
     check_paths,
+    feature_args,
     net_from_leaves,
     net_leaves,
     pack_params,
-    path_args,
     split_grad,
 )
 from pinns_tpu_torch.ops.taylor import _StreamPolicy, taylor1_layer
@@ -184,7 +185,8 @@ class Taylor1Plan:
 
 def default_design(layers: Sequence[int]) -> str:
     """"narrow" or "wide": the K7a design that a net of these widths takes
-    (``layers[0]`` 2 + the number of paths: a path net takes the wide one)."""
+    (``layers[0]`` 2 + 2F + K: a net with Fourier or path features takes the
+    wide one)."""
     layers = tuple(int(w) for w in layers)
     return "narrow" if layers[0] == 2 and max(layers) <= NARROW_WIDTH else "wide"
 
@@ -235,8 +237,8 @@ def _plan(layers: Tuple[int, ...], n: int, backward: bool, path_params: int,
         raise ValueError(f"taylor1 designs are {DESIGNS}, got {design!r}")
     if design == "narrow":
         if auto != "narrow":
-            raise ValueError(f"taylor1's narrow design takes nets without paths whose widths "
-                             f"are at most {NARROW_WIDTH}, got {layers}")
+            raise ValueError(f"taylor1's narrow design takes nets without Fourier or path "
+                             f"features whose widths are at most {NARROW_WIDTH}, got {layers}")
         return _narrow_plan(layers, n, backward)
     n_pad = max(1, -(-n // EW_TILE)) * EW_TILE
     rows = STREAMS * n_pad
@@ -263,19 +265,19 @@ def _plan(layers: Tuple[int, ...], n: int, backward: bool, path_params: int,
         hbuf=rows * sum(_ld_h(w) for w in layers[1:-1]),
         gbuf=2 * rows * wmax, partials=_align4(splits * n_params),
         psums=_align4(2 * (n_pad // EW_TILE) * path_params),
-        launches=2 * n_layers + 2 + (1 if layers[0] > 2 else 0))
+        launches=2 * n_layers + 2 + (1 if path_params else 0))
 
 
 def _lib():
     lib = build.load_library("taylor1")
     if not getattr(lib, "_pinns_typed", False):
         p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.pinns_taylor1_forward.argtypes = [
-            p, i, p, p, i, i, i, f, f, f, f, i, i, p, q, p, p, p, i, p,
+        lib.pinns_taylor1_forward.argtypes = [  # taylor2.feature_args after n_layers
+            p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, p, q, p, p, p, i, p,
         ]
         lib.pinns_taylor1_forward.restype = i
         lib.pinns_taylor1_backward.argtypes = [
-            p, i, p, p, i, i, i, f, f, f, f, i, i, i, i, p, p, p, p, q, p, i, p,
+            p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, i, i, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor1_backward.restype = i
         lib.pinns_taylor1_narrow_forward.argtypes = [
@@ -294,8 +296,8 @@ def _lib():
 
 def check_spec(spec: MLPSpec) -> None:
     """Raise unless K7a takes ``spec``: float32 streams (``check_call``
-    checks the dtypes of the tensors) and paths within the kernel's bounds
-    (``taylor2.check_paths``)."""
+    checks the dtypes of the tensors) and Fourier and path features within
+    the kernel's bounds (``taylor2.check_paths``)."""
     if spec.mixed:
         raise ValueError(
             "the taylor1 kernel (K7a) takes float32 specs only; the mixed stream "
@@ -352,7 +354,7 @@ def taylor1(spec: MLPSpec, params: Params, x: torch.Tensor, out=None, design: st
     else:
         scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
         err = lib.pinns_taylor1_forward(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *feature_args(spec),
             spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], plan.n_pad, plan.tile,
             scratch.data_ptr(), plan.scratch_floats, *(o.data_ptr() for o in outs),
             x.device.index or 0, stream)
@@ -398,7 +400,7 @@ def taylor1_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
             stream)
     else:
         err = lib.pinns_taylor1_backward(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *path_args(spec),
+            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *feature_args(spec),
             spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], plan.n_pad, plan.tile,
             plan.split_rows, plan.splits, *(g.data_ptr() for g in cotangents),
             scratch.data_ptr(), plan.scratch_floats, grad.data_ptr(), x.device.index or 0,
@@ -451,7 +453,7 @@ def taylor1_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
     adjoints (gh, ghx, ght): gp = (1 - s^2) (gh - 2 s (ghx px + ght pt)),
     gpx = ghx (1 - s^2), gpt = ght (1 - s^2). The paths' gradient applies
     ``models.mlp.path_backward_reference`` to the path columns of layer 0's
-    input adjoints G_0 W_0^T, one per stream."""
+    input adjoints G_0 W_0^T, one per stream (after the Fourier columns)."""
     pol = _StreamPolicy(spec)
     h = normalize_inputs(spec, x)
     n = x.shape[0]
@@ -474,6 +476,6 @@ def taylor1_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
             (_, px, pt), (s, sp) = saved[l - 1]
             G = (sp * (gh - 2.0 * s * (ghx * px + ght * pt)), ghx * sp, ght * sp)
     if spec.n_paths:
-        w_paths = net[0]["W"][2:]  # the path features' rows of W_0
+        w_paths = net[0]["W"][2 + 2 * spec.n_fourier:]  # the path features' rows of W_0
         grads += list(path_backward_reference(spec, net[0], h, *(g @ w_paths.T for g in G)))
     return grads

@@ -43,6 +43,13 @@ the TPU kernel ``mlp_taylor2_pallas_mixed`` (``_taylor2_kernel_mixed``;
 K2 otherwise; the plain versions are the same functions as K1's and K2's,
 on the same spec. K6 takes float32 masters and a bfloat16 compute dtype.
 
+Fourier features (``spec.fourier``) and shock paths (``spec.n_paths``) ride
+in K1's tiled design and in K2 (float32 only): the first layer's input is
+[x^, t^, sin z, cos z, phi] with all four streams of each column, made in
+the kernels' input passes (``csrc/fourier.cuh``); K2 also gives the paths'
+gradient. A spec with either takes the tiled design at any width. K6 (the
+mixed policy) refuses them (ROADMAP queue 2).
+
 The wrappers validate everything the kernels assume and raise otherwise;
 they never fall back to the plain version.
 """
@@ -51,18 +58,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from pinns_tpu_torch.models.mlp import (
-    SLICE_2B_III,
     PATH_KEYS,
     MLPSpec,
     Params,
-    input_scale,
+    embed_streams,
+    fourier_frequencies,
     normalize_inputs,
+    path_backward_reference,
 )
 from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops import taylor
@@ -76,8 +86,9 @@ MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
-MAX_PATHS = 8  # kMaxPaths, kMaxPathDegree in csrc/paths.cuh
+MAX_PATHS = 8  # kMaxPaths, kMaxPathDegree, kMaxFourier in csrc/fourier.cuh
 MAX_PATH_DEGREE = 7
+MAX_FOURIER = 64  # B goes to the kernels by value
 # The forward's two designs (csrc/taylor2.cu), one launch a call each. A net
 # whose widths are all at most NARROW_WIDTH takes the narrow design, a
 # per-tile kernel: a thread owns one unit and 4 points of all four streams,
@@ -129,12 +140,14 @@ class LaunchConfig:
 
 def launch_config(layers: Sequence[int], mixed: bool = False) -> LaunchConfig:
     """How K1, or K6 for a ``mixed`` spec, launches for a net of these widths
-    (the kernel refuses any other configuration)."""
+    (``spec.widths``: a first width above 2, Fourier or path features, takes
+    the tiled design at any width; the kernel refuses any other
+    configuration)."""
     layers = tuple(int(w) for w in layers)
     wmax = max(layers)
     if wmax > MAX_WIDTH:
         raise ValueError(f"taylor2 kernel takes widths up to {MAX_WIDTH}, got {wmax}")
-    if wmax <= NARROW_WIDTH:
+    if wmax <= NARROW_WIDTH and layers[0] == 2:
         tile = _NARROW_SMEM // (4 * 2 * 4 * wmax) - 4  # bytes/(f32*bufs*streams*rows) - pad
         tile = min(_NARROW_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
         items = (tile // _POINTS_PER_THREAD) * max(layers[1:])
@@ -169,8 +182,9 @@ class BackwardPlan:
     streams, the pre-activations of every hidden layer, the stacked inputs
     of one layer (each row holds the bias's indicator after the streams and
     is padded to 16 bytes), two adjoint buffers, the split partials, and the
-    bf16-rounded weights of a mixed spec. The kernel lays the scratch out
-    itself and refuses a plan that does not fit it."""
+    bf16-rounded weights of a mixed spec, and the path gradient's
+    per-128-point partials (doubles) of a shock-path net. The kernel lays the
+    scratch out itself and refuses a plan that does not fit it."""
 
     n_pad: int
     split_rows: int
@@ -182,19 +196,23 @@ class BackwardPlan:
     gbuf: int
     partials: int
     wq: int
+    psums: int = 0
 
     @property
     def scratch_floats(self) -> int:
         return (self.sums + self.h0 + self.pstore + self.hbuf + self.gbuf + self.partials
-                + self.wq)
+                + self.wq + self.psums)
 
     @property
     def scratch_bytes(self) -> int:
         return 4 * self.scratch_floats
 
 
-def backward_plan(layers: Sequence[int], n: int, mixed: bool = False) -> BackwardPlan:
-    """K2's plan for ``n`` points through a net of these widths."""
+def backward_plan(layers: Sequence[int], n: int, mixed: bool = False,
+                  path_params: int = 0) -> BackwardPlan:
+    """K2's plan for ``n`` points through a net of these widths
+    (``spec.widths``) with ``path_params`` path parameters
+    (``spec.n_path_params``)."""
     layers = tuple(int(w) for w in layers)
     if max(layers) > MAX_WIDTH:
         raise ValueError(f"taylor2 backward kernel takes widths up to {MAX_WIDTH}, "
@@ -209,17 +227,18 @@ def backward_plan(layers: Sequence[int], n: int, mixed: bool = False) -> Backwar
     return BackwardPlan(
         n_pad=n_pad, split_rows=per_split * GEMM_TILE, splits=splits,
         sums=_align4(2 * (len(layers) - 1) * (n_pad // GEMM_TILE) * max(layers)),
-        h0=rows * _ld_h(2), pstore=rows * sum(layers[1:-1]), hbuf=rows * _ld_h(max(layers)),
-        gbuf=2 * rows * max(layers), partials=_align4(splits * n_params),
-        wq=_align4(n_params) if mixed else 0)
+        h0=rows * _ld_h(layers[0]), pstore=rows * sum(layers[1:-1]),
+        hbuf=rows * _ld_h(max(layers)), gbuf=2 * rows * max(layers),
+        partials=_align4(splits * n_params), wq=_align4(n_params) if mixed else 0,
+        psums=_align4(2 * (n_pad // GEMM_TILE) * path_params))
 
 
 def _lib():
     lib = build.load_library("taylor2")
     if not getattr(lib, "_pinns_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pinns_taylor2_forward.argtypes = [
-            p, i, p, p, i, f, f, f, f, i, i, p, p, p, p, i, p,
+        lib.pinns_taylor2_forward.argtypes = [  # + the features (feature_args)
+            p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, p, p, p, p, i, p,
         ]
         lib.pinns_taylor2_forward.restype = i
         lib.pinns_taylor2_mixed_forward.argtypes = [  # K6: + the policy word
@@ -227,7 +246,7 @@ def _lib():
         ]
         lib.pinns_taylor2_mixed_forward.restype = i
         lib.pinns_taylor2_forward_members.argtypes = [  # K8s (a): + members, param stride
-            p, i, p, i, ctypes.c_longlong, p, i, f, f, f, f, i, i, p, p, p, p, i, p,
+            p, i, p, i, ctypes.c_longlong, p, i, i, p, i, i, f, f, f, f, i, i, p, p, p, p, i, p,
         ]
         lib.pinns_taylor2_forward_members.restype = i
         lib.pinns_cuda_error_string.argtypes = [i]
@@ -241,8 +260,8 @@ def _backward_lib():
     if not getattr(lib, "_pinns_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         q = ctypes.c_longlong
-        lib.pinns_taylor2_backward.argtypes = [
-            p, i, p, p, i, f, f, f, f, i, i, i, p, p, p, p, p, q, p, i, p,
+        lib.pinns_taylor2_backward.argtypes = [  # + the features
+            p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, i, p, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor2_backward.restype = i
         lib.pinns_taylor2_mixed_backward.argtypes = [  # K6's: + the policy word
@@ -278,27 +297,40 @@ def pack_params(params: Params) -> torch.Tensor:
 
 
 def check_paths(kernel: str, spec: MLPSpec) -> None:
-    """Raise unless a path spec fits the bounds of the kernels that compute
-    paths (K7a, K5's wide design; ``csrc/paths.cuh``)."""
+    """Raise unless the spec's Fourier and path features fit the bounds of
+    the kernels that compute them (K1's tiled design, K2, K7a, K5's wide
+    design; ``csrc/fourier.cuh``)."""
     if spec.n_paths > MAX_PATHS or spec.path_degree > MAX_PATH_DEGREE:
         raise ValueError(f"the {kernel} kernel takes up to {MAX_PATHS} paths of degree up to "
                          f"{MAX_PATH_DEGREE}, got {spec.n_paths} of degree {spec.path_degree}")
+    if spec.n_fourier > MAX_FOURIER:
+        raise ValueError(f"the {kernel} kernel takes up to {MAX_FOURIER} Fourier features "
+                         f"(B goes to it by value), got {spec.n_fourier}")
 
 
-def path_args(spec: MLPSpec) -> Tuple[int, int]:
-    """(n_paths, path_degree) as those kernels' launchers take them."""
-    return spec.n_paths, spec.path_degree if spec.n_paths else 0
+@functools.lru_cache(maxsize=64)
+def _frequencies(spec: MLPSpec) -> np.ndarray:
+    return np.ascontiguousarray(fourier_frequencies(spec).reshape(-1), dtype=np.float32)
 
 
-def refuse_paths(kernel: str, spec: MLPSpec) -> None:
-    """Raise unless ``spec`` has no shock-path features: the kernels that
-    compute none (K1/K2/K6, K3, K5's narrow design) come to them with
-    slice 2b-iii."""
-    if spec.n_paths:
+def feature_args(spec: MLPSpec) -> tuple:
+    """(n_fourier, a host pointer to 2 pi B[:, 0] then 2 pi B[:, 1] as
+    float32 or None, n_paths, path_degree) as the kernels' launchers take
+    them. The frequencies are kept per spec, so the pointer outlives the
+    call."""
+    n_fourier, freqs = (spec.n_fourier, _frequencies(spec).ctypes.data) if spec.fourier \
+        else (0, None)
+    return n_fourier, freqs, spec.n_paths, spec.path_degree if spec.n_paths else 0
+
+
+def refuse_features(kernel: str, spec: MLPSpec, why: str) -> None:
+    """Raise unless ``spec`` has neither Fourier nor shock-path features:
+    the kernels that compute none (K6, K3, K10's narrow scope, the narrow
+    designs) name ``why`` (what takes such a spec instead)."""
+    if spec.n_paths or spec.fourier:
         raise ValueError(
-            f"the {kernel} kernel computes no shock-path features (model.n_paths="
-            f"{spec.n_paths}); they come to it with {SLICE_2B_III} (ROADMAP queue 1); "
-            "the Euler trunk takes them through K7a and K5's wide design")
+            f"the {kernel} kernel computes no Fourier or shock-path features "
+            f"(model.n_fourier={spec.n_fourier}, model.n_paths={spec.n_paths}); {why}")
 
 
 def split_grad(flat: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -345,6 +377,10 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+MIXED_FEATURES = ("the mixed stream policy with Fourier or path features is left to a later "
+                  "slice (ROADMAP queue 2, K6); a float32 spec takes K1 and K2")
+
+
 def policy_flags(spec: MLPSpec) -> int:
     """K6's policy word: 1 value quantized, 2 x/t derivatives quantized, 4 xx
     quantized, 8 mixed_elementwise (the derivatives are always quantized:
@@ -378,11 +414,12 @@ def taylor2(
     """
     global LAUNCHES, MIXED_LAUNCHES
     kernel = "taylor2_mixed" if spec.mixed else "taylor2"
-    refuse_paths(kernel, spec)
     if spec.mixed:
+        refuse_features(kernel, spec, MIXED_FEATURES)
         check_mixed(kernel, spec)
+    check_paths(kernel, spec)
     check_call(kernel, spec, params, x)
-    layers = spec.layers
+    layers = spec.widths
     cfg = launch_config(layers, spec.mixed)
     flat = pack_params(params)
     n = x.shape[0]
@@ -401,7 +438,7 @@ def taylor2(
     if spec.mixed:
         err = lib.pinns_taylor2_mixed_forward(*head, policy_flags(spec), *tail)
     else:
-        err = lib.pinns_taylor2_forward(*head, *tail)
+        err = lib.pinns_taylor2_forward(*head, *feature_args(spec), *tail)
     if err != 0:
         msg = lib.pinns_cuda_error_string(err).decode()
         raise RuntimeError(
@@ -441,11 +478,12 @@ def taylor2_members(spec: MLPSpec, flat: torch.Tensor, x: torch.Tensor
     row m member m's :func:`pack_params` (S >= ``spec.n_params``; an S that is
     a multiple of 4 keeps the tiled design's 16-byte weight copies), from one
     launch of K1 with the member as the grid's y. Member m's streams equal a
-    solo :func:`taylor2` call on its net bit for bit. Float32 specs without
-    shock paths only; raises on anything else."""
+    solo :func:`taylor2` call on its net bit for bit (Fourier and path
+    features included: a member's paths follow its trunk in its row).
+    Float32 specs only; raises on anything else."""
     global MEMBER_LAUNCHES
     kernel = "taylor2 members"
-    refuse_paths(kernel, spec)
+    check_paths(kernel, spec)
     if spec.mixed:
         raise ValueError(f"the {kernel} kernel takes float32 specs; the member axis of K6 "
                          "(a mixed stream policy) is later work (ROADMAP queue 2)")
@@ -457,17 +495,17 @@ def taylor2_members(spec: MLPSpec, flat: torch.Tensor, x: torch.Tensor
     e, n = flat.shape[0], x.shape[0]
     if not 1 <= e <= 65535:
         raise ValueError(f"{kernel}: 1 to 65,535 members, got {e}")
-    cfg = launch_config(spec.layers)
+    cfg = launch_config(spec.widths)
     outs = tuple(torch.empty((e, n, spec.out_dim), dtype=torch.float32, device=x.device)
                  for _ in range(4))
     if n == 0:
         return outs
     lib = _lib()
-    layers = spec.layers
+    layers = spec.widths
     dims = (ctypes.c_int * len(layers))(*layers)
     err = lib.pinns_taylor2_forward_members(
         x.data_ptr(), n, flat.data_ptr(), e, flat.shape[1], dims, len(layers) - 1,
-        spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], cfg.tile, cfg.threads,
+        *feature_args(spec), spec.lb[0], spec.lb[1], spec.ub[0], spec.ub[1], cfg.tile, cfg.threads,
         *(o.data_ptr() for o in outs), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -494,22 +532,24 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     gu . u + gux . u_x + gut . u_t + guxx . u_xx, where ``cotangents`` =
     (gu, gux, gut, guxx), each (N, out_dim) float32, contiguous, on ``x``'s
     CUDA device. One host call that issues every product, elementwise pass
-    and the reduction (``backward_plan``); raises on anything the kernel
+    and the reduction (``backward_plan``); a shock-path net's gradient ends
+    with its paths' (``pack_params`` order). Raises on anything the kernel
     does not take."""
     global BACKWARD_LAUNCHES, MIXED_BACKWARD_LAUNCHES
     kernel = "taylor2_mixed backward" if spec.mixed else "taylor2 backward"
     if len(cotangents) != 4:
         raise ValueError(f"{kernel} takes 4 stream cotangents, got {len(cotangents)}")
-    refuse_paths(kernel, spec)
     if spec.mixed:
+        refuse_features(kernel, spec, MIXED_FEATURES)
         check_mixed(kernel, spec)
+    check_paths(kernel, spec)
     check_call(kernel, spec, params, x, *cotangents)
-    layers = spec.layers
+    layers = spec.widths
     n = x.shape[0]
     grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
     if n == 0:
         return grad.zero_()
-    plan = backward_plan(layers, n, spec.mixed)
+    plan = backward_plan(layers, n, spec.mixed, spec.n_path_params)
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
     lib = _backward_lib()
     dims = (ctypes.c_int * len(layers))(*layers)
@@ -522,7 +562,7 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     if spec.mixed:
         err = lib.pinns_taylor2_mixed_backward(*head, policy_flags(spec), *tail)
     else:
-        err = lib.pinns_taylor2_backward(*head, *tail)
+        err = lib.pinns_taylor2_backward(*head, *feature_args(spec), *tail)
     if err != 0:
         msg = lib.pinns_taylor2_backward_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg}); {plan}")
@@ -541,10 +581,9 @@ class _Taylor2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, x, *leaves):
-        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
         ctx.spec = spec
         ctx.save_for_backward(x, *leaves)
-        return taylor2(spec, params, x)
+        return taylor2(spec, net_from_leaves(leaves, spec.n_paths), x)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -553,18 +592,17 @@ class _Taylor2(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             raise NotImplementedError("the taylor2 kernels give no gradient with respect "
                                       "to the input points")
-        params = [{"W": w, "b": b} for w, b in zip(leaves[0::2], leaves[1::2])]
+        params = net_from_leaves(leaves, ctx.spec.n_paths)
         grad = taylor2_backward(ctx.spec, params, x, [g.contiguous() for g in cotangents])
         return (None, None, *split_grad(grad, leaves))
 
 
 def mlp_taylor2_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
     """(u, u_x, u_t, u_xx) through K1 (K6 for a mixed spec), differentiable
-    in the params through K2 (K6's backward). CUDA tensors only (the wrappers
-    raise on anything else, a shock-path spec included)."""
-    refuse_paths("taylor2", spec)
-    leaves = [t for layer in params for t in (layer["W"], layer["b"])]
-    return _Taylor2.apply(spec, x, *leaves)
+    in the params through K2 (K6's backward), Fourier and shock-path
+    features included (float32). CUDA tensors only (the wrappers raise on
+    anything else)."""
+    return _Taylor2.apply(spec, x, *net_leaves(params))
 
 
 # -- the plain version of K2 and of K6's backward: the hand-written reverse mode
@@ -588,9 +626,12 @@ def _act_backward(pre, tanh, gH):
 def taylor2_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
                                cotangents) -> List[torch.Tensor]:
     """K2's algorithm (K6's backward for a mixed spec) in plain PyTorch:
-    [dW_0, db_0, dW_1, ...] (W leaves (din, dout), b leaves (1, dout)) of sum
-    over points of the cotangents (gu, gux, gut, guxx), each (N, out_dim),
-    dotted with (u, u_x, u_t, u_xx).
+    [dW_0, db_0, dW_1, ...] (W leaves (din, dout), b leaves (1, dout)), then
+    d path_c and d path_a for a shock-path net (:func:`net_leaves` order), of
+    sum over points of the cotangents (gu, gux, gut, guxx), each (N,
+    out_dim), dotted with (u, u_x, u_t, u_xx). The paths' gradient applies
+    ``models.mlp.path_backward_reference`` to the path columns of layer 0's
+    input adjoints G_0 W_0^T, one per stream.
 
     Under a mixed policy the forward is recomputed with its rounding
     (``ops.taylor.taylor2_layer``), each stream's input adjoint takes the
@@ -600,13 +641,10 @@ def taylor2_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
     pol = _StreamPolicy(spec)
     dtype = spec.dtype
     h = normalize_inputs(spec, x)
-    scale = input_scale(spec, x.device)
-    zero = torch.zeros_like(h)
-    ex = torch.zeros_like(h)
-    ex[:, 0] = scale[0]
-    et = torch.zeros_like(h)
-    et[:, 1] = scale[1]
-    streams = (h, ex, et, zero)
+    n = x.shape[0]
+    streams = embed_streams(spec, h, net[0])
+    if streams[3] is None:  # the affine embedding: constant tangents, zero curvature
+        streams = (h, streams[1].expand(n, -1), streams[2].expand(n, -1), torch.zeros_like(h))
     saved = []  # (pre-activation streams, tanh factors) of each hidden layer
     inputs = [streams]
     for i, layer in enumerate(net[:-1]):
@@ -623,4 +661,7 @@ def taylor2_backward_reference(spec: MLPSpec, net: Params, x: torch.Tensor,
             w = net[l]["W"]
             gH = tuple(g @ pol.weight(w, stream).T for g, stream in zip(G, POLICY_STREAMS))
             G = _act_backward(*saved[l - 1], gH)
+    if spec.n_paths:
+        w_paths = net[0]["W"][2 + 2 * spec.n_fourier:]  # the path features' rows of W_0
+        grads += list(path_backward_reference(spec, net[0], h, *(g @ w_paths.T for g in G)))
     return grads

@@ -15,11 +15,20 @@ version of the Adam stage of the fused CUDA step (``csrc/fused_step.cu``).
 (``pinns_tpu/train/trainer.py:793-809``): 'constant', 'cosine' (optax's
 ``cosine_decay_schedule`` with ``alpha = min_lr_fraction``) and 'exponential'
 (optax's ``exponential_decay`` by 0.1 over ``schedule_epochs``, not
-staircased), each evaluated at Adam's count in float32 as optax does.
+staircased), each evaluated at Adam's count in float32 as optax does under
+XLA on the CPU, bit for bit at every count: XLA folds the constants (the
+cosine's argument count * fl(pi / T), its affine part (1 + cos) * fl(0.5 (1 -
+alpha)) + alpha as one fused multiply-add; the exponential's exponent count
+* fl(1 / T)) and evaluates ``cos`` and ``pow`` by the C library's ``cosf`` and
+``powf``, which the schedule calls too (numpy's float32 ``cos`` and
+``power`` differ from them by an ulp or more at some counts).
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -105,9 +114,43 @@ def apply_updates(params, updates):
                                                  _leaves_like(params, updates)))
 
 
+@functools.lru_cache(maxsize=1)
+def _libm() -> ctypes.CDLL:
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    lib.cosf.argtypes, lib.cosf.restype = [ctypes.c_float], ctypes.c_float
+    lib.powf.argtypes, lib.powf.restype = [ctypes.c_float, ctypes.c_float], ctypes.c_float
+    return lib
+
+
+def _cosf(a: np.ndarray) -> np.ndarray:
+    """The C library's float32 cosine of each entry of ``a``."""
+    fn = _libm().cosf
+    return np.fromiter((fn(v) for v in a.tolist()), np.float32, a.size)
+
+
+def _powf(base: np.float32, a: np.ndarray) -> np.ndarray:
+    """The C library's float32 ``base ** a`` for each entry of ``a``."""
+    fn, b = _libm().powf, float(base)
+    return np.fromiter((fn(b, v) for v in a.tolist()), np.float32, a.size)
+
+
+def _scalar_or_array(fn):
+    """``fn`` over a numpy array of counts as a float64 array; over an int
+    count as a float."""
+    @functools.wraps(fn)
+    def call(count):
+        counts = np.asarray(count, dtype=np.int64)
+        out = fn(counts.reshape(-1)).astype(np.float64)
+        return float(out[0]) if counts.ndim == 0 else out.reshape(counts.shape)
+
+    return call
+
+
 def learning_rate_schedule(cfg) -> Union[float, Callable[[int], float]]:
     """The learning rate of an ``OptimizerConfig``: a float for 'constant',
-    else a function of Adam's count (the updates taken so far)."""
+    else a function of Adam's count (the updates taken so far): an int gives
+    a float, an array of counts a float64 array of the float32 rates (the
+    schedule's rows take a chunk's in one call)."""
     f32 = np.float32
     lr0, steps = f32(cfg.learning_rate), cfg.schedule_epochs
     if cfg.lr_schedule == "constant":
@@ -116,21 +159,29 @@ def learning_rate_schedule(cfg) -> Union[float, Callable[[int], float]]:
         if not steps > 0:
             raise ValueError(f"the cosine schedule needs schedule_epochs > 0, got {steps}")
         alpha = cfg.min_lr_fraction
+        step = f32(np.pi) / f32(steps)
+        half = f32(0.5) * f32(1 - alpha)
 
-        def cosine(count: int) -> float:
-            c = min(f32(count), f32(steps))
-            decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(steps)))
-            return float(lr0 * (f32(1 - alpha) * decay + f32(alpha)))
+        @_scalar_or_array
+        def cosine(counts: np.ndarray) -> np.ndarray:
+            c = np.minimum(counts.astype(f32), f32(steps))
+            one_plus = f32(1) + _cosf(c * step)
+            # (1 + cos) * half + alpha, one rounding: the float64 product of
+            # two float32 values is exact
+            decayed = (one_plus.astype(np.float64) * np.float64(half)
+                       + np.float64(f32(alpha))).astype(f32)
+            return decayed * lr0
 
         return cosine
     if cfg.lr_schedule == "exponential":
         if steps <= 0:
             return float(cfg.learning_rate)
+        inv = f32(1) / f32(steps)
 
-        def exponential(count: int) -> float:
-            if count <= 0:
-                return float(lr0)
-            return float(lr0 * np.power(f32(0.1), f32(count) / f32(steps)))
+        @_scalar_or_array
+        def exponential(counts: np.ndarray) -> np.ndarray:
+            rate = lr0 * _powf(f32(0.1), counts.astype(f32) * inv)
+            return np.where(counts <= 0, lr0, rate).astype(f32)
 
         return exponential
     raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")

@@ -50,10 +50,13 @@ from pinns_tpu_torch.losses.admm import ADMMState
 from pinns_tpu_torch.ops.kernels.taylor2 import net_from_leaves, net_leaves, pack_params
 from pinns_tpu_torch.opt.adam import AdamState, tree_map
 from pinns_tpu_torch.train.metrics import MetricsLogger
-from pinns_tpu_torch.train.trainer import METRIC_KEYS, Trainer, TrainState
+from pinns_tpu_torch.train.trainer import METRIC_KEYS, Trainer, TrainState, swa_params, swa_update
 
-SLICE_2B = "slice 2b-iii (the rest of shock capture on the weak form)"
 SLICE_6 = "slice 6 (multi-GPU)"
+# the JAX package's own refusal (pinns_tpu/parallel/ensemble.py:75-80)
+RAD_REFUSAL = ("sampling.strategy='rad' re-draws the batch at chunk boundaries via "
+               "Trainer.train and is not wired into the vmapped ensemble loop — use solo "
+               "runs (or the sweep runner's serial path) for RAD")
 
 
 # -- the stacked state ---------------------------------------------------------
@@ -197,7 +200,7 @@ def make_ensemble_chunk(trainer: Trainer, chunk: int, phase: str = "adam"):
     the Philox draws (the tests feed JAX's batches). K8's chunks replay its
     graphs (:func:`k8_chunk`); the member loop runs the rest."""
     if trainer.exp.sampling.strategy == "rad":
-        raise NotImplementedError(f"RAD resampling in an ensemble: {SLICE_2B}")
+        raise ValueError(RAD_REFUSAL)
     if phase == "adam":
         step = trainer._adam_step
     elif phase == "lbfgs":
@@ -592,7 +595,10 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
     ``<name>_m<i>``; snapshots and the checkpoints ``<name>_e{epoch}_m{i}``
     and ``<name>_final_m{i}`` per member; ``train.stop_tol`` stops once every
     member's |loss| is under it. Returns (stacked state, one summary a
-    member, with its ``epochs``, ``member`` and ``seed``)."""
+    member, with its ``epochs``, ``member`` and ``seed``). With
+    ``train.swa_frac`` each member keeps its own SWA mean over the stacked
+    params (JAX's ``:602-679``): the summaries' ``swa_snapshots`` and
+    ``swa_*`` entries and the checkpoints ``<name>_swa_m{i}``."""
     if mesh is not None:
         raise NotImplementedError(f"members sharded over a device mesh: {SLICE_6}")
     exp = trainer.exp
@@ -617,6 +623,9 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
     lbfgs_chunk = max(1, min(chunk // 100 or 1, 10))
     crossed = Trainer._crossed
     runs = {}
+    swa_start = (total - int(round(exp.train.swa_frac * total))
+                 if exp.train.swa_frac > 0.0 else None)
+    swa_avg, swa_n = None, 0
     epoch = int(stacked.epoch)
     t0 = time.time()
     while epoch < total:
@@ -628,6 +637,8 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
             runs[(phase, length)] = make_ensemble_chunk(trainer, length, phase)
         stacked, metrics = runs[(phase, length)](stacked)
         epoch += length
+        if swa_start is not None and epoch > swa_start:
+            swa_avg, swa_n = swa_update(swa_avg, swa_n, stacked.params)
         if exp.train.stop_tol > 0.0:
             last = metrics["loss"][-1].cpu().numpy()
             if np.all(np.abs(last) <= exp.train.stop_tol):
@@ -650,6 +661,14 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
                     trainer.save_checkpoint(member, tag=f"e{epoch}_m{i}")
 
     summaries = [dict(s, epochs=epoch) for s in evaluate_ensemble(trainer, stacked, n)]
+    if swa_n > 0:
+        swa_stacked = stacked._replace(params=swa_params(swa_avg, stacked.params))
+        for i, member in enumerate(unstack_states(swa_stacked, n)):
+            summaries[i]["swa_snapshots"] = swa_n
+            for k, v in trainer.evaluate(member).items():
+                summaries[i][f"swa_{k}"] = v
+            if out_dir:
+                trainer.save_checkpoint(member, tag=f"swa_m{i}")
     for i, (logger, summary) in enumerate(zip(loggers, summaries)):
         logger.write_summary(dict(summary, member=i, seed=int(seeds[i])))
     if out_dir:

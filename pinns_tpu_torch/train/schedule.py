@@ -57,8 +57,10 @@ def schedule_rows(key: int, count: int, epoch: int, length: int,
     for i in range(length):
         lb, ub = bounds(epoch + i)
         rows["lb"][i], rows["ub"][i] = lb, ub
-        rows["lr"][i] = learning_rate(count + i) if callable(learning_rate) else learning_rate
         rows["bc"][i] = bias_corrections(count + i)
+    # a schedule's rates in one call over the chunk's counts
+    rows["lr"] = (learning_rate(np.arange(count, count + length)) if callable(learning_rate)
+                  else learning_rate)
     return rows.view(np.int32).reshape(length, ROW_WORDS)
 
 

@@ -77,9 +77,19 @@ residual sees the weighted field), and L-BFGS on the Euler system, whose
 solve runs on K10's kernels around autograd through the loss on the card
 (``ops.kernels.lbfgs.AutogradLBFGS``).
 
-What the port leaves to later slices, each raising ``NotImplementedError``
-with the slice's name: the weak-form ADMM, RAD, SWA and Fourier features
-(slice 2b-iii); multi-GPU (slice 6). Ensembles and sweeps train through
+The rest of slice 2b-iii: Fourier features (``model.n_fourier``: the spec's
+B from ``models.mlp.fourier_matrix``, computed inside K1/K2, K7a and K5's
+wide design on the card); the weak-form ADMM (``loss.admm_form='flux'``: z
+and the dual live on the weak-form cells, :meth:`Problem.training_residuals`
+feeds the ADMM init and updates); RAD (``sampling.strategy='rad'``: the
+batch is fixed within a chunk and redrawn at each chunk boundary by
+residual-importance sampling from a Philox pool, :func:`rad_resample`); and
+SWA (``train.swa_frac``: the float32 running mean of the params at the chunk
+boundaries of the tail, ``Trainer.swa_params``, the summary's ``swa_*``
+entries and the ``swa`` checkpoint).
+
+What the port leaves to a later slice raises ``NotImplementedError`` with
+the slice's name: multi-GPU (slice 6). Ensembles and sweeps train through
 ``pinns_tpu_torch.parallel`` (slice 4a) and serve through
 ``serve.export_ensemble``.
 """
@@ -114,7 +124,13 @@ from pinns_tpu_torch.losses.admm import (
     admm_update,
 )
 from pinns_tpu_torch.losses.misfit import causal_residual_penalty, data_misfit, residual_penalty
-from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp, mlp_apply, mlp_apply_reference
+from pinns_tpu_torch.models.mlp import (
+    MLPSpec,
+    fourier_matrix,
+    init_mlp,
+    mlp_apply,
+    mlp_apply_reference,
+)
 from pinns_tpu_torch.ops.kernels.sampling import philox_draw, philox_draw_reference
 from pinns_tpu_torch.ops.residuals import euler_combine, euler_entropy_production
 from pinns_tpu_torch.ops.taylor import (
@@ -160,16 +176,10 @@ def check_slice(exp: Experiment) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings a feature
     ``exp`` uses and the port does not have yet."""
     later = []
-    slice2 = "slice 2b-iii (the rest of shock capture on the weak form)"
-    m, s, lo = exp.model, exp.sampling, exp.loss
+    m = exp.model
     checks = [
         (exp.pde.kind not in ("burgers", "euler"), f"pde.kind={exp.pde.kind!r}",
          "no slice (burgers and euler only)"),
-        (lo.admm_form != "strong", f"the weak-form ADMM (loss.admm_form={lo.admm_form!r})",
-         slice2),
-        (s.strategy == "rad", "RAD resampling", slice2),
-        (exp.train.swa_frac > 0.0, "SWA", slice2),
-        (m.n_fourier > 0, "Fourier features", slice2),
         (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
     ]
@@ -269,13 +279,24 @@ class Problem:
         return rs, ent
 
     @property
+    def admm_flux(self) -> bool:
+        """ADMM regularizes the weak-form cell residual (``loss.admm_form``,
+        JAX's ``:258-269``)."""
+        form = self.exp.loss.admm_form
+        if form not in ("strong", "flux"):
+            raise ValueError(f"unknown loss.admm_form {form!r} (expected 'strong' or 'flux')")
+        return self.exp.loss.residual_kind == "admm" and form == "flux"
+
+    @property
     def flux(self) -> bool:
         """The training loss takes the weak-form residual."""
-        return self.exp.loss.residual_kind == "flux" or self.exp.loss.admm_form == "flux"
+        return self.exp.loss.residual_kind == "flux" or self.admm_flux
 
     def training_residuals(self, params, pts, plain: bool = False):
         """Residuals of the trained objective at ``pts``: the weak-form cells
-        when the loss is weak-form, else the strong form."""
+        when the loss is weak-form (the flux ADMM's z and dual live there),
+        else the strong form over the microbatches: what the ADMM state and
+        RAD's scoring read (JAX's ``:271-279``)."""
         if self.flux:
             return self.flux_residuals_and_entropy(params, pts, plain=plain)[0]
         return self.residuals_chunked(params, pts, plain)
@@ -365,6 +386,10 @@ def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None)
     build = interior_training_set if exp.data.selection == "interior" else build_ic_bc_training_set
     x_data, targets = build(ds, exp.data.n_u, seed=exp.data.seed, noise=exp.data.noise)
     dtype = _DTYPES[exp.model.dtype]
+    fourier = ()
+    if exp.model.n_fourier > 0:  # JAX's build_problem (pinns_tpu/train/trainer.py:312-319)
+        fourier = fourier_matrix(exp.model.n_fourier, in_dim=exp.model.layers[0],
+                                 sigma=exp.model.fourier_sigma, seed=exp.model.fourier_seed)
     spec = MLPSpec(
         layers=exp.model.layers,
         lb=tuple(float(v) for v in ds.lb),
@@ -373,6 +398,7 @@ def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None)
         compute_dtype=exp.model.compute_dtype or None,
         keep_streams=exp.model.keep_streams,
         mixed_elementwise=exp.model.mixed_elementwise,
+        fourier=fourier,
         n_paths=exp.model.n_paths,
         path_degree=exp.model.path_degree,
         path_sharpness=exp.model.path_sharpness,
@@ -404,6 +430,18 @@ def _curriculum_bounds(problem: Problem, epoch: int):
     return lb, ub
 
 
+def _philox_points(problem: Problem, key: int, word: int, n: int, lb, ub) -> torch.Tensor:
+    """(n, 2) points of Philox(key, word) uniform in [lb, ub): one launch of
+    K11 from a one-row schedule on a CUDA device, ``philox_uniform`` (the same
+    points) elsewhere."""
+    dtype = problem.spec.dtype
+    if problem.device.type != "cuda":
+        return philox_uniform(key, word, n, lb, ub, dtype, problem.device)
+    rows = epoch_schedule.schedule_rows(key, 0, word - 1, 1, 0.0, lambda e: (lb, ub))
+    return philox_draw(epoch_schedule.to_device(rows, problem.device),
+                       _zero_cursor(problem.device), n, dtype)
+
+
 def _resample(problem: Problem, key: int, draw: int) -> torch.Tensor:
     """The uniform collocation batch of ``draw``: Philox(key, draw), where
     draw 0 is the initial batch and draw e + 1 the batch drawn after step e,
@@ -411,13 +449,8 @@ def _resample(problem: Problem, key: int, draw: int) -> torch.Tensor:
     for the initial one, e after step e). On a CUDA device one launch of K11
     (``ops.kernels.sampling.philox_draw``) from a one-row schedule, else
     ``philox_uniform``: the same points."""
-    n_f, dtype = problem.exp.sampling.n_f, problem.spec.dtype
-    if problem.device.type != "cuda":
-        lb, ub = _curriculum_bounds(problem, max(draw - 1, 0))
-        return philox_uniform(key, draw, n_f, lb, ub, dtype, problem.device)
-    rows = adam_schedule(problem, 0.0, key, 0, draw - 1, 1)
-    return philox_draw(epoch_schedule.to_device(rows, problem.device),
-                       _zero_cursor(problem.device), n_f, dtype)
+    lb, ub = _curriculum_bounds(problem, max(draw - 1, 0))
+    return _philox_points(problem, key, draw, problem.exp.sampling.n_f, lb, ub)
 
 
 def adam_schedule(problem: Problem, learning_rate, key: int, count: int, epoch: int,
@@ -438,13 +471,14 @@ def _zero_cursor(device: torch.device) -> torch.Tensor:
 
 def init_collocation(problem: Problem, key: int) -> torch.Tensor:
     """Initial collocation set per the configured strategy: Philox(key, 0)
-    under 'resample_uniform'; the fixed sets draw from
+    under 'resample_uniform' and 'rad' (RAD starts uniform and is redrawn at
+    chunk boundaries, :func:`rad_resample`); the fixed sets draw from
     ``torch.Generator().manual_seed(key + 1)`` (``Generator(key)`` draws the
     weights in ``Trainer.init_state``)."""
     exp = problem.exp
     n_f, strategy = exp.sampling.n_f, exp.sampling.strategy
     dtype, device = problem.spec.dtype, problem.device
-    if strategy == "resample_uniform":
+    if strategy in ("resample_uniform", "rad"):
         return _resample(problem, key, 0)
     gen = torch.Generator().manual_seed(key + 1)
     if strategy == "fixed_uniform":
@@ -692,7 +726,7 @@ def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, ep
     mis = torch.zeros((), dtype=problem.spec.dtype, device=problem.device)
     if exp.loss.residual_kind == "admm":
         rho_val = exp.loss.rho if rho is None else rho
-        f_new = problem.residuals_chunked(params, colloc, plain=plain)
+        f_new = problem.training_residuals(params, colloc, plain=plain)
         admm_state = admm_update(f_new, admm_state, rho_val, colloc.shape[0])
         mis = admm_misfit(f_new, admm_state)
     return admm_state, colloc, key, mis
@@ -742,7 +776,7 @@ def _epoch_tail(problem: Problem, params, admm_state, colloc, rho, sched, cursor
         colloc = next_batch(colloc)
     mis = torch.zeros((), dtype=problem.spec.dtype, device=colloc.device)
     if admm:
-        f = problem.residuals_chunked(params, colloc, plain=plain)
+        f = problem.training_residuals(params, colloc, plain=plain)
         admm_state = admm_update(f, admm_state, exp.loss.rho if rho is None else rho,
                                  colloc.shape[0])
         mis = admm_misfit(f, admm_state)
@@ -938,6 +972,95 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     return step
 
 
+@torch.no_grad()
+def swa_update(avg, n: int, params):
+    """One step of SWA's running mean (JAX's ``Trainer._swa_update``):
+    ``avg += (p - avg) / (n + 1)`` over every leaf of ``params``, the
+    accumulator in float32 whatever the working dtype; the first call copies
+    the params. Returns (avg, n + 1). A stacked ensemble's params average
+    member by member (the member axis rides along)."""
+    if avg is None:
+        return tree_map(lambda p: p.detach().to(torch.float32).clone(), params), 1
+    # a 0-d tensor on the params' device: a true division, as JAX's (ATen
+    # multiplies by the reciprocal of a host scalar on the card)
+    count = torch.tensor(float(n + 1), dtype=torch.float32, device=tree_leaves(avg)[0].device)
+    return tree_map(lambda a, p: a + (p.detach().to(torch.float32) - a) / count,
+                    avg, params), n + 1
+
+
+def swa_params(avg, params):
+    """The SWA mean cast back to each leaf's dtype (new tensors)."""
+    return tree_map(lambda a, p: a.to(p.dtype).clone(), avg, params)
+
+
+# the Philox epoch words of RAD's draws (the 64-bit epoch word's high half
+# set, so they never meet the uniform batches' draws 0, 1, 2, ...): the pool
+# after epoch e draws (RAD_POOL + e), the categorical pick (RAD_PICK + e)
+RAD_POOL = 1 << 32
+RAD_PICK = 2 << 32
+
+
+def rad_probabilities(problem: Problem, params, pool: torch.Tensor,
+                      plain: bool = False) -> torch.Tensor:
+    """RAD's sampling weights over ``pool`` (JAX's ``_get_rad_resample``):
+    the TRAINED objective's residuals (the weak-form cells under a weak-form
+    loss) in ``sampling.microbatch * sampling.rad_pool_factor`` pieces, the
+    score the sum of the components' |f|, and p = |f|^k / (mean(|f|^k) +
+    1e-12) + c, (M,) in the working dtype. ``plain`` forces the plain
+    versions on any device."""
+    cfg = problem.exp.sampling
+
+    def one(pts):
+        if problem.flux:
+            return problem.flux_residuals_and_entropy(params, pts, plain=plain)[0]
+        return problem.residuals(params, pts, plain)
+
+    m = cfg.microbatch * cfg.rad_pool_factor
+    if m <= 1:
+        f = one(pool)
+    else:
+        parts = [one(ch) for ch in _chunks(pool, m)]
+        f = (tuple(torch.cat(c) for c in zip(*parts)) if isinstance(parts[0], tuple)
+             else torch.cat(parts))
+    fs = f if isinstance(f, tuple) else (f,)
+    score = sum(torch.abs(fi[:, 0]) for fi in fs)
+    pk = score ** cfg.rad_k
+    return pk / (torch.mean(pk) + 1e-12) + cfg.rad_c
+
+
+def rad_pick(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Indices drawn from the weights ``p`` (M,) at the uniforms ``u`` (n,)
+    in [0, 1): the inverse of the float64 cumulative sums (a categorical
+    draw, as JAX's ``jax.random.categorical`` of log p)."""
+    cdf = torch.cumsum(p.to(torch.float64), 0)
+    idx = torch.searchsorted(cdf, u.to(torch.float64) * cdf[-1], right=True)
+    return idx.clamp_(max=p.shape[0] - 1)
+
+
+@torch.no_grad()
+def rad_resample(problem: Problem, state: TrainState, plain: bool = False) -> TrainState:
+    """RAD's redraw at a chunk boundary (JAX's ``Trainer._get_rad_resample``):
+    a uniform pool of ``rad_pool_factor * n_f`` points inside the
+    curriculum's bounds of ``state.epoch`` (Philox(key, RAD_POOL + epoch)),
+    scored by :func:`rad_probabilities`, then n_f indices drawn from p by
+    inverse CDF (float64 cumulative sums) at the uniforms of Philox(key,
+    RAD_PICK + epoch); with ADMM, z and the dual re-initialize at the new
+    points. The draw is the port's: JAX's threefry points differ, so parity
+    is exact for p on one pool and statistical for the draw."""
+    cfg = problem.exp.sampling
+    epoch = int(state.epoch)
+    lb, ub = _curriculum_bounds(problem, epoch)
+    pool = _philox_points(problem, state.key, RAD_POOL + epoch, cfg.rad_pool_factor * cfg.n_f,
+                          lb, ub)
+    p = rad_probabilities(problem, state.params, pool, plain)
+    u = _philox_points(problem, state.key, RAD_PICK + epoch, cfg.n_f, (0.0, 0.0), (1.0, 1.0))
+    colloc = pool.index_select(0, rad_pick(p, u[:, 0]))
+    admm = state.admm
+    if admm is not None:
+        admm = admm_init(problem.training_residuals(state.params, colloc, plain=plain))
+    return state._replace(colloc=colloc, admm=admm)
+
+
 def run_chunk(step, state: TrainState, length: int,
               new_colloc: Optional[torch.Tensor] = None):
     """``length`` steps, one host call of ``step`` an epoch: the per-epoch
@@ -1006,6 +1129,9 @@ class Trainer:
         # caches them; parallel.ensemble keeps K8's here too
         self._chunks: Dict[Any, Any] = {}
         self.logger = MetricsLogger(out_dir=exp.train.out_dir or None, name=exp.name)
+        # set by train() when train.swa_frac > 0: the tail average of the
+        # params in the working dtype
+        self.swa_params = None
 
     # -- state ------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None, rho: Optional[float] = None) -> TrainState:
@@ -1026,7 +1152,7 @@ class Trainer:
         admm_state = None
         if exp.loss.residual_kind == "admm":
             with torch.no_grad():
-                admm_state = admm_init(self.problem.residuals_chunked(params, colloc))
+                admm_state = admm_init(self.problem.training_residuals(params, colloc))
         return TrainState(
             params=params, opt_state=adam_init(params), admm=admm_state, colloc=colloc,
             key=seed, epoch=0, rho=None if rho is None else float(rho),
@@ -1058,6 +1184,11 @@ class Trainer:
         chunk = max(1, min(exp.train.chunk, total))
         # L-BFGS outer epochs are whole inner solves: keep their chunks short
         lbfgs_chunk = max(1, min(chunk // 100 or 1, 10))
+        # SWA: the running mean of the params at the chunk boundaries past
+        # swa_start (JAX's :1070-1078), between chunks, outside any step
+        swa_start = (total - int(round(exp.train.swa_frac * total))
+                     if exp.train.swa_frac > 0.0 else None)
+        swa_avg, swa_n = None, 0
         t0 = time.time()
         epoch = int(state.epoch)
         n_chunks = 0
@@ -1085,8 +1216,21 @@ class Trainer:
                 break
             self._maybe_snapshot(epoch, length, state)
             self._maybe_checkpoint(epoch, length, state)
+            if swa_start is not None and epoch > swa_start:
+                swa_avg, swa_n = swa_update(swa_avg, swa_n, state.params)
+            if exp.sampling.strategy == "rad" and epoch < total:
+                state = rad_resample(self.problem, state)
         summary = self.evaluate(state)
         summary["epochs"] = epoch
+        if swa_n > 0:
+            self.swa_params = swa_params(swa_avg, state.params)
+            summary["swa_snapshots"] = swa_n
+            for k, v in self.evaluate(state, params=self.swa_params).items():
+                summary[f"swa_{k}"] = v
+            if exp.train.out_dir:
+                # a loadable state at the averaged iterate (the optimizer and
+                # ADMM state stay the final ones: SWA redefines only params)
+                self.save_checkpoint(state._replace(params=self.swa_params), tag="swa")
         self.logger.write_summary(summary)
         if exp.train.out_dir:
             self.save_checkpoint(state, tag="final")

@@ -109,11 +109,16 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert (k_mlp.LAUNCHES, k_mlp.BACKWARD_LAUNCHES, k_taylor2.BACKWARD_LAUNCHES) == before
-    # an embedded spec is not the model K5 computes (as the TPU kernel refused it)
-    fourier = MLPSpec(layers=(2, 8, 1), lb=LB, ub=UB)
-    object.__setattr__(fourier, "fourier", ((1.0, 2.0),))
-    with pytest.raises(ValueError, match="Fourier"):
+    # a Fourier spec (which the TPU kernel refused) is K5's since slice
+    # 2b-iii, on its wide design at any width: on a CPU tensor it raises for
+    # the device, and the widths are checked against the embedded input
+    fourier = MLPSpec(layers=(2, 8, 1), lb=LB, ub=UB, fourier=((1.0, 2.0),))
+    assert k_mlp.design(fourier.widths) == "wide" and fourier.widths[0] == 4
+    with pytest.raises(ValueError, match="CUDA tensor"):
         k_mlp.mlp_forward(fourier, params[:1] + params[-1:], x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k_mlp.mlp_backward(fourier, params[:1] + params[-1:], x, cot[0])
+    assert (k_mlp.LAUNCHES, k_mlp.BACKWARD_LAUNCHES) == before[:2]
 
 
 def test_launch_configs_fit_the_card():

@@ -1111,16 +1111,150 @@ def test_path_kernels_match_plain_on_card(cuda_device, kernel, layers, n):  # no
 
 
 def test_kernels_without_paths_refuse_them_on_card(cuda_device):  # noqa: F811
-    """K1/K2 and K5's narrow design raise on a path spec, naming slice 2b-iii."""
+    """K6 (the mixed policy) raises on a path or Fourier spec, naming the
+    ROADMAP item; K1/K2 and K5 take a narrow path net (K5 on its wide
+    design), and neither falls back to the plain version."""
+    import dataclasses
+
+    from pinns_tpu_torch.models.mlp import fourier_matrix
     from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
     from pinns_tpu_torch.ops.taylor import mlp_taylor_2
 
     spec, params, _, _ = _path_net((2, 20, 20, 1), 24, cuda_device)
     x = torch.from_numpy(numpy_points(16, seed=25)).to(cuda_device)
-    with pytest.raises(ValueError, match="slice 2b-iii"):
-        mlp_taylor_2(spec, params, x)
-    with pytest.raises(ValueError, match="slice 2b-iii"):
-        k_mlp.mlp_forward(spec, params, x)
+    before = (k_taylor2.LAUNCHES, k_mlp.LAUNCHES)
+    mlp_taylor_2(spec, params, x)
+    k_mlp.mlp_forward(spec, params, x)
+    assert (k_taylor2.LAUNCHES, k_mlp.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for kw in ({}, {"n_paths": 0, "fourier": fourier_matrix(4)}):
+        mixed = dataclasses.replace(spec, compute_dtype=torch.bfloat16, **kw)
+        net = init_mlp(mixed, torch.Generator().manual_seed(1), cuda_device)
+        with pytest.raises(ValueError, match="ROADMAP queue 2, K6"):
+            mlp_taylor_2(mixed, net, x)
+
+
+# (kernel, widths, N, Fourier features F, paths K): K1's tiled design and K2
+# at 8x20 (input width 2 + 2F + K) and wider, K7a's and K5's wide designs at
+# the Euler trunk and at narrow widths (a feature net takes the wide design)
+FEATURE_SHAPES = [("k1", NARROW, 1_000, 16, 0), ("k1", NARROW, 1_000, 0, 2),
+                  ("k1", NARROW, 777, 16, 2), ("k1", WIDE, 300, 16, 0),
+                  ("k2", NARROW, 1_000, 16, 0), ("k2", NARROW, 1_000, 0, 2),
+                  ("k2", NARROW, 333, 16, 2), ("k2", (2, 64, 64, 1), 200, 4, 2),
+                  ("k7a", EULER, 1_000, 16, 0), ("k7a", EULER, 1_000, 16, 2),
+                  ("k7a", (2, 20, 20, 3), 77, 4, 0),
+                  ("k5", EULER, 1_000, 16, 0), ("k5", EULER, 300, 16, 2),
+                  ("k5", NARROW, 100, 4, 0)]
+
+
+def _feature_net(layers, n_fourier, n_paths, seed, device):
+    """A net with F Fourier features (sigma 3, PARITY's setting; one B for
+    every seed) and K paths moved off their init, nonzero biases; and its
+    float64 twin."""
+    from pinns_tpu_torch.models.mlp import fourier_matrix
+
+    kw = dict(layers=layers, lb=LB, ub=UB, n_paths=n_paths, path_degree=2,
+              path_sharpness=12.0,
+              fourier=fourier_matrix(n_fourier, sigma=3.0) if n_fourier else ())
+    spec, spec64 = MLPSpec(**kw), MLPSpec(dtype=torch.float64, **kw)
+    params = init_mlp(spec, torch.Generator().manual_seed(seed), device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for p in params:
+        p["b"].copy_(0.1 * torch.randn(p["b"].shape, generator=gen))
+    if n_paths:
+        params[0]["path_c"].add_(0.3 * torch.randn(params[0]["path_c"].shape, generator=gen)
+                                 .to(device))
+        params[0]["path_a"].mul_(1.0 + 0.2 * torch.randn(n_paths, generator=gen).to(device))
+    params64 = [{k: v.double() for k, v in p.items()} for p in params]
+    return spec, params, spec64, params64
+
+
+@pytest.mark.parametrize("kernel,layers,n,f,k", FEATURE_SHAPES,
+                         ids=[f"{kn}-{len(l) - 2}x{max(l[1:])}-n{n}-F{f}-K{k}"
+                              for kn, l, n, f, k in FEATURE_SHAPES])
+def test_fourier_kernels_match_plain_on_card(cuda_device, kernel, layers, n, f, k):  # noqa: F811
+    """K1 (tiled) and K2, K7a (wide) and K5 (wide) with Fourier features and
+    shock paths: every stream and gradient leaf (path_c and path_a included)
+    within 4x the plain float32 version's error from float64; the autograd
+    Function's gradient equals the backward kernel's; two backward calls agree
+    bit for bit; the narrow designs are not used."""
+    from pinns_tpu_torch.models.mlp import mlp_apply, mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_1, mlp_taylor_1_reference
+
+    spec, params, spec64, params64 = _feature_net(layers, f, k, 31, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=32)).to(cuda_device)
+    x64 = x.double()
+    rng = np.random.default_rng(33)
+    streams = {"k1": 4, "k2": 4, "k7a": 3, "k5": 1}[kernel]
+    cot = [torch.from_numpy(rng.standard_normal((n, layers[-1])).astype(np.float32))
+           .to(cuda_device) for _ in range(streams)]
+    if kernel in ("k1", "k2"):
+        assert k_taylor2.launch_config(spec.widths).design == "tiled"
+        outs = k_taylor2.taylor2(spec, params, x)
+        grad = k_taylor2.taylor2_backward(spec, params, x, cot)
+        again = k_taylor2.taylor2_backward(spec, params, x, cot)
+        plain = mlp_taylor_2_reference(spec, params, x)
+        exact = mlp_taylor_2_reference(spec64, params64, x64)
+        pgrad = k_taylor2.taylor2_backward_reference(spec, params, x, cot)
+        egrad = k_taylor2.taylor2_backward_reference(spec64, params64, x64,
+                                                     [c.double() for c in cot])
+        fn = mlp_taylor_2
+    elif kernel == "k7a":
+        assert k_taylor1.default_design(spec.widths) == "wide"
+        outs = k_taylor1.taylor1(spec, params, x)
+        grad = k_taylor1.taylor1_backward(spec, params, x, cot)
+        again = k_taylor1.taylor1_backward(spec, params, x, cot)
+        plain = mlp_taylor_1_reference(spec, params, x)
+        exact = mlp_taylor_1_reference(spec64, params64, x64)
+        pgrad = k_taylor1.taylor1_backward_reference(spec, params, x, cot)
+        egrad = k_taylor1.taylor1_backward_reference(spec64, params64, x64,
+                                                     [c.double() for c in cot])
+        fn = mlp_taylor_1
+    else:
+        assert k_mlp.design(spec.widths) == "wide"
+        outs = (k_mlp.mlp_forward(spec, params, x),)
+        grad = k_mlp.mlp_backward(spec, params, x, cot[0])
+        again = k_mlp.mlp_backward(spec, params, x, cot[0])
+        plain = (mlp_apply_reference(spec, params, x),)
+        exact = (mlp_apply_reference(spec64, params64, x64),)
+        pgrad = k_mlp.mlp_backward_reference(spec, params, x, cot[0])
+        egrad = k_mlp.mlp_backward_reference(spec64, params64, x64, cot[0].double())
+        fn = lambda s, p, xx: (mlp_apply(s, p, xx),)  # noqa: E731
+    torch.cuda.synchronize()
+    assert torch.equal(grad, again)
+    assert grad.numel() == spec.n_params == sum(p.numel() for p in pgrad)
+    for g, p, e in zip(outs, plain, exact):
+        _f64_oracle(g.cpu(), p.cpu(), e.cpu())
+    off = 0
+    for p, e in zip(pgrad, egrad):
+        _f64_oracle(grad[off:off + p.numel()].view(p.shape).cpu(), p.cpu(), e.cpu())
+        off += p.numel()
+    leaves = [t.clone().requires_grad_(True) for t in k_taylor2.net_leaves(params)]
+    via = fn(spec, k_taylor2.net_from_leaves(leaves, spec.n_paths), x)
+    via_fn = torch.autograd.grad(sum(torch.sum(o * c) for o, c in zip(via, cot)), leaves)
+    for a, b in zip(via_fn, k_taylor2.split_grad(grad, leaves)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("f,k", [(16, 0), (4, 2)])
+def test_fourier_k8s_members_equal_solo_k1_on_card(cuda_device, f, k):  # noqa: F811
+    """K8s (a) with Fourier and path features: each member's streams equal a
+    solo K1 call on its net bit for bit."""
+    from pinns_tpu_torch.parallel.ensemble import pack_members
+
+    nets, spec = [], None
+    for m in range(3):  # the members share one B
+        spec, net, _, _ = _feature_net(NARROW, f, k, 40 + m, cuda_device)
+        nets.append(net)
+    flat = pack_members(nets)
+    x = torch.from_numpy(numpy_points(555, seed=41)).to(cuda_device)
+    got = k_taylor2.taylor2_members(spec, flat, x)
+    for m, net in enumerate(nets):
+        solo = k_taylor2.taylor2(spec, net, x)
+        for g, s in zip(got, solo):
+            assert torch.equal(g[m], s)
+
 
 
 def test_euler_weak_fast_trainer_on_card(cuda_device):  # noqa: F811
@@ -2040,3 +2174,65 @@ def test_generic_chunk_equals_the_loop_on_card(cuda_device, preset):  # noqa: F8
                                tr.run_chunk(trainer._adam_step, state, 5, new_colloc=feed))
     other = trainer.init_state(seed=7)
     _assert_same_generic_chunk(run(other, 11), tr.run_chunk(trainer._adam_step, other, 11))
+
+
+def test_rad_resample_on_card(cuda_device):  # noqa: F811
+    """RAD on the card: p through K1 within rtol 1e-5 of the plain p on the
+    same pool; the redraw's points are pool points (drawn by K11), the batch
+    on the card, ADMM re-initialised at them."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.data.sampling import philox_uniform
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import sampling as k_sampling
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("hwan_admm"), {"sampling.strategy": "rad", "sampling.n_f": 2048,
+                                            "sampling.rad_pool_factor": 4})
+    trainer = tr.Trainer(exp, device="cuda")
+    problem, state = trainer.problem, trainer.init_state()
+    pool = philox_uniform(5, 7, 8192, problem.lb, problem.ub, torch.float32, "cuda")
+    with torch.no_grad():
+        p = tr.rad_probabilities(problem, state.params, pool)
+        plain = tr.rad_probabilities(problem, state.params, pool, plain=True)
+    torch.testing.assert_close(p, plain, rtol=1e-5, atol=0)
+    before = (k_taylor2.LAUNCHES, k_sampling.LAUNCHES)
+    new = tr.rad_resample(problem, state)
+    torch.cuda.synchronize()
+    assert k_taylor2.LAUNCHES > before[0] and k_sampling.LAUNCHES == before[1] + 2
+    lb, ub = tr._curriculum_bounds(problem, 0)
+    pool = philox_uniform(state.key, tr.RAD_POOL, 8192, lb, ub, torch.float32, "cuda")
+    idx = torch.cdist(new.colloc, pool, compute_mode="donot_use_mm_for_euclid_dist").argmin(1)
+    assert torch.equal(pool.index_select(0, idx), new.colloc)
+    z = problem.training_residuals(new.params, new.colloc)
+    assert torch.equal(new.admm.z, z) and torch.equal(new.admm.dual, torch.ones_like(z))
+
+
+def test_swa_trainer_on_card(cuda_device):  # noqa: F811
+    """SWA on the card (twosin_weak on the graphed generic runner): the mean
+    equals a plain float32 running mean of the same snapshots bit for bit."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("twosin_weak"), {"train.epochs": 40, "train.chunk": 10,
+                                              "train.swa_frac": 0.5, "train.log_every": 0})
+    trainer = tr.Trainer(exp, device="cuda")
+    snaps, orig = [], tr.swa_update
+
+    def spy(avg, n, params):
+        snaps.append(tr.tree_map(torch.clone, params))
+        return orig(avg, n, params)
+
+    tr.swa_update = spy
+    try:
+        _, summary = trainer.train()
+    finally:
+        tr.swa_update = orig
+    assert summary["swa_snapshots"] == len(snaps) == 2
+    mean = None
+    for i, s in enumerate(snaps):
+        leaves = k_taylor2.net_leaves(s["net"])
+        n = torch.tensor(float(i + 1), device="cuda")  # a true division, as JAX's
+        mean = leaves if mean is None else [a + (x - a) / n for a, x in zip(mean, leaves)]
+    for a, b in zip(k_taylor2.net_leaves(trainer.swa_params["net"]), mean):
+        assert torch.equal(a, b)

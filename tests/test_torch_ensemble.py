@@ -372,18 +372,23 @@ def test_k8_wrapper_raises():
 
 
 def test_later_slices_raise():
-    """A device mesh (slice 6) and RAD in an ensemble (slice 2b-iii) raise
-    naming their slices (the coarse-cell battery came with slice 2b-iii's
-    first part: tests/test_torch_shock_capture.py)."""
+    """A device mesh (slice 6) raises naming its slice; RAD, which the solo
+    trainer takes since slice 2b-iii, raises in an ensemble with the JAX
+    package's own refusal (pinns_tpu/parallel/ensemble.py:75-80), as JAX's
+    ensemble does."""
     ttr = _trainer()
     with pytest.raises(NotImplementedError, match="slice 6"):
         tens.run_ensemble(ttr, SEEDS[:2], mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 2b-iii"):
-        ttrainer.check_slice(_exp(**{"sampling.strategy": "rad"}))
+    ttrainer.check_slice(_exp(**{"sampling.strategy": "rad"}))
     rad = copy.copy(ttr)
     rad.exp = _exp(**{"sampling.strategy": "rad"})
-    with pytest.raises(NotImplementedError, match="slice 2b-iii"):
+    with pytest.raises(ValueError, match="not wired into the vmapped ensemble loop") as err:
         tens.make_ensemble_chunk(rad, 1)
+    jrad = copy.copy(ttr)
+    jrad.exp = joverride(JPRESETS["abgrall_admm"], {"sampling.strategy": "rad"})
+    with pytest.raises(ValueError) as jerr:
+        jens.make_ensemble_chunk(jrad, 1)
+    assert str(err.value) == str(jerr.value)
     with pytest.raises(ValueError, match="phase"):
         tens.make_ensemble_chunk(ttr, 1, "sgd")
     # ensembles themselves are inside the port now

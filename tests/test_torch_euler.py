@@ -511,28 +511,25 @@ DEFERRED_MATCH = {"weak_form": "weak-form", "entropy": "entropy", "gradient_weig
                   "rad": "RAD"}
 
 
-# deferred by the Euler strong-form slice: the mixed formulation and the
-# shock paths brought by slice 2b-ii, the entropy penalty, gradient
-# weighting and the Euler L-BFGS branch by slice 2b-iii's first part
-PORTED = {"strong_equations", "paths", "entropy", "gradient_weighting", "lbfgs"}
+# deferred by the Euler strong-form slice and ported since: the mixed
+# formulation and the shock paths by slice 2b-ii, the entropy penalty,
+# gradient weighting and the Euler L-BFGS branch by slice 2b-iii's first
+# part, the weak-form ADMM, Fourier features and RAD by its rest
+PORTED = set(DEFERRED)
 
 
 @pytest.mark.parametrize("feature", sorted(DEFERRED))
 def test_check_slice_refuses_deferred_euler_features(feature):
-    """Each Euler feature the port does not bring yet raises, naming it and
-    the slice that brings it; the features slices 2b-ii and 2b-iii have
-    brought pass, and a refusal for a feature still deferred (Fourier
-    features) no longer names them."""
+    """Every Euler feature the strong-form slice deferred is ported: each
+    passes check_slice, and the one refusal left there (multi-GPU, slice 6)
+    names neither the feature nor slice 2b-iii."""
+    assert feature in PORTED
     exp = override(get_preset("euler_admm"), DEFERRED[feature])
-    if feature in PORTED:
-        ttrainer.check_slice(exp)
-        with pytest.raises(NotImplementedError, match="Fourier features") as err:
-            ttrainer.check_slice(override(exp, DEFERRED["fourier"]))
-        assert DEFERRED_MATCH[feature] not in str(err.value)
-        return
-    with pytest.raises(NotImplementedError, match=DEFERRED_MATCH[feature]) as err:
-        ttrainer.check_slice(exp)
-    assert "slice" in str(err.value)
+    ttrainer.check_slice(exp)
+    with pytest.raises(NotImplementedError, match="slice 6") as err:
+        ttrainer.check_slice(override(exp, {"mesh.data_parallel": 2}))
+    assert DEFERRED_MATCH[feature] not in str(err.value)
+    assert "2b-iii" not in str(err.value)
 
 
 LOSS_CASES = [("admm", 1, {}), ("admm", 2, {}), ("mean_sq", 1, {}), ("l1_sq_norm", 2, {}),

@@ -131,9 +131,10 @@ def test_init_mlp_deterministic_per_seed():
     "extra", [{"fourier": ((1.0, 2.0),)}, {"n_paths": 2}], ids=["fourier", "paths"]
 )
 def test_unported_embeddings_raise(extra):
-    """Fourier features raise, naming the slice that brings them. Shock
-    paths came with slice 2b-ii: a path spec builds, and what JAX's spec
-    refuses (inputs other than (x, t), a negative degree) raises."""
+    """Both embeddings are ported: shock paths with slice 2b-ii, Fourier
+    features with slice 2b-iii. Each spec builds with JAX's input width, and
+    what JAX's spec refuses raises (paths: inputs other than (x, t), a
+    negative degree; Fourier: rows of another length than the input)."""
     if "n_paths" in extra:
         assert MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra).embed_dim == SMALL[0] + 2
         with pytest.raises(ValueError, match=r"\(x, t\)"):
@@ -141,8 +142,11 @@ def test_unported_embeddings_raise(extra):
         with pytest.raises(ValueError, match="path_degree"):
             MLPSpec(layers=SMALL, lb=LB, ub=UB, path_degree=-1, **extra)
         return
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra)
+    spec = MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra)
+    assert (spec.n_fourier, spec.embed_dim) == (1, SMALL[0] + 2)
+    assert spec.widths[0] == jmlp.MLPSpec(layers=SMALL, lb=LB, ub=UB, **extra).embed_dim
+    with pytest.raises(ValueError, match="fourier rows"):
+        MLPSpec(layers=SMALL, lb=LB, ub=UB, fourier=((1.0, 2.0, 3.0),))
 
 
 def test_spec_bounds_validated():

@@ -28,6 +28,8 @@ MODULES = [
     "pinns_tpu_torch.ops.weakform", "pinns_tpu_torch.ops.kernels.weakform",
     "pinns_tpu_torch.ops.kernels.lbfgs", "pinns_tpu_torch.train.schedule",
     "pinns_tpu_torch.ops.kernels.sampling", "pinns_tpu_torch.ops.kernels.generic_chunk",
+    "pinns_tpu_torch.ops.kernels.ensemble", "pinns_tpu_torch.parallel.ensemble",
+    "pinns_tpu_torch.parallel.sweep",
 ]
 
 

@@ -394,38 +394,44 @@ def test_interop_round_trip_of_a_path_net(tmp_path):
 # -- what the slice leaves ---------------------------------------------------------
 
 def test_check_slice_takes_the_slice_and_names_slice_2b_iii():
+    """The path presets, and RAD and Fourier features on them (slice
+    2b-iii's rest), pass check_slice; a Fourier path spec builds with JAX's
+    input width [x, t, sin, cos, phi]."""
     for name in ("euler_weak", "euler_weak_fast", "euler_weak_tail"):
         ttrainer.check_slice(get_preset(name))
-    with pytest.raises(NotImplementedError, match="RAD resampling.*slice 2b-iii"):
-        ttrainer.check_slice(override(get_preset("euler_weak_tail"),
-                                      {"sampling.strategy": "rad"}))
-    with pytest.raises(NotImplementedError, match="Fourier features.*slice 2b-iii"):
-        ttrainer.check_slice(override(get_preset("euler_weak_fast"), {"model.n_fourier": 4}))
-    with pytest.raises(NotImplementedError, match="slice 2b-iii"):
-        tmlp.MLPSpec(layers=TRUNK, lb=LB, ub=UB, fourier=((1.0, 2.0),))
+    ttrainer.check_slice(override(get_preset("euler_weak_tail"), {"sampling.strategy": "rad"}))
+    ttrainer.check_slice(override(get_preset("euler_weak_fast"), {"model.n_fourier": 4}))
+    spec = tmlp.MLPSpec(layers=TRUNK, lb=LB, ub=UB, fourier=((1.0, 2.0),), n_paths=K)
+    jspec = jmlp.MLPSpec(layers=TRUNK, lb=LB, ub=UB, fourier=((1.0, 2.0),), n_paths=K)
+    assert spec.widths[0] == jspec.embed_dim == 2 + 2 + K
+    assert spec.n_params == jspec.n_params
 
 
 def test_kernels_without_paths_refuse_a_path_spec():
-    """K1/K2/K6 and K5's narrow design raise naming slice 2b-iii before any
-    launch (the check comes first, so CPU tensors reach it); K3's scope
-    lists the paths, so the trainer does not take it for abgrall_admm with
-    paths."""
+    """Since slice 2b-iii K1/K2 and K5 take a path spec (K1 on its tiled
+    design, K5 on its wide one at any width; on a CPU tensor they raise for
+    the device, never for the paths); K6 (the mixed policy) raises naming
+    ROADMAP queue 2 before any launch; K3's scope lists the features, so the
+    trainer does not take it for abgrall_admm with paths."""
     _, burgers = specs(layers=(2, 20, 20, 1))
     net = interop.params_from_jax(path_net(layers=(2, 20, 20, 1), seed=30), CPU)
     x = torch.zeros(4, 2)
     for fn in (lambda: k_taylor2.taylor2(burgers, net, x),
                lambda: k_taylor2.taylor2_backward(burgers, net, x, [x[:, :1]] * 4),
-               lambda: k_taylor2.mlp_taylor2_kernel(burgers, net, x),
                lambda: k5.mlp_forward(burgers, net, x),
                lambda: k5.mlp_backward(burgers, net, x, x[:, :1])):
-        with pytest.raises(ValueError, match="slice 2b-iii"):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
             fn()
+    mixed = dataclasses.replace(burgers, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP queue 2, K6"):
+        k_taylor2.taylor2(mixed, net, x)
+    assert k_taylor2.launch_config(burgers.widths).design == "tiled"
     exp = override(get_preset("abgrall_admm"), {"model.n_paths": 2})
     ttrainer.check_slice(exp)
     spec = tmlp.MLPSpec(layers=exp.model.layers, lb=LB, ub=UB, n_paths=2)
     assert any("shock-path" in why for why in k_fused.fused_step_supported(exp, spec))
-    assert k5.design(spec.widths) == "narrow"
-    assert k5.design(dataclasses.replace(spec, layers=(2, 200, 3)).widths) == "wide"
+    assert k5.design(spec.widths) == "wide"
+    assert k5.design(dataclasses.replace(spec, n_paths=0).widths) == "narrow"
     with pytest.raises(ValueError, match="paths"):
         k7a.check_spec(dataclasses.replace(spec, n_paths=9))
 

@@ -332,6 +332,51 @@ def test_lr_schedules_match_optax():
         learning_rate_schedule(OptimizerConfig(lr_schedule="linear"))
 
 
+def _shipped_schedules():
+    """(name, OptimizerConfig) of every preset with a learning-rate schedule,
+    and an exponential one (no preset ships it) at the shipped length."""
+    from pinns_tpu_torch.config import OptimizerConfig
+    from pinns_tpu_torch.experiments.presets import PRESETS
+
+    out = {}
+    for name, exp in sorted(PRESETS.items()):
+        o = exp.optimizer
+        if o.lr_schedule != "constant":
+            out.setdefault((o.lr_schedule, o.learning_rate, o.schedule_epochs,
+                            o.min_lr_fraction), (name, o))
+    out[("exponential", 1e-3, 200_000, 0.0)] = ("exponential", OptimizerConfig(
+        learning_rate=1e-3, lr_schedule="exponential", schedule_epochs=200_000))
+    return sorted(out.values(), key=lambda v: v[0])
+
+
+@pytest.mark.parametrize("name,cfg", _shipped_schedules(), ids=lambda v: v if
+                         isinstance(v, str) else "")
+def test_lr_schedule_equals_optax_at_every_count(name, cfg):
+    """P5: the port's schedule table equals optax's under XLA on the CPU bit
+    for bit at EVERY count from 0 to 60 past the schedule's end (burgers_forward's
+    cosine over 180,000 counts; euler_inverse, euler_weak_fast,
+    euler_weak_tail and twosin_weak's over 200,000; an exponential decay over
+    200,000), optax's side one vectorised call."""
+    from pinns_tpu_torch.opt.adam import learning_rate_schedule
+    from pinns_tpu_torch.train.schedule import schedule_rows
+
+    if cfg.lr_schedule == "cosine":
+        sched = optax.cosine_decay_schedule(cfg.learning_rate, cfg.schedule_epochs,
+                                            alpha=cfg.min_lr_fraction)
+    else:
+        sched = optax.exponential_decay(cfg.learning_rate, cfg.schedule_epochs, 0.1)
+    counts = np.arange(cfg.schedule_epochs + 61)
+    want = np.asarray(jax.jit(jax.vmap(sched))(jnp.asarray(counts, jnp.int32)))
+    lr = learning_rate_schedule(cfg)
+    got = lr(counts)
+    assert got.dtype == np.float64 and np.all(got == got.astype(np.float32))
+    bad = np.flatnonzero(got.astype(np.float32) != want)
+    assert bad.size == 0, (name, bad[:10], got[bad[:10]], want[bad[:10]])
+    assert lr(int(counts[-1])) == float(want[-1])
+    rows = schedule_rows(1234, 1_000, 999, 7, lr, lambda e: ((0.0, 0.0), (1.0, 1.0)))
+    np.testing.assert_array_equal(rows.view(np.float64)[:, 6], want[1_000:1_007])
+
+
 BF_GRID = os.path.join(REPO, "tests", "fixtures", "torch_port", "burgers_shock.npz")
 
 
@@ -437,11 +482,14 @@ def test_abgrall_presets_build_on_their_grid(monkeypatch, preset):
 ])
 def test_out_of_slice_presets_raise(preset, match):
     # euler_admm is inside the port since slice 2a, twosin_weak since slice
-    # 2b-i and euler_weak since slice 2b-ii; with Fourier features (a later
-    # part of slice 2b-iii, after the entropy penalty) none is
+    # 2b-i and euler_weak since slice 2b-ii; with Fourier features (the rest
+    # of slice 2b-iii) each still is: the only refusal left is multi-GPU's,
+    # and no slice-2 feature is named in it any more
     exp = override(get_preset(preset), {"model.n_fourier": 4})
-    with pytest.raises(NotImplementedError, match=match):
-        ttrainer.check_slice(exp)
+    ttrainer.check_slice(exp)
+    with pytest.raises(NotImplementedError, match="slice 6") as err:
+        ttrainer.check_slice(override(exp, {"mesh.data_parallel": 2}))
+    assert match not in str(err.value)
 
 
 def test_fused_step_scope():

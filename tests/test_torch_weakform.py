@@ -470,12 +470,13 @@ def test_check_slice_lets_the_weak_presets_through():
         ttrainer.check_slice(get_preset(name))
     ttrainer.check_slice(override(get_preset("twosin_weak"), {"pde.lambda2": 0.0}))
     # euler_weak and euler_weak_fast came with slice 2b-ii, the tail's
-    # L-BFGS branch with slice 2b-iii's first part; Fourier features come
-    # with a later part of slice 2b-iii
+    # L-BFGS branch with slice 2b-iii's first part, Fourier features, the
+    # weak-form ADMM, RAD and SWA with its rest
     for name in ("euler_weak", "euler_weak_fast", "euler_weak_tail"):
         ttrainer.check_slice(get_preset(name))
-    with pytest.raises(NotImplementedError, match="slice 2b-iii"):
-        ttrainer.check_slice(override(get_preset("euler_weak_tail"), {"model.n_fourier": 4}))
+    for extra in ({"model.n_fourier": 4}, {"loss.admm_form": "flux"},
+                  {"sampling.strategy": "rad"}, {"train.swa_frac": 0.25}):
+        ttrainer.check_slice(override(get_preset("euler_weak_tail"), extra))
 
 
 @pytest.mark.parametrize("extra,match", [
