@@ -25,7 +25,9 @@ outer epochs as chunks on the card (the flagship's L-BFGS phase: each solve
 replayed to its done flag, then K3's post-update mode and the reset in place
 as one more graph), and the rest of slice 2b-iii: Fourier features in K1/K2,
 K7a and K5 and shock paths in K1/K2, trained and served; the weak-form ADMM;
-RAD resampling and SWA averaging, solo and in an ensemble.
+RAD resampling and SWA averaging, solo and in an ensemble; and float64 on
+the card: polish, the float64 L-BFGS polish of a checkpoint, on the float64
+modes of K10 and of the narrow K1, K2 and K5.
 
     python3 chip_smoke.py
 
@@ -354,6 +356,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             against a plain running mean of its snapshots; train --ensemble
             3 with SWA, each member's SWA and final states equal to its solo
             run's
+  46 polish  the float64 modes: K1 and K2 at 8x20 on burgers_forward's
+            10,456-point batch and K5 forward and backward at its 100 data
+            points against their float64 plain versions within 1e-12
+            max|plain| per stream and leaf (a cancelling leaf: of its sum
+            of absolute terms), two calls bit-equal; K10's reset, control
+            and direction at n 3,023 and a history of 50 (the streamed
+            layout) bit for bit against their float64 plain versions, on a
+            seeded history and after every launch of a polish's first 20
+            iterations; then polish (train.polish, 200 iterations) from the
+            committed JAX state (FIXTURE) at the fixed anchored batch: the
+            float64 modes launched, no float32 kernel, no plain version, no
+            host loop (host syncs = the flag reads), two runs bit-equal, the
+            loss no higher, the first 20 iterations against the host loop
+            over the plain loss (equal n_iters, x within 1e-8 max|x|); ms,
+            device time, launches and syncs an iteration, the idle share;
+            each float64 mode by CUDA events beside its plain version and
+            its bound at 34 TFLOP/s float64 or 3.35 TB/s
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -1160,7 +1179,15 @@ def kernel_counts() -> dict:
             "lbfgs_direction": k_lbfgs.DIRECTION_LAUNCHES, "lbfgs_replays": k_lbfgs.GRAPH_REPLAYS,
             "lbfgs_solves": k_lbfgs.SOLVES, "lbfgs_host_syncs": host_lbfgs.HOST_SYNCS,
             "fused_post_update": fused_step.POST_UPDATE_LAUNCHES,
-            "lbfgs_chunk_epochs": k_lbfgs.CHUNK_EPOCHS}
+            "lbfgs_chunk_epochs": k_lbfgs.CHUNK_EPOCHS,
+            # the float64 modes (phase 46: polish)
+            "taylor2_f64": taylor2.F64_LAUNCHES,
+            "taylor2_backward_f64": taylor2.F64_BACKWARD_LAUNCHES,
+            "mlp_forward_f64": mlp_forward.F64_LAUNCHES,
+            "mlp_backward_f64": mlp_forward.F64_BACKWARD_LAUNCHES,
+            "lbfgs_reset_f64": k_lbfgs.RESET_F64_LAUNCHES,
+            "lbfgs_control_f64": k_lbfgs.CONTROL_F64_LAUNCHES,
+            "lbfgs_direction_f64": k_lbfgs.DIRECTION_F64_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -1187,6 +1214,9 @@ def reset_counts() -> None:
     k_lbfgs.RESET_LAUNCHES = k_lbfgs.CONTROL_LAUNCHES = k_lbfgs.DIRECTION_LAUNCHES = 0
     k_lbfgs.GRAPH_REPLAYS = k_lbfgs.SOLVES = host_lbfgs.HOST_SYNCS = 0
     fused_step.POST_UPDATE_LAUNCHES = k_lbfgs.CHUNK_EPOCHS = 0
+    taylor2.F64_LAUNCHES = taylor2.F64_BACKWARD_LAUNCHES = 0
+    mlp_forward.F64_LAUNCHES = mlp_forward.F64_BACKWARD_LAUNCHES = 0
+    k_lbfgs.RESET_F64_LAUNCHES = k_lbfgs.CONTROL_F64_LAUNCHES = k_lbfgs.DIRECTION_F64_LAUNCHES = 0
 
 
 def net_f64(params):
@@ -6261,6 +6291,341 @@ def compare_rtol(name: str, got, want, rtol: float) -> dict:
     return {"max_rel_err": rel, "max_abs_err": float(np.abs(got - want).max()), "rtol": rtol}
 
 
+# -- 46 polish: the float64 modes and polish on the card ------------------
+POLISH_ITERS = 200  # phase 46's polish from the committed JAX state
+POLISH_HELD_ITERS = 20  # its first iterations held to the host loop over the plain loss
+POLISH_X_RTOL = 1e-8
+F64_RTOL = 1e-12  # the float64 modes against their plain versions
+PEAK_FP64 = 34e12  # the H100 SXM's float64 rate outside the tensor cores
+K1_F64_N = 10_456  # burgers_forward's batch: 10,000 LHS points and the 456 IC/BC anchors
+K5_F64_N = 100  # its data term
+K10_F64_M = 50  # optimizer.lbfgs.history
+
+
+def taylor2_abs_terms(spec, net, x, cot) -> list:
+    """Per leaf of K2's gradient, the largest sum over points (and streams)
+    of the absolute terms that its sum adds up: the scale against which a
+    leaf whose sum cancels is held."""
+    from pinns_tpu_torch.models.mlp import embed_streams, normalize_inputs
+    from pinns_tpu_torch.ops.kernels.taylor2 import _act_backward
+    from pinns_tpu_torch.ops.taylor import _StreamPolicy, taylor2_layer
+
+    pol = _StreamPolicy(spec)
+    h = normalize_inputs(spec, x)
+    n = x.shape[0]
+    streams = embed_streams(spec, h, net[0])
+    streams = (h, streams[1].expand(n, -1), streams[2].expand(n, -1), torch.zeros_like(h))
+    saved, inputs = [], [streams]
+    for i, layer in enumerate(net[:-1]):
+        pre, tanh, streams = taylor2_layer(pol, streams, layer["W"], layer["b"], i == 0)
+        saved.append((pre, tanh))
+        inputs.append(streams)
+    out = [None] * (2 * len(net))
+    G = tuple(g.reshape(n, -1) for g in cot)
+    for l in range(len(net) - 1, -1, -1):
+        X = inputs[l]
+        out[2 * l] = float(sum(X[s].abs().T @ G[s].abs() for s in range(4)).max())
+        out[2 * l + 1] = float(G[0].abs().sum(dim=0).max())
+        if l > 0:
+            gH = tuple(g @ net[l]["W"].T for g in G)
+            G = _act_backward(*saved[l - 1], gH)
+    return out
+
+
+def mlp_abs_terms(net, x, spec, g_out) -> list:
+    """The same scale for K5's backward (one stream)."""
+    from pinns_tpu_torch.models.mlp import normalize_inputs
+
+    acts = [normalize_inputs(spec, x)]
+    for layer in net[:-1]:
+        acts.append(torch.tanh(acts[-1] @ layer["W"] + layer["b"]))
+    out, g = [None] * (2 * len(net)), g_out
+    for l in range(len(net) - 1, -1, -1):
+        out[2 * l] = float((acts[l].abs().T @ g.abs()).max())
+        out[2 * l + 1] = float(g.abs().sum(dim=0).max())
+        if l > 0:
+            g = (1.0 - acts[l] * acts[l]) * (g @ net[l]["W"].T)
+    return out
+
+
+def hold_f64(name: str, got, plain, scales=None) -> dict:
+    """Each of ``got`` (streams or gradient leaves) within F64_RTOL max|plain|
+    of ``plain``; a leaf that misses it and whose sum cancels (max|plain|
+    below a hundredth of its sum of absolute terms, ``scales``) within
+    F64_RTOL of that sum instead. Raises if any misses."""
+    worst, cancelling, max_err = 0.0, [], 0.0
+    for i, (a, b) in enumerate(zip(got, plain)):
+        a, b = host(a).astype(np.float64), host(b).astype(np.float64)
+        check(a.shape == b.shape and bool(np.isfinite(a).all()), f"{name}[{i}]: shape or finite")
+        err, top = float(np.abs(a - b).max()), float(np.abs(b).max())
+        bnd = F64_RTOL * top
+        if err > bnd and scales is not None and top < 1e-2 * scales[i]:
+            bnd = F64_RTOL * scales[i]
+            cancelling.append(i)
+        check(err <= bnd, f"{name}[{i}]: max|kernel - plain| {err} > {bnd}")
+        worst, max_err = max(worst, err / max(bnd, 1e-300)), max(max_err, err)
+    return {"worst_err_over_bound": worst, "cancelling_leaves": cancelling,
+            "max_abs_err": max_err}
+
+
+def f64_bounds(layers, n_f: int, n_u: int, n: int, m: int) -> dict:
+    """(bound_ms, bound_by) of each float64 mode at phase 46's shapes: the
+    float64 operations at PEAK_FP64, 8 bytes a value at the memory rate."""
+    macs = sum(_macs(layers))
+    p = n_params(layers)
+    return {
+        "taylor2_f64": bound([(4 * 2.0 * macs * n_f, PEAK_FP64)], 16 * n_f + 32 * n_f + 8 * p),
+        "taylor2_backward_f64": bound([(3 * 4 * 2.0 * macs * n_f, PEAK_FP64)],
+                                      16 * n_f + 32 * n_f + 16 * p),
+        "mlp_forward_f64": bound([(2.0 * macs * n_u, PEAK_FP64)], 16 * n_u + 8 * n_u + 8 * p),
+        "mlp_backward_f64": bound([(3 * 2.0 * macs * n_u, PEAK_FP64)],
+                                  16 * n_u + 8 * n_u + 16 * p),
+        # the two-loop over a full history: 2 m dots and axpys; the pairs
+        # read once, x and g read, d, xt and g_best written
+        "lbfgs_direction_f64": bound([(8.0 * m * n, PEAK_FP64)], 8 * (2 * m * n + 5 * n)),
+        # an iteration's end: s, y and their three dots, the history's new
+        # pair; x, g, d, g_best read, x, g and the pair written
+        "lbfgs_control_f64": bound([(10.0 * n, PEAK_FP64)], 8 * (4 * n + 4 * n)),
+        "lbfgs_reset_f64": bound([(0.0, PEAK_FP64)], 8 * 4 * n),
+    }
+
+
+def phase_polish(card: str) -> dict:
+    """46: the float64 modes of K1, K2, K5 and K10 against their float64
+    plain versions on the card, then ``polish`` from the committed JAX state
+    of burgers_forward: its launches, no host loop, its first iterations
+    against the host loop over the plain loss, its loss, its times."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.interop import load_params_npz
+    from pinns_tpu_torch.models.mlp import mlp_apply, mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor2 as k_t2
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.opt.adam import adam_init
+    from pinns_tpu_torch.train import trainer as tr
+    from pinns_tpu_torch.train.polish import FTOL, GTOL, polish
+
+    dev = torch.device("cuda")
+    exp = override(get_preset("burgers_forward"), {"model.dtype": "float64"})
+    trainer = tr.Trainer(exp, device="cuda")
+    problem = trainer.problem
+    spec = problem.spec
+    check(spec.dtype == torch.float64 and spec.layers == NARROW, f"polish spec {spec}")
+    loaded = load_params_npz(FIXTURE)
+    net = [{k: torch.as_tensor(np.asarray(v), dtype=torch.float64).to(dev).contiguous()
+            for k, v in layer.items()} for layer in loaded["params"]]
+    params = {"net": net, "coeffs": {
+        "lambda1": torch.full((1,), exp.pde.lambda1, dtype=torch.float64, device=dev),
+        "lambda2": torch.full((1,), exp.pde.lambda2, dtype=torch.float64, device=dev)}}
+    colloc = tr.init_collocation(problem, exp.train.seed)
+    check(colloc.dtype == torch.float64 and colloc.shape[0] == K1_F64_N, "the f64 batch")
+    state = tr.TrainState(params=params, opt_state=adam_init(params), admm=None, colloc=colloc,
+                          key=exp.train.seed, epoch=int(loaded.get("epochs") or 0))
+    rng = np.random.default_rng(46)
+    out = {"kernels": {}, "times": {}}
+
+    # -- K1 and K2's float64 modes at 8x20, N 10,000 (the batch itself)
+    cot = [torch.from_numpy(rng.standard_normal((K1_F64_N, 1))).to(dev) for _ in range(4)]
+    with torch.no_grad():
+        got = k_t2.taylor2(spec, net, colloc)
+        again = k_t2.taylor2(spec, net, colloc)
+        plain = mlp_taylor_2_reference(spec, net, colloc)
+        g_k2 = k_t2.taylor2_backward(spec, net, colloc, cot)
+        g_k2b = k_t2.taylor2_backward(spec, net, colloc, cot)
+        g_plain = k_t2.taylor2_backward_reference(spec, net, colloc, cot)
+        scales = taylor2_abs_terms(spec, net, colloc, cot)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "two K1 f64 calls differ")
+    check(torch.equal(g_k2, g_k2b), "two K2 f64 calls differ")
+    leaves = k_t2.split_grad(g_k2, k_t2.net_leaves(net))
+    out["kernels"]["taylor2_f64"] = hold_f64("K1 f64", got, plain)
+    out["kernels"]["taylor2_backward_f64"] = hold_f64("K2 f64", leaves, g_plain, scales)
+
+    # -- K5's float64 mode at N 100 (the data term's shape)
+    xu = problem.x_data
+    check(xu.shape[0] == K5_F64_N and xu.dtype == torch.float64, "the f64 data points")
+    g_out = torch.from_numpy(rng.standard_normal((K5_F64_N, 1))).to(dev)
+    with torch.no_grad():
+        u = k_mlp.mlp_forward(spec, net, xu)
+        u2 = k_mlp.mlp_forward(spec, net, xu)
+        u_plain = mlp_apply_reference(spec, net, xu)
+        g5 = k_mlp.mlp_backward(spec, net, xu, g_out)
+        g5b = k_mlp.mlp_backward(spec, net, xu, g_out)
+        g5_plain = k_mlp.mlp_backward_reference(spec, net, xu, g_out)
+        scales5 = mlp_abs_terms(net, xu, spec, g_out)
+    torch.cuda.synchronize()
+    check(torch.equal(u, u2) and torch.equal(g5, g5b), "two K5 f64 calls differ")
+    out["kernels"]["mlp_forward_f64"] = hold_f64("K5 f64 forward", [u], [u_plain])
+    out["kernels"]["mlp_backward_f64"] = hold_f64(
+        "K5 f64 backward", k_t2.split_grad(g5, k_t2.net_leaves(net)), g5_plain, scales5)
+
+    # -- K10's float64 mode: a seeded full history (streamed layout), each
+    # kernel bit for bit against its plain version
+    x0, unravel = lb_mod.ravel_tree(params)
+    n = x0.numel()
+    plan = k_lbfgs.cluster_plan(n, K10_F64_M, 8)
+    check(not plan.resident, f"the float64 pairs at n {n} should be streamed: {plan}")
+
+    def same(b, twin, what):
+        for name, a, c in zip(("si", "sf", "vec", "hist", "rho"), b.tensors(), twin.tensors()):
+            check(torch.equal(a, c), f"K10 f64 {what} differs from its plain version in {name}")
+
+    seeded = k_lbfgs.seeded_state(n, K10_F64_M, K10_F64_M, 9, seed=46, device="cuda",
+                                  dtype=torch.float64)
+    b, twin = seeded.clone(), seeded.clone()
+    k_lbfgs.direction(b)
+    k_lbfgs.direction_reference(twin)
+    torch.cuda.synchronize()
+    same(b, twin, "direction (seeded)")
+    b.vec[k_lbfgs.GT].copy_(torch.from_numpy(rng.standard_normal(n)).to(dev))
+    b.sf[k_lbfgs.F_PHI_T] = 0.5
+    twin = b.clone()
+    after_dir = b.clone()
+    k_lbfgs.control(b)
+    k_lbfgs.control_reference(twin)
+    torch.cuda.synchronize()
+    same(b, twin, "control (seeded)")
+
+    # the first POLISH_HELD_ITERS iterations of the real polish, launch by
+    # launch against the plain versions, the kernels' loss as the evaluation
+    loss_fn = tr.make_loss_fn(problem)
+    fun = lambda x: loss_fn(unravel(x), colloc, None)[0]  # noqa: E731
+    solver = k_lbfgs.AutogradLBFGS()
+    cfg = exp.optimizer.lbfgs
+    b = k_lbfgs.Buffers.alloc(n, cfg.history, "cuda", torch.float64)
+    solver.bufs = b
+    twin = b.clone()
+    k_lbfgs.reset(b, x0.detach().contiguous(), max_iters=POLISH_HELD_ITERS, max_ls=cfg.max_ls,
+                  ftol=FTOL, gtol=GTOL)
+    k_lbfgs.reset_reference(twin, x0.detach(), POLISH_HELD_ITERS, cfg.max_ls,
+                            k_lbfgs.solve_constants(ftol=FTOL, gtol=GTOL, dtype=np.float64))
+    torch.cuda.synchronize()
+    same(b, twin, "reset")
+    steps = 0
+    while not int(b.si[k_lbfgs.I_DONE]):
+        solver._evaluate(fun)
+        for which, kernel, ref in (("control", k_lbfgs.control, k_lbfgs.control_reference),
+                                   ("direction", k_lbfgs.direction, k_lbfgs.direction_reference)):
+            twin = b.clone()
+            kernel(b)
+            ref(twin)
+            torch.cuda.synchronize()
+            same(b, twin, f"{which} at step {steps}")
+        steps += 1
+    lockstep = k_lbfgs.result(b, k_lbfgs.read_head(b))
+    for name in ("lbfgs_control_f64", "lbfgs_direction_f64", "lbfgs_reset_f64"):
+        out["kernels"][name] = {"max_abs_err": 0.0, "steps": steps}
+
+    # -- polish on the card: the launches, no host loop, no plain version
+    f0 = float(fun(x0))
+    reset_counts()
+    with PlainCalls() as plain_calls:
+        t0 = time.perf_counter()
+        polished, res = polish(problem, state, POLISH_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    check(plain_calls.calls == 0, f"polish called a plain version {plain_calls.calls} times")
+    for name in ("taylor2_f64", "taylor2_backward_f64", "mlp_forward_f64", "mlp_backward_f64",
+                 "lbfgs_reset_f64", "lbfgs_control_f64", "lbfgs_direction_f64"):
+        check(counts[name] > 0, f"polish launched no {name}")
+    check(counts["lbfgs_control_f64"] == k_lbfgs.STEPS_PER_REPLAY * counts["lbfgs_host_syncs"],
+          f"host syncs {counts['lbfgs_host_syncs']} are not the flag reads of "
+          f"{counts['lbfgs_control_f64']} steps")
+    for name in ("taylor2", "taylor2_backward", "mlp_forward", "mlp_backward", "lbfgs_control",
+                 "lbfgs_direction", "fused_step", "fused_value_and_grad"):
+        check(counts[name] == 0, f"polish launched the float32 {name}")
+    check(float(res.f) <= f0, f"the polished loss {float(res.f)} is above the start's {f0}")
+    _, again = polish(problem, state, POLISH_ITERS)
+    check(torch.equal(again.x, res.x) and again.n_iters == res.n_iters,
+          "two polishes on the card differ")
+
+    # -- its first iterations against the host loop over the plain loss
+    head, _ = polish(problem, state, POLISH_HELD_ITERS)
+    head_x = lb_mod.ravel_tree(head.params)[0]
+    plain_loss = tr.make_loss_fn(problem, plain=True)
+    host_res = lb_mod.lbfgs_minimize(
+        lambda x: plain_loss(unravel(x), colloc, None)[0], x0.detach(),
+        max_iters=POLISH_HELD_ITERS, history=cfg.history, ftol=FTOL, gtol=GTOL,
+        max_ls=cfg.max_ls)
+    x_err = float((head_x - host_res.x).abs().max())
+    x_bnd = POLISH_X_RTOL * float(host_res.x.abs().max())
+    check(torch.equal(head_x, lockstep.x), "the polish differs from its lockstep")
+    check(host_res.n_iters == lockstep.n_iters,
+          f"n_iters {lockstep.n_iters} != the host loop's {host_res.n_iters}")
+    check(x_err <= x_bnd, f"x after {POLISH_HELD_ITERS} iterations: {x_err} > {x_bnd}")
+    ev0, ev1 = trainer.evaluate(state), trainer.evaluate(polished)
+
+    # -- times: the polish (wall, device, launches, syncs an iteration) and
+    # each float64 mode against its plain version (CUDA events, in turns)
+    prof = device_profile(lambda: polish(problem, state, POLISH_ITERS))
+    it = max(res.n_iters, 1)
+    out["polish"] = {
+        "iters": res.n_iters, "evals": res.n_evals, "converged": res.converged,
+        "loss_start": f0, "loss_end": float(res.f), "wall_s": wall,
+        "ms_per_iter": 1e3 * wall / it,
+        "device_ms_per_iter": None if prof["device_us"] is None else 1e-3 * prof["device_us"] / it,
+        "launches_per_iter": None if prof["kernels"] is None else prof["kernels"] / it,
+        "host_syncs_per_iter": counts["lbfgs_host_syncs"] / it,
+        "idle_share": None if prof["device_us"] is None else
+        max(0.0, 1.0 - 1e-3 * prof["device_us"] / (1e3 * wall)),
+        "rel_l2_u_start": ev0["rel_l2_u"], "rel_l2_u_end": ev1["rel_l2_u"],
+        "held": {"iters": POLISH_HELD_ITERS, "n_iters": lockstep.n_iters,
+                 "n_evals": [lockstep.n_evals, host_res.n_evals], "x_err": x_err,
+                 "x_bound": x_bnd},
+    }
+    out["launches"] = counts
+    t = out["times"]
+    with torch.no_grad():
+        t["taylor2_f64"] = event_ms_turns(
+            [lambda: k_t2.taylor2(spec, net, colloc),
+             lambda: mlp_taylor_2_reference(spec, net, colloc)], REPS)
+        t["taylor2_backward_f64"] = event_ms_turns(
+            [lambda: k_t2.taylor2_backward(spec, net, colloc, cot),
+             lambda: k_t2.taylor2_backward_reference(spec, net, colloc, cot)], REPS)
+        t["mlp_forward_f64"] = event_ms_turns(
+            [lambda: k_mlp.mlp_forward(spec, net, xu),
+             lambda: mlp_apply_reference(spec, net, xu)], REPS)
+        t["mlp_backward_f64"] = event_ms_turns(
+            [lambda: k_mlp.mlp_backward(spec, net, xu, g_out),
+             lambda: k_mlp.mlp_backward_reference(spec, net, xu, g_out)], REPS)
+    # K10: each launch from a restored state (the seeded full history), the
+    # restore's own time taken off
+    work = seeded.clone()
+
+    def restore(src):
+        for a, c in zip((work.si, work.sf, work.vec, work.rho), (src.si, src.sf, src.vec,
+                                                                 src.rho)):
+            a.copy_(c)
+
+    def k10_ms(src, kernel):
+        both = event_ms_turns([lambda: (restore(src), kernel(work)), lambda: restore(src)], REPS)
+        return max(0.0, both[0] - both[1])
+
+    work.hist.copy_(seeded.hist)
+    x_seed = seeded.vec[k_lbfgs.X].clone()
+    t["lbfgs_direction_f64"] = [k10_ms(seeded, k_lbfgs.direction),
+                                k10_ms(seeded, k_lbfgs.direction_reference)]
+    t["lbfgs_control_f64"] = [k10_ms(after_dir, k_lbfgs.control),
+                              k10_ms(after_dir, k_lbfgs.control_reference)]
+    reset_kw = dict(max_iters=10, max_ls=50, ftol=FTOL, gtol=GTOL)
+    consts = k_lbfgs.solve_constants(ftol=FTOL, gtol=GTOL, dtype=np.float64)
+    t["lbfgs_reset_f64"] = event_ms_turns(
+        [lambda: k_lbfgs.reset(work, x_seed, **reset_kw),
+         lambda: k_lbfgs.reset_reference(work, x_seed, 10, 50, consts)], REPS)
+    out["bounds"] = f64_bounds(NARROW, K1_F64_N, K5_F64_N, n, K10_F64_M)
+    emit(card, phase="polish", spec=str(spec.layers), n_params=n, plan=dataclasses.asdict(plan),
+         kernels=out["kernels"], polish=out["polish"], launches=counts,
+         times_ms={k: list(v) for k, v in t.items()},
+         bounds={k: list(v) for k, v in out["bounds"].items()},
+         criterion=f"max|kernel - plain| <= {F64_RTOL} max|plain| (a cancelling leaf: of its "
+                   "sum of absolute terms); K10 bit for bit; two calls bit-equal")
+    return out
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6498,6 +6863,9 @@ def main() -> int:
     timed(card, "rad-swa", phase_rad_swa, card)
     emit(card, phase="wall", of="phases 42-45", seconds=time.perf_counter() - t_2b)
     fruns = fourier["runs"]
+
+    # -- 46: the float64 modes of K1, K2, K5 and K10, and polish on the card
+    pol = timed(card, "polish", phase_polish, card)
 
     def feat(counter, family, layers, n, f, k, which, run):
         return feature_entry(fruns, counter, feats, (family, layers, n, f, k), which, run)
@@ -6865,7 +7233,31 @@ def main() -> int:
         **{preset: {"ms": t[0], "plain_ms": t[1], **bound_fields(t[2]), "device_ms": t[3],
                     "idle_share": t[4], "launches_per_epoch": t[5]}
            for preset, t in generic["times"].items() if preset != "euler_admm"},
-    }]}), flush=True)
+    }] + [{
+        # the float64 modes (phase 46): launches = one polish of
+        # POLISH_ITERS iterations from the committed JAX state of
+        # burgers_forward; max_abs_err against the float64 plain version on
+        # the same inputs (K10: bit for bit); times by CUDA events at the
+        # polish's shapes; bounds at the float64 rate
+        "name": name,
+        "route": "cuda",
+        "source": "pinns_tpu_torch/csrc/" + source,
+        "replaces": replaces,
+        "launches": pol["launches"][name],
+        "max_abs_err": pol["kernels"][name]["max_abs_err"],
+        "ms": pol["times"][name][0],
+        "plain_ms": pol["times"][name][1],
+        **bound_fields(pol["bounds"][name]),
+        **({"polish": pol["polish"]} if name == "lbfgs_control_f64" else {}),
+    } for name, source, replaces in (
+        ("taylor2_f64", "taylor2.cu", "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:420"),
+        ("taylor2_backward_f64", "taylor2_backward.cu",
+         "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:391"),
+        ("mlp_forward_f64", "mlp_forward.cu", "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103"),
+        ("mlp_backward_f64", "mlp_forward.cu", "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103"),
+        ("lbfgs_control_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"),
+        ("lbfgs_direction_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:167"),
+        ("lbfgs_reset_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,8 @@
   serve    --artifact D --port N --device cuda    HTTP server (GET /meta, POST /predict)
   predict  --artifact D --points P.npz --out O.npz [--bands] --device cuda
                                                   batch inference, npz/csv in and out
+  polish   --preset NAME [--set ...] --checkpoint CKPT [--max-iters N] [--out O]
+           [--device cuda|cpu]                    float64 L-BFGS polish of a checkpoint
 
 ``train`` runs the preset's schedule (on cuda, an Adam epoch inside the fused
 step's scope is one call of K3, any other goes through the kernels under
@@ -64,6 +66,15 @@ prints ``Trainer.evaluate``'s JSON for a checkpoint, or grades an artifact
 against its dataset's grid (with the coverage of the served bands for an
 ensemble: ``band_k_*``, ``band_cov_*``, ``band_cov_mond_*``). ``predict
 --bands`` adds each calibrated field's ``{name}_band`` half-width.
+``polish`` is JAX's float64 L-BFGS polish of a trained checkpoint
+(``train.polish``): ``model.dtype=float64`` (``model.precision`` is accepted
+and ignored, as everywhere in the port), the checkpoint's params, batch and
+ADMM state loaded into float64, the loss minimized at ``ftol=1e-15``,
+``gtol=1e-12`` with ``optimizer.lbfgs.history``; on the card in K10's
+float64 mode over the float64 modes of K1, K2 and K5, on the CPU by the
+host loop. It prints the iterations / loss / converged line, the
+``evaluate`` JSON and the path of ``<checkpoint>.polished.ckpt`` (or
+``--out``), written with meta ``{"polished": true}``.
 ``--device`` defaults to cuda and raises when no card is visible; pass
 ``--device cpu`` for the plain PyTorch path.
 """
@@ -376,6 +387,26 @@ def _eval_artifact(args) -> int:
     return 0
 
 
+def cmd_polish(args) -> int:
+    """JAX's ``polish`` (``pinns_tpu/cli.py:486-557``) on ``--device``."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.train import checkpoint as ckpt_io
+    from pinns_tpu_torch.train.polish import polish
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(_build_exp(args), {"model.dtype": "float64"})
+    trainer = Trainer(exp, device=args.device, dataset=args.data)
+    state = trainer.load_checkpoint(args.checkpoint)
+    state, res = polish(trainer.problem, state, max_iters=args.max_iters)
+    print(f"f64 L-BFGS: {int(res.n_iters)} iters, loss {float(res.f):.3e}, "
+          f"converged={bool(res.converged)}", flush=True)
+    print(json.dumps(trainer.evaluate(state)), flush=True)
+    out = args.out or (args.checkpoint + ".polished.ckpt")
+    ckpt_io.save_checkpoint(out, state, meta={"polished": True})
+    print(out)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from pinns_tpu_torch.serve import make_http_server
 
@@ -495,6 +526,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--artifact", help="artifact directory (from export); the preset "
                                       "defaults to its experiment")
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("polish", help="float64 L-BFGS polish of a checkpoint (on the card "
+                                      "unless --device cpu)")
+    add_common(p)
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--max-iters", type=int, default=20_000)
+    p.add_argument("--out", default=None, help="default: <checkpoint>.polished.ckpt")
+    p.set_defaults(fn=cmd_polish)
 
     p = sub.add_parser("serve", help="HTTP prediction server over an artifact")
     p.add_argument("--artifact", required=True)

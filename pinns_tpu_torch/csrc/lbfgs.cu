@@ -51,6 +51,17 @@
 // plain versions in ops/kernels/lbfgs.py spell that order
 // (block_sum_reference), so they agree with these kernels bit for bit.
 //
+// The float64 mode (the *_f64 entry points; `polish`, ops/kernels/lbfgs.py::
+// AutogradLBFGS in float64): every kernel is a template on its scalar type,
+// instantiated on float and on double. The double instantiation keeps the
+// int slots, the layout and every sum's order, with the double
+// round-to-nearest intrinsics (__dadd_rn, __dmul_rn, ...), 8-byte exchange
+// slots (st.async .b64) and its own static reserve (SharedT<double>); its
+// plain versions are the same functions in float64, so it too agrees with
+// them bit for bit. Double pairs take twice the shared memory: at 8x20 (n
+// about 3,000) and m = 50 they no longer fit the CTAs, so the plan streams
+// them.
+//
 // The layout: the reset and control kernels run that virtual block as one
 // block (the control kernel's warp sums meet behind one __syncthreads); the
 // direction kernel runs it as a thread block cluster of kCtas = 8 CTAs of 128
@@ -101,7 +112,7 @@ constexpr int kMaxPer = 8;                 // entries of q a thread holds in reg
 constexpr int kCtas = 8;                   // the direction kernel's cluster (portable)
 constexpr int kCtaThreads = kThreads / kCtas;
 constexpr size_t kSmemLimit = 232448;      // a block's shared memory on sm_90 (227 KB)
-constexpr size_t kStaticReserve = 1024;    // the static shared memory the plan reserves (Shared)
+constexpr size_t kStaticReserve = 1024;    // the reserve for SharedT<float> (static_reserve)
 constexpr int kErrUnplaced = -2;           // the cluster cannot be placed on the card
 
 // the state's int slots (ops/kernels/lbfgs.py: I_DONE, ...)
@@ -129,59 +140,97 @@ enum Branch {
 // the control kernel's per-launch decisions (not kept)
 enum Temp { kTBetter, kTEnded, kTOk, kTStore, kTOldHead, kNumTemps };
 
-struct __align__(16) Shared {
-  float red[2][kMaxSums][kWarps];  // the exchanges' slots, two turns
+// The static shared memory of a kernel working in T (float or double).
+template <typename T>
+struct __align__(16) SharedT {
+  T red[2][kMaxSums][kWarps];      // the exchanges' slots, two turns
   unsigned long long bar[2];       // their mbarriers
   int i[kNumInts];
-  float f[kNumFloats];
+  T f[kNumFloats];
   int t[kNumTemps];
-  float f_old;
-};
-static_assert(sizeof(Shared) <= kStaticReserve, "Shared outgrew the plan's reserve");
-
-struct Consts {
-  float c1, c2, ftol, gtol, eps_dead, eps_curv, tiny, a_max, eps_step;
+  T f_old;
 };
 
-__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
-__device__ __forceinline__ float min_nan(float a, float b) { return (a < b || a != a) ? a : b; }
+// The static shared memory the plan reserves for a kernel working in T
+// (ops/kernels/lbfgs.py: STATIC_SMEM by item size).
+template <typename T>
+constexpr size_t static_reserve() {
+  return sizeof(T) == 4 ? kStaticReserve : 2 * kStaticReserve;
+}
+static_assert(sizeof(SharedT<float>) <= static_reserve<float>(), "Shared outgrew the reserve");
+static_assert(sizeof(SharedT<double>) <= static_reserve<double>(), "Shared outgrew the reserve");
+
+template <typename T>
+struct ConstsT {
+  T c1, c2, ftol, gtol, eps_dead, eps_curv, tiny, a_max, eps_step;
+};
+
+// Round-to-nearest arithmetic in T: nothing is contracted into an FMA.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_of(double a) { return fabs(a); }
+
+template <typename T>
+__device__ __forceinline__ T max_nan(T a, T b) { return (a > b || a != a) ? a : b; }
+template <typename T>
+__device__ __forceinline__ T min_nan(T a, T b) { return (a < b || a != a) ? a : b; }
 
 // A warp's butterfly (offsets 16, 8, 4, 2, 1): every lane ends with lane
 // 0's sum, which is the sum in the tree w[l] + w[l + off] that the plain
 // versions spell.
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = add_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-template <bool kMax>
-__device__ __forceinline__ float combine(float a, float b) {
-  return kMax ? max_nan(a, b) : __fadd_rn(a, b);
+template <bool kMax, typename T>
+__device__ __forceinline__ T combine(T a, T b) {
+  return kMax ? max_nan(a, b) : add_rn(a, b);
 }
 
 // The 32 warp sums w (shared memory, warp order) in the butterfly's tree,
 // in registers: w[l] + w[l + off] for off = 16, ..., 1, lane 0's sum bit for
 // bit (every lane of the butterfly holds it). Each level a loop of constant
 // bounds, so that r stays in registers.
-template <bool kMax>
-__device__ __forceinline__ float tree32(const float* w) {
-  float r[kWarps];
+template <bool kMax, typename T>
+__device__ __forceinline__ T tree32(const T* w) {
+  T r[kWarps];
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int l = 0; l < kWarps; l += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(w + l);
-    r[l] = v.x;
-    r[l + 1] = v.y;
-    r[l + 2] = v.z;
-    r[l + 3] = v.w;
+    for (int l = 0; l < kWarps; l += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(w + l);
+      r[l] = v.x;
+      r[l + 1] = v.y;
+      r[l + 2] = v.z;
+      r[l + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < kWarps; l += 2) {
+      const double2 v = *reinterpret_cast<const double2*>(w + l);
+      r[l] = v.x;
+      r[l + 1] = v.y;
+    }
   }
 #pragma unroll
   for (int l = 0; l < 16; ++l) r[l] = combine<kMax>(r[l], r[l + 16]);
@@ -236,9 +285,9 @@ __device__ __forceinline__ int virtual_thread() {
 // One exchange's state in every thread: the turn, the two barriers' phase
 // parities, and where the thread sits in the virtual block. kCluster false:
 // the control kernel's one block, whose sums meet behind a __syncthreads.
-template <bool kCluster>
+template <typename T, bool kCluster>
 struct Exchange {
-  Shared* sh;
+  SharedT<T>* sh;
   uint32_t rank, ranks;
   int t;  // the virtual thread: rank * blockDim.x + threadIdx.x
   int turn;
@@ -250,9 +299,9 @@ struct Exchange {
 // gather. A phase of bar[turn] completes after one arrival a warp of this
 // CTA (its own sum, stored locally), thread 0's arrival that expects the
 // bytes of the other CTAs' warps, and those bytes.
-template <bool kCluster>
-__device__ __forceinline__ Exchange<kCluster> exchange_begin(Shared& sh) {
-  Exchange<kCluster> ex;
+template <bool kCluster, typename T>
+__device__ __forceinline__ Exchange<T, kCluster> exchange_begin(SharedT<T>& sh) {
+  Exchange<T, kCluster> ex;
   if constexpr (kCluster) {
     if (threadIdx.x == 0) {
 #pragma unroll
@@ -284,11 +333,11 @@ __device__ __forceinline__ Exchange<kCluster> exchange_begin(Shared& sh) {
 // bytes complete the remote barrier's transaction count (release, cluster
 // scope); every thread waits on its own CTA's barrier (acquire, cluster).
 // One block: lane 0 of each warp stores, then one __syncthreads.
-template <int K, bool kMax, bool kCluster>
-__device__ __forceinline__ void gather(float (&v)[K], Exchange<kCluster>& ex) {
+template <int K, bool kMax, typename T, bool kCluster>
+__device__ __forceinline__ void gather(T (&v)[K], Exchange<T, kCluster>& ex) {
 #pragma unroll
   for (int k = 0; k < K; ++k) v[k] = kMax ? warp_max(v[k]) : warp_sum(v[k]);
-  Shared& sh = *ex.sh;
+  SharedT<T>& sh = *ex.sh;
   const uint32_t lane = threadIdx.x & 31;
   const int warp = ex.t >> 5;
   if constexpr (!kCluster) {
@@ -307,7 +356,8 @@ __device__ __forceinline__ void gather(float (&v)[K], Exchange<kCluster>& ex) {
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 %0, [%1], %2;"
                  : "=l"(state)
-                 : "r"(bar), "r"(K * 4 * (kWarps - static_cast<int>(blockDim.x) / 32))
+                 : "r"(bar), "r"(K * static_cast<int>(sizeof(T)) *
+                                 (kWarps - static_cast<int>(blockDim.x) / 32))
                  : "memory");
   }
   if (lane == ex.rank) {
@@ -321,11 +371,20 @@ __device__ __forceinline__ void gather(float (&v)[K], Exchange<kCluster>& ex) {
     const uint32_t remote_bar = map_rank(bar, lane);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      asm volatile(
-          "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
-              map_rank(smem_addr(&sh.red[ex.turn][k][warp]), lane)),
-          "r"(__float_as_uint(v[k])), "r"(remote_bar)
-          : "memory");
+      const uint32_t dst = map_rank(smem_addr(&sh.red[ex.turn][k][warp]), lane);
+      if constexpr (sizeof(T) == 4) {
+        asm volatile(
+            "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                dst),
+            "r"(__float_as_uint(v[k])), "r"(remote_bar)
+            : "memory");
+      } else {
+        asm volatile(
+            "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];" ::"r"(
+                dst),
+            "l"(__double_as_longlong(v[k])), "r"(remote_bar)
+            : "memory");
+      }
     }
   }
   asm volatile(
@@ -341,28 +400,30 @@ __device__ __forceinline__ void gather(float (&v)[K], Exchange<kCluster>& ex) {
   ex.turn ^= 1;
 }
 
-template <bool kCluster>
-__device__ __forceinline__ float gather_sum(float v, Exchange<kCluster>& ex) {
-  float s[1] = {v};
+template <typename T, bool kCluster>
+__device__ __forceinline__ T gather_sum(T v, Exchange<T, kCluster>& ex) {
+  T s[1] = {v};
   gather<1, false>(s, ex);
   return s[0];
 }
 
-template <bool kCluster>
-__device__ __forceinline__ float gather_max(float v, Exchange<kCluster>& ex) {
-  float s[1] = {v};
+template <typename T, bool kCluster>
+__device__ __forceinline__ T gather_max(T v, Exchange<T, kCluster>& ex) {
+  T s[1] = {v};
   gather<1, true>(s, ex);
   return s[0];
 }
 
-__device__ __forceinline__ void load_state(Shared& sh, const int* si, const float* sf) {
+template <typename T>
+__device__ __forceinline__ void load_state(SharedT<T>& sh, const int* si, const T* sf) {
   if (threadIdx.x < kNumInts) sh.i[threadIdx.x] = si[threadIdx.x];
   if (threadIdx.x < kNumFloats) sh.f[threadIdx.x] = sf[threadIdx.x];
   __syncthreads();
 }
 
 // Rank 0 writes the state.
-__device__ __forceinline__ void finish(const Shared& sh, int* si, float* sf, uint32_t rank) {
+template <typename T>
+__device__ __forceinline__ void finish(const SharedT<T>& sh, int* si, T* sf, uint32_t rank) {
   __syncthreads();
   if (rank == 0) {
     if (threadIdx.x < kNumInts) si[threadIdx.x] = sh.i[threadIdx.x];
@@ -373,18 +434,19 @@ __device__ __forceinline__ void finish(const Shared& sh, int* si, float* sf, uin
 // One evaluation (phi, dphi) at a = F[kATrial] into the search (thread 0):
 // _zoom_linesearch's body. Sets the temps better (a new best point) and
 // ended (accept or fail), and at the end ok.
-__device__ void search_update(int* I, float* F, int* T, float phi, float dphi) {
-  const float a = F[kATrial], f0 = F[kF], dphi0 = F[kDphi0];
+template <typename R>
+__device__ void search_update(int* I, R* F, int* T, R phi, R dphi) {
+  const R a = F[kATrial], f0 = F[kF], dphi0 = F[kDphi0];
   const int evals = I[kLsEvals] + 1;
   I[kLsEvals] = evals;
   const bool out_of_budget = evals >= I[kMaxLs];
-  const bool wolfe1 = phi <= __fadd_rn(f0, __fmul_rn(__fmul_rn(F[kC1], a), dphi0));
-  const bool wolfe2 = fabsf(dphi) <= __fmul_rn(-F[kC2], dphi0);
+  const bool wolfe1 = phi <= add_rn(f0, mul_rn(mul_rn(F[kC1], a), dphi0));
+  const bool wolfe2 = abs_of(dphi) <= mul_rn(-F[kC2], dphi0);
   const bool accept = wolfe1 && wolfe2;
   int br = 0;
   if (I[kMode] == 0) {  // alg. 3.5: bracket
     const bool hi_cond = !wolfe1 || (phi >= F[kPhiPrev] && evals > 1);  // zoom(a_prev, a)
-    const bool to_rev = !hi_cond && dphi >= 0.0f;                       // zoom(a, a_prev)
+    const bool to_rev = !hi_cond && dphi >= R(0);                       // zoom(a, a_prev)
     if (hi_cond) {
       F[kALo] = F[kAPrev];
       F[kPhiLo] = F[kPhiPrev];
@@ -402,9 +464,9 @@ __device__ void search_update(int* I, float* F, int* T, float phi, float dphi) {
     }
     if (hi_cond || to_rev) {
       I[kMode] = 1;
-      F[kATrial] = __fmul_rn(0.5f, __fadd_rn(F[kALo], F[kAHi]));
+      F[kATrial] = mul_rn(R(0.5), add_rn(F[kALo], F[kAHi]));
     } else {
-      F[kATrial] = min_nan(__fmul_rn(2.0f, a), F[kAMax]);
+      F[kATrial] = min_nan(mul_rn(R(2), a), F[kAMax]);
       br |= kBrExtend;
     }
     F[kAPrev] = a;
@@ -412,7 +474,7 @@ __device__ void search_update(int* I, float* F, int* T, float phi, float dphi) {
     F[kDphiPrev] = dphi;
   } else {  // alg. 3.6 with bisection trial points
     const bool cond_hi = !wolfe1 || phi >= F[kPhiLo];
-    const bool swap = !cond_hi && __fmul_rn(dphi, __fsub_rn(F[kAHi], F[kALo])) >= 0.0f;
+    const bool swap = !cond_hi && mul_rn(dphi, sub_rn(F[kAHi], F[kALo])) >= R(0);
     if (cond_hi) {
       F[kAHi] = a;
       F[kPhiHi] = phi;
@@ -428,11 +490,11 @@ __device__ void search_update(int* I, float* F, int* T, float phi, float dphi) {
       F[kDphiLo] = dphi;
       br |= kBrZoomLo;
     }
-    F[kATrial] = __fmul_rn(0.5f, __fadd_rn(F[kALo], F[kAHi]));
+    F[kATrial] = mul_rn(R(0.5), add_rn(F[kALo], F[kAHi]));
   }
   const bool interval_dead =
-      I[kMode] == 1 && fabsf(__fsub_rn(F[kAHi], F[kALo])) <=
-                           __fmul_rn(F[kEpsDead], max_nan(1.0f, fabsf(F[kAHi])));
+      I[kMode] == 1 && abs_of(sub_rn(F[kAHi], F[kALo])) <=
+                           mul_rn(F[kEpsDead], max_nan(R(1), abs_of(F[kAHi])));
   const bool fail = !accept && (out_of_budget || interval_dead);
   const bool better = (wolfe1 && phi < F[kFBest]) || accept;
   if (better) {
@@ -451,15 +513,16 @@ __device__ void search_update(int* I, float* F, int* T, float phi, float dphi) {
   I[kBranches] |= br;
 }
 
-__global__ void reset_kernel(int* si, float* sf, float* vec, const float* x0, int n,
-                             int max_iters, int max_ls, Consts c) {
+template <typename R>
+__global__ void reset_kernel(int* si, R* sf, R* vec, const R* x0, int n,
+                             int max_iters, int max_ls, ConstsT<R> c) {
   if (threadIdx.x == 0) {
     for (int k = 0; k < kNumInts; ++k) si[k] = 0;
-    for (int k = 0; k < kNumFloats; ++k) sf[k] = 0.0f;
+    for (int k = 0; k < kNumFloats; ++k) sf[k] = R(0);
     si[kStage] = kInit;
     si[kMaxIters] = max_iters;
     si[kMaxLs] = max_ls;
-    sf[kGamma] = 1.0f;
+    sf[kGamma] = R(1);
     sf[kC1] = c.c1;
     sf[kC2] = c.c2;
     sf[kFtol] = c.ftol;
@@ -473,38 +536,39 @@ __global__ void reset_kernel(int* si, float* sf, float* vec, const float* x0, in
   // a null x0: the reset in place, the next solve from the last one's
   // iterate (x stays, xt takes it); each thread reads only its own entries
   const size_t N = n;
-  const float* src = x0 != nullptr ? x0 : vec + kX * N;
+  const R* src = x0 != nullptr ? x0 : vec + kX * N;
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float v = src[i];
+    const R v = src[i];
     if (x0 != nullptr) vec[kX * N + i] = v;
     vec[kXT * N + i] = v;
-    vec[kGT * N + i] = 0.0f;
+    vec[kGT * N + i] = R(0);
   }
 }
 
+template <typename R>
 __global__ void __launch_bounds__(kThreads)
-control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, int m) {
-  __shared__ Shared sh;
+control_kernel(int* si, R* sf, R* vec, R* hist, R* rho, int n, int m) {
+  __shared__ SharedT<R> sh;
   const int t = virtual_thread();
   const size_t N = n;
-  float* x = vec + kX * N;
-  float* g = vec + kG * N;
-  const float* d = vec + kD * N;
-  float* xt = vec + kXT * N;
-  const float* gt = vec + kGT * N;
-  float* gb = vec + kGB * N;
+  R* x = vec + kX * N;
+  R* g = vec + kG * N;
+  const R* d = vec + kD * N;
+  R* xt = vec + kXT * N;
+  const R* gt = vec + kGT * N;
+  R* gb = vec + kGB * N;
   // this thread's parts of phi' = gt . d and of max|gt|, read beside the
   // state (the first evaluation takes the maximum, every other the dot)
-  float part = 0.0f, mx = 0.0f;
+  R part = R(0), mx = R(0);
   for (int i = t; i < n; i += kThreads) {
-    part = __fadd_rn(part, __fmul_rn(gt[i], d[i]));
-    mx = max_nan(mx, fabsf(gt[i]));
+    part = add_rn(part, mul_rn(gt[i], d[i]));
+    mx = max_nan(mx, abs_of(gt[i]));
   }
   load_state(sh, si, sf);
   if (sh.i[kDone]) return;
   auto ex = exchange_begin<false>(sh);
   int* I = sh.i;
-  float* F = sh.f;
+  R* F = sh.f;
   int* T = sh.t;
 
   if (I[kStage] == kInit) {  // the first evaluation: f and g at x0
@@ -524,43 +588,43 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
     return;
   }
 
-  const float dphi = gather_sum(part, ex);
+  const R dphi = gather_sum(part, ex);
   if (threadIdx.x == 0) search_update(I, F, T, F[kPhiT], dphi);
   __syncthreads();
   if (T[kTBetter]) {
     for (int i = t; i < n; i += kThreads) gb[i] = gt[i];
   }
   if (!T[kTEnded]) {  // the next trial point
-    const float a = F[kATrial];
-    for (int i = t; i < n; i += kThreads) xt[i] = __fadd_rn(x[i], __fmul_rn(a, d[i]));
+    const R a = F[kATrial];
+    for (int i = t; i < n; i += kThreads) xt[i] = add_rn(x[i], mul_rn(a, d[i]));
     finish(sh, si, sf, 0);
     return;
   }
 
   // the end of the iteration: x_new = x + a d, s = x_new - x, y = g_new - g;
   // s.y, s.s and y.y in one exchange, each in its own tree
-  const float a = F[kABest];
-  float p[3] = {0.0f, 0.0f, 0.0f};
+  const R a = F[kABest];
+  R p[3] = {R(0), R(0), R(0)};
   for (int i = t; i < n; i += kThreads) {
-    const float s = __fsub_rn(__fadd_rn(x[i], __fmul_rn(a, d[i])), x[i]);
-    const float y = __fsub_rn(gb[i], g[i]);
-    p[0] = __fadd_rn(p[0], __fmul_rn(s, y));
-    p[1] = __fadd_rn(p[1], __fmul_rn(s, s));
-    p[2] = __fadd_rn(p[2], __fmul_rn(y, y));
+    const R s = sub_rn(add_rn(x[i], mul_rn(a, d[i])), x[i]);
+    const R y = sub_rn(gb[i], g[i]);
+    p[0] = add_rn(p[0], mul_rn(s, y));
+    p[1] = add_rn(p[1], mul_rn(s, s));
+    p[2] = add_rn(p[2], mul_rn(y, y));
   }
   gather<3, false>(p, ex);
-  const float sy = p[0], ss = p[1], yy = p[2];
+  const R sy = p[0], ss = p[1], yy = p[2];
   if (threadIdx.x == 0) {
     const bool ok = T[kTOk];
-    const float ns = __fsqrt_rn(ss), ny = __fsqrt_rn(yy);
-    const bool store = ok && sy > __fmul_rn(__fmul_rn(F[kEpsCurv], ns), ny);
+    const R ns = sqrt_rn(ss), ny = sqrt_rn(yy);
+    const bool store = ok && sy > mul_rn(mul_rn(F[kEpsCurv], ns), ny);
     T[kTStore] = store;
     T[kTOldHead] = I[kHead];
     if (store) {
-      rho[I[kHead]] = __fdiv_rn(1.0f, max_nan(sy, F[kTiny]));
+      rho[I[kHead]] = div_rn(R(1), max_nan(sy, F[kTiny]));
       I[kHead] = (I[kHead] + 1) % m;
       I[kCount] = I[kCount] + 1 < m ? I[kCount] + 1 : m;
-      F[kGamma] = __fdiv_rn(sy, max_nan(yy, F[kTiny]));
+      F[kGamma] = div_rn(sy, max_nan(yy, F[kTiny]));
       I[kBranches] |= kBrStored;
     } else if (ok) {
       I[kBranches] |= kBrCurvSkip;
@@ -570,28 +634,28 @@ control_kernel(int* si, float* sf, float* vec, float* hist, float* rho, int n, i
   }
   __syncthreads();
   const bool ok = T[kTOk], store = T[kTStore];
-  float* hs = hist + static_cast<size_t>(T[kTOldHead]) * N;
-  float* hy = hist + (static_cast<size_t>(m) + T[kTOldHead]) * N;
-  mx = 0.0f;
+  R* hs = hist + static_cast<size_t>(T[kTOldHead]) * N;
+  R* hy = hist + (static_cast<size_t>(m) + T[kTOldHead]) * N;
+  mx = R(0);
   for (int i = t; i < n; i += kThreads) {
-    const float xn = __fadd_rn(x[i], __fmul_rn(a, d[i]));
+    const R xn = add_rn(x[i], mul_rn(a, d[i]));
     if (store) {
-      hs[i] = __fsub_rn(xn, x[i]);
-      hy[i] = __fsub_rn(gb[i], g[i]);
+      hs[i] = sub_rn(xn, x[i]);
+      hy[i] = sub_rn(gb[i], g[i]);
     }
     if (ok) {
       x[i] = xn;
       g[i] = gb[i];
     }
-    mx = max_nan(mx, fabsf(g[i]));
+    mx = max_nan(mx, abs_of(g[i]));
   }
   mx = gather_max(mx, ex);
   if (threadIdx.x == 0) {  // SciPy's stopping rules
-    const float f_old = sh.f_old, f = F[kF];
+    const R f_old = sh.f_old, f = F[kF];
     const bool g_small = mx <= F[kGtol];
     const bool f_flat =
-        ok && __fsub_rn(f_old, f) <=
-                  __fmul_rn(F[kFtol], max_nan(max_nan(fabsf(f_old), fabsf(f)), 1.0f));
+        ok && sub_rn(f_old, f) <=
+                  mul_rn(F[kFtol], max_nan(max_nan(abs_of(f_old), abs_of(f)), R(1)));
     const bool converged = g_small || f_flat;
     I[kK] += 1;
     I[kEvals] += I[kLsEvals];
@@ -611,15 +675,15 @@ __device__ __forceinline__ int newest(int head, int j, int m) { return ((head - 
 
 // q (then r) of this thread: kPer entries in registers, or (kPer = 0) its
 // per entries in shared memory, entry k at s[k * blockDim.x].
-template <int kPer>
+template <typename R, int kPer>
 struct QVec {
-  float r[kPer];
-  __device__ __forceinline__ float& operator[](int k) { return r[k]; }
+  R r[kPer];
+  __device__ __forceinline__ R& operator[](int k) { return r[k]; }
 };
-template <>
-struct QVec<0> {
-  float* s;
-  __device__ __forceinline__ float& operator[](int k) { return s[k * blockDim.x]; }
+template <typename R>
+struct QVec<R, 0> {
+  R* s;
+  __device__ __forceinline__ R& operator[](int k) { return s[k * blockDim.x]; }
 };
 
 // The direction kernel: one cluster of kCtas = 8 CTAs of 128 threads, the
@@ -629,50 +693,51 @@ struct QVec<0> {
 // next step's dot vector loaded before each exchange; kResident: it also
 // stores this thread's entries into the CTA's shared memory, from which the
 // second loop reads them (else from global memory again, the streamed
-// design). Dynamic shared memory, in floats: alpha (a row of m for each
+// design). Dynamic shared memory, in Rs: alpha (a row of m for each
 // warp: its lane 0 writes, its lanes read), rho of the count newest pairs
 // (m), their slots in the circular history (m ints), q when kPer = 0 (per x
 // blockDim.x), the resident pairs (slot j's s, then its y, each per x
 // blockDim.x, m slots).
-template <int kPer, bool kResident>
+template <typename R, int kPer, bool kResident>
 __global__ void __launch_bounds__(kCtaThreads)
-direction_kernel(int* si, float* sf, float* vec, const float* hist, const float* rho, int n,
+direction_kernel(int* si, R* sf, R* vec, const R* hist, const R* rho, int n,
                  int m) {
-  __shared__ Shared sh;
-  extern __shared__ __align__(16) float dyn[];
+  __shared__ SharedT<R> sh;
+  extern __shared__ __align__(16) unsigned char dyn_raw[];
+  R* dyn = reinterpret_cast<R*>(dyn_raw);
   constexpr bool kRegs = kPer > 0;
   const int tpb = blockDim.x, tid = threadIdx.x, t = virtual_thread();
   const size_t N = n;
-  const float* x = vec + kX * N;
-  const float* g = vec + kG * N;
-  float* d = vec + kD * N;
-  float* xt = vec + kXT * N;
-  float* gb = vec + kGB * N;
-  QVec<kPer> q;
+  const R* x = vec + kX * N;
+  const R* g = vec + kG * N;
+  R* d = vec + kD * N;
+  R* xt = vec + kXT * N;
+  R* gb = vec + kGB * N;
+  QVec<R, kPer> q;
   // g's and x's entries (registers), read beside the state
-  float gr[kRegs ? kPer : 1], xr[kRegs ? kPer : 1];
+  R gr[kRegs ? kPer : 1], xr[kRegs ? kPer : 1];
   if constexpr (kRegs) {
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int i = t + k * kThreads;
-      gr[k] = i < n ? g[i] : 0.0f;
-      xr[k] = i < n ? x[i] : 0.0f;
+      gr[k] = i < n ? g[i] : R(0);
+      xr[k] = i < n ? x[i] : R(0);
       q[k] = gr[k];
     }
   }
   load_state(sh, si, sf);
   if (sh.i[kDone] || !sh.i[kNeedDir]) return;
   const int count = sh.i[kCount], head = sh.i[kHead];
-  const float gamma = sh.f[kGamma];
+  const R gamma = sh.f[kGamma];
   const int per = (n + kThreads - 1) / kThreads;
   const int walk = kRegs ? kPer : per;  // the entries a thread walks
   // entry k of this thread exists: always below the last (kPer is per)
   auto in_range = [&](int k) { return (kRegs && k < kPer - 1) || t + k * kThreads < n; };
-  float* alpha = dyn + (tid >> 5) * m;
-  float* rho_s = dyn + (tpb >> 5) * m;
+  R* alpha = dyn + (tid >> 5) * m;
+  R* rho_s = dyn + (tpb >> 5) * m;
   int* slot = reinterpret_cast<int*>(rho_s + m);
-  float* qs = rho_s + 2 * m;
-  float* hs = qs + (kRegs ? 0 : per * tpb);
+  R* qs = rho_s + 2 * m;
+  R* hs = qs + (kRegs ? 0 : per * tpb);
   for (int j = tid; j < count; j += tpb) {
     slot[j] = newest(head, j, m);
     rho_s[j] = rho[slot[j]];
@@ -683,7 +748,7 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     q.s = qs + tid;
     for (int k = 0; k < per; ++k) {
       const int i = t + k * kThreads;
-      q[k] = i < n ? g[i] : 0.0f;
+      q[k] = i < n ? g[i] : R(0);
     }
   }
   cluster_wait();  // every CTA's barriers initialised
@@ -691,13 +756,13 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
   // this thread's entries of slot j's s (which 0) or y (which 1): in global
   // memory (entry k at [k * kThreads]) and, resident, in the CTA's copy
   // (entry k at [k * tpb]); the second loop reads them at `back`
-  auto global_row = [&](int j, int which) -> const float* {
+  auto global_row = [&](int j, int which) -> const R* {
     return hist + (static_cast<size_t>(which) * m + slot[j]) * N + t;
   };
-  auto copy_row = [&](int j, int which) -> float* {
+  auto copy_row = [&](int j, int which) -> R* {
     return hs + static_cast<size_t>(2 * j + which) * per * tpb + tid;
   };
-  auto back = [&](int j, int which) -> const float* {
+  auto back = [&](int j, int which) -> const R* {
     if (kResident) return copy_row(j, which);
     return global_row(j, which);
   };
@@ -706,32 +771,32 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
   if constexpr (kRegs) {
     // first loop, newest first: alpha = rho s.q, q -= alpha y; the step's
     // dot vector a was loaded a step ahead
-    float a[kPer];
+    R a[kPer];
     if (count > 0) {
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
-        a[k] = in_range(k) ? global_row(0, 0)[k * kThreads] : 0.0f;
+        a[k] = in_range(k) ? global_row(0, 0)[k * kThreads] : R(0);
       }
     }
     for (int j = 0; j < count; ++j) {
-      const float* y = global_row(j, 1);
-      float b[kPer], nxt[kPer];
+      const R* y = global_row(j, 1);
+      R b[kPer], nxt[kPer];
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const bool valid = in_range(k);
-        b[k] = valid ? y[k * kThreads] : 0.0f;
-        nxt[k] = valid && j + 1 < count ? global_row(j + 1, 0)[k * kThreads] : 0.0f;
+        b[k] = valid ? y[k * kThreads] : R(0);
+        nxt[k] = valid && j + 1 < count ? global_row(j + 1, 0)[k * kThreads] : R(0);
       }
-      float p = 0.0f;
+      R p = R(0);
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
-        if (in_range(k)) p = __fadd_rn(p, __fmul_rn(a[k], q[k]));
+        if (in_range(k)) p = add_rn(p, mul_rn(a[k], q[k]));
       }
-      const float al = __fmul_rn(rho_s[j], gather_sum(p, ex));
+      const R al = mul_rn(rho_s[j], gather_sum(p, ex));
       if ((tid & 31) == 0) alpha[j] = al;
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
-        q[k] = __fsub_rn(q[k], __fmul_rn(al, b[k]));
+        q[k] = sub_rn(q[k], mul_rn(al, b[k]));
         if (kResident && k < per) {  // the copy holds per entries a thread
           copy_row(j, 0)[k * tpb] = a[k];
           copy_row(j, 1)[k * tpb] = b[k];
@@ -741,71 +806,71 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     }
     __syncwarp();
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) q[k] = __fmul_rn(gamma, q[k]);
+    for (int k = 0; k < kPer; ++k) q[k] = mul_rn(gamma, q[k]);
     // second loop, oldest first: beta = rho y.r, r += (alpha - beta) s
     if (count > 0) {
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
-        a[k] = in_range(k) ? back(count - 1, 1)[k * back_stride] : 0.0f;
+        a[k] = in_range(k) ? back(count - 1, 1)[k * back_stride] : R(0);
       }
     }
     for (int j = count - 1; j >= 0; --j) {
-      const float* s = back(j, 0);
-      float b[kPer], nxt[kPer];
+      const R* s = back(j, 0);
+      R b[kPer], nxt[kPer];
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const bool valid = in_range(k);
-        b[k] = valid ? s[k * back_stride] : 0.0f;
-        nxt[k] = valid && j > 0 ? back(j - 1, 1)[k * back_stride] : 0.0f;
+        b[k] = valid ? s[k * back_stride] : R(0);
+        nxt[k] = valid && j > 0 ? back(j - 1, 1)[k * back_stride] : R(0);
       }
-      float p = 0.0f;
+      R p = R(0);
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
-        if (in_range(k)) p = __fadd_rn(p, __fmul_rn(a[k], q[k]));
+        if (in_range(k)) p = add_rn(p, mul_rn(a[k], q[k]));
       }
-      const float beta = __fmul_rn(rho_s[j], gather_sum(p, ex));
-      const float corr = __fsub_rn(alpha[j], beta);
+      const R beta = mul_rn(rho_s[j], gather_sum(p, ex));
+      const R corr = sub_rn(alpha[j], beta);
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
-        q[k] = __fadd_rn(q[k], __fmul_rn(corr, b[k]));
+        q[k] = add_rn(q[k], mul_rn(corr, b[k]));
         a[k] = nxt[k];
       }
     }
   } else {
     for (int j = 0; j < count; ++j) {
-      const float* s = global_row(j, 0);
-      const float* y = global_row(j, 1);
-      float p = 0.0f;
+      const R* s = global_row(j, 0);
+      const R* y = global_row(j, 1);
+      R p = R(0);
       for (int k = 0; k < per; ++k) {
         if (in_range(k)) {
-          const float sk = s[k * kThreads];
+          const R sk = s[k * kThreads];
           if (kResident) copy_row(j, 0)[k * tpb] = sk;
-          p = __fadd_rn(p, __fmul_rn(sk, q[k]));
+          p = add_rn(p, mul_rn(sk, q[k]));
         }
       }
-      const float al = __fmul_rn(rho_s[j], gather_sum(p, ex));
+      const R al = mul_rn(rho_s[j], gather_sum(p, ex));
       if ((tid & 31) == 0) alpha[j] = al;
       for (int k = 0; k < per; ++k) {
         if (in_range(k)) {
-          const float yk = y[k * kThreads];
+          const R yk = y[k * kThreads];
           if (kResident) copy_row(j, 1)[k * tpb] = yk;
-          q[k] = __fsub_rn(q[k], __fmul_rn(al, yk));
+          q[k] = sub_rn(q[k], mul_rn(al, yk));
         }
       }
     }
     __syncwarp();
-    for (int k = 0; k < per; ++k) q[k] = __fmul_rn(gamma, q[k]);
+    for (int k = 0; k < per; ++k) q[k] = mul_rn(gamma, q[k]);
     for (int j = count - 1; j >= 0; --j) {
-      const float* y = back(j, 1);
-      const float* s = back(j, 0);
-      float p = 0.0f;
+      const R* y = back(j, 1);
+      const R* s = back(j, 0);
+      R p = R(0);
       for (int k = 0; k < per; ++k) {
-        if (in_range(k)) p = __fadd_rn(p, __fmul_rn(y[k * back_stride], q[k]));
+        if (in_range(k)) p = add_rn(p, mul_rn(y[k * back_stride], q[k]));
       }
-      const float beta = __fmul_rn(rho_s[j], gather_sum(p, ex));
-      const float corr = __fsub_rn(alpha[j], beta);
+      const R beta = mul_rn(rho_s[j], gather_sum(p, ex));
+      const R corr = sub_rn(alpha[j], beta);
       for (int k = 0; k < per; ++k) {
-        if (in_range(k)) q[k] = __fadd_rn(q[k], __fmul_rn(corr, s[k * back_stride]));
+        if (in_range(k)) q[k] = add_rn(q[k], mul_rn(corr, s[k * back_stride]));
       }
     }
   }
@@ -815,32 +880,32 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     if constexpr (kRegs) return gr[k];
     else return g[i];
   };
-  float pd[2] = {0.0f, 0.0f};
+  R pd[2] = {R(0), R(0)};
 #pragma unroll
   for (int k = 0; k < walk; ++k) {
     const int i = t + k * kThreads;
     if (in_range(k)) {
-      const float gi = g_at(k, i);
-      const float di = -q[k];
+      const R gi = g_at(k, i);
+      const R di = -q[k];
       d[i] = di;
-      pd[0] = __fadd_rn(pd[0], __fmul_rn(di, gi));
-      pd[1] = __fadd_rn(pd[1], fabsf(gi));
+      pd[0] = add_rn(pd[0], mul_rn(di, gi));
+      pd[1] = add_rn(pd[1], abs_of(gi));
     }
   }
   gather<2, false>(pd, ex);
-  float dg = pd[0];
-  const float gsum = pd[1];
-  const bool guard = !(dg < 0.0f);  // not a descent direction: steepest descent
+  R dg = pd[0];
+  const R gsum = pd[1];
+  const bool guard = !(dg < R(0));  // not a descent direction: steepest descent
   if (guard) {
-    float p = 0.0f;
+    R p = R(0);
 #pragma unroll
     for (int k = 0; k < walk; ++k) {
       const int i = t + k * kThreads;
       if (in_range(k)) {
-        const float gi = g_at(k, i);
-        const float di = -gi;
+        const R gi = g_at(k, i);
+        const R di = -gi;
         d[i] = di;
-        p = __fadd_rn(p, __fmul_rn(gi, di));
+        p = add_rn(p, mul_rn(gi, di));
       }
     }
     dg = gather_sum(p, ex);
@@ -855,23 +920,23 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     if constexpr (kRegs) return xr[k];
     else return x[i];
   };
-  const float a =
-      count == 0 ? min_nan(1.0f, __fdiv_rn(1.0f, max_nan(gsum, sh.f[kEpsStep]))) : 1.0f;
+  const R a =
+      count == 0 ? min_nan(R(1), div_rn(R(1), max_nan(gsum, sh.f[kEpsStep]))) : R(1);
   if (threadIdx.x == 0) {
     int* I = sh.i;
-    float* F = sh.f;
-    const float f = F[kF];
+    R* F = sh.f;
+    const R f = F[kF];
     F[kDphi0] = dg;
-    F[kALo] = 0.0f;
+    F[kALo] = R(0);
     F[kPhiLo] = f;
     F[kDphiLo] = dg;
-    F[kAHi] = 0.0f;
+    F[kAHi] = R(0);
     F[kPhiHi] = f;
-    F[kAPrev] = 0.0f;
+    F[kAPrev] = R(0);
     F[kPhiPrev] = f;
     F[kDphiPrev] = dg;
     F[kATrial] = a;
-    F[kABest] = 0.0f;
+    F[kABest] = R(0);
     F[kFBest] = f;
     I[kMode] = 0;
     I[kLsEvals] = 0;
@@ -884,7 +949,7 @@ direction_kernel(int* si, float* sf, float* vec, const float* hist, const float*
     const int i = t + k * kThreads;
     if (in_range(k)) {
       gb[i] = g_at(k, i);
-      xt[i] = __fadd_rn(x_at(k, i), __fmul_rn(a, d_at(k, i)));
+      xt[i] = add_rn(x_at(k, i), mul_rn(a, d_at(k, i)));
     }
   }
   finish(sh, si, sf, ex.rank);
@@ -932,32 +997,70 @@ int launch_cluster(void (*kernel)(Params...), size_t smem, int launch_only, void
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-using DirectionKernel = void (*)(int*, float*, float*, const float*, const float*, int, int);
+template <typename R>
+using DirectionKernel = void (*)(int*, R*, R*, const R*, const R*, int, int);
 
 // The instantiation for per entries a thread: q in exactly per registers up
 // to kMaxPer, else in shared memory.
-template <bool kResident>
-DirectionKernel direction_for(int per) {
+template <typename R, bool kResident>
+DirectionKernel<R> direction_for(int per) {
   switch (per) {
-    case 1: return direction_kernel<1, kResident>;
-    case 2: return direction_kernel<2, kResident>;
-    case 3: return direction_kernel<3, kResident>;
-    case 4: return direction_kernel<4, kResident>;
-    case 5: return direction_kernel<5, kResident>;
-    case 6: return direction_kernel<6, kResident>;
-    case 7: return direction_kernel<7, kResident>;
-    case 8: return direction_kernel<8, kResident>;
-    default: return direction_kernel<0, kResident>;
+    case 1: return direction_kernel<R, 1, kResident>;
+    case 2: return direction_kernel<R, 2, kResident>;
+    case 3: return direction_kernel<R, 3, kResident>;
+    case 4: return direction_kernel<R, 4, kResident>;
+    case 5: return direction_kernel<R, 5, kResident>;
+    case 6: return direction_kernel<R, 6, kResident>;
+    case 7: return direction_kernel<R, 7, kResident>;
+    case 8: return direction_kernel<R, 8, kResident>;
+    default: return direction_kernel<R, 0, kResident>;
   }
 }
 
 // The direction kernel's shared memory a CTA, as the wrapper's plan counts
-// it: kStaticReserve and the dynamic part (direction_kernel's comment).
+// it: the static reserve and the dynamic part (direction_kernel's comment),
+// in words of R.
+template <typename R>
 size_t direction_smem(int n, int m, bool resident) {
   const size_t tpb = kCtaThreads, per = (n + kThreads - 1) / kThreads, M = m;
-  const size_t floats = (tpb / 32) * M + 2 * M + (per > kMaxPer ? per * tpb : 0) +
-                        (resident ? 2 * M * per * tpb : 0);
-  return kStaticReserve + sizeof(float) * floats;
+  const size_t words = (tpb / 32) * M + 2 * M + (per > kMaxPer ? per * tpb : 0) +
+                       (resident ? 2 * M * per * tpb : 0);
+  return static_reserve<R>() + sizeof(R) * words;
+}
+
+template <typename R>
+int reset(void* si, void* sf, void* vec, const void* x0, int n, int max_iters, int max_ls,
+          const R* consts, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const ConstsT<R> c{consts[0], consts[1], consts[2], consts[3], consts[4],
+                     consts[5], consts[6], consts[7], consts[8]};
+  reset_kernel<R><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(si), static_cast<R*>(sf), static_cast<R*>(vec),
+      static_cast<const R*>(x0), n, max_iters, max_ls, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R>
+int control(void* si, void* sf, void* vec, void* hist, void* rho, int n, int m, void* stream) {
+  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  control_kernel<R><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(si), static_cast<R*>(sf), static_cast<R*>(vec), static_cast<R*>(hist),
+      static_cast<R*>(rho), n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R>
+int direction(void* si, void* sf, void* vec, const void* hist, const void* rho, int n, int m,
+              int resident, int launch_only, void* stream) {
+  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = direction_smem<R>(n, m, resident != 0);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (n + kThreads - 1) / kThreads;
+  const DirectionKernel<R> kernel =
+      resident ? direction_for<R, true>(per) : direction_for<R, false>(per);
+  return launch_cluster(kernel, smem - static_reserve<R>(), launch_only, stream,
+                        static_cast<int*>(si), static_cast<R*>(sf), static_cast<R*>(vec),
+                        static_cast<const R*>(hist), static_cast<const R*>(rho), n, m);
 }
 
 }  // namespace k10
@@ -977,7 +1080,13 @@ extern "C" int pinns_lbfgs_slots(int* n_ints, int* n_floats, int* n_rows, int* t
 // ops/kernels/lbfgs.py::direction_smem counts it; -1 for an empty shape.
 extern "C" long long pinns_lbfgs_direction_smem(int n, int m, int resident) {
   if (n < 1 || m < 1) return -1;
-  return static_cast<long long>(direction_smem(n, m, resident != 0));
+  return static_cast<long long>(direction_smem<float>(n, m, resident != 0));
+}
+
+// The same in the float64 mode.
+extern "C" long long pinns_lbfgs_direction_smem_f64(int n, int m, int resident) {
+  if (n < 1 || m < 1) return -1;
+  return static_cast<long long>(direction_smem<double>(n, m, resident != 0));
 }
 
 // Every entry point launches on `stream` and returns the CUDA error code of
@@ -989,25 +1098,29 @@ extern "C" long long pinns_lbfgs_direction_smem(int n, int m, int resident) {
 // 1e-12, 1e-10, 1e-30, 1e8 and 1e-12 as float32. The direction kernel's
 // `launch_only` (a stream capture) leaves out the shared memory limit and
 // the placement check, which an earlier call with the same arguments made.
+// The *_f64 entry points are the float64 mode: sf, vec, hist, rho, x0 and
+// `consts` in double, the same kernels instantiated on double (every sum in
+// the same order, with the double round-to-nearest intrinsics).
 extern "C" int pinns_lbfgs_reset(void* si, void* sf, void* vec, const void* x0, int n,
                                  int max_iters, int max_ls, const float* consts, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Consts c{consts[0], consts[1], consts[2], consts[3], consts[4],
-                 consts[5], consts[6], consts[7], consts[8]};
-  reset_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(si), static_cast<float*>(sf), static_cast<float*>(vec),
-      static_cast<const float*>(x0), n, max_iters, max_ls, c);
-  return static_cast<int>(cudaGetLastError());
+  return reset<float>(si, sf, vec, x0, n, max_iters, max_ls, consts, stream);
+}
+
+extern "C" int pinns_lbfgs_reset_f64(void* si, void* sf, void* vec, const void* x0, int n,
+                                     int max_iters, int max_ls, const double* consts,
+                                     void* stream) {
+  return reset<double>(si, sf, vec, x0, n, max_iters, max_ls, consts, stream);
 }
 
 // The control kernel on one block.
 extern "C" int pinns_lbfgs_control(void* si, void* sf, void* vec, void* hist, void* rho, int n,
                                    int m, void* stream) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  control_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(si), static_cast<float*>(sf), static_cast<float*>(vec),
-      static_cast<float*>(hist), static_cast<float*>(rho), n, m);
-  return static_cast<int>(cudaGetLastError());
+  return control<float>(si, sf, vec, hist, rho, n, m, stream);
+}
+
+extern "C" int pinns_lbfgs_control_f64(void* si, void* sf, void* vec, void* hist, void* rho,
+                                       int n, int m, void* stream) {
+  return control<double>(si, sf, vec, hist, rho, n, m, stream);
 }
 
 // The direction kernel on a cluster of 8 CTAs, the pairs resident in their
@@ -1016,14 +1129,13 @@ extern "C" int pinns_lbfgs_control(void* si, void* sf, void* vec, void* hist, vo
 extern "C" int pinns_lbfgs_direction(void* si, void* sf, void* vec, const void* hist,
                                      const void* rho, int n, int m, int resident,
                                      int launch_only, void* stream) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = direction_smem(n, m, resident != 0);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const int per = (n + kThreads - 1) / kThreads;
-  const DirectionKernel kernel = resident ? direction_for<true>(per) : direction_for<false>(per);
-  return launch_cluster(kernel, smem - kStaticReserve, launch_only, stream,
-                        static_cast<int*>(si), static_cast<float*>(sf), static_cast<float*>(vec),
-                        static_cast<const float*>(hist), static_cast<const float*>(rho), n, m);
+  return direction<float>(si, sf, vec, hist, rho, n, m, resident, launch_only, stream);
+}
+
+extern "C" int pinns_lbfgs_direction_f64(void* si, void* sf, void* vec, const void* hist,
+                                         const void* rho, int n, int m, int resident,
+                                         int launch_only, void* stream) {
+  return direction<double>(si, sf, vec, hist, rho, n, m, resident, launch_only, stream);
 }
 
 extern "C" const char* pinns_lbfgs_error_string(int code) {

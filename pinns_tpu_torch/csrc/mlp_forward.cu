@@ -27,7 +27,9 @@
 // layer's output to a per-block global scratch, seeds the head with the
 // cotangent and goes back layer by layer in shared memory, adding its tiles
 // into its own row of partial gradients; reduce_kernel sums the rows in
-// block order, one thread per parameter.
+// block order, one thread per parameter. The float64 mode (`polish` on the
+// card: pinns_mlp_forward_f64, pinns_mlp_backward_f64) is this design
+// instantiated on double; the wide design stays float32.
 //
 // Wide (any wider net: burgers_scale's 8x200, the Euler trunk 2x200x5x3).
 // The whole call, layer by layer, as dense products over all its points on
@@ -88,109 +90,144 @@ namespace k5 {
 
 constexpr int kR = 4;              // points per thread item (one float4)
 constexpr int kFwdThreads = 640;   // forward block size bound
+constexpr int kFwdThreadsF64 = 256;  // the float64 mode's forward bound (double registers)
 constexpr int kBwdThreads = 256;   // backward block size
 
 // -- the narrow design --------------------------------------------------------
+// Every function of it is a template on the scalar type R: float for K5,
+// double for K5's float64 mode (`polish`'s data term and evaluation on the
+// card), the same arithmetic with __fma_rn and double tanh, 8-byte values in
+// the same layout (two double2 loads where float reads one float4).
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <typename R>
+struct NarrowBox {
+  R lb0, lb1, ub0, ub1;
+};
+
+// Four consecutive values (16-byte aligned: rows of tile + 4 values).
+template <typename R>
+__device__ __forceinline__ void ld4v(const R* p, R (&v)[kR]) {
+  if constexpr (sizeof(R) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    const double2 a = *reinterpret_cast<const double2*>(p);
+    const double2 b = *reinterpret_cast<const double2*>(p + 2);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
 }
 
-__device__ __forceinline__ void st4(float* p, const float (&v)[kR]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <typename R>
+__device__ __forceinline__ void st4(R* p, const R (&v)[kR]) {
+  if constexpr (sizeof(R) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+  }
 }
 
-__device__ __forceinline__ float get(const float4& v, int r) {
-  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
-}
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float tanh_of(float a) { return tanhf(a); }
+__device__ __forceinline__ double tanh_of(double a) { return tanh(a); }
 
 // Normalized (x, t) of the tile's points into rows 0 and 1 of buf; zero for
 // the slots past n.
-__device__ __forceinline__ void load_inputs(float* buf, int ts, const float* __restrict__ x,
-                                            int n, long long p0, int tile, const Box& box) {
-  const float rx = box.ub0 - box.lb0, rt = box.ub1 - box.lb1;
+template <typename R>
+__device__ __forceinline__ void load_inputs(R* buf, int ts, const R* __restrict__ x, int n,
+                                            long long p0, int tile, const NarrowBox<R>& box) {
+  const R rx = box.ub0 - box.lb0, rt = box.ub1 - box.lb1;
   for (int p = threadIdx.x; p < tile; p += blockDim.x) {
-    float xv = 0.0f, tv = 0.0f;
+    R xv = R(0), tv = R(0);
     if (p0 + p < n) {
       xv = x[2 * (p0 + p)];
       tv = x[2 * (p0 + p) + 1];
     }
-    buf[0 * ts + p] = 2.0f * (xv - box.lb0) / rx - 1.0f;
-    buf[1 * ts + p] = 2.0f * (tv - box.lb1) / rt - 1.0f;
+    buf[0 * ts + p] = R(2) * (xv - box.lb0) / rx - R(1);
+    buf[1 * ts + p] = R(2) * (tv - box.lb1) / rt - R(1);
   }
 }
 
 // a[r] = sum_k in[k][pc + r] W[k][j]: unit j of a dense layer at 4 points.
-__device__ __forceinline__ void dense4(const float* in, int ts, const float* __restrict__ W,
-                                       int din, int dout, int j, int pc, float (&a)[kR]) {
+template <typename R>
+__device__ __forceinline__ void dense4(const R* in, int ts, const R* __restrict__ W,
+                                       int din, int dout, int j, int pc, R (&a)[kR]) {
 #pragma unroll
-  for (int r = 0; r < kR; ++r) a[r] = 0.0f;
+  for (int r = 0; r < kR; ++r) a[r] = R(0);
 #pragma unroll 4
   for (int k = 0; k < din; ++k) {
-    const float w = __ldg(W + k * dout + j);
-    const float4 h = ld4(in + k * ts + pc);
-    a[0] = fmaf(h.x, w, a[0]);
-    a[1] = fmaf(h.y, w, a[1]);
-    a[2] = fmaf(h.z, w, a[2]);
-    a[3] = fmaf(h.w, w, a[3]);
+    const R w = __ldg(W + k * dout + j);
+    R h[kR];
+    ld4v(in + k * ts + pc, h);
+#pragma unroll
+    for (int r = 0; r < kR; ++r) a[r] = fma_of(h[r], w, a[r]);
   }
 }
 
 // The hidden layers of a tile whose inputs are in `in`, ping-ponging with
 // `out`. Writes each hidden layer's output to `store` ([layer][unit][tile])
 // when it is not null. Returns the buffer holding the last hidden output.
-__device__ float* hidden_forward(const Net& net, const float* __restrict__ params, float* in,
-                                 float* out, int tile, int ts, float* __restrict__ store) {
+template <typename R>
+__device__ R* hidden_forward(const Net& net, const R* __restrict__ params, R* in, R* out,
+                             int tile, int ts, R* __restrict__ store) {
   const int groups = tile / kR;
   for (int l = 0; l < net.n_layers - 1; ++l) {
     const int din = net.dims[l], dout = net.dims[l + 1];
-    const float* __restrict__ W = params + net.w_off[l];
-    const float* __restrict__ b = params + net.b_off[l];
+    const R* __restrict__ W = params + net.w_off[l];
+    const R* __restrict__ b = params + net.b_off[l];
     for (int item = threadIdx.x; item < groups * dout; item += blockDim.x) {
       const int g = item / dout;
       const int j = item - g * dout;
       const int pc = g * kR;
-      float a[kR];
+      R a[kR];
       dense4(in, ts, W, din, dout, j, pc, a);
-      const float bj = b[j];
-      float s[kR];
+      const R bj = b[j];
+      R s[kR];
 #pragma unroll
-      for (int r = 0; r < kR; ++r) s[r] = tanhf(a[r] + bj);
+      for (int r = 0; r < kR; ++r) s[r] = tanh_of(a[r] + bj);
       st4(out + j * ts + pc, s);
       if (store != nullptr) {
         st4(store + (static_cast<long long>(l) * net.max_width + j) * tile + pc, s);
       }
     }
     __syncthreads();
-    float* tmp = in;
+    R* tmp = in;
     in = out;
     out = tmp;
   }
   return in;
 }
 
-__global__ void __launch_bounds__(kFwdThreads)
-forward_kernel(const float* __restrict__ x, int n, const float* __restrict__ params, Net net,
-               Box box, int tile, float* __restrict__ u) {
+template <typename R>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kFwdThreads : kFwdThreadsF64)
+forward_kernel(const R* __restrict__ x, int n, const R* __restrict__ params, Net net,
+               NarrowBox<R> box, int tile, R* __restrict__ u) {
   extern __shared__ float4 smem4[];
-  float* bufA = reinterpret_cast<float*>(smem4);
+  R* bufA = reinterpret_cast<R*>(smem4);
   const int ts = tile + 4;  // row stride, padded against bank conflicts
-  float* bufB = bufA + net.max_width * ts;
+  R* bufB = bufA + net.max_width * ts;
   const long long p0 = static_cast<long long>(blockIdx.x) * tile;
   load_inputs(bufA, ts, x, n, p0, tile, box);
   __syncthreads();
-  const float* X = hidden_forward(net, params, bufA, bufB, tile, ts, nullptr);
+  const R* X = hidden_forward(net, params, bufA, bufB, tile, ts, static_cast<R*>(nullptr));
   const int l = net.n_layers - 1;
   const int din = net.dims[l], dout = net.dims[l + 1];
-  const float* __restrict__ W = params + net.w_off[l];
-  const float* __restrict__ b = params + net.b_off[l];
+  const R* __restrict__ W = params + net.w_off[l];
+  const R* __restrict__ b = params + net.b_off[l];
   for (int item = threadIdx.x; item < (tile / kR) * dout; item += blockDim.x) {
     const int g = item / dout;
     const int j = item - g * dout;
     const int pc = g * kR;
-    float a[kR];
+    R a[kR];
     dense4(X, ts, W, din, dout, j, pc, a);
-    const float bj = b[j];
+    const R bj = b[j];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const long long gp = p0 + pc + r;
@@ -199,21 +236,22 @@ forward_kernel(const float* __restrict__ x, int n, const float* __restrict__ par
   }
 }
 
+template <typename R>
 __global__ void __launch_bounds__(kBwdThreads)
-backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ params, Net net,
-                Box box, int tile, const float* __restrict__ gout, float* __restrict__ partials,
-                float* __restrict__ hstore) {
+backward_kernel(const R* __restrict__ x, int n, const R* __restrict__ params, Net net,
+                NarrowBox<R> box, int tile, const R* __restrict__ gout, R* __restrict__ partials,
+                R* __restrict__ hstore) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  R* smem = reinterpret_cast<R*>(smem4);
   const int T = tile, ts = T + 4;
   const int plane = net.max_width * ts;
-  float* X = smem;           // the input activations of the current layer
-  float* G0 = smem + plane;  // adjoints: this layer's, then the layer below's
-  float* Y0 = smem + 2 * plane;
+  R* X = smem;           // the input activations of the current layer
+  R* G0 = smem + plane;  // adjoints: this layer's, then the layer below's
+  R* Y0 = smem + 2 * plane;
   const int L = net.n_layers;
   const int d_head = net.dims[L];
-  float* store = hstore + static_cast<long long>(blockIdx.x) * (L - 1) * net.max_width * T;
-  float* part = partials + static_cast<long long>(blockIdx.x) * net.n_params;
+  R* store = hstore + static_cast<long long>(blockIdx.x) * (L - 1) * net.max_width * T;
+  R* part = partials + static_cast<long long>(blockIdx.x) * net.n_params;
   const int n_tiles = (n + T - 1) / T;
   const int groups = T / kR;
 
@@ -223,46 +261,45 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
     load_inputs(X, ts, x, n, p0, T, box);
     __syncthreads();
     hidden_forward(net, params, X, Y0, T, ts, store);
-    float* G = G0;
-    float* Y = Y0;
+    R* G = G0;
+    R* Y = Y0;
     for (int e = threadIdx.x; e < d_head * T; e += blockDim.x) {
       const int j = e / T, t = e - j * T;
-      G[j * ts + t] = p0 + t < n ? gout[(p0 + t) * d_head + j] : 0.0f;
+      G[j * ts + t] = p0 + t < n ? gout[(p0 + t) * d_head + j] : R(0);
     }
     for (int l = L - 1; l >= 0; --l) {
       const int din = net.dims[l], dout = net.dims[l + 1];
       if (l == 0) {
         load_inputs(X, ts, x, n, p0, T, box);
       } else {
-        const float* S = store + static_cast<long long>(l - 1) * net.max_width * T;
+        const R* S = store + static_cast<long long>(l - 1) * net.max_width * T;
         for (int e = threadIdx.x; e < din * T; e += blockDim.x) {
           const int k = e / T, t = e - k * T;
           X[k * ts + t] = S[k * T + t];
         }
       }
       __syncthreads();
-      const float* __restrict__ W = params + net.w_off[l];
+      const R* __restrict__ W = params + net.w_off[l];
       const int n_w = din * dout + dout;
       const int n_items = n_w + (l > 0 ? din * groups : 0);
       for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
         if (item < din * dout) {
           // dW[k][j] = sum_t X[k][t] G[j][t]
           const int k = item / dout, j = item - k * dout;
-          float acc = 0.0f;
+          R acc = R(0);
           for (int t = 0; t < T; t += kR) {
-            const float4 xv = ld4(X + k * ts + t);
-            const float4 gv = ld4(G + j * ts + t);
-            acc = fmaf(xv.x, gv.x, acc);
-            acc = fmaf(xv.y, gv.y, acc);
-            acc = fmaf(xv.z, gv.z, acc);
-            acc = fmaf(xv.w, gv.w, acc);
+            R xv[kR], gv[kR];
+            ld4v(X + k * ts + t, xv);
+            ld4v(G + j * ts + t, gv);
+#pragma unroll
+            for (int r = 0; r < kR; ++r) acc = fma_of(xv[r], gv[r], acc);
           }
           const int o = net.w_off[l] + item;
           part[o] = first ? acc : part[o] + acc;
         } else if (item < n_w) {
           // db[j] = sum_t G[j][t]
           const int j = item - din * dout;
-          float acc = 0.0f;
+          R acc = R(0);
           for (int t = 0; t < T; ++t) acc += G[j * ts + t];
           const int o = net.b_off[l] + j;
           part[o] = first ? acc : part[o] + acc;
@@ -271,25 +308,27 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
           const int e = item - n_w;
           const int g = e / din, k = e - g * din;
           const int pc = g * kR;
-          float gh[kR] = {0.f, 0.f, 0.f, 0.f};
+          R gh[kR] = {R(0), R(0), R(0), R(0)};
           for (int j = 0; j < dout; ++j) {
-            const float w = __ldg(W + k * dout + j);
-            const float4 gv = ld4(G + j * ts + pc);
+            const R w = __ldg(W + k * dout + j);
+            R gv[kR];
+            ld4v(G + j * ts + pc, gv);
 #pragma unroll
-            for (int r = 0; r < kR; ++r) gh[r] = fmaf(get(gv, r), w, gh[r]);
+            for (int r = 0; r < kR; ++r) gh[r] = fma_of(gv[r], w, gh[r]);
           }
-          const float4 xv = ld4(X + k * ts + pc);
-          float o[kR];
+          R xv[kR];
+          ld4v(X + k * ts + pc, xv);
+          R o[kR];
 #pragma unroll
           for (int r = 0; r < kR; ++r) {
-            const float s = get(xv, r);
-            o[r] = (1.0f - s * s) * gh[r];
+            const R s = xv[r];
+            o[r] = (R(1) - s * s) * gh[r];
           }
           st4(Y + k * ts + pc, o);
         }
       }
       __syncthreads();
-      float* tmp = G;
+      R* tmp = G;
       G = Y;
       Y = tmp;
     }
@@ -297,20 +336,73 @@ backward_kernel(const float* __restrict__ x, int n, const float* __restrict__ pa
 }
 
 // One thread per parameter: the partial rows summed in block order.
-__global__ void reduce_kernel(const float* __restrict__ partials, int rows, int n_params,
-                              float* __restrict__ grad) {
+template <typename R>
+__global__ void reduce_kernel(const R* __restrict__ partials, int rows, int n_params,
+                              R* __restrict__ grad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_params) return;
-  float s = 0.0f;
+  R s = R(0);
   for (int b = 0; b < rows; ++b) s += partials[static_cast<long long>(b) * n_params + i];
   grad[i] = s;
 }
 
-// Dynamic shared memory: `buffers` x max_width rows x (tile + 4) floats
-// (ops/kernels/mlp_forward.py::smem_bytes).
-size_t smem_bytes(int buffers, int max_width, int tile) {
-  return sizeof(float) * static_cast<size_t>(buffers) * static_cast<size_t>(max_width) *
+// Dynamic shared memory: `buffers` x max_width rows x (tile + 4) values of
+// `item` bytes (ops/kernels/mlp_forward.py::smem_bytes).
+size_t smem_bytes(int buffers, int max_width, int tile, size_t item = sizeof(float)) {
+  return item * static_cast<size_t>(buffers) * static_cast<size_t>(max_width) *
          static_cast<size_t>(tile + 4);
+}
+
+// The narrow forward's launch on R (float: pinns_mlp_forward; double:
+// pinns_mlp_forward_f64).
+template <typename R>
+int narrow_forward(const R* x, int n, const R* params, const int* dims, int n_layers, R lb0,
+                   R lb1, R ub0, R ub1, int tile, int threads, R* u, int device, void* stream) {
+  const int max_threads = sizeof(R) == 4 ? kFwdThreads : kFwdThreadsF64;
+  Net net;
+  if (n < 0 || !make_net(dims, n_layers, &net) || tile < kR || tile % kR != 0 ||
+      threads < 32 || threads > max_threads || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes(2, net.max_width, tile, sizeof(R));
+  err = cudaFuncSetAttribute(forward_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const NarrowBox<R> box{lb0, lb1, ub0, ub1};
+  const unsigned blocks = static_cast<unsigned>((n + tile - 1) / tile);
+  forward_kernel<R><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, n, params, net, box, tile, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The narrow backward's launches on R (float: pinns_mlp_backward; double:
+// pinns_mlp_backward_f64).
+template <typename R>
+int narrow_backward(const R* x, int n, const R* params, const int* dims, int n_layers, R lb0,
+                    R lb1, R ub0, R ub1, int tile, int grid, const R* gout, R* partials,
+                    R* hstore, R* grad, int device, void* stream) {
+  Net net;
+  if (n < 1 || !make_net(dims, n_layers, &net) || tile < kR || tile % kR != 0 || grid < 1 ||
+      grid > (n + tile - 1) / tile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes(3, net.max_width, tile, sizeof(R));
+  err = cudaFuncSetAttribute(backward_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const NarrowBox<R> box{lb0, lb1, ub0, ub1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  backward_kernel<R><<<grid, kBwdThreads, smem, s>>>(x, n, params, net, box, tile, gout,
+                                                     partials, hstore);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_kernel<R><<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, grid, net.n_params, grad);
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -563,23 +655,8 @@ using namespace k5;
 extern "C" int pinns_mlp_forward(const float* x, int n, const float* params, const int* dims,
                                  int n_layers, float lb0, float lb1, float ub0, float ub1,
                                  int tile, int threads, float* u, int device, void* stream) {
-  Net net;
-  if (n < 0 || !make_net(dims, n_layers, &net) || tile < kR || tile % kR != 0 ||
-      threads < 32 || threads > kFwdThreads || threads % 32 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(2, net.max_width, tile);
-  err = cudaFuncSetAttribute(forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const Box box{lb0, lb1, ub0, ub1};
-  const unsigned blocks = static_cast<unsigned>((n + tile - 1) / tile);
-  forward_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, n, params, net, box, tile, u);
-  return static_cast<int>(cudaGetLastError());
+  return narrow_forward<float>(x, n, params, dims, n_layers, lb0, lb1, ub0, ub1, tile, threads, u,
+                               device, stream);
 }
 
 // grad (flat, params order) = d/dparams of sum over points of gout . u, on
@@ -590,25 +667,28 @@ extern "C" int pinns_mlp_backward(const float* x, int n, const float* params, co
                                   int n_layers, float lb0, float lb1, float ub0, float ub1,
                                   int tile, int grid, const float* gout, float* partials,
                                   float* hstore, float* grad, int device, void* stream) {
-  Net net;
-  if (n < 1 || !make_net(dims, n_layers, &net) || tile < kR || tile % kR != 0 || grid < 1 ||
-      grid > (n + tile - 1) / tile) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(3, net.max_width, tile);
-  err = cudaFuncSetAttribute(backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Box box{lb0, lb1, ub0, ub1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  backward_kernel<<<grid, kBwdThreads, smem, s>>>(x, n, params, net, box, tile, gout, partials,
-                                                  hstore);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(partials, grid, net.n_params, grad);
-  return static_cast<int>(cudaGetLastError());
+  return narrow_backward<float>(x, n, params, dims, n_layers, lb0, lb1, ub0, ub1, tile, grid,
+                                gout, partials, hstore, grad, device, stream);
+}
+
+// K5's float64 mode, the narrow design in double (arguments as the float32
+// entry points, every pointer and the box in double; the forward's threads
+// at most kFwdThreadsF64).
+extern "C" int pinns_mlp_forward_f64(const double* x, int n, const double* params,
+                                     const int* dims, int n_layers, double lb0, double lb1,
+                                     double ub0, double ub1, int tile, int threads, double* u,
+                                     int device, void* stream) {
+  return narrow_forward<double>(x, n, params, dims, n_layers, lb0, lb1, ub0, ub1, tile, threads,
+                                u, device, stream);
+}
+
+extern "C" int pinns_mlp_backward_f64(const double* x, int n, const double* params,
+                                      const int* dims, int n_layers, double lb0, double lb1,
+                                      double ub0, double ub1, int tile, int grid,
+                                      const double* gout, double* partials, double* hstore,
+                                      double* grad, int device, void* stream) {
+  return narrow_backward<double>(x, n, params, dims, n_layers, lb0, lb1, ub0, ub1, tile, grid,
+                                 gout, partials, hstore, grad, device, stream);
 }
 
 // The wide design's forward: u = MLP(x), (n, dims[n_layers]), on `stream`.

@@ -74,6 +74,14 @@
 // each per k ([stream][unit][point] in shared memory, ping-ponged between two
 // buffers), 16 FMAs per weight read from L2; up to 128 points a block.
 //
+// K1's float64 mode (pinns_taylor2_forward_f64: `polish`'s residual on the
+// card) is the narrow design instantiated on double: the same layout with
+// 8-byte values (two double2 loads a stream), __fma_rn and double tanh, at
+// most kMaxThreadsF64 threads a block. The H100 runs double at 34 TFLOP/s
+// outside the tensor cores, half its fp32 rate; at 8x20 the launch and the
+// per-layer barriers still dominate. The tiled design, Fourier features,
+// shock paths, the member axis and the mixed policy stay float32.
+//
 // What bounds it on the H100: at width 200 the operations. A point costs
 // 4 streams x 2 x 280,600 MACs = 2.245 MFLOP, so one 8,192-point microbatch
 // of burgers_scale takes 274 us at the 67 TFLOP/s fp32 rate (no tensor cores
@@ -134,19 +142,55 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 constexpr int kNarrowWidth = 32;
 constexpr int kR = 4;  // points per thread (one float4 per stream)
 constexpr int kMaxThreads = 640;  // leaves ptxas 102 registers a thread: no spills
+constexpr int kMaxThreadsF64 = 256;  // the float64 mode's bound: double streams, no spills
 
-__device__ __forceinline__ void st4(float* p, const float (&v)[kR]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+// Four consecutive values of a stream: one float4, or two double2 in the
+// float64 mode (rows of tile + 4 values keep both 16-byte aligned).
+template <typename R>
+__device__ __forceinline__ void ld4(const R* p, R (&v)[kR]) {
+  if constexpr (sizeof(R) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    const double2 a = *reinterpret_cast<const double2*>(p);
+    const double2 b = *reinterpret_cast<const double2*>(p + 2);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
 }
 
-template <bool kMixed>
-__global__ void __launch_bounds__(kMaxThreads)
-narrow_kernel(const float* __restrict__ x, int n,
-              const float* __restrict__ params, Net net, Policy q,
-              float lb0, float lb1, float ub0, float ub1, int tile,
-              float* __restrict__ u, float* __restrict__ ux,
-              float* __restrict__ ut, float* __restrict__ uxx,
+template <typename R>
+__device__ __forceinline__ void st4(R* p, const R (&v)[kR]) {
+  if constexpr (sizeof(R) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+  }
+}
+
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float tanh_of(float a) { return tanhf(a); }
+__device__ __forceinline__ double tanh_of(double a) { return tanh(a); }
+
+// R float: K1 (K6 with kMixed); R double: K1's float64 mode (polish), the
+// same arithmetic in double (fused multiply-adds __fma_rn, double tanh), the
+// streams' buffers twice as wide, at most kMaxThreadsF64 threads a block.
+template <typename R, bool kMixed>
+__global__ void __launch_bounds__(sizeof(R) == 4 ? kMaxThreads : kMaxThreadsF64)
+narrow_kernel(const R* __restrict__ x, int n,
+              const R* __restrict__ params, Net net, Policy q,
+              R lb0, R lb1, R ub0, R ub1, int tile,
+              R* __restrict__ u, R* __restrict__ ux,
+              R* __restrict__ ut, R* __restrict__ uxx,
               long long param_stride, long long out_stride) {
+  static_assert(sizeof(R) == 4 || !kMixed, "the stream policy is float32's");
   // member blockIdx.y: its weights at m param_stride, its streams at m out_stride
   params += blockIdx.y * param_stride;
   u += blockIdx.y * out_stride;
@@ -154,69 +198,70 @@ narrow_kernel(const float* __restrict__ x, int n,
   ut += blockIdx.y * out_stride;
   uxx += blockIdx.y * out_stride;
   extern __shared__ float4 smem4[];
-  float* in = reinterpret_cast<float*>(smem4);
+  R* in = reinterpret_cast<R*>(smem4);
   const int ts = tile + 4;              // row stride, padded against bank conflicts
   const int plane = net.max_width * ts;  // one stream of one buffer
-  float* out = in + 4 * plane;
+  R* out = in + 4 * plane;
   const long long p0 = static_cast<long long>(blockIdx.x) * tile;
 
   // Initial streams, generated from the raw points and four scalars.
-  const float rx = ub0 - lb0, rt = ub1 - lb1;
-  const float sx = 2.0f / rx, st = 2.0f / rt;
+  const R rx = ub0 - lb0, rt = ub1 - lb1;
+  const R sx = R(2) / rx, st = R(2) / rt;
   for (int p = threadIdx.x; p < tile; p += blockDim.x) {
-    float xv = 0.0f, tv = 0.0f;
+    R xv = R(0), tv = R(0);
     if (p0 + p < n) {
       xv = x[2 * (p0 + p)];
       tv = x[2 * (p0 + p) + 1];
     }
-    in[0 * plane + 0 * ts + p] = 2.0f * (xv - lb0) / rx - 1.0f;
-    in[0 * plane + 1 * ts + p] = 2.0f * (tv - lb1) / rt - 1.0f;
+    in[0 * plane + 0 * ts + p] = R(2) * (xv - lb0) / rx - R(1);
+    in[0 * plane + 1 * ts + p] = R(2) * (tv - lb1) / rt - R(1);
     in[1 * plane + 0 * ts + p] = sx;
-    in[1 * plane + 1 * ts + p] = 0.0f;
-    in[2 * plane + 0 * ts + p] = 0.0f;
+    in[1 * plane + 1 * ts + p] = R(0);
+    in[2 * plane + 0 * ts + p] = R(0);
     in[2 * plane + 1 * ts + p] = st;
-    in[3 * plane + 0 * ts + p] = 0.0f;
-    in[3 * plane + 1 * ts + p] = 0.0f;
+    in[3 * plane + 0 * ts + p] = R(0);
+    in[3 * plane + 1 * ts + p] = R(0);
   }
   __syncthreads();
 
   const int groups = tile / kR;
   for (int l = 0; l < net.n_layers; ++l) {
     const int din = net.dims[l], dout = net.dims[l + 1];
-    const float* __restrict__ W = params + net.w_off[l];
-    const float* __restrict__ b = params + net.b_off[l];
+    const R* __restrict__ W = params + net.w_off[l];
+    const R* __restrict__ b = params + net.b_off[l];
     const bool head = l == net.n_layers - 1;
     const LayerQ lq(q, l);  // K6: layer 0 takes float32 weights and rounds nothing
     for (int item = threadIdx.x; item < groups * dout; item += blockDim.x) {
       const int g = item / dout;
       const int j = item - g * dout;
       const int pc = g * kR;
-      float a[kR] = {0.f, 0.f, 0.f, 0.f}, ax[kR] = {0.f, 0.f, 0.f, 0.f};
-      float at[kR] = {0.f, 0.f, 0.f, 0.f}, axx[kR] = {0.f, 0.f, 0.f, 0.f};
+      R a[kR] = {R(0), R(0), R(0), R(0)}, ax[kR] = {R(0), R(0), R(0), R(0)};
+      R at[kR] = {R(0), R(0), R(0), R(0)}, axx[kR] = {R(0), R(0), R(0), R(0)};
 #pragma unroll 4
       for (int k = 0; k < din; ++k) {
-        const float w = __ldg(W + static_cast<long long>(k) * dout + j);
-        float w0 = w, w1 = w, w3 = w;  // the weights of the value, x/t and xx dots
+        const R w = __ldg(W + static_cast<long long>(k) * dout + j);
+        R w0 = w, w1 = w, w3 = w;  // the weights of the value, x/t and xx dots
         if constexpr (kMixed) {
           const float wb = bf16r(w);
           w0 = lq.wv ? wb : w;
           w1 = lq.wd ? wb : w;
           w3 = lq.wxx ? wb : w;
         }
-        const float4 h = ld4(in + 0 * plane + k * ts + pc);
-        const float4 hx = ld4(in + 1 * plane + k * ts + pc);
-        const float4 ht = ld4(in + 2 * plane + k * ts + pc);
-        const float4 hxx = ld4(in + 3 * plane + k * ts + pc);
-        a[0] = fmaf(h.x, w0, a[0]);     a[1] = fmaf(h.y, w0, a[1]);
-        a[2] = fmaf(h.z, w0, a[2]);     a[3] = fmaf(h.w, w0, a[3]);
-        ax[0] = fmaf(hx.x, w1, ax[0]);  ax[1] = fmaf(hx.y, w1, ax[1]);
-        ax[2] = fmaf(hx.z, w1, ax[2]);  ax[3] = fmaf(hx.w, w1, ax[3]);
-        at[0] = fmaf(ht.x, w1, at[0]);  at[1] = fmaf(ht.y, w1, at[1]);
-        at[2] = fmaf(ht.z, w1, at[2]);  at[3] = fmaf(ht.w, w1, at[3]);
-        axx[0] = fmaf(hxx.x, w3, axx[0]);  axx[1] = fmaf(hxx.y, w3, axx[1]);
-        axx[2] = fmaf(hxx.z, w3, axx[2]);  axx[3] = fmaf(hxx.w, w3, axx[3]);
+        R h[kR], hx[kR], ht[kR], hxx[kR];
+        ld4(in + 0 * plane + k * ts + pc, h);
+        ld4(in + 1 * plane + k * ts + pc, hx);
+        ld4(in + 2 * plane + k * ts + pc, ht);
+        ld4(in + 3 * plane + k * ts + pc, hxx);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) a[r] = fma_of(h[r], w0, a[r]);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) ax[r] = fma_of(hx[r], w1, ax[r]);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) at[r] = fma_of(ht[r], w1, at[r]);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) axx[r] = fma_of(hxx[r], w3, axx[r]);
       }
-      const float bj = b[j];
+      const R bj = b[j];
       if (head) {
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
@@ -230,17 +275,25 @@ narrow_kernel(const float* __restrict__ x, int n,
           }
         }
       } else {
-        float s[kR], sxo[kR], sto[kR], sxxo[kR];
+        R s[kR], sxo[kR], sto[kR], sxxo[kR];
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
           if constexpr (kMixed) {
             float t, d1, d2;
             policy_act(rq(__fadd_rn(a[r], bj), lq.tv), rq(ax[r], lq.td), rq(at[r], lq.td),
                        rq(axx[r], lq.txx), lq, q, t, d1, d2, s[r], sxo[r], sto[r], sxxo[r]);
-          } else {
+          } else if constexpr (sizeof(R) == 4) {
             const float t = tanhf(a[r] + bj);
             const float d1 = 1.0f - t * t;
             const float d2 = -2.0f * t * d1;
+            s[r] = t;
+            sxo[r] = d1 * ax[r];
+            sto[r] = d1 * at[r];
+            sxxo[r] = d2 * ax[r] * ax[r] + d1 * axx[r];
+          } else {  // the float64 mode: the plain recurrence's operations in double
+            const double t = tanh_of(a[r] + bj);
+            const double d1 = 1.0 - t * t;
+            const double d2 = -2.0 * t * d1;
             s[r] = t;
             sxo[r] = d1 * ax[r];
             sto[r] = d1 * at[r];
@@ -254,17 +307,17 @@ narrow_kernel(const float* __restrict__ x, int n,
       }
     }
     __syncthreads();
-    float* tmp = in;
+    R* tmp = in;
     in = out;
     out = tmp;
   }
 }
 
 // Dynamic shared memory of a narrow block: two buffers x four streams x
-// max_width rows x (tile + 4) floats.
-size_t narrow_smem_bytes(int max_width, int tile) {
-  return sizeof(float) * 2u * 4u * static_cast<size_t>(max_width) *
-         static_cast<size_t>(tile + 4);
+// max_width rows x (tile + 4) values of `item` bytes (4, or 8 in the
+// float64 mode).
+size_t narrow_smem_bytes(int max_width, int tile, size_t item = sizeof(float)) {
+  return item * 2u * 4u * static_cast<size_t>(max_width) * static_cast<size_t>(tile + 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -664,12 +717,12 @@ int launch(const float* x, int n, const float* params, int members, long long pa
     }
     net.max_width = widest;
     const size_t smem = narrow_smem_bytes(widest, tile);
-    err = cudaFuncSetAttribute(narrow_kernel<kMixed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    err = cudaFuncSetAttribute(narrow_kernel<float, kMixed>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n == 0) return static_cast<int>(cudaSuccess);
     const dim3 blocks(static_cast<unsigned>((n + tile - 1) / tile), static_cast<unsigned>(members));
-    narrow_kernel<kMixed><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+    narrow_kernel<float, kMixed><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         x, n, params, net, q, lb0, lb1, ub0, ub1, tile, u, ux, ut, uxx, param_stride, out_stride);
     return static_cast<int>(cudaGetLastError());
   }
@@ -707,7 +760,62 @@ int launch(const float* x, int n, const float* params, int members, long long pa
   }
 }
 
+// K1's float64 mode: the narrow design on double points, params and streams
+// (`polish` on the card). Every width <= kNarrowWidth, no features, no
+// member axis; `tile` a multiple of kR and `threads` a multiple of 32 up to
+// kMaxThreadsF64 (ops/kernels/taylor2.py::launch_config(..., float64)).
+int launch_f64(const double* x, int n, const double* params, const int* dims, int n_layers,
+               double lb0, double lb1, double ub0, double ub1, int tile, int threads, double* u,
+               double* ux, double* ut, double* uxx, int device, void* stream) {
+  if (n < 0 || n_layers < 1 || n_layers > kMaxLayers || dims[0] != 2 || tile < kR ||
+      tile % kR != 0 || threads < 32 || threads > kMaxThreadsF64 || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Net net;
+  net.n_layers = n_layers;
+  net.vec_mask = 0;
+  int widest = 0;
+  long long off = 0;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1 || dims[l] > kNarrowWidth) return static_cast<int>(cudaErrorInvalidValue);
+    net.dims[l] = dims[l];
+    if (dims[l] > widest) widest = dims[l];
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    net.w_off[l] = off;
+    off += static_cast<long long>(dims[l]) * dims[l + 1];
+    net.b_off[l] = off;
+    off += dims[l + 1];
+  }
+  net.n_params = off;
+  net.max_width = widest;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = narrow_smem_bytes(widest, tile, sizeof(double));
+  err = cudaFuncSetAttribute(narrow_kernel<double, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const dim3 blocks(static_cast<unsigned>((n + tile - 1) / tile), 1u);
+  narrow_kernel<double, false><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, n, params, net, Policy{false, false, false, false}, lb0, lb1, ub0, ub1, tile, u, ux, ut,
+      uxx, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K1's float64 mode on `stream` (arguments as launch_f64): x (n, 2), params
+// and the four outputs (n, dims[n_layers]) float64, contiguous, on device
+// `device`.
+extern "C" int pinns_taylor2_forward_f64(const double* x, int n, const double* params,
+                                         const int* dims, int n_layers, double lb0, double lb1,
+                                         double ub0, double ub1, int tile, int threads,
+                                         double* u, double* ux, double* ut, double* uxx,
+                                         int device, void* stream) {
+  return launch_f64(x, n, params, dims, n_layers, lb0, lb1, ub0, ub1, tile, threads, u, ux, ut,
+                    uxx, device, stream);
+}
 
 // K1: the fused pass in float32 on `stream` (arguments as `launch`);
 // `fourier` (host memory) holds the n_fourier frequencies 2 pi B[:, 0], then

@@ -505,6 +505,267 @@ extern "C" int pinns_taylor2_mixed_backward(const float* x, int n, const float* 
                       splits, gu, gux, gut, guxx, scratch, scratch_floats, grad, device, stream);
 }
 
+// ---------------------------------------------------------------------------
+// K2's float64 mode (pinns_taylor2_backward_f64: `polish`'s residual on the
+// card), every width <= kF64Width, no features. A simple design of its own,
+// not the product engine above: block b walks the tiles of kF64Tile points
+// b, b + grid, ... Per tile, the four input streams and every layer's
+// working streams stay in shared memory (three buffers of 4 x max_width x
+// kF64Tile doubles, [stream][unit][point]); the forward runs the hidden
+// layers (a thread a (unit, point): the four dots in __fma_rn, the bias
+// added after, the tanh rule) and keeps each layer's pre-activation
+// streams in the block's global scratch (L2); the backward seeds the head
+// with the cotangents and goes back layer by layer: dW[k][j] = sum over
+// streams, then points, of H_s[k][t] G_s[j][t], db[j] = sum over points of
+// G_value[j][t], added into the block's row of partials (tile after tile in
+// walk order), and the adjoints of the layer below from gH_s = G_s W^T and
+// the stored pre-activations (the formulas at the head of this file; s, s',
+// s'' recomputed from p by the forward's own code, so they are its bits).
+// A second launch sums the partial rows in block order, a thread a
+// parameter. No atomics: two calls agree bit for bit. Its plain version is
+// ops/kernels/taylor2.py::taylor2_backward_reference in float64.
+namespace k2d {
+
+constexpr int kF64Width = 32;
+constexpr int kF64Tile = 32;
+constexpr int kF64Threads = 256;
+constexpr int kF64MaxLayers = 32;
+
+struct NetF64 {
+  int n_layers;
+  int max_width;
+  int dims[kF64MaxLayers + 1];
+  long long w_off[kF64MaxLayers];
+  long long b_off[kF64MaxLayers];
+  long long n_params;
+};
+
+// The tanh rule of one unit at one point: the output streams from the
+// pre-activation streams.
+__device__ __forceinline__ void act(double p, double px, double pt, double pxx, double* s,
+                                    double* sx, double* st, double* sxx) {
+  const double t = tanh(p);
+  const double d1 = 1.0 - t * t;
+  const double d2 = -2.0 * t * d1;
+  *s = t;
+  *sx = d1 * px;
+  *st = d1 * pt;
+  *sxx = d2 * px * px + d1 * pxx;
+}
+
+// The input streams of the tile's points into X ([stream][row][point]);
+// zero past n.
+__device__ __forceinline__ void load_inputs(double* X, int plane, const double* __restrict__ x,
+                                            int n, long long p0, double lb0, double lb1,
+                                            double ub0, double ub1) {
+  const double rx = ub0 - lb0, rt = ub1 - lb1;
+  for (int p = threadIdx.x; p < kF64Tile; p += blockDim.x) {
+    double xv = 0.0, tv = 0.0;
+    if (p0 + p < n) {
+      xv = x[2 * (p0 + p)];
+      tv = x[2 * (p0 + p) + 1];
+    }
+    X[0 * kF64Tile + p] = 2.0 * (xv - lb0) / rx - 1.0;
+    X[1 * kF64Tile + p] = 2.0 * (tv - lb1) / rt - 1.0;
+    X[plane + 0 * kF64Tile + p] = 2.0 / rx;
+    X[plane + 1 * kF64Tile + p] = 0.0;
+    X[2 * plane + 0 * kF64Tile + p] = 0.0;
+    X[2 * plane + 1 * kF64Tile + p] = 2.0 / rt;
+    X[3 * plane + 0 * kF64Tile + p] = 0.0;
+    X[3 * plane + 1 * kF64Tile + p] = 0.0;
+  }
+}
+
+__global__ void __launch_bounds__(kF64Threads)
+backward_kernel(const double* __restrict__ x, int n, const double* __restrict__ params,
+                NetF64 net, double lb0, double lb1, double ub0, double ub1,
+                const double* __restrict__ gu, const double* __restrict__ gux,
+                const double* __restrict__ gut, const double* __restrict__ guxx,
+                double* __restrict__ partials, double* __restrict__ pstore) {
+  extern __shared__ double2 smem2[];
+  const int plane = net.max_width * kF64Tile;  // one stream of one buffer
+  double* X = reinterpret_cast<double*>(smem2);
+  double* G = X + 4 * plane;
+  double* Y = G + 4 * plane;
+  const int L = net.n_layers;
+  const int d_head = net.dims[L];
+  const long long layer_size = 4LL * plane;  // one layer's pre-activation streams
+  double* P = pstore + static_cast<long long>(blockIdx.x) * (L - 1) * layer_size;
+  double* part = partials + static_cast<long long>(blockIdx.x) * net.n_params;
+  const double* gs[4] = {gu, gux, gut, guxx};
+  const int n_tiles = (n + kF64Tile - 1) / kF64Tile;
+
+  for (int tix = blockIdx.x; tix < n_tiles; tix += gridDim.x) {
+    const bool first = tix == static_cast<int>(blockIdx.x);
+    const long long p0 = static_cast<long long>(tix) * kF64Tile;
+    load_inputs(X, plane, x, n, p0, lb0, lb1, ub0, ub1);
+    __syncthreads();
+    // the forward over the hidden layers: X holds layer l's input streams
+    for (int l = 0; l < L - 1; ++l) {
+      const int din = net.dims[l], dout = net.dims[l + 1];
+      const double* __restrict__ W = params + net.w_off[l];
+      const double* __restrict__ b = params + net.b_off[l];
+      double* Pl = P + l * layer_size;
+      for (int item = threadIdx.x; item < dout * kF64Tile; item += blockDim.x) {
+        const int j = item / kF64Tile, t = item - j * kF64Tile;
+        double a[4] = {0.0, 0.0, 0.0, 0.0};
+        for (int k = 0; k < din; ++k) {
+          const double w = __ldg(W + static_cast<long long>(k) * dout + j);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) a[s] = __fma_rn(X[s * plane + k * kF64Tile + t], w, a[s]);
+        }
+        a[0] = a[0] + b[j];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) Pl[s * plane + j * kF64Tile + t] = a[s];
+        const int o = j * kF64Tile + t;
+        act(a[0], a[1], a[2], a[3], Y + o, Y + plane + o, Y + 2 * plane + o, Y + 3 * plane + o);
+      }
+      __syncthreads();
+      double* tmp = X;
+      X = Y;
+      Y = tmp;
+    }
+    // the head's adjoints: the cotangents (zero past n)
+    for (int e = threadIdx.x; e < d_head * kF64Tile; e += blockDim.x) {
+      const int j = e / kF64Tile, t = e - j * kF64Tile;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        G[s * plane + j * kF64Tile + t] = p0 + t < n ? gs[s][(p0 + t) * d_head + j] : 0.0;
+      }
+    }
+    for (int l = L - 1; l >= 0; --l) {
+      const int din = net.dims[l], dout = net.dims[l + 1];
+      if (l < L - 1) {  // X: layer l's input streams, again
+        if (l == 0) {
+          load_inputs(X, plane, x, n, p0, lb0, lb1, ub0, ub1);
+        } else {
+          const double* Pb = P + (l - 1) * layer_size;
+          for (int e = threadIdx.x; e < din * kF64Tile; e += blockDim.x) {
+            act(Pb[e], Pb[plane + e], Pb[2 * plane + e], Pb[3 * plane + e], X + e, X + plane + e,
+                X + 2 * plane + e, X + 3 * plane + e);
+          }
+        }
+      }
+      __syncthreads();
+      const double* __restrict__ W = params + net.w_off[l];
+      const int n_w = din * dout + dout;
+      const int n_items = n_w + (l > 0 ? din * kF64Tile : 0);
+      const double* Pb = l > 0 ? P + (l - 1) * layer_size : nullptr;
+      for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
+        if (item < din * dout) {  // dW[k][j]: the streams in turn, each over the points
+          const int k = item / dout, j = item - k * dout;
+          double acc = 0.0;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const double* xs = X + s * plane + k * kF64Tile;
+            const double* g = G + s * plane + j * kF64Tile;
+            for (int t = 0; t < kF64Tile; ++t) acc = __fma_rn(xs[t], g[t], acc);
+          }
+          const long long o = net.w_off[l] + item;
+          part[o] = first ? acc : part[o] + acc;
+        } else if (item < n_w) {  // db[j]: the value stream over the points
+          const int j = item - din * dout;
+          double acc = 0.0;
+          for (int t = 0; t < kF64Tile; ++t) acc += G[j * kF64Tile + t];
+          const long long o = net.b_off[l] + j;
+          part[o] = first ? acc : part[o] + acc;
+        } else {  // the adjoints of layer l-1's pre-activation streams at (k, t)
+          const int e = item - n_w;
+          const int k = e / kF64Tile, t = e - k * kF64Tile;
+          double gh[4] = {0.0, 0.0, 0.0, 0.0};
+          for (int j = 0; j < dout; ++j) {
+            const double w = __ldg(W + static_cast<long long>(k) * dout + j);
+#pragma unroll
+            for (int s = 0; s < 4; ++s) gh[s] = __fma_rn(G[s * plane + j * kF64Tile + t], w, gh[s]);
+          }
+          const int o = k * kF64Tile + t;
+          const double px = Pb[plane + o], pt = Pb[2 * plane + o], pxx = Pb[3 * plane + o];
+          const double sv = X[o];  // tanh of the pre-activation: the layer's input value
+          const double d1 = 1.0 - sv * sv;
+          const double d2 = -2.0 * sv * d1;
+          Y[3 * plane + o] = gh[3] * d1;
+          Y[plane + o] = gh[1] * d1 + 2.0 * gh[3] * d2 * px;
+          Y[2 * plane + o] = gh[2] * d1;
+          Y[o] = d1 * (gh[0] - 2.0 * sv * (gh[1] * px + gh[2] * pt + gh[3] * pxx) +
+                       (6.0 * sv * sv - 2.0) * gh[3] * px * px);
+        }
+      }
+      __syncthreads();
+      double* tmp = G;
+      G = Y;
+      Y = tmp;
+    }
+  }
+}
+
+// One thread per parameter: the partial rows summed in block order.
+__global__ void reduce_kernel(const double* __restrict__ partials, int rows, long long n_params,
+                              double* __restrict__ grad) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_params) return;
+  double s = 0.0;
+  for (int b = 0; b < rows; ++b) s += partials[static_cast<long long>(b) * n_params + i];
+  grad[i] = s;
+}
+
+size_t smem_bytes(int max_width) {
+  return sizeof(double) * 3u * 4u * static_cast<size_t>(max_width) * kF64Tile;
+}
+
+}  // namespace k2d
+
 extern "C" const char* pinns_taylor2_backward_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// K2's float64 mode on `stream`: grad (flat, pack_params order, float64) of
+// sum over points and streams of the cotangents (gu, gux, gut, guxx: (n,
+// dims[n_layers]) float64) dotted with (u, u_x, u_t, u_xx) of the float64
+// net. `grid` blocks (1 <= grid <= the tiles of kF64Tile points); scratch:
+// `partials` (grid x n_params) and `pstore` (grid x (n_layers - 1) x 4 x
+// max_width x kF64Tile) doubles (ops/kernels/taylor2.py::f64_backward_plan).
+// Every width <= kF64Width. Returns the CUDA error code of the launches (0
+// on success).
+extern "C" int pinns_taylor2_backward_f64(const double* x, int n, const double* params,
+                                          const int* dims, int n_layers, double lb0, double lb1,
+                                          double ub0, double ub1, int grid, const double* gu,
+                                          const double* gux, const double* gut,
+                                          const double* guxx, double* partials, double* pstore,
+                                          double* grad, int device, void* stream) {
+  using namespace k2d;
+  if (n < 1 || n_layers < 1 || n_layers > kF64MaxLayers || dims[0] != 2 || grid < 1 ||
+      grid > (n + kF64Tile - 1) / kF64Tile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  NetF64 net;
+  net.n_layers = n_layers;
+  int widest = 0;
+  long long off = 0;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (dims[l] < 1 || dims[l] > kF64Width) return static_cast<int>(cudaErrorInvalidValue);
+    net.dims[l] = dims[l];
+    if (dims[l] > widest) widest = dims[l];
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    net.w_off[l] = off;
+    off += static_cast<long long>(dims[l]) * dims[l + 1];
+    net.b_off[l] = off;
+    off += dims[l + 1];
+  }
+  net.n_params = off;
+  net.max_width = widest;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k2d::smem_bytes(widest);
+  err = cudaFuncSetAttribute(k2d::backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  k2d::backward_kernel<<<grid, kF64Threads, smem, st>>>(x, n, params, net, lb0, lb1, ub0, ub1,
+                                                        gu, gux, gut, guxx, partials, pstore);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k2d::reduce_kernel<<<static_cast<unsigned>((off + 255) / 256), 256, 0, st>>>(partials, grid,
+                                                                                 off, grad);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -150,7 +150,9 @@ def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
         (lo.admm_form != "strong", "the weak-form ADMM residual"),
         (lo.entropy_weight > 0.0 or lo.grad_weight_kappa != 0.0 or lo.causal_eps > 0.0,
          "entropy, gradient or causal weighting"),
-        (spec.dtype != torch.float32 or spec.mixed, "a dtype other than float32"),
+        (spec.dtype != torch.float32 or spec.mixed,
+         "a dtype other than float32 (K3's float64 mode is left to a later slice: ROADMAP "
+         "queue 2)"),
         (spec.n_paths > 0 or spec.fourier,
          "Fourier or shock-path features (K3 computes no input embedding: ROADMAP queue 2; "
          "the generic step takes them through K1/K2 and K5)"),

@@ -41,11 +41,21 @@ the next solve from this one's iterate.
 
 The kernels' plain versions (:func:`reset_reference`,
 :func:`control_reference`, :func:`direction_reference`) step the same state
-on tensors in the kernels' arithmetic: numpy float32 for the scalars, one
-torch operation a rounding for the vectors, and every sum in the kernels'
-fixed order (:func:`block_sum_reference`), so a kernel and its plain version
-agree bit for bit on the same inputs. Each wrapper runs the plain version on
-CPU tensors and the kernel on CUDA tensors (or raises); nothing falls back.
+on tensors in the kernels' arithmetic: numpy scalars of the solve's dtype,
+one torch operation a rounding for the vectors, and every sum in the
+kernels' fixed order (:func:`block_sum_reference`), so a kernel and its
+plain version agree bit for bit on the same inputs.
+
+The float64 mode: :class:`Buffers` of float64 (``Buffers.alloc(..., dtype=
+torch.float64)``) take the same kernels instantiated on double (the
+``*_f64`` entry points) and the same plain versions in float64, with the
+constants rounded to double (``solve_constants(dtype=np.float64)``). Double
+pairs take twice the shared memory, so :func:`cluster_plan` counts 8-byte
+words (at 8x20 and a history of 50 the pairs are streamed).
+:class:`AutogradLBFGS` takes a float64 ``x0`` into it: ``polish`` on the
+card. :class:`DeviceLBFGS` (K3's value-and-grad) stays float32. Each
+wrapper runs the plain version on CPU tensors and the kernel on CUDA tensors
+(or raises); nothing falls back.
 """
 
 from __future__ import annotations
@@ -70,6 +80,8 @@ DIRECTION_LAUNCHES = 0  # direction kernel launches: host calls and those inside
 GRAPH_REPLAYS = 0  # replays of a captured graph of STEPS_PER_REPLAY evaluation steps
 SOLVES = 0  # device solves (DeviceLBFGS.minimize and AutogradLBFGS.minimize on the card)
 CHUNK_EPOCHS = 0  # outer epochs LBFGSChunk ran on the card (a post-update replay each)
+# launches of the float64 mode's kernels (host calls: AutogradLBFGS in float64)
+RESET_F64_LAUNCHES = CONTROL_F64_LAUNCHES = DIRECTION_F64_LAUNCHES = 0
 _lock = threading.Lock()
 
 # evaluation steps a replay runs between two reads of the done flag: a solve
@@ -80,7 +92,10 @@ THREADS = 1024  # the kernels' virtual block (csrc/lbfgs.cu: kThreads)
 WARPS = THREADS // 32
 CLUSTER = 8  # the direction kernel's CTAs (csrc/lbfgs.cu: kCtas)
 SMEM_LIMIT = 232_448  # a block's shared memory on sm_90 (csrc/lbfgs.cu: kSmemLimit)
-STATIC_SMEM = 1_024  # the static shared memory the plan reserves (kStaticReserve)
+# the static shared memory the plan reserves, by the item size of the
+# solve's dtype (csrc/lbfgs.cu: static_reserve)
+STATIC_SMEM = {4: 1_024, 8: 2_048}
+DTYPES = (torch.float32, torch.float64)  # the float32 kernels and the float64 mode
 MAX_REGISTER_ENTRIES = 8  # entries of q a thread holds in registers (kMaxPer)
 
 # the state's int slots (csrc/lbfgs.cu: IntSlot)
@@ -131,7 +146,9 @@ def lbfgs_device_supported(exp, spec: MLPSpec) -> List[str]:
         (lo.admm_form != "strong", "the weak-form ADMM residual"),
         (lo.entropy_weight > 0.0 or lo.grad_weight_kappa != 0.0 or lo.causal_eps > 0.0,
          "entropy, gradient or causal weighting"),
-        (spec.dtype != torch.float32 or spec.mixed, "a dtype other than float32 or a mixed policy"),
+        (spec.dtype != torch.float32 or spec.mixed,
+         "a dtype other than float32 or a mixed policy (K3's float64 value-and-grad is left to "
+         "a later slice, ROADMAP queue 2; a float64 solve takes AutogradLBFGS)"),
         (spec.n_paths > 0 or spec.fourier,
          "shock-path or Fourier features (K3's value-and-grad computes no input embedding: "
          "ROADMAP queue 2; AutogradLBFGS takes them)"),
@@ -159,25 +176,27 @@ class ClusterPlan:
     smem: int
 
 
-def direction_smem(n: int, m: int, resident: bool) -> int:
+def direction_smem(n: int, m: int, resident: bool, itemsize: int = 4) -> int:
     """Shared memory a CTA of the direction kernel takes (csrc/lbfgs.cu::
-    direction_smem): the static reserve, then in floats alpha (m a warp),
-    rho and the pairs' slots (m each), q when it does not fit in registers
-    (per entries a thread) and the resident pairs (2 m per entries a
-    thread)."""
+    direction_smem): the static reserve, then in words of the solve's dtype
+    (``itemsize`` bytes: 4 for float32, 8 for the float64 mode) alpha (m a
+    warp), rho and the pairs' slots (m each), q when it does not fit in
+    registers (per entries a thread) and the resident pairs (2 m per entries
+    a thread)."""
     tpb, per = THREADS // CLUSTER, -(-n // THREADS)
-    floats = (tpb // 32) * m + 2 * m + (per * tpb if per > MAX_REGISTER_ENTRIES else 0) \
+    words = (tpb // 32) * m + 2 * m + (per * tpb if per > MAX_REGISTER_ENTRIES else 0) \
         + (2 * m * per * tpb if resident else 0)
-    return STATIC_SMEM + 4 * floats
+    return STATIC_SMEM[itemsize] + itemsize * words
 
 
-def cluster_plan(n: int, m: int) -> ClusterPlan:
-    """The direction kernel's layout for n params and a history of m: the
-    pairs resident where the CTAs hold them in SMEM_LIMIT, else streamed.
-    Raises where not even the streamed layout fits."""
+def cluster_plan(n: int, m: int, itemsize: int = 4) -> ClusterPlan:
+    """The direction kernel's layout for n params and a history of m in a
+    dtype of ``itemsize`` bytes: the pairs resident where the CTAs hold them
+    in SMEM_LIMIT, else streamed. Raises where not even the streamed layout
+    fits."""
     per = -(-n // THREADS)
     for resident in (True, False):
-        smem = direction_smem(n, m, resident)
+        smem = direction_smem(n, m, resident, itemsize)
         if smem <= SMEM_LIMIT:
             return ClusterPlan(resident, per, smem)
     raise ValueError(f"K10: n = {n}, m = {m} needs {smem} bytes of shared memory a CTA even "
@@ -198,9 +217,10 @@ def net_offset(params) -> int:
 
 @dataclasses.dataclass
 class Buffers:
-    """A solve's device state: ``si`` (N_INTS int32), ``sf`` (N_FLOATS
-    float32), ``vec`` (N_ROWS, n) float32, ``hist`` (2, m, n) (the s rows,
-    then the y rows) and ``rho`` (m)."""
+    """A solve's device state: ``si`` (N_INTS int32), ``sf`` (N_FLOATS),
+    ``vec`` (N_ROWS, n), ``hist`` (2, m, n) (the s rows, then the y rows)
+    and ``rho`` (m), all but ``si`` in the solve's dtype (float32, or
+    float64 for the float64 mode)."""
 
     si: torch.Tensor
     sf: torch.Tensor
@@ -209,11 +229,15 @@ class Buffers:
     rho: torch.Tensor
 
     @staticmethod
-    def alloc(n: int, m: int, device) -> "Buffers":
-        z = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+    def alloc(n: int, m: int, device, dtype: torch.dtype = torch.float32) -> "Buffers":
+        z = lambda *shape, dtype=dtype: torch.zeros(  # noqa: E731
             shape, dtype=dtype, device=device)
         return Buffers(si=z(N_INTS, dtype=torch.int32), sf=z(N_FLOATS), vec=z(N_ROWS, n),
                        hist=z(2, m, n), rho=z(m))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vec.dtype
 
     @property
     def n(self) -> int:
@@ -231,12 +255,14 @@ class Buffers:
         return Buffers(*(t.clone() for t in self.tensors()))
 
     def check(self) -> None:
-        n, m, dev = self.n, self.m, self.si.device
+        n, m, dev, dt = self.n, self.m, self.si.device, self.dtype
+        if dt not in DTYPES:
+            raise ValueError(f"K10 solves in float32 or float64, got {dt}")
         for name, t, shape, dtype in (("si", self.si, (N_INTS,), torch.int32),
-                                      ("sf", self.sf, (N_FLOATS,), torch.float32),
-                                      ("vec", self.vec, (N_ROWS, n), torch.float32),
-                                      ("hist", self.hist, (2, m, n), torch.float32),
-                                      ("rho", self.rho, (m,), torch.float32)):
+                                      ("sf", self.sf, (N_FLOATS,), dt),
+                                      ("vec", self.vec, (N_ROWS, n), dt),
+                                      ("hist", self.hist, (2, m, n), dt),
+                                      ("rho", self.rho, (m,), dt)):
             if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
                     or not t.is_contiguous():
                 raise ValueError(f"K10: {name} must be contiguous {dtype} {shape} on {dev}, got "
@@ -256,19 +282,26 @@ def _store(b: Buffers, I: np.ndarray, F: np.ndarray) -> None:
     b.sf.copy_(torch.from_numpy(F))
 
 
+def _np_dtype(b: Buffers):
+    """The numpy scalar type of the solve's dtype: the plain versions' scalar
+    arithmetic rounds in it, as the kernels' does."""
+    return np.float64 if b.dtype == torch.float64 else np.float32
+
+
 def _t(v, like: torch.Tensor) -> torch.Tensor:
-    """A numpy float32 scalar as a 0-d float32 tensor beside ``like``."""
-    return torch.tensor(float(v), dtype=torch.float32, device=like.device)
+    """A numpy scalar as a 0-d tensor of ``like``'s dtype beside it."""
+    return torch.tensor(float(v), dtype=like.dtype, device=like.device)
 
 
-def _f32(t: torch.Tensor) -> np.float32:
-    return np.float32(t.item())
+def _scalar(t: torch.Tensor):
+    """A 0-d tensor as a numpy scalar of its own dtype."""
+    return (np.float64 if t.dtype == torch.float64 else np.float32)(t.item())
 
 
 # -- the plain versions ----------------------------------------------------------
 
 def block_sum_reference(terms: torch.Tensor) -> torch.Tensor:
-    """The kernels' sum of ``terms`` (n,) float32, 0-d: thread t adds
+    """The kernels' sum of ``terms`` (n,) in their dtype, 0-d: thread t adds
     entries t, t + THREADS, ... in turn from 0, each warp's 32 sums meet in
     the butterfly of offsets 16, 8, 4, 2, 1, and the WARPS warps' sums in the
     butterfly of offsets WARPS / 2, ..., 1."""
@@ -319,7 +352,7 @@ def reset_reference(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_
     with x0 None the reset in place, from the iterate vec[X] that the last
     solve left."""
     I = np.zeros(N_INTS, np.int32)
-    F = np.zeros(N_FLOATS, np.float32)
+    F = np.zeros(N_FLOATS, _np_dtype(b))
     I[I_STAGE], I[I_MAX_ITERS], I[I_MAX_LS] = STAGE_INIT, max_iters, max_ls
     F[F_GAMMA] = 1.0
     F[F_C1:F_EPS_STEP + 1] = consts
@@ -331,40 +364,43 @@ def reset_reference(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_
 
 
 def seeded_state(n: int, m: int, count: int, head: int, seed: int, device="cpu",
-                 gamma: Optional[float] = None) -> Buffers:
+                 gamma: Optional[float] = None, dtype: torch.dtype = torch.float32) -> Buffers:
     """A state at an iteration's start (stage search, need_dir set) with
     ``count`` pairs of a seeded history ending before ``head``: s normal,
     y = s w with w uniform in [0.5, 2] (so s.y > 0), rho = 1 / s.y, gamma
     s.y / y.y of the newest pair unless given; x and g normal, f 1, the
-    default constants. For the kernels' checks and timings; a negative
-    ``gamma`` turns the two-loop's direction uphill (the descent guard)."""
+    default constants, all in ``dtype``. For the kernels' checks and
+    timings; a negative ``gamma`` turns the two-loop's direction uphill (the
+    descent guard)."""
     rng = np.random.default_rng(seed)
-    b = Buffers.alloc(n, m, "cpu")
+    b = Buffers.alloc(n, m, "cpu", dtype)
+    T = _np_dtype(b)
     I = np.zeros(N_INTS, np.int32)
-    F = np.zeros(N_FLOATS, np.float32)
+    F = np.zeros(N_FLOATS, T)
     I[I_STAGE], I[I_NEED_DIR], I[I_COUNT], I[I_HEAD] = STAGE_SEARCH, 1, count, head % m
     I[I_MAX_ITERS], I[I_MAX_LS] = 1_000, 50
     F[F_F], F[F_GAMMA] = 1.0, 1.0
-    F[F_C1:F_EPS_STEP + 1] = solve_constants()
+    F[F_C1:F_EPS_STEP + 1] = solve_constants(dtype=T)
     for j in range(count):  # oldest first
         idx = (head - count + j) % m
-        s = rng.standard_normal(n).astype(np.float32)
-        y = (s * rng.uniform(0.5, 2.0, n)).astype(np.float32)
-        sy, yy = np.float32(s @ y), np.float32(y @ y)
+        s = rng.standard_normal(n).astype(T)
+        y = (s * rng.uniform(0.5, 2.0, n)).astype(T)
+        sy, yy = T(s @ y), T(y @ y)
         b.hist[0, idx], b.hist[1, idx] = torch.from_numpy(s), torch.from_numpy(y)
-        b.rho[idx] = float(np.float32(1.0) / sy)
+        b.rho[idx] = float(T(1.0) / sy)
         F[F_GAMMA] = sy / yy
     if gamma is not None:
         F[F_GAMMA] = gamma
     _store(b, I, F)
-    b.vec[X] = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    b.vec[G] = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    b.vec[X] = torch.from_numpy(rng.standard_normal(n).astype(T))
+    b.vec[G] = torch.from_numpy(rng.standard_normal(n).astype(T))
     return Buffers(*(t.to(device) for t in b.tensors()))
 
 
 def _search_update(I, F, phi, dphi) -> Tuple[bool, bool, bool]:
     """``csrc/lbfgs.cu::search_update``: one evaluation into the search.
     Returns (better, ended, ok)."""
+    R = F.dtype.type  # the solve's scalar type
     a, f0, dphi0 = F[F_A_TRIAL], F[F_F], F[F_DPHI0]
     evals = I[I_LS_EVALS] + 1
     I[I_LS_EVALS] = evals
@@ -386,9 +422,9 @@ def _search_update(I, F, phi, dphi) -> Tuple[bool, bool, bool]:
             br |= BRANCHES["zoom_rev"]
         if hi_cond or to_rev:
             I[I_MODE] = 1
-            F[F_A_TRIAL] = np.float32(0.5) * (F[F_A_LO] + F[F_A_HI])
+            F[F_A_TRIAL] = R(0.5) * (F[F_A_LO] + F[F_A_HI])
         else:
-            F[F_A_TRIAL] = np.minimum(np.float32(2) * a, F[F_A_MAX])
+            F[F_A_TRIAL] = np.minimum(R(2) * a, F[F_A_MAX])
             br |= BRANCHES["extend"]
         F[F_A_PREV], F[F_PHI_PREV], F[F_DPHI_PREV] = a, phi, dphi
     else:  # alg. 3.6 with bisection trial points
@@ -403,9 +439,9 @@ def _search_update(I, F, phi, dphi) -> Tuple[bool, bool, bool]:
                 br |= BRANCHES["swap"]
             F[F_A_LO], F[F_PHI_LO], F[F_DPHI_LO] = a, phi, dphi
             br |= BRANCHES["zoom_lo"]
-        F[F_A_TRIAL] = np.float32(0.5) * (F[F_A_LO] + F[F_A_HI])
+        F[F_A_TRIAL] = R(0.5) * (F[F_A_LO] + F[F_A_HI])
     interval_dead = I[I_MODE] == 1 and (
-        abs(F[F_A_HI] - F[F_A_LO]) <= F[F_EPS_DEAD] * np.maximum(np.float32(1), abs(F[F_A_HI])))
+        abs(F[F_A_HI] - F[F_A_LO]) <= F[F_EPS_DEAD] * np.maximum(R(1), abs(F[F_A_HI])))
     fail = (not accept) and (out_of_budget or interval_dead)
     better = bool((wolfe1 and phi < F[F_F_BEST]) or accept)
     if better:
@@ -434,13 +470,13 @@ def control_reference(b: Buffers) -> None:
         g.copy_(gt)
         F[F_F] = F[F_PHI_T]
         I[I_EVALS] = 1
-        if _f32(gt.abs().max()) <= F[F_GTOL]:  # an already-converged start
+        if _scalar(gt.abs().max()) <= F[F_GTOL]:  # an already-converged start
             I[I_DONE] = I[I_CONVERGED] = 1
         else:
             I[I_NEED_DIR] = 1
         _store(b, I, F)
         return
-    dphi = _f32(block_dot_reference(gt, d))
+    dphi = _scalar(block_dot_reference(gt, d))
     better, ended, ok = _search_update(I, F, F[F_PHI_T], dphi)
     if better:
         gb.copy_(gt)
@@ -451,11 +487,12 @@ def control_reference(b: Buffers) -> None:
     # the end of the iteration: x_new = x + a d, s = x_new - x, y = g_new - g
     xn = x + _t(F[F_A_BEST], x) * d
     s, y = xn - x, gb - g
-    sy, ss, yy = (_f32(block_sum_reference(v)) for v in (s * y, s * s, y * y))
+    sy, ss, yy = (_scalar(block_sum_reference(v)) for v in (s * y, s * s, y * y))
+    R = F.dtype.type
     store = ok and sy > F[F_EPS_CURV] * np.sqrt(ss) * np.sqrt(yy)
     head = int(I[I_HEAD])
     if store:
-        b.rho[head] = float(np.float32(1) / np.maximum(sy, F[F_TINY]))
+        b.rho[head] = float(R(1) / np.maximum(sy, F[F_TINY]))
         b.hist[0, head].copy_(s)
         b.hist[1, head].copy_(y)
         I[I_HEAD] = (head + 1) % m
@@ -470,9 +507,8 @@ def control_reference(b: Buffers) -> None:
         x.copy_(xn)
         g.copy_(gb)
     f = F[F_F]
-    g_small = _f32(g.abs().max()) <= F[F_GTOL]  # SciPy's stopping rules
-    f_flat = ok and (f_old - f) <= F[F_FTOL] * np.maximum(np.maximum(abs(f_old), abs(f)),
-                                                          np.float32(1))
+    g_small = _scalar(g.abs().max()) <= F[F_GTOL]  # SciPy's stopping rules
+    f_flat = ok and (f_old - f) <= F[F_FTOL] * np.maximum(np.maximum(abs(f_old), abs(f)), R(1))
     converged = bool(g_small or f_flat)
     I[I_K] += 1
     I[I_EVALS] += I[I_LS_EVALS]
@@ -496,17 +532,18 @@ def direction_reference(b: Buffers) -> None:
     count = int(I[I_COUNT])
     d.copy_(two_loop_reference(g, b.hist[0], b.hist[1], b.rho, count, int(I[I_HEAD]),
                                F[F_GAMMA]))
-    dg = _f32(block_dot_reference(d, g))
+    R = F.dtype.type
+    dg = _scalar(block_dot_reference(d, g))
     guard = not dg < 0  # not a descent direction: steepest descent
     if guard:
         d.copy_(-g)
-        dg = _f32(block_dot_reference(g, d))
+        dg = _scalar(block_dot_reference(g, d))
         I[I_BRANCHES] |= BRANCHES["descent_guard"]
     if count == 0:
-        gsum = _f32(block_sum_reference(g.abs()))
-        init = np.minimum(np.float32(1), np.float32(1) / np.maximum(gsum, F[F_EPS_STEP]))
+        gsum = _scalar(block_sum_reference(g.abs()))
+        init = np.minimum(R(1), R(1) / np.maximum(gsum, F[F_EPS_STEP]))
     else:
-        init = np.float32(1)
+        init = R(1)
     f = F[F_F]
     F[F_DPHI0] = dg
     F[F_A_LO], F[F_PHI_LO], F[F_DPHI_LO] = 0, f, dg
@@ -528,14 +565,16 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pinns_lbfgs_slots.argtypes = [p, p, p, p]
         lib.pinns_lbfgs_slots.restype = i
-        lib.pinns_lbfgs_direction_smem.argtypes = [i, i, i]
-        lib.pinns_lbfgs_direction_smem.restype = ctypes.c_longlong
-        lib.pinns_lbfgs_reset.argtypes = [p, p, p, p, i, i, i, p, p]
-        lib.pinns_lbfgs_reset.restype = i
-        lib.pinns_lbfgs_control.argtypes = [p, p, p, p, p, i, i, p]
-        lib.pinns_lbfgs_control.restype = i
-        lib.pinns_lbfgs_direction.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        lib.pinns_lbfgs_direction.restype = i
+        for suffix in ("", "_f64"):  # the float32 kernels and the float64 mode
+            getattr(lib, f"pinns_lbfgs_direction_smem{suffix}").argtypes = [i, i, i]
+            getattr(lib, f"pinns_lbfgs_direction_smem{suffix}").restype = ctypes.c_longlong
+            getattr(lib, f"pinns_lbfgs_reset{suffix}").argtypes = [p, p, p, p, i, i, i, p, p]
+            getattr(lib, f"pinns_lbfgs_reset{suffix}").restype = i
+            getattr(lib, f"pinns_lbfgs_control{suffix}").argtypes = [p, p, p, p, p, i, i, p]
+            getattr(lib, f"pinns_lbfgs_control{suffix}").restype = i
+            getattr(lib, f"pinns_lbfgs_direction{suffix}").argtypes = [p, p, p, p, p, i, i, i, i,
+                                                                         p]
+            getattr(lib, f"pinns_lbfgs_direction{suffix}").restype = i
         lib.pinns_lbfgs_error_string.argtypes = [i]
         lib.pinns_lbfgs_error_string.restype = ctypes.c_char_p
         got = [ctypes.c_int() for _ in range(4)]
@@ -562,23 +601,31 @@ def _ptrs(b: Buffers):
     return b.si.data_ptr(), b.sf.data_ptr(), b.vec.data_ptr(), b.hist.data_ptr(), b.rho.data_ptr()
 
 
-def solve_constants(c1: float = 1e-4, c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5
-                    ) -> np.ndarray:
-    """The float32 constants a reset writes: c1, c2, ftol, gtol, CONSTANTS."""
-    return np.asarray((c1, c2, ftol, gtol) + CONSTANTS, np.float32)
+def _entry(b: Buffers, name: str):
+    """The library's entry point ``name`` for the solve's dtype (the
+    float64 mode's carry ``_f64``)."""
+    return getattr(_lib(), name + ("_f64" if b.dtype == torch.float64 else ""))
+
+
+def solve_constants(c1: float = 1e-4, c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5,
+                    dtype=np.float32) -> np.ndarray:
+    """The constants a reset writes, rounded to ``dtype`` (float32, or
+    float64 for the float64 mode): c1, c2, ftol, gtol, CONSTANTS."""
+    return np.asarray((c1, c2, ftol, gtol) + CONSTANTS, dtype)
 
 
 def _launch_reset(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_ls: int,
                   consts: np.ndarray) -> None:
     """The reset kernel; x0 None resets in place (a null pointer)."""
     si, sf, vec, _, _ = _ptrs(b)
-    _raise_on(_lib().pinns_lbfgs_reset(si, sf, vec, 0 if x0 is None else x0.data_ptr(), b.n,
-                                       int(max_iters), int(max_ls), consts.ctypes.data,
-                                       _stream(b)), "reset")
+    consts = np.ascontiguousarray(consts, _np_dtype(b))
+    _raise_on(_entry(b, "pinns_lbfgs_reset")(si, sf, vec, 0 if x0 is None else x0.data_ptr(),
+                                             b.n, int(max_iters), int(max_ls),
+                                             consts.ctypes.data, _stream(b)), "reset")
 
 
 def _launch_control(b: Buffers) -> None:
-    _raise_on(_lib().pinns_lbfgs_control(*_ptrs(b), b.n, b.m, _stream(b)), "control")
+    _raise_on(_entry(b, "pinns_lbfgs_control")(*_ptrs(b), b.n, b.m, _stream(b)), "control")
 
 
 def _launch_direction(b: Buffers, launch_only: bool = False,
@@ -586,57 +633,65 @@ def _launch_direction(b: Buffers, launch_only: bool = False,
     """The direction kernel on ``plan`` (``cluster_plan(n, m)`` by default);
     ``launch_only`` inside a stream capture. The library's count of the
     plan's shared memory must be the wrapper's."""
-    plan = cluster_plan(b.n, b.m) if plan is None else plan
-    lib = _lib()
-    got = lib.pinns_lbfgs_direction_smem(b.n, b.m, int(plan.resident))
+    plan = cluster_plan(b.n, b.m, b.dtype.itemsize) if plan is None else plan
+    got = _entry(b, "pinns_lbfgs_direction_smem")(b.n, b.m, int(plan.resident))
     if got != plan.smem:
         raise RuntimeError(f"lbfgs.cu counts {got} bytes of shared memory for {plan}")
-    _raise_on(lib.pinns_lbfgs_direction(*_ptrs(b), b.n, b.m, int(plan.resident),
-                                        int(launch_only), _stream(b)), "direction")
+    _raise_on(_entry(b, "pinns_lbfgs_direction")(*_ptrs(b), b.n, b.m, int(plan.resident),
+                                                 int(launch_only), _stream(b)), "direction")
 
 
 def reset(b: Buffers, x0: Optional[torch.Tensor], *, max_iters: int, max_ls: int = 50,
           c1: float = 1e-4, c2: float = 0.9, ftol: float = 1e-7, gtol: float = 1e-5) -> None:
-    """A solve's initial state from ``x0`` (n,) float32: the trial point is
-    x0, the first step takes its evaluation. ``x0`` None resets in place:
-    the next solve starts from the iterate ``vec[X]`` the last one left (no
-    copy of it). Plain on CPU tensors."""
-    global RESET_LAUNCHES
+    """A solve's initial state from ``x0`` (n,) in the buffers' dtype: the
+    trial point is x0, the first step takes its evaluation. ``x0`` None
+    resets in place: the next solve starts from the iterate ``vec[X]`` the
+    last one left (no copy of it). Plain on CPU tensors."""
+    global RESET_LAUNCHES, RESET_F64_LAUNCHES
     b.check()
-    if x0 is not None and (tuple(x0.shape) != (b.n,) or x0.dtype != torch.float32
+    if x0 is not None and (tuple(x0.shape) != (b.n,) or x0.dtype != b.dtype
                            or x0.device != b.si.device or not x0.is_contiguous()):
-        raise ValueError(f"K10: x0 must be contiguous float32 ({b.n},) on {b.si.device}")
-    consts = solve_constants(c1, c2, ftol, gtol)
+        raise ValueError(f"K10: x0 must be contiguous {b.dtype} ({b.n},) on {b.si.device}")
+    consts = solve_constants(c1, c2, ftol, gtol, _np_dtype(b))
     if b.si.device.type == "cpu":
         reset_reference(b, x0, max_iters, max_ls, consts)
         return
     _launch_reset(b, x0, max_iters, max_ls, consts)
     with _lock:
-        RESET_LAUNCHES += 1
+        if b.dtype == torch.float64:
+            RESET_F64_LAUNCHES += 1
+        else:
+            RESET_LAUNCHES += 1
 
 
 def control(b: Buffers) -> None:
     """The control kernel (``csrc/lbfgs.cu``); plain on CPU tensors."""
-    global CONTROL_LAUNCHES
+    global CONTROL_LAUNCHES, CONTROL_F64_LAUNCHES
     b.check()
     if b.si.device.type == "cpu":
         control_reference(b)
         return
     _launch_control(b)
     with _lock:
-        CONTROL_LAUNCHES += 1
+        if b.dtype == torch.float64:
+            CONTROL_F64_LAUNCHES += 1
+        else:
+            CONTROL_LAUNCHES += 1
 
 
 def direction(b: Buffers) -> None:
     """The direction kernel (``csrc/lbfgs.cu``); plain on CPU tensors."""
-    global DIRECTION_LAUNCHES
+    global DIRECTION_LAUNCHES, DIRECTION_F64_LAUNCHES
     b.check()
     if b.si.device.type == "cpu":
         direction_reference(b)
         return
     _launch_direction(b)
     with _lock:
-        DIRECTION_LAUNCHES += 1
+        if b.dtype == torch.float64:
+            DIRECTION_F64_LAUNCHES += 1
+        else:
+            DIRECTION_LAUNCHES += 1
 
 
 # -- the solve -------------------------------------------------------------------
@@ -674,14 +729,15 @@ def run_steps(b: Buffers, evaluate: Callable[[], None],
 
 
 class AutogradLBFGS:
-    """K10 over any float32 function of a flat vector, its gradient by
-    torch.autograd: ``opt.lbfgs.lbfgs_minimize``'s contract, stepped
-    evaluation by evaluation through the reset, control and direction
-    kernels (their plain versions on CPU tensors). The trainer takes it on
-    the card for every float32 L-BFGS phase outside
-    :func:`lbfgs_device_supported` (the Euler branch, ``burgers_inverse``,
-    the 8x200 nets), the evaluation being autograd through the loss over the
-    kernels it runs.
+    """K10 over any float32 or float64 function of a flat vector, its
+    gradient by torch.autograd: ``opt.lbfgs.lbfgs_minimize``'s contract,
+    stepped evaluation by evaluation through the reset, control and
+    direction kernels (their plain versions on CPU tensors; a float64 ``x0``
+    takes the kernels' float64 mode). The trainer takes it on the card for
+    every float32 L-BFGS phase outside :func:`lbfgs_device_supported` (the
+    Euler branch, ``burgers_inverse``, the 8x200 nets) and for every float64
+    one (``polish``), the evaluation being autograd through the loss over
+    the kernels it runs.
 
     An evaluation reads the trial point ``vec[XT]`` and writes ``vec[GT]``
     and ``sf[F_PHI_T]`` by device copies, with no read of the device: once
@@ -705,22 +761,22 @@ class AutogradLBFGS:
         with torch.no_grad():
             done = b.si[I_DONE] != 0
             b.sf[F_PHI_T:F_PHI_T + 1].copy_(
-                torch.where(done, b.sf[F_PHI_T], f.detach().to(torch.float32)).reshape(1))
+                torch.where(done, b.sf[F_PHI_T], f.detach().to(b.dtype)).reshape(1))
             b.vec[GT].copy_(torch.where(done, b.vec[GT], g))
 
     def minimize(self, fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
                  max_iters: int = 5000, history: int = 50, ftol: float = 1e-7,
                  gtol: float = 1e-5, max_ls: int = 50, c1: float = 1e-4,
                  c2: float = 0.9) -> host_lbfgs.LBFGSResult:
-        """Minimize ``fun`` from the flat float32 ``x0``; returns
+        """Minimize ``fun`` from the flat float32 or float64 ``x0``; returns
         ``opt.lbfgs.LBFGSResult`` with tensors of the caller's own."""
         global SOLVES
         n = x0.shape[0]
-        if x0.dtype != torch.float32:
-            raise ValueError(f"K10 solves in float32, got x0 of {x0.dtype}")
+        if x0.dtype not in DTYPES:
+            raise ValueError(f"K10 solves in float32 or float64, got x0 of {x0.dtype}")
         b = self.bufs
-        if b is None or (b.n, b.m, b.si.device) != (n, history, x0.device):
-            self.bufs = Buffers.alloc(n, history, x0.device)
+        if b is None or (b.n, b.m, b.si.device, b.dtype) != (n, history, x0.device, x0.dtype):
+            self.bufs = Buffers.alloc(n, history, x0.device, x0.dtype)
         reset(self.bufs, x0.detach().contiguous(), max_iters=max_iters, max_ls=max_ls, c1=c1,
               c2=c2, ftol=ftol, gtol=gtol)
         res = run_steps(self.bufs, lambda: self._evaluate(fun), self.sync_every)

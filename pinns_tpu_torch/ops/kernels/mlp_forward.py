@@ -32,6 +32,14 @@ gradient hold the trunk's leaves, then the paths' (``taylor2.net_leaves``).
 Such a net takes the wide design at any width; the narrow design refuses
 it.
 
+The float64 mode (``polish``'s data term and evaluation on the card): a
+float64 spec on the narrow design takes its forward and backward
+instantiated on double (``pinns_mlp_forward_f64``, ``pinns_mlp_backward_f64``;
+:func:`forward_config` and :func:`backward_config` with ``itemsize`` 8),
+under the same ``torch.autograd.Function``. The wide design, features and
+paths in float64 raise ``taylor2.check_float64``'s refusal, naming the later
+slice.
+
 Both are bit-for-bit repeatable (no atomics). The wrappers validate what the
 kernels assume and raise otherwise; on a CPU tensor they raise too. They
 never fall back to the plain version.
@@ -56,6 +64,7 @@ from pinns_tpu_torch.models.mlp import (
 from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.kernels.taylor2 import (
     check_call,
+    check_float64,
     check_paths,
     feature_args,
     net_from_leaves,
@@ -67,6 +76,8 @@ from pinns_tpu_torch.ops.kernels.taylor2 import (
 
 LAUNCHES = 0  # forward kernel launches in this process (chip_smoke.py reads it)
 BACKWARD_LAUNCHES = 0  # backward calls (kernel + reduction) in this process
+F64_LAUNCHES = 0  # launches of the float64 mode's forward (the narrow design in double)
+F64_BACKWARD_LAUNCHES = 0  # calls of the float64 mode's backward (kernel + reduction)
 _launches_lock = threading.Lock()
 
 MAX_WIDTH = 256
@@ -79,6 +90,7 @@ _BWD_SMEM = 200 * 1024
 _FWD_MAX_TILE = 128
 _BWD_MAX_TILE = 64
 _FWD_MAX_THREADS = 640  # the forward kernel's __launch_bounds__
+_FWD_MAX_THREADS_F64 = 256  # the float64 mode's (kFwdThreadsF64)
 MAX_GRID = 264  # backward blocks: two per SM of an H100
 # the wide design: points padded to a multiple of EW_TILE (the row tile of
 # the elementwise passes and of db's per-tile sums); the products' block tile
@@ -111,32 +123,35 @@ def design(layers: Sequence[int]) -> str:
     return "narrow" if wmax <= NARROW_WIDTH and layers[0] == 2 else "wide"
 
 
-def _tile(layers: Sequence[int], buffers: int, budget: int, cap: int) -> int:
+def _tile(layers: Sequence[int], buffers: int, budget: int, cap: int, itemsize: int = 4) -> int:
     """Largest multiple of 4 points (at most ``cap``) whose ``buffers``
-    activation buffers (widest rows x (tile + 4) floats) fit ``budget``."""
+    activation buffers (widest rows x (tile + 4) values of ``itemsize``
+    bytes) fit ``budget``."""
     wmax = max(layers)
     if wmax > MAX_WIDTH:
         raise ValueError(f"mlp_forward kernel takes widths up to {MAX_WIDTH}, got {wmax}")
-    tile = budget // (4 * buffers * wmax) - 4
+    tile = budget // (itemsize * buffers * wmax) - 4
     return min(cap, tile - tile % _POINTS_PER_THREAD)
 
 
-def forward_config(layers: Sequence[int]) -> Tuple[int, int]:
+def forward_config(layers: Sequence[int], itemsize: int = 4) -> Tuple[int, int]:
     """(points per block, threads per block) of the forward kernel: one thread
-    per (unit, 4-point group) of the widest layer, up to 640."""
-    tile = _tile(layers, 2, _FWD_SMEM, _FWD_MAX_TILE)
+    per (unit, 4-point group) of the widest layer, up to 640 (256 in the
+    float64 mode, ``itemsize`` 8)."""
+    tile = _tile(layers, 2, _FWD_SMEM, _FWD_MAX_TILE, itemsize)
     items = (tile // _POINTS_PER_THREAD) * max(layers[1:])
-    return tile, min(_FWD_MAX_THREADS, -(-items // 32) * 32)
+    cap = _FWD_MAX_THREADS if itemsize == 4 else _FWD_MAX_THREADS_F64
+    return tile, min(cap, -(-items // 32) * 32)
 
 
-def backward_config(layers: Sequence[int], n: int) -> Tuple[int, int]:
+def backward_config(layers: Sequence[int], n: int, itemsize: int = 4) -> Tuple[int, int]:
     """(points per tile, blocks) of the backward kernel for n points."""
-    tile = _tile(layers, 3, _BWD_SMEM, _BWD_MAX_TILE)
+    tile = _tile(layers, 3, _BWD_SMEM, _BWD_MAX_TILE, itemsize)
     return tile, max(1, min(MAX_GRID, -(-n // tile)))
 
 
-def smem_bytes(layers: Sequence[int], tile: int, buffers: int) -> int:
-    return 4 * buffers * max(layers) * (tile + 4)
+def smem_bytes(layers: Sequence[int], tile: int, buffers: int, itemsize: int = 4) -> int:
+    return itemsize * buffers * max(layers) * (tile + 4)
 
 
 def _ld_h(width: int) -> int:
@@ -241,6 +256,11 @@ def _lib():
             p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, i, i, i, p, p, q, p, i, p,
         ]
         lib.pinns_mlp_backward_wide.restype = i
+        d = ctypes.c_double
+        lib.pinns_mlp_forward_f64.argtypes = [p, i, p, p, i, d, d, d, d, i, i, p, i, p]
+        lib.pinns_mlp_forward_f64.restype = i
+        lib.pinns_mlp_backward_f64.argtypes = [p, i, p, p, i, d, d, d, d, i, i, p, p, p, p, i, p]
+        lib.pinns_mlp_backward_f64.restype = i
         lib.pinns_mlp_error_string.argtypes = [i]
         lib.pinns_mlp_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -248,6 +268,7 @@ def _lib():
 
 
 def _check_spec(spec: MLPSpec) -> None:
+    check_float64("mlp_forward", spec)
     if len(spec.layers) - 1 > MAX_LAYERS:
         raise ValueError(f"mlp_forward kernel takes up to {MAX_LAYERS} layers")
     if design(spec.widths) == "narrow":
@@ -266,13 +287,15 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
     (narrow design) or the wide design's layer products. ``x`` is the (N, 2)
     float32 raw points, contiguous on a CUDA device; ``params`` the
     JAX-layout layers on the same device. Raises on anything else."""
-    global LAUNCHES
+    global LAUNCHES, F64_LAUNCHES
     _check_spec(spec)
     check_call("mlp_forward", spec, params, x)
     layers = spec.widths
     wide = design(layers) == "wide"
+    f64 = spec.dtype == torch.float64  # the float64 mode (narrow: check_float64)
     n = x.shape[0]
-    u = torch.empty((n, spec.out_dim), dtype=torch.float32, device=x.device)
+    u = torch.empty((n, spec.out_dim), dtype=spec.dtype if f64 else torch.float32,
+                    device=x.device)
     if n == 0:
         return u
     lib = _lib()
@@ -289,15 +312,19 @@ def mlp_forward(spec: MLPSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
             plan.tile, scratch.data_ptr(), plan.scratch_floats, u.data_ptr(),
             x.device.index or 0, stream)
     else:
-        tile, threads = forward_config(layers)
-        err = lib.pinns_mlp_forward(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, tile, threads,
-            u.data_ptr(), x.device.index or 0, stream)
+        item = 8 if f64 else 4
+        tile, threads = forward_config(layers, item)
+        entry = lib.pinns_mlp_forward_f64 if f64 else lib.pinns_mlp_forward
+        err = entry(x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, tile, threads,
+                    u.data_ptr(), x.device.index or 0, stream)
     if err != 0:
         _raise(lib, err, "forward", **(dataclasses.asdict(plan) if wide else {
-            "tile": tile, "threads": threads, "smem": smem_bytes(layers, tile, 2)}))
+            "tile": tile, "threads": threads, "smem": smem_bytes(layers, tile, 2, item)}))
     with _launches_lock:
-        LAUNCHES += 1
+        if f64:
+            F64_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return u
 
 
@@ -309,13 +336,15 @@ def mlp_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     block-order reduction (narrow design) or the wide design's layer products
     and fixed-order reduction. ``g_out`` is (N, out_dim) float32, contiguous,
     on ``x``'s device."""
-    global BACKWARD_LAUNCHES
+    global BACKWARD_LAUNCHES, F64_BACKWARD_LAUNCHES
     _check_spec(spec)
     check_call("mlp_forward backward", spec, params, x, g_out)
     layers = spec.widths
     wide = design(layers) == "wide"
+    f64 = spec.dtype == torch.float64  # the float64 mode (narrow: check_float64)
     n = x.shape[0]
-    grad = torch.empty(spec.n_params, dtype=torch.float32, device=x.device)
+    grad = torch.empty(spec.n_params, dtype=torch.float64 if f64 else torch.float32,
+                       device=x.device)
     if n == 0:
         return grad.zero_()
     lib = _lib()
@@ -333,19 +362,23 @@ def mlp_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
             scratch.data_ptr(),
             plan.scratch_floats, grad.data_ptr(), x.device.index or 0, stream)
     else:
-        tile, grid = backward_config(layers, n)
-        partials = torch.empty((grid, spec.n_params), dtype=torch.float32, device=x.device)
+        item = 8 if f64 else 4
+        tile, grid = backward_config(layers, n, item)
+        partials = torch.empty((grid, spec.n_params), dtype=grad.dtype, device=x.device)
         hstore = torch.empty(grid * (len(layers) - 2) * max(layers) * tile,
-                             dtype=torch.float32, device=x.device)
-        err = lib.pinns_mlp_backward(
-            x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, tile, grid,
-            g_out.data_ptr(), partials.data_ptr(), hstore.data_ptr(), grad.data_ptr(),
-            x.device.index or 0, stream)
+                             dtype=grad.dtype, device=x.device)
+        entry = lib.pinns_mlp_backward_f64 if f64 else lib.pinns_mlp_backward
+        err = entry(x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, *box, tile, grid,
+                    g_out.data_ptr(), partials.data_ptr(), hstore.data_ptr(), grad.data_ptr(),
+                    x.device.index or 0, stream)
     if err != 0:
         _raise(lib, err, "backward", **(dataclasses.asdict(plan) if wide else {
-            "tile": tile, "grid": grid, "smem": smem_bytes(layers, tile, 3)}))
+            "tile": tile, "grid": grid, "smem": smem_bytes(layers, tile, 3, item)}))
     with _launches_lock:
-        BACKWARD_LAUNCHES += 1
+        if f64:
+            F64_BACKWARD_LAUNCHES += 1
+        else:
+            BACKWARD_LAUNCHES += 1
     return grad
 
 

@@ -68,6 +68,7 @@ from pinns_tpu_torch.models.mlp import (
 from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.kernels.taylor2 import (
     check_call,
+    check_float64,
     check_paths,
     feature_args,
     net_from_leaves,
@@ -297,7 +298,9 @@ def _lib():
 def check_spec(spec: MLPSpec) -> None:
     """Raise unless K7a takes ``spec``: float32 streams (``check_call``
     checks the dtypes of the tensors) and Fourier and path features within
-    the kernel's bounds (``taylor2.check_paths``)."""
+    the kernel's bounds (``taylor2.check_paths``). A float64 spec raises
+    ``taylor2.check_float64``'s refusal: K7a's float64 mode is later work."""
+    check_float64("taylor1 (K7a)", spec, mode=False)
     if spec.mixed:
         raise ValueError(
             "the taylor1 kernel (K7a) takes float32 specs only; the mixed stream "

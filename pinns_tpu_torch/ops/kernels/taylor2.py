@@ -50,6 +50,16 @@ the kernels' input passes (``csrc/fourier.cuh``); K2 also gives the paths'
 gradient. A spec with either takes the tiled design at any width. K6 (the
 mixed policy) refuses them (ROADMAP queue 2).
 
+The float64 modes (``polish`` on the card): a float64 spec whose widths
+are all at most NARROW_WIDTH, with no features and no stream policy, takes
+K1's narrow design instantiated on double (:func:`launch_config` with
+``torch.float64``) and K2's float64 design (``csrc/taylor2_backward.cu``,
+namespace ``k2d``: a tile of points a block, the net's streams in shared
+memory, per-block partials in double summed in block order;
+:func:`f64_backward_plan`), under the same ``torch.autograd.Function``.
+Any other float64 spec raises :func:`check_float64`'s refusal, which names
+the later slice (ROADMAP queue 2).
+
 The wrappers validate everything the kernels assume and raise otherwise;
 they never fall back to the plain version.
 """
@@ -83,6 +93,8 @@ MEMBER_LAUNCHES = 0  # K8s (a) launches: K1 over the members of an ensemble
 BACKWARD_LAUNCHES = 0  # K2 calls in this process (one host call issues all its launches)
 MIXED_LAUNCHES = 0  # K6 launches
 MIXED_BACKWARD_LAUNCHES = 0  # K6 backward calls
+F64_LAUNCHES = 0  # launches of K1's float64 mode (the narrow design in double)
+F64_BACKWARD_LAUNCHES = 0  # calls of K2's float64 mode (its kernel + reduction)
 _launches_lock = threading.Lock()  # HTTP handler threads launch concurrently
 
 MAX_WIDTH = 256
@@ -127,6 +139,38 @@ SPLIT_WARPS = 2048
 MAX_SPLIT_TILES = 8
 
 
+# K2's float64 design (csrc/taylor2_backward.cu, namespace k2d): points a
+# tile, a block's threads, and the most blocks a call (two per SM of an H100)
+F64_TILE = 32
+F64_THREADS = 256
+F64_MAX_GRID = 264
+_F64_MAX_THREADS = 256  # K1's float64 mode's __launch_bounds__ (kMaxThreadsF64)
+_F64_MAX_TILE = 64
+FLOAT64_LATER = ("is left to a later slice (ROADMAP queue 2: float64 in K3, K7a, K7b, the "
+                 "tiled K1, the wide K2 and K5, Fourier features and shock paths); the card "
+                 "runs float64 on K10's float64 mode and the narrow designs of K1, K2 and K5 "
+                 f"(every width <= {NARROW_WIDTH}, no features)")
+
+
+def check_float64(kernel: str, spec: MLPSpec, mode: bool = True) -> None:
+    """Raise NotImplementedError, naming the later slice, unless ``spec`` is
+    float32 or the ``kernel`` has a float64 mode (``mode``) that takes it:
+    the narrow design (every width at most NARROW_WIDTH, a first width of
+    2), no Fourier or path features. (A stream policy takes float32
+    masters: ``check_mixed`` refuses float64 ones first.)"""
+    if spec.dtype != torch.float64:
+        return
+    why = []
+    if not mode:
+        why.append(f"the {kernel} kernel has no float64 mode")
+    if spec.fourier or spec.n_paths:
+        why.append("Fourier or shock-path features in float64")
+    if max(spec.widths) > NARROW_WIDTH:
+        why.append(f"widths {spec.widths} in float64 (the tiled / wide design)")
+    if why:
+        raise NotImplementedError(f"{kernel}: {'; '.join(why)} {FLOAT64_LATER}")
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
     """A forward launch: the design ("narrow" or "tiled"), points and threads
@@ -138,15 +182,26 @@ class LaunchConfig:
     smem: int
 
 
-def launch_config(layers: Sequence[int], mixed: bool = False) -> LaunchConfig:
+def launch_config(layers: Sequence[int], mixed: bool = False,
+                  dtype: torch.dtype = torch.float32) -> LaunchConfig:
     """How K1, or K6 for a ``mixed`` spec, launches for a net of these widths
     (``spec.widths``: a first width above 2, Fourier or path features, takes
     the tiled design at any width; the kernel refuses any other
-    configuration)."""
+    configuration). ``dtype`` float64: K1's float64 mode, the narrow design
+    on 8-byte values (at most _F64_MAX_TILE points and _F64_MAX_THREADS
+    threads a block)."""
     layers = tuple(int(w) for w in layers)
     wmax = max(layers)
     if wmax > MAX_WIDTH:
         raise ValueError(f"taylor2 kernel takes widths up to {MAX_WIDTH}, got {wmax}")
+    if dtype == torch.float64:
+        if wmax > NARROW_WIDTH or layers[0] != 2 or mixed:
+            raise NotImplementedError(f"taylor2: widths {layers} in float64 {FLOAT64_LATER}")
+        tile = _NARROW_SMEM // (8 * 2 * 4 * wmax) - 4
+        tile = min(_F64_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
+        items = (tile // _POINTS_PER_THREAD) * max(layers[1:])
+        threads = min(_F64_MAX_THREADS, -(-items // 32) * 32)
+        return LaunchConfig("narrow", tile, threads, 8 * 2 * 4 * wmax * (tile + 4))
     if wmax <= NARROW_WIDTH and layers[0] == 2:
         tile = _NARROW_SMEM // (4 * 2 * 4 * wmax) - 4  # bytes/(f32*bufs*streams*rows) - pad
         tile = min(_NARROW_MAX_TILE, tile - tile % _POINTS_PER_THREAD)
@@ -233,10 +288,37 @@ def backward_plan(layers: Sequence[int], n: int, mixed: bool = False,
         psums=_align4(2 * (n_pad // GEMM_TILE) * path_params))
 
 
+@dataclasses.dataclass(frozen=True)
+class F64BackwardPlan:
+    """How K2's float64 mode lays out a call: ``grid`` blocks walk the tiles
+    of F64_TILE points; per block a row of ``n_params`` partials and the
+    pre-activation streams of every hidden layer of one tile (``pstore``
+    doubles a block)."""
+
+    grid: int
+    n_params: int
+    pstore: int
+
+
+def f64_backward_plan(layers: Sequence[int], n: int) -> F64BackwardPlan:
+    """K2's float64 plan for ``n`` >= 1 points through a narrow net of these
+    widths."""
+    layers = tuple(int(w) for w in layers)
+    grid = max(1, min(F64_MAX_GRID, -(-n // F64_TILE)))
+    n_params = sum(din * dout + dout for din, dout in zip(layers[:-1], layers[1:]))
+    return F64BackwardPlan(grid=grid, n_params=n_params,
+                           pstore=max(1, (len(layers) - 2) * 4 * max(layers) * F64_TILE))
+
+
 def _lib():
     lib = build.load_library("taylor2")
     if not getattr(lib, "_pinns_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        d = ctypes.c_double
+        lib.pinns_taylor2_forward_f64.argtypes = [  # K1's float64 mode
+            p, i, p, p, i, d, d, d, d, i, i, p, p, p, p, i, p,
+        ]
+        lib.pinns_taylor2_forward_f64.restype = i
         lib.pinns_taylor2_forward.argtypes = [  # + the features (feature_args)
             p, i, p, p, i, i, p, i, i, f, f, f, f, i, i, p, p, p, p, i, p,
         ]
@@ -268,6 +350,11 @@ def _backward_lib():
             p, i, p, p, i, i, f, f, f, f, i, i, i, p, p, p, p, p, q, p, i, p,
         ]
         lib.pinns_taylor2_mixed_backward.restype = i
+        d = ctypes.c_double
+        lib.pinns_taylor2_backward_f64.argtypes = [  # K2's float64 mode
+            p, i, p, p, i, d, d, d, d, i, p, p, p, p, p, p, p, i, p,
+        ]
+        lib.pinns_taylor2_backward_f64.restype = i
         lib.pinns_taylor2_backward_error_string.argtypes = [i]
         lib.pinns_taylor2_backward_error_string.restype = ctypes.c_char_p
         lib._pinns_typed = True
@@ -341,14 +428,17 @@ def split_grad(flat: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch
 
 def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
                *per_point: torch.Tensor) -> None:
-    """Raise ValueError unless ``x`` is contiguous float32 (N, 2) on a CUDA
-    device, ``params`` float32 layers of ``spec``'s widths on that device, and
-    each of ``per_point`` a contiguous float32 (N, out_dim) tensor there.
-    (The stream policy is each kernel's own check: K5 ignores it.)"""
+    """Raise ValueError unless ``x`` is contiguous (N, 2) in the spec's dtype
+    on a CUDA device, ``params`` layers of ``spec``'s widths in that dtype
+    on that device, and each of ``per_point`` a contiguous (N, out_dim)
+    tensor of that dtype there. The spec's dtype is float32, or float64 for a
+    kernel whose float64 mode :func:`check_float64` let through first. (The
+    stream policy is each kernel's own check: K5 ignores it.)"""
+    want_dtype = spec.dtype if spec.dtype == torch.float64 else torch.float32
     if x.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs a CUDA tensor, got device {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{kernel} kernel takes float32 points, got {x.dtype}")
+    if x.dtype != want_dtype:
+        raise ValueError(f"{kernel} kernel takes {want_dtype} points, got {x.dtype}")
     if x.ndim != 2 or x.shape[1] != 2 or spec.in_dim != 2:
         raise ValueError(f"{kernel} kernel takes (N, 2) points, got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -363,17 +453,17 @@ def check_call(kernel: str, spec: MLPSpec, params: Params, x: torch.Tensor,
                        ("path_a", (spec.n_paths,))]
         for name, shape in shapes:
             t = layer[name]
-            if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            if tuple(t.shape) != shape or t.dtype != want_dtype or t.device != x.device:
                 raise ValueError(
-                    f"layer {i} {name}: want float32 {shape} on {x.device}, got "
+                    f"layer {i} {name}: want {want_dtype} {shape} on {x.device}, got "
                     f"{t.dtype} {tuple(t.shape)} on {t.device}"
                 )
     want = (x.shape[0], spec.out_dim)
     for t in per_point:
-        if tuple(t.shape) != want or t.dtype != torch.float32 or t.device != x.device \
+        if tuple(t.shape) != want or t.dtype != want_dtype or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(f"{kernel} kernel: per-point tensors (cotangents, outputs) must "
-                             f"be contiguous float32 {want} "
+                             f"be contiguous {want_dtype} {want} "
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -406,17 +496,21 @@ def taylor2(
     spec: MLPSpec, params: Params, x: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(u, u_x, u_t, u_xx), each (N, out_dim) float32, from one launch of K1,
-    or of K6 under a mixed spec's stream policy.
+    or of K6 under a mixed spec's stream policy; in float64 from one launch
+    of K1's float64 mode for a float64 spec it takes (:func:`check_float64`).
 
-    ``x`` is the (N, 2) float32 raw points, contiguous on a CUDA device;
-    ``params`` the JAX-layout layers on the same device. Raises on anything
-    else.
+    ``x`` is the (N, 2) raw points in the spec's dtype, contiguous on a CUDA
+    device; ``params`` the JAX-layout layers on the same device. Raises on
+    anything else.
     """
     global LAUNCHES, MIXED_LAUNCHES
     kernel = "taylor2_mixed" if spec.mixed else "taylor2"
     if spec.mixed:
         refuse_features(kernel, spec, MIXED_FEATURES)
         check_mixed(kernel, spec)
+    check_float64(kernel, spec)
+    if spec.dtype == torch.float64:
+        return _taylor2_f64(spec, params, x)
     check_paths(kernel, spec)
     check_call(kernel, spec, params, x)
     layers = spec.widths
@@ -453,6 +547,64 @@ def taylor2(
     return outs
 
 
+def _taylor2_f64(spec: MLPSpec, params: Params, x: torch.Tensor):
+    """K1's float64 mode: one launch of the narrow design on double."""
+    global F64_LAUNCHES
+    check_call("taylor2 float64", spec, params, x)
+    layers = spec.widths
+    cfg = launch_config(layers, dtype=torch.float64)
+    flat = pack_params(params)
+    n = x.shape[0]
+    outs = tuple(torch.empty((n, spec.out_dim), dtype=torch.float64, device=x.device)
+                 for _ in range(4))
+    if n == 0:
+        return outs
+    lib = _lib()
+    dims = (ctypes.c_int * len(layers))(*layers)
+    err = lib.pinns_taylor2_forward_f64(
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+        spec.ub[0], spec.ub[1], cfg.tile, cfg.threads, *(o.data_ptr() for o in outs),
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.pinns_cuda_error_string(err).decode()
+        raise RuntimeError(f"taylor2 float64 kernel launch failed: CUDA error {err} ({msg}); "
+                           f"{cfg}")
+    with _launches_lock:
+        F64_LAUNCHES += 1
+    return outs
+
+
+def _taylor2_backward_f64(spec: MLPSpec, params: Params, x: torch.Tensor,
+                          cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K2's float64 mode: the per-tile kernel and the block-order reduction,
+    from one host call."""
+    global F64_BACKWARD_LAUNCHES
+    check_call("taylor2 float64 backward", spec, params, x, *cotangents)
+    layers = spec.widths
+    n = x.shape[0]
+    grad = torch.empty(spec.n_params, dtype=torch.float64, device=x.device)
+    if n == 0:
+        return grad.zero_()
+    plan = f64_backward_plan(layers, n)
+    partials = torch.empty((plan.grid, plan.n_params), dtype=torch.float64, device=x.device)
+    pstore = torch.empty(plan.grid * plan.pstore, dtype=torch.float64, device=x.device)
+    lib = _backward_lib()
+    dims = (ctypes.c_int * len(layers))(*layers)
+    flat = pack_params(params)
+    err = lib.pinns_taylor2_backward_f64(
+        x.data_ptr(), n, flat.data_ptr(), dims, len(layers) - 1, spec.lb[0], spec.lb[1],
+        spec.ub[0], spec.ub[1], plan.grid, *(g.data_ptr() for g in cotangents),
+        partials.data_ptr(), pstore.data_ptr(), grad.data_ptr(), x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        msg = lib.pinns_taylor2_backward_error_string(err).decode()
+        raise RuntimeError(f"taylor2 float64 backward kernel launch failed: CUDA error {err} "
+                           f"({msg}); {plan}")
+    with _launches_lock:
+        F64_BACKWARD_LAUNCHES += 1
+    return grad
+
+
 def nets_from_flat(spec: MLPSpec, flat: torch.Tensor) -> List[Params]:
     """The member nets of an (E, S) buffer (S >= ``spec.n_params``) whose row
     m holds member m's :func:`pack_params`, as views of its rows."""
@@ -483,6 +635,7 @@ def taylor2_members(spec: MLPSpec, flat: torch.Tensor, x: torch.Tensor
     Float32 specs only; raises on anything else."""
     global MEMBER_LAUNCHES
     kernel = "taylor2 members"
+    check_float64(kernel, spec, mode=False)
     check_paths(kernel, spec)
     if spec.mixed:
         raise ValueError(f"the {kernel} kernel takes float32 specs; the member axis of K6 "
@@ -527,11 +680,12 @@ def taylor2_members_reference(spec: MLPSpec, flat: torch.Tensor, x: torch.Tensor
 
 def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
                      cotangents: Sequence[torch.Tensor]) -> torch.Tensor:
-    """K2, or K6's backward under a mixed spec (casts taken as identity): the
+    """K2, or K6's backward under a mixed spec (casts taken as identity), or
+    K2's float64 mode for a float64 spec (:func:`check_float64`): the
     flat gradient (``pack_params`` order) of sum over points of
     gu . u + gux . u_x + gut . u_t + guxx . u_xx, where ``cotangents`` =
-    (gu, gux, gut, guxx), each (N, out_dim) float32, contiguous, on ``x``'s
-    CUDA device. One host call that issues every product, elementwise pass
+    (gu, gux, gut, guxx), each (N, out_dim) in the spec's dtype, contiguous,
+    on ``x``'s CUDA device. One host call that issues every product, elementwise pass
     and the reduction (``backward_plan``); a shock-path net's gradient ends
     with its paths' (``pack_params`` order). Raises on anything the kernel
     does not take."""
@@ -542,6 +696,9 @@ def taylor2_backward(spec: MLPSpec, params: Params, x: torch.Tensor,
     if spec.mixed:
         refuse_features(kernel, spec, MIXED_FEATURES)
         check_mixed(kernel, spec)
+    check_float64(kernel, spec)
+    if spec.dtype == torch.float64:
+        return _taylor2_backward_f64(spec, params, x, cotangents)
     check_paths(kernel, spec)
     check_call(kernel, spec, params, x, *cotangents)
     layers = spec.widths
@@ -600,8 +757,9 @@ class _Taylor2(torch.autograd.Function):
 def mlp_taylor2_kernel(spec: MLPSpec, params: Params, x: torch.Tensor):
     """(u, u_x, u_t, u_xx) through K1 (K6 for a mixed spec), differentiable
     in the params through K2 (K6's backward), Fourier and shock-path
-    features included (float32). CUDA tensors only (the wrappers raise on
-    anything else)."""
+    features included (float32); a narrow float64 spec through K1's and
+    K2's float64 modes. CUDA tensors only (the wrappers raise on anything
+    else)."""
     return _Taylor2.apply(spec, x, *net_leaves(params))
 
 

@@ -32,6 +32,7 @@ import torch
 from pinns_tpu_torch.device import constant
 from pinns_tpu_torch.models.mlp import MLPSpec
 from pinns_tpu_torch.ops.kernels import build
+from pinns_tpu_torch.ops.kernels.taylor2 import FLOAT64_LATER
 from pinns_tpu_torch.ops.weakform import EPS, gauss_legendre
 
 EDGE_LAUNCHES = 0  # edge_points calls in this process (chip_smoke.py reads it)
@@ -72,6 +73,8 @@ def _check_quad(quad: int) -> None:
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape, device=None) -> None:
+    if t.dtype == torch.float64:
+        raise NotImplementedError(f"K7b: {name} is float64; K7b's float64 mode {FLOAT64_LATER}")
     if t.device.type != "cuda":
         raise ValueError(f"K7b takes CUDA tensors ({name} is on {t.device}); the plain "
                          "versions in ops.weakform are the CPU's")

@@ -18,7 +18,8 @@ derivative streams ("deriv") are quantized whenever the spec is mixed.
 
 ``mlp_taylor_2`` dispatches on the device of ``x``: a CPU tensor runs the
 plain PyTorch recurrence (``mlp_taylor_2_reference``); a CUDA tensor runs the
-fused kernel K1 (float32) or K6 (the mixed policy on float32 masters), each
+fused kernel K1 (float32, or its float64 mode for a narrow float64 spec:
+``polish``) or K6 (the mixed policy on float32 masters), each
 differentiable in the params through its backward kernel
 (``ops.kernels.taylor2``). Each either launches or raises.
 
@@ -136,8 +137,9 @@ def mlp_taylor_2(spec: MLPSpec, params: Params, x: torch.Tensor) -> Streams:
     """Value, first derivatives and second x-derivative of the MLP at x (N, 2).
 
     CPU tensors take the plain recurrence; anything else goes to the fused
-    kernels (K1/K2 for a float32 spec, K6 forward and backward for a mixed
-    one), which raise on what they cannot take.
+    kernels (K1/K2 for a float32 spec and their float64 modes for a narrow
+    float64 one, K6 forward and backward for a mixed one), which raise on
+    what they cannot take.
     """
     _check(spec)
     if x.device.type == "cpu":

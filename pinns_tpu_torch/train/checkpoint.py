@@ -6,7 +6,10 @@ on the machine with the card).
 params, Adam count/mu/nu, ADMM z/dual, the collocation batch, the Philox
 key, the epoch and the rho override. ``<path>.json`` holds the meta, as in
 the JAX package. Loading uses ``weights_only=True`` and puts every tensor on
-the requested device, so a run restores exactly and continues.
+the requested device, so a run restores exactly and continues. A load with
+a ``dtype`` also casts every floating leaf of the params, the batch and the
+ADMM state to it (``polish`` loads into float64); the Adam moments stay as
+they were saved, as JAX's ``state._replace`` keeps them.
 """
 
 from __future__ import annotations
@@ -37,20 +40,27 @@ def state_to_dict(state) -> dict:
     }
 
 
-def state_from_dict(d: dict, device):
+def state_from_dict(d: dict, device, dtype: Optional[torch.dtype] = None):
+    """The ``TrainState`` of ``state_to_dict`` on ``device``; with ``dtype``,
+    every floating leaf of the params, the batch and the ADMM state in it."""
     from pinns_tpu_torch.losses.admm import ADMMState
     from pinns_tpu_torch.opt.adam import AdamState
     from pinns_tpu_torch.train.trainer import TrainState
 
     dev = lambda t: t.to(device)  # noqa: E731
+
+    def cast(t):
+        t = t.to(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
     admm = d["admm"]
     return TrainState(
-        params=tree_map(dev, d["params"]),
+        params=tree_map(cast, d["params"]),
         opt_state=AdamState(count=int(d["adam"]["count"]), mu=tree_map(dev, d["adam"]["mu"]),
                             nu=tree_map(dev, d["adam"]["nu"])),
-        admm=None if admm is None else ADMMState(z=tree_map(dev, admm["z"]),
-                                                 dual=tree_map(dev, admm["dual"])),
-        colloc=dev(d["colloc"]),
+        admm=None if admm is None else ADMMState(z=tree_map(cast, admm["z"]),
+                                                 dual=tree_map(cast, admm["dual"])),
+        colloc=cast(d["colloc"]),
         key=int(d["key"]),
         epoch=int(d["epoch"]),
         rho=d["rho"],
@@ -64,11 +74,13 @@ def save_checkpoint(path: str, state, meta: Optional[Dict] = None) -> None:
         json.dump(meta or {}, fh)
 
 
-def load_checkpoint(path: str, device="cuda"):
+def load_checkpoint(path: str, device="cuda", dtype: Optional[torch.dtype] = None):
     """Restore the ``TrainState`` of ``save_checkpoint`` onto ``device`` (the
-    card unless the caller asks for the CPU; raises without one)."""
+    card unless the caller asks for the CPU; raises without one), its
+    floating params, batch and ADMM state in ``dtype`` when given."""
     device = resolve_device(device)
-    return state_from_dict(torch.load(path, map_location="cpu", weights_only=True), device)
+    return state_from_dict(torch.load(path, map_location="cpu", weights_only=True), device,
+                           dtype)
 
 
 def load_meta(path: str) -> Dict:

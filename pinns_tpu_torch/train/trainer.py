@@ -89,7 +89,10 @@ boundaries of the tail, ``Trainer.swa_params``, the summary's ``swa_*``
 entries and the ``swa`` checkpoint).
 
 What the port leaves to a later slice raises ``NotImplementedError`` with
-the slice's name: multi-GPU (slice 6). Ensembles and sweeps train through
+the slice's name: multi-GPU (slice 6), and float64 Adam training on the card
+(:func:`make_step`; a float64 trainer still builds, for ``train.polish`` and
+``evaluate``, and its L-BFGS solve takes K10's float64 mode over the float64
+modes of the narrow K1, K2 and K5). Ensembles and sweeps train through
 ``pinns_tpu_torch.parallel`` (slice 4a) and serve through
 ``serve.export_ensemble``.
 """
@@ -868,12 +871,26 @@ def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
     return step
 
 
+FLOAT64_ADAM_LATER = (
+    "float64 Adam training on the card is left to a later slice (ROADMAP queue 2: float64 in "
+    "K3, K9 and the generic epoch); the card's float64 path is polish's L-BFGS (python -m "
+    "pinns_tpu_torch polish), and --device cpu trains in float64")
+
+
+def _float64_adam_refused(state, out=None, new_colloc=None):
+    """The Adam step of a float64 trainer on the card: it raises, naming the
+    later slice (the trainer builds, for ``polish`` and ``evaluate``)."""
+    raise NotImplementedError(FLOAT64_ADAM_LATER)
+
+
 def make_step(problem: Problem, learning_rate):
     """The Adam step the trainer runs: on a CUDA device the fused CUDA step K3
     when the configuration is inside its scope, else the generic step over
     the kernel ops, which carries ``step.graphed`` (K9 for the generic
     step, ``ops.kernels.generic_chunk.GenericChunk``) inside
-    ``generic_chunk_supported``; on the CPU the plain step."""
+    ``generic_chunk_supported``; on the CPU the plain step. A float64
+    problem on the card gets a step that raises (:data:`FLOAT64_ADAM_LATER`):
+    its trainer serves ``polish`` and ``evaluate``."""
     if problem.device.type == "cuda":
         from pinns_tpu_torch.ops.kernels.fused_step import (
             fused_step_supported,
@@ -884,6 +901,8 @@ def make_step(problem: Problem, learning_rate):
             generic_chunk_supported,
         )
 
+        if problem.spec.dtype == torch.float64:
+            return _float64_adam_refused
         if not fused_step_supported(problem.exp, problem.spec):
             return make_fused_adam_step(problem, learning_rate)
         step = make_adam_step(problem, learning_rate)
@@ -902,14 +921,15 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     The solve runs over every param, frozen coefficients included (they get a
     zero gradient). On a CUDA device the solve runs on K10's kernels: a
     configuration inside ``ops.kernels.lbfgs.lbfgs_device_supported`` with
-    K3's value-and-grad (``DeviceLBFGS``), every other float32 one (the
-    Euler branch, ``euler_weak_tail``, among them) with autograd through the
-    loss as the evaluation (``AutogradLBFGS``); each reads the device only
-    for the done flag. The CPU, float64 and ``host_loop`` (the card's checks)
-    run the host loop ``opt.lbfgs.lbfgs_minimize`` over the loss under
-    autograd. The metrics rebuild the loss terms from the solver's own final
-    value: one forward of the data term, ``res_term = f - data_weight *
-    data_term``; ``lbfgs_iters`` is the solve's iteration count.
+    K3's value-and-grad (``DeviceLBFGS``), every other one (the Euler
+    branch, ``euler_weak_tail``, and float64 in K10's float64 mode over the
+    kernels' float64 modes among them) with autograd through the loss as the
+    evaluation (``AutogradLBFGS``); each reads the device only for the done
+    flag. The CPU and ``host_loop`` (the card's checks) run the host loop
+    ``opt.lbfgs.lbfgs_minimize`` over the loss under autograd. The metrics
+    rebuild the loss terms from the solver's own final value: one forward of
+    the data term, ``res_term = f - data_weight * data_term``;
+    ``lbfgs_iters`` is the solve's iteration count.
 
     On the card, a configuration inside
     ``ops.kernels.lbfgs.lbfgs_chunk_supported`` also carries
@@ -930,7 +950,7 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
 
         if not k_lbfgs.lbfgs_device_supported(exp, problem.spec):
             solver, k3 = k_lbfgs.DeviceLBFGS(problem), True
-        elif problem.spec.dtype == torch.float32:
+        else:
             solver = k_lbfgs.AutogradLBFGS()
 
     def step(state: TrainState, out: Optional[torch.Tensor] = None,
@@ -1326,4 +1346,7 @@ class Trainer:
         return path
 
     def load_checkpoint(self, path: str) -> TrainState:
-        return ckpt_io.load_checkpoint(path, self.device)
+        """The checkpoint on the trainer's device, its floating params, batch
+        and ADMM state in the working dtype (a float64 trainer loads into
+        float64 for ``polish``; a float32 one reads a polished checkpoint)."""
+        return ckpt_io.load_checkpoint(path, self.device, self.problem.spec.dtype)

@@ -2236,3 +2236,137 @@ def test_swa_trainer_on_card(cuda_device):  # noqa: F811
         mean = leaves if mean is None else [a + (x - a) / n for a, x in zip(mean, leaves)]
     for a, b in zip(k_taylor2.net_leaves(trainer.swa_params["net"]), mean):
         assert torch.equal(a, b)
+
+
+# -- the float64 modes (polish on the card) ----------------------------------
+
+F64_RTOL = 1e-12
+
+
+def _f64_net(layers, seed, device):
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB, dtype=torch.float64)
+    return spec, init_mlp(spec, torch.Generator().manual_seed(seed), device)
+
+
+def _hold_f64(got, plain):
+    for i, (a, b) in enumerate(zip(got, plain)):
+        assert a.dtype == torch.float64 and a.shape == b.shape, i
+        assert float((a - b).abs().max()) <= F64_RTOL * float(b.abs().max()), i
+
+
+@pytest.mark.parametrize("n", [1, 37, 10_456])
+def test_f64_taylor2_kernels_match_plain_on_card(cuda_device, n):  # noqa: F811
+    """K1's and K2's float64 modes at 8x20 against their float64 plain
+    versions within 1e-12 of max|plain| per stream and leaf; two calls
+    bit-equal; one launch of each a call."""
+    spec, net = _f64_net((2,) + (20,) * 8 + (1,), 41, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=42)).to(cuda_device).double()
+    rng = np.random.default_rng(43)
+    cot = [torch.from_numpy(rng.standard_normal((n, 1))).to(cuda_device) for _ in range(4)]
+    before = (k_taylor2.F64_LAUNCHES, k_taylor2.F64_BACKWARD_LAUNCHES, k_taylor2.LAUNCHES)
+    got, again = k_taylor2.taylor2(spec, net, x), k_taylor2.taylor2(spec, net, x)
+    grad = k_taylor2.taylor2_backward(spec, net, x, cot)
+    grad2 = k_taylor2.taylor2_backward(spec, net, x, cot)
+    torch.cuda.synchronize()
+    assert (k_taylor2.F64_LAUNCHES, k_taylor2.F64_BACKWARD_LAUNCHES, k_taylor2.LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(grad, grad2)
+    _hold_f64(got, mlp_taylor_2_reference(spec, net, x))
+    _hold_f64(k_taylor2.split_grad(grad, k_taylor2.net_leaves(net)),
+              k_taylor2.taylor2_backward_reference(spec, net, x, cot))
+
+
+@pytest.mark.parametrize("n", [1, 100, 25_600])
+def test_f64_mlp_kernels_match_plain_on_card(cuda_device, n):  # noqa: F811
+    from pinns_tpu_torch.models.mlp import mlp_apply_reference
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+
+    spec, net = _f64_net((2,) + (20,) * 8 + (1,), 44, cuda_device)
+    x = torch.from_numpy(numpy_points(n, seed=45)).to(cuda_device).double()
+    g = torch.from_numpy(np.random.default_rng(46).standard_normal((n, 1))).to(cuda_device)
+    u, grad = k_mlp.mlp_forward(spec, net, x), k_mlp.mlp_backward(spec, net, x, g)
+    assert torch.equal(grad, k_mlp.mlp_backward(spec, net, x, g))
+    _hold_f64([u], [mlp_apply_reference(spec, net, x)])
+    _hold_f64(k_taylor2.split_grad(grad, k_taylor2.net_leaves(net)),
+              k_mlp.mlp_backward_reference(spec, net, x, g))
+
+
+@pytest.mark.parametrize("count", [0, 7, 50])
+def test_k10_f64_kernels_equal_their_plain_versions_on_card(cuda_device, count):  # noqa: F811
+    """K10's float64 mode at 8x20's n with a history of 50 (the streamed
+    layout): the direction and control kernels bit for bit against their
+    float64 plain versions on a seeded state."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+    n, m = 3_023, 50
+    assert not k_lbfgs.cluster_plan(n, m, 8).resident
+    b = k_lbfgs.seeded_state(n, m, count, 9, seed=count, device=cuda_device,
+                             dtype=torch.float64)
+    for kernel, plain in ((k_lbfgs.direction, k_lbfgs.direction_reference),
+                          (k_lbfgs.control, k_lbfgs.control_reference)):
+        if kernel is k_lbfgs.control:
+            b.vec[k_lbfgs.GT] = torch.from_numpy(
+                np.random.default_rng(count).standard_normal(n)).to(cuda_device)
+            b.sf[k_lbfgs.F_PHI_T] = 0.5
+        twin = b.clone()
+        kernel(b)
+        plain(twin)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(b.tensors(), twin.tensors()))
+
+
+def test_polish_on_card(cuda_device, tmp_path):  # noqa: F811
+    """polish of a short burgers_forward run at 8x20 on the card: the
+    float64 modes launched, no host loop, no float32 kernel, the loss no
+    higher; the CLI writes the polished checkpoint."""
+    import json as _json
+
+    from pinns_tpu_torch.cli import main as cli_main
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+
+    sets = ["--set", "sampling.n_f=2000", "--set", "optimizer.kind=adam"]
+    assert cli_main(["train", "--preset", "burgers_forward", *sets, "--epochs", "500",
+                     "--out-dir", str(tmp_path)]) == 0
+    ckpt = str(tmp_path / "burgers_forward_final.ckpt")
+    before = (k_taylor2.F64_LAUNCHES, k_taylor2.F64_BACKWARD_LAUNCHES, k_mlp.F64_LAUNCHES,
+              k_lbfgs.CONTROL_F64_LAUNCHES, host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES,
+              k_lbfgs.CONTROL_LAUNCHES)
+    assert cli_main(["polish", "--preset", "burgers_forward", *sets, "--checkpoint", ckpt,
+                     "--max-iters", "50"]) == 0
+    after = (k_taylor2.F64_LAUNCHES, k_taylor2.F64_BACKWARD_LAUNCHES, k_mlp.F64_LAUNCHES,
+             k_lbfgs.CONTROL_F64_LAUNCHES, host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES,
+             k_lbfgs.CONTROL_LAUNCHES)
+    assert all(a > b for a, b in zip(after[:4], before[:4]))
+    steps = after[3] - before[3]
+    assert after[4] - before[4] == steps // k_lbfgs.STEPS_PER_REPLAY  # flag reads only
+    assert after[6] == before[6]
+    with open(ckpt + ".polished.ckpt.json") as fh:
+        assert _json.load(fh) == {"polished": True}
+
+
+@pytest.mark.parametrize("what", ["k1_tiled", "k2_wide", "k5_wide", "k7a", "adam"])
+def test_f64_outside_the_modes_raises_on_card(cuda_device, what):  # noqa: F811
+    from pinns_tpu_torch.ops.kernels import mlp_forward as k_mlp
+    from pinns_tpu_torch.ops.kernels import taylor1 as k_taylor1
+
+    x = torch.zeros(8, 2, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        if what == "adam":
+            from pinns_tpu_torch.config import override
+            from pinns_tpu_torch.experiments import get_preset
+            from pinns_tpu_torch.train.trainer import Trainer
+
+            trainer = Trainer(override(get_preset("abgrall_admm"), {"model.dtype": "float64",
+                                                                    "train.epochs": 2}))
+            trainer.train()
+        elif what == "k7a":
+            spec, net = _f64_net((2, 20, 20, 3), 47, cuda_device)
+            k_taylor1.taylor1(spec, net, x)
+        else:
+            spec, net = _f64_net((2, 40, 40, 1), 48, cuda_device)
+            cot = [x[:, :1].contiguous()] * 4
+            {"k1_tiled": lambda: k_taylor2.taylor2(spec, net, x),
+             "k2_wide": lambda: k_taylor2.taylor2_backward(spec, net, x, cot),
+             "k5_wide": lambda: k_mlp.mlp_forward(spec, net, x)}[what]()

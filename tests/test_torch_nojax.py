@@ -29,7 +29,7 @@ MODULES = [
     "pinns_tpu_torch.ops.kernels.lbfgs", "pinns_tpu_torch.train.schedule",
     "pinns_tpu_torch.ops.kernels.sampling", "pinns_tpu_torch.ops.kernels.generic_chunk",
     "pinns_tpu_torch.ops.kernels.ensemble", "pinns_tpu_torch.parallel.ensemble",
-    "pinns_tpu_torch.parallel.sweep",
+    "pinns_tpu_torch.parallel.sweep", "pinns_tpu_torch.train.polish",
 ]
 
 
