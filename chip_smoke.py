@@ -373,6 +373,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             device time, launches and syncs an iteration, the idle share;
             each float64 mode by CUDA events beside its plain version and
             its bound at 34 TFLOP/s float64 or 3.35 TB/s
+  47 dp     slice 6: ``python -m torch.distributed.run --nproc-per-node
+            <torch.cuda.device_count()> scripts/dp_smoke.py`` (NCCL, one
+            process a card): K3's data-parallel reduce and apply modes
+            against their plain versions (8x20 'admm', 8x200 'l1_sq_norm';
+            the apply mode bit for bit), the ranks' K11 draws at their row
+            offsets bit-equal to one launch of the whole batch, abgrall_admm
+            through Trainer.train under the data-parallel path (2,000 Adam
+            epochs replayed from K9's graphs with the NCCL all-reduces
+            captured, every reduce and apply launch and all-reduce counted,
+            the ranks' losses equal; at one rank bit-equal to the one-card
+            run, at more its gathered batch; then L-BFGS outer epochs on
+            DeviceLBFGS, K3's value-and-grad split around its all-reduce), burgers_forward's generic step data-parallel on
+            K9's generic graph (the all-reduce captured), a burgers_scale
+            epoch at 1,048,576 points and
+            euler_weak_fast --ensemble 8 with its members over the ranks,
+            timed; a failed rank fails the phase
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -6626,6 +6642,74 @@ def phase_polish(card: str) -> dict:
     return out
 
 
+# -- 47 dp: slice 6, data parallelism over NCCL (scripts/dp_smoke.py) ----------
+DP_TIMEOUT = 600  # seconds for the torchrun call (about 60 s at one card)
+
+
+def phase_dp(card: str) -> dict:
+    """scripts/dp_smoke.py under torchrun, one process a card of this
+    machine; the result object it writes. The launcher runs in a session of
+    its own, killed with its workers if it outlives DP_TIMEOUT."""
+    import signal
+    import socket
+
+    n = torch.cuda.device_count()
+    # the ranks are other processes on these cards: hand back this one's cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dp_smoke.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+               "--master-port", str(port), os.path.join(ROOT, "scripts", "dp_smoke.py"),
+               "--out", out]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            log, _ = proc.communicate()
+            raise RuntimeError(f"chip_smoke: dp_smoke outlived {DP_TIMEOUT} s:\n{log[-4000:]}")
+        check(proc.returncode == 0, f"dp_smoke failed ({proc.returncode}):\n{log[-6000:]}")
+        with open(out) as fh:
+            res = json.load(fh)
+    check(res["world"] == n, f"dp_smoke ran {res['world']} ranks on {n} cards")
+    emit(card, phase="dp", world=n, modes=res["modes"], draws=res["draws"],
+         main={k: v for k, v in res["main"].items() if k != "phase_s"},
+         generic=res["generic"], scale=res["scale"], ensemble=res["ensemble"],
+         multi_gpu=n > 1, note=None if n > 1 else "one card: not multi-GPU evidence")
+    return res
+
+
+def dp_entries(dp: dict) -> list:
+    """The kernels line's entries of K3's data-parallel modes (phase 47):
+    launches from the data-parallel main path, the narrow design's error,
+    times and bounds, and the wide design's beside them."""
+    out = []
+    for mode in ("reduce", "apply"):
+        narrow, wide = dp["modes"]["narrow_8x20"], dp["modes"]["wide_8x200"]
+        out.append({
+            "name": f"fused_step_dp_{mode}",
+            "route": "cuda",
+            "source": "pinns_tpu_torch/csrc/fused_step.cu",
+            "replaces": "3266821^:pinns_tpu/ops/pallas/fused_step.py:304",
+            "launches": dp["main"]["counts"][f"dp_{mode}"],
+            "max_abs_err": narrow[f"{mode}_max_abs_err"],
+            "ms": narrow[f"{mode}_ms"],
+            "plain_ms": narrow[f"{mode}_plain_ms"],
+            **bound_fields(narrow[f"{mode}_bound"]),
+            "ranks": dp["world"],
+            "rows_per_rank": narrow["n_local"],
+            "wide_8x200": {"max_abs_err": wide[f"{mode}_max_abs_err"],
+                           "ms": wide[f"{mode}_ms"], "plain_ms": wide[f"{mode}_plain_ms"],
+                           **bound_fields(wide[f"{mode}_bound"])},
+        })
+    return out
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6866,6 +6950,8 @@ def main() -> int:
 
     # -- 46: the float64 modes of K1, K2, K5 and K10, and polish on the card
     pol = timed(card, "polish", phase_polish, card)
+
+    dp = timed(card, "dp", phase_dp, card)
 
     def feat(counter, family, layers, n, f, k, which, run):
         return feature_entry(fruns, counter, feats, (family, layers, n, f, k), which, run)
@@ -7214,6 +7300,7 @@ def main() -> int:
         f"n{K11_NS[1]}": {"ms": generic["k11"][K11_NS[1]][0],
                           "plain_ms": generic["k11"][K11_NS[1]][1],
                           **bound_fields(generic["k11"][K11_NS[1]][2])},
+        "row_offset_union_bit_equal": dp["draws"],
     }, {
         # K9 for the generic step: launches = phase 22's first run's graph
         # replays; max_abs_err over phase 41's chunks against the per-epoch
@@ -7257,7 +7344,8 @@ def main() -> int:
         ("mlp_backward_f64", "mlp_forward.cu", "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103"),
         ("lbfgs_control_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"),
         ("lbfgs_direction_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:167"),
-        ("lbfgs_reset_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"))]}), flush=True)
+        ("lbfgs_reset_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"))] + dp_entries(dp)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,9 @@
                                                   train; prints the JSON summary
   train    --preset NAME --ensemble E [--select] [--resume PREFIX] [...]
                                                   E members, seeds S .. S + E - 1
+  python -m torch.distributed.run --nproc-per-node N -m pinns_tpu_torch train
+           --preset NAME --mesh-data D [--ensemble E] [...]
+                                                  D ranks a model; members over N / D
   sweep    --preset NAME --grid KEY=V1,V2,... [--grid ...] [--retries R] [--out F.jsonl]
            [--epochs N] [--serial] [--set ...] [--device cuda|cpu]
                                                   the cartesian grid; one line a config
@@ -45,7 +48,18 @@ inside the fused step's narrow scope is one call of K8 for all members, any
 other runs each member's solo step in turn); each member prints its summary
 line, and ``--select`` prints the member that the ground-truth-free score
 picks. ``--resume PREFIX`` continues the ``PREFIX_m<i>.ckpt`` set that
-``train.checkpoint_every`` wrote. ``sweep`` runs the cartesian product of the
+``train.checkpoint_every`` wrote.
+
+Under torchrun (one process a card, NCCL; gloo with ``--device cpu``)
+``train --mesh-data D`` (default ``mesh.data_parallel``) trains one model
+data-parallel over the D ranks (``parallel.sharding``): each rank its rows
+of the collocation batch, the gradients summed by an all-reduce; every rank
+prints its summary line with its final ``loss`` (the same on every rank),
+data rank 0's with the evaluation. Checkpoints are whole (written by rank 0)
+and ``--resume`` cuts them to the ranks' rows again. With ``--ensemble E``
+the world's N / D ensemble coordinates each train their block of the
+members (data-parallel when D > 1), and rank 0 prints every member's line.
+A mesh larger than the world raises. ``sweep`` runs the cartesian product of the
 ``--grid`` lists (``parallel.sweep.run_sweep``): configurations that differ
 only in ``train.seed`` and ``loss.rho`` train as one ensemble; it exits 1 if
 any configuration failed.
@@ -84,6 +98,7 @@ from __future__ import annotations
 import argparse
 import ast
 import json
+import os
 import sys
 
 import numpy as np
@@ -121,6 +136,26 @@ def _build_exp(args):
     return override(get_preset(args.preset), updates)
 
 
+def _mesh(args, n: int, data: int):
+    """The process mesh of ``train`` (None for one process without a data
+    axis): ``--mesh-data`` ranks a model, the rest of the world on the
+    ensemble axis, the members spread over it. Joins torchrun's process
+    group first (``parallel.mesh.multihost_init``). A mesh larger than the
+    world raises ``ValueError``. Returns (mesh, this rank's device)."""
+    from pinns_tpu_torch.parallel.mesh import make_mesh, multihost_init
+
+    _, size, device = multihost_init(args.device)
+    if "WORLD_SIZE" not in os.environ and data == 1:
+        return None, device
+    mesh = make_mesh(data=data, ensemble=max(size // data, 1))
+    if mesh.size != size:
+        raise SystemExit(f"--mesh-data {data} does not divide the world of {size} ranks")
+    if n == 1 and mesh.ensemble > 1:
+        raise SystemExit(f"one model over {size} ranks with --mesh-data {data}: launch {data} "
+                         "processes, or train an ensemble (--ensemble E)")
+    return mesh, device
+
+
 def cmd_train(args) -> int:
     from pinns_tpu_torch.train.trainer import Trainer
 
@@ -128,41 +163,63 @@ def cmd_train(args) -> int:
     n = exp.mesh.ensemble if args.ensemble is None else args.ensemble
     if n < 1:
         raise SystemExit(f"--ensemble takes a member count of at least 1, got {n}")
-    trainer = Trainer(exp, device=args.device, dataset=args.data)
+    data = exp.mesh.data_parallel if args.mesh_data is None else args.mesh_data
+    if data < 1:
+        raise SystemExit(f"--mesh-data takes a rank count of at least 1, got {data}")
+    mesh, device = _mesh(args, n, data)
+    trainer = Trainer(exp, device=device, dataset=args.data)
     if n == 1:
         if args.select:
             raise SystemExit("--select picks a member of an ensemble: pass --ensemble E > 1")
         state = trainer.load_checkpoint(args.resume) if args.resume else None
+        if mesh is not None:
+            from pinns_tpu_torch.parallel.sharding import place_state, shard_trainer
+
+            shard_trainer(trainer, mesh)
+            if state is not None:  # the whole checkpoint, cut to this rank's rows
+                state = place_state(state, mesh)
         _, summary = trainer.train(state)
         print(json.dumps(summary), flush=True)
         return 0
-    return _train_ensemble(args, exp, trainer, n)
+    return _train_ensemble(args, exp, trainer, n, mesh)
 
 
-def _train_ensemble(args, exp, trainer, n: int) -> int:
+def _train_ensemble(args, exp, trainer, n: int, mesh=None) -> int:
     """``train --ensemble n``: members of seeds train.seed + i, each one's
-    summary line, then the pick of ``--select``."""
-    import os
-
+    summary line, then the pick of ``--select``. Over a mesh each ensemble
+    coordinate trains its members (``parallel.ensemble.mesh_members``) and
+    rank 0 prints every member's line."""
     from pinns_tpu_torch.parallel.ensemble import (
+        mesh_members,
         run_ensemble,
         select_member,
         selection_scores,
         stack_states,
     )
 
+    if args.select and mesh is not None and mesh.ensemble > 1:
+        raise SystemExit("--select scores every member on one card; members spread over "
+                         f"{mesh.ensemble} ensemble coordinates are not gathered for it yet "
+                         "(slice 6b, ROADMAP queue 2): run --select on one card or on "
+                         "--mesh-data alone")
     seeds = [exp.train.seed + i for i in range(n)]
     stacked = None
-    if args.resume:
+    ids = mesh_members(n, mesh)
+    if args.resume and ids:
         members = []
-        for i in range(n):
+        for i in ids:
             path = f"{args.resume}_m{i}.ckpt"
             if not os.path.exists(path):
                 raise SystemExit(f"ensemble resume: missing member checkpoint {path} "
                                  "(--resume takes the prefix of the _m<i>.ckpt set)")
             members.append(trainer.load_checkpoint(path))
         stacked = stack_states(members)
-    stacked, summaries = run_ensemble(trainer, seeds, stacked=stacked)
+    if mesh is None:
+        stacked, summaries = run_ensemble(trainer, seeds, stacked=stacked)
+    else:
+        stacked, summaries = run_ensemble(trainer, seeds, stacked=stacked, mesh=mesh)
+        if mesh.rank != 0:
+            return 0
     for seed, summary in zip(seeds, summaries):
         print(json.dumps(dict(summary, seed=seed)), flush=True)
     if args.select:
@@ -479,6 +536,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", metavar="CKPT",
                    help="continue this checkpoint from its epoch to the schedule's end; "
                         "with --ensemble, the PREFIX of the <prefix>_m<i>.ckpt set")
+    p.add_argument("--mesh-data", type=int, default=None, metavar="D",
+                   help="train each model data-parallel over D ranks (launch one process a "
+                        "card with python -m torch.distributed.run; default: "
+                        "mesh.data_parallel)")
     p.add_argument("--ensemble", type=int, default=None, metavar="E",
                    help="train E members, seeds train.seed .. train.seed + E - 1 "
                         "(default: mesh.ensemble)")

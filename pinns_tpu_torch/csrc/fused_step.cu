@@ -149,6 +149,9 @@
 // With a non-null `skip` both launches return at once while *skip != 0 (the
 // solve's done flag), so that a captured solve step costs nothing after the
 // end. The epoch path never sets either, so its arithmetic is unchanged.
+// Under data parallelism it splits as the epoch does: the reduce mode's two
+// launches write the rank's sums, and after their all-reduce the apply mode's
+// Adam-kernel launch writes the loss and the gradient of the whole batch.
 //
 // The post-update mode (pinns_fused_post_update; the narrow design, one
 // member): what follows one of K10's L-BFGS outer solves
@@ -177,6 +180,29 @@
 // graph serves every seed and rho. The epoch path never sets post_update,
 // so its arithmetic is unchanged.
 //
+// The data-parallel modes (slice 6; ops/kernels/fused_step.py::dp_epoch; the
+// narrow and the wide design, one member): a rank of a data-parallel run
+// holds rows [row0, row0 + n_f) of a batch of n_f_all rows. Its epoch is
+// three host calls around two all-reduces over the ranks' `sums` (doubles):
+//   reduce   (kDp 1) the grad kernel over the rank's rows (its data tiles
+//            only on the rank that owns the data term: data_tiles), then
+//            the Adam kernel's sums without the step: res and dat of every
+//            parameter and the loss's S and D, in the fused kernel's order,
+//            into sums[0, 2 n_params + 2);
+//   -- all-reduce of sums[0, 2 n_params + 2) over the ranks --
+//   apply    (kDp 2) the Adam kernel from the summed sums (g = S res + dat
+//            or res + dat, the metrics, Adam), the tail over the rank's rows
+//            (Philox's counter row0 + i: the rank draws exactly its rows of
+//            the one-card batch), and the finalize kernel's sum of the
+//            tiles' |f - z| into sums[2 n_params + 2], with no metric and
+//            no cursor step;
+//   -- all-reduce of sums[2 n_params + 2] --
+//   finalize (kDp 3) admm_misfit = that sum / n_f_all, then (K9) the cursor.
+// Every normalizer (the seeds' 2 / N_f, res_term, the misfit) is n_f_all;
+// the prox threshold comes from the host with it. At one rank (n_f_all =
+// n_f, row0 = 0) the three calls give the fused epoch's bits: the same sums
+// in the same order, cast and combined by the same operations.
+//
 // The Adam and tail arithmetic rounds after every operation (no contraction),
 // as the plain PyTorch step does.
 
@@ -203,6 +229,7 @@ constexpr int kPts = kEwRows;
 constexpr int kMetricLoss = 5, kMetricData = 1, kMetricRes = 6, kMetricMisfit = 0;
 constexpr int kMetricLam1 = 2, kMetricLam2 = 3, kMetricLbfgs = 4;
 enum Kind { kAdmm = 0, kMeanSq = 1, kL2Sq = 2, kL1Sq = 3 };
+enum DpMode { kDpNone = 0, kDpReduce = 1, kDpApply = 2, kDpFinalize = 3 };
 
 // One member of a member-batched narrow call (K8): its Philox seed's words,
 // its ADMM rho and its prox threshold 1/(rho N_f), each as float32.
@@ -233,6 +260,7 @@ struct Step {
   const int* skip;          // value_and_grad: launches return while *skip != 0 (or null)
   const float* f_in;        // post_update: the solve's f (K10's sf[F_F])
   const int* iters_in;      // post_update: the solve's iterations (K10's si[I_K])
+  double* sums;             // dp: res (n_params), dat (n_params), S, D, the misfit's sum
   float* partials;          // narrow scratch [n_grad_blocks][n_params + 1]
   float* tail_partials;     // narrow scratch [n_tail_blocks]
   const Member* members;    // narrow: one entry a member, or null (a solo call: the scalars)
@@ -246,6 +274,10 @@ struct Step {
   int nb_tail_data;         // post_update: the tail's data tiles, after its nb_tail
   int value_and_grad;       // K10: the grad kernel and the partials' sum only
   int post_update;          // K10's outer epoch: the tail and the finalize only
+  int dp;                   // DpMode
+  int n_f_all;              // the normalizers' row count (n_f but under dp)
+  int row0;                 // Philox's counter of the first row (0 but under dp)
+  int data_tiles;           // whether this call counts the data term (1 but under dp)
   unsigned seed_lo, seed_hi, epoch_lo, epoch_hi;
 };
 
@@ -536,10 +568,11 @@ grad_kernel(Net net, Step call) {
             val += dual * f;
           }
         } else if (st.kind == kL1Sq) {
-          gf = 2.0f * static_cast<float>((f > 0.0f) - (f < 0.0f)) / static_cast<float>(st.n_f);
+          gf = 2.0f * static_cast<float>((f > 0.0f) - (f < 0.0f)) /
+               static_cast<float>(st.n_f_all);
           val = fabsf(f);
         } else {  // mean_sq, l2_sq_norm
-          gf = 2.0f * f / static_cast<float>(st.n_f);
+          gf = 2.0f * f / static_cast<float>(st.n_f_all);
           val = f * f;
         }
         gu = gf * st.lam1 * ux;
@@ -632,7 +665,9 @@ grad_kernel(Net net, Step call) {
 // rows; the groups' sums are joined in group order. Then a thread a
 // parameter: g = S res + dat (l1_sq_norm) or res + dat, rounded once, and
 // Adam (optax's scale_by_adam + scale(-lr)), one rounding per operation.
-// Thread 0 of block 0 writes the loss metrics.
+// Thread 0 of block 0 writes the loss metrics. The data-parallel reduce mode
+// writes the four sums to st.sums and stops; the apply mode takes them from
+// st.sums (summed over the ranks) in place of the partials.
 __global__ void __launch_bounds__(kAdamCols * kAdamGroups)
 adam_kernel(Net net, Step call) {
   if (call.skip != nullptr && *call.skip != 0) return;
@@ -640,33 +675,55 @@ adam_kernel(Net net, Step call) {
   __shared__ double red[4][kAdamGroups][kAdamCols];
   const int c = threadIdx.x % kAdamCols, grp = threadIdx.x / kAdamCols;
   const int i = blockIdx.x * kAdamCols + c;
-  const int nb = st.nb_f + st.nb_u;
-  const long long row = net.n_params + 1;
-  const float* col = st.partials + (i < net.n_params ? i : net.n_params);
-  const float* loss = st.partials + net.n_params;
+  const long long P = net.n_params;
   double sum[4] = {0.0, 0.0, 0.0, 0.0};  // res, dat of the column; S, D of the loss
+  if (st.dp == kDpApply) {
+    if (grp != 0) return;
+    if (i < net.n_params) {
+      sum[0] = st.sums[i];
+      sum[1] = st.sums[P + i];
+    }
+    sum[2] = st.sums[2 * P];
+    sum[3] = st.sums[2 * P + 1];
+  } else {
+    const int nb = st.nb_f + st.nb_u;
+    const long long row = net.n_params + 1;
+    const float* col = st.partials + (i < net.n_params ? i : net.n_params);
+    const float* loss = st.partials + net.n_params;
 #pragma unroll 4
-  for (int b = grp; b < st.nb_f; b += kAdamGroups) {
-    sum[0] += col[b * row];
-    sum[2] += loss[b * row];
-  }
+    for (int b = grp; b < st.nb_f; b += kAdamGroups) {
+      sum[0] += col[b * row];
+      sum[2] += loss[b * row];
+    }
 #pragma unroll 2
-  for (int b = st.nb_f + grp; b < nb; b += kAdamGroups) {
-    sum[1] += col[b * row];
-    sum[3] += loss[b * row];
-  }
+    for (int b = st.nb_f + grp; b < nb; b += kAdamGroups) {
+      sum[1] += col[b * row];
+      sum[3] += loss[b * row];
+    }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) red[q][grp][c] = sum[q];
-  __syncthreads();
-  if (grp != 0) return;
+    for (int q = 0; q < 4; ++q) red[q][grp][c] = sum[q];
+    __syncthreads();
+    if (grp != 0) return;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    sum[q] = red[q][0][c];
-    for (int g = 1; g < kAdamGroups; ++g) sum[q] += red[q][g][c];
+    for (int q = 0; q < 4; ++q) {
+      sum[q] = red[q][0][c];
+      for (int g = 1; g < kAdamGroups; ++g) sum[q] += red[q][g][c];
+    }
+    if (st.dp == kDpReduce) {
+      if (i < net.n_params) {
+        st.sums[i] = sum[0];
+        st.sums[P + i] = sum[1];
+      }
+      if (i == 0) {
+        st.sums[2 * P] = sum[2];
+        st.sums[2 * P + 1] = sum[3];
+      }
+      return;
+    }
   }
   const double res = sum[0], dat = sum[1], S = sum[2], D = sum[3];
   if (i == 0) {
-    const float n_f = static_cast<float>(st.n_f);
+    const float n_f = static_cast<float>(st.n_f_all);
     const float Sf = static_cast<float>(S);
     const float data_term = static_cast<float>(D) / static_cast<float>(st.n_u);
     float res_term = Sf;  // admm: sum of the per-point penalties
@@ -753,7 +810,7 @@ tail_kernel(Net net, Step call) {
         tv = st.new_colloc[2 * i + 1];
       } else {
         const uint4 r = philox4x32_10(
-            make_uint4(static_cast<unsigned>(i), st.epoch_lo, st.epoch_hi, 0u),
+            make_uint4(static_cast<unsigned>(st.row0 + i), st.epoch_lo, st.epoch_hi, 0u),
             make_uint2(st.seed_lo, st.seed_hi));
         const float u0 = static_cast<float>(r.x >> 8) * 5.9604644775390625e-08f;
         const float u1 = static_cast<float>(r.y >> 8) * 5.9604644775390625e-08f;
@@ -803,16 +860,30 @@ __device__ __forceinline__ double warp_sum_ordered(const float* parts, int n, in
 // the tail's per-tile sums (warp_sum_ordered); in the post-update mode (one
 // member) the same warp then sums the data tiles' parts the same way and
 // writes the rest of the metrics row; then (K9) the cursor on to the next
-// epoch once every warp has read it.
+// epoch once every warp has read it. The data-parallel apply mode writes the
+// tiles' sum to st.sums[2 n_params + 2] and stops; the finalize mode divides
+// that sum (over the ranks) into the misfit.
 __global__ void finalize_kernel(Net net, Step call, int n_members) {
   const Step at = at_cursor(call);
   const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  double* misfit_sum = at.sums == nullptr ? nullptr : at.sums + 2LL * net.n_params + 2;
   for (int m = threadIdx.x / 32; m < n_members; m += warps) {
     const Step st = member_step(net, at, m);
     float misfit = 0.0f;
     if (st.kind == kAdmm) {
-      misfit = static_cast<float>(warp_sum_ordered(st.tail_partials, st.nb_tail, lane)) /
-               static_cast<float>(st.n_f);
+      double sum = 0.0;
+      if (st.dp == kDpFinalize) {
+        sum = *misfit_sum;
+      } else {
+        sum = warp_sum_ordered(st.tail_partials, st.nb_tail, lane);
+      }
+      if (st.dp == kDpApply) {
+        if (lane == 0) *misfit_sum = sum;
+        continue;
+      }
+      misfit = static_cast<float>(sum) / static_cast<float>(st.n_f_all);
+    } else if (st.dp == kDpApply) {
+      continue;
     }
     if (lane == 0) st.metrics[kMetricMisfit] = misfit;
     if (!st.post_update) continue;
@@ -828,7 +899,7 @@ __global__ void finalize_kernel(Net net, Step call, int n_members) {
       st.metrics[kMetricLbfgs] = static_cast<float>(*st.iters_in);
     }
   }
-  if (call.cursor == nullptr) return;
+  if (call.cursor == nullptr || call.dp == kDpApply) return;
   __syncthreads();
   if (threadIdx.x == 0) *call.cursor += 1;
 }
@@ -856,19 +927,25 @@ int narrow_epoch(const Net& net, Step st, int n_members, bool launch_only, cudaS
     return static_cast<int>(cudaErrorInvalidValue);
   }
   st.nb_f = (st.n_f + st.tile - 1) / st.tile;
-  st.nb_u = (st.n_u + st.tile - 1) / st.tile;
+  st.nb_u = st.data_tiles ? (st.n_u + st.tile - 1) / st.tile : 0;
   st.nb_tail = (st.n_f + st.tail_tile - 1) / st.tail_tile;
   if (!launch_only) {
     PINNS_CHECK(allow_smem(grad_kernel, gsm));
     PINNS_CHECK(allow_smem(tail_kernel, tsm));
   }
   const unsigned E = static_cast<unsigned>(n_members);
-  grad_kernel<<<dim3(st.nb_f + st.nb_u, E), kThreads, gsm, s>>>(net, st);
-  PINNS_CHECK(cudaGetLastError());
+  if (st.dp == kDpFinalize) {
+    finalize_kernel<<<1, 256, 0, s>>>(net, st, n_members);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (st.dp != kDpApply) {
+    grad_kernel<<<dim3(st.nb_f + st.nb_u, E), kThreads, gsm, s>>>(net, st);
+    PINNS_CHECK(cudaGetLastError());
+  }
   adam_kernel<<<dim3((net.n_params + kAdamCols - 1) / kAdamCols, E), kAdamCols * kAdamGroups, 0,
                 s>>>(net, st);
   PINNS_CHECK(cudaGetLastError());
-  if (st.value_and_grad) return 0;  // K10: the loss and the gradient, nothing more
+  if (st.value_and_grad || st.dp == kDpReduce) return 0;  // the sums, nothing more
   const int tail_need = (st.tail_tile * ((net.max_width + 1) / 2) + 31) / 32 * 32;
   const int tail_threads = tail_need > kTailThreads ? tail_need : kTailThreads;
   tail_kernel<<<dim3(st.nb_tail, E), tail_threads, tsm, s>>>(net, st);
@@ -966,7 +1043,7 @@ __global__ void draw_kernel(Step call, int nf_pad, float4* __restrict__ H) {
         tv = st.new_colloc[2 * i + 1];
       } else {
         const uint4 w = philox4x32_10(
-            make_uint4(static_cast<unsigned>(i), st.epoch_lo, st.epoch_hi, 0u),
+            make_uint4(static_cast<unsigned>(st.row0 + i), st.epoch_lo, st.epoch_hi, 0u),
             make_uint2(st.seed_lo, st.seed_hi));
         const float u0 = static_cast<float>(w.x >> 8) * 5.9604644775390625e-08f;
         const float u1 = static_cast<float>(w.y >> 8) * 5.9604644775390625e-08f;
@@ -1060,10 +1137,11 @@ seed_kernel(const float* __restrict__ head, Step st, Rows rw, float* __restrict_
           val += dual * f;
         }
       } else if (st.kind == kL1Sq) {
-        gf = 2.0f * static_cast<float>((f > 0.0f) - (f < 0.0f)) / static_cast<float>(st.n_f);
+        gf = 2.0f * static_cast<float>((f > 0.0f) - (f < 0.0f)) /
+             static_cast<float>(st.n_f_all);
         val = fabsf(f);
       } else {  // mean_sq, l2_sq_norm
-        gf = 2.0f * f / static_cast<float>(st.n_f);
+        gf = 2.0f * f / static_cast<float>(st.n_f_all);
         val = f * f;
       }
       gu = gf * st.lam1 * ux;
@@ -1166,15 +1244,30 @@ struct Reduce {
 
 // One thread per parameter: its gradient from the collocation sums (scaled
 // by S = sum |f| for 'l1_sq_norm') and the data sums, rounded once, then
-// Adam as the narrow adam_kernel; thread 0 writes the loss metrics.
+// Adam as the narrow adam_kernel; thread 0 writes the loss metrics. The
+// data-parallel modes as the narrow adam_kernel's: reduce writes res, dat,
+// S and D (the data segment's sums only where data_tiles) to st.sums and
+// stops; apply takes them from st.sums.
 __global__ void wide_adam_kernel(Net net, Step call, Reduce rd) {
   const Step st = at_cursor(call);
-  double S = 0.0, D = 0.0;
-  for (int c = 0; c < rd.tiles_f; ++c) S += rd.loss_part[c];
-  for (int c = rd.tiles_f; c < rd.tiles; ++c) D += rd.loss_part[c];
+  const long long P = net.n_params;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) {
-    const float n_f = static_cast<float>(st.n_f);
+  const int tiles = st.data_tiles ? rd.tiles : rd.tiles_f;
+  const int splits = st.data_tiles ? rd.splits : rd.splits_f;
+  double S = 0.0, D = 0.0;
+  if (st.dp == kDpApply) {
+    S = st.sums[2 * P];
+    D = st.sums[2 * P + 1];
+  } else {
+    for (int c = 0; c < rd.tiles_f; ++c) S += rd.loss_part[c];
+    for (int c = rd.tiles_f; c < tiles; ++c) D += rd.loss_part[c];
+  }
+  if (st.dp == kDpReduce && i == 0) {
+    st.sums[2 * P] = S;
+    st.sums[2 * P + 1] = D;
+  }
+  if (i == 0 && st.dp != kDpReduce) {
+    const float n_f = static_cast<float>(st.n_f_all);
     const float Sf = static_cast<float>(S);
     const float data_term = static_cast<float>(D) / static_cast<float>(st.n_u);
     float res_term = Sf;  // admm: sum of the per-point penalties
@@ -1189,20 +1282,30 @@ __global__ void wide_adam_kernel(Net net, Step call, Reduce rd) {
   }
   if (i >= net.n_params) return;
   double res = 0.0, dat = 0.0;
-  bool bias = false;
-  for (int l = 0; l < net.n_layers && !bias; ++l) {
-    const int j = i - net.b_off[l], d = net.dims[l + 1];
-    if (j >= 0 && j < d) {
-      const double* __restrict__ s =
-          rd.sums + static_cast<long long>(l) * rd.tiles * net.max_width;
-      for (int c = 0; c < rd.tiles_f; ++c) res += s[static_cast<long long>(c) * d + j];
-      for (int c = rd.tiles_f; c < rd.tiles; ++c) dat += s[static_cast<long long>(c) * d + j];
-      bias = true;
+  if (st.dp == kDpApply) {
+    res = st.sums[i];
+    dat = st.sums[P + i];
+  } else {
+    bool bias = false;
+    for (int l = 0; l < net.n_layers && !bias; ++l) {
+      const int j = i - net.b_off[l], d = net.dims[l + 1];
+      if (j >= 0 && j < d) {
+        const double* __restrict__ s =
+            rd.sums + static_cast<long long>(l) * rd.tiles * net.max_width;
+        for (int c = 0; c < rd.tiles_f; ++c) res += s[static_cast<long long>(c) * d + j];
+        for (int c = rd.tiles_f; c < tiles; ++c) dat += s[static_cast<long long>(c) * d + j];
+        bias = true;
+      }
     }
-  }
-  if (!bias) {
-    res = sum_splits(rd.partials, 0, rd.splits_f, net.n_params, i);
-    dat = sum_splits(rd.partials, rd.splits_f, rd.splits, net.n_params, i);
+    if (!bias) {
+      res = sum_splits(rd.partials, 0, rd.splits_f, net.n_params, i);
+      dat = sum_splits(rd.partials, rd.splits_f, splits, net.n_params, i);
+    }
+    if (st.dp == kDpReduce) {
+      st.sums[i] = res;
+      st.sums[P + i] = dat;
+      return;
+    }
   }
   const float g = static_cast<float>(st.kind == kL1Sq ? S * res + dat : res + dat);
   rd.grad[i] = g;
@@ -1243,15 +1346,27 @@ tail_head_kernel(const float* __restrict__ head, Step st, int nf_pad,
 }
 
 // The misfit from the tail's per-tile sums, then (K9) the cursor on to the
-// next epoch.
-__global__ void wide_finalize_kernel(Step call, const double* __restrict__ tail_part, int tiles) {
+// next epoch; the data-parallel modes as the narrow finalize_kernel's (the
+// sum at sums[2 n_params + 2]).
+__global__ void wide_finalize_kernel(Step call, const double* __restrict__ tail_part, int tiles,
+                                     long long n_params) {
   if (threadIdx.x != 0) return;
   const Step st = at_cursor(call);
   float mis = 0.0f;
   if (st.kind == kAdmm) {
     double sum = 0.0;
-    for (int c = 0; c < tiles; ++c) sum += tail_part[c];
-    mis = static_cast<float>(sum) / static_cast<float>(st.n_f);
+    if (st.dp == kDpFinalize) {
+      sum = st.sums[2 * n_params + 2];
+    } else {
+      for (int c = 0; c < tiles; ++c) sum += tail_part[c];
+    }
+    if (st.dp == kDpApply) {
+      st.sums[2 * n_params + 2] = sum;
+      return;
+    }
+    mis = static_cast<float>(sum) / static_cast<float>(st.n_f_all);
+  } else if (st.dp == kDpApply) {
+    return;
   }
   st.metrics[kMetricMisfit] = mis;
   if (call.cursor != nullptr) *call.cursor += 1;
@@ -1293,6 +1408,30 @@ cudaError_t head_product(const Net& net, const float* params, const float* in, i
   return gemm<Tile, false, false>(g, 1, s);
 }
 
+// Adam on the reduced gradient, then the tail: the new batch, (for 'admm')
+// z/dual at it with the new params, and the misfit (what follows the sums
+// in an epoch, and the data-parallel apply mode).
+int wide_tail(const Net& net, const Step& st, const WidePlan& wp, const Reduce& rd, float* h0,
+              float* hbuf, float* gbuf, float* head, double* tail_part, cudaStream_t s) {
+  const int L = net.n_layers, tiles_f = wp.nf_pad / kPts;
+  wide_adam_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(net, st, rd);
+  PINNS_CHECK(cudaGetLastError());
+  const Rows rt{wp.nf_pad, wp.nf_pad};
+  draw_kernel<<<ew_blocks(wp.nf_pad), kEwThreads, 0, s>>>(st, wp.nf_pad,
+                                                          reinterpret_cast<float4*>(h0));
+  PINNS_CHECK(cudaGetLastError());
+  if (st.kind == kAdmm) {
+    float* tail_p[kMaxLayers];
+    for (int l = 0; l + 1 < L; ++l) tail_p[l] = gbuf;
+    PINNS_CHECK(hidden_forward_products(net, st.params_out, h0, rt, tail_p, hbuf, s));
+    PINNS_CHECK(head_product(net, st.params_out, L > 1 ? hbuf : h0, 4 * wp.nf_pad, head, s));
+    tail_head_kernel<<<tiles_f, kPts, 0, s>>>(head, st, wp.nf_pad, tail_part);
+    PINNS_CHECK(cudaGetLastError());
+  }
+  wide_finalize_kernel<<<1, 32, 0, s>>>(st, tail_part, tiles_f, net.n_params);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One wide epoch on `s`; `scratch` (scratch_floats floats) holds, in this
 // order and each part on 16 bytes: sums, n_layers x tiles x max_width
 // doubles (tiles = n_pad / kPts); loss_part, tiles doubles; tail_part,
@@ -1329,6 +1468,13 @@ int wide_epoch(const Net& net, const Step& st, const WidePlan& wp, float* scratc
   if (st.grad_out != nullptr) grad = st.grad_out;
   float* P[kMaxLayers];
   for (int l = 0; l + 1 < L; ++l) P[l] = pstore + p_off[l];
+  const Reduce rd{partials, sums, loss_part, grad, wp.splits,
+                  4 * wp.nf_pad / wp.split_rows, tiles, tiles_f};
+  if (st.dp == kDpFinalize) {
+    wide_finalize_kernel<<<1, 32, 0, s>>>(st, tail_part, tiles_f, net.n_params);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (st.dp == kDpApply) return wide_tail(net, st, wp, rd, h0, hbuf, gbuf, head, tail_part, s);
 
   // forward and head at the current batch
   input_kernel<<<ew_blocks(rw.n_pad), kEwThreads, 0, s>>>(st, st.colloc, rw,
@@ -1372,27 +1518,11 @@ int wide_epoch(const Net& net, const Step& st, const WidePlan& wp, float* scratc
     Gn = t;
   }
 
-  // Adam on the reduced gradient
-  const Reduce rd{partials, sums, loss_part, grad, wp.splits,
-                  4 * wp.nf_pad / wp.split_rows, tiles, tiles_f};
-  wide_adam_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(net, st, rd);
-  PINNS_CHECK(cudaGetLastError());
-
-  // the tail: the new batch, then (for 'admm') z/dual at it with the new params
-  const Rows rt{wp.nf_pad, wp.nf_pad};
-  draw_kernel<<<ew_blocks(wp.nf_pad), kEwThreads, 0, s>>>(st, wp.nf_pad,
-                                                          reinterpret_cast<float4*>(h0));
-  PINNS_CHECK(cudaGetLastError());
-  if (st.kind == kAdmm) {
-    float* tail_p[kMaxLayers];
-    for (int l = 0; l + 1 < L; ++l) tail_p[l] = gbuf;
-    PINNS_CHECK(hidden_forward_products(net, st.params_out, h0, rt, tail_p, hbuf, s));
-    PINNS_CHECK(head_product(net, st.params_out, L > 1 ? hbuf : h0, 4 * wp.nf_pad, head, s));
-    tail_head_kernel<<<tiles_f, kPts, 0, s>>>(head, st, wp.nf_pad, tail_part);
-    PINNS_CHECK(cudaGetLastError());
+  if (st.dp == kDpReduce) {  // the sums, then the all-reduce between the calls
+    wide_adam_kernel<<<(net.n_params + 255) / 256, 256, 0, s>>>(net, st, rd);
+    return static_cast<int>(cudaGetLastError());
   }
-  wide_finalize_kernel<<<1, 32, 0, s>>>(st, tail_part, tiles_f);
-  return static_cast<int>(cudaGetLastError());
+  return wide_tail(net, st, wp, rd, h0, hbuf, gbuf, head, tail_part, s);
 }
 
 // The checks of a wide plan: whole kPts-point tiles in each segment, the tile
@@ -1425,7 +1555,7 @@ enum PtrArg {
   kParams, kMu, kNu, kXData, kUData, kColloc, kZ, kDual, kNewColloc,
   kParamsOut, kMuOut, kNuOut, kCollocOut, kZOut, kDualOut, kMetrics, kGradOut,
   kPartials, kTailPartials, kScratch, kMembers, kCursor, kSched, kLossOut, kSkip, kFIn,
-  kItersIn, kNumPtrs
+  kItersIn, kSums, kNumPtrs
 };
 enum FloatArg {
   kLb0, kLb1, kUb0, kUb1, kLam1, kLam2, kRho, kLr, kOneMinusB1, kB1, kOneMinusB2,
@@ -1434,7 +1564,7 @@ enum FloatArg {
 enum IntArg {
   kNU, kNF, kKind, kExplicit, kPlanTile, kTailTile, kSeed, kEpoch, kDevice, kNfPad, kNuPad,
   kSplitRows, kSplits, kScratchFloats, kNMembers, kMetricsStride, kNewCollocStride,
-  kLaunchOnly, kValueAndGrad, kNumInts
+  kLaunchOnly, kValueAndGrad, kDp, kNfAll, kRow0, kDataTiles, kNumInts
 };
 
 extern "C" int pinns_fused_step_sizes(int* n_ptrs, int* n_floats, int* n_ints) {
@@ -1477,6 +1607,7 @@ bool fill_step(const int* dims, int n_layers, const long long* ptrs, const float
   st.skip = reinterpret_cast<const int*>(ptrs[kSkip]);
   st.f_in = fp(kFIn);
   st.iters_in = reinterpret_cast<const int*>(ptrs[kItersIn]);
+  st.sums = reinterpret_cast<double*>(ptrs[kSums]);
   st.partials = fp(kPartials);
   st.tail_partials = fp(kTailPartials);
   st.members = reinterpret_cast<const Member*>(ptrs[kMembers]);
@@ -1510,6 +1641,22 @@ bool fill_step(const int* dims, int n_layers, const long long* ptrs, const float
   st.nb_f = st.nb_u = st.nb_tail = st.nb_tail_data = 0;
   st.value_and_grad = static_cast<int>(ints[kValueAndGrad]);
   st.post_update = 0;
+  // the data-parallel fields: read under kDp, else the one-card call's
+  st.dp = static_cast<int>(ints[kDp]);
+  st.n_f_all = st.n_f;
+  st.row0 = 0;
+  st.data_tiles = 1;
+  if (st.dp != kDpNone) {
+    if (st.dp < kDpReduce || st.dp > kDpFinalize || ints[kNfAll] < st.n_f ||
+        ints[kNfAll] > 0x7fffffffLL || ints[kRow0] < 0 || ints[kRow0] + st.n_f > 0x7fffffffLL ||
+        (ints[kDataTiles] != 0 && ints[kDataTiles] != 1) || st.sums == nullptr ||
+        (ptrs[kSums] & 7) != 0) {
+      return false;
+    }
+    st.n_f_all = static_cast<int>(ints[kNfAll]);
+    st.row0 = static_cast<int>(ints[kRow0]);
+    st.data_tiles = static_cast<int>(ints[kDataTiles]);
+  }
   const unsigned long long seed = static_cast<unsigned long long>(ints[kSeed]);
   const unsigned long long epoch = static_cast<unsigned long long>(ints[kEpoch]);
   st.seed_lo = static_cast<unsigned>(seed & 0xFFFFFFFFull);
@@ -1541,9 +1688,14 @@ bool fill_step(const int* dims, int n_layers, const long long* ptrs, const float
 // stream capture takes), after an earlier call on this device made the
 // set-up. kValueAndGrad (with kLossOut, kGradOut and optionally kSkip) runs
 // the value-and-grad mode; it refuses the wide design, a member table, more
-// than one member and a cursor. Returns the CUDA error code of the first
-// launch that failed (0 on
-// success).
+// than one member and a cursor. kDp 1, 2, 3 run the data-parallel modes of
+// the header (kSums the 2 n_params + 3 doubles, kNfAll the batch's rows over
+// every rank, kRow0 this rank's first row, kDataTiles whether it counts the
+// data term); they refuse a member table and more than one member. With
+// kValueAndGrad, kDp 1 gives the value-and-grad's sums (the grad kernel and
+// the Adam kernel's reduce) and kDp 2 its loss and gradient from the summed
+// sums (the Adam kernel alone). Returns the CUDA error code of the first
+// launch that failed (0 on success).
 extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* ptrs,
                                 const float* floats, const long long* ints, void* stream) {
   Net net;
@@ -1554,6 +1706,10 @@ extern "C" int pinns_fused_step(const int* dims, int n_layers, const long long* 
   if (st.value_and_grad &&
       (net.max_width > kNarrowWidth || ints[kNMembers] != 1 || st.members != nullptr ||
        st.loss_out == nullptr || st.grad_out == nullptr || st.cursor != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (st.dp != kDpNone && (ints[kNMembers] != 1 || st.members != nullptr ||
+                           (st.value_and_grad && st.dp == kDpFinalize))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool launch_only = ints[kLaunchOnly] != 0;
@@ -1598,7 +1754,7 @@ extern "C" int pinns_fused_post_update(const int* dims, int n_layers, const long
                              : (st.z == nullptr && st.z_out == nullptr && st.dual == nullptr &&
                                 st.dual_out == nullptr);
   if (net.max_width > kNarrowWidth || ints[kNMembers] != 1 || st.members == nullptr ||
-      st.value_and_grad || st.cursor == nullptr || st.metrics == nullptr ||
+      st.value_and_grad || st.dp != kDpNone || st.cursor == nullptr || st.metrics == nullptr ||
       st.f_in == nullptr || st.iters_in == nullptr || st.params_out == nullptr ||
       st.colloc == nullptr || st.colloc_out != st.colloc || st.tail_partials == nullptr ||
       st.x_data == nullptr || st.u_data == nullptr || !state_ok) {

@@ -9,6 +9,9 @@
 // high, 0), key (seed low, seed high)), keeps their top 24 bits,
 // u = bits * 2^-24, and maps x = lb + (ub - lb) u in the output type,
 // rounding after each operation (__fsub_rn, __fmul_rn, __fadd_rn; no FMA).
+// With a row offset row0 (slice 6's data parallelism) output row i is point
+// row0 + i of the draw, so that D ranks' draws at offsets 0, n/D, ... are
+// together the one-card draw bit for bit.
 //
 // It reads the draw's epoch and seed words and its (lb, ub) from row
 // *cursor of the epoch schedule (train/schedule.py: ROW_WORDS int32 words a
@@ -49,13 +52,14 @@ __device__ __forceinline__ double affine(double lb, double ub, double u) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     draw_kernel(const unsigned* __restrict__ sched, const long long* __restrict__ cursor,
-                Layout lay, int n, T* __restrict__ out) {
+                Layout lay, int n, int row0, T* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const unsigned* row = sched + *cursor * lay.row_words;
   const double* v = reinterpret_cast<const double*>(row + lay.value_word);
   const uint4 r = philox4x32_10(
-      make_uint4(static_cast<unsigned>(i), row[lay.epoch_word], row[lay.epoch_word + 1], 0u),
+      make_uint4(static_cast<unsigned>(row0 + i), row[lay.epoch_word], row[lay.epoch_word + 1],
+                 0u),
       make_uint2(row[lay.seed_word], row[lay.seed_word + 1]));
   const T u0 = static_cast<T>(r.x >> 8) * static_cast<T>(5.9604644775390625e-08);
   const T u1 = static_cast<T>(r.y >> 8) * static_cast<T>(5.9604644775390625e-08);
@@ -66,13 +70,14 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace k11
 }  // namespace
 
-// (n, 2) points into `out` (float32 when `dtype` is 0, float64 when 1) from
-// row *cursor of `sched`, on `stream`. Returns the CUDA error code of the
-// launch (0 on success).
+// (n, 2) points into `out` (float32 when `dtype` is 0, float64 when 1), rows
+// [row0, row0 + n) of the draw, from row *cursor of `sched`, on `stream`.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int pinns_philox_draw(const void* sched, const long long* cursor, int row_words,
-                                 int epoch_word, int seed_word, int value_word, int n,
+                                 int epoch_word, int seed_word, int value_word, int n, int row0,
                                  int dtype, void* out, int device, void* stream) {
-  if (n < 0 || row_words < 1 || value_word % 2 != 0 || row_words % 2 != 0 ||
+  if (n < 0 || row0 < 0 || n > 0x7fffffff - row0 || row_words < 1 || value_word % 2 != 0 ||
+      row_words % 2 != 0 ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -86,10 +91,10 @@ extern "C" int pinns_philox_draw(const void* sched, const long long* cursor, int
   const unsigned* s = static_cast<const unsigned*>(sched);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    k11::draw_kernel<float><<<blocks, k11::kThreads, 0, st>>>(s, cursor, lay, n,
+    k11::draw_kernel<float><<<blocks, k11::kThreads, 0, st>>>(s, cursor, lay, n, row0,
                                                                static_cast<float*>(out));
   } else {
-    k11::draw_kernel<double><<<blocks, k11::kThreads, 0, st>>>(s, cursor, lay, n,
+    k11::draw_kernel<double><<<blocks, k11::kThreads, 0, st>>>(s, cursor, lay, n, row0,
                                                                 static_cast<double*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -85,16 +85,20 @@ def philox4x32_10(counter: Sequence[torch.Tensor], key: Sequence[int]):
 
 
 def philox_uniform(
-    seed: int, epoch: int, n: int, lb, ub, dtype=torch.float32, device="cpu"
+    seed: int, epoch: int, n: int, lb, ub, dtype=torch.float32, device="cpu", row0: int = 0
 ) -> torch.Tensor:
     """(n, 2) points uniform in [lb, ub): point i of ``epoch`` takes the first
     two words of Philox(counter=(i, epoch, 0, 0), key=(seed low, seed high)),
     keeps their top 24 bits as u = bits * 2**-24 in [0, 1), and maps
     x = lb + (ub - lb) * u in ``dtype``, rounding after each operation (the
-    kernel does the same, without a fused multiply-add)."""
+    kernel does the same, without a fused multiply-add). ``row0`` gives rows
+    [row0, row0 + n) of the draw: a data-parallel rank's rows, so that the
+    ranks' draws together are the one-card draw bit for bit."""
     if len(lb) != 2 or len(ub) != 2:
         raise ValueError("philox_uniform draws (x, t) points: lb/ub need 2 entries")
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if row0 < 0 or row0 + n > 1 << 32:
+        raise ValueError(f"philox_uniform: rows [{row0}, {row0 + n}) outside the 32-bit counter")
+    idx = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)
     zero = torch.zeros_like(idx)
     w0, w1, _, _ = philox4x32_10(
         (idx, zero + (epoch & _MASK), zero + ((epoch >> 32) & _MASK), zero),

@@ -49,6 +49,16 @@ from the same launches and the metrics row at a device cursor), for K10's
 chunk of outer epochs (``ops/kernels/lbfgs.py::LBFGSChunk``). Its plain
 version is :func:`post_update_reference`, which it runs on CPU tensors.
 
+K3 under data parallelism (slice 6, :func:`dp_epoch`; both designs, one
+member): a rank's epoch over its rows of the batch is the reduce mode (the
+grad kernel and the Adam kernel's double sums, no step), an all-reduce of
+those sums over the data row, the apply mode (Adam from the summed sums,
+the tail over the rank's rows drawn at its row offset, the misfit's sum),
+an all-reduce of that sum, and the finalize mode (the misfit, the cursor).
+``parallel.sharding.DataShard`` issues the all-reduces (NCCL, captured
+with the launches in K9's graphs). Plain versions: :func:`dp_reduce_reference`
+and :func:`dp_apply_reference`.
+
 The epoch wrappers validate what the kernel assumes and raise otherwise; on
 a CPU tensor they raise too. Nothing falls back to the plain step.
 """
@@ -81,6 +91,11 @@ VALUE_AND_GRAD_LAUNCHES = 0
 # K3's post-update mode (tail and finalize, two launches each): host calls,
 # and those run inside the replays of K10's chunk runner (LBFGSChunk)
 POST_UPDATE_LAUNCHES = 0
+# K3's data-parallel modes (dp_epoch): the reduce mode's calls (grad and Adam
+# sums) and the apply mode's (Adam, tail and the misfit's sum, then the
+# finalize call), host calls and those inside K9's replays
+DP_REDUCE_LAUNCHES = 0
+DP_APPLY_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 KINDS = {"admm": 0, "mean_sq": 1, "l2_sq_norm": 2, "l1_sq_norm": 3}
@@ -118,12 +133,14 @@ MAX_MEMBERS = 65_535  # K8: the member is the launches' grid y index
 _PTRS = ("params", "mu", "nu", "x_data", "u_data", "colloc", "z", "dual", "new_colloc",
          "params_out", "mu_out", "nu_out", "colloc_out", "z_out", "dual_out", "metrics",
          "grad_out", "partials", "tail_partials", "scratch", "members", "cursor", "sched",
-         "loss_out", "skip", "f_in", "iters_in")
+         "loss_out", "skip", "f_in", "iters_in", "sums")
 _FLOATS = ("lb0", "lb1", "ub0", "ub1", "lam1", "lam2", "rho", "lr", "one_minus_b1", "b1",
            "one_minus_b2", "b2", "eps", "bc1", "bc2", "threshold")
 _INTS = ("n_u", "n_f", "kind", "explicit_inner", "tile", "tail_tile", "seed", "epoch", "device",
          "nf_pad", "nu_pad", "split_rows", "splits", "scratch_floats", "n_members",
-         "metrics_stride", "new_colloc_stride", "launch_only", "value_and_grad")
+         "metrics_stride", "new_colloc_stride", "launch_only", "value_and_grad", "dp", "n_f_all",
+         "row0", "data_tiles")
+DP_MODES = {"reduce": 1, "apply": 2, "finalize": 3}
 
 
 def fused_step_supported(exp, spec: MLPSpec) -> List[str]:
@@ -363,7 +380,7 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
            z, dual, *, kind: str, lam1: float, lam2: float, rho: Optional[float], lr: float,
            explicit_inner: bool, seed: int, epoch: int, members=None, new_colloc=None,
            metrics_out=None, want_grad: bool = False, out=None, scratch=None, chunk=None,
-           launch_only: bool = False) -> Dict[str, torch.Tensor]:
+           launch_only: bool = False, dp: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """One host call of the CUDA step for ``n_members`` members, every
     per-member tensor with a leading member axis (the shared x_data and
     u_data without one). ``members`` (:func:`member_table`) gives each member
@@ -378,7 +395,9 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
     ``epoch`` unused), write that row of ``metrics_out`` (rows, E, 7) and
     read that row of ``new_colloc`` (rows, E, N_f, 2), and advances the
     cursor; ``launch_only`` issues the launches alone, as a stream capture
-    needs (an earlier call on the device made the set-up)."""
+    needs (an earlier call on the device made the set-up). ``dp`` (one of
+    :func:`dp_epoch`'s three calls): {mode, sums, n_f_all, row0,
+    data_tiles}."""
     dev = colloc.device
     layers = spec.layers
     n_params = spec.n_params
@@ -437,10 +456,20 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
                              f"schedule (rows, 4) int32, both on {dev}")
     if n_f < 1 or n_u < 1:
         raise ValueError("fused_step kernel needs at least one collocation and one data point")
+    if dp is not None:
+        sums = dp["sums"]
+        if E != 1 or members is not None or want_grad:
+            raise ValueError("fused_step kernel: the data-parallel modes run one member, no "
+                             "member table and no gradient output")
+        if tuple(sums.shape) != (2 * n_params + 3,) or sums.dtype != torch.float64 \
+                or sums.device != dev or not sums.is_contiguous():
+            raise ValueError(f"fused_step kernel: the data-parallel sums must be contiguous "
+                             f"float64 ({2 * n_params + 3},) on {dev}")
     if dev.type != "cuda":
         raise ValueError(f"fused_step kernel needs CUDA tensors, got device {dev}")
 
     plan = step_plan(layers, n_f, n_u)
+    n_all = n_f if dp is None else int(dp["n_f_all"])
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     if out is None:
         out = {
@@ -460,14 +489,14 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         "colloc_out": out["colloc"], "z_out": out["z"], "dual_out": out["dual"],
         "metrics": out["metrics"], "grad_out": out["grad"], "members": members, **scratch,
         "cursor": None if chunk is None else chunk[0], "sched": None if chunk is None else chunk[1],
-        "loss_out": None, "skip": None,
+        "loss_out": None, "skip": None, "sums": None if dp is None else dp["sums"],
     }
     bc1, bc2 = bias_corrections(count)
     floats = {
         "lb0": spec.lb[0], "lb1": spec.lb[1], "ub0": spec.ub[0], "ub1": spec.ub[1],
         "lam1": lam1, "lam2": lam2, "rho": 0.0 if rho is None else rho, "lr": lr,
         "one_minus_b1": 1.0 - B1, "b1": B1, "one_minus_b2": 1.0 - B2, "b2": B2, "eps": EPS,
-        "bc1": bc1, "bc2": bc2, "threshold": 0.0 if rho is None else 1.0 / (rho * n_f),
+        "bc1": bc1, "bc2": bc2, "threshold": 0.0 if rho is None else 1.0 / (rho * n_all),
     }
     ints = {
         "n_u": n_u, "n_f": n_f, "kind": KINDS[kind], "explicit_inner": int(explicit_inner),
@@ -477,10 +506,68 @@ def _epoch(spec: MLPSpec, n_members: int, params, mu, nu, count: int, x_data, u_
         "splits": plan.splits, "scratch_floats": plan.scratch_floats, "n_members": E,
         "metrics_stride": 7 * E, "new_colloc_stride": 2 * n_f * E,
         "launch_only": int(launch_only), "value_and_grad": 0,
+        "dp": 0 if dp is None else DP_MODES[dp["mode"]], "n_f_all": n_all,
+        "row0": 0 if dp is None else int(dp["row0"]),
+        "data_tiles": 1 if dp is None else int(dp["data_tiles"]),
     }
     _call(layers, tensors, floats, ints, dev,
-          f"widths={layers} members={E} plan={dataclasses.asdict(plan)}")
+          f"widths={layers} members={E} plan={dataclasses.asdict(plan)}"
+          + ("" if dp is None else f" dp={dp['mode']}"))
     return out
+
+
+def dp_epoch(spec: MLPSpec, shard, sums: torch.Tensor, params, mu, nu, count: int, x_data,
+             u_data, colloc, z, dual, *, rho: float, seed: int, epoch: int, out=None,
+             scratch=None, chunk=None, metrics_out=None, new_colloc=None,
+             launch_only: bool = False, **cfg) -> Dict[str, torch.Tensor]:
+    """One Adam epoch of a data-parallel rank (``shard``, a
+    ``parallel.sharding.DataShard``) over its rows ``colloc`` (1, n_f / D,
+    2) of the batch (every per-member tensor with a leading axis of 1, as
+    :func:`_epoch` takes them): the reduce mode, the all-reduce of
+    ``sums[:2 n_params + 2]`` (float64, (2 n_params + 3,)), the apply mode,
+    the all-reduce of the misfit's sum, the finalize mode. The outputs and
+    the scratch are allocated once for the three calls (or given: K9's
+    buffers). At one rank it equals :func:`_epoch` bit for bit."""
+    global DP_REDUCE_LAUNCHES, DP_APPLY_LAUNCHES
+    r = _dp_calls(spec, shard, sums, params, mu, nu, count, x_data, u_data, colloc, z, dual,
+                  rho=rho, seed=seed, epoch=epoch, out=out, scratch=scratch, chunk=chunk,
+                  metrics_out=metrics_out, new_colloc=new_colloc, launch_only=launch_only, **cfg)
+    with _launches_lock:
+        DP_REDUCE_LAUNCHES += 1
+        DP_APPLY_LAUNCHES += 1
+    return r
+
+
+def _dp_calls(spec: MLPSpec, shard, sums, params, mu, nu, count, x_data, u_data, colloc, z,
+              dual, *, rho, seed, epoch, out=None, scratch=None, chunk=None, metrics_out=None,
+              new_colloc=None, launch_only=False, **cfg):
+    """:func:`dp_epoch` without the counts (K9 counts its replays)."""
+    n_local, P = colloc.shape[-2], spec.n_params
+    dev = colloc.device
+    if out is None:
+        empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+        admm = z is not None
+        out = {"params": empty(1, P), "mu": empty(1, P), "nu": empty(1, P),
+               "colloc": empty(1, n_local, 2), "z": empty(1, n_local, 1) if admm else None,
+               "dual": empty(1, n_local, 1) if admm else None}
+    if metrics_out is None:
+        metrics_out = torch.empty((1, 7), dtype=torch.float32, device=dev)
+    if scratch is None:
+        scratch = _scratch(step_plan(spec.layers, n_local, x_data.shape[0]), spec, 1, dev)
+    rows = shard.rows(n_local * shard.size)
+    common = dict(sums=sums, n_f_all=n_local * shard.size, row0=rows.start,
+                  data_tiles=int(shard.owner))
+    r = None
+    for mode in ("reduce", "apply", "finalize"):
+        r = _epoch(spec, 1, params, mu, nu, count, x_data, u_data, colloc, z, dual, rho=rho,
+                   seed=seed, epoch=epoch, new_colloc=new_colloc, metrics_out=metrics_out,
+                   out=out, scratch=scratch, chunk=chunk, launch_only=launch_only,
+                   dp=dict(common, mode=mode), **cfg)
+        if mode == "reduce":
+            shard.all_reduce(sums[:2 * P + 2])
+        elif mode == "apply":
+            shard.all_reduce(sums[2 * P + 2:])
+    return r
 
 
 def _call(layers: Sequence[int], tensors: dict, floats: dict, ints: dict, dev, what: str,
@@ -723,16 +810,36 @@ def make_fused_adam_step(problem, learning_rate: float):
     ``step.graphed(max_len=...)`` makes the step's K9 runner
     (:class:`FusedChunk`), which ``train.trainer.make_chunked`` takes.
 
+    Under a shard (``problem.shard``) each epoch is :func:`dp_epoch` over
+    this rank's rows.
+
     Raises ``NotImplementedError`` for a configuration outside the kernel's
     scope: on the card nothing falls back to the plain step.
     """
     exp, spec = problem.exp, problem.spec
     cfg = _step_config(problem, learning_rate)
     u_data = problem.targets["u"].contiguous()
+    shard = problem.shard
+    sums = None if shard is None else torch.zeros(2 * spec.n_params + 3, dtype=torch.float64,
+                                                  device=problem.device)
 
     def step(state, out: Optional[torch.Tensor] = None,
              new_colloc: Optional[torch.Tensor] = None):
         opt, admm = state.opt_state, state.admm
+        if shard is not None:
+            one = lambda t: None if t is None else t.unsqueeze(0)  # noqa: E731
+            r = dp_epoch(
+                spec, shard, sums, one(flat_net(state.params["net"], spec.n_params)),
+                one(flat_net(opt.mu["net"], spec.n_params)),
+                one(flat_net(opt.nu["net"], spec.n_params)), opt.count, problem.x_data, u_data,
+                one(state.colloc), one(admm.z if admm is not None else None),
+                one(admm.dual if admm is not None else None),
+                rho=exp.loss.rho if state.rho is None else state.rho, seed=state.key,
+                epoch=state.epoch + 1, new_colloc=one(new_colloc), metrics_out=one(out), **cfg)
+            r = {k: None if v is None else v[0] for k, v in r.items()}
+            if out is not None:
+                r["metrics"] = out
+            return _after_epoch(state, r, spec.layers)
         r = fused_adam_step(
             spec, flat_net(state.params["net"], spec.n_params),
             flat_net(opt.mu["net"], spec.n_params), flat_net(opt.nu["net"], spec.n_params),
@@ -816,6 +923,11 @@ class FusedChunk:
     ``max_len`` reallocates the rows and captures anew. A capture or replay
     that fails raises; nothing falls back to the per-epoch loop.
 
+    Under a shard (``problem.shard``; solo only) an epoch is :func:`dp_epoch`'s
+    three calls over this rank's rows with the two NCCL all-reduces between
+    them, all captured in the graphs: a replay runs every rank's epochs with
+    no host call.
+
     ``n_members`` None runs the trainer's solo state, an int a stacked state
     of that many members (``parallel.ensemble``); ``max_len`` (default
     ``train.chunk``) is the longest chunk it runs without capturing anew.
@@ -836,7 +948,16 @@ class FusedChunk:
         self.n_members = int(n_members) if self.stacked else 1
         self.x_data = problem.x_data
         self.u_data = problem.targets["u"].contiguous()
-        self.n_f, n_u = exp.sampling.n_f, self.x_data.shape[0]
+        self.shard = problem.shard
+        if self.shard is not None and self.stacked:
+            raise NotImplementedError("K8 under data parallelism: an ensemble's members run "
+                                      "the solo data-parallel chunk in turn")
+        # this rank's rows under a shard
+        rows = slice(0, exp.sampling.n_f) if self.shard is None else \
+            self.shard.rows(exp.sampling.n_f)
+        self.n_f, n_u = rows.stop - rows.start, self.x_data.shape[0]
+        self.sums = None if self.shard is None else torch.zeros(
+            2 * spec.n_params + 3, dtype=torch.float64, device=problem.device)
         E, P, F = self.n_members, spec.n_params, self.n_f
         admm = exp.loss.residual_kind == "admm"
         zeros = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
@@ -881,23 +1002,33 @@ class FusedChunk:
 
     def _launch(self, src: dict, dst: dict, fed: bool, launch_only: bool) -> None:
         seed, rho = (0, None) if self.stacked else self.key
-        _epoch(self.spec, self.n_members, src["params"], src["mu"], src["nu"], 0, self.x_data,
-               self.u_data, src["colloc"], src["z"], src["dual"], rho=rho, seed=seed, epoch=0,
-               members=self.table, new_colloc=self.feed if fed else None,
-               metrics_out=self.metrics, out=dst, scratch=self.scratch,
-               chunk=(self.cursor, self.sched), launch_only=launch_only, **self.cfg)
+        args = (src["params"], src["mu"], src["nu"], 0, self.x_data, self.u_data, src["colloc"],
+                src["z"], src["dual"])
+        kw = dict(rho=rho, seed=seed, epoch=0, new_colloc=self.feed if fed else None,
+                  metrics_out=self.metrics, out=dst, scratch=self.scratch,
+                  chunk=(self.cursor, self.sched), launch_only=launch_only, **self.cfg)
+        if self.shard is not None:  # the data-parallel modes around two all-reduces
+            _dp_calls(self.spec, self.shard, self.sums, *args, **kw)
+        else:
+            _epoch(self.spec, self.n_members, *args, members=self.table, **kw)
 
     def _capture(self, fed: bool) -> Dict[str, torch.cuda.CUDAGraph]:
+        from pinns_tpu_torch.parallel import sharding
+
         t0 = time.perf_counter()
         a, b = self.bufs
         self.cursor.zero_()
         self._launch(a, b, fed, launch_only=False)  # the warm-up: the set-up, outside capture
         torch.cuda.synchronize(self.device)
         graphs = {name: torch.cuda.CUDAGraph() for name in GRAPH_EPOCH_BUFFERS}
+        before = sharding.collective_counts()
         for name, epochs in GRAPH_EPOCH_BUFFERS.items():
             with torch.cuda.graph(graphs[name]):
                 for i, j in epochs:
                     self._launch(self.bufs[i], self.bufs[j], fed, launch_only=True)
+        # a capture runs no collective: each replayed epoch counts its two
+        for kind, n in sharding.collective_counts().items():
+            sharding.count(kind, before.get(kind, 0) - n)
         torch.cuda.synchronize(self.device)
         self.capture_seconds.append(time.perf_counter() - t0)
         return graphs
@@ -920,7 +1051,7 @@ class FusedChunk:
         per-epoch loop (``train.trainer.run_chunk``) gives them, bit for bit.
         ``new_colloc`` ((length, N_f, 2), or (length, E, N_f, 2) stacked)
         replaces the Philox draws."""
-        global GRAPH_REPLAYS, GRAPH_EPOCHS
+        global GRAPH_REPLAYS, GRAPH_EPOCHS, DP_REDUCE_LAUNCHES, DP_APPLY_LAUNCHES
         if length < 1:
             raise ValueError(f"K9: a chunk of {length} epochs")
         if length > self.max_len:
@@ -944,6 +1075,14 @@ class FusedChunk:
         with _launches_lock:
             GRAPH_REPLAYS += len(plan)
             GRAPH_EPOCHS += length
+        if self.shard is not None:
+            from pinns_tpu_torch.parallel import sharding
+
+            with _launches_lock:
+                DP_REDUCE_LAUNCHES += length
+                DP_APPLY_LAUNCHES += length
+            if self.shard.group is not None:
+                sharding.count("all_reduce", 2 * length)
         return hand_back(state, self.bufs[length % 2], self.metrics, length, self.spec.layers,
                          self.stacked)
 
@@ -969,6 +1108,7 @@ def fused_value_and_grad(
     partials: Optional[torch.Tensor] = None,
     skip: Optional[torch.Tensor] = None,
     launch_only: bool = False,
+    dp: Optional[dict] = None,
 ) -> None:
     """K3's value-and-grad mode, K10's evaluation: the loss of the step's
     configuration at the flat ``params`` (n_params, ``pack_params`` order)
@@ -978,15 +1118,20 @@ def fused_value_and_grad(
     With ``skip`` (an int32 (1,) tensor, K10's done flag) both launches
     return at once while it is not 0. ``partials`` is the scratch
     (blocks, n_params + 1) of :func:`step_plan`, allocated when None.
-    ``launch_only`` issues the launches alone (a stream capture).
+    ``launch_only`` issues the launches alone (a stream capture). Under data
+    parallelism ``dp`` ({mode, sums, n_f_all, row0, data_tiles}, as
+    :func:`_epoch` takes it) splits it as the epoch splits: 'reduce' writes
+    this rank's sums (its rows ``colloc``), and after their all-reduce
+    'apply' writes the whole batch's loss and gradient.
 
-    On CPU tensors the plain version, :func:`value_and_grad_reference`; on
-    CUDA tensors the kernel, or it raises (the narrow design only).
+    On CPU tensors the plain version, :func:`value_and_grad_reference`
+    (under ``dp``, :func:`dp_reduce_reference` and :func:`dp_loss_and_grad`);
+    on CUDA tensors the kernel, or it raises (the narrow design only).
     """
     global VALUE_AND_GRAD_LAUNCHES
     _value_and_grad_call(spec, params, grad, loss, x_data, u_data, colloc, z, dual, kind=kind,
                          lam1=lam1, lam2=lam2, rho=rho, explicit_inner=explicit_inner,
-                         partials=partials, skip=skip, launch_only=launch_only)
+                         partials=partials, skip=skip, launch_only=launch_only, dp=dp)
     if params.device.type == "cuda":
         with _launches_lock:
             VALUE_AND_GRAD_LAUNCHES += 1
@@ -994,7 +1139,8 @@ def fused_value_and_grad(
 
 def _value_and_grad_call(spec: MLPSpec, params, grad, loss, x_data, u_data, colloc, z, dual, *,
                          kind: str, lam1: float, lam2: float, rho: float, explicit_inner: bool,
-                         partials=None, skip=None, launch_only: bool = False) -> None:
+                         partials=None, skip=None, launch_only: bool = False,
+                         dp: Optional[dict] = None) -> None:
     """:func:`fused_value_and_grad` without the count (K10's warm-up and
     graph capture, whose replays its runner counts)."""
     dev = params.device
@@ -1025,8 +1171,25 @@ def _value_and_grad_call(spec: MLPSpec, params, grad, loss, x_data, u_data, coll
         raise ValueError(f"value_and_grad: skip must be one int32 on {dev}")
     if n_f < 1 or n_u < 1:
         raise ValueError("value_and_grad needs at least one collocation and one data point")
+    if dp is not None:
+        sums = dp["sums"]
+        if dp["mode"] not in ("reduce", "apply") or tuple(sums.shape) != (2 * P + 3,) \
+                or sums.dtype != torch.float64 or sums.device != dev:
+            raise ValueError(f"value_and_grad: the data-parallel modes are 'reduce' and 'apply' "
+                             f"over float64 ({2 * P + 3},) sums on {dev}")
     if dev.type == "cpu":
         if skip is not None and int(skip[0]) != 0:
+            return
+        if dp is not None and dp["mode"] == "reduce":
+            sums[:2 * P + 2] = dp_reduce_reference(
+                spec, params, x_data, u_data, colloc, z, dual, kind=kind, lam1=lam1, lam2=lam2,
+                rho=rho, explicit_inner=explicit_inner, n_f_all=dp["n_f_all"],
+                data_tiles=bool(dp["data_tiles"]))
+            return
+        if dp is not None:
+            g, terms = dp_loss_and_grad(sums, P, kind=kind, n_u=n_u, n_f_all=dp["n_f_all"])
+            loss.copy_(terms[0].reshape(1))
+            grad.copy_(g)
             return
         f, g = value_and_grad_reference(spec, params, x_data, u_data, colloc, z, dual,
                                         kind=kind, lam1=lam1, lam2=lam2, rho=rho,
@@ -1049,6 +1212,10 @@ def _value_and_grad_call(spec: MLPSpec, params, grad, loss, x_data, u_data, coll
                 tile=plan.tile, tail_tile=plan.tail_tile,
                 device=dev.index if dev.index is not None else torch.cuda.current_device(),
                 n_members=1, launch_only=int(launch_only), value_and_grad=1)
+    if dp is not None:
+        tensors["sums"] = dp["sums"]
+        ints.update(dp=DP_MODES[dp["mode"]], n_f_all=dp["n_f_all"], row0=dp["row0"],
+                    data_tiles=dp["data_tiles"])
     _call(layers, tensors, floats, ints, dev, f"value_and_grad widths={layers}")
 
 
@@ -1423,3 +1590,98 @@ def wide_loss_and_grad_reference(
     s_f, data_term = s_res.to(dt), s_dat.to(dt) / n_u
     res_term = {"admm": s_f, "l1_sq_norm": s_f * s_f / n_f}.get(kind, s_f / n_f)
     return data_term + res_term, data_term, res_term, grads
+
+
+# -- K3's data-parallel modes in plain PyTorch -------------------------------------
+
+def dp_reduce_reference(spec: MLPSpec, params: torch.Tensor, x_data, u_data, colloc, z, dual, *,
+                        kind: str, lam1: float, lam2: float, rho: float,
+                        explicit_inner: bool = False, n_f_all: Optional[int] = None,
+                        data_tiles: bool = True) -> torch.Tensor:
+    """The reduce mode in plain PyTorch: a rank's sums, float64 (2 n_params
+    + 2,): res (the residual part of the gradient at the flat ``params``
+    over this rank's rows ``colloc``, dL/df seeded with the global
+    normalizer ``n_f_all`` and, for ``l1_sq_norm``, 2 sign(f) / n_f_all
+    before the scaling by S), dat (the data part, zero unless
+    ``data_tiles``), S (the sum of the per-point loss terms: the ADMM
+    penalty's, |f| or f^2) and D (the sum of (u - u_data)^2, zero unless
+    ``data_tiles``). The kernel's algorithm (the hand-written reverse mode,
+    :func:`loss_and_grad_reference`'s) with its sums over all points in
+    float32, then float64."""
+    from pinns_tpu_torch.ops.taylor import mlp_taylor_2_reference
+
+    n_all = colloc.shape[0] if n_f_all is None else int(n_f_all)
+    net = unpack_params(params, spec.layers)
+    u, u_x, u_t, u_xx = mlp_taylor_2_reference(spec, net, colloc)
+    f = u_t + lam1 * u * u_x - lam2 * u_xx
+    if kind == "admm":
+        q = f - z + dual / rho
+        gf = rho * q + (dual if explicit_inner else 0.0)
+        val = 0.5 * rho * q * q + (dual * f if explicit_inner else 0.0)
+    elif kind == "l1_sq_norm":
+        gf, val = 2.0 * torch.sign(f) / n_all, torch.abs(f)
+    elif kind in ("mean_sq", "l2_sq_norm"):
+        gf, val = 2.0 * f / n_all, f * f
+    else:
+        raise ValueError(f"unknown residual kind {kind!r}")
+    res = taylor2_backward_reference(spec, net, colloc, (gf * lam1 * u_x, gf * lam1 * u, gf,
+                                                         -lam2 * gf))
+    flat = lambda gs: torch.cat([g.reshape(-1) for g in gs]).double()  # noqa: E731
+    zero = torch.zeros((), dtype=torch.float64, device=colloc.device)
+    dat, D = torch.zeros(spec.n_params, dtype=torch.float64, device=colloc.device), zero
+    if data_tiles:
+        ud, _, _, _ = mlp_taylor_2_reference(spec, net, x_data)
+        d = ud - u_data
+        zd = torch.zeros_like(d)
+        dat = flat(taylor2_backward_reference(spec, net, x_data,
+                                              (2.0 * d / x_data.shape[0], zd, zd, zd)))
+        D = torch.sum(d * d).double()
+    return torch.cat([flat(res), dat, torch.sum(val).double().reshape(1), D.reshape(1)])
+
+
+def dp_apply_reference(sums: torch.Tensor, params: torch.Tensor, mu: torch.Tensor,
+                       nu: torch.Tensor, *, kind: str, lr: float, bc1: float, bc2: float,
+                       n_u: int, n_f_all: int, lam1: float, lam2: float):
+    """The apply mode's Adam stage in plain PyTorch, the kernel's operations
+    in its order (each rounded to float32): from the summed ``sums``
+    (float64, (2 n_params + 2,) or more), g = S res + dat (``l1_sq_norm``)
+    or res + dat rounded once, then optax's Adam with the bias corrections
+    ``bc1``/``bc2`` (:func:`chunk_schedule`'s words). Returns (params, mu,
+    nu, metrics), metrics the (7,) float32 row as the mode writes it
+    (admm_misfit left 0: the finalize mode's)."""
+    f32 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float32,  # noqa: E731
+                                 device=params.device)
+    g, (loss, data_term, res_term) = dp_loss_and_grad(sums, params.shape[-1], kind=kind,
+                                                      n_u=n_u, n_f_all=n_f_all)
+    m = f32(1.0 - B1) * g + f32(B1) * mu
+    v = f32(1.0 - B2) * (g * g) + f32(B2) * nu
+    mhat = m / f32(bc1)
+    den = torch.sqrt(v / f32(bc2)) + f32(EPS)
+    new = params + (-f32(lr)) * (mhat / den)
+    # METRIC_KEYS order: admm_misfit, data_term, lambda1, lambda2, lbfgs_iters, loss, res_term
+    metrics = torch.stack([f32(0.0), data_term, f32(lam1), f32(lam2), f32(0.0), loss, res_term])
+    return new, m, v, metrics
+
+
+def dp_loss_and_grad(sums: torch.Tensor, n_params: int, *, kind: str, n_u: int,
+                     n_f_all: int):
+    """The gradient (float32, (n_params,)) and the loss terms (loss,
+    data_term, res_term; float32 0-d) of the whole batch from the summed
+    sums of the reduce mode, in the Adam kernel's operations: g = S res +
+    dat (``l1_sq_norm``) or res + dat, rounded once; data_term = D / N_u;
+    res_term S, S / n or S^2 / n by the kind (float32)."""
+    P, dev = n_params, sums.device
+    f32 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float32, device=dev)  # noqa: E731
+    res, dat = sums[:P], sums[P:2 * P]
+    S, D = sums[2 * P], sums[2 * P + 1]
+    g = (S * res + dat if kind == "l1_sq_norm" else res + dat).to(torch.float32)
+    n_f, s_f = f32(n_f_all), S.to(torch.float32)
+    data_term = D.to(torch.float32) / f32(n_u)
+    res_term = {"admm": s_f, "l1_sq_norm": s_f * s_f / n_f}.get(kind, s_f / n_f)
+    return g, (data_term + res_term, data_term, res_term)
+
+
+def dp_finalize_reference(misfit_sum: torch.Tensor, n_f_all: int) -> torch.Tensor:
+    """The finalize mode in plain PyTorch: admm_misfit = the summed |f - z|
+    (float64) rounded to float32, divided by the global row count."""
+    return misfit_sum.to(torch.float32) / torch.tensor(float(n_f_all), dtype=torch.float32)

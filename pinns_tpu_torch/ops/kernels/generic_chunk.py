@@ -20,6 +20,11 @@ the runner's state buffers, then the cursor advances, all inside the graph.
 So one graph replayed L times runs L epochs, and a chunk equals the
 per-epoch loop (``train.trainer.run_chunk``) bit for bit.
 
+Under data parallelism (``Problem.shard``) the epoch's all-reduces (the
+flat one of the gradients and the loss metrics, the misfit's) are NCCL
+collectives on the capturing stream, captured in the graph with the
+launches, so that every rank replays the same epochs with no host call.
+
 The scope (:func:`generic_chunk_supported`) is decided by the configuration
 before anything runs. A capture or a replay that fails raises: nothing falls
 back to the per-epoch loop. Scratch the kernels' wrappers allocate inside the
@@ -142,6 +147,7 @@ class GenericChunk:
         self.cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.graphs: Dict[Tuple[bool, float], torch.cuda.CUDAGraph] = {}
         self.launches: Dict[Tuple[object, str], int] = {}  # a captured epoch's, by counter
+        self.collectives: Dict[str, int] = {}  # a captured epoch's, by kind
         self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
         self.capture_seconds: List[float] = []
         self._rows(max(1, int(problem.exp.train.chunk if max_len is None else max_len)))
@@ -198,16 +204,23 @@ class GenericChunk:
         with torch.cuda.stream(side):  # the warm-up: every set-up outside capture
             self._run_epoch(fed, rho)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        from pinns_tpu_torch.parallel import sharding
+
         counters = _kernel_counters()
         before = {c: getattr(*c) for c in counters}
+        coll = sharding.collective_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
             self._run_epoch(fed, rho)
         # a capture launches nothing: its calls are the epoch's launches in
-        # every replay, counted there
+        # every replay, counted there (a data-parallel epoch's all-reduces too)
         self.launches = {c: getattr(*c) - before[c] for c in counters}
         for (m, name), v in before.items():
             setattr(m, name, v)
+        self.collectives = {k: n - coll.get(k, 0)
+                            for k, n in sharding.collective_counts().items()}
+        for kind, n in self.collectives.items():
+            sharding.count(kind, -n)
         torch.cuda.synchronize(self.device)
         self.capture_seconds.append(time.perf_counter() - t0)
         with _lock:
@@ -252,6 +265,10 @@ class GenericChunk:
                     setattr(m, name, getattr(m, name) + n * length)
                 GRAPH_REPLAYS += length
                 GRAPH_EPOCHS += length
+            from pinns_tpu_torch.parallel import sharding
+
+            for kind, n in self.collectives.items():
+                sharding.count(kind, n * length)
         else:
             for _ in range(length):
                 self._run_epoch(fed, rho)

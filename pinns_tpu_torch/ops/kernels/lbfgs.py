@@ -73,6 +73,7 @@ from pinns_tpu_torch.models.mlp import MLPSpec
 from pinns_tpu_torch.ops.kernels import build
 from pinns_tpu_torch.ops.kernels import fused_step as k_fused
 from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+from pinns_tpu_torch.parallel import sharding
 
 RESET_LAUNCHES = 0  # reset kernel launches (one a solve; LBFGSChunk's in place too)
 CONTROL_LAUNCHES = 0  # control kernel launches: host calls and those inside replays
@@ -804,6 +805,14 @@ class DeviceLBFGS:
     versions, one host call each. A build, capture or launch that fails
     raises, and so does a cluster the card cannot place (checked by
     ``cudaOccupancyMaxActiveClusters`` in the warm-up).
+
+    Under data parallelism (``problem.shard``, slice 6) an evaluation is K3's
+    value-and-grad split around an all-reduce: the reduce mode over this
+    rank's rows, the all-reduce of its sums over the data row, the apply
+    mode's loss and gradient of the whole batch; the all-reduce is captured
+    in the solve's graph with the launches. Every rank's control and
+    direction kernels then see the same values and take the same branches,
+    so every rank replays the same number of times.
     """
 
     def __init__(self, problem):
@@ -820,6 +829,8 @@ class DeviceLBFGS:
         self.shape: Optional[Tuple[int, int, int, int]] = None
         self.graphs: Dict[float, torch.cuda.CUDAGraph] = {}
         self.capture_seconds: List[float] = []
+        self.shard = problem.shard
+        self.sums = None
 
     def _alloc(self, n: int, m: int, n_f: int, offset: int) -> None:
         dev = self.device
@@ -831,17 +842,30 @@ class DeviceLBFGS:
         self.dual = z(n_f, 1) if admm else None
         plan = k_fused.step_plan(self.spec.layers, n_f, self.x_data.shape[0])
         self.partials = z(plan.blocks, self.spec.n_params + 1)
+        if self.shard is not None:
+            self.sums = torch.zeros(2 * self.spec.n_params + 3, dtype=torch.float64, device=dev)
         self.shape = (n, m, n_f, offset)
         self.graphs.clear()
 
     def _evaluate(self, rho: float, launch_only: bool = False) -> None:
         """The step's value-and-grad at the trial point (uncounted: the
-        replays are)."""
+        replays are); under a shard its reduce mode, the all-reduce of the
+        sums, its apply mode."""
         b, off = self.bufs, self.shape[3]
-        k_fused._value_and_grad_call(
-            self.spec, b.vec[XT, off:], b.vec[GT, off:], b.sf[F_PHI_T:F_PHI_T + 1], self.x_data,
-            self.u_data, self.colloc, self.z, self.dual, rho=rho, partials=self.partials,
-            skip=b.si[I_DONE:I_DONE + 1], launch_only=launch_only, **self.cfg)
+        args = (self.spec, b.vec[XT, off:], b.vec[GT, off:], b.sf[F_PHI_T:F_PHI_T + 1],
+                self.x_data, self.u_data, self.colloc, self.z, self.dual)
+        kw = dict(rho=rho, partials=self.partials, skip=b.si[I_DONE:I_DONE + 1],
+                  launch_only=launch_only, **self.cfg)
+        if self.shard is None:
+            k_fused._value_and_grad_call(*args, **kw)
+            return
+        n_f = self.colloc.shape[0]
+        dp = dict(sums=self.sums, n_f_all=n_f * self.shard.size,
+                  row0=self.shard.rows(n_f * self.shard.size).start,
+                  data_tiles=int(self.shard.owner))
+        k_fused._value_and_grad_call(*args, dp=dict(dp, mode="reduce"), **kw)
+        self.shard.all_reduce(self.sums[:2 * self.spec.n_params + 2])
+        k_fused._value_and_grad_call(*args, dp=dict(dp, mode="apply"), **kw)
 
     def _capture(self, rho: float) -> torch.cuda.CUDAGraph:
         t0 = time.perf_counter()
@@ -853,11 +877,15 @@ class DeviceLBFGS:
         _launch_direction(b)  # sets the kernel up; raises if the cluster cannot be placed
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
+        before = sharding.collective_counts()
         with torch.cuda.graph(graph):
             for _ in range(STEPS_PER_REPLAY):
                 self._evaluate(rho, launch_only=True)
                 _launch_control(b)
                 _launch_direction(b, launch_only=True)
+        # a capture runs no collective: each replay counts its steps' all-reduces
+        for kind, n in sharding.collective_counts().items():
+            sharding.count(kind, before.get(kind, 0) - n)
         torch.cuda.synchronize(self.device)
         self.capture_seconds.append(time.perf_counter() - t0)
         return graph
@@ -890,6 +918,8 @@ class DeviceLBFGS:
                 DIRECTION_LAUNCHES += STEPS_PER_REPLAY
             with k_fused._launches_lock:
                 k_fused.VALUE_AND_GRAD_LAUNCHES += STEPS_PER_REPLAY
+            if self.shard is not None and self.shard.group is not None:
+                sharding.count("all_reduce", STEPS_PER_REPLAY)
             head = read_head(self.bufs)
             if head[I_DONE]:
                 with _lock:

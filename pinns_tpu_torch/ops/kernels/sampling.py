@@ -3,7 +3,8 @@ and its plain version.
 
 K11 replaces no TPU kernel (JAX draws with threefry inside its scanned step,
 ``pinns_tpu/train/trainer.py:360``): it is the port's Philox draw,
-``data.sampling.philox_uniform`` bit for bit, as one launch that reads its
+``data.sampling.philox_uniform`` bit for bit (any row offset: a
+data-parallel rank draws its rows of the one-card batch), as one launch that reads its
 epoch and seed words and its (lb, ub) from row ``cursor`` of the epoch
 schedule (``train.schedule``). So the per-epoch step and the graphed chunk
 (``ops.kernels.generic_chunk``), which replays one captured launch over a
@@ -38,7 +39,7 @@ def _lib():
     if _LIB is None:
         lib = build.load_library("sampling")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pinns_philox_draw.argtypes = [p, p, i, i, i, i, i, i, p, i, p]
+        lib.pinns_philox_draw.argtypes = [p, p, i, i, i, i, i, i, i, p, i, p]
         lib.pinns_philox_draw.restype = i
         lib.pinns_sampling_error_string.argtypes = [i]
         lib.pinns_sampling_error_string.restype = ctypes.c_char_p
@@ -46,7 +47,7 @@ def _lib():
     return _LIB
 
 
-def _check(sched: torch.Tensor, cursor: torch.Tensor, n: int, dtype) -> None:
+def _check(sched: torch.Tensor, cursor: torch.Tensor, n: int, dtype, row0: int = 0) -> None:
     if sched.dtype != torch.int32 or sched.dim() != 2 or sched.shape[1] != schedule.ROW_WORDS \
             or not sched.is_contiguous():
         raise ValueError(f"K11 takes a contiguous (L, {schedule.ROW_WORDS}) int32 schedule, got "
@@ -56,22 +57,23 @@ def _check(sched: torch.Tensor, cursor: torch.Tensor, n: int, dtype) -> None:
                          f"{cursor.dtype} {tuple(cursor.shape)} on {cursor.device}")
     if dtype not in _DTYPES:
         raise ValueError(f"K11 draws float32 or float64 points, not {dtype}")
-    if n < 0:
-        raise ValueError(f"K11: {n} points")
+    if n < 0 or row0 < 0 or row0 + n > 1 << 31:
+        raise ValueError(f"K11: rows [{row0}, {row0 + n})")
 
 
 def philox_draw(sched: torch.Tensor, cursor: torch.Tensor, n: int,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, row0: int = 0) -> torch.Tensor:
     """(n, 2) points of ``dtype``: Philox(seed, epoch) uniform in [lb, ub)
     with the seed, the epoch and the bounds of row ``cursor`` of ``sched``
     ((L, ROW_WORDS) int32; ``cursor`` a one-element int64 tensor), as
-    ``data.sampling.philox_uniform`` draws them. One launch of K11 on a CUDA
+    ``data.sampling.philox_uniform`` draws them: rows [row0, row0 + n) of
+    the draw (a data-parallel rank's rows). One launch of K11 on a CUDA
     schedule (nothing read back to the host), the plain version on a CPU
     one."""
     global LAUNCHES
-    _check(sched, cursor, n, dtype)
+    _check(sched, cursor, n, dtype, row0)
     if sched.device.type == "cpu":
-        return philox_draw_reference(sched, cursor, n, dtype)
+        return philox_draw_reference(sched, cursor, n, dtype, row0)
     if sched.device.type != "cuda":
         raise ValueError(f"K11 runs on a CUDA device, got {sched.device}")
     index = sched.get_device()
@@ -79,7 +81,7 @@ def philox_draw(sched: torch.Tensor, cursor: torch.Tensor, n: int,
     lib = _LIB or _lib()
     err = lib.pinns_philox_draw(
         sched.data_ptr(), cursor.data_ptr(), schedule.ROW_WORDS, schedule.EPOCH_WORD,
-        schedule.SEED_WORD, schedule.VALUE_WORD, n, _DTYPES[dtype], out.data_ptr(), index,
+        schedule.SEED_WORD, schedule.VALUE_WORD, n, row0, _DTYPES[dtype], out.data_ptr(), index,
         raw_stream(index))
     if err != 0:
         msg = lib.pinns_sampling_error_string(err).decode()
@@ -90,12 +92,13 @@ def philox_draw(sched: torch.Tensor, cursor: torch.Tensor, n: int,
 
 
 def philox_draw_reference(sched: torch.Tensor, cursor: torch.Tensor, n: int,
-                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          dtype: torch.dtype = torch.float32, row0: int = 0) -> torch.Tensor:
     """The plain version of :func:`philox_draw`: ``philox_uniform`` at the
-    seed, epoch and bounds that row ``cursor`` of ``sched`` holds, on the
-    schedule's device (it reads the row on the host)."""
+    seed, epoch and bounds that row ``cursor`` of ``sched`` holds, rows
+    [row0, row0 + n), on the schedule's device (it reads the row on the
+    host)."""
     row = schedule.row_fields(sched[int(cursor.reshape(-1)[0])].cpu().numpy())[0]
     epoch = int(row["epoch"][0]) | (int(row["epoch"][1]) << 32)
     seed = int(row["seed"][0]) | (int(row["seed"][1]) << 32)
     return philox_uniform(seed, epoch, n, [float(v) for v in row["lb"]],
-                          [float(v) for v in row["ub"]], dtype, sched.device)
+                          [float(v) for v in row["ub"]], dtype, sched.device, row0)

@@ -24,7 +24,10 @@ A chunk of the ensemble (:func:`make_ensemble_chunk`) is
 Either way member i equals the solo run of its seed and rho bit for bit.
 
 :func:`run_ensemble` runs the trainer's whole schedule (the hybrid switch
-included) with per-member logs, snapshots, checkpoints and summaries;
+included) with per-member logs, snapshots, checkpoints and summaries; with
+a mesh (slice 6, ``parallel.mesh``) each ensemble coordinate runs its share
+of the members on its card (and data-parallel over its row of ranks when
+the mesh's data axis is above 1), and the summaries are gathered to rank 0;
 :func:`selection_scores` and :func:`select_member` pick a member without
 ground truth.
 
@@ -52,7 +55,6 @@ from pinns_tpu_torch.opt.adam import AdamState, tree_map
 from pinns_tpu_torch.train.metrics import MetricsLogger
 from pinns_tpu_torch.train.trainer import METRIC_KEYS, Trainer, TrainState, swa_params, swa_update
 
-SLICE_6 = "slice 6 (multi-GPU)"
 # the JAX package's own refusal (pinns_tpu/parallel/ensemble.py:75-80)
 RAD_REFUSAL = ("sampling.strategy='rad' re-draws the batch at chunk boundaries via "
                "Trainer.train and is not wired into the vmapped ensemble loop — use solo "
@@ -177,7 +179,7 @@ def batched_on_card(trainer: Trainer) -> bool:
 
     problem = trainer.problem
     return (problem.device.type == "cuda" and not fused_step_supported(problem.exp, problem.spec)
-            and design(problem.spec.layers) == "narrow")
+            and design(problem.spec.layers) == "narrow" and problem.shard is None)
 
 
 def k8_chunk(trainer: Trainer, n: int):
@@ -586,6 +588,15 @@ def uq_calibration(trainer: Trainer, stacked: TrainState, ks=(1.0, 2.0, 3.0), n_
 
 # -- the schedule ----------------------------------------------------------------
 
+def mesh_members(n: int, mesh) -> List[int]:
+    """The members of an n-member ensemble that this rank's ensemble
+    coordinate trains (contiguous blocks, in order): all of them without a
+    mesh."""
+    if mesh is None:
+        return list(range(n))
+    return [int(i) for i in np.array_split(np.arange(n), mesh.ensemble)[mesh.coords[0]]]
+
+
 def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence[float]] = None,
                  epochs: Optional[int] = None, stacked: Optional[TrainState] = None,
                  mesh=None) -> tuple:
@@ -598,11 +609,68 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
     member, with its ``epochs``, ``member`` and ``seed``). With
     ``train.swa_frac`` each member keeps its own SWA mean over the stacked
     params (JAX's ``:602-679``): the summaries' ``swa_snapshots`` and
-    ``swa_*`` entries and the checkpoints ``<name>_swa_m{i}``."""
+    ``swa_*`` entries and the checkpoints ``<name>_swa_m{i}``.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``; every rank calls it) the
+    ensemble coordinate e trains members ``mesh_members(n, mesh)`` on its
+    card, the K8 epoch or the member loop as without a mesh; with a data
+    axis above 1 the trainer is sharded over the coordinate's row
+    (``parallel.sharding.shard_trainer``) and the members run the solo
+    data-parallel chunk in turn. Each member's logs and checkpoints keep
+    its global index and are written by its owner (data rank 0 of its row).
+    ``stacked``, when given, holds this coordinate's members (whole rows).
+    The training issues no collective when the data axis is 1. Returns
+    (this coordinate's stacked state, every member's summary in member
+    order on rank 0, this coordinate's elsewhere): the summaries are
+    gathered to rank 0 by one object gather."""
+    full_seeds = list(seeds)
+    ids = mesh_members(len(full_seeds), mesh)
     if mesh is not None:
-        raise NotImplementedError(f"members sharded over a device mesh: {SLICE_6}")
+        from pinns_tpu_torch.parallel.sharding import place_ensemble, shard_trainer
+
+        if mesh.coords is None:
+            raise ValueError(f"rank {mesh.rank} is outside the {mesh.ensemble}x{mesh.data} mesh")
+        if mesh.data > 1 and trainer.problem.shard is None:
+            shard_trainer(trainer, mesh)
+        seeds = [full_seeds[i] for i in ids]
+        rhos = None if rhos is None else [rhos[i] for i in ids]
+        if stacked is not None and mesh.data > 1:
+            stacked = place_ensemble(stacked, mesh)
+    # a coordinate past the last member trains nothing (it joins the gather)
+    summaries = _run_members(trainer, seeds, ids, rhos, epochs, stacked) if ids else (None, [])
+    if mesh is None:
+        return summaries
+    return summaries[0], _gather_summaries(summaries[1], ids, mesh)
+
+
+def _gather_summaries(local: List[dict], ids: List[int], mesh) -> List[dict]:
+    """Every member's summary, in member order, on rank 0 (an object gather
+    over the process group, counted as 'gather_object'); this
+    coordinate's elsewhere. Only data rank 0 of a row evaluated."""
+    import torch.distributed as dist
+
+    from pinns_tpu_torch.parallel import sharding
+
+    mine = list(zip(ids, local)) if mesh.coords[1] == 0 else []
+    if not (dist.is_available() and dist.is_initialized()):
+        return [s for _, s in sorted(mine)]
+    sharding.count("gather_object")
+    parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(mine, parts, dst=0)
+    if dist.get_rank() != 0:
+        return local
+    return [s for _, s in sorted(pair for part in parts for pair in part)]
+
+
+def _run_members(trainer: Trainer, seeds: Sequence[int], ids: Sequence[int],
+                 rhos: Optional[Sequence[float]], epochs: Optional[int],
+                 stacked: Optional[TrainState]) -> tuple:
+    """:func:`run_ensemble` for the members ``ids`` (global indices, for
+    the logs and checkpoints) of ``seeds`` (theirs)."""
     exp = trainer.exp
     n = len(seeds)
+    shard = trainer.problem.shard
+    owner = shard is None or shard.owner
     width = max(exp.model.layers[1:-1], default=0)
     if n > 1 and width >= 100:
         print(f"run_ensemble: trunk width {width}: K8 batches the members of nets up to "
@@ -614,10 +682,11 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
     elif len(stacked.key) != n:
         raise ValueError(f"the stacked state has {len(stacked.key)} members, seeds {n}")
 
-    out_dir = exp.train.out_dir or None
-    loggers = [trainer.logger] + [
-        MetricsLogger(out_dir=out_dir, name=f"{exp.name}_m{i}", console=False)
-        for i in range(1, n)]
+    out_dir = (exp.train.out_dir or None) if owner else None
+    loggers = [trainer.logger if i == 0 else
+               MetricsLogger(out_dir=out_dir, name=f"{exp.name}_m{i}",
+                             console=owner and i == ids[0])
+               for i in ids]
     total = exp.train.epochs if epochs is None else epochs
     chunk = max(1, min(exp.train.chunk, total))
     lbfgs_chunk = max(1, min(chunk // 100 or 1, 10))
@@ -652,28 +721,31 @@ def run_ensemble(trainer: Trainer, seeds: Sequence[int], rhos: Optional[Sequence
                 loggers[i].log(epoch=epoch, phase=phase, member=i, elapsed=elapsed,
                                **{k: float(values[j, i]) for j, k in enumerate(METRIC_KEYS)})
         want_snap = out_dir and crossed(epoch, length, exp.train.snapshot_every)
-        want_ckpt = out_dir and crossed(epoch, length, exp.train.checkpoint_every)
+        want_ckpt = exp.train.out_dir and crossed(epoch, length, exp.train.checkpoint_every)
         if want_snap or want_ckpt:
             for i, member in enumerate(unstack_states(stacked, n)):
                 if want_snap:
                     _member_snapshot(trainer, loggers[i], member, epoch)
-                if want_ckpt:
-                    trainer.save_checkpoint(member, tag=f"e{epoch}_m{i}")
+                if want_ckpt:  # a collective under a shard: every rank of the row
+                    trainer.save_checkpoint(member, tag=f"e{epoch}_m{ids[i]}")
 
-    summaries = [dict(s, epochs=epoch) for s in evaluate_ensemble(trainer, stacked, n)]
+    # data rank 0 evaluates (the params are replicated over its row)
+    summaries = ([dict(s, epochs=epoch) for s in evaluate_ensemble(trainer, stacked, n)]
+                 if owner else [{"epochs": epoch} for _ in range(n)])
     if swa_n > 0:
         swa_stacked = stacked._replace(params=swa_params(swa_avg, stacked.params))
         for i, member in enumerate(unstack_states(swa_stacked, n)):
             summaries[i]["swa_snapshots"] = swa_n
-            for k, v in trainer.evaluate(member).items():
-                summaries[i][f"swa_{k}"] = v
-            if out_dir:
-                trainer.save_checkpoint(member, tag=f"swa_m{i}")
+            if owner:
+                for k, v in trainer.evaluate(member).items():
+                    summaries[i][f"swa_{k}"] = v
+            if exp.train.out_dir:
+                trainer.save_checkpoint(member, tag=f"swa_m{ids[i]}")
     for i, (logger, summary) in enumerate(zip(loggers, summaries)):
-        logger.write_summary(dict(summary, member=i, seed=int(seeds[i])))
-    if out_dir:
+        logger.write_summary(dict(summary, member=ids[i], seed=int(seeds[i])))
+    if exp.train.out_dir:
         for i, member in enumerate(unstack_states(stacked, n)):
-            trainer.save_checkpoint(member, tag=f"final_m{i}")
+            trainer.save_checkpoint(member, tag=f"final_m{ids[i]}")
     return stacked, summaries
 
 

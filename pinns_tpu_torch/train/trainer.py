@@ -88,13 +88,25 @@ SWA (``train.swa_frac``: the float32 running mean of the params at the chunk
 boundaries of the tail, ``Trainer.swa_params``, the summary's ``swa_*``
 entries and the ``swa`` checkpoint).
 
+Slice 6, collocation data parallelism (``parallel.sharding``): with a
+``Problem.shard`` each rank holds its rows of the batch, drawn at its row
+offset (:func:`_resample`), and its rows of the ADMM state; a step forms the
+rank's share of the loss (the data term on data rank 0, every normalizer the
+global row count: :func:`total_rows`) and sums the gradients and the loss
+metrics over the data row in one flat all-reduce (:func:`make_adam_epoch`),
+the ADMM misfit in a second one (:func:`_misfit`); ``l1_sq_norm``'s S is
+summed before its square. The L-BFGS objective is the row's sum with its
+gradient (``parallel.sharding.global_objective``), so every rank takes the
+same decisions. Checkpoints gather the rows (``Trainer.save_checkpoint``).
+
 What the port leaves to a later slice raises ``NotImplementedError`` with
-the slice's name: multi-GPU (slice 6), and float64 Adam training on the card
+the slice's name: the causal penalty and RAD under data parallelism (slice
+6b, ``parallel.sharding.dp_later``), and float64 Adam training on the card
 (:func:`make_step`; a float64 trainer still builds, for ``train.polish`` and
 ``evaluate``, and its L-BFGS solve takes K10's float64 mode over the float64
 modes of the narrow K1, K2 and K5). Ensembles and sweeps train through
-``pinns_tpu_torch.parallel`` (slice 4a) and serve through
-``serve.export_ensemble``.
+``pinns_tpu_torch.parallel`` (slice 4a; over several cards since slice 6)
+and serve through ``serve.export_ensemble``.
 """
 
 from __future__ import annotations
@@ -153,6 +165,7 @@ from pinns_tpu_torch.opt.adam import (
     tree_map,
 )
 from pinns_tpu_torch.opt.lbfgs import lbfgs_minimize, ravel_tree
+from pinns_tpu_torch.parallel.sharding import dp_later, gather_state, global_objective
 from pinns_tpu_torch.train import checkpoint as ckpt_io
 from pinns_tpu_torch.train import schedule as epoch_schedule
 from pinns_tpu_torch.train.evaluate import predict_fields, relative_l2
@@ -183,12 +196,13 @@ def check_slice(exp: Experiment) -> None:
     checks = [
         (exp.pde.kind not in ("burgers", "euler"), f"pde.kind={exp.pde.kind!r}",
          "no slice (burgers and euler only)"),
-        (exp.mesh.data_parallel > 1, "multi-GPU data parallelism", "slice 6 (multi-GPU)"),
         (m.dtype not in _DTYPES, f"model.dtype={m.dtype!r}", "no slice (float32/float64 only)"),
     ]
     for bad, what, where in checks:
         if bad:
             later.append(f"{what}: {where}")
+    if exp.mesh.data_parallel > 1:
+        later += dp_later(exp)
     if later:
         raise NotImplementedError(
             f"experiment {exp.name!r} uses features the port has not reached: "
@@ -206,6 +220,8 @@ class Problem:
     x_data: torch.Tensor  # (N_u, 2)
     targets: Dict[str, torch.Tensor]  # field -> (N_u, 1)
     device: torch.device = torch.device("cpu")
+    # this rank's part of a data-parallel run (parallel.sharding.DataShard), or None
+    shard: Any = None
 
     @property
     def lb(self):
@@ -433,16 +449,29 @@ def _curriculum_bounds(problem: Problem, epoch: int):
     return lb, ub
 
 
-def _philox_points(problem: Problem, key: int, word: int, n: int, lb, ub) -> torch.Tensor:
-    """(n, 2) points of Philox(key, word) uniform in [lb, ub): one launch of
-    K11 from a one-row schedule on a CUDA device, ``philox_uniform`` (the same
-    points) elsewhere."""
+def _philox_points(problem: Problem, key: int, word: int, n: int, lb, ub,
+                   row0: int = 0) -> torch.Tensor:
+    """(n, 2) points of Philox(key, word) uniform in [lb, ub), rows [row0,
+    row0 + n) of the draw: one launch of K11 from a one-row schedule on a
+    CUDA device, ``philox_uniform`` (the same points) elsewhere."""
     dtype = problem.spec.dtype
     if problem.device.type != "cuda":
-        return philox_uniform(key, word, n, lb, ub, dtype, problem.device)
+        return philox_uniform(key, word, n, lb, ub, dtype, problem.device, row0)
     rows = epoch_schedule.schedule_rows(key, 0, word - 1, 1, 0.0, lambda e: (lb, ub))
     return philox_draw(epoch_schedule.to_device(rows, problem.device),
-                       _zero_cursor(problem.device), n, dtype)
+                       _zero_cursor(problem.device), n, dtype, row0)
+
+
+def local_rows(problem: Problem, total: int) -> slice:
+    """This rank's rows of a batch of ``total`` rows (all of them without a
+    shard)."""
+    return slice(0, total) if problem.shard is None else problem.shard.rows(total)
+
+
+def total_rows(problem: Problem, n: int) -> int:
+    """The global row count of a batch of which this rank holds ``n`` rows:
+    every normalizer of the loss and the ADMM threshold take it."""
+    return n if problem.shard is None else n * problem.shard.size
 
 
 def _resample(problem: Problem, key: int, draw: int) -> torch.Tensor:
@@ -451,9 +480,11 @@ def _resample(problem: Problem, key: int, draw: int) -> torch.Tensor:
     inside the curriculum's bounds of JAX's epoch argument for that batch (0
     for the initial one, e after step e). On a CUDA device one launch of K11
     (``ops.kernels.sampling.philox_draw``) from a one-row schedule, else
-    ``philox_uniform``: the same points."""
+    ``philox_uniform``: the same points. Under a shard, this rank's rows of
+    that batch (drawn at their row offset)."""
     lb, ub = _curriculum_bounds(problem, max(draw - 1, 0))
-    return _philox_points(problem, key, draw, problem.exp.sampling.n_f, lb, ub)
+    rows = local_rows(problem, problem.exp.sampling.n_f)
+    return _philox_points(problem, key, draw, rows.stop - rows.start, lb, ub, rows.start)
 
 
 def adam_schedule(problem: Problem, learning_rate, key: int, count: int, epoch: int,
@@ -485,15 +516,17 @@ def init_collocation(problem: Problem, key: int) -> torch.Tensor:
         return _resample(problem, key, 0)
     gen = torch.Generator().manual_seed(key + 1)
     if strategy == "fixed_uniform":
-        return uniform_box(gen, n_f, problem.lb, problem.ub, dtype, device)
-    if strategy in ("fixed_lhs", "fixed_lhs_anchored"):
+        pts = uniform_box(gen, n_f, problem.lb, problem.ub, dtype, device)
+    elif strategy in ("fixed_lhs", "fixed_lhs_anchored"):
         pts = scale_to_bounds(latin_hypercube(gen, n_f, 2, dtype, device), problem.lb, problem.ub)
-        if strategy == "fixed_lhs":
-            return pts
-        # the reference anchors the FULL IC/BC candidate stack
-        anchors = torch.as_tensor(ic_bc_candidates(problem.dataset), dtype=dtype).to(device)
-        return torch.cat([pts, anchors], dim=0)
-    raise ValueError(f"unknown sampling strategy: {strategy!r}")
+        if strategy == "fixed_lhs_anchored":
+            # the reference anchors the FULL IC/BC candidate stack
+            anchors = torch.as_tensor(ic_bc_candidates(problem.dataset), dtype=dtype).to(device)
+            pts = torch.cat([pts, anchors], dim=0)
+    else:
+        raise ValueError(f"unknown sampling strategy: {strategy!r}")
+    # a fixed batch is drawn whole on every rank; a shard keeps its rows
+    return pts if problem.shard is None else pts[local_rows(problem, pts.shape[0])].clone()
 
 
 def _chunks(a: torch.Tensor, m: int):
@@ -542,16 +575,39 @@ def _remat(policy: str, body: Callable, on_card: bool) -> Callable:
     return lambda *args: ckpt.checkpoint(body, *args, **kw)
 
 
+def _l1_sq_share(s_local: torch.Tensor, n_f: int, shard) -> torch.Tensor:
+    """This rank's share of S^2 / n_f, S the sum of |f| over the data row:
+    S (2 S_r - S / D) / n_f with S all-reduced first and held constant, so
+    that the row's shares sum to S^2 / n_f and their gradients to 2 S / n_f
+    dS (at one rank, S (2 S - S) / n_f = S S / n_f bit for bit)."""
+    s = shard.all_reduce(s_local.detach().clone())
+    return s * (2.0 * s_local - s / shard.size) / n_f
+
+
+def _penalty(problem: Problem, f: torch.Tensor, kind: str, n_f: int) -> torch.Tensor:
+    """``residual_penalty`` of ``f`` with the normalizer ``n_f``; under a
+    shard this rank's share of it (the mean over the global row count)."""
+    if problem.shard is None:
+        return residual_penalty(f, kind, n_f)
+    if kind in ("mean_sq", "l2_sq_norm"):
+        return torch.sum(f * f) / n_f
+    if kind == "l1_sq_norm":
+        return _l1_sq_share(torch.sum(torch.abs(f)), n_f, problem.shard)
+    raise ValueError(f"unknown residual penalty kind: {kind!r}")
+
+
 def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain=False):
     """Residual loss term: the strong or the weak form, by the configured
     penalty (the causal one when ``loss.causal_eps > 0``), plus
     ``entropy_weight * sum(entropy_sq) / n_f`` when the entropy penalty is
     on, accumulated over ``sampling.microbatch`` chunks of the batch when it
     is above 1 (strong form only, in chunk order; ``microbatch_unroll`` is an
-    XLA scan knob the port ignores)."""
+    XLA scan knob the port ignores). Under a shard: this rank's share of the
+    term, n_f the global row count."""
     exp = problem.exp
     cfg = exp.loss
-    n_f = colloc.shape[0]  # the ACTUAL row count, as the ADMM threshold uses
+    # the ACTUAL row count, as the ADMM threshold uses (the whole batch's)
+    n_f = total_rows(problem, colloc.shape[0])
     m = exp.sampling.microbatch
     rho = cfg.rho if rho is None else rho
     ew = cfg.entropy_weight
@@ -586,9 +642,9 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
             # the weak-form cell residual takes the plain mean square
             kind = "mean_sq" if cfg.residual_kind == "flux" else cfg.residual_kind
             if isinstance(residuals, tuple):
-                term = sum(residual_penalty(f, kind, n_f) for f in residuals)
+                term = sum(_penalty(problem, f, kind, n_f) for f in residuals)
             else:
-                term = residual_penalty(residuals, kind, n_f)
+                term = _penalty(problem, residuals, kind, n_f)
         if ew > 0.0:
             term = term + ew * torch.sum(ent) / n_f
         return term
@@ -631,7 +687,8 @@ def _residual_term(problem: Problem, params, colloc, admm_state, rho=None, plain
     if cfg.residual_kind in ("mean_sq", "l2_sq_norm"):
         terms = [ssq / n_f for ssq, _ in accs]
     elif cfg.residual_kind == "l1_sq_norm":
-        terms = [sabs * sabs / n_f for _, sabs in accs]
+        terms = [sabs * sabs / n_f if problem.shard is None
+                 else _l1_sq_share(sabs, n_f, problem.shard) for _, sabs in accs]
     else:
         raise ValueError(f"unknown residual kind {cfg.residual_kind!r}")
     if ew > 0.0:  # JAX's order: the entropy's term first, then each component's
@@ -668,7 +725,9 @@ def make_data_term(problem: Problem, plain: bool = False) -> Callable:
 
 def make_loss_fn(problem: Problem, plain: bool = False) -> Callable:
     """loss(params, colloc, admm, rho=None) -> (scalar, aux-metrics dict);
-    ``plain`` forces the plain forward and Taylor-2 versions on any device."""
+    ``plain`` forces the plain forward and Taylor-2 versions on any device.
+    Under a shard, this rank's share of the loss and of its terms: their
+    sums over the data row are the global ones."""
     loss_cfg = problem.exp.loss
     if loss_cfg.residual_weight != 1.0 and loss_cfg.residual_kind == "admm":
         raise ValueError(
@@ -694,7 +753,10 @@ def make_loss_fn(problem: Problem, plain: bool = False) -> Callable:
             lam1 = lam2 = torch.zeros((1,), dtype=problem.spec.dtype, device=colloc.device)
         else:
             lam1, lam2 = problem.effective_coeffs(params)
-        data_term = dterm(params)
+        if problem.shard is None or problem.shard.owner:
+            data_term = dterm(params)
+        else:  # under a shard data rank 0 alone counts the data term
+            data_term = torch.zeros((), dtype=problem.spec.dtype, device=colloc.device)
         res_term = _residual_term(problem, params, colloc, admm_state, rho, plain)
         loss = loss_cfg.data_weight * data_term + loss_cfg.residual_weight * res_term
         aux = {
@@ -730,9 +792,24 @@ def _post_update(problem: Problem, params, admm_state, colloc, key, rho=None, ep
     if exp.loss.residual_kind == "admm":
         rho_val = exp.loss.rho if rho is None else rho
         f_new = problem.training_residuals(params, colloc, plain=plain)
-        admm_state = admm_update(f_new, admm_state, rho_val, colloc.shape[0])
-        mis = admm_misfit(f_new, admm_state)
+        admm_state = admm_update(f_new, admm_state, rho_val,
+                                 total_rows(problem, colloc.shape[0]))
+        mis = _misfit(problem, f_new, admm_state)
     return admm_state, colloc, key, mis
+
+
+def _misfit(problem: Problem, residuals, state: ADMMState) -> torch.Tensor:
+    """``admm_misfit``: mean |r - z| averaged over the components; under a
+    shard the sums of |r - z| all-reduced over the data row (one flat
+    all-reduce) and divided by the global row count."""
+    if problem.shard is None:
+        return admm_misfit(residuals, state)
+    rs = residuals if isinstance(residuals, tuple) else (residuals,)
+    zs = state.z if isinstance(state.z, tuple) else (state.z,)
+    sums = problem.shard.all_reduce(torch.stack([torch.sum(torch.abs(f - z))
+                                                 for f, z in zip(rs, zs)]))
+    parts = sums / total_rows(problem, rs[0].shape[0])
+    return parts[0] if len(rs) == 1 else torch.sum(parts) / len(rs)
 
 
 def metrics_row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -751,10 +828,12 @@ def _write_metrics(metrics: Dict[str, torch.Tensor], out: Optional[torch.Tensor]
 
 
 def _draw_at(problem: Problem, sched, cursor, plain: bool) -> torch.Tensor:
-    """The batch that schedule row ``cursor`` draws: K11 on a CUDA schedule,
-    its plain version on the CPU or under ``plain``."""
+    """The batch that schedule row ``cursor`` draws (under a shard, this
+    rank's rows of it): K11 on a CUDA schedule, its plain version on the CPU
+    or under ``plain``."""
     draw = philox_draw_reference if plain else philox_draw
-    return draw(sched, cursor, problem.exp.sampling.n_f, problem.spec.dtype)
+    rows = local_rows(problem, problem.exp.sampling.n_f)
+    return draw(sched, cursor, rows.stop - rows.start, problem.spec.dtype, rows.start)
 
 
 @torch.no_grad()
@@ -781,8 +860,8 @@ def _epoch_tail(problem: Problem, params, admm_state, colloc, rho, sched, cursor
     if admm:
         f = problem.training_residuals(params, colloc, plain=plain)
         admm_state = admm_update(f, admm_state, exp.loss.rho if rho is None else rho,
-                                 colloc.shape[0])
-        mis = admm_misfit(f, admm_state)
+                                 total_rows(problem, colloc.shape[0]))
+        mis = _misfit(problem, f, admm_state)
     if current:
         colloc = next_batch(colloc)
     return admm_state, colloc, mis
@@ -818,8 +897,11 @@ def make_adam_epoch(problem: Problem, plain: bool = False):
         # frozen coefficients get a zero gradient, as JAX's stop_gradient gives
         wanted = tree_leaves(params["net"]) + (tree_leaves(params["coeffs"]) if train_coeffs else [])
         # the Euler residuals do not read the coefficients: a zero gradient
-        got = iter(g if g is not None else torch.zeros_like(p) for g, p in
-                   zip(torch.autograd.grad(loss, wanted, allow_unused=True), wanted))
+        got = [g if g is not None else torch.zeros_like(p) for g, p in
+               zip(torch.autograd.grad(loss, wanted, allow_unused=True), wanted)]
+        if problem.shard is not None:
+            got, aux = _reduce_shares(problem.shard, got, aux)
+        got = iter(got)
         grads = {
             "net": tree_map(lambda p: next(got), params["net"]),
             "coeffs": tree_map(lambda p: next(got) if train_coeffs else torch.zeros_like(p),
@@ -836,6 +918,26 @@ def make_adam_epoch(problem: Problem, plain: bool = False):
         return new_params, opt_state, admm_state, colloc, metrics
 
     return epoch
+
+
+# the loss metrics whose data-row sums are the global ones (the coefficients
+# are replicated)
+SHARED_METRICS = ("loss", "data_term", "res_term")
+
+
+def _reduce_shares(shard, grads, aux):
+    """The gradients and the loss metrics summed over the data row in ONE
+    flat all-reduce (in the gradients' dtype): (grads, aux) of the whole
+    batch from this rank's shares."""
+    sizes = [g.numel() for g in grads]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [aux[k].detach().reshape(1).to(grads[0].dtype) for k in SHARED_METRICS])
+    shard.all_reduce(flat)
+    parts = flat.split(sizes + [1] * len(SHARED_METRICS))
+    out = [p.view_as(g) for p, g in zip(parts, grads)]
+    aux = dict(aux, **{k: parts[len(grads) + i].reshape(()).to(aux[k].dtype)
+                       for i, k in enumerate(SHARED_METRICS)})
+    return out, aux
 
 
 def make_adam_step(problem: Problem, learning_rate, plain: bool = False):
@@ -912,6 +1014,13 @@ def make_step(problem: Problem, learning_rate):
     return make_adam_step(problem, learning_rate)
 
 
+DP_LBFGS_NOTE = (
+    "data parallelism: the L-BFGS outer epochs run one host call each (K10's solve on "
+    "DeviceLBFGS, K3's value-and-grad all-reduced inside its graph, then the post-update), "
+    "not as K10's outer-epoch chunks (LBFGSChunk), whose post-update is not split around an "
+    "all-reduce yet (ROADMAP queue 2)")
+
+
 def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     """One outer epoch of the L-BFGS phase: the full inner solve of the loss
     at the current batch and ADMM state, then the shared resample -> z/dual
@@ -938,6 +1047,13 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     :func:`make_chunked` takes as it takes K3's. The runner is chosen by
     that scope, never after a failure; ``step`` itself stays the per-outer-
     epoch drive (the card's comparisons).
+
+    Under a shard the objective is the data row's sum of the ranks' shares
+    with its gradient (``parallel.sharding.global_objective``: one flat
+    all-reduce an evaluation; ``DeviceLBFGS`` splits K3's value-and-grad
+    around its all-reduce), so every rank's solver takes the same decisions;
+    the outer epochs run as this per-outer-epoch step, not as ``LBFGSChunk``
+    (a line says so: :data:`DP_LBFGS_NOTE`).
     """
     loss_fn = make_loss_fn(problem)
     dterm = make_data_term(problem)
@@ -959,6 +1075,8 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
         opts = dict(max_iters=cfg.max_iters, history=cfg.history, ftol=cfg.ftol, gtol=cfg.gtol,
                     max_ls=cfg.max_ls)
         fun = lambda x: loss_fn(unravel(x), state.colloc, state.admm, state.rho)[0]  # noqa: E731
+        if problem.shard is not None:
+            fun = global_objective(fun, problem.shard)
         if k3:
             res = solver.minimize(x0.detach(), k_lbfgs.net_offset(state.params), state.colloc,
                                   state.admm, exp.loss.rho if state.rho is None else state.rho,
@@ -988,7 +1106,10 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
 
     step.solver = solver  # K10's DeviceLBFGS or AutogradLBFGS, or None: the host loop
     if k3 and not k_lbfgs.lbfgs_chunk_supported(exp, problem.spec):
-        step.graphed = functools.partial(k_lbfgs.LBFGSChunk, problem)
+        if problem.shard is None:
+            step.graphed = functools.partial(k_lbfgs.LBFGSChunk, problem)
+        elif problem.shard.owner:
+            print(DP_LBFGS_NOTE, flush=True)
     return step
 
 
@@ -1212,6 +1333,7 @@ class Trainer:
         t0 = time.time()
         epoch = int(state.epoch)
         n_chunks = 0
+        last = None
         while epoch < total:
             phase = self._phase(epoch)
             length = min(chunk if phase == "adam" else lbfgs_chunk, total - epoch)
@@ -1240,13 +1362,20 @@ class Trainer:
                 swa_avg, swa_n = swa_update(swa_avg, swa_n, state.params)
             if exp.sampling.strategy == "rad" and epoch < total:
                 state = rad_resample(self.problem, state)
-        summary = self.evaluate(state)
+        shard = self.problem.shard
+        owner = shard is None or shard.owner
+        # under a shard data rank 0 evaluates; every rank reports its final
+        # loss (the same on every rank: it is all-reduced)
+        summary = self.evaluate(state) if owner else {}
         summary["epochs"] = epoch
+        if shard is not None:
+            summary.update(rank=shard.rank, loss=last["loss"] if last else None)
         if swa_n > 0:
             self.swa_params = swa_params(swa_avg, state.params)
             summary["swa_snapshots"] = swa_n
-            for k, v in self.evaluate(state, params=self.swa_params).items():
-                summary[f"swa_{k}"] = v
+            if owner:
+                for k, v in self.evaluate(state, params=self.swa_params).items():
+                    summary[f"swa_{k}"] = v
             if exp.train.out_dir:
                 # a loadable state at the averaged iterate (the optimizer and
                 # ADMM state stay the final ones: SWA redefines only params)
@@ -1293,6 +1422,9 @@ class Trainer:
 
     def _maybe_snapshot(self, epoch, length, state):
         every = self.exp.train.snapshot_every
+        shard = self.problem.shard
+        if shard is not None and not shard.owner:
+            return
         if every and self.exp.train.out_dir and self._crossed(epoch, length, every):
             self.record_snapshot(state, epoch)
 
@@ -1336,8 +1468,15 @@ class Trainer:
 
     # -- checkpointing ----------------------------------------------------
     def save_checkpoint(self, state: TrainState, tag: str = "final") -> str:
+        """``<out_dir>/<name>_<tag>.ckpt``. Under a shard every rank of the
+        data row calls it: the batch and the ADMM state are gathered whole
+        (``parallel.sharding.gather_state``) and data rank 0 writes them."""
         out_dir = self.exp.train.out_dir or "."
         path = os.path.join(out_dir, f"{self.exp.name}_{tag}.ckpt")
+        shard = self.problem.shard
+        state = gather_state(state, shard)
+        if shard is not None and not shard.owner:
+            return path
         ckpt_io.save_checkpoint(path, state, meta={
             "experiment": self.exp.name,
             "epoch": int(state.epoch),

@@ -13,6 +13,14 @@ rel-L2 <= 1e-3 for burgers_forward, both coefficient errors < 1% for
 burgers_inverse. JAX's numbers beside them (its CPU polish) are in
 ``PARITY.md:209-214``.
 
+With ``--train-only`` the polish stage is left out; ``--seeds`` runs the
+train (and polish) stages for several seeds in turn, each into its own
+``<out-dir>/s<seed>``, and ends with a line of the seeds' u rel-L2 and their
+median after the train stage (the five-seed study of ROADMAP P6):
+
+    python scripts/polish_quality_run.py --preset burgers_forward --max-iters 0 \
+        --train-only --seeds 1234,7,99,1235,1236 --out-dir runs/p6
+
 With ``--adam-only`` the train stage stops at the preset's switch to
 L-BFGS (``--epochs optimizer.switch_epoch``), and two stages run between it
 and the polish, each from that one Adam state: the preset's float32 L-BFGS
@@ -100,7 +108,26 @@ def main(argv=None) -> int:
                     help="a config override for both commands (a cut-down run)")
     ap.add_argument("--adam-only", action="store_true",
                     help="train the Adam phase alone, then the float32 L-BFGS stages")
+    ap.add_argument("--train-only", action="store_true", help="leave out the polish stage")
+    ap.add_argument("--seeds", default=None,
+                    help="comma-separated seeds, each run in turn into <out-dir>/s<seed>")
     args = ap.parse_args(argv)
+    if args.seeds:
+        seeds = [int(v) for v in args.seeds.split(",")]
+        errs = []
+        for seed in seeds:
+            errs.append(_run_one(argparse.Namespace(**dict(
+                vars(args), seed=seed, out_dir=os.path.join(args.out_dir, f"s{seed}")))))
+        print(json.dumps({"preset": args.preset, "seeds": seeds, "card": _card(),
+                          "train_rel_l2_u": errs, "median": float(sorted(errs)[len(errs) // 2])}),
+              flush=True)
+        return 0
+    _run_one(args)
+    return 0
+
+
+def _run_one(args) -> float:
+    """The stages of one seed; returns u rel-L2 after the train stage."""
     card = _card()
     sets = [a for kv in args.set for a in ("--set", kv)]
     out = {}
@@ -124,6 +151,8 @@ def main(argv=None) -> int:
                         str(args.seed), "--out-dir", args.out_dir, "--device", args.device])
     out["train"] = {"summary": json.loads(lines[-1]), "wall_s": wall}
     report("train")
+    if args.train_only:
+        return out["train"]["summary"]["rel_l2_u"]
     ckpt = os.path.join(args.out_dir, f"{args.preset}_final.ckpt")
     if args.adam_only:
         out.update(_lbfgs_stages(args, exp, ckpt))
@@ -142,7 +171,7 @@ def main(argv=None) -> int:
                          for k, v in out[stage].items() if k != "summary"},
                       **{f"{stage}_rel_l2_u": out[stage]["summary"]["rel_l2_u"]
                          for stage in ("train", "polish")}}), flush=True)
-    return 0
+    return out["train"]["summary"]["rel_l2_u"]
 
 
 if __name__ == "__main__":

@@ -2370,3 +2370,205 @@ def test_f64_outside_the_modes_raises_on_card(cuda_device, what):  # noqa: F811
             {"k1_tiled": lambda: k_taylor2.taylor2(spec, net, x),
              "k2_wide": lambda: k_taylor2.taylor2_backward(spec, net, x, cot),
              "k5_wide": lambda: k_mlp.mlp_forward(spec, net, x)}[what]()
+
+
+# -- slice 6: K3's data-parallel modes and K11's row offset ------------------------
+
+@pytest.mark.parametrize("layers,kind", [((2,) + (20,) * 8 + (1,), "admm"),
+                                         ((2, 16, 16, 16, 1), "l1_sq_norm"),
+                                         ((2, 40, 40, 40, 1), "admm"),
+                                         ((2, 40, 40, 40, 1), "mean_sq")],
+                         ids=["8x20-admm", "16-l1", "40-admm", "40-mean_sq"])
+def test_dp_chunk_at_one_rank_equals_the_fused_chunk(cuda_device, layers, kind):  # noqa: F811
+    """K3 under data parallelism at one rank (a shard with no process group:
+    the three modes, no all-reduce): the graphed chunk and the per-epoch
+    step equal the fused ones bit for bit, both designs, drawn and fed, and
+    every epoch counts one reduce and one apply launch."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.parallel.sharding import DataShard
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("abgrall_admm"), {
+        "model.layers": layers, "loss.residual_kind": kind, "sampling.n_f": 200,
+        "train.chunk": 8})
+    plain = tr.Trainer(exp, device="cuda")
+    dp = tr.Trainer(exp, device="cuda")
+    dp.problem.shard = DataShard(rank=0, size=1)
+    dp._adam_step = tr.make_step(dp.problem, dp.learning_rate)
+    state = plain.init_state()
+    for length in (1, 2, 7):
+        before = (k_fused.DP_REDUCE_LAUNCHES, k_fused.DP_APPLY_LAUNCHES)
+        _assert_same_chunk(dp._get_chunk("adam")(state, length),
+                           plain._get_chunk("adam")(state, length))
+        assert (k_fused.DP_REDUCE_LAUNCHES, k_fused.DP_APPLY_LAUNCHES) == (
+            before[0] + length, before[1] + length)
+    _assert_same_chunk(tr.run_chunk(dp._adam_step, state, 3),
+                       tr.run_chunk(plain._adam_step, state, 3))
+    feed = torch.from_numpy(np.stack([numpy_points(200, seed=s) for s in range(3)])).to(
+        cuda_device)
+    _assert_same_chunk(dp._get_chunk("adam")(state, 3, new_colloc=feed),
+                       plain._get_chunk("adam")(state, 3, new_colloc=feed))
+
+
+@pytest.mark.parametrize("layers,kind,ranks", [((2,) + (20,) * 8 + (1,), "admm", 2),
+                                               ((2,) + (20,) * 8 + (1,), "l1_sq_norm", 4),
+                                               ((2, 40, 40, 40, 1), "admm", 2),
+                                               ((2, 40, 40, 40, 1), "l1_sq_norm", 4)],
+                         ids=["8x20-admm-2", "8x20-l1-4", "40-admm-2", "40-l1-4"])
+def test_dp_modes_match_their_plain_versions(cuda_device, layers, kind, ranks):  # noqa: F811
+    """The reduce mode on each rank's rows against dp_reduce_reference
+    (within 1e-4 of max|plain| a part: float32 partial sums in another
+    order), their sums added as an all-reduce would, then the apply mode
+    against dp_apply_reference bit for bit and the finalize mode's misfit
+    against the plain misfit of the ranks' tail sums."""
+    from pinns_tpu_torch.models.mlp import MLPSpec, init_mlp
+    from pinns_tpu_torch.ops.kernels import fused_step as k_fused
+    from pinns_tpu_torch.ops.kernels.taylor2 import pack_params
+    from pinns_tpu_torch.opt.adam import bias_corrections
+
+    spec = MLPSpec(layers=layers, lb=LB, ub=UB)
+    P = spec.n_params
+    params = pack_params(init_mlp(spec, torch.Generator().manual_seed(5), cuda_device))
+    mu, nu = 0.01 * torch.ones_like(params), 1e-4 * torch.ones_like(params)
+    colloc = torch.from_numpy(numpy_points(400, seed=6)).to(cuda_device)
+    x_data = torch.from_numpy(numpy_points(50, seed=7)).to(cuda_device)
+    u_data = torch.sin(3.0 * x_data[:, :1]).contiguous()
+    rng = np.random.default_rng(8)
+    z = torch.from_numpy((0.1 * rng.standard_normal((400, 1))).astype(np.float32)).to(cuda_device)
+    dual = torch.ones_like(z)
+    admm = kind == "admm"
+    cfg = dict(kind=kind, lam1=1.0, lam2=0.01, lr=1e-3, explicit_inner=False)
+    n = 400 // ranks
+    rank_sums = []
+    for r in range(ranks):
+        rows = slice(r * n, (r + 1) * n)
+        sums = torch.zeros(2 * P + 3, dtype=torch.float64, device=cuda_device)
+        dp = dict(sums=sums, n_f_all=400, row0=r * n, data_tiles=int(r == 0), mode="reduce")
+        k_fused._epoch(spec, 1, params[None], mu[None], nu[None], 3, x_data, u_data,
+                       colloc[rows][None], z[rows][None] if admm else None,
+                       dual[rows][None] if admm else None, rho=10.0, seed=1234, epoch=4, dp=dp,
+                       **cfg)
+        want = k_fused.dp_reduce_reference(spec, params, x_data, u_data, colloc[rows],
+                                           z[rows] if admm else None,
+                                           dual[rows] if admm else None, kind=kind, lam1=1.0,
+                                           lam2=0.01, rho=10.0, n_f_all=400,
+                                           data_tiles=r == 0)
+        for part in (slice(0, P), slice(P, 2 * P), slice(2 * P, 2 * P + 2)):
+            err = float((sums[part] - want[part]).abs().max())
+            assert err <= 1e-4 * float(want[part].abs().max()) + 1e-30, (r, part, err)
+        rank_sums.append(sums)
+    total = sum(rank_sums)
+    misfit_sum = 0.0
+    for r in range(ranks):
+        rows = slice(r * n, (r + 1) * n)
+        sums = total.clone()
+        dp = dict(sums=sums, n_f_all=400, row0=r * n, data_tiles=int(r == 0), mode="apply")
+        out = k_fused._epoch(spec, 1, params[None], mu[None], nu[None], 3, x_data, u_data,
+                             colloc[rows][None], z[rows][None] if admm else None,
+                             dual[rows][None] if admm else None, rho=10.0, seed=1234, epoch=4,
+                             dp=dp, **cfg)
+        bc1, bc2 = bias_corrections(3)
+        p, m, v, metrics = k_fused.dp_apply_reference(total, params, mu, nu, kind=kind,
+                                                      lr=1e-3, bc1=bc1, bc2=bc2, n_u=50,
+                                                      n_f_all=400, lam1=1.0, lam2=0.01)
+        for got, want in ((out["params"][0], p), (out["mu"][0], m), (out["nu"][0], v),
+                          (out["metrics"][0][1:], metrics[1:].to(cuda_device))):
+            assert torch.equal(got, want)
+        misfit_sum += float(sums[2 * P + 2])
+    misfit = torch.zeros(1, 7, device=cuda_device)
+    sums = total.clone()
+    sums[2 * P + 2] = misfit_sum
+    k_fused._epoch(spec, 1, params[None], mu[None], nu[None], 3, x_data, u_data,
+                   colloc[:n][None], z[:n][None] if admm else None,
+                   dual[:n][None] if admm else None, rho=10.0, seed=1234, epoch=4,
+                   metrics_out=misfit, dp=dict(sums=sums, n_f_all=400, row0=0, data_tiles=1,
+                                               mode="finalize"), **cfg)
+    want = k_fused.dp_finalize_reference(torch.tensor(misfit_sum, dtype=torch.float64), 400)
+    assert float(misfit[0, 0]) == (float(want) if admm else 0.0)
+
+
+@pytest.mark.parametrize("n,ranks", [(1_000, 4), (65_536, 2), (77, 7)])
+def test_k11_row_offset_draws_the_whole_batch(cuda_device, n, ranks):  # noqa: F811
+    """K11 at each rank's row offset: the draws stacked in rank order equal
+    one launch of the whole batch bit for bit, and the plain version at
+    those offsets."""
+    from pinns_tpu_torch.ops.kernels import sampling
+    from pinns_tpu_torch.train import schedule
+
+    rows = schedule.schedule_rows(77, 0, 9, 1, 0.0, lambda e: ((-1.0, 0.0), (1.0, 0.99)))
+    sched = schedule.to_device(rows, cuda_device)
+    cursor = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    m = n // ranks
+    parts = [sampling.philox_draw(sched, cursor, m, torch.float32, r * m) for r in range(ranks)]
+    whole = sampling.philox_draw(sched, cursor, m * ranks)
+    assert torch.equal(torch.cat(parts), whole)
+    plain = sampling.philox_draw_reference(sched.cpu(), cursor.cpu(), m, torch.float32, m)
+    assert torch.equal(parts[1].cpu(), plain)
+
+
+def test_device_lbfgs_dp_at_one_rank_equals_the_solve(cuda_device):  # noqa: F811
+    """K10's solve with K3's value-and-grad split into its data-parallel
+    reduce and apply modes, at one rank (a shard with no process group):
+    the same iterations, evaluations, x, f and g as the solve without a
+    shard, bit for bit, from abgrall_admm's state after 200 Adam epochs."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import lbfgs as k10
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+    from pinns_tpu_torch.parallel.sharding import DataShard
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("abgrall_admm"), {"train.chunk": 200})
+    trainer = tr.Trainer(exp, device="cuda")
+    state, _ = trainer._get_chunk("adam")(trainer.init_state(), 200)
+    x0, _ = ravel_tree(state.params)
+    solo = k10.DeviceLBFGS(trainer.problem)
+    dp_trainer = tr.Trainer(exp, device="cuda")
+    dp_trainer.problem.shard = DataShard(rank=0, size=1)
+    dp = k10.DeviceLBFGS(dp_trainer.problem)
+    off = k10.net_offset(state.params)
+    runs = [s.minimize(x0.detach(), off, state.colloc, state.admm, exp.loss.rho, max_iters=60)
+            for s in (solo, dp)]
+    a, b = runs
+    assert (a.n_iters, a.n_evals, a.converged) == (b.n_iters, b.n_evals, b.converged)
+    assert torch.equal(a.x, b.x) and torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+
+
+def test_sweep_units_over_cards_equal_serial(cuda_device, tmp_path):  # noqa: F811
+    """abgrall_admm sweep units dispatched over every card, one worker
+    process a card: solo units (K9's graphed Adam chunks, then K10's graphed
+    L-BFGS) and an ensemble unit (K8 in K9's graphs), every row ok, on the
+    cards, more than one card used, and every summary equal to the same unit
+    run serially in this process on cuda:0. Needs two cards or more."""
+    import time
+
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.parallel import sweep
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("a sweep over cards needs two cards or more")
+    base = override(get_preset("abgrall_admm"), {
+        "train.epochs": 3020, "train.chunk": 1000, "train.log_every": 0,
+        "optimizer.switch_epoch": 3000, "optimizer.lbfgs.max_iters": 20})
+    grid = ([{"sampling.n_f": 1000 - 100 * k} for k in range(cards)]
+            + [{"sampling.n_f": 960, "train.seed": s} for s in (1, 2)])
+    t0 = time.perf_counter()
+    serial = sweep.run_sweep(base, grid, devices=["cuda:0"], device="cuda:0")
+    t1 = time.perf_counter()
+    spread = sweep.run_sweep(base, grid, out_path=str(tmp_path / "rows.jsonl"), device="cuda")
+    t2 = time.perf_counter()
+    print(f"sweep of {len(grid)} configurations: serial on cuda:0 {t1 - t0:.2f} s, "
+          f"over {cards} cards {t2 - t1:.2f} s")
+    assert [r.status for r in serial] == ["ok"] * len(grid), [r.error for r in serial]
+    assert [r.status for r in spread] == ["ok"] * len(grid), [r.error for r in spread]
+    used = {r.device for r in spread}
+    assert used <= {f"cuda:{k}" for k in range(cards)} and len(used) > 1, used
+    for a, b in zip(serial, spread):
+        assert a.overrides == b.overrides
+        assert a.summary["rel_l2_u"] == b.summary["rel_l2_u"], (a.overrides, a.summary,
+                                                                 b.summary)
+        assert a.summary["epochs"] == b.summary["epochs"] == 3020

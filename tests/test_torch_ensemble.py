@@ -372,13 +372,21 @@ def test_k8_wrapper_raises():
 
 
 def test_later_slices_raise():
-    """A device mesh (slice 6) raises naming its slice; RAD, which the solo
-    trainer takes since slice 2b-iii, raises in an ensemble with the JAX
-    package's own refusal (pinns_tpu/parallel/ensemble.py:75-80), as JAX's
-    ensemble does."""
-    ttr = _trainer()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tens.run_ensemble(ttr, SEEDS[:2], mesh=object())
+    """A device mesh (slice 6) is inside the port: an ensemble over a mesh of
+    two ensemble coordinates trains this rank's block of the members (a
+    layout-only mesh here: rank 0, the first member) as without a mesh; RAD
+    raises in an ensemble with the JAX package's own refusal
+    (pinns_tpu/parallel/ensemble.py:75-80), as JAX's ensemble does, and
+    under data parallelism by name (slice 6b)."""
+    from pinns_tpu_torch.parallel.mesh import make_mesh
+
+    ttr = _trainer(**{"train.epochs": 2})
+    mesh = make_mesh(data=1, ensemble=2, ranks=range(2))
+    assert tens.mesh_members(3, mesh) == [0, 1] and tens.mesh_members(3, None) == [0, 1, 2]
+    local, summaries = tens.run_ensemble(ttr, SEEDS[:2], mesh=mesh)
+    assert len(local.key) == 1 and local.key[0] == SEEDS[0] and len(summaries) == 1
+    solo, solo_summary = ttr.train(ttr.init_state(seed=SEEDS[0]), epochs=2)
+    assert summaries[0]["rel_l2_u"] == solo_summary["rel_l2_u"]
     ttrainer.check_slice(_exp(**{"sampling.strategy": "rad"}))
     rad = copy.copy(ttr)
     rad.exp = _exp(**{"sampling.strategy": "rad"})
@@ -391,7 +399,8 @@ def test_later_slices_raise():
     assert str(err.value) == str(jerr.value)
     with pytest.raises(ValueError, match="phase"):
         tens.make_ensemble_chunk(ttr, 1, "sgd")
-    # ensembles themselves are inside the port now
+    # ensembles and data parallelism are inside the port now; RAD under it is not
     ttrainer.check_slice(_exp(**{"mesh.ensemble": 4}))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ttrainer.check_slice(_exp(**{"mesh.data_parallel": 2}))
+    ttrainer.check_slice(_exp(**{"mesh.data_parallel": 2}))
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        ttrainer.check_slice(_exp(**{"mesh.data_parallel": 2, "sampling.strategy": "rad"}))

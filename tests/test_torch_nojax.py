@@ -30,6 +30,7 @@ MODULES = [
     "pinns_tpu_torch.ops.kernels.sampling", "pinns_tpu_torch.ops.kernels.generic_chunk",
     "pinns_tpu_torch.ops.kernels.ensemble", "pinns_tpu_torch.parallel.ensemble",
     "pinns_tpu_torch.parallel.sweep", "pinns_tpu_torch.train.polish",
+    "pinns_tpu_torch.parallel.mesh", "pinns_tpu_torch.parallel.sharding",
 ]
 
 

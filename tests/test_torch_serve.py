@@ -49,15 +49,17 @@ def thread_fp_state():
 def layer_departures(spec, params, x, rows=4096):
     """The plain recurrence's streams, layer by layer, on the padded batch
     ``x`` in float32 against float64: per layer the largest error (relative
-    to each stream's max) of the first ``rows`` rows (P1's rows) and of the
-    others, and the first
-    layer's float32 streams of those rows; a layer whose first rows err far
-    more than the rest is where P1's product departs."""
+    to each stream's max) of the ``rows`` rows (P1's rows: the first
+    ``rows`` of them for an int, else a boolean mask, e.g. the CLI leg's
+    failing block) and of the others, and the float32 streams of those
+    rows; a layer whose P1 rows err far more than the rest is where P1's
+    product departs."""
     from pinns_tpu_torch.models.mlp import embed_streams, normalize_inputs
     from pinns_tpu_torch.ops.taylor import _StreamPolicy, taylor2_layer
 
     out, saved = [], {}
     runs = {}
+    head = (np.arange(len(x)) < rows) if np.isscalar(rows) else np.asarray(rows, bool)
     for dtype in (torch.float32, torch.float64):
         sp = spec if dtype == torch.float32 else dataclasses.replace(spec, dtype=dtype)
         net = [{k: v.to(dtype) for k, v in layer.items()} for layer in params]
@@ -76,10 +78,9 @@ def layer_departures(spec, params, x, rows=4096):
     for i, (a, b) in enumerate(zip(runs[torch.float32], runs[torch.float64])):
         err = [np.abs(u - v).max(axis=1) / max(float(np.abs(v).max()), 1e-30)
                for u, v in zip(a, b)]
-        head = max(float(e[:rows].max()) for e in err)
-        rest = max(float(e[rows:].max()) for e in err)
-        out.append({"layer": i, "head_err": head, "rest_err": rest})
-        saved[f"layer{i}"] = np.stack([s[:rows] for s in a]).astype(np.float32)
+        part = lambda m: max((float(e[m].max()) for e in err if m.any()), default=0.0)  # noqa: E731
+        out.append({"layer": i, "head_err": part(head), "rest_err": part(~head)})
+        saved[f"layer{i}"] = np.stack([s[head] for s in a]).astype(np.float32)
     return out, saved
 
 
@@ -99,8 +100,8 @@ def report_bad_rows(name, got, want, bad, served=None, x=None):
         return
     fd, path = tempfile.mkstemp(prefix="p1_rows_", suffix=".npz")
     os.close(fd)
-    layers, saved = ([], {}) if served is None else layer_departures(served.spec,
-                                                                     served.params, x)
+    layers, saved = ([], {}) if served is None else layer_departures(
+        served.spec, served.params, x, rows=4096 if len(x) > 4096 else np.asarray(bad, bool))
     np.savez(path, got=np.asarray(got), want=np.asarray(want), bad=np.asarray(bad), **saved)
     print(f"P1 diagnostic, {name}: {rows.size} of {bad.size} rows differ, first {rows[0]}, "
           f"last {rows[-1]}, contiguous block {bool(rows[-1] - rows[0] + 1 == rows.size)}; "
@@ -268,6 +269,55 @@ def test_http_bad_requests_get_400(server, path, body, ctype):
     assert "error" in json.loads(out)
 
 
+# a fresh process's view of P1: the CLI's own imports and load, then each
+# intra-op thread's floating-point state and its predict's rows (printed as
+# JSON), as the CLI predict computes them
+CLI_PROBE = """
+import json, sys
+import numpy as np
+sys.path.insert(0, {tests!r})
+from pinns_tpu_torch.serve import load_exported
+from test_torch_serve import thread_fp_state
+served = load_exported({art!r}, device="cpu")
+with np.load({points!r}) as z:
+    x = np.atleast_2d(np.asarray(z["x"], np.float32))
+before = thread_fp_state()
+out = served.predict(x)
+np.savez({out!r}, **{{k: np.asarray(v, np.float32) for k, v in out.items()}})
+print(json.dumps({{"before": before, "after": thread_fp_state()}}))
+"""
+
+
+def cli_p1_probe(art: str, points: str, want: dict, env: dict, tmp_path) -> None:
+    """On a mismatch of the CLI's predict (ROADMAP P1), cover the process
+    that moved: run the same CLI command a second time and a fresh process
+    that loads the artifact as the CLI does and prints its threads'
+    floating-point state before and after its predict (:func:`thread_fp_state`);
+    print which of the reruns moved, on which rows, and save their outputs."""
+    runs = {}
+    again = str(tmp_path / "pred_again.npz")
+    subprocess.run([sys.executable, "-m", "pinns_tpu_torch", "predict", "--artifact", art,
+                    "--points", points, "--out", again, "--device", "cpu"],
+                   check=True, env=env, cwd=REPO, timeout=120)
+    probe_out = str(tmp_path / "pred_probe.npz")
+    code = CLI_PROBE.format(tests=os.path.dirname(os.path.abspath(__file__)), art=art,
+                            points=points, out=probe_out)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=120)
+    for name, path in (("cli_again", again), ("probe", probe_out)):
+        if os.path.exists(path):
+            with np.load(path) as z:
+                runs[name] = {k: z[k] for k in ("u", "f")}
+    for name, got in runs.items():
+        for k in ("u", "f"):
+            bad = np.flatnonzero((got[k] != want[k]).any(axis=1))
+            print(f"P1 diagnostic, {name} {k}: {bad.size} rows differ"
+                  + (f", first {bad[0]}, last {bad[-1]}" if bad.size else ""))
+    print(f"P1 diagnostic, fresh-process probe: rc {proc.returncode} "
+          f"{proc.stdout.strip()[-2000:]} {proc.stderr.strip()[-1000:]}\n"
+          f"reruns saved to {again} and {probe_out}")
+
+
 def test_cli_export_and_predict(tmp_path, artifact, fixture_npz):
     env = {**os.environ, "PYTHONPATH": REPO}
     art = str(tmp_path / "cli_art")
@@ -280,10 +330,15 @@ def test_cli_export_and_predict(tmp_path, artifact, fixture_npz):
     subprocess.run([sys.executable, "-m", "pinns_tpu_torch", "predict", "--artifact", art,
                     "--points", points, "--out", out, "--device", "cpu"],
                    check=True, env=env, cwd=REPO, timeout=120)
-    want = ServedModel(artifact, device="cpu").predict(x)
+    served = ServedModel(artifact, device="cpu")
+    want = served.predict(x)
     with np.load(out) as z:
+        got = {k: z[k] for k in ("u", "f")}
         np.testing.assert_array_equal(z["x"], x)
-        for k in ("u", "f"):
-            report_bad_rows(f"CLI {k} vs in-process predict", z[k], want[k],
-                            (z[k] != want[k]).any(axis=1))
-            np.testing.assert_array_equal(z[k], want[k])
+    if any((got[k] != want[k]).any() for k in got):
+        cli_p1_probe(art, points, want, env, tmp_path)
+    for k in ("u", "f"):
+        # the CLI leg's layers too: the plain recurrence on the CLI's batch
+        report_bad_rows(f"CLI {k} vs in-process predict", got[k], want[k],
+                        (got[k] != want[k]).any(axis=1), served=served, x=x)
+        np.testing.assert_array_equal(got[k], want[k])

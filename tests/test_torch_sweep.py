@@ -1,8 +1,8 @@
 """Port parity for sweeps (``pinns_tpu_torch.parallel.sweep``): the grid and
 its grouping against the JAX package's, value-only axes (seed, rho) as one
 ensemble unit whose members equal their solo runs, failures recorded (and
-``sweep`` exiting 1), the JSONL sink, and the refusal of concurrent units
-over several cards (slice 6). Tiny abgrall_admm runs on the CPU (net
+``sweep`` exiting 1), the JSONL sink, and concurrent units over several
+devices (slice 6). Tiny abgrall_admm runs on the CPU (net
 2 -> 8x2 -> 1, N_f 64, N_u 16) on the committed TwoSin grid.
 """
 
@@ -96,11 +96,18 @@ def test_failed_configuration_is_recorded_and_sweep_exits_1(capsys):
 
 def test_units_run_in_turn_on_one_card(capsys):
     """Groups that cannot batch run as serial units (a log line says so);
-    several units over several cards raise, naming slice 6."""
+    several units over several devices run concurrently, one worker process
+    a device (slice 6: two CPU worker names here), results in grid order."""
+    grid = tsweep.cartesian_grid({"sampling.n_f": [32, 64, 32, 64]})
+    results = tsweep.run_sweep(_base(), [dict(g, **{"train.epochs": 10 + i})
+                                         for i, g in enumerate(grid)],
+                               devices=["cpu:0", "cpu:1"], device="cpu", dataset=GRID)
+    assert [r.status for r in results] == ["ok"] * 4
+    assert [r.overrides["train.epochs"] for r in results] == [10, 11, 12, 13]
+    assert [r.summary["epochs"] for r in results] == [10, 11, 12, 13]
+    assert {r.device for r in results} == {"cpu:0", "cpu:1"}
+    assert "concurrently over 2 devices" in capsys.readouterr().out
     grid = tsweep.cartesian_grid({"sampling.n_f": [32, 64]})
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tsweep.run_sweep(_base(), grid, devices=["cuda:0", "cuda:1"], device="cpu",
-                         dataset=GRID)
     results = tsweep.run_sweep(_base(), grid, devices=["cuda:0", "cuda:1"], concurrent=False,
                                device="cpu", dataset=GRID)
     assert [r.status for r in results] == ["ok", "ok"]
@@ -127,3 +134,46 @@ def test_sweep_members_keep_their_rho():
         assert state.rho is None
     assert [r.summary["rel_l2_u"] for r in results] == losses
     assert losses[0] != losses[1]
+
+
+def test_concurrent_units_stress(tmp_path):
+    """More units than worker processes, each worker taking several from the
+    one queue: every configuration gets exactly one result, in grid order,
+    with its own epochs, and the JSONL sink exactly one row each (the parent
+    alone writes them, as the workers' results arrive)."""
+    n, workers = 12, 4
+    grid = [{"sampling.n_f": 32 + 4 * (i % 3), "train.epochs": 2 + i} for i in range(n)]
+    out = str(tmp_path / "stress.jsonl")
+    results = tsweep.run_sweep(_base(), grid, out_path=out,
+                               devices=[f"cpu:{k}" for k in range(workers)], device="cpu",
+                               dataset=GRID)
+    assert [r.status for r in results] == ["ok"] * n
+    assert [r.summary["epochs"] for r in results] == [2 + i for i in range(n)]
+    assert {r.device for r in results} <= {f"cpu:{k}" for k in range(workers)}
+    with open(out) as fh:
+        rows = [json.loads(ln) for ln in fh]
+    assert sorted(r["overrides"]["train.epochs"] for r in rows) == [2 + i for i in range(n)]
+
+
+def _exiting_worker(dev, job, tasks, results):
+    """A worker process that dies in the first unit it takes (module level:
+    the spawned process imports it)."""
+    i, _ = tasks.get()
+    results.put(("start", i, dev))
+    results.close()
+    results.join_thread()
+    os._exit(3)
+
+
+def test_dead_worker_records_its_unit(monkeypatch):
+    """A unit whose worker process dies records that as its failure, naming
+    the device and the exit code; a unit that no worker took says so."""
+    monkeypatch.setattr(tsweep, "_device_worker", _exiting_worker)
+    grid = [{"sampling.n_f": 32 + 4 * i} for i in range(3)]
+    results = tsweep.run_sweep(_base(), grid, devices=["cpu:a", "cpu:b"], device="cpu",
+                               dataset=GRID)
+    assert [r.status for r in results] == ["failed"] * 3
+    assert {r.device for r in results[:2]} == {"cpu:a", "cpu:b"}
+    for r in results[:2]:
+        assert r.error == f"the worker process on {r.device} exited with code 3"
+    assert results[2].device is None and results[2].error == "no worker process took this unit"

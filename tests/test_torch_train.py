@@ -483,12 +483,19 @@ def test_abgrall_presets_build_on_their_grid(monkeypatch, preset):
 def test_out_of_slice_presets_raise(preset, match):
     # euler_admm is inside the port since slice 2a, twosin_weak since slice
     # 2b-i and euler_weak since slice 2b-ii; with Fourier features (the rest
-    # of slice 2b-iii) each still is: the only refusal left is multi-GPU's,
-    # and no slice-2 feature is named in it any more
+    # of slice 2b-iii) each still is, and since slice 6 under data
+    # parallelism too; what is left refuses by name (RAD under it: slice
+    # 6b), naming no slice-2 feature
     exp = override(get_preset(preset), {"model.n_fourier": 4})
     ttrainer.check_slice(exp)
-    with pytest.raises(NotImplementedError, match="slice 6") as err:
-        ttrainer.check_slice(override(exp, {"mesh.data_parallel": 2}))
+    dp = override(exp, {"mesh.data_parallel": 2})
+    if exp.loss.causal_eps > 0.0:  # twosin_weak's causal penalty under it: slice 6b
+        with pytest.raises(NotImplementedError, match="slice 6b"):
+            ttrainer.check_slice(dp)
+    else:
+        ttrainer.check_slice(dp)
+    with pytest.raises(NotImplementedError, match="slice 6b") as err:
+        ttrainer.check_slice(override(dp, {"sampling.strategy": "rad"}))
     assert match not in str(err.value)
 
 
