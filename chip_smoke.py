@@ -27,7 +27,8 @@ as one more graph), and the rest of slice 2b-iii: Fourier features in K1/K2,
 K7a and K5 and shock paths in K1/K2, trained and served; the weak-form ADMM;
 RAD resampling and SWA averaging, solo and in an ensemble; and float64 on
 the card: polish, the float64 L-BFGS polish of a checkpoint, on the float64
-modes of K10 and of the narrow K1, K2 and K5.
+modes of K10 and of the narrow K1, K2 and K5; and the data generators, the
+finite-volume solves of the grids on the FV time stepper K12.
 
     python3 chip_smoke.py
 
@@ -389,6 +390,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             epoch at 1,048,576 points and
             euler_weak_fast --ensemble 8 with its members over the ranks,
             timed; a failed rank fails the phase
+  48 generators  slice 7, the data generators on K12 (the FV time stepper,
+            one launch a solve): make_twosin_grid() (2,048 cells, 1,620
+            snapshots), make_abgrall_burgers_grid() (1,024 cells, 257) and
+            the euler kind (euler_solve at 1,500 cells, 157 snapshots,
+            t_final 1.0) through the public functions, and the loader's
+            native fallback for each of the four dataset keys (an empty
+            grid directory, no reference tree): K12 launched once a Burgers
+            and Euler solve, no plain call; the Burgers grids within
+            FV_JAX_TOL of the committed JAX grids, the loader's equal to the
+            public functions', the Euler solve's early snapshots within
+            FV_EULER_BAND of the exact Riemann solution; ``python -m
+            pinns_tpu_torch generate-data`` for each kind into a temp
+            directory, the six processes started together (keys and shapes;
+            the FV kinds equal to the in-process grids); then K12 against its plain version on the card for the
+            three solves by torch.equal, two K12 calls bit-equal, both timed
+            by CUDA events beside fv_bound
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -441,7 +458,7 @@ TOL = {"u": (1e-5, 1e-5), "u_x": (1e-5, 1e-5), "u_t": (1e-5, 1e-5),
 F64_FACTOR = 4.0
 REPS = 20
 KERNELS = ("taylor2", "fused_step", "mlp_forward", "taylor2_backward", "taylor1", "weakform",
-           "ensemble", "lbfgs", "sampling")
+           "ensemble", "lbfgs", "sampling", "fv_solve")
 STEPS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port", "abgrall_admm_steps.npz")
 # the step kernel against the plain step: (rtol, atol as a multiple of
 # max|reference|, or of the scale of the terms a difference cancels; see close). Loss, terms and gradient sum in another order (the JAX
@@ -1169,6 +1186,7 @@ def kernel_counts() -> dict:
     from pinns_tpu_torch.ops.kernels import generic_chunk as k_generic
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
     from pinns_tpu_torch.ops.kernels import sampling as k_sampling
+    from pinns_tpu_torch.ops.kernels import fv_solve as k_fv
     from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
     return {"taylor2": taylor2.LAUNCHES, "philox_draw": k_sampling.LAUNCHES,
@@ -1203,7 +1221,9 @@ def kernel_counts() -> dict:
             "mlp_backward_f64": mlp_forward.F64_BACKWARD_LAUNCHES,
             "lbfgs_reset_f64": k_lbfgs.RESET_F64_LAUNCHES,
             "lbfgs_control_f64": k_lbfgs.CONTROL_F64_LAUNCHES,
-            "lbfgs_direction_f64": k_lbfgs.DIRECTION_F64_LAUNCHES}
+            "lbfgs_direction_f64": k_lbfgs.DIRECTION_F64_LAUNCHES,
+            # the data generators (phase 48)
+            "fv_burgers": k_fv.BURGERS_LAUNCHES, "fv_euler": k_fv.EULER_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -1212,6 +1232,7 @@ def reset_counts() -> None:
     from pinns_tpu_torch.ops.kernels import generic_chunk as k_generic
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
     from pinns_tpu_torch.ops.kernels import sampling as k_sampling
+    from pinns_tpu_torch.ops.kernels import fv_solve as k_fv
     from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 
     k_sampling.LAUNCHES = 0
@@ -1233,6 +1254,7 @@ def reset_counts() -> None:
     taylor2.F64_LAUNCHES = taylor2.F64_BACKWARD_LAUNCHES = 0
     mlp_forward.F64_LAUNCHES = mlp_forward.F64_BACKWARD_LAUNCHES = 0
     k_lbfgs.RESET_F64_LAUNCHES = k_lbfgs.CONTROL_F64_LAUNCHES = k_lbfgs.DIRECTION_F64_LAUNCHES = 0
+    k_fv.BURGERS_LAUNCHES = k_fv.EULER_LAUNCHES = 0
 
 
 def net_f64(params):
@@ -6710,6 +6732,229 @@ def dp_entries(dp: dict) -> list:
     return out
 
 
+# -- 48 generators: slice 7, the data generators on K12 ------------------------
+# the Burgers grids on the card against the JAX package's committed float32
+# grids (tests/fixtures/torch_port/<key>.npz): the two differ by float32
+# rounding in other places (the grid points, XLA's CPU arithmetic against
+# ATen's reciprocal divisions), 1.3e-5 and 5.7e-5 of max|JAX| on the CPU
+# (tests/test_torch_generator_grids.py holds them by the float64 criterion);
+# 1e-3 is far below the grids' own 1.4% / 1.7% identification error against
+# the stored reference grids
+FV_JAX_TOL = 1e-3
+# the Euler solve's rho and u rel-L2 against the exact Riemann solution at
+# its snapshots before t = 0.2 (the waves still inside [0, 1]): MUSCL's
+# smearing of the shock, the contact and the fan, 0.7-0.9% in rho and up to
+# 8.9% in u at the earliest snapshots, where the fan is a few cells wide
+# (the plain version on the CPU)
+FV_EULER_BAND = 0.1
+# the float operations of a cell a stage (a division or square root one
+# operation, so a lower bound): the viscous Burgers stage (slopes 10, face
+# 13, update and viscosity 12, combine 4) and the Euler stage (slopes 30,
+# faces 12 + 2 x (velocity and pressure 5, speed 6, flux 4) + 17, update 15)
+FV_FLOPS = {"burgers": 39, "euler": 104}
+GENERATE_KINDS = {  # generate-data kind -> (the .mat's keys, the fields' (nx, nt))
+    "burgers_shock": (("t", "usol", "x"), (256, 100)),
+    "burgers_twosin": (("t", "usol", "x"), (513, 101)),
+    "twosin_dataset": (("t", "usol", "x"), (513, 101)),
+    "abgrall_dataset": (("t", "usol", "x"), (257, 257)),
+    "euler_dataset": (("Enersol", "rhosol", "t", "usol", "x"), (300, 157)),
+    "euler": (("Enersol", "rhosol", "t", "usol", "x"), (1500, 157)),
+}
+FV_GRIDS = {"twosin": "twosin_burgers_shock", "abgrall": "abgrall_burgers_shock"}
+# the euler kind of generate-data at its native size and t_final 1.0
+FV_EULER = {"nx": 1500, "t_final": 1.0, "n_snapshots": 157}
+
+
+def fv_solves() -> dict:
+    """The three solves of phase 48 as K12 takes them on the card: name ->
+    (mode, plan, nu, periodic), from the arguments make_twosin_grid and
+    make_abgrall_burgers_grid pass (generators.twosin_fv_args,
+    abgrall_fv_args) and FV_EULER."""
+    from pinns_tpu_torch.data import generators as g
+
+    out = {}
+    for name, args in (("twosin", g.twosin_fv_args()), ("abgrall", g.abgrall_fv_args())):
+        out[name] = ("burgers", g.burgers_plan(**args, device="cuda"), args["nu"],
+                     args["periodic"])
+    out["euler"] = ("euler", g.euler_plan(**FV_EULER, device="cuda"), 0.0, False)
+    return out
+
+
+def fv_call(mode: str, plan, nu: float, periodic: bool, plain: bool = False):
+    from pinns_tpu_torch.ops.kernels import fv_solve
+
+    if mode == "euler":
+        fn = fv_solve.euler_trajectory_reference if plain else fv_solve.euler_trajectory
+        return fn(plan.q0, plan.dx, plan.dt, plan.steps_per_snap, plan.n_snap)
+    fn = fv_solve.burgers_trajectory_reference if plain else fv_solve.burgers_trajectory
+    return fn(plan.q0, plan.dx, plan.dt, plan.steps_per_snap, plan.n_snap, nu, periodic,
+              plan.offset_steps)
+
+
+def fv_bound(mode: str, plan):
+    """K12's bound for one solve: its stages' operations over the fp32 peak,
+    or the initial state read and the snapshots written over HBM, the
+    larger. The real floor of a one-CTA solve is its chain of dependent
+    stages, far above either."""
+    stages = 3 * (plan.steps_per_snap * (plan.n_snap - 1) + plan.offset_steps)
+    cells = plan.q0.numel()  # Euler: 3 components a cell
+    n = plan.q0.shape[0]
+    return bound([(stages * n * FV_FLOPS[mode], PEAK_FP32)], 4 * cells * (1 + plan.n_snap))
+
+
+def fv_time(fn) -> tuple:
+    """(milliseconds of one call by CUDA events, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def native_loads() -> dict:
+    """Each dataset key through the loader with no reference tree and an
+    empty grid directory, on the card: key -> GridDataset (generated
+    natively)."""
+    from pinns_tpu_torch.data import datasets as tds
+
+    saved_dir, saved_root = tds.GRID_DIR, os.environ.pop("PINNS_TPU_DATA_ROOT", None)
+    try:
+        with tempfile.TemporaryDirectory() as empty:
+            tds.GRID_DIR = type(saved_dir)(empty)
+            out = {key: tds.load_burgers_mat(key, "cuda") for key in tds.BURGERS_DATASETS}
+            out.update({key: tds.load_euler_mat(key) for key in tds.EULER_DATASETS})
+    finally:
+        tds.GRID_DIR = saved_dir
+        if saved_root is not None:
+            os.environ["PINNS_TPU_DATA_ROOT"] = saved_root
+    return out
+
+
+def phase_generators(card: str) -> dict:
+    """48: the main path on the card (the three solves through the public
+    functions and the loader's native fallback), counted; generate-data for
+    every kind; then K12 against its plain version on the card, timed."""
+    import scipy.io
+
+    from pinns_tpu_torch.data import generators as g
+
+    reset_counts()
+    t0 = time.perf_counter()
+    grids = {"twosin": g.make_twosin_grid(device="cuda"),
+             "abgrall": g.make_abgrall_burgers_grid(device="cuda")}
+    t_grids = time.perf_counter() - t0
+    euler = g.euler_solve(**FV_EULER, device="cuda")
+    t_euler = time.perf_counter() - t0 - t_grids
+    loads = native_loads()
+    counts = kernel_counts()
+    launches = {"fv_burgers": counts["fv_burgers"], "fv_euler": counts["fv_euler"]}
+    check(launches == {"fv_burgers": 4, "fv_euler": 1},
+          f"K12 launches on the main path: {launches} (2 grids + 2 native loads, 1 Euler solve)")
+    rows = {}
+    for name, key in FV_GRIDS.items():
+        with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port", f"{key}.npz")) as z:
+            want = np.asarray(z["usol"], np.float64)
+        got = grids[name]["usol"]
+        check(got.shape == want.shape and bool(np.isfinite(got).all()), f"{name}: {got.shape}")
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(err <= FV_JAX_TOL, f"{name}: max|card - JAX| {err} of max|JAX| > {FV_JAX_TOL}")
+        ds = loads[key]
+        check(ds.provenance == "native" and np.array_equal(ds.fields["u"],
+                                                         got.T.astype(np.float32)),
+              f"the loader's native {key} is not make_*_grid's")
+        rows[name] = {"rel_max_err_vs_jax": err}
+    for key in ("burgers_shock", "abgrall_eulers"):
+        check(loads[key].provenance == "native", f"{key}: {loads[key].provenance}")
+    left, right = g.blend_primitives()
+    x, t = euler["x"].ravel().astype(np.float64), euler["t"].ravel()
+    nx, nt = FV_EULER["nx"], FV_EULER["n_snapshots"]
+    check(euler["rhosol"].shape == (nx, nt) and all(
+        bool(np.isfinite(euler[k]).all()) for k in ("rhosol", "usol", "Enersol")), "euler")
+    early = []
+    for k in range(1, nt):
+        if t[k] > 0.2:
+            break
+        w = g.euler_exact_riemann(x, float(t[k]), left, right)
+        early.append(max(np.linalg.norm(euler["rhosol"][:, k] - w[:, 0]) / np.linalg.norm(w[:, 0]),
+                         np.linalg.norm(euler["usol"][:, k] - w[:, 1]) / np.linalg.norm(w[:, 1])))
+    check(max(early) <= FV_EULER_BAND, f"euler vs exact Riemann: {max(early)}")
+    rows["euler"] = {"max_rel_l2_vs_exact_t_le_0.2": max(early), "snapshots": len(early)}
+
+    # generate-data, each kind in a process of its own, all started together
+    gen = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        procs = {kind: subprocess.Popen(
+            [sys.executable, "-m", "pinns_tpu_torch", "generate-data", "--kind", kind,
+             "--out", os.path.join(tmp, f"{kind}.mat")], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for kind in GENERATE_KINDS}
+        try:
+            logs = {kind: proc.communicate(timeout=600) for kind, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+        gen["all_kinds_s"] = round(time.perf_counter() - t1, 2)
+        for kind, (keys, shape) in GENERATE_KINDS.items():
+            check(procs[kind].returncode == 0, f"generate-data {kind}: {logs[kind][1][-3000:]}")
+            mat = scipy.io.loadmat(os.path.join(tmp, f"{kind}.mat"))
+            check(tuple(sorted(k for k in mat if not k.startswith("__"))) == keys,
+                  f"generate-data {kind}: keys {sorted(mat)}")
+            field = "rhosol" if "rhosol" in keys else "usol"
+            check(mat[field].shape == shape and mat["x"].shape == (shape[0], 1)
+                  and mat["t"].shape == (shape[1], 1), f"generate-data {kind}: {mat[field].shape}")
+            same = {"twosin_dataset": grids["twosin"], "abgrall_dataset": grids["abgrall"],
+                    "euler": euler}.get(kind)
+            if same is not None:  # the same K12 solve in another process
+                check(all(np.array_equal(mat[k], same[k]) for k in keys if k in same),
+                      f"generate-data {kind} differs from the in-process grid")
+
+    # K12 against its plain version on the card; times
+    kernels = {}
+    for name, (mode, plan, nu, periodic) in fv_solves().items():
+        a = fv_call(mode, plan, nu, periodic)
+        b = fv_call(mode, plan, nu, periodic)
+        plain_ms, ref = fv_time(lambda: fv_call(mode, plan, nu, periodic, plain=True))
+        check(torch.equal(a, b), f"K12 {name}: two calls differ")
+        check(torch.equal(a, ref), f"K12 {name} != plain: {float((a - ref).abs().max())}")
+        ms = statistics.median(fv_time(lambda: fv_call(mode, plan, nu, periodic))[0]
+                               for _ in range(3))
+        kernels[name] = {"mode": mode, "cells": int(plan.q0.shape[0]),
+                         "steps_per_snap": plan.steps_per_snap, "snapshots": plan.n_snap,
+                         "pre_steps": plan.offset_steps,
+                         "steps": plan.steps_per_snap * (plan.n_snap - 1) + plan.offset_steps,
+                         "ms": ms, "plain_ms": plain_ms, "bound": fv_bound(mode, plan),
+                         "max_abs_err": float((a - ref).abs().max())}
+    emit(card, phase="generators", launches=launches, grids=rows, generate_data_s=gen,
+         main_path_s={"grids": t_grids, "euler": t_euler}, k12=kernels,
+         criterion="K12 == plain (torch.equal) and two K12 calls equal; grids vs JAX "
+                   f"<= {FV_JAX_TOL} max|JAX|; euler vs exact <= {FV_EULER_BAND}")
+    return {"launches": launches, "kernels": kernels}
+
+
+def fv_entries(gen: dict) -> list:
+    """The kernels line's entries of K12's two modes (phase 48): launches from
+    the main path, the error against the plain version (bit for bit), times
+    and bounds of one full-size solve (fv_burgers: make_twosin_grid's, with
+    make_abgrall_burgers_grid's beside it)."""
+    k = gen["kernels"]
+
+    def entry(name, solve, extra):
+        row = k[solve]
+        return {"name": name, "route": "cuda", "source": "pinns_tpu_torch/csrc/fv_solve.cu",
+                "replaces": "pinns_tpu/data/generators.py:" + ("141" if solve == "euler" else "205"),
+                "launches": gen["launches"][name], "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], **bound_fields(row["bound"]),
+                "unit": "ms a solve", "cells": row["cells"], "steps": row["steps"], **extra}
+
+    abg = k["abgrall"]
+    return [entry("fv_burgers", "twosin", {"abgrall": {
+                "ms": abg["ms"], "plain_ms": abg["plain_ms"], **bound_fields(abg["bound"]),
+                "cells": abg["cells"], "steps": abg["steps"]}}),
+            entry("fv_euler", "euler", {})]
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6952,6 +7197,9 @@ def main() -> int:
     pol = timed(card, "polish", phase_polish, card)
 
     dp = timed(card, "dp", phase_dp, card)
+
+    # -- 48: the data generators, on the FV time stepper K12
+    gen = timed(card, "generators", phase_generators, card)
 
     def feat(counter, family, layers, n, f, k, which, run):
         return feature_entry(fruns, counter, feats, (family, layers, n, f, k), which, run)
@@ -7344,7 +7592,8 @@ def main() -> int:
         ("mlp_backward_f64", "mlp_forward.cu", "89afc4b^:pinns_tpu/ops/pallas/fused_mlp.py:103"),
         ("lbfgs_control_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"),
         ("lbfgs_direction_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:167"),
-        ("lbfgs_reset_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"))] + dp_entries(dp)}),
+        ("lbfgs_reset_f64", "lbfgs.cu", "pinns_tpu/opt/lbfgs.py:194"))] + dp_entries(dp)
+        + fv_entries(gen)}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -26,6 +26,13 @@
                                                   batch inference, npz/csv in and out
   polish   --preset NAME [--set ...] --checkpoint CKPT [--max-iters N] [--out O]
            [--device cuda|cpu]                    float64 L-BFGS polish of a checkpoint
+  presets                                         one line a preset, as the JAX CLI prints
+  plot     --preset NAME [--set ...] (--checkpoint CKPT | --snapshots CSV [--epoch E])
+           [--out F.png] [--device cuda|cpu]      the solution figure against the grid
+  animate  --preset NAME [--set ...] --snapshots CSV [--field F] [--fps N]
+           [--out F.mp4]                          the convergence animation (GIF without ffmpeg)
+  generate-data --kind KIND --out F.mat [--nx N] [--nt N] [--nu V] [--t-final T]
+           [--device cuda|cpu]                    a ground-truth grid, the JAX .mat schema
 
 ``train`` runs the preset's schedule (on cuda, an Adam epoch inside the fused
 step's scope is one call of K3, any other goes through the kernels under
@@ -89,6 +96,20 @@ float64 mode over the float64 modes of K1, K2 and K5, on the CPU by the
 host loop. It prints the iterations / loss / converged line, the
 ``evaluate`` JSON and the path of ``<checkpoint>.polished.ckpt`` (or
 ``--out``), written with meta ``{"polished": true}``.
+``plot`` renders the preset's grid and the model's prediction (a checkpoint
+of the port's training, or one epoch of the ``<name>_snapshots.csv`` that
+``train.snapshot_every`` writes) with the training points; ``animate`` the
+recorded epochs of a snapshot CSV. Both need matplotlib, imported at the
+call: where it is not installed (the card's machine has none) they fail
+with an ImportError that names it, and nothing else of the CLI needs it.
+``generate-data`` writes one of the JAX CLI's six kinds at its native size
+(``burgers_shock`` 256 x 100 by Cole-Hopf; ``burgers_twosin`` 513 x 101, the
+FV solver from the TwoSin IC; ``twosin_dataset`` 513 x 101 and
+``abgrall_dataset`` 257 x 257, the reproductions of the stored grids;
+``euler_dataset`` 300 x 157 from the exact Riemann solution; ``euler`` 1,500 x
+157, the FV Euler solve) in the JAX schema: the FV kinds run on K12 on the
+card, or the plain version with ``--device cpu``; the numpy kinds run on the
+host either way.
 ``--device`` defaults to cuda and raises when no card is visible; pass
 ``--device cpu`` for the plain PyTorch path.
 """
@@ -515,6 +536,83 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_presets(_args) -> int:
+    from pinns_tpu_torch.experiments import PRESETS
+
+    for name, exp in PRESETS.items():
+        print(
+            f"{name:20s} pde={exp.pde.kind:8s} loss={exp.loss.residual_kind:10s}"
+            f" layers={len(exp.model.layers) - 2}x{exp.model.layers[1]}"
+            f" n_u={exp.data.n_u} n_f={exp.sampling.n_f}"
+            f" opt={exp.optimizer.kind} dataset={exp.data.dataset}"
+        )
+    return 0
+
+
+def cmd_plot(args) -> int:
+    """JAX's ``plot`` (``pinns_tpu/cli.py:448``): one snapshot epoch, or a
+    checkpoint's prediction on the grid with the training points."""
+    from pinns_tpu_torch.train.trainer import Trainer
+    from pinns_tpu_torch.viz.plots import plot_from_snapshots, plot_solution
+
+    if not (args.checkpoint or args.snapshots):
+        raise SystemExit("plot needs --checkpoint or --snapshots")
+    trainer = Trainer(_build_exp(args), device=args.device, dataset=args.data)
+    ds = trainer.problem.dataset
+    if args.snapshots:
+        path = plot_from_snapshots(ds, args.snapshots, epoch=args.epoch, out_path=args.out)
+    else:
+        state = trainer.load_checkpoint(args.checkpoint)
+        path = plot_solution(ds, trainer.predict(state.params, ds.X_star),
+                             x_data=trainer.problem.x_data.cpu().numpy(), out_path=args.out)
+    print(path)
+    return 0
+
+
+def cmd_animate(args) -> int:
+    """JAX's ``animate`` (``pinns_tpu/cli.py:472``) over the preset's grid."""
+    from pinns_tpu_torch.data.datasets import load_burgers_mat, load_euler_mat
+    from pinns_tpu_torch.viz.animate import animate_snapshots
+
+    exp = _build_exp(args)
+    name = args.data or exp.data.dataset
+    ds = load_euler_mat(name) if exp.pde.kind == "euler" else load_burgers_mat(name, args.device)
+    path = animate_snapshots(ds, args.snapshots, field=args.field, out_path=args.out,
+                             fps=args.fps)
+    print(path)
+    return 0
+
+
+# each generate-data kind's native (nx, nt)
+NATIVE_SIZES = {"burgers_shock": (256, 100), "burgers_twosin": (513, 101),
+                "twosin_dataset": (513, 101), "abgrall_dataset": (257, 257),
+                "euler": (1500, 157), "euler_dataset": (300, 157)}
+
+
+def cmd_generate_data(args) -> int:
+    """JAX's ``generate-data`` (``pinns_tpu/cli.py:559``): the kind's grid in
+    the ``.mat`` schema the loaders read."""
+    from pinns_tpu_torch.data import generators as g
+
+    nx = args.nx or NATIVE_SIZES[args.kind][0]
+    nt = args.nt or NATIVE_SIZES[args.kind][1]
+    if args.kind == "burgers_shock":
+        data = g.make_burgers_shock_grid(nx=nx, nt=nt, nu=args.nu)
+    elif args.kind == "burgers_twosin":
+        data = g.burgers_fv(g.two_sin_ic, nx=nx, nt=nt, t_final=args.t_final, nu=args.nu,
+                            device=args.device)
+    elif args.kind == "twosin_dataset":
+        data = g.make_twosin_grid(nx=nx, nt=nt, device=args.device)
+    elif args.kind == "abgrall_dataset":
+        data = g.make_abgrall_burgers_grid(nx=nx, nt=nt, device=args.device)
+    elif args.kind == "euler_dataset":
+        data = g.make_abgrall_eulers_grid(nx=nx, nt=nt)
+    else:
+        data = g.euler_solve(nx=nx, n_snapshots=nt, t_final=args.t_final, device=args.device)
+    print(g.save_mat(args.out, data))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m pinns_tpu_torch",
                                  description="PyTorch port of pinns_tpu")
@@ -611,6 +709,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="add the calibrated half-width {field}_band of a calibrated ensemble")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("presets", help="list the experiment presets")
+    p.set_defaults(fn=cmd_presets)
+
+    p = sub.add_parser("plot", help="solution figure against the grid (needs matplotlib)")
+    add_common(p)
+    p.add_argument("--checkpoint")
+    p.add_argument("--snapshots", help="snapshot CSV (train.snapshot_every)")
+    p.add_argument("--epoch", type=int, help="the snapshot epoch (default: the last)")
+    p.add_argument("--out", default="solution.png")
+    p.set_defaults(fn=cmd_plot)
+
+    p = sub.add_parser("animate", help="convergence animation from a snapshot CSV (needs "
+                                       "matplotlib)")
+    add_common(p)
+    p.add_argument("--snapshots", required=True)
+    p.add_argument("--field", default=None)
+    p.add_argument("--fps", type=int, default=5)
+    p.add_argument("--out", default="convergence.mp4")
+    p.set_defaults(fn=cmd_animate)
+
+    p = sub.add_parser("generate-data", help="generate a ground-truth grid natively (the FV "
+                                             "kinds on the card unless --device cpu)")
+    p.add_argument("--kind", required=True, choices=sorted(NATIVE_SIZES))
+    p.add_argument("--out", required=True, help="output .mat path")
+    p.add_argument("--nx", type=int, default=None,
+                   help="grid points (default: the dataset's native size)")
+    p.add_argument("--nt", type=int, default=None)
+    p.add_argument("--nu", type=float, default=0.01 / 3.141592653589793)
+    p.add_argument("--t-final", type=float, default=1.0)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_generate_data)
     return ap
 
 

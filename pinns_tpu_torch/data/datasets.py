@@ -3,26 +3,27 @@
 
 ``GridDataset`` and the training-set builders are the JAX package's, in numpy
 with the same seeded draws, so both packages pick the same N_u points from one
-seed. What differs is where a grid comes from. The JAX package reads the
-reference ``.mat`` files or regenerates a grid with its own solvers; the
-port's solvers come with slice 7, so it reads, in this order:
+seed. A dataset key or a path is read, in this order:
 
 1. an explicit path: a ``.mat`` with {x, t, usol} or a grid ``.npz`` with the
    same keys (plus ``provenance``), e.g. one written by
    ``scripts/make_torch_train_fixture.py``;
 2. for a dataset key, the reference ``.mat`` under ``$PINNS_TPU_DATA_ROOT``
    (the JAX package's variable) when that is set and the file exists;
-3. for a dataset key, the grid committed beside the port's test fixtures
+3. for a Burgers key, the grid committed beside the port's test fixtures
    (``tests/fixtures/torch_port/<key>.npz``: ``twosin_burgers_shock``,
    ``burgers_shock`` and ``abgrall_burgers_shock``, which the JAX package
    generated once on the CPU; ``scripts/make_torch_abgrall_grid.py`` writes
-   the last).
+   the last), so that every parity fixture keeps the data it was made on;
+4. else the key's native generation, provenance 'native', as the JAX
+   package's ``_generate_fallback`` does when the reference ``.mat`` is
+   absent (``data.generators``): ``burgers_shock`` by Cole-Hopf, the TwoSin
+   and Abgrall Burgers grids by the FV solver (K12 on the card, the plain
+   version on the CPU: ``device``, the card unless the caller asks for the
+   CPU), and ``abgrall_eulers`` by the exact Riemann solution (numpy
+   float64; it has no committed grid).
 
-A key with none of these raises ``FileNotFoundError``. The Euler key
-``abgrall_eulers`` is generated instead of read from a fixture: the port's own
-copy of the JAX package's exact Riemann solver (``data.generators``) builds
-it in numpy float64, provenance 'native', as the JAX package does when the
-reference ``.mat`` is absent.
+A path that does not exist and is no known key raises ``FileNotFoundError``.
 """
 
 from __future__ import annotations
@@ -92,9 +93,9 @@ def _read_grid(path: str) -> dict:
     return dict(scipy.io.loadmat(path), _provenance="stored")
 
 
-def resolve_grid_path(name_or_path: str) -> str:
-    """Where the grid of a dataset key (or path) is read from; see the module
-    docstring for the order."""
+def resolve_grid_path(name_or_path: str) -> Optional[str]:
+    """Where the grid of a dataset key (or path) is read from, or None for a
+    key that is generated natively; see the module docstring for the order."""
     if name_or_path not in BURGERS_DATASETS:
         if os.path.exists(name_or_path):
             return name_or_path
@@ -110,17 +111,35 @@ def resolve_grid_path(name_or_path: str) -> str:
     grid = GRID_DIR / f"{name_or_path}.npz"
     if grid.exists():
         return str(grid)
-    raise FileNotFoundError(
-        f"dataset {name_or_path!r}: no reference .mat under PINNS_TPU_DATA_ROOT "
-        f"and no committed grid {grid}; pass a .mat/.npz path (the port's own "
-        "grid generators come with slice 7)"
-    )
+    return None
 
 
-def load_burgers_mat(name_or_path: str = "twosin_burgers_shock") -> GridDataset:
-    """Load a Burgers {x, t, usol} grid from a dataset key or a path."""
+def generate_fallback(name: str, device="cuda") -> Optional[dict]:
+    """The native grid of a known dataset key (the JAX package's
+    ``_generate_fallback``), or None for any other name. The FV grids run on
+    ``device``."""
+    from pinns_tpu_torch.data import generators as g
+
+    if name == "burgers_shock":
+        return g.make_burgers_shock_grid(nx=256, nt=100)
+    if name == "twosin_burgers_shock":
+        return g.make_twosin_grid(device=device)
+    if name == "abgrall_burgers_shock":
+        return g.make_abgrall_burgers_grid(device=device)
+    if name == "abgrall_eulers":
+        return g.make_abgrall_eulers_grid()
+    return None
+
+
+def load_burgers_mat(name_or_path: str = "twosin_burgers_shock", device="cuda") -> GridDataset:
+    """Load a Burgers {x, t, usol} grid from a dataset key or a path; a key
+    with no stored or committed grid is generated natively on ``device``
+    (see the module docstring)."""
     path = resolve_grid_path(name_or_path)
-    d = _read_grid(path)
+    if path is None:
+        d = dict(generate_fallback(name_or_path, device), _provenance="native")
+    else:
+        d = _read_grid(path)
     name = name_or_path if name_or_path in BURGERS_DATASETS else Path(path).stem
     return GridDataset(
         x=d["x"],
@@ -146,15 +165,13 @@ def _euler_grid(name_or_path: str) -> dict:
         mat = os.path.join(root, EULER_DATASETS[name_or_path])
         if os.path.exists(mat):
             return _read_grid(mat)
-    from pinns_tpu_torch.data.generators import make_abgrall_eulers_grid
-
-    return dict(make_abgrall_eulers_grid(), _provenance="native")
+    return dict(generate_fallback(name_or_path), _provenance="native")
 
 
 def load_euler_mat(name_or_path: str = "abgrall_eulers") -> GridDataset:
     """Load the Euler {x, t, rhosol, usol, Enersol} grid from a dataset key or
-    a path; the key builds the exact grid natively when no reference .mat is
-    found (see the module docstring)."""
+    a path; the key builds the exact grid natively (numpy) when no reference
+    .mat is found (see the module docstring)."""
     d = _euler_grid(name_or_path)
     name = name_or_path if name_or_path in EULER_DATASETS else Path(name_or_path).stem
     return GridDataset(

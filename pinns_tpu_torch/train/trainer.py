@@ -400,8 +400,8 @@ def build_problem(exp: Experiment, device="cuda", dataset: Optional[str] = None)
     asks for the CPU; raises without one)."""
     check_slice(exp)
     device = resolve_device(device)
-    load = load_euler_mat if exp.pde.kind == "euler" else load_burgers_mat
-    ds = load(dataset or exp.data.dataset)
+    name = dataset or exp.data.dataset
+    ds = load_euler_mat(name) if exp.pde.kind == "euler" else load_burgers_mat(name, device)
     build = interior_training_set if exp.data.selection == "interior" else build_ic_bc_training_set
     x_data, targets = build(ds, exp.data.n_u, seed=exp.data.seed, noise=exp.data.noise)
     dtype = _DTYPES[exp.model.dtype]

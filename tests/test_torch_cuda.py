@@ -2572,3 +2572,61 @@ def test_sweep_units_over_cards_equal_serial(cuda_device, tmp_path):  # noqa: F8
         assert a.summary["rel_l2_u"] == b.summary["rel_l2_u"], (a.overrides, a.summary,
                                                                  b.summary)
         assert a.summary["epochs"] == b.summary["epochs"] == 3020
+
+
+# -- K12, the FV time stepper of the data generators --------------------------
+K12_CASES = {
+    "periodic_viscous": dict(nx=257, nt=6, t_final=0.05, nu=1.9e-3, periodic=True),
+    "outflow_inviscid": dict(nx=257, nt=6, t_final=0.3, nu=0.0, periodic=False),
+    "t_offset": dict(nx=1025, nt=4, t_final=0.05, nu=4.9e-3, xlim=(0.0, 3.14159),
+                     periodic=True, t_offset=0.012),
+    "outflow_viscous_4096": dict(nx=4096, nt=3, t_final=0.002, nu=1e-3, periodic=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K12_CASES))
+def test_k12_burgers_equals_plain_on_card(cuda_device, case):  # noqa: F811
+    """K12 against the plain version on the same card state, bit for bit,
+    and two calls bit-equal."""
+    from pinns_tpu_torch.data import generators as g
+    from pinns_tpu_torch.ops.kernels import fv_solve
+
+    kw = K12_CASES[case]
+    p = g.burgers_plan(g.two_sin_ic, device=cuda_device, **kw)
+    args = (p.q0, p.dx, p.dt, p.steps_per_snap, p.n_snap, kw["nu"], kw["periodic"],
+            p.offset_steps)
+    before = fv_solve.BURGERS_LAUNCHES
+    got = fv_solve.burgers_trajectory(*args)
+    again = fv_solve.burgers_trajectory(*args)
+    want = fv_solve.burgers_trajectory_reference(*args)
+    torch.cuda.synchronize()
+    assert fv_solve.BURGERS_LAUNCHES == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_k12_euler_equals_plain_on_card(cuda_device):  # noqa: F811
+    from pinns_tpu_torch.data import generators as g
+    from pinns_tpu_torch.ops.kernels import fv_solve
+
+    p = g.euler_plan(nx=600, t_final=0.05, n_snapshots=4, device=cuda_device)
+    args = (p.q0, p.dx, p.dt, p.steps_per_snap, p.n_snap)
+    before = fv_solve.EULER_LAUNCHES
+    got = fv_solve.euler_trajectory(*args)
+    want = fv_solve.euler_trajectory_reference(*args)
+    torch.cuda.synchronize()
+    assert fv_solve.EULER_LAUNCHES == before + 1
+    assert torch.isfinite(got).all() and torch.equal(got, fv_solve.euler_trajectory(*args))
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_k12_refuses_what_it_does_not_take_on_card(cuda_device):  # noqa: F811
+    from pinns_tpu_torch.ops.kernels import fv_solve
+
+    limit = fv_solve.smem_limit(cuda_device.index or 0)
+    n = fv_solve.max_cells(limit, True) + 1
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        fv_solve.euler_trajectory(torch.ones((n, 3), device=cuda_device), 1e-3, 1e-4, 1, 2)
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        fv_solve.burgers_trajectory(torch.ones(64, dtype=torch.float64, device=cuda_device),
+                                    1e-2, 1e-3, 1, 2)

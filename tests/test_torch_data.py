@@ -58,10 +58,11 @@ def test_loader_paths_and_errors(tmp_path, monkeypatch):
     assert tds.resolve_grid_path("twosin_burgers_shock") == GRID
     assert tds.load_burgers_mat(GRID).name == "twosin_burgers_shock"
     assert tds.load_burgers_mat("abgrall_burgers_shock").provenance == "native"
-    with monkeypatch.context() as m:  # a key with no committed grid
+    with monkeypatch.context() as m:  # a key with no committed grid is generated natively
         m.setattr(tds, "GRID_DIR", tmp_path)
-        with pytest.raises(FileNotFoundError, match="slice 7"):
-            tds.load_burgers_mat("abgrall_burgers_shock")
+        assert tds.resolve_grid_path("burgers_shock") is None
+        native = tds.load_burgers_mat("burgers_shock", device="cpu")
+        assert native.provenance == "native" and native.fields["u"].shape == (100, 256)
     with pytest.raises(FileNotFoundError, match="neither a known key"):
         tds.load_burgers_mat(str(tmp_path / "missing.npz"))
     euler = tds.load_euler_mat()  # the key builds the exact grid natively

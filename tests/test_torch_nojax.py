@@ -31,6 +31,8 @@ MODULES = [
     "pinns_tpu_torch.ops.kernels.ensemble", "pinns_tpu_torch.parallel.ensemble",
     "pinns_tpu_torch.parallel.sweep", "pinns_tpu_torch.train.polish",
     "pinns_tpu_torch.parallel.mesh", "pinns_tpu_torch.parallel.sharding",
+    "pinns_tpu_torch.ops.kernels.fv_solve", "pinns_tpu_torch.ops.derivatives",
+    "pinns_tpu_torch.viz", "pinns_tpu_torch.viz.plots", "pinns_tpu_torch.viz.animate",
 ]
 
 
