@@ -97,12 +97,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             10 L-BFGS outer epochs (of at most 300 iterations, the fixture's
             schedule) as chunks of K10's runner (LBFGSChunk): each solve on
             K10 (K3's value-and-grad, the control and direction kernels; one
-            device read a graph replay), then K3's post-update mode (the
+            launch of its WHILE-node graph), then K3's post-update mode (the
             batch, z, dual, the data-term metric and the metrics row) and the
             reset in place, replayed as one graph: no launch of K1, K5 or K2
             and no torch Philox draw in the L-BFGS phase, no plain call, no
-            host loop, K3's epoch never launched again, host syncs equal to
-            the solve replays; loss does not rise; u rel-L2 in the band of
+            host loop, K3's epoch never launched again, one host sync a
+            chunk, under k steps after each solve's end; loss does not rise;
+            u rel-L2 in the band of
             three JAX seeds at the same schedule
   15 burgers_forward  a reduced schedule (the fixture's: 3,000 cosine Adam
             epochs on the generic step, one L-BFGS outer epoch of at most
@@ -264,13 +265,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             close_grad); the reset, control and direction kernels against
             their plain versions bit for bit after every launch of a solve
             stepped one evaluation at a time (the history filled and its head
-            wrapped); the graphed solve against JAX's iterates at 1, 2, 5
-            iterations (equal n_iters, x within ITERATE_STEP_TOL /
-            ITERATE_ULP_TOL), the long solve's f inside LONG_SOLVE_BAND and
-            at or below the 5-iteration f, equal to the stepwise solve and to
-            a second solve bit for bit; times: the long solve on K10 and on
-            the host loop in K10_TURNS alternating turns (ms, device time,
-            launches and host syncs per iteration), each kernel's device time
+            wrapped); the solve as one launch of its WHILE-node graph
+            (SolveLoop) against JAX's iterates at 1, 2, 5 iterations (equal
+            n_iters, x within ITERATE_STEP_TOL / ITERATE_ULP_TOL), the long
+            solve's f inside LONG_SOLVE_BAND and at or below the 5-iteration
+            f, equal to the stepwise solve (x, f, g, n_iters, n_evals, the
+            branches) and to a second solve bit for bit, one host sync and
+            under k steps after the end a solve; times: the long solve on
+            K10 and on the host loop in K10_TURNS alternating turns (ms,
+            device time by the profiler and, for K10, by CUDA events around
+            the loop's launch, launches and host syncs per iteration), each
+            kernel's device time
             on the heaviest input the solve met beside its plain version and
             its bound; the layouts (csrc/lbfgs.cu): the direction kernel
             (a cluster: the pairs resident at the fixture's 3,023 params)
@@ -296,11 +301,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             history, a quartic valley), each timed beside its bound;
             euler_weak_tail's solve from the JAX fixture
             (euler_weak_tail.npz) at max_iters 1, 2, 5 on K10
-            (AutogradLBFGS) and on the host loop: n_iters and n_evals equal
-            to JAX's, f within STEP_TOL; a TAIL_TIMED_ITERS-iteration outer
-            epoch on K10 (the done flag read once a replay and once a step)
-            and on the host loop in turns (ms, device time, launches, host
-            syncs per iteration); this slice's main path: train --preset
+            (AutogradLBFGS, its evaluation captured into the solve's WHILE
+            node, one launch and one read a solve; bit-equal to the same
+            solver host-stepped) and on the host loop: n_iters and n_evals
+            equal to JAX's, f within STEP_TOL; a TAIL_TIMED_ITERS-iteration
+            outer epoch on K10 (captured, and host-stepped) and on the host
+            loop in turns (ms, device time, launches, host syncs per
+            iteration); this slice's main path: train --preset
             euler_weak_tail --resume from two of phase 35's members for two
             outer epochs, then export --select rank of the tails against
             them: every solve on K10, no plain call
@@ -311,7 +318,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             POST_TOL or the float64 criterion; chunks of L = 1, 3 and 10
             outer epochs, drawn and fed, bit-equal (x, batch, z, dual, every
             metrics row) to the same kernels driven one outer epoch a host
-            call; one outer epoch from the fixture's state at 5 iterations
+            call, one loop launch an outer epoch and one host sync a chunk
+            (after it); one outer epoch from the fixture's state at 5 iterations
             against JAX's (phase 37's criteria); times from phase 9's state
             at phase 14's schedule in turns: ms an outer epoch on the runner
             and on the per-outer-epoch step, and each one's wall time outside
@@ -368,8 +376,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             iterations; then polish (train.polish, 200 iterations) from the
             committed JAX state (FIXTURE) at the fixed anchored batch: the
             float64 modes launched, no float32 kernel, no plain version, no
-            host loop (host syncs = the flag reads), two runs bit-equal, the
-            loss no higher, the first 20 iterations against the host loop
+            host loop (one launch of the solve's WHILE node, one host sync),
+            two runs bit-equal, bit-equal to the host-stepped AutogradLBFGS
+            over the same kernels, the loss no higher, the first 20
+            iterations against the host loop
             over the plain loss (equal n_iters, x within 1e-8 max|x|); ms,
             device time, launches and syncs an iteration, the idle share;
             each float64 mode by CUDA events beside its plain version and
@@ -385,7 +395,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             captured, every reduce and apply launch and all-reduce counted,
             the ranks' losses equal; at one rank bit-equal to the one-card
             run, at more its gathered batch; then L-BFGS outer epochs on
-            DeviceLBFGS, K3's value-and-grad split around its all-reduce), burgers_forward's generic step data-parallel on
+            DeviceLBFGS, K3's value-and-grad split around its all-reduce, its
+            16-step graph replayed by configuration), burgers_inverse's
+            L-BFGS outer epochs on the host-stepped AutogradLBFGS over the
+            all-reduced objective, burgers_forward's generic step data-parallel on
             K9's generic graph (the all-reduce captured), a burgers_scale
             epoch at 1,048,576 points and
             euler_weak_fast --ensemble 8 with its members over the ranks,
@@ -406,6 +419,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the FV kinds equal to the in-process grids); then K12 against its plain version on the card for the
             three solves by torch.equal, two K12 calls bit-equal, both timed
             by CUDA events beside fv_bound
+  49 inverse-lbfgs  burgers_inverse's L-BFGS outer epoch from INVERSE_ADAM
+            Adam epochs (AutogradLBFGS around K1, K2 and K5 with the exp
+            coefficient's gradient): captured into the solve's WHILE node
+            (one launch, one read) against the same solver host-stepped, bit
+            for bit (params, loss, iterations, evaluations, the branches); no
+            plain call; both timed in turns (ms, device time, launches, host
+            syncs an iteration, the idle share)
 Each phase's wall time is printed. Then a {"kernels": [...]} summary line
 and, last, the result line.
 The script imports neither jax nor pinns_tpu (the JAX package).
@@ -1210,7 +1230,9 @@ def kernel_counts() -> dict:
             "weakform_flux_entropy_backward": weakform.ENTROPY_BACKWARD_LAUNCHES,
             "fused_value_and_grad": fused_step.VALUE_AND_GRAD_LAUNCHES,
             "lbfgs_reset": k_lbfgs.RESET_LAUNCHES, "lbfgs_control": k_lbfgs.CONTROL_LAUNCHES,
-            "lbfgs_direction": k_lbfgs.DIRECTION_LAUNCHES, "lbfgs_replays": k_lbfgs.GRAPH_REPLAYS,
+            "lbfgs_direction": k_lbfgs.DIRECTION_LAUNCHES,
+            "lbfgs_loop_launches": k_lbfgs.LOOP_LAUNCHES, "lbfgs_loop_steps": k_lbfgs.LOOP_STEPS,
+            "lbfgs_steps_after_end": k_lbfgs.STEPS_AFTER_END,
             "lbfgs_solves": k_lbfgs.SOLVES, "lbfgs_host_syncs": host_lbfgs.HOST_SYNCS,
             "fused_post_update": fused_step.POST_UPDATE_LAUNCHES,
             "lbfgs_chunk_epochs": k_lbfgs.CHUNK_EPOCHS,
@@ -1249,7 +1271,8 @@ def reset_counts() -> None:
     weakform.ENTROPY_LAUNCHES = weakform.ENTROPY_BACKWARD_LAUNCHES = 0
     fused_step.VALUE_AND_GRAD_LAUNCHES = 0
     k_lbfgs.RESET_LAUNCHES = k_lbfgs.CONTROL_LAUNCHES = k_lbfgs.DIRECTION_LAUNCHES = 0
-    k_lbfgs.GRAPH_REPLAYS = k_lbfgs.SOLVES = host_lbfgs.HOST_SYNCS = 0
+    k_lbfgs.LOOP_LAUNCHES = k_lbfgs.LOOP_STEPS = k_lbfgs.STEPS_AFTER_END = 0
+    k_lbfgs.SOLVES = host_lbfgs.HOST_SYNCS = 0
     fused_step.POST_UPDATE_LAUNCHES = k_lbfgs.CHUNK_EPOCHS = 0
     taylor2.F64_LAUNCHES = taylor2.F64_BACKWARD_LAUNCHES = 0
     mlp_forward.F64_LAUNCHES = mlp_forward.F64_BACKWARD_LAUNCHES = 0
@@ -1460,11 +1483,12 @@ def phase_hybrid(card: str, adam: dict) -> dict:
     """14: phase 9's abgrall_admm state continued through Trainer.train over
     the switch: HYBRID_OUTER L-BFGS outer epochs as chunks of K10's runner
     (LBFGSChunk): each solve on K10 (K3's value-and-grad, the control and
-    direction kernels, replayed from a captured graph; the device read only
-    for the done flag), then K3's post-update mode and the reset in place as
-    one more graph: no launch of K1, K5 or K2, no torch Philox draw, no
-    plain call and no host loop in the L-BFGS phase (its counts are read
-    after its last chunk, before the final evaluation's forward)."""
+    direction kernels, one launch of the solve's WHILE-node graph), then K3's
+    post-update mode and the reset in place as one more graph, with no read
+    of the device inside a chunk (one after it): no launch of K1, K5 or K2,
+    no torch Philox draw, no plain call and no host loop in the L-BFGS phase
+    (its counts are read after its last chunk, before the final evaluation's
+    forward)."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.data import sampling
     from pinns_tpu_torch.experiments import get_preset
@@ -1519,9 +1543,10 @@ def phase_hybrid(card: str, adam: dict) -> dict:
     check(launches["mlp_backward"] == launches["taylor2_backward"] == 0,
           f"K5's or K2's backward launched in the L-BFGS phase: {launches}")
     check(launches["lbfgs_solves"] == launches["lbfgs_chunk_epochs"]
-          == launches["fused_post_update"] == HYBRID_OUTER
+          == launches["fused_post_update"] == launches["lbfgs_loop_launches"] == HYBRID_OUTER
           and launches["lbfgs_reset"] == HYBRID_OUTER + chunks
-          and launches["lbfgs_host_syncs"] == launches["lbfgs_replays"],
+          and launches["lbfgs_host_syncs"] == chunks
+          and launches["lbfgs_steps_after_end"] < HYBRID_OUTER * k_lbfgs.DEVICE_STEPS,
           f"K10's solves, post-updates, resets and device reads: {launches}")
     check(len(iters) == HYBRID_OUTER and state.epoch == TRAIN_EPOCHS + HYBRID_OUTER,
           f"{len(iters)} L-BFGS outer epochs")
@@ -4541,8 +4566,9 @@ def phase_k10(card: str) -> dict:
     check(k_lbfgs.cluster_plan(n, cfg.history).resident, "the fixture's plan is not resident")
     layouts = k10_layout_checks(n, cfg.history)
 
-    # -- the graphed solve: JAX's iterates at 1, 2, 5; the long solve's f in
-    # the band and at or below the 5-iteration f; equal to the stepwise solve
+    # -- the solve as one launch of its WHILE node: JAX's iterates at 1, 2,
+    # 5; the long solve's f in the band and at or below the 5-iteration f;
+    # equal to the stepwise solve (x, f, g, n_iters, n_evals, the branches)
     # and to itself bit for bit
     solver = k_lbfgs.DeviceLBFGS(problem)
     solve = lambda k: solver.minimize(x0, off, colloc, admm, rho, max_iters=k,  # noqa: E731
@@ -4567,8 +4593,11 @@ def phase_k10(card: str) -> dict:
     check(torch.equal(long.x, again.x) and torch.equal(long.f, again.f)
           and (long.n_iters, long.n_evals) == (again.n_iters, again.n_evals),
           "two K10 solves differ")
-    check(torch.equal(long.x, stepwise.x) and long.n_evals == stepwise.n_evals,
-          "the graphed solve differs from the same steps launched one by one")
+    check(torch.equal(again.x, stepwise.x) and torch.equal(again.f, stepwise.f)
+          and torch.equal(again.g, stepwise.g)
+          and (again.n_iters, again.n_evals) == (stepwise.n_iters, stepwise.n_evals)
+          and int(solver.bufs.si[k_lbfgs.I_BRANCHES]) == int(b.si[k_lbfgs.I_BRANCHES]),
+          "the WHILE-node solve differs from the same steps launched one by one")
     f_jax, f = float(fx[f"f_{LONG_SOLVE}"]), float(long.f)
     band = (f_jax * (1 - LONG_SOLVE_BAND), f_jax * (1 + LONG_SOLVE_BAND))
     check(band[0] <= f <= band[1], f"K10 f after the long solve {f} outside {band}")
@@ -4591,6 +4620,15 @@ def phase_k10(card: str) -> dict:
             torch.cuda.synchronize()
             walls[name].append(time.perf_counter() - t0)
             syncs[name] = lb_mod.HOST_SYNCS - before
+    check(syncs["k10"] == 1, f"{syncs['k10']} host syncs in a K10 solve")
+    loop_before = (k_lbfgs.LOOP_LAUNCHES, k_lbfgs.LOOP_STEPS, k_lbfgs.STEPS_AFTER_END)
+    solve(LONG_SOLVE)
+    loop = [a - b for a, b in zip((k_lbfgs.LOOP_LAUNCHES, k_lbfgs.LOOP_STEPS,
+                                   k_lbfgs.STEPS_AFTER_END), loop_before)]
+    check(loop[0] == 1 and loop[2] < solver.steps
+          and loop[1] == solver.steps * -(-long.n_evals // solver.steps),
+          f"a solve's loop launches, steps and steps after its end {loop}, as the control "
+          f"kernel counted them, for {long.n_evals} evaluations")
     iters = {"k10": long.n_iters, "host_loop": ref.n_iters}
     evals = {"k10": long.n_evals, "host_loop": ref.n_evals}
     profs = {"k10": device_profile(lambda: solve(LONG_SOLVE)),
@@ -4612,6 +4650,25 @@ def phase_k10(card: str) -> dict:
         kernel_name(key): v["launches"] / iters["k10"]
         for key, v in profs["k10"]["by_name"].items()}
     times["k10"]["capture_s"] = solver.capture_seconds
+    # the solve's device span by CUDA events around its one launch (the
+    # profiler's count of launches shows whether it saw every kernel of the
+    # loop's body iterations)
+    loop_graph = solver.solve_loop(float(np.float32(rho)))
+    spans = []
+    for _ in range(K10_TURNS):
+        k_lbfgs.reset(solver.bufs, x0, max_iters=LONG_SOLVE, **opts)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loop_graph.launch()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    span = statistics.median(spans)
+    times["k10"].update(
+        event_ms=spans, device_us_per_iter_by_events=1e3 * span / iters["k10"],
+        idle_share_by_events=1.0 - span / (1e3 * statistics.median(walls["k10"])))
+    times["k10"].update(steps_per_body=solver.steps, loop_launches_per_solve=loop[0],
+                        steps_per_solve=loop[1], steps_after_end=loop[2])
 
     # -- each kernel's device time (a graph of K10_REPS launches, each after
     # the copies that restore its input, less a graph of the copies alone)
@@ -4980,10 +5037,13 @@ def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
     the outer epoch of euler_weak_tail from the JAX fixture's state at
     max_iters 1, 2 and 5, on K10 (AutogradLBFGS, the trainer's solver here)
     and on the host loop, against JAX's n_iters, n_evals and f; a capped
-    outer epoch of TAIL_TIMED_ITERS iterations timed on K10 (the done flag
-    read once a replay of 16 steps and once a step) and on the host loop in
-    turns, with each side's device time, launches and host syncs by the
-    profiler; then this slice's main path: ``train --preset euler_weak_tail
+    outer epoch of TAIL_TIMED_ITERS iterations timed on K10 (the evaluation
+    captured into the solve's WHILE node, one launch and one read a solve;
+    and the same solver host-stepped, the flag read every 16 steps, bit for
+    bit the same at max_iters 1, 2 and 5) and on the host loop in turns, with
+    each side's host syncs and device time (:func:`device_fields`: CUDA events
+    around the captured loop, the profiler for the other sides); then this
+    slice's main path: ``train --preset euler_weak_tail
     --resume`` from two of phase 35's euler_weak_fast members for
     TAIL_CLI['outer'] outer epochs, and ``export --select rank`` of the two
     tails against the members, no plain call, every solve on K10."""
@@ -5017,24 +5077,41 @@ def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
     rows = {}
     opts = dict(history=cfg.history, ftol=cfg.ftol, gtol=cfg.gtol, max_ls=cfg.max_ls)
     solver = k_lbfgs.AutogradLBFGS()
+    stepped = k_lbfgs.AutogradLBFGS(captured=False)
     for k in (int(i) for i in fx["iters"]):
         for name, solve in (("k10", lambda: solver.minimize(fun, x0, max_iters=k, **opts)),
+                            ("k10_host_stepped",
+                             lambda: stepped.minimize(fun, x0, max_iters=k, **opts)),
                             ("host_loop", lambda: lb_mod.lbfgs_minimize(fun, x0, max_iters=k,
                                                                          **opts))):
+            syncs = lb_mod.HOST_SYNCS
             res = solve()
+            syncs = lb_mod.HOST_SYNCS - syncs
+            if name == "k10":
+                captured = res
+                check(syncs == 1 and solver.loop.loop is not None,
+                      f"the captured solve at max_iters {k}: {syncs} host syncs")
+            elif name == "k10_host_stepped":
+                check(torch.equal(res.x, captured.x) and torch.equal(res.f, captured.f)
+                      and torch.equal(res.g, captured.g)
+                      and (res.n_iters, res.n_evals) == (captured.n_iters, captured.n_evals)
+                      and int(stepped.bufs.si[k_lbfgs.I_BRANCHES])
+                      == int(solver.bufs.si[k_lbfgs.I_BRANCHES]),
+                      f"the captured solve at max_iters {k} differs from the host-stepped one")
             got = (res.n_iters, res.n_evals)
             want = (int(fx[f"n_iters_{k}"]), int(fx[f"n_evals_{k}"]))
             check(got == want, f"{name} at max_iters {k}: (n_iters, n_evals) {got} != JAX {want}")
             leaves = [host(v).astype(np.float64) for v in net_leaves(unravel(res.x)["net"])]
             rows[f"{name}_k{k}"] = {
-                "n_iters": res.n_iters, "n_evals": res.n_evals,
+                "n_iters": res.n_iters, "n_evals": res.n_evals, "host_syncs": syncs,
                 "f": close("loss", float(res.f), float(fx[f"f_{k}"])),
                 "leaf_sums": measure("leaf_sums", np.asarray(
                     [(v.sum(), (v * v).sum()) for v in leaves]), fx[f"sums_{k}"])}
     check(abs(f0 - float(fx["loss_0"])) <= 1e-4 * abs(float(fx["loss_0"])),
           f"the tail fixture's loss {f0} vs JAX {float(fx['loss_0'])}")
 
-    # -- times: a capped outer epoch on K10 (both sync rates) and on the host loop
+    # -- times: a capped outer epoch on K10 (captured, and host-stepped with
+    # the flag read every 16 steps) and on the host loop
     capped = tr.build_problem(override(exp, {"optimizer.lbfgs.max_iters": TAIL_TIMED_ITERS}),
                               "cuda")
     state = tr.TrainState(params=params, opt_state=None, admm=None, colloc=colloc, key=0,
@@ -5043,8 +5120,8 @@ def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
                                                                                host_loop=True)}
     check(isinstance(steps["k10"].solver, k_lbfgs.AutogradLBFGS)
           and steps["host_loop"].solver is None, "the outer epochs' solvers")
-    steps["k10_sync_each_step"] = tr.make_lbfgs_step(capped)
-    steps["k10_sync_each_step"].solver.sync_every = 1
+    steps["k10_host_stepped"] = tr.make_lbfgs_step(capped)
+    steps["k10_host_stepped"].solver.captured = False
     for fn in steps.values():  # warm-up
         fn(state)
     walls = {name: [] for name in steps}
@@ -5055,23 +5132,19 @@ def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
             walls[name + "_iters"], walls[name + "_syncs"] = r["n_iters"], r["syncs"]
     times = {}
     for name, fn in steps.items():
-        prof = device_profile(lambda: fn(state))
         it = walls[name + "_iters"]
         wall = statistics.median(walls[name])
         times[name] = {
             "ms_per_iter": wall / it, "wall_ms": walls[name], "n_iters": it,
             "syncs_per_iter": walls[name + "_syncs"] / it,
-            "device_us_per_iter": None if prof["device_us"] is None else prof["device_us"] / it,
-            "launches_per_iter": None if prof["kernels"] is None else prof["kernels"] / it,
-            "idle_share": None if prof["device_us"] is None else
-            1.0 - prof["device_us"] / (1e3 * wall)}
-        if name == "k10":
-            times[name]["by_kernel_us_per_iter"] = {
-                kernel_name(key): v["us"] / it for key, v in prof["by_name"].items()
-                if "k10" in key or "lbfgs" in key}
-    check(walls["k10_iters"] == walls["host_loop_iters"] == walls["k10_sync_each_step_iters"],
+            **device_fields(lambda: fn(state), it, wall,
+                            captured=getattr(fn.solver, "captured", False))}
+    check(walls["k10_iters"] == walls["host_loop_iters"] == walls["k10_host_stepped_iters"],
           f"the capped outer epochs took {walls['k10_iters']}, {walls['host_loop_iters']} and "
-          f"{walls['k10_sync_each_step_iters']} iterations")
+          f"{walls['k10_host_stepped_iters']} iterations")
+    check(walls["k10_syncs"] == 1, f"{walls['k10_syncs']} host syncs in a captured outer epoch")
+    times["k10"]["steps_per_body"] = steps["k10"].solver.steps
+    times["k10"]["capture_s"] = steps["k10"].solver.capture_seconds[-1]
 
     # -- the main path: the CLI tail from phase 35's members, then the pick
     tmp = os.path.dirname(members[0])
@@ -5102,7 +5175,8 @@ def phase_euler_tail(card: str, members, member_epoch: int) -> dict:
     check(plain.calls == 0, f"{plain.calls} calls of a plain version on the tail's path")
     check(launches["lbfgs_solves"] == solves and launches["lbfgs_reset"] == solves
           and launches["lbfgs_control"] > 0 and launches["lbfgs_direction"] > 0
-          and launches["lbfgs_replays"] == 0 and launches["fused_value_and_grad"] == 0,
+          and launches["lbfgs_loop_launches"] == launches["lbfgs_host_syncs"] == solves
+          and launches["fused_value_and_grad"] == 0,
           f"the tail's K10 launches {launches}")
     check(all(launches[k] > 0 for k in ("weakform_edge_points", "weakform_flux",
                                          "weakform_flux_backward", "taylor1", "taylor1_backward",
@@ -5174,36 +5248,94 @@ def hold_post(name: str, got, plain, exact, scale=None) -> dict:
 
 
 class SolveClock:
-    """While entered, every K10 solve's replays (DeviceLBFGS.replay_until_done,
-    the runner's and the per-outer-epoch step's) are bracketed by
-    synchronizes and their host-clock milliseconds summed in ``ms``."""
+    """While entered, every K10 solve's launch (SolveLoop.launch, the
+    runner's and the per-outer-epoch step's) is bracketed by synchronizes
+    and their host-clock milliseconds summed in ``ms``."""
 
     def __enter__(self):
         from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
 
-        self.cls, self.saved, self.ms = k_lbfgs.DeviceLBFGS, k_lbfgs.DeviceLBFGS.replay_until_done, 0.0
+        self.cls, self.saved, self.ms = k_lbfgs.SolveLoop, k_lbfgs.SolveLoop.launch, 0.0
         clock = self
 
-        def timed(solver, graph):
+        def timed(loop):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                return clock.saved(solver, graph)
+                return clock.saved(loop)
             finally:
                 torch.cuda.synchronize()
                 clock.ms += 1e3 * (time.perf_counter() - t0)
-        self.cls.replay_until_done = timed
+        self.cls.launch = timed
         return self
 
     def __exit__(self, *exc):
-        self.cls.replay_until_done = self.saved
+        self.cls.launch = self.saved
+
+
+class LoopSpans:
+    """While entered, every K10 solve loop's launch (SolveLoop.launch) is
+    bracketed by CUDA events on the current stream, with no synchronize;
+    :meth:`ms` sums their elapsed milliseconds: the loops' device span
+    (torch.profiler records only a loop's first body iteration)."""
+
+    def __enter__(self):
+        from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+
+        self.cls, self.saved, self.events = k_lbfgs.SolveLoop, k_lbfgs.SolveLoop.launch, []
+        spans = self
+
+        def bracketed(loop):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            try:
+                return spans.saved(loop)
+            finally:
+                end.record()
+                spans.events.append((start, end))
+        self.cls.launch = bracketed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.launch = self.saved
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in self.events)
+
+
+def device_fields(fn, it: int, wall_ms: float, captured: bool) -> dict:
+    """The device time and idle share of one more call ``fn()`` of ``it``
+    L-BFGS iterations. A captured solver's (its solves SolveLoop launches):
+    the loops' span by CUDA events (:class:`LoopSpans`) over the same call's
+    host-clock wall, the time outside the loops counted idle; launches not
+    measured. Another's: torch.profiler's device time and launches over
+    ``wall_ms``."""
+    if captured:
+        with LoopSpans() as spans:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        loop_ms = spans.ms()
+        return {"device_us_per_iter": 1e3 * loop_ms / it, "launches_per_iter": None,
+                "idle_share": 1.0 - loop_ms / wall, "loops": len(spans.events),
+                "device_clock": "CUDA events around each solve loop's launch"}
+    prof = device_profile(fn)
+    us = prof["device_us"]
+    return {"device_us_per_iter": None if us is None else us / it,
+            "launches_per_iter": None if prof["kernels"] is None else prof["kernels"] / it,
+            "idle_share": None if us is None else 1.0 - us / (1e3 * wall_ms),
+            "device_clock": "torch.profiler"}
 
 
 def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
     """40: K10's outer epochs as chunks (LBFGSChunk). K3's post-update mode
     against its plain version at the fixture's state; chunks of
     CHUNK_LENGTHS outer epochs, drawn and fed, bit for bit against the same
-    kernels driven one outer epoch a host call; one outer epoch against
+    kernels driven one outer epoch a host call, one launch of the solve's
+    WHILE node an outer epoch and no read of the device inside a chunk; one outer epoch against
     JAX's iterate at 5 iterations; the times of an outer epoch on the runner
     and on the per-outer-epoch step from phase 9's state, in turns."""
     from pinns_tpu_torch.config import override
@@ -5300,7 +5432,12 @@ def phase_lbfgs_chunk(card: str, adam: dict) -> dict:
             bits[f"L{length}_{'fed' if fed else 'drawn'}"] = {
                 "bit_equal": True, "lbfgs_iters": [int(v) for v in gm["lbfgs_iters"].tolist()]}
     bit_counts = kernel_counts()
-    check(bit_counts["lbfgs_chunk_epochs"] == 4 * sum(CHUNK_LENGTHS), f"counts {bit_counts}")
+    # one launch of the solve's loop an outer epoch, one read of the device a
+    # chunk (after it: none inside)
+    check(bit_counts["lbfgs_chunk_epochs"] == bit_counts["lbfgs_loop_launches"]
+          == 4 * sum(CHUNK_LENGTHS)
+          and bit_counts["lbfgs_host_syncs"] == 2 * sum(1 + n for n in CHUNK_LENGTHS),
+          f"counts {bit_counts}")
 
     # -- (c) one outer epoch from the fixture's state against JAX's iterate
     five = k_lbfgs.LBFGSChunk(dataclasses.replace(problem, exp=override(exp, {
@@ -6431,7 +6568,9 @@ def f64_bounds(layers, n_f: int, n_u: int, n: int, m: int) -> dict:
 def phase_polish(card: str) -> dict:
     """46: the float64 modes of K1, K2, K5 and K10 against their float64
     plain versions on the card, then ``polish`` from the committed JAX state
-    of burgers_forward: its launches, no host loop, its first iterations
+    of burgers_forward: its launches (one launch of the solve's WHILE node,
+    one read), no host loop, bit for bit the host-stepped AutogradLBFGS over
+    the same kernels for POLISH_ITERS iterations, its first iterations
     against the host loop over the plain loss, its loss, its times."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
@@ -6570,9 +6709,10 @@ def phase_polish(card: str) -> dict:
     for name in ("taylor2_f64", "taylor2_backward_f64", "mlp_forward_f64", "mlp_backward_f64",
                  "lbfgs_reset_f64", "lbfgs_control_f64", "lbfgs_direction_f64"):
         check(counts[name] > 0, f"polish launched no {name}")
-    check(counts["lbfgs_control_f64"] == k_lbfgs.STEPS_PER_REPLAY * counts["lbfgs_host_syncs"],
-          f"host syncs {counts['lbfgs_host_syncs']} are not the flag reads of "
-          f"{counts['lbfgs_control_f64']} steps")
+    check(counts["lbfgs_host_syncs"] == counts["lbfgs_loop_launches"] == 1
+          and counts["lbfgs_control_f64"] == counts["lbfgs_loop_steps"]
+          and counts["lbfgs_steps_after_end"] < k_lbfgs.AUTOGRAD_STEPS,
+          f"polish's loop launches, steps and host syncs: {counts}")
     for name in ("taylor2", "taylor2_backward", "mlp_forward", "mlp_backward", "lbfgs_control",
                  "lbfgs_direction", "fused_step", "fused_value_and_grad"):
         check(counts[name] == 0, f"polish launched the float32 {name}")
@@ -6580,6 +6720,17 @@ def phase_polish(card: str) -> dict:
     _, again = polish(problem, state, POLISH_ITERS)
     check(torch.equal(again.x, res.x) and again.n_iters == res.n_iters,
           "two polishes on the card differ")
+    # the captured polish against the host-stepped one over the same kernels
+    captured, stepped = k_lbfgs.AutogradLBFGS(), k_lbfgs.AutogradLBFGS(captured=False)
+    popts = dict(max_iters=POLISH_ITERS, history=cfg.history, ftol=FTOL, gtol=GTOL)
+    cap, hs = captured.minimize(fun, x0.detach(), **popts), stepped.minimize(fun, x0.detach(),
+                                                                             **popts)
+    check(torch.equal(cap.x, hs.x) and torch.equal(cap.f, hs.f) and torch.equal(cap.g, hs.g)
+          and (cap.n_iters, cap.n_evals) == (hs.n_iters, hs.n_evals)
+          and int(captured.bufs.si[k_lbfgs.I_BRANCHES]) == int(stepped.bufs.si[k_lbfgs.I_BRANCHES])
+          and torch.equal(cap.x, res.x),
+          f"the captured polish ({cap.n_iters}, {cap.n_evals}) differs from the host-stepped "
+          f"one ({hs.n_iters}, {hs.n_evals}) or from polish")
 
     # -- its first iterations against the host loop over the plain loss
     head, _ = polish(problem, state, POLISH_HELD_ITERS)
@@ -6599,17 +6750,20 @@ def phase_polish(card: str) -> dict:
 
     # -- times: the polish (wall, device, launches, syncs an iteration) and
     # each float64 mode against its plain version (CUDA events, in turns)
-    prof = device_profile(lambda: polish(problem, state, POLISH_ITERS))
     it = max(res.n_iters, 1)
+    dev = device_fields(lambda: polish(problem, state, POLISH_ITERS), it, 1e3 * wall,
+                        captured=True)
     out["polish"] = {
         "iters": res.n_iters, "evals": res.n_evals, "converged": res.converged,
         "loss_start": f0, "loss_end": float(res.f), "wall_s": wall,
         "ms_per_iter": 1e3 * wall / it,
-        "device_ms_per_iter": None if prof["device_us"] is None else 1e-3 * prof["device_us"] / it,
-        "launches_per_iter": None if prof["kernels"] is None else prof["kernels"] / it,
+        "device_ms_per_iter": 1e-3 * dev["device_us_per_iter"], "device_clock": dev["device_clock"],
         "host_syncs_per_iter": counts["lbfgs_host_syncs"] / it,
-        "idle_share": None if prof["device_us"] is None else
-        max(0.0, 1.0 - 1e-3 * prof["device_us"] / (1e3 * wall)),
+        "steps_per_body": k_lbfgs.AUTOGRAD_STEPS, "loop_steps": counts["lbfgs_loop_steps"],
+        "steps_after_end": counts["lbfgs_steps_after_end"],
+        "captured_vs_host_stepped": {"iters": cap.n_iters, "evals": cap.n_evals,
+                                     "bit_equal": True},
+        "idle_share": dev["idle_share"],
         "rel_l2_u_start": ev0["rel_l2_u"], "rel_l2_u_end": ev1["rel_l2_u"],
         "held": {"iters": POLISH_HELD_ITERS, "n_iters": lockstep.n_iters,
                  "n_evals": [lockstep.n_evals, host_res.n_evals], "x_err": x_err,
@@ -6955,6 +7109,97 @@ def fv_entries(gen: dict) -> list:
             entry("fv_euler", "euler", {})]
 
 
+# -- 49: burgers_inverse's L-BFGS outer epoch, captured into K10's loop --------
+
+INVERSE_ADAM = 500  # the short Adam state phase 49 starts from (K9's generic runner)
+INVERSE_MAX_ITERS = 300  # the outer epoch's iterations, held and timed
+INVERSE_TURNS = 3  # alternating outer epochs a side for the times
+
+
+def outer_epoch_times(steps: dict, state, turns: int) -> dict:
+    """Each L-BFGS outer epoch ``step`` of ``steps`` from ``state``, ``turns``
+    times in turns: ms an iteration (host clock, median), its iterations and
+    the host syncs of the last call; the device time and idle share of one
+    more call (:func:`device_fields`: a captured solver's by CUDA events
+    around its loop, another's by the profiler, with its launches)."""
+    walls = {name: [] for name in steps}
+    runs = {}
+    for fn in steps.values():  # the first call captures or warms up
+        fn(state)
+    for _ in range(turns):
+        for name, fn in steps.items():
+            runs[name] = timed_outer(fn, state, 1)
+            walls[name] += runs[name]["wall_ms"]
+    out = {}
+    for name, fn in steps.items():
+        it = max(1, runs[name]["n_iters"])
+        wall = statistics.median(walls[name])
+        out[name] = {
+            "ms_per_iter": wall / it, "wall_ms": walls[name], "n_iters": runs[name]["n_iters"],
+            "host_syncs": runs[name]["syncs"], "syncs_per_iter": runs[name]["syncs"] / it,
+            **device_fields(lambda: fn(state), it, wall,
+                            captured=getattr(fn.solver, "captured", False))}
+    return out
+
+
+def phase_inverse_lbfgs(card: str) -> dict:
+    """49: burgers_inverse's L-BFGS phase on the card (AutogradLBFGS: autograd
+    through K1, K2 and K5 with the exp coefficient's gradient as the
+    evaluation) from INVERSE_ADAM Adam epochs of Trainer.train: one outer
+    epoch of up to INVERSE_MAX_ITERS iterations captured into the solve's
+    WHILE node (one launch, one read) against the same solver host-stepped
+    (the flag read every 16 steps): the params, the loss, the iterations and
+    the branches bit for bit; then both timed in turns, with each side's
+    host syncs and device time (:func:`device_fields`)."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as lb_mod
+    from pinns_tpu_torch.train import trainer as tr
+
+    exp = override(get_preset("burgers_inverse"), {
+        "train.log_every": 0, "optimizer.lbfgs.max_iters": INVERSE_MAX_ITERS})
+    trainer = tr.Trainer(exp, device="cuda")
+    state, _ = trainer.train(epochs=INVERSE_ADAM)
+    check(state.epoch == INVERSE_ADAM, f"the Adam state's epoch {state.epoch}")
+    steps = {"k10": tr.make_lbfgs_step(trainer.problem),
+             "k10_host_stepped": tr.make_lbfgs_step(trainer.problem)}
+    steps["k10_host_stepped"].solver.captured = False
+    check(all(isinstance(s.solver, k_lbfgs.AutogradLBFGS) for s in steps.values())
+          and steps["k10"].solver.captured, "burgers_inverse's L-BFGS solver")
+    reset_counts()
+    with PlainCalls() as plain:
+        news = {name: fn(state) for name, fn in steps.items()}
+    counts = kernel_counts()
+    check(plain.calls == 0, f"{plain.calls} calls of a plain version in the outer epochs")
+    (a, ma), (b, mb) = news["k10"], news["k10_host_stepped"]
+    sa, sb = (s.solver.bufs for s in steps.values())
+    check(torch.equal(lb_mod.ravel_tree(a.params)[0], lb_mod.ravel_tree(b.params)[0])
+          and torch.equal(ma["loss"], mb["loss"]) and float(ma["lbfgs_iters"]) ==
+          float(mb["lbfgs_iters"]) and torch.equal(sa.vec[k_lbfgs.G], sb.vec[k_lbfgs.G])
+          and int(sa.si[k_lbfgs.I_EVALS]) == int(sb.si[k_lbfgs.I_EVALS])
+          and int(sa.si[k_lbfgs.I_BRANCHES]) == int(sb.si[k_lbfgs.I_BRANCHES]),
+          "the captured outer epoch differs from the host-stepped one")
+    check(counts["lbfgs_loop_launches"] == 1 and counts["lbfgs_solves"] == 2
+          and all(counts[k] > 0 for k in ("taylor2", "taylor2_backward", "mlp_forward",
+                                          "mlp_backward")),
+          f"the outer epochs' launches {counts}")
+    lam = dict(zip(("lambda1", "lambda2"),
+                   (float(v) for v in trainer.problem.effective_coeffs(a.params))))
+    times = outer_epoch_times(steps, state, INVERSE_TURNS)
+    check(times["k10"]["host_syncs"] == 1, f"the captured outer epoch's host syncs {times}")
+    times["k10"].update(steps_per_body=steps["k10"].solver.steps,
+                        capture_s=steps["k10"].solver.capture_seconds[-1])
+    emit(card, phase="inverse-lbfgs", preset="burgers_inverse", adam_epochs=INVERSE_ADAM,
+         max_iters=INVERSE_MAX_ITERS, n_iters=int(float(ma["lbfgs_iters"])),
+         n_evals=int(sa.si[k_lbfgs.I_EVALS]), branches=k_lbfgs.branches_taken(sa),
+         loss=float(ma["loss"]), coeffs=lam, bit_equal=True, times=times,
+         launches={k: v for k, v in counts.items() if v},
+         clock="host for the outer epochs; device: CUDA events around the captured loop, "
+               "the profiler for the host-stepped drive")
+    return {"times": times, "launches": counts}
+
+
 def main() -> int:
     # -- 1 device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -7200,6 +7445,9 @@ def main() -> int:
 
     # -- 48: the data generators, on the FV time stepper K12
     gen = timed(card, "generators", phase_generators, card)
+
+    # -- 49: burgers_inverse's L-BFGS outer epoch, captured into K10's loop
+    inverse = timed(card, "inverse-lbfgs", phase_inverse_lbfgs, card)
 
     def feat(counter, family, layers, n, f, k, which, run):
         return feature_entry(fruns, counter, feats, (family, layers, n, f, k), which, run)
@@ -7511,6 +7759,10 @@ def main() -> int:
         }} if name in ("lbfgs_control", "lbfgs_direction") else {}),
         **({"euler_tail_launches": tail["launches"]["lbfgs_reset"]}
            if name == "lbfgs_reset" else {}),
+        # burgers_inverse's outer epoch (phase 49): captured beside host-stepped
+        **({"burgers_inverse_outer_epoch": {"max_iters": INVERSE_MAX_ITERS,
+                                            **inverse["times"]}}
+           if name == "lbfgs_control" else {}),
     } for name, replaces in (
         ("lbfgs_control", "pinns_tpu/opt/lbfgs.py:194"),
         ("lbfgs_direction", "pinns_tpu/opt/lbfgs.py:167"),

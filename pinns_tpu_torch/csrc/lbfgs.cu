@@ -6,8 +6,10 @@
 // solve as one device program; pinns_tpu_torch/opt/lbfgs.py::lbfgs_minimize
 // runs the same branches from the host, one host sync per line-search
 // evaluation. Here every decision is taken on the device, so that a solve is
-// a chain of *evaluation steps* that a CUDA graph can replay with no host
-// read between them (ops/kernels/lbfgs.py::DeviceLBFGS):
+// a chain of *evaluation steps* that a CUDA graph runs with no host read
+// between them: the body of a conditional WHILE node, the port of the
+// while_loop, which the control kernel ends (ops/kernels/lbfgs.py::SolveLoop,
+// for DeviceLBFGS and AutogradLBFGS). A step is
 //
 //   value-and-grad  (phi, g) at the trial point xt, into phi_t and gt: K3's
 //                   value-and-grad mode (csrc/fused_step.cu), or any function
@@ -31,8 +33,14 @@
 // no x0 it resets in place from the iterate x that the last solve left
 // (ops/kernels/lbfgs.py::LBFGSChunk: the next outer epoch's x0 is that x, so
 // no host copy). Once the done flag is set every launch of a step reads it
-// and returns, so a replay of R steps past the end costs R empty launches of
-// each kernel.
+// and returns, so a body of k steps runs at most k - 1 empty steps after the
+// end. The launch of the control kernel that sets the flag (or finds it set)
+// also sets the WHILE node's condition to 0 (cudaGraphSetConditional) when it
+// runs inside the loop; pinns_lbfgs_loop_* build the loop's graph around the
+// captured body (a child graph) and launch it. Every launch of the control
+// kernel, those after the end included, adds one to the step counter
+// `steps` (one int the reset zeroes, outside the state): the steps a solve
+// ran, as the device counts them, for the wrapper's counters.
 //
 // The state lives in device memory: an int array (si) and a float array (sf)
 // whose slots are the enums below (ops/kernels/lbfgs.py names them I_* and
@@ -514,9 +522,10 @@ __device__ void search_update(int* I, R* F, int* T, R phi, R dphi) {
 }
 
 template <typename R>
-__global__ void reset_kernel(int* si, R* sf, R* vec, const R* x0, int n,
+__global__ void reset_kernel(int* si, R* sf, R* vec, int* steps, const R* x0, int n,
                              int max_iters, int max_ls, ConstsT<R> c) {
   if (threadIdx.x == 0) {
+    *steps = 0;
     for (int k = 0; k < kNumInts; ++k) si[k] = 0;
     for (int k = 0; k < kNumFloats; ++k) sf[k] = R(0);
     si[kStage] = kInit;
@@ -545,10 +554,22 @@ __global__ void reset_kernel(int* si, R* sf, R* vec, const R* x0, int n,
   }
 }
 
+// The solve's WHILE node (ops/kernels/lbfgs.py::SolveLoop): the control
+// launch that sets the done flag, or finds it set, sets the node's condition
+// to 0, so the loop ends after the body iteration that holds it. `looped` 0
+// (a launch outside such a node: the stepwise drive, the checks): nothing.
+template <typename T>
+__device__ __forceinline__ void end_loop_if_done(const SharedT<T>& sh,
+                                                 cudaGraphConditionalHandle cond, int looped) {
+  if (looped && threadIdx.x == 0 && sh.i[kDone]) cudaGraphSetConditional(cond, 0);
+}
+
 template <typename R>
 __global__ void __launch_bounds__(kThreads)
-control_kernel(int* si, R* sf, R* vec, R* hist, R* rho, int n, int m) {
+control_kernel(int* si, R* sf, R* vec, R* hist, R* rho, int* steps, int n, int m,
+               cudaGraphConditionalHandle cond, int looped) {
   __shared__ SharedT<R> sh;
+  if (threadIdx.x == 0) *steps += 1;  // every launch, after the end too
   const int t = virtual_thread();
   const size_t N = n;
   R* x = vec + kX * N;
@@ -565,7 +586,10 @@ control_kernel(int* si, R* sf, R* vec, R* hist, R* rho, int n, int m) {
     mx = max_nan(mx, abs_of(gt[i]));
   }
   load_state(sh, si, sf);
-  if (sh.i[kDone]) return;
+  if (sh.i[kDone]) {
+    end_loop_if_done(sh, cond, looped);
+    return;
+  }
   auto ex = exchange_begin<false>(sh);
   int* I = sh.i;
   R* F = sh.f;
@@ -585,6 +609,7 @@ control_kernel(int* si, R* sf, R* vec, R* hist, R* rho, int n, int m) {
       }
     }
     finish(sh, si, sf, 0);
+    end_loop_if_done(sh, cond, looped);
     return;
   }
 
@@ -667,6 +692,7 @@ control_kernel(int* si, R* sf, R* vec, R* hist, R* rho, int n, int m) {
     }
   }
   finish(sh, si, sf, 0);
+  end_loop_if_done(sh, cond, looped);
 }
 
 // The pair j of the first loop (newest first) in the circular history; the
@@ -1029,24 +1055,42 @@ size_t direction_smem(int n, int m, bool resident) {
 }
 
 template <typename R>
-int reset(void* si, void* sf, void* vec, const void* x0, int n, int max_iters, int max_ls,
-          const R* consts, void* stream) {
+int reset(void* si, void* sf, void* vec, void* steps, const void* x0, int n, int max_iters,
+          int max_ls, const R* consts, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const ConstsT<R> c{consts[0], consts[1], consts[2], consts[3], consts[4],
                      consts[5], consts[6], consts[7], consts[8]};
   reset_kernel<R><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(si), static_cast<R*>(sf), static_cast<R*>(vec),
-      static_cast<const R*>(x0), n, max_iters, max_ls, c);
+      static_cast<int*>(steps), static_cast<const R*>(x0), n, max_iters, max_ls, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename R>
-int control(void* si, void* sf, void* vec, void* hist, void* rho, int n, int m, void* stream) {
+int control(void* si, void* sf, void* vec, void* hist, void* rho, void* steps, int n, int m,
+            unsigned long long cond, int looped, void* stream) {
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   control_kernel<R><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(si), static_cast<R*>(sf), static_cast<R*>(vec), static_cast<R*>(hist),
-      static_cast<R*>(rho), n, m);
+      static_cast<R*>(rho), static_cast<int*>(steps), n, m,
+      static_cast<cudaGraphConditionalHandle>(cond), looped);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A solve's loop: a graph of one conditional WHILE node, its condition
+// created with a default of 1 that every launch reassigns, its body the
+// captured steps (a child graph) that the control kernel ends.
+struct Loop {
+  cudaGraph_t graph = nullptr;
+  cudaGraph_t body = nullptr;  // the node's body graph (owned by the node)
+  cudaGraphExec_t exec = nullptr;
+  cudaGraphConditionalHandle cond = 0;
+};
+
+void destroy(Loop* loop) {
+  if (loop->exec != nullptr) cudaGraphExecDestroy(loop->exec);
+  if (loop->graph != nullptr) cudaGraphDestroy(loop->graph);
+  delete loop;
 }
 
 template <typename R>
@@ -1093,34 +1137,93 @@ extern "C" long long pinns_lbfgs_direction_smem_f64(int n, int m, int resident) 
 // its launch (0 on success; kErrUnplaced when the cluster cannot be placed).
 // Pointers are device pointers of contiguous buffers the wrapper checked:
 // si (kNumInts int32), sf (kNumFloats float32), vec (kRows x n float32), hist
-// (2 x m x n), rho (m), x0 (n; null for the reset in place from vec's x
-// row). `consts` (host) holds c1, c2, ftol, gtol,
+// (2 x m x n), rho (m), steps (one int32: the step counter), x0 (n; null for
+// the reset in place from vec's x row). `consts` (host) holds c1, c2, ftol, gtol,
 // 1e-12, 1e-10, 1e-30, 1e8 and 1e-12 as float32. The direction kernel's
 // `launch_only` (a stream capture) leaves out the shared memory limit and
 // the placement check, which an earlier call with the same arguments made.
 // The *_f64 entry points are the float64 mode: sf, vec, hist, rho, x0 and
 // `consts` in double, the same kernels instantiated on double (every sum in
 // the same order, with the double round-to-nearest intrinsics).
-extern "C" int pinns_lbfgs_reset(void* si, void* sf, void* vec, const void* x0, int n,
-                                 int max_iters, int max_ls, const float* consts, void* stream) {
-  return reset<float>(si, sf, vec, x0, n, max_iters, max_ls, consts, stream);
+extern "C" int pinns_lbfgs_reset(void* si, void* sf, void* vec, void* steps, const void* x0,
+                                 int n, int max_iters, int max_ls, const float* consts,
+                                 void* stream) {
+  return reset<float>(si, sf, vec, steps, x0, n, max_iters, max_ls, consts, stream);
 }
 
-extern "C" int pinns_lbfgs_reset_f64(void* si, void* sf, void* vec, const void* x0, int n,
-                                     int max_iters, int max_ls, const double* consts,
+extern "C" int pinns_lbfgs_reset_f64(void* si, void* sf, void* vec, void* steps, const void* x0,
+                                     int n, int max_iters, int max_ls, const double* consts,
                                      void* stream) {
-  return reset<double>(si, sf, vec, x0, n, max_iters, max_ls, consts, stream);
+  return reset<double>(si, sf, vec, steps, x0, n, max_iters, max_ls, consts, stream);
 }
 
-// The control kernel on one block.
-extern "C" int pinns_lbfgs_control(void* si, void* sf, void* vec, void* hist, void* rho, int n,
-                                   int m, void* stream) {
-  return control<float>(si, sf, vec, hist, rho, n, m, stream);
+// The control kernel on one block. With `looped` 1 it sets the condition
+// `cond` of the WHILE node that runs it to 0 once the done flag is set (a
+// launch captured into SolveLoop's body); with 0 `cond` is not read.
+extern "C" int pinns_lbfgs_control(void* si, void* sf, void* vec, void* hist, void* rho,
+                                   void* steps, int n, int m, unsigned long long cond, int looped,
+                                   void* stream) {
+  return control<float>(si, sf, vec, hist, rho, steps, n, m, cond, looped, stream);
 }
 
 extern "C" int pinns_lbfgs_control_f64(void* si, void* sf, void* vec, void* hist, void* rho,
-                                       int n, int m, void* stream) {
-  return control<double>(si, sf, vec, hist, rho, n, m, stream);
+                                       void* steps, int n, int m, unsigned long long cond,
+                                       int looped, void* stream) {
+  return control<double>(si, sf, vec, hist, rho, steps, n, m, cond, looped, stream);
+}
+
+// A new loop on the current device: its graph, the WHILE node and its
+// condition (written to *cond, for the control launches of the body). The
+// body is added by pinns_lbfgs_loop_body.
+extern "C" int pinns_lbfgs_loop_create(void** loop_out, unsigned long long* cond) {
+  Loop* loop = new Loop();
+  cudaError_t e = cudaGraphCreate(&loop->graph, 0);
+  if (e == cudaSuccess) {
+    e = cudaGraphConditionalHandleCreate(&loop->cond, loop->graph, 1,
+                                         cudaGraphCondAssignDefault);
+  }
+  if (e == cudaSuccess) {
+    cudaGraphNodeParams params = {};
+    params.type = cudaGraphNodeTypeConditional;
+    params.conditional.handle = loop->cond;
+    params.conditional.type = cudaGraphCondTypeWhile;
+    params.conditional.size = 1;
+    cudaGraphNode_t node;
+    e = cudaGraphAddNode(&node, loop->graph, nullptr, 0, &params);
+    if (e == cudaSuccess) loop->body = params.conditional.phGraph_out[0];
+  }
+  if (e != cudaSuccess) {
+    destroy(loop);
+    return static_cast<int>(e);
+  }
+  *loop_out = loop;
+  *cond = static_cast<unsigned long long>(loop->cond);
+  return 0;
+}
+
+// The body: a copy of the captured graph `steps` (a cudaGraph_t the caller
+// keeps or frees) as the WHILE node's child, then the loop instantiated.
+extern "C" int pinns_lbfgs_loop_body(void* loop_ptr, void* steps) {
+  Loop* loop = static_cast<Loop*>(loop_ptr);
+  if (loop->exec != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaGraphNode_t child;
+  cudaError_t e =
+      cudaGraphAddChildGraphNode(&child, loop->body, nullptr, 0, static_cast<cudaGraph_t>(steps));
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&loop->exec, loop->graph, 0);
+  return static_cast<int>(e);
+}
+
+// One launch of the loop on `stream`: the body runs until a control launch
+// ends it.
+extern "C" int pinns_lbfgs_loop_launch(void* loop_ptr, void* stream) {
+  Loop* loop = static_cast<Loop*>(loop_ptr);
+  if (loop->exec == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGraphLaunch(loop->exec, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int pinns_lbfgs_loop_destroy(void* loop_ptr) {
+  destroy(static_cast<Loop*>(loop_ptr));
+  return 0;
 }
 
 // The direction kernel on a cluster of 8 CTAs, the pairs resident in their

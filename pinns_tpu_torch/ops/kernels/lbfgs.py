@@ -23,18 +23,20 @@ at ``abgrall_admm``'s 3,023 params the history's pairs resident in their
 shared memory; each step's sum gathered through distributed shared memory);
 the control kernel as one block; both keep one 1,024-thread block's sum
 order, so their bits do not depend on the layout.
-:class:`DeviceLBFGS` captures ``STEPS_PER_REPLAY`` steps once as a CUDA graph and replays it,
-reading the device only for the done flag after each replay (one read, in
-``opt.lbfgs.HOST_SYNCS``); after the end every launch reads the flag and
-returns. :class:`AutogradLBFGS` launches its steps from the host and reads
-the flag once every ``sync_every`` steps; its evaluations after the end
-write nothing (a device-side select on the flag). ``opt/lbfgs.py::
-lbfgs_minimize``, the host loop, stays the algorithm's plain version (the
-CPU's, float64's, and the card's checks').
+:class:`SolveLoop` runs a solve as one launch of a CUDA graph: the steps
+(``k`` a body iteration) are the body of a conditional WHILE node that the
+control kernel ends when it sets the done flag, the port of JAX's
+``while_loop``; the host reads the device once a solve (``opt.lbfgs.
+HOST_SYNCS``), and at most k - 1 steps run after the end (every launch of
+them reads the flag and returns). :class:`DeviceLBFGS` captures its loop
+once per (rho, shape); :class:`AutogradLBFGS` captures autograd through the
+loss as the evaluation, anew for each solve. The stepwise drive
+(:func:`run_steps`) and ``opt/lbfgs.py::lbfgs_minimize``, the host loop,
+stay the algorithm's plain drives (the CPU's, and the card's checks).
 
 :class:`LBFGSChunk` runs a chunk of outer epochs on the card (JAX's
-``make_chunked`` over its ``make_lbfgs_step``): each solve's graph replayed to
-its done flag, then one more graph, K3's post-update mode
+``make_chunked`` over its ``make_lbfgs_step``): each solve one launch of its
+loop, then one more graph, K3's post-update mode
 (``fused_step.fused_post_update``: the next batch, z, dual and the metrics
 row, in place in the solve's buffers) and the reset in place, which starts
 the next solve from this one's iterate.
@@ -64,6 +66,7 @@ import ctypes
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -76,19 +79,35 @@ from pinns_tpu_torch.opt import lbfgs as host_lbfgs
 from pinns_tpu_torch.parallel import sharding
 
 RESET_LAUNCHES = 0  # reset kernel launches (one a solve; LBFGSChunk's in place too)
-CONTROL_LAUNCHES = 0  # control kernel launches: host calls and those inside replays
-DIRECTION_LAUNCHES = 0  # direction kernel launches: host calls and those inside replays
-GRAPH_REPLAYS = 0  # replays of a captured graph of STEPS_PER_REPLAY evaluation steps
+# control and direction kernel launches: host calls, and the steps run inside
+# a solve's loop (the device's step counter: SolveLoop.count)
+CONTROL_LAUNCHES = 0
+DIRECTION_LAUNCHES = 0
+LOOP_LAUNCHES = 0  # launches of a solve's WHILE-node graph (SolveLoop: one a solve)
+# evaluation steps run inside those launches, as the control kernel counts
+# them on the device (Buffers.steps), and of those the steps after a solve's
+# end (at most k - 1 a solve)
+LOOP_STEPS = 0
+STEPS_AFTER_END = 0
+SHARD_REPLAYS = 0  # replays of a sharded solve's graph of SYNC_EVERY steps (SolveReplay)
 SOLVES = 0  # device solves (DeviceLBFGS.minimize and AutogradLBFGS.minimize on the card)
 CHUNK_EPOCHS = 0  # outer epochs LBFGSChunk ran on the card (a post-update replay each)
-# launches of the float64 mode's kernels (host calls: AutogradLBFGS in float64)
+# launches of the float64 mode's kernels (host calls and steps inside a loop)
 RESET_F64_LAUNCHES = CONTROL_F64_LAUNCHES = DIRECTION_F64_LAUNCHES = 0
 _lock = threading.Lock()
 
-# evaluation steps a replay runs between two reads of the done flag: a solve
-# of n_evals evaluations reads the device about n_evals / 16 + 1 times and
-# runs at most 15 empty steps after its end
-STEPS_PER_REPLAY = 16
+# the stepwise drive (run_steps: the CPU's and the card's checks, and
+# AutogradLBFGS(captured=False)) reads the done flag once every SYNC_EVERY
+# steps
+SYNC_EVERY = 16
+# k, the evaluation steps a body iteration of a solve's WHILE node runs, per
+# solver, from the times of k = 1, 4 and 16 on the card (PERF.md,
+# scripts/lbfgs_loop_steps.py): a solve of n_evals evaluations runs
+# ceil(n_evals / k) body iterations, so at most k - 1 steps after its end.
+# An empty step costs DeviceLBFGS four launches that return at once, and
+# AutogradLBFGS a whole forward and backward.
+DEVICE_STEPS = 4
+AUTOGRAD_STEPS = 1
 THREADS = 1024  # the kernels' virtual block (csrc/lbfgs.cu: kThreads)
 WARPS = THREADS // 32
 CLUSTER = 8  # the direction kernel's CTAs (csrc/lbfgs.cu: kCtas)
@@ -221,13 +240,20 @@ class Buffers:
     """A solve's device state: ``si`` (N_INTS int32), ``sf`` (N_FLOATS),
     ``vec`` (N_ROWS, n), ``hist`` (2, m, n) (the s rows, then the y rows)
     and ``rho`` (m), all but ``si`` in the solve's dtype (float32, or
-    float64 for the float64 mode)."""
+    float64 for the float64 mode). Beside the state, ``steps`` (one int32,
+    zeros by default) counts the control kernel's launches since the reset,
+    those after the solve's end included: the steps it ran."""
 
     si: torch.Tensor
     sf: torch.Tensor
     vec: torch.Tensor
     hist: torch.Tensor
     rho: torch.Tensor
+    steps: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.steps is None:
+            self.steps = torch.zeros(1, dtype=torch.int32, device=self.si.device)
 
     @staticmethod
     def alloc(n: int, m: int, device, dtype: torch.dtype = torch.float32) -> "Buffers":
@@ -249,11 +275,11 @@ class Buffers:
         return self.rho.shape[0]
 
     def tensors(self) -> Tuple[torch.Tensor, ...]:
-        """(si, sf, vec, hist, rho), the buffers themselves."""
+        """(si, sf, vec, hist, rho), the state's buffers themselves."""
         return self.si, self.sf, self.vec, self.hist, self.rho
 
     def clone(self) -> "Buffers":
-        return Buffers(*(t.clone() for t in self.tensors()))
+        return Buffers(*(t.clone() for t in self.tensors()), steps=self.steps.clone())
 
     def check(self) -> None:
         n, m, dev, dt = self.n, self.m, self.si.device, self.dtype
@@ -263,7 +289,8 @@ class Buffers:
                                       ("sf", self.sf, (N_FLOATS,), dt),
                                       ("vec", self.vec, (N_ROWS, n), dt),
                                       ("hist", self.hist, (2, m, n), dt),
-                                      ("rho", self.rho, (m,), dt)):
+                                      ("rho", self.rho, (m,), dt),
+                                      ("steps", self.steps, (1,), torch.int32)):
             if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
                     or not t.is_contiguous():
                 raise ValueError(f"K10: {name} must be contiguous {dtype} {shape} on {dev}, got "
@@ -358,6 +385,7 @@ def reset_reference(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_
     F[F_GAMMA] = 1.0
     F[F_C1:F_EPS_STEP + 1] = consts
     _store(b, I, F)
+    b.steps.zero_()
     if x0 is not None:
         b.vec[X].copy_(x0)
     b.vec[XT].copy_(b.vec[X])
@@ -458,10 +486,20 @@ def _search_update(I, F, phi, dphi) -> Tuple[bool, bool, bool]:
     return better, bool(accept or fail), ok
 
 
-def control_reference(b: Buffers) -> None:
+def control_reference(b: Buffers, cond: Optional[List[int]] = None) -> None:
     """The control kernel in plain PyTorch: takes the evaluation at the
     trial point (phi in sf[F_PHI_T], its gradient in vec[GT]); see
-    ``csrc/lbfgs.cu::control_kernel``."""
+    ``csrc/lbfgs.cu::control_kernel``. ``cond``, the WHILE node's condition
+    in the loop's plain drive (:func:`loop_reference`), is set to 0 where
+    the kernel sets it: once the done flag is set or found set. Every call
+    adds one to ``b.steps``."""
+    b.steps.add_(1)
+    _control_reference(b)
+    if cond is not None and int(b.si[I_DONE]):
+        cond[0] = 0
+
+
+def _control_reference(b: Buffers) -> None:
     I, F = _load(b)
     if I[I_DONE]:
         return
@@ -569,13 +607,21 @@ def _lib():
         for suffix in ("", "_f64"):  # the float32 kernels and the float64 mode
             getattr(lib, f"pinns_lbfgs_direction_smem{suffix}").argtypes = [i, i, i]
             getattr(lib, f"pinns_lbfgs_direction_smem{suffix}").restype = ctypes.c_longlong
-            getattr(lib, f"pinns_lbfgs_reset{suffix}").argtypes = [p, p, p, p, i, i, i, p, p]
+            getattr(lib, f"pinns_lbfgs_reset{suffix}").argtypes = [p, p, p, p, p, i, i, i, p,
+                                                                     p]
             getattr(lib, f"pinns_lbfgs_reset{suffix}").restype = i
-            getattr(lib, f"pinns_lbfgs_control{suffix}").argtypes = [p, p, p, p, p, i, i, p]
+            getattr(lib, f"pinns_lbfgs_control{suffix}").argtypes = [p, p, p, p, p, p, i, i,
+                                                                       ctypes.c_ulonglong, i, p]
             getattr(lib, f"pinns_lbfgs_control{suffix}").restype = i
             getattr(lib, f"pinns_lbfgs_direction{suffix}").argtypes = [p, p, p, p, p, i, i, i, i,
                                                                          p]
             getattr(lib, f"pinns_lbfgs_direction{suffix}").restype = i
+        lib.pinns_lbfgs_loop_create.argtypes = [p, p]
+        lib.pinns_lbfgs_loop_body.argtypes = [p, p]
+        lib.pinns_lbfgs_loop_launch.argtypes = [p, p]
+        lib.pinns_lbfgs_loop_destroy.argtypes = [p]
+        for name in ("create", "body", "launch", "destroy"):
+            getattr(lib, f"pinns_lbfgs_loop_{name}").restype = i
         lib.pinns_lbfgs_error_string.argtypes = [i]
         lib.pinns_lbfgs_error_string.restype = ctypes.c_char_p
         got = [ctypes.c_int() for _ in range(4)]
@@ -620,13 +666,19 @@ def _launch_reset(b: Buffers, x0: Optional[torch.Tensor], max_iters: int, max_ls
     """The reset kernel; x0 None resets in place (a null pointer)."""
     si, sf, vec, _, _ = _ptrs(b)
     consts = np.ascontiguousarray(consts, _np_dtype(b))
-    _raise_on(_entry(b, "pinns_lbfgs_reset")(si, sf, vec, 0 if x0 is None else x0.data_ptr(),
-                                             b.n, int(max_iters), int(max_ls),
-                                             consts.ctypes.data, _stream(b)), "reset")
+    _raise_on(_entry(b, "pinns_lbfgs_reset")(si, sf, vec, b.steps.data_ptr(),
+                                             0 if x0 is None else x0.data_ptr(), b.n,
+                                             int(max_iters), int(max_ls), consts.ctypes.data,
+                                             _stream(b)), "reset")
 
 
-def _launch_control(b: Buffers) -> None:
-    _raise_on(_entry(b, "pinns_lbfgs_control")(*_ptrs(b), b.n, b.m, _stream(b)), "control")
+def _launch_control(b: Buffers, cond: Optional[int] = None) -> None:
+    """The control kernel; ``cond`` the condition of the WHILE node whose
+    body it is captured into (:class:`SolveLoop`), which it sets to 0 at the
+    solve's end."""
+    _raise_on(_entry(b, "pinns_lbfgs_control")(*_ptrs(b), b.steps.data_ptr(), b.n, b.m,
+                                               cond or 0, int(cond is not None), _stream(b)),
+              "control")
 
 
 def _launch_direction(b: Buffers, launch_only: bool = False,
@@ -697,11 +749,16 @@ def direction(b: Buffers) -> None:
 
 # -- the solve -------------------------------------------------------------------
 
+# the head's entry after si[:4]: the step counter (Buffers.steps)
+HEAD_STEPS = 4
+
+
 def read_head(b: Buffers) -> np.ndarray:
-    """si[:4] (done, converged, k, evals) on the host: the solve's one kind
-    of device read, counted in ``opt.lbfgs.HOST_SYNCS``."""
+    """si[:4] (done, converged, k, evals) and the step counter
+    (``HEAD_STEPS``) on the host in one read: the solve's one kind of device
+    read, counted in ``opt.lbfgs.HOST_SYNCS``."""
     host_lbfgs.HOST_SYNCS += 1
-    return b.si[:4].cpu().numpy()
+    return torch.cat((b.si[:4], b.steps)).cpu().numpy()
 
 
 def result(b: Buffers, head: np.ndarray) -> host_lbfgs.LBFGSResult:
@@ -712,11 +769,11 @@ def result(b: Buffers, head: np.ndarray) -> host_lbfgs.LBFGSResult:
 
 
 def run_steps(b: Buffers, evaluate: Callable[[], None],
-              sync_every: int = STEPS_PER_REPLAY) -> host_lbfgs.LBFGSResult:
-    """Evaluation steps (``evaluate``, control, direction) from a reset state,
-    ``sync_every`` at a time between reads of the done flag: the solve as K10
-    runs it, each step through the wrappers (the plain versions on the
-    CPU)."""
+              sync_every: int = SYNC_EVERY) -> host_lbfgs.LBFGSResult:
+    """The stepwise drive: evaluation steps (``evaluate``, control,
+    direction) from a reset state, ``sync_every`` at a time between reads of
+    the done flag, each step through the wrappers (the plain versions on the
+    CPU). The card's checks hold :class:`SolveLoop` to it."""
     if sync_every < 1:
         raise ValueError(f"K10: sync_every = {sync_every}")
     while True:
@@ -729,29 +786,234 @@ def run_steps(b: Buffers, evaluate: Callable[[], None],
             return result(b, head)
 
 
+def loop_reference(b: Buffers, evaluate: Callable[[], None], steps: int) -> None:
+    """The WHILE node's plain drive: the condition 1 at the launch, then body
+    iterations of ``steps`` evaluation steps (``evaluate``, the control and
+    direction plain versions) while it holds; the control's plain version
+    sets it to 0 where the kernel does. No read of the done flag."""
+    cond = [1]
+    while cond[0]:
+        for _ in range(steps):
+            evaluate()
+            control_reference(b, cond)
+            direction_reference(b)
+
+
+# the graphs of loops that were dropped, destroyed at the next capture's
+# start: a graph destroyed while a stream is capturing (the garbage
+# collector runs at any allocation) invalidates that capture
+_DROPPED: List[Tuple[int, object]] = []
+
+
+def _drop(loop: int, graph) -> None:
+    _DROPPED.append((loop, graph))
+
+
+def _destroy_dropped() -> None:
+    while _DROPPED:
+        loop, graph = _DROPPED.pop()
+        _raise_on(_lib().pinns_lbfgs_loop_destroy(loop), "loop destroy")
+        del graph
+
+
+class SolveLoop:
+    """A solve as one launch: the port of ``lbfgs_minimize``'s
+    ``lax.while_loop`` (``pinns_tpu/opt/lbfgs.py:306``). ``steps`` (k)
+    evaluation steps (``evaluate(launch_only)``, the control kernel, the
+    direction kernel) are the body of a conditional WHILE node
+    (``csrc/lbfgs.cu``: ``pinns_lbfgs_loop_*``), whose condition every
+    launch sets to 1 and the control launch that sets the done flag sets to
+    0: from a reset state one launch runs the whole solve, ceil(n_evals / k)
+    body iterations, with no read of the device.
+
+    The graph is built by hand around a body captured by torch
+    (``torch.cuda.graph`` into a ``CUDAGraph(keep_graph=True)``, so its
+    scratch lives in that graph's memory pool, kept as long as the loop and
+    destroyed, once the loop is dropped, at the next capture's start):
+    the loop's graph and condition are made first, the body's control
+    launches take the condition, and a copy of the captured graph becomes
+    the node's body. The caller warms the evaluation up before (every
+    kernel's set-up outside capture). The kernel launches the capture made
+    are taken back from their counters and added per body iteration by
+    :meth:`count`; the K10 kernels' counters take one launch a step.
+
+    On CPU tensors the same steps run on the plain versions
+    (:func:`loop_reference`). A build, capture or launch that fails raises.
+    """
+
+    def __init__(self, b: Buffers, evaluate: Callable[[bool], None], steps: int,
+                 counted: Tuple[Tuple[object, str], ...] = ()):
+        if steps < 1:
+            raise ValueError(f"K10: a loop body of {steps} steps")
+        self.b, self.evaluate, self.steps, self.counted = b, evaluate, steps, counted
+        self.launches: Dict[Tuple[object, str], int] = {}  # a body iteration's, by counter
+        self.collectives: Dict[str, int] = {}  # a body iteration's, by kind
+        self.loop: Optional[int] = None
+        if b.si.device.type == "cuda":
+            self._capture()
+
+    def _capture_steps(self, cond: Optional[int], keep_graph: bool):
+        """The ``steps`` evaluation steps captured by torch (the control
+        launches with the loop's condition ``cond``, or none); the kernel
+        launches and collectives the capture counted are taken back and kept
+        as a body's (:meth:`count` adds them for each body run)."""
+        from pinns_tpu_torch.ops.kernels.generic_chunk import _kernel_counters
+
+        b = self.b
+        counters = _kernel_counters()  # the evaluation's kernels' counters
+        before = {c: getattr(*c) for c in counters}
+        coll = sharding.collective_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+        with torch.cuda.graph(graph):
+            for _ in range(self.steps):
+                self.evaluate(True)
+                _launch_control(b, cond)
+                _launch_direction(b, launch_only=True)
+        self.launches = {c: getattr(*c) - before[c] for c in counters if getattr(*c) != before[c]}
+        for (m, name), v in before.items():
+            setattr(m, name, v)
+        self.collectives = {k: v - coll.get(k, 0) for k, v in sharding.collective_counts().items()
+                            if v != coll.get(k, 0)}
+        for kind, v in self.collectives.items():
+            sharding.count(kind, -v)
+        return graph
+
+    def _capture(self) -> None:
+        lib, b = _lib(), self.b
+        _destroy_dropped()
+        loop, cond = ctypes.c_void_p(), ctypes.c_ulonglong()
+        with torch.cuda.device(b.si.device):
+            _raise_on(lib.pinns_lbfgs_loop_create(ctypes.byref(loop), ctypes.byref(cond)),
+                      "loop graph")
+        self.loop = loop.value
+        graph = self._capture_steps(cond.value, keep_graph=True)
+        _raise_on(lib.pinns_lbfgs_loop_body(self.loop, graph.raw_cuda_graph()), "loop body")
+        # the body's pool lives as long as the loop; both are destroyed at the
+        # next capture's start after the loop is dropped
+        weakref.finalize(self, _drop, self.loop, graph).atexit = False
+        self.evaluate = None  # no cycle through the caller's solver: dropped when it is
+
+    def launch(self) -> None:
+        """The solve from the buffers' reset state: one graph launch on the
+        current stream (on the CPU the plain drive), uncounted."""
+        if self.loop is None:
+            loop_reference(self.b, lambda: self.evaluate(False), self.steps)
+            return
+        _raise_on(_lib().pinns_lbfgs_loop_launch(self.loop, _stream(self.b)), "loop")
+
+    def run(self) -> np.ndarray:
+        """One solve: :meth:`launch`, then the head read (the one host
+        sync), and the launch counted from the device's step counter."""
+        self.launch()
+        head = read_head(self.b)
+        self.count(int(head[HEAD_STEPS]), int(head[I_EVALS]))
+        return head
+
+    def count(self, steps: int, evals: int, launches: int = 1) -> None:
+        """Count ``launches`` launches of the loop on the card that ran
+        ``steps`` steps (the control kernel's count: body iterations x k)
+        for ``evals`` evaluations."""
+        global LOOP_LAUNCHES, LOOP_STEPS, STEPS_AFTER_END
+        global CONTROL_LAUNCHES, DIRECTION_LAUNCHES, CONTROL_F64_LAUNCHES, DIRECTION_F64_LAUNCHES
+        if self.b.si.device.type != "cuda":
+            return
+        if steps % self.steps or steps < evals:
+            raise RuntimeError(f"K10: the device counted {steps} steps for {evals} evaluations "
+                               f"in bodies of {self.steps}")
+        bodies = steps // self.steps
+        with _lock:
+            LOOP_LAUNCHES += launches
+            LOOP_STEPS += steps
+            STEPS_AFTER_END += steps - evals
+            if self.b.dtype == torch.float64:
+                CONTROL_F64_LAUNCHES += steps
+                DIRECTION_F64_LAUNCHES += steps
+            else:
+                CONTROL_LAUNCHES += steps
+                DIRECTION_LAUNCHES += steps
+            for (m, name), v in self.launches.items():
+                setattr(m, name, getattr(m, name) + v * bodies)
+            for m, name in self.counted:
+                setattr(m, name, getattr(m, name) + steps)
+        for kind, v in self.collectives.items():
+            sharding.count(kind, v * bodies)
+
+
+class SolveReplay(SolveLoop):
+    """The sharded solve's drive, chosen by configuration (``problem.shard``,
+    data parallelism): NCCL's captured all-reduce does not go into the body
+    of a conditional node (``pinns_lbfgs_loop_body``: invalid argument on 2
+    and 4 H100s), so ``steps`` = SYNC_EVERY evaluation steps are captured as
+    a plain CUDA graph and replayed from a reset state, the done flag read
+    after each replay (one host sync a replay, up to SYNC_EVERY - 1 steps
+    after the end; counted in ``SHARD_REPLAYS``). Every rank takes the same
+    decisions, so every rank replays as often. On CPU tensors the steps run
+    on the plain versions."""
+
+    def __init__(self, b: Buffers, evaluate: Callable[[bool], None],
+                 counted: Tuple[Tuple[object, str], ...] = ()):
+        super().__init__(b, evaluate, SYNC_EVERY, counted)
+
+    def _capture(self) -> None:
+        self.graph = self._capture_steps(None, keep_graph=False)
+        self.evaluate = None
+
+    def launch(self) -> None:
+        raise RuntimeError("K10: a sharded solve replays its steps until the done flag is set "
+                           "(SolveReplay.run); it has no single launch")
+
+    def run(self) -> np.ndarray:
+        global SHARD_REPLAYS
+        if self.b.si.device.type != "cuda":
+            loop_reference(self.b, lambda: self.evaluate(False), self.steps)
+            return read_head(self.b)
+        replays = 0
+        while True:
+            self.graph.replay()
+            replays += 1
+            head = read_head(self.b)
+            if head[I_DONE]:
+                break
+        with _lock:
+            SHARD_REPLAYS += replays
+        self.count(int(head[HEAD_STEPS]), int(head[I_EVALS]), launches=0)
+        return head
+
+
 class AutogradLBFGS:
     """K10 over any float32 or float64 function of a flat vector, its
-    gradient by torch.autograd: ``opt.lbfgs.lbfgs_minimize``'s contract,
-    stepped evaluation by evaluation through the reset, control and
-    direction kernels (their plain versions on CPU tensors; a float64 ``x0``
-    takes the kernels' float64 mode). The trainer takes it on the card for
-    every float32 L-BFGS phase outside :func:`lbfgs_device_supported` (the
-    Euler branch, ``burgers_inverse``, the 8x200 nets) and for every float64
-    one (``polish``), the evaluation being autograd through the loss over
-    the kernels it runs.
+    gradient by torch.autograd: ``opt.lbfgs.lbfgs_minimize``'s contract on
+    the reset, control and direction kernels (their plain versions on CPU
+    tensors; a float64 ``x0`` takes the kernels' float64 mode). The trainer
+    takes it on the card for every float32 L-BFGS phase outside
+    :func:`lbfgs_device_supported` (the Euler branch, ``burgers_inverse``,
+    the 8x200 nets) and for every float64 one (``polish``), the evaluation
+    being autograd through the loss over the kernels it runs.
 
     An evaluation reads the trial point ``vec[XT]`` and writes ``vec[GT]``
-    and ``sf[F_PHI_T]`` by device copies, with no read of the device: once
-    the done flag is set its writes select the old values
-    (``torch.where`` on the flag), and the control and direction kernels
-    return at once, so the steps run between two reads of the flag after
-    the end leave every buffer as it was. The host reads the flag once every
-    ``sync_every`` steps (one sync, ``opt.lbfgs.HOST_SYNCS``). The buffers
-    are kept for the next solve of the same (n, history)."""
+    and ``sf[F_PHI_T]`` by device copies, with no read of the device; once
+    the done flag is set its writes select the old values (``torch.where``
+    on the flag), so steps after the end leave every buffer as it was.
 
-    def __init__(self, sync_every: int = STEPS_PER_REPLAY):
-        self.sync_every = sync_every
+    ``captured`` (the default): each solve captures ``steps`` (k) evaluation
+    steps as a :class:`SolveLoop` around ``fun`` (after one warm-up
+    evaluation with the done flag set, on a side stream) and runs as one
+    launch of it, one read of the device a solve; the capture is made anew
+    for every solve, since ``fun`` and the tensors it closes over change
+    from one to the next. ``captured=False`` is the host-stepped drive
+    (:func:`run_steps`, the flag read once every ``sync_every`` steps): the
+    card's checks, and the configurations whose evaluation cannot be
+    captured (:func:`autograd_capture_refusals`). On the CPU the captured
+    solve runs the loop's plain drive. The buffers are kept for the next
+    solve of the same (n, history)."""
+
+    def __init__(self, sync_every: int = SYNC_EVERY, captured: bool = True,
+                 steps: Optional[int] = None):
+        self.sync_every, self.captured = sync_every, captured
+        self.steps = AUTOGRAD_STEPS if steps is None else steps
         self.bufs: Optional[Buffers] = None
+        self.loop: Optional[SolveLoop] = None
+        self.capture_seconds: List[float] = []
 
     def _evaluate(self, fun: Callable[[torch.Tensor], torch.Tensor]) -> None:
         b = self.bufs
@@ -765,6 +1027,29 @@ class AutogradLBFGS:
                 torch.where(done, b.sf[F_PHI_T], f.detach().to(b.dtype)).reshape(1))
             b.vec[GT].copy_(torch.where(done, b.vec[GT], g))
 
+    def _capture(self, fun: Callable[[torch.Tensor], torch.Tensor]) -> SolveLoop:
+        """The solve's loop around ``fun``: on the card a warm-up evaluation
+        and the kernels' set-up launches with the done flag set (they write
+        nothing), on a side stream, then the capture."""
+        b = self.bufs
+        evaluate = lambda launch_only: self._evaluate(fun)  # noqa: E731
+        if b.si.device.type != "cuda":
+            return SolveLoop(b, evaluate, self.steps)
+        t0 = time.perf_counter()
+        b.si[I_DONE] = 1
+        cur = torch.cuda.current_stream(b.si.device)
+        side = torch.cuda.Stream(b.si.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._evaluate(fun)
+            _launch_control(b)
+            _launch_direction(b)
+        cur.wait_stream(side)
+        self.loop = None  # the last solve's graph and pool go first
+        loop = SolveLoop(b, evaluate, self.steps)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return loop
+
     def minimize(self, fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
                  max_iters: int = 5000, history: int = 50, ftol: float = 1e-7,
                  gtol: float = 1e-5, max_ls: int = 50, c1: float = 1e-4,
@@ -777,14 +1062,36 @@ class AutogradLBFGS:
             raise ValueError(f"K10 solves in float32 or float64, got x0 of {x0.dtype}")
         b = self.bufs
         if b is None or (b.n, b.m, b.si.device, b.dtype) != (n, history, x0.device, x0.dtype):
+            self.loop = None
             self.bufs = Buffers.alloc(n, history, x0.device, x0.dtype)
-        reset(self.bufs, x0.detach().contiguous(), max_iters=max_iters, max_ls=max_ls, c1=c1,
-              c2=c2, ftol=ftol, gtol=gtol)
-        res = run_steps(self.bufs, lambda: self._evaluate(fun), self.sync_every)
+        opts = dict(max_iters=max_iters, max_ls=max_ls, c1=c1, c2=c2, ftol=ftol, gtol=gtol)
+        if self.captured:
+            self.loop = self._capture(fun)
+            reset(self.bufs, x0.detach().contiguous(), **opts)
+            res = result(self.bufs, self.loop.run())
+        else:
+            reset(self.bufs, x0.detach().contiguous(), **opts)
+            res = run_steps(self.bufs, lambda: self._evaluate(fun), self.sync_every)
         if x0.device.type == "cuda":
             with _lock:
                 SOLVES += 1
         return res
+
+
+HOST_STEPPED_NOTE = ("K10: this L-BFGS phase's evaluation is not captured into the solve's "
+                     "loop (AutogradLBFGS's host-stepped drive, the done flag read once every "
+                     f"{SYNC_EVERY} steps): ")
+
+
+def autograd_capture_refusals(problem) -> List[str]:
+    """Why ``problem``'s L-BFGS evaluation stays on AutogradLBFGS's
+    host-stepped drive on the card (empty when its solve is a captured
+    :class:`SolveLoop`): decided from the configuration, never after a
+    failure; the trainer prints them after :data:`HOST_STEPPED_NOTE`."""
+    return ["data parallelism (the objective's NCCL all-reduce, parallel.sharding."
+            "global_objective, does not go into the body of the solve's conditional WHILE "
+            "node: the graph is refused as an invalid argument on 2 and 4 H100s)"
+            ] if problem.shard is not None else []
 
 
 class DeviceLBFGS:
@@ -796,26 +1103,29 @@ class DeviceLBFGS:
     point.
 
     On the card: the solve's buffers and a copy of the batch, z and dual are
-    allocated once per shape; STEPS_PER_REPLAY evaluation steps (K3's two
-    launches, control, direction) are captured once per (rho, shape) as a
-    CUDA graph after a warm-up of the same launches with the done flag set
-    (the kernels' set-up, outside capture). A solve resets the state (one
-    launch), then replays the graph and reads the done flag after each
-    replay, until it is set. On the CPU the same steps run as the plain
-    versions, one host call each. A build, capture or launch that fails
-    raises, and so does a cluster the card cannot place (checked by
-    ``cudaOccupancyMaxActiveClusters`` in the warm-up).
+    allocated once per shape; a :class:`SolveLoop` of ``steps`` (k)
+    evaluation steps (K3's two launches, control, direction) is captured
+    once per (rho, shape), after a warm-up of the same launches with the
+    done flag set (the kernels' set-up, outside capture). A solve resets the
+    state (one launch), launches the loop once and reads si[:4] once. On the
+    CPU the same steps run as the plain versions (the loop's plain drive).
+    A build, capture or launch that fails raises, and so does a cluster the
+    card cannot place (checked by ``cudaOccupancyMaxActiveClusters`` in the
+    warm-up).
 
     Under data parallelism (``problem.shard``, slice 6) an evaluation is K3's
     value-and-grad split around an all-reduce: the reduce mode over this
     rank's rows, the all-reduce of its sums over the data row, the apply
-    mode's loss and gradient of the whole batch; the all-reduce is captured
-    in the solve's graph with the launches. Every rank's control and
-    direction kernels then see the same values and take the same branches,
-    so every rank replays the same number of times.
+    mode's loss and gradient of the whole batch. The all-reduce does not go
+    into a conditional node's body, so a sharded solve is a
+    :class:`SolveReplay` (SYNC_EVERY steps with the all-reduce captured as
+    a plain graph, replayed until the done flag is read set), chosen by the
+    configuration and named by ``train.trainer.DP_LBFGS_NOTE``. Every rank's
+    control and direction kernels see the same values and take the same
+    branches, so every rank replays as often.
     """
 
-    def __init__(self, problem):
+    def __init__(self, problem, steps: Optional[int] = None):
         exp, spec = problem.exp, problem.spec
         why = lbfgs_device_supported(exp, spec)
         if why:
@@ -823,11 +1133,12 @@ class DeviceLBFGS:
                 f"experiment {exp.name!r} is outside K10's scope ({'; '.join(why)}); "
                 "train.trainer.make_lbfgs_step runs the host loop for it")
         self.exp, self.spec, self.device = exp, spec, problem.device
+        self.steps = DEVICE_STEPS if steps is None else steps
         self.cfg = k_fused.loss_config(exp)
         self.x_data = problem.x_data
         self.u_data = problem.targets["u"].contiguous()
         self.shape: Optional[Tuple[int, int, int, int]] = None
-        self.graphs: Dict[float, torch.cuda.CUDAGraph] = {}
+        self.loops: Dict[float, SolveLoop] = {}
         self.capture_seconds: List[float] = []
         self.shard = problem.shard
         self.sums = None
@@ -845,12 +1156,12 @@ class DeviceLBFGS:
         if self.shard is not None:
             self.sums = torch.zeros(2 * self.spec.n_params + 3, dtype=torch.float64, device=dev)
         self.shape = (n, m, n_f, offset)
-        self.graphs.clear()
+        self.loops.clear()
 
     def _evaluate(self, rho: float, launch_only: bool = False) -> None:
         """The step's value-and-grad at the trial point (uncounted: the
-        replays are); under a shard its reduce mode, the all-reduce of the
-        sums, its apply mode."""
+        loop counts it); under a shard its reduce mode, the all-reduce of
+        the sums, its apply mode."""
         b, off = self.bufs, self.shape[3]
         args = (self.spec, b.vec[XT, off:], b.vec[GT, off:], b.sf[F_PHI_T:F_PHI_T + 1],
                 self.x_data, self.u_data, self.colloc, self.z, self.dual)
@@ -867,7 +1178,13 @@ class DeviceLBFGS:
         self.shard.all_reduce(self.sums[:2 * self.spec.n_params + 2])
         k_fused._value_and_grad_call(*args, dp=dict(dp, mode="apply"), **kw)
 
-    def _capture(self, rho: float) -> torch.cuda.CUDAGraph:
+    def _capture(self, rho: float) -> SolveLoop:
+        evaluate = lambda launch_only: self._evaluate(rho, launch_only)  # noqa: E731
+        counted = ((k_fused, "VALUE_AND_GRAD_LAUNCHES"),)
+        drive = (SolveLoop if self.shard is None else
+                 lambda b, ev, steps, counted: SolveReplay(b, ev, counted))
+        if self.device.type != "cuda":
+            return drive(self.bufs, evaluate, self.steps, counted)
         t0 = time.perf_counter()
         b = self.bufs
         b.si.zero_()
@@ -876,55 +1193,26 @@ class DeviceLBFGS:
         _launch_control(b)
         _launch_direction(b)  # sets the kernel up; raises if the cluster cannot be placed
         torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        before = sharding.collective_counts()
-        with torch.cuda.graph(graph):
-            for _ in range(STEPS_PER_REPLAY):
-                self._evaluate(rho, launch_only=True)
-                _launch_control(b)
-                _launch_direction(b, launch_only=True)
-        # a capture runs no collective: each replay counts its steps' all-reduces
-        for kind, n in sharding.collective_counts().items():
-            sharding.count(kind, before.get(kind, 0) - n)
+        loop = drive(b, evaluate, self.steps, counted)
         torch.cuda.synchronize(self.device)
         self.capture_seconds.append(time.perf_counter() - t0)
-        return graph
+        return loop
 
     def _shape(self, n: int, m: int, n_f: int, offset: int) -> None:
         """The buffers for a solve of this shape (allocated anew, and the
-        graphs captured anew, when it changes)."""
+        loops captured anew, when it changes)."""
         if n - offset != self.spec.n_params:
             raise ValueError(f"K10: {n} params with the net from {offset}: the net has "
                              f"{self.spec.n_params}")
         if self.shape != (n, m, n_f, offset):
             self._alloc(n, m, n_f, offset)
 
-    def solve_graph(self, rho: float) -> torch.cuda.CUDAGraph:
-        """The captured STEPS_PER_REPLAY evaluation steps at ADMM weight
-        ``rho`` (float32), captured at first use."""
-        if rho not in self.graphs:
-            self.graphs[rho] = self._capture(rho)
-        return self.graphs[rho]
-
-    def replay_until_done(self, graph: torch.cuda.CUDAGraph) -> np.ndarray:
-        """Replays of ``graph`` from a reset state, the done flag read after
-        each (one host sync), until it is set; returns si[:4]."""
-        global GRAPH_REPLAYS, CONTROL_LAUNCHES, DIRECTION_LAUNCHES, SOLVES
-        while True:
-            graph.replay()
-            with _lock:
-                GRAPH_REPLAYS += 1
-                CONTROL_LAUNCHES += STEPS_PER_REPLAY
-                DIRECTION_LAUNCHES += STEPS_PER_REPLAY
-            with k_fused._launches_lock:
-                k_fused.VALUE_AND_GRAD_LAUNCHES += STEPS_PER_REPLAY
-            if self.shard is not None and self.shard.group is not None:
-                sharding.count("all_reduce", STEPS_PER_REPLAY)
-            head = read_head(self.bufs)
-            if head[I_DONE]:
-                with _lock:
-                    SOLVES += 1
-                return head
+    def solve_loop(self, rho: float) -> SolveLoop:
+        """The solve's loop at ADMM weight ``rho`` (float32), captured at
+        first use."""
+        if rho not in self.loops:
+            self.loops[rho] = self._capture(rho)
+        return self.loops[rho]
 
     def minimize(self, x0: torch.Tensor, offset: int, colloc: torch.Tensor, admm, rho: float, *,
                  max_iters: int, history: int = 50, ftol: float = 1e-7, gtol: float = 1e-5,
@@ -934,6 +1222,7 @@ class DeviceLBFGS:
         ADMM state ``admm`` (None for another residual kind) with ADMM
         weight ``rho``. Returns ``opt.lbfgs.LBFGSResult`` with tensors of
         the caller's own."""
+        global SOLVES
         if (admm is None) != (self.cfg["kind"] != "admm"):
             raise ValueError("K10: an ADMM state exactly when the residual kind is 'admm'")
         self._shape(x0.shape[0], history, colloc.shape[0], offset)
@@ -942,14 +1231,14 @@ class DeviceLBFGS:
         if admm is not None:
             self.z.copy_(admm.z)
             self.dual.copy_(admm.dual)
-        rho = float(np.float32(rho))
-        opts = dict(max_iters=max_iters, max_ls=max_ls, ftol=ftol, gtol=gtol)
-        if self.device.type == "cpu":
-            reset(b, x0.detach().contiguous(), **opts)
-            return run_steps(b, lambda: self._evaluate(rho))
-        graph = self.solve_graph(rho)
-        reset(b, x0.detach().contiguous(), **opts)
-        return result(b, self.replay_until_done(graph))
+        loop = self.solve_loop(float(np.float32(rho)))  # first: the warm-up writes the buffers
+        reset(b, x0.detach().contiguous(), max_iters=max_iters, max_ls=max_ls, ftol=ftol,
+              gtol=gtol)
+        head = loop.run()
+        if self.device.type == "cuda":
+            with _lock:
+                SOLVES += 1
+        return result(b, head)
 
 
 # the sampling strategies whose next batch K3's post-update mode makes: the
@@ -978,15 +1267,16 @@ class LBFGSChunk:
     over ``:724``) for a configuration inside :func:`lbfgs_chunk_supported`.
 
     An outer epoch is a whole solve at the current batch and ADMM state
-    (:class:`DeviceLBFGS`'s captured graph of STEPS_PER_REPLAY evaluation
-    steps, replayed until the done flag is set, the flag read once a replay),
-    then the *post-update graph*: K3's post-update mode
+    (one launch of :class:`DeviceLBFGS`'s :class:`SolveLoop`, which the
+    control kernel ends), then the *post-update graph*: the solve's
+    evaluations and steps added to a device tally, K3's post-update mode
     (``fused_step.fused_post_update``: the next batch, z and dual written in
-    place into the buffers the solve graph reads, the data term and the
-    metrics row at a device cursor) and the reset in place for the next
-    outer epoch (its x0 is this solve's iterate, ``vec[X]``). Inside a chunk
-    the host reads nothing but the done flags, and no torch operation runs
-    between outer epochs.
+    place into the buffers the loop reads, the data term and the metrics row
+    at a device cursor) and the reset in place for the next outer epoch (its
+    x0 is this solve's iterate, ``vec[X]``). A chunk enqueues its outer
+    epochs' two launches each with no read of the device; the tally is read
+    once after the chunk (for the counters), and ``lbfgs_iters`` is in the
+    metrics rows.
 
     Allocated once per (n, history, N_f) (with the solver's buffers): a
     one-row member table (the seed, rho and the threshold, copied in per
@@ -1026,6 +1316,10 @@ class LBFGSChunk:
             shape, dtype=dtype, device=self.device)
         self._zeros = zeros
         self.cursor = zeros(1, dtype=torch.int32)
+        # the chunk's steps run inside the loop (the device's step counter)
+        # and its evaluations, for the counters (SolveLoop.count), read once
+        # after the chunk
+        self.tally = zeros(2, dtype=torch.int32)
         self.table = zeros(1, 4, dtype=torch.int32)
         self.tail_partials: Optional[torch.Tensor] = None
         self.shape: Optional[Tuple[int, int, int]] = None
@@ -1055,9 +1349,10 @@ class LBFGSChunk:
         self.shape = (n, n_f, offset)
 
     def _post(self, fed: bool, launch_only: bool) -> None:
-        """The post-update mode, then the reset in place (plain on the CPU;
-        uncounted on the card: the replays are)."""
+        """The solve's tally, the post-update mode, then the reset in place
+        (plain on the CPU; uncounted on the card: the replays are)."""
         s, b, off = self.solver, self.solver.bufs, self.shape[2]
+        self.tally.add_(torch.cat([b.steps, b.si[I_EVALS:I_EVALS + 1]]))
         k_fused._post_update_call(
             self.spec, b.vec[X, off:], s.x_data, s.u_data, s.colloc, s.z, s.dual, self.metrics,
             self.cursor, self.sched, self.table, b.sf[F_F:F_F + 1], b.si[I_K:I_K + 1],
@@ -1086,7 +1381,7 @@ class LBFGSChunk:
         tensor}) as ``train.trainer.run_chunk`` of the L-BFGS step gives
         them. ``new_colloc`` (length, N_f, 2) replaces the Philox draws (a
         fixed batch ignores it, as the step does)."""
-        global RESET_LAUNCHES, CHUNK_EPOCHS
+        global RESET_LAUNCHES, CHUNK_EPOCHS, SOLVES
         if length < 1:
             raise ValueError(f"K10: a chunk of {length} outer epochs")
         if length > self.max_len:
@@ -1101,12 +1396,10 @@ class LBFGSChunk:
         if fed and self.feed is None:
             self.feed = self._zeros(self.max_len, n_f, 2)
         rho = self.exp.loss.rho if state.rho is None else state.rho
-        rho32 = float(np.float32(rho))
         cuda = self.device.type == "cuda"
-        if cuda:  # capture first: the warm-ups write the buffers
-            graph = s.solve_graph(rho32)
-            if fed not in self.graphs:
-                self.graphs[fed] = self._capture(fed)
+        loop = s.solve_loop(float(np.float32(rho)))  # first: the warm-ups write the buffers
+        if cuda and fed not in self.graphs:
+            self.graphs[fed] = self._capture(fed)
         s.colloc.copy_(state.colloc)
         if state.admm is not None:
             s.z.copy_(state.admm.z)
@@ -1119,19 +1412,24 @@ class LBFGSChunk:
         if fed:
             self.feed[:length].copy_(new_colloc.reshape(length, n_f, 2))
         self.cursor.zero_()
+        self.tally.zero_()
         reset(b, x0.contiguous(), **self.opts)
         for _ in range(length):
-            if not cuda:
-                run_steps(b, lambda: s._evaluate(rho32))
+            loop.launch()
+            if cuda:
+                self.graphs[fed].replay()
+            else:
                 self._post(fed, launch_only=False)
-                continue
-            s.replay_until_done(graph)
-            self.graphs[fed].replay()
+        if cuda:
+            host_lbfgs.HOST_SYNCS += 1
+            steps, evals = self.tally.tolist()
+            loop.count(steps, evals, launches=length)
             with _lock:
-                RESET_LAUNCHES += 1
-                CHUNK_EPOCHS += 1
+                RESET_LAUNCHES += length
+                CHUNK_EPOCHS += length
+                SOLVES += length
             with k_fused._launches_lock:
-                k_fused.POST_UPDATE_LAUNCHES += 1
+                k_fused.POST_UPDATE_LAUNCHES += length
         return self._hand_back(state, unravel, length)
 
     def _hand_back(self, state, unravel, length: int):

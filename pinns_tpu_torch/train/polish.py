@@ -14,8 +14,10 @@ The port runs the same solve on the device of the problem, in float64:
 - on a CUDA device, K10's float64 mode (``ops.kernels.lbfgs.AutogradLBFGS``:
   the reset, control and direction kernels on double state) around
   autograd through the loss, whose forward and backward are K1, K2 and K5's
-  float64 modes (``ops.kernels.taylor2``, ``ops.kernels.mlp_forward``);
-  nothing runs the host loop;
+  float64 modes (``ops.kernels.taylor2``, ``ops.kernels.mlp_forward``),
+  the evaluation captured with the control and direction kernels into the
+  solve's WHILE-node graph: the whole polish is one launch of it and one
+  read of the device; nothing runs the host loop;
 - on the CPU, the host loop ``opt.lbfgs.lbfgs_minimize_pytree`` over the
   plain loss, which follows JAX's branches in float64.
 

@@ -1018,7 +1018,9 @@ DP_LBFGS_NOTE = (
     "data parallelism: the L-BFGS outer epochs run one host call each (K10's solve on "
     "DeviceLBFGS, K3's value-and-grad all-reduced inside its graph, then the post-update), "
     "not as K10's outer-epoch chunks (LBFGSChunk), whose post-update is not split around an "
-    "all-reduce yet (ROADMAP queue 2)")
+    "all-reduce yet; and each solve replays a graph of 16 steps and reads the done flag after "
+    "each replay (SolveReplay), not one launch of a conditional WHILE node, whose body does "
+    "not take NCCL's all-reduce (ROADMAP queue 2)")
 
 
 def make_lbfgs_step(problem: Problem, host_loop: bool = False):
@@ -1033,8 +1035,11 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
     K3's value-and-grad (``DeviceLBFGS``), every other one (the Euler
     branch, ``euler_weak_tail``, and float64 in K10's float64 mode over the
     kernels' float64 modes among them) with autograd through the loss as the
-    evaluation (``AutogradLBFGS``); each reads the device only for the done
-    flag. The CPU and ``host_loop`` (the card's checks) run the host loop
+    evaluation (``AutogradLBFGS``, captured into the solve's loop); each
+    solve is one launch of its WHILE-node graph and one read of the device.
+    A configuration in ``ops.kernels.lbfgs.autograd_capture_refusals``
+    keeps AutogradLBFGS's host-stepped drive, and a line names the refusal.
+    The CPU and ``host_loop`` (the card's checks) run the host loop
     ``opt.lbfgs.lbfgs_minimize`` over the loss under autograd. The metrics
     rebuild the loss terms from the solver's own final value: one forward of
     the data term, ``res_term = f - data_weight * data_term``;
@@ -1067,7 +1072,10 @@ def make_lbfgs_step(problem: Problem, host_loop: bool = False):
         if not k_lbfgs.lbfgs_device_supported(exp, problem.spec):
             solver, k3 = k_lbfgs.DeviceLBFGS(problem), True
         else:
-            solver = k_lbfgs.AutogradLBFGS()
+            refused = k_lbfgs.autograd_capture_refusals(problem)
+            solver = k_lbfgs.AutogradLBFGS(captured=not refused)
+            if refused and (problem.shard is None or problem.shard.owner):
+                print(k_lbfgs.HOST_STEPPED_NOTE + "; ".join(refused), flush=True)
 
     def step(state: TrainState, out: Optional[torch.Tensor] = None,
              new_colloc: Optional[torch.Tensor] = None):

@@ -24,8 +24,10 @@ fails the run):
             K9's graphs with the NCCL all-reduces captured in them (every
             launch and collective counted from zero just before), every
             rank's loss equal, then L-BFGS outer epochs on DeviceLBFGS (K3's
-            value-and-grad split around an all-reduce captured in the solve's
-            graph; at one rank bit-equal to the one-card outer epochs);
+            value-and-grad split around an all-reduce captured in a graph of
+            16 steps replayed until the done flag is set, SolveReplay; at
+            one rank bit-equal to the one-card outer epochs, one launch of
+            the solve's WHILE node each);
             at one rank the chunk bit-equal to the non-DP chunk (params,
             batch, z, dual, every metric); at more, the gathered batch
             bit-equal to the one-card run's on rank 0 and the params within
@@ -39,6 +41,11 @@ fails the run):
             sums run in another order; tests/test_torch_dp.py holds the
             data-parallel trajectory to the one-process one in float64); one
             graphed epoch's gradient and loss held to the one-card epoch
+  autograd_lbfgs  burgers_inverse's L-BFGS outer epochs on AutogradLBFGS over
+            the all-reduced objective, host-stepped by configuration (the
+            all-reduce does not go into the solve's WHILE node): the ranks'
+            losses equal; at one rank bit-equal to the one-card outer epochs
+            (captured)
   scale     burgers_scale at 1,048,576 points (its 128 microbatches on
             each rank's 1,048,576 / N rows): SCALE_EPOCHS epochs timed one
             by one, their median, least and most
@@ -77,6 +84,7 @@ DP_EPOCHS = 2_000  # the main path's Adam epochs (two chunks of DP_CHUNK)
 DP_CHUNK = 1_000
 DP_OUTER = 2  # its L-BFGS outer epochs after the switch
 DP_LBFGS_ITERS = 30
+AG_ADAM = 200  # burgers_inverse's Adam epochs before its DP L-BFGS outer epochs
 TIMED_CHUNK = 500  # the DP chunk timed, TIMED_TURNS times
 TIMED_TURNS = 3
 SCALE_EPOCHS = 10  # burgers_scale epochs timed one by one after one warm-up epoch
@@ -385,17 +393,19 @@ def phase_main(rank: int, world: int, mesh, device) -> dict:
     # the L-BFGS phase (AutogradLBFGS over the all-reduced objective)
     hybrid = Trainer(dp_exp(DP_EPOCHS + DP_OUTER), device=device)
     sharding.shard_trainer(hybrid, mesh)
-    lbfgs.SOLVES = 0
+    lbfgs.SOLVES = lbfgs.SHARD_REPLAYS = 0
     h_state, h_sum = hybrid.train(state)
     sync()
     h_losses = gather(h_sum["loss"])
     cs.check(all(v == h_losses[0] for v in h_losses) and np.isfinite(h_losses[0]),
              f"L-BFGS: the ranks' losses differ: {h_losses}")
     solver = type(hybrid._lbfgs_step.solver).__name__
-    cs.check(solver == "DeviceLBFGS" and lbfgs.SOLVES == DP_OUTER,
-             f"L-BFGS under data parallelism: {solver}, {lbfgs.SOLVES} solves")
+    cs.check(solver == "DeviceLBFGS" and lbfgs.SOLVES == DP_OUTER
+             and lbfgs.SHARD_REPLAYS >= DP_OUTER,
+             f"L-BFGS under data parallelism: {solver}, {lbfgs.SOLVES} solves, "
+             f"{lbfgs.SHARD_REPLAYS} replays")
     out["lbfgs"] = {"outer_epochs": DP_OUTER, "loss": h_losses[0], "solves": lbfgs.SOLVES,
-                    "solver": solver}
+                    "replays": lbfgs.SHARD_REPLAYS, "solver": solver}
     if world == 1:  # the outer epochs bit-equal to the one-card step's
         ref = Trainer(dp_exp(DP_EPOCHS + DP_OUTER), device=device)
         r_state = state
@@ -453,6 +463,57 @@ def phase_generic(rank: int, world: int, mesh, device) -> dict:
     errs = first_epoch_err(trainer, solo, state0, "generic DP")
     if rank == 0:
         out["first_epoch_grad_max_abs_err"], out["first_epoch_loss_abs_err"] = errs
+    return out
+
+
+def phase_autograd_lbfgs(rank: int, world: int, mesh, device) -> dict:
+    """burgers_inverse's L-BFGS outer epochs under data parallelism: the
+    solver AutogradLBFGS over the all-reduced objective
+    (``sharding.global_objective``) on its host-stepped drive, chosen by the
+    configuration (``lbfgs.autograd_capture_refusals``: the all-reduce does
+    not go into the body of the solve's WHILE node), no loop launched; every
+    rank's loss equal; at one rank bit-equal to the one-card outer epochs,
+    whose solves are one launch of the loop each."""
+    from pinns_tpu_torch.config import override
+    from pinns_tpu_torch.experiments import get_preset
+    from pinns_tpu_torch.ops.kernels import lbfgs
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+    from pinns_tpu_torch.opt.lbfgs import ravel_tree
+    from pinns_tpu_torch.parallel import sharding
+    from pinns_tpu_torch.train.trainer import Trainer
+
+    exp = override(get_preset("burgers_inverse"), {
+        "train.epochs": AG_ADAM + DP_OUTER, "optimizer.switch_epoch": AG_ADAM,
+        "optimizer.lbfgs.max_iters": DP_LBFGS_ITERS, "train.log_every": 0})
+    trainer = Trainer(exp, device=device)
+    sharding.shard_trainer(trainer, mesh)
+    state0 = trainer.init_state()
+    state, _ = trainer.train(state0, epochs=AG_ADAM)
+    solver = trainer._lbfgs_step.solver
+    cs.check(type(solver).__name__ == "AutogradLBFGS" and not solver.captured,
+             f"burgers_inverse's DP solver {solver!r}")
+    before = (lbfgs.SOLVES, lbfgs.LOOP_LAUNCHES)
+    sync()
+    t0 = time.perf_counter()
+    h_state, h_sum = trainer.train(state)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = [a - b for a, b in zip((lbfgs.SOLVES, lbfgs.LOOP_LAUNCHES), before)]
+    cs.check(counts == [DP_OUTER, 0], f"DP AutogradLBFGS: solves and loop launches {counts}")
+    losses = gather(h_sum["loss"])
+    cs.check(all(v == losses[0] for v in losses) and np.isfinite(losses[0]),
+             f"DP AutogradLBFGS: the ranks' losses differ: {losses}")
+    out = {"preset": "burgers_inverse", "adam_epochs": AG_ADAM, "outer_epochs": DP_OUTER,
+           "loss": losses[0], "wall_s": wall, "solves": counts[0]}
+    if world == 1:
+        ref = Trainer(exp, device=device)
+        r_state, _ = ref.train(state0, epochs=AG_ADAM)
+        r_state, _ = ref.train(r_state)
+        cs.check(torch.equal(ravel_tree(r_state.params)[0], ravel_tree(h_state.params)[0])
+                 and torch.equal(r_state.colloc, h_state.colloc),
+                 "at one rank the data-parallel AutogradLBFGS outer epochs differ from the "
+                 "one-card's")
+        out["world1_bit_equal"] = True
     return out
 
 
@@ -550,6 +611,7 @@ def main() -> int:
               ("draws", lambda: phase_draws(rank, world, device)),
               ("main", lambda: phase_main(rank, world, mesh, device)),
               ("generic", lambda: phase_generic(rank, world, mesh, device)),
+              ("autograd_lbfgs", lambda: phase_autograd_lbfgs(rank, world, mesh, device)),
               ("scale", lambda: phase_scale(rank, world, mesh, device)),
               ("ensemble", lambda: phase_ensemble(rank, world, device)))
     for phase, fn in phases:

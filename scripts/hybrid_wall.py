@@ -21,9 +21,9 @@ list.
 
 A ``split`` turn runs K10's outer epochs with each piece of the step
 bracketed by synchronizes and timed on the host clock: ``ravel_tree``, the
-solve's set-up (``DeviceLBFGS.minimize`` up to its first graph replay: the
-batch, z and dual copies, the reset launch, and the graph's capture in the
-first outer epoch), its replays and done-flag reads, ``_post_update`` (the
+solve's set-up (``DeviceLBFGS.minimize`` up to its loop's launch: the
+batch, z and dual copies, the reset launch, and the loop's capture in the
+first outer epoch), its launch and done-flag read, ``_post_update`` (the
 resample and the z/dual update through K1) and the rest of the step (the
 unravel, the data term through K5, the metrics). It prints each piece's
 milliseconds an outer epoch (median and all), the outer epoch's own, and
@@ -32,7 +32,7 @@ and the device time of what it launched (K1 and K5 in ``_post_update`` and
 the rest), not separated, plus the cost of the synchronizes themselves.
 
 A ``runner_split`` turn runs the runner's chunks with each chunk and each
-solve's replays (``DeviceLBFGS.replay_until_done``) bracketed by
+solve's launch (``SolveLoop.launch``) bracketed by
 synchronizes, and prints the milliseconds an outer epoch of the chunks,
 inside the solves and outside them (the post-update graph's replay, the
 chunk's ravel, loads, reset and hand-back).
@@ -57,7 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 class Pieces:
     """K10's outer epoch in timed pieces (a ``split`` turn): while entered,
     ``trainer.ravel_tree``, ``trainer._post_update``, ``solver.minimize`` and
-    ``torch.cuda.CUDAGraph.replay`` are wrapped so that each call is
+    ``SolveLoop.launch`` are wrapped so that each call is
     bracketed by synchronizes and its host-clock milliseconds are added to
     the current outer epoch's row."""
 
@@ -92,16 +92,18 @@ class Pieces:
 
         self._wrap(tr, "ravel_tree", "ravel_tree")
         self._wrap(tr, "_post_update", "post_update")
-        replay = torch.cuda.CUDAGraph.replay
+        from pinns_tpu_torch.ops.kernels.lbfgs import SolveLoop
+
+        launch = SolveLoop.launch
         pieces = self
 
-        def first_replay(graph):
+        def first_launch(loop):
             row = pieces.rows[-1] if pieces.rows else {}
-            if "_minimize_t0" in row:  # minimize's entry to its first replay
+            if "_minimize_t0" in row:  # minimize's entry to its loop's launch
                 row["setup"] = 1e3 * (pieces._now() - row.pop("_minimize_t0"))
-            return replay(graph)
-        self._saved.append((torch.cuda.CUDAGraph, "replay", replay))
-        torch.cuda.CUDAGraph.replay = first_replay
+            return launch(loop)
+        self._saved.append((SolveLoop, "launch", launch))
+        SolveLoop.launch = first_launch
         minimize = self.solver.minimize
 
         def timed_minimize(*a, **k):
@@ -129,12 +131,12 @@ class Pieces:
         row = self.rows[-1]
         row["outer_epoch"] = 1e3 * (self._now() - t0)
         row.pop("_minimize_t0", None)
-        row.setdefault("setup", row["minimize"])  # a solve with no replay
-        row["replays"] = row["minimize"] - row["setup"]
+        row.setdefault("setup", row["minimize"])  # a solve with no launch
+        row["solve"] = row["minimize"] - row["setup"]
         row["rest"] = row["outer_epoch"] - row["ravel_tree"] - row["minimize"] - row["post_update"]
 
     def summary(self) -> dict:
-        keys = ("outer_epoch", "ravel_tree", "setup", "replays", "post_update", "rest")
+        keys = ("outer_epoch", "ravel_tree", "setup", "solve", "post_update", "rest")
         return {k: {"median": statistics.median(r[k] for r in self.rows),
                     "all": [r[k] for r in self.rows]} for k in keys}
 
@@ -160,19 +162,19 @@ def runner_turn(trainer, state, turn: str, card: str, args) -> dict:
         return st, m
 
     trainer._chunks["lbfgs"] = chunk
-    replay = k_lbfgs.DeviceLBFGS.replay_until_done
+    launch = k_lbfgs.SolveLoop.launch
 
-    def timed(solver, graph):
+    def timed(loop):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            return replay(solver, graph)
+            return launch(loop)
         finally:
             torch.cuda.synchronize()
             solve_ms[0] += 1e3 * (time.perf_counter() - t0)
 
     if turn == "runner_split":
-        k_lbfgs.DeviceLBFGS.replay_until_done = timed
+        k_lbfgs.SolveLoop.launch = timed
     syncs = host_lbfgs.HOST_SYNCS
     try:
         torch.cuda.synchronize()
@@ -181,7 +183,7 @@ def runner_turn(trainer, state, turn: str, card: str, args) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        k_lbfgs.DeviceLBFGS.replay_until_done = replay
+        k_lbfgs.SolveLoop.launch = launch
     iters = [int(v) for v in torch.cat(iters).tolist()] if iters else []
     row = {"turn": turn, "card": card, "adam_epochs": args.adam, "outer": len(iters),
            "max_iters": args.max_iters, "wall_s": wall, "lbfgs_iters": iters,

@@ -6,7 +6,8 @@ both through the port's CLI, with the card's name and power limit.
         --out-dir runs/quality [--seed 1234] [--device cuda]
 
 prints one JSON line per stage (train, polish) with the CLI's summary, the
-wall time of the command, and for ``burgers_inverse`` the errors of the
+wall time of the command (the train stage's L-BFGS phase apart, from its
+metrics log: ``lbfgs_phase_s``), and for ``burgers_inverse`` the errors of the
 identified coefficients against the truth (lambda1 = 1, nu = 0.01/pi) in
 percent, then a last line with both stages side by side. The bars: u
 rel-L2 <= 1e-3 for burgers_forward, both coefficient errors < 1% for
@@ -126,6 +127,23 @@ def main(argv=None) -> int:
     return 0
 
 
+def _lbfgs_phase(log: str) -> dict:
+    """The train stage's L-BFGS phase from its metrics log: the seconds of
+    the log rows of phase lbfgs (each row's ``elapsed`` is the host time
+    since the row before, after a synchronize), the outer epochs they end
+    at and the last row's iterations; {} where the run has no such row."""
+    if not os.path.exists(log):
+        return {}
+    with open(log) as f:
+        rows = [json.loads(line) for line in f if '"summary"' not in line]
+    lb = [r for r in rows if r.get("phase") == "lbfgs"]
+    if not lb:
+        return {}
+    return {"lbfgs_phase_s": sum(r["elapsed"] for r in lb),
+            "lbfgs_rows": [{"epoch": r["epoch"], "elapsed_s": r["elapsed"],
+                            "lbfgs_iters": r["lbfgs_iters"], "loss": r["loss"]} for r in lb]}
+
+
 def _run_one(args) -> float:
     """The stages of one seed; returns u rel-L2 after the train stage."""
     card = _card()
@@ -149,7 +167,8 @@ def _run_one(args) -> float:
         epochs = ["--epochs", str(exp.optimizer.switch_epoch)]
     lines, wall = _cli(["train", "--preset", args.preset, *sets, *epochs, "--seed",
                         str(args.seed), "--out-dir", args.out_dir, "--device", args.device])
-    out["train"] = {"summary": json.loads(lines[-1]), "wall_s": wall}
+    out["train"] = {"summary": json.loads(lines[-1]), "wall_s": wall,
+                    **_lbfgs_phase(os.path.join(args.out_dir, f"{args.preset}_metrics.jsonl"))}
     report("train")
     if args.train_only:
         return out["train"]["summary"]["rel_l2_u"]

@@ -1454,6 +1454,7 @@ def test_euler_tail_runs_k10_on_card(cuda_device):  # noqa: F811
     torch.cuda.synchronize()
     after = (k_lbfgs.SOLVES, k_lbfgs.RESET_LAUNCHES, k_lbfgs.DIRECTION_LAUNCHES)
     assert after[0] == before[0] + 1 and after[1] == before[1] + 1 and after[2] > before[2]
+    assert step.solver.captured and step.solver.loop.loop is not None
     host = tr.make_lbfgs_step(trainer.problem, host_loop=True)
     assert host.solver is None
     _, hm = host(state)
@@ -1831,8 +1832,10 @@ def test_k10_direction_paths_equal_plain_on_card(cuda_device, n):  # noqa: F811
 def test_k10_solve_on_card(cuda_device):  # noqa: F811
     """DeviceLBFGS from the fixture's state: JAX's n_iters at 1, 2 and 5
     iterations with x within chip_smoke.py's phase-13 bound; two solves bit
-    for bit; the graphed solve equal to the same steps through the wrappers
-    one launch at a time; one device read a replay."""
+    for bit; the solve's one launch of its WHILE node equal to the same
+    steps through the wrappers one launch at a time (the stepwise drive) in
+    every buffer; one device read and at most k - 1 steps after the end a
+    solve."""
     from pinns_tpu_torch.ops.kernels import fused_step as k_fused
     from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
     from pinns_tpu_torch.opt import lbfgs as host_lbfgs
@@ -1845,9 +1848,11 @@ def test_k10_solve_on_card(cuda_device):  # noqa: F811
     x0_np = fx["x0"].astype(np.float64)
     assert np.array_equal(x0.cpu().numpy(), fx["x0"])
     for k in (1, 2, 5):
-        replays, syncs = k_lbfgs.GRAPH_REPLAYS, host_lbfgs.HOST_SYNCS
+        before = (k_lbfgs.LOOP_LAUNCHES, host_lbfgs.HOST_SYNCS, k_lbfgs.STEPS_AFTER_END)
         res = solver.minimize(x0, off, colloc, admm, 10.0, max_iters=k)
-        assert k_lbfgs.GRAPH_REPLAYS - replays == host_lbfgs.HOST_SYNCS - syncs >= 1
+        after = (k_lbfgs.LOOP_LAUNCHES, host_lbfgs.HOST_SYNCS, k_lbfgs.STEPS_AFTER_END)
+        assert after[0] - before[0] == after[1] - before[1] == 1
+        assert after[2] - before[2] < solver.steps
         want = fx[f"x_{k}"].astype(np.float64)
         err = float(np.abs(res.x.cpu().numpy() - want).max())
         bound = 1e-2 * float(np.abs(want - x0_np).max()) + 1e-6 * float(np.abs(want).max())
@@ -1869,6 +1874,41 @@ def test_k10_solve_on_card(cuda_device):  # noqa: F811
     k_lbfgs.reset(b, x0, max_iters=5)
     stepwise = k_lbfgs.run_steps(b, k3)
     assert torch.equal(stepwise.x, res.x) and stepwise.n_evals == res.n_evals
+    loop, count = solver.bufs, int(b.si[k_lbfgs.I_COUNT])
+    assert all(torch.equal(u, v) for u, v in zip((loop.si, loop.sf, loop.vec),
+                                                 (b.si, b.sf, b.vec)))
+    assert torch.equal(loop.hist[:, :count], b.hist[:, :count])
+    assert torch.equal(loop.rho[:count], b.rho[:count])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("steps", [1, 4, 16])
+def test_k10_loop_equals_the_stepwise_drive_on_card(cuda_device, steps, dtype):  # noqa: F811
+    """AutogradLBFGS's captured solve (one launch of its WHILE node, k steps
+    a body iteration) on a quartic valley equals the host-stepped drive over
+    the same kernels in every buffer; one launch and one read a solve, at
+    most k - 1 steps after its end, as the control kernel counts the steps
+    on the device."""
+    from pinns_tpu_torch.ops.kernels import lbfgs as k_lbfgs
+    from pinns_tpu_torch.opt import lbfgs as host_lbfgs
+
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.uniform(0.5, 5.0, 500)).to(cuda_device, dtype)
+    c = torch.from_numpy(rng.standard_normal(500)).to(cuda_device, dtype)
+    fun = lambda x: torch.sum(a * (x - c) ** 2 + 0.1 * (x - c) ** 4)  # noqa: E731
+    x0 = torch.zeros(500, dtype=dtype, device=cuda_device)
+    loop = k_lbfgs.AutogradLBFGS(steps=steps)
+    before = (k_lbfgs.LOOP_LAUNCHES, host_lbfgs.HOST_SYNCS, k_lbfgs.STEPS_AFTER_END)
+    got = loop.minimize(fun, x0, max_iters=40, history=8)
+    after = (k_lbfgs.LOOP_LAUNCHES, host_lbfgs.HOST_SYNCS, k_lbfgs.STEPS_AFTER_END)
+    assert after[0] - before[0] == after[1] - before[1] == 1
+    assert after[2] - before[2] <= steps - 1
+    assert int(loop.bufs.steps) == steps * -(-got.n_evals // steps)
+    host = k_lbfgs.AutogradLBFGS(captured=False, sync_every=1)
+    want = host.minimize(fun, x0, max_iters=40, history=8)
+    assert got.n_iters > 5 and (got.n_iters, got.n_evals) == (want.n_iters, want.n_evals)
+    assert int(host.bufs.steps) == want.n_evals
+    assert all(torch.equal(u, v) for u, v in zip(loop.bufs.tensors(), host.bufs.tensors()))
 
 
 def _k10_fixture_lockstep(cuda_device, m: int, steps: int, direction=None) -> dict:
@@ -2055,7 +2095,7 @@ def test_lbfgs_chunk_equals_one_epoch_chunks_on_card(cuda_device, fed):  # noqa:
     """K10's runner at the fixture's state (abgrall_admm 8x20, at most 20
     iterations an outer epoch): a chunk of 3 outer epochs equals 3 chunks
     of one bit for bit (x, batch, z, dual, every metrics row); every solve
-    and post-update replayed, one device read a solve replay, no K1 or K5
+    and post-update launched, one device read a chunk, no K1 or K5
     launch."""
     import dataclasses
 
@@ -2075,7 +2115,7 @@ def test_lbfgs_chunk_equals_one_epoch_chunks_on_card(cuda_device, fed):  # noqa:
                           epoch=5, rho=None)
     feed = torch.from_numpy(np.stack([numpy_points(colloc.shape[0], seed=s) for s in range(3)])
                             ).to(cuda_device) if fed else None
-    before = (k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES, k_lbfgs.GRAPH_REPLAYS,
+    before = (k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES, k_lbfgs.LOOP_LAUNCHES,
               host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES, k_mlp.LAUNCHES)
     got, gm = runner.run(state, 3, feed)
     one, rows = state, []
@@ -2083,10 +2123,11 @@ def test_lbfgs_chunk_equals_one_epoch_chunks_on_card(cuda_device, fed):  # noqa:
         one, m = runner.run(one, 1, None if feed is None else feed[i:i + 1])
         rows.append(m)
     torch.cuda.synchronize()
-    after = (k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES, k_lbfgs.GRAPH_REPLAYS,
+    after = (k_lbfgs.CHUNK_EPOCHS, k_fused.POST_UPDATE_LAUNCHES, k_lbfgs.LOOP_LAUNCHES,
              host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES, k_mlp.LAUNCHES)
     d = [a - b for a, b in zip(after, before)]
-    assert d[0] == d[1] == 6 and d[2] == d[3] > 0 and d[4] == d[5] == 0, d
+    # one loop launch an outer epoch, one device read a chunk (after it)
+    assert d[0] == d[1] == d[2] == 6 and d[3] == 4 and d[4] == d[5] == 0, d
     assert torch.equal(ravel_tree(got.params)[0], ravel_tree(one.params)[0])
     assert torch.equal(got.colloc, one.colloc) and torch.equal(got.admm.z, one.admm.z)
     assert torch.equal(got.admm.dual, one.admm.dual)
@@ -2339,8 +2380,7 @@ def test_polish_on_card(cuda_device, tmp_path):  # noqa: F811
              k_lbfgs.CONTROL_F64_LAUNCHES, host_lbfgs.HOST_SYNCS, k_taylor2.LAUNCHES,
              k_lbfgs.CONTROL_LAUNCHES)
     assert all(a > b for a, b in zip(after[:4], before[:4]))
-    steps = after[3] - before[3]
-    assert after[4] - before[4] == steps // k_lbfgs.STEPS_PER_REPLAY  # flag reads only
+    assert after[4] - before[4] == 1  # one launch of the solve's loop, one read
     assert after[6] == before[6]
     with open(ckpt + ".polished.ckpt.json") as fh:
         assert _json.load(fh) == {"polished": True}
@@ -2512,7 +2552,9 @@ def test_device_lbfgs_dp_at_one_rank_equals_the_solve(cuda_device):  # noqa: F81
     """K10's solve with K3's value-and-grad split into its data-parallel
     reduce and apply modes, at one rank (a shard with no process group):
     the same iterations, evaluations, x, f and g as the solve without a
-    shard, bit for bit, from abgrall_admm's state after 200 Adam epochs."""
+    shard, bit for bit, from abgrall_admm's state after 200 Adam epochs; the
+    sharded solve replays its 16-step graph (SolveReplay, by configuration),
+    the other is one launch of its WHILE node."""
     from pinns_tpu_torch.config import override
     from pinns_tpu_torch.experiments import get_preset
     from pinns_tpu_torch.ops.kernels import lbfgs as k10
@@ -2534,6 +2576,8 @@ def test_device_lbfgs_dp_at_one_rank_equals_the_solve(cuda_device):  # noqa: F81
     a, b = runs
     assert (a.n_iters, a.n_evals, a.converged) == (b.n_iters, b.n_evals, b.converged)
     assert torch.equal(a.x, b.x) and torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+    rho = float(np.float32(exp.loss.rho))
+    assert type(solo.loops[rho]) is k10.SolveLoop and type(dp.loops[rho]) is k10.SolveReplay
 
 
 def test_sweep_units_over_cards_equal_serial(cuda_device, tmp_path):  # noqa: F811

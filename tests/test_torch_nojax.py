@@ -109,3 +109,22 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(trainer, "load_burgers_mat", no_data)
     with pytest.raises(RuntimeError, match="is_available"):
         _entry_points(tmp_path)[entry]()
+
+
+CARD_SCRIPTS = ["chip_smoke.py", "scripts/lbfgs_loop_steps.py", "scripts/lbfgs_phase_wall.py",
+                "scripts/euler_tail_wall.py", "scripts/polish_quality_run.py",
+                "scripts/dp_smoke.py", "scripts/hybrid_wall.py", "scripts/autograd_lbfgs_wall.py"]
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
+def test_card_scripts_import_no_jax(script):
+    """The scripts that run on the card import neither jax nor the JAX
+    package, anywhere in their source (function-level imports included)."""
+    import ast
+
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "pinns_tpu")]
+    assert not bad, bad

@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and handed to both packages, since
 jax.random and torch generators give different numbers from one seed.
 """
 
+import contextlib
 import math
 import os
 
@@ -60,3 +61,27 @@ def cuda_device():
     from pinns_tpu_torch.device import resolve_device
 
     return resolve_device("cuda")
+
+
+HOST_READS = ("item", "cpu", "numpy", "tolist", "__bool__", "__float__", "__int__")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Inside, every Tensor method that reads a value to the host raises: a
+    host read inside an evaluation captured into a CUDA graph would bake the
+    first evaluation's value into the graph."""
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+
+    def refuse(name):
+        def read(self, *args, **kwargs):
+            raise AssertionError(f"a host read (Tensor.{name}) inside the evaluation")
+        return read
+
+    for name in HOST_READS:
+        setattr(torch.Tensor, name, refuse(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
